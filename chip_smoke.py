@@ -1,0 +1,407 @@
+#!/usr/bin/env python3
+"""Chip smoke run of the PyTorch / CUDA port on one NVIDIA GPU (an H100).
+
+    python3 chip_smoke.py
+
+Phases, each printed as it runs; any failure raises and exits non-zero:
+
+1. the card's name and power limit (nvidia-smi);
+2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one nvcc
+   per source, all started together);
+3. kernels: each kernel against its plain PyTorch version on the card, at
+   the serving path's shapes in bf16 and in fp32 with TF32 off, with a
+   length-0 decode row and ragged S; kernel, plain and library times;
+4. serve: qwen3-14b at full width (40 layers, bf16 params made on the card
+   from a seed) answers four clients through the port's InferenceServer;
+   the kernels' launch counts must rise by 40 per prefill (K1) and by 40
+   per decode step (K2), and the served tokens must equal greedy decoding;
+5. parity: at the reduced config, greedy tokens from the port on the card
+   equal the port on the CPU (the plain versions), in fp32.
+
+The line before the last is the kernels' JSON record; the last line is
+``{"ok": true, "device": {...}}``. Without CUDA, or run from a directory
+that does not hold the repository, it fails and prints no result.
+"""
+
+import json
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# H100 SXM published peaks (dense): bf16 tensor cores, fp32 CUDA cores, and
+# HBM3 bandwidth. Bounds are stated against these.
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_BYTES = 3.35e12
+
+ARCH = "qwen3-14b"
+CLIENTS, PROMPT_LEN, TOKENS, MAX_LEN = 4, 256, 16, 512
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def card_identity():
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return res.stdout.strip().splitlines()[0]
+
+
+def time_ms(name, fn, iters=20, warmup=3):
+    """Mean device time of one call, CUDA events around `iters` calls. A
+    sleeping kernel first holds the stream for about 50 ms, so that the
+    host queues every call before the first one runs: a call whose host
+    side is slower than its kernel would otherwise time the host."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)   # cycles, ~50 ms at the H100's 1.98 GHz
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    if start.query():   # the stream woke before the host had queued every call
+        log(f"   ({name} is host-limited: the host could not queue ahead, so "
+            "its time includes host gaps)")
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def max_err(a, b):
+    return float((a.float() - b.float()).abs().max())
+
+
+def check_close(name, got, want, tol):
+    """Elementwise |got - want| <= tol + tol * |want| (atol = rtol = tol, the
+    JAX package's kernel-test tolerances: fp32 2e-5, bf16 2e-2)."""
+    err = max_err(got, want)
+    g, w = got.float(), want.float()
+    ok = (got.shape == want.shape and got.dtype == want.dtype
+          and bool(torch.isfinite(g).all())
+          and bool(((g - w).abs() <= tol + tol * w.abs()).all()))
+    log(f"   {name}: max_abs_err {err:.3e} (atol = rtol = {tol:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version")
+    return err
+
+
+def kernel_phase():
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as K2
+    from repro_torch.kernels import flash_attention as K1
+    from repro_torch.kernels import ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tol = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+    rows = {}
+
+    def rand(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    # ---- K1 ----
+    log("== kernels: K1 flash attention (prefill)")
+    b, s, h, kh, d = CLIENTS, PROMPT_LEN, 40, 8, 128       # the serving path's call
+    cases = [((b, s, h, kh, d), torch.bfloat16, {}),
+             ((2, 200, 4, 2, 64), torch.float32, {"window": 64}),    # ragged S
+             ((2, 77, 4, 4, 64), torch.float32, {"softcap": 30.0}),
+             ((2, 24, 4, 2, 16), torch.float32, {})]                  # reduced config
+    main_err = None
+    for (cb, cs, ch, ckh, cd), dt, kw in cases:
+        q = rand(cb, cs, ch, cd, dtype=dt)
+        k, v = rand(cb, cs, ckh, cd, dtype=dt), rand(cb, cs, ckh, cd, dtype=dt)
+        got = K1.flash_attention(q, k, v, scale=cd ** -0.5, causal=True, **kw)
+        want = ops.flash_attention_plain(q, k, v, scale=cd ** -0.5, causal=True, **kw)
+        torch.cuda.synchronize()
+        err = check_close(f"K1 {(cb, cs, ch, ckh, cd)} {str(dt)[6:]} {kw}", got, want,
+                          tol[dt])
+        main_err = err if main_err is None else main_err
+    q = rand(b, s, h, d, dtype=torch.bfloat16)
+    k, v = rand(b, s, kh, d, dtype=torch.bfloat16), rand(b, s, kh, d, dtype=torch.bfloat16)
+    sc = d ** -0.5
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    ms = time_ms("K1", lambda: K1.flash_attention(q, k, v, scale=sc))
+    plain_ms = time_ms("K1 plain", lambda: ops.flash_attention_plain(q, k, v, scale=sc))
+    lib_ms = time_ms("K1 library", lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, scale=sc, enable_gqa=True))
+    esz = q.element_size()
+    flops = 4 * d * (s * (s + 1) // 2) * b * h             # causal pairs only
+    nbytes = (2 * b * s * h * d + 2 * b * s * kh * d) * esz
+    rows["flash_attention"] = dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:63",
+        max_abs_err=main_err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        **bound(flops, nbytes, "bfloat16"))
+    log(f"   K1 at ({b},{s},{h},{kh},{d}) bf16: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+        f"library_ms {lib_ms:.4f} (SDPA) bound_ms {rows['flash_attention']['bound_ms']:.4f} "
+        f"({rows['flash_attention']['bound_by']})")
+
+    # ---- K2 ----
+    log("== kernels: K2 decode attention")
+    S = MAX_LEN
+    cases = [((b, S, h, kh, d), torch.bfloat16, [0, 1, 263, S]),
+             ((3, 333, 8, 8, 64), torch.float32, [0, 5, 333]),          # ragged S, expanded
+             ((2, 64, 4, 2, 16), torch.float32, [0, 33])]               # reduced config
+    main_err = None
+    for (cb, cs, ch, ckh, cd), dt, lens in cases:
+        q = rand(cb, ch, cd, dtype=dt)
+        k, v = rand(cb, cs, ckh, cd, dtype=dt), rand(cb, cs, ckh, cd, dtype=dt)
+        ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+        got = K2.decode_attention(q, k, v, ln, scale=cd ** -0.5)
+        want = ops.decode_attention_plain(q, k, v, ln, scale=cd ** -0.5)
+        torch.cuda.synchronize()
+        err = check_close(f"K2 {(cb, cs, ch, ckh, cd)} {str(dt)[6:]} lengths {lens}",
+                          got, want, tol[dt])
+        main_err = err if main_err is None else main_err
+    # timing at the serving path's mid-run length, sixteen caches in rotation
+    # (69 MB of valid rows > the 50 MB L2): a decode step finds each layer's
+    # cache cold
+    n_valid = PROMPT_LEN + TOKENS // 2
+    q = rand(b, h, d, dtype=torch.bfloat16)
+    kvs = [(rand(b, S, kh, d, dtype=torch.bfloat16), rand(b, S, kh, d, dtype=torch.bfloat16))
+           for _ in range(16)]
+    ln = torch.full((b,), n_valid, dtype=torch.int32, device=dev)
+    mask = (torch.arange(S, device=dev) < n_valid).expand(b, 1, 1, S)
+    kvt = [(kk.transpose(1, 2).contiguous(), vv.transpose(1, 2).contiguous()) for kk, vv in kvs]
+
+    def rotating(fn, pairs):
+        it = [0]
+
+        def call():
+            kk, vv = pairs[it[0] % len(pairs)]
+            it[0] += 1
+            return fn(kk, vv)
+        return call
+    ms = time_ms("K2", rotating(
+        lambda kk, vv: K2.decode_attention(q, kk, vv, ln, scale=sc), kvs), iters=32)
+    plain_ms = time_ms("K2 plain", rotating(
+        lambda kk, vv: ops.decode_attention_plain(q, kk, vv, ln, scale=sc), kvs), iters=32)
+    lib_ms = time_ms("K2 library", rotating(lambda kk, vv: F.scaled_dot_product_attention(
+        q[:, :, None], kk, vv, attn_mask=mask, scale=sc, enable_gqa=True), kvt), iters=32)
+    esz = q.element_size()
+    nbytes = (2 * b * h * d + 2 * b * n_valid * kh * d) * esz + 4 * b
+    flops = 4 * b * h * n_valid * d
+    rows["decode_attention"] = dict(
+        name="decode_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:51",
+        max_abs_err=main_err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        **bound(flops, nbytes, "bfloat16"))
+    log(f"   K2 at ({b},{S},{h},{kh},{d}) bf16, length {n_valid}: kernel_ms {ms:.4f} "
+        f"plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} (SDPA) "
+        f"bound_ms {rows['decode_attention']['bound_ms']:.4f} "
+        f"({rows['decode_attention']['bound_by']})")
+    return rows
+
+
+def bound(flops, nbytes, dtype):
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def serve_phase():
+    from repro_torch.configs.base import param_count
+    from repro_torch.configs.registry import get_config, make_model
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_policy
+    from repro_torch.launch.serve import greedy_generate, make_prefill, make_serve_step
+
+    cfg = get_config(ARCH).with_(param_dtype="bfloat16", compute_dtype="bfloat16")
+    log(f"== serve: {cfg.name} d_model {cfg.d_model}, heads {cfg.num_heads}/"
+        f"{cfg.num_kv_heads}, head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, {cfg.num_layers} layers, {param_count(cfg) / 1e9:.2f} B params")
+    dev = torch.device("cuda")
+    bundle = make_model(cfg)
+    t0 = time.perf_counter()
+    params = bundle.init(0, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in params.parameters())
+    log(f"   params: {n} ({n * 2 / 1e9:.2f} GB bf16) built on the card in "
+        f"{time.perf_counter() - t0:.1f} s; allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+
+    # warm-up at the main path's shapes (cuBLAS handles and heuristics, the
+    # caching allocator); its launches are not counted
+    prompts = torch.randint(0, cfg.vocab_size, (CLIENTS, PROMPT_LEN), device=dev)
+    prefill = make_prefill(bundle, MAX_LEN, torch.bfloat16)
+    step = make_serve_step(bundle)
+    t0 = time.perf_counter()
+    tok, cache = prefill(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    step(params, tok, cache)
+    del tok, cache
+    torch.cuda.synchronize()
+    log(f"   warm-up: first prefill {cold_ms:.2f} ms (cold)")
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = serve_policy.serve(cfg, clients=CLIENTS, prompt_len=PROMPT_LEN, tokens=TOKENS,
+                             max_len=MAX_LEN, device=dev, params=params,
+                             deadline_ms=1000.0)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    st = out["stats"]
+    steps = st["batches"]
+    log(f"   launches: {counts}; decode steps (batches) {steps}, occupancy "
+        f"{st['batch_occupancy'] / max(steps, 1):.2f}")
+    want = {"flash_attention": cfg.num_layers, "decode_attention": cfg.num_layers * steps}
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != expected {want}")
+    total = CLIENTS * TOKENS
+    log(f"   prefill_ms {out['prefill_s'] * 1e3:.2f} ({CLIENTS}x{PROMPT_LEN} tokens); "
+        f"decode {out['decode_s'] * 1e3 / steps:.2f} ms/step wall, "
+        f"{st['compute_s'] * 1e3 / steps:.2f} ms/step in policy_step; "
+        f"{total / out['decode_s']:.1f} tok/s; peak memory {peak / 1e9:.2f} GB")
+    for cid, toks in out["tokens"].items():
+        if len(toks) != TOKENS or not all(0 <= t < cfg.vocab_size for t in toks):
+            raise AssertionError(f"client {cid} got {toks}")
+    if steps != TOKENS:
+        raise AssertionError(f"{steps} decode steps for {TOKENS} tokens: a batch "
+                             f"missed a client")
+    greedy = greedy_generate(bundle, params, {"tokens": torch.as_tensor(
+        out["prompts"], device=dev)}, steps=TOKENS + 1, max_len=MAX_LEN,
+        dtype=torch.bfloat16).cpu()
+    for cid in range(CLIENTS):
+        if [out["first"][cid]] + out["tokens"][cid] != greedy[cid].tolist():
+            raise AssertionError(f"client {cid}: served tokens differ from greedy")
+    log(f"   served tokens equal greedy decoding; client 0: {out['tokens'][0][:8]}...")
+
+    # where the device time goes: one profiled prefill and three decode steps
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        tok, cache = prefill(params, {"tokens": prompts})
+        torch.cuda.synchronize()
+    pre, pre_ops = device_breakdown(prof, 1)
+    with profile(activities=acts) as prof:
+        for _ in range(3):
+            tok, cache = step(params, tok, cache)
+        torch.cuda.synchronize()
+    dec, dec_ops = device_breakdown(prof, 3)
+    wall_step = out["decode_s"] * 1e3 / steps
+    log(f"   device time per prefill (ms): {json.dumps(pre)}")
+    log(f"   device time per decode step (ms): {json.dumps(dec)}; device idle share "
+        f"{1 - dec['busy'] / wall_step:.3f} of the {wall_step:.2f} ms wall step")
+    log(f"   device operations (kernels, copies, fills) per decode step {dec_ops:.0f} "
+        f"({dec_ops / cfg.num_layers:.1f} per layer), per prefill {pre_ops:.0f}")
+    return counts, {"prefill_ms": out["prefill_s"] * 1e3, "prefill_cold_ms": cold_ms,
+                    "decode_ms_per_step": wall_step,
+                    "policy_step_ms": st["compute_s"] * 1e3 / steps,
+                    "tok_per_s": total / out["decode_s"], "peak_gb": peak / 1e9,
+                    "prefill_device_ms": pre, "decode_device_ms_per_step": dec,
+                    "decode_idle_share": 1 - dec["busy"] / wall_step,
+                    "prefill_device_ops": pre_ops, "decode_device_ops_per_step": dec_ops}
+
+
+def device_breakdown(prof, n):
+    """Kernel time per call from a profiler trace, grouped: the two port
+    kernels, GEMMs (cuBLAS / CUTLASS), and everything else; and the number
+    of device kernels per call."""
+    groups = {"busy": 0.0, "K1": 0.0, "K2": 0.0, "gemm": 0.0, "other": 0.0}
+    kernels = 0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        kernels += 1
+        us = e.time_range.elapsed_us()
+        name = e.name.lower()
+        if "flash_kernel" in name:
+            g = "K1"
+        elif "decode_kernel" in name:
+            g = "K2"
+        elif any(t in name for t in ("gemm", "gemv", "cutlass", "nvjet", "xmma", "cublas")):
+            g = "gemm"
+        else:
+            g = "other"
+        groups[g] += us / 1e3 / n
+        groups["busy"] += us / 1e3 / n
+    if groups["busy"] <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    return groups, kernels / n
+
+
+def parity_phase():
+    from repro_torch.configs.registry import make_model, smoke_config
+    from repro_torch.launch.serve import greedy_generate
+
+    log("== parity: reduced config, card vs CPU, fp32, TF32 off")
+    cfg = smoke_config(ARCH)
+    bundle = make_model(cfg)
+    cpu = bundle.init(0, device="cpu", dtype=torch.float32)
+    gpu = bundle.init(0, device="cuda", dtype=torch.float32)
+    gpu.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 24), generator=gen)
+    o_cpu, _ = bundle.prefill(cpu, {"tokens": tokens}, max_len=64, dtype=torch.float32)
+    o_gpu, _ = bundle.prefill(gpu, {"tokens": tokens.cuda()}, max_len=64, dtype=torch.float32)
+    err = max_err(o_gpu.logits.cpu(), o_cpu.logits)
+    if not (torch.isfinite(o_gpu.logits).all() and err < 1e-4):
+        raise AssertionError(f"prefill logits differ by {err}")
+    t_cpu = greedy_generate(bundle, cpu, {"tokens": tokens}, 12, 64, torch.float32)
+    t_gpu = greedy_generate(bundle, gpu, {"tokens": tokens.cuda()}, 12, 64, torch.float32)
+    if not torch.equal(t_gpu.cpu(), t_cpu):
+        raise AssertionError(f"greedy tokens differ:\n{t_gpu.cpu()}\n{t_cpu}")
+    log(f"   prefill logits max_abs_err {err:.3e} (< 1e-4); 12 greedy tokens equal: "
+        f"{t_cpu[0].tolist()}")
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this run needs "
+              "an NVIDIA GPU", file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: no port sources under {SRC}; run it from the "
+              "repository's root", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    t_start = time.perf_counter()
+
+    card = card_identity()
+    log(f"card: {card}")
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}")
+
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    reports = build.build()
+    log(f"== build: {', '.join(build.KERNELS)} in {time.perf_counter() - t0:.1f} s")
+    for name, rep in reports.items():
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers", rep)]
+        spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", rep) if int(x)]
+        log(f"   {name}: {len(regs)} instantiations, {min(regs)}-{max(regs)} registers "
+            f"a thread, {len(spills)} with spills ({sum(spills)} bytes)")
+
+    rows = kernel_phase()
+    counts, serve_metrics = serve_phase()
+    parity_phase()
+
+    for name, row in rows.items():
+        row["launches"] = counts[name]
+    log(f"serve: {json.dumps(serve_metrics)}")
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(card)
+    print(json.dumps({"kernels": list(rows.values())}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,46 @@
+"""--arch <id> resolution for the architectures the port supports so far.
+
+Mirrors ``repro.configs.registry``; an arch joins ``_MODULES`` with the
+slice that ports its family.
+"""
+
+import importlib
+
+_MODULES = {
+    "qwen3-14b": "repro_torch.configs.qwen3_14b",
+}
+
+ARCHS = tuple(_MODULES)
+
+
+def list_archs():
+    return ARCHS
+
+
+def get_config(arch: str):
+    if arch not in _MODULES:
+        raise KeyError(f"{arch!r} is not ported yet; the port supports {ARCHS}")
+    mod = importlib.import_module(_MODULES[arch])
+    return mod.CONFIG
+
+
+def make_model(cfg):
+    """Build the ModelBundle for a config (dispatch on family)."""
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    from repro_torch.models.lm import make_lm
+    return make_lm(cfg)
+
+
+def smoke_config(arch: str):
+    """A reduced config of the same family for CPU smoke tests."""
+    cfg = get_config(arch)
+    small = dict(num_layers=4, d_model=64, d_ff=128, vocab_size=277,
+                 max_position=256)
+    if cfg.num_heads:
+        small.update(num_heads=4, num_kv_heads=min(cfg.num_kv_heads, 2),
+                     head_dim=16)
+    if cfg.attn_pattern != ("global",):
+        small.update(num_layers=len(cfg.attn_pattern) * 2, local_window=32)
+    return cfg.with_(**small, remat="none", fsdp="none", tp=1,
+                     grad_accum=1, optimizer_dtype="float32")

@@ -1,0 +1,40 @@
+"""Plain PyTorch versions of the attention kernels (the allclose ground truth).
+
+Mirrors ``repro.kernels.ref``: every product is taken in fp32 after a cast,
+as the TPU kernels do. On the card these are the yardsticks the CUDA
+kernels are held to; on the CPU they are what the kernel wrappers run.
+"""
+
+import torch
+
+NEG_INF = -1e30
+
+
+def attention_ref(q, k, v, *, scale=None, causal=True, window=0, softcap=None):
+    """q,k,v (BH, S, D). Mirrors kernels.flash_attention.flash_attention."""
+    bh, s, d = q.shape
+    scale = scale if scale is not None else d ** -0.5
+    logits = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    if softcap:
+        logits = softcap * torch.tanh(logits / softcap)
+    rows = torch.arange(s, device=q.device)[:, None]
+    cols = torch.arange(s, device=q.device)[None, :]
+    ok = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= cols <= rows
+    if window:
+        ok &= (rows - cols) < window
+    logits = torch.where(ok, logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", w, v.float()).to(q.dtype)
+
+
+def decode_attention_ref(q, k, v, lengths, *, scale=None):
+    """q (B,H,D); k,v (B,S,H,D); lengths (B,) valid prefix lengths."""
+    b, s, h, d = k.shape
+    scale = scale if scale is not None else d ** -0.5
+    logits = torch.einsum("bhd,bshd->bhs", q.float(), k.float()) * scale
+    ok = torch.arange(s, device=q.device)[None, None, :] < lengths[:, None, None]
+    logits = torch.where(ok, logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhs,bshd->bhd", w, v.float()).to(q.dtype)

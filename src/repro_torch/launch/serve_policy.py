@@ -1,0 +1,149 @@
+"""Central-inference serving at LM scale (SEED's design applied to an LLM
+policy): batched prefill, then N clients decode token by token through the
+``InferenceServer``, which batches their requests into one decode step.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve_policy --arch qwen3-14b
+
+runs the reduced config (``smoke_config``) on the card; ``--device cpu``
+runs the plain PyTorch path. ``chip_smoke.py`` serves the published widths
+in bf16 by calling ``serve`` directly.
+
+Every client gets its own seeded prompt. The server hands out slots in
+first-sight order, so the slots are claimed for clients 0..N-1 before the
+prefill, and prompt row `slot_ids(cid)` is client cid's. A decode step
+advances every row of the shared cache (one index for the batch, as in the
+JAX serve step); rows whose client was not in the batch are fed the token
+they last produced.
+"""
+
+import argparse
+import json
+import queue
+import threading
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs.registry import make_model, smoke_config
+from repro_torch.core.inference import InferenceServer, ReplyError
+from repro_torch.device import dtype_of, resolve
+from repro_torch.launch.serve import make_prefill, make_serve_step
+
+REPLY_TIMEOUT_S = 300.0   # a client gives up on a reply after this long
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def serve(cfg, *, clients=4, prompt_len=8, tokens=12, max_len=64,
+          device="cuda", seed=0, deadline_ms=10.0, params=None):
+    """Prefill `clients` seeded prompts, then decode `tokens` tokens per
+    client through the InferenceServer. Params (made from `seed` unless
+    given) and the KV cache take `cfg.compute_dtype`. Returns a dict of the
+    tokens each client received, the first tokens from prefill, the
+    prompts, the server's stats and host-clock times (prefill_s, decode_s)
+    that end in a device sync."""
+    dev = resolve(device)
+    dt = dtype_of(cfg.compute_dtype)
+    if prompt_len + clients * tokens > max_len:
+        # a decode step may serve only part of the clients, so up to
+        # clients * tokens steps can run; each writes one cache slot
+        raise ValueError(f"max_len {max_len} < prompt_len {prompt_len} + "
+                         f"clients*tokens {clients * tokens}")
+    bundle = make_model(cfg)
+    if params is None:
+        params = bundle.init(seed, device=dev, dtype=dt)
+    prefill = make_prefill(bundle, max_len=max_len, dtype=dt)
+    sstep = make_serve_step(bundle)
+
+    state = {}
+
+    def policy_step(obs, ids):
+        # one replica, so one caller at a time
+        ids_t = torch.as_tensor(ids, device=dev).long()
+        t = state["tok"].clone()
+        t[ids_t, 0] = torch.as_tensor(obs[:, 0], device=dev).to(t.dtype)
+        state["tok"], state["cache"] = sstep(params, t, state["cache"])
+        return state["tok"][ids_t, 0].cpu().numpy()   # syncs the device
+
+    server = InferenceServer(policy_step, max_batch=clients,
+                             deadline_ms=deadline_ms)
+    slots = [int(server.slot_ids(cid, 1)[0]) for cid in range(clients)]
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(0, cfg.vocab_size, (clients, prompt_len), dtype=np.int64)
+    rows = np.empty_like(prompts)
+    rows[slots] = prompts
+
+    t0 = time.perf_counter()
+    tok, cache = prefill(params, {"tokens": torch.as_tensor(rows, device=dev)})
+    _sync(dev)
+    prefill_s = time.perf_counter() - t0
+    state.update(tok=tok, cache=cache)
+    first = tok[:, 0].cpu().numpy()
+
+    results = {cid: [] for cid in range(clients)}
+    errors = []
+
+    def client(cid):
+        last = int(first[slots[cid]])
+        for _ in range(tokens):
+            try:
+                reply = server.submit(cid, np.array([last], np.int32)).get(
+                    timeout=REPLY_TIMEOUT_S)
+            except queue.Empty:
+                errors.append(f"client {cid}: no reply in {REPLY_TIMEOUT_S} s")
+                return
+            if isinstance(reply, ReplyError):
+                errors.append(reply.message)
+                return
+            last = int(reply)
+            results[cid].append(last)
+
+    server.start()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    _sync(dev)
+    decode_s = time.perf_counter() - t0
+    server.stop()
+    if errors or server.error:
+        raise RuntimeError(f"serving failed: {server.error or errors[0]}")
+    return {"tokens": results, "first": {c: int(first[s]) for c, s in enumerate(slots)},
+            "prompts": prompts, "stats": server.stats, "prefill_s": prefill_s,
+            "decode_s": decode_s, "device": str(dev)}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="qwen3-14b")
+    ap.add_argument("--clients", type=int, default=4)
+    ap.add_argument("--tokens", type=int, default=12)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    cfg, prompt_len = smoke_config(args.arch), 8
+    out = serve(cfg, clients=args.clients, prompt_len=prompt_len,
+                tokens=args.tokens,
+                max_len=prompt_len + args.clients * args.tokens,
+                device=args.device)
+    total = args.clients * args.tokens
+    st = out["stats"]
+    print(f"== {cfg.name} (reduced, {cfg.compute_dtype}, {out['device']}): "
+          f"{total} tokens for "
+          f"{args.clients} clients in {out['decode_s']:.3f}s "
+          f"({total / out['decode_s']:.1f} tok/s), prefill {out['prefill_s']:.3f}s")
+    print(f"   batches={st['batches']} occupancy="
+          f"{st['batch_occupancy'] / max(st['batches'], 1):.2f}")
+    for cid, toks in out["tokens"].items():
+        print(f"   client {cid}: {toks[:8]}...")
+    print(json.dumps({"ok": True}))
+
+
+if __name__ == "__main__":
+    main()

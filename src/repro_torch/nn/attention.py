@@ -1,0 +1,147 @@
+"""Multi-head attention with GQA, qk-norm and a KV cache — global kind.
+
+Mirrors ``repro.nn.attention``. Prefill goes through ``ops.flash_attention``
+(K1) and one-token decode through ``ops.decode_attention`` (K2); on the card
+both are the hand-written CUDA kernels, on the CPU their plain versions.
+Both read the unexpanded GQA cache, so no head-expanded copy is built.
+Local (sliding-window) layers and softcaps come with the gemma2 slice;
+``models.lm.check_supported`` refuses configs that use them.
+
+The cache is updated in place (the JAX serve step donates it, so the
+memory behaviour is the same); each call also returns the cache it wrote.
+"""
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.kernels import ops
+from repro_torch.nn import init as inits
+from repro_torch.nn.norms import Norm, apply_norm
+from repro_torch.nn.rope import apply_rope
+
+
+class Attention(nn.Module):
+    """wq (d,H,hd), wk/wv (d,K,hd), wo (H,hd,d), qk-norm scales: the JAX
+    package's layout. (qkv biases and padded heads come with the slices
+    whose configs use them.)"""
+
+    def __init__(self, cfg, *, gen=None, dtype=torch.float32, device="cpu"):
+        super().__init__()
+        d, h, k, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+        def mk(shape, init):
+            return nn.Parameter(init(gen, shape, dtype, device), requires_grad=False)
+        self.wq = mk((d, h, hd), inits.fan_in())
+        self.wk = mk((d, k, hd), inits.fan_in())
+        self.wv = mk((d, k, hd), inits.fan_in())
+        self.wo = mk((h, hd, d), inits.fan_in(in_axes=(0, 1)))
+        kw = dict(gen=gen, dtype=dtype, device=device)
+        self.q_norm = Norm(hd, **kw) if cfg.qk_norm else None
+        self.k_norm = Norm(hd, **kw) if cfg.qk_norm else None
+
+
+def _check_kind(kind):
+    if kind != "global":
+        raise NotImplementedError(
+            f"attention kind {kind!r} is not ported yet; local (sliding-window) "
+            "layers come with the gemma2 slice")
+
+
+def _proj(x, w):
+    """x (B,S,d) @ w (d,N,hd) -> (B,S,N,hd), contiguous."""
+    b, s, _ = x.shape
+    return (x @ w.to(x.dtype).reshape(w.shape[0], -1)).view(b, s, w.shape[1], w.shape[2])
+
+
+def _out_proj(out, wo):
+    """out (B,S,H,hd) @ wo (H,hd,d) -> (B,S,d)."""
+    b, s = out.shape[:2]
+    return out.reshape(b, s, -1) @ wo.to(out.dtype).reshape(-1, wo.shape[-1])
+
+
+def qkv_project(cfg, p, x):
+    """x (B,S,d) -> q (B,S,H,hd), k,v (B,S,K,hd), with rope NOT yet applied.
+    qk-norm comes before rope, as in the JAX package."""
+    q, k, v = _proj(x, p.wq), _proj(x, p.wk), _proj(x, p.wv)
+    if p.q_norm is not None:
+        q = apply_norm(p.q_norm, q, cfg.norm_eps)
+        k = apply_norm(p.k_norm, k, cfg.norm_eps)
+    return q, k, v
+
+
+def attention(cfg, p, x, positions, *, kind="global",
+              cache: Optional[dict] = None):
+    """Prefill attention over a full causal sequence.
+
+    Returns (out (B,S,d), the filled cache entry or None). If `cache` is
+    given, the rope-rotated k and raw v are written into it.
+    """
+    _check_kind(kind)
+    scale = cfg.attn_scale or cfg.head_dim ** -0.5
+    q, k, v = qkv_project(cfg, p, x)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                              causal=True, window=0, softcap=None, scale=scale)
+    y = _out_proj(out, p.wo)
+    new_cache = None
+    if cache is not None:
+        new_cache = _prefill_cache(cache, k, v, positions)
+    return y, new_cache
+
+
+# ------------------------------ KV cache ---------------------------------
+
+def make_cache(cfg, batch, max_len, kind="global", dtype=torch.bfloat16,
+               device="cuda"):
+    """Cache entry for one attention layer."""
+    _check_kind(kind)
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "pos": torch.full((max_len,), -1, dtype=torch.int32, device=device),
+    }
+
+
+def _prefill_cache(cache, k, v, positions):
+    slot = positions.long()
+    cache["k"][:, slot] = k.to(cache["k"].dtype)
+    cache["v"][:, slot] = v.to(cache["v"].dtype)
+    cache["pos"][slot] = positions.to(torch.int32)
+    return cache
+
+
+def decode_attention(cfg, p, x, index, cache, *, kind="global"):
+    """One-token decode step.
+
+    x: (B, 1, d); index: 0-d int tensor on x's device (the current position,
+    uniform across the batch); cache: dict from make_cache. Returns
+    (y (B,1,d), cache).
+    """
+    _check_kind(kind)
+    b = x.shape[0]
+    scale = cfg.attn_scale or cfg.head_dim ** -0.5
+    pos = index.reshape(1)
+    q, k, v = qkv_project(cfg, p, x)
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+
+    ck, cv = cache["k"], cache["v"]
+    slot = pos.long()
+    ck.index_copy_(1, slot, k.to(ck.dtype))
+    cv.index_copy_(1, slot, v.to(cv.dtype))
+    cache["pos"].index_copy_(0, slot, pos.to(torch.int32))
+
+    # The JAX decode masks by the cache's `pos` array; the kernel masks by a
+    # valid length per row. They agree because a global cache is filled
+    # contiguously from slot 0: after this write, slots 0..index hold
+    # positions 0..index and the rest are empty, so length = index + 1.
+    lengths = (pos + 1).to(torch.int32).expand(b).contiguous()
+    # The kernel reads one dtype, so q is rounded to the cache's dtype (a
+    # no-op when compute and cache dtypes agree, as on the serving path).
+    out = ops.decode_attention(q[:, 0].to(ck.dtype).contiguous(), ck, cv,
+                               lengths, scale=scale)[:, None]
+    return _out_proj(out, p.wo), cache

@@ -1,0 +1,34 @@
+"""Token embedding table (vocab padded to the TP degree) + logits head.
+(The gemma-style embedding scale, tied embeddings and the final softcap of
+``repro.nn.embed`` come with the gemma2 slice.)"""
+
+import torch
+from torch import nn
+
+from repro_torch.device import dtype_of
+from repro_torch.nn import init as inits
+
+
+class Embed(nn.Module):
+    """`table` (padded_vocab, d) and `unembed` (d, padded_vocab): the JAX
+    package's layout."""
+
+    def __init__(self, cfg, *, gen=None, dtype=torch.float32, device="cpu"):
+        super().__init__()
+        v, d = cfg.padded_vocab, cfg.d_model
+        self.table = nn.Parameter(inits.normal(1.0)(gen, (v, d), dtype, device),
+                                  requires_grad=False)
+        self.unembed = nn.Parameter(inits.fan_in()(gen, (d, v), dtype, device),
+                                    requires_grad=False)
+
+
+def embed(cfg, p, tokens):
+    return p.table[tokens].to(dtype_of(cfg.compute_dtype))
+
+
+def unembed(cfg, p, x):
+    """x (B,S,d) -> fp32 logits (B,S,padded_vocab); padded ids masked to -1e30."""
+    logits = (x @ p.unembed.to(x.dtype)).float()
+    if cfg.padded_vocab != cfg.vocab_size:
+        logits[..., cfg.vocab_size:] = -1e30
+    return logits

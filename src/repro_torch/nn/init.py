@@ -1,0 +1,56 @@
+"""Weight initializers: functions of (generator, shape, dtype, device).
+
+Mirrors ``repro.nn.init``. Samples are drawn in fp32 in chunks of at most
+``CHUNK`` elements and written into a tensor of the target dtype, so a
+bf16 model is built without ever holding an fp32 copy of a whole
+parameter set. JAX keys and torch generators give different numbers from
+the same seed; parity tests convert JAX params instead (``convert.py``).
+"""
+
+import math
+
+import torch
+
+CHUNK = 1 << 26
+
+
+def _fill(shape, dtype, device, sample):
+    out = torch.empty(shape, dtype=dtype, device=device)
+    flat = out.view(-1)
+    for i in range(0, flat.numel(), CHUNK):
+        n = min(CHUNK, flat.numel() - i)
+        flat[i:i + n].copy_(sample(n))
+    return out
+
+
+def normal(stddev=0.02):
+    def init(gen, shape, dtype, device):
+        return _fill(shape, dtype, device, lambda n: torch.randn(
+            n, generator=gen, device=device) * stddev)
+    return init
+
+
+def fan_in(scale=1.0, in_axes=None):
+    """Truncated normal on [-2, 2], scaled by 1/sqrt(fan_in).
+
+    in_axes: which axes of `shape` constitute fan-in (default: all but last).
+    """
+    def init(gen, shape, dtype, device):
+        axes = in_axes if in_axes is not None else tuple(range(len(shape) - 1))
+        fan = math.prod(shape[a] for a in axes) or 1
+        std = scale / math.sqrt(fan)
+
+        def sample(n):
+            t = torch.empty(n, device=device)
+            return torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
+                                               generator=gen).mul_(std)
+        return _fill(shape, dtype, device, sample)
+    return init
+
+
+def zeros(gen, shape, dtype, device):
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def ones(gen, shape, dtype, device):
+    return torch.ones(shape, dtype=dtype, device=device)

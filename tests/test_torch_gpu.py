@@ -1,0 +1,80 @@
+"""The port's CUDA kernels and model on the card, against their plain
+PyTorch versions. Marked `gpu`; they skip where there is no CUDA device.
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+Tolerances are those of tests/test_kernels.py (fp32 2e-5, bf16 2e-2), with
+TF32 off so that the fp32 plain versions take full fp32 products.
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs.registry import make_model, smoke_config  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.launch.serve import greedy_generate  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (and nvcc to build the kernels)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rand(gen, shape, dtype, dev):
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+@pytest.mark.parametrize("s,d,dtype", [(128, 64, torch.float32),
+                                       (256, 128, torch.float32),
+                                       (128, 64, torch.bfloat16),
+                                       (77, 16, torch.float32)])
+@pytest.mark.parametrize("window,softcap,kv_heads", [(0, None, 2), (64, None, 1),
+                                                     (0, 30.0, 2)])
+def test_flash_attention_kernel(cuda, s, d, dtype, window, softcap, kv_heads):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    b, h = 2, 2
+    q = _rand(gen, (b, s, h, d), dtype, cuda)
+    k, v = (_rand(gen, (b, s, kv_heads, d), dtype, cuda) for _ in range(2))
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, window=window, softcap=softcap)
+    want = ops.flash_attention_plain(q, k, v, window=window, softcap=softcap)
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    torch.testing.assert_close(got, want, atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("s,dtype,kv_heads", [(256, torch.float32, 4),
+                                              (512, torch.bfloat16, 4),
+                                              (333, torch.float32, 1),
+                                              (512, torch.bfloat16, 2)])
+def test_decode_attention_kernel(cuda, s, dtype, kv_heads):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    b, h, d = 4, 4, 64
+    q = _rand(gen, (b, h, d), dtype, cuda)
+    k, v = (_rand(gen, (b, s, kv_heads, d), dtype, cuda) for _ in range(2))
+    lens = torch.tensor([0, s // 4, s // 2, s], dtype=torch.int32, device=cuda)
+    got = ops.decode_attention(q, k, v, lens)
+    want = ops.decode_attention_plain(q, k, v, lens)
+    torch.testing.assert_close(got, want, atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def test_lm_on_card_matches_cpu(cuda):
+    cfg = smoke_config("qwen3-14b")
+    bundle = make_model(cfg)
+    cpu = bundle.init(0, device="cpu")
+    gpu = bundle.init(0, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    tokens = torch.randint(0, cfg.vocab_size, (2, 24), generator=torch.Generator().manual_seed(1))
+    want = greedy_generate(bundle, cpu, {"tokens": tokens}, 10, 64, torch.float32)
+    ops.reset_launch_counts()
+    got = greedy_generate(bundle, gpu, {"tokens": tokens.to(cuda)}, 10, 64, torch.float32)
+    assert ops.launch_counts() == {"flash_attention": cfg.num_layers,
+                                   "decode_attention": cfg.num_layers * 9}
+    torch.testing.assert_close(got.cpu(), want)

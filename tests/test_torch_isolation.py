@@ -1,0 +1,56 @@
+"""The port imports torch and never jax, and nothing of the JAX package."""
+
+import ast
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+PKG = SRC / "repro_torch"
+
+
+def _modules():
+    names = ["repro_torch"]
+    for info in pkgutil.walk_packages([str(PKG)], prefix="repro_torch."):
+        names.append(info.name)
+    return names
+
+
+def test_importing_every_module_loads_no_jax():
+    mods = _modules()
+    assert {"repro_torch.kernels.ops", "repro_torch.launch.serve_policy",
+            "repro_torch.core.inference", "repro_torch.convert"} <= set(mods)
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.') or m == 'triton')\n"
+        "print(len(sys.modules)); assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=SRC,
+                         capture_output=True, text=True, timeout=120,
+                         env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"})
+    assert res.returncode == 0, res.stderr
+
+
+def test_no_source_names_jax_or_repro():
+    """Static check over every source file, including code behind a
+    function-level import that the subprocess test does not reach."""
+    bad = []
+    for path in PKG.rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            for n in names:
+                root = n.split(".")[0]
+                if root in ("jax", "jaxlib", "repro", "flax", "optax"):
+                    bad.append(f"{path.relative_to(SRC)}: {n}")
+    assert not bad, bad

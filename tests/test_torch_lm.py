@@ -1,0 +1,157 @@
+"""The port's dense LM against the JAX package at smoke_config("qwen3-14b"),
+on params converted by ``params_from_jax``, in fp32 on the CPU.
+
+Tolerance 1e-4 (absolute and relative): both sides compute in fp32, so
+what differs is the order of summation in the products (XLA's dots against
+PyTorch's BLAS) and the masking constants (-2e38 additive in the JAX model,
+-1e30 in the kernels' plain versions), which give the same zero weight to
+every masked key. Over four layers that stays near 1e-6; 1e-4 leaves room
+without hiding a wrong mask, rope or norm, which each move logits by 1e-2
+or more.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs.registry import make_model as jmake_model  # noqa: E402
+from repro.configs.registry import smoke_config as jsmoke_config  # noqa: E402
+from repro.launch.serve import greedy_generate as jgreedy  # noqa: E402
+from repro_torch.configs.registry import make_model, smoke_config  # noqa: E402
+from repro_torch.convert import params_from_jax  # noqa: E402
+from repro_torch.launch.serve import greedy_generate  # noqa: E402
+
+TOL = 1e-4
+ARCH = "qwen3-14b"
+B, S, MAX_LEN = 2, 12, 32
+
+
+@pytest.fixture(scope="module")
+def models():
+    jcfg, cfg = jsmoke_config(ARCH), smoke_config(ARCH)
+    assert cfg == cfg.with_(**{f: getattr(jcfg, f) for f in jcfg.__dataclass_fields__})
+    jbundle = jmake_model(jcfg)
+    jparams = jbundle.init(jax.random.PRNGKey(0))
+    bundle = make_model(cfg)
+    params = bundle.init(0, device="cpu")
+    params.load_state_dict(params_from_jax(cfg, jax.tree.map(np.asarray, jparams)))
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, S))
+    return jbundle, jparams, bundle, params, tokens
+
+
+def _close(t, j):
+    np.testing.assert_allclose(t.detach().float().numpy(), np.asarray(j, np.float32),
+                               atol=TOL, rtol=TOL)
+
+
+def test_convert_covers_every_param(models):
+    _, jparams, _, params, _ = models
+    n_jax = sum(a.size for a in jax.tree.leaves(jparams))
+    assert sum(p.numel() for p in params.parameters()) == n_jax
+    sd = params_from_jax(params_cfg := smoke_config(ARCH),
+                         jax.tree.map(np.asarray, jparams))
+    assert set(sd) == set(params.state_dict())
+    assert len(params.blocks) == params_cfg.num_layers
+
+
+def test_forward_logits_and_value(models):
+    jbundle, jparams, bundle, params, tokens = models
+    want = jbundle.forward(jparams, {"tokens": jnp.asarray(tokens, jnp.int32)})
+    got = bundle.forward(params, {"tokens": torch.from_numpy(tokens)})
+    assert got.logits.shape == (B, S, 277) and got.logits.dtype == torch.float32
+    _close(got.logits, want.logits)
+    _close(got.value, want.value)
+
+
+def _jcache(jc):
+    main = jc["main"][0]
+    return {k: np.asarray(main[k]) for k in ("k", "v", "pos")}, int(jc["index"])
+
+
+def _tcache(tc):
+    layers = tc["layers"]
+    stacked = {k: torch.stack([c[k] for c in layers]) for k in ("k", "v")}
+    # the JAX cache stacks `pos` per layer too
+    stacked["pos"] = torch.stack([c["pos"] for c in layers])
+    return stacked, int(tc["index"])
+
+
+def test_prefill_then_three_decode_steps(models):
+    jbundle, jparams, bundle, params, tokens = models
+    jout, jc = jbundle.prefill(jparams, {"tokens": jnp.asarray(tokens, jnp.int32)},
+                               max_len=MAX_LEN, dtype=jnp.float32)
+    out, tc = bundle.prefill(params, {"tokens": torch.from_numpy(tokens)},
+                             max_len=MAX_LEN, dtype=torch.float32)
+    _close(out.logits, jout.logits)
+    _close(out.value, jout.value)
+    (jkv, jidx), (tkv, tidx) = _jcache(jc), _tcache(tc)
+    assert tidx == jidx == S
+    for key in ("k", "v"):
+        _close(tkv[key], jkv[key])
+    np.testing.assert_array_equal(tkv["pos"].numpy(), jkv["pos"])
+
+    steps = np.random.default_rng(2).integers(0, 277, (3, B, 1))
+    for t in steps:
+        jout, jc = jbundle.decode_step(jparams, jnp.asarray(t, jnp.int32), jc)
+        out, tc = bundle.decode_step(params, torch.from_numpy(t), tc)
+        assert out.logits.shape == (B, 1, 277)
+        _close(out.logits, jout.logits)
+        _close(out.value, jout.value)
+    (jkv, jidx), (tkv, tidx) = _jcache(jc), _tcache(tc)
+    assert tidx == jidx == S + 3
+    for key in ("k", "v"):
+        _close(tkv[key], jkv[key])
+    np.testing.assert_array_equal(tkv["pos"].numpy(), jkv["pos"])
+
+
+def test_greedy_generate_tokens_equal_jax(models):
+    jbundle, jparams, bundle, params, tokens = models
+    want = jgreedy(jbundle, jparams, {"tokens": jnp.asarray(tokens, jnp.int32)},
+                   steps=8, max_len=MAX_LEN, dtype=jnp.float32)
+    got = greedy_generate(bundle, params, {"tokens": torch.from_numpy(tokens)},
+                          steps=8, max_len=MAX_LEN, dtype=torch.float32)
+    assert got.dtype == torch.int32 and got.shape == (B, 8)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_bf16_cache_decode_stays_close(models):
+    """The serving default: a bf16 cache with fp32 compute. The port rounds
+    q to the cache dtype before K2; the result stays within bf16 tolerance
+    of the JAX model's."""
+    jbundle, jparams, bundle, params, tokens = models
+    jout, jc = jbundle.prefill(jparams, {"tokens": jnp.asarray(tokens, jnp.int32)},
+                               max_len=MAX_LEN)
+    out, tc = bundle.prefill(params, {"tokens": torch.from_numpy(tokens)},
+                             max_len=MAX_LEN)
+    assert tc["layers"][0]["k"].dtype == torch.bfloat16
+    t = np.full((B, 1), 3)
+    jout, _ = jbundle.decode_step(jparams, jnp.asarray(t, jnp.int32), jc)
+    out, _ = bundle.decode_step(params, torch.from_numpy(t), tc)
+    np.testing.assert_allclose(out.logits.numpy(), np.asarray(jout.logits),
+                               atol=5e-2, rtol=5e-2)
+
+
+@pytest.mark.parametrize("override,match", [
+    ({"attn_pattern": ("local", "global")}, "gemma2"),
+    ({"attn_softcap": 50.0}, "softcap"),
+    ({"tie_embeddings": True}, "gemma"),
+    ({"qkv_bias": True}, "biases"),
+    ({"family": "moe", "num_experts": 4}, "MoE"),
+    ({"tp": 16}, "padded heads"),
+])
+def test_unported_parts_raise(override, match):
+    with pytest.raises(NotImplementedError, match=match):
+        make_model(smoke_config(ARCH).with_(**override))
+
+
+def test_unported_archs_and_caches_raise():
+    from repro_torch.configs.registry import get_config
+    from repro_torch.nn.attention import make_cache
+    with pytest.raises(KeyError, match="not ported"):
+        get_config("gemma2-9b")
+    with pytest.raises(NotImplementedError, match="gemma2"):
+        make_cache(smoke_config(ARCH), 1, 8, kind="local", device="cpu")

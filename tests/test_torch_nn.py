@@ -1,0 +1,92 @@
+"""The port's nn layers against the JAX package's, on the same numpy inputs
+and parameters, in fp32 (tolerance 1e-5: one layer, summation order only)."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs.registry import smoke_config as jsmoke_config  # noqa: E402
+from repro.nn import embed as jembed  # noqa: E402
+from repro.nn import mlp as jmlp  # noqa: E402
+from repro.nn import norms as jnorms  # noqa: E402
+from repro.nn import rope as jrope  # noqa: E402
+from repro_torch.configs.registry import smoke_config  # noqa: E402
+from repro_torch.nn import embed, init, mlp, norms, rope  # noqa: E402
+
+TOL = 1e-5
+RNG = np.random.default_rng(0)
+
+
+def _close(t, j):
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 3, 16), (3, 7, 64)])
+def test_rope_half_split(shape):
+    x = RNG.standard_normal(shape).astype(np.float32)
+    pos = np.arange(shape[1]) + 11
+    _close(rope.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), 1e6),
+           jrope.apply_rope(jnp.asarray(x), jnp.asarray(pos), 1e6))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_in_fp32_then_cast(dtype):
+    x = RNG.standard_normal((4, 6, 32)).astype(np.float32)
+    scale = RNG.standard_normal(32).astype(np.float32)
+    p = norms.Norm(32)
+    p.scale.data = torch.from_numpy(scale)
+    got = norms.apply_norm(p, torch.from_numpy(x).to(getattr(torch, dtype)), 1e-6)
+    want = jnorms.apply_norm({"scale": jnp.asarray(scale)},
+                             jnp.asarray(x).astype(getattr(jnp, dtype)), eps=1e-6)
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=TOL if dtype == "float32" else 1e-2, rtol=TOL)
+
+
+def test_gated_silu_mlp():
+    d, ff = 16, 40
+    x = RNG.standard_normal((2, 3, d)).astype(np.float32)
+    w = {k: RNG.standard_normal(s).astype(np.float32) * 0.2
+         for k, s in (("wi", (d, ff)), ("wg", (d, ff)), ("wo", (ff, d)))}
+    p = mlp.MLP(d, ff, gen=torch.Generator().manual_seed(0))
+    for k, v in w.items():
+        getattr(p, k).data = torch.from_numpy(v)
+    _close(mlp.mlp(p, torch.from_numpy(x)),
+           jmlp.mlp({k: jnp.asarray(v) for k, v in w.items()}, jnp.asarray(x)))
+
+
+def test_embed_and_unembed_mask_padded_vocab():
+    cfg = smoke_config("qwen3-14b").with_(tp=2)      # pads 277 -> 512 ids
+    jcfg = jsmoke_config("qwen3-14b").with_(tp=2)
+    assert cfg.padded_vocab == 512
+    p = embed.Embed(cfg, gen=torch.Generator().manual_seed(0))
+    jp = {"table": jnp.asarray(p.table.numpy()), "unembed": jnp.asarray(p.unembed.numpy())}
+    tokens = RNG.integers(0, cfg.vocab_size, (2, 5))
+    x = embed.embed(cfg, p, torch.from_numpy(tokens))
+    _close(x, jembed.embed(jcfg, jp, jnp.asarray(tokens)))
+    logits = embed.unembed(cfg, p, x)
+    _close(logits, jembed.unembed(jcfg, jp, jnp.asarray(x.numpy())))
+    assert logits.dtype == torch.float32
+    assert bool((logits[..., cfg.vocab_size:] == -1e30).all())
+
+
+def test_fan_in_is_truncated_and_scaled():
+    t = init.fan_in()(torch.Generator().manual_seed(0), (400, 2, 300), torch.float32, "cpu")
+    std = 1 / np.sqrt(400 * 2)
+    assert t.abs().max() <= 2 * std + 1e-7
+    assert abs(t.std().item() / std - 0.88) < 0.02   # std of N(0,1) cut at +-2
+    b = init.fan_in()(torch.Generator().manual_seed(0), (400, 2, 300), torch.bfloat16, "cpu")
+    assert b.dtype == torch.bfloat16
+    torch.testing.assert_close(b.float(), t, atol=0, rtol=1e-2)
+
+
+def test_init_fills_in_chunks(monkeypatch):
+    """Sampling goes chunk by chunk into the target dtype: every element of
+    every chunk, the ragged last one included, gets its own draw."""
+    monkeypatch.setattr(init, "CHUNK", 9)
+    t = init.normal(1.0)(torch.Generator().manual_seed(3), (10, 7), torch.bfloat16, "cpu")
+    assert t.dtype == torch.bfloat16 and t.shape == (10, 7)
+    assert bool(torch.isfinite(t).all()) and t.float().unique().numel() > 60
