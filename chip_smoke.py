@@ -9,14 +9,21 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
 2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one nvcc
    per source, all started together);
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the serving path's shapes in bf16 and in fp32 with TF32 off, with a
-   length-0 decode row and ragged S; kernel, plain and library times;
+   the serving paths' shapes in bf16 and in fp32 with TF32 off, with a
+   length-0 decode row, ragged S, and for K3 a nonzero initial state,
+   fewer groups than heads, and its final state against the sequential
+   oracle; kernel, plain and library times, and each call's bound;
 4. serve: qwen3-14b at full width (40 layers, bf16 params made on the card
    from a seed) answers four clients through the port's InferenceServer;
    the kernels' launch counts must rise by 40 per prefill (K1) and by 40
-   per decode step (K2), and the served tokens must equal greedy decoding;
-5. parity: at the reduced config, greedy tokens from the port on the card
-   equal the port on the CPU (the plain versions), in fp32.
+   per decode step (K2), K3 must not run, and the served tokens must equal
+   greedy decoding; then mamba2-2.7b at full width (64 layers, bf16) the
+   same way, where K3 must rise by 64 per prefill and by 0 per decode step
+   and K1 and K2 must not run; each with a profiler breakdown of a
+   prefill and a decode step;
+5. parity: at each arch's reduced config, prefill logits and greedy tokens
+   from the port on the card equal the port on the CPU (the plain
+   versions), in fp32.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or run from a directory
@@ -40,8 +47,11 @@ SRC = ROOT / "src"
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 
-ARCH = "qwen3-14b"
-CLIENTS, PROMPT_LEN, TOKENS, MAX_LEN = 4, 256, 16, 512
+CLIENTS, TOKENS = 4, 16
+# arch -> (prompt length, cache length); mamba's state ignores the latter,
+# which only has to admit prompt + CLIENTS * TOKENS steps
+SERVE = {"qwen3-14b": (256, 512), "mamba2-2.7b": (512, 576)}
+PROMPT_LEN, MAX_LEN = SERVE["qwen3-14b"]
 
 
 def log(msg):
@@ -81,15 +91,17 @@ def max_err(a, b):
     return float((a.float() - b.float()).abs().max())
 
 
-def check_close(name, got, want, tol):
-    """Elementwise |got - want| <= tol + tol * |want| (atol = rtol = tol, the
-    JAX package's kernel-test tolerances: fp32 2e-5, bf16 2e-2)."""
+def check_close(name, got, want, tol, atol=None):
+    """Elementwise |got - want| <= atol + tol * |want| (atol = rtol = tol by
+    default, the JAX package's kernel-test tolerances: fp32 2e-5, bf16
+    2e-2)."""
     err = max_err(got, want)
+    atol = tol if atol is None else atol
     g, w = got.float(), want.float()
     ok = (got.shape == want.shape and got.dtype == want.dtype
           and bool(torch.isfinite(g).all())
-          and bool(((g - w).abs() <= tol + tol * w.abs()).all()))
-    log(f"   {name}: max_abs_err {err:.3e} (atol = rtol = {tol:g}) "
+          and bool(((g - w).abs() <= atol + tol * w.abs()).all()))
+    log(f"   {name}: max_abs_err {err:.3e} (atol {atol:.3g}, rtol {tol:g}) "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
@@ -100,7 +112,8 @@ def kernel_phase():
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as K2
     from repro_torch.kernels import flash_attention as K1
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssd_scan as K3
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -205,6 +218,67 @@ def kernel_phase():
         f"plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} (SDPA) "
         f"bound_ms {rows['decode_attention']['bound_ms']:.4f} "
         f"({rows['decode_attention']['bound_by']})")
+
+    # ---- K3 ----
+    log("== kernels: K3 SSD chunked scan (Mamba2 prefill)")
+    # atol is stated against max|y_ref| (tests/test_kernels.py:73-75): 3e-5
+    # in fp32; 2e-2 in bf16, where the plain version contracts C.B^T and
+    # C.S_prev in bf16 and the kernel in fp32
+    k3_tol = {torch.float32: (3e-5, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
+
+    def ssd_inputs(b, s, h, p, n, g, dtype, with_h0):
+        x = (rand(b, s, h, p, dtype=torch.float32) * 0.5).to(dtype)
+        dt = F.softplus(rand(b, s, h, dtype=torch.float32) - 2.0)
+        a = -torch.exp(rand(h, dtype=torch.float32) * 0.5 + 1.0)
+        bm, cm = ((rand(b, s, g, n, dtype=torch.float32) * 0.3).to(dtype) for _ in range(2))
+        h0 = rand(b, h, p, n, dtype=torch.float32) * 0.2 if with_h0 else None
+        return x, dt, a, bm, cm, h0
+
+    mb, ms_, mh, mp, mn, mg = CLIENTS, SERVE["mamba2-2.7b"][0], 80, 64, 128, 1  # serving call
+    cases = [((mb, ms_, mh, mp, mn, mg), torch.bfloat16, True),
+             ((2, 200, 4, 16, 32, 2), torch.float32, True),    # ragged S, G < H, h0
+             ((1, 37, 2, 64, 128, 1), torch.float32, False),   # S shorter than one chunk
+             ((2, 150, 16, 8, 16, 1), torch.float32, True)]    # reduced config
+    main_err = None
+    for (cb, cs, ch, cp, cn, cg), dt_, with_h0 in cases:
+        x, dt, a, bm, cm, h0 = ssd_inputs(cb, cs, ch, cp, cn, cg, dt_, with_h0)
+        y, st = K3.ssd_scan(x, dt, a, bm, cm, h0=h0, return_state=True)
+        yp, sp = ops.ssd_scan_plain(x, dt, a, bm, cm, chunk=256, h0=h0)
+        torch.cuda.synchronize()
+        atol, rtol = k3_tol[dt_]
+        name = f"K3 {(cb, cs, ch, cp, cn, cg)} {str(dt_)[6:]} h0={with_h0}"
+        scale = max(float(yp.float().abs().max()), 1.0)
+        err = check_close(f"{name} y", y, yp, rtol, atol * scale)
+        check_close(f"{name} state", st, sp, 1e-4, 3e-5 * max(float(sp.abs().max()), 1.0))
+        main_err = err if main_err is None else main_err
+        if dt_ == torch.float32:   # the final state against the sequential oracle
+            r = ch // cg
+            yr, sr = ref.ssd_ref(x, dt, a, bm.repeat_interleave(r, 2),
+                                 cm.repeat_interleave(r, 2), h0)
+            check_close(f"{name} y vs ssd_ref", y, yr, 1e-4,
+                        3e-5 * max(float(yr.abs().max()), 1.0))
+            check_close(f"{name} state vs ssd_ref", st, sr, 1e-4,
+                        3e-5 * max(float(sr.abs().max()), 1.0))
+    # timing: the serving path's call (the prefill passes the cache's zero
+    # state as h0 and asks for the final state)
+    x, dt, a, bm, cm, _ = ssd_inputs(mb, ms_, mh, mp, mn, mg, torch.bfloat16, False)
+    h0 = torch.zeros(mb, mh, mp, mn, device=dev)
+    ms = time_ms("K3", lambda: K3.ssd_scan(x, dt, a, bm, cm, h0=h0, return_state=True))
+    plain_ms = time_ms("K3 plain", lambda: ops.ssd_scan_plain(x, dt, a, bm, cm, chunk=256,
+                                                              h0=h0))
+    esz = x.element_size()
+    nbytes = (2 * x.numel() + bm.numel() + cm.numel()) * esz + 4 * (dt.numel() + a.numel()) \
+        + 2 * 4 * h0.numel()
+    flops = 4 * mp * mn * mb * ms_ * mh                    # the recurrence's, per token and head
+    rows["ssd_scan"] = dict(
+        name="ssd_scan", route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan.py:56",
+        max_abs_err=main_err, ms=ms, plain_ms=plain_ms, library_ms=None,
+        **bound(flops, nbytes, "bfloat16"))
+    log(f"   K3 at ({mb},{ms_},{mh},{mp},{mn},{mg}) bf16, h0 and final state: kernel_ms "
+        f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms none (no PyTorch call computes the "
+        f"SSD scan) bound_ms {rows['ssd_scan']['bound_ms']:.4f} ({rows['ssd_scan']['bound_by']}, "
+        f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
     return rows
 
 
@@ -215,17 +289,38 @@ def bound(flops, nbytes, dtype):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def serve_phase():
+def expected_launches(cfg, steps):
+    """Launches of a serve run (one prefill, `steps` decode steps): the
+    dense LM runs K1 once per layer in prefill and K2 once per layer in
+    each decode step; Mamba runs K3 once per layer in prefill and nothing
+    in decode."""
+    if cfg.family == "ssm":
+        return {"flash_attention": 0, "decode_attention": 0, "ssd_scan": cfg.num_layers}
+    return {"flash_attention": cfg.num_layers, "decode_attention": cfg.num_layers * steps,
+            "ssd_scan": 0}
+
+
+def describe(cfg):
+    if cfg.family == "ssm":
+        return (f"d_model {cfg.d_model}, d_inner {cfg.ssm_dinner}, {cfg.ssm_nheads} heads of "
+                f"{cfg.ssm_headdim}, state {cfg.ssm_state}, groups {cfg.ssm_ngroups}, conv "
+                f"{cfg.ssm_conv}, vocab {cfg.vocab_size}, tied embeddings "
+                f"{cfg.tie_embeddings}")
+    return (f"d_model {cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads}, head_dim "
+            f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}")
+
+
+def serve_phase(arch):
     from repro_torch.configs.base import param_count
     from repro_torch.configs.registry import get_config, make_model
     from repro_torch.kernels import ops
     from repro_torch.launch import serve_policy
     from repro_torch.launch.serve import greedy_generate, make_prefill, make_serve_step
 
-    cfg = get_config(ARCH).with_(param_dtype="bfloat16", compute_dtype="bfloat16")
-    log(f"== serve: {cfg.name} d_model {cfg.d_model}, heads {cfg.num_heads}/"
-        f"{cfg.num_kv_heads}, head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
-        f"{cfg.vocab_size}, {cfg.num_layers} layers, {param_count(cfg) / 1e9:.2f} B params")
+    prompt_len, max_len = SERVE[arch]
+    cfg = get_config(arch).with_(param_dtype="bfloat16", compute_dtype="bfloat16")
+    log(f"== serve: {cfg.name} {describe(cfg)}, {cfg.num_layers} layers, "
+        f"{param_count(cfg) / 1e9:.2f} B params")
     dev = torch.device("cuda")
     bundle = make_model(cfg)
     t0 = time.perf_counter()
@@ -237,8 +332,8 @@ def serve_phase():
 
     # warm-up at the main path's shapes (cuBLAS handles and heuristics, the
     # caching allocator); its launches are not counted
-    prompts = torch.randint(0, cfg.vocab_size, (CLIENTS, PROMPT_LEN), device=dev)
-    prefill = make_prefill(bundle, MAX_LEN, torch.bfloat16)
+    prompts = torch.randint(0, cfg.vocab_size, (CLIENTS, prompt_len), device=dev)
+    prefill = make_prefill(bundle, max_len, torch.bfloat16)
     step = make_serve_step(bundle)
     t0 = time.perf_counter()
     tok, cache = prefill(params, {"tokens": prompts})
@@ -251,8 +346,8 @@ def serve_phase():
 
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    out = serve_policy.serve(cfg, clients=CLIENTS, prompt_len=PROMPT_LEN, tokens=TOKENS,
-                             max_len=MAX_LEN, device=dev, params=params,
+    out = serve_policy.serve(cfg, clients=CLIENTS, prompt_len=prompt_len, tokens=TOKENS,
+                             max_len=max_len, device=dev, params=params,
                              deadline_ms=1000.0)
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -260,11 +355,11 @@ def serve_phase():
     steps = st["batches"]
     log(f"   launches: {counts}; decode steps (batches) {steps}, occupancy "
         f"{st['batch_occupancy'] / max(steps, 1):.2f}")
-    want = {"flash_attention": cfg.num_layers, "decode_attention": cfg.num_layers * steps}
+    want = expected_launches(cfg, steps)
     if counts != want:
         raise AssertionError(f"launch counts {counts} != expected {want}")
     total = CLIENTS * TOKENS
-    log(f"   prefill_ms {out['prefill_s'] * 1e3:.2f} ({CLIENTS}x{PROMPT_LEN} tokens); "
+    log(f"   prefill_ms {out['prefill_s'] * 1e3:.2f} ({CLIENTS}x{prompt_len} tokens); "
         f"decode {out['decode_s'] * 1e3 / steps:.2f} ms/step wall, "
         f"{st['compute_s'] * 1e3 / steps:.2f} ms/step in policy_step; "
         f"{total / out['decode_s']:.1f} tok/s; peak memory {peak / 1e9:.2f} GB")
@@ -275,7 +370,7 @@ def serve_phase():
         raise AssertionError(f"{steps} decode steps for {TOKENS} tokens: a batch "
                              f"missed a client")
     greedy = greedy_generate(bundle, params, {"tokens": torch.as_tensor(
-        out["prompts"], device=dev)}, steps=TOKENS + 1, max_len=MAX_LEN,
+        out["prompts"], device=dev)}, steps=TOKENS + 1, max_len=max_len,
         dtype=torch.bfloat16).cpu()
     for cid in range(CLIENTS):
         if [out["first"][cid]] + out["tokens"][cid] != greedy[cid].tolist():
@@ -310,10 +405,10 @@ def serve_phase():
 
 
 def device_breakdown(prof, n):
-    """Kernel time per call from a profiler trace, grouped: the two port
+    """Kernel time per call from a profiler trace, grouped: the port's
     kernels, GEMMs (cuBLAS / CUTLASS), and everything else; and the number
     of device kernels per call."""
-    groups = {"busy": 0.0, "K1": 0.0, "K2": 0.0, "gemm": 0.0, "other": 0.0}
+    groups = {"busy": 0.0, "K1": 0.0, "K2": 0.0, "K3": 0.0, "gemm": 0.0, "other": 0.0}
     kernels = 0
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -325,6 +420,8 @@ def device_breakdown(prof, n):
             g = "K1"
         elif "decode_kernel" in name:
             g = "K2"
+        elif "ssd_chunk_kernel" in name:
+            g = "K3"
         elif any(t in name for t in ("gemm", "gemv", "cutlass", "nvjet", "xmma", "cublas")):
             g = "gemm"
         else:
@@ -336,25 +433,28 @@ def device_breakdown(prof, n):
     return groups, kernels / n
 
 
-def parity_phase():
+def parity_phase(arch, prompt_len):
     from repro_torch.configs.registry import make_model, smoke_config
     from repro_torch.launch.serve import greedy_generate
 
-    log("== parity: reduced config, card vs CPU, fp32, TF32 off")
-    cfg = smoke_config(ARCH)
+    log(f"== parity: {arch} reduced config, card vs CPU, fp32, TF32 off, "
+        f"{prompt_len}-token prompts")
+    cfg = smoke_config(arch)
     bundle = make_model(cfg)
     cpu = bundle.init(0, device="cpu", dtype=torch.float32)
     gpu = bundle.init(0, device="cuda", dtype=torch.float32)
     gpu.load_state_dict(cpu.state_dict())
     gen = torch.Generator().manual_seed(1)
-    tokens = torch.randint(0, cfg.vocab_size, (2, 24), generator=gen)
-    o_cpu, _ = bundle.prefill(cpu, {"tokens": tokens}, max_len=64, dtype=torch.float32)
-    o_gpu, _ = bundle.prefill(gpu, {"tokens": tokens.cuda()}, max_len=64, dtype=torch.float32)
+    tokens = torch.randint(0, cfg.vocab_size, (2, prompt_len), generator=gen)
+    max_len = prompt_len + 40
+    o_cpu, _ = bundle.prefill(cpu, {"tokens": tokens}, max_len=max_len, dtype=torch.float32)
+    o_gpu, _ = bundle.prefill(gpu, {"tokens": tokens.cuda()}, max_len=max_len,
+                              dtype=torch.float32)
     err = max_err(o_gpu.logits.cpu(), o_cpu.logits)
     if not (torch.isfinite(o_gpu.logits).all() and err < 1e-4):
         raise AssertionError(f"prefill logits differ by {err}")
-    t_cpu = greedy_generate(bundle, cpu, {"tokens": tokens}, 12, 64, torch.float32)
-    t_gpu = greedy_generate(bundle, gpu, {"tokens": tokens.cuda()}, 12, 64, torch.float32)
+    t_cpu = greedy_generate(bundle, cpu, {"tokens": tokens}, 12, max_len, torch.float32)
+    t_gpu = greedy_generate(bundle, gpu, {"tokens": tokens.cuda()}, 12, max_len, torch.float32)
     if not torch.equal(t_gpu.cpu(), t_cpu):
         raise AssertionError(f"greedy tokens differ:\n{t_gpu.cpu()}\n{t_cpu}")
     log(f"   prefill logits max_abs_err {err:.3e} (< 1e-4); 12 greedy tokens equal: "
@@ -388,12 +488,22 @@ def main():
             f"a thread, {len(spills)} with spills ({sum(spills)} bytes)")
 
     rows = kernel_phase()
-    counts, serve_metrics = serve_phase()
-    parity_phase()
+    # each path is driven with the counts set to 0 just before it and read
+    # just after; a kernel's launches are those of the path that runs it
+    serve_metrics, launches = {}, {}
+    for arch, kernels in (("qwen3-14b", ("flash_attention", "decode_attention")),
+                          ("mamba2-2.7b", ("ssd_scan",))):
+        counts, serve_metrics[arch] = serve_phase(arch)
+        launches.update({k: counts[k] for k in kernels})
+        torch.cuda.empty_cache()
+    # mamba: 150 tokens span two of K3's 64-step chunks and a tail
+    parity_phase("qwen3-14b", 24)
+    parity_phase("mamba2-2.7b", 150)
 
     for name, row in rows.items():
-        row["launches"] = counts[name]
-    log(f"serve: {json.dumps(serve_metrics)}")
+        row["launches"] = launches[name]
+    for arch, metrics in serve_metrics.items():
+        log(f"serve {arch}: {json.dumps(metrics)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": list(rows.values())}))

@@ -8,6 +8,7 @@ import importlib
 
 _MODULES = {
     "qwen3-14b": "repro_torch.configs.qwen3_14b",
+    "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
 }
 
 ARCHS = tuple(_MODULES)
@@ -26,6 +27,9 @@ def get_config(arch: str):
 
 def make_model(cfg):
     """Build the ModelBundle for a config (dispatch on family)."""
+    if cfg.family == "ssm":
+        from repro_torch.models.mamba import make_mamba
+        return make_mamba(cfg)
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     from repro_torch.models.lm import make_lm
@@ -40,6 +44,8 @@ def smoke_config(arch: str):
     if cfg.num_heads:
         small.update(num_heads=4, num_kv_heads=min(cfg.num_kv_heads, 2),
                      head_dim=16)
+    if cfg.family == "ssm":
+        small.update(ssm_state=16, ssm_headdim=8, ssm_chunk=16)
     if cfg.attn_pattern != ("global",):
         small.update(num_layers=len(cfg.attn_pattern) * 2, local_window=32)
     return cfg.with_(**small, remat="none", fsdp="none", tp=1,

@@ -1,9 +1,11 @@
 """Parameter conversion from the JAX package's param tree to the port's.
 
-The JAX LM stacks each block parameter along a leading layer axis under
-``main.p0.*`` (one pattern period, scanned); the port keeps one module per
-layer under ``blocks.{i}.*``. Every tensor keeps the JAX layout (wq (d,H,hd),
-wo (H,hd,d), wi (d,ff), unembed (d,V)), so only the layer axis moves.
+The JAX models stack each block parameter along a leading layer axis, under
+``main.p0.*`` in the dense LM (one pattern period, scanned) and under
+``blocks.*`` in Mamba; the port keeps one module per layer under
+``blocks.{i}.*``. Every tensor keeps the JAX layout (wq (d,H,hd), wo
+(H,hd,d), wi (d,ff), unembed (d,V), in_proj (d, ...), conv.w (W,C)), so
+only the layer axis moves.
 """
 
 import numpy as np
@@ -24,15 +26,20 @@ def _tensor(a) -> torch.Tensor:
 
 
 def params_from_jax(cfg, params_np) -> dict:
-    """JAX dense-LM params (a nested dict of numpy arrays) -> the state dict
-    of ``repro_torch.models.lm.LM`` (CPU tensors, the arrays' dtypes)."""
-    if "pre" in params_np or set(params_np.get("main", {})) != {"p0"}:
+    """JAX params (a nested dict of numpy arrays) -> the state dict of the
+    port's model for `cfg.family` (``models.lm.LM`` for dense,
+    ``models.mamba.Mamba`` for ssm): CPU tensors, the arrays' dtypes."""
+    if cfg.family == "ssm":
+        stacked = "blocks."
+    elif "pre" in params_np or set(params_np.get("main", {})) != {"p0"}:
         raise NotImplementedError("only single-period stacks without dense "
                                   "pre-layers are ported (dense global LM)")
+    else:
+        stacked = "main.p0."
     out = {}
     for name, arr in _flatten(params_np):
-        if name.startswith("main.p0."):
-            rest = name[len("main.p0."):]
+        if name.startswith(stacked):
+            rest = name[len(stacked):]
             if arr.shape[0] != cfg.num_layers:
                 raise ValueError(f"{name}: leading axis {arr.shape[0]} != "
                                  f"num_layers {cfg.num_layers}")

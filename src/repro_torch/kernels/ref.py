@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the attention kernels (the allclose ground truth).
+"""Plain PyTorch oracles for the kernels (the allclose ground truth).
 
 Mirrors ``repro.kernels.ref``: every product is taken in fp32 after a cast,
 as the TPU kernels do. On the card these are the yardsticks the CUDA
@@ -38,3 +38,22 @@ def decode_attention_ref(q, k, v, lengths, *, scale=None):
     logits = torch.where(ok, logits, NEG_INF)
     w = torch.softmax(logits, dim=-1)
     return torch.einsum("bhs,bshd->bhd", w, v.float()).to(q.dtype)
+
+
+def ssd_ref(x, dt, a, b, c, h0=None):
+    """Sequential SSD recurrence (the definitional oracle).
+
+    x (B,S,H,P); dt (B,S,H) post-softplus; a (H,) negative;
+    b,c (B,S,H,N) (groups already expanded). Returns (y, final_state)."""
+    bs, s, h, p = x.shape
+    n = b.shape[-1]
+    state = h0 if h0 is not None else torch.zeros((bs, h, p, n), dtype=torch.float32,
+                                                  device=x.device)
+    ys = []
+    for t in range(s):
+        da = torch.exp(dt[:, t] * a)                                  # (B,H)
+        upd = torch.einsum("bhp,bhn,bh->bhpn", x[:, t].float(), b[:, t].float(), dt[:, t])
+        state = da[..., None, None] * state + upd
+        ys.append(torch.einsum("bhn,bhpn->bhp", c[:, t].float(), state))
+    y = torch.stack(ys, dim=1) if ys else x.new_zeros(x.shape, dtype=torch.float32)
+    return y.to(x.dtype), state

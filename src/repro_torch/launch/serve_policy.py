@@ -3,10 +3,13 @@ policy): batched prefill, then N clients decode token by token through the
 ``InferenceServer``, which batches their requests into one decode step.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_policy --arch qwen3-14b
+    PYTHONPATH=src python -m repro_torch.launch.serve_policy --arch mamba2-2.7b
 
-runs the reduced config (``smoke_config``) on the card; ``--device cpu``
-runs the plain PyTorch path. ``chip_smoke.py`` serves the published widths
-in bf16 by calling ``serve`` directly.
+runs the reduced config (``smoke_config``) of either ported arch on the
+card; ``--device cpu`` runs the plain PyTorch path. ``chip_smoke.py`` serves
+both at their published widths in bf16 by calling ``serve`` directly.
+qwen3-14b decodes against a KV cache of ``max_len`` slots; mamba2-2.7b
+carries a fixed-size state per layer and ignores ``max_len``.
 
 Every client gets its own seeded prompt. The server hands out slots in
 first-sight order, so the slots are claimed for clients 0..N-1 before the

@@ -7,6 +7,8 @@ import torch
 from torch import nn
 
 from repro_torch.nn import init as inits
+from repro_torch.nn.embed import unembed
+from repro_torch.nn.norms import apply_norm
 
 
 class ValueHead(nn.Module):
@@ -22,6 +24,18 @@ class ValueHead(nn.Module):
 
 def value_head(p, x):
     return (x.float() @ p.w.float() + p.b.float())[..., 0]
+
+
+def lm_outputs(cfg, params, x):
+    """Final norm, then the fp32 logits and the value of every position."""
+    h = apply_norm(params.final_norm, x, cfg.norm_eps)
+    return ModelOutputs(logits=unembed(cfg, params.embed, h),
+                        value=value_head(params.value_head, h))
+
+
+def as_tokens(params, tokens):
+    """Token ids as int64 on the params' device."""
+    return torch.as_tensor(tokens, device=params.device).long()
 
 
 @dataclass

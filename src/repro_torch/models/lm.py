@@ -12,11 +12,10 @@ import torch
 from torch import nn
 
 from repro_torch.device import dtype_of, resolve
-from repro_torch.models.common import (ModelBundle, ModelOutputs, ValueHead,
-                                       value_head)
+from repro_torch.models.common import ModelBundle, ValueHead, as_tokens, lm_outputs
 from repro_torch.nn.attention import (Attention, attention, decode_attention,
                                       make_cache)
-from repro_torch.nn.embed import Embed, embed, unembed
+from repro_torch.nn.embed import Embed, embed
 from repro_torch.nn.mlp import ACTS, MLP, mlp
 from repro_torch.nn.norms import Norm, apply_norm
 
@@ -94,20 +93,10 @@ def _run_blocks(cfg, params, x, positions, caches=None, mode="train"):
     return x
 
 
-def _outputs(cfg, params, x):
-    h = apply_norm(params.final_norm, x, cfg.norm_eps)
-    return ModelOutputs(logits=unembed(cfg, params.embed, h),
-                        value=value_head(params.value_head, h))
-
-
-def _tokens(params, tokens):
-    return torch.as_tensor(tokens, device=params.device).long()
-
-
 def lm_forward(cfg, params, batch):
-    x = embed(cfg, params.embed, _tokens(params, batch["tokens"]))
+    x = embed(cfg, params.embed, as_tokens(params, batch["tokens"]))
     positions = torch.arange(x.shape[1], device=x.device)
-    return _outputs(cfg, params, _run_blocks(cfg, params, x, positions))
+    return lm_outputs(cfg, params, _run_blocks(cfg, params, x, positions))
 
 
 def lm_init_cache(cfg, batch, max_len, dtype=torch.bfloat16, device="cuda"):
@@ -119,7 +108,7 @@ def lm_init_cache(cfg, batch, max_len, dtype=torch.bfloat16, device="cuda"):
 
 
 def lm_prefill(cfg, params, batch, max_len, dtype=torch.bfloat16):
-    tokens = _tokens(params, batch["tokens"])
+    tokens = as_tokens(params, batch["tokens"])
     b, s = tokens.shape
     if max_len is None or s > max_len:
         raise ValueError(f"prompt of {s} tokens needs max_len >= {s}, got {max_len}")
@@ -128,16 +117,16 @@ def lm_prefill(cfg, params, batch, max_len, dtype=torch.bfloat16):
     positions = torch.arange(s, device=x.device)
     x = _run_blocks(cfg, params, x, positions, caches, mode="prefill")
     caches["index"] = torch.full((), s, dtype=torch.int32, device=x.device)
-    return _outputs(cfg, params, x), caches
+    return lm_outputs(cfg, params, x), caches
 
 
 def lm_decode_step(cfg, params, tokens_t, caches):
     """tokens_t (B,1). Uses caches['index'] as the write position; the caller
     keeps index < max_len (the cache is written in place)."""
-    x = embed(cfg, params.embed, _tokens(params, tokens_t))
+    x = embed(cfg, params.embed, as_tokens(params, tokens_t))
     x = _run_blocks(cfg, params, x, None, caches, mode="decode")
     caches = dict(caches, index=caches["index"] + 1)
-    return _outputs(cfg, params, x), caches
+    return lm_outputs(cfg, params, x), caches
 
 
 def make_lm(cfg) -> ModelBundle:

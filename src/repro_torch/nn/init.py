@@ -54,3 +54,22 @@ def zeros(gen, shape, dtype, device):
 
 def ones(gen, shape, dtype, device):
     return torch.ones(shape, dtype=dtype, device=device)
+
+
+def a_log_init(gen, shape, dtype, device):
+    """Mamba2's A_log: log(uniform(1, 16)), so A = -exp(A_log) lies in
+    [-16, -1] (``repro.nn.ssd.init_ssd_layer``)."""
+    return _fill(shape, dtype, device, lambda n: torch.log(torch.rand(
+        n, generator=gen, device=device) * 15.0 + 1.0))
+
+
+def dt_bias_init(dt_min=1e-3, dt_max=1e-1):
+    """Mamba: dt bias so softplus(bias) is log-uniform in [dt_min, dt_max]."""
+    lo, hi = math.log(dt_min), math.log(dt_max)
+
+    def init(gen, shape, dtype, device):
+        def sample(n):
+            dt = torch.exp(torch.rand(n, generator=gen, device=device) * (hi - lo) + lo)
+            return dt + torch.log(-torch.expm1(-dt))
+        return _fill(shape, dtype, device, sample)
+    return init

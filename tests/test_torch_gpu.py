@@ -1,4 +1,4 @@
-"""The port's CUDA kernels and model on the card, against their plain
+"""The port's CUDA kernels and models on the card, against their plain
 PyTorch versions. Marked `gpu`; they skip where there is no CUDA device.
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -76,5 +76,58 @@ def test_lm_on_card_matches_cpu(cuda):
     ops.reset_launch_counts()
     got = greedy_generate(bundle, gpu, {"tokens": tokens.to(cuda)}, 10, 64, torch.float32)
     assert ops.launch_counts() == {"flash_attention": cfg.num_layers,
-                                   "decode_attention": cfg.num_layers * 9}
+                                   "decode_attention": cfg.num_layers * 9, "ssd_scan": 0}
+    torch.testing.assert_close(got.cpu(), want)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,g,dtype,with_h0", [
+    (2, 200, 4, 16, 32, 2, torch.float32, True),      # ragged S over 4 kernel chunks, G < H
+    (1, 37, 2, 8, 16, 1, torch.float32, False),       # S shorter than one chunk
+    (1, 130, 3, 80, 128, 3, torch.float32, True),     # two p tiles, G == H
+    (2, 128, 4, 64, 128, 1, torch.bfloat16, False),   # the serving widths, bf16
+])
+def test_ssd_scan_kernel(cuda, b, s, h, p, n, g, dtype, with_h0):
+    """K3 against its plain version (y and final state), and in fp32 the
+    final state against the sequential oracle. atol is stated against
+    max|y_ref|, as tests/test_kernels.py:73-75: 3e-5 in fp32, 2e-2 in bf16
+    (the plain version contracts C·Bᵀ and C·S_prev in bf16, the kernel in
+    fp32)."""
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = (_rand(gen, (b, s, h, p), torch.float32, cuda) * 0.5).to(dtype)
+    dt = torch.nn.functional.softplus(_rand(gen, (b, s, h), torch.float32, cuda))
+    a = -torch.exp(_rand(gen, (h,), torch.float32, cuda) * 0.3)
+    bm, cm = ((_rand(gen, (b, s, g, n), torch.float32, cuda) * 0.3).to(dtype) for _ in range(2))
+    h0 = _rand(gen, (b, h, p, n), torch.float32, cuda) * 0.2 if with_h0 else None
+    before = ops.launch_counts()["ssd_scan"]
+    y, st = ops.ssd_scan(x, dt, a, bm, cm, h0=h0, return_state=True)
+    assert ops.launch_counts()["ssd_scan"] == before + 1
+    yp, sp = ops.ssd_scan_plain(x, dt, a, bm, cm, chunk=64, h0=h0)
+    tol = 3e-5 if dtype == torch.float32 else 2e-2
+    scale = max(float(yp.float().abs().max()), 1.0)
+    torch.testing.assert_close(y.float(), yp.float(), atol=tol * scale,
+                               rtol=1e-4 if dtype == torch.float32 else tol)
+    torch.testing.assert_close(st, sp, atol=tol * max(float(sp.abs().max()), 1.0), rtol=1e-4)
+    if dtype == torch.float32:
+        rep = h // g
+        _, sr = ref.ssd_ref(x, dt, a, bm.repeat_interleave(rep, 2), cm.repeat_interleave(rep, 2),
+                            h0)
+        torch.testing.assert_close(st, sr, atol=3e-5 * max(float(sr.abs().max()), 1.0),
+                                   rtol=1e-4)
+
+
+def test_mamba_on_card_matches_cpu(cuda):
+    """K3 carries every prefill layer (and no decode step); the card's
+    greedy tokens equal the CPU's in fp32."""
+    cfg = smoke_config("mamba2-2.7b")
+    bundle = make_model(cfg)
+    cpu = bundle.init(0, device="cpu")
+    gpu = bundle.init(0, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    tokens = torch.randint(0, cfg.vocab_size, (2, 150), generator=torch.Generator().manual_seed(1))
+    want = greedy_generate(bundle, cpu, {"tokens": tokens}, 10, None, torch.float32)
+    ops.reset_launch_counts()
+    got = greedy_generate(bundle, gpu, {"tokens": tokens.to(cuda)}, 10, None, torch.float32)
+    assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0,
+                                   "ssd_scan": cfg.num_layers}
     torch.testing.assert_close(got.cpu(), want)

@@ -1,4 +1,5 @@
-"""The port imports torch and never jax, and nothing of the JAX package."""
+"""The port, and the chip smoke script that drives it, import torch and
+never jax, and nothing of the JAX package."""
 
 import ast
 import pkgutil
@@ -10,7 +11,8 @@ import pytest
 
 pytest.importorskip("torch")
 
-SRC = Path(__file__).resolve().parents[1] / "src"
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
 PKG = SRC / "repro_torch"
 
 
@@ -24,7 +26,9 @@ def _modules():
 def test_importing_every_module_loads_no_jax():
     mods = _modules()
     assert {"repro_torch.kernels.ops", "repro_torch.launch.serve_policy",
-            "repro_torch.core.inference", "repro_torch.convert"} <= set(mods)
+            "repro_torch.core.inference", "repro_torch.convert",
+            "repro_torch.kernels.ssd_scan", "repro_torch.nn.ssd", "repro_torch.nn.conv",
+            "repro_torch.models.mamba", "repro_torch.configs.mamba2_2_7b"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -39,10 +43,13 @@ def test_importing_every_module_loads_no_jax():
 
 
 def test_no_source_names_jax_or_repro():
-    """Static check over every source file, including code behind a
-    function-level import that the subprocess test does not reach."""
+    """Static check over every source file and ``chip_smoke.py``, including
+    code behind a function-level import that the subprocess test does not
+    reach."""
     bad = []
-    for path in PKG.rglob("*.py"):
+    paths = [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]
+    assert len(paths) > 30 and paths[-1].is_file()
+    for path in paths:
         for node in ast.walk(ast.parse(path.read_text())):
             names = []
             if isinstance(node, ast.Import):
@@ -52,5 +59,15 @@ def test_no_source_names_jax_or_repro():
             for n in names:
                 root = n.split(".")[0]
                 if root in ("jax", "jaxlib", "repro", "flax", "optax"):
-                    bad.append(f"{path.relative_to(SRC)}: {n}")
+                    bad.append(f"{path.relative_to(ROOT)}: {n}")
     assert not bad, bad
+
+
+def test_chip_smoke_without_a_card_fails_and_prints_no_result():
+    """Where torch has no CUDA, the chip smoke script exits non-zero before
+    it imports anything of the port, and prints no result line."""
+    res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env={"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": ""})
+    assert res.returncode == 2, res.stderr
+    assert res.stdout == "" and "torch.cuda.is_available() is False" in res.stderr

@@ -1,5 +1,6 @@
-"""The port's slice entry point: qwen3-14b (reduced) served to clients
-through the port's InferenceServer on the CPU, and the default device."""
+"""The port's slice entry points: qwen3-14b and mamba2-2.7b (reduced)
+served to clients through the port's InferenceServer on the CPU, and the
+default device."""
 
 import numpy as np
 import pytest
@@ -90,3 +91,26 @@ def test_policy_failure_reaches_the_caller(monkeypatch):
     monkeypatch.setattr(serve_policy, "make_serve_step", broken)
     with pytest.raises(RuntimeError, match="decode exploded"):
         serve_policy.serve(CFG, clients=2, tokens=2, device="cpu")
+
+
+def test_mamba_serve_reproduces_greedy_generate():
+    """mamba2-2.7b (reduced) through the same server: its state cache
+    ignores max_len, and full batches give each client its greedy tokens."""
+    cfg = smoke_config("mamba2-2.7b")
+    clients, tokens = 3, 4
+    out = serve_policy.serve(cfg, clients=clients, prompt_len=20, tokens=tokens,
+                             max_len=64, device="cpu", deadline_ms=60_000.0, seed=2)
+    assert out["stats"]["batches"] == tokens
+    bundle = make_model(cfg)
+    params = bundle.init(2, device="cpu", dtype=torch.float32)
+    want = greedy_generate(bundle, params, {"tokens": torch.from_numpy(out["prompts"])},
+                           steps=tokens + 1, max_len=64, dtype=torch.float32)
+    for cid in range(clients):
+        assert [out["first"][cid]] + out["tokens"][cid] == want[cid].tolist()
+
+
+def test_serve_main_mamba_prints_ok(capsys):
+    serve_policy.main(["--arch", "mamba2-2.7b", "--device", "cpu", "--clients", "2",
+                       "--tokens", "3"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0].startswith("== mamba2-2.7b (reduced") and lines[-1] == '{"ok": true}'
