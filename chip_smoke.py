@@ -10,17 +10,21 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    per source, all started together);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the serving paths' shapes in bf16 and in fp32 with TF32 off, with a
-   length-0 decode row, ragged S, and for K3 a nonzero initial state,
-   fewer groups than heads, and its final state against the sequential
-   oracle; kernel, plain and library times, and each call's bound;
+   length-0 decode row, ragged S, head_dim 256 with a window shorter than
+   S (K1) and 10 query heads per kv head (K2), for K3 a nonzero initial
+   state, fewer groups than heads, and its final state against the
+   sequential oracle, and for K4 an initial state, ragged S and W and a
+   bf16 y; kernel, plain and library times, and each call's bound;
 4. serve: qwen3-14b at full width (40 layers, bf16 params made on the card
    from a seed) answers four clients through the port's InferenceServer;
    the kernels' launch counts must rise by 40 per prefill (K1) and by 40
-   per decode step (K2), K3 must not run, and the served tokens must equal
-   greedy decoding; then mamba2-2.7b at full width (64 layers, bf16) the
-   same way, where K3 must rise by 64 per prefill and by 0 per decode step
-   and K1 and K2 must not run; each with a profiler breakdown of a
-   prefill and a decode step;
+   per decode step (K2), and K3 and K4 must not run; then mamba2-2.7b at
+   full width (64 layers, bf16) the same way, where K3 must rise by 64 per
+   prefill and by 0 per decode step and nothing else may run; then
+   recurrentgemma-2b at full width (26 layers, bf16), where K4 must rise by
+   18 per prefill and 0 per decode step, K1 by 8 per prefill and K2 by 8
+   per decode step; the served tokens must equal greedy decoding, and each
+   path gets a profiler breakdown of a prefill and a decode step;
 5. parity: at each arch's reduced config, prefill logits and greedy tokens
    from the port on the card equal the port on the CPU (the plain
    versions), in fp32.
@@ -50,8 +54,12 @@ PEAK_BYTES = 3.35e12
 CLIENTS, TOKENS = 4, 16
 # arch -> (prompt length, cache length); mamba's state ignores the latter,
 # which only has to admit prompt + CLIENTS * TOKENS steps
-SERVE = {"qwen3-14b": (256, 512), "mamba2-2.7b": (512, 576)}
+SERVE = {"qwen3-14b": (256, 512), "mamba2-2.7b": (512, 576),
+         "recurrentgemma-2b": (512, 576)}
 PROMPT_LEN, MAX_LEN = SERVE["qwen3-14b"]
+# the attention calls of recurrentgemma-2b's path: 10 query heads on one kv
+# head of 256, window 2048 (longer than the prompt), a ring of 576 slots
+RG = dict(h=10, kh=1, d=256, window=2048)
 
 
 def log(msg):
@@ -113,6 +121,7 @@ def kernel_phase():
     from repro_torch.kernels import decode_attention as K2
     from repro_torch.kernels import flash_attention as K1
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rglru_scan as K4
     from repro_torch.kernels import ssd_scan as K3
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -127,11 +136,16 @@ def kernel_phase():
 
     # ---- K1 ----
     log("== kernels: K1 flash attention (prefill)")
-    b, s, h, kh, d = CLIENTS, PROMPT_LEN, 40, 8, 128       # the serving path's call
+    b, s, h, kh, d = CLIENTS, PROMPT_LEN, 40, 8, 128       # qwen3's call
+    rs = SERVE["recurrentgemma-2b"][0]
     cases = [((b, s, h, kh, d), torch.bfloat16, {}),
+             ((b, rs, RG["h"], RG["kh"], RG["d"]), torch.bfloat16,   # RecurrentGemma's call
+              {"window": RG["window"]}),
+             ((2, 300, 10, 1, 256), torch.float32, {"window": 128}),  # D 256, window < S
              ((2, 200, 4, 2, 64), torch.float32, {"window": 64}),    # ragged S
              ((2, 77, 4, 4, 64), torch.float32, {"softcap": 30.0}),
-             ((2, 24, 4, 2, 16), torch.float32, {})]                  # reduced config
+             ((2, 24, 4, 2, 16), torch.float32, {}),                  # qwen3 reduced config
+             ((2, 150, 4, 1, 16), torch.float32, {"window": 32})]     # RecurrentGemma reduced
     main_err = None
     for (cb, cs, ch, ckh, cd), dt, kw in cases:
         q = rand(cb, cs, ch, cd, dtype=dt)
@@ -142,33 +156,45 @@ def kernel_phase():
         err = check_close(f"K1 {(cb, cs, ch, ckh, cd)} {str(dt)[6:]} {kw}", got, want,
                           tol[dt])
         main_err = err if main_err is None else main_err
-    q = rand(b, s, h, d, dtype=torch.bfloat16)
-    k, v = rand(b, s, kh, d, dtype=torch.bfloat16), rand(b, s, kh, d, dtype=torch.bfloat16)
-    sc = d ** -0.5
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    ms = time_ms("K1", lambda: K1.flash_attention(q, k, v, scale=sc))
-    plain_ms = time_ms("K1 plain", lambda: ops.flash_attention_plain(q, k, v, scale=sc))
-    lib_ms = time_ms("K1 library", lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, scale=sc, enable_gqa=True))
-    esz = q.element_size()
-    flops = 4 * d * (s * (s + 1) // 2) * b * h             # causal pairs only
-    nbytes = (2 * b * s * h * d + 2 * b * s * kh * d) * esz
+
+    def time_k1(b, s, h, kh, d, window=0):
+        q = rand(b, s, h, d, dtype=torch.bfloat16)
+        k, v = rand(b, s, kh, d, dtype=torch.bfloat16), rand(b, s, kh, d, dtype=torch.bfloat16)
+        sc = d ** -0.5
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        assert window == 0 or window >= s   # then the window masks nothing: SDPA's causal
+        ms = time_ms("K1", lambda: K1.flash_attention(q, k, v, scale=sc, window=window))
+        plain_ms = time_ms("K1 plain", lambda: ops.flash_attention_plain(
+            q, k, v, scale=sc, window=window))
+        lib_ms = time_ms("K1 library", lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, scale=sc, enable_gqa=True))
+        flops = 4 * d * (s * (s + 1) // 2) * b * h             # causal pairs only
+        nbytes = (2 * b * s * h * d + 2 * b * s * kh * d) * q.element_size()
+        row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   **bound(flops, nbytes, "bfloat16"))
+        log(f"   K1 at ({b},{s},{h},{kh},{d}) bf16: kernel_ms {ms:.4f} plain_ms "
+            f"{plain_ms:.4f} library_ms {lib_ms:.4f} (SDPA) bound_ms {row['bound_ms']:.4f} "
+            f"({row['bound_by']})")
+        return row
+
     rows["flash_attention"] = dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:63",
-        max_abs_err=main_err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        **bound(flops, nbytes, "bfloat16"))
-    log(f"   K1 at ({b},{s},{h},{kh},{d}) bf16: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
-        f"library_ms {lib_ms:.4f} (SDPA) bound_ms {rows['flash_attention']['bound_ms']:.4f} "
-        f"({rows['flash_attention']['bound_by']})")
+        max_abs_err=main_err, **time_k1(b, s, h, kh, d))
+    time_k1(b, rs, RG["h"], RG["kh"], RG["d"], RG["window"])
 
     # ---- K2 ----
     log("== kernels: K2 decode attention")
     S = MAX_LEN
+    rmax = SERVE["recurrentgemma-2b"][1]
     cases = [((b, S, h, kh, d), torch.bfloat16, [0, 1, 263, S]),
+             ((b, rmax, RG["h"], RG["kh"], RG["d"]), torch.bfloat16,   # RecurrentGemma's ring
+              [0, 1, rs + 8, rmax]),
+             ((2, 333, 10, 1, 256), torch.float32, [5, 333]),          # D 256, 10 heads a kv head
              ((3, 333, 8, 8, 64), torch.float32, [0, 5, 333]),          # ragged S, expanded
-             ((2, 64, 4, 2, 16), torch.float32, [0, 33])]               # reduced config
+             ((2, 64, 4, 2, 16), torch.float32, [0, 33]),               # qwen3 reduced config
+             ((2, 32, 4, 1, 16), torch.float32, [7, 32])]               # RecurrentGemma reduced
     main_err = None
     for (cb, cs, ch, ckh, cd), dt, lens in cases:
         q = rand(cb, ch, cd, dtype=dt)
@@ -180,16 +206,6 @@ def kernel_phase():
         err = check_close(f"K2 {(cb, cs, ch, ckh, cd)} {str(dt)[6:]} lengths {lens}",
                           got, want, tol[dt])
         main_err = err if main_err is None else main_err
-    # timing at the serving path's mid-run length, sixteen caches in rotation
-    # (69 MB of valid rows > the 50 MB L2): a decode step finds each layer's
-    # cache cold
-    n_valid = PROMPT_LEN + TOKENS // 2
-    q = rand(b, h, d, dtype=torch.bfloat16)
-    kvs = [(rand(b, S, kh, d, dtype=torch.bfloat16), rand(b, S, kh, d, dtype=torch.bfloat16))
-           for _ in range(16)]
-    ln = torch.full((b,), n_valid, dtype=torch.int32, device=dev)
-    mask = (torch.arange(S, device=dev) < n_valid).expand(b, 1, 1, S)
-    kvt = [(kk.transpose(1, 2).contiguous(), vv.transpose(1, 2).contiguous()) for kk, vv in kvs]
 
     def rotating(fn, pairs):
         it = [0]
@@ -199,25 +215,41 @@ def kernel_phase():
             it[0] += 1
             return fn(kk, vv)
         return call
-    ms = time_ms("K2", rotating(
-        lambda kk, vv: K2.decode_attention(q, kk, vv, ln, scale=sc), kvs), iters=32)
-    plain_ms = time_ms("K2 plain", rotating(
-        lambda kk, vv: ops.decode_attention_plain(q, kk, vv, ln, scale=sc), kvs), iters=32)
-    lib_ms = time_ms("K2 library", rotating(lambda kk, vv: F.scaled_dot_product_attention(
-        q[:, :, None], kk, vv, attn_mask=mask, scale=sc, enable_gqa=True), kvt), iters=32)
-    esz = q.element_size()
-    nbytes = (2 * b * h * d + 2 * b * n_valid * kh * d) * esz + 4 * b
-    flops = 4 * b * h * n_valid * d
+
+    def time_k2(b, S, h, kh, d, n_valid):
+        """Timing at a serving path's mid-run length, with enough caches in
+        rotation that their valid rows exceed the 50 MB L2: a decode step
+        finds each layer's cache cold."""
+        sc = d ** -0.5
+        q = rand(b, h, d, dtype=torch.bfloat16)
+        n_caches = max(16, -(-100_000_000 // (2 * b * S * kh * d * 2)))
+        kvs = [(rand(b, S, kh, d, dtype=torch.bfloat16), rand(b, S, kh, d, dtype=torch.bfloat16))
+               for _ in range(n_caches)]
+        ln = torch.full((b,), n_valid, dtype=torch.int32, device=dev)
+        mask = (torch.arange(S, device=dev) < n_valid).expand(b, 1, 1, S)
+        kvt = [(kk.transpose(1, 2).contiguous(), vv.transpose(1, 2).contiguous())
+               for kk, vv in kvs]
+        ms = time_ms("K2", rotating(
+            lambda kk, vv: K2.decode_attention(q, kk, vv, ln, scale=sc), kvs), iters=32)
+        plain_ms = time_ms("K2 plain", rotating(
+            lambda kk, vv: ops.decode_attention_plain(q, kk, vv, ln, scale=sc), kvs), iters=32)
+        lib_ms = time_ms("K2 library", rotating(lambda kk, vv: F.scaled_dot_product_attention(
+            q[:, :, None], kk, vv, attn_mask=mask, scale=sc, enable_gqa=True), kvt), iters=32)
+        nbytes = (2 * b * h * d + 2 * b * n_valid * kh * d) * q.element_size() + 4 * b
+        row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   **bound(4 * b * h * n_valid * d, nbytes, "bfloat16"))
+        log(f"   K2 at ({b},{S},{h},{kh},{d}) bf16, length {n_valid}, {n_caches} caches: "
+            f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} (SDPA) "
+            f"bound_ms {row['bound_ms']:.4f} ({row['bound_by']})")
+        del kvs, kvt
+        return row
+
     rows["decode_attention"] = dict(
         name="decode_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:51",
-        max_abs_err=main_err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        **bound(flops, nbytes, "bfloat16"))
-    log(f"   K2 at ({b},{S},{h},{kh},{d}) bf16, length {n_valid}: kernel_ms {ms:.4f} "
-        f"plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} (SDPA) "
-        f"bound_ms {rows['decode_attention']['bound_ms']:.4f} "
-        f"({rows['decode_attention']['bound_by']})")
+        max_abs_err=main_err, **time_k2(b, S, h, kh, d, PROMPT_LEN + TOKENS // 2))
+    time_k2(b, rmax, RG["h"], RG["kh"], RG["d"], rs + TOKENS // 2)
 
     # ---- K3 ----
     log("== kernels: K3 SSD chunked scan (Mamba2 prefill)")
@@ -279,6 +311,55 @@ def kernel_phase():
         f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms none (no PyTorch call computes the "
         f"SSD scan) bound_ms {rows['ssd_scan']['bound_ms']:.4f} ({rows['ssd_scan']['bound_by']}, "
         f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+
+    # ---- K4 ----
+    log("== kernels: K4 RG-LRU scan (RecurrentGemma prefill)")
+    # the model's gates: a = exp(-8 softplus(lam) r) in (0, 1), b the gated x
+
+    def rglru_inputs(b, s, w, with_h0):
+        a = torch.sigmoid(rand(b, s, w, dtype=torch.float32) + 2.0)
+        bb = rand(b, s, w, dtype=torch.float32) * 0.1
+        h0 = rand(b, w, dtype=torch.float32) if with_h0 else None
+        return a, bb, h0
+
+    gb, gs, gw = CLIENTS, SERVE["recurrentgemma-2b"][0], 2560       # the serving call
+    # atol is stated against max|h| (tests/test_kernels.py:78-86 holds the
+    # Pallas kernel to rglru_ref at 1e-5): 1e-5 in fp32; a bf16 y is the
+    # same fp32 h rounded once, so it may differ by one bf16 rounding
+    cases = [((gb, gs, gw), torch.float32, False),
+             ((gb, gs, gw), torch.bfloat16, True),          # as the prefill calls it
+             ((2, 37, 200), torch.float32, True),           # ragged S and W
+             ((2, 150, 64), torch.float32, True)]           # the reduced config
+    main_err = None
+    for (cb, cs, cw), out_dt, with_h0 in cases:
+        a, bb, h0 = rglru_inputs(cb, cs, cw, with_h0)
+        y, h_last = K4.rglru_scan(a, bb, h0=h0, out_dtype=out_dt)
+        yp, hp = ops.rglru_scan_plain(a, bb, h0=h0, out_dtype=out_dt)
+        torch.cuda.synchronize()
+        scale = max(float(yp.float().abs().max()), 1.0)
+        name = f"K4 {(cb, cs, cw)} y {str(out_dt)[6:]} h0={with_h0}"
+        rtol = 1e-5 if out_dt == torch.float32 else tol[out_dt]
+        err = check_close(f"{name} y", y, yp, rtol, rtol * scale)
+        check_close(f"{name} h_last", h_last, hp, 1e-5, 1e-5 * scale)
+        main_err = err if main_err is None else main_err
+    # timing: the serving path's call (bf16 y, the cache's zero state as h0,
+    # the last state written)
+    a, bb, _ = rglru_inputs(gb, gs, gw, False)
+    h0 = torch.zeros(gb, gw, device=dev)
+    ms = time_ms("K4", lambda: K4.rglru_scan(a, bb, h0=h0, out_dtype=torch.bfloat16))
+    plain_ms = time_ms("K4 plain", lambda: ops.rglru_scan_plain(
+        a, bb, h0=h0, out_dtype=torch.bfloat16), iters=3, warmup=1)
+    nbytes = 4 * (a.numel() + bb.numel()) + 2 * a.numel() + 2 * 4 * h0.numel()
+    flops = 2 * a.numel()
+    rows["rglru_scan"] = dict(
+        name="rglru_scan", route="cuda", source="src/repro_torch/kernels/csrc/rglru_scan.cu",
+        replaces="src/repro/kernels/rglru_scan.py:39",
+        max_abs_err=main_err, ms=ms, plain_ms=plain_ms, library_ms=None,
+        **bound(flops, nbytes, "float32"))
+    log(f"   K4 at ({gb},{gs},{gw}) fp32 a and b, bf16 y, h0 and last state: kernel_ms "
+        f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms none (no PyTorch call computes a "
+        f"linear recurrence) bound_ms {rows['rglru_scan']['bound_ms']:.4f} "
+        f"({rows['rglru_scan']['bound_by']}, {nbytes / 1e6:.1f} MB)")
     return rows
 
 
@@ -293,14 +374,28 @@ def expected_launches(cfg, steps):
     """Launches of a serve run (one prefill, `steps` decode steps): the
     dense LM runs K1 once per layer in prefill and K2 once per layer in
     each decode step; Mamba runs K3 once per layer in prefill and nothing
-    in decode."""
+    in decode; RecurrentGemma runs K4 once per recurrent layer in prefill
+    and nothing in decode, and K1 and K2 as the dense LM does on its
+    local-attention layers."""
     if cfg.family == "ssm":
-        return {"flash_attention": 0, "decode_attention": 0, "ssd_scan": cfg.num_layers}
+        return {"flash_attention": 0, "decode_attention": 0, "ssd_scan": cfg.num_layers,
+                "rglru_scan": 0}
+    if cfg.family == "hybrid":
+        from repro_torch.models.recurrentgemma import layer_kinds
+        n_rec = layer_kinds(cfg).count("rglru")
+        n_att = cfg.num_layers - n_rec
+        return {"flash_attention": n_att, "decode_attention": n_att * steps, "ssd_scan": 0,
+                "rglru_scan": n_rec}
     return {"flash_attention": cfg.num_layers, "decode_attention": cfg.num_layers * steps,
-            "ssd_scan": 0}
+            "ssd_scan": 0, "rglru_scan": 0}
 
 
 def describe(cfg):
+    if cfg.family == "hybrid":
+        return (f"d_model {cfg.d_model}, lru_width {cfg.lru_width}, pattern "
+                f"{'/'.join(cfg.block_pattern)}, heads {cfg.num_heads}/{cfg.num_kv_heads}, "
+                f"head_dim {cfg.head_dim}, window {cfg.local_window}, d_ff {cfg.d_ff}, vocab "
+                f"{cfg.vocab_size}, tied embeddings {cfg.tie_embeddings}")
     if cfg.family == "ssm":
         return (f"d_model {cfg.d_model}, d_inner {cfg.ssm_dinner}, {cfg.ssm_nheads} heads of "
                 f"{cfg.ssm_headdim}, state {cfg.ssm_state}, groups {cfg.ssm_ngroups}, conv "
@@ -311,7 +406,6 @@ def describe(cfg):
 
 
 def serve_phase(arch):
-    from repro_torch.configs.base import param_count
     from repro_torch.configs.registry import get_config, make_model
     from repro_torch.kernels import ops
     from repro_torch.launch import serve_policy
@@ -319,8 +413,7 @@ def serve_phase(arch):
 
     prompt_len, max_len = SERVE[arch]
     cfg = get_config(arch).with_(param_dtype="bfloat16", compute_dtype="bfloat16")
-    log(f"== serve: {cfg.name} {describe(cfg)}, {cfg.num_layers} layers, "
-        f"{param_count(cfg) / 1e9:.2f} B params")
+    log(f"== serve: {cfg.name} {describe(cfg)}, {cfg.num_layers} layers")
     dev = torch.device("cuda")
     bundle = make_model(cfg)
     t0 = time.perf_counter()
@@ -408,7 +501,8 @@ def device_breakdown(prof, n):
     """Kernel time per call from a profiler trace, grouped: the port's
     kernels, GEMMs (cuBLAS / CUTLASS), and everything else; and the number
     of device kernels per call."""
-    groups = {"busy": 0.0, "K1": 0.0, "K2": 0.0, "K3": 0.0, "gemm": 0.0, "other": 0.0}
+    groups = {"busy": 0.0, "K1": 0.0, "K2": 0.0, "K3": 0.0, "K4": 0.0, "gemm": 0.0,
+              "other": 0.0}
     kernels = 0
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -422,6 +516,8 @@ def device_breakdown(prof, n):
             g = "K2"
         elif "ssd_chunk_kernel" in name:
             g = "K3"
+        elif "rglru_kernel" in name:
+            g = "K4"
         elif any(t in name for t in ("gemm", "gemv", "cutlass", "nvjet", "xmma", "cublas")):
             g = "gemm"
         else:
@@ -489,16 +585,20 @@ def main():
 
     rows = kernel_phase()
     # each path is driven with the counts set to 0 just before it and read
-    # just after; a kernel's launches are those of the path that runs it
-    serve_metrics, launches = {}, {}
-    for arch, kernels in (("qwen3-14b", ("flash_attention", "decode_attention")),
-                          ("mamba2-2.7b", ("ssd_scan",))):
+    # just after; a kernel's launches are the sum over the paths that run it
+    # (K1 and K2 run on qwen3's and RecurrentGemma's)
+    serve_metrics, launches = {}, dict.fromkeys(rows, 0)
+    for arch in SERVE:
         counts, serve_metrics[arch] = serve_phase(arch)
-        launches.update({k: counts[k] for k in kernels})
+        for name in launches:
+            launches[name] += counts[name]
         torch.cuda.empty_cache()
-    # mamba: 150 tokens span two of K3's 64-step chunks and a tail
+    # mamba: 150 tokens span two of K3's 64-step chunks and a tail;
+    # RecurrentGemma: 150 tokens overflow the reduced config's window of 32,
+    # so K1's window mask and the ring's wrap in prefill and decode all run
     parity_phase("qwen3-14b", 24)
     parity_phase("mamba2-2.7b", 150)
+    parity_phase("recurrentgemma-2b", 150)
 
     for name, row in rows.items():
         row["launches"] = launches[name]

@@ -9,6 +9,7 @@ import importlib
 _MODULES = {
     "qwen3-14b": "repro_torch.configs.qwen3_14b",
     "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
+    "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
 }
 
 ARCHS = tuple(_MODULES)
@@ -30,6 +31,9 @@ def make_model(cfg):
     if cfg.family == "ssm":
         from repro_torch.models.mamba import make_mamba
         return make_mamba(cfg)
+    if cfg.family == "hybrid":
+        from repro_torch.models.recurrentgemma import make_recurrentgemma
+        return make_recurrentgemma(cfg)
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     from repro_torch.models.lm import make_lm
@@ -46,6 +50,9 @@ def smoke_config(arch: str):
                      head_dim=16)
     if cfg.family == "ssm":
         small.update(ssm_state=16, ssm_headdim=8, ssm_chunk=16)
+    if cfg.family == "hybrid":
+        small.update(lru_width=64, local_window=32,
+                     num_layers=len(cfg.block_pattern) + 2)
     if cfg.attn_pattern != ("global",):
         small.update(num_layers=len(cfg.attn_pattern) * 2, local_window=32)
     return cfg.with_(**small, remat="none", fsdp="none", tp=1,

@@ -3,9 +3,11 @@
 The JAX models stack each block parameter along a leading layer axis, under
 ``main.p0.*`` in the dense LM (one pattern period, scanned) and under
 ``blocks.*`` in Mamba; the port keeps one module per layer under
-``blocks.{i}.*``. Every tensor keeps the JAX layout (wq (d,H,hd), wo
-(H,hd,d), wi (d,ff), unembed (d,V), in_proj (d, ...), conv.w (W,C)), so
-only the layer axis moves.
+``blocks.{i}.*``. RecurrentGemma scans periods of P layers: leaf ``[j]`` of
+``main.p{k}.*`` is layer P*j + k, and the unscanned ``rest{j}.*`` that
+follow the n_scan periods are layers n_scan*P + j. Every tensor keeps the
+JAX layout (wq (d,H,hd), wo (H,hd,d), wi (d,ff), unembed (d,V), in_proj
+(d, ...), conv.w (W,C)), so only the layer axis moves.
 """
 
 import numpy as np
@@ -28,7 +30,10 @@ def _tensor(a) -> torch.Tensor:
 def params_from_jax(cfg, params_np) -> dict:
     """JAX params (a nested dict of numpy arrays) -> the state dict of the
     port's model for `cfg.family` (``models.lm.LM`` for dense,
-    ``models.mamba.Mamba`` for ssm): CPU tensors, the arrays' dtypes."""
+    ``models.mamba.Mamba`` for ssm, ``models.recurrentgemma.RecurrentGemma``
+    for hybrid): CPU tensors, the arrays' dtypes."""
+    if cfg.family == "hybrid":
+        return _hybrid_from_jax(cfg, params_np)
     if cfg.family == "ssm":
         stacked = "blocks."
     elif "pre" in params_np or set(params_np.get("main", {})) != {"p0"}:
@@ -45,6 +50,26 @@ def params_from_jax(cfg, params_np) -> dict:
                                  f"num_layers {cfg.num_layers}")
             for i in range(cfg.num_layers):
                 out[f"blocks.{i}.{rest}"] = _tensor(arr[i])
+        else:
+            out[name] = _tensor(arr)
+    return out
+
+
+def _hybrid_from_jax(cfg, params_np) -> dict:
+    period = len(cfg.block_pattern)
+    n_scan = cfg.num_layers // period
+    out = {}
+    for name, arr in _flatten(params_np):
+        head, _, rest = name.partition(".")
+        if head == "main":
+            part, _, rest = rest.partition(".")
+            k = int(part[1:])                       # "p{k}"
+            if arr.shape[0] != n_scan:
+                raise ValueError(f"{name}: leading axis {arr.shape[0]} != {n_scan} periods")
+            for j in range(n_scan):
+                out[f"blocks.{period * j + k}.{rest}"] = _tensor(arr[j])
+        elif head.startswith("rest"):
+            out[f"blocks.{n_scan * period + int(head[4:])}.{rest}"] = _tensor(arr)
         else:
             out[name] = _tensor(arr)
     return out

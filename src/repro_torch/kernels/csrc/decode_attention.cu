@@ -17,19 +17,29 @@
 //
 // Bound on the H100 SXM (3.35 TB/s): the bytes of K and V that the lengths
 // make valid, 2 * B * KH * min(len, S) * D * sizeof(T), plus q and o; the
-// operations (4 * B * H * len * D) are far below the compute roof. At the
-// serving slice's shapes (B = 4, KH = 8, D = 128, bf16, len ~ 256..272) that
-// is about 4.5 MB a call, 1.3 us.
+// operations (4 * B * H * len * D) are far below the compute roof. At
+// qwen3's serving shapes (B = 4, KH = 8, D = 128, bf16, len ~ 256..272) that
+// is about 4.5 MB a call, 1.3 us; at RecurrentGemma's (B 4, 10 query heads
+// on KH = 1, D 256, a ring of 576 slots with len ~ 520) about 2.2 MB, 0.64
+// us.
 //
-// Design against that bound: one CTA per (kv head, batch row) reads each
-// valid K and V row exactly once and serves all H / KH query heads that
-// share it, so GQA costs no extra bytes. Eight warps stride over positions,
-// four positions per warp per step, so eight independent loads a lane are in
-// flight; each lane holds D / 32 dimensions, and a dot product is finished
-// with warp shuffles. Positions past the valid length are not read at all:
-// their logits are -1e30 and add exp(-1e30 - m) == 0 next to a valid one.
-// The warps' partial (m, l, acc) are merged through shared memory. With
-// only B * KH CTAs (32 at the slice's shapes) the card is far from full;
+// Design against that bound: one CTA per (kv head, block of query heads,
+// batch row) reads each valid K and V row once and serves the query heads
+// of its block that share it. A block holds up to HB heads (8 up to D 128,
+// 5 at D 256), so qwen3's 5 heads per kv head are one block and GQA costs
+// no extra bytes; RecurrentGemma's 10 are two blocks, which read the kv
+// head twice (from L2 the second time) and double the CTAs. The block
+// bounds both the per-lane registers (q and the accumulator are HB x D/32
+// floats) and the static shared memory (NW x HB x D floats for the merge,
+// 40 KB at D 256), so any number of query heads per kv head is served.
+// Eight warps stride over positions, PPW positions per warp per step (4, or
+// 2 at D 256 to keep K and V's registers at 32 a lane), so 2 * PPW * D/32
+// independent loads a lane are in flight; each lane holds D / 32
+// dimensions, and a dot product is finished with warp shuffles. Positions
+// past the valid length are not read at all: their logits are -1e30 and add
+// exp(-1e30 - m) == 0 next to a valid one. The warps' partial (m, l, acc)
+// are merged through shared memory. With only B * KH * blocks CTAs (32 at
+// qwen3's shapes, 8 at RecurrentGemma's) the card is far from full;
 // splitting S across more CTAs, with a combine pass, is the next step.
 
 #include <cuda_bf16.h>
@@ -39,9 +49,11 @@
 namespace {
 
 constexpr int NW = 8;          // warps per CTA
-constexpr int PPW = 4;         // positions per warp per step
-constexpr int MAXG = 8;        // most query heads per kv head
 constexpr float NEG_INF = -1e30f;
+
+// Query heads per CTA and positions per warp per step, by head dim.
+template <int D> __host__ __device__ constexpr int heads_per_cta() { return D > 128 ? 5 : 8; }
+template <int D> __host__ __device__ constexpr int positions_per_warp() { return D > 128 ? 2 : 4; }
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -63,14 +75,19 @@ __global__ void __launch_bounds__(NW * 32)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
               const int* __restrict__ lengths, T* __restrict__ o, int S, int H, int KH,
               float scale) {
+  constexpr int MAXG = heads_per_cta<D>();
+  constexpr int PPW = positions_per_warp<D>();
   constexpr int DPL = D >= 32 ? D / 32 : 1;   // dims per lane
   constexpr int LANES = D / DPL;              // lanes that hold dims
   __shared__ float sm_acc[NW][MAXG][D];
   __shared__ float sm_m[NW][MAXG];
   __shared__ float sm_l[NW][MAXG];
 
-  const int G = H / KH;
-  const int kh = blockIdx.x, b = blockIdx.y;
+  // this CTA serves query heads kh * GQ + g0 .. + G - 1 of kv head kh
+  const int GQ = H / KH;
+  const int NB = (GQ + MAXG - 1) / MAXG;       // head blocks per kv head
+  const int kh = blockIdx.x / NB, g0 = (blockIdx.x % NB) * MAXG, b = blockIdx.y;
+  const int G = min(MAXG, GQ - g0);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const bool active = lane < LANES;
   const int d0 = lane * DPL;
@@ -79,7 +96,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   const bool empty = len <= 0;                 // every logit masked
   const int n = empty ? S : min(len, S);       // positions this row reads
 
-  const T* qb = q + ((long)b * H + (long)kh * G) * D;
+  const T* qb = q + ((long)b * H + (long)kh * GQ + g0) * D;
   const long ps = (long)KH * D;                // stride of one cache position
   const T* kb = k + (long)b * S * ps + (long)kh * D;
   const T* vb = v + (long)b * S * ps + (long)kh * D;
@@ -155,7 +172,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   }
   __syncthreads();
 
-  T* ob = o + ((long)b * H + (long)kh * G) * D;
+  T* ob = o + ((long)b * H + (long)kh * GQ + g0) * D;
   for (int i = threadIdx.x; i < G * D; i += NW * 32) {
     const int g = i / D, d = i % D;
     float mm = NEG_INF;
@@ -175,7 +192,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* lengths, void* o, int B,
            int S, int H, int KH, float scale, cudaStream_t stream) {
-  dim3 grid(KH, B);
+  constexpr int MAXG = heads_per_cta<D>();
+  dim3 grid(KH * ((H / KH + MAXG - 1) / MAXG), B);
   decode_kernel<T, D><<<grid, NW * 32, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int*>(lengths), static_cast<T*>(o), S, H, KH, scale);
@@ -189,6 +207,7 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, const void* l
     case 16: return launch<T, 16>(q, k, v, lengths, o, B, S, H, KH, scale, st);
     case 64: return launch<T, 64>(q, k, v, lengths, o, B, S, H, KH, scale, st);
     case 128: return launch<T, 128>(q, k, v, lengths, o, B, S, H, KH, scale, st);
+    case 256: return launch<T, 256>(q, k, v, lengths, o, B, S, H, KH, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -201,7 +220,7 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, const void* l
 extern "C" int decode_attention(int dtype, const void* q, const void* k, const void* v,
                                 const void* lengths, void* o, int B, int S, int H, int KH, int D,
                                 float scale, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || KH <= 0 || H % KH != 0 || H / KH > MAXG)
+  if (B <= 0 || S <= 0 || H <= 0 || KH <= 0 || H % KH != 0 || B > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {

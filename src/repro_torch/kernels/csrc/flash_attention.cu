@@ -15,22 +15,29 @@
 // Bound on the H100 SXM (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s fp32
 // CUDA cores, 3.35 TB/s): causal FLOPs = 2 * BH * S^2 * D (two products,
 // half the score matrix). This kernel uses the fp32 CUDA cores, so its own
-// floor is FLOPs / 67e12; the card's floor is FLOPs / 989e12. At the
-// serving slice's shapes (BH = 4*40, S = 256, D = 128, bf16) that is 2.7
-// GFLOP a call, 40 us on CUDA cores and 2.7 us on tensor cores; q, k, v and
-// o, each read or written once, are 25 MB, 7.5 us at 3.35 TB/s, so at this
-// short S the card's bound is the bytes.
+// floor is FLOPs / 67e12; the card's floor is FLOPs / 989e12. At qwen3's
+// serving shapes (BH = 4*40, S = 256, D = 128, bf16) that is 2.7 GFLOP a
+// call, 40 us on CUDA cores and 2.7 us on tensor cores; q, k, v and o, each
+// read or written once, are 25 MB, 7.5 us at 3.35 TB/s, so at this short S
+// the card's bound is the bytes. At RecurrentGemma's (B 4, S 512, 10 query
+// heads on 1 kv head, D 256, window 2048 > S, bf16) it is 5.4 GFLOP, 80 us
+// on CUDA cores and 5.4 us on tensor cores, against 23.1 MB (q and o 21.0
+// MB, the single kv head 2.1 MB), 6.9 us: the bytes again.
 //
-// Design against that bound: one CTA per (q tile of 64 rows, head, batch)
+// Design against that bound: one CTA per (q tile of BQ rows, head, batch)
 // loops over 32-key KV tiles staged in shared memory as fp32, carrying the
 // running max m, sum l and the accumulator in registers; tiles entirely
 // above the causal diagonal (or entirely outside the window) are never
-// loaded, which halves the work of the causal case. Each thread owns a 4x4
-// block of scores and a 4 x D/8 block of the output; the 8 lanes that share
-// a row group reduce the row max and sum with warp shuffles. Shared-memory
-// rows are padded so that neither product has bank conflicts. Moving the
-// two products onto wgmma with TMA-fed tiles is the next step, in a later
-// change: this kernel's own CUDA-core floor (40 us) is 5x the card's bound.
+// loaded, which halves the work of the causal case. Each thread owns a
+// RPT x 4 block of scores and a RPT x D/8 block of the output; the 8 lanes
+// that share a row group reduce the row max and sum with warp shuffles.
+// Shared-memory rows are padded so that neither product has bank conflicts.
+// Up to D = 128 a tile is 64 rows (RPT 4). At D = 256 it is 32 rows (RPT
+// 2): the accumulator stays at 64 registers a thread instead of 128, so it
+// does not spill, and the 103 KB of shared memory let two CTAs share an SM.
+// Moving the two products onto wgmma with TMA-fed tiles is the next step,
+// in a later change: this kernel's own CUDA-core floor is 5-12x the card's
+// bound at these shapes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -40,16 +47,16 @@
 
 namespace {
 
-constexpr int BQ = 64;         // query rows per CTA
 constexpr int BK = 32;         // keys per KV tile
 constexpr int NT = 128;        // threads per CTA
 constexpr int CG = 8;          // lanes sharing one row group
-constexpr int RPT = 4;         // rows per thread: (NT / CG) * RPT == BQ
 constexpr int CPT = BK / CG;   // score columns per thread
 constexpr int SP = BK + 2;     // padded row of the probability tile
 constexpr float NEG_INF = -1e30f;
 
-static_assert((NT / CG) * RPT == BQ, "row groups must cover the q tile");
+// Rows per thread and query rows per CTA, by head dim: (NT / CG) * RPT == BQ.
+template <int D> __host__ __device__ constexpr int rows_per_thread() { return D > 128 ? 2 : 4; }
+template <int D> __host__ __device__ constexpr int q_rows() { return (NT / CG) * rows_per_thread<D>(); }
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -62,6 +69,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 
 template <int D>
 constexpr size_t smem_bytes() {
+  constexpr int BQ = q_rows<D>();
   return sizeof(float) * (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * SP);
 }
 
@@ -70,6 +78,8 @@ __global__ void __launch_bounds__(NT)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
              T* __restrict__ o, int S, int H, int KH, float scale, int causal, int window,
              float softcap) {
+  constexpr int RPT = rows_per_thread<D>();
+  constexpr int BQ = q_rows<D>();
   constexpr int DP = D + 1;       // padded row: column reads hit distinct banks
   constexpr int DPT = D / CG;     // output dims per thread
   extern __shared__ float smem[];
@@ -220,7 +230,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
     if (err != cudaSuccess) return (int)err;
     opted_in.fetch_or(bit, std::memory_order_relaxed);
   }
-  dim3 grid((S + BQ - 1) / BQ, H, B);
+  dim3 grid((S + q_rows<D>() - 1) / q_rows<D>(), H, B);
   flash_kernel<T, D><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), S, H, KH, scale, causal, window, softcap);
@@ -234,6 +244,7 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, void* o, int 
     case 16: return launch<T, 16>(q, k, v, o, B, S, H, KH, scale, causal, window, softcap, st);
     case 64: return launch<T, 64>(q, k, v, o, B, S, H, KH, scale, causal, window, softcap, st);
     case 128: return launch<T, 128>(q, k, v, o, B, S, H, KH, scale, causal, window, softcap, st);
+    case 256: return launch<T, 256>(q, k, v, o, B, S, H, KH, scale, causal, window, softcap, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

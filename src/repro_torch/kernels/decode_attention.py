@@ -14,8 +14,6 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS
 
-MAX_GROUP = 8  # most query heads per kv head (MAXG in the source)
-
 
 @functools.cache
 def _fn():
@@ -36,9 +34,8 @@ def decode_attention(q, k, v, lengths, *, scale=None):
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, h, d = q.shape
     s, kh = k.shape[1], k.shape[2]
-    if k.shape[0] != b or k.shape[3] != d or h % kh or h // kh > MAX_GROUP:
-        raise ValueError(f"k/v {tuple(k.shape)} do not match q {tuple(q.shape)} "
-                         f"(at most {MAX_GROUP} query heads per kv head)")
+    if k.shape[0] != b or k.shape[3] != d or h % kh:
+        raise ValueError(f"k/v {tuple(k.shape)} do not match q {tuple(q.shape)}")
     if lengths.shape != (b,) or lengths.dtype != torch.int32:
         raise ValueError(f"lengths must be int32 of shape ({b},)")
     if d not in HEAD_DIMS:

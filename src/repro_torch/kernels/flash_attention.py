@@ -13,7 +13,7 @@ import torch
 from repro_torch.kernels import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 64, 128)
+HEAD_DIMS = (16, 64, 128, 256)
 
 
 @functools.cache

@@ -6,19 +6,23 @@ launches the hand-written kernel or raises — there is no fallback.
 Unlike the JAX wrappers, k and v may keep fewer heads than q (GQA, KH
 dividing H), and the SSD scan's b and c may keep fewer groups than x has
 heads: the kernels read them unexpanded, and the plain versions expand
-them first. ``scale`` defaults to D**-0.5, as in the JAX package.
+them first. ``scale`` defaults to D**-0.5, as in the JAX package. The
+RG-LRU scan takes an initial state and returns the last one, which the
+Pallas kernel does not, because the model needs both.
 """
 
 import torch
 
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import rglru_scan as _rglru
 from repro_torch.kernels import ssd_scan as _ssd
-from repro_torch.kernels.ref import attention_ref, decode_attention_ref
+from repro_torch.kernels.ref import attention_ref, decode_attention_ref, rglru_ref
 
 KERNELS = {"flash_attention": _flash.flash_attention,
            "decode_attention": _decode.decode_attention,
-           "ssd_scan": _ssd.ssd_scan}
+           "ssd_scan": _ssd.ssd_scan,
+           "rglru_scan": _rglru.rglru_scan}
 
 
 def launch_counts() -> dict:
@@ -148,3 +152,18 @@ def ssd_scan(x, dt, a, b, c, *, chunk=128, h0=None, return_state=False):
     else:
         y, state = _ssd.ssd_scan(x, dt, a, b, c, h0=h0, return_state=return_state)
     return (y, state) if return_state else y
+
+
+def rglru_scan_plain(a, b, *, h0=None, out_dtype=torch.float32):
+    """Plain PyTorch version of `rglru_scan` (any device): ``rglru_ref``'s
+    loop over S with an fp32 carry, each h_t rounded once to `out_dtype`."""
+    y, h_last = rglru_ref(a, b, h0)
+    return y.to(out_dtype), h_last
+
+
+def rglru_scan(a, b, *, h0=None, out_dtype=torch.float32):
+    """h_t = a_t * h_{t-1} + b_t. a, b (B,S,W) fp32; h0 (B,W) fp32 or None
+    (zeros). Returns (y (B,S,W) in `out_dtype`, h_last (B,W) fp32)."""
+    if _on_cpu(a, b, *(() if h0 is None else (h0,))):
+        return rglru_scan_plain(a, b, h0=h0, out_dtype=out_dtype)
+    return _rglru.rglru_scan(a, b, h0=h0, out_dtype=out_dtype)

@@ -57,3 +57,15 @@ def ssd_ref(x, dt, a, b, c, h0=None):
         ys.append(torch.einsum("bhn,bhpn->bhp", c[:, t].float(), state))
     y = torch.stack(ys, dim=1) if ys else x.new_zeros(x.shape, dtype=torch.float32)
     return y.to(x.dtype), state
+
+
+def rglru_ref(a, b, h0=None):
+    """Sequential linear recurrence h_t = a_t h_{t-1} + b_t. a,b (B,S,W).
+    Returns (the fp32 h sequence (B,S,W), the last h (B,W))."""
+    bs, s, w = a.shape
+    h = (h0 if h0 is not None else torch.zeros((bs, w), device=a.device)).float()
+    hs = []
+    for t in range(s):
+        h = a[:, t] * h + b[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1), h

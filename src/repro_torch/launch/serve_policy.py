@@ -4,12 +4,15 @@ policy): batched prefill, then N clients decode token by token through the
 
     PYTHONPATH=src python -m repro_torch.launch.serve_policy --arch qwen3-14b
     PYTHONPATH=src python -m repro_torch.launch.serve_policy --arch mamba2-2.7b
+    PYTHONPATH=src python -m repro_torch.launch.serve_policy --arch recurrentgemma-2b
 
-runs the reduced config (``smoke_config``) of either ported arch on the
-card; ``--device cpu`` runs the plain PyTorch path. ``chip_smoke.py`` serves
-both at their published widths in bf16 by calling ``serve`` directly.
+runs the reduced config (``smoke_config``) of a ported arch on the card;
+``--device cpu`` runs the plain PyTorch path. ``chip_smoke.py`` serves all
+three at their published widths in bf16 by calling ``serve`` directly.
 qwen3-14b decodes against a KV cache of ``max_len`` slots; mamba2-2.7b
-carries a fixed-size state per layer and ignores ``max_len``.
+carries a fixed-size state per layer and ignores ``max_len``;
+recurrentgemma-2b carries a state per recurrent layer and a ring of
+min(``max_len``, window) slots per local-attention layer.
 
 Every client gets its own seeded prompt. The server hands out slots in
 first-sight order, so the slots are claimed for clients 0..N-1 before the

@@ -28,7 +28,7 @@ def value_head(p, x):
 
 def lm_outputs(cfg, params, x):
     """Final norm, then the fp32 logits and the value of every position."""
-    h = apply_norm(params.final_norm, x, cfg.norm_eps)
+    h = apply_norm(params.final_norm, x, cfg.norm_eps, cfg.gemma_scale)
     return ModelOutputs(logits=unembed(cfg, params.embed, h),
                         value=value_head(params.value_head, h))
 

@@ -1,11 +1,14 @@
-"""Multi-head attention with GQA, qk-norm and a KV cache — global kind.
+"""Multi-head attention with GQA, qk-norm, local windows and a KV cache.
 
 Mirrors ``repro.nn.attention``. Prefill goes through ``ops.flash_attention``
 (K1) and one-token decode through ``ops.decode_attention`` (K2); on the card
 both are the hand-written CUDA kernels, on the CPU their plain versions.
 Both read the unexpanded GQA cache, so no head-expanded copy is built.
-Local (sliding-window) layers and softcaps come with the gemma2 slice;
-``models.lm.check_supported`` refuses configs that use them.
+
+A local (sliding-window) layer keeps a ring cache of min(max_len, window)
+slots, position p at slot p % size, as the JAX package does; RecurrentGemma
+uses it. Softcaps come with the gemma2 slice, and
+``models.lm.check_supported`` still refuses a dense LM with local layers.
 
 The cache is updated in place (the JAX serve step donates it, so the
 memory behaviour is the same); each call also returns the cache it wrote.
@@ -43,10 +46,8 @@ class Attention(nn.Module):
 
 
 def _check_kind(kind):
-    if kind != "global":
-        raise NotImplementedError(
-            f"attention kind {kind!r} is not ported yet; local (sliding-window) "
-            "layers come with the gemma2 slice")
+    if kind not in ("global", "local"):
+        raise NotImplementedError(f"attention kind {kind!r} is not ported yet")
 
 
 def _proj(x, w):
@@ -83,12 +84,13 @@ def attention(cfg, p, x, positions, *, kind="global",
     q, k, v = qkv_project(cfg, p, x)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    window = cfg.local_window if kind == "local" else 0
     out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                              causal=True, window=0, softcap=None, scale=scale)
+                              causal=True, window=window, softcap=None, scale=scale)
     y = _out_proj(out, p.wo)
     new_cache = None
     if cache is not None:
-        new_cache = _prefill_cache(cache, k, v, positions)
+        new_cache = _prefill_cache(cache, k, v, positions, kind)
     return y, new_cache
 
 
@@ -96,18 +98,23 @@ def attention(cfg, p, x, positions, *, kind="global",
 
 def make_cache(cfg, batch, max_len, kind="global", dtype=torch.bfloat16,
                device="cuda"):
-    """Cache entry for one attention layer."""
+    """Cache entry for one attention layer. Local layers use a ring buffer."""
     _check_kind(kind)
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    size = min(max_len, cfg.local_window) if kind == "local" else max_len
+    shape = (batch, size, cfg.num_kv_heads, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
-        "pos": torch.full((max_len,), -1, dtype=torch.int32, device=device),
+        "pos": torch.full((size,), -1, dtype=torch.int32, device=device),
     }
 
 
-def _prefill_cache(cache, k, v, positions):
-    slot = positions.long()
+def _prefill_cache(cache, k, v, positions, kind):
+    size = cache["k"].shape[1]
+    if kind == "local" and k.shape[1] > size:
+        # keep the last `size` positions (ring layout: slot = pos % size)
+        k, v, positions = k[:, -size:], v[:, -size:], positions[-size:]
+    slot = (positions % size if kind == "local" else positions).long()
     cache["k"][:, slot] = k.to(cache["k"].dtype)
     cache["v"][:, slot] = v.to(cache["v"].dtype)
     cache["pos"][slot] = positions.to(torch.int32)
@@ -130,7 +137,8 @@ def decode_attention(cfg, p, x, index, cache, *, kind="global"):
     k = apply_rope(k, pos, cfg.rope_theta)
 
     ck, cv = cache["k"], cache["v"]
-    slot = pos.long()
+    size = ck.shape[1]
+    slot = (pos % size if kind == "local" else pos).long()
     ck.index_copy_(1, slot, k.to(ck.dtype))
     cv.index_copy_(1, slot, v.to(cv.dtype))
     cache["pos"].index_copy_(0, slot, pos.to(torch.int32))
@@ -138,8 +146,12 @@ def decode_attention(cfg, p, x, index, cache, *, kind="global"):
     # The JAX decode masks by the cache's `pos` array; the kernel masks by a
     # valid length per row. They agree because a global cache is filled
     # contiguously from slot 0: after this write, slots 0..index hold
-    # positions 0..index and the rest are empty, so length = index + 1.
-    lengths = (pos + 1).to(torch.int32).expand(b).contiguous()
+    # positions 0..index and the rest are empty, so length = index + 1. A
+    # ring of size <= window holds only positions inside the window, the
+    # last min(index + 1, size) of them in slots 0..min(index + 1, size) - 1,
+    # and softmax does not care about their order.
+    n_valid = pos + 1 if kind == "global" else torch.clamp(pos + 1, max=size)
+    lengths = n_valid.to(torch.int32).expand(b).contiguous()
     # The kernel reads one dtype, so q is rounded to the cache's dtype (a
     # no-op when compute and cache dtypes agree, as on the serving path).
     out = ops.decode_attention(q[:, 0].to(ck.dtype).contiguous(), ck, cv,

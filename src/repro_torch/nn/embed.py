@@ -1,6 +1,8 @@
-"""Token embedding table (vocab padded to the TP degree) + logits head.
-(The gemma-style embedding scale and the final softcap of
-``repro.nn.embed`` come with the gemma2 slice.)"""
+"""Token embedding table (vocab padded to the TP degree) + logits head,
+with gemma's embedding scale. (The final softcap of ``repro.nn.embed``
+comes with the gemma2 slice.)"""
+
+import math
 
 import torch
 from torch import nn
@@ -23,8 +25,11 @@ class Embed(nn.Module):
                                         requires_grad=False)
 
 
-def embed(cfg, p, tokens):
-    return p.table[tokens].to(dtype_of(cfg.compute_dtype))
+def embed(cfg, p, tokens, scale_by_dim=False):
+    x = p.table[tokens]
+    if scale_by_dim:  # gemma convention, in the table's dtype as in the JAX package
+        x = x * math.sqrt(cfg.d_model)
+    return x.to(dtype_of(cfg.compute_dtype))
 
 
 def unembed(cfg, p, x):

@@ -63,6 +63,19 @@ def a_log_init(gen, shape, dtype, device):
         n, generator=gen, device=device) * 15.0 + 1.0))
 
 
+def lru_a_init(min_rad=0.9, max_rad=0.999):
+    """RG-LRU's Lambda, so that a = exp(-8 softplus(Lambda)) has a radius
+    sqrt(uniform(min_rad^2, max_rad^2)) (``repro.nn.rglru``, c = 8)."""
+    def init(gen, shape, dtype, device):
+        def sample(n):
+            u = torch.rand(n, generator=gen, device=device)
+            a = torch.sqrt(min_rad ** 2 + u * (max_rad ** 2 - min_rad ** 2))
+            softplus_lam = -torch.log(a) / 8.0
+            return torch.log(torch.expm1(torch.clamp(softplus_lam, min=1e-8)))
+        return _fill(shape, dtype, device, sample)
+    return init
+
+
 def dt_bias_init(dt_min=1e-3, dt_max=1e-1):
     """Mamba: dt bias so softplus(bias) is log-uniform in [dt_min, dt_max]."""
     lo, hi = math.log(dt_min), math.log(dt_max)

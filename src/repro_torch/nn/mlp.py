@@ -1,5 +1,11 @@
-"""Gated SiLU MLP. (Biases, the other activations and the plain MLP of
-``repro.nn.mlp`` come with the slices whose models use them.)"""
+"""Gated MLP (SwiGLU / GeGLU). (Biases, relu and the plain MLP of
+``repro.nn.mlp`` come with the slices whose models use them.)
+
+``jax.nn.gelu`` defaults to the tanh approximation, and the JAX package
+takes that default under both names, so both are ``approximate="tanh"``
+here (PyTorch's default is the exact erf form)."""
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -7,7 +13,9 @@ from torch import nn
 
 from repro_torch.nn import init as inits
 
-ACTS = {"silu": F.silu}
+ACTS = {"silu": F.silu,
+        "gelu": functools.partial(F.gelu, approximate="tanh"),
+        "gelu_tanh": functools.partial(F.gelu, approximate="tanh")}
 
 
 class MLP(nn.Module):

@@ -35,7 +35,9 @@ def _rand(gen, shape, dtype, dev):
 @pytest.mark.parametrize("s,d,dtype", [(128, 64, torch.float32),
                                        (256, 128, torch.float32),
                                        (128, 64, torch.bfloat16),
-                                       (77, 16, torch.float32)])
+                                       (77, 16, torch.float32),
+                                       (200, 256, torch.float32),
+                                       (96, 256, torch.bfloat16)])
 @pytest.mark.parametrize("window,softcap,kv_heads", [(0, None, 2), (64, None, 1),
                                                      (0, 30.0, 2)])
 def test_flash_attention_kernel(cuda, s, d, dtype, window, softcap, kv_heads):
@@ -65,6 +67,50 @@ def test_decode_attention_kernel(cuda, s, dtype, kv_heads):
     torch.testing.assert_close(got, want, atol=TOL[dtype], rtol=TOL[dtype])
 
 
+@pytest.mark.parametrize("h,kh,d,dtype", [(10, 1, 256, torch.float32),   # RecurrentGemma
+                                          (10, 1, 256, torch.bfloat16),
+                                          (20, 2, 256, torch.float32),
+                                          (10, 1, 128, torch.float32)])  # a block of 8, then 2
+def test_decode_attention_kernel_head_blocks(cuda, h, kh, d, dtype):
+    """More query heads per kv head than one CTA serves: the heads are split
+    into blocks, each reading the kv head, at D 256 and D 128."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    b, s = 4, 576
+    q = _rand(gen, (b, h, d), dtype, cuda)
+    k, v = (_rand(gen, (b, s, kh, d), dtype, cuda) for _ in range(2))
+    lens = torch.tensor([0, 1, 300, s], dtype=torch.int32, device=cuda)
+    got = ops.decode_attention(q, k, v, lens)
+    want = ops.decode_attention_plain(q, k, v, lens)
+    torch.testing.assert_close(got, want, atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("b,s,w,out_dtype,with_h0", [
+    (4, 512, 2560, torch.float32, False),     # the serving call
+    (4, 512, 2560, torch.bfloat16, True),
+    (2, 37, 200, torch.float32, True),        # ragged S and W
+    (3, 5, 64, torch.float32, True),          # S shorter than the loads ahead
+])
+def test_rglru_scan_kernel(cuda, b, s, w, out_dtype, with_h0):
+    """K4 against its plain version: y within 1e-5 of max|h| in fp32
+    (tests/test_kernels.py:78-86), within bf16's 2e-2 when y is bf16; the
+    last state (fp32) within 1e-5 of max|h| either way."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    a = torch.sigmoid(_rand(gen, (b, s, w), torch.float32, cuda))
+    bb = _rand(gen, (b, s, w), torch.float32, cuda) * 0.1
+    h0 = _rand(gen, (b, w), torch.float32, cuda) if with_h0 else None
+    before = ops.launch_counts()["rglru_scan"]
+    y, h_last = ops.rglru_scan(a, bb, h0=h0, out_dtype=out_dtype)
+    assert ops.launch_counts()["rglru_scan"] == before + 1
+    yp, hp = ops.rglru_scan_plain(a, bb, h0=h0, out_dtype=out_dtype)
+    assert y.dtype == out_dtype and h_last.dtype == torch.float32
+    scale = max(float(yp.float().abs().max()), 1.0)
+    tol = TOL[out_dtype] if out_dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(y.float(), yp.float(), atol=tol * scale, rtol=tol)
+    torch.testing.assert_close(h_last, hp, atol=1e-5 * scale, rtol=1e-5)
+    torch.testing.assert_close(h_last, yp[:, -1].float(), atol=TOL[out_dtype] * scale,
+                               rtol=TOL[out_dtype])
+
+
 def test_lm_on_card_matches_cpu(cuda):
     cfg = smoke_config("qwen3-14b")
     bundle = make_model(cfg)
@@ -76,7 +122,8 @@ def test_lm_on_card_matches_cpu(cuda):
     ops.reset_launch_counts()
     got = greedy_generate(bundle, gpu, {"tokens": tokens.to(cuda)}, 10, 64, torch.float32)
     assert ops.launch_counts() == {"flash_attention": cfg.num_layers,
-                                   "decode_attention": cfg.num_layers * 9, "ssd_scan": 0}
+                                   "decode_attention": cfg.num_layers * 9, "ssd_scan": 0,
+                                   "rglru_scan": 0}
     torch.testing.assert_close(got.cpu(), want)
 
 
@@ -129,5 +176,29 @@ def test_mamba_on_card_matches_cpu(cuda):
     ops.reset_launch_counts()
     got = greedy_generate(bundle, gpu, {"tokens": tokens.to(cuda)}, 10, None, torch.float32)
     assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0,
-                                   "ssd_scan": cfg.num_layers}
+                                   "ssd_scan": cfg.num_layers, "rglru_scan": 0}
+    torch.testing.assert_close(got.cpu(), want)
+
+
+def test_recurrentgemma_on_card_matches_cpu(cuda):
+    """K4 carries every recurrent layer's prefill, K1 (window 32 < the
+    150-token prompt) and K2 (the ring, wrapped) the local layer's; the
+    card's prefill logits and greedy tokens equal the CPU's in fp32."""
+    from repro_torch.models.recurrentgemma import layer_kinds
+    cfg = smoke_config("recurrentgemma-2b")
+    bundle = make_model(cfg)
+    cpu = bundle.init(0, device="cpu")
+    gpu = bundle.init(0, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    tokens = torch.randint(0, cfg.vocab_size, (2, 150), generator=torch.Generator().manual_seed(1))
+    want, _ = bundle.prefill(cpu, {"tokens": tokens}, max_len=190, dtype=torch.float32)
+    got, _ = bundle.prefill(gpu, {"tokens": tokens.to(cuda)}, max_len=190, dtype=torch.float32)
+    torch.testing.assert_close(got.logits.cpu(), want.logits, atol=1e-4, rtol=1e-4)
+    want = greedy_generate(bundle, cpu, {"tokens": tokens}, 10, 190, torch.float32)
+    ops.reset_launch_counts()
+    got = greedy_generate(bundle, gpu, {"tokens": tokens.to(cuda)}, 10, 190, torch.float32)
+    n_rec = layer_kinds(cfg).count("rglru")
+    n_att = cfg.num_layers - n_rec
+    assert ops.launch_counts() == {"flash_attention": n_att, "decode_attention": n_att * 9,
+                                   "ssd_scan": 0, "rglru_scan": n_rec}
     torch.testing.assert_close(got.cpu(), want)

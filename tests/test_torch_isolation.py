@@ -28,7 +28,10 @@ def test_importing_every_module_loads_no_jax():
     assert {"repro_torch.kernels.ops", "repro_torch.launch.serve_policy",
             "repro_torch.core.inference", "repro_torch.convert",
             "repro_torch.kernels.ssd_scan", "repro_torch.nn.ssd", "repro_torch.nn.conv",
-            "repro_torch.models.mamba", "repro_torch.configs.mamba2_2_7b"} <= set(mods)
+            "repro_torch.models.mamba", "repro_torch.configs.mamba2_2_7b",
+            "repro_torch.kernels.rglru_scan", "repro_torch.nn.rglru",
+            "repro_torch.models.recurrentgemma",
+            "repro_torch.configs.recurrentgemma_2b"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

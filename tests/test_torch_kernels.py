@@ -109,7 +109,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tdecode.decode_attention(q[:, 0], q, q, torch.ones(1, dtype=torch.int32))
     assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0,
-                                   "ssd_scan": 0}
+                                   "ssd_scan": 0, "rglru_scan": 0}
     meta = torch.zeros(1, 8, 2, 16, device="meta")
     with pytest.raises(ValueError, match="all be on the CPU or all on CUDA"):
         ops.flash_attention(q, meta, q)

@@ -149,9 +149,14 @@ def test_unported_parts_raise(override, match):
 
 
 def test_unported_archs_and_caches_raise():
+    """Local layers are ported with RecurrentGemma, but the dense LM still
+    refuses them (the gemma2 slice), as it refuses an unported cache kind."""
     from repro_torch.configs.registry import get_config
+    from repro_torch.models.lm import check_supported
     from repro_torch.nn.attention import make_cache
     with pytest.raises(KeyError, match="not ported"):
         get_config("gemma2-9b")
     with pytest.raises(NotImplementedError, match="gemma2"):
-        make_cache(smoke_config(ARCH), 1, 8, kind="local", device="cpu")
+        check_supported(smoke_config(ARCH).with_(attn_pattern=("local", "global")))
+    with pytest.raises(NotImplementedError, match="not ported"):
+        make_cache(smoke_config(ARCH), 1, 8, kind="bidir", device="cpu")

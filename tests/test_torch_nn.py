@@ -9,12 +9,13 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs.registry import smoke_config as jsmoke_config  # noqa: E402
+from repro.nn import attention as jattention  # noqa: E402
 from repro.nn import embed as jembed  # noqa: E402
 from repro.nn import mlp as jmlp  # noqa: E402
 from repro.nn import norms as jnorms  # noqa: E402
 from repro.nn import rope as jrope  # noqa: E402
 from repro_torch.configs.registry import smoke_config  # noqa: E402
-from repro_torch.nn import embed, init, mlp, norms, rope  # noqa: E402
+from repro_torch.nn import attention, embed, init, mlp, norms, rope  # noqa: E402
 
 TOL = 1e-5
 RNG = np.random.default_rng(0)
@@ -90,3 +91,80 @@ def test_init_fills_in_chunks(monkeypatch):
     t = init.normal(1.0)(torch.Generator().manual_seed(3), (10, 7), torch.bfloat16, "cpu")
     assert t.dtype == torch.bfloat16 and t.shape == (10, 7)
     assert bool(torch.isfinite(t).all()) and t.float().unique().numel() > 60
+
+
+# ------------------ local attention: ring caches (RecurrentGemma) ----------
+
+def _local_attention():
+    """An attention layer of the reduced RecurrentGemma (4 query heads on 1
+    kv head of 16, window 32) with numpy-drawn weights, in both layouts."""
+    cfg, jcfg = smoke_config("recurrentgemma-2b"), jsmoke_config("recurrentgemma-2b")
+    d, h, k, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    rng = np.random.default_rng(11)
+    w = {"wq": (d, h, hd), "wk": (d, k, hd), "wv": (d, k, hd), "wo": (h, hd, d)}
+    w = {n: (rng.standard_normal(s) * 0.3).astype(np.float32) for n, s in w.items()}
+    p = attention.Attention(cfg, gen=torch.Generator().manual_seed(0))
+    for n, v in w.items():
+        getattr(p, n).data = torch.from_numpy(v)
+    return cfg, jcfg, p, {n: jnp.asarray(v) for n, v in w.items()}
+
+
+def _close_cache(tc, jc):
+    _close(tc["k"], jc["k"])
+    _close(tc["v"], jc["v"])
+    np.testing.assert_array_equal(tc["pos"].numpy(), np.asarray(jc["pos"]))
+
+
+@pytest.mark.parametrize("max_len", [20, 64])
+def test_local_make_cache_is_a_ring(max_len):
+    """min(max_len, window) slots, every position empty (-1)."""
+    cfg, jcfg, _, _ = _local_attention()
+    tc = attention.make_cache(cfg, 2, max_len, "local", torch.float32, "cpu")
+    jc = jattention.make_cache(jcfg, 2, max_len, "local", jnp.float32)
+    assert tc["k"].shape == jc["k"].shape == (2, min(max_len, 32), 1, 16)
+    _close_cache(tc, jc)
+
+
+def test_local_prefill_keeps_the_last_window():
+    """S = 45 > 32 slots: the window mask in the prefill's attention, and the
+    ring keeps positions 13..44 at slot pos % 32."""
+    cfg, jcfg, p, jp = _local_attention()
+    s = 45
+    x = RNG.standard_normal((2, s, cfg.d_model)).astype(np.float32)
+    pos = np.arange(s)
+    tc = attention.make_cache(cfg, 2, 64, "local", torch.float32, "cpu")
+    jc = jattention.make_cache(jcfg, 2, 64, "local", jnp.float32)
+    got, tc = attention.attention(cfg, p, torch.from_numpy(x), torch.from_numpy(pos),
+                                  kind="local", cache=tc)
+    want, jc = jattention.attention(jcfg, jp, jnp.asarray(x), jnp.asarray(pos),
+                                    kind="local", cache=jc)
+    _close(got, want)
+    _close_cache(tc, jc)
+    assert sorted(tc["pos"].tolist()) == list(range(s - 32, s))
+    full, _ = jattention.attention(jcfg, jp, jnp.asarray(x), jnp.asarray(pos))
+    assert float(jnp.abs(full - want).max()) > 1e-3    # the window mattered
+
+
+def test_local_decode_across_the_wrap():
+    """Prefill of 28 positions, then 8 decode steps that write slots 28..31
+    and wrap to 0..3; K2's lengths = min(index + 1, size) against the JAX
+    decode's mask over the ring's positions."""
+    cfg, jcfg, p, jp = _local_attention()
+    x = RNG.standard_normal((2, 28, cfg.d_model)).astype(np.float32)
+    pos = np.arange(28)
+    tc = attention.make_cache(cfg, 2, 64, "local", torch.float32, "cpu")
+    jc = jattention.make_cache(jcfg, 2, 64, "local", jnp.float32)
+    _, tc = attention.attention(cfg, p, torch.from_numpy(x), torch.from_numpy(pos),
+                                kind="local", cache=tc)
+    _, jc = jattention.attention(jcfg, jp, jnp.asarray(x), jnp.asarray(pos),
+                                 kind="local", cache=jc)
+    for index in range(28, 36):
+        xt = RNG.standard_normal((2, 1, cfg.d_model)).astype(np.float32)
+        got, tc = attention.decode_attention(cfg, p, torch.from_numpy(xt),
+                                             torch.tensor(index, dtype=torch.int32), tc,
+                                             kind="local")
+        want, jc = jattention.decode_attention(jcfg, jp, jnp.asarray(xt),
+                                               jnp.asarray(index, jnp.int32), jc, kind="local")
+        _close(got, want)
+        _close_cache(tc, jc)
+    assert tc["pos"][:4].tolist() == [32, 33, 34, 35]

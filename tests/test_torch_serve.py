@@ -1,4 +1,5 @@
-"""The port's slice entry points: qwen3-14b and mamba2-2.7b (reduced)
+"""The port's slice entry points: qwen3-14b, mamba2-2.7b and
+recurrentgemma-2b (reduced)
 served to clients through the port's InferenceServer on the CPU, and the
 default device."""
 
@@ -114,3 +115,27 @@ def test_serve_main_mamba_prints_ok(capsys):
                        "--tokens", "3"])
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[0].startswith("== mamba2-2.7b (reduced") and lines[-1] == '{"ok": true}'
+
+
+def test_recurrentgemma_serve_reproduces_greedy_generate():
+    """recurrentgemma-2b (reduced) through the same server: a 40-token
+    prompt overflows the local layers' 32-slot rings, and full batches give
+    each client its greedy tokens."""
+    cfg = smoke_config("recurrentgemma-2b")
+    clients, tokens = 3, 4
+    out = serve_policy.serve(cfg, clients=clients, prompt_len=40, tokens=tokens,
+                             max_len=64, device="cpu", deadline_ms=60_000.0, seed=3)
+    assert out["stats"]["batches"] == tokens
+    bundle = make_model(cfg)
+    params = bundle.init(3, device="cpu", dtype=torch.float32)
+    want = greedy_generate(bundle, params, {"tokens": torch.from_numpy(out["prompts"])},
+                           steps=tokens + 1, max_len=64, dtype=torch.float32)
+    for cid in range(clients):
+        assert [out["first"][cid]] + out["tokens"][cid] == want[cid].tolist()
+
+
+def test_serve_main_recurrentgemma_prints_ok(capsys):
+    serve_policy.main(["--arch", "recurrentgemma-2b", "--device", "cpu", "--clients", "2",
+                       "--tokens", "3"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0].startswith("== recurrentgemma-2b (reduced") and lines[-1] == '{"ok": true}'
