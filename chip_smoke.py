@@ -11,7 +11,9 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the serving paths' shapes in bf16 and in fp32 with TF32 off, with a
    length-0 decode row, ragged S, head_dim 256 with a window shorter than
-   S (K1) and 10 query heads per kv head (K2), for K3 a nonzero initial
+   S (K1) and 10 query heads per kv head (K1, K2); K1's bf16 cases at D 64,
+   128 and 256 take its tensor-core route and its fp32 cases its CUDA-core
+   route, each case logging its route, for K3 a nonzero initial
    state, fewer groups than heads, and its final state against the
    sequential oracle, and for K4 an initial state, ragged S and W and a
    bf16 y; kernel, plain and library times, and each call's bound;
@@ -23,7 +25,8 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    prefill and by 0 per decode step and nothing else may run; then
    recurrentgemma-2b at full width (26 layers, bf16), where K4 must rise by
    18 per prefill and 0 per decode step, K1 by 8 per prefill and K2 by 8
-   per decode step; the served tokens must equal greedy decoding, and each
+   per decode step; every K1 launch of a serve run must take the
+   tensor-core route; the served tokens must equal greedy decoding, and each
    path gets a profiler breakdown of a prefill and a decode step;
 5. parity: at each arch's reduced config, prefill logits and greedy tokens
    from the port on the card equal the port on the CPU (the plain
@@ -136,11 +139,22 @@ def kernel_phase():
 
     # ---- K1 ----
     log("== kernels: K1 flash attention (prefill)")
+    for dt in tol:   # the route the library picks is the one the wrapper records
+        for hd in K1.HEAD_DIMS:
+            if K1.kernel_route(dt, hd) != K1.route(dt, hd):
+                raise AssertionError(f"K1 route of {dt} D {hd}: library "
+                                     f"{K1.kernel_route(dt, hd)}, wrapper {K1.route(dt, hd)}")
     b, s, h, kh, d = CLIENTS, PROMPT_LEN, 40, 8, 128       # qwen3's call
     rs = SERVE["recurrentgemma-2b"][0]
     cases = [((b, s, h, kh, d), torch.bfloat16, {}),
              ((b, rs, RG["h"], RG["kh"], RG["d"]), torch.bfloat16,   # RecurrentGemma's call
               {"window": RG["window"]}),
+             ((1, 64, 1, 1, 128), torch.bfloat16, {}),                # one tile
+             ((2, 128, 4, 2, 64), torch.bfloat16, {}),                # D 64
+             ((2, 200, 4, 2, 128), torch.bfloat16, {}),               # ragged S
+             ((2, 256, 4, 4, 128), torch.bfloat16, {"softcap": 30.0}),
+             ((2, 300, 10, 1, 256), torch.bfloat16, {"window": 100}),  # ragged, window < S
+             ((2, 130, 4, 2, 128), torch.bfloat16, {"causal": False}),
              ((2, 300, 10, 1, 256), torch.float32, {"window": 128}),  # D 256, window < S
              ((2, 200, 4, 2, 64), torch.float32, {"window": 64}),    # ragged S
              ((2, 77, 4, 4, 64), torch.float32, {"softcap": 30.0}),
@@ -150,11 +164,12 @@ def kernel_phase():
     for (cb, cs, ch, ckh, cd), dt, kw in cases:
         q = rand(cb, cs, ch, cd, dtype=dt)
         k, v = rand(cb, cs, ckh, cd, dtype=dt), rand(cb, cs, ckh, cd, dtype=dt)
-        got = K1.flash_attention(q, k, v, scale=cd ** -0.5, causal=True, **kw)
-        want = ops.flash_attention_plain(q, k, v, scale=cd ** -0.5, causal=True, **kw)
+        kw = {"causal": True, **kw}
+        got = K1.flash_attention(q, k, v, scale=cd ** -0.5, **kw)
+        want = ops.flash_attention_plain(q, k, v, scale=cd ** -0.5, **kw)
         torch.cuda.synchronize()
-        err = check_close(f"K1 {(cb, cs, ch, ckh, cd)} {str(dt)[6:]} {kw}", got, want,
-                          tol[dt])
+        err = check_close(f"K1 {(cb, cs, ch, ckh, cd)} {str(dt)[6:]} {kw} "
+                          f"[{K1.route(dt, cd)}]", got, want, tol[dt])
         main_err = err if main_err is None else main_err
 
     def time_k1(b, s, h, kh, d, window=0):
@@ -171,14 +186,15 @@ def kernel_phase():
         flops = 4 * d * (s * (s + 1) // 2) * b * h             # causal pairs only
         nbytes = (2 * b * s * h * d + 2 * b * s * kh * d) * q.element_size()
         row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                   **bound(flops, nbytes, "bfloat16"))
-        log(f"   K1 at ({b},{s},{h},{kh},{d}) bf16: kernel_ms {ms:.4f} plain_ms "
-            f"{plain_ms:.4f} library_ms {lib_ms:.4f} (SDPA) bound_ms {row['bound_ms']:.4f} "
-            f"({row['bound_by']})")
+                   **bound(flops, nbytes, "bfloat16"), tflops=flops / ms / 1e9)
+        log(f"   K1 at ({b},{s},{h},{kh},{d}) bf16 [{K1.route(q.dtype, d)}]: kernel_ms {ms:.4f} "
+            f"({row['tflops']:.1f} TFLOP/s) plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} "
+            f"(SDPA) bound_ms {row['bound_ms']:.4f} ({row['bound_by']})")
         return row
 
+    # the serving calls are bf16 at D 128 and 256: the tensor-core route
     rows["flash_attention"] = dict(
-        name="flash_attention", route="cuda",
+        name="flash_attention", route="cuda", variant=K1.route(torch.bfloat16, d),
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:63",
         max_abs_err=main_err, **time_k1(b, s, h, kh, d))
@@ -407,6 +423,7 @@ def describe(cfg):
 
 def serve_phase(arch):
     from repro_torch.configs.registry import get_config, make_model
+    from repro_torch.kernels import flash_attention as K1
     from repro_torch.kernels import ops
     from repro_torch.launch import serve_policy
     from repro_torch.launch.serve import greedy_generate, make_prefill, make_serve_step
@@ -443,6 +460,7 @@ def serve_phase(arch):
                              max_len=max_len, device=dev, params=params,
                              deadline_ms=1000.0)
     counts = ops.launch_counts()
+    k1_routes = dict(K1.flash_attention.launches_by_route)
     peak = torch.cuda.max_memory_allocated()
     st = out["stats"]
     steps = st["batches"]
@@ -451,6 +469,11 @@ def serve_phase(arch):
     want = expected_launches(cfg, steps)
     if counts != want:
         raise AssertionError(f"launch counts {counts} != expected {want}")
+    # every prefill attention call is bf16 at D 128 or 256: all on wgmma
+    if k1_routes != {"wgmma": want["flash_attention"], "cuda_cores": 0}:
+        raise AssertionError(f"K1 launches by route {k1_routes}: expected all "
+                             f"{want['flash_attention']} on wgmma")
+    log(f"   K1 launches by route: {k1_routes}")
     total = CLIENTS * TOKENS
     log(f"   prefill_ms {out['prefill_s'] * 1e3:.2f} ({CLIENTS}x{prompt_len} tokens); "
         f"decode {out['decode_s'] * 1e3 / steps:.2f} ms/step wall, "
@@ -499,8 +522,8 @@ def serve_phase(arch):
 
 def device_breakdown(prof, n):
     """Kernel time per call from a profiler trace, grouped: the port's
-    kernels, GEMMs (cuBLAS / CUTLASS), and everything else; and the number
-    of device kernels per call."""
+    kernels (K1 either route), GEMMs (cuBLAS / CUTLASS), and everything
+    else; and the number of device kernels per call."""
     groups = {"busy": 0.0, "K1": 0.0, "K2": 0.0, "K3": 0.0, "K4": 0.0, "gemm": 0.0,
               "other": 0.0}
     kernels = 0
@@ -510,7 +533,7 @@ def device_breakdown(prof, n):
         kernels += 1
         us = e.time_range.elapsed_us()
         name = e.name.lower()
-        if "flash_kernel" in name:
+        if "flash_kernel" in name or "flash_wgmma_kernel" in name:
             g = "K1"
         elif "decode_kernel" in name:
             g = "K2"
@@ -582,6 +605,13 @@ def main():
         spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", rep) if int(x)]
         log(f"   {name}: {len(regs)} instantiations, {min(regs)}-{max(regs)} registers "
             f"a thread, {len(spills)} with spills ({sum(spills)} bytes)")
+        for entry in rep.split("Compiling entry function")[1:]:
+            if "flash_wgmma_kernel" in entry:   # K1's tensor-core route, one line each
+                d = re.search(r"flash_wgmma_kernelILi(\d+)E", entry).group(1)
+                used = re.search(r"Used (\d+) registers", entry).group(1)
+                spill = re.search(r"(\d+) bytes spill stores", entry).group(1)
+                log(f"   flash_wgmma_kernel<{d}>: {used} registers, {spill} bytes of spill "
+                    f"stores")
 
     rows = kernel_phase()
     # each path is driven with the counts set to 0 just before it and read

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds), under
 ``build/kernels/`` at the root of the checkout. The library's file name
-carries a hash of its source and flags, so an edited source is rebuilt and
+carries a hash of its source, of every ``csrc/*.cuh`` header the source
+includes, and of the flags, so an edited source or header is rebuilt and
 a stale library is never loaded. Building happens at first use, never at
 import: the CPU tests import every module on a machine with no ``nvcc``.
 """
@@ -11,6 +12,7 @@ import: the CPU tests import every module on a machine with no ``nvcc``.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -37,10 +39,19 @@ def nvcc() -> str:
     return str(path)
 
 
+def headers(name: str) -> list:
+    """The csrc/*.cuh headers that csrc/<name>.cu includes, sorted."""
+    text = (CSRC / f"{name}.cu").read_text()
+    found = re.findall(r'^\s*#\s*include\s+"([^"]+\.cuh)"', text, re.M)
+    return sorted(CSRC / inc for inc in found)
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    digest = hashlib.sha256()
+    for path in (CSRC / f"{name}.cu", *headers(name)):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(names=KERNELS) -> dict:

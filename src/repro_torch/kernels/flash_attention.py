@@ -1,8 +1,12 @@
-"""K1: causal flash attention (prefill) — the CUDA kernel's Python wrapper.
+"""K1: causal flash attention (prefill) — the CUDA kernels' Python wrapper.
 
 Replaces ``repro.kernels.flash_attention.flash_attention`` (Pallas, TPU).
-The kernel is ``csrc/flash_attention.cu``; its plain PyTorch version is
-``ref.attention_ref``, which ``ops.flash_attention`` takes for CPU tensors.
+The kernels are in ``csrc/flash_attention.cu``; its plain PyTorch version
+is ``ref.attention_ref``, which ``ops.flash_attention`` takes for CPU
+tensors. The ``.cu`` picks one of two routes by dtype and head_dim alone
+(``route``): bf16 at D 64, 128 and 256 runs on the tensor cores (wgmma),
+everything else on the fp32 CUDA cores. ``flash_attention.launches``
+counts every launch, ``flash_attention.launches_by_route`` each route's.
 """
 
 import ctypes
@@ -14,6 +18,13 @@ from repro_torch.kernels import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 64, 128, 256)
+ROUTES = ("wgmma", "cuda_cores")
+
+
+def route(dtype, head_dim) -> str:
+    """The kernel a launch takes: "wgmma" for bf16 at D 64, 128 or 256,
+    "cuda_cores" otherwise (fp32 on the tensor cores would be TF32)."""
+    return "wgmma" if dtype == torch.bfloat16 and head_dim in (64, 128, 256) else "cuda_cores"
 
 
 @functools.cache
@@ -24,6 +35,13 @@ def _fn():
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def kernel_route(dtype, head_dim) -> str:
+    """The route the built library itself picks for (dtype, head_dim)."""
+    fn = build.load("flash_attention").flash_attention_route
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    return ROUTES[0] if fn(DTYPES[dtype], head_dim) else ROUTES[1]
 
 
 def flash_attention(q, k, v, *, scale=None, causal=True, window=0, softcap=None):
@@ -57,7 +75,9 @@ def flash_attention(q, k, v, *, scale=None, causal=True, window=0, softcap=None)
     if err:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     flash_attention.launches += 1
+    flash_attention.launches_by_route[route(q.dtype, d)] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)

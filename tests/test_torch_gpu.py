@@ -37,18 +37,30 @@ def _rand(gen, shape, dtype, dev):
                                        (128, 64, torch.bfloat16),
                                        (77, 16, torch.float32),
                                        (200, 256, torch.float32),
-                                       (96, 256, torch.bfloat16)])
+                                       (96, 256, torch.bfloat16),
+                                       (256, 128, torch.bfloat16),
+                                       (200, 128, torch.bfloat16),   # ragged S
+                                       (300, 256, torch.bfloat16),
+                                       (50, 16, torch.bfloat16)])    # bf16 on CUDA cores
 @pytest.mark.parametrize("window,softcap,kv_heads", [(0, None, 2), (64, None, 1),
                                                      (0, 30.0, 2)])
 def test_flash_attention_kernel(cuda, s, d, dtype, window, softcap, kv_heads):
+    """Both routes of K1: bf16 at D 64/128/256 on the tensor cores, fp32 and
+    bf16 at D 16 on the CUDA cores; each launch counted under its route."""
+    from repro_torch.kernels import flash_attention as tflash
     gen = torch.Generator(device=cuda).manual_seed(7)
     b, h = 2, 2
     q = _rand(gen, (b, s, h, d), dtype, cuda)
     k, v = (_rand(gen, (b, s, kv_heads, d), dtype, cuda) for _ in range(2))
     before = ops.launch_counts()["flash_attention"]
+    by_route = dict(tflash.flash_attention.launches_by_route)
     got = ops.flash_attention(q, k, v, window=window, softcap=softcap)
     want = ops.flash_attention_plain(q, k, v, window=window, softcap=softcap)
     assert ops.launch_counts()["flash_attention"] == before + 1
+    route = tflash.route(dtype, d)
+    assert route == ("wgmma" if dtype == torch.bfloat16 and d > 16 else "cuda_cores")
+    by_route[route] += 1
+    assert tflash.flash_attention.launches_by_route == by_route
     torch.testing.assert_close(got, want, atol=TOL[dtype], rtol=TOL[dtype])
 
 

@@ -3,7 +3,8 @@ JAX package's Pallas kernels in interpret mode, on the same numpy inputs.
 
 Mirrors the sweep of tests/test_kernels.py at its tolerances (fp32 2e-5,
 bf16 2e-2), plus what the port adds: a ragged S, a length-0 decode row and
-GQA caches that are not head-expanded.
+GQA caches that are not head-expanded; and the tile walk of K1's
+tensor-core route, emulated in PyTorch, against the Pallas kernel.
 """
 
 import numpy as np
@@ -49,6 +50,97 @@ def test_flash_attention_plain_matches_pallas(s, d, dtype, window, softcap):
                               softcap=softcap)
     assert got.dtype == TDT[dtype] and got.shape == (b, s, h, d)
     _close(got, want, dtype)
+
+
+def _wgmma_walk(q, k, v, *, scale, causal, window, softcap):
+    """K1's tensor-core route as a tile walk: a CTA of 64 query rows loads
+    only the KV tiles of BK keys (32 at D <= 128, 64 at D 256) that are not
+    wholly above its diagonal or outside its window, masks only the tiles
+    that cross its diagonal, its window's edge or S, keeps the running max
+    and sum in fp32, and multiplies P rounded to bf16 by V. Inputs (B,S,H,D)
+    with KH dividing H; returns q's dtype."""
+    b, s, h, d = q.shape
+    bq, bk = 64, (64 if d > 128 else 32)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    out = torch.zeros(b, s, h, d)
+    for bi in range(b):
+        for hi in range(h):
+            kvh = hi // (h // k.shape[2])
+            for q0 in range(0, s, bq):
+                r = torch.arange(q0, q0 + bq)
+                nq = min(bq, s - q0)
+                qt = torch.zeros(bq, d)
+                qt[:nq] = qf[bi, q0:q0 + nq, hi]
+                m = torch.full((bq,), -1e30)
+                l = torch.zeros(bq)
+                acc = torch.zeros(bq, d)
+                kv_end = min(s, q0 + bq) if causal else s
+                kv_begin = max(0, q0 - window + 1) // bk * bk if window > 0 else 0
+                for k0 in range(kv_begin, kv_end, bk):
+                    c = torch.arange(k0, k0 + bk)
+                    nk = min(bk, s - k0)
+                    kt, vt = torch.zeros(bk, d), torch.zeros(bk, d)
+                    kt[:nk], vt[:nk] = kf[bi, k0:k0 + nk, kvh], vf[bi, k0:k0 + nk, kvh]
+                    x = (qt @ kt.T) * scale
+                    if softcap:
+                        x = softcap * torch.tanh(x / softcap)
+                    if ((causal and k0 + bk - 1 > q0) or (window > 0 and q0 + bq - 1 - k0 >= window)
+                            or k0 + bk > s):
+                        ok = torch.ones(bq, bk, dtype=torch.bool)
+                        if causal:
+                            ok &= c[None] <= r[:, None]
+                        if window > 0:
+                            ok &= (r[:, None] - c[None]) < window
+                        x = torch.where(ok, x, torch.tensor(-1e30))
+                        x = torch.where(c[None] >= s, torch.tensor(-torch.inf), x)
+                    m_new = torch.maximum(m, x.max(-1).values)
+                    corr = torch.exp(m - m_new)
+                    p = torch.exp(x - m_new[:, None])
+                    l = l * corr + p.sum(-1)
+                    acc = acc * corr[:, None] + p.to(torch.bfloat16).float() @ vt
+                    m = m_new
+                out[bi, q0:q0 + nq, hi] = (acc / l.clamp_min(1e-30)[:, None])[:nq]
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("s,d,causal,window,softcap", [
+    (128, 64, True, 0, None),
+    (256, 128, True, 0, None),
+    (256, 64, True, 100, None),      # window edges inside tiles; tiles skipped
+    (256, 128, True, 0, 30.0),
+    (128, 128, True, 48, 30.0),
+    (256, 256, True, 70, None),      # D 256: 64-key tiles
+    (128, 64, False, 0, None),
+])
+def test_wgmma_tile_walk_matches_pallas(s, d, causal, window, softcap):
+    """The tensor-core route's design (64-row query tiles, BK-key tiles,
+    tile skipping, edge-only masks, P rounded to bf16 before PV, fp32
+    rescaling) against the Pallas kernel in interpret mode at bf16's 2e-2."""
+    b, h = 1, 2
+    (jq, jk, jv), (tq, tk, tv) = _inputs(13, [(b, s, h, d)] * 3, "bfloat16")
+    want = jops.flash_attention(jq, jk, jv, causal=causal, window=window,
+                                softcap=softcap, block_q=64, block_k=64)
+    got = _wgmma_walk(tq, tk, tv, scale=d ** -0.5, causal=causal, window=window,
+                      softcap=softcap)
+    assert got.dtype == torch.bfloat16
+    _close(got, want, "bfloat16")
+
+
+@pytest.mark.parametrize("dtype,d", [(dt, d) for dt in (torch.float32, torch.bfloat16)
+                                     for d in tflash.HEAD_DIMS])
+def test_flash_route_rule(dtype, d):
+    """bf16 at D 64/128/256 takes the tensor cores; fp32 (which would be
+    TF32 there) and bf16 at D 16 stay on the CUDA cores."""
+    want = "wgmma" if dtype == torch.bfloat16 and d in (64, 128, 256) else "cuda_cores"
+    assert tflash.route(dtype, d) == want
+
+
+def test_reset_clears_flash_route_counts():
+    tflash.flash_attention.launches_by_route["wgmma"] += 3
+    tflash.flash_attention.launches += 3
+    ops.reset_launch_counts()
+    assert tflash.flash_attention.launches_by_route == {"wgmma": 0, "cuda_cores": 0}
+    assert ops.launch_counts()["flash_attention"] == 0
 
 
 def _fold(x):
@@ -141,6 +233,19 @@ def test_build_paths_track_source_and_flags(monkeypatch, tmp_path):
     before = build.library_path("flash_attention")
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-lineinfo",))
     assert build.library_path("flash_attention") != before
+    # an edited header renames every library that includes it, and only those
+    assert build.headers("flash_attention") == [build.CSRC / "hopper.cuh"]
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in (*build.CSRC.glob("*.cu"), *build.CSRC.glob("*.cuh")):
+        (csrc / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(build, "CSRC", csrc)
+    paths = {name: build.library_path(name) for name in build.KERNELS}
+    with open(csrc / "hopper.cuh", "a") as f:
+        f.write("// edited\n")
+    for name in build.KERNELS:
+        changed = build.library_path(name) != paths[name]
+        assert changed == (csrc / "hopper.cuh" in build.headers(name)), name
     monkeypatch.setattr(build.shutil, "which", lambda _: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
