@@ -11,7 +11,10 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the serving paths' shapes in bf16 and in fp32 with TF32 off, with a
    length-0 decode row, ragged S, head_dim 256 with a window shorter than
-   S (K1) and 10 query heads per kv head (K1, K2); K1's bf16 cases at D 64,
+   S (K1) and 10 query heads per kv head (K1, K2); K2 also at its split
+   edges (only split 0 live, a chunk's edge and one past it, a length past
+   S, B 1) and captured in a CUDA graph, replayed at new lengths written in
+   place; K1's bf16 cases at D 64,
    128 and 256 take its tensor-core route and its fp32 cases its CUDA-core
    route, each case logging its route, for K3 a nonzero initial
    state, fewer groups than heads, and its final state against the
@@ -37,6 +40,7 @@ The line before the last is the kernels' JSON record; the last line is
 that does not hold the repository, it fails and prints no result.
 """
 
+import contextlib
 import json
 import re
 import subprocess
@@ -201,12 +205,23 @@ def kernel_phase():
     time_k1(b, rs, RG["h"], RG["kh"], RG["d"], RG["window"])
 
     # ---- K2 ----
-    log("== kernels: K2 decode attention")
+    log("== kernels: K2 decode attention (split-S pass, then combine)")
     S = MAX_LEN
     rmax = SERVE["recurrentgemma-2b"][1]
-    cases = [((b, S, h, kh, d), torch.bfloat16, [0, 1, 263, S]),
+    qwen, rg1 = (b, S, h, kh, d), (1, rmax, RG["h"], RG["kh"], RG["d"])
+    sms = K2.num_sms(torch.cuda.current_device())
+    cases = [(qwen, torch.bfloat16, [0, 1, 263, S]),
              ((b, rmax, RG["h"], RG["kh"], RG["d"]), torch.bfloat16,   # RecurrentGemma's ring
               [0, 1, rs + 8, rmax]),
+             # the split edges at qwen3's call (chunk 32 at 132 SMs): only split 0
+             # live, a chunk's edge and one past it, a length past S, a length 0
+             (qwen, torch.bfloat16, [1, 32, 33, S + 100]),
+             (qwen, torch.float32, [1, 32, 33, S + 100]),
+             (qwen, torch.float32, [0, 16, 264, S]),
+             (rg1, torch.bfloat16, [rs + 8]),                           # B 1: the fewest CTAs
+             (rg1, torch.bfloat16, [17]),
+             (rg1, torch.float32, [0]),
+             (rg1, torch.float32, [16]),
              ((2, 333, 10, 1, 256), torch.float32, [5, 333]),          # D 256, 10 heads a kv head
              ((3, 333, 8, 8, 64), torch.float32, [0, 5, 333]),          # ragged S, expanded
              ((2, 64, 4, 2, 16), torch.float32, [0, 33]),               # qwen3 reduced config
@@ -219,9 +234,27 @@ def kernel_phase():
         got = K2.decode_attention(q, k, v, ln, scale=cd ** -0.5)
         want = ops.decode_attention_plain(q, k, v, ln, scale=cd ** -0.5)
         torch.cuda.synchronize()
-        err = check_close(f"K2 {(cb, cs, ch, ckh, cd)} {str(dt)[6:]} lengths {lens}",
-                          got, want, tol[dt])
+        chunk, splits = K2.plan(cb, cs, ch, ckh, cd, dt, sms)
+        err = check_close(f"K2 {(cb, cs, ch, ckh, cd)} {str(dt)[6:]} lengths {lens} "
+                          f"[chunk {chunk}, {splits} splits]", got, want, tol[dt])
         main_err = err if main_err is None else main_err
+
+    # capture: the plan reads no length on the host, so one captured call
+    # replays right at lengths written in place afterwards
+    q = rand(b, h, d, dtype=torch.bfloat16)
+    k, v = rand(b, S, kh, d, dtype=torch.bfloat16), rand(b, S, kh, d, dtype=torch.bfloat16)
+    ln = torch.tensor([5, 100, 264, S], dtype=torch.int32, device=dev)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = K2.decode_attention(q, k, v, ln)
+    for lens in ([1, 33, 0, S + 9], [264, 32, S - 1, 2]):
+        ln.copy_(torch.tensor(lens, dtype=torch.int32))
+        graph.replay()
+        want = ops.decode_attention_plain(q, k, v, ln)
+        torch.cuda.synchronize()
+        check_close(f"K2 {qwen} bf16 captured once, replayed at lengths {lens}", captured,
+                    want, tol[torch.bfloat16])
+    del graph, captured
 
     def rotating(fn, pairs):
         it = [0]
@@ -232,10 +265,40 @@ def kernel_phase():
             return fn(kk, vv)
         return call
 
+    def k2_passes(call, n=32):
+        """Device ms a call of K2's split kernel, of its combine kernel
+        (launched while the split pass runs, so their spans overlap), and
+        of both together, from a profiler trace of `n` calls."""
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                call()
+            torch.cuda.synchronize()
+        spans = {"split": [], "combine": []}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                for name, found in spans.items():
+                    if f"decode_{name}_kernel" in e.name:
+                        found.append((e.time_range.start, e.time_range.end))
+        passes = {name: union_ms(found) / n for name, found in spans.items()}
+        passes["both"] = union_ms(spans["split"] + spans["combine"]) / n
+        return passes
+
+    @contextlib.contextmanager
+    def k2_planning_for(n_sms):
+        """K2's wrapper planning for `n_sms` SMs in place of the card's."""
+        real = K2.num_sms
+        K2.num_sms = lambda index: n_sms
+        try:
+            yield
+        finally:
+            K2.num_sms = real
+
     def time_k2(b, S, h, kh, d, n_valid):
         """Timing at a serving path's mid-run length, with enough caches in
         rotation that their valid rows exceed the 50 MB L2: a decode step
-        finds each layer's cache cold."""
+        finds each layer's cache cold. Also times each chunk of a sweep, the
+        plan picking it for an SM count other than the card's."""
         sc = d ** -0.5
         q = rand(b, h, d, dtype=torch.bfloat16)
         n_caches = max(16, -(-100_000_000 // (2 * b * S * kh * d * 2)))
@@ -245,18 +308,35 @@ def kernel_phase():
         mask = (torch.arange(S, device=dev) < n_valid).expand(b, 1, 1, S)
         kvt = [(kk.transpose(1, 2).contiguous(), vv.transpose(1, 2).contiguous())
                for kk, vv in kvs]
+        chunk, splits = K2.plan(b, S, h, kh, d, torch.bfloat16, sms)
         ms = time_ms("K2", rotating(
             lambda kk, vv: K2.decode_attention(q, kk, vv, ln, scale=sc), kvs), iters=32)
+        sweep = {}
+        for c in (16, 32, 64):   # each chunk through the plan, for an SM count that picks it
+            fake = b * kh * -(-S // c) // 2
+            assert K2.plan(b, S, h, kh, d, torch.bfloat16, fake)[0] == c
+            with k2_planning_for(fake):
+                sweep[c] = time_ms(f"K2 chunk {c}", rotating(
+                    lambda kk, vv: K2.decode_attention(q, kk, vv, ln, scale=sc), kvs), iters=32)
+        passes = k2_passes(rotating(
+            lambda kk, vv: K2.decode_attention(q, kk, vv, ln, scale=sc), kvs))
         plain_ms = time_ms("K2 plain", rotating(
             lambda kk, vv: ops.decode_attention_plain(q, kk, vv, ln, scale=sc), kvs), iters=32)
         lib_ms = time_ms("K2 library", rotating(lambda kk, vv: F.scaled_dot_product_attention(
             q[:, :, None], kk, vv, attn_mask=mask, scale=sc, enable_gqa=True), kvt), iters=32)
         nbytes = (2 * b * h * d + 2 * b * n_valid * kh * d) * q.element_size() + 4 * b
         row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                   **bound(4 * b * h * n_valid * d, nbytes, "bfloat16"))
-        log(f"   K2 at ({b},{S},{h},{kh},{d}) bf16, length {n_valid}, {n_caches} caches: "
-            f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} (SDPA) "
-            f"bound_ms {row['bound_ms']:.4f} ({row['bound_by']})")
+                   **bound(4 * b * h * n_valid * d, nbytes, "bfloat16"),
+                   chunk=chunk, splits=splits, ctas=b * kh * splits)
+        log(f"   K2 at ({b},{S},{h},{kh},{d}) bf16, length {n_valid}, {n_caches} caches; plan "
+            f"chunk {chunk}, {splits} splits, {b * kh * splits} CTAs "
+            f"({b * kh * -(-n_valid // chunk)} live): kernel_ms {ms:.4f} "
+            f"({nbytes / ms / 1e9:.3f} TB/s) plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} "
+            f"(SDPA) bound_ms {row['bound_ms']:.5f} ({row['bound_by']}, {nbytes / 1e6:.2f} MB); "
+            "kernel_ms by chunk " + ", ".join(f"{c}: {t:.4f}" for c, t in sweep.items()))
+        log(f"   K2 passes, device ms a call from a profiler trace: split {passes['split']:.4f}, "
+            f"combine {passes['combine']:.4f} (from its launch during the split pass), both "
+            f"{passes['both']:.4f}")
         del kvs, kvt
         return row
 
@@ -520,22 +600,33 @@ def serve_phase(arch):
                     "prefill_device_ops": pre_ops, "decode_device_ops_per_step": dec_ops}
 
 
+def union_ms(spans):
+    """Milliseconds covered by (start, end) spans in microseconds, each
+    instant counted once however many spans cover it."""
+    total, reach = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        if end > reach:
+            total += end - max(start, reach)
+            reach = end
+    return total / 1e3
+
+
 def device_breakdown(prof, n):
-    """Kernel time per call from a profiler trace, grouped: the port's
-    kernels (K1 either route), GEMMs (cuBLAS / CUTLASS), and everything
-    else; and the number of device kernels per call."""
-    groups = {"busy": 0.0, "K1": 0.0, "K2": 0.0, "K3": 0.0, "K4": 0.0, "gemm": 0.0,
-              "other": 0.0}
+    """Device time per call from a profiler trace, grouped: the port's
+    kernels (K1 either route, K2 its split and combine passes), GEMMs
+    (cuBLAS / CUTLASS), and everything else; and the number of device
+    kernels per call. A group's time, and "busy" over all of them, count
+    each instant once: K2's combine is launched while its split pass runs."""
+    spans = {g: [] for g in ("K1", "K2", "K3", "K4", "gemm", "other")}
     kernels = 0
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         kernels += 1
-        us = e.time_range.elapsed_us()
         name = e.name.lower()
         if "flash_kernel" in name or "flash_wgmma_kernel" in name:
             g = "K1"
-        elif "decode_kernel" in name:
+        elif "decode_split_kernel" in name or "decode_combine_kernel" in name:
             g = "K2"
         elif "ssd_chunk_kernel" in name:
             g = "K3"
@@ -545,8 +636,9 @@ def device_breakdown(prof, n):
             g = "gemm"
         else:
             g = "other"
-        groups[g] += us / 1e3 / n
-        groups["busy"] += us / 1e3 / n
+        spans[g].append((e.time_range.start, e.time_range.end))
+    groups = {"busy": union_ms([s for found in spans.values() for s in found]) / n}
+    groups.update({g: union_ms(found) / n for g, found in spans.items()})
     if groups["busy"] <= 0:
         raise AssertionError("the profiler recorded no device time")
     return groups, kernels / n

@@ -2,12 +2,12 @@
 // hand-written for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `repro/kernels/decode_attention.py::decode_attention`
-// (body `_decode_kernel`). Same function: for every (batch b, head h), an
-// online softmax over cache positions, with positions at or past lengths[b]
-// masked to -1e30, and the output acc / max(l, 1e-30) in q's dtype. A row
-// whose length is 0 has every logit masked, so it returns the mean of all S
-// cached V rows, as the Pallas kernel and its oracle do. All arithmetic is
-// fp32.
+// (body `_decode_kernel`). Same function: for every (batch b, head h), a
+// softmax over cache positions, with positions at or past lengths[b] masked
+// to -1e30, and the output acc / max(l, 1e-30) in q's dtype. A row whose
+// length is 0 has every logit masked, so it returns the mean of all S cached
+// V rows, as the Pallas kernel and its oracle do; a length past S counts as
+// S. All arithmetic is fp32.
 //
 // Layout: q and o are (B, H, D); k and v are (B, S, KH, D) with KH dividing
 // H, query head h reading kv head h / (H / KH). The head-expanded cache of
@@ -18,50 +18,131 @@
 // Bound on the H100 SXM (3.35 TB/s): the bytes of K and V that the lengths
 // make valid, 2 * B * KH * min(len, S) * D * sizeof(T), plus q and o; the
 // operations (4 * B * H * len * D) are far below the compute roof. At
-// qwen3's serving shapes (B = 4, KH = 8, D = 128, bf16, len ~ 256..272) that
-// is about 4.5 MB a call, 1.3 us; at RecurrentGemma's (B 4, 10 query heads
-// on KH = 1, D 256, a ring of 576 slots with len ~ 520) about 2.2 MB, 0.64
-// us.
+// qwen3's serving call (B 4, KH 8, D 128, bf16, length 264) that is about
+// 4.5 MB, 1.3 us; at RecurrentGemma's (B 4, 10 query heads on KH 1, D 256,
+// a ring of 576 slots, length 520) about 2.2 MB, 0.65 us.
 //
-// Design against that bound: one CTA per (kv head, block of query heads,
-// batch row) reads each valid K and V row once and serves the query heads
-// of its block that share it. A block holds up to HB heads (8 up to D 128,
-// 5 at D 256), so qwen3's 5 heads per kv head are one block and GQA costs
-// no extra bytes; RecurrentGemma's 10 are two blocks, which read the kv
-// head twice (from L2 the second time) and double the CTAs. The block
-// bounds both the per-lane registers (q and the accumulator are HB x D/32
-// floats) and the static shared memory (NW x HB x D floats for the merge,
-// 40 KB at D 256), so any number of query heads per kv head is served.
-// Eight warps stride over positions, PPW positions per warp per step (4, or
-// 2 at D 256 to keep K and V's registers at 32 a lane), so 2 * PPW * D/32
-// independent loads a lane are in flight; each lane holds D / 32
-// dimensions, and a dot product is finished with warp shuffles. Positions
-// past the valid length are not read at all: their logits are -1e30 and add
-// exp(-1e30 - m) == 0 next to a valid one. The warps' partial (m, l, acc)
-// are merged through shared memory. With only B * KH * blocks CTAs (32 at
-// qwen3's shapes, 8 at RecurrentGemma's) the card is far from full;
-// splitting S across more CTAs, with a combine pass, is the next step.
+// Why the earlier design could not reach it: one CTA per (kv head, block of
+// query heads, batch row) gave 32 CTAs at qwen3's call and 8 at
+// RecurrentGemma's on 132 SMs, each streaming its whole row alone, a few
+// positions a warp at a time with a shuffle reduction over D per position
+// (0.21 and 0.03 TB/s on an H100 SXM at 700 W). The split-S design below
+// spreads S over CTAs and merges their partial softmaxes in a second pass:
+//
+// - Plan (host, decode_attention.py::plan, from shapes alone, so a CUDA
+//   graph can capture the call): each split covers `chunk` positions, the
+//   largest power of two >= 16 for which B * KH * ceil(S / chunk) >=
+//   2 * SMs, else 16, within shared memory. At 132 SMs: qwen3 chunk 32, 16
+//   splits, 512 CTAs (288 of them live at length 264); RecurrentGemma chunk
+//   16, 36 splits, 144 CTAs (132 live at length 520).
+// - decode_split_kernel, grid (splits, KH, B): a CTA serves all G = H / KH
+//   query heads of its kv head, so every K and V row is read from HBM once
+//   at any G. A CTA whose chunk starts at or past the row's length returns
+//   at once. Otherwise it stages its valid rows of K, then of V, as two
+//   groups of 16-byte cp.async copies (K rows padded by 16 bytes, so the
+//   lanes reading one column of different rows hit different banks), and q
+//   in its own dtype (the products are fp32 either way). Once K has landed
+//   it computes the G x chunk logits with one thread per (head, position)
+//   pair, each a dot product over D from shared memory with no shuffle;
+//   then per head m = max and l = sum exp(s - m), and, once V has landed,
+//   the unnormalised acc = sum exp(s - m) V, written in fp32 to the
+//   workspace, laid out (splits, B, H, D + 2): acc, then m and l. No TMA:
+//   a tensor map is encoded on the host for every call, which a host-bound
+//   decode step cannot afford for 16 KB a CTA.
+// - decode_combine_kernel, grid (H, B), one thread per dimension: it reads
+//   lengths[b] and only the ceil(n / chunk) live splits (split 0 is live
+//   whenever n >= 1, so no sentinel and no -inf - -inf), and writes
+//   sum exp(m_s - M) acc_s / max(sum exp(m_s - M) l_s, 1e-30) in q's dtype.
+//   It is a programmatic dependent launch: its grid is launched while the
+//   split pass runs and waits (griddepcontrol.wait) for that pass's end and
+//   its writes, which hides the second launch's latency.
+//
+// Both kernels launch from one C call on the caller's stream; the workspace
+// and the output are the caller's. Nothing here allocates or synchronises.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int NW = 8;          // warps per CTA
-constexpr float NEG_INF = -1e30f;
+constexpr int NT = 256;           // threads of a split CTA
+constexpr int MIN_CHUNK = 16;
+constexpr int SMEM_MAX = 232448;  // shared memory a block may opt into on an H100
+constexpr int CB = 16;            // splits whose partials a combine thread loads at once
+constexpr float NEG = -1e30f;     // a masked logit, as in the Pallas kernel
 
-// Query heads per CTA and positions per warp per step, by head dim.
-template <int D> __host__ __device__ constexpr int heads_per_cta() { return D > 128 ? 5 : 8; }
-template <int D> __host__ __device__ constexpr int positions_per_warp() { return D > 128 ? 2 : 4; }
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+// Bytes of shared memory of a split CTA. decode_attention.py's plan uses
+// a copy of this rule, of SMEM_MAX and of MIN_CHUNK, which
+// tests/test_torch_kernels.py holds equal to these.
+long smem_bytes(int chunk, int G, int D, int esz) {
+  return (long)G * D * esz + 4L * G * chunk + (long)chunk * (D * esz + 16) +
+         (long)chunk * D * esz;
+}
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+
+// The two bf16 values packed in a 32-bit word, the lower address first.
+__device__ __forceinline__ float bf_lo(uint32_t x) { return __uint_as_float(x << 16); }
+__device__ __forceinline__ float bf_hi(uint32_t x) { return __uint_as_float(x & 0xffff0000u); }
+
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  const uint32_t x = *reinterpret_cast<const uint32_t*>(p);
+  return make_float2(bf_lo(x), bf_hi(x));
+}
+
+// q row . K row, both of one dtype in shared memory, 16 bytes of each a
+// step, four partial sums in fp32.
+template <int D>
+__device__ __forceinline__ float dot_row(const float* __restrict__ qr,
+                                         const float* __restrict__ kr) {
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+#pragma unroll
+  for (int c = 0; c < D; c += 4) {
+    const float4 kk = *reinterpret_cast<const float4*>(kr + c);
+    const float4 qq = *reinterpret_cast<const float4*>(qr + c);
+    s0 = fmaf(qq.x, kk.x, s0);
+    s1 = fmaf(qq.y, kk.y, s1);
+    s2 = fmaf(qq.z, kk.z, s2);
+    s3 = fmaf(qq.w, kk.w, s3);
+  }
+  return (s0 + s1) + (s2 + s3);
+}
+
+template <int D>
+__device__ __forceinline__ float dot_row(const __nv_bfloat16* __restrict__ qr,
+                                         const __nv_bfloat16* __restrict__ kr) {
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+#pragma unroll
+  for (int c = 0; c < D; c += 8) {
+    const uint4 kk = *reinterpret_cast<const uint4*>(kr + c);
+    const uint4 qq = *reinterpret_cast<const uint4*>(qr + c);
+    s0 = fmaf(bf_lo(qq.x), bf_lo(kk.x), s0);
+    s1 = fmaf(bf_hi(qq.x), bf_hi(kk.x), s1);
+    s2 = fmaf(bf_lo(qq.y), bf_lo(kk.y), s2);
+    s3 = fmaf(bf_hi(qq.y), bf_hi(kk.y), s3);
+    s0 = fmaf(bf_lo(qq.z), bf_lo(kk.z), s0);
+    s1 = fmaf(bf_hi(qq.z), bf_hi(kk.z), s1);
+    s2 = fmaf(bf_lo(qq.w), bf_lo(kk.w), s2);
+    s3 = fmaf(bf_hi(qq.w), bf_hi(kk.w), s3);
+  }
+  return (s0 + s1) + (s2 + s3);
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
 }
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -70,162 +151,213 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(hopper::smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed copy groups are in flight.
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
 template <typename T, int D>
-__global__ void __launch_bounds__(NW * 32)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              const int* __restrict__ lengths, T* __restrict__ o, int S, int H, int KH,
-              float scale) {
-  constexpr int MAXG = heads_per_cta<D>();
-  constexpr int PPW = positions_per_warp<D>();
-  constexpr int DPL = D >= 32 ? D / 32 : 1;   // dims per lane
-  constexpr int LANES = D / DPL;              // lanes that hold dims
-  __shared__ float sm_acc[NW][MAXG][D];
-  __shared__ float sm_m[NW][MAXG];
-  __shared__ float sm_l[NW][MAXG];
+__global__ void __launch_bounds__(NT)
+decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    const int* __restrict__ lengths, float* __restrict__ ws, int B, int S,
+                    int H, int KH, int chunk, float scale) {
+  constexpr int E = 16 / sizeof(T);  // values in 16 bytes
+  constexpr int KS = D + E;          // a K row in shared memory, padded by 16 bytes
+  constexpr int PIECES = D / E;      // 16-byte pieces of a row
+  extern __shared__ __align__(16) unsigned char smem[];
 
-  // this CTA serves query heads kh * GQ + g0 .. + G - 1 of kv head kh
-  const int GQ = H / KH;
-  const int NB = (GQ + MAXG - 1) / MAXG;       // head blocks per kv head
-  const int kh = blockIdx.x / NB, g0 = (blockIdx.x % NB) * MAXG, b = blockIdx.y;
-  const int G = min(MAXG, GQ - g0);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const bool active = lane < LANES;
-  const int d0 = lane * DPL;
-
+  // every split CTA has started once all have passed this: the combine
+  // grid may launch and wait for this one's end (griddepcontrol.wait)
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
   const int len = lengths[b];
-  const bool empty = len <= 0;                 // every logit masked
-  const int n = empty ? S : min(len, S);       // positions this row reads
+  const bool empty = len <= 0;              // every logit masked
+  const int n = empty ? S : min(len, S);    // positions this row reads
+  const int p0 = split * chunk;
+  if (p0 >= n) return;                      // a dead split: the combine skips it
+  const int cnt = min(chunk, n - p0);       // positions of this split the row reads
+  const int G = H / KH;
 
-  const T* qb = q + ((long)b * H + (long)kh * GQ + g0) * D;
-  const long ps = (long)KH * D;                // stride of one cache position
-  const T* kb = k + (long)b * S * ps + (long)kh * D;
-  const T* vb = v + (long)b * S * ps + (long)kh * D;
+  T* qs = reinterpret_cast<T*>(smem);                   // G x D
+  float* ps = reinterpret_cast<float*>(qs + G * D);     // G x chunk logits, then weights
+  T* ks = reinterpret_cast<T*>(ps + G * chunk);         // chunk x KS
+  T* vs = ks + chunk * KS;                              // chunk x D
 
-  float qf[MAXG][DPL], acc[MAXG][DPL], m[MAXG], l[MAXG];
-#pragma unroll
-  for (int g = 0; g < MAXG; ++g) {
-    m[g] = NEG_INF;
-    l[g] = 0.f;
-#pragma unroll
-    for (int t = 0; t < DPL; ++t) {
-      acc[g][t] = 0.f;
-      qf[g][t] = (g < G && active) ? to_f(qb[(long)g * D + d0 + t]) : 0.f;
-    }
+  // K, then V, as two copy groups: the logits start once K has landed
+  const long pstride = (long)KH * D;                    // stride of one cache position
+  const long base = ((long)b * S + p0) * pstride + (long)kh * D;
+  for (int i = threadIdx.x; i < cnt * PIECES; i += NT) {
+    const int r = i / PIECES, c = (i % PIECES) * E;
+    cp_async16(ks + r * KS + c, k + base + r * pstride + c);
   }
-
-  for (int p0 = warp * PPW; p0 < n; p0 += NW * PPW) {
-    float kf[PPW][DPL], vf[PPW][DPL];
-#pragma unroll
-    for (int u = 0; u < PPW; ++u) {
-      const int pos = p0 + u;
-      const bool in = pos < n && active;
-#pragma unroll
-      for (int t = 0; t < DPL; ++t) {
-        kf[u][t] = in ? to_f(kb[(long)pos * ps + d0 + t]) : 0.f;
-        vf[u][t] = in ? to_f(vb[(long)pos * ps + d0 + t]) : 0.f;
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < MAXG; ++g) {
-      if (g >= G) continue;  // G is uniform: no divergence; g stays a constant
-      float s[PPW];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int u = 0; u < PPW; ++u) {
-        float dot = 0.f;
-#pragma unroll
-        for (int t = 0; t < DPL; ++t) dot = fmaf(qf[g][t], kf[u][t], dot);
-        dot = warp_sum(dot) * scale;
-        if (empty) dot = NEG_INF;
-        if (p0 + u >= n) dot = -INFINITY;      // not a position of this row
-        s[u] = dot;
-        mx = fmaxf(mx, dot);
-      }
-      const float m_new = fmaxf(m[g], mx);
-      const float corr = expf(m[g] - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int t = 0; t < DPL; ++t) acc[g][t] *= corr;
-#pragma unroll
-      for (int u = 0; u < PPW; ++u) {
-        const float p = expf(s[u] - m_new);
-        psum += p;
-#pragma unroll
-        for (int t = 0; t < DPL; ++t) acc[g][t] = fmaf(p, vf[u][t], acc[g][t]);
-      }
-      l[g] = l[g] * corr + psum;
-      m[g] = m_new;
-    }
+  cp_async_commit();
+  for (int i = threadIdx.x; i < cnt * PIECES; i += NT) {
+    const int r = i / PIECES, c = (i % PIECES) * E;
+    cp_async16(vs + r * D + c, v + base + r * pstride + c);
   }
+  cp_async_commit();
+  const T* qb = q + ((long)b * H + (long)kh * G) * D;  // while the copies fly
+  for (int i = threadIdx.x; i < G * D; i += NT) qs[i] = qb[i];
+  cp_async_wait<1>();
+  __syncthreads();
 
-#pragma unroll
-  for (int g = 0; g < MAXG; ++g) {
-    if (g >= G) continue;
-    if (lane == 0) {
-      sm_m[warp][g] = m[g];
-      sm_l[warp][g] = l[g];
-    }
-    if (active) {
-#pragma unroll
-      for (int t = 0; t < DPL; ++t) sm_acc[warp][g][d0 + t] = acc[g][t];
-    }
+  for (int i = threadIdx.x; i < G * chunk; i += NT) {
+    const int g = i / chunk, p = i - g * chunk;
+    float s = -INFINITY;                    // not a position of this row
+    if (p < cnt) s = empty ? NEG : dot_row<D>(qs + g * D, ks + p * KS) * scale;
+    ps[i] = s;
   }
   __syncthreads();
 
-  T* ob = o + ((long)b * H + (long)kh * GQ + g0) * D;
-  for (int i = threadIdx.x; i < G * D; i += NW * 32) {
-    const int g = i / D, d = i % D;
-    float mm = NEG_INF;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) mm = fmaxf(mm, sm_m[w][g]);
-    float ll = 0.f, aa = 0.f;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      const float c = expf(sm_m[w][g] - mm);
-      ll = fmaf(sm_l[w][g], c, ll);
-      aa = fmaf(sm_acc[w][g][d], c, aa);
+  // one warp a head: m and l over the chunk, the weights in place
+  float* wb = ws + (((long)split * B + b) * H + (long)kh * G) * (D + 2);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int g = warp; g < G; g += NT / 32) {
+    float* pr = ps + g * chunk;
+    float m = -INFINITY;
+    for (int p = lane; p < cnt; p += 32) m = fmaxf(m, pr[p]);
+    m = warp_max(m);
+    float l = 0.f;
+    for (int p = lane; p < cnt; p += 32) {
+      const float e = expf(pr[p] - m);
+      pr[p] = e;
+      l += e;
     }
-    ob[(long)g * D + d] = from_f<T>(aa / fmaxf(ll, 1e-30f));
+    l = warp_sum(l);
+    if (lane == 0) *reinterpret_cast<float2*>(wb + (long)g * (D + 2) + D) = make_float2(m, l);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // acc over (head, pair of dimensions), V rows past cnt never read
+  constexpr int DP = D / 2;
+  for (int i = threadIdx.x; i < G * DP; i += NT) {
+    const int g = i / DP, d = (i - g * DP) * 2;
+    const float* pr = ps + g * chunk;
+    float a0 = 0.f, a1 = 0.f;
+#pragma unroll 4
+    for (int p = 0; p < cnt; ++p) {
+      const float w = pr[p];
+      const float2 vv = load2(vs + p * D + d);
+      a0 = fmaf(w, vv.x, a0);
+      a1 = fmaf(w, vv.y, a1);
+    }
+    *reinterpret_cast<float2*>(wb + (long)g * (D + 2) + d) = make_float2(a0, a1);
   }
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const void* lengths, void* o, int B,
-           int S, int H, int KH, float scale, cudaStream_t stream) {
-  constexpr int MAXG = heads_per_cta<D>();
-  dim3 grid(KH * ((H / KH + MAXG - 1) / MAXG), B);
-  decode_kernel<T, D><<<grid, NW * 32, 0, stream>>>(
+__global__ void __launch_bounds__(D)
+decode_combine_kernel(const float* __restrict__ ws, const int* __restrict__ lengths,
+                      T* __restrict__ o, int B, int S, int H, int chunk) {
+  const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
+  const int len = lengths[b];
+  const int n = len <= 0 ? S : min(len, S);
+  const int live = (n + chunk - 1) / chunk;
+  const long sstride = (long)B * H * (D + 2);           // from one split's partials to the next
+  const float* w = ws + ((long)b * H + h) * (D + 2);
+  asm volatile("griddepcontrol.wait;" ::: "memory");    // the split pass has ended
+  float M = -INFINITY, L = 0.f, A = 0.f;
+  for (int s0 = 0; s0 < live; s0 += CB) {
+    float ms[CB], ls[CB], as[CB];
+#pragma unroll
+    for (int u = 0; u < CB; ++u) {        // CB splits' loads in flight at once
+      const bool in = s0 + u < live;
+      const float* p = w + (s0 + u) * sstride;
+      ms[u] = in ? p[D] : -INFINITY;
+      ls[u] = in ? p[D + 1] : 0.f;
+      as[u] = in ? p[d] : 0.f;
+    }
+    float mb = M;
+#pragma unroll
+    for (int u = 0; u < CB; ++u) mb = fmaxf(mb, ms[u]);
+    const float c = expf(M - mb);         // 0 on the first batch, which holds split 0
+    L *= c;
+    A *= c;
+#pragma unroll
+    for (int u = 0; u < CB; ++u) {
+      const float e = expf(ms[u] - mb);
+      L = fmaf(e, ls[u], L);
+      A = fmaf(e, as[u], A);
+    }
+    M = mb;
+  }
+  o[((long)b * H + h) * D + d] = from_f<T>(A / fmaxf(L, 1e-30f));
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, const void* lengths, void* o, void* ws,
+           int B, int S, int H, int KH, int chunk, float scale, cudaStream_t stream) {
+  const long smem = smem_bytes(chunk, H / KH, D, (int)sizeof(T));
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  static std::atomic<unsigned long long> opted_in{0};
+  cudaError_t err =
+      hopper::opt_in_smem((const void*)decode_split_kernel<T, D>, SMEM_MAX, opted_in);
+  if (err != cudaSuccess) return (int)err;
+  const int splits = (S + chunk - 1) / chunk;
+  decode_split_kernel<T, D><<<dim3(splits, KH, B), NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(lengths), static_cast<T*>(o), S, H, KH, scale);
-  return (int)cudaGetLastError();
+      static_cast<const int*>(lengths), static_cast<float*>(ws), B, S, H, KH, chunk, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // a programmatic dependent launch: the combine grid launches while the
+  // split pass runs, and waits for its end before reading the partials
+  cudaLaunchAttribute pdl[1];
+  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(H, B);
+  cfg.blockDim = dim3(D);
+  cfg.stream = stream;
+  cfg.attrs = pdl;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, decode_combine_kernel<T, D>,
+                                 static_cast<const float*>(ws),
+                                 static_cast<const int*>(lengths), static_cast<T*>(o), B, S,
+                                 H, chunk);
 }
 
 template <typename T>
 int dispatch_d(int D, const void* q, const void* k, const void* v, const void* lengths, void* o,
-               int B, int S, int H, int KH, float scale, cudaStream_t st) {
+               void* ws, int B, int S, int H, int KH, int chunk, float scale, cudaStream_t st) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, lengths, o, B, S, H, KH, scale, st);
-    case 64: return launch<T, 64>(q, k, v, lengths, o, B, S, H, KH, scale, st);
-    case 128: return launch<T, 128>(q, k, v, lengths, o, B, S, H, KH, scale, st);
-    case 256: return launch<T, 256>(q, k, v, lengths, o, B, S, H, KH, scale, st);
+    case 16: return launch<T, 16>(q, k, v, lengths, o, ws, B, S, H, KH, chunk, scale, st);
+    case 64: return launch<T, 64>(q, k, v, lengths, o, ws, B, S, H, KH, chunk, scale, st);
+    case 128: return launch<T, 128>(q, k, v, lengths, o, ws, B, S, H, KH, chunk, scale, st);
+    case 256: return launch<T, 256>(q, k, v, lengths, o, ws, B, S, H, KH, chunk, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16; lengths is int32 on the device.
-// Returns cudaGetLastError() after the launch (0 on success); launches on
-// `stream` and does not synchronise.
+// dtype: 0 float32, 1 bfloat16; lengths is int32 on the device; ws is an
+// fp32 workspace of (ceil(S / chunk), B, H, D + 2); chunk is a power of two
+// >= 16 whose CTA fits the shared memory. Returns cudaGetLastError() after
+// the launches (0 on success); launches on `stream` and does not
+// synchronise.
 extern "C" int decode_attention(int dtype, const void* q, const void* k, const void* v,
-                                const void* lengths, void* o, int B, int S, int H, int KH, int D,
-                                float scale, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || KH <= 0 || H % KH != 0 || B > 65535)
+                                const void* lengths, void* o, void* ws, int B, int S, int H,
+                                int KH, int D, int chunk, float scale, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || KH <= 0 || H % KH != 0 || B > 65535 || KH > 65535)
     return (int)cudaErrorInvalidValue;
+  if (chunk < MIN_CHUNK || (chunk & (chunk - 1)) != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return dispatch_d<float>(D, q, k, v, lengths, o, B, S, H, KH, scale, st);
-    case 1: return dispatch_d<__nv_bfloat16>(D, q, k, v, lengths, o, B, S, H, KH, scale, st);
+    case 0: return dispatch_d<float>(D, q, k, v, lengths, o, ws, B, S, H, KH, chunk, scale, st);
+    case 1:
+      return dispatch_d<__nv_bfloat16>(D, q, k, v, lengths, o, ws, B, S, H, KH, chunk, scale,
+                                       st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,7 +1,11 @@
-"""K2: decode attention — the CUDA kernel's Python wrapper.
+"""K2: decode attention — the CUDA kernels' Python wrapper.
 
 Replaces ``repro.kernels.decode_attention.decode_attention`` (Pallas, TPU).
-The kernel is ``csrc/decode_attention.cu``; its plain PyTorch version is
+The kernels are in ``csrc/decode_attention.cu``: a split-S pass
+(``decode_split_kernel``, one CTA per chunk of cache positions and kv
+head, serving all of that kv head's query heads) and a combine pass
+(``decode_combine_kernel``), launched by one C call. ``plan`` picks the
+chunk from shapes alone. The plain PyTorch version is
 ``ref.decode_attention_ref``, which ``ops.decode_attention`` takes for CPU
 tensors.
 """
@@ -14,12 +18,47 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS
 
+CHUNKS = (16, 32, 64, 128, 256)   # the positions a split may cover
+SMEM_MAX = 232448                 # shared memory a block may opt into on an H100
+
+
+def smem_bytes(chunk, g, d, esz) -> int:
+    """Shared memory of one split CTA, a copy of ``smem_bytes`` in the .cu
+    (a CPU test holds the two equal): q for its g query heads, the g x
+    chunk logits in fp32, and its chunk of K (rows padded by 16 bytes) and
+    V; q, K and V of `esz` bytes a value."""
+    return g * d * esz + 4 * g * chunk + chunk * (d * esz + 16) + chunk * d * esz
+
+
+@functools.lru_cache(maxsize=None)
+def plan(b, s, h, kh, d, dtype, num_sms) -> tuple:
+    """(chunk, splits) of a call, from shapes alone: the largest chunk of
+    CHUNKS, up to the power of two that covers S and within SMEM_MAX, that
+    gives B * KH * splits >= 2 * num_sms CTAs, else the smallest; splits =
+    ceil(S / chunk). It never reads `lengths`, so a CUDA graph can capture
+    the call."""
+    g = h // kh
+    top = max(CHUNKS[0], 1 << (s - 1).bit_length())
+    fits = [c for c in CHUNKS
+            if c <= top and smem_bytes(c, g, d, dtype.itemsize) <= SMEM_MAX]
+    if not fits:
+        raise ValueError(f"{g} query heads per kv head at head_dim {d} do not fit "
+                         "one CTA's shared memory")
+    full = [c for c in fits if b * kh * -(-s // c) >= 2 * num_sms]
+    chunk = full[-1] if full else fits[0]
+    return chunk, -(-s // chunk)
+
+
+@functools.cache
+def num_sms(index) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
 
 @functools.cache
 def _fn():
     """The C entry point, built, loaded and typed once per process."""
     fn = build.load("decode_attention").decode_attention
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -27,8 +66,8 @@ def _fn():
 
 def decode_attention(q, k, v, lengths, *, scale=None):
     """q (B,H,D); k,v (B,S,KH,D) with KH dividing H; lengths (B,) int32.
-    Contiguous CUDA tensors, q/k/v of one dtype. Returns (B,H,D) in q's
-    dtype. Launches on the current stream, no sync."""
+    Contiguous CUDA tensors, q/k/v of one dtype, k and v 16-byte aligned.
+    Returns (B,H,D) in q's dtype. Launches on the current stream, no sync."""
     if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"want q (B,H,D), k = v (B,S,KH,D); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -47,13 +86,19 @@ def decode_attention(q, k, v, lengths, *, scale=None):
         raise ValueError("decode_attention kernel needs every input on one CUDA device")
     if not all(t.is_contiguous() for t in (q, k, v, lengths)):
         raise ValueError("decode_attention kernel needs contiguous inputs")
+    kp, vp = k.data_ptr(), v.data_ptr()
+    if kp % 16 or vp % 16:
+        raise ValueError("decode_attention kernel copies k and v 16 bytes at a time: "
+                         "they must be 16-byte aligned")
     scale = scale if scale is not None else d ** -0.5
+    chunk, splits = plan(b, s, h, kh, d, q.dtype, num_sms(q.device.index))
     out = torch.empty_like(q)
+    ws = torch.empty((splits, b, h, d + 2), dtype=torch.float32, device=q.device)
     fn = _fn()
     with torch.cuda.device(q.device):
-        err = fn(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 lengths.data_ptr(), out.data_ptr(), b, s, h, kh, d, float(scale),
-                 torch.cuda.current_stream(q.device).cuda_stream)
+        err = fn(DTYPES[q.dtype], q.data_ptr(), kp, vp,
+                 lengths.data_ptr(), out.data_ptr(), ws.data_ptr(), b, s, h, kh, d,
+                 chunk, float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"decode_attention launch failed: CUDA error {err}")
     decode_attention.launches += 1

@@ -82,10 +82,10 @@ def test_decode_attention_kernel(cuda, s, dtype, kv_heads):
 @pytest.mark.parametrize("h,kh,d,dtype", [(10, 1, 256, torch.float32),   # RecurrentGemma
                                           (10, 1, 256, torch.bfloat16),
                                           (20, 2, 256, torch.float32),
-                                          (10, 1, 128, torch.float32)])  # a block of 8, then 2
+                                          (10, 1, 128, torch.float32)])
 def test_decode_attention_kernel_head_blocks(cuda, h, kh, d, dtype):
-    """More query heads per kv head than one CTA serves: the heads are split
-    into blocks, each reading the kv head, at D 256 and D 128."""
+    """Many query heads per kv head, all served by each split's one CTA of
+    their kv head, at D 256 and D 128."""
     gen = torch.Generator(device=cuda).manual_seed(6)
     b, s = 4, 576
     q = _rand(gen, (b, h, d), dtype, cuda)
@@ -93,6 +93,75 @@ def test_decode_attention_kernel_head_blocks(cuda, h, kh, d, dtype):
     lens = torch.tensor([0, 1, 300, s], dtype=torch.int32, device=cuda)
     got = ops.decode_attention(q, k, v, lens)
     want = ops.decode_attention_plain(q, k, v, lens)
+    torch.testing.assert_close(got, want, atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lens", [[1], [16], [17], [0], [576], [1000], [32, 33]])
+def test_decode_attention_kernel_split_edges(cuda, lens, dtype):
+    """K2's split edges at RecurrentGemma's shape (10 query heads on one kv
+    head of 256, a ring of 576; chunk 16 at 132 SMs): only split 0 live, a
+    length at a chunk's edge and one past it, a length-0 row, a full ring
+    and a length past S, at B 1 (the fewest CTAs) and B 2; one launch a
+    call."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    b, s, h, kh, d = len(lens), 576, 10, 1, 256
+    q = _rand(gen, (b, h, d), dtype, cuda)
+    k, v = (_rand(gen, (b, s, kh, d), dtype, cuda) for _ in range(2))
+    ln = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = ops.launch_counts()["decode_attention"]
+    got = ops.decode_attention(q, k, v, ln)
+    assert ops.launch_counts()["decode_attention"] == before + 1
+    want = ops.decode_attention_plain(q, k, v, ln)
+    torch.testing.assert_close(got, want, atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("chunk", [16, 32, 64, 128, 256])
+def test_decode_attention_kernel_chunks(cuda, monkeypatch, chunk):
+    """Every chunk K2's plan may pick, at qwen3's decode shape (B 4, S 512,
+    40/8 heads, D 128, bf16), the plan picking it for an SM count other
+    than the card's."""
+    from repro_torch.kernels import decode_attention as tdecode
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    b, s, h, kh, d = 4, 512, 40, 8, 128
+    sms = b * kh * (s // chunk) // 2
+    assert tdecode.plan(b, s, h, kh, d, torch.bfloat16, sms)[0] == chunk
+    monkeypatch.setattr(tdecode, "num_sms", lambda index: sms)
+    q = _rand(gen, (b, h, d), torch.bfloat16, cuda)
+    k, v = (_rand(gen, (b, s, kh, d), torch.bfloat16, cuda) for _ in range(2))
+    ln = torch.tensor([0, 1, 264, 600], dtype=torch.int32, device=cuda)
+    got = tdecode.decode_attention(q, k, v, ln)
+    want = ops.decode_attention_plain(q, k, v, ln)
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 64, 128, 256])
+def test_decode_attention_kernel_smem_ceiling(cuda, d, dtype):
+    """The most query heads on one kv head that K2's plan accepts at each
+    (dtype, D) launch and agree with the plain version: the plan's shared
+    memory rule and the kernel's own agree at the ceiling."""
+    from repro_torch.kernels import decode_attention as tdecode
+    sms = tdecode.num_sms(torch.device(cuda).index)
+
+    def fits(g):
+        try:
+            tdecode.plan(2, 40, g, 1, d, dtype, sms)
+        except ValueError:
+            return False
+        return True
+
+    lo, hi = 1, 4096   # fits(lo), not fits(hi)
+    assert fits(lo) and not fits(hi)
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid)
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    q = _rand(gen, (2, lo, d), dtype, cuda)
+    k, v = (_rand(gen, (2, 40, 1, d), dtype, cuda) for _ in range(2))
+    ln = torch.tensor([0, 33], dtype=torch.int32, device=cuda)
+    got = ops.decode_attention(q, k, v, ln)
+    want = ops.decode_attention_plain(q, k, v, ln)
     torch.testing.assert_close(got, want, atol=TOL[dtype], rtol=TOL[dtype])
 
 

@@ -7,6 +7,9 @@ GQA caches that are not head-expanded; and the tile walk of K1's
 tensor-core route, emulated in PyTorch, against the Pallas kernel.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -190,6 +193,140 @@ def test_decode_attention_empty_row_ragged_gqa(dtype):
     mean_v = tv[0].float().mean(0).repeat_interleave(h // kh, dim=0)
     torch.testing.assert_close(got[0].float(), mean_v, atol=TOL[dtype],
                                rtol=TOL[dtype])
+
+
+_PLAN_PARAMS = ("b", "s", "h", "kh", "d", "dtype", "num_sms")
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((4, 512, 40, 8, 128, "bfloat16"), (32, 16)),    # qwen3-14b's decode call: 512 CTAs
+    ((4, 576, 10, 1, 256, "bfloat16"), (16, 36)),    # recurrentgemma-2b's: 144 CTAs
+    ((1, 576, 10, 1, 256, "float32"), (16, 36)),     # B 1: no chunk gives 264 CTAs
+    ((1, 16, 4, 2, 64, "float32"), (16, 1)),         # S of 16 or less: one split
+    ((2, 1, 4, 4, 16, "bfloat16"), (16, 1)),
+    ((64, 4096, 32, 8, 128, "bfloat16"), (256, 16)),  # CTAs to spare: the largest chunk
+    ((3, 333, 8, 8, 64, "float32"), (32, 11)),      # 264 CTAs exactly
+    ((2, 200, 10, 2, 32, "float32"), (16, 13)),
+    ((1, 64, 512, 1, 256, "float32"), ValueError),   # q alone overflows shared memory
+] + [((64, 8192, 8 * g, 8, d, dt), None)              # every (dtype, D) K2 takes
+     for dt in TDT for d in (16, 64, 128, 256) for g in (1, 10, 64)])
+def test_decode_plan(shape, want):
+    """K2's plan is a function of shapes alone (so a captured call replays
+    at any lengths): chunk a power of two >= 16, splits * chunk >= S, the
+    CTA within shared memory, the largest chunk that gives 2 * SMs CTAs,
+    and at the serving calls at least 132 CTAs at 132 SMs."""
+    import inspect
+    b, s, h, kh, d, dt = shape
+    assert tuple(inspect.signature(tdecode.plan).parameters) == _PLAN_PARAMS
+    if want is ValueError:
+        with pytest.raises(ValueError, match="shared memory"):
+            tdecode.plan(b, s, h, kh, d, TDT[dt], 132)
+        return
+    chunk, splits = tdecode.plan(b, s, h, kh, d, TDT[dt], 132)
+    tdecode.plan.cache_clear()
+    assert tdecode.plan(b, s, h, kh, d, TDT[dt], 132) == (chunk, splits)
+    if want is not None:
+        assert (chunk, splits) == want
+    assert chunk >= 16 and chunk & (chunk - 1) == 0
+    assert splits * chunk >= s > (splits - 1) * chunk
+    esz = TDT[dt].itemsize
+    assert tdecode.smem_bytes(chunk, h // kh, d, esz) <= tdecode.SMEM_MAX
+    if b * kh * splits < 2 * 132:   # a smaller chunk could not do better and fit
+        assert chunk == 16
+    bigger = 2 * chunk
+    if bigger <= max(16, 1 << (s - 1).bit_length()) and bigger in tdecode.CHUNKS and \
+            tdecode.smem_bytes(bigger, h // kh, d, esz) <= tdecode.SMEM_MAX:
+        assert b * kh * -(-s // bigger) < 2 * 132
+    if shape[:5] in ((4, 512, 40, 8, 128), (4, 576, 10, 1, 256)):
+        assert b * kh * splits >= 132
+
+
+def _kernel_smem_rule():
+    """SMEM_MAX, MIN_CHUNK and smem_bytes as decode_attention.cu defines
+    them, the C expression evaluated in Python."""
+    src = (Path(tdecode.__file__).parent / "csrc" / "decode_attention.cu").read_text()
+    const = dict(re.findall(r"constexpr int (SMEM_MAX|MIN_CHUNK) = (\d+);", src))
+    body = re.search(r"long smem_bytes\(int chunk, int G, int D, int esz\) \{\s*"
+                     r"return (.*?);\s*\}", src, re.S).group(1)
+    expr = compile(re.sub(r"\(long\)|(?<=\d)L\b", "", " ".join(body.split())),
+                   "smem_bytes", "eval")
+    return (int(const["SMEM_MAX"]), int(const["MIN_CHUNK"]),
+            lambda chunk, g, d, esz: eval(expr, {}, dict(chunk=chunk, G=g, D=d, esz=esz)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [16, 64, 128, 256])
+def test_decode_smem_rule_matches_kernel(dtype, d):
+    """The plan's shared-memory rule is the kernel's: smem_bytes, SMEM_MAX
+    and the smallest chunk in decode_attention.py equal those of the .cu,
+    so a chunk the plan picks is one the C entry point accepts."""
+    smem_max, min_chunk, kernel_bytes = _kernel_smem_rule()
+    assert tdecode.SMEM_MAX == smem_max and tdecode.CHUNKS[0] == min_chunk
+    esz = TDT[dtype].itemsize
+    for chunk in tdecode.CHUNKS:
+        for g in (1, 5, 10, 64, 183, 2408):
+            assert tdecode.smem_bytes(chunk, g, d, esz) == kernel_bytes(chunk, g, d, esz)
+
+
+def _split_s(q, k, v, lengths, *, chunk, scale):
+    """K2's two passes in PyTorch, fp32 inside: for each live split (one
+    whose chunk starts before the row's length n), the logits of its valid
+    positions (all -1e30 on a length-0 row, where n = S), m, l = sum
+    exp(s - m) and the unnormalised acc; a dead split's partials stay NaN,
+    so a combine that read one would show it. The combine reads only the
+    ceil(n / chunk) live splits."""
+    b, h, d = q.shape
+    s, kh = k.shape[1], k.shape[2]
+    splits = -(-s // chunk)
+    kf = k.float().repeat_interleave(h // kh, 2)
+    vf = v.float().repeat_interleave(h // kh, 2)
+    part = torch.full((splits, b, h, d + 2), float("nan"))
+    out = torch.empty(b, h, d)
+    for bi in range(b):
+        ln = int(lengths[bi])
+        n = s if ln <= 0 else min(ln, s)
+        for sp in range(splits):
+            p0 = sp * chunk
+            if p0 >= n:
+                continue
+            rows = slice(p0, min(p0 + chunk, n))
+            logits = torch.einsum("hd,phd->hp", q[bi].float(), kf[bi, rows]) * scale
+            if ln <= 0:
+                logits = torch.full_like(logits, -1e30)
+            m = logits.max(-1).values
+            e = torch.exp(logits - m[:, None])
+            part[sp, bi, :, :d] = torch.einsum("hp,phd->hd", e, vf[bi, rows])
+            part[sp, bi, :, d], part[sp, bi, :, d + 1] = m, e.sum(-1)
+        live = part[:-(-n // chunk), bi]
+        w = torch.exp(live[..., d] - live[..., d].max(0).values)
+        den = (w * live[..., d + 1]).sum(0).clamp_min(1e-30)
+        out[bi] = (w[..., None] * live[..., :d]).sum(0) / den[:, None]
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("chunk", [16, 32])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,h,kh,d", [(256, 4, 4, 64),     # expanded: the Pallas kernel
+                                      (200, 10, 2, 32),    # ragged S, 5 heads a kv head
+                                      (200, 10, 1, 64)])   # 10 heads a kv head
+def test_decode_split_s_matches_pallas(chunk, dtype, s, h, kh, d):
+    """K2's split-S design, emulated, against the JAX package: lengths 0
+    (the mean of all S V rows), 1 (only split 0 live), a chunk's edge, one
+    past it, and past S. The expanded cache goes through the Pallas kernel
+    as test_decode_attention_plain_matches_pallas runs it, a GQA cache
+    through the oracle on the expanded cache."""
+    b = 5
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        13, [(b, h, d), (b, s, kh, d), (b, s, kh, d)], dtype)
+    lens = np.array([0, 1, chunk, chunk + 1, 999], np.int32)
+    if kh == h:
+        want = jops.decode_attention(jq, jk, jv, jnp.asarray(lens), block_s=128)
+    else:
+        rep = lambda x: jnp.repeat(x, h // kh, axis=2)
+        want = jref.decode_attention_ref(jq, rep(jk), rep(jv), jnp.asarray(lens))
+    got = _split_s(tq, tk, tv, torch.from_numpy(lens), chunk=chunk, scale=d ** -0.5)
+    assert got.dtype == TDT[dtype] and got.shape == (b, h, d)
+    _close(got, want, dtype)
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
