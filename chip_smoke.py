@@ -16,10 +16,14 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    S, B 1) and captured in a CUDA graph, replayed at new lengths written in
    place; K1's bf16 cases at D 64,
    128 and 256 take its tensor-core route and its fp32 cases its CUDA-core
-   route, each case logging its route, for K3 a nonzero initial
-   state, fewer groups than heads, and its final state against the
-   sequential oracle, and for K4 an initial state, ragged S and W and a
-   bf16 y; kernel, plain and library times, and each call's bound;
+   route, each case logging its route; K3's bf16 cases with P a multiple
+   of 64 and N 64 or 128 take its tensor-core route (ragged S, S under
+   one chunk, two groups, no initial state, B 1, N 64) and its fp32 cases
+   and a bf16 one at P 16 its CUDA-core route, each case logging its
+   route, with a nonzero initial state, fewer groups than heads, and in
+   fp32 its final state against the sequential oracle; K4 with an initial
+   state, ragged S and W and a bf16 y; kernel, plain and library times,
+   each call's bound, and K3's TFLOP/s, TB/s and CTA plan;
 4. serve: qwen3-14b at full width (40 layers, bf16 params made on the card
    from a seed) answers four clients through the port's InferenceServer;
    the kernels' launch counts must rise by 40 per prefill (K1) and by 40
@@ -28,7 +32,7 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    prefill and by 0 per decode step and nothing else may run; then
    recurrentgemma-2b at full width (26 layers, bf16), where K4 must rise by
    18 per prefill and 0 per decode step, K1 by 8 per prefill and K2 by 8
-   per decode step; every K1 launch of a serve run must take the
+   per decode step; every K1 and K3 launch of a serve run must take the
    tensor-core route; the served tokens must equal greedy decoding, and each
    path gets a profiler breakdown of a prefill and a decode step;
 5. parity: at each arch's reduced config, prefill logits and greedy tokens
@@ -350,8 +354,9 @@ def kernel_phase():
     # ---- K3 ----
     log("== kernels: K3 SSD chunked scan (Mamba2 prefill)")
     # atol is stated against max|y_ref| (tests/test_kernels.py:73-75): 3e-5
-    # in fp32; 2e-2 in bf16, where the plain version contracts C.B^T and
-    # C.S_prev in bf16 and the kernel in fp32
+    # in fp32; 2e-2 in bf16, where the plain version rounds the products
+    # C.B^T and C.S_prev^T to bf16 and the tensor-core route rounds M and
+    # S_prev; the final state is held to 3e-5 of its largest value in both
     k3_tol = {torch.float32: (3e-5, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
 
     def ssd_inputs(b, s, h, p, n, g, dtype, with_h0):
@@ -362,8 +367,20 @@ def kernel_phase():
         h0 = rand(b, h, p, n, dtype=torch.float32) * 0.2 if with_h0 else None
         return x, dt, a, bm, cm, h0
 
+    for dt_ in tol:   # the route the library picks is the one the wrapper records
+        for p_ in (16, 64, 80, 128):
+            for n_ in (16, 64, 96, 128):
+                if K3.kernel_route(dt_, p_, n_) != K3.route(dt_, p_, n_):
+                    raise AssertionError(f"K3 route of {dt_} P {p_} N {n_}: library "
+                                         f"{K3.kernel_route(dt_, p_, n_)}, wrapper "
+                                         f"{K3.route(dt_, p_, n_)}")
     mb, ms_, mh, mp, mn, mg = CLIENTS, SERVE["mamba2-2.7b"][0], 80, 64, 128, 1  # serving call
     cases = [((mb, ms_, mh, mp, mn, mg), torch.bfloat16, True),
+             ((2, 200, 4, 64, 128, 1), torch.bfloat16, True),    # ragged S
+             ((1, 37, 2, 64, 128, 1), torch.bfloat16, False),    # under one chunk, no h0
+             ((2, 256, 4, 64, 128, 2), torch.bfloat16, False),   # two groups of two heads
+             ((1, 130, 3, 128, 64, 3), torch.bfloat16, True),    # B 1, N 64, two p tiles
+             ((2, 100, 4, 16, 32, 2), torch.bfloat16, True),     # bf16 on the CUDA cores
              ((2, 200, 4, 16, 32, 2), torch.float32, True),    # ragged S, G < H, h0
              ((1, 37, 2, 64, 128, 1), torch.float32, False),   # S shorter than one chunk
              ((2, 150, 16, 8, 16, 1), torch.float32, True)]    # reduced config
@@ -374,7 +391,8 @@ def kernel_phase():
         yp, sp = ops.ssd_scan_plain(x, dt, a, bm, cm, chunk=256, h0=h0)
         torch.cuda.synchronize()
         atol, rtol = k3_tol[dt_]
-        name = f"K3 {(cb, cs, ch, cp, cn, cg)} {str(dt_)[6:]} h0={with_h0}"
+        name = (f"K3 {(cb, cs, ch, cp, cn, cg)} {str(dt_)[6:]} h0={with_h0} "
+                f"[{K3.route(dt_, cp, cn)}]")
         scale = max(float(yp.float().abs().max()), 1.0)
         err = check_close(f"{name} y", y, yp, rtol, atol * scale)
         check_close(f"{name} state", st, sp, 1e-4, 3e-5 * max(float(sp.abs().max()), 1.0))
@@ -398,15 +416,25 @@ def kernel_phase():
     nbytes = (2 * x.numel() + bm.numel() + cm.numel()) * esz + 4 * (dt.numel() + a.numel()) \
         + 2 * 4 * h0.numel()
     flops = 4 * mp * mn * mb * ms_ * mh                    # the recurrence's, per token and head
+    # the tensor-core route's issued work: per chunk of 64 steps and 64
+    # columns p, C.B^T and C.S_prev^T (K = N), M.X (K = 64) and the update
+    # with v in two bf16 parts (K = 64, N wide)
+    chunks = mb * mh * -(-ms_ // 64) * (mp // 64)
+    tc_flops = chunks * (2 * 2 * 64 * 64 * mn + 2 * 64 * 64 * 64 + 2 * 2 * 64 * mn * 64)
+    heads_per_cta, ctas = K3.plan(mb, mh, mp)
     rows["ssd_scan"] = dict(
-        name="ssd_scan", route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        name="ssd_scan", route="cuda", variant=K3.route(x.dtype, mp, mn),
+        source="src/repro_torch/kernels/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan.py:56",
         max_abs_err=main_err, ms=ms, plain_ms=plain_ms, library_ms=None,
-        **bound(flops, nbytes, "bfloat16"))
-    log(f"   K3 at ({mb},{ms_},{mh},{mp},{mn},{mg}) bf16, h0 and final state: kernel_ms "
-        f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms none (no PyTorch call computes the "
-        f"SSD scan) bound_ms {rows['ssd_scan']['bound_ms']:.4f} ({rows['ssd_scan']['bound_by']}, "
-        f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+        **bound(flops, nbytes, "bfloat16"), tflops=tc_flops / ms / 1e9,
+        tbps=nbytes / ms / 1e9, heads_per_cta=heads_per_cta, ctas=ctas)
+    log(f"   K3 at ({mb},{ms_},{mh},{mp},{mn},{mg}) bf16, h0 and final state "
+        f"[{K3.route(x.dtype, mp, mn)}; {heads_per_cta} head a CTA, {ctas} CTAs]: kernel_ms "
+        f"{ms:.4f} ({rows['ssd_scan']['tflops']:.1f} TFLOP/s of {tc_flops / 1e9:.1f} GFLOP "
+        f"issued, {rows['ssd_scan']['tbps']:.3f} TB/s) plain_ms {plain_ms:.4f} library_ms none "
+        f"(no PyTorch call computes the SSD scan) bound_ms {rows['ssd_scan']['bound_ms']:.4f} "
+        f"({rows['ssd_scan']['bound_by']}, {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
 
     # ---- K4 ----
     log("== kernels: K4 RG-LRU scan (RecurrentGemma prefill)")
@@ -505,6 +533,7 @@ def serve_phase(arch):
     from repro_torch.configs.registry import get_config, make_model
     from repro_torch.kernels import flash_attention as K1
     from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as K3
     from repro_torch.launch import serve_policy
     from repro_torch.launch.serve import greedy_generate, make_prefill, make_serve_step
 
@@ -541,6 +570,7 @@ def serve_phase(arch):
                              deadline_ms=1000.0)
     counts = ops.launch_counts()
     k1_routes = dict(K1.flash_attention.launches_by_route)
+    k3_routes = dict(K3.ssd_scan.launches_by_route)
     peak = torch.cuda.max_memory_allocated()
     st = out["stats"]
     steps = st["batches"]
@@ -553,7 +583,11 @@ def serve_phase(arch):
     if k1_routes != {"wgmma": want["flash_attention"], "cuda_cores": 0}:
         raise AssertionError(f"K1 launches by route {k1_routes}: expected all "
                              f"{want['flash_attention']} on wgmma")
-    log(f"   K1 launches by route: {k1_routes}")
+    # every prefill SSD scan is bf16 at P 64, N 128: all on wgmma
+    if k3_routes != {"wgmma": want["ssd_scan"], "cuda_cores": 0}:
+        raise AssertionError(f"K3 launches by route {k3_routes}: expected all "
+                             f"{want['ssd_scan']} on wgmma")
+    log(f"   K1 launches by route: {k1_routes}; K3 launches by route: {k3_routes}")
     total = CLIENTS * TOKENS
     log(f"   prefill_ms {out['prefill_s'] * 1e3:.2f} ({CLIENTS}x{prompt_len} tokens); "
         f"decode {out['decode_s'] * 1e3 / steps:.2f} ms/step wall, "
@@ -613,7 +647,7 @@ def union_ms(spans):
 
 def device_breakdown(prof, n):
     """Device time per call from a profiler trace, grouped: the port's
-    kernels (K1 either route, K2 its split and combine passes), GEMMs
+    kernels (K1 and K3 either route, K2 its split and combine passes), GEMMs
     (cuBLAS / CUTLASS), and everything else; and the number of device
     kernels per call. A group's time, and "busy" over all of them, count
     each instant once: K2's combine is launched while its split pass runs."""
@@ -628,7 +662,7 @@ def device_breakdown(prof, n):
             g = "K1"
         elif "decode_split_kernel" in name or "decode_combine_kernel" in name:
             g = "K2"
-        elif "ssd_chunk_kernel" in name:
+        elif "ssd_chunk_kernel" in name or "ssd_wgmma_kernel" in name:
             g = "K3"
         elif "rglru_kernel" in name:
             g = "K4"
@@ -698,12 +732,13 @@ def main():
         log(f"   {name}: {len(regs)} instantiations, {min(regs)}-{max(regs)} registers "
             f"a thread, {len(spills)} with spills ({sum(spills)} bytes)")
         for entry in rep.split("Compiling entry function")[1:]:
-            if "flash_wgmma_kernel" in entry:   # K1's tensor-core route, one line each
-                d = re.search(r"flash_wgmma_kernelILi(\d+)E", entry).group(1)
+            # K1's and K3's tensor-core routes, one line an instantiation
+            found = re.search(r"(flash_wgmma_kernel|ssd_wgmma_kernel)ILi(\d+)E", entry)
+            if found:
                 used = re.search(r"Used (\d+) registers", entry).group(1)
                 spill = re.search(r"(\d+) bytes spill stores", entry).group(1)
-                log(f"   flash_wgmma_kernel<{d}>: {used} registers, {spill} bytes of spill "
-                    f"stores")
+                log(f"   {found.group(1)}<{found.group(2)}>: {used} registers, {spill} bytes "
+                    f"of spill stores")
 
     rows = kernel_phase()
     # each path is driven with the counts set to 0 just before it and read

@@ -31,10 +31,11 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts():
-    """Zero every kernel's count, and K1's count by route."""
+    """Zero every kernel's count, and K1's and K3's counts by route."""
     for fn in KERNELS.values():
         fn.launches = 0
     _flash.flash_attention.launches_by_route = dict.fromkeys(_flash.ROUTES, 0)
+    _ssd.ssd_scan.launches_by_route = dict.fromkeys(_ssd.ROUTES, 0)
 
 
 def _expand_kv(k, n_heads):

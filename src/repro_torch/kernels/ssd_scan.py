@@ -1,8 +1,13 @@
 """K3: the Mamba2 SSD chunked scan — the CUDA kernel's Python wrapper.
 
-Replaces ``repro.kernels.ssd_scan.ssd_scan`` (Pallas, TPU). The kernel is
-``csrc/ssd_scan.cu``; its plain PyTorch version is ``ops.ssd_scan_plain``,
-which ``ops.ssd_scan`` takes for CPU tensors.
+Replaces ``repro.kernels.ssd_scan.ssd_scan`` (Pallas, TPU). The kernels
+are in ``csrc/ssd_scan.cu``; its plain PyTorch version is
+``ops.ssd_scan_plain``, which ``ops.ssd_scan`` takes for CPU tensors. The
+``.cu`` picks one of two routes by dtype, P and N alone (``route``): bf16
+with P a multiple of 64 and N 64 or 128, which the serving path calls,
+runs the chunk's products on the tensor cores (wgmma), everything else on
+the fp32 CUDA cores. ``ssd_scan.launches`` counts every launch,
+``ssd_scan.launches_by_route`` each route's.
 """
 
 import ctypes
@@ -14,6 +19,15 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import DTYPES
 
 MAX_STATE = 128   # largest N (NMAX in the source)
+ROUTES = ("wgmma", "cuda_cores")
+
+
+def route(dtype, p, n) -> str:
+    """The kernel a launch takes: "wgmma" for bf16 with P a multiple of 64
+    and N 64 or 128, "cuda_cores" otherwise (fp32 on the tensor cores would
+    be TF32)."""
+    return ("wgmma" if dtype == torch.bfloat16 and p % 64 == 0 and n in (64, 128)
+            else "cuda_cores")
 
 
 @functools.cache
@@ -24,6 +38,20 @@ def _fn():
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def plan(b, h, p) -> tuple:
+    """(heads a CTA, CTAs) of a launch: on either route one CTA per (64
+    columns p, head, batch); the tensor-core route's CTA is two warpgroups,
+    the CUDA-core route's 256 threads."""
+    return 1, b * h * -(-p // 64)
+
+
+def kernel_route(dtype, p, n) -> str:
+    """The route the built library itself picks for (dtype, P, N)."""
+    fn = build.load("ssd_scan").ssd_scan_route
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    return ROUTES[0] if fn(DTYPES[dtype], p, n) else ROUTES[1]
 
 
 def ssd_scan(x, dt, a, b, c, *, h0=None, return_state=False):
@@ -54,6 +82,9 @@ def ssd_scan(x, dt, a, b, c, *, h0=None, return_state=False):
         raise ValueError("ssd_scan kernel needs every input on one CUDA device")
     if not all(t.is_contiguous() for t in ins):
         raise ValueError("ssd_scan kernel needs contiguous inputs")
+    path = route(x.dtype, p, n)
+    if path == "wgmma" and any(t.data_ptr() % 16 for t in (x, b, c)):
+        raise ValueError("ssd_scan's tensor-core route needs x, b, c 16-byte aligned")
     y = torch.empty_like(x)
     state = (torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
              if return_state else None)
@@ -66,7 +97,9 @@ def ssd_scan(x, dt, a, b, c, *, h0=None, return_state=False):
     if err:
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")
     ssd_scan.launches += 1
+    ssd_scan.launches_by_route[path] += 1
     return y, state
 
 
 ssd_scan.launches = 0
+ssd_scan.launches_by_route = dict.fromkeys(ROUTES, 0)

@@ -213,14 +213,22 @@ def test_lm_on_card_matches_cpu(cuda):
     (1, 37, 2, 8, 16, 1, torch.float32, False),       # S shorter than one chunk
     (1, 130, 3, 80, 128, 3, torch.float32, True),     # two p tiles, G == H
     (2, 128, 4, 64, 128, 1, torch.bfloat16, False),   # the serving widths, bf16
+    (2, 200, 4, 64, 128, 1, torch.bfloat16, True),    # ragged S, on the tensor cores
+    (1, 37, 2, 64, 128, 1, torch.bfloat16, True),     # under one chunk
+    (2, 256, 4, 64, 128, 2, torch.bfloat16, False),   # G 2 with H 4, no h0
+    (1, 130, 3, 128, 64, 3, torch.bfloat16, True),    # B 1, N 64, two p tiles
+    (2, 100, 4, 16, 32, 2, torch.bfloat16, True),     # bf16 at P 16: the CUDA cores
 ])
 def test_ssd_scan_kernel(cuda, b, s, h, p, n, g, dtype, with_h0):
-    """K3 against its plain version (y and final state), and in fp32 the
-    final state against the sequential oracle. atol is stated against
-    max|y_ref|, as tests/test_kernels.py:73-75: 3e-5 in fp32, 2e-2 in bf16
-    (the plain version contracts C·Bᵀ and C·S_prev in bf16, the kernel in
-    fp32)."""
+    """Both routes of K3 against its plain version (y and final state):
+    bf16 with P a multiple of 64 and N 64 or 128 on the tensor cores, fp32
+    and other bf16 widths on the CUDA cores, each launch counted under its
+    route; in fp32 also the final state against the sequential oracle. atol
+    is stated against max|y_ref|, as tests/test_kernels.py:73-75: 3e-5 in
+    fp32, 2e-2 in bf16 (the plain version rounds the products C·Bᵀ and
+    C·S_prevᵀ to bf16, the tensor-core route M and S_prev)."""
     from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as tssd
     gen = torch.Generator(device=cuda).manual_seed(3)
     x = (_rand(gen, (b, s, h, p), torch.float32, cuda) * 0.5).to(dtype)
     dt = torch.nn.functional.softplus(_rand(gen, (b, s, h), torch.float32, cuda))
@@ -228,8 +236,14 @@ def test_ssd_scan_kernel(cuda, b, s, h, p, n, g, dtype, with_h0):
     bm, cm = ((_rand(gen, (b, s, g, n), torch.float32, cuda) * 0.3).to(dtype) for _ in range(2))
     h0 = _rand(gen, (b, h, p, n), torch.float32, cuda) * 0.2 if with_h0 else None
     before = ops.launch_counts()["ssd_scan"]
+    by_route = dict(tssd.ssd_scan.launches_by_route)
     y, st = ops.ssd_scan(x, dt, a, bm, cm, h0=h0, return_state=True)
     assert ops.launch_counts()["ssd_scan"] == before + 1
+    route = tssd.route(dtype, p, n)
+    assert route == ("wgmma" if dtype == torch.bfloat16 and p % 64 == 0 else "cuda_cores")
+    assert tssd.kernel_route(dtype, p, n) == route
+    by_route[route] += 1
+    assert tssd.ssd_scan.launches_by_route == by_route
     yp, sp = ops.ssd_scan_plain(x, dt, a, bm, cm, chunk=64, h0=h0)
     tol = 3e-5 if dtype == torch.float32 else 2e-2
     scale = max(float(yp.float().abs().max()), 1.0)

@@ -7,7 +7,15 @@ Tolerances follow tests/test_kernels.py:73-75: fp32 atol 3e-5 * max|y_ref|
 different orders, and exp of a cumulative sum carries its rounding. The
 bf16 case holds the port to JAX's own bf16 chunked scan at 2e-2 of
 max|y_ref|, bf16's resolution: both contract C·Bᵀ and C·S_prev in bf16.
+An emulation of K3's tensor-core route (its chunk walk and its bf16
+roundings) is held to the same references: y at 2e-2 of max|y_ref|, the
+final state at 3e-5 of max|state_ref|, the bound the card's check holds the
+kernel to.
 """
+
+import re
+from pathlib import Path
+
 
 import numpy as np
 import pytest
@@ -133,6 +141,136 @@ def test_ssd_kernel_wrapper_refuses_cpu_and_bad_shapes():
                       torch.zeros(1, 8, 1, 256))
     with pytest.raises(TypeError, match="fp32"):
         tssd.ssd_scan(args[0], args[1].double(), *args[2:])
+    assert ops.launch_counts()["ssd_scan"] == 0
+
+
+def _wgmma_walk(x, dt, a, b, c, h0=None, halves=2):
+    """K3's tensor-core route as a chunk walk, one (batch, head) at a time:
+    chunks of 64 steps, the ragged tail read as zeros (dt 0 past S); cs
+    scanned in fp32; C·Bᵀ of the bf16 inputs accumulated in fp32; the decay
+    masked to s <= t before exp; M rounded to bf16 before M·X; y starting
+    from exp(cs_t) C·S_prevᵀ with S_prev rounded to bf16; the state kept in
+    fp32, scaled by exp(cs_L) and updated by vᵀB with v = w x split into
+    `halves` bf16 parts, largest first. x, b, c bf16 (B,S,H,P), (B,S,G,N);
+    returns (y bf16, state fp32)."""
+    bsz, s, h, p = x.shape
+    g, n, L = b.shape[2], b.shape[3], 64
+    pad = -s % L
+    rnd = lambda t: t.to(torch.bfloat16).float()
+    xf, bf, cf = (torch.nn.functional.pad(t.float(), (0, 0, 0, 0, 0, pad)) for t in (x, b, c))
+    dtf = torch.nn.functional.pad(dt.float(), (0, 0, 0, pad))
+    causal = torch.ones(L, L, dtype=torch.bool).tril()
+    y = torch.zeros(bsz, s + pad, h, p)
+    state = torch.zeros(bsz, h, p, n) if h0 is None else h0.float().clone()
+    for bi in range(bsz):
+        for hi in range(h):
+            gi = hi // (h // g)
+            st = state[bi, hi]
+            for t0 in range(0, s + pad, L):
+                rows = slice(t0, t0 + L)
+                xs, bs, cs_ = xf[bi, rows, hi], bf[bi, rows, gi], cf[bi, rows, gi]
+                d = dtf[bi, rows, hi]
+                cum = torch.cumsum(d * a[hi], 0)
+                decay = torch.where(causal, cum[:, None] - cum[None, :], -torch.inf)
+                m = torch.where(causal, (cs_ @ bs.T) * torch.exp(decay) * d[None], 0.0)
+                y[bi, rows, hi] = rnd(m) @ xs + torch.exp(cum)[:, None] * (cs_ @ rnd(st).T)
+                v = (torch.exp(cum[-1] - cum) * d)[:, None] * xs        # (L, P)
+                upd = torch.zeros(p, n)
+                for _ in range(halves):
+                    part = rnd(v)
+                    upd += part.T @ bs
+                    v = v - part
+                st = torch.exp(cum[-1]) * st + upd
+            state[bi, hi] = st
+    return y[:, :s].to(torch.bfloat16), state
+
+
+@pytest.mark.parametrize("s,g,n,with_h0", [
+    (64, 1, 128, False),     # one chunk: the Pallas kernel in interpret mode
+    (128, 2, 64, False),     # two chunks, G < H, N 64: the Pallas kernel
+    (64, 2, 128, True),
+    (200, 1, 128, True),     # ragged S over four chunks
+    (200, 2, 128, False),
+    (37, 1, 128, False),     # under one chunk
+    (37, 2, 64, True),
+])
+def test_ssd_wgmma_walk_matches_pallas(s, g, n, with_h0):
+    """The tensor-core route's design (64-step chunks, C·Bᵀ from bf16 in
+    fp32, the mask before exp, M and S_prev rounded to bf16, the state
+    update in hi + lo bf16 halves, the state in fp32) against the JAX
+    package: y against the Pallas kernel in interpret mode (head-expanded b
+    and c, no initial state) where S is a multiple of its chunk, else
+    against ``ssd_chunked`` in bf16; y and the final state against the
+    sequential oracle ``ssd_ref``."""
+    b, h, p = 2, 4, 64
+    d = _inputs(7, b, s, h, p, n, g, h0=with_h0)
+    keys = ("x", "dt", "a", "b", "c")
+    bf = {k: _t(d[k], torch.bfloat16) if k in ("x", "b", "c") else _t(d[k]) for k in keys}
+    got_y, got_s = _wgmma_walk(*(bf[k] for k in keys), h0=_t(d["h0"]))
+    assert got_y.dtype == torch.bfloat16 and got_s.shape == (b, h, p, n)
+    jb = {k: _j(bf[k].float().numpy(), jnp.bfloat16) if k in ("x", "b", "c") else _j(d[k])
+          for k in keys}
+    rep = lambda t: jnp.repeat(t, h // g, axis=2)
+    yref, sref = jref.ssd_ref(jb["x"], jb["dt"], jb["a"], rep(jb["b"]), rep(jb["c"]),
+                              h0=_j(d["h0"]))
+    if s % 64 == 0 and not with_h0:
+        want = jops.ssd_scan(jb["x"], jb["dt"], jb["a"], rep(jb["b"]), rep(jb["c"]), chunk=64)
+    else:
+        want, _ = jax.jit(jssd.ssd_chunked, static_argnums=5)(
+            jb["x"], jb["dt"], jb["a"], jb["b"], jb["c"], 64, h0=_j(d["h0"]))
+    _close(got_y, want, scale_of=yref, atol=2e-2, rtol=2e-2)
+    _close(got_y, yref, atol=2e-2, rtol=2e-2)
+    _close(got_s, sref, atol=3e-5, rtol=0)
+
+
+def test_ssd_wgmma_walk_needs_the_low_half():
+    """The state's 3e-5 bound is what the hi + lo split buys: with v in one
+    bf16 part the walk's state misses it."""
+    d = _inputs(7, 1, 128, 2, 64, 128, 1, h0=True)
+    keys = ("x", "dt", "a", "b", "c")
+    bf = {k: _t(d[k], torch.bfloat16) if k in ("x", "b", "c") else _t(d[k]) for k in keys}
+    _, sref = ref.ssd_ref(*(bf[k] for k in keys), h0=_t(d["h0"]))
+    scale = float(sref.abs().max())
+    for halves, within in ((1, False), (2, True)):
+        _, st = _wgmma_walk(*(bf[k] for k in keys), h0=_t(d["h0"]), halves=halves)
+        assert (float((st - sref).abs().max()) <= 3e-5 * scale) == within, halves
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [8, 16, 64, 80, 128, 192])
+@pytest.mark.parametrize("n", [16, 32, 64, 96, 128])
+def test_ssd_route_rule(dtype, p, n):
+    """bf16 with P a multiple of 64 and N 64 or 128 takes the tensor cores;
+    fp32 (which would be TF32 there) and other widths stay on the CUDA
+    cores."""
+    want = ("wgmma" if dtype == torch.bfloat16 and p % 64 == 0 and n in (64, 128)
+            else "cuda_cores")
+    assert tssd.route(dtype, p, n) == want
+
+
+def test_ssd_route_rule_matches_kernel():
+    """The wrapper's route rule is the .cu's `ssd_scan_route`, the C
+    expression evaluated in Python over every dtype and a grid of P and N,
+    so the launches the wrapper counts under a route are the ones the
+    library takes."""
+    src = (Path(tssd.__file__).parent / "csrc" / "ssd_scan.cu").read_text()
+    body = re.search(r'extern "C" int ssd_scan_route\(int dtype, int P, int N\) \{\s*'
+                     r"return (.*?);\s*\}", src, re.S).group(1)
+    expr = compile(" ".join(body.replace("&&", " and ").replace("||", " or ").split()),
+                   "ssd_scan_route", "eval")
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    for dtype, code in codes.items():
+        for p in range(1, 257):
+            for n in range(1, tssd.MAX_STATE + 1):
+                took = bool(eval(expr, {}, dict(dtype=code, P=p, N=n)))
+                assert (tssd.route(dtype, p, n) == "wgmma") == took, (dtype, p, n)
+
+
+def test_reset_clears_ssd_route_counts():
+    tssd.ssd_scan.launches_by_route["wgmma"] += 2
+    tssd.ssd_scan.launches += 2
+    ops.reset_launch_counts()
+    assert tssd.ssd_scan.launches_by_route == {"wgmma": 0, "cuda_cores": 0}
     assert ops.launch_counts()["ssd_scan"] == 0
 
 
