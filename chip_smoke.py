@@ -21,9 +21,13 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    one chunk, two groups, no initial state, B 1, N 64) and its fp32 cases
    and a bf16 one at P 16 its CUDA-core route, each case logging its
    route, with a nonzero initial state, fewer groups than heads, and in
-   fp32 its final state against the sequential oracle; K4 with an initial
-   state, ragged S and W and a bf16 y; kernel, plain and library times,
-   each call's bound, and K3's TFLOP/s, TB/s and CTA plan;
+   fp32 its final state against the sequential oracle; K4 (a chunked scan
+   over S) with S over many of its tiles and ragged, S 1, S under one
+   chunk, W under its strip and not a multiple of it, B 1, an fp32 and a
+   bf16 y each with and without an initial state; kernel, plain and
+   library times, each call's bound, K3's TFLOP/s, TB/s and CTA plan, and
+   K4's TB/s, CTA plan (lanes a strip, steps a chunk, chunks a tile, CTAs,
+   waves), registers and spills, and its time on inputs cold in L2;
 4. serve: qwen3-14b at full width (40 layers, bf16 params made on the card
    from a seed) answers four clients through the port's InferenceServer;
    the kernels' launch counts must rise by 40 per prefill (K1) and by 40
@@ -34,7 +38,8 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    18 per prefill and 0 per decode step, K1 by 8 per prefill and K2 by 8
    per decode step; every K1 and K3 launch of a serve run must take the
    tensor-core route; the served tokens must equal greedy decoding, and each
-   path gets a profiler breakdown of a prefill and a decode step;
+   path gets a profiler breakdown of a prefill and a decode step, in which
+   each kernel the path launches must hold device time in its group;
 5. parity: at each arch's reduced config, prefill logits and greedy tokens
    from the port on the card equal the port on the CPU (the plain
    versions), in fp32.
@@ -127,7 +132,7 @@ def check_close(name, got, want, tol, atol=None):
     return err
 
 
-def kernel_phase():
+def kernel_phase(k4_ptxas):
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as K2
     from repro_torch.kernels import flash_attention as K1
@@ -452,6 +457,12 @@ def kernel_phase():
     # same fp32 h rounded once, so it may differ by one bf16 rounding
     cases = [((gb, gs, gw), torch.float32, False),
              ((gb, gs, gw), torch.bfloat16, True),          # as the prefill calls it
+             ((2, 4096, 256), torch.float32, True),         # S over 64 tiles
+             ((1, 2049, 96), torch.bfloat16, True),         # ragged S over 33 tiles, B 1
+             ((1, 2049, 96), torch.float32, False),
+             ((3, 1, 37), torch.float32, True),             # S 1, W 37: a strip and 5 lanes
+             ((1, 5, 37), torch.bfloat16, False),           # S under one chunk, B 1
+             ((2, 300, 20), torch.bfloat16, True),          # W under one strip
              ((2, 37, 200), torch.float32, True),           # ragged S and W
              ((2, 150, 64), torch.float32, True)]           # the reduced config
     main_err = None
@@ -461,29 +472,55 @@ def kernel_phase():
         yp, hp = ops.rglru_scan_plain(a, bb, h0=h0, out_dtype=out_dt)
         torch.cuda.synchronize()
         scale = max(float(yp.float().abs().max()), 1.0)
-        name = f"K4 {(cb, cs, cw)} y {str(out_dt)[6:]} h0={with_h0}"
+        p = K4.plan(cb, cs, cw)
+        name = (f"K4 {(cb, cs, cw)} y {str(out_dt)[6:]} h0={with_h0} "
+                f"[{p['tiles']} tiles, {p['ctas']} CTAs]")
         rtol = 1e-5 if out_dt == torch.float32 else tol[out_dt]
         err = check_close(f"{name} y", y, yp, rtol, rtol * scale)
         check_close(f"{name} h_last", h_last, hp, 1e-5, 1e-5 * scale)
         main_err = err if main_err is None else main_err
     # timing: the serving path's call (bf16 y, the cache's zero state as h0,
-    # the last state written)
-    a, bb, _ = rglru_inputs(gb, gs, gw, False)
+    # the last state written); warm (one set of inputs, 52.5 MB against the
+    # 50 MB L2) and cold (four sets of a and b in rotation; the last four
+    # outputs are kept, so y rotates over five buffers)
+    sets = [rglru_inputs(gb, gs, gw, False)[:2] for _ in range(4)]
+    a, bb = sets[0]
     h0 = torch.zeros(gb, gw, device=dev)
     ms = time_ms("K4", lambda: K4.rglru_scan(a, bb, h0=h0, out_dtype=torch.bfloat16))
+    kept, turn = [None] * len(sets), [0]
+
+    def cold_call():
+        i = turn[0] % len(sets)
+        turn[0] += 1
+        kept[i] = K4.rglru_scan(*sets[i], h0=h0, out_dtype=torch.bfloat16)
+    cold_ms = time_ms("K4 cold", cold_call, iters=32)
     plain_ms = time_ms("K4 plain", lambda: ops.rglru_scan_plain(
         a, bb, h0=h0, out_dtype=torch.bfloat16), iters=3, warmup=1)
     nbytes = 4 * (a.numel() + bb.numel()) + 2 * a.numel() + 2 * 4 * h0.numel()
     flops = 2 * a.numel()
+    p = K4.plan(gb, gs, gw)   # the built kernel's own
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    waves = p["ctas"] / (p["ctas_per_sm"] * sms)
     rows["rglru_scan"] = dict(
         name="rglru_scan", route="cuda", source="src/repro_torch/kernels/csrc/rglru_scan.cu",
         replaces="src/repro/kernels/rglru_scan.py:39",
         max_abs_err=main_err, ms=ms, plain_ms=plain_ms, library_ms=None,
-        **bound(flops, nbytes, "float32"))
-    log(f"   K4 at ({gb},{gs},{gw}) fp32 a and b, bf16 y, h0 and last state: kernel_ms "
-        f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms none (no PyTorch call computes a "
-        f"linear recurrence) bound_ms {rows['rglru_scan']['bound_ms']:.4f} "
-        f"({rows['rglru_scan']['bound_by']}, {nbytes / 1e6:.1f} MB)")
+        **bound(flops, nbytes, "float32"), tbps=nbytes / ms / 1e9, cold_ms=cold_ms,
+        cold_tbps=nbytes / cold_ms / 1e9, **{k: p[k] for k in ("lw", "t", "nc", "ctas",
+                                                               "ctas_per_sm")},
+        waves=waves, **k4_ptxas)
+    regs = ", ".join(f"{k} {v}" for k, v in k4_ptxas.items()) or "ptxas not run (built before)"
+    log(f"   K4 at ({gb},{gs},{gw}) fp32 a and b, bf16 y, h0 and last state [plan: LW "
+        f"{p['lw']}, T {p['t']}, NC {p['nc']}, {p['tiles']} tiles of {p['t'] * p['nc']} steps, "
+        f"{p['ctas']} CTAs of {p['lw'] * p['nc']} threads, {p['ctas_per_sm']} an SM, "
+        f"{waves:.2f} waves on {sms} SMs; {regs}]: "
+        f"kernel_ms {ms:.4f} "
+        f"({rows['rglru_scan']['tbps']:.3f} TB/s), cold in L2 {cold_ms:.4f} "
+        f"({rows['rglru_scan']['cold_tbps']:.3f} TB/s), plain_ms {plain_ms:.4f} library_ms none "
+        f"(no PyTorch call computes a linear recurrence) bound_ms "
+        f"{rows['rglru_scan']['bound_ms']:.4f} ({rows['rglru_scan']['bound_by']}, "
+        f"{nbytes / 1e6:.1f} MB)")
+    del sets, kept
     return rows
 
 
@@ -619,6 +656,12 @@ def serve_phase(arch):
             tok, cache = step(params, tok, cache)
         torch.cuda.synchronize()
     dec, dec_ops = device_breakdown(prof, 3)
+    # a kernel the path launches holds device time in its group, and only then
+    for g, name, found in (("K1", "flash_attention", pre), ("K2", "decode_attention", dec),
+                           ("K3", "ssd_scan", pre), ("K4", "rglru_scan", pre)):
+        if (want[name] > 0) != (found[g] > 0):
+            raise AssertionError(f"profiler group {g} holds {found[g]} ms; the path "
+                                 f"launches {name} {want[name]} times a serve run")
     wall_step = out["decode_s"] * 1e3 / steps
     log(f"   device time per prefill (ms): {json.dumps(pre)}")
     log(f"   device time per decode step (ms): {json.dumps(dec)}; device idle share "
@@ -664,7 +707,7 @@ def device_breakdown(prof, n):
             g = "K2"
         elif "ssd_chunk_kernel" in name or "ssd_wgmma_kernel" in name:
             g = "K3"
-        elif "rglru_kernel" in name:
+        elif "rglru_chunk_kernel" in name:
             g = "K4"
         elif any(t in name for t in ("gemm", "gemv", "cutlass", "nvjet", "xmma", "cublas")):
             g = "gemm"
@@ -726,6 +769,7 @@ def main():
     t0 = time.perf_counter()
     reports = build.build()
     log(f"== build: {', '.join(build.KERNELS)} in {time.perf_counter() - t0:.1f} s")
+    k4_ptxas = {}
     for name, rep in reports.items():
         regs = [int(x) for x in re.findall(r"Used (\d+) registers", rep)]
         spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", rep) if int(x)]
@@ -739,8 +783,17 @@ def main():
                 spill = re.search(r"(\d+) bytes spill stores", entry).group(1)
                 log(f"   {found.group(1)}<{found.group(2)}>: {used} registers, {spill} bytes "
                     f"of spill stores")
+            found = re.search(r"rglru_chunk_kernelI(f|13__nv_bfloat16)E", entry)
+            if found:   # K4, one line an output type
+                y = "fp32" if found.group(1) == "f" else "bf16"
+                k4_ptxas[f"registers_{y}_y"] = int(re.search(r"Used (\d+) registers",
+                                                             entry).group(1))
+                k4_ptxas[f"spill_bytes_{y}_y"] = int(re.search(r"(\d+) bytes spill stores",
+                                                               entry).group(1))
+                log(f"   rglru_chunk_kernel<{y} y>: {k4_ptxas[f'registers_{y}_y']} registers, "
+                    f"{k4_ptxas[f'spill_bytes_{y}_y']} bytes of spill stores")
 
-    rows = kernel_phase()
+    rows = kernel_phase(k4_ptxas)
     # each path is driven with the counts set to 0 just before it and read
     # just after; a kernel's launches are the sum over the paths that run it
     # (K1 and K2 run on qwen3's and RecurrentGemma's)

@@ -54,32 +54,37 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
-def build(names=KERNELS) -> dict:
-    """Compile every missing library of `names`, one nvcc each, all started
-    together. Returns {name: ptxas report} for what was compiled; raises
-    with the compiler's output if any build fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def compile_sources(jobs: dict) -> dict:
+    """Compile each (source .cu, library path) of `jobs`, one nvcc each, all
+    started together; a library is moved into place only once it is built.
+    Returns {key: ptxas report}; raises with the compiler's output if any
+    build fails."""
     procs = {}
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            continue
+    for key, (src, out) in jobs.items():
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        procs[key] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      tmp, out)
     reports, failed = {}, []
-    for name, (proc, tmp, out) in procs.items():
+    for key, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"{name}:\n{log}")
+            failed.append(f"{key}:\n{log}")
             continue
         os.replace(tmp, out)
-        reports[name] = log
+        reports[key] = log
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return reports
+
+
+def build(names=KERNELS) -> dict:
+    """Compile every missing library of `names` (``compile_sources``).
+    Returns {name: ptxas report} for what was compiled."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    return compile_sources({name: (CSRC / f"{name}.cu", library_path(name))
+                            for name in names if not library_path(name).exists()})
 
 
 def load(name: str) -> ctypes.CDLL:

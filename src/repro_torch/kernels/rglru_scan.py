@@ -1,8 +1,10 @@
 """K4: the RG-LRU linear recurrence — the CUDA kernel's Python wrapper.
 
 Replaces ``repro.kernels.rglru_scan.rglru_scan`` (Pallas, TPU). The kernel
-is ``csrc/rglru_scan.cu``; its plain PyTorch version is
-``ops.rglru_scan_plain``, which ``ops.rglru_scan`` takes for CPU tensors.
+is ``csrc/rglru_scan.cu``, a chunked scan over S: a CTA a strip of lanes of
+one batch row, walking S in tiles of chunks (``plan`` reads the plan from
+the built kernel). Its plain PyTorch version is ``ops.rglru_scan_plain``,
+which ``ops.rglru_scan`` takes for CPU tensors.
 """
 
 import ctypes
@@ -13,15 +15,52 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import DTYPES
 
+# what rglru_scan_plan writes, in its order
+PLAN_KEYS = ("lw", "t", "nc", "tiles", "ctas", "ctas_per_sm")
 
-@functools.cache
-def _fn():
-    """The C entry point, built, loaded and typed once per process."""
-    fn = build.load("rglru_scan").rglru_scan
+
+def entry(lib):
+    """The C entry point rglru_scan of `lib` (a built csrc/rglru_scan.cu,
+    loaded by ctypes), typed."""
+    fn = lib.rglru_scan
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _fn():
+    """The shipped kernel's entry point, built, loaded and typed once per
+    process."""
+    return entry(build.load("rglru_scan"))
+
+
+def launch(fn, a, b, h0, y, h_last):
+    """Launch `fn` (an entry point typed by ``entry``) into the given y and
+    h_last, on the current stream of a's device; raises on a CUDA error."""
+    bsz, s, w = a.shape
+    with torch.cuda.device(a.device):
+        err = fn(DTYPES[y.dtype], a.data_ptr(), b.data_ptr(),
+                 None if h0 is None else h0.data_ptr(), y.data_ptr(), h_last.data_ptr(),
+                 bsz, s, w, torch.cuda.current_stream(a.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"rglru_scan launch failed: CUDA error {err}")
+
+
+def plan(b, s, w, lib=None) -> dict:
+    """The plan of a launch at (B, S, W), from the built kernel (or from
+    `lib`, another build of csrc/rglru_scan.cu): lanes a strip (lw), steps
+    a chunk (t), chunks a tile (nc), tiles of S, CTAs, and the CTAs an SM
+    holds by the CUDA occupancy calculator."""
+    fn = (lib or build.load("rglru_scan")).rglru_scan_plan
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * len(PLAN_KEYS))()
+    err = fn(b, s, w, out)
+    if err:
+        raise RuntimeError(f"rglru_scan_plan failed: CUDA error {err}")
+    return dict(zip(PLAN_KEYS, out))
 
 
 def rglru_scan(a, b, *, h0=None, out_dtype=torch.float32):
@@ -46,13 +85,7 @@ def rglru_scan(a, b, *, h0=None, out_dtype=torch.float32):
         raise ValueError(f"empty input {tuple(a.shape)}")
     y = torch.empty(a.shape, dtype=out_dtype, device=a.device)
     h_last = torch.empty((bsz, w), dtype=torch.float32, device=a.device)
-    fn = _fn()
-    with torch.cuda.device(a.device):
-        err = fn(DTYPES[out_dtype], a.data_ptr(), b.data_ptr(),
-                 None if h0 is None else h0.data_ptr(), y.data_ptr(), h_last.data_ptr(),
-                 bsz, s, w, torch.cuda.current_stream(a.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"rglru_scan launch failed: CUDA error {err}")
+    launch(_fn(), a, b, h0, y, h_last)
     rglru_scan.launches += 1
     return y, h_last
 

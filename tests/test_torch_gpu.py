@@ -169,12 +169,22 @@ def test_decode_attention_kernel_smem_ceiling(cuda, d, dtype):
     (4, 512, 2560, torch.float32, False),     # the serving call
     (4, 512, 2560, torch.bfloat16, True),
     (2, 37, 200, torch.float32, True),        # ragged S and W
-    (3, 5, 64, torch.float32, True),          # S shorter than the loads ahead
+    (3, 5, 64, torch.float32, True),          # S shorter than one chunk
+    (2, 4096, 256, torch.float32, True),      # S over 64 tiles: the carry between tiles
+    (2, 4096, 256, torch.bfloat16, False),
+    (1, 2049, 96, torch.bfloat16, True),      # ragged S over 33 tiles, B 1
+    (1, 2049, 96, torch.float32, False),
+    (3, 1, 37, torch.float32, True),          # S 1; W 37, not a multiple of the strip
+    (3, 1, 37, torch.bfloat16, False),
+    (1, 5, 37, torch.bfloat16, True),         # S under one chunk, B 1
+    (2, 300, 20, torch.bfloat16, True),       # W under one strip
+    (2, 300, 20, torch.float32, False),
 ])
 def test_rglru_scan_kernel(cuda, b, s, w, out_dtype, with_h0):
-    """K4 against its plain version: y within 1e-5 of max|h| in fp32
-    (tests/test_kernels.py:78-86), within bf16's 2e-2 when y is bf16; the
-    last state (fp32) within 1e-5 of max|h| either way."""
+    """K4 (a chunked scan over S) against its plain version: y within 1e-5
+    of max|h| in fp32 (tests/test_kernels.py:78-86), within bf16's 2e-2
+    when y is bf16; the last state (fp32) within 1e-5 of max|h| either
+    way."""
     gen = torch.Generator(device=cuda).manual_seed(4)
     a = torch.sigmoid(_rand(gen, (b, s, w), torch.float32, cuda))
     bb = _rand(gen, (b, s, w), torch.float32, cuda) * 0.1
@@ -190,6 +200,19 @@ def test_rglru_scan_kernel(cuda, b, s, w, out_dtype, with_h0):
     torch.testing.assert_close(h_last, hp, atol=1e-5 * scale, rtol=1e-5)
     torch.testing.assert_close(h_last, yp[:, -1].float(), atol=TOL[out_dtype] * scale,
                                rtol=TOL[out_dtype])
+
+
+@pytest.mark.parametrize("b,s,w", [(4, 512, 2560), (1, 2049, 96), (3, 1, 37)])
+def test_rglru_scan_plan(cuda, b, s, w):
+    """K4's plan, read from the built kernel, is its grid: a CTA for each
+    strip of lw lanes (whole warps) of each batch row, walking S in tiles
+    of t nc steps; at least one CTA fits an SM."""
+    from repro_torch.kernels import rglru_scan as trglru
+    p = trglru.plan(b, s, w)
+    assert p["lw"] % 32 == 0 and p["t"] >= 1 and p["nc"] >= 1
+    assert p["ctas"] == b * -(-w // p["lw"])
+    assert p["tiles"] == -(-s // (p["t"] * p["nc"]))
+    assert p["ctas_per_sm"] >= 1
 
 
 def test_lm_on_card_matches_cpu(cuda):

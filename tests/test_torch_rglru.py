@@ -89,6 +89,88 @@ def test_rglru_scan_out_dtype_rounds_each_step_once():
     assert torch.equal(y16, y32.to(torch.bfloat16)) and torch.equal(h16, h32)
 
 
+def _chunked_scan(a, b, h0, t, nc):
+    """A plain mirror of K4's walk (csrc/rglru_scan.cu), for these tests
+    only: S in tiles of nc chunks of t steps, steps past S the identity
+    (a 1, b 0); each chunk walks from h = 0 for its pair (prod a, local h),
+    the pairs fold in order from the tile's incoming h into each chunk's
+    incoming h and the tile's outgoing one, and each chunk walks again from
+    its incoming h to give y. Returns (y, h_last) in fp32."""
+    bsz, s, w = a.shape
+    pad = -s % (t * nc)
+    a = torch.cat([a, a.new_ones(bsz, pad, w)], 1).reshape(bsz, -1, nc, t, w)
+    b = torch.cat([b, b.new_zeros(bsz, pad, w)], 1).reshape(bsz, -1, nc, t, w)
+    h = a.new_zeros(bsz, w) if h0 is None else h0
+    tiles = []
+    for ta, tb in zip(a.unbind(1), b.unbind(1)):      # (B, nc, t, W) each
+        prod, local = ta.new_ones(bsz, nc, w), ta.new_zeros(bsz, nc, w)
+        for u in range(t):
+            prod, local = prod * ta[:, :, u], ta[:, :, u] * local + tb[:, :, u]
+        starts = []
+        for j in range(nc):
+            starts.append(h)
+            h = prod[:, j] * h + local[:, j]
+        hc, ys = torch.stack(starts, 1), []
+        for u in range(t):
+            hc = ta[:, :, u] * hc + tb[:, :, u]
+            ys.append(hc)
+        tiles.append(torch.stack(ys, 2).reshape(bsz, nc * t, w))
+    return torch.cat(tiles, 1)[:, :s], h
+
+
+@pytest.mark.parametrize("b,s,w,t,nc,with_h0", [
+    (2, 37, 5, 4, 3, True),      # ragged S over four tiles of three chunks
+    (1, 1, 3, 4, 2, True),       # S 1
+    (3, 6, 4, 8, 2, False),      # S shorter than one chunk
+    (2, 100, 7, 8, 4, False),    # ragged S over four tiles
+    (1, 129, 6, 16, 8, True),    # one step past a tile of 128
+    (2, 64, 3, 1, 1, True),      # one step a chunk and a tile: the plain loop
+])
+def test_chunked_scan_matches_ref_and_jax_scan(b, s, w, t, nc, with_h0):
+    """The chunk-and-carry algebra K4 runs, at ragged S, T and NC, against
+    the sequential oracles (``ref.rglru_ref`` and JAX's) and against JAX's
+    associative scan (``repro.nn.rglru.rglru``, on its own gates of a drawn
+    x), within 1e-5 as the loop and the associative scan are held."""
+    rng = np.random.default_rng(10)
+    x = rng.standard_normal((b, s, w)).astype(np.float32)
+    p = {"gate_a": rng.standard_normal((w, w)).astype(np.float32) * w ** -0.5,
+         "gate_x": rng.standard_normal((w, w)).astype(np.float32) * w ** -0.5,
+         "ba": rng.standard_normal(w).astype(np.float32) * 0.1,
+         "bx": rng.standard_normal(w).astype(np.float32) * 0.1,
+         "lam": rng.standard_normal(w).astype(np.float32)}
+    h0 = rng.standard_normal((b, w)).astype(np.float32) if with_h0 else None
+    jp = {k: jnp.asarray(v) for k, v in p.items()}
+    jh0 = None if h0 is None else jnp.asarray(h0)
+    ja, jb = jrglru._gates(jp, jnp.asarray(x))
+    want_y, want_h = jrglru.rglru(jp, jnp.asarray(x), jh0)
+    ta, tb = torch.from_numpy(np.array(ja)), torch.from_numpy(np.array(jb))
+    th0 = None if h0 is None else torch.from_numpy(h0)
+    got_y, got_h = _chunked_scan(ta, tb, th0, t, nc)
+    _close(got_y, want_y)
+    _close(got_h, want_h)
+    ry, rh = ref.rglru_ref(ta, tb, th0)
+    _close(got_y, ry)
+    _close(got_h, rh)
+    jy, jh = jref.rglru_ref(ja, jb, jh0)
+    _close(got_y, jy)
+    _close(got_h, jh)
+
+
+@pytest.mark.parametrize("t,nc", [(8, 8), (16, 8), (8, 4)])
+@pytest.mark.parametrize("b,s,w", [(4, 512, 2560), (2, 4096, 256), (1, 2049, 96)])
+def test_chunked_scan_at_kernel_plans(b, s, w, t, nc):
+    """The mirror at chunks and tiles the kernel is built with (T 8, NC 8
+    shipped; the others in tools/k4_plan_sweep.py), at the serving widths
+    and at S over many tiles, ragged, against the plain version."""
+    a, bb, h0 = _scan_inputs(11, b, s, w, h0=True)
+    ta, tb, th = (torch.from_numpy(x) for x in (a, bb, h0))
+    got_y, got_h = _chunked_scan(ta, tb, th, t, nc)
+    want_y, want_h = ops.rglru_scan_plain(ta, tb, h0=th)
+    scale = max(float(want_y.abs().max()), 1.0)
+    torch.testing.assert_close(got_y, want_y, atol=TOL * scale, rtol=TOL)
+    torch.testing.assert_close(got_h, want_h, atol=TOL * scale, rtol=TOL)
+
+
 def test_rglru_kernel_wrapper_refuses_cpu_and_bad_inputs():
     """The CUDA wrapper never falls back: CPU tensors are an error there."""
     a = torch.rand(2, 8, 16)
