@@ -42,7 +42,27 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    each kernel the path launches must hold device time in its group;
 5. parity: at each arch's reduced config, prefill logits and greedy tokens
    from the port on the card equal the port on the CPU (the plain
-   versions), in fp32.
+   versions), in fp32;
+6. grad guards: K1's bf16 route, K2 and K3 raise under autograd (they
+   have no backward kernel) instead of returning a tensor with no grad_fn;
+7. train parity: recurrentgemma-2b at 3 layers of full width, fp32: the
+   V-trace loss and every gradient leaf through K1, K1-bwd, K4 and K4-bwd
+   against the same through their plain versions on the card;
+8. train: recurrentgemma-2b at full width (26 layers, 2.89 B params, fp32
+   params and AdamW moments) takes 3 steps at batch 4 x seq 256 through
+   ``repro_torch.launch.train``'s functions; K1 and K1-bwd must rise by 8
+   a step, K4 and K4-bwd by 18, K2 and K3 not at all; loss and grad_norm
+   finite; then the step's wall time, tokens/s, the forward, backward and
+   optimizer parts, peak memory and a profiler breakdown;
+9. train restart: the launcher at the reduced config on the card,
+   checkpointing every 2 steps, restarts from its checkpoint after a
+   failure injected at step 3 and ends at step 6.
+
+The kernel phase (3) also holds K1-bwd and K4-bwd to their plain versions
+(the formulas each kernel computes) at the train call, the smoke widths
+and D 128 with 5 query heads a kv head, and times them against their
+bounds (K1-bwd also against SDPA's fp32 backward: forward and backward,
+less forward).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or run from a directory
@@ -51,6 +71,7 @@ that does not hold the repository, it fails and prints no result.
 
 import contextlib
 import json
+import math
 import re
 import subprocess
 import sys
@@ -76,6 +97,10 @@ PROMPT_LEN, MAX_LEN = SERVE["qwen3-14b"]
 # the attention calls of recurrentgemma-2b's path: 10 query heads on one kv
 # head of 256, window 2048 (longer than the prompt), a ring of 576 slots
 RG = dict(h=10, kh=1, d=256, window=2048)
+# the training path: recurrentgemma-2b at full width in fp32, its K1 and K4
+# calls at batch 4 x seq 256
+TRAIN = dict(arch="recurrentgemma-2b", batch=4, seq=256, steps=3)
+GRAD_TOL = 1e-4   # of a gradient tensor's max |value|, and relative
 
 
 def log(msg):
@@ -132,7 +157,7 @@ def check_close(name, got, want, tol, atol=None):
     return err
 
 
-def kernel_phase(k4_ptxas):
+def kernel_phase(k4_ptxas, bwd_ptxas):
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as K2
     from repro_torch.kernels import flash_attention as K1
@@ -521,7 +546,149 @@ def kernel_phase(k4_ptxas):
         f"{rows['rglru_scan']['bound_ms']:.4f} ({rows['rglru_scan']['bound_by']}, "
         f"{nbytes / 1e6:.1f} MB)")
     del sets, kept
+
+    # ---- K1-bwd ----
+    log("== kernels: K1-bwd flash attention backward (fp32, CUDA cores)")
+    # the gradients sum up to S * H / KH products in another order than the
+    # plain version's einsums: held to GRAD_TOL of each tensor's max |value|
+    tb, ts = TRAIN["batch"], TRAIN["seq"]
+    cases = [((tb, ts, RG["h"], RG["kh"], RG["d"]), {"window": RG["window"]}),  # the train call
+             ((2, 200, 10, 2, 128), {}),              # D 128, 5 query heads a kv head (qwen3's)
+             ((2, 300, 10, 1, 256), {"window": 100}),  # ragged S over tiles, window < S
+             ((2, 77, 4, 2, 64), {"softcap": 30.0}),
+             ((1, 40, 4, 4, 16), {"causal": False}),
+             ((2, 48, 4, 2, 16), {}),                  # qwen3 reduced config
+             ((2, 150, 4, 1, 16), {"window": 32})]     # RecurrentGemma reduced config
+    main_err = None
+    for (cb, cs, ch, ckh, cd), kw in cases:
+        q = rand(cb, cs, ch, cd, dtype=torch.float32)
+        k, v = rand(cb, cs, ckh, cd, dtype=torch.float32), rand(cb, cs, ckh, cd,
+                                                               dtype=torch.float32)
+        do = rand(cb, cs, ch, cd, dtype=torch.float32)
+        kw = {"causal": True, "scale": cd ** -0.5, **kw}
+        o, lse = K1.flash_attention(q, k, v, return_lse=True, **kw)
+        got = K1.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        want = ops.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+        lse_want = ops.flash_attention_lse_plain(q, k, **kw)
+        torch.cuda.synchronize()
+        shown = {k_: v_ for k_, v_ in kw.items() if k_ != "scale"}
+        name = f"K1-bwd {(cb, cs, ch, ckh, cd)} {shown}"
+        check_close(f"{name} lse", lse, lse_want, tol[torch.float32])
+        errs = [check_close(f"{name} {g}", x, w, GRAD_TOL,
+                            GRAD_TOL * max(float(w.abs().max()), 1e-30))
+                for g, x, w in zip(("dq", "dk", "dv"), got, want)]
+        main_err = max(errs) if main_err is None else main_err
+    # timing at the train call
+    (cb, cs, ch, ckh, cd), kw = cases[0]
+    sc = cd ** -0.5
+    q = rand(cb, cs, ch, cd, dtype=torch.float32)
+    k, v = rand(cb, cs, ckh, cd, dtype=torch.float32), rand(cb, cs, ckh, cd, dtype=torch.float32)
+    do = rand(cb, cs, ch, cd, dtype=torch.float32)
+    o, lse = K1.flash_attention(q, k, v, scale=sc, return_lse=True, **kw)
+    ms = time_ms("K1-bwd", lambda: K1.flash_attention_bwd(q, k, v, o, lse, do, scale=sc, **kw))
+    plain_ms = time_ms("K1-bwd plain", lambda: ops.flash_attention_bwd_plain(
+        q, k, v, o, lse, do, scale=sc, **kw), iters=5, warmup=1)
+    # the library yardstick: SDPA's fp32 forward and backward with the same
+    # boolean mask, less its forward alone
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    rows_i = torch.arange(cs, device=dev)[:, None]
+    cols_i = torch.arange(cs, device=dev)[None, :]
+    mask = (cols_i <= rows_i) & ((rows_i - cols_i) < kw["window"])
+    sdpa = lambda: F.scaled_dot_product_attention(   # noqa: E731
+        qt, kt, vt, attn_mask=mask, scale=sc, enable_gqa=True)
+    lib_fwd = time_ms("SDPA fp32 forward", sdpa, iters=10)
+    lib_both = time_ms("SDPA fp32 forward and backward", lambda: torch.autograd.grad(
+        sdpa(), (qt, kt, vt), dot), iters=10)
+    k1_passes = kernel_spans(
+        lambda: K1.flash_attention_bwd(q, k, v, o, lse, do, scale=sc, **kw),
+        ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_reduce", "flash_bwd_dq"))
+    pairs = int(mask.sum())
+    flops = 10 * cd * pairs * cb * ch                 # five products over the kept pairs
+    nbytes = 4 * (4 * cb * cs * ch * cd + 4 * cb * cs * ckh * cd + cb * ch * cs)
+    rows["flash_attention_bwd"] = dict(
+        name="flash_attention_bwd", route="cuda", variant="cuda_cores",
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention.py:63",
+        max_abs_err=main_err, ms=ms, plain_ms=plain_ms, library_ms=lib_both - lib_fwd,
+        library_fwd_and_bwd_ms=lib_both, library_fwd_ms=lib_fwd,
+        kernel_split_ms=k1_passes,
+        **bound(flops, nbytes, "float32"), tflops=flops / ms / 1e9, **bwd_ptxas["k1"])
+    r = rows["flash_attention_bwd"]
+    log(f"   K1-bwd at ({cb},{cs},{ch},{ckh},{cd}) fp32, window {kw['window']} (the train call; "
+        f"{' '.join(f'{k_} {v_}' for k_, v_ in bwd_ptxas['k1'].items())}): kernel_ms "
+        f"{ms:.4f} ({r['tflops']:.2f} TFLOP/s) plain_ms {plain_ms:.4f} library_ms "
+        f"{r['library_ms']:.4f} (SDPA fp32 with a boolean mask: forward and backward "
+        f"{lib_both:.4f} less forward {lib_fwd:.4f}) bound_ms {r['bound_ms']:.4f} "
+        f"({r['bound_by']}, {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); device ms a call "
+        f"by kernel (profiler): " + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in k1_passes.items()))
+    del qt, kt, vt
+
+    # ---- K4-bwd ----
+    log("== kernels: K4-bwd RG-LRU scan backward (fp32)")
+    # held to 1e-5 of max |gradient|, as K4 is to max |h|: the same chain of
+    # fp32 FMAs as the plain reverse loop, rounded apart
+    gw = 2560
+    cases = [((tb, ts, gw), False, False),    # the train call: no h0, h_last unused
+             ((tb, ts, gw), True, True),
+             ((1, 2049, 96), True, True),      # ragged S, B 1
+             ((3, 1, 37), True, False),        # S 1, W 37
+             ((2, 37, 200), False, True),
+             ((2, 48, 64), False, False)]      # the reduced config
+    main_err = None
+    for (cb, cs, cw), with_h0, with_dh in cases:
+        a, bb, h0 = rglru_inputs(cb, cs, cw, with_h0)
+        y, _ = K4.rglru_scan(a, bb, h0=h0)
+        dy = rand(cb, cs, cw, dtype=torch.float32)
+        dh = rand(cb, cw, dtype=torch.float32) if with_dh else None
+        got = K4.rglru_scan_bwd(a, y, h0, dy, dh)
+        want = ops.rglru_scan_bwd_plain(a, y, h0, dy, dh)
+        torch.cuda.synchronize()
+        name = f"K4-bwd {(cb, cs, cw)} h0={with_h0} dh_last={with_dh}"
+        errs = [check_close(f"{name} {g}", x, w, 1e-5, 1e-5 * max(float(w.abs().max()), 1e-30))
+                for g, x, w in zip(("da", "db", "dh0"), got, want) if w is not None]
+        if (got[2] is None) != (h0 is None):
+            raise AssertionError(f"{name}: dh0 given without h0, or missing with it")
+        main_err = max(errs) if main_err is None else main_err
+    a, bb, _ = rglru_inputs(tb, ts, gw, False)
+    y, _ = K4.rglru_scan(a, bb)
+    dy = rand(tb, ts, gw, dtype=torch.float32)
+    ms = time_ms("K4-bwd", lambda: K4.rglru_scan_bwd(a, y, None, dy, None))
+    plain_ms = time_ms("K4-bwd plain", lambda: ops.rglru_scan_bwd_plain(a, y, None, dy, None),
+                       iters=3, warmup=1)
+    nbytes = 4 * 5 * a.numel()                   # a, y, dy read; da, db written
+    rows["rglru_scan_bwd"] = dict(
+        name="rglru_scan_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/rglru_scan_bwd.cu",
+        replaces="src/repro/kernels/rglru_scan.py:39", max_abs_err=main_err, ms=ms,
+        plain_ms=plain_ms, library_ms=None, **bound(3 * a.numel(), nbytes, "float32"),
+        tbps=nbytes / ms / 1e9, **bwd_ptxas["k4"])
+    r = rows["rglru_scan_bwd"]
+    log(f"   K4-bwd at ({tb},{ts},{gw}) fp32, no h0, no dh_last (the train call; "
+        f"{' '.join(f'{k_} {v_}' for k_, v_ in bwd_ptxas['k4'].items())}): kernel_ms {ms:.4f} "
+        f"({r['tbps']:.3f} TB/s) plain_ms {plain_ms:.4f} library_ms none (no PyTorch call "
+        f"computes a linear recurrence's gradient) bound_ms {r['bound_ms']:.4f} "
+        f"({r['bound_by']}, {nbytes / 1e6:.1f} MB)")
     return rows
+
+
+def kernel_spans(call, names, n=8):
+    """Device ms a call of each kernel whose name contains one of `names`,
+    from a profiler trace of `n` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    spans = {name: [] for name in names}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for name in names:
+                if name in e.name:
+                    spans[name].append((e.time_range.start, e.time_range.end))
+    return {name: union_ms(found) / n for name, found in spans.items()}
 
 
 def bound(flops, nbytes, dtype):
@@ -537,18 +704,19 @@ def expected_launches(cfg, steps):
     each decode step; Mamba runs K3 once per layer in prefill and nothing
     in decode; RecurrentGemma runs K4 once per recurrent layer in prefill
     and nothing in decode, and K1 and K2 as the dense LM does on its
-    local-attention layers."""
+    local-attention layers. Serving runs no backward kernel."""
+    bwd = {"flash_attention_bwd": 0, "rglru_scan_bwd": 0}
     if cfg.family == "ssm":
         return {"flash_attention": 0, "decode_attention": 0, "ssd_scan": cfg.num_layers,
-                "rglru_scan": 0}
+                "rglru_scan": 0, **bwd}
     if cfg.family == "hybrid":
         from repro_torch.models.recurrentgemma import layer_kinds
         n_rec = layer_kinds(cfg).count("rglru")
         n_att = cfg.num_layers - n_rec
         return {"flash_attention": n_att, "decode_attention": n_att * steps, "ssd_scan": 0,
-                "rglru_scan": n_rec}
+                "rglru_scan": n_rec, **bwd}
     return {"flash_attention": cfg.num_layers, "decode_attention": cfg.num_layers * steps,
-            "ssd_scan": 0, "rglru_scan": 0}
+            "ssd_scan": 0, "rglru_scan": 0, **bwd}
 
 
 def describe(cfg):
@@ -690,19 +858,25 @@ def union_ms(spans):
 
 def device_breakdown(prof, n):
     """Device time per call from a profiler trace, grouped: the port's
-    kernels (K1 and K3 either route, K2 its split and combine passes), GEMMs
+    kernels (K1 and K3 either route, K2 its split and combine passes, K1-bwd
+    its three kernels), GEMMs
     (cuBLAS / CUTLASS), and everything else; and the number of device
     kernels per call. A group's time, and "busy" over all of them, count
     each instant once: K2's combine is launched while its split pass runs."""
-    spans = {g: [] for g in ("K1", "K2", "K3", "K4", "gemm", "other")}
+    spans = {g: [] for g in ("K1", "K1-bwd", "K2", "K3", "K4", "K4-bwd", "gemm", "other")}
     kernels = 0
     for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
             continue
         kernels += 1
         name = e.name.lower()
         if "flash_kernel" in name or "flash_wgmma_kernel" in name:
             g = "K1"
+        elif "flash_bwd_" in name:
+            g = "K1-bwd"
+        elif "rglru_bwd_kernel" in name:
+            g = "K4-bwd"
         elif "decode_split_kernel" in name or "decode_combine_kernel" in name:
             g = "K2"
         elif "ssd_chunk_kernel" in name or "ssd_wgmma_kernel" in name:
@@ -749,6 +923,240 @@ def parity_phase(arch, prompt_len):
         f"{t_cpu[0].tolist()}")
 
 
+def grad_guard_phase():
+    """A kernel with no backward kernel refuses an input that requires a
+    gradient, rather than return a tensor with no grad_fn."""
+    from repro_torch.kernels import ops
+    log("== grad guards: K1 bf16, K2 and K3 under autograd on the card")
+    dev = torch.device("cuda")
+    q = torch.randn(1, 64, 2, 64, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    kv = torch.randn(1, 32, 2, 64, device=dev, requires_grad=True)
+    x = torch.randn(1, 16, 2, 16, device=dev, requires_grad=True)
+    bm = torch.randn(1, 16, 1, 16, device=dev)
+    calls = {"K1 bf16": lambda: ops.flash_attention(q, q, q),
+             "K2": lambda: ops.decode_attention(kv[:, 0], kv, kv,
+                                                torch.ones(1, dtype=torch.int32, device=dev)),
+             "K3": lambda: ops.ssd_scan(x, torch.rand(1, 16, 2, device=dev),
+                                        -torch.ones(2, device=dev), bm, bm)}
+    for name, call in calls.items():
+        try:
+            call()
+        except NotImplementedError as e:
+            log(f"   {name}: NotImplementedError: {str(e)[:90]}...")
+        else:
+            raise AssertionError(f"{name} ran under autograd with no backward kernel")
+    with torch.no_grad():
+        if ops.flash_attention(q, q, q).grad_fn is not None:
+            raise AssertionError("K1 under no_grad recorded a graph")
+
+
+@contextlib.contextmanager
+def plain_versions(ops):
+    """The model's calls of K1 and K4 (``ops.flash_attention``,
+    ``ops.rglru_scan``) taken by their plain versions on the card, for the
+    gradient comparison only; the port's wrappers never do this."""
+    saved = ops.flash_attention, ops.rglru_scan
+    ops.flash_attention = lambda q, k, v, **kw: ops.flash_attention_plain(q, k, v, **kw)
+    ops.rglru_scan = lambda a, b, **kw: ops.rglru_scan_plain(a, b, **kw)
+    try:
+        yield
+    finally:
+        ops.flash_attention, ops.rglru_scan = saved
+
+
+def live_table(params, cfg):
+    """Scale the tied embedding table by 1 / d_model, in place. At the
+    published init (N(0, 1), sigma 1) the residual stream carries each
+    input token's own embedding, whose logit (d_model sigma, 2560 here)
+    dwarfs the others (std sqrt(d_model) sigma, 51): the softmax is
+    one-hot, and in fp32 the V-trace loss and every gradient are exactly 0,
+    so a step would carry no gradient through the backward kernels. At
+    sigma = 1 / d_model the self logit is 1 and every term of the loss is
+    alive."""
+    with torch.no_grad():
+        params.embed.table.mul_(1.0 / cfg.d_model)
+
+
+def train_parity_phase():
+    """At 3 layers (rglru, rglru, local) of full width, the V-trace loss and
+    every gradient leaf through K1, K1-bwd, K4 and K4-bwd against the same
+    through their plain versions under autograd, on the card in fp32."""
+    from repro_torch.core.losses import make_vtrace_loss, param_grads
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, s = TRAIN["batch"], TRAIN["seq"]
+    run = train.setup(TRAIN["arch"], batch=b, seq=s, steps=1, device="cuda", num_layers=3)
+    log(f"== train parity: {run.cfg.name} at {run.cfg.num_layers} layers, full width, fp32, "
+        f"batch {b} x seq {s}: gradients through the kernels vs their plain versions")
+    params = run.make_state()["params"]
+    live_table(params, run.cfg)
+    named = dict(params.named_parameters())
+    batch = run.batch_at(0)
+    loss_fn = make_vtrace_loss(run.bundle)
+    ops.reset_launch_counts()
+    loss, _ = loss_fn(params, batch)
+    got = param_grads(loss, named)
+    counts = ops.launch_counts()
+    with plain_versions(ops):
+        loss_p, _ = loss_fn(params, batch)
+        want = param_grads(loss_p, named)
+    if ops.launch_counts() != counts or counts["flash_attention_bwd"] != 1 \
+            or counts["rglru_scan_bwd"] != 2:
+        raise AssertionError(f"launches {counts} then {ops.launch_counts()}: want 1 K1 and 2 K4 "
+                             "calls and backward calls through the kernels, none through the "
+                             "plain versions")
+    check_close("loss", loss.detach(), loss_p.detach(), 1e-5)
+    worst = max((float((got[n] - w).abs().max()) / max(float(w.abs().max()), 1e-30), n)
+                for n, w in want.items())
+    for n, w in want.items():
+        err = (got[n] - w).abs()
+        if not bool((err <= GRAD_TOL * float(w.abs().max()) + GRAD_TOL * w.abs()).all()):
+            raise AssertionError(f"gradient {n}: kernels vs plain versions differ by "
+                                 f"{float(err.max()):.3e} of max {float(w.abs().max()):.3e}")
+    log(f"   loss {float(loss):.6f} (plain {float(loss_p):.6f}); {len(want)} gradient leaves "
+        f"within {GRAD_TOL:g} of each leaf's max |g| (the worst {worst[0]:.2e}, {worst[1]})")
+    del params, named, got, want, loss, loss_p
+
+
+def expected_train_launches(cfg, steps):
+    """A V-trace step of RecurrentGemma runs K1 and K1-bwd once per local
+    layer, K4 and K4-bwd once per recurrent layer, and no K2 or K3."""
+    from repro_torch.models.recurrentgemma import layer_kinds
+    n_rec = layer_kinds(cfg).count("rglru")
+    n_att = cfg.num_layers - n_rec
+    return {"flash_attention": n_att * steps, "decode_attention": 0, "ssd_scan": 0,
+            "rglru_scan": n_rec * steps, "flash_attention_bwd": n_att * steps,
+            "rglru_scan_bwd": n_rec * steps}
+
+
+def train_phase():
+    """recurrentgemma-2b at full width trains TRAIN["steps"] steps through
+    ``repro_torch.launch.train``'s functions, from its init with the table
+    scaled by ``live_table``; then two steps timed on the
+    host clock around a synchronised step, the step's parts on CUDA events,
+    and a profiler breakdown of one step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.losses import make_vtrace_loss, param_grads
+    from repro_torch.kernels import flash_attention as K1
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.optim import apply_updates
+    from repro_torch.utils.tree import tree_bytes, tree_size
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, s, steps = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
+    run = train.setup(TRAIN["arch"], batch=b, seq=s, steps=steps, device="cuda")
+    cfg = run.cfg
+    log(f"== train: {cfg.name} {describe(cfg)}, {cfg.num_layers} layers, fp32 params and AdamW "
+        f"moments, batch {b} x seq {s}, {steps} steps through repro_torch.launch.train")
+    t0 = time.perf_counter()
+    state = run.make_state()
+    live_table(state["params"], cfg)
+    torch.cuda.synchronize()
+    n = tree_size(state["params"])
+    log(f"   params {n} ({tree_bytes(state['params']) / 1e9:.2f} GB fp32; with both moments "
+        f"{3 * tree_bytes(state['params']) / 1e9:.2f} GB) built on the card in "
+        f"{time.perf_counter() - t0:.1f} s; allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, history = train.train_loop(run, state, 0, steps, log=lambda m: log(f"   {m}"))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    k1_routes = dict(K1.flash_attention.launches_by_route)
+    peak = torch.cuda.max_memory_allocated()
+    want = expected_train_launches(cfg, steps)
+    if counts != want:
+        raise AssertionError(f"train launch counts {counts} != expected {want}")
+    if k1_routes != {"wgmma": 0, "cuda_cores": want["flash_attention"]}:
+        raise AssertionError(f"K1 launches by route {k1_routes}: fp32 takes the CUDA cores")
+    loss = [float(m["loss"]) for m in history]
+    gnorm = [float(m["grad_norm"]) for m in history]
+    if not (all(map(math.isfinite, loss + gnorm)) and min(gnorm) > 0) or state["step"] != steps:
+        raise AssertionError(f"loss {loss}, grad_norm {gnorm} (finite and > 0 wanted), "
+                             f"step {state['step']}")
+    log(f"   launches: {counts}; K1 by route {k1_routes}; loss {loss}, grad_norm {gnorm}; "
+        f"{steps} steps in {run_s:.2f} s (the first warms cuBLAS and the allocator); peak "
+        f"memory {peak / 1e9:.2f} GB")
+
+    step_ms = []
+    for i in range(2):
+        batch = run.batch_at(steps + i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = run.train_step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    # the step's parts, called as make_train_step calls them, CUDA events
+    # between: each part's share of the step's device timeline
+    loss_fn = make_vtrace_loss(run.bundle)
+    named = dict(state["params"].named_parameters())
+    batch = run.batch_at(steps + 2)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    lv, _ = loss_fn(state["params"], batch)
+    ev[1].record()
+    grads = param_grads(lv, named)
+    ev[2].record()
+    updates, state["opt_state"], _ = run.opt.update(grads, state["opt_state"], named,
+                                                    state["step"])
+    apply_updates(named, updates)
+    ev[3].record()
+    torch.cuda.synchronize()
+    state["step"] += 1
+    del lv, grads, updates
+    parts = {p: ev[i].elapsed_time(ev[i + 1])
+             for i, p in enumerate(("forward", "backward", "optimizer"))}
+    total = sum(parts.values())
+    log(f"   step wall (host clock, synchronised) {step_ms[0]:.2f}, {step_ms[1]:.2f} ms; "
+        f"{b * s / (step_ms[1] / 1e3):.0f} tokens/s; parts (CUDA events) "
+        + ", ".join(f"{p} {t:.2f} ms ({t / total:.3f})" for p, t in parts.items()))
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, m = run.train_step(state, run.batch_at(steps + 3))
+        torch.cuda.synchronize()
+    groups, n_ops = device_breakdown(prof, 1)
+    for g in ("K1", "K1-bwd", "K4", "K4-bwd"):
+        if groups[g] <= 0:
+            raise AssertionError(f"profiler group {g} holds no device time in a train step")
+    if groups["K2"] or groups["K3"]:
+        raise AssertionError(f"K2 or K3 ran in a train step: {groups}")
+    log(f"   device time of a step (ms): {json.dumps(groups)}; {n_ops:.0f} device operations")
+    del state, named, m
+    return counts, {"step_ms": step_ms, "tokens_per_s": b * s / (step_ms[1] / 1e3),
+                    "parts_ms": parts, "peak_gb": peak / 1e9, "params": n, "loss": loss,
+                    "grad_norm": gnorm, "device_ms": groups, "device_ops": n_ops}
+
+
+def train_restart_phase():
+    """The launcher on the card at the reduced config: checkpoints every 2
+    steps, a failure injected at step 3, the supervisor restores step 2 and
+    runs to the end."""
+    import io
+    import tempfile
+
+    from repro_torch.launch import train
+    log("== train restart: recurrentgemma-2b reduced config on the card, --ckpt-every 2 "
+        "--fail-at 3 --steps 6")
+    with tempfile.TemporaryDirectory() as d:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            state = train.main(["--arch", TRAIN["arch"], "--smoke", "--steps", "6", "--seq",
+                                "48", "--ckpt-dir", d, "--ckpt-every", "2", "--fail-at", "3"])
+        lines = out.getvalue().splitlines()
+    for line in lines:
+        log(f"   {line}")
+    if "done (restarts: 1)" not in lines or "final step: 6" not in lines \
+            or state["step"] != 6 or not state["params"].embed.table.is_cuda:
+        raise AssertionError("the launcher did not restart from its checkpoint to the end")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs "
@@ -769,7 +1177,7 @@ def main():
     t0 = time.perf_counter()
     reports = build.build()
     log(f"== build: {', '.join(build.KERNELS)} in {time.perf_counter() - t0:.1f} s")
-    k4_ptxas = {}
+    k4_ptxas, bwd_ptxas = {}, {"k1": {}, "k4": {}}
     for name, rep in reports.items():
         regs = [int(x) for x in re.findall(r"Used (\d+) registers", rep)]
         spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", rep) if int(x)]
@@ -792,8 +1200,24 @@ def main():
                                                                entry).group(1))
                 log(f"   rglru_chunk_kernel<{y} y>: {k4_ptxas[f'registers_{y}_y']} registers, "
                     f"{k4_ptxas[f'spill_bytes_{y}_y']} bytes of spill stores")
+            # K1-bwd, one line a kernel and head_dim, and K4-bwd
+            found = re.search(r"(flash_bwd_dkdv_kernel|flash_bwd_dq_kernel)ILi(\d+)E|"
+                              r"(flash_bwd_delta_kernel|flash_bwd_reduce_kernel|"
+                              r"rglru_bwd_kernel)", entry)
+            if found:
+                kernel = found.group(1) or found.group(3)
+                used = int(re.search(r"Used (\d+) registers", entry).group(1))
+                spill = int(re.search(r"(\d+) bytes spill stores", entry).group(1))
+                log(f"   {kernel}{f'<{found.group(2)}>' if found.group(2) else ''}: {used} "
+                    f"registers, {spill} bytes of spill stores")
+                if kernel == "rglru_bwd_kernel":
+                    bwd_ptxas["k4"].update(registers=used, spill_bytes=spill)
+                elif found.group(2) == "256":   # the train call's head_dim
+                    short = kernel.split("_")[2]
+                    bwd_ptxas["k1"].update({f"registers_{short}_256": used,
+                                            f"spill_bytes_{short}_256": spill})
 
-    rows = kernel_phase(k4_ptxas)
+    rows = kernel_phase(k4_ptxas, bwd_ptxas)
     # each path is driven with the counts set to 0 just before it and read
     # just after; a kernel's launches are the sum over the paths that run it
     # (K1 and K2 run on qwen3's and RecurrentGemma's)
@@ -809,11 +1233,20 @@ def main():
     parity_phase("qwen3-14b", 24)
     parity_phase("mamba2-2.7b", 150)
     parity_phase("recurrentgemma-2b", 150)
+    grad_guard_phase()
+    train_parity_phase()
+    torch.cuda.empty_cache()
+    counts, train_metrics = train_phase()
+    for name in launches:
+        launches[name] += counts[name]
+    torch.cuda.empty_cache()
+    train_restart_phase()
 
     for name, row in rows.items():
         row["launches"] = launches[name]
     for arch, metrics in serve_metrics.items():
         log(f"serve {arch}: {json.dumps(metrics)}")
+    log(f"train {TRAIN['arch']}: {json.dumps(train_metrics)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": list(rows.values())}))

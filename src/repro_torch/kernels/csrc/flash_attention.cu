@@ -101,8 +101,8 @@ constexpr size_t smem_bytes() {
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ o, int S, int H, int KH, float scale, int causal, int window,
-             float softcap) {
+             T* __restrict__ o, float* __restrict__ lse, int S, int H, int KH, float scale,
+             int causal, int window, float softcap) {
   constexpr int RPT = rows_per_thread<D>();
   constexpr int BQ = q_rows<D>();
   constexpr int DP = D + 1;       // padded row: column reads hit distinct banks
@@ -235,12 +235,16 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int t = 0; t < DPT; ++t) ob[(long)row * qs + cg + CG * t] = from_f<T>(acc[i][t] / den);
+    // the row's log-sum-exp of the scaled, capped, masked logits, which the
+    // backward (flash_attention_bwd.cu) recomputes P from; l and m are
+    // already the same in the row group's 8 lanes
+    if (lse && cg == 0) lse[((long)b * H + h) * S + row] = m[i] + logf(den);
   }
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H, int KH,
-           float scale, int causal, int window, float softcap, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, int B, int S, int H,
+           int KH, float scale, int causal, int window, float softcap, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   static std::atomic<unsigned long long> opted_in{0};
   cudaError_t err = hopper::opt_in_smem((const void*)flash_kernel<T, D>, (int)smem, opted_in);
@@ -248,18 +252,21 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
   dim3 grid((S + q_rows<D>() - 1) / q_rows<D>(), H, B);
   flash_kernel<T, D><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, H, KH, scale, causal, window, softcap);
+      static_cast<T*>(o), static_cast<float*>(lse), S, H, KH, scale, causal, window, softcap);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch_d(int D, const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-               int KH, float scale, int causal, int window, float softcap, cudaStream_t st) {
+int dispatch_d(int D, const void* q, const void* k, const void* v, void* o, void* lse, int B,
+               int S, int H, int KH, float scale, int causal, int window, float softcap,
+               cudaStream_t st) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, B, S, H, KH, scale, causal, window, softcap, st);
-    case 64: return launch<T, 64>(q, k, v, o, B, S, H, KH, scale, causal, window, softcap, st);
-    case 128: return launch<T, 128>(q, k, v, o, B, S, H, KH, scale, causal, window, softcap, st);
-    case 256: return launch<T, 256>(q, k, v, o, B, S, H, KH, scale, causal, window, softcap, st);
+    case 16: return launch<T, 16>(q, k, v, o, lse, B, S, H, KH, scale, causal, window, softcap, st);
+    case 64: return launch<T, 64>(q, k, v, o, lse, B, S, H, KH, scale, causal, window, softcap, st);
+    case 128:
+      return launch<T, 128>(q, k, v, o, lse, B, S, H, KH, scale, causal, window, softcap, st);
+    case 256:
+      return launch<T, 256>(q, k, v, o, lse, B, S, H, KH, scale, causal, window, softcap, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -499,14 +506,18 @@ extern "C" int flash_attention_route(int dtype, int D) {
   return dtype == 1 && (D == 64 || D == 128 || D == 256);
 }
 
-// dtype: 0 float32, 1 bfloat16. Returns cudaGetLastError() after
-// the launch (0 on success); launches on `stream` and does not synchronise.
+// dtype: 0 float32, 1 bfloat16. `lse`, null or fp32 (B, H, S), receives
+// each row's log-sum-exp for the backward; only the CUDA-core route writes
+// it, so a non-null `lse` on the tensor-core route is refused. Returns
+// cudaGetLastError() after the launch (0 on success); launches on `stream`
+// and does not synchronise.
 extern "C" int flash_attention(int dtype, const void* q, const void* k, const void* v, void* o,
                                int B, int S, int H, int KH, int D, float scale, int causal,
-                               int window, float softcap, void* stream) {
+                               int window, float softcap, void* lse, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || KH <= 0 || H % KH != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (flash_attention_route(dtype, D)) {
+    if (lse) return (int)cudaErrorInvalidValue;
     switch (D) {
       case 64: return tc::launch<64>(q, k, v, o, B, S, H, KH, scale, causal, window, softcap, st);
       case 128: return tc::launch<128>(q, k, v, o, B, S, H, KH, scale, causal, window, softcap, st);
@@ -514,10 +525,11 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k, const vo
     }
   }
   switch (dtype) {
-    case 0: return dispatch_d<float>(D, q, k, v, o, B, S, H, KH, scale, causal, window, softcap, st);
+    case 0:
+      return dispatch_d<float>(D, q, k, v, o, lse, B, S, H, KH, scale, causal, window, softcap, st);
     case 1:
-      return dispatch_d<__nv_bfloat16>(D, q, k, v, o, B, S, H, KH, scale, causal, window, softcap,
-                                       st);
+      return dispatch_d<__nv_bfloat16>(D, q, k, v, o, lse, B, S, H, KH, scale, causal, window,
+                                       softcap, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

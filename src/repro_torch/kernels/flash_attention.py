@@ -7,6 +7,12 @@ tensors. The ``.cu`` picks one of two routes by dtype and head_dim alone
 (``route``): bf16 at D 64, 128 and 256 runs on the tensor cores (wgmma),
 everything else on the fp32 CUDA cores. ``flash_attention.launches``
 counts every launch, ``flash_attention.launches_by_route`` each route's.
+
+The gradient (K1-bwd) is ``csrc/flash_attention_bwd.cu``, fp32 only, which
+recomputes P from the forward's log-sum-exp per row: the CUDA-core route
+writes it when asked (``return_lse``). ``FlashAttention`` is the autograd
+Function that pairs the two; ``flash_attention_bwd.launches`` counts the
+backward's calls (each launches its kernels: three, four with KH < H).
 """
 
 import ctypes
@@ -32,6 +38,17 @@ def _fn():
     """The C entry point, built, loaded and typed once per process."""
     fn = build.load("flash_attention").flash_attention
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_fn():
+    """The backward's C entry point, built, loaded and typed once per process."""
+    fn = build.load("flash_attention_bwd").flash_attention_bwd
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -44,10 +61,9 @@ def kernel_route(dtype, head_dim) -> str:
     return ROUTES[0] if fn(DTYPES[dtype], head_dim) else ROUTES[1]
 
 
-def flash_attention(q, k, v, *, scale=None, causal=True, window=0, softcap=None):
-    """q (B,S,H,D); k,v (B,S,KH,D) with KH dividing H (KH == H is the
-    head-expanded layout). Contiguous CUDA tensors of one dtype. Returns
-    (B,S,H,D) in q's dtype. Launches on the current stream, no sync."""
+def _check(q, k, v):
+    """Raise on what the kernels do not take: shapes, head_dim, dtypes,
+    devices and contiguity."""
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError(f"want q (B,S,H,D), k = v (B,S,KH,D); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -64,20 +80,93 @@ def flash_attention(q, k, v, *, scale=None, causal=True, window=0, softcap=None)
         raise ValueError("flash_attention kernel needs q, k, v on one CUDA device")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention kernel needs contiguous q, k, v")
+
+
+def flash_attention(q, k, v, *, scale=None, causal=True, window=0, softcap=None,
+                    return_lse=False):
+    """q (B,S,H,D); k,v (B,S,KH,D) with KH dividing H (KH == H is the
+    head-expanded layout). Contiguous CUDA tensors of one dtype. Returns
+    (B,S,H,D) in q's dtype, and with `return_lse` also each row's
+    log-sum-exp (B,H,S) fp32, which only the CUDA-core route writes.
+    Launches on the current stream, no sync."""
+    _check(q, k, v)
+    b, s, h, d = q.shape
+    if return_lse and route(q.dtype, d) != "cuda_cores":
+        raise ValueError(f"only the CUDA-core route writes the log-sum-exp; {q.dtype} at "
+                         f"head_dim {d} takes the {route(q.dtype, d)} route")
     scale = scale if scale is not None else d ** -0.5
     out = torch.empty_like(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if return_lse else None
     fn = _fn()
     with torch.cuda.device(q.device):
         err = fn(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 out.data_ptr(), b, s, h, kh, d, float(scale), int(bool(causal)),
+                 out.data_ptr(), b, s, h, k.shape[2], d, float(scale), int(bool(causal)),
                  int(window or 0), float(softcap or 0.0),
+                 None if lse is None else lse.data_ptr(),
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     flash_attention.launches += 1
     flash_attention.launches_by_route[route(q.dtype, d)] += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
 flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, scale=None, causal=True, window=0,
+                        softcap=None):
+    """K1-bwd: (dq, dk, dv) of `flash_attention` given its inputs, output o,
+    log-sum-exp lse (B,H,S) and the output's gradient do, all fp32,
+    contiguous, on one CUDA device; dk and dv sum over each kv head's query
+    heads (a fixed order, no atomics). Launches on the current stream, no
+    sync."""
+    _check(q, k, v)
+    b, s, h, d = q.shape
+    if q.dtype != torch.float32:
+        raise TypeError(f"flash_attention_bwd is fp32 only; got {q.dtype}")
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != (b, h, s):
+        raise ValueError(f"o {tuple(o.shape)}, do {tuple(do.shape)}, lse {tuple(lse.shape)} "
+                         f"do not match q {tuple(q.shape)}")
+    for t in (o, lse, do):
+        if t.dtype != torch.float32 or t.device != q.device or not t.is_contiguous():
+            raise ValueError("o, lse and do must be contiguous fp32 on q's device")
+    scale = scale if scale is not None else d ** -0.5
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    # each query head's share of dk and dv, which the kernel sums per kv head
+    shares = [torch.empty_like(q) for _ in range(2)] if k.shape[2] < h else [None, None]
+    fn = _bwd_fn()
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                 do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+                 *(None if t is None else t.data_ptr() for t in shares),
+                 b, s, h, k.shape[2], d, float(scale), int(bool(causal)), int(window or 0),
+                 float(softcap or 0.0), torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error {err}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """K1 with K1-bwd as its gradient (fp32 on the card). Saves q, k, v, the
+    output and the log-sum-exp; the backward launches one K1-bwd call."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, window, softcap):
+        out, lse = flash_attention(q, k, v, scale=scale, causal=causal, window=window,
+                                   softcap=softcap, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = dict(scale=scale, causal=causal, window=window, softcap=softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(), **ctx.opts)
+        return dq, dk, dv, None, None, None, None

@@ -9,6 +9,16 @@ heads: the kernels read them unexpanded, and the plain versions expand
 them first. ``scale`` defaults to D**-0.5, as in the JAX package. The
 RG-LRU scan takes an initial state and returns the last one, which the
 Pallas kernel does not, because the model needs both.
+
+Gradients: on the CPU, autograd differentiates the plain versions. On the
+card, K1 in fp32 and K4 run as autograd Functions whose backward is a
+kernel too (K1-bwd, K4-bwd). A kernel with no backward kernel (K1's bf16
+routes, K2, K3) raises NotImplementedError when grad mode is on and an
+input requires a gradient (``needs_grad``), rather than return a tensor
+with no ``grad_fn``, which would leave every parameter upstream of it
+without a gradient and no error. ``flash_attention_bwd_plain`` and
+``rglru_scan_bwd_plain`` are the backward kernels' plain versions, written
+out as formulas, for the tests and ``chip_smoke.py``.
 """
 
 import torch
@@ -17,12 +27,14 @@ from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import rglru_scan as _rglru
 from repro_torch.kernels import ssd_scan as _ssd
-from repro_torch.kernels.ref import attention_ref, decode_attention_ref, rglru_ref
+from repro_torch.kernels.ref import NEG_INF, attention_ref, decode_attention_ref, rglru_ref
 
 KERNELS = {"flash_attention": _flash.flash_attention,
            "decode_attention": _decode.decode_attention,
            "ssd_scan": _ssd.ssd_scan,
-           "rglru_scan": _rglru.rglru_scan}
+           "rglru_scan": _rglru.rglru_scan,
+           "flash_attention_bwd": _flash.flash_attention_bwd,
+           "rglru_scan_bwd": _rglru.rglru_scan_bwd}
 
 
 def launch_counts() -> dict:
@@ -36,6 +48,19 @@ def reset_launch_counts():
         fn.launches = 0
     _flash.flash_attention.launches_by_route = dict.fromkeys(_flash.ROUTES, 0)
     _ssd.ssd_scan.launches_by_route = dict.fromkeys(_ssd.ROUTES, 0)
+
+
+def needs_grad(*ts) -> bool:
+    """Whether autograd would record a call on `ts` (None entries skipped):
+    grad mode is on and some input requires a gradient."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in ts)
+
+
+def _no_backward(what, queue):
+    return NotImplementedError(
+        f"{what} has no backward kernel yet, so it cannot run on the card with an input "
+        f"that requires a gradient (ROADMAP.md queue 1: {queue}); run it under "
+        "torch.no_grad(), or on the CPU, where autograd differentiates its plain version")
 
 
 def _expand_kv(k, n_heads):
@@ -73,8 +98,66 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=None, scale=None)
     if _on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap, scale=scale)
+    if needs_grad(q, k, v):
+        if q.dtype != torch.float32:
+            raise _no_backward(f"K1 in {q.dtype}", "a bf16 K1 backward on wgmma")
+        return _flash.FlashAttention.apply(q, k, v, scale, causal, window, softcap)
     return _flash.flash_attention(q, k, v, scale=scale, causal=causal,
                                   window=window, softcap=softcap)
+
+
+def flash_attention_lse_plain(q, k, *, causal=True, window=0, softcap=None, scale=None):
+    """Each row's log-sum-exp (B,H,S) fp32 of the scaled, capped, masked
+    logits of `flash_attention`: what its CUDA-core route writes for the
+    backward."""
+    b, s, h, d = q.shape
+    scale = scale if scale is not None else d ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), _expand_kv(k, h).float()) * scale
+    if softcap:
+        logits = softcap * torch.tanh(logits / softcap)
+    return torch.logsumexp(torch.where(_mask(s, causal, window, q.device), logits, NEG_INF),
+                           dim=-1)
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal=True, window=0, softcap=None,
+                              scale=None):
+    """Plain PyTorch version of K1-bwd: (dq, dk, dv) of `flash_attention`
+    from its inputs, output o, log-sum-exp lse (B,H,S) and the output's
+    gradient do, by the formulas the kernel computes (fp32):
+    P = exp(t - lse), dT = P (dO.V - Delta) with Delta = dO.O,
+    dX = dT (1 - tanh^2(x / cap)), dq = scale dX K, dk = scale dX^T Q,
+    dv = P^T dO; dk and dv summed over each kv head's query heads."""
+    b, s, h, d = q.shape
+    kh = k.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    qf, dof, of = q.float(), do.float(), o.float()
+    kf, vf = _expand_kv(k, h).float(), _expand_kv(v, h).float()
+    x = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    dxdt = 1.0
+    if softcap:
+        th = torch.tanh(x / softcap)
+        x, dxdt = softcap * th, 1.0 - th * th
+    ok = _mask(s, causal, window, q.device)
+    p = torch.exp(torch.where(ok, x, NEG_INF) - lse[..., None])    # 0 where masked
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    delta = (dof * of).sum(-1).transpose(1, 2)                      # (B,H,S)
+    dx = p * (dp - delta[..., None]) * dxdt
+    dq = torch.einsum("bhqk,bkhd->bqhd", dx, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", dx, qf) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    fold = lambda t: t.reshape(b, s, kh, h // kh, d).sum(3)   # noqa: E731
+    return dq, fold(dk), fold(dv)
+
+
+def _mask(s, causal, window, device):
+    rows = torch.arange(s, device=device)[:, None]
+    cols = torch.arange(s, device=device)[None, :]
+    ok = torch.ones((s, s), dtype=torch.bool, device=device)
+    if causal:
+        ok &= cols <= rows
+    if window:
+        ok &= (rows - cols) < window
+    return ok
 
 
 def decode_attention_plain(q, k, v, lengths, *, scale=None):
@@ -88,6 +171,9 @@ def decode_attention(q, k, v, lengths, *, scale=None):
     """q (B,H,D); k,v (B,S,KH,D) with KH dividing H; lengths (B,)."""
     if _on_cpu(q, k, v, lengths):
         return decode_attention_plain(q, k, v, lengths, scale=scale)
+    if needs_grad(q, k, v):
+        raise _no_backward("K2 (decode attention)", "decode is served under no_grad; "
+                           "no training path decodes")
     return _decode.decode_attention(q, k, v, lengths, scale=scale)
 
 
@@ -152,6 +238,8 @@ def ssd_scan(x, dt, a, b, c, *, chunk=128, h0=None, return_state=False):
     result is the same up to rounding."""
     if _on_cpu(x, dt, a, b, c, *(() if h0 is None else (h0,))):
         y, state = ssd_scan_plain(x, dt, a, b, c, chunk=chunk, h0=h0)
+    elif needs_grad(x, dt, a, b, c, h0):
+        raise _no_backward("K3 (the SSD scan)", "the K3 backward and Mamba2 training")
     else:
         y, state = _ssd.ssd_scan(x, dt, a, b, c, h0=h0, return_state=return_state)
     return (y, state) if return_state else y
@@ -169,4 +257,26 @@ def rglru_scan(a, b, *, h0=None, out_dtype=torch.float32):
     (zeros). Returns (y (B,S,W) in `out_dtype`, h_last (B,W) fp32)."""
     if _on_cpu(a, b, *(() if h0 is None else (h0,))):
         return rglru_scan_plain(a, b, h0=h0, out_dtype=out_dtype)
+    if needs_grad(a, b, h0):
+        return _rglru.RGLRUScan.apply(a, b, h0, out_dtype)
     return _rglru.rglru_scan(a, b, h0=h0, out_dtype=out_dtype)
+
+
+def rglru_scan_bwd_plain(a, y, h0, dy, dh_last):
+    """Plain PyTorch version of K4-bwd: (da, db, dh0) of `rglru_scan` from
+    a, its fp32 h sequence y, h0 (or None: zeros) and the gradients dy and
+    dh_last (or None: zeros), by the reverse recurrence the kernel runs:
+    g_t = dy_t + a_{t+1} g_{t+1} (g_{S-1} = dy_{S-1} + dh_last), db_t = g_t,
+    da_t = g_t h_{t-1}, dh0 = a_0 g_0. dh0 is None when h0 is."""
+    bsz, s, w = a.shape
+    g = torch.zeros((bsz, w), dtype=torch.float32, device=a.device) if dh_last is None \
+        else dh_last.float()
+    a_next = torch.ones_like(g)
+    da, db = torch.empty_like(y), torch.empty_like(y)
+    h_init = torch.zeros_like(g) if h0 is None else h0.float()
+    for t in range(s - 1, -1, -1):
+        g = dy[:, t] + a_next * g
+        db[:, t] = g
+        da[:, t] = g * (y[:, t - 1] if t else h_init)
+        a_next = a[:, t]
+    return da, db, (None if h0 is None else a_next * g)

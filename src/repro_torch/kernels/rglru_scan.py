@@ -5,6 +5,11 @@ is ``csrc/rglru_scan.cu``, a chunked scan over S: a CTA a strip of lanes of
 one batch row, walking S in tiles of chunks (``plan`` reads the plan from
 the built kernel). Its plain PyTorch version is ``ops.rglru_scan_plain``,
 which ``ops.rglru_scan`` takes for CPU tensors.
+
+The gradient (K4-bwd) is ``csrc/rglru_scan_bwd.cu``, the recurrence run in
+reverse, which reads the forward's h in fp32. ``RGLRUScan`` is the autograd
+Function that pairs the two: it asks the forward for an fp32 y whatever
+the output dtype, keeps it, and casts the output.
 """
 
 import ctypes
@@ -91,3 +96,68 @@ def rglru_scan(a, b, *, h0=None, out_dtype=torch.float32):
 
 
 rglru_scan.launches = 0
+
+
+@functools.cache
+def _bwd_fn():
+    """The backward's C entry point, built, loaded and typed once per process."""
+    fn = build.load("rglru_scan_bwd").rglru_scan_bwd
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def rglru_scan_bwd(a, y, h0, dy, dh_last):
+    """K4-bwd: (da, db, dh0) of ``rglru_scan`` given a, its fp32 output y
+    (the h sequence), h0 (or None: zeros), and the gradients dy (B,S,W) and
+    dh_last (B,W) (or None: zeros). All fp32, contiguous, on one CUDA
+    device. dh0 is None when h0 is. Launches on the current stream, no
+    sync."""
+    if a.dim() != 3 or y.shape != a.shape or dy.shape != a.shape:
+        raise ValueError(f"want a = y = dy (B,S,W); got {tuple(a.shape)}, {tuple(y.shape)}, "
+                         f"{tuple(dy.shape)}")
+    bsz, s, w = a.shape
+    ins = (a, y, dy) + tuple(t for t in (h0, dh_last) if t is not None)
+    if any(t.shape != (bsz, w) for t in (h0, dh_last) if t is not None):
+        raise ValueError(f"h0 and dh_last must be (B,W) = {(bsz, w)}")
+    if any(t.dtype != torch.float32 for t in ins):
+        raise TypeError(f"rglru_scan_bwd is fp32 only; got {[t.dtype for t in ins]}")
+    if not (a.is_cuda and all(t.device == a.device for t in ins)):
+        raise ValueError("rglru_scan_bwd kernel needs every input on one CUDA device")
+    if not all(t.is_contiguous() for t in ins):
+        raise ValueError("rglru_scan_bwd kernel needs contiguous inputs")
+    if min(a.shape) == 0:
+        raise ValueError(f"empty input {tuple(a.shape)}")
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    dh0 = None if h0 is None else torch.empty_like(h0)
+    ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
+    with torch.cuda.device(a.device):
+        err = _bwd_fn()(a.data_ptr(), y.data_ptr(), ptr(h0), dy.data_ptr(), ptr(dh_last),
+                        da.data_ptr(), db.data_ptr(), ptr(dh0), bsz, s, w,
+                        torch.cuda.current_stream(a.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"rglru_scan_bwd launch failed: CUDA error {err}")
+    rglru_scan_bwd.launches += 1
+    return da, db, dh0
+
+
+rglru_scan_bwd.launches = 0
+
+
+class RGLRUScan(torch.autograd.Function):
+    """K4 with K4-bwd as its gradient. The forward keeps its fp32 h sequence
+    (the backward's h_{t-1}) and returns it cast to `out_dtype`."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0, out_dtype):
+        y, h_last = rglru_scan(a, b, h0=h0, out_dtype=torch.float32)
+        ctx.save_for_backward(a, y, h0)
+        return y.to(out_dtype), h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        a, y, h0 = ctx.saved_tensors
+        dy = torch.zeros_like(y) if dy is None else dy.float().contiguous()
+        dh_last = None if dh_last is None else dh_last.contiguous()
+        da, db, dh0 = rglru_scan_bwd(a, y, h0, dy, dh_last)
+        return da, db, dh0, None

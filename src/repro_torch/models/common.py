@@ -1,9 +1,10 @@
-"""Shared model scaffolding: bundles, outputs and the value head."""
+"""Shared model scaffolding: bundles, outputs, the value head and remat."""
 
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.nn import init as inits
@@ -20,6 +21,27 @@ class ValueHead(nn.Module):
                               requires_grad=False)
         self.b = nn.Parameter(inits.zeros(gen, (1,), dtype, device),
                               requires_grad=False)
+
+
+def maybe_remat(fn, remat: str):
+    """`fn` (one layer) under the config's remat policy, as the reference's
+    ``maybe_remat``: "none" keeps every activation; "full" saves only the
+    layer's inputs and recomputes the rest in the backward
+    (``torch.utils.checkpoint``, non-reentrant), when grad mode is on.
+    The models apply it in train mode (``forward``) only."""
+    if remat == "none":
+        return fn
+    if remat == "dots":
+        raise NotImplementedError("remat='dots' (save only the matmuls' outputs) is not "
+                                  "ported: no config uses it")
+    if remat != "full":
+        raise ValueError(f"unknown remat policy {remat!r}")
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return run
 
 
 def value_head(p, x):

@@ -8,11 +8,14 @@ gemma and starcoder2 options) raises NotImplementedError until its slice
 lands.
 """
 
+import functools
+
 import torch
 from torch import nn
 
 from repro_torch.device import dtype_of, resolve
-from repro_torch.models.common import ModelBundle, ValueHead, as_tokens, lm_outputs
+from repro_torch.models.common import (ModelBundle, ValueHead, as_tokens, lm_outputs,
+                                      maybe_remat)
 from repro_torch.nn.attention import (Attention, attention, decode_attention,
                                       make_cache)
 from repro_torch.nn.embed import Embed, embed
@@ -87,9 +90,10 @@ def _block(cfg, p, x, positions, cache=None, decode=False, index=None):
 def _run_blocks(cfg, params, x, positions, caches=None, mode="train"):
     decode = mode == "decode"
     index = caches["index"] if decode else None
+    block = maybe_remat(functools.partial(_block, cfg), cfg.remat if mode == "train" else "none")
     for i, p in enumerate(params.blocks):
         c = None if caches is None else caches["layers"][i]
-        x, _ = _block(cfg, p, x, positions, cache=c, decode=decode, index=index)
+        x, _ = block(p, x, positions, c, decode, index)
     return x
 
 

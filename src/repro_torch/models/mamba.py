@@ -8,11 +8,14 @@ place of the JAX package's ``lax.scan`` over stacked parameters
 with the sequence and ``max_len`` is accepted and ignored.
 """
 
+import functools
+
 import torch
 from torch import nn
 
 from repro_torch.device import dtype_of, resolve
-from repro_torch.models.common import ModelBundle, ValueHead, as_tokens, lm_outputs
+from repro_torch.models.common import (ModelBundle, ValueHead, as_tokens, lm_outputs,
+                                      maybe_remat)
 from repro_torch.nn.embed import Embed, embed
 from repro_torch.nn.norms import Norm, apply_norm
 from repro_torch.nn.ssd import SSD, ssd_layer, ssd_state_init
@@ -51,23 +54,28 @@ class Mamba(nn.Module):
         return self.embed.table.device
 
 
-def _run(cfg, params, x, states=None, decode=False):
+def _layer(cfg, p, x, state, conv_state, decode):
+    y, st = ssd_layer(cfg, p.ssd, apply_norm(p.norm, x, cfg.norm_eps), state=state,
+                      conv_state=conv_state, decode=decode)
+    return x + y, st
+
+
+def _run(cfg, params, x, states=None, decode=False, remat="none"):
     """The block stack. Returns (x, the new (ssm_state, conv_state) of each
     layer); without `states`, prefill starts from zeros and keeps no conv
     state."""
+    layer = maybe_remat(functools.partial(_layer, cfg), remat)
     new_states = []
     for i, p in enumerate(params.blocks):
         state, conv_state = (None, None) if states is None else states[i]
-        y, st = ssd_layer(cfg, p.ssd, apply_norm(p.norm, x, cfg.norm_eps), state=state,
-                          conv_state=conv_state, decode=decode)
+        x, st = layer(p, x, state, conv_state, decode)
         new_states.append(st)
-        x = x + y
     return x, new_states
 
 
 def mamba_forward(cfg, params, batch):
     x = embed(cfg, params.embed, as_tokens(params, batch["tokens"]))
-    x, _ = _run(cfg, params, x)
+    x, _ = _run(cfg, params, x, remat=cfg.remat)
     return lm_outputs(cfg, params, x)
 
 

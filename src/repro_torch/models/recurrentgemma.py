@@ -10,11 +10,14 @@ cache of min(max_len, local_window) slots, so the state does not grow past
 the window.
 """
 
+import functools
+
 import torch
 from torch import nn
 
 from repro_torch.device import dtype_of, resolve
-from repro_torch.models.common import ModelBundle, ValueHead, as_tokens, lm_outputs
+from repro_torch.models.common import (ModelBundle, ValueHead, as_tokens, lm_outputs,
+                                      maybe_remat)
 from repro_torch.nn.attention import Attention, attention, decode_attention, make_cache
 from repro_torch.nn.embed import Embed, embed
 from repro_torch.nn.mlp import MLP, mlp
@@ -83,20 +86,21 @@ def _layer(cfg, p, kind, x, positions, state, decode, index):
     return x + mlp(p.mlp, h, cfg.act), new_state
 
 
-def _run(cfg, params, x, positions, caches=None, decode=False):
+def _run(cfg, params, x, positions, caches=None, decode=False, remat="none"):
     """The layer stack. Returns (x, the new state of each layer or None)."""
     index = caches["index"] if decode else None
+    layer = maybe_remat(functools.partial(_layer, cfg), remat)
     new_states = []
     for i, (kind, p) in enumerate(zip(layer_kinds(cfg), params.blocks)):
         st = None if caches is None else caches["layers"][i]
-        x, ns = _layer(cfg, p, kind, x, positions, st, decode, index)
+        x, ns = layer(p, kind, x, positions, st, decode, index)
         new_states.append(ns)
     return x, (None if caches is None else new_states)
 
 
 def rg_forward(cfg, params, batch):
     x = embed(cfg, params.embed, as_tokens(params, batch["tokens"]), cfg.embed_scale)
-    x, _ = _run(cfg, params, x, torch.arange(x.shape[1], device=x.device))
+    x, _ = _run(cfg, params, x, torch.arange(x.shape[1], device=x.device), remat=cfg.remat)
     return lm_outputs(cfg, params, x)
 
 

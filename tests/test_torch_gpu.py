@@ -227,7 +227,8 @@ def test_lm_on_card_matches_cpu(cuda):
     got = greedy_generate(bundle, gpu, {"tokens": tokens.to(cuda)}, 10, 64, torch.float32)
     assert ops.launch_counts() == {"flash_attention": cfg.num_layers,
                                    "decode_attention": cfg.num_layers * 9, "ssd_scan": 0,
-                                   "rglru_scan": 0}
+                                   "rglru_scan": 0, "flash_attention_bwd": 0,
+                                   "rglru_scan_bwd": 0}
     torch.testing.assert_close(got.cpu(), want)
 
 
@@ -294,7 +295,8 @@ def test_mamba_on_card_matches_cpu(cuda):
     ops.reset_launch_counts()
     got = greedy_generate(bundle, gpu, {"tokens": tokens.to(cuda)}, 10, None, torch.float32)
     assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0,
-                                   "ssd_scan": cfg.num_layers, "rglru_scan": 0}
+                                   "ssd_scan": cfg.num_layers, "rglru_scan": 0,
+                                   "flash_attention_bwd": 0, "rglru_scan_bwd": 0}
     torch.testing.assert_close(got.cpu(), want)
 
 
@@ -318,5 +320,137 @@ def test_recurrentgemma_on_card_matches_cpu(cuda):
     n_rec = layer_kinds(cfg).count("rglru")
     n_att = cfg.num_layers - n_rec
     assert ops.launch_counts() == {"flash_attention": n_att, "decode_attention": n_att * 9,
-                                   "ssd_scan": 0, "rglru_scan": n_rec}
+                                   "ssd_scan": 0, "rglru_scan": n_rec,
+                                   "flash_attention_bwd": 0, "rglru_scan_bwd": 0}
     torch.testing.assert_close(got.cpu(), want)
+
+
+# ---- the backward kernels (K1-bwd, K4-bwd) and the training path ----------
+
+GRAD_TOL = 1e-4   # of the largest |gradient| of a tensor, and relative
+
+
+def _close_grad(got, want):
+    """Gradients agree within GRAD_TOL of the tensor's largest |value|: dK
+    and dV each sum up to S * H / KH products, K4-bwd a chain of S FMAs, in
+    another order than the plain versions take."""
+    scale = max(float(want.abs().max()), 1e-30)
+    torch.testing.assert_close(got, want, atol=GRAD_TOL * scale, rtol=GRAD_TOL)
+
+
+@pytest.mark.parametrize("b,s,h,kh,d,kw", [
+    (4, 256, 10, 1, 256, {"window": 2048}),     # RecurrentGemma's training call
+    (2, 200, 5, 1, 128, {}),                      # qwen3's 5 query heads a kv head, ragged S
+    (2, 150, 4, 1, 16, {"window": 32}),           # RecurrentGemma reduced config
+    (2, 77, 4, 2, 64, {"softcap": 30.0}),
+    (2, 300, 10, 1, 256, {"window": 100}),        # window < S
+    (1, 40, 4, 4, 16, {"causal": False}),
+])
+def test_flash_attention_backward_kernel(cuda, b, s, h, kh, d, kw):
+    """K1 in fp32 under autograd: its forward writes each row's log-sum-exp,
+    and K1-bwd's dq, dk, dv match the plain backward's formulas and
+    autograd of the plain forward; one launch of each a call."""
+    from repro_torch.kernels import flash_attention as tflash
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q = _rand(gen, (b, s, h, d), torch.float32, cuda).requires_grad_()
+    k, v = (_rand(gen, (b, s, kh, d), torch.float32, cuda).requires_grad_() for _ in range(2))
+    do = _rand(gen, (b, s, h, d), torch.float32, cuda)
+    kw = {"causal": True, **kw}
+    ops.reset_launch_counts()
+    out = ops.flash_attention(q, k, v, **kw)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 1 and counts["flash_attention_bwd"] == 1
+    o, lse = tflash.flash_attention(q.detach(), k.detach(), v.detach(), return_lse=True, **kw)
+    torch.testing.assert_close(lse, ops.flash_attention_lse_plain(q.detach(), k.detach(), **kw),
+                               atol=2e-5, rtol=2e-5)
+    plain = ops.flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(), o, lse, do, **kw)
+    auto = torch.autograd.grad(ops.flash_attention_plain(q, k, v, **kw), (q, k, v), do)
+    for g, p, a in zip(got, plain, auto):
+        _close_grad(g, p)
+        _close_grad(g, a)
+
+
+@pytest.mark.parametrize("b,s,w,out_dtype,with_h0", [
+    (4, 256, 2560, torch.float32, False),      # RecurrentGemma's training call
+    (2, 300, 37, torch.float32, True),
+    (1, 5, 100, torch.bfloat16, True),
+    (3, 1, 64, torch.float32, True),
+])
+def test_rglru_scan_backward_kernel(cuda, b, s, w, out_dtype, with_h0):
+    """K4 under autograd keeps its fp32 h and K4-bwd's da, db, dh0 match the
+    plain reverse recurrence and autograd of the plain forward."""
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    a = torch.sigmoid(_rand(gen, (b, s, w), torch.float32, cuda) + 2.0).requires_grad_()
+    bb = (_rand(gen, (b, s, w), torch.float32, cuda) * 0.1).requires_grad_()
+    h0 = _rand(gen, (b, w), torch.float32, cuda).requires_grad_() if with_h0 else None
+    dy = _rand(gen, (b, s, w), torch.float32, cuda)
+    dh = _rand(gen, (b, w), torch.float32, cuda)
+    ins = (a, bb) + ((h0,) if with_h0 else ())
+    ops.reset_launch_counts()
+    y, h_last = ops.rglru_scan(a, bb, h0=h0, out_dtype=out_dtype)
+    assert y.dtype == out_dtype
+    got = torch.autograd.grad((y.float() * dy).sum() + (h_last * dh).sum(), ins)
+    counts = ops.launch_counts()
+    assert counts["rglru_scan"] == 1 and counts["rglru_scan_bwd"] == 1
+    yp, _ = ops.rglru_scan_plain(a.detach(), bb.detach(),
+                                 h0=None if h0 is None else h0.detach())
+    plain = ops.rglru_scan_bwd_plain(a.detach(), yp, None if h0 is None else h0.detach(),
+                                     dy if out_dtype == torch.float32 else dy.bfloat16().float(),
+                                     dh)
+    y2, h2 = ops.rglru_scan_plain(a, bb, h0=h0)
+    auto = torch.autograd.grad((y2.to(out_dtype).float() * dy).sum() + (h2 * dh).sum(), ins)
+    for g, p, q in zip(got, plain, auto):
+        _close_grad(g, p)
+        _close_grad(g, q)
+
+
+def test_kernels_without_a_backward_refuse_grad(cuda):
+    """K1's bf16 route, K2 and K3 raise under autograd on the card rather
+    than return a tensor with no grad_fn; under no_grad they run."""
+    q = torch.randn(1, 64, 2, 64, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="bf16 K1 backward"):
+        ops.flash_attention(q, q, q)
+    with torch.no_grad():
+        assert ops.flash_attention(q, q, q).grad_fn is None
+    kv = torch.randn(1, 32, 2, 64, device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="K2"):
+        ops.decode_attention(kv[:, 0], kv, kv, torch.ones(1, dtype=torch.int32, device=cuda))
+    x = torch.randn(1, 16, 2, 16, device=cuda, requires_grad=True)
+    dt = torch.rand(1, 16, 2, device=cuda)
+    bm = torch.randn(1, 16, 1, 16, device=cuda)
+    with pytest.raises(NotImplementedError, match="K3 backward"):
+        ops.ssd_scan(x, dt, -torch.ones(2, device=cuda), bm, bm)
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One V-trace AdamW step of the recurrentgemma smoke config through K1,
+    K1-bwd, K4 and K4-bwd on the card: loss and grad_norm within 1e-4 of
+    the CPU's (the plain versions under autograd), params within lr * 1e-2
+    (AdamW's first step moves each by at most lr)."""
+    from repro_torch.core.losses import init_train_state, make_train_step
+    from repro_torch.envs.tokenworld import synthetic_vtrace_batch
+    from repro_torch.optim import adamw
+    from repro_torch.models.recurrentgemma import layer_kinds
+    cfg = smoke_config("recurrentgemma-2b")
+    bundle = make_model(cfg)
+    lr = 1e-3
+    opt = adamw(lr)
+    step = make_train_step(bundle, opt)
+    cpu = init_train_state(bundle, opt, seed=0, device="cpu")
+    gpu = init_train_state(bundle, opt, seed=0, device=cuda)
+    gpu["params"].load_state_dict(cpu["params"].state_dict())
+    batch = synthetic_vtrace_batch(torch.Generator().manual_seed(3), 2, 48, cfg.vocab_size)
+    cpu, m_cpu = step(cpu, batch)
+    ops.reset_launch_counts()
+    gpu, m_gpu = step(gpu, {k: t.to(cuda) for k, t in batch.items()})
+    n_rec = layer_kinds(cfg).count("rglru")
+    n_att = cfg.num_layers - n_rec
+    assert ops.launch_counts() == {"flash_attention": n_att, "decode_attention": 0,
+                                   "ssd_scan": 0, "rglru_scan": n_rec,
+                                   "flash_attention_bwd": n_att, "rglru_scan_bwd": n_rec}
+    for key in ("loss", "grad_norm"):
+        torch.testing.assert_close(m_gpu[key].cpu(), m_cpu[key], atol=1e-4, rtol=1e-4)
+    want = cpu["params"].state_dict()
+    for name, p in gpu["params"].state_dict().items():
+        torch.testing.assert_close(p.cpu(), want[name], atol=lr * 1e-2, rtol=0)

@@ -31,7 +31,10 @@ def test_importing_every_module_loads_no_jax():
             "repro_torch.models.mamba", "repro_torch.configs.mamba2_2_7b",
             "repro_torch.kernels.rglru_scan", "repro_torch.nn.rglru",
             "repro_torch.models.recurrentgemma",
-            "repro_torch.configs.recurrentgemma_2b"} <= set(mods)
+            "repro_torch.configs.recurrentgemma_2b", "repro_torch.launch.train",
+            "repro_torch.core.losses", "repro_torch.core.vtrace", "repro_torch.optim.adamw",
+            "repro_torch.checkpoint.ckpt", "repro_torch.fault.supervisor",
+            "repro_torch.data.pipeline"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
