@@ -59,10 +59,15 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    failure injected at step 3 and ends at step 6.
 
 The kernel phase (3) also holds K1-bwd and K4-bwd to their plain versions
-(the formulas each kernel computes) at the train call, the smoke widths
-and D 128 with 5 query heads a kv head, and times them against their
-bounds (K1-bwd also against SDPA's fp32 backward: forward and backward,
-less forward).
+(the formulas each kernel computes) at the train call, the smoke widths,
+D 128 with 5 query heads a kv head, and the edges of their tiles (K1-bwd:
+S 33, 65 and 300 against its 32-row tiles, a window ending inside a key
+tile, D 16; K4-bwd: S over many of its tiles, S 1, W 37, B 1), each case
+logging its route or plan, and times them against their bounds: K1-bwd
+(3xTF32 on the tensor cores) against SDPA's fp32 backward (forward and
+backward, less forward), split by kernel, with its registers and spills;
+K4-bwd warm and cold in L2 with its plan. K1's fp32 forward is timed at
+the train call too, beside SDPA's fp32 forward.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or run from a directory
@@ -84,8 +89,10 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 # H100 SXM published peaks (dense): bf16 tensor cores, fp32 CUDA cores, and
-# HBM3 bandwidth. Bounds are stated against these.
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# HBM3 bandwidth. Bounds are stated against these. "tf32x3" is an fp32
+# product on the tensor cores as three TF32 products (495 TFLOP/s dense),
+# K1-bwd's arithmetic: a third of the TF32 rate in fp32 flops.
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3}
 PEAK_BYTES = 3.35e12
 
 CLIENTS, TOKENS = 4, 16
@@ -101,6 +108,8 @@ RG = dict(h=10, kh=1, d=256, window=2048)
 # calls at batch 4 x seq 256
 TRAIN = dict(arch="recurrentgemma-2b", batch=4, seq=256, steps=3)
 GRAD_TOL = 1e-4   # of a gradient tensor's max |value|, and relative
+# K1-bwd's one route: every head_dim on the tensor cores, 3xTF32 mma.sync
+K1_BWD_ROUTE = "tensor cores, 3xTF32 mma.sync"
 
 
 def log(msg):
@@ -512,13 +521,8 @@ def kernel_phase(k4_ptxas, bwd_ptxas):
     a, bb = sets[0]
     h0 = torch.zeros(gb, gw, device=dev)
     ms = time_ms("K4", lambda: K4.rglru_scan(a, bb, h0=h0, out_dtype=torch.bfloat16))
-    kept, turn = [None] * len(sets), [0]
-
-    def cold_call():
-        i = turn[0] % len(sets)
-        turn[0] += 1
-        kept[i] = K4.rglru_scan(*sets[i], h0=h0, out_dtype=torch.bfloat16)
-    cold_ms = time_ms("K4 cold", cold_call, iters=32)
+    cold_ms = time_ms("K4 cold", rotating_kept(
+        lambda a_, b_: K4.rglru_scan(a_, b_, h0=h0, out_dtype=torch.bfloat16), sets), iters=32)
     plain_ms = time_ms("K4 plain", lambda: ops.rglru_scan_plain(
         a, bb, h0=h0, out_dtype=torch.bfloat16), iters=3, warmup=1)
     nbytes = 4 * (a.numel() + bb.numel()) + 2 * a.numel() + 2 * 4 * h0.numel()
@@ -545,10 +549,10 @@ def kernel_phase(k4_ptxas, bwd_ptxas):
         f"(no PyTorch call computes a linear recurrence) bound_ms "
         f"{rows['rglru_scan']['bound_ms']:.4f} ({rows['rglru_scan']['bound_by']}, "
         f"{nbytes / 1e6:.1f} MB)")
-    del sets, kept
+    del sets
 
     # ---- K1-bwd ----
-    log("== kernels: K1-bwd flash attention backward (fp32, CUDA cores)")
+    log("== kernels: K1-bwd flash attention backward (fp32, 3xTF32 on the tensor cores)")
     # the gradients sum up to S * H / KH products in another order than the
     # plain version's einsums: held to GRAD_TOL of each tensor's max |value|
     tb, ts = TRAIN["batch"], TRAIN["seq"]
@@ -558,7 +562,14 @@ def kernel_phase(k4_ptxas, bwd_ptxas):
              ((2, 77, 4, 2, 64), {"softcap": 30.0}),
              ((1, 40, 4, 4, 16), {"causal": False}),
              ((2, 48, 4, 2, 16), {}),                  # qwen3 reduced config
-             ((2, 150, 4, 1, 16), {"window": 32})]     # RecurrentGemma reduced config
+             ((2, 150, 4, 1, 16), {"window": 32}),     # RecurrentGemma reduced config
+             # the edges of its 32-row by 32-key tiles: one past a tile, one
+             # past two, ragged over ten; a window ending inside a key tile; D 16
+             ((2, 33, 4, 2, 64), {}),
+             ((1, 65, 10, 1, 256), {"window": 20}),
+             ((2, 300, 4, 1, 128), {"window": 45}),
+             ((2, 65, 4, 2, 16), {"window": 7}),
+             ((1, 33, 2, 1, 16), {"causal": False, "softcap": 5.0})]
     main_err = None
     for (cb, cs, ch, ckh, cd), kw in cases:
         q = rand(cb, cs, ch, cd, dtype=torch.float32)
@@ -572,7 +583,7 @@ def kernel_phase(k4_ptxas, bwd_ptxas):
         lse_want = ops.flash_attention_lse_plain(q, k, **kw)
         torch.cuda.synchronize()
         shown = {k_: v_ for k_, v_ in kw.items() if k_ != "scale"}
-        name = f"K1-bwd {(cb, cs, ch, ckh, cd)} {shown}"
+        name = f"K1-bwd {(cb, cs, ch, ckh, cd)} {shown} [{K1_BWD_ROUTE}]"
         check_close(f"{name} lse", lse, lse_want, tol[torch.float32])
         errs = [check_close(f"{name} {g}", x, w, GRAD_TOL,
                             GRAD_TOL * max(float(w.abs().max()), 1e-30))
@@ -600,28 +611,48 @@ def kernel_phase(k4_ptxas, bwd_ptxas):
     lib_fwd = time_ms("SDPA fp32 forward", sdpa, iters=10)
     lib_both = time_ms("SDPA fp32 forward and backward", lambda: torch.autograd.grad(
         sdpa(), (qt, kt, vt), dot), iters=10)
+    pairs = int(mask.sum())
+    # K1's own fp32 call in training (CUDA-core route, writing the
+    # log-sum-exp), beside SDPA's fp32 forward on the same inputs
+    fwd_ms = time_ms("K1 fp32 train call", lambda: K1.flash_attention(
+        q, k, v, scale=sc, return_lse=True, **kw))
+    fwd_plain = time_ms("K1 fp32 plain", lambda: ops.flash_attention_plain(
+        q, k, v, scale=sc, **kw), iters=5, warmup=1)
+    fwd_bound = bound(4 * cd * pairs * cb * ch,
+                      4 * (2 * cb * cs * ch * cd + 2 * cb * cs * ckh * cd + cb * ch * cs),
+                      "float32")
+    rows["flash_attention"]["train_call"] = dict(
+        ms=fwd_ms, plain_ms=fwd_plain, library_ms=lib_fwd, **fwd_bound,
+        variant=K1.route(torch.float32, cd))
+    log(f"   K1 at ({cb},{cs},{ch},{ckh},{cd}) fp32, window {kw['window']}, with its "
+        f"log-sum-exp (the train call) [{K1.route(torch.float32, cd)}]: kernel_ms {fwd_ms:.4f} "
+        f"plain_ms {fwd_plain:.4f} library_ms {lib_fwd:.4f} (SDPA fp32 forward, boolean mask) "
+        f"bound_ms {fwd_bound['bound_ms']:.4f} ({fwd_bound['bound_by']}, fp32 CUDA cores)")
     k1_passes = kernel_spans(
         lambda: K1.flash_attention_bwd(q, k, v, o, lse, do, scale=sc, **kw),
         ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_reduce", "flash_bwd_dq"))
-    pairs = int(mask.sum())
     flops = 10 * cd * pairs * cb * ch                 # five products over the kept pairs
     nbytes = 4 * (4 * cb * cs * ch * cd + 4 * cb * cs * ckh * cd + cb * ch * cs)
+    cuda_core_bound = bound(flops, nbytes, "float32")
     rows["flash_attention_bwd"] = dict(
-        name="flash_attention_bwd", route="cuda", variant="cuda_cores",
+        name="flash_attention_bwd", route="cuda", variant=K1_BWD_ROUTE,
         source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         replaces="src/repro/kernels/flash_attention.py:63",
         max_abs_err=main_err, ms=ms, plain_ms=plain_ms, library_ms=lib_both - lib_fwd,
         library_fwd_and_bwd_ms=lib_both, library_fwd_ms=lib_fwd,
-        kernel_split_ms=k1_passes,
-        **bound(flops, nbytes, "float32"), tflops=flops / ms / 1e9, **bwd_ptxas["k1"])
+        kernel_split_ms=k1_passes, **bound(flops, nbytes, "tf32x3"),
+        bound_fp32_cuda_cores_ms=cuda_core_bound["bound_ms"], tflops=flops / ms / 1e9,
+        **bwd_ptxas["k1"])
     r = rows["flash_attention_bwd"]
     log(f"   K1-bwd at ({cb},{cs},{ch},{ckh},{cd}) fp32, window {kw['window']} (the train call; "
+        f"[{K1_BWD_ROUTE}]; "
         f"{' '.join(f'{k_} {v_}' for k_, v_ in bwd_ptxas['k1'].items())}): kernel_ms "
         f"{ms:.4f} ({r['tflops']:.2f} TFLOP/s) plain_ms {plain_ms:.4f} library_ms "
         f"{r['library_ms']:.4f} (SDPA fp32 with a boolean mask: forward and backward "
         f"{lib_both:.4f} less forward {lib_fwd:.4f}) bound_ms {r['bound_ms']:.4f} "
-        f"({r['bound_by']}, {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); device ms a call "
-        f"by kernel (profiler): " + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in k1_passes.items()))
+        f"({r['bound_by']} at the 3xTF32 rate; {cuda_core_bound['bound_ms']:.4f} on the fp32 "
+        f"CUDA cores; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); device ms a call by "
+        f"kernel (profiler): " + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in k1_passes.items()))
     del qt, kt, vt
 
     # ---- K4-bwd ----
@@ -631,8 +662,13 @@ def kernel_phase(k4_ptxas, bwd_ptxas):
     gw = 2560
     cases = [((tb, ts, gw), False, False),    # the train call: no h0, h_last unused
              ((tb, ts, gw), True, True),
-             ((1, 2049, 96), True, True),      # ragged S, B 1
-             ((3, 1, 37), True, False),        # S 1, W 37
+             ((2, 4096, 256), True, True),     # S over 64 tiles
+             ((1, 2049, 96), True, True),      # ragged S over 33 tiles, B 1
+             ((1, 2049, 96), False, False),
+             ((3, 1, 37), True, False),        # S 1, W 37: a strip and 5 lanes
+             ((1, 1, 37), False, True),
+             ((1, 5, 37), True, True),         # S under one chunk, B 1
+             ((2, 300, 20), False, True),      # W under one strip
              ((2, 37, 200), False, True),
              ((2, 48, 64), False, False)]      # the reduced config
     main_err = None
@@ -644,32 +680,63 @@ def kernel_phase(k4_ptxas, bwd_ptxas):
         got = K4.rglru_scan_bwd(a, y, h0, dy, dh)
         want = ops.rglru_scan_bwd_plain(a, y, h0, dy, dh)
         torch.cuda.synchronize()
-        name = f"K4-bwd {(cb, cs, cw)} h0={with_h0} dh_last={with_dh}"
+        bp = K4.bwd_plan(cb, cs, cw)
+        name = (f"K4-bwd {(cb, cs, cw)} h0={with_h0} dh_last={with_dh} "
+                f"[{bp['tiles']} tiles, {bp['ctas']} CTAs]")
         errs = [check_close(f"{name} {g}", x, w, 1e-5, 1e-5 * max(float(w.abs().max()), 1e-30))
                 for g, x, w in zip(("da", "db", "dh0"), got, want) if w is not None]
         if (got[2] is None) != (h0 is None):
             raise AssertionError(f"{name}: dh0 given without h0, or missing with it")
         main_err = max(errs) if main_err is None else main_err
-    a, bb, _ = rglru_inputs(tb, ts, gw, False)
-    y, _ = K4.rglru_scan(a, bb)
-    dy = rand(tb, ts, gw, dtype=torch.float32)
+    # timing at the train call: warm (one set of inputs, 52.4 MB against the
+    # 50 MB L2) and cold (four sets of a, y and dy in rotation; the last
+    # four outputs are kept)
+    sets = []
+    for _ in range(4):
+        a, bb, _ = rglru_inputs(tb, ts, gw, False)
+        sets.append((a, K4.rglru_scan(a, bb)[0], rand(tb, ts, gw, dtype=torch.float32)))
+    a, y, dy = sets[0]
     ms = time_ms("K4-bwd", lambda: K4.rglru_scan_bwd(a, y, None, dy, None))
+    cold_ms = time_ms("K4-bwd cold", rotating_kept(
+        lambda a_, y_, dy_: K4.rglru_scan_bwd(a_, y_, None, dy_, None), sets), iters=32)
     plain_ms = time_ms("K4-bwd plain", lambda: ops.rglru_scan_bwd_plain(a, y, None, dy, None),
                        iters=3, warmup=1)
     nbytes = 4 * 5 * a.numel()                   # a, y, dy read; da, db written
+    p = K4.bwd_plan(tb, ts, gw)
+    waves = p["ctas"] / (p["ctas_per_sm"] * sms)
     rows["rglru_scan_bwd"] = dict(
         name="rglru_scan_bwd", route="cuda",
         source="src/repro_torch/kernels/csrc/rglru_scan_bwd.cu",
         replaces="src/repro/kernels/rglru_scan.py:39", max_abs_err=main_err, ms=ms,
         plain_ms=plain_ms, library_ms=None, **bound(3 * a.numel(), nbytes, "float32"),
-        tbps=nbytes / ms / 1e9, **bwd_ptxas["k4"])
+        tbps=nbytes / ms / 1e9, cold_ms=cold_ms, cold_tbps=nbytes / cold_ms / 1e9,
+        **{k_: p[k_] for k_ in ("lw", "t", "nc", "ctas", "ctas_per_sm")}, waves=waves,
+        **bwd_ptxas["k4"])
     r = rows["rglru_scan_bwd"]
-    log(f"   K4-bwd at ({tb},{ts},{gw}) fp32, no h0, no dh_last (the train call; "
-        f"{' '.join(f'{k_} {v_}' for k_, v_ in bwd_ptxas['k4'].items())}): kernel_ms {ms:.4f} "
-        f"({r['tbps']:.3f} TB/s) plain_ms {plain_ms:.4f} library_ms none (no PyTorch call "
-        f"computes a linear recurrence's gradient) bound_ms {r['bound_ms']:.4f} "
-        f"({r['bound_by']}, {nbytes / 1e6:.1f} MB)")
+    log(f"   K4-bwd at ({tb},{ts},{gw}) fp32, no h0, no dh_last (the train call) [plan: LW "
+        f"{p['lw']}, T {p['t']}, NC {p['nc']}, {p['tiles']} tiles of {p['t'] * p['nc']} steps, "
+        f"{p['ctas']} CTAs of {p['lw'] * p['nc']} threads, {p['ctas_per_sm']} an SM, "
+        f"{waves:.2f} waves on {sms} SMs; "
+        f"{' '.join(f'{k_} {v_}' for k_, v_ in bwd_ptxas['k4'].items())}]: kernel_ms {ms:.4f} "
+        f"({r['tbps']:.3f} TB/s), cold in L2 {cold_ms:.4f} ({r['cold_tbps']:.3f} TB/s), "
+        f"plain_ms {plain_ms:.4f} library_ms none (no PyTorch call computes a linear "
+        f"recurrence's gradient) bound_ms {r['bound_ms']:.4f} ({r['bound_by']}, "
+        f"{nbytes / 1e6:.1f} MB)")
+    del sets
     return rows
+
+
+def rotating_kept(fn, sets):
+    """A call of fn on each set of inputs in turn that keeps the last
+    len(sets) outputs alive, so that a timing finds inputs and outputs
+    cold in L2 when the sets together exceed it."""
+    kept, turn = [None] * len(sets), [0]
+
+    def call():
+        i = turn[0] % len(sets)
+        turn[0] += 1
+        kept[i] = fn(*sets[i])
+    return call
 
 
 def kernel_spans(call, names, n=8):
@@ -859,9 +926,8 @@ def union_ms(spans):
 def device_breakdown(prof, n):
     """Device time per call from a profiler trace, grouped: the port's
     kernels (K1 and K3 either route, K2 its split and combine passes, K1-bwd
-    its three kernels), GEMMs
-    (cuBLAS / CUTLASS), and everything else; and the number of device
-    kernels per call. A group's time, and "busy" over all of them, count
+    its four kernels), GEMMs (cuBLAS / CUTLASS), and everything else; and
+    the number of device kernels per call. A group's time, and "busy" over all of them, count
     each instant once: K2's combine is launched while its split pass runs."""
     spans = {g: [] for g in ("K1", "K1-bwd", "K2", "K3", "K4", "K4-bwd", "gemm", "other")}
     kernels = 0
@@ -875,7 +941,7 @@ def device_breakdown(prof, n):
             g = "K1"
         elif "flash_bwd_" in name:
             g = "K1-bwd"
-        elif "rglru_bwd_kernel" in name:
+        elif "rglru_bwd_" in name:
             g = "K4-bwd"
         elif "decode_split_kernel" in name or "decode_combine_kernel" in name:
             g = "K2"
@@ -1203,14 +1269,14 @@ def main():
             # K1-bwd, one line a kernel and head_dim, and K4-bwd
             found = re.search(r"(flash_bwd_dkdv_kernel|flash_bwd_dq_kernel)ILi(\d+)E|"
                               r"(flash_bwd_delta_kernel|flash_bwd_reduce_kernel|"
-                              r"rglru_bwd_kernel)", entry)
+                              r"rglru_bwd_chunk_kernel)", entry)
             if found:
                 kernel = found.group(1) or found.group(3)
                 used = int(re.search(r"Used (\d+) registers", entry).group(1))
                 spill = int(re.search(r"(\d+) bytes spill stores", entry).group(1))
                 log(f"   {kernel}{f'<{found.group(2)}>' if found.group(2) else ''}: {used} "
                     f"registers, {spill} bytes of spill stores")
-                if kernel == "rglru_bwd_kernel":
+                if kernel == "rglru_bwd_chunk_kernel":
                     bwd_ptxas["k4"].update(registers=used, spill_bytes=spill)
                 elif found.group(2) == "256":   # the train call's head_dim
                     short = kernel.split("_")[2]

@@ -1,5 +1,5 @@
 // K1-bwd: the gradient of causal flash attention, hand-written for Hopper
-// (sm_90a), fp32 on the CUDA cores.
+// (sm_90a), fp32 in and out, its products on the tensor cores as 3xTF32.
 //
 // The TPU kernel `repro/kernels/flash_attention.py::flash_attention` has no
 // backward: the JAX package differentiates its plain attention
@@ -16,48 +16,91 @@
 // pairs and keys past S have P = 0, so they add nothing.
 //
 // Layout: q, o, dO and dQ are (B, S, H, D); k, v, dK and dV (B, S, KH, D)
-// with KH dividing H; lse and Delta (B, H, S). All fp32: the training
-// configs are fp32, and fp32 products on the tensor cores would be TF32.
+// with KH dividing H; lse and Delta (B, H, S). All fp32, every pointer
+// 16-byte aligned.
+//
+// Arithmetic: the five products (K.Q^T, V.dO^T, P^T.dO, dX^T.Q, dX.K) run
+// on the tensor cores, `mma.sync.m16n8k8` in TF32, each fp32 operand x
+// split in registers into big = x rounded to TF32 (to nearest, as
+// cvt.rna.tf32.f32) and small = x - big (which the tensor core truncates to
+// TF32), and each product taken as a_small b_big + a_big b_small, then
+// a_big b_big, into fp32 accumulators ("3xTF32"; the a_small b_small term,
+// about 2^-21 of the product, is dropped). This is the arithmetic of SDPA's
+// fp32 path, PyTorch's memory-efficient attention, whose fp32 operator is
+// CUTLASS's OpMultiplyAddFastF32 on GemmShape<16, 8, 8>: it keeps fp32-grade
+// error, where one TF32 product (a 10-bit mantissa) would not. The softmax
+// recompute, the softcap's derivative, the mask and Delta stay in fp32 on
+// the CUDA cores.
+//
+// Why mma.sync and not wgmma: TF32 wgmma takes A and B only K-major from
+// shared memory (the transpose bits exist only for 16-bit types). With the
+// key tile as M, three of the five products would need a transposed copy of
+// an operand in shared memory (P^T.dO needs dO^T, dX^T.Q needs Q^T, dX.K
+// needs K^T), and the big/small split doubles every operand held there: at
+// D 256 one 64-row fp32 tile is 64 KB, and K, V, Q and dO with their
+// transposes and splits do not fit in 227 KB. mma.sync fragments load with
+// scalar ld.shared from one fp32 copy in either orientation and split in
+// registers.
 //
 // Kernels launched by one C call, the FlashAttention-2 backward:
 // 1. `flash_bwd_delta_kernel`: Delta_i, one warp a row.
-// 2. `flash_bwd_dkdv_kernel`: one CTA per (BKV keys, query head, batch).
-//    It holds its K and V tile in shared memory and its head's share of
-//    dK and dV in registers, and walks the query tiles of its head that
-//    the mask lets see its keys, recomputing P and dX a tile at a time.
-//    With KH == H it writes dK and dV; with KH < H it writes each query
-//    head's share to a workspace (B, S, H, D), and
+// 2. `flash_bwd_dkdv_kernel`: one CTA of 16 warps per (32 keys, query head,
+//    batch), the heaviest key tiles (the first, under a causal mask) first.
+//    K and V stay in shared memory; the query tiles that the mask lets see
+//    its keys stream in, 32 rows of Q, dO, lse and Delta at a time, by
+//    16-byte cp.async, double-buffered behind the compute. Per tile:
+//    S^T = K.Q^T (warps 0-7) and dP^T = V.dO^T (warps 8-15), one m16n8
+//    tile a warp over D / 8 k-steps; P^T and dX^T into shared memory (the
+//    dP warps hand dP^T to the S warps there); then dV += P^T.dO (warps
+//    0-7) and dK += dX^T.Q (warps 8-15), each warp 16 keys x D / 4 dims,
+//    accumulated in registers. With KH == H it writes dK and dV; with
+//    KH < H it writes each query head's share to a workspace (B, S, H, D),
+//    and
 // 3. `flash_bwd_reduce_kernel` sums the H / KH shares of each kv head in
 //    a fixed order. No atomics: every element has one writer, so the
 //    result is the same from run to run. A CTA per query head rather than
-//    per kv head gives RecurrentGemma's call (one kv head) 640 CTAs where
-//    it would have 64 walking ten heads each.
-// 4. `flash_bwd_dq_kernel`: one CTA per (BQ rows, head, batch), holding Q,
-//    dO, lse and Delta, walking the key tiles the forward walks and
-//    accumulating dQ in registers; the last query tiles, which walk the
-//    most keys, launch first.
-// A score tile is computed by each thread owning BQ * BKV / 256 of its
-// elements, each two D-long dot products (q . k and dO . v) read from
-// shared memory whose rows are padded by one value, so that the BKV keys a
-// warp reads at one d fall in distinct banks. The products into dK, dV and
-// dQ give each thread DPT dims (consecutive across the warp) times KPT keys
-// or RPT rows.
+//    per kv head gives RecurrentGemma's call (one kv head) 320 CTAs where
+//    it would have 32.
+// 4. `flash_bwd_dq_kernel`: one CTA of 16 warps per (32 query rows, head,
+//    batch), the last tiles (which walk the most keys) first. Q, dO, lse
+//    and Delta stay in shared memory; the key tiles the forward walks
+//    stream in, K and V double-buffered. Per tile: S and dP (warps 0-7 and
+//    8-15, one m16n8 tile each), dX into shared memory, then dQ += dX.K,
+//    each warp 16 rows x D / 4 dims over one half of the tile's keys; at
+//    the end the halves are summed through shared memory in a fixed order.
+// At D 16 a D-wide product has fewer n-tiles than its warps, so they split
+// its k as well (Tc::KS_DKDV, KS_DQ) and sum the splits the same way.
+// Tiles wholly outside the mask are not visited; only tiles that cross the
+// diagonal, the window's edge or S compute the mask.
 //
-// Shared memory, fp32, rows of D + 1 (both main kernels): Q and dO (BQ rows each), K and V
-// (BKV rows each), P and dX (BQ x BKV + 1), lse and Delta; at D 256 (BQ 32,
-// BKV 16) 103 KB, two CTAs an SM at up to 128 registers a thread.
+// Shared memory, fp32: rows of Q, dO, K and V padded to D + 4 floats, so
+// that ldmatrix (which reads an fp32 fragment of 8 rows x 4 columns as an
+// 8 x 8 b16 matrix: the A operand, and B from a row-major (n, k) tile)
+// finds its 8 rows in distinct banks, a scalar read of 4 rows x 8 columns
+// (B from a row-major (k, n) tile) conflicts at most two ways, and every
+// row start stays 16-byte aligned for cp.async and ldmatrix; P^T, dX^T and
+// dX in 32 x 36 tiles. At D 256 the dK/dV kernel holds K, V and two stages
+// of Q and dO (6 x 33.3 KB) plus 9.7 KB, 209 KB; the dQ kernel 204 KB: one
+// CTA of 16 warps an SM, at most 128 registers a thread.
 //
-// Bound on the H100 SXM (67 TFLOP/s fp32, 3.35 TB/s): five products over
-// the pairs the mask keeps (q.k, dO.v, P^T dO, dX^T Q, dX K), 10 D flops a
-// pair; at RecurrentGemma's training call (B 4, S 256, 10 query heads on
-// 1 kv head, D 256, window 2048 > S) that is 3.4 GFLOP, 50 us, against
-// 46.2 MB of inputs and outputs (q, o, dO, dQ 10.5 MB each; k, v, dK, dV
-// 1.0 MB each; lse), 13.8 us: bound by the operations. This simple
-// kernel reads both operands of every product from shared memory and is
-// limited by shared-memory bandwidth, well above that bound.
+// Bound on the H100 SXM, at RecurrentGemma's training call (B 4, S 256,
+// 10 query heads on 1 kv head, D 256, window 2048 > S): five products over
+// the pairs the mask keeps, 10 D flops a pair, 3.37 GFLOP. As 3xTF32 that
+// is three TF32 products at 495 TFLOP/s dense: 20.4 us (operations); the
+// same flops on the fp32 CUDA cores (67 TFLOP/s) would take 50.3 us. The
+// bytes are 46.2 MB (q, o, dO, dQ 10.5 MB each; k, v, dK, dV 1.0 MB each;
+// lse) at 3.35 TB/s, 13.8 us: bound by the operations. Where the time goes
+// instead (tools/k1_bwd_variants.py, which times copies of this source
+// with one piece taken out): the score products about a third, the D-wide
+// products a fifth, and what is left of the two main kernels with neither,
+// each CTA's prologue (K and V, or Q and dO, with the first streamed tile,
+// 133 KB, before any product), barriers and the last CTAs' tail, about two
+// fifths; the tensor pipe and the integer ops that split the operands each
+// a fifth at most.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include <atomic>
 
@@ -65,87 +108,251 @@
 
 namespace {
 
-constexpr int NT = 256;   // threads a CTA of the two main kernels
+constexpr int NT = 512;   // threads a CTA of the two main kernels: 16 warps
+constexpr int BQ = 32;    // query rows a tile
+constexpr int BKV = 32;   // keys a tile
+constexpr int SP = 36;    // padded row of the P^T, dX^T and dX tiles
 
+// The warps of a CTA: in the score products, warps 0-7 take S and 8-15
+// dP, each one m16n8 tile (2 x 4 of them cover 32 x 32); in a D-wide
+// product, a warp takes 16 rows (m-tile w & 1) by NTW n-tiles of 8 dims
+// (n-block NB of them) over 32 / KS of the tile's 32 k (k-split KS), and
+// the KS splits are summed at the end in a fixed order.
 template <int D>
-struct Bwd {
-  static constexpr int BQ = D > 64 ? 32 : 64;     // query rows a tile
-  static constexpr int BKV = D > 128 ? 16 : 32;   // keys a tile
-  static constexpr int DP = D + 1;                // padded row of Q, dO, K, V
-  static constexpr int SP = BKV + 1;              // padded row of P and dX
-  static constexpr int TD = D < 64 ? D : 64;      // threads across D in the products
-  static constexpr int GROUPS = NT / TD;          // thread groups across keys or rows
-  static constexpr int DPT = D / TD;              // dims a thread
-  static constexpr int KPT = BKV / GROUPS;        // keys a thread (dK, dV)
-  static constexpr int RPT = BQ / GROUPS;         // rows a thread (dQ)
-  static constexpr int EPT = BQ * BKV / NT;       // score elements a thread
-  static constexpr int SMEM =
-      (int)sizeof(float) * (2 * BQ * DP + 2 * BKV * DP + 2 * BQ * SP + 2 * BQ);
-  static_assert(NT % TD == 0 && D % TD == 0 && BKV % GROUPS == 0 && BQ % GROUPS == 0 &&
-                    (BQ * BKV) % NT == 0,
-                "tile shapes must split evenly over the threads");
+struct Tc {
+  static constexpr int P = D + 4;        // padded row of Q, dO, K and V
+  static constexpr int TILE = 32 * P;    // floats of one 32-row tile
+  static constexpr int KSTEPS = D / 8;   // k-steps of the score products
+  static constexpr int NB = D / 8 < 4 ? D / 8 : 4;   // n-blocks of a D-wide product
+  static constexpr int NTW = D / (8 * NB);            // n-tiles of 8 dims a warp
+  static constexpr int KS_DKDV = 8 / (2 * NB);        // k-splits: 8 warps a product
+  static constexpr int KS_DQ = 16 / (2 * NB);         // k-splits: 16 warps on dQ
+  // K, V, two stages of Q and dO, P^T and dX^T, two stages of lse and Delta
+  static constexpr int SMEM_DKDV = (int)sizeof(float) * (6 * TILE + 2 * BKV * SP + 4 * BQ);
+  // Q, dO, two stages of K and V, dX, lse and Delta
+  static constexpr int SMEM_DQ = (int)sizeof(float) * (6 * TILE + BQ * SP + 2 * BQ);
+  static_assert(D % 16 == 0 && BQ == 32 && BKV == 32 && NT == 512,
+                "the warp layout assumes these");
+  // the k-splits' partial sums go through the streaming stages (4 tiles)
+  static_assert(2 * (KS_DKDV - 1) <= 4 && KS_DQ - 1 <= 4, "no room to sum the k-splits");
 };
 
-// rows r0 .. r0 + n - 1 of a (B, S, heads, D) tensor at (b, head) into
-// shared memory rows of DP, zeros past S
-template <int D>
-__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src, int r0,
-                                          int n, int S, long stride) {
-  for (int i = threadIdx.x; i < n * D; i += NT) {
-    const int r = i / D, c = i % D, row = r0 + r;
-    dst[r * Bwd<D>::DP + c] = row < S ? src[(long)row * stride + c] : 0.f;
-  }
+// ---- the tensor-core product: 3xTF32 on mma.sync.m16n8k8 ------------------
+
+// x = big + small, each a TF32 operand: big is x rounded to TF32 (10
+// mantissa bits) to nearest, ties away from zero, the value cvt.rna.tf32.f32
+// gives, here in two integer ops (the conversion is a quarter-rate
+// instruction, and two of them an element would limit this kernel);
+// small = x - big is exact in fp32, and the tensor core reads its top 19
+// bits (truncation toward zero). CUTLASS's OpMultiplyAddFastF32 rounds the
+// same way (big: round_half_ulp_truncate, small: round_toward_zero).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  small = __float_as_uint(x - __uint_as_float(big));
 }
 
-// lse and Delta of rows q0 .. q0 + BQ - 1 of (b, h), zeros past S
-template <int D>
-__device__ __forceinline__ void load_row_stats(float* sl, float* sdel,
-                                               const float* __restrict__ lse,
-                                               const float* __restrict__ delta, int q0, int S) {
-  for (int i = threadIdx.x; i < Bwd<D>::BQ; i += NT) {
-    const int row = q0 + i;
-    sl[i] = row < S ? lse[row] : 0.f;
-    sdel[i] = row < S ? delta[row] : 0.f;
-  }
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// P and dX of the score tile of query rows q0.. against keys k0.., into sp
-// and sdx (rows of SP); P only if WRITE_P
-template <int D, bool WRITE_P>
-__device__ __forceinline__ void score_tile(const float* sq, const float* sdo, const float* sk,
-                                           const float* sv, const float* sl, const float* sdel,
-                                           float* sp, float* sdx, int q0, int k0, int S,
-                                           float scale, int causal, int window, float softcap) {
-  using C = Bwd<D>;
+// A fragment (16 x 8, rows g and g + 8, columns t and t + 4 of lane
+// 4 g + t) and B fragment (8 x 8, rows t and t + 4, column g), split
+struct FragA {
+  uint32_t big[4], small[4];
+};
+struct FragB {
+  uint32_t big[2], small[2];
+};
+
+// ldmatrix of 8 x 8 b16 matrices is, in 32-bit words, 8 rows x 4 fp32
+// columns, lane 4 g + t taking row g, column t: an fp32 fragment's layout.
+// Lane l gives the row address of row l % 8 of matrix l / 8; every address
+// 16-byte aligned.
+__device__ __forceinline__ void ldsm_x4(const float* p, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(hopper::smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x2(const float* p, uint32_t (&r)[2]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(hopper::smem_u32(p)));
+}
+
+// A from a row-major tile at `s` (row pitch `pitch`): 8 rows x 4 columns,
+// as four ldmatrix matrices (rows 0-7 and 8-15 at columns 0 and 4)
+__device__ __forceinline__ FragA load_a(const float* s, int pitch, int lane) {
+  const int m = lane / 8;
+  uint32_t x[4];
+  ldsm_x4(s + (lane % 8 + 8 * (m & 1)) * pitch + 4 * (m >> 1), x);
+  FragA f;
 #pragma unroll
-  for (int e = 0; e < C::EPT; ++e) {
-    const int idx = threadIdx.x + NT * e;
-    const int r = idx / C::BKV, c = idx % C::BKV;
-    const float* qr = sq + r * C::DP;
-    const float* dr = sdo + r * C::DP;
-    const float* kr = sk + c * C::DP;
-    const float* vr = sv + c * C::DP;
-    float s = 0.f, dp = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      s = fmaf(qr[d], kr[d], s);
-      dp = fmaf(dr[d], vr[d], dp);
-    }
-    const int row = q0 + r, col = k0 + c;
-    float x = s * scale, dxdt = 1.f;
-    if (softcap > 0.f) {
-      const float th = tanhf(x / softcap);
-      x = softcap * th;
-      dxdt = 1.f - th * th;
-    }
-    bool ok = row < S && col < S;
-    if (causal) ok = ok && col <= row;
-    if (window > 0) ok = ok && (row - col) < window;
-    const float p = ok ? expf(x - sl[r]) : 0.f;
-    if (WRITE_P) sp[r * C::SP + c] = p;
-    sdx[r * C::SP + c] = p * (dp - sdel[r]) * dxdt;
+  for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(x[i]), f.big[i], f.small[i]);
+  return f;
+}
+
+// B[k][n] from a row-major (n, k) tile: 8 rows x 4 columns, as two
+// ldmatrix matrices (columns 0 and 4)
+__device__ __forceinline__ FragB load_b_nk(const float* s, int pitch, int lane) {
+  uint32_t x[2];
+  ldsm_x2(s + (lane % 8) * pitch + 4 * ((lane / 8) & 1), x);
+  FragB f;
+  split_tf32(__uint_as_float(x[0]), f.big[0], f.small[0]);
+  split_tf32(__uint_as_float(x[1]), f.big[1], f.small[1]);
+  return f;
+}
+
+// B[k][n] from a row-major (k, n) tile: 4 rows x 8 columns
+__device__ __forceinline__ FragB load_b_kn(const float* s, int pitch, int g, int t) {
+  FragB f;
+  split_tf32(s[t * pitch + g], f.big[0], f.small[0]);
+  split_tf32(s[(t + 4) * pitch + g], f.big[1], f.small[1]);
+  return f;
+}
+
+// c += a . b as 3xTF32: the small terms first, then the big one
+__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a, const FragB& b) {
+  mma_tf32(c, a.small, b.big);
+  mma_tf32(c, a.big, b.small);
+  mma_tf32(c, a.big, b.big);
+}
+
+// the same into two accumulators, small terms and big, for two shorter
+// chains of dependent mma in the score products' long k-loops
+__device__ __forceinline__ void mma3_two(float (&lo)[4], float (&hi)[4], const FragA& a,
+                                         const FragB& b) {
+  mma_tf32(lo, a.small, b.big);
+  mma_tf32(lo, a.big, b.small);
+  mma_tf32(hi, a.big, b.big);
+}
+
+// ---- copies ------------------------------------------------------------------
+
+// 16 or 4 bytes from global to shared memory, zeros when !in (src is then
+// not read, but kept a valid address)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(hopper::smem_u32(dst)),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(hopper::smem_u32(dst)),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// rows r0 .. r0 + 31 of a (B, S, heads, D) tensor at (b, head) (`src` its
+// row 0) into a tile of rows of P, zeros past S
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int r0, int S,
+                                          long stride) {
+  constexpr int CPR = D / 4;   // 16-byte copies a row
+  for (int i = threadIdx.x; i < 32 * CPR; i += NT) {
+    const int r = i / CPR, c = (i % CPR) * 4, row = r0 + r;
+    const bool in = row < S;
+    cp_async16(dst + r * Tc<D>::P + c, src + (long)(in ? row : 0) * stride + c, in);
   }
 }
+
+// lse and Delta of rows r0 .. r0 + 31 of (b, h) (`lse`, `delta` their row
+// 0), zeros past S
+__device__ __forceinline__ void load_stats(float* sl, float* sdel, const float* __restrict__ lse,
+                                           const float* __restrict__ delta, int r0, int S) {
+  const int i = threadIdx.x;
+  if (i < 64) {
+    const int r = i % 32, row = r0 + r;
+    const bool in = row < S;
+    cp_async4((i < 32 ? sl : sdel) + r, (i < 32 ? lse : delta) + (in ? row : 0), in);
+  }
+}
+
+// whether the tile of query rows q0.. and keys k0.. needs its mask: it
+// crosses the diagonal, the window's edge or S
+__device__ __forceinline__ bool edge_tile(int q0, int k0, int S, int causal, int window) {
+  return q0 + BQ > S || k0 + BKV > S || (causal && k0 + BKV - 1 > q0) ||
+         (window > 0 && q0 + BQ - 1 - k0 >= window);
+}
+
+// P of the score element at query row `row`, key `key`, from its logit s
+// (unscaled) and the row's lse, and the softcap's derivative dxdt; then
+// dX = P (dP - Delta) dxdt
+__device__ __forceinline__ void p_of(float s, float l, int row, int key, int S, bool edge,
+                                     float scale, int causal, int window, float softcap,
+                                     float& p, float& dxdt) {
+  float x = s * scale;
+  dxdt = 1.f;
+  if (softcap > 0.f) {
+    const float th = tanhf(x / softcap);
+    x = softcap * th;
+    dxdt = 1.f - th * th;
+  }
+  bool ok = true;
+  if (edge) {
+    ok = row < S && key < S;
+    if (causal) ok = ok && key <= row;
+    if (window > 0) ok = ok && (row - key) < window;
+  }
+  p = ok ? expf(x - l) : 0.f;
+}
+
+// a warp's m16n8 tile of A.B^T over D, A rows at `a`, B rows at `b` (both
+// row-major (row, d), pitch P), in four accumulator chains; returns the sums
+template <int D>
+__device__ __forceinline__ void score_tile(const float* a, const float* b, int lane,
+                                           float (&x)[4]) {
+  using C = Tc<D>;
+  float lo[2][4] = {}, hi[2][4] = {};
+#pragma unroll 4
+  for (int kk = 0; kk < C::KSTEPS; ++kk)
+    mma3_two(lo[kk & 1], hi[kk & 1], load_a(a + kk * 8, C::P, lane),
+             load_b_nk(b + kk * 8, C::P, lane));
+#pragma unroll
+  for (int i = 0; i < 4; ++i) x[i] = (lo[0][i] + hi[0][i]) + (lo[1][i] + hi[1][i]);
+}
+
+// A D-wide product's KS k-splits summed in a fixed order: splits 1 .. KS - 1
+// write their accumulators to their regions of `red` (32 x P each), and
+// after the CTA's barrier split 0 adds them in order. Every thread calls it;
+// acc (element i: row rm + g + 8 (i / 2), dim (n0 + j) * 8 + 2 t + i % 2)
+// holds the sum only in split 0's warps afterwards.
+template <int D, int KS, int NTW>
+__device__ __forceinline__ void sum_k_splits(float (&acc)[NTW][4], float* red, int region,
+                                             int split, int rm, int n0, int g, int t) {
+  using C = Tc<D>;
+  if (KS == 1) return;
+  if (split > 0) {
+    float* r = red + (region * (KS - 1) + split - 1) * C::TILE;
+#pragma unroll
+    for (int j = 0; j < NTW; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        r[(rm + g + 8 * (i / 2)) * C::P + (n0 + j) * 8 + 2 * t + i % 2] = acc[j][i];
+  }
+  __syncthreads();
+  if (split > 0) return;
+  for (int s = 1; s < KS; ++s) {
+    const float* r = red + (region * (KS - 1) + s - 1) * C::TILE;
+#pragma unroll
+    for (int j = 0; j < NTW; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        acc[j][i] += r[(rm + g + 8 * (i / 2)) * C::P + (n0 + j) * 8 + 2 * t + i % 2];
+  }
+}
+
+// ---- kernels -------------------------------------------------------------------
 
 // Delta_i = dO_i . O_i into (B, H, S): one warp a (b, s, h) row
 __global__ void __launch_bounds__(256)
@@ -168,89 +375,136 @@ flash_bwd_delta_kernel(const float* __restrict__ o, const float* __restrict__ do
   }
 }
 
-// dK and dV of keys k0 .. k0 + BKV - 1 from query head h alone, into dkh
-// and dvh, (B, S, H, D): dK and dV themselves when KH == H, else the
-// workspace that flash_bwd_reduce_kernel sums
+// dK and dV of keys k0 .. k0 + 31 from query head h alone, into dkh and
+// dvh, (B, S, H, D): dK and dV themselves when KH == H, else the workspace
+// that flash_bwd_reduce_kernel sums
 template <int D>
-__global__ void __launch_bounds__(NT, 2)
+__global__ void __launch_bounds__(NT, 1)
 flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const float* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ delta,
-                      float* __restrict__ dkh, float* __restrict__ dvh, int S, int H, int KH,
-                      float scale, int causal, int window, float softcap) {
-  using C = Bwd<D>;
-  extern __shared__ float smem[];
-  float* sq = smem;                    // [BQ][DP]
-  float* sdo = sq + C::BQ * C::DP;     // [BQ][DP]
-  float* sk = sdo + C::BQ * C::DP;     // [BKV][DP]
-  float* sv = sk + C::BKV * C::DP;     // [BKV][DP]
-  float* sp = sv + C::BKV * C::DP;     // [BQ][SP]
-  float* sdx = sp + C::BQ * C::SP;     // [BQ][SP]
-  float* sl = sdx + C::BQ * C::SP;     // [BQ]
-  float* sdel = sl + C::BQ;            // [BQ]
+                      float* __restrict__ dkh, float* __restrict__ dvh, int B, int S, int H,
+                      int KH, float scale, int causal, int window, float softcap) {
+  using C = Tc<D>;
+  extern __shared__ __align__(16) float smem[];
+  float* sk = smem;                  // [BKV][P]
+  float* sv = sk + C::TILE;          // [BKV][P]
+  float* sq = sv + C::TILE;          // [2][BQ][P]
+  float* sdo = sq + 2 * C::TILE;     // [2][BQ][P]
+  float* spt = sdo + 2 * C::TILE;    // [BKV][SP]: P^T
+  float* sdxt = spt + BKV * SP;      // [BKV][SP]: dX^T
+  float* sl = sdxt + BKV * SP;       // [2][BQ]
+  float* sdel = sl + 2 * BQ;         // [2][BQ]
 
-  const int k0 = blockIdx.x * C::BKV, h = blockIdx.y, b = blockIdx.z;
+  // the first key tiles, which the most query rows see, first
+  const int h = blockIdx.x % H, b = (blockIdx.x / H) % B;
+  const int k0 = (int)(blockIdx.x / ((unsigned)H * B)) * BKV;
   const int kh = h / (H / KH);
   const long qs = (long)H * D, ks = (long)KH * D;
-  load_rows<D>(sk, k + (long)b * S * ks + (long)kh * D, k0, C::BKV, S, ks);
-  load_rows<D>(sv, v + (long)b * S * ks + (long)kh * D, k0, C::BKV, S, ks);
-
-  const int td = threadIdx.x % C::TD, grp = threadIdx.x / C::TD;
-  float adk[C::KPT][C::DPT], adv[C::KPT][C::DPT];
-#pragma unroll
-  for (int i = 0; i < C::KPT; ++i)
-#pragma unroll
-    for (int j = 0; j < C::DPT; ++j) adk[i][j] = adv[i][j] = 0.f;
-
-  // the query rows that can see keys k0 .. k0 + BKV - 1: none before k0 if
-  // causal, none at or past k0 + BKV - 1 + window with a window
-  const int q_begin = causal ? k0 / C::BQ * C::BQ : 0;
-  const int q_end = window > 0 ? min(S, k0 + C::BKV - 1 + window) : S;
   const float* qb = q + (long)b * S * qs + (long)h * D;
   const float* db = dout + (long)b * S * qs + (long)h * D;
   const float* lb = lse + ((long)b * H + h) * S;
   const float* eb = delta + ((long)b * H + h) * S;
-  for (int q0 = q_begin; q0 < q_end; q0 += C::BQ) {
-    __syncthreads();   // the previous tile's readers are done (and K, V staged)
-    load_rows<D>(sq, qb, q0, C::BQ, S, qs);
-    load_rows<D>(sdo, db, q0, C::BQ, S, qs);
-    load_row_stats<D>(sl, sdel, lb, eb, q0, S);
+
+  // the query rows that can see keys k0 .. k0 + 31: none before k0 if
+  // causal, none at or past k0 + 31 + window with a window
+  const int q_begin = causal ? k0 : 0;
+  const int q_end = window > 0 ? min(S, k0 + BKV - 1 + window) : S;
+
+  load_tile<D>(sk, k + (long)b * S * ks + (long)kh * D, k0, S, ks);
+  load_tile<D>(sv, v + (long)b * S * ks + (long)kh * D, k0, S, ks);
+  load_tile<D>(sq, qb, q_begin, S, qs);
+  load_tile<D>(sdo, db, q_begin, S, qs);
+  load_stats(sl, sdel, lb, eb, q_begin, S);
+  cp_async_commit();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int wm = warp & 1;                           // keys wm * 16 .. of the tile
+  const int wn = (warp >> 1) & 3;                    // scores: query rows wn * 8 ..
+  const int second = warp >> 3;                      // scores: dP^T; products: dK
+  const int nblk = ((warp >> 1) & 3) % C::NB, split = ((warp >> 1) & 3) / C::NB;
+  constexpr int KPS = BQ / 8 / C::KS_DKDV;           // k-steps of a split
+  float acc[C::NTW][4];
+#pragma unroll
+  for (int j = 0; j < C::NTW; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  int stage = 0;
+  for (int q0 = q_begin; q0 < q_end; q0 += BQ, stage ^= 1) {
+    // the next tile into the other stage, which the last tile's readers
+    // left at its closing barrier
+    if (q0 + BQ < q_end) {
+      const int ns = stage ^ 1;
+      load_tile<D>(sq + ns * C::TILE, qb, q0 + BQ, S, qs);
+      load_tile<D>(sdo + ns * C::TILE, db, q0 + BQ, S, qs);
+      load_stats(sl + ns * BQ, sdel + ns * BQ, lb, eb, q0 + BQ, S);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
-    score_tile<D, true>(sq, sdo, sk, sv, sl, sdel, sp, sdx, q0, k0, S, scale, causal, window,
-                        softcap);
-    __syncthreads();
-#pragma unroll 2
-    for (int r = 0; r < C::BQ; ++r) {
-      float qd[C::DPT], od[C::DPT];
+    const float* tq = sq + stage * C::TILE;
+    const float* tdo = sdo + stage * C::TILE;
+    const float* tl = sl + stage * BQ;
+    const float* tdel = sdel + stage * BQ;
+
+    // S^T = K.Q^T (warps 0-7) or dP^T = V.dO^T (8-15): keys wm * 16 .., rows
+    // wn * 8 ..; element i of the fragment is key wm * 16 + g + 8 (i / 2),
+    // row wn * 8 + 2 t + i % 2
+    float x[4];
+    score_tile<D>((second ? sv : sk) + wm * 16 * C::P, (second ? tdo : tq) + wn * 8 * C::P,
+                  lane, x);
+    const bool edge = edge_tile(q0, k0, S, causal, window);
+    float p[4], dxdt[4];
 #pragma unroll
-      for (int j = 0; j < C::DPT; ++j) {
-        qd[j] = sq[r * C::DP + td + C::TD * j];
-        od[j] = sdo[r * C::DP + td + C::TD * j];
-      }
-#pragma unroll
-      for (int i = 0; i < C::KPT; ++i) {
-        const int c = grp + C::GROUPS * i;
-        const float p = sp[r * C::SP + c], dx = sdx[r * C::SP + c];
-#pragma unroll
-        for (int j = 0; j < C::DPT; ++j) {
-          adv[i][j] = fmaf(p, od[j], adv[i][j]);
-          adk[i][j] = fmaf(dx, qd[j], adk[i][j]);
-        }
+    for (int i = 0; i < 4; ++i) {
+      const int kr = wm * 16 + g + 8 * (i / 2), qc = wn * 8 + 2 * t + i % 2;
+      if (second) {
+        sdxt[kr * SP + qc] = x[i];   // dP^T, for the S warp of this element
+      } else {
+        p_of(x[i], tl[qc], q0 + qc, k0 + kr, S, edge, scale, causal, window, softcap, p[i],
+             dxdt[i]);
+        spt[kr * SP + qc] = p[i];
       }
     }
-  }
-
-  float* dkb = dkh + (long)b * S * qs + (long)h * D;
-  float* dvb = dvh + (long)b * S * qs + (long)h * D;
+    __syncthreads();
+    if (!second) {
 #pragma unroll
-  for (int i = 0; i < C::KPT; ++i) {
-    const int key = k0 + grp + C::GROUPS * i;
+      for (int i = 0; i < 4; ++i) {
+        const int kr = wm * 16 + g + 8 * (i / 2), qc = wn * 8 + 2 * t + i % 2;
+        sdxt[kr * SP + qc] = p[i] * (sdxt[kr * SP + qc] - tdel[qc]) * dxdt[i];
+      }
+    }
+    __syncthreads();
+
+    // dV += P^T.dO (warps 0-7), dK += dX^T.Q (8-15): keys wm * 16 .., dims
+    // (nblk NTW + j) * 8 .., over the split's rows of the tile
+    const float* sa = second ? sdxt : spt;
+    const float* sb = second ? tq : tdo;
+#pragma unroll
+    for (int kk = split * KPS; kk < (split + 1) * KPS; ++kk) {
+      const FragA fa = load_a(sa + wm * 16 * SP + kk * 8, SP, lane);
+#pragma unroll
+      for (int j = 0; j < C::NTW; ++j)
+        mma3(acc[j], fa, load_b_kn(sb + kk * 8 * C::P + (nblk * C::NTW + j) * 8, C::P, g, t));
+    }
+    __syncthreads();
+  }
+  // the streaming stages are free after the last barrier
+  sum_k_splits<D, C::KS_DKDV, C::NTW>(acc, sq, second, split, wm * 16, nblk * C::NTW, g, t);
+  if (split > 0) return;
+
+  // accumulator element i: key wm * 16 + g + 8 (i / 2), dim (nblk NTW + j) * 8 + 2 t + i % 2
+  float* out = (second ? dkh : dvh) + (long)b * S * qs + (long)h * D;
+  const float mul = second ? scale : 1.f;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = k0 + wm * 16 + g + 8 * half;
     if (key >= S) continue;
 #pragma unroll
-    for (int j = 0; j < C::DPT; ++j) {
-      dkb[(long)key * qs + td + C::TD * j] = adk[i][j] * scale;
-      dvb[(long)key * qs + td + C::TD * j] = adv[i][j];
-    }
+    for (int j = 0; j < C::NTW; ++j)
+      *reinterpret_cast<float2*>(out + (long)key * qs + (nblk * C::NTW + j) * 8 + 2 * t) =
+          make_float2(acc[j][2 * half] * mul, acc[j][2 * half + 1] * mul);
   }
 }
 
@@ -273,74 +527,119 @@ flash_bwd_reduce_kernel(const float* __restrict__ dkh, const float* __restrict__
 }
 
 template <int D>
-__global__ void __launch_bounds__(NT, 2)
+__global__ void __launch_bounds__(NT, 1)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    float* __restrict__ dq, int S, int H, int KH, float scale, int causal,
+                    float* __restrict__ dq, int B, int S, int H, int KH, float scale, int causal,
                     int window, float softcap) {
-  using C = Bwd<D>;
-  extern __shared__ float smem[];
-  float* sq = smem;
-  float* sdo = sq + C::BQ * C::DP;
-  float* sk = sdo + C::BQ * C::DP;
-  float* sv = sk + C::BKV * C::DP;
-  float* sp = sv + C::BKV * C::DP;     // unused here: the layout is the dK/dV kernel's
-  float* sdx = sp + C::BQ * C::SP;
-  float* sl = sdx + C::BQ * C::SP;
-  float* sdel = sl + C::BQ;
+  using C = Tc<D>;
+  extern __shared__ __align__(16) float smem[];
+  float* sq = smem;                  // [BQ][P]
+  float* sdo = sq + C::TILE;         // [BQ][P]
+  float* sk = sdo + C::TILE;         // [2][BKV][P]
+  float* sv = sk + 2 * C::TILE;      // [2][BKV][P]
+  float* sdx = sv + 2 * C::TILE;     // [BQ][SP]: dX
+  float* sl = sdx + BQ * SP;         // [BQ]
+  float* sdel = sl + BQ;             // [BQ]
 
   // last tiles first: under a causal mask they walk the most keys
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * C::BQ, h = blockIdx.y, b = blockIdx.z;
+  const int n_qt = (S + BQ - 1) / BQ;
+  const int h = blockIdx.x % H, b = (blockIdx.x / H) % B;
+  const int q0 = (n_qt - 1 - (int)(blockIdx.x / ((unsigned)H * B))) * BQ;
   const int kh = h / (H / KH);
   const long qs = (long)H * D, ks = (long)KH * D;
-  load_rows<D>(sq, q + (long)b * S * qs + (long)h * D, q0, C::BQ, S, qs);
-  load_rows<D>(sdo, dout + (long)b * S * qs + (long)h * D, q0, C::BQ, S, qs);
-  load_row_stats<D>(sl, sdel, lse + ((long)b * H + h) * S, delta + ((long)b * H + h) * S, q0,
-                    S);
   const float* kb = k + (long)b * S * ks + (long)kh * D;
   const float* vb = v + (long)b * S * ks + (long)kh * D;
 
-  const int td = threadIdx.x % C::TD, grp = threadIdx.x / C::TD;
-  float adq[C::RPT][C::DPT];
-#pragma unroll
-  for (int i = 0; i < C::RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < C::DPT; ++j) adq[i][j] = 0.f;
-
   // the key tiles the forward walks: none past the diagonal if causal, none
   // wholly outside the window
-  const int kv_end = causal ? min(S, q0 + C::BQ) : S;
-  const int kv_begin = window > 0 ? max(0, q0 - window + 1) / C::BKV * C::BKV : 0;
-  for (int k0 = kv_begin; k0 < kv_end; k0 += C::BKV) {
-    __syncthreads();   // the previous tile's readers are done (and Q, dO staged)
-    load_rows<D>(sk, kb, k0, C::BKV, S, ks);
-    load_rows<D>(sv, vb, k0, C::BKV, S, ks);
+  const int kv_end = causal ? min(S, q0 + BQ) : S;
+  const int kv_begin = window > 0 ? max(0, q0 - window + 1) / BKV * BKV : 0;
+
+  load_tile<D>(sq, q + (long)b * S * qs + (long)h * D, q0, S, qs);
+  load_tile<D>(sdo, dout + (long)b * S * qs + (long)h * D, q0, S, qs);
+  load_stats(sl, sdel, lse + ((long)b * H + h) * S, delta + ((long)b * H + h) * S, q0, S);
+  load_tile<D>(sk, kb, kv_begin, S, ks);
+  load_tile<D>(sv, vb, kv_begin, S, ks);
+  cp_async_commit();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int wm = warp & 1;                           // rows wm * 16 .. of the tile
+  const int wn = (warp >> 1) & 3;                    // scores: keys wn * 8 ..
+  const int second = warp >> 3;                      // scores: dP
+  const int nblk = ((warp >> 1) & 7) % C::NB, split = ((warp >> 1) & 7) / C::NB;
+  constexpr int KPS = BKV / 8 / C::KS_DQ;            // k-steps of a split
+  float acc[C::NTW][4];
+#pragma unroll
+  for (int j = 0; j < C::NTW; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  int stage = 0;
+  for (int k0 = kv_begin; k0 < kv_end; k0 += BKV, stage ^= 1) {
+    if (k0 + BKV < kv_end) {
+      const int ns = stage ^ 1;
+      load_tile<D>(sk + ns * C::TILE, kb, k0 + BKV, S, ks);
+      load_tile<D>(sv + ns * C::TILE, vb, k0 + BKV, S, ks);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
-    score_tile<D, false>(sq, sdo, sk, sv, sl, sdel, sp, sdx, q0, k0, S, scale, causal, window,
-                         softcap);
+    const float* tk = sk + stage * C::TILE;
+    const float* tv = sv + stage * C::TILE;
+
+    // S = Q.K^T (warps 0-7) or dP = dO.V^T (8-15): rows wm * 16 .., keys
+    // wn * 8 ..; element i of the fragment is row wm * 16 + g + 8 (i / 2),
+    // key wn * 8 + 2 t + i % 2
+    float x[4];
+    score_tile<D>((second ? sdo : sq) + wm * 16 * C::P, (second ? tv : tk) + wn * 8 * C::P,
+                  lane, x);
+    const bool edge = edge_tile(q0, k0, S, causal, window);
+    float p[4], dxdt[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qr = wm * 16 + g + 8 * (i / 2), kc = wn * 8 + 2 * t + i % 2;
+      if (second)
+        sdx[qr * SP + kc] = x[i];   // dP, for the S warp of this element
+      else
+        p_of(x[i], sl[qr], q0 + qr, k0 + kc, S, edge, scale, causal, window, softcap, p[i],
+             dxdt[i]);
+    }
     __syncthreads();
-#pragma unroll 2
-    for (int c = 0; c < C::BKV; ++c) {
-      float kd[C::DPT];
+    if (!second) {
 #pragma unroll
-      for (int j = 0; j < C::DPT; ++j) kd[j] = sk[c * C::DP + td + C::TD * j];
-#pragma unroll
-      for (int i = 0; i < C::RPT; ++i) {
-        const float dx = sdx[(grp + C::GROUPS * i) * C::SP + c];
-#pragma unroll
-        for (int j = 0; j < C::DPT; ++j) adq[i][j] = fmaf(dx, kd[j], adq[i][j]);
+      for (int i = 0; i < 4; ++i) {
+        const int qr = wm * 16 + g + 8 * (i / 2), kc = wn * 8 + 2 * t + i % 2;
+        sdx[qr * SP + kc] = p[i] * (sdx[qr * SP + kc] - sdel[qr]) * dxdt[i];
       }
     }
+    __syncthreads();
+
+    // dQ += dX.K over the split's keys: rows wm * 16 .., dims
+    // (nblk NTW + j) * 8 ..
+#pragma unroll
+    for (int kk = split * KPS; kk < (split + 1) * KPS; ++kk) {
+      const FragA fa = load_a(sdx + wm * 16 * SP + kk * 8, SP, lane);
+#pragma unroll
+      for (int j = 0; j < C::NTW; ++j)
+        mma3(acc[j], fa, load_b_kn(tk + kk * 8 * C::P + (nblk * C::NTW + j) * 8, C::P, g, t));
+    }
+    __syncthreads();
   }
+  // the K and V stages are free after the last barrier
+  sum_k_splits<D, C::KS_DQ, C::NTW>(acc, sk, 0, split, wm * 16, nblk * C::NTW, g, t);
+  if (split > 0) return;
 
   float* dqb = dq + (long)b * S * qs + (long)h * D;
 #pragma unroll
-  for (int i = 0; i < C::RPT; ++i) {
-    const int row = q0 + grp + C::GROUPS * i;
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = q0 + wm * 16 + g + 8 * hr;
     if (row >= S) continue;
 #pragma unroll
-    for (int j = 0; j < C::DPT; ++j) dqb[(long)row * qs + td + C::TD * j] = adq[i][j] * scale;
+    for (int j = 0; j < C::NTW; ++j)
+      *reinterpret_cast<float2*>(dqb + (long)row * qs + (nblk * C::NTW + j) * 8 + 2 * t) =
+          make_float2(acc[j][2 * hr] * scale, acc[j][2 * hr + 1] * scale);
   }
 }
 
@@ -349,19 +648,21 @@ int launch(const float* q, const float* k, const float* v, const float* o, const
            const float* dout, float* dq, float* dk, float* dv, float* delta, float* dkh,
            float* dvh, int B, int S, int H, int KH, float scale, int causal, int window,
            float softcap, cudaStream_t st) {
-  using C = Bwd<D>;
+  using C = Tc<D>;
   static std::atomic<unsigned long long> dkdv_in{0}, dq_in{0};
-  cudaError_t err = hopper::opt_in_smem((const void*)flash_bwd_dkdv_kernel<D>, C::SMEM, dkdv_in);
+  cudaError_t err =
+      hopper::opt_in_smem((const void*)flash_bwd_dkdv_kernel<D>, C::SMEM_DKDV, dkdv_in);
   if (err == cudaSuccess)
-    err = hopper::opt_in_smem((const void*)flash_bwd_dq_kernel<D>, C::SMEM, dq_in);
+    err = hopper::opt_in_smem((const void*)flash_bwd_dq_kernel<D>, C::SMEM_DQ, dq_in);
   if (err != cudaSuccess) return (int)err;
   const long rows = (long)B * S * H;
   flash_bwd_delta_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(o, dout, delta, B, S, H, D);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const bool shared_kv = KH < H;   // dK, dV sum query heads' shares from the workspace
-  flash_bwd_dkdv_kernel<D><<<dim3((S + C::BKV - 1) / C::BKV, H, B), NT, C::SMEM, st>>>(
-      q, k, v, dout, lse, delta, shared_kv ? dkh : dk, shared_kv ? dvh : dv, S, H, KH, scale,
+  const unsigned heads = (unsigned)B * H;
+  flash_bwd_dkdv_kernel<D><<<(unsigned)((S + BKV - 1) / BKV) * heads, NT, C::SMEM_DKDV, st>>>(
+      q, k, v, dout, lse, delta, shared_kv ? dkh : dk, shared_kv ? dvh : dv, B, S, H, KH, scale,
       causal, window, softcap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -372,8 +673,8 @@ int launch(const float* q, const float* k, const float* v, const float* o, const
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  flash_bwd_dq_kernel<D><<<dim3((S + C::BQ - 1) / C::BQ, H, B), NT, C::SMEM, st>>>(
-      q, k, v, dout, lse, delta, dq, S, H, KH, scale, causal, window, softcap);
+  flash_bwd_dq_kernel<D><<<(unsigned)((S + BQ - 1) / BQ) * heads, NT, C::SMEM_DQ, st>>>(
+      q, k, v, dout, lse, delta, dq, B, S, H, KH, scale, causal, window, softcap);
   return (int)cudaGetLastError();
 }
 
@@ -381,17 +682,20 @@ int launch(const float* q, const float* k, const float* v, const float* o, const
 
 // fp32 q, o, dout, dq (B, S, H, D); k, v, dk, dv (B, S, KH, D); lse and the
 // workspace delta (B, H, S); with KH < H the workspaces dkh and dvh (B, S,
-// H, D), else they may be null. Launches the kernels on `stream` and does
-// not synchronise; returns cudaGetLastError() after each launch (0 on
-// success).
+// H, D), else they may be null. q, k, v, dout and the outputs must be
+// 16-byte aligned. Launches the kernels on `stream` and does not
+// synchronise; returns cudaGetLastError() after each launch (0 on success).
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* lse, const void* dout, void* dq, void* dk,
                                    void* dv, void* delta, void* dkh, void* dvh, int B, int S,
                                    int H, int KH, int D, float scale, int causal, int window,
                                    float softcap, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || KH <= 0 || H % KH != 0 || B > 65535 || H > 65535 ||
-      (KH < H && !(dkh && dvh)))
+      (long)((S + 31) / 32) * B * H > 0x7fffffffL || (KH < H && !(dkh && dvh)))
     return (int)cudaErrorInvalidValue;
+  for (const void* p : {q, k, v, dout, (const void*)dq, (const void*)dk, (const void*)dv,
+                        (const void*)dkh, (const void*)dvh})
+    if (reinterpret_cast<uintptr_t>(p) % 16) return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define K1_BWD_ARGS                                                                           \
   static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),   \

@@ -18,57 +18,137 @@
 // and da and db written once, 20 bytes a step of a lane; at RecurrentGemma's
 // training call (B 4, S 256, W 2560) that is 52.4 MB, 15.6 us.
 //
-// Design: one thread a (b, w) lane walks t from S - 1 down to 0, the lanes
-// of a warp adjacent in W, so every warp load or store is one 128-byte
-// line. A thread loads T steps of a, y and dy into registers before the
-// chain of FMAs that consumes them, so 3 T loads a thread are in flight.
-// Simple and right first: the parallelism is B * W lanes, not S (at the
-// training call 10240 threads, 160 CTAs of 64), which leaves the card's
-// memory system partly idle; the chunked walk of the forward would split S
-// as well.
+// Design: the reverse of K4's chunked scan (`rglru_chunk_kernel`), so that
+// parallelism comes from S as well as from (B, W) and every byte still
+// crosses the memory bus once.
+// - A CTA owns a strip of LW = 32 lanes of one batch row and walks S in
+//   tiles of NC * T = 64 steps from the end; its NC = 8 chunks of T = 8
+//   steps split a tile, one warp a chunk, one lane a thread. At the
+//   training call that is 80 x 4 = 320 CTAs of 256 threads, all resident
+//   at once, walking 4 tiles each.
+// - Load first: a thread holds its chunk's a_{t+1} and dy_t (the a range
+//   shifted by one step, so chunks still read disjoint bytes; a_S is 1)
+//   and y_{t-1} (h0 at t = 0) in registers, and loads the next tile's
+//   chunk before this tile's walks.
+// - Local pass: each thread walks its T steps down from g = 0 and keeps the
+//   chunk's pair (A = prod a, G = local g at its first step), which it
+//   writes to shared memory.
+// - Carry: after one __syncthreads, each thread folds the pairs of the
+//   chunks above its own into the tile's incoming g (from the tile above),
+//   g <- A_j g + G_j for j = NC - 1 down; folding all NC gives the g that
+//   enters the tile below.
+// - Re-walk: each thread walks its T steps again from its chunk's true
+//   incoming g, reading a, dy and y from its registers, and writes db and
+//   da. Steps past S load as the identity step (a 1, dy 0) and store
+//   nothing; lanes past W load the identity and store nothing.
+// The pairs are double-buffered by tile, so one __syncthreads a tile
+// suffices, as in K4. dh0 = a_0 g_0 reads a_0 once a lane (it lies outside
+// every chunk's shifted range). rglru_scan_bwd_plan reports the plan of a
+// launch.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int T = 8;         // steps a thread has in registers at once
-constexpr int THREADS = 64;  // lanes a CTA
+constexpr int LW = 32;        // lanes of W a CTA: a multiple of a warp's 32
+constexpr int T = 8;          // steps a chunk (a thread's share of a tile)
+constexpr int NC = 8;         // chunks a tile
+constexpr int MIN_CTAS = 3;   // CTAs an SM holds: 85 registers a thread
+constexpr int TILE = T * NC;
+constexpr int THREADS = LW * NC;
 
-__global__ void __launch_bounds__(THREADS)
-rglru_bwd_kernel(const float* __restrict__ a, const float* __restrict__ y,
-                 const float* __restrict__ h0, const float* __restrict__ dy,
-                 const float* __restrict__ dh_last, float* __restrict__ da,
-                 float* __restrict__ db, float* __restrict__ dh0, int S, int W) {
-  const int w = blockIdx.x * THREADS + threadIdx.x;
-  if (w >= W) return;
-  const long lane = (long)blockIdx.y * W + w;          // (b, w) in (B, W)
-  const long col = (long)blockIdx.y * S * W + w;       // (b, 0, w) in (B, S, W)
-  const float h_init = h0 ? h0[lane] : 0.f;
-  float g = dh_last ? dh_last[lane] : 0.f;   // g_{t+1} (with a_{t+1} = 1 past the end)
-  float a_next = 1.f;
-  for (int t1 = S; t1 > 0; t1 -= T) {        // steps t1 - 1 down to t1 - T
-    float ar[T], yr[T], dyr[T];
+__host__ __device__ __forceinline__ int tiles_of(int S) { return (S + TILE - 1) / TILE; }
+
+// a chunk's T steps from step t of a lane's column (stride W), streamed
+// past L1 (each is read once): a_{t+u+1} (1 at or past S), dy_{t+u} (0
+// past S) and y_{t+u-1} (h_init before step 0; 0 past S, where nothing
+// is stored); the identity step for a lane past W
+__device__ __forceinline__ void load_chunk(float (&ar)[T], float (&dr)[T], float (&yr)[T],
+                                           const float* __restrict__ pa,
+                                           const float* __restrict__ pdy,
+                                           const float* __restrict__ py, float h_init, int t,
+                                           int S, int W, bool live) {
 #pragma unroll
-    for (int u = 0; u < T; ++u) {
-      const int t = t1 - 1 - u;
-      const long off = col + (long)t * W;
-      ar[u] = t >= 0 ? __ldcs(a + off) : 1.f;
-      dyr[u] = t >= 0 ? __ldcs(dy + off) : 0.f;
-      yr[u] = t >= 1 ? __ldcs(y + off - W) : h_init;   // h_{t-1}
+  for (int u = 0; u < T; ++u) {
+    const int s = t + u;
+    ar[u] = live && s + 1 < S ? __ldcs(pa + (long)(s + 1) * W) : 1.f;
+    dr[u] = live && s < S ? __ldcs(pdy + (long)s * W) : 0.f;
+    yr[u] = !live || s >= S ? 0.f : s == 0 ? h_init : __ldcs(py + (long)(s - 1) * W);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, MIN_CTAS)
+rglru_bwd_chunk_kernel(const float* __restrict__ a, const float* __restrict__ y,
+                       const float* __restrict__ h0, const float* __restrict__ dy,
+                       const float* __restrict__ dh_last, float* __restrict__ da,
+                       float* __restrict__ db, float* __restrict__ dh0, int S, int W) {
+  __shared__ float2 pairs[2][NC][LW];   // (prod a, local g) of each chunk, by tile parity
+  const int lane = threadIdx.x % LW, c = threadIdx.x / LW;
+  const int w = blockIdx.x * LW + lane;
+  const bool live = w < W;
+  const long row = (long)blockIdx.y * W + (live ? w : 0);   // (b, w) in (B, W)
+  const long col = (long)blockIdx.y * S * W + (live ? w : 0);
+  const float* pa = a + col;
+  const float* py = y + col;
+  const float* pdy = dy + col;
+  const float h_init = (h0 && live) ? h0[row] : 0.f;
+  // the g entering the tile from above, the same in every chunk: g_S =
+  // dh_last (with a_S = 1)
+  float g = (dh_last && live) ? dh_last[row] : 0.f;
+  const int tiles = tiles_of(S);
+
+  float ar[T], dr[T], yr[T];
+  load_chunk(ar, dr, yr, pa, pdy, py, h_init, (tiles - 1) * TILE + c * T, S, W, live);
+#pragma unroll 1
+  for (int k = tiles - 1; k >= 0; --k) {
+    const int t0 = k * TILE + c * T;   // this chunk's first step
+    float na[T], nd[T], ny[T];         // the next tile's chunk (the one below), in flight
+    if (k > 0) load_chunk(na, nd, ny, pa, pdy, py, h_init, t0 - TILE, S, W, live);
+    // local pass, last step first, from g = 0: the chunk's pair
+    float A = 1.f, G = 0.f;
+#pragma unroll
+    for (int u = T - 1; u >= 0; --u) {
+      A *= ar[u];
+      G = fmaf(ar[u], G, dr[u]);
     }
+    float2(&pk)[NC][LW] = pairs[k & 1];
+    pk[c][lane] = make_float2(A, G);
+    __syncthreads();
+    // carry: fold the pairs from the top chunk down; the fold above chunk c
+    // is its incoming g, the fold of all NC the tile below's
+    float gc = g;
 #pragma unroll
-    for (int u = 0; u < T; ++u) {
-      const int t = t1 - 1 - u;
-      if (t < 0) break;
-      g = fmaf(a_next, g, dyr[u]);
-      const long off = col + (long)t * W;
-      __stcs(db + off, g);
-      __stcs(da + off, g * yr[u]);
-      a_next = ar[u];
+    for (int j = NC - 1; j >= 0; --j) {
+      const float2 p = pk[j][lane];
+      gc = j == c ? g : gc;
+      g = fmaf(p.x, g, p.y);
+    }
+    // re-walk from the true incoming g, a, dy and y from registers
+    if (live) {
+#pragma unroll
+      for (int u = T - 1; u >= 0; --u) {
+        gc = fmaf(ar[u], gc, dr[u]);   // g_{t0 + u}
+        if (t0 + u < S) {
+          const long off = col + (long)(t0 + u) * W;
+          __stcs(db + off, gc);
+          __stcs(da + off, gc * yr[u]);
+        }
+      }
+    }
+    if (k > 0) {
+#pragma unroll
+      for (int u = 0; u < T; ++u) {
+        ar[u] = na[u];
+        dr[u] = nd[u];
+        yr[u] = ny[u];
+      }
     }
   }
-  if (dh0) dh0[lane] = a_next * g;   // a_0 g_0
+  if (dh0 && live && c == 0) dh0[row] = __ldcs(pa) * g;   // a_0 g_0
 }
+
+// a CTA for each strip of LW lanes of each batch row
+dim3 grid_of(int B, int W) { return dim3((W + LW - 1) / LW, B); }
 
 }  // namespace
 
@@ -78,10 +158,24 @@ extern "C" int rglru_scan_bwd(const void* a, const void* y, const void* h0, cons
                               const void* dh_last, void* da, void* db, void* dh0, int B, int S,
                               int W, void* stream) {
   if (B <= 0 || S <= 0 || W <= 0 || B > 65535) return (int)cudaErrorInvalidValue;
-  rglru_bwd_kernel<<<dim3((W + THREADS - 1) / THREADS, B), THREADS, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
+  rglru_bwd_chunk_kernel<<<grid_of(B, W), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(a), static_cast<const float*>(y), static_cast<const float*>(h0),
       static_cast<const float*>(dy), static_cast<const float*>(dh_last), static_cast<float*>(da),
       static_cast<float*>(db), static_cast<float*>(dh0), S, W);
   return (int)cudaGetLastError();
+}
+
+// The plan of a launch at (B, S, W), into out[6]: lanes a strip (LW), steps
+// a chunk (T), chunks a tile (NC), tiles of S, CTAs, and the CTAs an SM
+// holds by the occupancy calculator. Returns the CUDA error code (0 on
+// success).
+extern "C" int rglru_scan_bwd_plan(int B, int S, int W, int* out) {
+  if (B <= 0 || S <= 0 || W <= 0 || B > 65535) return (int)cudaErrorInvalidValue;
+  int per_sm = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, rglru_bwd_chunk_kernel, THREADS, 0);
+  const dim3 grid = grid_of(B, W);
+  const int plan[6] = {LW, T, NC, tiles_of(S), (int)(grid.x * grid.y), per_sm};
+  for (int i = 0; i < 6; ++i) out[i] = plan[i];
+  return (int)err;
 }

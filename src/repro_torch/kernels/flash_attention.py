@@ -8,11 +8,14 @@ tensors. The ``.cu`` picks one of two routes by dtype and head_dim alone
 everything else on the fp32 CUDA cores. ``flash_attention.launches``
 counts every launch, ``flash_attention.launches_by_route`` each route's.
 
-The gradient (K1-bwd) is ``csrc/flash_attention_bwd.cu``, fp32 only, which
-recomputes P from the forward's log-sum-exp per row: the CUDA-core route
-writes it when asked (``return_lse``). ``FlashAttention`` is the autograd
-Function that pairs the two; ``flash_attention_bwd.launches`` counts the
-backward's calls (each launches its kernels: three, four with KH < H).
+The gradient (K1-bwd) is ``csrc/flash_attention_bwd.cu``, fp32 in and out,
+its products on the tensor cores as 3xTF32 ``mma.sync`` (each fp32 operand
+split into two TF32 parts, three products a multiply: fp32-grade error) at
+every head_dim, which recomputes P from the forward's log-sum-exp per row:
+the CUDA-core route writes it when asked (``return_lse``).
+``FlashAttention`` is the autograd Function that pairs the two;
+``flash_attention_bwd.launches`` counts the backward's calls (each launches
+its kernels: three, four with KH < H).
 """
 
 import ctypes
@@ -44,14 +47,20 @@ def _fn():
     return fn
 
 
-@functools.cache
-def _bwd_fn():
-    """The backward's C entry point, built, loaded and typed once per process."""
-    fn = build.load("flash_attention_bwd").flash_attention_bwd
+def bwd_entry(lib):
+    """The C entry point flash_attention_bwd of `lib` (a built
+    csrc/flash_attention_bwd.cu, loaded by ctypes), typed."""
+    fn = lib.flash_attention_bwd
     fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _bwd_fn():
+    """The backward's C entry point, built, loaded and typed once per process."""
+    return bwd_entry(build.load("flash_attention_bwd"))
 
 
 def kernel_route(dtype, head_dim) -> str:
@@ -132,12 +141,25 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, scale=None, causal=True, window=
     for t in (o, lse, do):
         if t.dtype != torch.float32 or t.device != q.device or not t.is_contiguous():
             raise ValueError("o, lse and do must be contiguous fp32 on q's device")
+    if any(t.data_ptr() % 16 for t in (q, k, v, do)):
+        raise ValueError("flash_attention_bwd kernel copies q, k, v and do in 16-byte pieces: "
+                         "each must start 16-byte aligned")
+    out = bwd_launch(_bwd_fn(), q, k, v, o, lse, do, scale=scale, causal=causal,
+                     window=window, softcap=softcap)
+    flash_attention_bwd.launches += 1
+    return out
+
+
+def bwd_launch(fn, q, k, v, o, lse, do, *, scale=None, causal=True, window=0, softcap=None):
+    """Launch `fn` (an entry point typed by ``bwd_entry``) on inputs that
+    ``flash_attention_bwd`` has checked, into new (dq, dk, dv), on the
+    current stream of q's device; raises on a CUDA error."""
+    b, s, h, d = q.shape
     scale = scale if scale is not None else d ** -0.5
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     # each query head's share of dk and dv, which the kernel sums per kv head
     shares = [torch.empty_like(q) for _ in range(2)] if k.shape[2] < h else [None, None]
-    fn = _bwd_fn()
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
                  do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
@@ -146,7 +168,6 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, scale=None, causal=True, window=
                  float(softcap or 0.0), torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error {err}")
-    flash_attention_bwd.launches += 1
     return dq, dk, dv
 
 

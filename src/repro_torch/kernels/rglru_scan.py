@@ -6,10 +6,11 @@ one batch row, walking S in tiles of chunks (``plan`` reads the plan from
 the built kernel). Its plain PyTorch version is ``ops.rglru_scan_plain``,
 which ``ops.rglru_scan`` takes for CPU tensors.
 
-The gradient (K4-bwd) is ``csrc/rglru_scan_bwd.cu``, the recurrence run in
-reverse, which reads the forward's h in fp32. ``RGLRUScan`` is the autograd
-Function that pairs the two: it asks the forward for an fp32 y whatever
-the output dtype, keeps it, and casts the output.
+The gradient (K4-bwd) is ``csrc/rglru_scan_bwd.cu``, K4's chunked scan run
+in reverse (``bwd_plan`` reads its plan), which reads the forward's h in
+fp32. ``RGLRUScan`` is the autograd Function that pairs the two: it asks
+the forward for an fp32 y whatever the output dtype, keeps it, and casts
+the output.
 """
 
 import ctypes
@@ -53,19 +54,28 @@ def launch(fn, a, b, h0, y, h_last):
         raise RuntimeError(f"rglru_scan launch failed: CUDA error {err}")
 
 
-def plan(b, s, w, lib=None) -> dict:
-    """The plan of a launch at (B, S, W), from the built kernel (or from
-    `lib`, another build of csrc/rglru_scan.cu): lanes a strip (lw), steps
-    a chunk (t), chunks a tile (nc), tiles of S, CTAs, and the CTAs an SM
-    holds by the CUDA occupancy calculator."""
-    fn = (lib or build.load("rglru_scan")).rglru_scan_plan
+def _plan(fn, b, s, w) -> dict:
     fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * len(PLAN_KEYS))()
     err = fn(b, s, w, out)
     if err:
-        raise RuntimeError(f"rglru_scan_plan failed: CUDA error {err}")
+        raise RuntimeError(f"{fn.__name__} failed: CUDA error {err}")
     return dict(zip(PLAN_KEYS, out))
+
+
+def plan(b, s, w, lib=None) -> dict:
+    """The plan of a launch at (B, S, W), from the built kernel (or from
+    `lib`, another build of csrc/rglru_scan.cu): lanes a strip (lw), steps
+    a chunk (t), chunks a tile (nc), tiles of S, CTAs, and the CTAs an SM
+    holds by the CUDA occupancy calculator."""
+    return _plan((lib or build.load("rglru_scan")).rglru_scan_plan, b, s, w)
+
+
+def bwd_plan(b, s, w) -> dict:
+    """The plan of a K4-bwd launch at (B, S, W), from the built kernel, with
+    the keys of ``plan``."""
+    return _plan(build.load("rglru_scan_bwd").rglru_scan_bwd_plan, b, s, w)
 
 
 def rglru_scan(a, b, *, h0=None, out_dtype=torch.float32):

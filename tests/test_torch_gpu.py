@@ -345,6 +345,13 @@ def _close_grad(got, want):
     (2, 77, 4, 2, 64, {"softcap": 30.0}),
     (2, 300, 10, 1, 256, {"window": 100}),        # window < S
     (1, 40, 4, 4, 16, {"causal": False}),
+    # the tensor-core tiles' edges (32 rows by 32 keys): one past a tile, one
+    # past two, ragged over ten; a window ending inside a key tile; D 16
+    (2, 33, 4, 2, 64, {}),
+    (1, 65, 10, 1, 256, {"window": 20}),
+    (2, 300, 4, 1, 128, {"window": 45}),
+    (2, 65, 4, 2, 16, {"window": 7}),
+    (1, 33, 2, 1, 16, {"causal": False, "softcap": 5.0}),
 ])
 def test_flash_attention_backward_kernel(cuda, b, s, h, kh, d, kw):
     """K1 in fp32 under autograd: its forward writes each row's log-sum-exp,
@@ -371,11 +378,30 @@ def test_flash_attention_backward_kernel(cuda, b, s, h, kh, d, kw):
         _close_grad(g, a)
 
 
+def test_flash_attention_backward_refuses_misaligned(cuda):
+    """K1-bwd copies q, k, v and do in 16-byte pieces: a tensor that starts
+    off a 16-byte boundary (a contiguous view at an odd offset) is refused
+    before any launch."""
+    from repro_torch.kernels import flash_attention as tflash
+    b, s, h, d = 1, 32, 2, 16
+    q = torch.randn(b * s * h * d + 1, device=cuda)[1:].view(b, s, h, d)
+    k = torch.randn(b, s, h, d, device=cuda)
+    o, lse = tflash.flash_attention(k, k, k, return_lse=True)
+    with pytest.raises(ValueError, match="16-byte"):
+        tflash.flash_attention_bwd(q, k, k, o, lse, k)
+
+
 @pytest.mark.parametrize("b,s,w,out_dtype,with_h0", [
     (4, 256, 2560, torch.float32, False),      # RecurrentGemma's training call
     (2, 300, 37, torch.float32, True),
     (1, 5, 100, torch.bfloat16, True),
     (3, 1, 64, torch.float32, True),
+    # the chunked walk's edges (tiles of 64 steps, strips of 32 lanes): S over
+    # many tiles, ragged; S 1 at W 37; B 1 under one strip
+    (2, 4096, 256, torch.float32, True),
+    (1, 2049, 96, torch.float32, False),
+    (1, 1, 37, torch.float32, True),
+    (1, 300, 20, torch.float32, False),
 ])
 def test_rglru_scan_backward_kernel(cuda, b, s, w, out_dtype, with_h0):
     """K4 under autograd keeps its fp32 h and K4-bwd's da, db, dh0 match the
@@ -403,6 +429,17 @@ def test_rglru_scan_backward_kernel(cuda, b, s, w, out_dtype, with_h0):
     for g, p, q in zip(got, plain, auto):
         _close_grad(g, p)
         _close_grad(g, q)
+
+
+@pytest.mark.parametrize("b,s,w", [(4, 256, 2560), (1, 1, 37), (2, 4096, 256)])
+def test_rglru_scan_backward_plan(cuda, b, s, w):
+    """K4-bwd's plan from the built kernel: a CTA a strip of lanes of one
+    batch row, S in tiles of chunks, and at least one CTA an SM."""
+    from repro_torch.kernels import rglru_scan as trglru
+    p = trglru.bwd_plan(b, s, w)
+    assert p["lw"] % 32 == 0 and p["ctas_per_sm"] >= 1
+    assert p["tiles"] == -(-s // (p["t"] * p["nc"]))
+    assert p["ctas"] == b * -(-w // p["lw"])
 
 
 def test_kernels_without_a_backward_refuse_grad(cuda):

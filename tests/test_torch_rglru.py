@@ -12,6 +12,9 @@ summation order only; a wrong gate, conv shift or erf GELU moves the block's
 output by 1e-3 or more.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -169,6 +172,96 @@ def test_chunked_scan_at_kernel_plans(b, s, w, t, nc):
     scale = max(float(want_y.abs().max()), 1.0)
     torch.testing.assert_close(got_y, want_y, atol=TOL * scale, rtol=TOL)
     torch.testing.assert_close(got_h, want_h, atol=TOL * scale, rtol=TOL)
+
+
+def _bwd_constant(name):
+    cu = Path(trglru_scan.__file__).resolve().parent / "csrc" / "rglru_scan_bwd.cu"
+    return int(re.search(rf"^constexpr int {name} = (\d+);", cu.read_text(), re.M).group(1))
+
+
+def _chunked_scan_bwd(a, y, h0, dy, dh_last, t, nc):
+    """A plain mirror of K4-bwd's walk (csrc/rglru_scan_bwd.cu), for these
+    tests only: S in tiles of nc chunks of t steps, walked from the last
+    tile; a chunk holds a_{s+1} (1 at or past S), dy_s (0 past S) and
+    y_{s-1} (h0 at s = 0); each chunk walks down from g = 0 for its pair
+    (prod a, local g), the pairs fold from the top chunk down from the
+    tile's incoming g into each chunk's incoming g and the tile below's,
+    and each chunk walks again from its incoming g to give db = g and
+    da = g y_{s-1}. Returns (da, db, dh0 = a_0 g_0 or None)."""
+    bsz, s, w = a.shape
+    n = -(-s // (t * nc)) * t * nc
+    h_init = a.new_zeros(bsz, 1, w) if h0 is None else h0[:, None]
+    shape = (bsz, -1, nc, t, w)
+    an = torch.cat([a[:, 1:], a.new_ones(bsz, n - s + 1, w)], 1).reshape(shape)
+    dn = torch.cat([dy, dy.new_zeros(bsz, n - s, w)], 1).reshape(shape)
+    yn = torch.cat([h_init, y[:, :-1], y.new_zeros(bsz, n - s, w)], 1).reshape(shape)
+    g = a.new_zeros(bsz, w) if dh_last is None else dh_last
+    da, db = [], []
+    for k in reversed(range(an.shape[1])):
+        ta, td = an[:, k], dn[:, k]                       # (B, nc, t, W)
+        prod, local = ta.new_ones(bsz, nc, w), ta.new_zeros(bsz, nc, w)
+        for u in reversed(range(t)):
+            prod, local = prod * ta[:, :, u], ta[:, :, u] * local + td[:, :, u]
+        starts = [None] * nc
+        for j in reversed(range(nc)):
+            starts[j] = g
+            g = prod[:, j] * g + local[:, j]
+        gc, gs = torch.stack(starts, 1), [None] * t
+        for u in reversed(range(t)):
+            gc = ta[:, :, u] * gc + td[:, :, u]
+            gs[u] = gc
+        gt = torch.stack(gs, 2)
+        db.insert(0, gt.reshape(bsz, nc * t, w))
+        da.insert(0, (gt * yn[:, k]).reshape(bsz, nc * t, w))
+    return (torch.cat(da, 1)[:, :s], torch.cat(db, 1)[:, :s],
+            None if h0 is None else a[:, 0] * g)
+
+
+def _jax_scan_vjp(monkeypatch, a, b, h0, dy, dh_last):
+    """jax.vjp of the JAX package's associative scan (``repro.nn.rglru.rglru``)
+    in a and b themselves: its gates are bypassed for the call."""
+    monkeypatch.setattr(jrglru, "_gates", lambda p, x: (p["a"], x))
+    ins = tuple(jnp.asarray(x) for x in (a, b) + (() if h0 is None else (h0,)))
+    dh = np.zeros_like(a[:, 0]) if dh_last is None else dh_last
+
+    @jax.jit   # one compiled program: faster on the CPU than the vjp's ops one by one
+    def grads(ins, cot):
+        return jax.vjp(lambda a, b, *h: jrglru.rglru({"a": a}, b, *h), *ins)[1](cot)
+    return grads(ins, (jnp.asarray(dy), jnp.asarray(dh)))
+
+
+@pytest.mark.parametrize("with_dh", [False, True])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("b,s,w", [
+    (2, 150, 40),     # ragged S over three tiles
+    (1, 1, 37),       # S 1, B 1
+    (2, 64, 5),       # one whole tile, W under a strip
+    (1, 300, 7),      # B 1, ragged S over five tiles
+])
+def test_chunked_scan_bwd_matches_plain_and_jax_vjp(monkeypatch, b, s, w, with_h0, with_dh):
+    """K4-bwd's reverse chunk-and-carry walk at the kernel's T and NC (read
+    from the .cu) against ``ops.rglru_scan_bwd_plain`` and jax.vjp of the
+    associative scan, within 1e-5 of each gradient's max."""
+    t, nc = _bwd_constant("T"), _bwd_constant("NC")
+    rng = np.random.default_rng(12)
+    a, bb, h0 = _scan_inputs(13, b, s, w, h0=with_h0)
+    dy = rng.standard_normal((b, s, w)).astype(np.float32)
+    dh = rng.standard_normal((b, w)).astype(np.float32) if with_dh else None
+    ta, tb = torch.from_numpy(a), torch.from_numpy(bb)
+    th0 = None if h0 is None else torch.from_numpy(h0)
+    tdh = None if dh is None else torch.from_numpy(dh)
+    y, _ = ops.rglru_scan_plain(ta, tb, h0=th0)
+    got = _chunked_scan_bwd(ta, y, th0, torch.from_numpy(dy), tdh, t, nc)
+    plain = ops.rglru_scan_bwd_plain(ta, y, th0, torch.from_numpy(dy), tdh)
+    jgrads = _jax_scan_vjp(monkeypatch, a, bb, h0, dy, dh)
+    assert (got[2] is None) == (h0 is None)
+    got, plain = [g for g in got if g is not None], [p for p in plain if p is not None]
+    for g, p, j in zip(got, plain, jgrads):
+        scale = max(float(p.abs().max()), 1e-30)
+        torch.testing.assert_close(g, p, atol=TOL * scale, rtol=TOL)
+        j = np.asarray(j, np.float32)
+        np.testing.assert_allclose(g.numpy(), j, atol=TOL * max(float(np.abs(j).max()), 1e-30),
+                                   rtol=TOL)
 
 
 def test_rglru_kernel_wrapper_refuses_cpu_and_bad_inputs():
