@@ -56,7 +56,28 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    optimizer parts, peak memory and a profiler breakdown;
 9. train restart: the launcher at the reduced config on the card,
    checkpointing every 2 steps, restarts from its checkpoint after a
-   failure injected at step 3 and ends at step 6.
+   failure injected at step 3 and ends at step 6;
+10. R2D2 parity: the conv-LSTM agent at the example's reduced config, fp32
+   with TF32 off: the forward's q-values and final LSTM state,
+   decode_step, and make_r2d2_loss's loss, priorities and every gradient
+   leaf, with and without is_weights, card against CPU within 1e-4 of
+   each tensor's max;
+11. R2D2 learner at the published widths (84x84x4, core 512, 18 actions,
+   burn-in 40, unroll 80): batches of 64 x 120 from prioritized replay
+   through the R2D2 train step, 3 warm steps and 5 timed; ms/step, frames
+   trained/s, the parts (online forward, target forward, loss, backward,
+   optimizer) on CUDA events, a profiler breakdown (convolutions, GEMMs,
+   the LSTM gates, the rest; device operations; idle share; AdamW alone),
+   peak memory, and the host's cost of sampling a batch and moving it;
+12. R2D2 system: SeedSystem (host backend, in-process transport) built by
+   ``repro_torch.launch.train_r2d2.build`` at the published widths,
+   actors from the host's core count, 8 lanes each of ALESimEnv(frame=84,
+   channels=4), learner batch 64, for a 20 s window: env frames/s, learner
+   steps/s, batch occupancy, queue wait, inference and learner seconds;
+   env_frames == actor_iterations * lanes, learner steps > 0, no learner or
+   inference error, every parameter and the slot state on the card. No
+   kernel of the port may launch in phases 10-12 (the path has no Pallas
+   kernel): the counts are set to 0 before them and read after.
 
 The kernel phase (3) also holds K1-bwd and K4-bwd to their plain versions
 (the formulas each kernel computes) at the train call, the smoke widths,
@@ -1223,6 +1244,326 @@ def train_restart_phase():
         raise AssertionError("the launcher did not restart from its checkpoint to the end")
 
 
+# the R2D2 path: the example's reduced config for the card-vs-CPU parity,
+# and the learner's batch of Kapturowski et al. 2019 at the published widths
+R2D2_REDUCED = dict(obs_size=42, obs_channels=2, core_dim=128, num_actions=6, burn_in=4,
+                    unroll=16, n_step=3, target_update_period=50)
+R2D2_BATCH = 64
+R2D2_WINDOW_S = 20.0
+# sequences of 120 frames of 84 x 84 x 4 (3.39 MB each); R2D2 keeps about
+# 1M transitions, 8333 such sequences, 28 GB of frames at 120 a sequence
+R2D2_CAPACITY = 1024
+
+
+def set_fp32():
+    """The R2D2 path is fp32, as the reference's params are: TF32 off for
+    cuBLAS's products and cuDNN's convolutions (cuDNN's default is on)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def check_rel(name, got, want, tol=GRAD_TOL):
+    """|got - want| <= tol * max |want| elementwise, finite, same shape."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    err = max_err(got, want) if want.numel() else 0.0
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()) or err > tol * scale:
+        raise AssertionError(f"{name}: card vs CPU differ by {err:.3e} of max {scale:.3e}")
+    return err, scale
+
+
+def r2d2_parity_phase():
+    """At the example's reduced config, fp32 with TF32 off: the forward's
+    q-values and final LSTM state, decode_step, and make_r2d2_loss's loss,
+    priorities and every gradient leaf, with and without is_weights, on the
+    card against the CPU on the same params."""
+    from repro_torch.configs.r2d2_atari import AtariConfig
+    from repro_torch.core.losses import make_r2d2_loss, param_grads
+    from repro_torch.models.atari import atari_forward, make_atari
+
+    set_fp32()
+    acfg = AtariConfig(**R2D2_REDUCED)
+    bundle = make_atari(acfg)
+    b, t = 4, acfg.burn_in + acfg.unroll
+    log(f"== R2D2 parity: reduced config (frame {acfg.obs_size}, {acfg.obs_channels} channels, "
+        f"core {acfg.core_dim}, burn {acfg.burn_in}, unroll {acfg.unroll}), card vs CPU, fp32, "
+        f"TF32 {{matmul {torch.backends.cuda.matmul.allow_tf32}, cudnn "
+        f"{torch.backends.cudnn.allow_tf32}}}, batch {b} x {t}")
+    nets = {}
+    for dev in ("cpu", "cuda"):
+        online, target = bundle.init(0, device=dev), bundle.init(1, device=dev)
+        if dev == "cuda":
+            online.load_state_dict(nets["cpu"][0].state_dict())
+            target.load_state_dict(nets["cpu"][1].state_dict())
+        nets[dev] = (online.requires_grad_(True), target)
+    gen = torch.Generator().manual_seed(3)
+    frame = (acfg.obs_size, acfg.obs_size, acfg.obs_channels)
+    batch = {"obs": torch.randint(0, 256, (b, t) + frame, generator=gen, dtype=torch.uint8),
+             "actions": torch.randint(0, acfg.num_actions, (b, t), generator=gen),
+             "rewards": torch.randn(b, t, generator=gen),
+             "dones": (torch.rand(b, t, generator=gen) < 0.1).float(),
+             "core": tuple(0.5 * torch.randn(b, acfg.core_dim, generator=gen) for _ in range(2)),
+             "is_weights": 0.2 + 0.8 * torch.rand(b, generator=gen)}
+
+    def on(dev, x):
+        return tuple(v.to(dev) for v in x) if isinstance(x, tuple) else x.to(dev)
+
+    res = {}
+    for dev, (online, target) in nets.items():
+        db = {k: on(dev, v) for k, v in batch.items()}
+        with torch.no_grad():
+            out, (h, c) = atari_forward(acfg, online, db)
+            q1, (h1, c1) = bundle.decode_step(online, db["obs"][:, 0], db["core"])
+        loss_fn = make_r2d2_loss(bundle, acfg)
+        r = {"forward q": out.logits, "forward h": h, "forward c": c, "decode_step q": q1,
+             "decode_step h": h1, "decode_step c": c1}
+        named = dict(online.named_parameters())
+        for case in ("plain", "is_weights"):
+            cb = db if case == "is_weights" else {k: v for k, v in db.items()
+                                                  if k != "is_weights"}
+            loss, m = loss_fn(online, target, cb)
+            r[f"{case} loss"], r[f"{case} priorities"] = loss.detach(), m["priorities"]
+            for n, g in param_grads(loss, named).items():
+                r[f"{case} grad {n}"] = g
+        res[dev] = r
+    worst = (0.0, "")
+    for name, want in res["cpu"].items():
+        err, scale = check_rel(name, res["cuda"][name], want)
+        if scale and err / scale > worst[0]:
+            worst = (err / scale, name)
+    zero = [n for n, v in res["cpu"].items() if n.startswith("is_weights grad") and v.any()]
+    live = [n for n, v in res["cpu"].items() if n.startswith("plain grad") and not v.any()]
+    if zero or live:
+        raise AssertionError(f"gradients: with is_weights not zero {zero}; plain all-zero {live}")
+    log(f"   {len(res['cpu'])} tensors within {GRAD_TOL:g} of each one's max (the worst "
+        f"{worst[0]:.2e}, {worst[1]}): q {float(res['cpu']['forward q'].abs().max()):.3f}; "
+        f"loss {float(res['cuda']['plain loss']):.6f} (CPU {float(res['cpu']['plain loss']):.6f}), "
+        f"with is_weights {float(res['cuda']['is_weights loss']):.6f}; the weighted loss's "
+        "gradient is zero on both, as the reference's is (ROADMAP section 3)")
+
+
+def r2d2_breakdown(prof, n):
+    """Device time per call of an R2D2 step from a profiler trace, grouped:
+    cuDNN's convolutions (with their layout copies and the complex GEMMs
+    and transforms of its FFT algorithms; the agent has no other complex
+    arithmetic), GEMMs, the LSTM gates' sigmoid and tanh (forward and
+    backward), and everything else; the port's CUDA kernels must not
+    appear."""
+    spans = {g: [] for g in ("conv", "gemm", "lstm_gates", "other")}
+    kernels = 0
+    for e in prof.events():
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        kernels += 1
+        name = e.name.lower()
+        if any(k in name for k in ("flash_", "decode_split", "decode_combine", "ssd_",
+                                   "rglru_")):
+            raise AssertionError(f"a port kernel ran in the R2D2 path: {e.name}")
+        if any(k in name for k in ("conv", "cudnn", "fprop", "dgrad", "wgrad", "nchw", "nhwc",
+                                   "fft", "cf32")):
+            g = "conv"
+        elif any(k in name for k in ("gemm", "gemv", "cutlass", "nvjet", "xmma", "cublas")):
+            g = "gemm"
+        elif "sigmoid" in name or "tanh" in name:
+            g = "lstm_gates"
+        else:
+            g = "other"
+        spans[g].append((e.time_range.start, e.time_range.end))
+    groups = {"busy": union_ms([s for found in spans.values() for s in found]) / n}
+    groups.update({g: union_ms(found) / n for g, found in spans.items()})
+    if groups["busy"] <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    return groups, kernels / n
+
+
+def r2d2_learner_phase():
+    """The learner at the published R2D2 widths (AtariConfig(), nothing
+    cut): batches of 64 sequences of 120 steps sampled from prioritized
+    replay, moved to the card as the system's learner moves them, through
+    the R2D2 train step (AdamW, target net); 3 warm steps, 5 timed, the
+    step's parts on CUDA events, profiler breakdowns, peak memory, and the
+    host's cost of sampling a batch and of its transfer."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.r2d2_atari import AtariConfig
+    from repro_torch.core.losses import (init_train_state, make_r2d2_loss, make_train_step,
+                                         param_grads)
+    from repro_torch.core.r2d2 import r2d2_loss
+    from repro_torch.core.replay import PrioritizedReplay
+    from repro_torch.launch.train_r2d2 import device_batch
+    from repro_torch.models.atari import atari_forward, make_atari
+    from repro_torch.optim import adamw, apply_updates
+    from repro_torch.utils.tree import tree_size
+
+    set_fp32()
+    acfg = AtariConfig()
+    t = acfg.burn_in + acfg.unroll
+    b = R2D2_BATCH
+    dev = torch.device("cuda")
+    bundle = make_atari(acfg)
+    opt = adamw(5e-4)
+    state = init_train_state(bundle, opt, 0, dev, with_target=True)
+    train_step = make_train_step(bundle, opt, algo="r2d2", acfg=acfg)
+    log(f"== R2D2 learner: {acfg.name} at the published widths ({acfg.obs_size}x{acfg.obs_size}x"
+        f"{acfg.obs_channels} frames, core {acfg.core_dim}, {acfg.num_actions} actions, burn-in "
+        f"{acfg.burn_in}, unroll {acfg.unroll}, n-step {acfg.n_step}, gamma {acfg.gamma}), "
+        f"{tree_size(state['params'])} params, fp32, AdamW; batch {b} x {t} from replay")
+    rng = np.random.default_rng(0)
+    frames = [rng.integers(0, 256, (t, acfg.obs_size, acfg.obs_size, acfg.obs_channels),
+                           dtype=np.uint8) for _ in range(16)]
+    replay = PrioritizedReplay(2 * b, alpha=acfg.priority_exponent, seed=0)
+    for i in range(2 * b):
+        replay.add({"obs": frames[i % 16],
+                    "actions": rng.integers(0, acfg.num_actions, t).astype(np.int32),
+                    "rewards": (rng.random(t) < 0.05).astype(np.float32),
+                    "dones": (rng.random(t) < 0.002).astype(np.float32)},
+                   priority=float(rng.uniform(0.5, 2.0)))
+
+    def next_batch(times):
+        t0 = time.perf_counter()
+        batch, idx, _ = replay.sample(b)
+        t1 = time.perf_counter()
+        db = device_batch(batch, dev, acfg.core_dim)
+        torch.cuda.synchronize()
+        times["sample"].append((t1 - t0) * 1e3)
+        times["transfer"].append((time.perf_counter() - t1) * 1e3)
+        return db, idx
+
+    host = {"sample": [], "transfer": []}
+    losses, step_ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(8):
+        db, idx = next_batch(host)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = train_step(state, db)
+        torch.cuda.synchronize()
+        if i >= 3:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        replay.update_priorities(idx, m["priorities"].cpu().numpy())
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    if not all(map(math.isfinite, losses)) or state["step"] != 8:
+        raise AssertionError(f"losses {losses}, step {state['step']}")
+    mean_ms = sum(step_ms) / len(step_ms)
+    log(f"   steps (host clock around a synchronised step) {', '.join(f'{x:.2f}' for x in step_ms)}"
+        f" ms: mean {mean_ms:.2f} ms, {b * t / (mean_ms / 1e3):.0f} frames trained/s; losses "
+        f"{[round(x, 5) for x in losses]}; peak memory {peak / 1e9:.3f} GB")
+    log(f"   host, one batch of {b} x {t}: replay.sample "
+        f"{', '.join(f'{x:.1f}' for x in host['sample'])} ms; transfer to the card (obs uint8, "
+        f"{b * t * acfg.obs_size ** 2 * acfg.obs_channels / 1e6:.0f} MB) "
+        f"{', '.join(f'{x:.1f}' for x in host['transfer'])} ms")
+
+    # the step's parts, called as the train step calls them, CUDA events
+    # between: each part's share of the step's device timeline
+    db, _ = next_batch(host)
+    params, target = state["params"], state["target"]
+    named = dict(params.named_parameters())
+    burn = acfg.burn_in
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    out, _ = atari_forward(acfg, params, db)
+    ev[1].record()
+    with torch.no_grad():
+        tout, _ = atari_forward(acfg, target, db)
+    ev[2].record()
+    res = r2d2_loss(None, out.logits[:, burn:], tout.logits[:, burn:], db["actions"][:, burn:],
+                    db["rewards"][:, burn:], db["dones"][:, burn:], n_step=acfg.n_step,
+                    gamma=acfg.gamma, priority_exponent=acfg.priority_exponent)
+    ev[3].record()
+    grads = param_grads(res.loss, named)
+    ev[4].record()
+    updates, state["opt_state"], _ = opt.update(grads, state["opt_state"], named, state["step"])
+    apply_updates(named, updates)
+    ev[5].record()
+    torch.cuda.synchronize()
+    state["step"] += 1
+    parts = {p: ev[i].elapsed_time(ev[i + 1]) for i, p in enumerate(
+        ("online_forward", "target_forward", "loss", "backward", "optimizer"))}
+    total = sum(parts.values())
+    log("   parts (CUDA events) " + ", ".join(f"{p} {v:.2f} ms ({v / total:.3f})"
+                                              for p, v in parts.items()))
+    del out, tout, res, grads, updates
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, m = train_step(state, db)
+        torch.cuda.synchronize()
+    groups, n_ops = r2d2_breakdown(prof, 1)
+    loss_fn = make_r2d2_loss(bundle, acfg)
+    loss, _ = loss_fn(params, target, db)
+    grads = param_grads(loss, named)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        updates, state["opt_state"], _ = opt.update(grads, state["opt_state"], named,
+                                                    state["step"])
+        apply_updates(named, updates)
+        torch.cuda.synchronize()
+    state["step"] += 1
+    adamw_ms, adamw_ops = r2d2_breakdown(prof, 1)
+    idle = 1.0 - groups["busy"] / mean_ms
+    log(f"   device time of a step (ms): {json.dumps(groups)}; {n_ops:.0f} device operations; "
+        f"idle share {idle:.3f} of the mean step; AdamW alone {adamw_ms['busy']:.2f} ms in "
+        f"{adamw_ops:.0f} operations")
+    del grads, updates, loss
+    return {"step_ms": step_ms, "mean_step_ms": mean_ms,
+            "frames_trained_per_s": b * t / (mean_ms / 1e3), "parts_ms": parts,
+            "device_ms": groups, "device_ops": n_ops, "idle_share": idle,
+            "adamw_ms": adamw_ms["busy"], "adamw_ops": adamw_ops, "peak_gb": peak / 1e9,
+            "sample_ms": host["sample"], "transfer_ms": host["transfer"], "losses": losses}
+
+
+def r2d2_system_phase():
+    """The SEED R2D2 system at the published widths through
+    ``repro_torch.launch.train_r2d2.build``: host backend, in-process
+    transport, ALESimEnv(frame=84, channels=4) at its defaults, N actors x E
+    lanes from the host's core count, the learner at batch 64; a window of
+    R2D2_WINDOW_S seconds after warm-up."""
+    import os
+
+    from repro_torch.configs.r2d2_atari import AtariConfig
+    from repro_torch.envs.alesim import ALESimEnv
+    from repro_torch.launch.train_r2d2 import build
+
+    acfg = AtariConfig()
+    cpus = os.cpu_count()
+    actors, lanes = max(2, cpus // 2), 8
+    run = build(acfg, actors=actors, envs_per_actor=lanes, device="cuda",
+                env_factory=lambda: ALESimEnv(frame=84, channels=4), learner_batch=R2D2_BATCH,
+                replay_capacity=R2D2_CAPACITY)
+    system = run.system
+    log(f"== R2D2 system: SeedSystem host/inproc, {acfg.name} at the published widths, "
+        f"os.cpu_count() {cpus}: {actors} actors x {lanes} lanes of ALESimEnv(frame=84, "
+        f"channels=4), learner batch {R2D2_BATCH} x {acfg.burn_in + acfg.unroll}, replay "
+        f"capacity {R2D2_CAPACITY} sequences (cut: R2D2 keeps about 1M transitions), "
+        f"{R2D2_WINDOW_S:.0f} s window; TF32 {run.tf32}")
+    system.warmup()
+    stats = system.run(seconds=R2D2_WINDOW_S)
+    learner = system.learner
+    keys = ("env_frames_per_s", "env_frames", "actor_iterations", "learner_steps",
+            "learner_steps_per_s", "mean_batch_occupancy", "mean_queue_wait_ms",
+            "inference_batches", "inference_compute_s", "mean_param_lag", "unroll_flushes")
+    out = {k: stats[k] for k in keys}
+    out.update(learner_train_s=learner.train_time_s, learner_wait_s=learner.wait_time_s,
+               replay_size=len(system.replay), actors=actors, lanes=lanes, cpus=cpus)
+    log(f"   {json.dumps(out)}")
+    if stats["env_frames"] != stats["actor_iterations"] * lanes:
+        raise AssertionError(f"env_frames {stats['env_frames']} != actor_iterations "
+                             f"{stats['actor_iterations']} x {lanes}")
+    if stats["learner_steps"] <= 0:
+        raise AssertionError("the learner took no step")
+    if stats["learner_error"] or stats["inference_error"]:
+        raise AssertionError(f"learner error {stats['learner_error']}; inference error "
+                             f"{stats['inference_error']}")
+    tensors = [*learner.state["params"].parameters(), *learner.state["target"].parameters(),
+               *run.published.params.parameters(), *run.core.values()]
+    if not all(x.is_cuda for x in tensors):
+        raise AssertionError("a parameter or the slot state is not on the card")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs "
@@ -1307,12 +1648,27 @@ def main():
         launches[name] += counts[name]
     torch.cuda.empty_cache()
     train_restart_phase()
+    torch.cuda.empty_cache()
+    # the R2D2 path reaches none of the port's kernels: the counts are set
+    # to 0 before its phases and must read 0 after them
+    from repro_torch.kernels import flash_attention as K1, ops, ssd_scan as K3
+    ops.reset_launch_counts()
+    r2d2_parity_phase()
+    r2d2_metrics = {"learner": r2d2_learner_phase()}
+    torch.cuda.empty_cache()
+    r2d2_metrics["system"] = r2d2_system_phase()
+    counts = ops.launch_counts()
+    if any(counts.values()) or any(K1.flash_attention.launches_by_route.values()) \
+            or any(K3.ssd_scan.launches_by_route.values()):
+        raise AssertionError(f"the R2D2 phases launched a port kernel: {counts}")
+    log(f"   R2D2 phases: kernel launches {counts} (none, as the path has no Pallas kernel)")
 
     for name, row in rows.items():
         row["launches"] = launches[name]
     for arch, metrics in serve_metrics.items():
         log(f"serve {arch}: {json.dumps(metrics)}")
     log(f"train {TRAIN['arch']}: {json.dumps(train_metrics)}")
+    log(f"r2d2: {json.dumps(r2d2_metrics)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": list(rows.values())}))

@@ -10,9 +10,11 @@ _MODULES = {
     "qwen3-14b": "repro_torch.configs.qwen3_14b",
     "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
+    "r2d2-atari": "repro_torch.configs.r2d2_atari",
 }
 
-ARCHS = tuple(_MODULES)
+# the R2D2 agent is not an LM: --arch lists leave it out, as the reference's do
+ARCHS = tuple(k for k in _MODULES if k != "r2d2-atari")
 
 
 def list_archs():
@@ -21,13 +23,16 @@ def list_archs():
 
 def get_config(arch: str):
     if arch not in _MODULES:
-        raise KeyError(f"{arch!r} is not ported yet; the port supports {ARCHS}")
+        raise KeyError(f"{arch!r} is not ported yet; the port supports {tuple(_MODULES)}")
     mod = importlib.import_module(_MODULES[arch])
     return mod.CONFIG
 
 
 def make_model(cfg):
     """Build the ModelBundle for a config (dispatch on family)."""
+    if cfg.family == "atari":
+        from repro_torch.models.atari import make_atari
+        return make_atari(cfg)
     if cfg.family == "ssm":
         from repro_torch.models.mamba import make_mamba
         return make_mamba(cfg)
@@ -43,6 +48,8 @@ def make_model(cfg):
 def smoke_config(arch: str):
     """A reduced config of the same family for CPU smoke tests."""
     cfg = get_config(arch)
+    if cfg.family == "atari":
+        return cfg
     small = dict(num_layers=4, d_model=64, d_ff=128, vocab_size=277,
                  max_position=256)
     if cfg.num_heads:

@@ -7,7 +7,8 @@ The JAX models stack each block parameter along a leading layer axis, under
 ``main.p{k}.*`` is layer P*j + k, and the unscanned ``rest{j}.*`` that
 follow the n_scan periods are layers n_scan*P + j. Every tensor keeps the
 JAX layout (wq (d,H,hd), wo (H,hd,d), wi (d,ff), unembed (d,V), in_proj
-(d, ...), conv.w (W,C)), so only the layer axis moves.
+(d, ...), conv.w (W,C)), so only the layer axis moves. The R2D2 agent
+(``atari``) stacks nothing, so its names and layouts pass through.
 """
 
 import numpy as np
@@ -31,7 +32,10 @@ def params_from_jax(cfg, params_np) -> dict:
     """JAX params (a nested dict of numpy arrays) -> the state dict of the
     port's model for `cfg.family` (``models.lm.LM`` for dense,
     ``models.mamba.Mamba`` for ssm, ``models.recurrentgemma.RecurrentGemma``
-    for hybrid): CPU tensors, the arrays' dtypes."""
+    for hybrid, ``models.atari.Atari`` for atari): CPU tensors, the arrays'
+    dtypes."""
+    if cfg.family == "atari":
+        return {name: _tensor(arr) for name, arr in _flatten(params_np)}
     if cfg.family == "hybrid":
         return _hybrid_from_jax(cfg, params_np)
     if cfg.family == "ssm":

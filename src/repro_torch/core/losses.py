@@ -1,29 +1,39 @@
-"""Train-step builders for the LM policies: the V-trace actor-critic loss.
+"""Train-step builders: V-trace actor-critic (LM policies) and R2D2
+(recurrent Q-learning, the paper's workload).
 
-Mirrors ``repro.core.losses`` (its V-trace half; ``make_r2d2_loss`` waits
-for the R2D2 slice). The train state is a dict {params, opt_state, step}:
-params the family's ``nn.Module`` with its parameters trainable, opt_state
-the optimizer's dicts keyed by parameter name, step a Python int.
-``make_train_step`` returns a function that updates the state in place
-under ``no_grad`` (the counterpart of the JAX step's ``donate_argnums=(0,)``)
-and returns it with the step's metrics as 0-d device tensors; it never
-waits on the device, so a caller that prints a metric pays the sync there.
+Mirrors ``repro.core.losses``. The train state is a dict {params,
+opt_state, step[, target]}: params the family's ``nn.Module`` with its
+parameters trainable, opt_state the optimizer's dicts keyed by parameter
+name, step a Python int, target (R2D2) a second module with the params'
+layout, never an alias of them. ``make_train_step`` returns a function
+that updates the state in place under ``no_grad`` (the counterpart of the
+JAX step's ``donate_argnums=(0,)``) and returns it with the step's metrics
+as device tensors; it never waits on the device, so a caller that prints
+a metric pays the sync there.
 """
+
+import copy
 
 import torch
 
+from repro_torch.core.r2d2 import r2d2_loss
 from repro_torch.core.vtrace import vtrace, vtrace_losses
+from repro_torch.models.atari import atari_forward
 from repro_torch.optim.adamw import apply_updates
 
 
-def init_train_state(bundle, optimizer, seed=0, device="cuda", dtype=None):
+def init_train_state(bundle, optimizer, seed=0, device="cuda", dtype=None, with_target=False):
     """Params built by ``bundle.init`` and made trainable (every parameter of
     the port is made with ``requires_grad=False``, as serving wants), the
-    optimizer's state over them, and step 0."""
+    optimizer's state over them, and step 0; with `with_target`, a copy of
+    the params in buffers of its own as the target net (R2D2)."""
     params = bundle.init(seed, device=device, dtype=dtype)
     params.requires_grad_(True)
-    return {"params": params, "opt_state": optimizer.init(dict(params.named_parameters())),
-            "step": 0}
+    st = {"params": params, "opt_state": optimizer.init(dict(params.named_parameters())),
+          "step": 0}
+    if with_target:
+        st["target"] = copy.deepcopy(params).requires_grad_(False)
+    return st
 
 
 def _token_logprobs_entropy(logits, actions):
@@ -68,18 +78,61 @@ def make_vtrace_loss(bundle, *, value_coef=0.5, entropy_coef=0.01, rho_bar=1.0, 
     return loss_fn
 
 
+def make_r2d2_loss(bundle, acfg):
+    """R2D2 loss over replayed sequences. Batch: obs (B, burn+T, ...),
+    actions/rewards/dones (B, burn+T), core: initial LSTM state; optional
+    is_weights (B,), prioritized replay's importance weights.
+
+    The online net is unrolled over burn-in and training segment, with the
+    gradient through both, as the reference does; the target net runs
+    under ``no_grad``. With is_weights the loss is the reference's
+    importance-weighted form, ``0.5 mean(w td^2)``, built as it builds it
+    from the ``td_error`` that ``r2d2_loss`` returns without gradient: its
+    gradient is zero, as ``jax.grad`` of the reference's gives (ROADMAP
+    section 3)."""
+
+    def loss_fn(params, target_params, batch):
+        burn = acfg.burn_in
+        out, _ = atari_forward(acfg, params, batch)
+        q = out.logits[:, burn:]
+        with torch.no_grad():
+            tout, _ = atari_forward(acfg, target_params, batch)
+        q_t = tout.logits[:, burn:]
+        res = r2d2_loss(None, q, q_t, batch["actions"][:, burn:], batch["rewards"][:, burn:],
+                        batch["dones"][:, burn:], n_step=acfg.n_step, gamma=acfg.gamma,
+                        priority_exponent=acfg.priority_exponent)
+        loss = res.loss
+        if "is_weights" in batch:   # prioritized-replay importance correction
+            w = batch["is_weights"][:, None]
+            loss = 0.5 * torch.mean(w * torch.square(res.td_error))
+        return loss, {"loss": loss.detach(), "priorities": res.priorities}
+
+    return loss_fn
+
+
 def param_grads(loss, named):
     """{name: d loss / d param} over `named` ({name: param}), zeros for a
-    param the loss does not reach (as jax.grad gives)."""
+    param the loss does not reach, or for every param when the loss
+    reaches none (as jax.grad gives)."""
+    if not loss.requires_grad:
+        return {n: torch.zeros_like(p) for n, p in named.items()}
     gs = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
     return {n: torch.zeros_like(p) if g is None else g for (n, p), g in zip(named.items(), gs)}
 
 
-def make_train_step(bundle, optimizer, **kw):
-    """Returns train_step(state, batch) -> (state, metrics). With
+def make_train_step(bundle, optimizer, *, algo="vtrace", acfg=None, **kw):
+    """Returns train_step(state, batch) -> (state, metrics). V-trace: with
     ``cfg.grad_accum`` > 1 the batch is split into that many micro-batches
     along B, their grads summed in fp32 and divided by the count (the
-    reference scans them), and the metrics averaged."""
+    reference scans them), and the metrics averaged. R2D2 (``algo="r2d2"``,
+    `acfg` an ``AtariConfig``): after the AdamW step the target takes the
+    params when the new step is a multiple of ``target_update_period``."""
+    if algo == "r2d2":
+        if acfg is None:
+            raise ValueError("algo='r2d2' needs acfg, the AtariConfig")
+        return _r2d2_train_step(bundle, optimizer, acfg)
+    if algo != "vtrace":
+        raise ValueError(f"unknown algo {algo!r}; use 'vtrace' or 'r2d2'")
     loss_fn = make_vtrace_loss(bundle, **kw)
     accum = getattr(bundle.cfg, "grad_accum", 1)
 
@@ -110,5 +163,29 @@ def make_train_step(bundle, optimizer, **kw):
         apply_updates(named, updates)
         metrics.update(om)
         return {"params": params, "opt_state": opt_state, "step": state["step"] + 1}, metrics
+
+    return train_step
+
+
+def _r2d2_train_step(bundle, optimizer, acfg):
+    loss_fn = make_r2d2_loss(bundle, acfg)
+
+    def train_step(state, batch):
+        params, target = state["params"], state["target"]
+        named = dict(params.named_parameters())
+        loss, metrics = loss_fn(params, target, batch)
+        grads = param_grads(loss, named)
+        del loss
+        updates, opt_state, om = optimizer.update(grads, state["opt_state"], named,
+                                                  state["step"])
+        apply_updates(named, updates)
+        step = state["step"] + 1
+        if step % acfg.target_update_period == 0:
+            with torch.no_grad():
+                for t, p in zip(target.parameters(), params.parameters()):
+                    t.copy_(p)
+        metrics.update(om)
+        return {"params": params, "opt_state": opt_state, "step": step,
+                "target": target}, metrics
 
     return train_step

@@ -1,0 +1,354 @@
+"""End-to-end SEED system wiring: N actors x E env lanes + central
+inference + learner.
+
+This is the measured system behind the Fig-3 reproduction: construct with
+`num_actors` (CPU threads) and `envs_per_actor` (lanes per thread — the
+CuLE-style batching axis) and run; `throughput()` reports env-frames/s
+(= actor iterations x E), inference batch occupancy, and learner steps/s —
+the quantities the paper sweeps.
+
+Mirrors ``repro.core.system`` for what the port has so far: the host
+backend (actor threads step host envs and query the central
+`InferenceServer` once per vector step; `policy_step` is a host callable
+`(obs, slot_ids) -> actions`), the in-process transport, and
+`algo="r2d2"` (unrolls land in `PrioritizedReplay` and the learner trains
+recurrent Q-learning), with `num_replicas` data-parallel policy workers
+behind sticky actor->replica routing (see `core.inference`), and
+checkpointing through `repro_torch.checkpoint.CheckpointManager`.
+
+The constructor takes the reference's arguments and validates them with
+its messages. Every branch that the reference imports lazily and the port
+does not have yet raises `NotImplementedError` naming its ROADMAP item,
+rather than being ignored: `telemetry` and `ops_port` and the socket and
+shm transports (queue 1, "Wire, ops and survival planes"), `autoscale`
+(the same item), `backend="device"` (queue 1, "The device backend") and
+`algo="vtrace"` (queue 1, "The V-trace on-policy half of the system").
+`throughput()` keeps the reference's keys for this layout.
+"""
+
+import threading
+import time
+from typing import Callable, Optional
+
+import numpy as np
+
+from repro_torch.core.actor import Actor
+from repro_torch.core.inference import InferenceServer
+from repro_torch.core.learner import BatchSourceClosed, Learner
+from repro_torch.core.replay import PrioritizedReplay
+
+# the frame ledger's stable key set: `throughput()["onpolicy"]` carries
+# exactly these keys on EVERY run — zero-valued when the vtrace queue is
+# off — so time-series collectors never see ledger keys appear mid-run
+ZERO_LEDGER = {
+    "frames_generated": 0, "frames_trained": 0, "frames_dropped": 0,
+    "frames_dropped_stale": 0, "frames_dropped_overflow": 0,
+    "frames_dropped_shutdown": 0, "frames_dropped_fault": 0,
+    "frames_pending": 0, "drop_rate": 0.0, "unrolls_trained": 0,
+    "mean_trained_lag": 0.0, "max_param_lag": 0, "capacity": 0,
+}
+
+WIRE_ITEM = "ROADMAP queue 1, 'Wire, ops and survival planes'"
+
+
+def _not_ported(what, item):
+    return NotImplementedError(f"{what} is not ported yet ({item})")
+
+
+class SeedSystem:
+    def __init__(self, *, env_factory: Callable, policy_step: Optional[Callable] = None,
+                 num_actors: int, unroll: int, envs_per_actor: int = 1,
+                 backend: str = "host", policy_apply: Optional[Callable] = None,
+                 init_params=None, init_core: Optional[Callable] = None,
+                 train_step: Optional[Callable] = None, state=None,
+                 learner_batch: int = 8, replay_capacity: int = 512,
+                 min_replay: int = 16, deadline_ms: float = 5.0,
+                 inference_batch: Optional[int] = None,
+                 transport: str = "inproc", num_actor_hosts: int = 1,
+                 gateway_host: str = "127.0.0.1", gateway_port: int = 0,
+                 num_replicas: int = 1, num_gateways: int = 1,
+                 engine_shards: int = 1, wire_compression: bool = False,
+                 wire_quant: Optional[str] = None,
+                 checkpoint_manager=None, checkpoint_every: int = 0,
+                 checkpoint_dir: Optional[str] = None,
+                 checkpoint_every_s: float = 0.0,
+                 algo: str = "r2d2", max_param_lag: Optional[int] = None,
+                 queue_capacity: Optional[int] = None,
+                 gamma: Optional[float] = None,
+                 policy_publish: Optional[Callable] = None,
+                 telemetry=None, ops_port: Optional[int] = None,
+                 supervise_hosts: bool = False,
+                 max_host_restarts: int = 3, host_stall_s: float = 5.0,
+                 wire_reconnect=None, autoscale=None):
+        if backend not in ("host", "device"):
+            raise ValueError(f"unknown backend {backend!r}; use 'host' or 'device'")
+        if algo not in ("r2d2", "vtrace"):
+            raise ValueError(
+                f"unknown algo {algo!r}; use 'r2d2' (replay) or 'vtrace' "
+                f"(on-policy trajectory queue)")
+        if algo != "vtrace":
+            # reject rather than silently ignore: these knobs only exist
+            # on the on-policy trajectory plane
+            for name, val in (("max_param_lag", max_param_lag),
+                              ("queue_capacity", queue_capacity),
+                              ("gamma", gamma)):
+                if val is not None:
+                    raise ValueError(
+                        f"{name}={val} applies to algo='vtrace' (replay-"
+                        f"based R2D2 has no trajectory queue to tune)")
+        if transport not in ("inproc", "socket", "shm"):
+            raise ValueError(
+                f"unknown transport {transport!r}; use 'inproc', 'socket' "
+                f"or 'shm'")
+        wire = transport in ("socket", "shm")    # disaggregated layouts
+        if wire and backend != "host":
+            raise ValueError(f"transport={transport!r} applies to "
+                             "backend='host' (the device backend has no "
+                             "inference wire)")
+        if not isinstance(num_gateways, int) or num_gateways < 1:
+            raise ValueError(
+                f"num_gateways must be a positive int, got {num_gateways!r}")
+        if num_gateways > 1 and not wire:
+            raise ValueError(
+                f"num_gateways={num_gateways} applies to wire transports "
+                f"(the in-process path has no gateways to shard)")
+        if num_gateways > num_actor_hosts and wire:
+            raise ValueError(
+                f"num_gateways={num_gateways} exceeds num_actor_hosts="
+                f"{num_actor_hosts}: hosts hash across gateways, so extra "
+                f"gateways would sit idle — raise num_actor_hosts or lower "
+                f"num_gateways")
+        if num_gateways > 1 and gateway_port != 0:
+            raise ValueError(
+                f"num_gateways={num_gateways} requires gateway_port=0 "
+                f"(ephemeral): a fixed port cannot be bound by more than "
+                f"one gateway")
+        if engine_shards != 1 and backend != "device":
+            raise ValueError(
+                f"engine_shards={engine_shards} applies to backend='device' "
+                f"(the host backend has no scan engines to shard)")
+        if num_replicas != 1 and backend != "host":
+            raise ValueError(
+                f"num_replicas={num_replicas} applies to backend='host' "
+                f"(the device backend has no central inference server)")
+        if wire_compression and not wire:
+            raise ValueError(
+                "wire_compression applies to wire transports (there is "
+                "no wire to compress in-process)")
+        if wire_quant is not None and not wire:
+            raise ValueError(
+                "wire_quant applies to wire transports (there is no wire "
+                "to quantize in-process)")
+        if wire_quant not in (None, "f16", "q8"):
+            raise ValueError(
+                f"wire_quant={wire_quant!r}; expected None, 'f16' or 'q8'")
+        if ops_port is not None and (not isinstance(ops_port, int)
+                                     or isinstance(ops_port, bool) or ops_port < 0):
+            raise ValueError(
+                f"ops_port must be a non-negative int (0 = ephemeral "
+                f"port) or None, got {ops_port!r}")
+        if checkpoint_dir is not None:
+            if checkpoint_manager is not None:
+                raise ValueError(
+                    "pass checkpoint_dir OR checkpoint_manager, not both "
+                    "(checkpoint_dir constructs a CheckpointManager)")
+            from repro_torch.checkpoint import CheckpointManager
+            checkpoint_manager = CheckpointManager(checkpoint_dir)
+        if checkpoint_every_s and checkpoint_manager is None:
+            raise ValueError(
+                f"checkpoint_every_s={checkpoint_every_s} needs somewhere "
+                f"to save — pass checkpoint_dir or checkpoint_manager")
+        if (supervise_hosts or wire_reconnect is not None) and not wire:
+            raise ValueError(
+                "supervise_hosts / wire_reconnect apply to wire transports "
+                "(in-process actors have no host processes to supervise "
+                "or connections to re-dial)")
+        # the branches the reference imports lazily, refused until ported
+        if telemetry is not None or ops_port is not None:
+            raise _not_ported("telemetry / ops_port (the repro.telemetry plane)", WIRE_ITEM)
+        if autoscale is not None:
+            raise _not_ported("autoscale (repro.autoscale)", WIRE_ITEM)
+        if algo == "vtrace":
+            raise _not_ported(
+                "algo='vtrace' (repro.onpolicy)",
+                "ROADMAP queue 1, 'The V-trace on-policy half of the system'")
+        if wire:
+            raise _not_ported(f"transport={transport!r} (repro.transport)", WIRE_ITEM)
+        if backend == "device":
+            raise _not_ported("backend='device' (repro.rollout)",
+                              "ROADMAP queue 1, 'The device backend'")
+        if policy_step is None:
+            raise ValueError("backend='host' requires policy_step")
+        self.backend = backend
+        self.transport = transport
+        self.algo = algo
+        self.envs_per_actor = envs_per_actor
+        self.replay = PrioritizedReplay(replay_capacity)
+        self.min_replay = min_replay
+        self.learner_batch = learner_batch
+        self._policy_publish = policy_publish
+        self._ckpt = checkpoint_manager
+        # the publish/version seam: actors read the version for staleness
+        # stamping; `policy_publish` pushes params into the policy
+        self._live = {"params": init_params, "version": 0}
+        self._live_lock = threading.Lock()
+        # raises ValueError when num_replicas exceeds the lane budget
+        self.server = InferenceServer(
+            policy_step,
+            max_batch=inference_batch or max(num_actors * envs_per_actor, 1),
+            deadline_ms=deadline_ms, num_replicas=num_replicas)
+        self.actors = [Actor(i, env_factory, self.server, self._sink,
+                             unroll, num_envs=envs_per_actor,
+                             version_source=self._version)
+                       for i in range(num_actors)]
+        self.learner = None
+        if train_step is not None:
+            self.learner = Learner(
+                train_step, state, self._learner_batch,
+                publish=self._publish,
+                priority_update=lambda idx, pri: self.replay.update_priorities(idx, pri),
+                checkpoint_manager=checkpoint_manager,
+                checkpoint_every=checkpoint_every,
+                checkpoint_every_s=checkpoint_every_s)
+
+    def _recovery_stats(self) -> dict:
+        """The reference's recovery counters; with no actor hosts and no
+        wire, only the checkpoint counts can move."""
+        return {
+            "host_faults": 0, "host_restarts": 0, "stale_frames_rejected": 0,
+            "reconnects": 0, "gateway_failovers": 0,
+            "checkpoint_saves": self._ckpt.saves if self._ckpt else 0,
+            "checkpoint_restores": self._ckpt.restores if self._ckpt else 0,
+            "frames_dropped_by_fault": 0,
+        }
+
+    def resume(self) -> int:
+        """Learner crash recovery: restore the latest checkpoint into the
+        live loop and make the system runnable again. Returns the version
+        the restored params were re-published under: ``max(restored_step,
+        current_version)``, so `param_version` stays monotonic across the
+        crash boundary. The params themselves are the checkpointed ones,
+        bit-exact."""
+        if self.learner is None or self.learner.ckpt is None:
+            raise RuntimeError(
+                "resume() needs a learner with a checkpoint manager "
+                "(construct SeedSystem with checkpoint_dir=...)")
+        state, step = self.learner.ckpt.restore(self.learner.state)
+        version = max(step, self._version())
+        self.learner.state = state
+        self.learner.steps = version
+        self.learner.error = None
+        self.learner._stop.clear()
+        self._publish(state["params"], version)
+        self.server.error = None
+        self.server._stop.clear()
+        for a in self.actors:
+            # actors are re-runnable (start() builds a fresh thread) but
+            # stop() latches _stop — unlatch for the next run
+            a.error = None
+            a._stop.clear()
+        return version
+
+    def _sink(self, traj):
+        self.replay.add(traj, priority=float(np.abs(traj["rewards"]).mean()) + 1.0)
+
+    def _learner_batch(self):
+        while len(self.replay) < max(self.min_replay, self.learner_batch):
+            if self.learner is not None and self.learner.stopped:
+                # stop() must not wait on replay that may never fill
+                raise BatchSourceClosed("system stopping before min_replay")
+            time.sleep(0.005)
+        batch, idx, w = self.replay.sample(self.learner_batch)
+        batch["is_weights"] = w
+        return batch, idx
+
+    def _publish(self, params, step):
+        """Learner -> actors param seam: the version feeds the actors'
+        staleness stamping; an optional `policy_publish` hook pushes the
+        params into the host-side policy."""
+        with self._live_lock:
+            self._live = {"params": params, "version": step}
+        if self._policy_publish is not None:
+            self._policy_publish(params, step)
+
+    def _version(self) -> int:
+        with self._live_lock:
+            return self._live["version"]
+
+    def warmup(self):
+        """Step every actor's envs once, so that a short measured `run()`
+        window starts from built envs."""
+        for a in self.actors:
+            a.vec.reset()
+            a.vec.step(np.zeros(a.num_envs, np.int32))
+
+    def run(self, seconds: float, with_learner: bool = True):
+        self.server.start()
+        for a in self.actors:
+            a.start()
+        if self.learner and with_learner:
+            self.learner.start()
+        t0 = time.perf_counter()
+        time.sleep(seconds)
+        elapsed = time.perf_counter() - t0
+        for a in self.actors:
+            a.stop()
+        self.server.stop()
+        if self.learner and with_learner:
+            self.learner.stop()
+            self.learner.join()
+        for a in self.actors:
+            a.join()
+        return self.throughput(elapsed)
+
+    def throughput(self, elapsed: float):
+        iterations = sum(a.iterations for a in self.actors)
+        frames = sum(a.frames for a in self.actors)  # = iterations*E
+        returns = [r for a in self.actors for r in a.returns[-20:]]
+        out = {
+            "elapsed_s": elapsed,
+            "backend": self.backend,
+            "transport": self.transport,
+            "algo": self.algo,
+            "envs_per_actor": self.envs_per_actor,
+            "actor_iterations": iterations,
+            "env_frames": frames,
+            "env_frames_per_s": frames / elapsed,
+            "learner_steps": self.learner.steps if self.learner else 0,
+            "learner_steps_per_s": (self.learner.steps / elapsed) if self.learner else 0.0,
+            "learner_error": self.learner.error if self.learner else None,
+            "episode_return_mean": float(np.mean(returns or [0.0])),
+        }
+        # actors stamp the behavior-param version on every unroll: mean lag
+        # (in learner publishes) of the unrolls this run flushed
+        unroll_flushes = sum(a.unrolls for a in self.actors)
+        lag_total = sum(a.param_lag_total for a in self.actors)
+        out["unroll_flushes"] = unroll_flushes
+        out["mean_param_lag"] = lag_total / max(unroll_flushes, 1)
+        # the on-policy frame ledger: zero-valued, as the reference's is
+        # without the vtrace queue, so the schema stays stable
+        out["onpolicy"] = dict(ZERO_LEDGER)
+        out["recovery"] = self._recovery_stats()
+        s = self.server.stats           # summed across replicas
+        actor_error = next(
+            (e for e in (getattr(a, "error", None) for a in self.actors) if e), None)
+        out.update({
+            "inference_batches": s["batches"],
+            "inference_lanes": s["requests"],
+            "inference_rpcs": s["rpcs"],
+            # raw accumulated counters, plus the derived means so
+            # callers never have to know which sum divides by what
+            "batch_occupancy_sum": s["batch_occupancy"],
+            "queue_wait_s_sum": s["queue_wait_s"],
+            "inference_compute_s": s["compute_s"],
+            "inference_error": self.server.error or actor_error,
+            "num_replicas": self.server.num_replicas,
+            **self.server.derived_stats(),
+        })
+        if self.server.num_replicas > 1:
+            # ONE snapshot for both views: per-replica lane counts and
+            # occupancy expose batch-fill starvation per shard
+            per = self.server.per_replica_stats()
+            out["replica_lanes"] = [r["requests"] for r in per]
+            out["replica_occupancy"] = [r["mean_batch_occupancy"] for r in per]
+        return out

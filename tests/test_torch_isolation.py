@@ -34,7 +34,12 @@ def test_importing_every_module_loads_no_jax():
             "repro_torch.configs.recurrentgemma_2b", "repro_torch.launch.train",
             "repro_torch.core.losses", "repro_torch.core.vtrace", "repro_torch.optim.adamw",
             "repro_torch.checkpoint.ckpt", "repro_torch.fault.supervisor",
-            "repro_torch.data.pipeline"} <= set(mods)
+            "repro_torch.data.pipeline", "repro_torch.configs.r2d2_atari",
+            "repro_torch.nn.recurrent", "repro_torch.models.atari", "repro_torch.core.r2d2",
+            "repro_torch.core.replay", "repro_torch.telemetry.tracer",
+            "repro_torch.envs.alesim", "repro_torch.envs.vector", "repro_torch.core.actor",
+            "repro_torch.core.learner", "repro_torch.core.system",
+            "repro_torch.launch.train_r2d2"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
