@@ -4,9 +4,10 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds), under
 ``build/kernels/`` at the root of the checkout. The library's file name
 carries a hash of its source, of every ``csrc/*.cuh`` header the source
-includes, and of the flags, so an edited source or header is rebuilt and
-a stale library is never loaded. Building happens at first use, never at
-import: the CPU tests import every module on a machine with no ``nvcc``.
+includes (directly or through another header), and of the flags, so an
+edited source or header is rebuilt and a stale library is never loaded.
+Building happens at first use, never at import: the CPU tests import
+every module on a machine with no ``nvcc``.
 """
 
 import ctypes
@@ -25,6 +26,8 @@ KERNELS = ("flash_attention", "decode_attention", "ssd_scan", "rglru_scan",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+\.cuh)"[^\n]*$', re.M)   # a csrc/*.cuh
+
 _lock = threading.Lock()
 _libs = {}
 
@@ -41,10 +44,15 @@ def nvcc() -> str:
 
 
 def headers(name: str) -> list:
-    """The csrc/*.cuh headers that csrc/<name>.cu includes, sorted."""
-    text = (CSRC / f"{name}.cu").read_text()
-    found = re.findall(r'^\s*#\s*include\s+"([^"]+\.cuh)"', text, re.M)
-    return sorted(CSRC / inc for inc in found)
+    """The csrc/*.cuh headers that csrc/<name>.cu includes, directly or
+    through another header, sorted."""
+    found, todo = set(), [CSRC / f"{name}.cu"]
+    while todo:
+        for inc in INCLUDE.findall(todo.pop().read_text()):
+            if CSRC / inc not in found:
+                found.add(CSRC / inc)
+                todo.append(CSRC / inc)
+    return sorted(found)
 
 
 def library_path(name: str) -> Path:

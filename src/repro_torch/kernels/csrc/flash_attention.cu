@@ -15,10 +15,12 @@
 //
 // Two routes, chosen by dtype and head_dim alone (`flash_attention_route`):
 // - bf16 at D 64, 128 and 256, which every serving path calls, takes
-//   `flash_wgmma_kernel`: both products on the tensor cores.
-// - fp32 at any D, and bf16 at D 16, take `flash_kernel`, on the fp32 CUDA
-//   cores. fp32 on the tensor cores would be TF32, about three decimal
-//   digits, where the fp32 checks hold the kernel to 2e-5.
+//   `flash_wgmma_kernel`: both products on the tensor cores in bf16.
+// - fp32 at any D, which the training path calls, and bf16 at D 16 take
+//   `flash_tf32x3_kernel`: both products on the tensor cores as 3xTF32
+//   `mma.sync` (`mma_tf32.cuh`), which keeps the fp32 checks' 2e-5 where
+//   one TF32 product (about three decimal digits) would not. Only this
+//   route writes the log-sum-exp that K1-bwd reads.
 //
 // Bound on the H100 SXM (989 TFLOP/s bf16 tensor cores, 3.35 TB/s): causal
 // FLOPs = 2 * BH * S^2 * D (two products over half the score matrix). At
@@ -52,94 +54,159 @@
 // measured faster on the H100 than a two-stage ring with fewer CTAs, and
 // than two warpgroups sharing 128-key tiles.
 //
-// CUDA-core design (`flash_kernel`): one CTA per (q tile of BQ rows, head,
-// batch) loops over 32-key KV tiles staged in shared memory as fp32,
-// carrying the running max m, sum l and the accumulator in registers, with
-// the same tile skipping. Each thread owns a RPT x 4 block of scores and a
-// RPT x D/8 block of the output; the 8 lanes that share a row group reduce
-// the row max and sum with warp shuffles. Shared-memory rows are padded so
-// that neither product has bank conflicts. Up to D = 128 a tile is 64 rows
-// (RPT 4); at D = 256 it is 32 rows (RPT 2), which keeps the accumulator at
-// 64 registers a thread and the shared memory at 103 KB.
+// 3xTF32 design (`flash_tf32x3_kernel`), after K1-bwd's dQ kernel: one
+// CTA of 8 warps per (32 query rows, head, batch), the last query tiles
+// (which walk the most keys) first. Q stays in shared memory as fp32; K and
+// V tiles of 32 keys stream in by 16-byte cp.async into one stage, the next
+// tile's copies issued once every warp is done with the current one; tiles
+// wholly outside the mask are never loaded, and only tiles that cross the
+// diagonal, the window's edge or S compute the mask. S = Q K^T: one m16n8
+// tile a warp over D / 8 k-steps, each fp32 operand split in registers into
+// TF32 big and small parts and each product taken as three TF32 mma. The
+// online softmax runs on the accumulator fragment in fp32: the row max over
+// a warp's 8 keys by quad shuffles, over the tile's 32 by one pass through
+// shared memory; each thread keeps its rows' max (the same in the four
+// warps that share them) and a partial sum over its own score columns, the
+// partials summed in a fixed order at the end. P goes to a 32 x 36 shared
+// tile (the accumulator's layout is not the A operand's), then O += P V:
+// each warp 16 rows x D / 4 dims in registers, rescaled by exp(m_old -
+// m_new) before each tile's product; at D 16 the warps split the tile's
+// keys as well and sum the splits through shared memory. bf16 (at D 16) is
+// widened to fp32 as it is staged, exactly, and rounded to bf16 on store.
+// Shared memory at D 256: Q, K and V (3 x 33.3 KB) and P, 103 KB, so two
+// CTAs share an SM and one's loads overlap the other's products; at most
+// 128 registers a thread (__launch_bounds__(256, 2)).
+//
+// Why one stage: the only fp32 call on any path is the training call below
+// (D 256), where a second K/V stage (174 KB, one CTA an SM, the next tile
+// loading behind the current tile's products) measured slower on the H100
+// (NVIDIA H100 80GB HBM3, 700 W; tools/k1_fwd_variants.py, which builds it
+// as the patch `two_stages`): 0.0576 and 0.0574 ms with one stage, 0.0594
+// and 0.0595 with two, in one call. At qwen3's shape in fp32 (B 4, S 256,
+// 40/8 heads, D 128), which no path launches, two stages would be faster
+// (0.0943 against 0.0994). A 16-warp variant that split the score
+// product's D over two warp groups was slower at both shapes and is gone.
+// PR 21's fp32 CUDA-core kernel, which this route replaced, took 0.1670
+// at the training call in the same call. Registers: 122 at D 256, 73-105
+// at the others, no spills.
+//
+// Bound at the training call (B 4, S 256, 10 query heads on 1 kv head,
+// D 256, fp32, window 2048 > S): two products over the 32896 pairs of each
+// (batch, head) that the mask keeps, 1.35 GFLOP; as 3xTF32 (495 / 3
+// TFLOP/s) 8.2 us against 23.1 MB of q, k, v, o and lse, 6.9 us: bound by
+// the operations. On the fp32 CUDA cores (67 TFLOP/s) the same FLOPs take
+// 20.1 us.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include <atomic>
 
 #include "hopper.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
-constexpr int BK = 32;         // keys per KV tile
-constexpr int NT = 128;        // threads per CTA
-constexpr int CG = 8;          // lanes sharing one row group
-constexpr int CPT = BK / CG;   // score columns per thread
-constexpr int SP = BK + 2;     // padded row of the probability tile
-constexpr float NEG_INF = -1e30f;
+constexpr float NEG_INF = -1e30f;   // a masked logit, as in the Pallas kernel
 
-// Rows per thread and query rows per CTA, by head dim: (NT / CG) * RPT == BQ.
-template <int D> __host__ __device__ constexpr int rows_per_thread() { return D > 128 ? 2 : 4; }
-template <int D> __host__ __device__ constexpr int q_rows() { return (NT / CG) * rows_per_thread<D>(); }
+// ---- the 3xTF32 route (fp32 at every D, bf16 at D 16) ---------------------
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+namespace x3 {
 
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+using namespace tf32x3;
+
+constexpr int NT = 256;        // threads a CTA: 8 warps
+constexpr int BQ = 32;         // query rows a CTA
+constexpr int BK = 32;         // keys a K/V tile
+constexpr int SP = 36;         // padded row of the P tile
+
+// The warps of a CTA: in S = Q K^T warp w takes one m16n8 tile, rows
+// 16 (w & 1) .. and keys 8 (w / 2) .. of the 32 x 32 tile, over all of D;
+// in O += P V it takes the same 16 rows by NTW n-tiles of 8 dims (n-block
+// NB of them) over 32 / KS of the tile's keys (k-split KS), the splits
+// summed at the end in a fixed order. A thread holds the same two rows in
+// both products.
+template <int D>
+struct Cfg {
+  static constexpr int P = row_pitch<D>;          // padded row of Q, K and V
+  static constexpr int TILE = 32 * P;             // floats of one 32-row tile
+  static constexpr int NB = D / 8 < 4 ? D / 8 : 4;   // n-blocks of O
+  static constexpr int NTW = D / (8 * NB);        // n-tiles of 8 dims a warp
+  static constexpr int KS = 4 / NB;               // 8 warps = 2 x NB x KS
+  // Q, K, V, P, and the four key quarters' row partials
+  static constexpr int SMEM = (int)sizeof(float) * (3 * TILE + BQ * SP + 4 * BQ);
+  static_assert(D % 16 == 0 && BQ == 32 && BK == 32 && NT == 256,
+                "the warp layout assumes these");
+  static_assert(KS - 1 <= 3, "the k-splits' partial sums go through Q, K and V");
+};
+
+// rows r0 .. r0 + 31 of a (B, S, heads, D) tensor at (b, head) (`src` its
+// row 0) into a tile of fp32 rows, zeros past S: fp32 by 16-byte cp.async
+// (awaited with cp_async_wait), bf16 by 16-byte loads widened to fp32 on the
+// way, which is exact (a bf16 value is a TF32 value: its small part is 0)
+template <int D>
+__device__ __forceinline__ void stage_tile(float* dst, const float* __restrict__ src, int r0,
+                                           int S, long stride) {
+  load_tile<D, NT>(dst, src, r0, S, stride);
+}
+template <int D>
+__device__ __forceinline__ void stage_tile(float* dst, const __nv_bfloat16* __restrict__ src,
+                                           int r0, int S, long stride) {
+  constexpr int CPR = D / 8;   // 16-byte loads a row
+  for (int i = threadIdx.x; i < 32 * CPR; i += NT) {
+    const int r = i / CPR, c = (i % CPR) * 8, row = r0 + r;
+    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+    if (row < S) raw = *reinterpret_cast<const uint4*>(src + (long)row * stride + c);
+    // a word holds two bf16, the first in its low half; a bf16 is the top
+    // half of the fp32 of the same value
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+    float f[8];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      f[2 * j] = __uint_as_float(w[j] << 16);
+      f[2 * j + 1] = __uint_as_float(w[j] & 0xFFFF0000u);
+    }
+    float4* d = reinterpret_cast<float4*>(dst + r * row_pitch<D> + c);
+    d[0] = make_float4(f[0], f[1], f[2], f[3]);
+    d[1] = make_float4(f[4], f[5], f[6], f[7]);
+  }
 }
 
-template <int D>
-constexpr size_t smem_bytes() {
-  constexpr int BQ = q_rows<D>();
-  return sizeof(float) * (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * SP);
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// the largest of the four key quarters' partials of tile row r
+__device__ __forceinline__ float quarters_max(const float* srow, int r) {
+  return fmaxf(fmaxf(srow[r], srow[BQ + r]), fmaxf(srow[2 * BQ + r], srow[3 * BQ + r]));
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ o, float* __restrict__ lse, int S, int H, int KH, float scale,
-             int causal, int window, float softcap) {
-  constexpr int RPT = rows_per_thread<D>();
-  constexpr int BQ = q_rows<D>();
-  constexpr int DP = D + 1;       // padded row: column reads hit distinct banks
-  constexpr int DPT = D / CG;     // output dims per thread
-  extern __shared__ float smem[];
-  float* sq = smem;               // [BQ][DP]
-  float* sk = sq + BQ * DP;       // [BK][DP]
-  float* sv = sk + BK * DP;       // [BK][D]
-  float* sp = sv + BK * D;        // [BQ][SP]
+__global__ void __launch_bounds__(NT, 2)
+flash_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    T* __restrict__ o, float* __restrict__ lse, int B, int S, int H, int KH,
+                    float scale, int causal, int window, float softcap) {
+  using C = Cfg<D>;
+  extern __shared__ __align__(16) float smem[];
+  float* sq = smem;                      // [BQ][P]
+  float* sk = sq + C::TILE;              // [BK][P]
+  float* sv = sk + C::TILE;              // [BK][P]
+  float* sp = sv + C::TILE;              // [BQ][SP]: P of the current tile
+  float* srow = sp + BQ * SP;            // [4][BQ]: each key quarter's row max; at the end, row sum
 
-  const int tid = threadIdx.x;
-  const int rg = tid / CG;        // row group: rows rg*RPT .. rg*RPT+RPT-1
-  const int cg = tid % CG;        // columns cg + CG*j, output dims cg + CG*j
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  // last query tiles first: under a causal mask they walk the most keys
+  const int n_qt = (S + BQ - 1) / BQ;
+  const int h = blockIdx.x % H, b = (blockIdx.x / H) % B;
+  const int q0 = (n_qt - 1 - (int)(blockIdx.x / ((unsigned)H * B))) * BQ;
   const int kh = h / (H / KH);
-  const long qs = (long)H * D;    // stride of one position in q / o
-  const long ks = (long)KH * D;   // stride of one position in k / v
-  const T* qb = q + (long)b * S * qs + (long)h * D;
+  const long qs = (long)H * D, ks = (long)KH * D;
   const T* kb = k + (long)b * S * ks + (long)kh * D;
   const T* vb = v + (long)b * S * ks + (long)kh * D;
-  T* ob = o + (long)b * S * qs + (long)h * D;
-
-  for (int i = tid; i < BQ * D; i += NT) {
-    const int r = i / D, c = i % D, row = q0 + r;
-    sq[r * DP + c] = row < S ? to_f(qb[(long)row * qs + c]) : 0.f;
-  }
-
-  float m[RPT], l[RPT], acc[RPT][DPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int t = 0; t < DPT; ++t) acc[i][t] = 0.f;
-  }
 
   // Tiles wholly above the diagonal or wholly outside the window hold only
   // masked logits; with at least one valid key per row they add exp(-1e30 -
@@ -147,129 +214,146 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   const int kv_end = causal ? min(S, q0 + BQ) : S;
   const int kv_begin = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
 
+  stage_tile<D>(sq, q + (long)b * S * qs + (long)h * D, q0, S, qs);
+  stage_tile<D>(sk, kb, kv_begin, S, ks);
+  stage_tile<D>(sv, vb, kv_begin, S, ks);
+  cp_async_commit();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int wm = warp & 1;                           // rows wm * 16 ..
+  const int wn = warp / 2;                           // scores: keys wn * 8 ..
+  const int nblk = warp / 2 % C::NB, split = warp / 2 / C::NB;   // P V: dims and keys
+  constexpr int KPS = BK / 8 / C::KS;                // k-steps of a split
+  const int r0 = wm * 16 + g, r1 = r0 + 8;           // this thread's two rows of the tile
+  float acc[C::NTW][4];
+#pragma unroll
+  for (int j = 0; j < C::NTW; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  // the rows' running max (the same in every warp of rows wm * 16 ..) and
+  // the running sum over the thread's two columns
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+
   for (int k0 = kv_begin; k0 < kv_end; k0 += BK) {
-    __syncthreads();  // the previous tile's readers are done (and sq is staged)
-    for (int i = tid; i < BK * D; i += NT) {
-      const int r = i / D, c = i % D, key = k0 + r;
-      const bool in = key < S;
-      sk[r * DP + c] = in ? to_f(kb[(long)key * ks + c]) : 0.f;
-      sv[r * D + c] = in ? to_f(vb[(long)key * ks + c]) : 0.f;
-    }
-    __syncthreads();
+    cp_async_wait<0>();
+    __syncthreads();   // tile k0 has landed
 
-    float s[RPT][CPT];
+    // S = Q K^T: element i of the fragment is row r0 (i < 2) or r1, key
+    // wn * 8 + 2 t + i % 2; then scaled, capped and (on edge tiles) masked
+    float x[4];
+    score_tile<D>(sq + wm * 16 * C::P, sk + wn * 8 * C::P, lane, x);
+    const bool edge = edge_tile<BQ, BK>(q0, k0, S, causal, window);
+    float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[RPT], kv[CPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) qv[i] = sq[(rg * RPT + i) * DP + d];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) kv[j] = sk[(cg + CG * j) * DP + d];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int row = q0 + rg * RPT + i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int col = k0 + cg + CG * j;
-        float x = s[i][j] * scale;
-        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+    for (int i = 0; i < 4; ++i) {
+      float s = x[i] * scale;
+      if (softcap > 0.f) s = softcap * tanhf(s / softcap);
+      if (edge) {
+        const int row = q0 + (i < 2 ? r0 : r1), col = k0 + wn * 8 + 2 * t + i % 2;
         bool ok = true;
         if (causal) ok = ok && col <= row;
         if (window > 0) ok = ok && (row - col) < window;
-        x = ok ? x : NEG_INF;
-        if (col >= S) x = -INFINITY;  // past the ragged end: no key at all
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
+        s = ok ? s : NEG_INF;
+        if (col >= S) s = -INFINITY;  // past the ragged end: no key at all
       }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-      const float m_new = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sp[(rg * RPT + i) * SP + cg + CG * j] = p;
-        sum += p;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 4);
-      l[i] = l[i] * corr + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int t = 0; t < DPT; ++t) acc[i][t] *= corr;
+      x[i] = s;
+      if (i < 2)
+        mx0 = fmaxf(mx0, s);
+      else
+        mx1 = fmaxf(mx1, s);
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    if (t == 0) {
+      srow[wn * BQ + r0] = mx0;
+      srow[wn * BQ + r1] = mx1;
     }
     __syncthreads();
 
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float pv[RPT];
+    // the online softmax: the new row max, P into shared memory, its sums,
+    // and the accumulator rescaled by exp(m_old - m_new)
+    const float mn0 = fmaxf(m0, quarters_max(srow, r0)), mn1 = fmaxf(m1, quarters_max(srow, r1));
+    const float c0 = expf(m0 - mn0), c1 = expf(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    const float p0 = expf(x[0] - mn0), p1 = expf(x[1] - mn0);
+    const float p2 = expf(x[2] - mn1), p3 = expf(x[3] - mn1);
+    l0 = l0 * c0 + (p0 + p1);
+    l1 = l1 * c1 + (p2 + p3);
+    store2(sp + r0 * SP + wn * 8 + 2 * t, p0, p1);
+    store2(sp + r1 * SP + wn * 8 + 2 * t, p2, p3);
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) pv[i] = sp[(rg * RPT + i) * SP + c];
+    for (int j = 0; j < C::NTW; ++j) {
+      acc[j][0] *= c0;
+      acc[j][1] *= c0;
+      acc[j][2] *= c1;
+      acc[j][3] *= c1;
+    }
+    __syncthreads();
+
+    // O += P V over the split's keys: rows wm * 16 .., dims (nblk NTW + j) * 8 ..
 #pragma unroll
-      for (int t = 0; t < DPT; ++t) {
-        const float vv = sv[c * D + cg + CG * t];
+    for (int kk = split * KPS; kk < (split + 1) * KPS; ++kk) {
+      const FragA fa = load_a(sp + wm * 16 * SP + kk * 8, SP, lane);
 #pragma unroll
-        for (int i = 0; i < RPT; ++i) acc[i][t] = fmaf(pv[i], vv, acc[i][t]);
-      }
+      for (int j = 0; j < C::NTW; ++j)
+        mma3(acc[j], fa, load_b_kn(sv + kk * 8 * C::P + (nblk * C::NTW + j) * 8, C::P, g, t));
+    }
+    if (k0 + BK < kv_end) {   // the next tile, once every warp is done with this one
+      __syncthreads();
+      stage_tile<D>(sk, kb, k0 + BK, S, ks);
+      stage_tile<D>(sv, vb, k0 + BK, S, ks);
+      cp_async_commit();
     }
   }
+  // the k-splits' partials go through Q, K and V once every warp is done
+  // with them; srow holds the row sums (its maxima were last read before
+  // the last tile's second barrier)
+  if (C::KS > 1) __syncthreads();
+  sum_k_splits<D, C::KS, C::NTW>(acc, smem, 0, split, wm * 16, nblk * C::NTW, g, t);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  if (t == 0) {
+    srow[wn * BQ + r0] = l0;
+    srow[wn * BQ + r1] = l1;
+  }
+  __syncthreads();
+  if (split > 0) return;
 
+  T* ob = o + (long)b * S * qs + (long)h * D;
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int row = q0 + rg * RPT + i;
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = hr ? r1 : r0, row = q0 + r;
     if (row >= S) continue;
-    const float den = fmaxf(l[i], 1e-30f);
+    const float den =
+        fmaxf((srow[r] + srow[BQ + r]) + (srow[2 * BQ + r] + srow[3 * BQ + r]), 1e-30f);
 #pragma unroll
-    for (int t = 0; t < DPT; ++t) ob[(long)row * qs + cg + CG * t] = from_f<T>(acc[i][t] / den);
-    // the row's log-sum-exp of the scaled, capped, masked logits, which the
-    // backward (flash_attention_bwd.cu) recomputes P from; l and m are
-    // already the same in the row group's 8 lanes
-    if (lse && cg == 0) lse[((long)b * H + h) * S + row] = m[i] + logf(den);
+    for (int j = 0; j < C::NTW; ++j)
+      store2(ob + (long)row * qs + (nblk * C::NTW + j) * 8 + 2 * t, acc[j][2 * hr] / den,
+             acc[j][2 * hr + 1] / den);
+    // the row's log-sum-exp of the scaled, capped, masked logits, which
+    // the backward (flash_attention_bwd.cu) recomputes P from
+    if (lse && nblk == 0 && t == 0) lse[((long)b * H + h) * S + row] = (hr ? m1 : m0) + logf(den);
   }
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse, int B, int S, int H,
            int KH, float scale, int causal, int window, float softcap, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+  using C = Cfg<D>;
   static std::atomic<unsigned long long> opted_in{0};
-  cudaError_t err = hopper::opt_in_smem((const void*)flash_kernel<T, D>, (int)smem, opted_in);
+  cudaError_t err = hopper::opt_in_smem((const void*)flash_tf32x3_kernel<T, D>, C::SMEM, opted_in);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((S + q_rows<D>() - 1) / q_rows<D>(), H, B);
-  flash_kernel<T, D><<<grid, NT, smem, stream>>>(
+  const unsigned ctas = (unsigned)((S + BQ - 1) / BQ) * B * H;
+  flash_tf32x3_kernel<T, D><<<ctas, NT, C::SMEM, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<float*>(lse), S, H, KH, scale, causal, window, softcap);
+      static_cast<T*>(o), static_cast<float*>(lse), B, S, H, KH, scale, causal, window, softcap);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_d(int D, const void* q, const void* k, const void* v, void* o, void* lse, int B,
-               int S, int H, int KH, float scale, int causal, int window, float softcap,
-               cudaStream_t st) {
-  switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, lse, B, S, H, KH, scale, causal, window, softcap, st);
-    case 64: return launch<T, 64>(q, k, v, o, lse, B, S, H, KH, scale, causal, window, softcap, st);
-    case 128:
-      return launch<T, 128>(q, k, v, o, lse, B, S, H, KH, scale, causal, window, softcap, st);
-    case 256:
-      return launch<T, 256>(q, k, v, o, lse, B, S, H, KH, scale, causal, window, softcap, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
+}  // namespace x3
 
 // ---- the tensor-core route (bf16, D 64 / 128 / 256) ------------------------
 
@@ -501,16 +585,17 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
 
 }  // namespace
 
-// 1 if (dtype, D) takes the tensor-core route, 0 if the CUDA-core one.
+// 1 if (dtype, D) takes the wgmma route, 0 if the 3xTF32 one.
 extern "C" int flash_attention_route(int dtype, int D) {
   return dtype == 1 && (D == 64 || D == 128 || D == 256);
 }
 
 // dtype: 0 float32, 1 bfloat16. `lse`, null or fp32 (B, H, S), receives
-// each row's log-sum-exp for the backward; only the CUDA-core route writes
-// it, so a non-null `lse` on the tensor-core route is refused. Returns
-// cudaGetLastError() after the launch (0 on success); launches on `stream`
-// and does not synchronise.
+// each row's log-sum-exp for the backward; only the 3xTF32 route writes it,
+// so a non-null `lse` on the wgmma route is refused. The 3xTF32 route
+// copies q, k and v in 16-byte pieces: every pointer must be 16-byte
+// aligned. Returns cudaGetLastError() after the launch (0 on success);
+// launches on `stream` and does not synchronise.
 extern "C" int flash_attention(int dtype, const void* q, const void* k, const void* v, void* o,
                                int B, int S, int H, int KH, int D, float scale, int causal,
                                int window, float softcap, void* lse, void* stream) {
@@ -524,12 +609,20 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k, const vo
       default: return tc::launch<256>(q, k, v, o, B, S, H, KH, scale, causal, window, softcap, st);
     }
   }
-  switch (dtype) {
-    case 0:
-      return dispatch_d<float>(D, q, k, v, o, lse, B, S, H, KH, scale, causal, window, softcap, st);
-    case 1:
-      return dispatch_d<__nv_bfloat16>(D, q, k, v, o, lse, B, S, H, KH, scale, causal, window,
-                                       softcap, st);
-    default: return (int)cudaErrorInvalidValue;
+  if ((long)((S + 31) / 32) * B * H > 0x7fffffffL) return (int)cudaErrorInvalidValue;
+  for (const void* p : {q, k, v, (const void*)o, (const void*)lse})
+    if (reinterpret_cast<uintptr_t>(p) % 16) return (int)cudaErrorMisalignedAddress;
+#define K1_X3_ARGS q, k, v, o, lse, B, S, H, KH, scale, causal, window, softcap, st
+  if (dtype == 0) {
+    switch (D) {
+      case 16: return x3::launch<float, 16>(K1_X3_ARGS);
+      case 64: return x3::launch<float, 64>(K1_X3_ARGS);
+      case 128: return x3::launch<float, 128>(K1_X3_ARGS);
+      case 256: return x3::launch<float, 256>(K1_X3_ARGS);
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
+  if (dtype == 1 && D == 16) return x3::launch<__nv_bfloat16, 16>(K1_X3_ARGS);
+#undef K1_X3_ARGS
+  return (int)cudaErrorInvalidValue;
 }

@@ -28,7 +28,9 @@
 // about 2^-21 of the product, is dropped). This is the arithmetic of SDPA's
 // fp32 path, PyTorch's memory-efficient attention, whose fp32 operator is
 // CUTLASS's OpMultiplyAddFastF32 on GemmShape<16, 8, 8>: it keeps fp32-grade
-// error, where one TF32 product (a 10-bit mantissa) would not. The softmax
+// error, where one TF32 product (a 10-bit mantissa) would not. The helpers
+// (the split, the fragments, the products, the streamed copies) are in
+// `mma_tf32.cuh`, shared with K1's fp32 route. The softmax
 // recompute, the softcap's derivative, the mask and Delta stay in fp32 on
 // the CUDA cores.
 //
@@ -105,8 +107,11 @@
 #include <atomic>
 
 #include "hopper.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
+
+using namespace tf32x3;
 
 constexpr int NT = 512;   // threads a CTA of the two main kernels: 16 warps
 constexpr int BQ = 32;    // query rows a tile
@@ -120,9 +125,8 @@ constexpr int SP = 36;    // padded row of the P^T, dX^T and dX tiles
 // the KS splits are summed at the end in a fixed order.
 template <int D>
 struct Tc {
-  static constexpr int P = D + 4;        // padded row of Q, dO, K and V
-  static constexpr int TILE = 32 * P;    // floats of one 32-row tile
-  static constexpr int KSTEPS = D / 8;   // k-steps of the score products
+  static constexpr int P = row_pitch<D>;   // padded row of Q, dO, K and V
+  static constexpr int TILE = 32 * P;      // floats of one 32-row tile
   static constexpr int NB = D / 8 < 4 ? D / 8 : 4;   // n-blocks of a D-wide product
   static constexpr int NTW = D / (8 * NB);            // n-tiles of 8 dims a warp
   static constexpr int KS_DKDV = 8 / (2 * NB);        // k-splits: 8 warps a product
@@ -137,135 +141,6 @@ struct Tc {
   static_assert(2 * (KS_DKDV - 1) <= 4 && KS_DQ - 1 <= 4, "no room to sum the k-splits");
 };
 
-// ---- the tensor-core product: 3xTF32 on mma.sync.m16n8k8 ------------------
-
-// x = big + small, each a TF32 operand: big is x rounded to TF32 (10
-// mantissa bits) to nearest, ties away from zero, the value cvt.rna.tf32.f32
-// gives, here in two integer ops (the conversion is a quarter-rate
-// instruction, and two of them an element would limit this kernel);
-// small = x - big is exact in fp32, and the tensor core reads its top 19
-// bits (truncation toward zero). CUTLASS's OpMultiplyAddFastF32 rounds the
-// same way (big: round_half_ulp_truncate, small: round_toward_zero).
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
-  big = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-  small = __float_as_uint(x - __uint_as_float(big));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// A fragment (16 x 8, rows g and g + 8, columns t and t + 4 of lane
-// 4 g + t) and B fragment (8 x 8, rows t and t + 4, column g), split
-struct FragA {
-  uint32_t big[4], small[4];
-};
-struct FragB {
-  uint32_t big[2], small[2];
-};
-
-// ldmatrix of 8 x 8 b16 matrices is, in 32-bit words, 8 rows x 4 fp32
-// columns, lane 4 g + t taking row g, column t: an fp32 fragment's layout.
-// Lane l gives the row address of row l % 8 of matrix l / 8; every address
-// 16-byte aligned.
-__device__ __forceinline__ void ldsm_x4(const float* p, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(hopper::smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x2(const float* p, uint32_t (&r)[2]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(hopper::smem_u32(p)));
-}
-
-// A from a row-major tile at `s` (row pitch `pitch`): 8 rows x 4 columns,
-// as four ldmatrix matrices (rows 0-7 and 8-15 at columns 0 and 4)
-__device__ __forceinline__ FragA load_a(const float* s, int pitch, int lane) {
-  const int m = lane / 8;
-  uint32_t x[4];
-  ldsm_x4(s + (lane % 8 + 8 * (m & 1)) * pitch + 4 * (m >> 1), x);
-  FragA f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(x[i]), f.big[i], f.small[i]);
-  return f;
-}
-
-// B[k][n] from a row-major (n, k) tile: 8 rows x 4 columns, as two
-// ldmatrix matrices (columns 0 and 4)
-__device__ __forceinline__ FragB load_b_nk(const float* s, int pitch, int lane) {
-  uint32_t x[2];
-  ldsm_x2(s + (lane % 8) * pitch + 4 * ((lane / 8) & 1), x);
-  FragB f;
-  split_tf32(__uint_as_float(x[0]), f.big[0], f.small[0]);
-  split_tf32(__uint_as_float(x[1]), f.big[1], f.small[1]);
-  return f;
-}
-
-// B[k][n] from a row-major (k, n) tile: 4 rows x 8 columns
-__device__ __forceinline__ FragB load_b_kn(const float* s, int pitch, int g, int t) {
-  FragB f;
-  split_tf32(s[t * pitch + g], f.big[0], f.small[0]);
-  split_tf32(s[(t + 4) * pitch + g], f.big[1], f.small[1]);
-  return f;
-}
-
-// c += a . b as 3xTF32: the small terms first, then the big one
-__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a, const FragB& b) {
-  mma_tf32(c, a.small, b.big);
-  mma_tf32(c, a.big, b.small);
-  mma_tf32(c, a.big, b.big);
-}
-
-// the same into two accumulators, small terms and big, for two shorter
-// chains of dependent mma in the score products' long k-loops
-__device__ __forceinline__ void mma3_two(float (&lo)[4], float (&hi)[4], const FragA& a,
-                                         const FragB& b) {
-  mma_tf32(lo, a.small, b.big);
-  mma_tf32(lo, a.big, b.small);
-  mma_tf32(hi, a.big, b.big);
-}
-
-// ---- copies ------------------------------------------------------------------
-
-// 16 or 4 bytes from global to shared memory, zeros when !in (src is then
-// not read, but kept a valid address)
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(hopper::smem_u32(dst)),
-               "l"(src), "r"(in ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(hopper::smem_u32(dst)),
-               "l"(src), "r"(in ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
-// rows r0 .. r0 + 31 of a (B, S, heads, D) tensor at (b, head) (`src` its
-// row 0) into a tile of rows of P, zeros past S
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int r0, int S,
-                                          long stride) {
-  constexpr int CPR = D / 4;   // 16-byte copies a row
-  for (int i = threadIdx.x; i < 32 * CPR; i += NT) {
-    const int r = i / CPR, c = (i % CPR) * 4, row = r0 + r;
-    const bool in = row < S;
-    cp_async16(dst + r * Tc<D>::P + c, src + (long)(in ? row : 0) * stride + c, in);
-  }
-}
-
 // lse and Delta of rows r0 .. r0 + 31 of (b, h) (`lse`, `delta` their row
 // 0), zeros past S
 __device__ __forceinline__ void load_stats(float* sl, float* sdel, const float* __restrict__ lse,
@@ -276,13 +151,6 @@ __device__ __forceinline__ void load_stats(float* sl, float* sdel, const float* 
     const bool in = row < S;
     cp_async4((i < 32 ? sl : sdel) + r, (i < 32 ? lse : delta) + (in ? row : 0), in);
   }
-}
-
-// whether the tile of query rows q0.. and keys k0.. needs its mask: it
-// crosses the diagonal, the window's edge or S
-__device__ __forceinline__ bool edge_tile(int q0, int k0, int S, int causal, int window) {
-  return q0 + BQ > S || k0 + BKV > S || (causal && k0 + BKV - 1 > q0) ||
-         (window > 0 && q0 + BQ - 1 - k0 >= window);
 }
 
 // P of the score element at query row `row`, key `key`, from its logit s
@@ -305,51 +173,6 @@ __device__ __forceinline__ void p_of(float s, float l, int row, int key, int S, 
     if (window > 0) ok = ok && (row - key) < window;
   }
   p = ok ? expf(x - l) : 0.f;
-}
-
-// a warp's m16n8 tile of A.B^T over D, A rows at `a`, B rows at `b` (both
-// row-major (row, d), pitch P), in four accumulator chains; returns the sums
-template <int D>
-__device__ __forceinline__ void score_tile(const float* a, const float* b, int lane,
-                                           float (&x)[4]) {
-  using C = Tc<D>;
-  float lo[2][4] = {}, hi[2][4] = {};
-#pragma unroll 4
-  for (int kk = 0; kk < C::KSTEPS; ++kk)
-    mma3_two(lo[kk & 1], hi[kk & 1], load_a(a + kk * 8, C::P, lane),
-             load_b_nk(b + kk * 8, C::P, lane));
-#pragma unroll
-  for (int i = 0; i < 4; ++i) x[i] = (lo[0][i] + hi[0][i]) + (lo[1][i] + hi[1][i]);
-}
-
-// A D-wide product's KS k-splits summed in a fixed order: splits 1 .. KS - 1
-// write their accumulators to their regions of `red` (32 x P each), and
-// after the CTA's barrier split 0 adds them in order. Every thread calls it;
-// acc (element i: row rm + g + 8 (i / 2), dim (n0 + j) * 8 + 2 t + i % 2)
-// holds the sum only in split 0's warps afterwards.
-template <int D, int KS, int NTW>
-__device__ __forceinline__ void sum_k_splits(float (&acc)[NTW][4], float* red, int region,
-                                             int split, int rm, int n0, int g, int t) {
-  using C = Tc<D>;
-  if (KS == 1) return;
-  if (split > 0) {
-    float* r = red + (region * (KS - 1) + split - 1) * C::TILE;
-#pragma unroll
-    for (int j = 0; j < NTW; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        r[(rm + g + 8 * (i / 2)) * C::P + (n0 + j) * 8 + 2 * t + i % 2] = acc[j][i];
-  }
-  __syncthreads();
-  if (split > 0) return;
-  for (int s = 1; s < KS; ++s) {
-    const float* r = red + (region * (KS - 1) + s - 1) * C::TILE;
-#pragma unroll
-    for (int j = 0; j < NTW; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        acc[j][i] += r[(rm + g + 8 * (i / 2)) * C::P + (n0 + j) * 8 + 2 * t + i % 2];
-  }
 }
 
 // ---- kernels -------------------------------------------------------------------
@@ -411,10 +234,10 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q_begin = causal ? k0 : 0;
   const int q_end = window > 0 ? min(S, k0 + BKV - 1 + window) : S;
 
-  load_tile<D>(sk, k + (long)b * S * ks + (long)kh * D, k0, S, ks);
-  load_tile<D>(sv, v + (long)b * S * ks + (long)kh * D, k0, S, ks);
-  load_tile<D>(sq, qb, q_begin, S, qs);
-  load_tile<D>(sdo, db, q_begin, S, qs);
+  load_tile<D, NT>(sk, k + (long)b * S * ks + (long)kh * D, k0, S, ks);
+  load_tile<D, NT>(sv, v + (long)b * S * ks + (long)kh * D, k0, S, ks);
+  load_tile<D, NT>(sq, qb, q_begin, S, qs);
+  load_tile<D, NT>(sdo, db, q_begin, S, qs);
   load_stats(sl, sdel, lb, eb, q_begin, S);
   cp_async_commit();
 
@@ -434,8 +257,8 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // left at its closing barrier
     if (q0 + BQ < q_end) {
       const int ns = stage ^ 1;
-      load_tile<D>(sq + ns * C::TILE, qb, q0 + BQ, S, qs);
-      load_tile<D>(sdo + ns * C::TILE, db, q0 + BQ, S, qs);
+      load_tile<D, NT>(sq + ns * C::TILE, qb, q0 + BQ, S, qs);
+      load_tile<D, NT>(sdo + ns * C::TILE, db, q0 + BQ, S, qs);
       load_stats(sl + ns * BQ, sdel + ns * BQ, lb, eb, q0 + BQ, S);
       cp_async_commit();
       cp_async_wait<1>();
@@ -454,7 +277,7 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float x[4];
     score_tile<D>((second ? sv : sk) + wm * 16 * C::P, (second ? tdo : tq) + wn * 8 * C::P,
                   lane, x);
-    const bool edge = edge_tile(q0, k0, S, causal, window);
+    const bool edge = edge_tile<BQ, BKV>(q0, k0, S, causal, window);
     float p[4], dxdt[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -557,11 +380,11 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int kv_end = causal ? min(S, q0 + BQ) : S;
   const int kv_begin = window > 0 ? max(0, q0 - window + 1) / BKV * BKV : 0;
 
-  load_tile<D>(sq, q + (long)b * S * qs + (long)h * D, q0, S, qs);
-  load_tile<D>(sdo, dout + (long)b * S * qs + (long)h * D, q0, S, qs);
+  load_tile<D, NT>(sq, q + (long)b * S * qs + (long)h * D, q0, S, qs);
+  load_tile<D, NT>(sdo, dout + (long)b * S * qs + (long)h * D, q0, S, qs);
   load_stats(sl, sdel, lse + ((long)b * H + h) * S, delta + ((long)b * H + h) * S, q0, S);
-  load_tile<D>(sk, kb, kv_begin, S, ks);
-  load_tile<D>(sv, vb, kv_begin, S, ks);
+  load_tile<D, NT>(sk, kb, kv_begin, S, ks);
+  load_tile<D, NT>(sv, vb, kv_begin, S, ks);
   cp_async_commit();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
@@ -578,8 +401,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int k0 = kv_begin; k0 < kv_end; k0 += BKV, stage ^= 1) {
     if (k0 + BKV < kv_end) {
       const int ns = stage ^ 1;
-      load_tile<D>(sk + ns * C::TILE, kb, k0 + BKV, S, ks);
-      load_tile<D>(sv + ns * C::TILE, vb, k0 + BKV, S, ks);
+      load_tile<D, NT>(sk + ns * C::TILE, kb, k0 + BKV, S, ks);
+      load_tile<D, NT>(sv + ns * C::TILE, vb, k0 + BKV, S, ks);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -595,7 +418,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float x[4];
     score_tile<D>((second ? sdo : sq) + wm * 16 * C::P, (second ? tv : tk) + wn * 8 * C::P,
                   lane, x);
-    const bool edge = edge_tile(q0, k0, S, causal, window);
+    const bool edge = edge_tile<BQ, BKV>(q0, k0, S, causal, window);
     float p[4], dxdt[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {

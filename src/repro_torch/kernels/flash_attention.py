@@ -4,15 +4,16 @@ Replaces ``repro.kernels.flash_attention.flash_attention`` (Pallas, TPU).
 The kernels are in ``csrc/flash_attention.cu``; its plain PyTorch version
 is ``ref.attention_ref``, which ``ops.flash_attention`` takes for CPU
 tensors. The ``.cu`` picks one of two routes by dtype and head_dim alone
-(``route``): bf16 at D 64, 128 and 256 runs on the tensor cores (wgmma),
-everything else on the fp32 CUDA cores. ``flash_attention.launches``
+(``route``), both on the tensor cores: bf16 at D 64, 128 and 256 on
+``wgmma`` in bf16, everything else (fp32 at every D, bf16 at D 16) as
+3xTF32 ``mma.sync`` (each fp32 operand split into two TF32 parts, three
+products a multiply: fp32-grade error). ``flash_attention.launches``
 counts every launch, ``flash_attention.launches_by_route`` each route's.
 
 The gradient (K1-bwd) is ``csrc/flash_attention_bwd.cu``, fp32 in and out,
-its products on the tensor cores as 3xTF32 ``mma.sync`` (each fp32 operand
-split into two TF32 parts, three products a multiply: fp32-grade error) at
-every head_dim, which recomputes P from the forward's log-sum-exp per row:
-the CUDA-core route writes it when asked (``return_lse``).
+its products on the tensor cores as 3xTF32 ``mma.sync`` at every head_dim,
+which recomputes P from the forward's log-sum-exp per row: the 3xTF32
+route writes it when asked (``return_lse``).
 ``FlashAttention`` is the autograd Function that pairs the two;
 ``flash_attention_bwd.launches`` counts the backward's calls (each launches
 its kernels: three, four with KH < H).
@@ -27,24 +28,30 @@ from repro_torch.kernels import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 64, 128, 256)
-ROUTES = ("wgmma", "cuda_cores")
+ROUTES = ("wgmma", "tf32x3")
 
 
 def route(dtype, head_dim) -> str:
     """The kernel a launch takes: "wgmma" for bf16 at D 64, 128 or 256,
-    "cuda_cores" otherwise (fp32 on the tensor cores would be TF32)."""
-    return "wgmma" if dtype == torch.bfloat16 and head_dim in (64, 128, 256) else "cuda_cores"
+    "tf32x3" otherwise (3xTF32 mma.sync, which keeps fp32's accuracy)."""
+    return "wgmma" if dtype == torch.bfloat16 and head_dim in (64, 128, 256) else "tf32x3"
 
 
-@functools.cache
-def _fn():
-    """The C entry point, built, loaded and typed once per process."""
-    fn = build.load("flash_attention").flash_attention
+def entry(lib):
+    """The C entry point flash_attention of `lib` (a built
+    csrc/flash_attention.cu, loaded by ctypes), typed."""
+    fn = lib.flash_attention
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _fn():
+    """The C entry point, built, loaded and typed once per process."""
+    return entry(build.load("flash_attention"))
 
 
 def bwd_entry(lib):
@@ -96,17 +103,35 @@ def flash_attention(q, k, v, *, scale=None, causal=True, window=0, softcap=None,
     """q (B,S,H,D); k,v (B,S,KH,D) with KH dividing H (KH == H is the
     head-expanded layout). Contiguous CUDA tensors of one dtype. Returns
     (B,S,H,D) in q's dtype, and with `return_lse` also each row's
-    log-sum-exp (B,H,S) fp32, which only the CUDA-core route writes.
-    Launches on the current stream, no sync."""
+    log-sum-exp (B,H,S) fp32, which only the 3xTF32 route writes; that
+    route copies q, k and v in 16-byte pieces, so each must start 16-byte
+    aligned. Launches on the current stream, no sync."""
     _check(q, k, v)
     b, s, h, d = q.shape
-    if return_lse and route(q.dtype, d) != "cuda_cores":
-        raise ValueError(f"only the CUDA-core route writes the log-sum-exp; {q.dtype} at "
+    if route(q.dtype, d) == "tf32x3":
+        if any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError("flash_attention's 3xTF32 route copies q, k and v in 16-byte "
+                             "pieces: each must start 16-byte aligned")
+    elif return_lse:
+        raise ValueError(f"only the 3xTF32 route writes the log-sum-exp; {q.dtype} at "
                          f"head_dim {d} takes the {route(q.dtype, d)} route")
+    out, lse = fwd_launch(_fn(), q, k, v, scale=scale, causal=causal, window=window,
+                          softcap=softcap, return_lse=return_lse)
+    flash_attention.launches += 1
+    flash_attention.launches_by_route[route(q.dtype, d)] += 1
+    return (out, lse) if return_lse else out
+
+
+def fwd_launch(fn, q, k, v, *, scale=None, causal=True, window=0, softcap=None,
+               return_lse=False):
+    """Launch `fn` (an entry point typed by ``entry``) on inputs that
+    ``flash_attention`` has checked, into a new output (and log-sum-exp,
+    else None), on the current stream of q's device; raises on a CUDA
+    error."""
+    b, s, h, d = q.shape
     scale = scale if scale is not None else d ** -0.5
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if return_lse else None
-    fn = _fn()
     with torch.cuda.device(q.device):
         err = fn(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  out.data_ptr(), b, s, h, k.shape[2], d, float(scale), int(bool(causal)),
@@ -115,9 +140,7 @@ def flash_attention(q, k, v, *, scale=None, causal=True, window=0, softcap=None,
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
-    flash_attention.launches += 1
-    flash_attention.launches_by_route[route(q.dtype, d)] += 1
-    return (out, lse) if return_lse else out
+    return out, lse
 
 
 flash_attention.launches = 0

@@ -108,7 +108,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=None, scale=None)
 
 def flash_attention_lse_plain(q, k, *, causal=True, window=0, softcap=None, scale=None):
     """Each row's log-sum-exp (B,H,S) fp32 of the scaled, capped, masked
-    logits of `flash_attention`: what its CUDA-core route writes for the
+    logits of `flash_attention`: what its 3xTF32 route writes for the
     backward."""
     b, s, h, d = q.shape
     scale = scale if scale is not None else d ** -0.5

@@ -41,12 +41,12 @@ def _rand(gen, shape, dtype, dev):
                                        (256, 128, torch.bfloat16),
                                        (200, 128, torch.bfloat16),   # ragged S
                                        (300, 256, torch.bfloat16),
-                                       (50, 16, torch.bfloat16)])    # bf16 on CUDA cores
+                                       (50, 16, torch.bfloat16)])    # bf16 on 3xTF32
 @pytest.mark.parametrize("window,softcap,kv_heads", [(0, None, 2), (64, None, 1),
                                                      (0, 30.0, 2)])
 def test_flash_attention_kernel(cuda, s, d, dtype, window, softcap, kv_heads):
-    """Both routes of K1: bf16 at D 64/128/256 on the tensor cores, fp32 and
-    bf16 at D 16 on the CUDA cores; each launch counted under its route."""
+    """Both routes of K1: bf16 at D 64/128/256 on wgmma, fp32 and bf16 at
+    D 16 on 3xTF32 mma.sync; each launch counted under its route."""
     from repro_torch.kernels import flash_attention as tflash
     gen = torch.Generator(device=cuda).manual_seed(7)
     b, h = 2, 2
@@ -58,7 +58,7 @@ def test_flash_attention_kernel(cuda, s, d, dtype, window, softcap, kv_heads):
     want = ops.flash_attention_plain(q, k, v, window=window, softcap=softcap)
     assert ops.launch_counts()["flash_attention"] == before + 1
     route = tflash.route(dtype, d)
-    assert route == ("wgmma" if dtype == torch.bfloat16 and d > 16 else "cuda_cores")
+    assert route == ("wgmma" if dtype == torch.bfloat16 and d > 16 else "tf32x3")
     by_route[route] += 1
     assert tflash.flash_attention.launches_by_route == by_route
     torch.testing.assert_close(got, want, atol=TOL[dtype], rtol=TOL[dtype])
@@ -389,6 +389,69 @@ def test_flash_attention_backward_refuses_misaligned(cuda):
     o, lse = tflash.flash_attention(k, k, k, return_lse=True)
     with pytest.raises(ValueError, match="16-byte"):
         tflash.flash_attention_bwd(q, k, k, o, lse, k)
+
+
+@pytest.mark.parametrize("d", [16, 64, 128, 256])
+@pytest.mark.parametrize("s,h,kh,kw", [
+    (256, 10, 1, {"window": 2048}),        # the train call's shape at B 2
+    (77, 4, 2, {"softcap": 30.0}),          # ragged over 32-row tiles
+    (300, 4, 1, {"window": 45}),            # a window ending inside a key tile
+    (33, 2, 2, {"causal": False}),
+])
+def test_flash_attention_lse_kernel(cuda, d, s, h, kh, kw):
+    """K1's 3xTF32 route at every head_dim: the output within 2e-5 and each
+    row's log-sum-exp within 1e-5 of the plain versions; one launch, on the
+    tf32x3 route."""
+    from repro_torch.kernels import flash_attention as tflash
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q = _rand(gen, (2, s, h, d), torch.float32, cuda)
+    k, v = (_rand(gen, (2, s, kh, d), torch.float32, cuda) for _ in range(2))
+    kw = {"causal": True, **kw}
+    ops.reset_launch_counts()
+    out, lse = tflash.flash_attention(q, k, v, return_lse=True, **kw)
+    assert tflash.flash_attention.launches_by_route == {"wgmma": 0, "tf32x3": 1}
+    torch.testing.assert_close(out, ops.flash_attention_plain(q, k, v, **kw),
+                               atol=TOL[torch.float32], rtol=TOL[torch.float32])
+    torch.testing.assert_close(lse, ops.flash_attention_lse_plain(q, k, **kw), atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("d,kw", [(256, {"window": 2048}), (128, {}), (64, {"softcap": 30.0}),
+                                  (16, {"window": 7})])
+def test_flash_attention_bwd_from_tf32x3_lse(cuda, d, kw):
+    """K1-bwd fed by the 3xTF32 forward's output and log-sum-exp: dq, dk
+    and dv within 1e-4 of each gradient's max of the plain backward fed by
+    the plain forward's, and of autograd of the plain forward."""
+    from repro_torch.kernels import flash_attention as tflash
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    b, s, h, kh = 2, 96, 4, 1
+    q = _rand(gen, (b, s, h, d), torch.float32, cuda)
+    k, v = (_rand(gen, (b, s, kh, d), torch.float32, cuda) for _ in range(2))
+    do = _rand(gen, (b, s, h, d), torch.float32, cuda)
+    kw = {"causal": True, **kw}
+    o, lse = tflash.flash_attention(q, k, v, return_lse=True, **kw)
+    got = tflash.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    o_plain = ops.flash_attention_plain(q, k, v, **kw)
+    lse_plain = ops.flash_attention_lse_plain(q, k, **kw)
+    plain = ops.flash_attention_bwd_plain(q, k, v, o_plain, lse_plain, do, **kw)
+    qa, ka, va = (x.clone().requires_grad_() for x in (q, k, v))
+    auto = torch.autograd.grad(ops.flash_attention_plain(qa, ka, va, **kw), (qa, ka, va), do)
+    for g, p, a in zip(got, plain, auto):
+        _close_grad(g, p)
+        _close_grad(g, a)
+
+
+def test_flash_attention_tf32x3_refuses_misaligned(cuda):
+    """The 3xTF32 route copies q, k and v in 16-byte pieces: a view that
+    starts off a 16-byte boundary is refused before any launch."""
+    from repro_torch.kernels import flash_attention as tflash
+    b, s, h, d = 1, 32, 2, 16
+    q = torch.randn(b * s * h * d + 1, device=cuda)[1:].view(b, s, h, d)
+    k = torch.randn(b, s, h, d, device=cuda)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte"):
+        tflash.flash_attention(q, k, k)
+    assert ops.launch_counts()["flash_attention"] == 0
 
 
 @pytest.mark.parametrize("b,s,w,out_dtype,with_h0", [

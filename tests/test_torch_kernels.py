@@ -132,9 +132,9 @@ def test_wgmma_tile_walk_matches_pallas(s, d, causal, window, softcap):
 @pytest.mark.parametrize("dtype,d", [(dt, d) for dt in (torch.float32, torch.bfloat16)
                                      for d in tflash.HEAD_DIMS])
 def test_flash_route_rule(dtype, d):
-    """bf16 at D 64/128/256 takes the tensor cores; fp32 (which would be
-    TF32 there) and bf16 at D 16 stay on the CUDA cores."""
-    want = "wgmma" if dtype == torch.bfloat16 and d in (64, 128, 256) else "cuda_cores"
+    """bf16 at D 64/128/256 takes wgmma; fp32 at every D and bf16 at D 16
+    take 3xTF32 mma.sync (one TF32 product would miss fp32's 2e-5)."""
+    want = "wgmma" if dtype == torch.bfloat16 and d in (64, 128, 256) else "tf32x3"
     assert tflash.route(dtype, d) == want
 
 
@@ -142,7 +142,7 @@ def test_reset_clears_flash_route_counts():
     tflash.flash_attention.launches_by_route["wgmma"] += 3
     tflash.flash_attention.launches += 3
     ops.reset_launch_counts()
-    assert tflash.flash_attention.launches_by_route == {"wgmma": 0, "cuda_cores": 0}
+    assert tflash.flash_attention.launches_by_route == {"wgmma": 0, "tf32x3": 0}
     assert ops.launch_counts()["flash_attention"] == 0
 
 
@@ -371,19 +371,29 @@ def test_build_paths_track_source_and_flags(monkeypatch, tmp_path):
     before = build.library_path("flash_attention")
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-lineinfo",))
     assert build.library_path("flash_attention") != before
-    # an edited header renames every library that includes it, and only those
-    assert build.headers("flash_attention") == [build.CSRC / "hopper.cuh"]
+    # an edited header renames every library that includes it, directly or
+    # through another header, and only those
+    assert build.headers("flash_attention") == [build.CSRC / "hopper.cuh",
+                                                build.CSRC / "mma_tf32.cuh"]
+    assert build.headers("flash_attention_bwd") == build.headers("flash_attention")
     csrc = tmp_path / "csrc"
     csrc.mkdir()
     for f in (*build.CSRC.glob("*.cu"), *build.CSRC.glob("*.cuh")):
         (csrc / f.name).write_bytes(f.read_bytes())
     monkeypatch.setattr(build, "CSRC", csrc)
-    paths = {name: build.library_path(name) for name in build.KERNELS}
-    with open(csrc / "hopper.cuh", "a") as f:
-        f.write("// edited\n")
-    for name in build.KERNELS:
-        changed = build.library_path(name) != paths[name]
-        assert changed == (csrc / "hopper.cuh" in build.headers(name)), name
+    for header, includers in (("mma_tf32.cuh", {"flash_attention", "flash_attention_bwd"}),
+                              ("hopper.cuh", {"flash_attention", "flash_attention_bwd",
+                                              "decode_attention", "ssd_scan"})):
+        paths = {name: build.library_path(name) for name in build.KERNELS}
+        with open(csrc / header, "a") as f:
+            f.write("// edited\n")
+        for name in build.KERNELS:
+            changed = build.library_path(name) != paths[name]
+            assert changed == (csrc / header in build.headers(name)), name
+        assert {n for n in build.KERNELS if csrc / header in build.headers(n)} == includers
+    # a header reached only through another header counts too
+    (csrc / "only_nested.cu").write_text('#include "mma_tf32.cuh"\n')
+    assert build.headers("only_nested") == [csrc / "hopper.cuh", csrc / "mma_tf32.cuh"]
     monkeypatch.setattr(build.shutil, "which", lambda _: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""K1-bwd and K4-bwd at recurrentgemma-2b's training call, and the
-full-width train step, on one GPU, for one checkout of the port.
+"""K1's fp32 forward, K1-bwd and K4-bwd at recurrentgemma-2b's training
+call, and the full-width train step, on one GPU, for one checkout of the
+port.
 
     PYTHONPATH=<checkout>/src python3 tools/bwd_timing.py [--tag NAME] [--no-train]
 
@@ -9,10 +10,12 @@ trees compare in one call, alternated), else from this checkout; the
 timing helpers come from this checkout's ``chip_smoke.py``. Builds the
 four kernels the training path runs, then times, by CUDA events behind a
 sleeping kernel (``chip_smoke.time_ms``):
-- K1-bwd at the train call (B 4, S 256, 10 query heads on 1 kv head, D 256,
-  fp32, window 2048), with its device time split by kernel from a profiler
-  trace (``chip_smoke.kernel_spans``), beside SDPA's fp32 backward
-  (forward and backward, less forward) on the same inputs;
+- K1 at the train call (B 4, S 256, 10 query heads on 1 kv head, D 256,
+  fp32, window 2048, writing its log-sum-exp), beside SDPA's fp32
+  forward on the same inputs;
+- K1-bwd at the same call, with its device time split by kernel from a
+  profiler trace (``chip_smoke.kernel_spans``), beside SDPA's fp32
+  backward (forward and backward, less forward);
 - K4-bwd at the train call (B 4, S 256, W 2560, fp32): warm (one set of
   inputs) and cold in L2 (four sets in rotation);
 - unless ``--no-train``, the full-width train step through
@@ -41,13 +44,16 @@ from repro_torch.kernels import rglru_scan as K4  # noqa: E402
 B, S, H, KH, D, WINDOW, W = 4, 256, 10, 1, 256, 2048, 2560
 
 
-def k1_bwd(gen, dev):
+def k1_calls(gen, dev):
+    """(K1 forward, K1-bwd) at the train call, each beside SDPA's."""
     import torch.nn.functional as F
     rand = lambda *shape: torch.randn(*shape, generator=gen, device=dev)   # noqa: E731
     q, do = rand(B, S, H, D), rand(B, S, H, D)
     k, v = rand(B, S, KH, D), rand(B, S, KH, D)
     sc = D ** -0.5
-    o, lse = K1.flash_attention(q, k, v, scale=sc, window=WINDOW, return_lse=True)
+    fwd = lambda: K1.flash_attention(q, k, v, scale=sc, window=WINDOW, return_lse=True)  # noqa
+    fwd_ms = chip_smoke.time_ms("K1 fp32", fwd)
+    o, lse = fwd()
     call = lambda: K1.flash_attention_bwd(q, k, v, o, lse, do, scale=sc, window=WINDOW)  # noqa
     ms = chip_smoke.time_ms("K1-bwd", call)
     split = chip_smoke.kernel_spans(call, ("flash_bwd_delta", "flash_bwd_dkdv",
@@ -58,10 +64,11 @@ def k1_bwd(gen, dev):
     mask = (i[None, :] <= i[:, None]) & ((i[:, None] - i[None, :]) < WINDOW)
     sdpa = lambda: F.scaled_dot_product_attention(   # noqa: E731
         qt, kt, vt, attn_mask=mask, scale=sc, enable_gqa=True)
-    fwd = chip_smoke.time_ms("SDPA fp32 forward", sdpa, iters=10)
+    sdpa_fwd = chip_smoke.time_ms("SDPA fp32 forward", sdpa, iters=10)
     both = chip_smoke.time_ms("SDPA fp32 forward and backward", lambda: torch.autograd.grad(
         sdpa(), (qt, kt, vt), dot), iters=10)
-    return {"ms": ms, "split_ms": split, "sdpa_bwd_ms": both - fwd}
+    return ({"ms": fwd_ms, "route": K1.route(q.dtype, D), "sdpa_fwd_ms": sdpa_fwd},
+            {"ms": ms, "split_ms": split, "sdpa_bwd_ms": both - sdpa_fwd})
 
 
 def k4_bwd(gen, dev):
@@ -96,7 +103,9 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    out = {"tag": args.tag, "card": card, "k1_bwd": k1_bwd(gen, dev), "k4_bwd": k4_bwd(gen, dev)}
+    k1_fwd, k1_bwd = k1_calls(gen, dev)
+    out = {"tag": args.tag, "card": card, "k1_fwd": k1_fwd, "k1_bwd": k1_bwd,
+           "k4_bwd": k4_bwd(gen, dev)}
     torch.cuda.empty_cache()
     if not args.no_train:
         ops.reset_launch_counts()

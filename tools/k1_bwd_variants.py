@@ -47,6 +47,7 @@ import torch  # noqa: E402
 from chip_smoke import GRAD_TOL, card_identity, kernel_spans, time_ms  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as K1  # noqa: E402
+from kernel_source import patched, standalone  # noqa: E402
 
 ROUNDS = 2
 B, S, H, KH, D, WINDOW = 4, 256, 10, 1, 256, 2048
@@ -67,27 +68,22 @@ VARIANTS = {
 
 
 def variant_source(name) -> str:
-    src = (build.CSRC / "flash_attention_bwd.cu").read_text()
-    for pattern, new in VARIANTS[name]:
-        src, n = re.subn(pattern, new, src)
-        if n == 0:
-            raise RuntimeError(f"variant {name}: {pattern!r} is not in flash_attention_bwd.cu")
-    return src
+    return patched(standalone((build.CSRC / "flash_attention_bwd.cu").read_text()),
+                   VARIANTS[name], f"variant {name}")
 
 
 def build_all(baseline=None) -> dict:
     """{key: (typed entry point, max registers, spill bytes)}."""
     out_dir = build.BUILD_DIR / "k1_bwd_variants"
     out_dir.mkdir(parents=True, exist_ok=True)
-    texts = {"shipped": (build.CSRC / "flash_attention_bwd.cu").read_text()}
+    texts = {"shipped": standalone((build.CSRC / "flash_attention_bwd.cu").read_text())}
     texts.update((name, variant_source(name)) for name in VARIANTS)
-    if baseline:
-        texts["baseline"] = Path(baseline).read_text()
+    if baseline:   # another checkout's source: its headers are this checkout's
+        texts["baseline"] = standalone(Path(baseline).read_text())
     jobs = {}
     for key, text in texts.items():
-        # the sources include csrc/hopper.cuh by a relative path
         cu = out_dir / f"flash_attention_bwd_{key}.cu"
-        cu.write_text(text.replace('#include "hopper.cuh"', f'#include "{build.CSRC}/hopper.cuh"'))
+        cu.write_text(text)
         jobs[key] = (cu, out_dir / f"libflash_attention_bwd_{key}.so")
     reports = build.compile_sources(jobs)
     built = {}
