@@ -80,9 +80,32 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    channels=4), learner batch 64, for a 20 s window: env frames/s, learner
    steps/s, batch occupancy, queue wait, inference and learner seconds;
    env_frames == actor_iterations * lanes, learner steps > 0, no learner or
-   inference error, every parameter and the slot state on the card. No
-   kernel of the port may launch in phases 10-12 (the path has no Pallas
-   kernel): the counts are set to 0 before them and read after.
+   inference error, every parameter and the slot state on the card;
+13. V-trace parity: Fig 3f's model, mlp_actor_critic(50, 3, hidden=64),
+   from seeded params, fp32 with TF32 off, card against CPU: logits and
+   values within 1e-5 of their max; one V-trace train step's loss,
+   metrics and every updated leaf within 1e-4 of each one's max; the
+   sampling policy's logprob at its sampled action against the CPU's
+   log_softmax, and against the learner's (B, T) forward on the card (the
+   ratio mean_rho reads at lag 0), within 1e-6; Catch's step on every live
+   state with every action: reward, done, and the obs and state of every
+   lane that goes on, equal;
+14. V-trace system (Fig 3f): SeedSystem (host backend, in-process
+   transport, algo="vtrace") built by ``repro_torch.launch.train_vtrace``
+   for 1, 2 and 4 actors x 4 lanes of CatchEnv(10, 5) batched on the card,
+   unroll 8, learner batch 4, max_param_lag 50, every point from the same
+   seeded params, a 5 s window each: generated and trained frames/s, drop
+   rate, mean param lag and trained lag, learner steps, occupancy, queue
+   wait, inference compute_s, the learner's train against wait seconds;
+   generated == trained + dropped, none pending, trained > 0, env_frames
+   == actor_iterations * 4, no learner or inference error, every param,
+   AdamW moment, the policy's copy and the env's state on the card; then
+   the train step alone at 4 x 8: ms a step on CUDA events and the device's
+   idle share from the profiler; and an actor iteration's two parts alone
+   on the host clock, the policy call and a Catch vector step at 4 lanes.
+   No kernel of the port may launch in
+   phases 10-14 (the paths have no Pallas kernel): the counts are set to 0
+   before them and read after.
 
 The kernel phase (3) also holds K1-bwd and K4-bwd to their plain versions
 (the formulas each kernel computes) at the train call, the smoke widths,
@@ -1461,6 +1484,12 @@ R2D2_WINDOW_S = 20.0
 # sequences of 120 frames of 84 x 84 x 4 (3.39 MB each); R2D2 keeps about
 # 1M transitions, 8333 such sequences, 28 GB of frames at 120 a sequence
 R2D2_CAPACITY = 1024
+# the V-trace path at Fig 3f's configuration (benchmarks/fig3_actor_scaling.py
+# measured_vtrace_sweep): CatchEnv(10, 5), mlp_actor_critic(50, 3, hidden=64),
+# 4 lanes an actor, unroll 8, learner batch 4; a longer window than its 1.2 s
+VTRACE_ACTORS = (1, 2, 4)
+VTRACE_WINDOW_S = 5.0
+VTRACE = dict(envs_per_actor=4, unroll=8, learner_batch=4, max_param_lag=50)
 
 
 def set_fp32():
@@ -1772,6 +1801,211 @@ def r2d2_system_phase():
     return out
 
 
+def vtrace_parity_phase():
+    """Fig 3f's model (mlp_actor_critic(50, 3, hidden=64)) from seeded
+    params, fp32 with TF32 off, card against CPU: logits and values
+    (within 1e-5 of max), one V-trace train step's loss, metrics and every
+    updated leaf (GRAD_TOL), the sampling policy's logprob at its action
+    against the CPU's log_softmax (1e-6), the behavior and target logprobs
+    of one set of obs on the card (mean_rho's ratio at lag 0), and Catch's
+    step on every live state and action, exactly."""
+    import numpy as np
+
+    from repro_torch.envs.catch import CatchEnv, CatchState
+    from repro_torch.onpolicy import (SamplingPolicy, assemble_vtrace_batch,
+                                      make_vtrace_train_step, mlp_actor_critic)
+    from repro_torch.optim import adamw
+
+    set_fp32()
+    b, t = VTRACE["learner_batch"], VTRACE["unroll"]
+    env = {dev: CatchEnv(device=dev) for dev in ("cpu", "cuda")}
+    obs_dim = env["cpu"].obs_shape[0]
+    init_fn, apply_fn = mlp_actor_critic(obs_dim, CatchEnv.num_actions)
+    log(f"== V-trace parity: mlp_actor_critic({obs_dim}, 3, hidden=64), card vs CPU, fp32, "
+        f"TF32 {torch.backends.cuda.matmul.allow_tf32}, batch {b} x {t}")
+    rng = np.random.default_rng(0)
+    unrolls = [{"obs": rng.standard_normal((t, obs_dim)).astype(np.float32),
+                "actions": rng.integers(0, 3, t).astype(np.int32),
+                "rewards": rng.choice([-1.0, 0.0, 0.0, 1.0], t).astype(np.float32),
+                "dones": (rng.random(t) < 0.15).astype(np.float32),
+                "behavior_logprobs": (np.log(1 / 3) + 0.3 * rng.standard_normal(t)
+                                      ).astype(np.float32),
+                "param_version": np.int64(i)} for i in range(b)]
+    batch = assemble_vtrace_batch(unrolls, gamma=0.99)
+    opt = adamw(1e-3)
+    step = make_vtrace_train_step(apply_fn, opt)
+    res, stepped = {}, {}
+    for dev in ("cpu", "cuda"):
+        params = init_fn(torch.Generator().manual_seed(0), dev)
+        with torch.no_grad():
+            logits, values = apply_fn(params, torch.from_numpy(batch["obs"]).to(dev))
+        state, m = step({"params": params, "opt_state": opt.init(params), "step": 0}, batch)
+        res[dev] = {"logits": logits, "values": values,
+                    **{f"metric {k}": v for k, v in m.items()},
+                    **{f"param {k}": v for k, v in state["params"].items()}}
+        stepped[dev] = state["params"]
+    worst = (0.0, "")
+    for name, want in res["cpu"].items():
+        tol = 1e-5 if name in ("logits", "values") else GRAD_TOL
+        err, scale = check_rel(name, res["cuda"][name], want, tol)
+        if scale and err / scale > worst[0]:
+            worst = (err / scale, name)
+    # the policy on the card from the CPU's stepped params, against the CPU
+    obs = rng.standard_normal((b * t, obs_dim)).astype(np.float32)
+    policy = SamplingPolicy(apply_fn, stepped["cpu"], seed=0, device="cuda")
+    out = policy(obs, None)
+    actions = torch.from_numpy(out[:, 0].astype(np.int64))
+    with torch.no_grad():
+        lp = torch.log_softmax(apply_fn(stepped["cpu"], torch.from_numpy(obs))[0], -1)
+        want = torch.gather(lp, -1, actions[:, None])[:, 0]
+        # lag 0: the learner's (B, T) forward on the card of the same obs
+        target = torch.log_softmax(apply_fn(policy._params, torch.from_numpy(obs).cuda()
+                                            .reshape(b, t, obs_dim))[0], -1)
+        target = torch.gather(target.reshape(b * t, -1), -1, actions.cuda()[:, None])[:, 0]
+    lp_err = float((torch.from_numpy(out[:, 1]) - want).abs().max())
+    rho_err = float((target.cpu() - torch.from_numpy(out[:, 1])).abs().max())
+    if lp_err > 1e-6 or rho_err > 1e-6:
+        raise AssertionError(f"sampling logprob: {lp_err:.3e} from the CPU's, {rho_err:.3e} "
+                             "from the learner's forward on the card")
+    # Catch: every live state with every action, card against CPU
+    rows, cols = env["cpu"].rows, env["cpu"].cols
+    grid = torch.tensor([(r, c, q, a) for r in range(rows - 1) for c in range(cols)
+                         for q in range(cols) for a in range(3)]).T
+    stepped_env = {}
+    for dev, e in env.items():
+        st = CatchState(*(x.to(dev) for x in grid[:3]))
+        new, o, r, d = e.step(st, grid[3].to(dev), torch.Generator(device=dev).manual_seed(0))
+        stepped_env[dev] = [x.cpu() for x in (*new, o, r, d)]
+    (nb, nc, npd, o, r, d), (gb, gc, gpd, go, gr, gd) = stepped_env["cpu"], stepped_env["cuda"]
+    live = ~d
+    if not (torch.equal(r, gr) and torch.equal(d, gd) and torch.equal(o[live], go[live])
+            and torch.equal(nb, gb) and torch.equal(nc[live], gc[live])
+            and torch.equal(npd[live], gpd[live]) and bool((gb[gd] == 0).all())
+            and bool(((gc >= 0) & (gc < cols) & (gpd >= 0) & (gpd < cols)).all())):
+        raise AssertionError("Catch's step on the card differs from the CPU's")
+    log(f"   {len(res['cpu'])} tensors within tolerance (logits and values 1e-5, the step "
+        f"{GRAD_TOL:g}; the worst {worst[0]:.2e}, {worst[1]}): loss "
+        f"{float(res['cuda']['metric loss']):.7f} (CPU {float(res['cpu']['metric loss']):.7f}), "
+        f"mean_rho {float(res['cuda']['metric mean_rho']):.7f}; sampling logprob {lp_err:.2e} "
+        f"from the CPU's, {rho_err:.2e} from the learner's forward; Catch {grid.shape[1]} "
+        f"states x actions equal ({int(d.sum())} ending)")
+    return {"worst_rel": worst[0], "worst": worst[1], "sampling_lp_err": lp_err,
+            "behavior_target_lp_err": rho_err}
+
+
+def vtrace_system_phase():
+    """Fig 3f on the card through ``repro_torch.launch.train_vtrace``: for
+    each actor count a SeedSystem (host backend, in-process transport,
+    algo="vtrace") built from the same seeded params, VTRACE_WINDOW_S
+    seconds after warm-up, its Fig-3f row and what explains it; then the
+    train step alone at the learner's batch, on CUDA events and under the
+    profiler, and an actor iteration's two parts alone (the policy call
+    and a Catch vector step, each ending in its copy to the host)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.envs.catch import CatchEnv
+    from repro_torch.envs.vector import make_vector_env
+    from repro_torch.launch.train_vtrace import build, fig3f_row, run_point
+    from repro_torch.onpolicy import assemble_vtrace_batch
+
+    log(f"== V-trace system (Fig 3f): SeedSystem host/inproc algo=vtrace, CatchEnv(10, 5) on the "
+        f"card, mlp_actor_critic(50, 3, hidden=64), actors {VTRACE_ACTORS} x "
+        f"{VTRACE['envs_per_actor']} lanes, unroll {VTRACE['unroll']}, learner batch "
+        f"{VTRACE['learner_batch']}, max_param_lag {VTRACE['max_param_lag']}, queue 64 unrolls, "
+        f"{VTRACE_WINDOW_S:.0f} s a point")
+    rows = []
+    for n in VTRACE_ACTORS:
+        run, stats = run_point(n, VTRACE_WINDOW_S, device="cuda", **VTRACE)
+        system, onp = run.system, stats["onpolicy"]
+        row = fig3f_row(n, stats)
+        row.update({k: stats[k] for k in ("env_frames", "actor_iterations", "unroll_flushes",
+                                          "mean_batch_occupancy", "mean_queue_wait_ms",
+                                          "inference_batches", "inference_compute_s")})
+        row.update({k: onp[k] for k in ("frames_generated", "frames_trained", "frames_dropped",
+                                        "frames_dropped_stale", "frames_dropped_overflow",
+                                        "frames_dropped_shutdown")})
+        row.update(learner_train_s=system.learner.train_time_s,
+                   learner_wait_s=system.learner.wait_time_s, elapsed_s=stats["elapsed_s"],
+                   tf32=run.tf32)
+        log(f"   {json.dumps(row)}")
+        if stats["env_frames"] != stats["actor_iterations"] * VTRACE["envs_per_actor"]:
+            raise AssertionError(f"env_frames {stats['env_frames']} != actor_iterations "
+                                 f"{stats['actor_iterations']} x {VTRACE['envs_per_actor']}")
+        if onp["frames_trained"] <= 0:
+            raise AssertionError(f"no frame trained: {onp}")
+        state = system.learner.state
+        tensors = [*state["params"].values(), *state["opt_state"]["m"].values(),
+                   *state["opt_state"]["v"].values(), *run.policy._params.values(),
+                   *(x for a in system.actors for x in a.vec._state)]
+        if not all(x.is_cuda for x in tensors):
+            raise AssertionError("a param, an AdamW moment, the policy's copy or an env's "
+                                 "state is not on the card")
+        rows.append(row)
+
+    # the train step alone at the learner's batch, on a batch of real
+    # shapes; warm first
+    run = build(1, device="cuda", **VTRACE)
+    b, t = VTRACE["learner_batch"], VTRACE["unroll"]
+    rng = np.random.default_rng(0)
+    unrolls = [{"obs": (rng.random((t, 50)) < 0.04).astype(np.float32),
+                "actions": rng.integers(0, 3, t).astype(np.int32),
+                "rewards": np.zeros(t, np.float32), "dones": np.zeros(t, np.float32),
+                "behavior_logprobs": np.full(t, np.log(1 / 3), np.float32)} for _ in range(b)]
+    batch = assemble_vtrace_batch(unrolls, gamma=0.99)
+    state, step = run.system.learner.state, run.learner.train_step
+    for _ in range(5):
+        state, _ = step(state, batch)
+    n = 50
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev[0].record()
+    for _ in range(n):
+        state, m = step(state, batch)
+    ev[1].record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / n
+    event_ms = ev[0].elapsed_time(ev[1]) / n
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            state, m = step(state, batch)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3 / n
+    groups, n_ops = device_breakdown(prof, n)
+    if any(groups[k] for k in ("K1", "K1-bwd", "K2", "K3", "K4", "K4-bwd")):
+        raise AssertionError(f"a port kernel ran in the V-trace step: {groups}")
+    if not math.isfinite(float(m["loss"])):
+        raise AssertionError(f"train step loss {float(m['loss'])}")
+    step_metrics = {"batch": [b, t], "event_ms": event_ms, "host_ms": host_ms,
+                    "profiled_ms": prof_ms, "device_busy_ms": groups["busy"],
+                    "gemm_ms": groups["gemm"], "other_ms": groups["other"],
+                    "device_ops": n_ops, "idle_share": 1.0 - groups["busy"] / prof_ms}
+    log(f"   train step alone, batch {b} x {t}, {n} steps: {event_ms:.3f} ms a step on CUDA "
+        f"events ({host_ms:.3f} on the host clock); under the profiler {prof_ms:.3f} ms, device "
+        f"busy {groups['busy']:.4f} ms in {n_ops:.0f} operations (GEMMs {groups['gemm']:.4f}), "
+        f"idle share {step_metrics['idle_share']:.3f}")
+    # an actor iteration's two parts alone, each ending in its copy to the
+    # host: the policy call at one actor's lanes and one Catch vector step
+    lanes = VTRACE["envs_per_actor"]
+    vec = make_vector_env(lambda: CatchEnv(device="cuda"), lanes, seed=0)
+    obs = vec.reset()
+    zeros = np.zeros(lanes, np.int32)
+    for name, fn in (("policy_call_ms", lambda: run.policy(obs, None)),
+                     ("catch_step_ms", lambda: vec.step(zeros))):
+        for _ in range(10):
+            fn()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        step_metrics[name] = (time.perf_counter() - t0) * 1e3 / 200
+    log(f"   alone, host clock: the policy call at {lanes} lanes "
+        f"{step_metrics['policy_call_ms']:.3f} ms, a Catch vector step of {lanes} lanes "
+        f"{step_metrics['catch_step_ms']:.3f} ms")
+    return {"rows": rows, "train_step": step_metrics}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs "
@@ -1866,19 +2100,23 @@ def main():
     torch.cuda.empty_cache()
     train_restart_phase()
     torch.cuda.empty_cache()
-    # the R2D2 path reaches none of the port's kernels: the counts are set
-    # to 0 before its phases and must read 0 after them
+    # the R2D2 and V-trace paths reach none of the port's kernels: the
+    # counts are set to 0 before their phases (10-14) and must read 0 after
     from repro_torch.kernels import flash_attention as K1, ops, ssd_scan as K3
     ops.reset_launch_counts()
     r2d2_parity_phase()
     r2d2_metrics = {"learner": r2d2_learner_phase()}
     torch.cuda.empty_cache()
     r2d2_metrics["system"] = r2d2_system_phase()
+    torch.cuda.empty_cache()
+    vtrace_metrics = {"parity": vtrace_parity_phase()}
+    vtrace_metrics["system"] = vtrace_system_phase()
     counts = ops.launch_counts()
     if any(counts.values()) or any(K1.flash_attention.launches_by_route.values()) \
             or any(K3.ssd_scan.launches_by_route.values()):
-        raise AssertionError(f"the R2D2 phases launched a port kernel: {counts}")
-    log(f"   R2D2 phases: kernel launches {counts} (none, as the path has no Pallas kernel)")
+        raise AssertionError(f"the R2D2 or V-trace phases launched a port kernel: {counts}")
+    log(f"   R2D2 and V-trace phases: kernel launches {counts} (none, as the paths have no "
+        "Pallas kernel)")
 
     for name, row in rows.items():
         row["launches"] = launches[name]
@@ -1886,6 +2124,7 @@ def main():
         log(f"serve {arch}: {json.dumps(metrics)}")
     log(f"train {TRAIN['arch']}: {json.dumps(train_metrics)}")
     log(f"r2d2: {json.dumps(r2d2_metrics)}")
+    log(f"vtrace: {json.dumps(vtrace_metrics)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": list(rows.values())}))

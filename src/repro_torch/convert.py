@@ -8,7 +8,8 @@ The JAX models stack each block parameter along a leading layer axis, under
 follow the n_scan periods are layers n_scan*P + j. Every tensor keeps the
 JAX layout (wq (d,H,hd), wo (H,hd,d), wi (d,ff), unembed (d,V), in_proj
 (d, ...), conv.w (W,C)), so only the layer axis moves. The R2D2 agent
-(``atari``) stacks nothing, so its names and layouts pass through.
+(``atari``) stacks nothing, so its names and layouts pass through, as
+do the on-policy MLP's (`mlp_params_from_jax`).
 """
 
 import numpy as np
@@ -77,3 +78,10 @@ def _hybrid_from_jax(cfg, params_np) -> dict:
         else:
             out[name] = _tensor(arr)
     return out
+
+
+def mlp_params_from_jax(params_np) -> dict:
+    """``repro.onpolicy.mlp_actor_critic`` params (a flat dict of numpy
+    arrays: w1 b1 wp bp wv bv) -> the port's ``repro_torch.onpolicy``
+    params: CPU tensors under the same names and layouts."""
+    return {name: _tensor(arr) for name, arr in _flatten(params_np)}

@@ -8,21 +8,28 @@ CuLE-style batching axis) and run; `throughput()` reports env-frames/s
 the quantities the paper sweeps.
 
 Mirrors ``repro.core.system`` for what the port has so far: the host
-backend (actor threads step host envs and query the central
-`InferenceServer` once per vector step; `policy_step` is a host callable
-`(obs, slot_ids) -> actions`), the in-process transport, and
-`algo="r2d2"` (unrolls land in `PrioritizedReplay` and the learner trains
-recurrent Q-learning), with `num_replicas` data-parallel policy workers
-behind sticky actor->replica routing (see `core.inference`), and
-checkpointing through `repro_torch.checkpoint.CheckpointManager`.
+backend (actor threads step host or batched torch envs and query the
+central `InferenceServer` once per vector step; `policy_step` is a host
+callable `(obs, slot_ids) -> actions`) and the in-process transport, with
+`num_replicas` data-parallel policy workers behind sticky actor->replica
+routing (see `core.inference`), and checkpointing through
+`repro_torch.checkpoint.CheckpointManager`. Both algorithms:
+  * `algo="r2d2"` (default): unrolls land in `PrioritizedReplay` and the
+    learner trains recurrent Q-learning;
+  * `algo="vtrace"`: unrolls land in a bounded staleness-aware
+    `repro_torch.onpolicy.TrajectoryQueue` (every unroll stamped with the
+    behavior-param version; lag > `max_param_lag` is dropped and counted),
+    actors decode `(E, 2) [action, logprob]` replies
+    (`onpolicy.SamplingPolicy`), and the learner trains V-trace over
+    `(B, T)` batches. `throughput()["onpolicy"]` reports the conserved
+    frame ledger (generated = trained + dropped after `run()`).
 
 The constructor takes the reference's arguments and validates them with
 its messages. Every branch that the reference imports lazily and the port
 does not have yet raises `NotImplementedError` naming its ROADMAP item,
 rather than being ignored: `telemetry` and `ops_port` and the socket and
 shm transports (queue 1, "Wire, ops and survival planes"), `autoscale`
-(the same item), `backend="device"` (queue 1, "The device backend") and
-`algo="vtrace"` (queue 1, "The V-trace on-policy half of the system").
+(the same item) and `backend="device"` (queue 1, "The device backend").
 `throughput()` keeps the reference's keys for this layout.
 """
 
@@ -36,6 +43,7 @@ from repro_torch.core.actor import Actor
 from repro_torch.core.inference import InferenceServer
 from repro_torch.core.learner import BatchSourceClosed, Learner
 from repro_torch.core.replay import PrioritizedReplay
+from repro_torch.onpolicy import TrajectoryQueue, VTraceBatcher
 
 # the frame ledger's stable key set: `throughput()["onpolicy"]` carries
 # exactly these keys on EVERY run — zero-valued when the vtrace queue is
@@ -96,6 +104,8 @@ class SeedSystem:
                     raise ValueError(
                         f"{name}={val} applies to algo='vtrace' (replay-"
                         f"based R2D2 has no trajectory queue to tune)")
+        queue_capacity = 64 if queue_capacity is None else queue_capacity
+        gamma = 0.99 if gamma is None else gamma
         if transport not in ("inproc", "socket", "shm"):
             raise ValueError(
                 f"unknown transport {transport!r}; use 'inproc', 'socket' "
@@ -168,10 +178,6 @@ class SeedSystem:
             raise _not_ported("telemetry / ops_port (the repro.telemetry plane)", WIRE_ITEM)
         if autoscale is not None:
             raise _not_ported("autoscale (repro.autoscale)", WIRE_ITEM)
-        if algo == "vtrace":
-            raise _not_ported(
-                "algo='vtrace' (repro.onpolicy)",
-                "ROADMAP queue 1, 'The V-trace on-policy half of the system'")
         if wire:
             raise _not_ported(f"transport={transport!r} (repro.transport)", WIRE_ITEM)
         if backend == "device":
@@ -192,6 +198,12 @@ class SeedSystem:
         # stamping; `policy_publish` pushes params into the policy
         self._live = {"params": init_params, "version": 0}
         self._live_lock = threading.Lock()
+        onpolicy = algo == "vtrace"
+        self.onpolicy_queue = None
+        if onpolicy:
+            self.onpolicy_queue = TrajectoryQueue(
+                queue_capacity, max_param_lag=max_param_lag,
+                version_source=self._version)
         # raises ValueError when num_replicas exceeds the lane budget
         self.server = InferenceServer(
             policy_step,
@@ -199,17 +211,29 @@ class SeedSystem:
             deadline_ms=deadline_ms, num_replicas=num_replicas)
         self.actors = [Actor(i, env_factory, self.server, self._sink,
                              unroll, num_envs=envs_per_actor,
-                             version_source=self._version)
+                             version_source=self._version,
+                             with_logprobs=onpolicy, stamp_records=onpolicy)
                        for i in range(num_actors)]
         self.learner = None
         if train_step is not None:
+            if onpolicy:
+                batch_fn = VTraceBatcher(self.onpolicy_queue, learner_batch,
+                                         gamma=gamma)
+                poison = self.onpolicy_queue.close
+                priority_update = None
+            else:
+                batch_fn = self._learner_batch
+                poison = None
+                priority_update = lambda idx, pri: \
+                    self.replay.update_priorities(idx, pri)
             self.learner = Learner(
-                train_step, state, self._learner_batch,
+                train_step, state, batch_fn,
                 publish=self._publish,
-                priority_update=lambda idx, pri: self.replay.update_priorities(idx, pri),
+                priority_update=priority_update,
                 checkpoint_manager=checkpoint_manager,
                 checkpoint_every=checkpoint_every,
-                checkpoint_every_s=checkpoint_every_s)
+                checkpoint_every_s=checkpoint_every_s,
+                poison=poison)
 
     def _recovery_stats(self) -> dict:
         """The reference's recovery counters; with no actor hosts and no
@@ -219,7 +243,9 @@ class SeedSystem:
             "reconnects": 0, "gateway_failovers": 0,
             "checkpoint_saves": self._ckpt.saves if self._ckpt else 0,
             "checkpoint_restores": self._ckpt.restores if self._ckpt else 0,
-            "frames_dropped_by_fault": 0,
+            "frames_dropped_by_fault": (
+                self.onpolicy_queue.frames_dropped_fault
+                if self.onpolicy_queue is not None else 0),
         }
 
     def resume(self) -> int:
@@ -240,6 +266,10 @@ class SeedSystem:
         self.learner.error = None
         self.learner._stop.clear()
         self._publish(state["params"], version)
+        if self.onpolicy_queue is not None:
+            # a vtrace learner's stop() closed the queue (poison seam); the
+            # resumed run must admit again — the ledger carries over
+            self.onpolicy_queue.reopen()
         self.server.error = None
         self.server._stop.clear()
         for a in self.actors:
@@ -250,6 +280,9 @@ class SeedSystem:
         return version
 
     def _sink(self, traj):
+        if self.onpolicy_queue is not None:
+            self.onpolicy_queue.put(traj)
+            return
         self.replay.add(traj, priority=float(np.abs(traj["rewards"]).mean()) + 1.0)
 
     def _learner_batch(self):
@@ -299,6 +332,11 @@ class SeedSystem:
             self.learner.join()
         for a in self.actors:
             a.join()
+        if self.onpolicy_queue is not None:
+            # settle the frame ledger: pending drains into the dropped
+            # count so generated == trained + dropped in throughput()
+            # (learner.stop() already closed it when a learner ran)
+            self.onpolicy_queue.close()
         return self.throughput(elapsed)
 
     def throughput(self, elapsed: float):
@@ -325,9 +363,12 @@ class SeedSystem:
         lag_total = sum(a.param_lag_total for a in self.actors)
         out["unroll_flushes"] = unroll_flushes
         out["mean_param_lag"] = lag_total / max(unroll_flushes, 1)
-        # the on-policy frame ledger: zero-valued, as the reference's is
-        # without the vtrace queue, so the schema stays stable
-        out["onpolicy"] = dict(ZERO_LEDGER)
+        # the conserved frame ledger: generated == trained + dropped
+        # (+ pending mid-run). ALWAYS present — zero-valued when the vtrace
+        # queue is off — so the schema stays stable
+        out["onpolicy"] = (self.onpolicy_queue.stats()
+                           if self.onpolicy_queue is not None
+                           else dict(ZERO_LEDGER))
         out["recovery"] = self._recovery_stats()
         s = self.server.stats           # summed across replicas
         actor_error = next(

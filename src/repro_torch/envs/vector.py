@@ -1,10 +1,11 @@
 """Vectorized environments: E env lanes behind one `step()` call.
 
 A copy of the host half of ``repro.envs.vector`` (numpy only): the port
-keeps its own so that it imports nothing of the JAX package. Its
-`JaxVectorEnv` (``jax.vmap`` + ``jit`` over a pure-JAX env, the lane batch
-advanced in one device call) belongs to the device backend, which is not
-ported yet; `make_vector_env` refuses such an env.
+keeps its own so that it imports nothing of the JAX package. In place of
+its `JaxVectorEnv` (``jax.vmap`` + ``jit`` over a pure-JAX env, the lane
+batch advanced in one device call), `TorchVectorEnv` steps a batched
+torch env (`envs.catch.CatchEnv`) in one call on the env's device.
+`make_vector_env` refuses a keyed env that is neither.
 
 The paper's central quantity — env-interaction throughput per CPU thread —
 is dominated by per-step overhead: one inference round-trip and one Python
@@ -26,6 +27,7 @@ import inspect
 from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
+import torch
 
 
 class VectorEnv:
@@ -94,6 +96,46 @@ class SyncVectorEnv(VectorEnv):
                 np.asarray(dones, bool))
 
 
+class TorchVectorEnv(VectorEnv):
+    """E lanes of a batched torch env (`reset(E, gen) -> (state, obs)`,
+    `step(state, a, gen) -> (state, obs, reward, done)`, every tensor on
+    ``env.device``), the counterpart of the reference's `JaxVectorEnv`.
+
+    The state lives on the env's device; each `step()` is one batched call
+    over all E lanes, then one copy of obs, rewards and dones to the host.
+    The env auto-resets inside `step`, so lanes never stall. The lanes draw
+    from one ``torch.Generator`` on the env's device seeded with `seed`.
+    """
+
+    def __init__(self, env, num_envs: int, seed: int = 0):
+        self.env = env
+        self.num_envs = num_envs
+        self.num_actions = env.num_actions
+        self.obs_shape = tuple(env.obs_shape)
+        self._gen = torch.Generator(device=env.device)
+        self._gen.manual_seed(seed)
+        self._state = None
+
+    def reset(self):
+        self._state, obs = self.env.reset(self.num_envs, self._gen)
+        return obs.cpu().numpy()
+
+    def step(self, actions):
+        assert self._state is not None, "call reset() before step()"
+        a = torch.as_tensor(np.asarray(actions), dtype=torch.int64).to(self.env.device)
+        self._state, obs, reward, done = self.env.step(self._state, a, self._gen)
+        # one copy to the host: obs, then reward and done as two columns
+        host = torch.cat([obs.reshape(self.num_envs, -1), reward[:, None],
+                          done[:, None].to(obs.dtype)], dim=1).cpu().numpy()
+        return (host[:, :-2].reshape((self.num_envs,) + self.obs_shape),
+                host[:, -2].astype(np.float32), host[:, -1].astype(bool))
+
+
+def _is_torch_env(env) -> bool:
+    """A batched torch env carries the torch.device its lanes live on."""
+    return isinstance(getattr(env, "device", None), torch.device)
+
+
 def _is_jax_env(env) -> bool:
     """Pure-JAX envs take a PRNG key in reset(); host envs take nothing."""
     try:
@@ -116,22 +158,25 @@ def as_env_instance(env) -> tuple:
 def make_vector_env(env, num_envs: int = 1, seed: int = 0) -> VectorEnv:
     """Normalize (factory | env | VectorEnv) into a VectorEnv of E lanes.
 
-    Host envs go through `SyncVectorEnv`; an existing VectorEnv passes
-    through. Pure-JAX-style envs (stateless, keyed reset), which the
-    reference batches on the device, are refused until the device backend
-    is ported (ROADMAP queue 1, "The device backend").
+    Batched torch envs go through `TorchVectorEnv`, host envs through
+    `SyncVectorEnv`; an existing VectorEnv passes through. Other keyed
+    envs (a pure-JAX-style reset(key)) are refused until the device
+    backend is ported (ROADMAP queue 1, "The device backend").
     """
     if isinstance(env, VectorEnv):
         return env
     instance, is_factory = as_env_instance(env)
     if isinstance(instance, VectorEnv):
         return instance
+    if _is_torch_env(instance):
+        return TorchVectorEnv(instance, num_envs, seed=seed)
     if _is_jax_env(instance):
         raise NotImplementedError(
             f"{type(instance).__name__} takes a key in reset(): a keyed env is "
             f"batched on the device (JaxVectorEnv in the JAX package), which "
             f"waits for the device backend (ROADMAP queue 1, 'The device "
-            f"backend'); pass a host env such as ALESimEnv")
+            f"backend'); pass a host env such as ALESimEnv or a batched torch "
+            f"env such as envs.catch.CatchEnv")
     if is_factory:
         envs = [instance] + [env() for _ in range(num_envs - 1)]
         return SyncVectorEnv(None, envs=envs, seed=seed)

@@ -39,7 +39,10 @@ def test_importing_every_module_loads_no_jax():
             "repro_torch.core.replay", "repro_torch.telemetry.tracer",
             "repro_torch.envs.alesim", "repro_torch.envs.vector", "repro_torch.core.actor",
             "repro_torch.core.learner", "repro_torch.core.system",
-            "repro_torch.launch.train_r2d2"} <= set(mods)
+            "repro_torch.launch.train_r2d2", "repro_torch.onpolicy",
+            "repro_torch.onpolicy.queue", "repro_torch.onpolicy.batcher",
+            "repro_torch.onpolicy.learner", "repro_torch.envs.catch",
+            "repro_torch.launch.train_vtrace"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

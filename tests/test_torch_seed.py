@@ -28,7 +28,9 @@ from repro_torch.configs.r2d2_atari import AtariConfig  # noqa: E402
 from repro_torch.core.replay import PrioritizedReplay  # noqa: E402
 from repro_torch.core.system import SeedSystem  # noqa: E402
 from repro_torch.envs.alesim import ALESimEnv  # noqa: E402
-from repro_torch.envs.vector import SyncVectorEnv, VectorEnv, make_vector_env  # noqa: E402
+from repro_torch.envs.catch import CatchEnv  # noqa: E402
+from repro_torch.envs.vector import (SyncVectorEnv, TorchVectorEnv, VectorEnv,  # noqa: E402
+                                     make_vector_env)
 from repro_torch.launch import train_r2d2  # noqa: E402
 
 torch.set_num_threads(1)
@@ -179,6 +181,10 @@ def test_make_vector_env_dispatch():
     for env in (_KeyedEnv, _KeyedEnv()):
         with pytest.raises(NotImplementedError, match="device backend"):
             make_vector_env(env, 4)
+    # a batched torch env goes to TorchVectorEnv, factory or instance
+    for env in (lambda: CatchEnv(device="cpu"), CatchEnv(device="cpu")):
+        vec = make_vector_env(env, 4)
+        assert isinstance(vec, TorchVectorEnv) and vec.num_envs == 4
 
 
 def test_make_vector_env_rejects_prebuilt_host_env_multi_lane():
@@ -307,8 +313,7 @@ def test_checkpoint_dir_saves_and_resume_restores(tmp_path):
 
 @pytest.mark.parametrize("kw", [
     {"telemetry": object()}, {"ops_port": 0}, {"autoscale": object()},
-    {"algo": "vtrace"}, {"transport": "socket"}, {"transport": "shm"},
-    {"backend": "device"}])
+    {"transport": "socket"}, {"transport": "shm"}, {"backend": "device"}])
 def test_unported_branches_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         SeedSystem(env_factory=_ale(), policy_step=_random_policy(18), num_actors=1,
