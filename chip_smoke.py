@@ -102,9 +102,36 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    AdamW moment, the policy's copy and the env's state on the card; then
    the train step alone at 4 x 8: ms a step on CUDA events and the device's
    idle share from the profiler; and an actor iteration's two parts alone
-   on the host clock, the policy call and a Catch vector step at 4 lanes.
-   No kernel of the port may launch in
-   phases 10-14 (the paths have no Pallas kernel): the counts are set to 0
+   on the host clock, the policy call and a Catch vector step at 4 lanes;
+15. device-backend parity: ``repro_torch.rollout``'s engine, its T-step
+   unroll captured as one CUDA graph, on CatchEnv(10, 5), CartPole and
+   TokenWorld at E 8 and 4096, T 16, with the V-trace sampler on
+   mlp_actor_critic (TokenWorld's token one-hot), fp32 with TF32 off:
+   after `warmup`, two back-to-back replays against a step-by-step loop
+   on the card from the seed over 2T steps (actions, dones and Catch's and
+   TokenWorld's obs exactly; rewards, CartPole's obs and the behavior
+   logprobs within 1e-6, the logprobs also against log_softmax at the
+   recorded obs and actions); the two replays draw different actions; one
+   capture an engine; a changed param is seen by the next replay;
+16. device-backend system: ``repro_torch.launch.rollout_backends``'s three
+   design points (per-step host E 1, vectorized host E 8, device-resident
+   E 8; 2 actors, unroll 16, CatchEnv(10, 5), uniform random policy) and
+   its engine_shards 1 and 2 (unroll 8), 5 s each: env frames/s, scans,
+   env_frames == scans * T * E, one capture an engine, and the reference's
+   device-resident >= vectorized-host line (printed, not asserted); then
+   V-trace through ``train_vtrace.build(backend="device")`` at 1, 2 and 4
+   actors x 4 lanes, unroll 8, learner batch 4, max_param_lag 10: the Fig
+   3f row, drops by cause, the learner's train against wait seconds, the
+   ledger conserved and settled, trained > 0, no error, one capture an
+   engine, every param, AdamW moment, engine param copy and env state on
+   the card; then one engine alone at E 8, 64, 512 and 4096, T 16: ms a
+   replay on CUDA events, the host ms of the copy back and of the
+   per-lane flush, device operations of a replay from the profiler and
+   its idle share (the profiler's busy time over the replay's CUDA-event
+   time), one RolloutWorker's env frames/s, and t_dev0 and t_dev1
+   fitted by least squares, in seconds and in units of t_env (a Catch
+   vector step at 1 lane alone). No kernel of the port may launch in
+   phases 10-16 (the paths have no Pallas kernel): the counts are set to 0
    before them and read after.
 
 The kernel phase (3) also holds K1-bwd and K4-bwd to their plain versions
@@ -2006,6 +2033,306 @@ def vtrace_system_phase():
     return {"rows": rows, "train_step": step_metrics}
 
 
+# the device backend (phases 15-16): unroll 16 (launch/rollout_backends.py's
+# three design points), the parity lanes, the cost sweep's lanes, and the
+# device half of examples/quickstart.py's onpolicy_demo (max_param_lag 10)
+DEVICE_T = 16
+DEVICE_PARITY_LANES = (8, 4096)
+DEVICE_SWEEP_LANES = (8, 64, 512, 4096)
+DEVICE_WINDOW_S = 5.0
+DEVICE_SWEEP_WINDOW_S = 2.0
+DEVICE_VTRACE = dict(envs_per_actor=4, unroll=8, learner_batch=4, max_param_lag=10)
+
+
+def device_parity_envs():
+    """The three batched envs on the card, each with a sampling policy
+    (mlp_actor_critic at hidden 64 from a seed; TokenWorld's token one-hot
+    into it) and its params."""
+    import torch.nn.functional as F
+
+    from repro_torch.envs.cartpole import CartPoleEnv
+    from repro_torch.envs.catch import CatchEnv
+    from repro_torch.envs.tokenworld import TokenWorld
+    from repro_torch.onpolicy import make_device_sampling_policy, mlp_actor_critic
+
+    out = {}
+    for name, env in (("catch", CatchEnv(device="cuda")), ("cartpole", CartPoleEnv(device="cuda")),
+                      ("tokenworld", TokenWorld(device="cuda"))):
+        token = name == "tokenworld"
+        init_fn, apply_fn = mlp_actor_critic(env.vocab_size if token else env.obs_shape[0],
+                                             env.num_actions)
+        if token:
+            apply_fn = (lambda f, v: lambda p, o: f(p, F.one_hot(o, v).to(torch.float32)))(
+                apply_fn, env.vocab_size)
+        params = init_fn(torch.Generator().manual_seed(0), "cuda")
+        out[name] = (env, apply_fn, make_device_sampling_policy(apply_fn), params)
+    return out
+
+
+def host_rollout(env, policy, params, lanes, steps, seed):
+    """The device engine's oracle: env and policy stepped one call at a time
+    on the card, from generators seeded as the engine seeds its own (the env
+    stream as TorchVectorEnv's, the action stream `action_generator`'s)."""
+    from repro_torch.rollout import action_generator
+
+    gen = torch.Generator(device=env.device).manual_seed(seed)
+    act = action_generator(seed, env.device)
+    state, obs = env.reset(lanes, gen)
+    out = {k: [] for k in ("obs", "actions", "rewards", "dones", "behavior_logprobs")}
+    with torch.no_grad():
+        for _ in range(steps):
+            actions, lp, _ = policy(params, None, obs, act)
+            out["obs"].append(obs)
+            out["actions"].append(actions)
+            out["behavior_logprobs"].append(lp)
+            state, obs, reward, done = env.step(state, actions, gen)
+            out["rewards"].append(reward)
+            out["dones"].append(done)
+    return {k: torch.stack(v).cpu().numpy() for k, v in out.items()}
+
+
+def device_parity_phase():
+    """The device backend's engine on the card, fp32 with TF32 off: for
+    CatchEnv(10, 5), CartPole and TokenWorld at E 8 and 4096, T 16, the
+    graph-replayed engine (after `warmup`) over two back-to-back rollouts
+    against `host_rollout` from the seed over 2T steps: actions, dones and
+    Catch's and TokenWorld's obs exactly, rewards, CartPole's obs and the
+    behavior logprobs within 1e-6; the logprobs also against log_softmax
+    of the policy's logits at the recorded obs and actions; the two
+    replays' actions differ; one capture an engine; a changed param is
+    seen by the next replay."""
+    import numpy as np
+
+    from repro_torch.rollout import DeviceRolloutEngine
+
+    set_fp32()
+    T = DEVICE_T
+    log(f"== device backend parity: graph-replayed engine vs a step-by-step loop on the card, "
+        f"T {T}, E {DEVICE_PARITY_LANES}, 2 rollouts, fp32, TF32 "
+        f"{torch.backends.cuda.matmul.allow_tf32}")
+    out = {}
+    for name, (env, apply_fn, policy, params) in device_parity_envs().items():
+        for lanes in DEVICE_PARITY_LANES:
+            seed = lanes + 7
+            eng = DeviceRolloutEngine(env, policy, lanes, T, seed=seed, with_logprobs=True)
+            eng.warmup(params)
+            got = [eng.rollout(params) for _ in range(2)]
+            graph = {k: np.concatenate([g[k] for g in got]) for k in got[0]}
+            ref = host_rollout(env, policy, params, lanes, 2 * T, seed)
+            errs = {}
+            for k, want in ref.items():
+                have = graph[k]
+                if have.shape != want.shape:
+                    raise AssertionError(f"{name} E {lanes} {k}: shape {have.shape} != "
+                                         f"{want.shape}")
+                errs[k] = float(np.abs(have.astype(np.float64) - want.astype(np.float64)).max())
+                exact = k in ("actions", "dones") or (k == "obs" and name != "cartpole")
+                if errs[k] > (0.0 if exact else 1e-6):
+                    raise AssertionError(f"{name} E {lanes}: {k} differs from the step-by-step "
+                                         f"loop by {errs[k]:.3e}")
+            with torch.no_grad():
+                obs = torch.from_numpy(graph["obs"]).cuda()
+                lp = torch.log_softmax(apply_fn(params, obs)[0], -1)
+                lp = torch.gather(lp, -1, torch.from_numpy(graph["actions"]).long().cuda()[..., None])
+            errs["logprob_vs_log_softmax"] = float(
+                (lp[..., 0].cpu() - torch.from_numpy(graph["behavior_logprobs"])).abs().max())
+            if errs["logprob_vs_log_softmax"] > 1e-6:
+                raise AssertionError(f"{name} E {lanes}: behavior logprobs "
+                                     f"{errs['logprob_vs_log_softmax']:.3e} from log_softmax")
+            differ = float((got[0]["actions"] != got[1]["actions"]).mean())
+            if differ == 0.0:
+                raise AssertionError(f"{name} E {lanes}: two replays drew the same actions")
+            # a changed param reaches the next replay: action 0 everywhere
+            pinned = {k: v.detach().clone() for k, v in params.items()}
+            pinned["bp"][0] += 1e3
+            seen = eng.rollout(pinned)
+            if not (seen["actions"] == 0).all() or eng.captures != 1:
+                raise AssertionError(f"{name} E {lanes}: the changed param was not seen "
+                                     f"(actions {np.unique(seen['actions'])}, captures "
+                                     f"{eng.captures})")
+            out[f"{name}_E{lanes}"] = {**errs, "actions_differing": differ,
+                                       "captures": eng.captures, "dones": int(graph["dones"].sum())}
+            log(f"   {name} E {lanes}: {2 * T} steps equal ({int(graph['dones'].sum())} episode "
+                f"ends; rewards {errs['rewards']:.1e}, obs {errs['obs']:.1e}, logprobs "
+                f"{errs['behavior_logprobs']:.1e}, {errs['logprob_vs_log_softmax']:.1e} from "
+                f"log_softmax); replays differ on {differ:.3f} of the actions; 1 capture; a "
+                f"changed param seen")
+            del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def device_system_phase():
+    """The device backend through the entry points, DEVICE_WINDOW_S a point:
+    launch/rollout_backends.py's three design points and its engine shards
+    (frames/s, scans, the frame counts), the device-resident >= vectorized
+    host line (printed, not asserted); V-trace through
+    `train_vtrace.build(..., backend="device")` at 1, 2 and 4 actors (Fig
+    3f's row, learner train against wait seconds, drops by cause; the
+    ledger conserved and settled, trained > 0, every param, the engines'
+    param copies and the env state on the card); then one engine alone on
+    CatchEnv(10, 5) at E DEVICE_SWEEP_LANES: ms a replay on CUDA events,
+    the host ms of the copy back and of the flush apart, the device
+    operations a replay under the profiler and the idle share of a replay
+    (busy time over its CUDA-event time), one RolloutWorker's
+    env frames/s at that E (no learner), and t_dev0 and t_dev1 fitted by
+    least squares (seconds a scan step and a lane a scan step, and in
+    units of t_env, a Catch vector step at 1 lane alone)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.actor import account_episode_ends, flush_lane_unrolls
+    from repro_torch.core.system import SeedSystem
+    from repro_torch.envs.catch import CatchEnv
+    from repro_torch.envs.vector import make_vector_env
+    from repro_torch.launch import rollout_backends, train_vtrace
+    from repro_torch.rollout import DeviceRolloutEngine
+
+    set_fp32()
+    out = {"points": {}, "shards": {}, "vtrace": [], "sweep": {}}
+    log(f"== device backend system: launch/rollout_backends.py's points, CatchEnv(10, 5) on the "
+        f"card, 2 actors, uniform random policy, {DEVICE_WINDOW_S:.0f} s a point")
+    for name, backend, lanes in rollout_backends.POINTS:
+        system, stats = rollout_backends.run_point(backend, lanes, unroll=DEVICE_T,
+                                                   seconds=DEVICE_WINDOW_S, device="cuda")
+        row = {k: stats.get(k) for k in ("env_frames_per_s", "env_frames", "actor_iterations",
+                                         "scans", "mean_batch_occupancy", "mean_queue_wait_ms")}
+        if backend == "device":
+            row["captures"] = [a.engine.captures for a in system.actors]
+            if row["captures"] != [1] * len(system.actors):
+                raise AssertionError(f"{name}: captures {row['captures']}, not one an engine")
+        out["points"][name] = row
+        log(f"   fig3d {name} (E {lanes}): {json.dumps(row)}")
+    for k in rollout_backends.SHARDS:
+        system, stats = rollout_backends.run_point("device", 8, unroll=8, engine_shards=k,
+                                                   seconds=DEVICE_WINDOW_S, device="cuda")
+        captures = [a.engine.captures for a in system.actors]
+        if captures != [k] * len(system.actors):
+            raise AssertionError(f"engine_shards {k}: captures {captures}, not one an engine")
+        row = {"env_frames_per_s": stats["env_frames_per_s"], "scans": stats["scans"],
+               "env_frames": stats["env_frames"], "captures": captures}
+        out["shards"][k] = row
+        log(f"   fig3e engine_shards {k}: {json.dumps(row)} (env_frames == scans x 8 x 8)")
+    p = out["points"]
+    held = p["device_resident"]["env_frames_per_s"] >= p["vectorized_host"]["env_frames_per_s"]
+    out["device_ge_vectorized"] = held
+    log(f"   device_resident >= vectorized_host: {held} "
+        f"({p['device_resident']['env_frames_per_s']:.1f} vs "
+        f"{p['vectorized_host']['env_frames_per_s']:.1f} env frames/s)")
+
+    log(f"== device backend V-trace: train_vtrace.build(backend='device'), actors {VTRACE_ACTORS} "
+        f"x {DEVICE_VTRACE['envs_per_actor']} lanes, unroll {DEVICE_VTRACE['unroll']}, learner "
+        f"batch {DEVICE_VTRACE['learner_batch']}, max_param_lag {DEVICE_VTRACE['max_param_lag']}, "
+        f"{DEVICE_WINDOW_S:.0f} s a point")
+    for n in VTRACE_ACTORS:
+        run, stats = train_vtrace.run_point(n, DEVICE_WINDOW_S, device="cuda", backend="device",
+                                            **DEVICE_VTRACE)
+        system, onp = run.system, stats["onpolicy"]
+        row = train_vtrace.fig3f_row(n, stats)
+        row.update({k: stats[k] for k in ("env_frames", "scans", "param_refreshes")})
+        row.update({k: onp[k] for k in ("frames_generated", "frames_trained", "frames_dropped",
+                                        "frames_dropped_stale", "frames_dropped_overflow",
+                                        "frames_dropped_shutdown")})
+        row.update(learner_train_s=system.learner.train_time_s,
+                   learner_wait_s=system.learner.wait_time_s, elapsed_s=stats["elapsed_s"],
+                   captures=[a.engine.captures for a in system.actors], tf32=run.tf32)
+        log(f"   {json.dumps(row)}")
+        if stats["env_frames"] != stats["scans"] * DEVICE_VTRACE["unroll"] * \
+                DEVICE_VTRACE["envs_per_actor"] or onp["frames_trained"] <= 0:
+            raise AssertionError(f"frames {stats['env_frames']} != scans {stats['scans']} x "
+                                 f"T x E, or none trained: {onp}")
+        if row["captures"] != [1] * n:
+            raise AssertionError(f"captures {row['captures']}, not one an engine")
+        state = system.learner.state
+        tensors = [*state["params"].values(), *state["opt_state"]["m"].values(),
+                   *(x for a in system.actors for x in a.engine._params.values()),
+                   *(x for a in system.actors for x in a.engine._carry[0])]
+        if not all(x.is_cuda for x in tensors):
+            raise AssertionError("a param, an AdamW moment, an engine's param copy or an env's "
+                                 "state is not on the card")
+        out["vtrace"].append(row)
+
+    log(f"== device backend cost: one engine, CatchEnv(10, 5), uniform random policy, T "
+        f"{DEVICE_T}, E {DEVICE_SWEEP_LANES}")
+    vec = make_vector_env(lambda: CatchEnv(device="cuda"), 1, seed=0)
+    vec.reset()
+    zeros = np.zeros(1, np.int32)
+    for _ in range(20):
+        vec.step(zeros)
+    t0 = time.perf_counter()
+    for _ in range(500):
+        vec.step(zeros)
+    t_env = (time.perf_counter() - t0) / 500
+    policy = rollout_backends.device_policy(CatchEnv.num_actions)
+    n = 50
+    for lanes in DEVICE_SWEEP_LANES:
+        eng = DeviceRolloutEngine(CatchEnv(device="cuda"), policy, lanes, DEVICE_T, seed=lanes)
+        eng.warmup(None)
+        replay_ms = time_ms(f"replay E {lanes}", lambda: eng.dispatch(None), iters=n)
+        flat = eng.dispatch(None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            traj = eng.to_host(flat)
+        copy_ms = (time.perf_counter() - t0) * 1e3 / n
+        sunk, returns = [], []
+        ep = np.zeros(lanes)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            for t in range(DEVICE_T):
+                account_episode_ends(traj["rewards"][t], traj["dones"][t], ep, returns)
+            flush_lane_unrolls(traj, sunk.append)
+        flush_ms = (time.perf_counter() - t0) * 1e3 / n
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                eng.dispatch(None)
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3 / n
+        groups, n_ops = device_breakdown(prof, n)
+        if eng.captures != 1 or len(sunk) != n * lanes:
+            raise AssertionError(f"E {lanes}: captures {eng.captures}, records {len(sunk)}")
+        # the same engine's lanes behind one RolloutWorker thread, no learner
+        system = SeedSystem(env_factory=lambda: CatchEnv(device="cuda"), backend="device",
+                            policy_apply=policy, num_actors=1, unroll=DEVICE_T,
+                            envs_per_actor=lanes)
+        system.warmup()
+        stats = system.run(seconds=DEVICE_SWEEP_WINDOW_S, with_learner=False)
+        if stats["inference_error"] or stats["env_frames"] != stats["scans"] * DEVICE_T * lanes:
+            raise AssertionError(f"E {lanes} worker: {stats['inference_error']}, frames "
+                                 f"{stats['env_frames']}, scans {stats['scans']}")
+        row = {"replay_ms": replay_ms, "copy_back_ms": copy_ms, "flush_ms": flush_ms,
+               "profiled_replay_ms": prof_ms, "device_busy_ms": groups["busy"],
+               "device_ops": n_ops, "idle_share": 1.0 - groups["busy"] / replay_ms,
+               "idle_share_profiled_wall": 1.0 - groups["busy"] / prof_ms,
+               "trajectory_bytes": int(flat.numel()),
+               "frames_per_s_replay": DEVICE_T * lanes / (replay_ms / 1e3),
+               "frames_per_s_parts": DEVICE_T * lanes / ((replay_ms + copy_ms + flush_ms) / 1e3),
+               "frames_per_s_worker": stats["env_frames_per_s"], "worker_scans": stats["scans"]}
+        out["sweep"][lanes] = row
+        log(f"   E {lanes}: replay {replay_ms:.4f} ms (CUDA events), copy back {copy_ms:.4f} ms "
+            f"({row['trajectory_bytes']} bytes), flush {flush_ms:.4f} ms (host clock); under the "
+            f"profiler device busy {groups['busy']:.4f} ms in {n_ops:.1f} operations a replay, "
+            f"idle {row['idle_share']:.3f} of its CUDA-event time ({prof_ms:.4f} ms a replay on "
+            f"the host clock there, idle {row['idle_share_profiled_wall']:.3f} of it); one worker "
+            f"{stats['env_frames_per_s']:.1f} env frames/s ({row['frames_per_s_parts']:.1f} from "
+            f"the parts)")
+        del eng, flat, traj, sunk
+    lanes = np.array(DEVICE_SWEEP_LANES, np.float64)
+    per_step_s = np.array([out["sweep"][e]["replay_ms"] for e in DEVICE_SWEEP_LANES]) / 1e3 \
+        / DEVICE_T
+    t_dev1, t_dev0 = np.polyfit(lanes, per_step_s, 1)
+    out["fit"] = {"t_dev0_s": float(t_dev0), "t_dev1_s": float(t_dev1), "t_env_s": t_env,
+                  "t_dev0_in_t_env": float(t_dev0 / t_env),
+                  "t_dev1_in_t_env": float(t_dev1 / t_env),
+                  "residual_max_s": float(np.abs(per_step_s - (t_dev0 + t_dev1 * lanes)).max())}
+    log(f"   fit of ms a replay / T = t_dev0 + t_dev1 * E: t_dev0 {t_dev0:.4e} s, t_dev1 "
+        f"{t_dev1:.4e} s a lane; t_env (a Catch vector step at 1 lane alone, host clock) "
+        f"{t_env:.4e} s, so t_dev0 {t_dev0 / t_env:.4f} and t_dev1 {t_dev1 / t_env:.3e} t_env "
+        f"(SystemModel.with_device's guessed defaults: 0.05 and 0.002)")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs "
@@ -2100,8 +2427,9 @@ def main():
     torch.cuda.empty_cache()
     train_restart_phase()
     torch.cuda.empty_cache()
-    # the R2D2 and V-trace paths reach none of the port's kernels: the
-    # counts are set to 0 before their phases (10-14) and must read 0 after
+    # the R2D2, V-trace and device-backend paths reach none of the port's
+    # kernels: the counts are set to 0 before their phases (10-16) and must
+    # read 0 after
     from repro_torch.kernels import flash_attention as K1, ops, ssd_scan as K3
     ops.reset_launch_counts()
     r2d2_parity_phase()
@@ -2111,12 +2439,16 @@ def main():
     torch.cuda.empty_cache()
     vtrace_metrics = {"parity": vtrace_parity_phase()}
     vtrace_metrics["system"] = vtrace_system_phase()
+    torch.cuda.empty_cache()
+    device_metrics = {"parity": device_parity_phase()}
+    device_metrics["system"] = device_system_phase()
     counts = ops.launch_counts()
     if any(counts.values()) or any(K1.flash_attention.launches_by_route.values()) \
             or any(K3.ssd_scan.launches_by_route.values()):
-        raise AssertionError(f"the R2D2 or V-trace phases launched a port kernel: {counts}")
-    log(f"   R2D2 and V-trace phases: kernel launches {counts} (none, as the paths have no "
-        "Pallas kernel)")
+        raise AssertionError(f"the R2D2, V-trace or device-backend phases launched a port "
+                             f"kernel: {counts}")
+    log(f"   R2D2, V-trace and device-backend phases: kernel launches {counts} (none, as the "
+        "paths have no Pallas kernel)")
 
     for name, row in rows.items():
         row["launches"] = launches[name]
@@ -2125,6 +2457,7 @@ def main():
     log(f"train {TRAIN['arch']}: {json.dumps(train_metrics)}")
     log(f"r2d2: {json.dumps(r2d2_metrics)}")
     log(f"vtrace: {json.dumps(vtrace_metrics)}")
+    log(f"device backend: {json.dumps(device_metrics)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": list(rows.values())}))

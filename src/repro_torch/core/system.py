@@ -7,30 +7,40 @@ CuLE-style batching axis) and run; `throughput()` reports env-frames/s
 (= actor iterations x E), inference batch occupancy, and learner steps/s —
 the quantities the paper sweeps.
 
-Mirrors ``repro.core.system`` for what the port has so far: the host
-backend (actor threads step host or batched torch envs and query the
-central `InferenceServer` once per vector step; `policy_step` is a host
-callable `(obs, slot_ids) -> actions`) and the in-process transport, with
-`num_replicas` data-parallel policy workers behind sticky actor->replica
-routing (see `core.inference`), and checkpointing through
-`repro_torch.checkpoint.CheckpointManager`. Both algorithms:
+Mirrors ``repro.core.system`` for what the port has so far, with the
+in-process transport and checkpointing through
+`repro_torch.checkpoint.CheckpointManager`. Two backends:
+  * `backend="host"`: actor threads step host or batched torch envs and
+    query the central `InferenceServer` once per vector step
+    (`policy_step` is a host callable `(obs, slot_ids) -> actions`), with
+    `num_replicas` data-parallel policy workers behind sticky
+    actor->replica routing (see `core.inference`);
+  * `backend="device"`: `RolloutWorker` threads drive
+    `repro_torch.rollout` engines, env step and policy forward
+    (`policy_apply`) fused into one T-step unroll on the env's device (one
+    CUDA graph replay and one copy back per unroll on the card), with
+    `engine_shards` engines a worker. No inference server: the workers
+    read the learner's params from the publish seam, which hands them a
+    snapshot (the port's train steps update params in place).
+Both algorithms:
   * `algo="r2d2"` (default): unrolls land in `PrioritizedReplay` and the
     learner trains recurrent Q-learning;
   * `algo="vtrace"`: unrolls land in a bounded staleness-aware
     `repro_torch.onpolicy.TrajectoryQueue` (every unroll stamped with the
     behavior-param version; lag > `max_param_lag` is dropped and counted),
     actors decode `(E, 2) [action, logprob]` replies
-    (`onpolicy.SamplingPolicy`), and the learner trains V-trace over
-    `(B, T)` batches. `throughput()["onpolicy"]` reports the conserved
-    frame ledger (generated = trained + dropped after `run()`).
+    (`onpolicy.SamplingPolicy`) or the device unroll records the behavior
+    logprobs, and the learner trains V-trace over `(B, T)` batches.
+    `throughput()["onpolicy"]` reports the conserved frame ledger
+    (generated = trained + dropped after `run()`).
 
 The constructor takes the reference's arguments and validates them with
 its messages. Every branch that the reference imports lazily and the port
 does not have yet raises `NotImplementedError` naming its ROADMAP item,
 rather than being ignored: `telemetry` and `ops_port` and the socket and
-shm transports (queue 1, "Wire, ops and survival planes"), `autoscale`
-(the same item) and `backend="device"` (queue 1, "The device backend").
-`throughput()` keeps the reference's keys for this layout.
+shm transports (queue 1, "Wire, ops and survival planes") and `autoscale`
+(the same item). `throughput()` keeps the reference's keys for this
+layout.
 """
 
 import threading
@@ -38,12 +48,15 @@ import time
 from typing import Callable, Optional
 
 import numpy as np
+import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch.core.actor import Actor
 from repro_torch.core.inference import InferenceServer
 from repro_torch.core.learner import BatchSourceClosed, Learner
 from repro_torch.core.replay import PrioritizedReplay
 from repro_torch.onpolicy import TrajectoryQueue, VTraceBatcher
+from repro_torch.rollout import DeviceRolloutEngine, RolloutWorker, ShardedRolloutEngine
 
 # the frame ledger's stable key set: `throughput()["onpolicy"]` carries
 # exactly these keys on EVERY run — zero-valued when the vtrace queue is
@@ -61,6 +74,14 @@ WIRE_ITEM = "ROADMAP queue 1, 'Wire, ops and survival planes'"
 
 def _not_ported(what, item):
     return NotImplementedError(f"{what} is not ported yet ({item})")
+
+
+def _snapshot(params):
+    """A detached copy of a tree of tensors (other leaves as they are),
+    made where it is called: on the card it is queued after the work
+    already issued on the stream, so it holds one version."""
+    return pytree.tree_map(
+        lambda x: x.detach().clone() if isinstance(x, torch.Tensor) else x, params)
 
 
 class SeedSystem:
@@ -180,15 +201,12 @@ class SeedSystem:
             raise _not_ported("autoscale (repro.autoscale)", WIRE_ITEM)
         if wire:
             raise _not_ported(f"transport={transport!r} (repro.transport)", WIRE_ITEM)
-        if backend == "device":
-            raise _not_ported("backend='device' (repro.rollout)",
-                              "ROADMAP queue 1, 'The device backend'")
-        if policy_step is None:
-            raise ValueError("backend='host' requires policy_step")
         self.backend = backend
         self.transport = transport
         self.algo = algo
         self.envs_per_actor = envs_per_actor
+        self.engine_shards = engine_shards
+        self.server = None
         self.replay = PrioritizedReplay(replay_capacity)
         self.min_replay = min_replay
         self.learner_batch = learner_batch
@@ -204,16 +222,46 @@ class SeedSystem:
             self.onpolicy_queue = TrajectoryQueue(
                 queue_capacity, max_param_lag=max_param_lag,
                 version_source=self._version)
-        # raises ValueError when num_replicas exceeds the lane budget
-        self.server = InferenceServer(
-            policy_step,
-            max_batch=inference_batch or max(num_actors * envs_per_actor, 1),
-            deadline_ms=deadline_ms, num_replicas=num_replicas)
-        self.actors = [Actor(i, env_factory, self.server, self._sink,
-                             unroll, num_envs=envs_per_actor,
-                             version_source=self._version,
-                             with_logprobs=onpolicy, stamp_records=onpolicy)
-                       for i in range(num_actors)]
+        if backend == "host":
+            if policy_step is None:
+                raise ValueError("backend='host' requires policy_step")
+            # raises ValueError when num_replicas exceeds the lane budget
+            self.server = InferenceServer(
+                policy_step,
+                max_batch=inference_batch or max(num_actors * envs_per_actor, 1),
+                deadline_ms=deadline_ms, num_replicas=num_replicas)
+            self.actors = [Actor(i, env_factory, self.server, self._sink,
+                                 unroll, num_envs=envs_per_actor,
+                                 version_source=self._version,
+                                 with_logprobs=onpolicy, stamp_records=onpolicy)
+                           for i in range(num_actors)]
+        else:
+            if policy_apply is None:
+                raise ValueError("backend='device' requires policy_apply")
+            if init_params is None and isinstance(state, dict):
+                # workers start from the learner's params, in the tree the
+                # first publish will have, or the unroll captures anew
+                init_params = state.get("params")
+            # a snapshot: the first train step updates them in place
+            self._live["params"] = _snapshot(init_params)
+
+            def make_engine(i):
+                if engine_shards == 1:
+                    return DeviceRolloutEngine(env_factory, policy_apply,
+                                               envs_per_actor, unroll,
+                                               init_core=init_core, seed=i,
+                                               with_logprobs=onpolicy)
+                # raises ValueError when shards exceed lanes / no devices
+                return ShardedRolloutEngine(env_factory, policy_apply,
+                                            envs_per_actor, unroll,
+                                            num_shards=engine_shards,
+                                            init_core=init_core, seed=i,
+                                            with_logprobs=onpolicy)
+
+            self.actors = [
+                RolloutWorker(i, make_engine(i), self._sink,
+                              self._param_source, stamp_records=onpolicy)
+                for i in range(num_actors)]
         self.learner = None
         if train_step is not None:
             if onpolicy:
@@ -270,8 +318,9 @@ class SeedSystem:
             # a vtrace learner's stop() closed the queue (poison seam); the
             # resumed run must admit again — the ledger carries over
             self.onpolicy_queue.reopen()
-        self.server.error = None
-        self.server._stop.clear()
+        if self.server is not None:
+            self.server.error = None
+            self.server._stop.clear()
         for a in self.actors:
             # actors are re-runnable (start() builds a fresh thread) but
             # stop() latches _stop — unlatch for the next run
@@ -298,7 +347,12 @@ class SeedSystem:
     def _publish(self, params, step):
         """Learner -> actors param seam: the version feeds the actors'
         staleness stamping; an optional `policy_publish` hook pushes the
-        params into the host-side policy."""
+        params into the host-side policy. Device workers read the params
+        themselves, so they get a snapshot taken here, in the learner's
+        thread, fresh each publish and stored with its version: the next
+        train step updates the learner's tensors in place."""
+        if self.backend == "device":
+            params = _snapshot(params)
         with self._live_lock:
             self._live = {"params": params, "version": step}
         if self._policy_publish is not None:
@@ -308,15 +362,24 @@ class SeedSystem:
         with self._live_lock:
             return self._live["version"]
 
+    def _param_source(self):
+        with self._live_lock:
+            return self._live["params"], self._live["version"]
+
     def warmup(self):
-        """Step every actor's envs once, so that a short measured `run()`
-        window starts from built envs."""
+        """Step every actor's envs once, or capture every device worker's
+        unroll (without advancing it), so that a short measured `run()`
+        window is steady-state."""
         for a in self.actors:
-            a.vec.reset()
-            a.vec.step(np.zeros(a.num_envs, np.int32))
+            if self.backend == "device":
+                a.warmup()
+            else:
+                a.vec.reset()
+                a.vec.step(np.zeros(a.num_envs, np.int32))
 
     def run(self, seconds: float, with_learner: bool = True):
-        self.server.start()
+        if self.server:
+            self.server.start()
         for a in self.actors:
             a.start()
         if self.learner and with_learner:
@@ -326,7 +389,8 @@ class SeedSystem:
         elapsed = time.perf_counter() - t0
         for a in self.actors:
             a.stop()
-        self.server.stop()
+        if self.server:
+            self.server.stop()
         if self.learner and with_learner:
             self.learner.stop()
             self.learner.join()
@@ -357,12 +421,12 @@ class SeedSystem:
             "learner_error": self.learner.error if self.learner else None,
             "episode_return_mean": float(np.mean(returns or [0.0])),
         }
-        # actors stamp the behavior-param version on every unroll: mean lag
-        # (in learner publishes) of the unrolls this run flushed
-        unroll_flushes = sum(a.unrolls for a in self.actors)
-        lag_total = sum(a.param_lag_total for a in self.actors)
-        out["unroll_flushes"] = unroll_flushes
-        out["mean_param_lag"] = lag_total / max(unroll_flushes, 1)
+        if self.server:
+            # actors stamp the behavior-param version on every unroll: mean
+            # lag (in learner publishes) of the unrolls this run flushed
+            out["unroll_flushes"] = sum(a.unrolls for a in self.actors)
+            lag_total = sum(a.param_lag_total for a in self.actors)
+            out["mean_param_lag"] = lag_total / max(out["unroll_flushes"], 1)
         # the conserved frame ledger: generated == trained + dropped
         # (+ pending mid-run). ALWAYS present — zero-valued when the vtrace
         # queue is off — so the schema stays stable
@@ -370,26 +434,45 @@ class SeedSystem:
                            if self.onpolicy_queue is not None
                            else dict(ZERO_LEDGER))
         out["recovery"] = self._recovery_stats()
-        s = self.server.stats           # summed across replicas
-        actor_error = next(
-            (e for e in (getattr(a, "error", None) for a in self.actors) if e), None)
-        out.update({
-            "inference_batches": s["batches"],
-            "inference_lanes": s["requests"],
-            "inference_rpcs": s["rpcs"],
-            # raw accumulated counters, plus the derived means so
-            # callers never have to know which sum divides by what
-            "batch_occupancy_sum": s["batch_occupancy"],
-            "queue_wait_s_sum": s["queue_wait_s"],
-            "inference_compute_s": s["compute_s"],
-            "inference_error": self.server.error or actor_error,
-            "num_replicas": self.server.num_replicas,
-            **self.server.derived_stats(),
-        })
-        if self.server.num_replicas > 1:
-            # ONE snapshot for both views: per-replica lane counts and
-            # occupancy expose batch-fill starvation per shard
-            per = self.server.per_replica_stats()
-            out["replica_lanes"] = [r["requests"] for r in per]
-            out["replica_occupancy"] = [r["mean_batch_occupancy"] for r in per]
+        if self.server:
+            s = self.server.stats           # summed across replicas
+            actor_error = next(
+                (e for e in (getattr(a, "error", None) for a in self.actors) if e), None)
+            out.update({
+                "inference_batches": s["batches"],
+                "inference_lanes": s["requests"],
+                "inference_rpcs": s["rpcs"],
+                # raw accumulated counters, plus the derived means so
+                # callers never have to know which sum divides by what
+                "batch_occupancy_sum": s["batch_occupancy"],
+                "queue_wait_s_sum": s["queue_wait_s"],
+                "inference_compute_s": s["compute_s"],
+                "inference_error": self.server.error or actor_error,
+                "num_replicas": self.server.num_replicas,
+                **self.server.derived_stats(),
+            })
+            if self.server.num_replicas > 1:
+                # ONE snapshot for both views: per-replica lane counts and
+                # occupancy expose batch-fill starvation per shard
+                per = self.server.per_replica_stats()
+                out["replica_lanes"] = [r["requests"] for r in per]
+                out["replica_occupancy"] = [r["mean_batch_occupancy"] for r in per]
+        else:
+            # device backend: no central inference — one transfer per
+            # unroll. scans == actor_iterations; each supplies T*E frames.
+            refreshes = sum(a.param_refreshes for a in self.actors)
+            lag = sum(a.param_lag_total for a in self.actors)
+            out.update({
+                "inference_batches": 0,
+                "inference_lanes": 0,
+                "mean_batch_occupancy": 0.0,
+                "mean_queue_wait_ms": 0.0,
+                "inference_compute_s": 0.0,
+                "inference_error": next(
+                    (a.error for a in self.actors if a.error), None),
+                "scans": iterations,
+                "engine_shards": self.engine_shards,
+                "param_refreshes": refreshes,
+                "mean_param_lag": lag / max(iterations, 1),
+            })
         return out

@@ -1,13 +1,65 @@
-"""Synthetic V-trace trajectories for the LM policy.
+"""TokenWorld: a token-level environment for LM policies, and synthetic
+V-trace trajectories for the LM learner.
 
-Mirrors ``repro.envs.tokenworld.synthetic_vtrace_batch``: the same field
-layout, drawn from an explicit ``torch.Generator`` on the target device
-(the numbers differ from ``jax.random``'s; parity tests feed both packages
-one batch). The ``TokenWorld`` env itself waits for the device backend, and
-the modality frontend's field for the port's first model with a frontend.
+Mirrors ``repro.envs.tokenworld``. The agent emits tokens; reward +1 when
+the emitted token continues a hidden periodic pattern, 0 otherwise. Dense
+rewards and a tiny state make it a fast testbed for the V-trace LM-policy
+path. `TokenWorld` is batched over E lanes on a torch device, like
+`envs.catch.CatchEnv`: per lane a position and a ``(period,)`` pattern,
+drawn from an explicit ``torch.Generator`` (a fresh pattern for every lane
+each step, kept where a lane ends, as the reference draws one each step).
+
+`synthetic_vtrace_batch` has the reference's field layout, drawn from a
+generator on the target device (the numbers differ from ``jax.random``'s;
+parity tests feed both packages one batch). The modality frontend's field
+waits for the port's first model with a frontend.
 """
 
+from typing import NamedTuple
+
 import torch
+
+from repro_torch.device import resolve
+
+
+class TokenWorldState(NamedTuple):
+    pos: torch.Tensor      # (E,) int64
+    pattern: torch.Tensor  # (E, period) int64
+
+
+class TokenWorld:
+    obs_shape = ()
+
+    def __init__(self, vocab_size=64, period=4, episode_len=32, device="cuda"):
+        self.vocab_size = vocab_size
+        self.period = period
+        self.episode_len = episode_len
+        self.num_actions = vocab_size
+        self.device = resolve(device)
+
+    def _patterns(self, n, gen):
+        return torch.randint(0, self.vocab_size, (n, self.period), generator=gen,
+                             device=self.device)
+
+    def obs(self, st: TokenWorldState) -> torch.Tensor:
+        """(E,) int64: each lane's next target token, pattern[pos % period]."""
+        return torch.gather(st.pattern, 1, (st.pos % self.period)[:, None])[:, 0]
+
+    def reset(self, num_envs: int, gen: torch.Generator):
+        st = TokenWorldState(pos=torch.zeros((num_envs,), dtype=torch.int64, device=self.device),
+                             pattern=self._patterns(num_envs, gen))
+        return st, self.obs(st)
+
+    def step(self, st: TokenWorldState, action: torch.Tensor, gen: torch.Generator):
+        """(state, obs, reward, done) over the lanes; a lane ends after
+        `episode_len` tokens and restarts at position 0 on a new pattern."""
+        reward = (action == self.obs(st)).to(torch.float32)
+        pos = st.pos + 1
+        done = pos >= self.episode_len
+        new = TokenWorldState(pos=torch.where(done, 0, pos),
+                              pattern=torch.where(done[:, None],
+                                                  self._patterns(done.shape[0], gen), st.pattern))
+        return new, self.obs(new), reward, done
 
 
 def synthetic_vtrace_batch(gen, batch, seq, vocab):

@@ -4,7 +4,8 @@ A copy of the host half of ``repro.envs.vector`` (numpy only): the port
 keeps its own so that it imports nothing of the JAX package. In place of
 its `JaxVectorEnv` (``jax.vmap`` + ``jit`` over a pure-JAX env, the lane
 batch advanced in one device call), `TorchVectorEnv` steps a batched
-torch env (`envs.catch.CatchEnv`) in one call on the env's device.
+torch env (`envs.catch.CatchEnv`, `envs.cartpole.CartPoleEnv`,
+`envs.tokenworld.TokenWorld`) in one call on the env's device.
 `make_vector_env` refuses a keyed env that is neither.
 
 The paper's central quantity — env-interaction throughput per CPU thread —
@@ -124,11 +125,14 @@ class TorchVectorEnv(VectorEnv):
         assert self._state is not None, "call reset() before step()"
         a = torch.as_tensor(np.asarray(actions), dtype=torch.int64).to(self.env.device)
         self._state, obs, reward, done = self.env.step(self._state, a, self._gen)
-        # one copy to the host: obs, then reward and done as two columns
-        host = torch.cat([obs.reshape(self.num_envs, -1), reward[:, None],
-                          done[:, None].to(obs.dtype)], dim=1).cpu().numpy()
-        return (host[:, :-2].reshape((self.num_envs,) + self.obs_shape),
-                host[:, -2].astype(np.float32), host[:, -1].astype(bool))
+        # one copy to the host: obs, then reward and done as two columns, in
+        # fp32 (TokenWorld's int64 tokens are exact there, and come back int)
+        host = torch.cat([obs.reshape(self.num_envs, -1).to(reward.dtype), reward[:, None],
+                          done[:, None].to(reward.dtype)], dim=1).cpu().numpy()
+        obs_host = host[:, :-2].reshape((self.num_envs,) + self.obs_shape)
+        if not obs.is_floating_point():
+            obs_host = obs_host.astype(np.int64)
+        return obs_host, host[:, -2].astype(np.float32), host[:, -1].astype(bool)
 
 
 def _is_torch_env(env) -> bool:
@@ -148,7 +152,8 @@ def as_env_instance(env) -> tuple:
     """Normalize (factory | class | instance) -> (instance, was_factory).
 
     The single factory-detection rule of the host backend
-    (`make_vector_env`); the reference's device backend shares it.
+    (`make_vector_env`); the device backend (`rollout.engine.as_torch_env`)
+    shares it.
     """
     is_factory = callable(env) and (inspect.isclass(env)
                                     or not hasattr(env, "reset"))
@@ -160,8 +165,8 @@ def make_vector_env(env, num_envs: int = 1, seed: int = 0) -> VectorEnv:
 
     Batched torch envs go through `TorchVectorEnv`, host envs through
     `SyncVectorEnv`; an existing VectorEnv passes through. Other keyed
-    envs (a pure-JAX-style reset(key)) are refused until the device
-    backend is ported (ROADMAP queue 1, "The device backend").
+    envs (a pure-JAX-style reset(key)) are refused: the port batches no
+    env it cannot step in torch.
     """
     if isinstance(env, VectorEnv):
         return env
@@ -172,11 +177,11 @@ def make_vector_env(env, num_envs: int = 1, seed: int = 0) -> VectorEnv:
         return TorchVectorEnv(instance, num_envs, seed=seed)
     if _is_jax_env(instance):
         raise NotImplementedError(
-            f"{type(instance).__name__} takes a key in reset(): a keyed env is "
-            f"batched on the device (JaxVectorEnv in the JAX package), which "
-            f"waits for the device backend (ROADMAP queue 1, 'The device "
-            f"backend'); pass a host env such as ALESimEnv or a batched torch "
-            f"env such as envs.catch.CatchEnv")
+            f"{type(instance).__name__} takes a key in reset(): a pure-JAX-style "
+            f"keyed env has no torch counterpart to batch it (JaxVectorEnv in the "
+            f"JAX package); TorchVectorEnv and the device backend take a batched "
+            f"torch env such as envs.catch.CatchEnv, envs.cartpole.CartPoleEnv or "
+            f"envs.tokenworld.TokenWorld, SyncVectorEnv a host env such as ALESimEnv")
     if is_factory:
         envs = [instance] + [env() for _ in range(num_envs - 1)]
         return SyncVectorEnv(None, envs=envs, seed=seed)

@@ -2,8 +2,8 @@
 Catch, on the card.
 
 The port's counterpart of ``examples/quickstart.py``'s ``onpolicy_demo``
-(its host half) and of ``benchmarks/fig3_actor_scaling.py``'s
-``measured_vtrace_sweep`` (Fig 3f): actor threads step `CatchEnv` lanes
+and of ``benchmarks/fig3_actor_scaling.py``'s ``measured_vtrace_sweep``
+(Fig 3f). On the host backend (the default) actor threads step `CatchEnv` lanes
 batched on the device (`envs.vector.TorchVectorEnv`) and query the central
 inference server, whose `SamplingPolicy` samples each action and its
 behavior logprob on the device; per-lane unrolls, stamped with the
@@ -14,8 +14,15 @@ params back to the policy. One Fig-3f row per actor count: generated and
 trained frames/s, drop rate, the staleness of what ran and of what
 trained, learner steps; the frame ledger must be conserved.
 
+With ``--backend device`` (``onpolicy_demo``'s device half) rollout workers
+run the env step and the policy's sampling forward as one T-step unroll on
+the device (`repro_torch.rollout`, a CUDA graph replay an unroll on the
+card), the behavior logprobs recorded in the same forward, and read the
+learner's published params themselves; ``max_param_lag`` is 10 there, every
+other setting as the host point.
+
     PYTHONPATH=src python -m repro_torch.launch.train_vtrace --device cpu \\
-        --actors 1 2 --seconds 3
+        --actors 1 2 --seconds 3 [--backend device]
 
 `build` wires one sweep point (``chip_smoke.py`` drives it). Every point
 starts the policy and the learner from the same params, made from
@@ -26,6 +33,7 @@ behavior and target logprobs must agree to fp32 rounding.
 
 import argparse
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -40,28 +48,34 @@ from repro_torch.optim import adamw
 # (benchmarks/fig3_actor_scaling.py:232-256)
 LR = 1e-3
 DEADLINE_MS = 1.0
+# the staleness bound of each backend's point (examples/quickstart.py:165,186)
+MAX_PARAM_LAG = {"host": 50, "device": 10}
 
 
 @dataclass
 class VTraceRun:
     """What `build` wires: the system, the learner bundle, the sampling
-    policy the server calls (its own copy of the params) and the TF32 flag
-    the run computes under."""
+    policy the server calls (its own copy of the params; None on the device
+    backend) and the TF32 flag the run computes under."""
     device: torch.device
     system: SeedSystem
     learner: VTraceLearner
-    policy: SamplingPolicy
+    policy: Optional[SamplingPolicy]
     tf32: bool
 
 
-def build(actors=1, *, envs_per_actor=4, unroll=8, learner_batch=4, max_param_lag=50,
-          device="cuda", seed=0) -> VTraceRun:
+def build(actors=1, *, envs_per_actor=4, unroll=8, learner_batch=4, max_param_lag=None,
+          device="cuda", seed=0, backend="host") -> VTraceRun:
     """One Fig-3f sweep point on `device`: `actors` x `envs_per_actor` lanes
     of CatchEnv(rows=10, cols=5), the MLP at hidden 64 from `seed`, AdamW,
-    the reference's queue capacity (64 unrolls) and gamma (0.99); one
-    warm-up policy batch at each server batch size it will most see and one
-    train step (on a copy), so that a measured window starts warm."""
+    the reference's queue capacity (64 unrolls) and gamma (0.99),
+    `max_param_lag` by default `MAX_PARAM_LAG[backend]`; one train step (on
+    a copy) and, on the host backend, one warm-up policy batch at each
+    server batch size it will most see, so that a measured window starts
+    warm (the device backend's `SeedSystem.warmup` captures the unrolls)."""
     dev = resolve(device)
+    if max_param_lag is None:
+        max_param_lag = MAX_PARAM_LAG[backend]
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
     obs_dim = int(np.prod(CatchEnv(device=dev).obs_shape))
@@ -69,16 +83,20 @@ def build(actors=1, *, envs_per_actor=4, unroll=8, learner_batch=4, max_param_la
     learner = VTraceLearner(apply_fn, adamw(LR))
     params = init_fn(torch.Generator().manual_seed(seed), dev)
     state = learner.init_state(params)
-    policy = learner.sampling_policy(params, seed=seed)
-    for lanes in sorted({envs_per_actor, actors * envs_per_actor}):
-        policy(np.zeros((lanes, obs_dim), np.float32), None)
     learner.warmup(state, batch_size=learner_batch, unroll=unroll, obs_shape=(obs_dim,))
-    system = SeedSystem(
-        env_factory=lambda: CatchEnv(device=dev), policy_step=policy, num_actors=actors,
-        unroll=unroll, envs_per_actor=envs_per_actor, deadline_ms=DEADLINE_MS,
-        algo="vtrace", train_step=learner.train_step, state=state,
-        learner_batch=learner_batch, max_param_lag=max_param_lag,
-        policy_publish=policy.publish)
+    common = dict(env_factory=lambda: CatchEnv(device=dev), num_actors=actors, unroll=unroll,
+                  envs_per_actor=envs_per_actor, algo="vtrace", train_step=learner.train_step,
+                  state=state, learner_batch=learner_batch, max_param_lag=max_param_lag)
+    policy = None
+    if backend == "device":
+        system = SeedSystem(backend="device", policy_apply=learner.device_policy_apply(),
+                            **common)
+    else:
+        policy = learner.sampling_policy(params, seed=seed)
+        for lanes in sorted({envs_per_actor, actors * envs_per_actor}):
+            policy(np.zeros((lanes, obs_dim), np.float32), None)
+        system = SeedSystem(policy_step=policy, deadline_ms=DEADLINE_MS,
+                            policy_publish=policy.publish, **common)
     return VTraceRun(dev, system, learner, policy, torch.backends.cuda.matmul.allow_tf32)
 
 
@@ -125,19 +143,24 @@ def main(argv=None):
     ap.add_argument("--envs-per-actor", type=int, default=4)
     ap.add_argument("--unroll", type=int, default=8)
     ap.add_argument("--learner-batch", type=int, default=4)
-    ap.add_argument("--max-param-lag", type=int, default=50)
+    ap.add_argument("--max-param-lag", type=int, default=None,
+                    help="default 50 on the host backend, 10 on the device backend")
     ap.add_argument("--seconds", type=float, default=1.2)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises where there is no card) or cpu")
+    ap.add_argument("--backend", choices=("host", "device"), default="host",
+                    help="host: actors + central inference; device: fused unrolls")
     args = ap.parse_args(argv)
 
+    lag = MAX_PARAM_LAG[args.backend] if args.max_param_lag is None else args.max_param_lag
     kw = dict(envs_per_actor=args.envs_per_actor, unroll=args.unroll,
-              learner_batch=args.learner_batch, max_param_lag=args.max_param_lag,
-              device=args.device, seed=args.seed)
-    print(f"== SEED V-trace (fig3f): actors {args.actors} x {args.envs_per_actor} Catch lanes, "
-          f"unroll {args.unroll}, learner batch {args.learner_batch}, max_param_lag "
-          f"{args.max_param_lag}, {args.seconds}s a point, on {resolve(args.device)}")
+              learner_batch=args.learner_batch, max_param_lag=lag,
+              device=args.device, seed=args.seed, backend=args.backend)
+    print(f"== SEED V-trace (fig3f), {args.backend} backend: actors {args.actors} x "
+          f"{args.envs_per_actor} Catch lanes, unroll {args.unroll}, learner batch "
+          f"{args.learner_batch}, max_param_lag {lag}, {args.seconds}s a point, on "
+          f"{resolve(args.device)}")
     rows = []
     for n in args.actors:
         run, stats = run_point(n, args.seconds, **kw)

@@ -1,5 +1,6 @@
 """The port's CUDA kernels and models on the card, against their plain
-PyTorch versions. Marked `gpu`; they skip where there is no CUDA device.
+PyTorch versions, and the device backend's CUDA graph against a
+step-by-step loop. Marked `gpu`; they skip where there is no CUDA device.
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
@@ -554,3 +555,79 @@ def test_train_step_on_card_matches_cpu(cuda):
     want = cpu["params"].state_dict()
     for name, p in gpu["params"].state_dict().items():
         torch.testing.assert_close(p.cpu(), want[name], atol=lr * 1e-2, rtol=0)
+
+
+def _host_loop(env, policy, lanes, steps, seed):
+    """The device engine's streams stepped one call at a time: the env's
+    generator seeded `seed`, the action generator `action_generator(seed)`."""
+    from repro_torch.rollout import action_generator
+    gen = torch.Generator(device=env.device).manual_seed(seed)
+    act = action_generator(seed, env.device)
+    state, obs = env.reset(lanes, gen)
+    out = {k: [] for k in ("obs", "actions", "rewards", "dones")}
+    for _ in range(steps):
+        actions, _ = policy(None, None, obs, act)
+        out["obs"].append(obs)
+        out["actions"].append(actions.to(torch.int32))
+        state, obs, reward, done = env.step(state, actions, gen)
+        out["rewards"].append(reward)
+        out["dones"].append(done)
+    return {k: torch.stack(v).cpu().numpy() for k, v in out.items()}
+
+
+def _random(num_actions):
+    def policy_apply(params, core, obs, gen):
+        return torch.randint(0, num_actions, (obs.shape[0],), generator=gen,
+                             device=obs.device), core
+    return policy_apply
+
+
+@pytest.mark.parametrize("env_name", ["catch", "cartpole", "tokenworld"])
+def test_device_engine_graph_replays_match_the_host_loop(cuda, env_name):
+    """One capture; two replays after warmup equal the step-by-step loop on
+    the card from the seed, and draw different actions."""
+    import numpy as np
+
+    from repro_torch.envs.cartpole import CartPoleEnv
+    from repro_torch.envs.catch import CatchEnv
+    from repro_torch.envs.tokenworld import TokenWorld
+    from repro_torch.rollout import DeviceRolloutEngine
+    env = {"catch": CatchEnv, "cartpole": CartPoleEnv, "tokenworld": TokenWorld}[env_name](
+        device=cuda)
+    policy = _random(env.num_actions)
+    eng = DeviceRolloutEngine(env, policy, 64, 16, seed=3)
+    eng.warmup(None)
+    t1, t2 = eng.rollout(None), eng.rollout(None)
+    ref = _host_loop(env, policy, 64, 32, 3)
+    for k, want in ref.items():
+        got = np.concatenate([t1[k], t2[k]])
+        assert got.dtype == want.dtype and np.array_equal(got, want), k
+    assert eng.captures == 1 and not np.array_equal(t1["actions"], t2["actions"])
+
+
+def test_device_engine_captures_while_another_thread_launches(cuda):
+    """A worker captures at its first unroll while this thread keeps
+    launching products on the card; a new params shape captures anew."""
+    import time
+
+    from repro_torch.envs.catch import CatchEnv
+    from repro_torch.onpolicy import make_device_sampling_policy, mlp_actor_critic
+    from repro_torch.rollout import DeviceRolloutEngine, RolloutWorker
+    init_fn, apply_fn = mlp_actor_critic(50, 3)
+    params = init_fn(torch.Generator().manual_seed(0), cuda)
+    eng = DeviceRolloutEngine(CatchEnv(device=cuda), make_device_sampling_policy(apply_fn), 32,
+                              8, seed=1, with_logprobs=True)
+    w = RolloutWorker(0, eng, lambda t: None, lambda: (params, 0))
+    x = torch.randn(256, 256, device=cuda)
+    w.start()
+    deadline = time.time() + 30
+    while w.iterations < 5 and w.error is None and time.time() < deadline:
+        x = torch.tanh(x @ x)
+    w.stop()
+    w.join(timeout=30)
+    assert w.error is None, w.error
+    assert eng.captures == 1 and w.iterations >= 5
+    init_narrow, apply_narrow = mlp_actor_critic(50, 3, hidden=32)
+    eng._policy = make_device_sampling_policy(apply_narrow)
+    eng.rollout(init_narrow(torch.Generator().manual_seed(0), cuda))
+    assert eng.captures == 2

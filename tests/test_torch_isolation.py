@@ -42,7 +42,9 @@ def test_importing_every_module_loads_no_jax():
             "repro_torch.launch.train_r2d2", "repro_torch.onpolicy",
             "repro_torch.onpolicy.queue", "repro_torch.onpolicy.batcher",
             "repro_torch.onpolicy.learner", "repro_torch.envs.catch",
-            "repro_torch.launch.train_vtrace"} <= set(mods)
+            "repro_torch.launch.train_vtrace", "repro_torch.envs.cartpole",
+            "repro_torch.envs.tokenworld", "repro_torch.rollout", "repro_torch.rollout.engine",
+            "repro_torch.rollout.worker", "repro_torch.launch.rollout_backends"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

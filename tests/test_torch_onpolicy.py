@@ -681,14 +681,14 @@ def _message(cls, env_factory, **kw):
 
 
 @pytest.mark.parametrize("kw", [{"algo": "ppo"}, {"max_param_lag": 3}, {"queue_capacity": 8},
-                                {"gamma": 0.9}])
+                                {"gamma": 0.9}, {"algo": "vtrace", "backend": "device"}])
 def test_algo_validation_messages_as_the_reference(kw):
     assert _message(SeedSystem, _catch, **kw) == _message(JSeedSystem, JCatchEnv, **kw)
 
 
 @pytest.mark.parametrize("kw", [
     {"telemetry": object()}, {"ops_port": 0}, {"autoscale": object()},
-    {"transport": "socket"}, {"transport": "shm"}, {"backend": "device"}])
+    {"transport": "socket"}, {"transport": "shm"}])
 def test_vtrace_keeps_the_unported_branches_refused(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         SeedSystem(env_factory=_catch, policy_step=lambda o, i: None, num_actors=1,

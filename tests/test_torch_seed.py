@@ -313,7 +313,7 @@ def test_checkpoint_dir_saves_and_resume_restores(tmp_path):
 
 @pytest.mark.parametrize("kw", [
     {"telemetry": object()}, {"ops_port": 0}, {"autoscale": object()},
-    {"transport": "socket"}, {"transport": "shm"}, {"backend": "device"}])
+    {"transport": "socket"}, {"transport": "shm"}])
 def test_unported_branches_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         SeedSystem(env_factory=_ale(), policy_step=_random_policy(18), num_actors=1,
@@ -328,7 +328,8 @@ def test_unported_branches_raise(kw):
     ({"engine_shards": 2}, "applies to backend='device'"),
     ({"wire_quant": "f16"}, "applies to wire transports"),
     ({"supervise_hosts": True}, "apply to wire transports"),
-    ({"checkpoint_every_s": 1.0}, "needs somewhere to save")])
+    ({"checkpoint_every_s": 1.0}, "needs somewhere to save"),
+    ({"backend": "device"}, "^backend='device' requires policy_apply$")])
 def test_validation_messages_as_the_reference(kw, match):
     with pytest.raises(ValueError, match=match):
         SeedSystem(env_factory=_ale(), policy_step=_random_policy(18), num_actors=1,
