@@ -130,9 +130,27 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    its idle share (the profiler's busy time over the replay's CUDA-event
    time), one RolloutWorker's env frames/s, and t_dev0 and t_dev1
    fitted by least squares, in seconds and in units of t_env (a Catch
-   vector step at 1 lane alone). No kernel of the port may launch in
-   phases 10-16 (the paths have no Pallas kernel): the counts are set to 0
-   before them and read after.
+   vector step at 1 lane alone);
+17. the wire: `df -h /dev/shm` (each shm connection maps 2 x 64 MiB; a
+   small /dev/shm gets a smaller ring geometry, said in the log); R2D2 at
+   the published widths through ``repro_torch.launch.train_r2d2.build``,
+   4 actors x 8 lanes of ALESimEnv(frame=84, channels=4), learner batch
+   64, 12 s windows, in process, over TCP with 4 spawned actor hosts of
+   one actor each, and over the shm rings with 4 hosts: env frames/s,
+   learner steps/s, occupancy, queue wait, the learner's train and wait
+   seconds and the gateway's and hosts' frame counts (an R2D2 flush, 27
+   MB, spills from the 1 MiB slots to TCP); then V-trace at Fig 3f's
+   configuration over shm at 1, 2 and 4 hosts of one actor, Catch on each
+   child's CPU, 5 s each: the Fig-3f row and drops by cause. Each wire
+   point: no host error, learner steps, env_frames == iterations x lanes
+   summed over the hosts, trajectory frames over the wire, one shm
+   connection a host on shm, the V-trace ledger conserved, every param
+   and the slot state on the card, and no actor host with a CUDA
+   context (each child reports torch.cuda.is_initialized(); nvidia-smi's
+   compute list, sampled each second, lists none of their PIDs and no
+   process but this one). No kernel of the port may launch in phases
+   10-17 (the paths have no Pallas kernel): the counts are set to 0 before
+   them and read after.
 
 The kernel phase (3) also holds K1-bwd and K4-bwd to their plain versions
 (the formulas each kernel computes) at the train call, the smoke widths,
@@ -153,6 +171,7 @@ that does not hold the repository, it fails and prints no result.
 """
 
 import contextlib
+import functools
 import json
 import math
 import re
@@ -1795,7 +1814,8 @@ def r2d2_system_phase():
     cpus = os.cpu_count()
     actors, lanes = max(2, cpus // 2), 8
     run = build(acfg, actors=actors, envs_per_actor=lanes, device="cuda",
-                env_factory=lambda: ALESimEnv(frame=84, channels=4), learner_batch=R2D2_BATCH,
+                env_factory=functools.partial(ALESimEnv, frame=84, channels=4),
+                learner_batch=R2D2_BATCH,
                 replay_capacity=R2D2_CAPACITY)
     system = run.system
     log(f"== R2D2 system: SeedSystem host/inproc, {acfg.name} at the published widths, "
@@ -2333,6 +2353,219 @@ def device_system_phase():
     return out
 
 
+# the wire (phase 17): actors in spawned actor-host processes behind
+# InferenceGateways, the learner and the server on the card. R2D2 at the
+# system phase's 4 actors x 8 lanes, one actor a host; V-trace at Fig 3f's
+# configuration over shm, one actor a host, Catch on each child's CPU
+WIRE_R2D2 = (("inproc", 1), ("socket", 4), ("shm", 4))
+WIRE_R2D2_ACTORS, WIRE_R2D2_LANES = 4, 8
+WIRE_R2D2_WINDOW_S = 12.0
+WIRE_VTRACE_HOSTS = (1, 2, 4)
+WIRE_VTRACE_WINDOW_S = 5.0
+
+
+def compute_pids():
+    """PIDs of the processes holding a CUDA context on the card, one entry
+    a process, as nvidia-smi lists them (its PID namespace may not be this
+    one's)."""
+    res = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return [int(x) for x in res.stdout.split()]
+
+
+def shm_room():
+    """/dev/shm's `df -h` line and its free bytes."""
+    import shutil
+    df = subprocess.run(["df", "-h", "/dev/shm"], capture_output=True, text=True, timeout=60)
+    return df.stdout.strip().splitlines()[-1], shutil.disk_usage("/dev/shm").free
+
+
+def shm_geometry(conns, free):
+    """The rings' (slot_size, num_slots), or None for the module defaults
+    (2 rings of 64 x 1 MiB a connection) when /dev/shm holds twice what
+    `conns` connections map; else 16 slots, halving the slot (down to
+    256 KiB) until they fit (a tmpfs faults past its size with SIGBUS)."""
+    from repro_torch.transport.shm import DEFAULT_NUM_SLOTS, DEFAULT_SLOT_SIZE
+
+    def need(slot, n):
+        return conns * 2 * n * (slot + 16)
+
+    if need(DEFAULT_SLOT_SIZE, DEFAULT_NUM_SLOTS) * 2 <= free:
+        return None
+    slot, n = DEFAULT_SLOT_SIZE, 16
+    while need(slot, n) * 2 > free and slot > 1 << 18:
+        slot //= 2
+    if need(slot, n) * 2 > free:
+        raise AssertionError(f"/dev/shm has {free} bytes free: too little for {conns} ring pairs")
+    return slot, n
+
+
+def watch_hosts(system):
+    """Record each actor host's PID as the pool spawns it, and sample
+    nvidia-smi's compute processes once a second while the run lasts.
+    Returns (host pids, listed: {"pids": every PID listed, "entries": the
+    most processes one sample listed}, stop)."""
+    import threading
+
+    pids, listed, done = [], {"pids": set(), "entries": 0}, threading.Event()
+    system.pool.pid_callback = lambda name, pid: pids.append(pid)
+
+    def sample():
+        while not done.wait(1.0):
+            apps = compute_pids()
+            listed["pids"].update(apps)
+            listed["entries"] = max(listed["entries"], len(apps))
+
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+
+    def stop():
+        done.set()
+        thread.join()
+
+    return pids, listed, stop
+
+
+def check_wire(stats, lanes, hosts, transport, pids, listed):
+    """The conditions every wire point holds; returns the host-side
+    summary logged beside its numbers."""
+    import os
+
+    if stats.get("host_errors"):
+        raise AssertionError(f"actor hosts failed: {stats['host_errors']}")
+    if stats["learner_steps"] <= 0:
+        raise AssertionError(f"{transport}: the learner took no step")
+    if stats["learner_error"] or stats["inference_error"]:
+        raise AssertionError(f"learner error {stats['learner_error']}; inference error "
+                             f"{stats['inference_error']}")
+    if stats["env_frames"] != stats["actor_iterations"] * lanes:
+        raise AssertionError(f"env_frames {stats['env_frames']} != actor_iterations "
+                             f"{stats['actor_iterations']} x {lanes}")
+    if transport == "inproc":
+        return {}
+    if stats["actor_hosts"] != hosts or len(pids) != hosts:
+        raise AssertionError(f"{stats['actor_hosts']} actor hosts, {len(pids)} spawned; "
+                             f"{hosts} asked")
+    if stats["gateway_traj_frames"] <= 0:
+        raise AssertionError("no trajectory crossed the wire")
+    if transport == "shm" and stats["gateway_shm_conns"] != hosts:
+        raise AssertionError(f"{stats['gateway_shm_conns']} shm connections, {hosts} hosts")
+    # nvidia-smi may list PIDs of another namespace: beside the PIDs, this
+    # process must be the only one it lists
+    if any(stats["host_cuda_initialized"]) or listed["pids"] & set(pids) \
+            or listed["entries"] > 1:
+        raise AssertionError(f"an actor host opened a CUDA context: "
+                             f"{stats['host_cuda_initialized']}, listed {listed}, hosts {pids}")
+    return {"host_pids": pids, "nvidia_smi_pids": sorted(listed["pids"]),
+            "nvidia_smi_entries": listed["entries"], "parent_listed": os.getpid() in listed["pids"],
+            "host_cuda_initialized": stats["host_cuda_initialized"]}
+
+
+WIRE_KEYS = ("elapsed_s", "env_frames", "actor_iterations", "env_frames_per_s", "learner_steps",
+             "learner_steps_per_s", "mean_batch_occupancy", "mean_queue_wait_ms",
+             "inference_batches", "inference_compute_s", "mean_param_lag", "unroll_flushes")
+GATEWAY_KEYS = ("gateway_connections", "gateway_request_frames", "gateway_traj_frames",
+                "gateway_traj_batch_frames", "gateway_shm_conns", "gateway_shm_frames",
+                "host_shm_frames", "host_spill_frames")
+
+
+def wire_phase():
+    """Phase 17, the wire: R2D2 at the published widths through
+    ``launch/train_r2d2.build`` in process, over TCP and over the shm rings
+    with each actor in its own spawned host; then V-trace at Fig 3f's
+    configuration over shm at 1, 2 and 4 hosts, through
+    ``launch/train_vtrace.run_point``. Each wire point: no host error,
+    learner steps, frames == iterations x lanes summed over the hosts,
+    trajectories over the wire, one shm connection a host on shm, the
+    params and the slot state on the card, no actor host on nvidia-smi's
+    compute list nor with CUDA initialised."""
+    import gc
+
+    from repro_torch.configs.r2d2_atari import AtariConfig
+    from repro_torch.envs.alesim import ALESimEnv
+    from repro_torch.launch import train_r2d2, train_vtrace
+
+    line, free = shm_room()
+    log(f"== wire: /dev/shm {line}")
+    acfg = AtariConfig()
+    out = {"dev_shm": line, "r2d2": [], "vtrace": []}
+    lanes = WIRE_R2D2_LANES
+    for transport, hosts in WIRE_R2D2:
+        run = train_r2d2.build(acfg, actors=WIRE_R2D2_ACTORS, envs_per_actor=lanes,
+                               device="cuda",
+                               env_factory=functools.partial(ALESimEnv, frame=84, channels=4),
+                               learner_batch=R2D2_BATCH, replay_capacity=R2D2_CAPACITY,
+                               transport=transport, actor_hosts=hosts)
+        system, pids, listed = run.system, [], None
+        geometry = None
+        if system.pool is not None:
+            if transport == "shm":
+                geometry = system.pool.shm_geometry = shm_geometry(hosts, free)
+            pids, listed, stop = watch_hosts(system)
+        log(f"   R2D2 {transport}: {WIRE_R2D2_ACTORS} actors x {lanes} lanes of "
+            f"ALESimEnv(frame=84, channels=4), {hosts} host(s), "
+            f"learner batch {R2D2_BATCH} x {acfg.burn_in + acfg.unroll}, "
+            f"{WIRE_R2D2_WINDOW_S:.0f} s window, ring geometry "
+            f"{geometry or 'the defaults, 1 MiB x 64'}")
+        system.warmup()
+        try:
+            stats = system.run(seconds=WIRE_R2D2_WINDOW_S)
+        finally:
+            if system.pool is not None:
+                stop()
+        learner = system.learner
+        row = {"transport": transport, "hosts": hosts,
+               **{k: stats[k] for k in WIRE_KEYS}, **{k: stats.get(k) for k in GATEWAY_KEYS},
+               "learner_train_s": learner.train_time_s, "learner_wait_s": learner.wait_time_s,
+               "replay_size": len(system.replay)}
+        row.update(check_wire(stats, lanes, hosts, transport, pids, listed))
+        tensors = [*learner.state["params"].parameters(),
+                   *learner.state["target"].parameters(),
+                   *run.published.params.parameters(), *run.core.values()]
+        if not all(x.is_cuda for x in tensors):
+            raise AssertionError("a parameter or the slot state is not on the card")
+        log(f"   {json.dumps(row)}")
+        out["r2d2"].append(row)
+        del run, system, learner, tensors
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    for hosts in WIRE_VTRACE_HOSTS:
+        run = train_vtrace.build(hosts, device="cuda", transport="shm", actor_hosts=hosts,
+                                 **VTRACE)
+        system = run.system
+        system.pool.shm_geometry = shm_geometry(hosts, free)
+        pids, listed, stop = watch_hosts(system)
+        try:
+            stats = system.run(seconds=WIRE_VTRACE_WINDOW_S)
+        finally:
+            stop()
+        train_vtrace.check(stats)
+        onp = stats["onpolicy"]
+        row = {**train_vtrace.fig3f_row(hosts, stats), "hosts": hosts,
+               **{k: stats[k] for k in ("elapsed_s", "env_frames", "actor_iterations",
+                                        "mean_batch_occupancy", "mean_queue_wait_ms")},
+               **{k: stats[k] for k in GATEWAY_KEYS},
+               **{k: onp[k] for k in ("frames_generated", "frames_trained", "frames_dropped",
+                                      "frames_dropped_stale", "frames_dropped_overflow",
+                                      "frames_dropped_shutdown", "frames_dropped_fault")},
+               "learner_train_s": system.learner.train_time_s,
+               "learner_wait_s": system.learner.wait_time_s}
+        row.update(check_wire(stats, VTRACE["envs_per_actor"], hosts, "shm", pids, listed))
+        if onp["frames_trained"] <= 0:
+            raise AssertionError(f"no frame trained: {onp}")
+        state = system.learner.state
+        tensors = [*state["params"].values(), *state["opt_state"]["m"].values(),
+                   *state["opt_state"]["v"].values(), *run.policy._params.values()]
+        if not all(x.is_cuda for x in tensors):
+            raise AssertionError("a param, an AdamW moment or the policy's copy is not on "
+                                 "the card")
+        log(f"   V-trace shm, {hosts} host(s) x 1 actor x {VTRACE['envs_per_actor']} lanes of "
+            f"CatchEnv(10, 5) on the host's CPU: {json.dumps(row)}")
+        out["vtrace"].append(row)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs "
@@ -2427,9 +2660,9 @@ def main():
     torch.cuda.empty_cache()
     train_restart_phase()
     torch.cuda.empty_cache()
-    # the R2D2, V-trace and device-backend paths reach none of the port's
-    # kernels: the counts are set to 0 before their phases (10-16) and must
-    # read 0 after
+    # the R2D2, V-trace, device-backend and wire paths reach none of the
+    # port's kernels: the counts are set to 0 before their phases (10-17)
+    # and must read 0 after
     from repro_torch.kernels import flash_attention as K1, ops, ssd_scan as K3
     ops.reset_launch_counts()
     r2d2_parity_phase()
@@ -2442,13 +2675,15 @@ def main():
     torch.cuda.empty_cache()
     device_metrics = {"parity": device_parity_phase()}
     device_metrics["system"] = device_system_phase()
+    torch.cuda.empty_cache()
+    wire_metrics = wire_phase()
     counts = ops.launch_counts()
     if any(counts.values()) or any(K1.flash_attention.launches_by_route.values()) \
             or any(K3.ssd_scan.launches_by_route.values()):
-        raise AssertionError(f"the R2D2, V-trace or device-backend phases launched a port "
-                             f"kernel: {counts}")
-    log(f"   R2D2, V-trace and device-backend phases: kernel launches {counts} (none, as the "
-        "paths have no Pallas kernel)")
+        raise AssertionError(f"the R2D2, V-trace, device-backend or wire phases launched a "
+                             f"port kernel: {counts}")
+    log(f"   R2D2, V-trace, device-backend and wire phases: kernel launches {counts} (none, "
+        "as the paths have no Pallas kernel)")
 
     for name, row in rows.items():
         row["launches"] = launches[name]
@@ -2458,6 +2693,7 @@ def main():
     log(f"r2d2: {json.dumps(r2d2_metrics)}")
     log(f"vtrace: {json.dumps(vtrace_metrics)}")
     log(f"device backend: {json.dumps(device_metrics)}")
+    log(f"wire: {json.dumps(wire_metrics)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": list(rows.values())}))

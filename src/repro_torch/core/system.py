@@ -7,9 +7,9 @@ CuLE-style batching axis) and run; `throughput()` reports env-frames/s
 (= actor iterations x E), inference batch occupancy, and learner steps/s —
 the quantities the paper sweeps.
 
-Mirrors ``repro.core.system`` for what the port has so far, with the
-in-process transport and checkpointing through
-`repro_torch.checkpoint.CheckpointManager`. Two backends:
+Mirrors ``repro.core.system`` for what the port has so far, with
+checkpointing through `repro_torch.checkpoint.CheckpointManager`. Two
+backends:
   * `backend="host"`: actor threads step host or batched torch envs and
     query the central `InferenceServer` once per vector step
     (`policy_step` is a host callable `(obs, slot_ids) -> actions`), with
@@ -34,13 +34,29 @@ Both algorithms:
     `throughput()["onpolicy"]` reports the conserved frame ledger
     (generated = trained + dropped after `run()`).
 
+The host backend picks a transport (`repro_torch.transport`):
+  * `transport="inproc"` (default): actor threads in this process, queue
+    round-trips;
+  * `transport="socket"`: actors move to `num_actor_hosts` spawned OS
+    processes (`launch.actor_host`, stand-ins for remote CPU hosts) that
+    dial `num_gateways` TCP `InferenceGateway`s in front of the same
+    `InferenceServer`; unrolls return over the wire into the same sink.
+    The children step their envs on the host and open no CUDA context, so
+    `env_factory` must be picklable and build its envs for the CPU (a
+    class, a module-level factory or a ``functools.partial``, such as
+    ``partial(CatchEnv, device="cpu")``; not a lambda);
+  * `transport="shm"`: the same layout, each connection upgraded to a
+    shared-memory ring pair (`transport.shm`) with TCP kept for spill and
+    liveness; bit-identical to "socket" when `wire_quant` is None.
+The learner, the inference server and the policy stay in this process, on
+the card.
+
 The constructor takes the reference's arguments and validates them with
 its messages. Every branch that the reference imports lazily and the port
 does not have yet raises `NotImplementedError` naming its ROADMAP item,
-rather than being ignored: `telemetry` and `ops_port` and the socket and
-shm transports (queue 1, "Wire, ops and survival planes") and `autoscale`
-(the same item). `throughput()` keeps the reference's keys for this
-layout.
+rather than being ignored: `telemetry`, `ops_port` and `autoscale`
+(queue 1, "Ops and survival planes"). `throughput()` keeps the
+reference's keys for each layout.
 """
 
 import threading
@@ -55,6 +71,7 @@ from repro_torch.core.actor import Actor
 from repro_torch.core.inference import InferenceServer
 from repro_torch.core.learner import BatchSourceClosed, Learner
 from repro_torch.core.replay import PrioritizedReplay
+from repro_torch.launch.actor_host import OPS_ITEM
 from repro_torch.onpolicy import TrajectoryQueue, VTraceBatcher
 from repro_torch.rollout import DeviceRolloutEngine, RolloutWorker, ShardedRolloutEngine
 
@@ -68,8 +85,6 @@ ZERO_LEDGER = {
     "frames_pending": 0, "drop_rate": 0.0, "unrolls_trained": 0,
     "mean_trained_lag": 0.0, "max_param_lag": 0, "capacity": 0,
 }
-
-WIRE_ITEM = "ROADMAP queue 1, 'Wire, ops and survival planes'"
 
 
 def _not_ported(what, item):
@@ -196,17 +211,18 @@ class SeedSystem:
                 "or connections to re-dial)")
         # the branches the reference imports lazily, refused until ported
         if telemetry is not None or ops_port is not None:
-            raise _not_ported("telemetry / ops_port (the repro.telemetry plane)", WIRE_ITEM)
+            raise _not_ported("telemetry / ops_port (the repro.telemetry plane)", OPS_ITEM)
         if autoscale is not None:
-            raise _not_ported("autoscale (repro.autoscale)", WIRE_ITEM)
-        if wire:
-            raise _not_ported(f"transport={transport!r} (repro.transport)", WIRE_ITEM)
+            raise _not_ported("autoscale (repro.autoscale)", OPS_ITEM)
         self.backend = backend
         self.transport = transport
         self.algo = algo
         self.envs_per_actor = envs_per_actor
         self.engine_shards = engine_shards
         self.server = None
+        self.gateways = []
+        self.pool = None
+        self.host_faults = 0                 # see throughput()["recovery"]
         self.replay = PrioritizedReplay(replay_capacity)
         self.min_replay = min_replay
         self.learner_batch = learner_batch
@@ -230,11 +246,37 @@ class SeedSystem:
                 policy_step,
                 max_batch=inference_batch or max(num_actors * envs_per_actor, 1),
                 deadline_ms=deadline_ms, num_replicas=num_replicas)
-            self.actors = [Actor(i, env_factory, self.server, self._sink,
-                                 unroll, num_envs=envs_per_actor,
-                                 version_source=self._version,
-                                 with_logprobs=onpolicy, stamp_records=onpolicy)
-                           for i in range(num_actors)]
+            if wire:
+                from repro_torch.launch.actor_host import ActorHostPool
+                from repro_torch.transport.socket import InferenceGateway
+                use_shm = transport == "shm"
+                self.gateways = [
+                    InferenceGateway(self.server, sink=self._sink,
+                                     host=gateway_host, port=gateway_port,
+                                     version_source=self._version,
+                                     onpolicy=onpolicy,
+                                     # grant CODEC_SHM only when the
+                                     # deployment asked for the shm plane,
+                                     # so transport='socket' measures the
+                                     # honest TCP path
+                                     allow_shm=use_shm)
+                    for _ in range(num_gateways)]
+                self.pool = ActorHostPool(
+                    env_factory, num_actors=num_actors,
+                    envs_per_actor=envs_per_actor, unroll=unroll,
+                    num_hosts=num_actor_hosts, compress=wire_compression,
+                    onpolicy=onpolicy, use_shm=use_shm, quant=wire_quant,
+                    supervise=supervise_hosts,
+                    max_host_restarts=max_host_restarts,
+                    host_stall_s=host_stall_s, reconnect=wire_reconnect,
+                    fault_callback=self._host_fault)
+                self.actors = []
+            else:
+                self.actors = [Actor(i, env_factory, self.server, self._sink,
+                                     unroll, num_envs=envs_per_actor,
+                                     version_source=self._version,
+                                     with_logprobs=onpolicy, stamp_records=onpolicy)
+                               for i in range(num_actors)]
         else:
             if policy_apply is None:
                 raise ValueError("backend='device' requires policy_apply")
@@ -283,11 +325,24 @@ class SeedSystem:
                 checkpoint_every_s=checkpoint_every_s,
                 poison=poison)
 
+    def _host_fault(self, host_id: int, reason: str):
+        """ActorHostPool's per-death seam (fires BEFORE the respawn): move
+        the dead incarnation's queued-but-untrained frames into the FAULT
+        drop bucket — the conserved ledger's answer to 'where did the dead
+        host's in-flight unrolls go?'. They are counted `frames_dropped`,
+        never `frames_trained`."""
+        self.host_faults += 1
+        if self.onpolicy_queue is not None:
+            self.onpolicy_queue.drop_pending()
+
     def _recovery_stats(self) -> dict:
-        """The reference's recovery counters; with no actor hosts and no
-        wire, only the checkpoint counts can move."""
-        return {
-            "host_faults": 0, "host_restarts": 0, "stale_frames_rejected": 0,
+        """One consistent snapshot of the recovery counters."""
+        out = {
+            "host_faults": self.host_faults,
+            "host_restarts": (self.pool.host_restarts
+                              if self.pool is not None else 0),
+            "stale_frames_rejected": (self.pool.stale_frames_rejected
+                                      if self.pool is not None else 0),
             "reconnects": 0, "gateway_failovers": 0,
             "checkpoint_saves": self._ckpt.saves if self._ckpt else 0,
             "checkpoint_restores": self._ckpt.restores if self._ckpt else 0,
@@ -295,6 +350,15 @@ class SeedSystem:
                 self.onpolicy_queue.frames_dropped_fault
                 if self.onpolicy_queue is not None else 0),
         }
+        if self.pool is not None:
+            # transport-side counters live in the children and ride home
+            # in the final stats frames (a killed incarnation's counts die
+            # with it — the supervisor's own counters above don't)
+            out["reconnects"] = sum(s.get("reconnects", 0)
+                                    for s in self.pool.last_stats)
+            out["gateway_failovers"] = sum(s.get("gateway_failovers", 0)
+                                           for s in self.pool.last_stats)
+        return out
 
     def resume(self) -> int:
         """Learner crash recovery: restore the latest checkpoint into the
@@ -369,7 +433,9 @@ class SeedSystem:
     def warmup(self):
         """Step every actor's envs once, or capture every device worker's
         unroll (without advancing it), so that a short measured `run()`
-        window is steady-state."""
+        window is steady-state. Wire actor hosts warm up inside their own
+        processes before their measured window, so this is a no-op for
+        them."""
         for a in self.actors:
             if self.backend == "device":
                 a.warmup()
@@ -378,6 +444,8 @@ class SeedSystem:
                 a.vec.step(np.zeros(a.num_envs, np.int32))
 
     def run(self, seconds: float, with_learner: bool = True):
+        if self.pool is not None:
+            return self._run_socket(seconds, with_learner)
         if self.server:
             self.server.start()
         for a in self.actors:
@@ -403,10 +471,52 @@ class SeedSystem:
             self.onpolicy_queue.close()
         return self.throughput(elapsed)
 
+    def _run_socket(self, seconds: float, with_learner: bool):
+        """Disaggregated run: G gateways + server here, actors in K
+        spawned host processes hashed across the gateway addresses.
+        `elapsed` is the actor hosts' own measured window (spawn, torch
+        import and env warm-up excluded), so frames/s is comparable with
+        the in-proc backend's steady-state window."""
+        try:
+            # inside the try: a bind failure here must still unwind the
+            # already-started server/gateways (stop() on a never-started
+            # gateway is safe), or we leak threads, a listener, and the
+            # 1 ms GIL switch interval a started gateway installed
+            self.server.start()
+            addresses = [gw.start() for gw in self.gateways]
+            if self.learner and with_learner:
+                self.learner.start()
+            host_stats = self.pool.run(addresses, seconds)
+        finally:
+            # even if the pool trips its hard timeout, tear the learner,
+            # gateways (which also restore the GIL switch interval) and
+            # server down — never leak threads or a bound listener
+            if self.learner and with_learner:
+                self.learner.stop()
+                self.learner.join()
+            # reverse order: each gateway saved the GIL switch interval it
+            # found at start(), so unwinding the stack restores the real
+            # process default, not a sibling gateway's 1 ms slice
+            for gw in reversed(self.gateways):
+                gw.stop()
+            self.server.stop()
+            if self.onpolicy_queue is not None:
+                # after the gateways: TRAJ frames still in flight land as
+                # counted shutdown drops, not unrecorded frames
+                self.onpolicy_queue.close()
+        elapsed = max((s["elapsed_s"] for s in host_stats), default=seconds)
+        return self.throughput(max(elapsed, 1e-9))
+
     def throughput(self, elapsed: float):
-        iterations = sum(a.iterations for a in self.actors)
-        frames = sum(a.frames for a in self.actors)  # = iterations*E
-        returns = [r for a in self.actors for r in a.returns[-20:]]
+        if self.pool is not None:
+            hs = self.pool.last_stats
+            iterations = sum(s["iterations"] for s in hs)
+            frames = sum(s["frames"] for s in hs)
+            returns = [r for s in hs for r in s["returns"]]
+        else:
+            iterations = sum(a.iterations for a in self.actors)
+            frames = sum(a.frames for a in self.actors)  # = iterations*E
+            returns = [r for a in self.actors for r in a.returns[-20:]]
         out = {
             "elapsed_s": elapsed,
             "backend": self.backend,
@@ -424,9 +534,14 @@ class SeedSystem:
         if self.server:
             # actors stamp the behavior-param version on every unroll: mean
             # lag (in learner publishes) of the unrolls this run flushed
-            out["unroll_flushes"] = sum(a.unrolls for a in self.actors)
-            lag_total = sum(a.param_lag_total for a in self.actors)
-            out["mean_param_lag"] = lag_total / max(out["unroll_flushes"], 1)
+            if self.pool is not None:
+                unroll_flushes = sum(s["unrolls"] for s in self.pool.last_stats)
+                lag_total = sum(s["param_lag_total"] for s in self.pool.last_stats)
+            else:
+                unroll_flushes = sum(a.unrolls for a in self.actors)
+                lag_total = sum(a.param_lag_total for a in self.actors)
+            out["unroll_flushes"] = unroll_flushes
+            out["mean_param_lag"] = lag_total / max(unroll_flushes, 1)
         # the conserved frame ledger: generated == trained + dropped
         # (+ pending mid-run). ALWAYS present — zero-valued when the vtrace
         # queue is off — so the schema stays stable
@@ -457,6 +572,31 @@ class SeedSystem:
                 per = self.server.per_replica_stats()
                 out["replica_lanes"] = [r["requests"] for r in per]
                 out["replica_occupancy"] = [r["mean_batch_occupancy"] for r in per]
+            if self.pool is not None:
+                gs = [gw.stats for gw in self.gateways]
+                hs = self.pool.last_stats
+                out.update({
+                    "actor_hosts": self.pool.num_hosts,
+                    "actor_hosts_live": self.pool.live_hosts(),
+                    # the port's pool is not elastic yet (ROADMAP queue 1,
+                    # "Ops and survival planes"): nothing grows or drains
+                    "hosts_grown": 0,
+                    "hosts_drained": 0,
+                    "num_gateways": len(self.gateways),
+                    "gateway_connections": sum(g["connections"] for g in gs),
+                    "gateway_request_frames": sum(g["request_frames"] for g in gs),
+                    "gateway_traj_frames": sum(g["traj_frames"] for g in gs),
+                    "gateway_traj_batch_frames": sum(g["traj_batch_frames"]
+                                                     for g in gs),
+                    "gateway_shm_conns": sum(g["shm_conns"] for g in gs),
+                    "gateway_shm_frames": sum(g["shm_frames"] for g in gs),
+                    "host_shm_frames": sum(s_.get("shm_frames", 0) for s_ in hs),
+                    "host_spill_frames": sum(s_.get("spill_frames", 0) for s_ in hs),
+                    "per_gateway_connections": [g["connections"] for g in gs],
+                    "host_errors": [s_["error"] for s_ in hs if s_["error"]],
+                    "host_cuda_initialized": [s_.get("cuda_initialized", False)
+                                              for s_ in hs],
+                })
         else:
             # device backend: no central inference — one transfer per
             # unroll. scans == actor_iterations; each supplies T*E frames.

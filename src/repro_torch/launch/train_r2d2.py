@@ -10,7 +10,12 @@ the learner runs recurrent double-Q with burn-in and publishes fresh
 params. Reports the Fig-3 quantities (frames/s, batch occupancy).
 
     PYTHONPATH=src python -m repro_torch.launch.train_r2d2 --device cpu \\
-        --actors 2 --envs-per-actor 2 --seconds 8
+        --actors 2 --envs-per-actor 2 --seconds 8 [--transport shm --actor-hosts 2]
+
+With ``--transport socket`` or ``shm`` the actors run in ``--actor-hosts``
+spawned processes that step their envs on the host and dial
+``--gateways`` inference gateways in this process; the learner and the
+inference server stay here, on the card.
 
 The wiring lives in `build`, which ``chip_smoke.py`` drives at the full
 R2D2 widths:
@@ -29,6 +34,7 @@ card: the agent is fp32, as the reference's ``jnp.float32`` params are.
 
 import argparse
 import copy
+import functools
 import threading
 from dataclasses import dataclass
 from typing import Callable
@@ -102,22 +108,25 @@ def device_batch(batch, device, core_dim):
 
 
 def build(acfg, *, actors=2, envs_per_actor=1, device="cuda", env_factory=None,
-          learner_batch=2, replay_capacity=256) -> R2D2Run:
+          learner_batch=2, replay_capacity=256, transport="inproc", actor_hosts=1,
+          gateways=1) -> R2D2Run:
     """The SEED R2D2 system of `acfg` on `device`, as the example wires it:
     AdamW, a target net (params from seed 0), `actors` x `envs_per_actor`
     lanes of `env_factory` (default: the example's ALESimEnv at the
-    config's frame, step_cost 512, episode_len 200), and one warm-up
-    inference batch and train step (on zeros) before the system is made,
-    so that a measured window starts warm. The learner starts once replay
-    holds one batch of sequences."""
+    config's frame, step_cost 512, episode_len 200, as a picklable
+    partial), and one warm-up inference batch and train step (on zeros)
+    before the system is made, so that a measured window starts warm. The
+    learner starts once replay holds one batch of sequences. `transport`
+    "socket" or "shm" moves the actors into `actor_hosts` spawned
+    processes behind `gateways` gateways (`env_factory` must pickle)."""
     dev = resolve(device)
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     if env_factory is None:
-        def env_factory():
-            return ALESimEnv(frame=acfg.obs_size, channels=acfg.obs_channels,
-                             step_cost=512, episode_len=200)
+        env_factory = functools.partial(ALESimEnv, frame=acfg.obs_size,
+                                        channels=acfg.obs_channels, step_cost=512,
+                                        episode_len=200)
     bundle = make_atari(acfg)
     opt = adamw(LR)
     state = init_train_state(bundle, opt, 0, dev, with_target=True)
@@ -161,7 +170,8 @@ def build(acfg, *, actors=2, envs_per_actor=1, device="cuda", env_factory=None,
         env_factory=env_factory, policy_step=policy_step, num_actors=actors,
         unroll=seq_len, envs_per_actor=envs_per_actor, train_step=train_on, state=state,
         learner_batch=learner_batch, replay_capacity=replay_capacity, min_replay=learner_batch,
-        deadline_ms=DEADLINE_MS, policy_publish=published.publish)
+        deadline_ms=DEADLINE_MS, policy_publish=published.publish, transport=transport,
+        num_actor_hosts=actor_hosts, num_gateways=gateways)
     tf32 = {"matmul": torch.backends.cuda.matmul.allow_tf32,
             "cudnn": torch.backends.cudnn.allow_tf32}
     return R2D2Run(dev, system, published, core, policy_step, tf32)
@@ -176,15 +186,23 @@ def main(argv=None):
     ap.add_argument("--frame", type=int, default=42)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises where there is no card) or cpu")
+    ap.add_argument("--transport", choices=("inproc", "socket", "shm"), default="inproc",
+                    help="inproc: actor threads here; socket/shm: actor host processes")
+    ap.add_argument("--actor-hosts", type=int, default=1,
+                    help="actor host processes (socket/shm)")
+    ap.add_argument("--gateways", type=int, default=1,
+                    help="inference gateways the hosts hash across (socket/shm)")
     args = ap.parse_args(argv)
 
     acfg = AtariConfig(obs_size=args.frame, obs_channels=2, core_dim=128,
                        num_actions=6, burn_in=4, unroll=16, n_step=3,
                        target_update_period=50)
     run = build(acfg, actors=args.actors, envs_per_actor=args.envs_per_actor,
-                device=args.device)
+                device=args.device, transport=args.transport, actor_hosts=args.actor_hosts,
+                gateways=args.gateways)
     print(f"== SEED R2D2: {args.actors} actors x {args.envs_per_actor} env "
-          f"lanes, {args.seconds}s wall-clock, on {run.device} (TF32 {run.tf32})")
+          f"lanes, {args.seconds}s wall-clock, on {run.device} (TF32 {run.tf32}), "
+          f"transport {args.transport}")
     stats = run.system.run(seconds=args.seconds)
     for k, v in stats.items():
         print(f"  {k:24s} {v:.3f}" if isinstance(v, float) else f"  {k:24s} {v}")
@@ -192,6 +210,8 @@ def main(argv=None):
         raise SystemExit(f"learner died:\n{stats['learner_error']}")
     if stats["inference_error"]:
         raise SystemExit(f"inference died:\n{stats['inference_error']}")
+    if stats.get("host_errors"):
+        raise SystemExit(f"actor hosts died:\n{stats['host_errors']}")
     if not (stats["env_frames"] > 0 and stats["learner_steps"] > 0):
         raise SystemExit(f"no frames or no learner steps: {stats}")
     print("ok — actors, central inference, replay and learner all ran")

@@ -22,7 +22,14 @@ learner's published params themselves; ``max_param_lag`` is 10 there, every
 other setting as the host point.
 
     PYTHONPATH=src python -m repro_torch.launch.train_vtrace --device cpu \\
-        --actors 1 2 --seconds 3 [--backend device]
+        --actors 1 2 --seconds 3 [--backend device | --transport shm --actor-hosts 1]
+
+With ``--transport socket`` or ``shm`` (host backend) the actors run in
+``--actor-hosts`` spawned processes, each stepping its Catch lanes on its
+own CPU (``partial(CatchEnv, device="cpu")``: a child opens no CUDA
+context), and dial ``--gateways`` inference gateways in this process; the
+policy and the learner stay here, on `device`. A point's hosts are
+``min(--actor-hosts, actors)``.
 
 `build` wires one sweep point (``chip_smoke.py`` drives it). Every point
 starts the policy and the learner from the same params, made from
@@ -32,6 +39,7 @@ behavior and target logprobs must agree to fp32 rounding.
 """
 
 import argparse
+import functools
 from dataclasses import dataclass
 from typing import Optional
 
@@ -65,14 +73,18 @@ class VTraceRun:
 
 
 def build(actors=1, *, envs_per_actor=4, unroll=8, learner_batch=4, max_param_lag=None,
-          device="cuda", seed=0, backend="host") -> VTraceRun:
+          device="cuda", seed=0, backend="host", transport="inproc", actor_hosts=1,
+          gateways=1) -> VTraceRun:
     """One Fig-3f sweep point on `device`: `actors` x `envs_per_actor` lanes
     of CatchEnv(rows=10, cols=5), the MLP at hidden 64 from `seed`, AdamW,
     the reference's queue capacity (64 unrolls) and gamma (0.99),
     `max_param_lag` by default `MAX_PARAM_LAG[backend]`; one train step (on
     a copy) and, on the host backend, one warm-up policy batch at each
     server batch size it will most see, so that a measured window starts
-    warm (the device backend's `SeedSystem.warmup` captures the unrolls)."""
+    warm (the device backend's `SeedSystem.warmup` captures the unrolls).
+    `transport` "socket" or "shm" moves the actors into `actor_hosts`
+    spawned processes behind `gateways` gateways, their Catch lanes on the
+    CPU."""
     dev = resolve(device)
     if max_param_lag is None:
         max_param_lag = MAX_PARAM_LAG[backend]
@@ -84,7 +96,11 @@ def build(actors=1, *, envs_per_actor=4, unroll=8, learner_batch=4, max_param_la
     params = init_fn(torch.Generator().manual_seed(seed), dev)
     state = learner.init_state(params)
     learner.warmup(state, batch_size=learner_batch, unroll=unroll, obs_shape=(obs_dim,))
-    common = dict(env_factory=lambda: CatchEnv(device=dev), num_actors=actors, unroll=unroll,
+    wire = transport != "inproc"
+    # a spawned actor host steps its lanes on its own CPU: it opens no CUDA
+    # context, and a partial pickles where a lambda does not
+    env_factory = functools.partial(CatchEnv, device="cpu" if wire else dev)
+    common = dict(env_factory=env_factory, num_actors=actors, unroll=unroll,
                   envs_per_actor=envs_per_actor, algo="vtrace", train_step=learner.train_step,
                   state=state, learner_batch=learner_batch, max_param_lag=max_param_lag)
     policy = None
@@ -96,7 +112,8 @@ def build(actors=1, *, envs_per_actor=4, unroll=8, learner_batch=4, max_param_la
         for lanes in sorted({envs_per_actor, actors * envs_per_actor}):
             policy(np.zeros((lanes, obs_dim), np.float32), None)
         system = SeedSystem(policy_step=policy, deadline_ms=DEADLINE_MS,
-                            policy_publish=policy.publish, **common)
+                            policy_publish=policy.publish, transport=transport,
+                            num_actor_hosts=actor_hosts, num_gateways=gateways, **common)
     return VTraceRun(dev, system, learner, policy, torch.backends.cuda.matmul.allow_tf32)
 
 
@@ -108,6 +125,8 @@ def check(stats):
         raise RuntimeError(f"learner died:\n{stats['learner_error']}")
     if stats["inference_error"]:
         raise RuntimeError(f"inference died:\n{stats['inference_error']}")
+    if stats.get("host_errors"):
+        raise RuntimeError(f"actor hosts died:\n{stats['host_errors']}")
     onp = stats["onpolicy"]
     if onp["frames_generated"] != onp["frames_trained"] + onp["frames_dropped"] \
             or onp["frames_pending"] != 0:
@@ -151,6 +170,12 @@ def main(argv=None):
                     help="cuda (default; raises where there is no card) or cpu")
     ap.add_argument("--backend", choices=("host", "device"), default="host",
                     help="host: actors + central inference; device: fused unrolls")
+    ap.add_argument("--transport", choices=("inproc", "socket", "shm"), default="inproc",
+                    help="host backend: actor threads here, or actor host processes")
+    ap.add_argument("--actor-hosts", type=int, default=1,
+                    help="actor host processes a point (socket/shm), at most its actors")
+    ap.add_argument("--gateways", type=int, default=1,
+                    help="inference gateways the hosts hash across (socket/shm)")
     args = ap.parse_args(argv)
 
     lag = MAX_PARAM_LAG[args.backend] if args.max_param_lag is None else args.max_param_lag
@@ -160,10 +185,12 @@ def main(argv=None):
     print(f"== SEED V-trace (fig3f), {args.backend} backend: actors {args.actors} x "
           f"{args.envs_per_actor} Catch lanes, unroll {args.unroll}, learner batch "
           f"{args.learner_batch}, max_param_lag {lag}, {args.seconds}s a point, on "
-          f"{resolve(args.device)}")
+          f"{resolve(args.device)}, transport {args.transport}")
     rows = []
     for n in args.actors:
-        run, stats = run_point(n, args.seconds, **kw)
+        run, stats = run_point(n, args.seconds, transport=args.transport,
+                               actor_hosts=min(args.actor_hosts, n), gateways=args.gateways,
+                               **kw)
         row = fig3f_row(n, stats)
         rows.append(row)
         print(f"fig3f_vtrace_actors_{n},{row['gen_frames_per_s']:.1f},gen_frames_per_s "

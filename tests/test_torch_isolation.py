@@ -44,7 +44,11 @@ def test_importing_every_module_loads_no_jax():
             "repro_torch.onpolicy.learner", "repro_torch.envs.catch",
             "repro_torch.launch.train_vtrace", "repro_torch.envs.cartpole",
             "repro_torch.envs.tokenworld", "repro_torch.rollout", "repro_torch.rollout.engine",
-            "repro_torch.rollout.worker", "repro_torch.launch.rollout_backends"} <= set(mods)
+            "repro_torch.rollout.worker", "repro_torch.launch.rollout_backends",
+            "repro_torch.transport", "repro_torch.transport.codec",
+            "repro_torch.transport.local", "repro_torch.transport.shm",
+            "repro_torch.transport.socket", "repro_torch.launch.actor_host",
+            "repro_torch.fault", "repro_torch.fault.backoff"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

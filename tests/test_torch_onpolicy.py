@@ -688,7 +688,8 @@ def test_algo_validation_messages_as_the_reference(kw):
 
 @pytest.mark.parametrize("kw", [
     {"telemetry": object()}, {"ops_port": 0}, {"autoscale": object()},
-    {"transport": "socket"}, {"transport": "shm"}])
+    {"transport": "socket", "telemetry": object()},
+    {"transport": "shm", "autoscale": object()}])
 def test_vtrace_keeps_the_unported_branches_refused(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         SeedSystem(env_factory=_catch, policy_step=lambda o, i: None, num_actors=1,

@@ -313,7 +313,8 @@ def test_checkpoint_dir_saves_and_resume_restores(tmp_path):
 
 @pytest.mark.parametrize("kw", [
     {"telemetry": object()}, {"ops_port": 0}, {"autoscale": object()},
-    {"transport": "socket"}, {"transport": "shm"}])
+    {"transport": "socket", "telemetry": object()},
+    {"transport": "shm", "autoscale": object()}])
 def test_unported_branches_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         SeedSystem(env_factory=_ale(), policy_step=_random_policy(18), num_actors=1,
