@@ -73,7 +73,8 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    trained/s, the parts (online forward, target forward, loss, backward,
    optimizer) on CUDA events, a profiler breakdown (convolutions, GEMMs,
    the LSTM gates, the rest; device operations; idle share; AdamW alone),
-   peak memory, and the host's cost of sampling a batch and moving it;
+   peak memory, the host's cost of sampling a batch and moving it, and
+   the FLOPs FlopCounterMode counts over one step (Fig 2's card row);
 12. R2D2 system: SeedSystem (host backend, in-process transport) built by
    ``repro_torch.launch.train_r2d2.build`` at the published widths,
    actors from the host's core count, 8 lanes each of ALESimEnv(frame=84,
@@ -148,9 +149,22 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    and the slot state on the card, and no actor host with a CUDA
    context (each child reports torch.cuda.is_initialized(); nvidia-smi's
    compute list, sampled each second, lists none of their PIDs and no
-   process but this one). No kernel of the port may launch in phases
-   10-17 (the paths have no Pallas kernel): the counts are set to 0 before
-   them and read after.
+   process but this one);
+18. the paper's figures through ``repro_torch.benchmarks`` and
+   ``repro_torch.launch.provision_system``, every row logged with the
+   card's name and power limit: Fig 3a and 3c (ALESimEnv and a random
+   policy on the host) and 3e's replica sweep (Catch on the card, a
+   sleeping policy) at the reference's --smoke windows; 3d, 3e's engine
+   shards and 3f reused from phases 16 and 14; the calibrated models (the
+   3b checks within 1e-9 of the paper's 5.8 and 2.0) and the card's Fig
+   3d row at phase 16's t_dev0 and t_dev1; Fig 4's derating, ratios (this
+   machine with one H100 in place of the reference's TPU host) and wire
+   sweep (in process, TCP, shm, Catch on the host's CPU; the shm probe's
+   gate recorded, not asserted); Fig 2's card row from phase 11's step
+   (shares summing to 1); the provisioning tool's report. No point may
+   read zero frames or an inference error. No kernel of the port may
+   launch in phases 10-18 (the paths have no Pallas kernel): the counts
+   are set to 0 before them and read after.
 
 The kernel phase (3) also holds K1-bwd and K4-bwd to their plain versions
 (the formulas each kernel computes) at the train call, the smoke widths,
@@ -225,25 +239,15 @@ def card_identity():
 
 
 def time_ms(name, fn, iters=20, warmup=3):
-    """Mean device time of one call, CUDA events around `iters` calls. A
-    sleeping kernel first holds the stream for about 50 ms, so that the
-    host queues every call before the first one runs: a call whose host
-    side is slower than its kernel would otherwise time the host."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(100_000_000)   # cycles, ~50 ms at the H100's 1.98 GHz
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    if start.query():   # the stream woke before the host had queued every call
+    """Mean device time of one call, CUDA events around `iters` calls
+    behind a sleeping kernel (`repro_torch.benchmarks.timing.device_ms`)."""
+    from repro_torch.benchmarks.timing import device_ms
+
+    ms, host_limited = device_ms(fn, iters=iters, warmup=warmup)
+    if host_limited:
         log(f"   ({name} is host-limited: the host could not queue ahead, so "
             "its time includes host gaps)")
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    return ms
 
 
 def max_err(a, b):
@@ -1626,38 +1630,22 @@ def r2d2_parity_phase():
 
 
 def r2d2_breakdown(prof, n):
-    """Device time per call of an R2D2 step from a profiler trace, grouped:
-    cuDNN's convolutions (with their layout copies and the complex GEMMs
-    and transforms of its FFT algorithms; the agent has no other complex
-    arithmetic), GEMMs, the LSTM gates' sigmoid and tanh (forward and
-    backward), and everything else; the port's CUDA kernels must not
+    """Device ms per call of an R2D2 step from a profiler trace, grouped by
+    `fig2_breakdown.busy_groups_s` (cuDNN's convolutions, GEMMs, the LSTM
+    gates, everything else, and "counted", the convolutions and GEMMs
+    whose FLOPs FlopCounterMode counts); the port's CUDA kernels must not
     appear."""
-    spans = {g: [] for g in ("conv", "gemm", "lstm_gates", "other")}
-    kernels = 0
-    for e in prof.events():
-        if (e.device_type != torch.autograd.DeviceType.CUDA
-                or getattr(e, "is_user_annotation", False)):
-            continue
-        kernels += 1
-        name = e.name.lower()
-        if any(k in name for k in ("flash_", "decode_split", "decode_combine", "ssd_",
-                                   "rglru_")):
-            raise AssertionError(f"a port kernel ran in the R2D2 path: {e.name}")
-        if any(k in name for k in ("conv", "cudnn", "fprop", "dgrad", "wgrad", "nchw", "nhwc",
-                                   "fft", "cf32")):
-            g = "conv"
-        elif any(k in name for k in ("gemm", "gemv", "cutlass", "nvjet", "xmma", "cublas")):
-            g = "gemm"
-        elif "sigmoid" in name or "tanh" in name:
-            g = "lstm_gates"
-        else:
-            g = "other"
-        spans[g].append((e.time_range.start, e.time_range.end))
-    groups = {"busy": union_ms([s for found in spans.values() for s in found]) / n}
-    groups.update({g: union_ms(found) / n for g, found in spans.items()})
+    from repro_torch.benchmarks import fig2_breakdown as fig2
+
+    spans = fig2.device_spans(prof, torch.device("cuda"))
+    for name, _, _ in spans:
+        if any(k in name.lower() for k in ("flash_", "decode_split", "decode_combine", "ssd_",
+                                           "rglru_")):
+            raise AssertionError(f"a port kernel ran in the R2D2 path: {name}")
+    groups = {g: 1e3 * s / n for g, s in fig2.busy_groups_s(spans).items()}
     if groups["busy"] <= 0:
         raise AssertionError("the profiler recorded no device time")
-    return groups, kernels / n
+    return groups, len(spans) / n
 
 
 def r2d2_learner_phase():
@@ -1670,6 +1658,7 @@ def r2d2_learner_phase():
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.benchmarks import fig2_breakdown as fig2
     from repro_torch.configs.r2d2_atari import AtariConfig
     from repro_torch.core.losses import (init_train_state, make_r2d2_loss, make_train_step,
                                          param_grads)
@@ -1791,7 +1780,10 @@ def r2d2_learner_phase():
         f"idle share {idle:.3f} of the mean step; AdamW alone {adamw_ms['busy']:.2f} ms in "
         f"{adamw_ops:.0f} operations")
     del grads, updates, loss
-    return {"step_ms": step_ms, "mean_step_ms": mean_ms,
+    # the FLOPs of one step as FlopCounterMode counts them (Fig 2's card row)
+    flops, state = fig2.step_flops(train_step, state, db)
+    log(f"   FlopCounterMode over one step: {flops:.4e} FLOPs (matmuls and convolutions)")
+    return {"flops": flops, "step_ms": step_ms, "mean_step_ms": mean_ms,
             "frames_trained_per_s": b * t / (mean_ms / 1e3), "parts_ms": parts,
             "device_ms": groups, "device_ops": n_ops, "idle_share": idle,
             "adamw_ms": adamw_ms["busy"], "adamw_ops": adamw_ops, "peak_gb": peak / 1e9,
@@ -2190,23 +2182,24 @@ def device_system_phase():
     `train_vtrace.build(..., backend="device")` at 1, 2 and 4 actors (Fig
     3f's row, learner train against wait seconds, drops by cause; the
     ledger conserved and settled, trained > 0, every param, the engines'
-    param copies and the env state on the card); then one engine alone on
-    CatchEnv(10, 5) at E DEVICE_SWEEP_LANES: ms a replay on CUDA events,
-    the host ms of the copy back and of the flush apart, the device
-    operations a replay under the profiler and the idle share of a replay
-    (busy time over its CUDA-event time), one RolloutWorker's
-    env frames/s at that E (no learner), and t_dev0 and t_dev1 fitted by
-    least squares (seconds a scan step and a lane a scan step, and in
-    units of t_env, a Catch vector step at 1 lane alone)."""
+    param copies and the env state on the card); then
+    `fig3_actor_scaling.measure_t_dev`'s sweep, one engine alone on
+    CatchEnv(10, 5) at E DEVICE_SWEEP_LANES: ms a replay on CUDA events
+    behind a sleeping kernel, and beside it the host ms of the copy back
+    and of the flush apart, the device operations a replay under the
+    profiler and the idle share of a replay (busy time over its CUDA-event
+    time), one RolloutWorker's env frames/s at that E (no learner), and
+    t_dev0 and t_dev1 fitted by least squares (seconds a scan step and a lane a scan step, and in
+    units of t_env, the median of five trials of a Catch vector step at 1
+    lane alone)."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.benchmarks import fig3_actor_scaling as fig3
     from repro_torch.core.actor import account_episode_ends, flush_lane_unrolls
     from repro_torch.core.system import SeedSystem
     from repro_torch.envs.catch import CatchEnv
-    from repro_torch.envs.vector import make_vector_env
     from repro_torch.launch import rollout_backends, train_vtrace
-    from repro_torch.rollout import DeviceRolloutEngine
 
     set_fp32()
     out = {"points": {}, "shards": {}, "vtrace": [], "sweep": {}}
@@ -2216,7 +2209,8 @@ def device_system_phase():
         system, stats = rollout_backends.run_point(backend, lanes, unroll=DEVICE_T,
                                                    seconds=DEVICE_WINDOW_S, device="cuda")
         row = {k: stats.get(k) for k in ("env_frames_per_s", "env_frames", "actor_iterations",
-                                         "scans", "mean_batch_occupancy", "mean_queue_wait_ms")}
+                                         "scans", "mean_batch_occupancy", "mean_queue_wait_ms",
+                                         "inference_compute_s")}
         if backend == "device":
             row["captures"] = [a.engine.captures for a in system.actors]
             if row["captures"] != [1] * len(system.actors):
@@ -2230,7 +2224,8 @@ def device_system_phase():
         if captures != [k] * len(system.actors):
             raise AssertionError(f"engine_shards {k}: captures {captures}, not one an engine")
         row = {"env_frames_per_s": stats["env_frames_per_s"], "scans": stats["scans"],
-               "env_frames": stats["env_frames"], "captures": captures}
+               "env_frames": stats["env_frames"], "inference_compute_s":
+               stats["inference_compute_s"], "captures": captures}
         out["shards"][k] = row
         log(f"   fig3e engine_shards {k}: {json.dumps(row)} (env_frames == scans x 8 x 8)")
     p = out["points"]
@@ -2274,21 +2269,11 @@ def device_system_phase():
 
     log(f"== device backend cost: one engine, CatchEnv(10, 5), uniform random policy, T "
         f"{DEVICE_T}, E {DEVICE_SWEEP_LANES}")
-    vec = make_vector_env(lambda: CatchEnv(device="cuda"), 1, seed=0)
-    vec.reset()
-    zeros = np.zeros(1, np.int32)
-    for _ in range(20):
-        vec.step(zeros)
-    t0 = time.perf_counter()
-    for _ in range(500):
-        vec.step(zeros)
-    t_env = (time.perf_counter() - t0) / 500
-    policy = rollout_backends.device_policy(CatchEnv.num_actions)
     n = 50
-    for lanes in DEVICE_SWEEP_LANES:
-        eng = DeviceRolloutEngine(CatchEnv(device="cuda"), policy, lanes, DEVICE_T, seed=lanes)
-        eng.warmup(None)
-        replay_ms = time_ms(f"replay E {lanes}", lambda: eng.dispatch(None), iters=n)
+
+    def more_columns(lanes, eng):
+        """Beside fig3.measure_t_dev's replay time: the copy back, the flush,
+        a profiled replay and one RolloutWorker over the same lanes."""
         flat = eng.dispatch(None)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2321,34 +2306,38 @@ def device_system_phase():
         if stats["inference_error"] or stats["env_frames"] != stats["scans"] * DEVICE_T * lanes:
             raise AssertionError(f"E {lanes} worker: {stats['inference_error']}, frames "
                                  f"{stats['env_frames']}, scans {stats['scans']}")
-        row = {"replay_ms": replay_ms, "copy_back_ms": copy_ms, "flush_ms": flush_ms,
-               "profiled_replay_ms": prof_ms, "device_busy_ms": groups["busy"],
-               "device_ops": n_ops, "idle_share": 1.0 - groups["busy"] / replay_ms,
-               "idle_share_profiled_wall": 1.0 - groups["busy"] / prof_ms,
-               "trajectory_bytes": int(flat.numel()),
-               "frames_per_s_replay": DEVICE_T * lanes / (replay_ms / 1e3),
-               "frames_per_s_parts": DEVICE_T * lanes / ((replay_ms + copy_ms + flush_ms) / 1e3),
-               "frames_per_s_worker": stats["env_frames_per_s"], "worker_scans": stats["scans"]}
+        return {"copy_back_ms": copy_ms, "flush_ms": flush_ms, "profiled_replay_ms": prof_ms,
+                "device_busy_ms": groups["busy"], "device_ops": n_ops,
+                "idle_share_profiled_wall": 1.0 - groups["busy"] / prof_ms,
+                "trajectory_bytes": int(flat.numel()),
+                "frames_per_s_worker": stats["env_frames_per_s"], "worker_scans": stats["scans"]}
+
+    policy = rollout_backends.device_policy(CatchEnv.num_actions)
+    fit = fig3.measure_t_dev("cuda", lanes=DEVICE_SWEEP_LANES, unroll=DEVICE_T, iters=n,
+                             each=more_columns)
+    for lanes, row in fit.pop("sweep").items():
+        replay_ms = row["replay_ms"]
+        row.update(idle_share=1.0 - row["device_busy_ms"] / replay_ms,
+                   frames_per_s_replay=DEVICE_T * lanes / (replay_ms / 1e3),
+                   frames_per_s_parts=DEVICE_T * lanes
+                   / ((replay_ms + row["copy_back_ms"] + row["flush_ms"]) / 1e3))
         out["sweep"][lanes] = row
-        log(f"   E {lanes}: replay {replay_ms:.4f} ms (CUDA events), copy back {copy_ms:.4f} ms "
-            f"({row['trajectory_bytes']} bytes), flush {flush_ms:.4f} ms (host clock); under the "
-            f"profiler device busy {groups['busy']:.4f} ms in {n_ops:.1f} operations a replay, "
-            f"idle {row['idle_share']:.3f} of its CUDA-event time ({prof_ms:.4f} ms a replay on "
-            f"the host clock there, idle {row['idle_share_profiled_wall']:.3f} of it); one worker "
-            f"{stats['env_frames_per_s']:.1f} env frames/s ({row['frames_per_s_parts']:.1f} from "
-            f"the parts)")
-        del eng, flat, traj, sunk
-    lanes = np.array(DEVICE_SWEEP_LANES, np.float64)
-    per_step_s = np.array([out["sweep"][e]["replay_ms"] for e in DEVICE_SWEEP_LANES]) / 1e3 \
-        / DEVICE_T
-    t_dev1, t_dev0 = np.polyfit(lanes, per_step_s, 1)
-    out["fit"] = {"t_dev0_s": float(t_dev0), "t_dev1_s": float(t_dev1), "t_env_s": t_env,
-                  "t_dev0_in_t_env": float(t_dev0 / t_env),
-                  "t_dev1_in_t_env": float(t_dev1 / t_env),
-                  "residual_max_s": float(np.abs(per_step_s - (t_dev0 + t_dev1 * lanes)).max())}
-    log(f"   fit of ms a replay / T = t_dev0 + t_dev1 * E: t_dev0 {t_dev0:.4e} s, t_dev1 "
-        f"{t_dev1:.4e} s a lane; t_env (a Catch vector step at 1 lane alone, host clock) "
-        f"{t_env:.4e} s, so t_dev0 {t_dev0 / t_env:.4f} and t_dev1 {t_dev1 / t_env:.3e} t_env "
+        log(f"   E {lanes}: replay {replay_ms:.4f} ms (CUDA events behind a sleeping kernel"
+            f"{', host-limited' if row['host_limited'] else ''}), copy back "
+            f"{row['copy_back_ms']:.4f} ms ({row['trajectory_bytes']} bytes), flush "
+            f"{row['flush_ms']:.4f} ms (host clock); under the profiler device busy "
+            f"{row['device_busy_ms']:.4f} ms in {row['device_ops']:.1f} operations a replay, idle "
+            f"{row['idle_share']:.3f} of its CUDA-event time ({row['profiled_replay_ms']:.4f} ms "
+            f"a replay on the host clock there, idle {row['idle_share_profiled_wall']:.3f} of "
+            f"it); one worker {row['frames_per_s_worker']:.1f} env frames/s "
+            f"({row['frames_per_s_parts']:.1f} from the parts)")
+    out["fit"] = fit
+    t_dev0, t_dev1, t_env = fit["t_dev0_s"], fit["t_dev1_s"], fit["t_env_s"]
+    log(f"   fit of ms a replay / T = t_dev0 + t_dev1 * E (fig3.measure_t_dev): t_dev0 "
+        f"{t_dev0:.4e} s, t_dev1 {t_dev1:.4e} s a lane; t_env (a Catch vector step at 1 lane "
+        f"alone, host clock, the median of {len(fit['t_env_trials_s'])} trials "
+        f"{', '.join(f'{x:.4e}' for x in fit['t_env_trials_s'])} s) {t_env:.4e} s, so t_dev0 "
+        f"{t_dev0 / t_env:.4f} and t_dev1 {t_dev1 / t_env:.3e} t_env "
         f"(SystemModel.with_device's guessed defaults: 0.05 and 0.002)")
     return out
 
@@ -2566,6 +2555,107 @@ def wire_phase():
     return out
 
 
+# the paper's figures (phase 18): Figs 3 and 4 at their --smoke windows
+FIG_WINDOW_S = 0.3
+FIG3B_TOL = 1e-9
+
+
+def figures_phase(card, r2d2, vtrace, device):
+    """The paper's figures through the port's measurement surfaces, every
+    row logged with the card's name and power limit: Fig 3a, 3c and 3e's
+    replicas measured at the reference's --smoke windows, 3d, 3e's engine
+    shards and 3f from phases 16 and 14, the models, the card's Fig 3d row
+    at phase 16's t_dev0 and t_dev1; Fig 4's model rows and its wire sweep
+    (in process, TCP, shm, Catch on the host's CPU) with the best-of-N
+    probe; Fig 2's card row from phase 11's step; provision_system. The
+    sections are the modules' own (`fig3.report`, `fig4.report`). Fails on
+    a zero-frame point, an inference error, a Fig 3b check off by more
+    than FIG3B_TOL, a ratio or a Fig 3d card row that is not finite, or
+    Fig 2 readings that cannot describe one step (`fig2.card_row` raises
+    where the counted kernels' time exceeds the busy time, the busy time
+    the wall, or the counted FLOPs at the fp32 rate do not fit in the
+    counted time)."""
+    from repro_torch.benchmarks import fig2_breakdown as fig2
+    from repro_torch.benchmarks import fig3_actor_scaling as fig3
+    from repro_torch.benchmarks import fig4_cpu_gpu_ratio as fig4
+    from repro_torch.configs.r2d2_atari import AtariConfig
+    from repro_torch.launch import provision_system, rollout_backends
+
+    t0 = time.perf_counter()
+    out = {}
+
+    def emit(title, lines):
+        log(f"== {title}  [{card}]")
+        for line in "\n".join(lines).splitlines():
+            if line.strip():
+                log(f"   {line}  [{card}]")
+
+    rows = {"a": fig3.measured_sweep(actor_counts=(1, 2), seconds=FIG_WINDOW_S),
+            "c": fig3.measured_env_sweep(env_counts=(1, 4), seconds=FIG_WINDOW_S),
+            "d": [dict(device["points"][name], name=name, envs_per_actor=lanes)
+                  for name, _, lanes in rollout_backends.POINTS],
+            "t_dev": device["fit"],
+            "e": fig3.measured_replica_sweep(replica_counts=(1, 2), seconds=FIG_WINDOW_S,
+                                             device="cuda"),
+            "shards": [dict(row, engine_shards=k, envs_per_actor=8)
+                       for k, row in device["shards"].items()],
+            "f": vtrace["rows"]}
+    for key, measured in rows.items():
+        if key != "t_dev":
+            fig3.check_measured(measured)
+    _, _, sw = fig3.model_sweep()
+    s40, s256_40 = fig3.fig3b_checks(sw)
+    if abs(s40 - 5.8) / 5.8 > FIG3B_TOL or abs(s256_40 - 2.0) / 2.0 > FIG3B_TOL:
+        raise AssertionError(f"fig3b checks {s40}, {s256_40} against the paper's 5.8 and 2.0")
+    fit = device["fit"]
+    card_3d, over = fig3.model_device_card(fit["t_dev0_in_t_env"], fit["t_dev1_in_t_env"])
+    if not (math.isfinite(card_3d) and math.isfinite(over)):
+        raise AssertionError(f"fig3d's card row at t_dev {fit} is not finite")
+    log("   fig3 (d), (e)'s engine shards and (f) are phases 16 and 14's rows, the card's "
+        "fig3d model row phase 16's t_dev0 and t_dev1")
+    for title, lines in fig3.report(rows, card, "the card"):
+        emit(title, lines)
+    out["fig3"] = {"a": rows["a"], "c": rows["c"], "e": rows["e"], "s40": s40,
+                   "s256_40": s256_40, "device_card_frames_per_t_env": card_3d,
+                   "device_card_over_vectorized": over}
+
+    ratios = fig4.ratio_rows()
+    if not all(math.isfinite(r) and r > 0 for _, r in ratios):
+        raise AssertionError(f"a CPU/GPU ratio is not finite: {ratios}")
+    wire_lines, bench, gate_failed = fig4.wire_sweep(smoke=True)
+    for name, row in bench["transports"].items():
+        if not row["env_frames"] > 0 or row["error"] or \
+                row["env_frames"] != row["actor_iterations"] * bench["envs_per_actor"]:
+            raise AssertionError(f"fig4 {name}: {row}")
+    for title, lines in fig4.report(wire_lines):
+        emit(title, lines)
+    log(f"   fig4 shm probe gate: {gate_failed or 'passed'} (the reference's hard gate; "
+        "recorded here, not asserted)")
+    out["fig4"] = {"ratios": ratios, "wire": bench, "shm_gate": gate_failed}
+
+    # card_row raises where the readings cannot describe one step: the
+    # counted kernels' time beyond the busy time or that beyond the wall, or
+    # the counted FLOPs at the fp32 rate not fitting in the counted time
+    learner = r2d2["learner"]
+    row = fig2.card_row(learner["flops"], fig2.step_bytes(AtariConfig(), R2D2_BATCH),
+                        learner["mean_step_ms"] / 1e3, learner["device_ms"]["busy"] / 1e3,
+                        learner["device_ms"]["counted"] / 1e3)
+    total = sum(row["shares"].values())
+    if not (all(math.isfinite(v) and v >= 0 for v in row["shares"].values())
+            and abs(total - 1.0) < 1e-9 and 0 < row["occupancy"] <= 1):
+        raise AssertionError(f"fig2 shares {row['shares']} (sum {total}), derate "
+                             f"{row['occupancy']}")
+    emit("fig2: the reference's analytic V100 rows", fig2.paper_lines())
+    emit("fig2: the card's row, phase 11's R2D2 step (64 x 120, fp32)",
+         fig2.card_lines(row, card))
+    out["fig2"] = row
+
+    emit("provision_system", provision_system.report())
+    out["seconds"] = time.perf_counter() - t0
+    log(f"   figures phase {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs "
@@ -2660,9 +2750,9 @@ def main():
     torch.cuda.empty_cache()
     train_restart_phase()
     torch.cuda.empty_cache()
-    # the R2D2, V-trace, device-backend and wire paths reach none of the
-    # port's kernels: the counts are set to 0 before their phases (10-17)
-    # and must read 0 after
+    # the R2D2, V-trace, device-backend and wire paths and the figures reach
+    # none of the port's kernels: the counts are set to 0 before their
+    # phases (10-18) and must read 0 after
     from repro_torch.kernels import flash_attention as K1, ops, ssd_scan as K3
     ops.reset_launch_counts()
     r2d2_parity_phase()
@@ -2677,13 +2767,16 @@ def main():
     device_metrics["system"] = device_system_phase()
     torch.cuda.empty_cache()
     wire_metrics = wire_phase()
+    torch.cuda.empty_cache()
+    figure_metrics = figures_phase(card, r2d2_metrics, vtrace_metrics["system"],
+                                   device_metrics["system"])
     counts = ops.launch_counts()
     if any(counts.values()) or any(K1.flash_attention.launches_by_route.values()) \
             or any(K3.ssd_scan.launches_by_route.values()):
-        raise AssertionError(f"the R2D2, V-trace, device-backend or wire phases launched a "
-                             f"port kernel: {counts}")
-    log(f"   R2D2, V-trace, device-backend and wire phases: kernel launches {counts} (none, "
-        "as the paths have no Pallas kernel)")
+        raise AssertionError(f"the R2D2, V-trace, device-backend, wire or figures phases "
+                             f"launched a port kernel: {counts}")
+    log(f"   R2D2, V-trace, device-backend, wire and figures phases: kernel launches {counts} "
+        "(none, as the paths have no Pallas kernel)")
 
     for name, row in rows.items():
         row["launches"] = launches[name]
@@ -2694,6 +2787,7 @@ def main():
     log(f"vtrace: {json.dumps(vtrace_metrics)}")
     log(f"device backend: {json.dumps(device_metrics)}")
     log(f"wire: {json.dumps(wire_metrics)}")
+    log(f"figures: {json.dumps(figure_metrics, default=str)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": list(rows.values())}))

@@ -48,7 +48,12 @@ def test_importing_every_module_loads_no_jax():
             "repro_torch.transport", "repro_torch.transport.codec",
             "repro_torch.transport.local", "repro_torch.transport.shm",
             "repro_torch.transport.socket", "repro_torch.launch.actor_host",
-            "repro_torch.fault", "repro_torch.fault.backoff"} <= set(mods)
+            "repro_torch.fault", "repro_torch.fault.backoff", "repro_torch.hw",
+            "repro_torch.core.provisioning", "repro_torch.core.bottleneck",
+            "repro_torch.configs.shapes", "repro_torch.benchmarks",
+            "repro_torch.benchmarks.fig2_breakdown", "repro_torch.benchmarks.fig3_actor_scaling",
+            "repro_torch.benchmarks.fig4_cpu_gpu_ratio", "repro_torch.benchmarks.run",
+            "repro_torch.launch.provision_system"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
