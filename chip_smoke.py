@@ -162,9 +162,25 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    sweep (in process, TCP, shm, Catch on the host's CPU; the shm probe's
    gate recorded, not asserted); Fig 2's card row from phase 11's step
    (shares summing to 1); the provisioning tool's report. No point may
-   read zero frames or an inference error. No kernel of the port may
-   launch in phases 10-18 (the paths have no Pallas kernel): the counts
-   are set to 0 before them and read after.
+   read zero frames or an inference error;
+19. the ops and survival planes: R2D2 at phase 17's socket point (4 hosts
+   of one actor x 8 lanes of ALESimEnv(frame=84, channels=4), learner
+   batch 64, the policy and learner on the card) built with a
+   `repro_torch.telemetry.Telemetry` and ``ops_port=0``, an 8 s window
+   while a side thread scrapes /metrics, /healthz and /varz: every
+   exposition validates, /healthz reads healthy in steady state, the
+   auditor counts no violation, the registry's lanes equal the stats'
+   and frames trail them by at most the lanes in flight, one dumped trace
+   holds spans of 5 processes and flow events stitching actor ->
+   gateway -> replica -> reply, no host opened CUDA; the BottleneckReport
+   (class, CPU/GPU ratio, seconds a frame a plane, CPU seconds a
+   process) printed beside the learner process's CPU cores and its
+   compute + train seconds; then Fig 3's --telemetry, --chaos and
+   --autoscale modes at --smoke through their module functions, writing
+   under build/bench_torch/: every correctness check asserted, their
+   wall-clock overhead gates (< 3% frames/s) printed beside their limit.
+   No kernel of the port may launch in phases 10-19 (the paths have no
+   Pallas kernel): the counts are set to 0 before them and read after.
 
 The kernel phase (3) also holds K1-bwd and K4-bwd to their plain versions
 (the formulas each kernel computes) at the train call, the smoke widths,
@@ -2397,7 +2413,14 @@ def watch_hosts(system):
     import threading
 
     pids, listed, done = [], {"pids": set(), "entries": 0}, threading.Event()
-    system.pool.pid_callback = lambda name, pid: pids.append(pid)
+    prev = system.pool.pid_callback          # the telemetry sampler's, if any
+
+    def note(name, pid):
+        pids.append(pid)
+        if prev is not None:
+            prev(name, pid)
+
+    system.pool.pid_callback = note
 
     def sample():
         while not done.wait(1.0):
@@ -2656,6 +2679,177 @@ def figures_phase(card, r2d2, vtrace, device):
     return out
 
 
+# the ops and survival planes (phase 19): R2D2 at phase 17's socket point
+# with the telemetry bundle and the live ops plane, then Fig 3's ops modes
+OPS_HOSTS, OPS_LANES = 4, 8
+OPS_WINDOW_S = 8.0
+OPS_SCRAPE_S = 0.5
+OPS_STITCH = ("actor/inference_rtt", "gateway/dispatch", "/forward", "gateway/reply_encode")
+
+
+def stitched_chains(events):
+    """From a trace's events: the processes holding "X" spans, the flow
+    events, and the trace_seqs whose spans hold every OPS_STITCH stage
+    (an actor's round trip, the gateway's dispatch, a replica's forward
+    and the gateway's reply) across at least two processes."""
+    pids, by_seq = set(), {}
+    for e in events:
+        if e.get("ph") == "X":
+            pids.add(e["pid"])
+            seq = (e.get("args") or {}).get("trace_seq")
+            if seq:
+                by_seq.setdefault(seq, []).append(e)
+    flows = [e for e in events if e.get("ph") in ("s", "t", "f")]
+    chains = [seq for seq, evs in by_seq.items()
+              if len({e["pid"] for e in evs}) >= 2
+              and all(any(stage in e["name"] for e in evs) for stage in OPS_STITCH)]
+    return pids, flows, chains
+
+
+def ops_phase(card):
+    """Phase 19: the ops and survival planes on the card (see the module
+    docstring). Returns the phase's numbers."""
+    import os
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from repro_torch.benchmarks import fig3_actor_scaling as fig3
+    from repro_torch.configs.r2d2_atari import AtariConfig
+    from repro_torch.envs.alesim import ALESimEnv
+    from repro_torch.launch import train_r2d2
+    from repro_torch.telemetry import (Telemetry, parse_prometheus, read_process_cpu_s,
+                                       validate_prometheus)
+
+    t0 = time.perf_counter()
+    out_dir = ROOT / "build" / "bench_torch"
+    acfg = AtariConfig()
+    tel = Telemetry(process_name="learner", out_dir=str(out_dir / "ops_r2d2"))
+    run = train_r2d2.build(acfg, actors=OPS_HOSTS, envs_per_actor=OPS_LANES, device="cuda",
+                           env_factory=functools.partial(ALESimEnv, frame=84, channels=4),
+                           learner_batch=R2D2_BATCH, replay_capacity=R2D2_CAPACITY,
+                           transport="socket", actor_hosts=OPS_HOSTS, telemetry=tel, ops_port=0)
+    system = run.system
+    base = "http://%s:%d" % system.ops_address
+    log(f"== ops planes [{card}]: R2D2 socket, {OPS_HOSTS} hosts x 1 actor x {OPS_LANES} lanes "
+        f"of ALESimEnv(frame=84, channels=4), learner batch {R2D2_BATCH} x "
+        f"{acfg.burn_in + acfg.unroll}, {OPS_WINDOW_S:.0f} s window, Telemetry + ops plane at "
+        f"{base}")
+    scrapes = {"metrics": 0, "lint": [], "verdicts": [], "varz": 0, "errors": []}
+    done = threading.Event()
+
+    def get(route):
+        with urllib.request.urlopen(base + route, timeout=5.0) as r:
+            return r.read().decode()
+
+    def scrape():
+        while not done.wait(OPS_SCRAPE_S):
+            try:
+                text = get("/metrics")
+                scrapes["metrics"] += 1
+                scrapes["lint"] += validate_prometheus(text)
+                try:
+                    hz = get("/healthz")
+                except urllib.error.HTTPError as e:      # 503 carries the report
+                    hz = e.read().decode()
+                rep = json.loads(hz)
+                scrapes["verdicts"].append((rep["verdict"], tuple(rep["stale"]),
+                                            sorted(rep["components"])))
+                json.loads(get("/varz"))["stats"]
+                scrapes["varz"] += 1
+            except Exception as e:       # noqa: BLE001 — counted and asserted below
+                scrapes["errors"].append(repr(e))
+
+    pids, listed, stop = watch_hosts(system)
+    scraper = threading.Thread(target=scrape, daemon=True)
+    system.warmup()
+    cpu0, w0 = read_process_cpu_s(os.getpid()), time.perf_counter()
+    scraper.start()
+    try:
+        stats = system.run(seconds=OPS_WINDOW_S)
+    finally:
+        done.set()
+        scraper.join(timeout=10.0)
+        stop()
+    learner_cpu_s = read_process_cpu_s(os.getpid()) - cpu0
+    learner_wall_s = time.perf_counter() - w0
+    host = check_wire(stats, OPS_LANES, OPS_HOSTS, "socket", pids, listed)
+    final = get("/metrics")
+    lint = scrapes["lint"] + validate_prometheus(final)
+    system.stop_ops()
+    if scrapes["errors"] or not scrapes["metrics"] or scrapes["varz"] != scrapes["metrics"] \
+            or lint:
+        raise AssertionError(f"ops scrapes: {scrapes['metrics']} /metrics, {scrapes['varz']} "
+                             f"/varz, errors {scrapes['errors'][:3]}, exposition {lint[:3]}")
+    # steady state: every host beating, no component stale
+    steady = [v for v in scrapes["verdicts"]
+              if all(f"actor-host-{h}" in v[2] for h in range(OPS_HOSTS))]
+    if not steady or any(v[0] != "healthy" for v in steady):
+        raise AssertionError(f"/healthz in steady state: {scrapes['verdicts']}")
+    if tel.auditor.violations:
+        raise AssertionError(f"auditor violations: {tel.auditor.violations}")
+    lanes = tel._counter_total("/requests")
+    in_flight = OPS_HOSTS * OPS_LANES
+    if int(lanes) != stats["inference_lanes"] or not 0 <= lanes - stats["env_frames"] <= in_flight:
+        raise AssertionError(f"ledger: registry lanes {lanes}, stats lanes "
+                             f"{stats['inference_lanes']}, env frames {stats['env_frames']}")
+    parsed = parse_prometheus(final)
+    ledger = {n[len("onpolicy_"):]: v for n, _, v in parsed["samples"]
+              if n.startswith("onpolicy_frames")}
+    if any(ledger.get(k) != stats["onpolicy"][k] for k in ("frames_generated", "frames_trained",
+                                                            "frames_dropped", "frames_pending")):
+        raise AssertionError(f"/metrics ledger {ledger} against {stats['onpolicy']}")
+    paths = tel.dump()
+    with open(paths["trace"]) as f:
+        events = json.load(f)["traceEvents"]
+    trace_pids, flows, chains = stitched_chains(events)
+    if len(trace_pids) != OPS_HOSTS + 1 or not flows or not chains:
+        raise AssertionError(f"trace: spans of {len(trace_pids)} processes, {len(flows)} flow "
+                             f"events, {len(chains)} stitched actor->gateway->replica->reply")
+    report = tel.bottleneck_report(stats)
+    b = report.as_dict()
+    if not (math.isfinite(report.cpu_gpu_ratio) and report.bottleneck.endswith("-bound")):
+        raise AssertionError(f"bottleneck report: {b}")
+    device_s = b["detail"]["inference_compute_s"] + b["detail"]["learner_train_s"]
+    row = {"env_frames_per_s": stats["env_frames_per_s"], "env_frames": stats["env_frames"],
+           "elapsed_s": stats["elapsed_s"], "learner_steps": stats["learner_steps"],
+           "inference_lanes": stats["inference_lanes"], "bottleneck": b,
+           "learner_process_cpu_s": learner_cpu_s, "learner_process_wall_s": learner_wall_s,
+           "learner_process_cores": learner_cpu_s / learner_wall_s,
+           "compute_plus_train_s": device_s, "scrapes": scrapes["metrics"],
+           "healthz_steady": len(steady), "trace_processes": len(trace_pids),
+           "trace_events": len(events), "flow_events": len(flows),
+           "stitched_chains": len(chains), "auditor_ticks": tel.auditor.ticks,
+           "host": host}
+    log(f"   {report}  [{card}]".replace("\n", f"  [{card}]\n   "))
+    log(f"   cpu seconds a process since the sampler started: {b['detail']['cpu_cores']}; "
+        f"learner process {learner_cpu_s:.3f} CPU s over {learner_wall_s:.3f} s wall "
+        f"({learner_cpu_s / learner_wall_s:.3f} cores) against inference compute_s + "
+        f"learner train_s {device_s:.3f} s, which the in-process formula would net out of it "
+        f"[{card}]")
+    log(f"   {json.dumps(row)}")
+
+    modes = {}
+    for mode, fn in fig3.OPS_MODES.items():
+        kw = {} if mode == "telemetry" else {"device": "cuda"}
+        m0 = time.perf_counter()
+        payload, lines = fn(True, out_dir, **kw)
+        log(f"== fig3 --{mode} --smoke ({time.perf_counter() - m0:.1f} s)  [{card}]")
+        for line in lines:
+            log(f"   {line}  [{card}]")
+        hard = [f for f in payload["failures"] if f not in payload["gate_failures"]]
+        if hard:
+            raise AssertionError(f"fig3 --{mode}: {hard}")
+        gate = {k: v for k, v in payload.items() if k.endswith("overhead_frac")}
+        log(f"   fig3 --{mode} overhead gate: {gate} against the limit "
+            f"{fig3.OVERHEAD_GATE} ({'passed' if not payload['gate_failures'] else 'over'}; "
+            f"recorded, not asserted)  [{card}]")
+        modes[mode] = {k: v for k, v in payload.items() if k not in ("bottleneck",)}
+    out = {"r2d2": row, "fig3": modes, "seconds": time.perf_counter() - t0}
+    log(f"   ops phase {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs "
@@ -2750,9 +2944,9 @@ def main():
     torch.cuda.empty_cache()
     train_restart_phase()
     torch.cuda.empty_cache()
-    # the R2D2, V-trace, device-backend and wire paths and the figures reach
-    # none of the port's kernels: the counts are set to 0 before their
-    # phases (10-18) and must read 0 after
+    # the R2D2, V-trace, device-backend and wire paths, the figures and the
+    # ops planes reach none of the port's kernels: the counts are set to 0
+    # before their phases (10-19) and must read 0 after
     from repro_torch.kernels import flash_attention as K1, ops, ssd_scan as K3
     ops.reset_launch_counts()
     r2d2_parity_phase()
@@ -2770,13 +2964,15 @@ def main():
     torch.cuda.empty_cache()
     figure_metrics = figures_phase(card, r2d2_metrics, vtrace_metrics["system"],
                                    device_metrics["system"])
+    torch.cuda.empty_cache()
+    ops_metrics = ops_phase(card)
     counts = ops.launch_counts()
     if any(counts.values()) or any(K1.flash_attention.launches_by_route.values()) \
             or any(K3.ssd_scan.launches_by_route.values()):
-        raise AssertionError(f"the R2D2, V-trace, device-backend, wire or figures phases "
-                             f"launched a port kernel: {counts}")
-    log(f"   R2D2, V-trace, device-backend, wire and figures phases: kernel launches {counts} "
-        "(none, as the paths have no Pallas kernel)")
+        raise AssertionError(f"the R2D2, V-trace, device-backend, wire, figures or ops "
+                             f"phases launched a port kernel: {counts}")
+    log(f"   R2D2, V-trace, device-backend, wire, figures and ops phases: kernel launches "
+        f"{counts} (none, as the paths have no Pallas kernel)")
 
     for name, row in rows.items():
         row["launches"] = launches[name]
@@ -2788,6 +2984,7 @@ def main():
     log(f"device backend: {json.dumps(device_metrics)}")
     log(f"wire: {json.dumps(wire_metrics)}")
     log(f"figures: {json.dumps(figure_metrics, default=str)}")
+    log(f"ops: {json.dumps(ops_metrics, default=str)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": list(rows.values())}))

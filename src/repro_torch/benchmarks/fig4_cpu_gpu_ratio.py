@@ -20,8 +20,11 @@ host and the wire, not the card. The wire numbers are written to
 Whenever the shm plane is swept (``--transport shm`` or ``all``), the
 best-of-N "shm beats loopback TCP" probe is a hard gate (non-zero exit),
 as the reference's code has it. Without ``--device cpu`` it raises where there
-is no card. There is no ``--telemetry`` and no history ledger: both need
-the ops planes, which are not ported.
+is no card. ``--telemetry`` runs each transport point under its own
+`repro_torch.telemetry.Telemetry`, prints the measured bottleneck and
+CPU/GPU ratio of each, and merges them into ``BENCH_telemetry.json`` beside
+``--out``; every run appends its wire points' frames/s to
+``BENCH_history.json`` there.
 """
 
 import argparse
@@ -43,7 +46,8 @@ from repro_torch.core.system import SeedSystem
 from repro_torch.device import resolve
 from repro_torch.envs.catch import CatchEnv
 from repro_torch.hw import DGX1_HOST, H100_SXM, V100, h100_host
-from repro_torch.launch.actor_host import OPS_ITEM
+from repro_torch.telemetry import (Telemetry, append_bench_history, bench_commit,
+                                   merge_bench_json)
 
 ROOT = Path(__file__).resolve().parents[3]
 DEFAULT_OUT = ROOT / "build" / "bench_torch" / "BENCH_torch_wire.json"
@@ -107,18 +111,21 @@ def provision_rows(host=None):
 
 def measured_transport_sweep(num_actors=2, envs_per_actor=4, seconds=1.0, unroll=8,
                              num_actor_hosts=2, num_gateways=1,
-                             transports=("inproc", "socket", "shm")):
+                             transports=("inproc", "socket", "shm"), telemetry=False):
     """The same (num_actors, E) SEED system on Catch (on the host's CPU at
     every point), in process vs loopback TCP vs shared-memory rings. With
     `num_gateways > 1` the wire runs shard the accept loop: G gateways (+ G
-    inference replicas) with the actor hosts hashed across them. Returns
+    inference replicas) with the actor hosts hashed across them.
+    ``telemetry=True`` runs each point under its own `Telemetry`, so every
+    stats dict carries a measured ``bottleneck`` attribution. Returns
     (transport, stats) rows."""
     rows = []
     for transport in transports:
+        tel = Telemetry(process_name="learner") if telemetry else None
         kwargs = dict(env_factory=CPU_CATCH, policy_step=catch_policy,
                       num_actors=num_actors, unroll=unroll,
                       envs_per_actor=envs_per_actor, deadline_ms=1.0,
-                      transport=transport)
+                      transport=transport, telemetry=tel)
         if transport in ("socket", "shm"):
             kwargs.update(num_actor_hosts=num_actor_hosts, num_gateways=num_gateways,
                           num_replicas=num_gateways)
@@ -281,9 +288,11 @@ def report(wire_lines) -> list:
             ("fig4: sharded inference and provisioning", sharded_lines() + provision_lines())]
 
 
-def wire_sweep(smoke=True, gateways=1, transport="all"):
-    """The measured half: the transport sweep, the best-of-N probe and the
-    model check at each probed RTT. Returns (lines, bench, gate_failed)."""
+def wire_sweep(smoke=True, gateways=1, transport="all", telemetry=False):
+    """The measured half: the transport sweep (each point under its own
+    `Telemetry` with `telemetry`), the best-of-N probe and the model check
+    at each probed RTT. Returns (lines, bench, gate_failed); with
+    `telemetry`, ``bench["attribution"]`` holds each point's bottleneck."""
     sec = 0.5 if smoke else 1.5
     hosts = max(1 if smoke else 2, gateways)
     wire_transports = {"socket": ("inproc", "socket"), "shm": ("inproc", "shm"),
@@ -293,7 +302,7 @@ def wire_sweep(smoke=True, gateways=1, transport="all"):
            f"host's CPU, numpy policy; os.cpu_count() {os.cpu_count()})"]
     t_rows = measured_transport_sweep(num_actors=n_act, envs_per_actor=E, seconds=sec,
                                       num_actor_hosts=hosts, num_gateways=gateways,
-                                      transports=wire_transports)
+                                      transports=wire_transports, telemetry=telemetry)
     bench = {"benchmark": "fig4_wire", "smoke": bool(smoke),
              "num_actors": n_act, "envs_per_actor": E,
              "num_actor_hosts": hosts, "seconds": sec,
@@ -327,6 +336,11 @@ def wire_sweep(smoke=True, gateways=1, transport="all"):
             "host_spill_frames": stats.get("host_spill_frames"),
             "error": err,
         }
+        if telemetry and "bottleneck" in stats:
+            b_ = stats["bottleneck"]
+            bench.setdefault("attribution", {})[name] = b_
+            out.append(f"fig4_measured_ratio_{name},{b_['cpu_gpu_ratio']:.2f},"
+                       f"{b_['bottleneck']} wire_share={b_['shares'].get('wire', 0.0):.2f}")
     gate_failed = None
     if min(fps.values()) <= 0:
         out.append("fig4_transport_relative,NaN,run_produced_zero_frames")
@@ -388,24 +402,41 @@ def main(argv=None):
                     help="where to write the wire benchmark's JSON")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises where there is no card) or cpu")
-    ap.add_argument("--telemetry", action="store_true", help=f"not ported yet ({OPS_ITEM})")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="run each transport point under the telemetry plane: print the "
+                         "MEASURED bottleneck/CPU-GPU ratio per transport and merge the "
+                         "attributions into BENCH_telemetry.json next to --out")
     args = ap.parse_args(argv)
-    if args.telemetry:
-        raise SystemExit(f"--telemetry needs the ops and survival planes, which are not "
-                         f"ported yet ({OPS_ITEM})")
     dev = resolve(args.device)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"# fig4 on the machine of {name}")
     print("name,value,derived")
-    lines, bench, gate_failed = wire_sweep(args.smoke, args.gateways, args.transport)
+    lines, bench, gate_failed = wire_sweep(args.smoke, args.gateways, args.transport,
+                                           telemetry=args.telemetry)
     sections = report(lines)
     for title, body in sections[:2]:
         print(f"# {title}")
         print("\n".join(body))
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
+    attribution = bench.pop("attribution", None)
     out.write_text(json.dumps(bench, indent=2, sort_keys=True) + "\n")
     print(f"# wrote {out}")
+    if args.telemetry:
+        tel_out = out.parent / "BENCH_telemetry.json"
+        merge_bench_json(str(tel_out), "fig4_transports", {
+            "smoke": bool(args.smoke), "seconds": bench["seconds"],
+            "num_actors": bench["num_actors"], "envs_per_actor": bench["envs_per_actor"],
+            "attribution": attribution or {}})
+        print(f"# merged measured attributions into {tel_out}")
+    # trend-guard history: one point per wire transport measured this run
+    # (the wire JSON above is replaced wholesale; the history accumulates)
+    for wire_t, row in bench["transports"].items():
+        if wire_t != "inproc" and row["env_frames_per_s"] > 0:
+            append_bench_history(
+                str(out.parent / "BENCH_history.json"), f"fig4_{wire_t}",
+                {"commit": bench_commit(), "ts": time.time(),
+                 "frames_per_s": row["env_frames_per_s"], "smoke": bool(args.smoke)})
     if gate_failed:
         print(f"fig4_shm_gate,FAIL,{gate_failed}")
         sys.exit(1)

@@ -52,11 +52,20 @@ The learner, the inference server and the policy stay in this process, on
 the card.
 
 The constructor takes the reference's arguments and validates them with
-its messages. Every branch that the reference imports lazily and the port
-does not have yet raises `NotImplementedError` naming its ROADMAP item,
-rather than being ignored: `telemetry`, `ops_port` and `autoscale`
-(queue 1, "Ops and survival planes"). `throughput()` keeps the
-reference's keys for each layout.
+its messages. `throughput()` keeps the reference's keys for each layout.
+
+The ops and survival planes, all opt-in:
+  * `telemetry=` (a `repro_torch.telemetry.Telemetry`): spans, the
+    metrics registry, the utilization sampler, and
+    `throughput()["bottleneck"]`, the measured CPU/GPU-ratio attribution;
+    wire actor hosts build their own bundle and ship it home;
+  * `ops_port=` (0 = ephemeral): the live HTTP plane (`/metrics`,
+    `/healthz`, `/varz`, ...), the heartbeat watchdog and the continuous
+    invariant auditor (frame ledger, slot table); builds a default
+    `Telemetry` when none is given;
+  * `autoscale=` (a `repro_torch.autoscale.AutoscaleConfig`, host backend):
+    the closed-loop controller that grows and drains actor hosts
+    (`ActorHostPool(elastic=True)`) and inference replicas.
 """
 
 import threading
@@ -67,13 +76,20 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch.autoscale import AutoscaleConfig, AutoscaleController
 from repro_torch.core.actor import Actor
 from repro_torch.core.inference import InferenceServer
 from repro_torch.core.learner import BatchSourceClosed, Learner
 from repro_torch.core.replay import PrioritizedReplay
-from repro_torch.launch.actor_host import OPS_ITEM
 from repro_torch.onpolicy import TrajectoryQueue, VTraceBatcher
 from repro_torch.rollout import DeviceRolloutEngine, RolloutWorker, ShardedRolloutEngine
+from repro_torch.telemetry import Telemetry
+from repro_torch.telemetry.slo import SLO, SLOSet
+
+# /varz document schema (bumped when top-level keys change so external
+# scrapers can dispatch): 2 = schema_version/uptime_s + always-present
+# onpolicy/recovery stats keys + optional autoscale block
+VARZ_SCHEMA_VERSION = 2
 
 # the frame ledger's stable key set: `throughput()["onpolicy"]` carries
 # exactly these keys on EVERY run — zero-valued when the vtrace queue is
@@ -85,10 +101,6 @@ ZERO_LEDGER = {
     "frames_pending": 0, "drop_rate": 0.0, "unrolls_trained": 0,
     "mean_trained_lag": 0.0, "max_param_lag": 0, "capacity": 0,
 }
-
-
-def _not_ported(what, item):
-    return NotImplementedError(f"{what} is not ported yet ({item})")
 
 
 def _snapshot(params):
@@ -188,11 +200,24 @@ class SeedSystem:
         if wire_quant not in (None, "f16", "q8"):
             raise ValueError(
                 f"wire_quant={wire_quant!r}; expected None, 'f16' or 'q8'")
-        if ops_port is not None and (not isinstance(ops_port, int)
-                                     or isinstance(ops_port, bool) or ops_port < 0):
-            raise ValueError(
-                f"ops_port must be a non-negative int (0 = ephemeral "
-                f"port) or None, got {ops_port!r}")
+        if telemetry is not None and not (
+                hasattr(telemetry, "metrics") and hasattr(telemetry, "tracer")
+                and hasattr(telemetry, "sampler")):
+            raise TypeError(
+                f"telemetry must be a repro_torch.telemetry.Telemetry (or "
+                f"None), got {type(telemetry).__name__} — construct one with "
+                f"Telemetry(process_name=...) and pass the same instance "
+                f"you will later dump()/report from")
+        if ops_port is not None:
+            if not isinstance(ops_port, int) or isinstance(ops_port, bool) \
+                    or ops_port < 0:
+                raise ValueError(
+                    f"ops_port must be a non-negative int (0 = ephemeral "
+                    f"port) or None, got {ops_port!r}")
+            if telemetry is None:
+                # the ops plane needs somewhere to read from; a bare
+                # SeedSystem(ops_port=0) gets a default telemetry bundle
+                telemetry = Telemetry(process_name="learner")
         if checkpoint_dir is not None:
             if checkpoint_manager is not None:
                 raise ValueError(
@@ -209,20 +234,40 @@ class SeedSystem:
                 "supervise_hosts / wire_reconnect apply to wire transports "
                 "(in-process actors have no host processes to supervise "
                 "or connections to re-dial)")
-        # the branches the reference imports lazily, refused until ported
-        if telemetry is not None or ops_port is not None:
-            raise _not_ported("telemetry / ops_port (the repro.telemetry plane)", OPS_ITEM)
         if autoscale is not None:
-            raise _not_ported("autoscale (repro.autoscale)", OPS_ITEM)
+            if not isinstance(autoscale, AutoscaleConfig):
+                raise TypeError(
+                    f"autoscale must be a repro_torch.autoscale.AutoscaleConfig "
+                    f"(or None), got {type(autoscale).__name__}")
+            if backend != "host":
+                raise ValueError(
+                    "autoscale applies to backend='host' (the device "
+                    "backend has no actor hosts or inference replicas "
+                    "to resize)")
+            if telemetry is None:
+                # the controller senses through the registry + bottleneck
+                # attribution; a bare SeedSystem(autoscale=...) gets a
+                # default bundle exactly like ops_port does
+                telemetry = Telemetry(process_name="learner")
         self.backend = backend
         self.transport = transport
         self.algo = algo
+        self.telemetry = telemetry
         self.envs_per_actor = envs_per_actor
         self.engine_shards = engine_shards
         self.server = None
         self.gateways = []
         self.pool = None
+        self.num_actors = num_actors
+        self.ops_address = None
+        self._run_t0 = None
+        self._t_created = time.perf_counter()    # /varz uptime_s
+        self.autoscaler = None
         self.host_faults = 0                 # see throughput()["recovery"]
+        # ops-plane handles (None when telemetry is absent or duck-typed
+        # without them — everything downstream null-checks)
+        self._health = getattr(telemetry, "health", None)
+        self._flightrec = getattr(telemetry, "flightrec", None)
         self.replay = PrioritizedReplay(replay_capacity)
         self.min_replay = min_replay
         self.learner_batch = learner_batch
@@ -237,7 +282,9 @@ class SeedSystem:
         if onpolicy:
             self.onpolicy_queue = TrajectoryQueue(
                 queue_capacity, max_param_lag=max_param_lag,
-                version_source=self._version)
+                version_source=self._version,
+                metrics=telemetry.metrics if telemetry else None,
+                health=self._health)
         if backend == "host":
             if policy_step is None:
                 raise ValueError("backend='host' requires policy_step")
@@ -245,7 +292,8 @@ class SeedSystem:
             self.server = InferenceServer(
                 policy_step,
                 max_batch=inference_batch or max(num_actors * envs_per_actor, 1),
-                deadline_ms=deadline_ms, num_replicas=num_replicas)
+                deadline_ms=deadline_ms, num_replicas=num_replicas,
+                telemetry=telemetry)
             if wire:
                 from repro_torch.launch.actor_host import ActorHostPool
                 from repro_torch.transport.socket import InferenceGateway
@@ -259,23 +307,43 @@ class SeedSystem:
                                      # deployment asked for the shm plane,
                                      # so transport='socket' measures the
                                      # honest TCP path
-                                     allow_shm=use_shm)
+                                     allow_shm=use_shm,
+                                     telemetry=telemetry)
                     for _ in range(num_gateways)]
+                if telemetry is not None:
+                    # gateways keep private registries (G gateways would
+                    # collide on counter names in a shared one); attach
+                    # them so snapshots/metrics.jsonl still see every frame
+                    for gi, gw in enumerate(self.gateways):
+                        telemetry.attach(f"gateway{gi}", gw.metrics)
                 self.pool = ActorHostPool(
                     env_factory, num_actors=num_actors,
                     envs_per_actor=envs_per_actor, unroll=unroll,
                     num_hosts=num_actor_hosts, compress=wire_compression,
                     onpolicy=onpolicy, use_shm=use_shm, quant=wire_quant,
+                    telemetry=telemetry is not None,
+                    pid_callback=(telemetry.watch_process
+                                  if telemetry is not None else None),
+                    heartbeat_callback=(self._health.beat
+                                        if self._health is not None else None),
+                    heartbeat_close=(self._health.unregister
+                                     if self._health is not None else None),
+                    failure_callback=(
+                        (lambda msg: self._flightrec.trigger(
+                            "pool_timeout", msg))
+                        if self._flightrec is not None else None),
                     supervise=supervise_hosts,
                     max_host_restarts=max_host_restarts,
                     host_stall_s=host_stall_s, reconnect=wire_reconnect,
-                    fault_callback=self._host_fault)
+                    fault_callback=self._host_fault,
+                    elastic=autoscale is not None)
                 self.actors = []
             else:
                 self.actors = [Actor(i, env_factory, self.server, self._sink,
                                      unroll, num_envs=envs_per_actor,
                                      version_source=self._version,
-                                     with_logprobs=onpolicy, stamp_records=onpolicy)
+                                     with_logprobs=onpolicy, stamp_records=onpolicy,
+                                     telemetry=telemetry)
                                for i in range(num_actors)]
         else:
             if policy_apply is None:
@@ -302,7 +370,8 @@ class SeedSystem:
 
             self.actors = [
                 RolloutWorker(i, make_engine(i), self._sink,
-                              self._param_source, stamp_records=onpolicy)
+                              self._param_source, stamp_records=onpolicy,
+                              health=self._health)
                 for i in range(num_actors)]
         self.learner = None
         if train_step is not None:
@@ -323,20 +392,75 @@ class SeedSystem:
                 checkpoint_manager=checkpoint_manager,
                 checkpoint_every=checkpoint_every,
                 checkpoint_every_s=checkpoint_every_s,
-                poison=poison)
+                poison=poison,
+                telemetry=telemetry)
+        auditor = getattr(telemetry, "auditor", None)
+        if auditor is not None:
+            # continuous invariant audits: re-check the conserved ledger
+            # and slot-table bounds WHILE training runs (tests only pin
+            # them at quiescence)
+            self._audit_prev_slots = 0
+            if self.onpolicy_queue is not None:
+                auditor.add_check("frame_ledger", self._audit_ledger)
+            if self.server is not None:
+                auditor.add_check("slot_table", self._audit_slots)
+        if ops_port is not None:
+            # the HTTP listener binds now (address known before run());
+            # the watchdog/auditor threads start inside telemetry.start()
+            self.ops_address = telemetry.serve_ops(port=ops_port)
+            telemetry.ops.set_varz(self._varz)
+            telemetry.ops.add_collector(self._ops_ledger_gauges)
+        if autoscale is not None:
+            slos = autoscale.slos
+            if slos is None:
+                # deliberately loose defaults: a 1 frame/s floor ("not
+                # stalled"), the drop-rate knee the learner-bound override
+                # uses, and a generous batch-wait ceiling — operators
+                # tighten via AutoscaleConfig(slos=SLOSet([...]))
+                slos = SLOSet([
+                    SLO(name="frames_floor", series="frames_generated",
+                        target=1.0, kind="floor", mode="rate",
+                        fast_window_s=3.0, slow_window_s=10.0),
+                    SLO(name="drop_rate", series="drop_rate", target=0.5,
+                        kind="ceiling", fast_window_s=3.0,
+                        slow_window_s=10.0),
+                    SLO(name="infer_p99_ms", series="infer_p99_ms",
+                        target=1000.0, kind="ceiling", fast_window_s=3.0,
+                        slow_window_s=10.0),
+                ])
+            self.autoscaler = AutoscaleController(
+                autoscale, telemetry, stats_fn=self._autoscale_stats,
+                pool=self.pool, server=self.server, slos=slos)
+            self.autoscaler.store.add_source(self._live_series)
+            telemetry.flightrec.add_provider("autoscaler",
+                                             self.autoscaler.dump)
+            if telemetry.ops is not None:
+                telemetry.ops.set_autoscaler(self.autoscaler.dump)
+                telemetry.ops.set_timeseries(self.autoscaler.store.dump)
+
+    # --------------------------------------------------------- fault plane
 
     def _host_fault(self, host_id: int, reason: str):
-        """ActorHostPool's per-death seam (fires BEFORE the respawn): move
-        the dead incarnation's queued-but-untrained frames into the FAULT
-        drop bucket — the conserved ledger's answer to 'where did the dead
+        """ActorHostPool's per-death seam (fires BEFORE the respawn):
+        file the postmortem, force /healthz to at least `degraded` (a
+        fast respawn would otherwise beat the staleness window and the
+        death would be observable nowhere), and move the dead
+        incarnation's queued-but-untrained frames into the FAULT drop
+        bucket — the conserved ledger's answer to 'where did the dead
         host's in-flight unrolls go?'. They are counted `frames_dropped`,
         never `frames_trained`."""
         self.host_faults += 1
+        if self._flightrec is not None:
+            self._flightrec.trigger("host_death", reason)
+        if self._health is not None:
+            self._health.event(f"actor-host-{host_id}", reason)
         if self.onpolicy_queue is not None:
             self.onpolicy_queue.drop_pending()
 
     def _recovery_stats(self) -> dict:
-        """One consistent snapshot of the recovery counters."""
+        """One consistent snapshot of the recovery counters — shared by
+        `throughput()["recovery"]`, the `/metrics` collector, and /varz so
+        every surface reports the same numbers."""
         out = {
             "host_faults": self.host_faults,
             "host_restarts": (self.pool.host_restarts
@@ -392,6 +516,141 @@ class SeedSystem:
             a._stop.clear()
         return version
 
+    # ---------------------------------------------------------- ops plane
+
+    def _ops_ledger_gauges(self):
+        """Per-scrape gauges whose cross-field invariants must hold WITHIN
+        one exposition: the frame ledger comes from a single
+        `TrajectoryQueue.stats()` call (atomic under the queue lock), so a
+        scrape can never observe generated != trained+dropped+pending —
+        individual callback gauges cannot promise that."""
+        out = {}
+        ledger = (self.onpolicy_queue.stats()
+                  if self.onpolicy_queue is not None else ZERO_LEDGER)
+        for k, v in ledger.items():
+            if isinstance(v, bool) or not isinstance(v, (int, float)):
+                continue
+            out[f"onpolicy/{k}"] = v
+        if self.server is not None:
+            out["inference/num_slots"] = self.server.num_slots
+        for k, v in self._recovery_stats().items():
+            out[f"recovery/{k}"] = v
+        return out
+
+    def _autoscale_stats(self) -> dict:
+        """Mid-run stats document for the controller's bottleneck
+        attribution. `throughput()` needs the pool's final per-host stats
+        (which only land at window end), so this feeds the ledger's live
+        frame count instead — `bottleneck_report` falls back to registry
+        lane counters when `env_frames` is absent."""
+        elapsed = (time.perf_counter() - self._run_t0) \
+            if self._run_t0 is not None else 0.0
+        stats = {"elapsed_s": max(elapsed, 1e-9)}
+        if self.onpolicy_queue is not None:
+            s = self.onpolicy_queue.stats()
+            stats["onpolicy"] = s
+            stats["env_frames"] = s["frames_generated"]
+        return stats
+
+    def _live_series(self) -> dict:
+        """The time-series sampler source: one flat {name: value} dict per
+        tick, read from single atomic snapshots (queue stats, registry
+        histograms, recovery counters) so points are mutually consistent."""
+        out = {}
+        if self.onpolicy_queue is not None:
+            s = self.onpolicy_queue.stats()
+            for k in ("frames_generated", "frames_trained",
+                      "frames_dropped", "frames_pending", "drop_rate"):
+                out[k] = s[k]
+            out["queue_depth"] = len(self.onpolicy_queue)
+        elif self.telemetry is not None:
+            # r2d2/replay runs: lanes served is the frame-supply counter
+            out["frames_generated"] = \
+                self.telemetry._counter_total("/requests")
+        if self.telemetry is not None:
+            h = self.telemetry.metrics.snapshot()["histograms"].get(
+                "inference/batch_wait_s")
+            if h and h.get("count") and h.get("p99") is not None:
+                out["infer_p99_ms"] = 1e3 * h["p99"]
+        if self.autoscaler is not None:
+            # derived view over the points already in the store (up to the
+            # previous tick) — the decision log's headline trigger value
+            out["frames_per_s"] = self.autoscaler.store.rate(
+                "frames_generated", 5.0)
+        for k, v in self._recovery_stats().items():
+            out[f"recovery/{k}"] = v
+        return out
+
+    def _varz(self) -> dict:
+        """The /varz document: live throughput()/BottleneckReport/ledger/
+        occupancy stats plus health and postmortem paths — the
+        autoscaler's input."""
+        elapsed = (time.perf_counter() - self._run_t0) \
+            if self._run_t0 is not None else 0.0
+        stats = self.throughput(max(elapsed, 1e-9))
+        out = {"schema_version": VARZ_SCHEMA_VERSION,
+               "uptime_s": round(time.perf_counter() - self._t_created, 3),
+               "stats": stats}
+        if self.autoscaler is not None:
+            out["autoscale"] = {
+                "topology": self.autoscaler.topology(),
+                "ticks": self.autoscaler.ticks,
+                "actions_applied": dict(self.autoscaler.actions_applied)}
+        if self.telemetry is not None:
+            try:
+                out["bottleneck"] = \
+                    self.telemetry.bottleneck_report(stats).as_dict()
+            except Exception:
+                pass             # a scrape must never 500 on attribution
+        if self._health is not None:
+            out["health"] = self._health.report().as_dict()
+        if self._flightrec is not None:
+            out["postmortems"] = list(self._flightrec.bundles)
+        return out
+
+    def _audit_ledger(self):
+        s = self.onpolicy_queue.stats()
+        v = []
+        accounted = (s["frames_trained"] + s["frames_dropped"]
+                     + s["frames_pending"])
+        if s["frames_generated"] != accounted:
+            v.append(f"frame ledger not conserved: generated="
+                     f"{s['frames_generated']} != trained+dropped+pending="
+                     f"{accounted}")
+        if s["frames_pending"] < 0:
+            v.append(f"negative frames_pending: {s['frames_pending']}")
+        depth = len(self.onpolicy_queue)
+        if depth > s["capacity"]:
+            v.append(f"queue depth {depth} exceeds capacity "
+                     f"{s['capacity']}")
+        return v
+
+    def _audit_slots(self):
+        v = []
+        n = self.server.num_slots
+        # the pool's high-water actor-id mark, not the constructed count:
+        # autoscale grows issue fresh actor ids, and their slots are
+        # legitimate table rows forever (slots never shrink)
+        actors = (self.pool.hw_actors if self.pool is not None
+                  else self.num_actors)
+        budget = actors * self.envs_per_actor
+        if n > budget:
+            v.append(f"slot table has {n} slots > lane budget {budget}")
+        if n < self._audit_prev_slots:
+            v.append(f"slot table shrank: {self._audit_prev_slots} -> {n} "
+                     f"(slots are never removed)")
+        else:
+            self._audit_prev_slots = n
+        return v
+
+    def stop_ops(self):
+        """Tear down the ops HTTP server. It deliberately outlives run()
+        (a post-run scrape must still see the final quiescent ledger), so
+        tests and long-lived embedders call this when done."""
+        if self.telemetry is not None:
+            self.telemetry.close_ops()
+        self.ops_address = None
+
     def _sink(self, traj):
         if self.onpolicy_queue is not None:
             self.onpolicy_queue.put(traj)
@@ -444,8 +703,22 @@ class SeedSystem:
                 a.vec.step(np.zeros(a.num_envs, np.int32))
 
     def run(self, seconds: float, with_learner: bool = True):
+        self._run_t0 = time.perf_counter()
+        if self.telemetry is not None:
+            self.telemetry.start()
+        if self.autoscaler is not None:
+            # the controller thread senses/decides/acts while the window
+            # runs; pool commands execute inside the collect loop, replica
+            # activation is a plain attribute flip — both thread-safe
+            self.autoscaler.start()
         if self.pool is not None:
-            return self._run_socket(seconds, with_learner)
+            try:
+                return self._run_socket(seconds, with_learner)
+            finally:
+                if self.autoscaler is not None:
+                    self.autoscaler.stop()
+                if self.telemetry is not None:
+                    self.telemetry.stop()
         if self.server:
             self.server.start()
         for a in self.actors:
@@ -469,6 +742,10 @@ class SeedSystem:
             # count so generated == trained + dropped in throughput()
             # (learner.stop() already closed it when a learner ran)
             self.onpolicy_queue.close()
+        if self.autoscaler is not None:
+            self.autoscaler.stop()
+        if self.telemetry is not None:
+            self.telemetry.stop()
         return self.throughput(elapsed)
 
     def _run_socket(self, seconds: float, with_learner: bool):
@@ -504,6 +781,12 @@ class SeedSystem:
                 # after the gateways: TRAJ frames still in flight land as
                 # counted shutdown drops, not unrecorded frames
                 self.onpolicy_queue.close()
+        if self.telemetry is not None:
+            # fold each host's spans + registry snapshot (shipped through
+            # the mp result queue) into this process's telemetry; pops the
+            # bulky keys so last_stats stays a plain counter report
+            for s in host_stats:
+                self.telemetry.absorb_host(s)
         elapsed = max((s["elapsed_s"] for s in host_stats), default=seconds)
         return self.throughput(max(elapsed, 1e-9))
 
@@ -531,6 +814,8 @@ class SeedSystem:
             "learner_error": self.learner.error if self.learner else None,
             "episode_return_mean": float(np.mean(returns or [0.0])),
         }
+        if self.ops_address is not None:
+            out["ops_address"] = f"{self.ops_address[0]}:{self.ops_address[1]}"
         if self.server:
             # actors stamp the behavior-param version on every unroll: mean
             # lag (in learner publishes) of the unrolls this run flushed
@@ -578,10 +863,8 @@ class SeedSystem:
                 out.update({
                     "actor_hosts": self.pool.num_hosts,
                     "actor_hosts_live": self.pool.live_hosts(),
-                    # the port's pool is not elastic yet (ROADMAP queue 1,
-                    # "Ops and survival planes"): nothing grows or drains
-                    "hosts_grown": 0,
-                    "hosts_drained": 0,
+                    "hosts_grown": self.pool.hosts_grown,
+                    "hosts_drained": self.pool.hosts_drained,
                     "num_gateways": len(self.gateways),
                     "gateway_connections": sum(g["connections"] for g in gs),
                     "gateway_request_frames": sum(g["request_frames"] for g in gs),
@@ -615,4 +898,9 @@ class SeedSystem:
                 "param_refreshes": refreshes,
                 "mean_param_lag": lag / max(iterations, 1),
             })
+        if self.telemetry is not None:
+            # the measured CPU/GPU-ratio attribution the paper's method
+            # is built on — computed from this same stats dict plus the
+            # registry/sampler, never raises on an empty window
+            out["bottleneck"] = self.telemetry.bottleneck_report(out).as_dict()
         return out

@@ -1,5 +1,4 @@
-"""Fault tolerance for the serving plane: the pieces of ``repro.fault``
-that the port has.
+"""Fault tolerance for the serving plane: a copy of ``repro.fault``.
 
   * `BackoffPolicy` — bounded exponential backoff with seeded jitter
     (frozen dataclass: pickles across spawn with the host config), the
@@ -9,15 +8,21 @@ that the port has.
     (`launch.actor_host.ActorHostPool(supervise=True)`);
   * `Supervisor` / `SimulatedFailure` — restore-and-retry around a
     training loop;
-  * `HeartbeatMonitor` — straggler detection over actor heartbeats.
+  * `HeartbeatMonitor` — straggler detection over actor heartbeats;
+  * `ChaosMonkey` / `ChaosEvent` — deterministic seeded fault injection
+    against a live `SeedSystem` (see `repro_torch.fault.chaos`).
 
-The reference's `ChaosMonkey` is not ported yet (ROADMAP queue 1, "Ops
-and survival planes").
+Everything here is OPT-IN: `reconnect=None` transports fail fast,
+`supervise=False` pools die loud, and a `SeedSystem` without
+`checkpoint_dir` never touches disk.
 """
 
 from repro_torch.fault.backoff import BackoffPolicy
+from repro_torch.fault.chaos import ACTIONS, ChaosEvent, ChaosMonkey
 from repro_torch.fault.supervisor import (HeartbeatMonitor, RestartBudget,
                                           SimulatedFailure, Supervisor)
 
-__all__ = ["BackoffPolicy", "HeartbeatMonitor", "RestartBudget",
-           "SimulatedFailure", "Supervisor"]
+__all__ = [
+    "ACTIONS", "BackoffPolicy", "ChaosEvent", "ChaosMonkey",
+    "HeartbeatMonitor", "RestartBudget", "SimulatedFailure", "Supervisor",
+]

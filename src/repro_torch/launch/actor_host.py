@@ -1,11 +1,7 @@
 """Actor hosts: OS processes of vectorized actors against remote gateways.
 
 A copy of ``repro.launch.actor_host`` with its imports taken from the port
-(`core.actor`, `transport.socket`, `fault.supervisor`), less two branches
-that wait for the port's ops plane (ROADMAP queue 1, "Ops and survival
-planes"): the child-process telemetry bundle (``telemetry=True``) and the
-elastic pool (``elastic=True``, the autoscaler's grow and drain), which
-`ActorHostPool` refuses with ``NotImplementedError``.
+(`core.actor`, `transport.socket`, `fault.supervisor`, `telemetry`).
 
 This is the paper's disaggregated provisioning made runnable: the learner
 box keeps the `InferenceServer` + its `InferenceGateway`s, and env
@@ -55,8 +51,6 @@ from typing import Any, List, Optional, Tuple
 
 from repro_torch.fault.supervisor import RestartBudget
 
-OPS_ITEM = "ROADMAP queue 1, 'Ops and survival planes'"
-
 
 @dataclass
 class ActorHostConfig:
@@ -75,6 +69,13 @@ class ActorHostConfig:
     #                              (E, 2) [action, logprob] replies and
     #                              stamp unrolls with the REPLY-borne
     #                              behavior-param version
+    telemetry: bool = False      # build a child-process Telemetry: spans
+    #                              stamped with wire trace_seq ids + a
+    #                              metrics registry, both shipped back
+    #                              through the result queue for the parent
+    #                              to absorb (a Telemetry OBJECT cannot
+    #                              cross spawn — it holds locks/threads —
+    #                              so the flag travels, not the instance)
     use_shm: bool = False        # dial with ShmTransport: co-located hosts
     #                              negotiate CODEC_SHM and ride a
     #                              shared-memory ring pair, TCP as spill
@@ -86,11 +87,11 @@ class ActorHostConfig:
     heartbeat: bool = False      # piggyback liveness on the result queue:
     #                              a daemon thread puts
     #                              {"__heartbeat__": host_id} every 0.5 s
-    #                              and the supervising parent notes each
-    #                              beat, so a silent child is found over
-    #                              the same protocol the final stats
-    #                              already ride (no extra pipe to leak
-    #                              across spawn)
+    #                              and the parent relays each beat into its
+    #                              HeartbeatRegistry, so the watchdog
+    #                              covers child PROCESSES over the same
+    #                              protocol the final stats already ride
+    #                              (no extra pipe to leak across spawn)
     epoch: int = 0               # incarnation counter: bumped on every
     #                              supervised respawn; every frame this
     #                              child puts on the result queue carries
@@ -106,6 +107,14 @@ class ActorHostConfig:
     shm_geometry: Optional[Tuple[int, int]] = None
     #                              (slot_size, num_slots) of each shm ring;
     #                              None = the module defaults (1 MiB x 64)
+    stop_event: Any = None       # mp.Event (spawn-inheritable): graceful
+    #                              drain — when set, the child leaves its
+    #                              measured window early, stops its actors
+    #                              cleanly (in-flight unroll flushed or
+    #                              discarded BEFORE the ledger, so frame
+    #                              conservation is exact by construction),
+    #                              and reports final stats like a normal
+    #                              window end
 
 
 def run_actor_host(cfg: ActorHostConfig, result_q) -> None:
@@ -114,6 +123,7 @@ def run_actor_host(cfg: ActorHostConfig, result_q) -> None:
              "frames": 0, "episodes": 0, "returns": [], "error": None,
              "unrolls": 0, "param_lag_total": 0, "epoch": cfg.epoch}
     hb_stop = None
+    window = {}                  # the measured window's end, once it starts
     if cfg.heartbeat:
         # beat from birth: the slow phases (torch import, env build, env
         # reset) are exactly when the parent most wants proof of life
@@ -123,7 +133,7 @@ def run_actor_host(cfg: ActorHostConfig, result_q) -> None:
             while not hb_stop.wait(0.5):
                 try:
                     result_q.put({"__heartbeat__": cfg.host_id,
-                                  "__epoch__": cfg.epoch})
+                                  "__epoch__": cfg.epoch, **window})
                 except Exception:
                     return       # queue torn down: parent is gone anyway
 
@@ -147,6 +157,14 @@ def run_actor_host(cfg: ActorHostConfig, result_q) -> None:
         # when the gateway grants CODEC_SHM (loopback peers only; a remote
         # gateway just leaves these as plain TCP connections).
         transport_cls = ShmTransport if cfg.use_shm else SyncSocketTransport
+        tel = None
+        if cfg.telemetry:
+            from repro_torch.telemetry import Telemetry
+            # per-child Telemetry: same CLOCK_MONOTONIC timeline and
+            # pid-salted trace_seq space as the parent, so the parent can
+            # merge spans verbatim after absorbing them from the result q;
+            # it holds no tensor and opens no CUDA context
+            tel = Telemetry(process_name=f"actor-host-{cfg.host_id}")
         geometry = {}
         if cfg.use_shm and cfg.shm_geometry is not None:
             geometry = {"slot_size": cfg.shm_geometry[0],
@@ -158,6 +176,7 @@ def run_actor_host(cfg: ActorHostConfig, result_q) -> None:
                                   onpolicy=cfg.onpolicy,
                                   quant=cfg.quant,
                                   coalesce=cfg.coalesce,
+                                  telemetry=tel,
                                   reconnect=cfg.reconnect,
                                   failover_addresses=(
                                       list(cfg.addresses)
@@ -181,7 +200,8 @@ def run_actor_host(cfg: ActorHostConfig, result_q) -> None:
                   cfg.unroll, num_envs=cfg.envs_per_actor,
                   seed=None if cfg.seed is None else cfg.seed + aid,
                   version_source=(lambda tr=tr: tr.param_version),
-                  with_logprobs=cfg.onpolicy, stamp_records=cfg.onpolicy)
+                  with_logprobs=cfg.onpolicy, stamp_records=cfg.onpolicy,
+                  telemetry=tel)
             for aid, tr in zip(cfg.actor_ids, transports)]
         # pay the envs' first reset and step before the measured window,
         # exactly as `SeedSystem.warmup` does for in-process actors: the
@@ -192,6 +212,10 @@ def run_actor_host(cfg: ActorHostConfig, result_q) -> None:
             a.vec.reset()
             a.vec.step(np.zeros(a.num_envs, np.int32))
         t0 = time.perf_counter()
+        # beats carry the window's end from now on (perf_counter is the
+        # machine's CLOCK_MONOTONIC, shared with the parent): the pool's
+        # respawns and grows serve the hosts' windows, not its own
+        window["__window_end__"] = t0 + cfg.seconds
         for a in actors:
             a.start()
         deadline = t0 + cfg.seconds
@@ -204,6 +228,9 @@ def run_actor_host(cfg: ActorHostConfig, result_q) -> None:
                 break
             if all(not a._thread.is_alive() for a in actors):
                 break
+            if cfg.stop_event is not None and cfg.stop_event.is_set():
+                stats["drained"] = True      # autoscaler shrink: leave the
+                break                        # window early but exit CLEANLY
             time.sleep(0.02)
         for a in actors:
             a.stop()
@@ -234,13 +261,23 @@ def run_actor_host(cfg: ActorHostConfig, result_q) -> None:
         torch = sys.modules.get("torch")
         stats["cuda_initialized"] = bool(torch is not None
                                          and torch.cuda.is_initialized())
+        if tel is not None:
+            # mirror the shm transports' plain-int hot-path counters into
+            # the registry once, at report time (they are single-threaded
+            # ints precisely so the ring path stays lock-free)
+            c = tel.metrics.counters(
+                "host_wire", ("shm_frames", "shm_replies", "spill_frames"))
+            with tel.metrics.lock:
+                for k, cnt in c.items():
+                    cnt.value += float(
+                        sum(getattr(tr, k, 0) for tr in transports))
+            stats["trace_events"] = tel.tracer.export_events()
+            stats["metrics_snapshot"] = tel.metrics.snapshot()
     except Exception:
         stats["error"] = traceback.format_exc()
     if hb_stop is not None:
         hb_stop.set()            # stats is the LAST frame this child sends
     result_q.put(stats)
-
-
 
 
 class ActorHostPool:
@@ -253,14 +290,14 @@ class ActorHostPool:
     With ``supervise=True`` the pool is also the actor plane's SUPERVISOR:
     a host that dies (exit without reporting) or goes silent (missed
     ``__heartbeat__`` frames past ``host_stall_s``) is killed for certain,
-    reported through ``fault_callback`` (the SeedSystem seam that moves
-    the dead incarnation's pending frames to the fault-drop ledger), and
-    respawned with the SAME host_id and actor_ids under a `RestartBudget`.
-    Same ids means the replacement re-adopts the exact (actor_id, env_id)
-    slot rows the dead host owned — the server's slot table stays dense
-    and sticky across the crash. Each incarnation carries an ``epoch``;
-    result-queue frames from a dead epoch (late stats, buffered beats) are
-    rejected, never recorded.
+    reported through ``fault_callback`` (the SeedSystem seam that files the
+    postmortem, degrades /healthz, and moves the dead incarnation's pending
+    frames to the fault-drop ledger), and respawned with the SAME host_id
+    and actor_ids under a `RestartBudget`. Same ids means the replacement
+    re-adopts the exact (actor_id, env_id) slot rows the dead host owned —
+    the server's slot table stays dense and sticky across the crash. Each
+    incarnation carries an ``epoch``; result-queue frames from a dead
+    epoch (late stats, buffered beats) are rejected, never recorded.
     """
 
     def __init__(self, env_factory, num_actors: int, envs_per_actor: int,
@@ -269,8 +306,10 @@ class ActorHostPool:
                  compress: bool = False, onpolicy: bool = False,
                  use_shm: bool = False, quant: Optional[str] = None,
                  coalesce: bool = True, telemetry: bool = False,
-                 pid_callback=None, supervise: bool = False,
-                 max_host_restarts: int = 3, host_stall_s: float = 5.0,
+                 pid_callback=None, heartbeat_callback=None,
+                 heartbeat_close=None, failure_callback=None,
+                 supervise: bool = False, max_host_restarts: int = 3,
+                 host_stall_s: float = 5.0,
                  min_respawn_window_s: float = 0.25,
                  reconnect=None, fault_callback=None,
                  elastic: bool = False,
@@ -278,14 +317,6 @@ class ActorHostPool:
         if not 1 <= num_hosts <= num_actors:
             raise ValueError(
                 f"num_hosts={num_hosts} must be in [1, num_actors={num_actors}]")
-        if telemetry:
-            raise NotImplementedError(
-                f"telemetry=True (a child-process repro.telemetry bundle) is "
-                f"not ported yet ({OPS_ITEM})")
-        if elastic:
-            raise NotImplementedError(
-                f"elastic=True (the autoscaler's grow and drain) is not "
-                f"ported yet ({OPS_ITEM})")
         self.env_factory = env_factory
         self.num_actors = num_actors
         self.envs_per_actor = envs_per_actor
@@ -302,9 +333,21 @@ class ActorHostPool:
         # two rings, so a small /dev/shm needs a smaller geometry than the
         # defaults' 2 x 64 MiB (tmpfs faults past its size with SIGBUS)
         self.shm_geometry = shm_geometry
-        # pid_callback(name, pid) fires right after each spawn, so a
-        # caller can watch the children (their CPU, their CUDA contexts)
+        self.telemetry = telemetry
+        # pid_callback(name, pid) fires right after each spawn — the seam
+        # `Telemetry.watch_process` plugs into so the parent's utilization
+        # sampler reads the children's /proc/<pid>/stat from birth (and a
+        # caller can check the children's CUDA contexts)
         self.pid_callback = pid_callback
+        # heartbeat_callback(name) relays each child's piggybacked beat
+        # (HeartbeatRegistry.beat: auto-registers under the default
+        # watched deadline); heartbeat_close(name) runs once per host when
+        # run() finishes so completed children don't read as stalled
+        # forever after; failure_callback(msg) fires on the hard-timeout
+        # path right before the RuntimeError (the flight recorder's seam)
+        self.heartbeat_callback = heartbeat_callback
+        self.heartbeat_close = heartbeat_close
+        self.failure_callback = failure_callback
         # --- supervision (all opt-in: supervise=False is the historical
         # fail-fast pool, byte-identical collect loop semantics) ---------
         self.supervise = supervise
@@ -313,17 +356,36 @@ class ActorHostPool:
         self.min_respawn_window_s = min_respawn_window_s
         self.reconnect = reconnect   # BackoffPolicy for child transports
         # fault_callback(host_id, reason) fires ONCE per detected death,
-        # BEFORE the respawn — the parent-side ledger seam (exceptions
-        # swallowed: supervision must not die of its own observer)
+        # BEFORE the respawn — the parent-side ledger/health/postmortem
+        # seam (exceptions swallowed: supervision must not die of its
+        # own observer)
         self.fault_callback = fault_callback
         # recovery counters (cumulative over the pool's lifetime; surfaced
-        # via SeedSystem.throughput()["recovery"])
+        # via SeedSystem.throughput()["recovery"] and /varz)
         self.host_restarts = 0
         self.stale_frames_rejected = 0
         self.fault_log: List[str] = []
         self._hosts: dict = {}       # host_id -> incarnation record
         self._all_procs: List[Any] = []
         self.last_stats: List[dict] = []
+        # --- elasticity (the autoscaler's actor-plane actuator) ----------
+        # request_grow/request_drain enqueue commands that ONLY the collect
+        # loop executes (self._hosts is single-threaded by design; the
+        # controller thread never touches it). `elastic=True` also caps the
+        # idle poll at 0.25 s so commands execute promptly without
+        # supervision. hw_actors is the HIGH-WATER actor-id mark — it only
+        # grows, because the server's (actor_id, env_id) slot table never
+        # shrinks and the slot auditor's budget must cover every id ever
+        # issued; num_actors stays the constructed base partition.
+        self.elastic = elastic
+        self.hw_actors = num_actors
+        self.hosts_grown = 0
+        self.hosts_drained = 0
+        self._commands: "_queue.Queue" = _queue.Queue()
+        self._running = False
+        self._expected = num_hosts   # hosts whose final stats run() awaits
+        self._next_host_id = num_hosts
+        self._grow_log: List[str] = []
 
     def _partitions(self) -> List[Tuple[int, ...]]:
         ids = list(range(self.num_actors))
@@ -349,6 +411,9 @@ class ActorHostPool:
     def _spawn(self, host_id: int, actor_ids: Tuple[int, ...],
                addresses: List[Tuple[str, int]], seconds: float,
                epoch: int, result_q, ctx) -> None:
+        # an mp.Event is spawn-inheritable through Process args, so every
+        # incarnation carries a drain flag even if elasticity never fires
+        stop_event = ctx.Event() if self.elastic else None
         cfg = ActorHostConfig(
             address=addresses[host_id % len(addresses)], host_id=host_id,
             actor_ids=tuple(actor_ids), env_factory=self.env_factory,
@@ -356,10 +421,14 @@ class ActorHostPool:
             seconds=seconds, seed=self.seed, compress=self.compress,
             onpolicy=self.onpolicy, use_shm=self.use_shm,
             quant=self.quant, coalesce=self.coalesce,
-            heartbeat=self.supervise, epoch=epoch,
+            telemetry=self.telemetry,
+            heartbeat=(self.heartbeat_callback is not None
+                       or self.supervise),
+            epoch=epoch,
             addresses=(tuple(addresses)
                        if self.reconnect is not None else None),
-            reconnect=self.reconnect, shm_geometry=self.shm_geometry)
+            reconnect=self.reconnect, shm_geometry=self.shm_geometry,
+            stop_event=stop_event)
         p = ctx.Process(target=run_actor_host, args=(cfg, result_q),
                         daemon=True)
         p.start()
@@ -367,33 +436,127 @@ class ActorHostPool:
             self.pid_callback(f"actor-host-{host_id}", p.pid)
         self._hosts[host_id] = {
             "proc": p, "epoch": epoch, "actor_ids": tuple(actor_ids),
-            "last_beat": time.perf_counter(), "reported": False}
+            "last_beat": time.perf_counter(), "beaten": False,
+            "reported": False, "draining": False, "stop_event": stop_event}
         self._all_procs.append(p)
 
+    # ---------------------------------------------------------- elasticity
+
     def live_hosts(self) -> int:
-        """Hosts spawned and not yet reported; the constructed count
-        before and after a run."""
-        if not self._hosts or all(st["reported"]
-                                  for st in self._hosts.values()):
+        """Hosts currently producing frames (spawned, not reported, not
+        draining). Before/after a run the constructed count is reported so
+        the autoscaler's bounds checks stay meaningful."""
+        if not self._running:
             return self.num_hosts
-        return sum(1 for st in self._hosts.values() if not st["reported"])
+        return sum(1 for st in self._hosts.values()
+                   if not st["reported"] and not st["draining"])
+
+    def request_grow(self) -> bool:
+        """Ask the collect loop to spawn one more actor host mid-window
+        (thread-safe; executes within one poll tick). The new host gets
+        the next host_id — `host_id % G` hashes it onto a live gateway,
+        which accepts connections continuously — and a FRESH contiguous
+        actor-id block above `hw_actors`, so its (actor_id, env_id)
+        recurrent slots are new rows in the server's dense table, never a
+        collision with an existing host's. Returns False when no window
+        is running or the pool was not built elastic."""
+        if not (self.elastic and self._running):
+            return False
+        self._commands.put("grow")
+        return True
+
+    def request_drain(self) -> bool:
+        """Ask the collect loop to gracefully drain the newest live host:
+        its stop_event is set, the child leaves its window early, stops
+        actors cleanly and reports final stats like a normal window end —
+        frames stay exactly conserved because partial unrolls never enter
+        the ledger. LIFO (highest host_id first) keeps the constructed
+        base partition intact."""
+        if not (self.elastic and self._running):
+            return False
+        self._commands.put("drain")
+        return True
+
+    def _execute_commands(self, addresses, window_end, result_q, ctx,
+                          now) -> None:
+        """Drain the command queue inside the collect loop — the ONLY
+        place `self._hosts` is ever mutated, so grow/drain need no lock
+        against `_scan` or the heartbeat relay."""
+        while True:
+            try:
+                cmd = self._commands.get_nowait()
+            except _queue.Empty:
+                return
+            if cmd == "grow":
+                remaining = window_end - now
+                if remaining < self.min_respawn_window_s:
+                    self._grow_log.append(
+                        f"grow skipped: {remaining:.2f}s left in window")
+                    continue
+                host_id = self._next_host_id
+                self._next_host_id += 1
+                per = max(len(p) for p in self._partitions())
+                actor_ids = tuple(range(self.hw_actors,
+                                        self.hw_actors + per))
+                self.hw_actors += per
+                self._expected += 1
+                self._spawn(host_id, actor_ids, addresses, remaining, 0,
+                            result_q, ctx)
+                self.hosts_grown += 1
+                self._grow_log.append(
+                    f"grew actor-host-{host_id} (actors {actor_ids[0]}.."
+                    f"{actor_ids[-1]}, {remaining:.1f}s left)")
+            elif cmd == "drain":
+                live = [h for h, st in self._hosts.items()
+                        if not st["reported"] and not st["draining"]
+                        and st["stop_event"] is not None]
+                if len(live) <= 1:
+                    self._grow_log.append(
+                        "drain skipped: would leave no live host")
+                    continue
+                h = max(live)
+                st = self._hosts[h]
+                st["draining"] = True
+                st["stop_event"].set()
+                self.hosts_drained += 1
+                self._grow_log.append(f"draining actor-host-{h}")
+
+    def kill_host(self, host_id: int) -> bool:
+        """Chaos hook: SIGKILL the live incarnation of `host_id` (no
+        cleanup, no final stats — the worst-case death the supervisor
+        must absorb). Returns False when the host isn't currently up."""
+        st = self._hosts.get(host_id)
+        if st is None or not st["proc"].is_alive():
+            return False
+        st["proc"].kill()
+        return True
 
     def _scan(self, results, addresses, window_end, result_q, ctx,
               budget, now) -> None:
         """One supervision sweep: detect dead/silent hosts, respawn."""
         for h, st in list(self._hosts.items()):
-            if st["reported"]:
+            if st["reported"] or st["draining"]:
+                # a draining host exits on purpose; seeing its (still
+                # queued) final stats as a death would respawn the host
+                # the autoscaler just removed
                 continue
             dead = not st["proc"].is_alive()
-            stalled = (not dead
-                       and now - st["last_beat"] > self.host_stall_s)
+            # a child can beat only once its bootstrap is over (interpreter
+            # start, re-import of the parent's main module, unpickling its
+            # config, which imports torch through the env factory): until
+            # its first beat it is starting, not silent, and gets the
+            # pool's startup headroom (the reference counts host_stall_s
+            # from the spawn, which a slow torch import outlasts)
+            limit = self.host_stall_s if st["beaten"] \
+                else max(self.grace_s, self.host_stall_s)
+            stalled = not dead and now - st["last_beat"] > limit
             if not (dead or stalled):
                 continue
             reason = (
                 f"actor-host-{h} (epoch {st['epoch']}) died without "
                 f"reporting (exitcode={st['proc'].exitcode})" if dead else
                 f"actor-host-{h} (epoch {st['epoch']}) missed heartbeats "
-                f"for {now - st['last_beat']:.1f}s > {self.host_stall_s}s")
+                f"for {now - st['last_beat']:.1f}s > {limit}s")
             self.fault_log.append(reason)
             if self.fault_callback is not None:
                 try:
@@ -430,6 +593,30 @@ class ActorHostPool:
                                       f"window)")
                 results[h] = tombstone
 
+    def _note_beat(self, r: dict, now: float, window_end: float) -> float:
+        """One child's beat: a dead epoch's is counted and dropped, a live
+        one stamps its host and is relayed. Returns the window the pool's
+        respawns and grows serve. Each host measures its window from the
+        end of its bootstrap and warm-up and its beats carry that window's
+        end once it starts, so the window runs to the latest of the
+        constructed hosts' first incarnations' (the reference counts it
+        from the spawn, which a slow torch import leaves little of). A
+        replacement's or a grown host's window starts later and does not
+        move it, or each grow would lengthen the run."""
+        h = r["__heartbeat__"]
+        st = self._hosts.get(h)
+        if st is not None and r.get("__epoch__", 0) < st["epoch"]:
+            self.stale_frames_rejected += 1           # dead epoch
+            return window_end
+        if st is not None:
+            st["last_beat"] = now
+            st["beaten"] = True
+        if self.heartbeat_callback is not None:
+            self.heartbeat_callback(f"actor-host-{h}")
+        if h >= self.num_hosts or r.get("__epoch__", 0) > 0:
+            return window_end
+        return max(window_end, r.get("__window_end__", window_end))
+
     def run(self, address, seconds: float) -> List[dict]:
         """Block until every host reports (or the hard timeout trips).
 
@@ -441,13 +628,16 @@ class ActorHostPool:
         With ``supervise=True`` the collect loop doubles as the
         supervision loop: idle queue ticks run a death scan (see `_scan`),
         and result-queue frames are epoch-checked so a dead incarnation's
-        late frames never reach the stats.
+        late frames never reach the stats or the heartbeat registry.
         """
         addresses = self._normalize_addresses(address)
         ctx = mp.get_context("spawn")
         result_q = ctx.Queue()
         self._hosts = {}
         self._all_procs = []
+        self._commands = _queue.Queue()      # no stale commands carry over
+        self._expected = self.num_hosts
+        self._next_host_id = self.num_hosts
         t0 = time.perf_counter()
         window_end = t0 + seconds
         budget = RestartBudget(self.max_host_restarts,
@@ -457,34 +647,33 @@ class ActorHostPool:
                         result_q, ctx)
         deadline = window_end + self.grace_s
         results: dict = {}           # host_id -> final stats (one epoch)
+        self._running = True
         try:
             # heartbeats interleave with final stats on the ONE queue, so
             # collect by count, not by iteration: a {"__heartbeat__": h}
-            # frame is recorded and skipped. The deadline is re-checked
+            # frame is relayed and skipped. The deadline is re-checked
             # explicitly — a child whose actors wedged keeps beating, and
             # those beats must not let it dodge the hard timeout.
-            while len(results) < self.num_hosts:
+            # `_expected` is re-read every iteration: an autoscale grow
+            # adds a host (and its final stats) to this window on the fly.
+            while len(results) < self._expected:
                 remaining = deadline - time.perf_counter()
                 if remaining <= 0:
                     self._timed_out(list(results.values()), seconds)
-                # supervision needs prompt idle ticks (death scans within
-                # 0.25 s)
-                poll = min(max(remaining, 0.1), 0.25) if self.supervise \
+                # supervision AND elasticity both need prompt idle ticks
+                # (death scans / command execution within 0.25 s)
+                poll = min(max(remaining, 0.1), 0.25) \
+                    if (self.supervise or self.elastic) \
                     else max(remaining, 0.1)
                 try:
                     r = result_q.get(timeout=poll)
                 except _queue.Empty:
                     r = None
-                    if not self.supervise:
+                    if not (self.supervise or self.elastic):
                         self._timed_out(list(results.values()), seconds)
                 now = time.perf_counter()
                 if isinstance(r, dict) and "__heartbeat__" in r:
-                    st = self._hosts.get(r["__heartbeat__"])
-                    if st is not None \
-                            and r.get("__epoch__", 0) < st["epoch"]:
-                        self.stale_frames_rejected += 1   # dead epoch
-                    elif st is not None:
-                        st["last_beat"] = now
+                    window_end = self._note_beat(r, now, window_end)
                 elif r is not None:
                     h = r.get("host_id")
                     st = self._hosts.get(h)
@@ -494,11 +683,25 @@ class ActorHostPool:
                     else:
                         if st is not None:
                             st["reported"] = True
+                        if self.heartbeat_close is not None:
+                            # final stats are the child's LAST frame — drop
+                            # its heartbeat now so a drained host doesn't
+                            # read as stalled for the rest of the window
+                            self.heartbeat_close(f"actor-host-{h}")
                         results[h] = r
                 if self.supervise:
                     self._scan(results, addresses, window_end, result_q,
                                ctx, budget, now)
+                if self.elastic:
+                    self._execute_commands(addresses, window_end, result_q,
+                                           ctx, now)
         finally:
+            self._running = False
+            if self.heartbeat_close is not None:
+                # completed (or killed) children stop beating; drop their
+                # registry entries so they don't read as stalled forever
+                for host_id in self._hosts:
+                    self.heartbeat_close(f"actor-host-{host_id}")
             for p in self._all_procs:
                 p.join(timeout=5.0)
                 if p.is_alive():
@@ -509,7 +712,13 @@ class ActorHostPool:
         return self.last_stats
 
     def _timed_out(self, results, seconds):
-        raise RuntimeError(
+        msg = (
             f"actor host timed out after {seconds + self.grace_s:.0f}s "
-            f"({len(results)}/{self.num_hosts} reported) — wire-level "
+            f"({len(results)}/{self._expected} reported) — wire-level "
             f"deadlock or crash; partial stats: {results}")
+        if self.failure_callback is not None:
+            try:
+                self.failure_callback(msg)   # postmortem BEFORE the raise:
+            except Exception:                # the bundle must exist even if
+                pass                         # the caller swallows the error
+        raise RuntimeError(msg)

@@ -109,7 +109,7 @@ def device_batch(batch, device, core_dim):
 
 def build(acfg, *, actors=2, envs_per_actor=1, device="cuda", env_factory=None,
           learner_batch=2, replay_capacity=256, transport="inproc", actor_hosts=1,
-          gateways=1) -> R2D2Run:
+          gateways=1, telemetry=None, ops_port=None) -> R2D2Run:
     """The SEED R2D2 system of `acfg` on `device`, as the example wires it:
     AdamW, a target net (params from seed 0), `actors` x `envs_per_actor`
     lanes of `env_factory` (default: the example's ALESimEnv at the
@@ -118,7 +118,8 @@ def build(acfg, *, actors=2, envs_per_actor=1, device="cuda", env_factory=None,
     before the system is made, so that a measured window starts warm. The
     learner starts once replay holds one batch of sequences. `transport`
     "socket" or "shm" moves the actors into `actor_hosts` spawned
-    processes behind `gateways` gateways (`env_factory` must pickle)."""
+    processes behind `gateways` gateways (`env_factory` must pickle).
+    `telemetry` and `ops_port` go to `SeedSystem` as they are."""
     dev = resolve(device)
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -171,7 +172,8 @@ def build(acfg, *, actors=2, envs_per_actor=1, device="cuda", env_factory=None,
         unroll=seq_len, envs_per_actor=envs_per_actor, train_step=train_on, state=state,
         learner_batch=learner_batch, replay_capacity=replay_capacity, min_replay=learner_batch,
         deadline_ms=DEADLINE_MS, policy_publish=published.publish, transport=transport,
-        num_actor_hosts=actor_hosts, num_gateways=gateways)
+        num_actor_hosts=actor_hosts, num_gateways=gateways, telemetry=telemetry,
+        ops_port=ops_port)
     tf32 = {"matmul": torch.backends.cuda.matmul.allow_tf32,
             "cudnn": torch.backends.cudnn.allow_tf32}
     return R2D2Run(dev, system, published, core, policy_step, tf32)

@@ -1,7 +1,6 @@
 """RolloutWorker: the thread that drives repeated fused unrolls.
 
-A copy of ``repro.rollout.worker`` with its imports taken from the port,
-less the heartbeat registry that the port's telemetry does not have yet.
+A copy of ``repro.rollout.worker`` with its imports taken from the port.
 It plays the role `core.actor.Actor` plays for the host backends — same
 counters (`iterations`, `frames`, `episodes`, `returns`), same per-lane
 unroll format into the trajectory sink — but each iteration is ONE device
@@ -23,7 +22,8 @@ from repro_torch.core.actor import account_episode_ends, flush_lane_unrolls
 
 class RolloutWorker:
     def __init__(self, worker_id: int, engine, sink: Callable,
-                 param_source: Callable, stamp_records: bool = False):
+                 param_source: Callable, stamp_records: bool = False,
+                 health=None):
         """param_source() -> (params, version): latest published params and
         a monotone version counter (learner steps; 0 before any publish);
         the params must not change after they are handed out (`SeedSystem`
@@ -45,6 +45,7 @@ class RolloutWorker:
         self.param_refreshes = 0          # unrolls that picked up fresh params
         self.param_lag_total = 0          # sum of version deltas across unrolls
         self.error: Optional[str] = None
+        self._health = health             # optional HeartbeatRegistry
 
     # the engine is the single source of truth for scan/frame counts
     @property
@@ -76,15 +77,28 @@ class RolloutWorker:
     def _loop(self):
         # record fatal errors instead of dying silently (same class as
         # Learner.error / InferenceServer.error)
+        hb = self._health
+        hb_name = f"rollout/worker{self.worker_id}"
+        if hb is not None:
+            # one beat per unroll; 10 s tolerates a first capture that
+            # slipped past warmup() while still catching a wedge
+            hb.register(hb_name, stale_after_s=10.0)
         try:
             self._run()
         except Exception:
             self.error = traceback.format_exc()
             self._stop.set()
+        finally:
+            if hb is not None:
+                hb.unregister(hb_name)
 
     def _run(self):
         T = self.engine.unroll
+        hb = self._health
+        hb_name = f"rollout/worker{self.worker_id}"
         while not self._stop.is_set():
+            if hb is not None:
+                hb.beat(hb_name)
             params, version = self.param_source()
             if version != self.param_version:
                 self.param_lag_total += version - self.param_version

@@ -30,7 +30,6 @@ from repro_torch.benchmarks import fig4_cpu_gpu_ratio as fig4  # noqa: E402
 from repro_torch.benchmarks import run as bench_run  # noqa: E402
 from repro_torch.hw import H100_SXM, HostSpec, h100_host  # noqa: E402
 from repro_torch.launch import provision_system  # noqa: E402
-from repro_torch.launch.actor_host import OPS_ITEM  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 REL = 1e-12
@@ -475,11 +474,47 @@ def test_microbench_on_the_cpu(capsys):
 @pytest.mark.parametrize("mod,flag", [(fig3, "--telemetry"), (fig3, "--chaos"),
                                       (fig3, "--autoscale"), (fig4, "--telemetry")],
                          ids=["fig3-telemetry", "fig3-chaos", "fig3-autoscale", "fig4-telemetry"])
-def test_ops_modes_refuse_naming_the_roadmap_item(mod, flag):
-    with pytest.raises(SystemExit) as err:
-        mod.main([flag, "--device", "cpu"])
-    assert OPS_ITEM in str(err.value) and "queue 1" in str(err.value)
-    assert "Ops and survival planes" in OPS_ITEM
+def test_ops_modes_refuse_naming_the_roadmap_item(mod, flag, tmp_path, monkeypatch):
+    """The ops modes' flags parse and dispatch (they were refused before
+    their port): Fig 3's to its mode function with the smoke flag, the
+    out dir and the device, a failed check exiting 1; Fig 4's --telemetry
+    to the wire sweep under telemetry, whose attributions merge into
+    BENCH_telemetry.json beside --out, with the history beside it. The
+    modes themselves run in chip_smoke.py and from the command line."""
+    calls = []
+    if mod is fig3:
+        mode = flag[2:]
+        assert fig3.DEFAULT_OUT_DIR == fig3.ROOT / "build" / "bench_torch"
+
+        def stub(smoke, out_dir, **kw):
+            calls.append((smoke, out_dir, kw))
+            return {"failures": calls[1:]}, [f"fig3_{mode}_row,1,stub"]
+        monkeypatch.setitem(fig3.OPS_MODES, mode, stub)
+        argv = [flag, "--device", "cpu", "--smoke", "--out-dir", str(tmp_path)]
+        assert mod.main(argv) == {"failures": []}
+        want_kw = {} if mode == "telemetry" else {"device": torch.device("cpu")}
+        assert calls == [(True, str(tmp_path), want_kw)]
+        with pytest.raises(SystemExit) as err:
+            mod.main(argv)
+        assert err.value.code == 1
+        return
+
+    def sweep(smoke, gateways, transport, telemetry=False):
+        calls.append(telemetry)
+        row = {"env_frames_per_s": 10.0}
+        bench = {"seconds": 0.5, "num_actors": 2, "envs_per_actor": 4,
+                 "transports": {"inproc": row, "socket": row},
+                 "attribution": {"socket": {"bottleneck": "actor-bound"}}}
+        return ["fig4_transport_socket,10.0,stub"], bench, None
+    monkeypatch.setattr(fig4, "wire_sweep", sweep)
+    mod.main([flag, "--device", "cpu", "--out", str(tmp_path / "wire.json")])
+    assert calls == [True]
+    import json
+    doc = json.loads((tmp_path / "BENCH_telemetry.json").read_text())
+    assert doc["fig4_transports"]["attribution"] == {"socket": {"bottleneck": "actor-bound"}}
+    assert "attribution" not in json.loads((tmp_path / "wire.json").read_text())
+    hist = json.loads((tmp_path / "BENCH_history.json").read_text())
+    assert [e["frames_per_s"] for e in hist["fig4_socket"]] == [10.0]
 
 
 @pytest.mark.parametrize("mod", [fig2, fig3, fig4, bench_run],

@@ -53,7 +53,13 @@ def test_importing_every_module_loads_no_jax():
             "repro_torch.configs.shapes", "repro_torch.benchmarks",
             "repro_torch.benchmarks.fig2_breakdown", "repro_torch.benchmarks.fig3_actor_scaling",
             "repro_torch.benchmarks.fig4_cpu_gpu_ratio", "repro_torch.benchmarks.run",
-            "repro_torch.launch.provision_system"} <= set(mods)
+            "repro_torch.launch.provision_system", "repro_torch.telemetry",
+            "repro_torch.telemetry.timeseries", "repro_torch.telemetry.slo",
+            "repro_torch.telemetry.health", "repro_torch.telemetry.flightrec",
+            "repro_torch.telemetry.audit", "repro_torch.telemetry.sampler",
+            "repro_torch.telemetry.sink", "repro_torch.telemetry.ops",
+            "repro_torch.fault.chaos", "repro_torch.autoscale",
+            "repro_torch.autoscale.policy", "repro_torch.autoscale.controller"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -691,9 +691,26 @@ def test_algo_validation_messages_as_the_reference(kw):
     {"transport": "socket", "telemetry": object()},
     {"transport": "shm", "autoscale": object()}])
 def test_vtrace_keeps_the_unported_branches_refused(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        SeedSystem(env_factory=_catch, policy_step=lambda o, i: None, num_actors=1,
-                   unroll=4, algo="vtrace", **kw)
+    """The ops branches on the V-trace plane, held to the reference (the
+    name predates their port): the same exception type and message (with
+    the package's own name) for a wrong `telemetry` or `autoscale`, and
+    ``ops_port=0`` builds and binds in both packages."""
+    def outcome(cls, env_factory):
+        try:
+            system = cls(env_factory=env_factory, policy_step=lambda o, i: None,
+                         num_actors=1, unroll=4, algo="vtrace", **kw)
+        except Exception as e:              # noqa: BLE001 — compared below
+            return type(e), str(e)
+        bound = system.ops_address is not None and system.ops_address[1] > 0
+        system.stop_ops()
+        return "built", bound
+    got, want = outcome(SeedSystem, _catch), outcome(JSeedSystem, JCatchEnv)
+    assert got[0] is want[0]
+    if got[0] == "built":
+        assert got[1] is True and want[1] is True
+    else:
+        assert got[0] is TypeError
+        assert got[1].replace("repro_torch.", "repro.") == want[1]
 
 
 # ---------------------------------------------------------------- launcher

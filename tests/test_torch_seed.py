@@ -32,6 +32,7 @@ from repro_torch.envs.catch import CatchEnv  # noqa: E402
 from repro_torch.envs.vector import (SyncVectorEnv, TorchVectorEnv, VectorEnv,  # noqa: E402
                                      make_vector_env)
 from repro_torch.launch import train_r2d2  # noqa: E402
+from repro_torch.telemetry import Telemetry  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -316,9 +317,27 @@ def test_checkpoint_dir_saves_and_resume_restores(tmp_path):
     {"transport": "socket", "telemetry": object()},
     {"transport": "shm", "autoscale": object()}])
 def test_unported_branches_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        SeedSystem(env_factory=_ale(), policy_step=_random_policy(18), num_actors=1,
-                   unroll=4, **kw)
+    """The ops branches as the reference takes them (they were refused
+    before their port): a `telemetry` that is not a `Telemetry`, or an
+    `autoscale` that is not an `AutoscaleConfig`, raises TypeError before
+    anything is built, on every transport; ``ops_port=0`` alone builds the
+    default bundle and binds an ephemeral port until `stop_ops`."""
+    def make():
+        return SeedSystem(env_factory=_ale(), policy_step=_random_policy(18), num_actors=1,
+                          unroll=4, **kw)
+    if "ops_port" in kw:
+        system = make()
+        try:
+            assert isinstance(system.telemetry, Telemetry)
+            host, port = system.ops_address
+            assert host == "127.0.0.1" and port > 0
+        finally:
+            system.stop_ops()
+        assert system.ops_address is None
+        return
+    name = "telemetry" if "telemetry" in kw else "autoscale"
+    with pytest.raises(TypeError, match=f"{name} must be a repro_torch"):
+        make()
 
 
 @pytest.mark.parametrize("kw, match", [

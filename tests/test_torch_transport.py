@@ -573,10 +573,17 @@ def test_actor_host_child_in_process_with_a_small_ring_geometry():
     interval = sys.getswitchinterval()
     out = queue.Queue()
     try:
+        t_start = time.perf_counter()
         run_actor_host(ActorHostConfig(address=addr, host_id=0, actor_ids=(0, 1),
                                        env_factory=CPU_CATCH, envs_per_actor=3, unroll=4,
-                                       seconds=0.5, use_shm=True, shm_geometry=(1024, 8)), out)
-        stats = out.get(timeout=1.0)
+                                       seconds=0.5, use_shm=True, shm_geometry=(1024, 8),
+                                       heartbeat=True), out)
+        t_end = time.perf_counter()
+        frames = []
+        while not out.empty():
+            frames.append(out.get(timeout=1.0))
+        stats = frames[-1]
+        beats = [f for f in frames[:-1] if "__heartbeat__" in f]
         # the last flushes may still be in the gateway's readers: wait for
         # them before the stop, which would drop what is left unread
         deadline = time.perf_counter() + 10.0
@@ -588,6 +595,10 @@ def test_actor_host_child_in_process_with_a_small_ring_geometry():
         srv.stop()
     assert stats["error"] is None and not stats["cuda_initialized"]
     assert stats["frames"] == stats["iterations"] * 3 > 0
+    # beats from birth; those after the window starts carry its end
+    assert beats and all(b["__heartbeat__"] == 0 and b["__epoch__"] == 0 for b in beats)
+    ends = {b["__window_end__"] for b in beats if "__window_end__" in b}
+    assert len(ends) <= 1 and all(t_start + 0.5 < e < t_end for e in ends)
     assert len(sunk) == 3 * stats["unrolls"] > 0
     assert stats["shm_frames"] > 0 and stats["spill_frames"] >= stats["unrolls"]
     assert gw.stats["shm_conns"] == 2
@@ -615,9 +626,11 @@ def _supervised_pool(faults):
     def spawn(host_id, actor_ids, addresses, seconds, epoch, result_q, ctx):
         spawned.append((host_id, actor_ids, epoch, seconds))
         pool._hosts[host_id] = {"proc": _Proc(True), "epoch": epoch, "actor_ids": actor_ids,
-                                "last_beat": 0.0, "reported": False}
+                                "last_beat": 0.0, "beaten": True, "reported": False,
+                                "draining": False, "stop_event": None}
 
     pool._spawn = spawn
+    pool._running = True                 # as inside run()'s collect loop
     for h, ids in enumerate(pool._partitions()):
         spawn(h, ids, None, 10.0, 0, None, None)
     spawned.clear()
@@ -662,6 +675,56 @@ def test_supervisor_kills_a_silent_host_and_tombstones_after_the_window():
     assert not pool._hosts[0]["proc"].killed and 0 not in results
 
 
+def test_supervisor_gives_a_host_that_never_beat_the_startup_headroom():
+    """Until its first beat a host is starting (its bootstrap imports
+    torch), not silent: past host_stall_s it is left alone, past the
+    pool's grace_s it counts as stalled; once it has beaten, host_stall_s
+    applies again. A dead host is a death whether it beat or not."""
+    faults = []
+    pool, spawned = _supervised_pool(faults)
+    budget = RestartBudget(5, window_s=600.0)
+    results = {}
+    for st in pool._hosts.values():
+        st["beaten"] = False
+    pool._scan(results, [("127.0.0.1", 1)], 200.0, None, None, budget, now=30.0)
+    assert faults == [] and not spawned
+    pool._hosts[0]["beaten"] = True                 # host 0 beat at 0.0, then fell silent
+    pool._scan(results, [("127.0.0.1", 1)], 200.0, None, None, budget, now=30.0)
+    assert [f[0] for f in faults] == [0] and "> 5.0s" in faults[0][1]
+    pool._hosts[0]["last_beat"] = pool.grace_s       # its replacement beats
+    pool._scan(results, [("127.0.0.1", 1)], 200.0, None, None, budget,
+               now=pool.grace_s + 1.0)
+    assert [f[0] for f in faults] == [0, 1] and f"> {pool.grace_s}s" in faults[1][1]
+    assert [s[0] for s in spawned] == [0, 1] and results == {}
+
+
+def test_supervisor_respawns_within_the_hosts_window_not_its_own():
+    """A beat carrying a constructed host's window end (its window starts
+    after its bootstrap and warm-up) moves the window the pool serves: a
+    death past the pool's own 10 s but inside the hosts' 20 s is respawned
+    for what is left of theirs. The replacement's and a grown host's
+    later windows move nothing; a dead epoch's beat is counted and
+    dropped."""
+    faults = []
+    pool, spawned = _supervised_pool(faults)
+    budget = RestartBudget(5, window_s=600.0)
+    end = pool._note_beat({"__heartbeat__": 0, "__epoch__": 0, "__window_end__": 20.0},
+                          now=12.0, window_end=10.0)
+    assert end == 20.0 and pool._hosts[0]["last_beat"] == 12.0
+    assert pool._note_beat({"__heartbeat__": 1, "__epoch__": 0}, now=12.5,
+                           window_end=end) == 20.0
+    pool._hosts[1]["proc"] = _Proc(False, exitcode=-9)
+    pool._scan({}, [("127.0.0.1", 1)], end, None, None, budget, now=13.0)
+    assert spawned == [(1, (2, 3), 1, 7.0)] and pool.host_restarts == 1
+    assert pool._note_beat({"__heartbeat__": 1, "__epoch__": 0, "__window_end__": 99.0},
+                           now=14.0, window_end=end) == 20.0
+    assert pool.stale_frames_rejected == 1
+    for h, epoch in ((1, 1), (2, 0)):            # the replacement; a grown host
+        assert pool._note_beat({"__heartbeat__": h, "__epoch__": epoch,
+                                "__window_end__": 27.0}, now=15.0, window_end=end) == 20.0
+    assert pool._hosts[1]["last_beat"] == 15.0
+
+
 def test_host_fault_moves_pending_frames_to_the_fault_bucket():
     """SeedSystem's per-death seam: a dead host's queued, untrained
     unrolls leave as fault drops and the ledger stays conserved."""
@@ -685,14 +748,41 @@ def test_host_fault_moves_pending_frames_to_the_fault_bucket():
     {"telemetry": object()}, {"ops_port": 0}, {"autoscale": object()},
     {"telemetry": object(), "transport": "shm"}, {"autoscale": object(), "transport": "socket"}])
 def test_ops_plane_stays_refused_on_every_transport(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, 'Ops and survival planes'"):
-        SeedSystem(env_factory=CPU_CATCH, policy_step=det_policy, num_actors=1, unroll=4, **kw)
+    """The ops plane's validation on every transport (the name predates
+    its port): a wrong `telemetry` or `autoscale` raises TypeError before a
+    gateway or a pool exists; ``ops_port=0`` builds the default bundle and
+    answers /healthz over HTTP until `stop_ops`."""
+    def make():
+        return SeedSystem(env_factory=CPU_CATCH, policy_step=det_policy, num_actors=1,
+                          unroll=4, **kw)
+    if "ops_port" in kw:
+        import json
+        import urllib.request
+        system = make()
+        try:
+            host, port = system.ops_address
+            with urllib.request.urlopen(f"http://{host}:{port}/healthz", timeout=5) as r:
+                assert r.status == 200 and json.loads(r.read())["verdict"] == "healthy"
+        finally:
+            system.stop_ops()
+        return
+    name = "telemetry" if "telemetry" in kw else "autoscale"
+    with pytest.raises(TypeError, match=f"{name} must be a repro_torch"):
+        make()
 
 
 @pytest.mark.parametrize("kw", [{"telemetry": True}, {"elastic": True}])
 def test_actor_host_pool_refuses_the_ops_branches(kw):
-    with pytest.raises(NotImplementedError, match="Ops and survival planes"):
-        ActorHostPool(CPU_CATCH, num_actors=1, envs_per_actor=2, unroll=4, **kw)
+    """Both ops branches construct (they were refused before their port);
+    outside a run an elastic pool refuses grow and drain, and no host is
+    up to kill."""
+    pool = ActorHostPool(CPU_CATCH, num_actors=1, envs_per_actor=2, unroll=4, **kw)
+    assert pool.telemetry is kw.get("telemetry", False)
+    assert pool.elastic is kw.get("elastic", False)
+    assert pool.request_grow() is False and pool.request_drain() is False
+    assert pool.kill_host(0) is False
+    assert (pool.hosts_grown, pool.hosts_drained, pool.hw_actors) == (0, 0, 1)
+    assert pool.live_hosts() == 1
 
 
 def test_wire_validation_as_the_reference():
