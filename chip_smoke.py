@@ -28,7 +28,14 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    bf16 y each with and without an initial state; kernel, plain and
    library times, each call's bound, K3's TFLOP/s, TB/s and CTA plan, and
    K4's TB/s, CTA plan (lanes a strip, steps a chunk, chunks a tile, CTAs,
-   waves), registers and spills, and its time on inputs cold in L2;
+   waves), registers and spills, and its time on inputs cold in L2; K1
+   and K2 at gemma2-9b's calls with its attention softcap of 50 (K1 at
+   4352 tokens with its window of 4096 ending inside them, and without a
+   window; K2 on a global cache of 4416 slots and a wrapped ring of 4096,
+   and at the reduced widths in fp32), also with q scaled so that the cap
+   bends the logits, and timed there, where SDPA (no softcap) is timed
+   beside them but is no library cell; K1 also at starcoder2-15b's and
+   internvl2-1b's calls;
 4. serve: qwen3-14b at full width (40 layers, bf16 params made on the card
    from a seed) answers four clients through the port's InferenceServer;
    the kernels' launch counts must rise by 40 per prefill (K1) and by 40
@@ -40,10 +47,20 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    per decode step; every K1 and K3 launch of a serve run must take the
    tensor-core route; the served tokens must equal greedy decoding, and each
    path gets a profiler breakdown of a prefill and a decode step, in which
-   each kernel the path launches must hold device time in its group;
+   each kernel the path launches must hold device time in its group; then
+   the rest of the dense family at full width and depth, K1 once a layer a
+   prefill and K2 once a layer a decode step: gemma2-9b (42 layers,
+   4352-token prompts past its window of 4096, so its local layers' rings
+   wrap, which the phase checks), starcoder2-15b (40), qwen2.5-32b (64,
+   65.5 GB of weights) and internvl2-1b (24, text prompts); each of these
+   phases prints its seconds; then the ring wrap: gemma2-9b cut to one
+   local and one global layer at full width, fp32, 4352-token prompts:
+   the prefill's logits at every position and 16 decode steps' logits and
+   greedy tokens through K1 and K2 against their plain versions;
 5. parity: at each arch's reduced config, prefill logits and greedy tokens
    from the port on the card equal the port on the CPU (the plain
-   versions), in fp32;
+   versions), in fp32 (150-token prompts for gemma2-9b, starcoder2-15b,
+   qwen2.5-32b and internvl2-1b: gemma2's reduced window is 32);
 6. grad guards: K1's bf16 route, K2 and K3 raise under autograd (they
    have no backward kernel) instead of returning a tensor with no grad_fn;
 7. train parity: recurrentgemma-2b at 3 layers of full width, fp32: the
@@ -226,11 +243,23 @@ CLIENTS, TOKENS = 4, 16
 # arch -> (prompt length, cache length); mamba's state ignores the latter,
 # which only has to admit prompt + CLIENTS * TOKENS steps
 SERVE = {"qwen3-14b": (256, 512), "mamba2-2.7b": (512, 576),
-         "recurrentgemma-2b": (512, 576)}
+         "recurrentgemma-2b": (512, 576),
+         # the prompt passes gemma2's window of 4096: K1's window ends inside
+         # it, and each local layer's ring of 4096 slots wraps in the prefill
+         # and goes on wrapping in decode
+         "gemma2-9b": (4352, 4352 + CLIENTS * TOKENS),
+         "starcoder2-15b": (256, 512), "qwen2.5-32b": (256, 512),
+         "internvl2-1b": (256, 512)}
 PROMPT_LEN, MAX_LEN = SERVE["qwen3-14b"]
 # the attention calls of recurrentgemma-2b's path: 10 query heads on one kv
 # head of 256, window 2048 (longer than the prompt), a ring of 576 slots
 RG = dict(h=10, kh=1, d=256, window=2048)
+# gemma2-9b's: 16 query heads on 8 kv heads of 256, every scaled logit
+# capped at 50; its local layers' window of 4096 is their ring's size
+GEMMA = dict(h=16, kh=8, d=256, window=4096, softcap=50.0, scale=0.0625)
+# the new archs' reduced configs, card against CPU: 150 tokens pass the
+# reduced window of 32 (gemma2's rings wrap)
+DENSE_PARITY = ("gemma2-9b", "starcoder2-15b", "qwen2.5-32b", "internvl2-1b")
 # the training path: recurrentgemma-2b at full width in fp32, its K1 and K4
 # calls at batch 4 x seq 256
 TRAIN = dict(arch="recurrentgemma-2b", batch=4, seq=256, steps=3)
@@ -273,18 +302,127 @@ def max_err(a, b):
 def check_close(name, got, want, tol, atol=None):
     """Elementwise |got - want| <= atol + tol * |want| (atol = rtol = tol by
     default, the JAX package's kernel-test tolerances: fp32 2e-5, bf16
-    2e-2)."""
+    2e-2). `atol` may be a tensor that broadcasts against `want`: each
+    row's own."""
     err = max_err(got, want)
     atol = tol if atol is None else atol
     g, w = got.float(), want.float()
     ok = (got.shape == want.shape and got.dtype == want.dtype
           and bool(torch.isfinite(g).all())
           and bool(((g - w).abs() <= atol + tol * w.abs()).all()))
-    log(f"   {name}: max_abs_err {err:.3e} (atol {atol:.3g}, rtol {tol:g}) "
+    said = (f"{atol:.3g}" if not torch.is_tensor(atol) else
+            f"{float(atol.min()):.3g}..{float(atol.max()):.3g} by row")
+    log(f"   {name}: max_abs_err {err:.3e} (atol {said}, rtol {tol:g}) "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
     return err
+
+
+def row_atol(want, tol, dims):
+    """`tol` times the rms of each row of `want` over `dims`: an atol on the
+    output's own scale. A softmax spread over thousands of keys gives
+    outputs of about 0.025, where a fixed atol of 2e-2 would pass a kernel
+    that dropped a split of them."""
+    return tol * want.float().pow(2).mean(dims, keepdim=True).sqrt()
+
+
+def gemma2_attention_checks(rand, b=CLIENTS):
+    """gemma2-9b's attention calls, bf16, every scaled logit capped at 50,
+    K1 and K2 against their plain versions on the card, with rtol 2e-2 and
+    an atol of 2e-2 of each query row's rms (`row_atol`). `rand(*shape,
+    dtype=)` draws the inputs on the card."""
+    from repro_torch.kernels import decode_attention as K2
+    from repro_torch.kernels import flash_attention as K1
+    from repro_torch.kernels import ops
+
+    tol = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+    gs, gmax = SERVE["gemma2-9b"]
+    # K1 on wgmma: a local layer's call, whose window of 4096 ends inside the
+    # 4352-token prompt (key tiles wholly outside it are skipped), and a
+    # global layer's; then the local call with q scaled by 40, so that the
+    # logits reach about 40 a standard deviation and the cap bends them
+    # (held against the uncapped plain version too), at B 1
+    gkw = {"softcap": GEMMA["softcap"], "scale": GEMMA["scale"]}
+    for (cb, cs, ch, ckh, cd), kw, qmul in (
+            ((b, gs, GEMMA["h"], GEMMA["kh"], GEMMA["d"]), {"window": GEMMA["window"]}, 1.0),
+            ((b, gs, GEMMA["h"], GEMMA["kh"], GEMMA["d"]), {}, 1.0),
+            ((1, gs, GEMMA["h"], GEMMA["kh"], GEMMA["d"]), {"window": GEMMA["window"]}, 40.0)):
+        q = (rand(cb, cs, ch, cd, dtype=torch.float32) * qmul).to(torch.bfloat16)
+        k, v = rand(cb, cs, ckh, cd, dtype=torch.bfloat16), rand(cb, cs, ckh, cd,
+                                                                  dtype=torch.bfloat16)
+        kw = {**gkw, **kw}
+        got = K1.flash_attention(q, k, v, **kw)
+        want = ops.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        check_close(f"K1 gemma2 {(cb, cs, ch, ckh, cd)} bf16 {kw}, q x {qmul:g} "
+                    f"[{K1.route(q.dtype, cd)}]", got, want, tol[torch.bfloat16],
+                    row_atol(want, tol[torch.bfloat16], (2, 3)))
+        if qmul > 1:
+            bent = max_err(want, ops.flash_attention_plain(q, k, v, **{**kw, "softcap": None}))
+            log(f"   the cap moved the plain output by {bent:.3e}")
+            if bent <= tol[torch.bfloat16]:
+                raise AssertionError("the softcap case does not bend the logits")
+        del q, k, v, got, want
+
+    # K2, the cap in the split pass: a global layer's cache of max_len slots
+    # at a served length, one live split, a length 0 and a full cache; a
+    # local layer's ring of 4096 slots after the wrap (every slot valid);
+    # the reduced config's in fp32 (a global cache, a ring of 32); then q
+    # scaled so that the cap bends the logits, held against the uncapped
+    # plain version too
+    dev = torch.device("cuda")
+    sms = K2.num_sms(torch.cuda.current_device())
+    gcall = (b, gmax, GEMMA["h"], GEMMA["kh"], GEMMA["d"])
+    gring = (b, GEMMA["window"], GEMMA["h"], GEMMA["kh"], GEMMA["d"])
+    for (cb, cs, ch, ckh, cd), dt, lens, qmul in (
+            (gcall, torch.bfloat16, [gs + 8, 1, 0, gmax], 1.0),
+            (gring, torch.bfloat16, [GEMMA["window"]] * b, 1.0),
+            ((2, 48, 4, 2, 16), torch.float32, [0, 33], 1.0),
+            ((2, 32, 4, 2, 16), torch.float32, [32, 7], 1.0),
+            (gring, torch.bfloat16, [GEMMA["window"], 4000, 129, 1], 40.0),
+            ((2, 48, 4, 2, 16), torch.float32, [48, 17], 8.0)):
+        q = (rand(cb, ch, cd, dtype=torch.float32) * qmul).to(dt)
+        k, v = rand(cb, cs, ckh, cd, dtype=dt), rand(cb, cs, ckh, cd, dtype=dt)
+        ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+        kw = dict(scale=cd ** -0.5, softcap=GEMMA["softcap"])
+        got = K2.decode_attention(q, k, v, ln, **kw)
+        want = ops.decode_attention_plain(q, k, v, ln, **kw)
+        torch.cuda.synchronize()
+        chunk, splits = K2.plan(cb, cs, ch, ckh, cd, dt, sms)
+        check_close(f"K2 {(cb, cs, ch, ckh, cd)} {str(dt)[6:]} softcap {GEMMA['softcap']:g}, "
+                    f"q x {qmul:g}, lengths {lens} [chunk {chunk}, {splits} splits]", got,
+                    want, tol[dt], row_atol(want, tol[dt], (1, 2)))
+        if qmul > 1:
+            bent = max_err(want, ops.decode_attention_plain(q, k, v, ln, scale=cd ** -0.5))
+            log(f"   the cap moved the plain output by {bent:.3e}")
+            if bent <= tol[dt]:
+                raise AssertionError("the softcap case does not bend the logits")
+        del q, k, v
+
+
+@functools.cache
+def compiled_flex_attention():
+    from torch.nn.attention.flex_attention import flex_attention
+    return torch.compile(flex_attention, dynamic=False)
+
+
+def flex_attention_call(q, *, scale, softcap, mask_mod, q_len, kv_len):
+    """One call of PyTorch's `flex_attention` (compiled) computing K1's or
+    K2's function with gemma2's cap: q (B,H,Sq,D), k, v (B,KH,S,D), the cap
+    as its score_mod (after the scale, before the mask, as the kernels),
+    `mask_mod` as a block mask built here once. Returns a callable of
+    (k, v). Timed as the library cell only; the port never calls it."""
+    from torch.nn.attention.flex_attention import create_block_mask
+    block_mask = create_block_mask(mask_mod, q.shape[0], None, q_len, kv_len,
+                                   device=q.device)
+
+    def cap(score, b, h, q_idx, kv_idx):
+        return softcap * torch.tanh(score / softcap)
+
+    flex = compiled_flex_attention()
+    return lambda kk, vv: flex(q, kk, vv, score_mod=cap, block_mask=block_mask, scale=scale,
+                               enable_gqa=True)
 
 
 def kernel_phase(k1_ptxas, k4_ptxas, bwd_ptxas):
@@ -335,7 +473,13 @@ def kernel_phase(k1_ptxas, k4_ptxas, bwd_ptxas):
              ((2, 33, 4, 2, 64), torch.float32, {}),
              ((2, 300, 4, 1, 128), torch.float32, {"window": 45}),
              ((1, 65, 2, 2, 16), torch.float32, {"causal": False, "softcap": 5.0}),
-             ((2, 50, 4, 2, 16), torch.bfloat16, {"window": 20})]
+             ((2, 50, 4, 2, 16), torch.bfloat16, {"window": 20}),
+             # the other dense archs' calls: starcoder2-15b (48 query heads on
+             # 4 kv heads of 128), internvl2-1b (14 on 2 of 64, bf16 on wgmma
+             # at D 64), gemma2-9b's reduced config (window 32, capped at 50)
+             ((b, s, 48, 4, 128), torch.bfloat16, {}),
+             ((b, s, 14, 2, 64), torch.bfloat16, {}),
+             ((2, 150, 4, 2, 16), torch.float32, {"window": 32, "softcap": 50.0})]
     main_err = None
     for (cb, cs, ch, ckh, cd), dt, kw in cases:
         q = rand(cb, cs, ch, cd, dtype=dt)
@@ -353,24 +497,42 @@ def kernel_phase(k1_ptxas, k4_ptxas, bwd_ptxas):
         err = check_close(name, got, want, tol[dt])
         main_err = err if main_err is None else main_err
 
-    def time_k1(b, s, h, kh, d, window=0):
+    gemma2_attention_checks(rand, b)
+
+    def time_k1(b, s, h, kh, d, window=0, softcap=None, scale=None):
         q = rand(b, s, h, d, dtype=torch.bfloat16)
         k, v = rand(b, s, kh, d, dtype=torch.bfloat16), rand(b, s, kh, d, dtype=torch.bfloat16)
-        sc = d ** -0.5
+        sc = scale or d ** -0.5
+        kw = dict(scale=sc, window=window, softcap=softcap)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        assert window == 0 or window >= s   # then the window masks nothing: SDPA's causal
-        ms = time_ms("K1", lambda: K1.flash_attention(q, k, v, scale=sc, window=window))
-        plain_ms = time_ms("K1 plain", lambda: ops.flash_attention_plain(
-            q, k, v, scale=sc, window=window))
+        ms = time_ms("K1", lambda: K1.flash_attention(q, k, v, **kw))
+        plain_ms = time_ms("K1 plain", lambda: ops.flash_attention_plain(q, k, v, **kw))
         lib_ms = time_ms("K1 library", lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, scale=sc, enable_gqa=True))
-        flops = 4 * d * (s * (s + 1) // 2) * b * h             # causal pairs only
+        w = window if 0 < window < s else s
+        pairs = w * (w + 1) // 2 + (s - w) * w                 # the pairs the mask keeps
+        flops = 4 * d * pairs * b * h
         nbytes = (2 * b * s * h * d + 2 * b * s * kh * d) * q.element_size()
         row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                    **bound(flops, nbytes, "bfloat16"), tflops=flops / ms / 1e9)
-        log(f"   K1 at ({b},{s},{h},{kh},{d}) bf16 [{K1.route(q.dtype, d)}]: kernel_ms {ms:.4f} "
-            f"({row['tflops']:.1f} TFLOP/s) plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} "
-            f"(SDPA) bound_ms {row['bound_ms']:.4f} ({row['bound_by']})")
+        lib = f"library_ms {lib_ms:.4f} (SDPA)"
+        if softcap or w < s:
+            # SDPA computes no softcap and no window; flex_attention computes
+            # both, and its time is the library cell, SDPA's beside it
+            flex = flex_attention_call(
+                qt, scale=sc, softcap=softcap,
+                mask_mod=lambda b_, h_, qi, ki: (qi >= ki) & (qi - ki < w), q_len=s, kv_len=s)
+            want = ops.flash_attention_plain(q, k, v, **kw)
+            check_close(f"K1 library, flex_attention at ({b},{s},{h},{kh},{d}) window {window}",
+                        flex(kt, vt).transpose(1, 2), want, 2e-2, row_atol(want, 2e-2, (2, 3)))
+            del want
+            row["library_ms"] = time_ms("K1 flex_attention", lambda: flex(kt, vt))
+            row.update(library="flex_attention", sdpa_causal_uncapped_ms=lib_ms)
+            lib = (f"library_ms {row['library_ms']:.4f} (flex_attention, compiled; SDPA "
+                   f"causal, uncapped, unwindowed {lib_ms:.4f})")
+        log(f"   K1 at ({b},{s},{h},{kh},{d}) bf16, window {window}, softcap {softcap} "
+            f"[{K1.route(q.dtype, d)}]: kernel_ms {ms:.4f} ({row['tflops']:.1f} TFLOP/s) "
+            f"plain_ms {plain_ms:.4f} {lib} bound_ms {row['bound_ms']:.4f} ({row['bound_by']})")
         return row
 
     # the serving calls are bf16 at D 128 and 256: the tensor-core route
@@ -380,6 +542,12 @@ def kernel_phase(k1_ptxas, k4_ptxas, bwd_ptxas):
         replaces="src/repro/kernels/flash_attention.py:63",
         max_abs_err=main_err, **time_k1(b, s, h, kh, d))
     time_k1(b, rs, RG["h"], RG["kh"], RG["d"], RG["window"])
+    gs, gmax = SERVE["gemma2-9b"]
+    gkw = {"softcap": GEMMA["softcap"], "scale": GEMMA["scale"]}
+    rows["flash_attention"]["gemma2_call"] = time_k1(
+        b, gs, GEMMA["h"], GEMMA["kh"], GEMMA["d"], GEMMA["window"], **gkw)
+    rows["flash_attention"]["gemma2_global_call"] = time_k1(
+        b, gs, GEMMA["h"], GEMMA["kh"], GEMMA["d"], **gkw)
 
     # ---- K2 ----
     log("== kernels: K2 decode attention (split-S pass, then combine)")
@@ -471,12 +639,15 @@ def kernel_phase(k1_ptxas, k4_ptxas, bwd_ptxas):
         finally:
             K2.num_sms = real
 
-    def time_k2(b, S, h, kh, d, n_valid):
+    def time_k2(b, S, h, kh, d, n_valid, softcap=None):
         """Timing at a serving path's mid-run length, with enough caches in
         rotation that their valid rows exceed the 50 MB L2: a decode step
         finds each layer's cache cold. Also times each chunk of a sweep, the
-        plan picking it for an SM count other than the card's."""
+        plan picking it for an SM count other than the card's. SDPA computes
+        no softcap: with one, flex_attention's time is the library cell and
+        SDPA's uncapped time stands beside it, labelled."""
         sc = d ** -0.5
+        cap = dict(softcap=softcap)
         q = rand(b, h, d, dtype=torch.bfloat16)
         n_caches = max(16, -(-100_000_000 // (2 * b * S * kh * d * 2)))
         kvs = [(rand(b, S, kh, d, dtype=torch.bfloat16), rand(b, S, kh, d, dtype=torch.bfloat16))
@@ -487,29 +658,44 @@ def kernel_phase(k1_ptxas, k4_ptxas, bwd_ptxas):
                for kk, vv in kvs]
         chunk, splits = K2.plan(b, S, h, kh, d, torch.bfloat16, sms)
         ms = time_ms("K2", rotating(
-            lambda kk, vv: K2.decode_attention(q, kk, vv, ln, scale=sc), kvs), iters=32)
+            lambda kk, vv: K2.decode_attention(q, kk, vv, ln, scale=sc, **cap), kvs), iters=32)
         sweep = {}
         for c in (16, 32, 64):   # each chunk through the plan, for an SM count that picks it
             fake = b * kh * -(-S // c) // 2
             assert K2.plan(b, S, h, kh, d, torch.bfloat16, fake)[0] == c
             with k2_planning_for(fake):
                 sweep[c] = time_ms(f"K2 chunk {c}", rotating(
-                    lambda kk, vv: K2.decode_attention(q, kk, vv, ln, scale=sc), kvs), iters=32)
+                    lambda kk, vv: K2.decode_attention(q, kk, vv, ln, scale=sc, **cap), kvs),
+                    iters=32)
         passes = k2_passes(rotating(
-            lambda kk, vv: K2.decode_attention(q, kk, vv, ln, scale=sc), kvs))
+            lambda kk, vv: K2.decode_attention(q, kk, vv, ln, scale=sc, **cap), kvs))
         plain_ms = time_ms("K2 plain", rotating(
-            lambda kk, vv: ops.decode_attention_plain(q, kk, vv, ln, scale=sc), kvs), iters=32)
+            lambda kk, vv: ops.decode_attention_plain(q, kk, vv, ln, scale=sc, **cap), kvs),
+            iters=32)
         lib_ms = time_ms("K2 library", rotating(lambda kk, vv: F.scaled_dot_product_attention(
             q[:, :, None], kk, vv, attn_mask=mask, scale=sc, enable_gqa=True), kvt), iters=32)
         nbytes = (2 * b * h * d + 2 * b * n_valid * kh * d) * q.element_size() + 4 * b
         row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                    **bound(4 * b * h * n_valid * d, nbytes, "bfloat16"),
                    chunk=chunk, splits=splits, ctas=b * kh * splits)
-        log(f"   K2 at ({b},{S},{h},{kh},{d}) bf16, length {n_valid}, {n_caches} caches; plan "
-            f"chunk {chunk}, {splits} splits, {b * kh * splits} CTAs "
+        lib = f"library_ms {lib_ms:.4f} (SDPA)"
+        if softcap:
+            flex = flex_attention_call(
+                q[:, :, None].contiguous(), scale=sc, softcap=softcap,
+                mask_mod=lambda b_, h_, qi, ki: ki < ln[b_], q_len=1, kv_len=S)
+            kk, vv = kvs[0]
+            want = ops.decode_attention_plain(q, kk, vv, ln, scale=sc, **cap)
+            check_close(f"K2 library, flex_attention at ({b},{S},{h},{kh},{d}) length {n_valid}",
+                        flex(*kvt[0])[:, :, 0], want, 2e-2, row_atol(want, 2e-2, (1, 2)))
+            row["library_ms"] = time_ms("K2 flex_attention", rotating(flex, kvt), iters=32)
+            row.update(library="flex_attention", softcap=softcap, sdpa_uncapped_ms=lib_ms)
+            lib = (f"library_ms {row['library_ms']:.4f} (flex_attention, compiled; SDPA "
+                   f"uncapped {lib_ms:.4f})")
+        log(f"   K2 at ({b},{S},{h},{kh},{d}) bf16, length {n_valid}, softcap {softcap}, "
+            f"{n_caches} caches; plan chunk {chunk}, {splits} splits, {b * kh * splits} CTAs "
             f"({b * kh * -(-n_valid // chunk)} live): kernel_ms {ms:.4f} "
-            f"({nbytes / ms / 1e9:.3f} TB/s) plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} "
-            f"(SDPA) bound_ms {row['bound_ms']:.5f} ({row['bound_by']}, {nbytes / 1e6:.2f} MB); "
+            f"({nbytes / ms / 1e9:.3f} TB/s) plain_ms {plain_ms:.4f} {lib} "
+            f"bound_ms {row['bound_ms']:.5f} ({row['bound_by']}, {nbytes / 1e6:.2f} MB); "
             "kernel_ms by chunk " + ", ".join(f"{c}: {t:.4f}" for c, t in sweep.items()))
         log(f"   K2 passes, device ms a call from a profiler trace: split {passes['split']:.4f}, "
             f"combine {passes['combine']:.4f} (from its launch during the split pass), both "
@@ -523,6 +709,13 @@ def kernel_phase(k1_ptxas, k4_ptxas, bwd_ptxas):
         replaces="src/repro/kernels/decode_attention.py:51",
         max_abs_err=main_err, **time_k2(b, S, h, kh, d, PROMPT_LEN + TOKENS // 2))
     time_k2(b, rmax, RG["h"], RG["kh"], RG["d"], rs + TOKENS // 2)
+    # gemma2's calls at a served length: a global layer's cache of max_len
+    # slots, and a local layer's wrapped ring (all 4096 slots valid)
+    rows["decode_attention"]["gemma2_call"] = time_k2(
+        b, gmax, GEMMA["h"], GEMMA["kh"], GEMMA["d"], gs + TOKENS // 2, GEMMA["softcap"])
+    rows["decode_attention"]["gemma2_ring_call"] = time_k2(
+        b, GEMMA["window"], GEMMA["h"], GEMMA["kh"], GEMMA["d"], GEMMA["window"],
+        GEMMA["softcap"])
 
     # ---- K3 ----
     log("== kernels: K3 SSD chunked scan (Mamba2 prefill)")
@@ -938,8 +1131,20 @@ def describe(cfg):
                 f"{cfg.ssm_headdim}, state {cfg.ssm_state}, groups {cfg.ssm_ngroups}, conv "
                 f"{cfg.ssm_conv}, vocab {cfg.vocab_size}, tied embeddings "
                 f"{cfg.tie_embeddings}")
+    extra = [what for what, on in (
+        (f"pattern {'/'.join(cfg.attn_pattern)}, window {cfg.local_window}",
+         cfg.attn_pattern != ("global",)),
+        (f"softcaps {cfg.attn_softcap} (attention) and {cfg.final_softcap} (logits)",
+         cfg.attn_softcap or cfg.final_softcap),
+        ("sandwich norms", cfg.post_block_norm), (cfg.norm, cfg.norm != "rmsnorm"),
+        ("qkv biases", cfg.qkv_bias), ("MLP biases", cfg.mlp_bias),
+        ("tied embeddings", cfg.tie_embeddings),
+        (f"a frontend of {cfg.frontend_tokens} x {cfg.frontend_dim} (not served: text "
+         "prompts, as the JAX package's serving example)", cfg.frontend_tokens),
+    ) if on]
     return (f"d_model {cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads}, head_dim "
-            f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}")
+            f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}"
+            + "".join(f", {e}" for e in extra))
 
 
 def serve_phase(arch):
@@ -961,6 +1166,10 @@ def serve_phase(arch):
     n = sum(p.numel() for p in params.parameters())
     log(f"   params: {n} ({n * 2 / 1e9:.2f} GB bf16) built on the card in "
         f"{time.perf_counter() - t0:.1f} s; allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    if arch in DENSE_PARITY and cfg.tie_embeddings:
+        # as ring_wrap_phase: gemma2's logits at init saturate its final cap
+        params.embed.table.mul_(0.1)
+        log("   the tied table scaled by 0.1 (the logits then stay mostly inside a final cap)")
 
     # warm-up at the main path's shapes (cuBLAS handles and heuristics, the
     # caching allocator); its launches are not counted
@@ -1019,6 +1228,12 @@ def serve_phase(arch):
         if [out["first"][cid]] + out["tokens"][cid] != greedy[cid].tolist():
             raise AssertionError(f"client {cid}: served tokens differ from greedy")
     log(f"   served tokens equal greedy decoding; client 0: {out['tokens'][0][:8]}...")
+    plain = {}
+    if arch in DENSE_PARITY:
+        # both sides of the greedy check run the kernels, and a tied-embedding
+        # model's greedy tokens echo its input at init: the full-depth logits
+        # are held to the plain versions too
+        plain = full_depth_plain_check(bundle, params, prompts[:1], max_len)
 
     # where the device time goes: one profiled prefill and three decode steps
     from torch.profiler import ProfilerActivity, profile
@@ -1032,6 +1247,16 @@ def serve_phase(arch):
             tok, cache = step(params, tok, cache)
         torch.cuda.synchronize()
     dec, dec_ops = device_breakdown(prof, 3)
+    if cfg.family == "dense" and "local" in cfg.attn_pattern:
+        # the ring of a local layer: after the prefill and 3 decode steps it
+        # holds the last `size` positions, wrapped where the prompt passed it
+        from repro_torch.models.lm import layer_kinds
+        ring = cache["layers"][layer_kinds(cfg).index("local")]["pos"]
+        size, end = ring.numel(), prompt_len + 3
+        if sorted(p for p in ring.tolist() if p >= 0) != list(range(max(0, end - size), end)):
+            raise AssertionError("a local layer's ring does not hold the last positions")
+        log(f"   a local layer's ring of {size} slots holds positions {max(0, end - size)}.."
+            f"{end - 1}; slot 0 holds position {int(ring[0])}")
     # a kernel the path launches holds device time in its group, and only then
     for g, name, found in (("K1", "flash_attention", pre), ("K2", "decode_attention", dec),
                            ("K3", "ssd_scan", pre), ("K4", "rglru_scan", pre)):
@@ -1050,7 +1275,55 @@ def serve_phase(arch):
                     "tok_per_s": total / out["decode_s"], "peak_gb": peak / 1e9,
                     "prefill_device_ms": pre, "decode_device_ms_per_step": dec,
                     "decode_idle_share": 1 - dec["busy"] / wall_step,
-                    "prefill_device_ops": pre_ops, "decode_device_ops_per_step": dec_ops}
+                    "prefill_device_ops": pre_ops, "decode_device_ops_per_step": dec_ops,
+                    **plain,
+                    "tokens": {cid: [out["first"][cid]] + out["tokens"][cid]
+                               for cid in range(CLIENTS)}}
+
+
+def full_depth_plain_check(bundle, params, prompts, max_len, steps=3, rel=5e-2):
+    """One prompt's last-position logits after the prefill, then `steps`
+    decode steps' logits (both paths fed the kernels' greedy token), through
+    K1 and K2 against the same through their plain versions on the card, at
+    the serving path's full depth in bf16: each rms(got - want) <= `rel`
+    times rms(want). The kernels and the plain versions round differently
+    (bf16 P on wgmma; fp32 softmax then one bf16 rounding), and a layer's
+    difference carries through the rest of the stack."""
+    from repro_torch.kernels import ops
+
+    def rel_rms(got, want):
+        got, want = got.float(), want.float()
+        return float((got - want).pow(2).mean().sqrt() / want.pow(2).mean().sqrt())
+
+    with torch.no_grad():
+        out, cache = bundle.prefill(params, {"tokens": prompts}, max_len=max_len,
+                                    dtype=torch.bfloat16)
+        got = out.logits[:, -1].float()
+        del out
+        with plain_versions(ops, k1=True, k4=False, k2=True):
+            out, pcache = bundle.prefill(params, {"tokens": prompts}, max_len=max_len,
+                                         dtype=torch.bfloat16)
+        want = out.logits[:, -1].float()
+        del out
+        errs, same = [rel_rms(got, want)], [bool(torch.equal(got.argmax(-1), want.argmax(-1)))]
+        finite = bool(torch.isfinite(got).all())
+        tok = got.argmax(-1, keepdim=True)
+        for _ in range(steps):
+            o, cache = bundle.decode_step(params, tok, cache)
+            with plain_versions(ops, k1=True, k4=False, k2=True):
+                w, pcache = bundle.decode_step(params, tok, pcache)
+            got, want = o.logits[:, -1], w.logits[:, -1]
+            errs.append(rel_rms(got, want))
+            same.append(bool(torch.equal(got.argmax(-1), want.argmax(-1))))
+            finite &= bool(torch.isfinite(got).all())
+            tok = got.argmax(-1, keepdim=True)
+    log(f"   full depth against the plain versions (1 x {prompts.shape[1]} prompt, then "
+        f"{steps} decode steps): logits rms error / rms "
+        + ", ".join(f"{e:.3e}" for e in errs) + f" (<= {rel:g}); argmax equal {same}; "
+        f"finite {finite}")
+    if not (finite and max(errs) <= rel):
+        raise AssertionError(f"full-depth logits differ from the plain versions' by {errs}")
+    return {"plain_rel_rms_err": errs, "plain_argmax_equal": same}
 
 
 def union_ms(spans):
@@ -1130,6 +1403,90 @@ def parity_phase(arch, prompt_len):
         f"{t_cpu[0].tolist()}")
 
 
+def rows_max_err(a, b, rows=256):
+    """max |a - b| over (B, S, ...) tensors, S taken `rows` at a time, so
+    that no temporary of a whole vocab-wide logits tensor is made."""
+    return max(max_err(a[:, i:i + rows], b[:, i:i + rows]) for i in range(0, a.shape[1], rows))
+
+
+def ring_wrap_phase():
+    """gemma2-9b at full width cut to its first period, one local and one
+    global layer, fp32 with TF32 off: a 4352-token prompt passes the window
+    of 4096, so K1's window ends inside the prompt and the local layer's
+    ring of 4096 slots wraps in the prefill and goes on wrapping in decode.
+    The prefill's logits at every position, then 16 decode steps' logits
+    (both paths fed the kernels' greedy token) and greedy tokens, through
+    K1 and K2 against the same through their plain versions on the card."""
+    from repro_torch.configs.registry import get_config, make_model
+    from repro_torch.kernels import flash_attention as K1
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    prompt_len, steps = SERVE["gemma2-9b"][0], TOKENS
+    cfg = get_config("gemma2-9b").with_(num_layers=len(get_config("gemma2-9b").attn_pattern))
+    log(f"== ring wrap: {cfg.name} at full width, layers {'/'.join(cfg.attn_pattern)} "
+        f"(window {cfg.local_window}), fp32, TF32 off, 2 x {prompt_len}-token prompts and "
+        f"{steps} decode steps, kernels against their plain versions on the card")
+    bundle = make_model(cfg)
+    params = bundle.init(0, device="cuda", dtype=torch.float32)
+    # the tied table scaled by 0.1, as the train parity tests do: the logits
+    # are then about 6 a standard deviation, mostly inside the cap of 30,
+    # where at init they are 60 and saturate it. The greedy tokens still
+    # echo the input token at this init (its own logit stands far above the
+    # rest), so the comparison rests on the logits
+    params.embed.table.mul_(0.1)
+    gen = torch.Generator().manual_seed(2)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, prompt_len), generator=gen).cuda()}
+    max_len = prompt_len + steps
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        out, cache = bundle.prefill(params, batch, max_len=max_len, dtype=torch.float32)
+        routes = dict(K1.flash_attention.launches_by_route)
+        with plain_versions(ops, k1=True, k4=False, k2=True):
+            want, pcache = bundle.prefill(params, batch, max_len=max_len, dtype=torch.float32)
+        err = rows_max_err(out.logits, want.logits)
+        v_err = max_err(out.value, want.value)
+        finite = bool(torch.isfinite(out.logits).all())
+        ring = cache["layers"][0]["pos"]
+        if sorted(ring.tolist()) != list(range(prompt_len - cfg.local_window, prompt_len)):
+            raise AssertionError("the local layer's ring does not hold the last 4096 positions")
+        log(f"   prefill through K1 {routes} against the plain versions: logits (2, "
+            f"{prompt_len}, {cfg.vocab_size}) max_abs_err {err:.3e}, value {v_err:.3e} (< 1e-3; "
+            f"the logits are capped at {cfg.final_softcap}); finite {finite}; slot 0 of the "
+            f"ring holds position {int(ring[0])}")
+        if not (finite and err < 1e-3 and v_err < 1e-3):
+            raise AssertionError(f"ring-wrap prefill differs from the plain versions by {err}")
+        tok = out.logits[:, -1].argmax(-1, keepdim=True)
+        ptok = want.logits[:, -1].argmax(-1, keepdim=True)
+        del out, want
+        toks, ptoks, d_err = [tok], [ptok], 0.0
+        for _ in range(steps):
+            o, cache = bundle.decode_step(params, tok, cache)
+            with plain_versions(ops, k1=True, k4=False, k2=True):
+                w, pcache = bundle.decode_step(params, tok, pcache)
+            d_err = max(d_err, max_err(o.logits, w.logits), max_err(o.value, w.value))
+            tok, ptok = o.logits[:, -1].argmax(-1, keepdim=True), w.logits[:, -1].argmax(
+                -1, keepdim=True)
+            toks.append(tok)
+            ptoks.append(ptok)
+    counts = ops.launch_counts()
+    got, plain = torch.cat(toks, 1), torch.cat(ptoks, 1)
+    if counts != {**dict.fromkeys(counts, 0), "flash_attention": cfg.num_layers,
+                  "decode_attention": cfg.num_layers * steps}:
+        raise AssertionError(f"launches {counts}: expected K1 {cfg.num_layers} and K2 "
+                             f"{cfg.num_layers * steps}")
+    if not (d_err < 1e-3 and torch.equal(got, plain)):
+        raise AssertionError(f"decode differs from the plain versions: logits by {d_err}, "
+                             f"tokens\n{got.cpu()}\n{plain.cpu()}")
+    seconds = time.perf_counter() - t0
+    log(f"   {steps} decode steps (positions {prompt_len}..{max_len - 1}, the ring's slots "
+        f"{prompt_len % cfg.local_window}..{(max_len - 1) % cfg.local_window}): logits and "
+        f"value max_abs_err {d_err:.3e} (< 1e-3), greedy tokens equal the plain versions' "
+        f"(row 0: {got[0, :6].tolist()}...); launches {counts}; {seconds:.1f} s")
+    return {"prefill_logits_max_abs_err": err, "value_max_abs_err": v_err,
+            "decode_max_abs_err": d_err, "seconds": seconds}
+
+
 def grad_guard_phase():
     """A kernel with no backward kernel refuses an input that requires a
     gradient, rather than return a tensor with no grad_fn."""
@@ -1158,19 +1515,23 @@ def grad_guard_phase():
 
 
 @contextlib.contextmanager
-def plain_versions(ops, k1=True, k4=True):
-    """The model's calls of K1 and/or K4 (``ops.flash_attention``,
-    ``ops.rglru_scan``) taken by their plain versions on the card, for the
-    gradient comparison only; the port's wrappers never do this."""
-    saved = ops.flash_attention, ops.rglru_scan
+def plain_versions(ops, k1=True, k4=True, k2=False):
+    """The model's calls of K1, K4 and/or K2 (``ops.flash_attention``,
+    ``ops.rglru_scan``, ``ops.decode_attention``) taken by their plain
+    versions on the card, for a comparison only; the port's wrappers never
+    do this."""
+    saved = ops.flash_attention, ops.rglru_scan, ops.decode_attention
     if k1:
         ops.flash_attention = lambda q, k, v, **kw: ops.flash_attention_plain(q, k, v, **kw)
     if k4:
         ops.rglru_scan = lambda a, b, **kw: ops.rglru_scan_plain(a, b, **kw)
+    if k2:
+        ops.decode_attention = lambda q, k, v, lengths, **kw: ops.decode_attention_plain(
+            q, k, v, lengths, **kw)
     try:
         yield
     finally:
-        ops.flash_attention, ops.rglru_scan = saved
+        ops.flash_attention, ops.rglru_scan, ops.decode_attention = saved
 
 
 def flash_attention_fp64(q, k, v, *, causal=True, window=0, softcap=None, scale=None):
@@ -2923,18 +3284,31 @@ def main():
     # each path is driven with the counts set to 0 just before it and read
     # just after; a kernel's launches are the sum over the paths that run it
     # (K1 and K2 run on qwen3's and RecurrentGemma's)
-    serve_metrics, launches = {}, dict.fromkeys(rows, 0)
+    serve_metrics, launches, phase_s = {}, dict.fromkeys(rows, 0), {}
     for arch in SERVE:
+        t0 = time.perf_counter()
         counts, serve_metrics[arch] = serve_phase(arch)
         for name in launches:
             launches[name] += counts[name]
         torch.cuda.empty_cache()
+        phase_s[f"serve {arch}"] = serve_metrics[arch]["seconds"] = time.perf_counter() - t0
+        log(f"   serve {arch}: {phase_s[f'serve {arch}']:.1f} s")
+    # a comparison with the plain versions: its launches are not the path's
+    ring_metrics = ring_wrap_phase()
+    phase_s["ring wrap gemma2-9b"] = ring_metrics["seconds"]
+    torch.cuda.empty_cache()
     # mamba: 150 tokens span two of K3's 64-step chunks and a tail;
-    # RecurrentGemma: 150 tokens overflow the reduced config's window of 32,
-    # so K1's window mask and the ring's wrap in prefill and decode all run
+    # RecurrentGemma and gemma2: 150 tokens overflow the reduced config's
+    # window of 32, so K1's window mask and the ring's wrap in prefill and
+    # decode all run
     parity_phase("qwen3-14b", 24)
     parity_phase("mamba2-2.7b", 150)
     parity_phase("recurrentgemma-2b", 150)
+    for arch in DENSE_PARITY:
+        t0 = time.perf_counter()
+        parity_phase(arch, 150)
+        phase_s[f"parity {arch}"] = time.perf_counter() - t0
+        log(f"   parity {arch}: {phase_s[f'parity {arch}']:.1f} s")
     grad_guard_phase()
     train_parity_phase()
     torch.cuda.empty_cache()
@@ -2978,6 +3352,9 @@ def main():
         row["launches"] = launches[name]
     for arch, metrics in serve_metrics.items():
         log(f"serve {arch}: {json.dumps(metrics)}")
+    log(f"ring wrap gemma2-9b: {json.dumps(ring_metrics)}")
+    log(f"seconds of the serve, ring-wrap and new parity phases: "
+        f"{json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     log(f"train {TRAIN['arch']}: {json.dumps(train_metrics)}")
     log(f"r2d2: {json.dumps(r2d2_metrics)}")
     log(f"vtrace: {json.dumps(vtrace_metrics)}")

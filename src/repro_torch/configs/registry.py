@@ -10,6 +10,10 @@ _MODULES = {
     "qwen3-14b": "repro_torch.configs.qwen3_14b",
     "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
+    "gemma2-9b": "repro_torch.configs.gemma2_9b",
+    "starcoder2-15b": "repro_torch.configs.starcoder2_15b",
+    "qwen2.5-32b": "repro_torch.configs.qwen2_5_32b",
+    "internvl2-1b": "repro_torch.configs.internvl2_1b",
     "r2d2-atari": "repro_torch.configs.r2d2_atari",
 }
 
@@ -62,5 +66,7 @@ def smoke_config(arch: str):
                      num_layers=len(cfg.block_pattern) + 2)
     if cfg.attn_pattern != ("global",):
         small.update(num_layers=len(cfg.attn_pattern) * 2, local_window=32)
+    if cfg.frontend_tokens:
+        small.update(frontend_tokens=8, frontend_dim=24)
     return cfg.with_(**small, remat="none", fsdp="none", tp=1,
                      grad_accum=1, optimizer_dtype="float32")

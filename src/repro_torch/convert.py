@@ -1,11 +1,12 @@
 """Parameter conversion from the JAX package's param tree to the port's.
 
 The JAX models stack each block parameter along a leading layer axis, under
-``main.p0.*`` in the dense LM (one pattern period, scanned) and under
 ``blocks.*`` in Mamba; the port keeps one module per layer under
-``blocks.{i}.*``. RecurrentGemma scans periods of P layers: leaf ``[j]`` of
-``main.p{k}.*`` is layer P*j + k, and the unscanned ``rest{j}.*`` that
-follow the n_scan periods are layers n_scan*P + j. Every tensor keeps the
+``blocks.{i}.*``. The dense LM and RecurrentGemma scan periods of P layers
+(P = len(attn_pattern), 2 for gemma2's local/global, 1 for the others; P =
+len(block_pattern) for RecurrentGemma): leaf ``[j]`` of ``main.p{k}.*`` is
+layer P*j + k, and RecurrentGemma's unscanned ``rest{j}.*`` that follow
+the n_scan periods are layers n_scan*P + j. Every tensor keeps the
 JAX layout (wq (d,H,hd), wo (H,hd,d), wi (d,ff), unembed (d,V), in_proj
 (d, ...), conv.w (W,C)), so only the layer axis moves. The R2D2 agent
 (``atari``) stacks nothing, so its names and layouts pass through, as
@@ -38,18 +39,21 @@ def params_from_jax(cfg, params_np) -> dict:
     if cfg.family == "atari":
         return {name: _tensor(arr) for name, arr in _flatten(params_np)}
     if cfg.family == "hybrid":
-        return _hybrid_from_jax(cfg, params_np)
-    if cfg.family == "ssm":
-        stacked = "blocks."
-    elif "pre" in params_np or set(params_np.get("main", {})) != {"p0"}:
-        raise NotImplementedError("only single-period stacks without dense "
-                                  "pre-layers are ported (dense global LM)")
-    else:
-        stacked = "main.p0."
+        return _periods_from_jax(params_np, len(cfg.block_pattern),
+                                 cfg.num_layers // len(cfg.block_pattern))
+    if cfg.family != "ssm":
+        if "pre" in params_np:
+            raise NotImplementedError("first dense layers (the stack 'pre') are not "
+                                      "ported yet (MoE slice)")
+        period = len(cfg.attn_pattern)
+        if set(params_np.get("main", {})) != {f"p{k}" for k in range(period)}:
+            raise ValueError(f"main stacks {sorted(params_np.get('main', {}))} do not "
+                             f"match the pattern {cfg.attn_pattern}")
+        return _periods_from_jax(params_np, period, cfg.num_layers // period)
     out = {}
     for name, arr in _flatten(params_np):
-        if name.startswith(stacked):
-            rest = name[len(stacked):]
+        if name.startswith("blocks."):
+            rest = name[len("blocks."):]
             if arr.shape[0] != cfg.num_layers:
                 raise ValueError(f"{name}: leading axis {arr.shape[0]} != "
                                  f"num_layers {cfg.num_layers}")
@@ -60,9 +64,7 @@ def params_from_jax(cfg, params_np) -> dict:
     return out
 
 
-def _hybrid_from_jax(cfg, params_np) -> dict:
-    period = len(cfg.block_pattern)
-    n_scan = cfg.num_layers // period
+def _periods_from_jax(params_np, period, n_scan) -> dict:
     out = {}
     for name, arr in _flatten(params_np):
         head, _, rest = name.partition(".")

@@ -7,7 +7,11 @@
 // to -1e30, and the output acc / max(l, 1e-30) in q's dtype. A row whose
 // length is 0 has every logit masked, so it returns the mean of all S cached
 // V rows, as the Pallas kernel and its oracle do; a length past S counts as
-// S. All arithmetic is fp32.
+// S. All arithmetic is fp32. With softcap > 0 each logit is capped after
+// the scale, cap * tanh(s / cap), before the mask and the softmax, as the
+// reference's decode (`repro/nn/attention.py::attend_ref`, gemma2's
+// attention softcap) does; the Pallas kernel has no softcap. softcap 0
+// skips it, so the uncapped arithmetic is the same as without it.
 //
 // Layout: q and o are (B, H, D); k and v are (B, S, KH, D) with KH dividing
 // H, query head h reading kv head h / (H / KH). The head-expanded cache of
@@ -20,7 +24,10 @@
 // operations (4 * B * H * len * D) are far below the compute roof. At
 // qwen3's serving call (B 4, KH 8, D 128, bf16, length 264) that is about
 // 4.5 MB, 1.3 us; at RecurrentGemma's (B 4, 10 query heads on KH 1, D 256,
-// a ring of 576 slots, length 520) about 2.2 MB, 0.65 us.
+// a ring of 576 slots, length 520) about 2.2 MB, 0.65 us; at gemma2's (B 4,
+// 16 query heads on KH 8, D 256, length 4360 of a 4416-slot cache) about
+// 143 MB, 43 us, where the softcap's one tanhf a logit (0.28 M of them) is
+// far below the bytes.
 //
 // Why the earlier design could not reach it: one CTA per (kv head, block of
 // query heads, batch row) gave 32 CTAs at qwen3's call and 8 at
@@ -170,7 +177,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(NT)
 decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const int* __restrict__ lengths, float* __restrict__ ws, int B, int S,
-                    int H, int KH, int chunk, float scale) {
+                    int H, int KH, int chunk, float scale, float softcap) {
   constexpr int E = 16 / sizeof(T);  // values in 16 bytes
   constexpr int KS = D + E;          // a K row in shared memory, padded by 16 bytes
   constexpr int PIECES = D / E;      // 16-byte pieces of a row
@@ -214,7 +221,14 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   for (int i = threadIdx.x; i < G * chunk; i += NT) {
     const int g = i / chunk, p = i - g * chunk;
     float s = -INFINITY;                    // not a position of this row
-    if (p < cnt) s = empty ? NEG : dot_row<D>(qs + g * D, ks + p * KS) * scale;
+    if (p < cnt) {
+      if (empty) {
+        s = NEG;
+      } else {
+        s = dot_row<D>(qs + g * D, ks + p * KS) * scale;
+        if (softcap > 0.f) s = softcap * tanhf(s / softcap);
+      }
+    }
     ps[i] = s;
   }
   __syncthreads();
@@ -297,7 +311,8 @@ decode_combine_kernel(const float* __restrict__ ws, const int* __restrict__ leng
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* lengths, void* o, void* ws,
-           int B, int S, int H, int KH, int chunk, float scale, cudaStream_t stream) {
+           int B, int S, int H, int KH, int chunk, float scale, float softcap,
+           cudaStream_t stream) {
   const long smem = smem_bytes(chunk, H / KH, D, (int)sizeof(T));
   if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
   static std::atomic<unsigned long long> opted_in{0};
@@ -307,7 +322,8 @@ int launch(const void* q, const void* k, const void* v, const void* lengths, voi
   const int splits = (S + chunk - 1) / chunk;
   decode_split_kernel<T, D><<<dim3(splits, KH, B), NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(lengths), static_cast<float*>(ws), B, S, H, KH, chunk, scale);
+      static_cast<const int*>(lengths), static_cast<float*>(ws), B, S, H, KH, chunk, scale,
+      softcap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   // a programmatic dependent launch: the combine grid launches while the
@@ -329,12 +345,15 @@ int launch(const void* q, const void* k, const void* v, const void* lengths, voi
 
 template <typename T>
 int dispatch_d(int D, const void* q, const void* k, const void* v, const void* lengths, void* o,
-               void* ws, int B, int S, int H, int KH, int chunk, float scale, cudaStream_t st) {
+               void* ws, int B, int S, int H, int KH, int chunk, float scale, float cap,
+               cudaStream_t st) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, lengths, o, ws, B, S, H, KH, chunk, scale, st);
-    case 64: return launch<T, 64>(q, k, v, lengths, o, ws, B, S, H, KH, chunk, scale, st);
-    case 128: return launch<T, 128>(q, k, v, lengths, o, ws, B, S, H, KH, chunk, scale, st);
-    case 256: return launch<T, 256>(q, k, v, lengths, o, ws, B, S, H, KH, chunk, scale, st);
+    case 16: return launch<T, 16>(q, k, v, lengths, o, ws, B, S, H, KH, chunk, scale, cap, st);
+    case 64: return launch<T, 64>(q, k, v, lengths, o, ws, B, S, H, KH, chunk, scale, cap, st);
+    case 128:
+      return launch<T, 128>(q, k, v, lengths, o, ws, B, S, H, KH, chunk, scale, cap, st);
+    case 256:
+      return launch<T, 256>(q, k, v, lengths, o, ws, B, S, H, KH, chunk, scale, cap, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -343,21 +362,26 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, const void* l
 
 // dtype: 0 float32, 1 bfloat16; lengths is int32 on the device; ws is an
 // fp32 workspace of (ceil(S / chunk), B, H, D + 2); chunk is a power of two
-// >= 16 whose CTA fits the shared memory. Returns cudaGetLastError() after
+// >= 16 whose CTA fits the shared memory; softcap > 0 caps the scaled
+// logits, 0 leaves them. Returns cudaGetLastError() after
 // the launches (0 on success); launches on `stream` and does not
 // synchronise.
 extern "C" int decode_attention(int dtype, const void* q, const void* k, const void* v,
                                 const void* lengths, void* o, void* ws, int B, int S, int H,
-                                int KH, int D, int chunk, float scale, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || KH <= 0 || H % KH != 0 || B > 65535 || KH > 65535)
+                                int KH, int D, int chunk, float scale, float softcap,
+                                void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || KH <= 0 || H % KH != 0 || B > 65535 || KH > 65535 ||
+      !(softcap >= 0.f))
     return (int)cudaErrorInvalidValue;
   if (chunk < MIN_CHUNK || (chunk & (chunk - 1)) != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return dispatch_d<float>(D, q, k, v, lengths, o, ws, B, S, H, KH, chunk, scale, st);
+    case 0:
+      return dispatch_d<float>(D, q, k, v, lengths, o, ws, B, S, H, KH, chunk, scale, softcap,
+                               st);
     case 1:
       return dispatch_d<__nv_bfloat16>(D, q, k, v, lengths, o, ws, B, S, H, KH, chunk, scale,
-                                       st);
+                                       softcap, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -7,7 +7,9 @@ head, serving all of that kv head's query heads) and a combine pass
 (``decode_combine_kernel``), launched by one C call. ``plan`` picks the
 chunk from shapes alone. The plain PyTorch version is
 ``ref.decode_attention_ref``, which ``ops.decode_attention`` takes for CPU
-tensors.
+tensors. ``softcap`` caps the scaled logits in the split pass, as gemma2's
+attention does; the Pallas kernel has none, the JAX model's decode
+(``attend_ref``) has it.
 """
 
 import ctypes
@@ -59,14 +61,15 @@ def _fn():
     """The C entry point, built, loaded and typed once per process."""
     fn = build.load("decode_attention").decode_attention
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def decode_attention(q, k, v, lengths, *, scale=None):
+def decode_attention(q, k, v, lengths, *, scale=None, softcap=None):
     """q (B,H,D); k,v (B,S,KH,D) with KH dividing H; lengths (B,) int32.
     Contiguous CUDA tensors, q/k/v of one dtype, k and v 16-byte aligned.
+    `softcap` (None or 0: none) caps each scaled logit to cap * tanh(s / cap).
     Returns (B,H,D) in q's dtype. Launches on the current stream, no sync."""
     if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"want q (B,H,D), k = v (B,S,KH,D); got "
@@ -90,6 +93,8 @@ def decode_attention(q, k, v, lengths, *, scale=None):
     if kp % 16 or vp % 16:
         raise ValueError("decode_attention kernel copies k and v 16 bytes at a time: "
                          "they must be 16-byte aligned")
+    if softcap is not None and softcap < 0:
+        raise ValueError(f"softcap must be positive or None, got {softcap}")
     scale = scale if scale is not None else d ** -0.5
     chunk, splits = plan(b, s, h, kh, d, q.dtype, num_sms(q.device.index))
     out = torch.empty_like(q)
@@ -98,7 +103,8 @@ def decode_attention(q, k, v, lengths, *, scale=None):
     with torch.cuda.device(q.device):
         err = fn(DTYPES[q.dtype], q.data_ptr(), kp, vp,
                  lengths.data_ptr(), out.data_ptr(), ws.data_ptr(), b, s, h, kh, d,
-                 chunk, float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+                 chunk, float(scale), float(softcap or 0.0),
+                 torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"decode_attention launch failed: CUDA error {err}")
     decode_attention.launches += 1

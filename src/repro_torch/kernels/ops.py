@@ -160,21 +160,22 @@ def _mask(s, causal, window, device):
     return ok
 
 
-def decode_attention_plain(q, k, v, lengths, *, scale=None):
+def decode_attention_plain(q, k, v, lengths, *, scale=None, softcap=None):
     """Plain PyTorch version of `decode_attention` (any device)."""
     h = q.shape[1]
     return decode_attention_ref(q, _expand_kv(k, h), _expand_kv(v, h), lengths,
-                                scale=scale)
+                                scale=scale, softcap=softcap)
 
 
-def decode_attention(q, k, v, lengths, *, scale=None):
-    """q (B,H,D); k,v (B,S,KH,D) with KH dividing H; lengths (B,)."""
+def decode_attention(q, k, v, lengths, *, scale=None, softcap=None):
+    """q (B,H,D); k,v (B,S,KH,D) with KH dividing H; lengths (B,). `softcap`
+    caps the scaled logits (gemma2), which the Pallas kernel does not."""
     if _on_cpu(q, k, v, lengths):
-        return decode_attention_plain(q, k, v, lengths, scale=scale)
+        return decode_attention_plain(q, k, v, lengths, scale=scale, softcap=softcap)
     if needs_grad(q, k, v):
         raise _no_backward("K2 (decode attention)", "decode is served under no_grad; "
                            "no training path decodes")
-    return _decode.decode_attention(q, k, v, lengths, scale=scale)
+    return _decode.decode_attention(q, k, v, lengths, scale=scale, softcap=softcap)
 
 
 def ssd_scan_plain(x, dt, a, b, c, *, chunk=128, h0=None):

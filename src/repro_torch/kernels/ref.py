@@ -29,11 +29,15 @@ def attention_ref(q, k, v, *, scale=None, causal=True, window=0, softcap=None):
     return torch.einsum("bqk,bkd->bqd", w, v.float()).to(q.dtype)
 
 
-def decode_attention_ref(q, k, v, lengths, *, scale=None):
-    """q (B,H,D); k,v (B,S,H,D); lengths (B,) valid prefix lengths."""
+def decode_attention_ref(q, k, v, lengths, *, scale=None, softcap=None):
+    """q (B,H,D); k,v (B,S,H,D); lengths (B,) valid prefix lengths. With
+    `softcap`, the scaled logits are capped before the mask, as the JAX
+    model's decode (``attend_ref``) does."""
     b, s, h, d = k.shape
     scale = scale if scale is not None else d ** -0.5
     logits = torch.einsum("bhd,bshd->bhs", q.float(), k.float()) * scale
+    if softcap:
+        logits = softcap * torch.tanh(logits / softcap)
     ok = torch.arange(s, device=q.device)[None, None, :] < lengths[:, None, None]
     logits = torch.where(ok, logits, NEG_INF)
     w = torch.softmax(logits, dim=-1)

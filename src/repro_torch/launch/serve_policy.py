@@ -5,14 +5,19 @@ policy): batched prefill, then N clients decode token by token through the
     PYTHONPATH=src python -m repro_torch.launch.serve_policy --arch qwen3-14b
     PYTHONPATH=src python -m repro_torch.launch.serve_policy --arch mamba2-2.7b
     PYTHONPATH=src python -m repro_torch.launch.serve_policy --arch recurrentgemma-2b
+    PYTHONPATH=src python -m repro_torch.launch.serve_policy --arch gemma2-9b
 
-runs the reduced config (``smoke_config``) of a ported arch on the card;
-``--device cpu`` runs the plain PyTorch path. ``chip_smoke.py`` serves all
-three at their published widths in bf16 by calling ``serve`` directly.
-qwen3-14b decodes against a KV cache of ``max_len`` slots; mamba2-2.7b
-carries a fixed-size state per layer and ignores ``max_len``;
-recurrentgemma-2b carries a state per recurrent layer and a ring of
-min(``max_len``, window) slots per local-attention layer.
+runs the reduced config (``smoke_config``) of a ported arch on the card
+(``--arch`` takes every LM of ``configs.registry.list_archs``: also
+starcoder2-15b, qwen2.5-32b and internvl2-1b); ``--device cpu`` runs the
+plain PyTorch path. ``chip_smoke.py`` serves them at their published
+widths in bf16 by calling ``serve`` directly. The dense LMs decode against
+a KV cache of ``max_len`` slots (gemma2's local layers a ring of
+min(``max_len``, window) slots); mamba2-2.7b carries a fixed-size state
+per layer and ignores ``max_len``; recurrentgemma-2b carries a state per
+recurrent layer and a ring per local-attention layer. internvl2-1b is
+served on text prompts: its frontend's patch embeddings are not part of
+a serving request, as in the JAX package's serving example.
 
 Every client gets its own seeded prompt. The server hands out slots in
 first-sight order, so the slots are claimed for clients 0..N-1 before the
@@ -31,7 +36,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs.registry import make_model, smoke_config
+from repro_torch.configs.registry import list_archs, make_model, smoke_config
 from repro_torch.core.inference import InferenceServer, ReplyError
 from repro_torch.device import dtype_of, resolve
 from repro_torch.launch.serve import make_prefill, make_serve_step
@@ -127,7 +132,7 @@ def serve(cfg, *, clients=4, prompt_len=8, tokens=12, max_len=64,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="qwen3-14b")
+    ap.add_argument("--arch", default="qwen3-14b", choices=list_archs())
     ap.add_argument("--clients", type=int, default=4)
     ap.add_argument("--tokens", type=int, default=12)
     ap.add_argument("--device", default="cuda")

@@ -1,4 +1,5 @@
-"""Shared model scaffolding: bundles, outputs, the value head and remat."""
+"""Shared model scaffolding: bundles, outputs, the value and q heads, the
+modality frontend's projection and remat."""
 
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
@@ -21,6 +22,27 @@ class ValueHead(nn.Module):
                               requires_grad=False)
         self.b = nn.Parameter(inits.zeros(gen, (1,), dtype, device),
                               requires_grad=False)
+
+
+class QHead(nn.Module):
+    """w (d, A), b (A,): the R2D2 q head of ``repro.models.common``."""
+
+    def __init__(self, d, n_actions, *, gen=None, dtype=torch.float32, device="cpu"):
+        super().__init__()
+        self.w = nn.Parameter(inits.fan_in()(gen, (d, n_actions), dtype, device),
+                              requires_grad=False)
+        self.b = nn.Parameter(inits.zeros(gen, (n_actions,), dtype, device),
+                              requires_grad=False)
+
+
+class FrontendProj(nn.Module):
+    """w (frontend_dim, d): the modality stub's projection of precomputed
+    patch or frame embeddings to d_model (``init_frontend_proj``)."""
+
+    def __init__(self, cfg, *, gen=None, dtype=torch.float32, device="cpu"):
+        super().__init__()
+        self.w = nn.Parameter(inits.fan_in()(gen, (cfg.frontend_dim, cfg.d_model), dtype,
+                                             device), requires_grad=False)
 
 
 def maybe_remat(fn, remat: str):
@@ -48,11 +70,20 @@ def value_head(p, x):
     return (x.float() @ p.w.float() + p.b.float())[..., 0]
 
 
+def q_head(p, x):
+    return x.float() @ p.w.float() + p.b.float()
+
+
 def lm_outputs(cfg, params, x):
-    """Final norm, then the fp32 logits and the value of every position."""
+    """Final norm, then the fp32 logits (capped by `cfg.final_softcap`) and
+    the value of every position. A model with a q head (R2D2) returns its
+    q values (B,S,A) as the logits."""
     h = apply_norm(params.final_norm, x, cfg.norm_eps, cfg.gemma_scale)
-    return ModelOutputs(logits=unembed(cfg, params.embed, h),
-                        value=value_head(params.value_head, h))
+    if getattr(params, "q_head", None) is not None:
+        logits = q_head(params.q_head, h)
+    else:
+        logits = unembed(cfg, params.embed, h, softcap=cfg.final_softcap)
+    return ModelOutputs(logits=logits, value=value_head(params.value_head, h))
 
 
 def as_tokens(params, tokens):
@@ -74,5 +105,5 @@ class ModelBundle:
 
 @dataclass
 class ModelOutputs:
-    logits: torch.Tensor            # (B, S, vocab) fp32
+    logits: torch.Tensor            # (B, S, vocab) fp32 (or (B, S, A) for q-nets)
     value: Optional[torch.Tensor]   # (B, S) fp32

@@ -1,14 +1,16 @@
-"""Multi-head attention with GQA, qk-norm, local windows and a KV cache.
+"""Multi-head attention with GQA, qkv biases, qk-norm, local windows,
+softcaps and a KV cache.
 
 Mirrors ``repro.nn.attention``. Prefill goes through ``ops.flash_attention``
 (K1) and one-token decode through ``ops.decode_attention`` (K2); on the card
 both are the hand-written CUDA kernels, on the CPU their plain versions.
-Both read the unexpanded GQA cache, so no head-expanded copy is built.
+Both read the unexpanded GQA cache, so no head-expanded copy is built, and
+both cap the scaled logits with ``cfg.attn_softcap`` (gemma2) before the
+mask, as the JAX model's ``attend_ref`` does.
 
 A local (sliding-window) layer keeps a ring cache of min(max_len, window)
 slots, position p at slot p % size, as the JAX package does; RecurrentGemma
-uses it. Softcaps come with the gemma2 slice, and
-``models.lm.check_supported`` still refuses a dense LM with local layers.
+and gemma2's local layers use it.
 
 The cache is updated in place (the JAX serve step donates it, so the
 memory behaviour is the same); each call also returns the cache it wrote.
@@ -26,9 +28,9 @@ from repro_torch.nn.rope import apply_rope
 
 
 class Attention(nn.Module):
-    """wq (d,H,hd), wk/wv (d,K,hd), wo (H,hd,d), qk-norm scales: the JAX
-    package's layout. (qkv biases and padded heads come with the slices
-    whose configs use them.)"""
+    """wq (d,H,hd), wk/wv (d,K,hd), wo (H,hd,d), the biases bq (H,hd) and
+    bk/bv (K,hd) with `cfg.qkv_bias`, qk-norm scales: the JAX package's
+    layout. (Padded heads come with the sharding slice.)"""
 
     def __init__(self, cfg, *, gen=None, dtype=torch.float32, device="cpu"):
         super().__init__()
@@ -40,7 +42,12 @@ class Attention(nn.Module):
         self.wk = mk((d, k, hd), inits.fan_in())
         self.wv = mk((d, k, hd), inits.fan_in())
         self.wo = mk((h, hd, d), inits.fan_in(in_axes=(0, 1)))
-        kw = dict(gen=gen, dtype=dtype, device=device)
+        self.bq = self.bk = self.bv = None
+        if cfg.qkv_bias:
+            self.bq = mk((h, hd), inits.zeros)
+            self.bk = mk((k, hd), inits.zeros)
+            self.bv = mk((k, hd), inits.zeros)
+        kw = dict(kind=cfg.norm, gen=gen, dtype=dtype, device=device)
         self.q_norm = Norm(hd, **kw) if cfg.qk_norm else None
         self.k_norm = Norm(hd, **kw) if cfg.qk_norm else None
 
@@ -64,8 +71,11 @@ def _out_proj(out, wo):
 
 def qkv_project(cfg, p, x):
     """x (B,S,d) -> q (B,S,H,hd), k,v (B,S,K,hd), with rope NOT yet applied.
-    qk-norm comes before rope, as in the JAX package."""
+    The biases, then qk-norm, come before rope, as in the JAX package."""
     q, k, v = _proj(x, p.wq), _proj(x, p.wk), _proj(x, p.wv)
+    if p.bq is not None:
+        dt = x.dtype
+        q, k, v = q + p.bq.to(dt), k + p.bk.to(dt), v + p.bv.to(dt)
     if p.q_norm is not None:
         q = apply_norm(p.q_norm, q, cfg.norm_eps)
         k = apply_norm(p.k_norm, k, cfg.norm_eps)
@@ -86,7 +96,8 @@ def attention(cfg, p, x, positions, *, kind="global",
     k = apply_rope(k, positions, cfg.rope_theta)
     window = cfg.local_window if kind == "local" else 0
     out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                              causal=True, window=window, softcap=None, scale=scale)
+                              causal=True, window=window, softcap=cfg.attn_softcap,
+                              scale=scale)
     y = _out_proj(out, p.wo)
     new_cache = None
     if cache is not None:
@@ -149,11 +160,13 @@ def decode_attention(cfg, p, x, index, cache, *, kind="global"):
     # positions 0..index and the rest are empty, so length = index + 1. A
     # ring of size <= window holds only positions inside the window, the
     # last min(index + 1, size) of them in slots 0..min(index + 1, size) - 1,
-    # and softmax does not care about their order.
+    # and softmax does not care about their order. Past the wrap (index + 1
+    # > size) every slot holds one of the last `size` positions, all inside
+    # the window, so length = size.
     n_valid = pos + 1 if kind == "global" else torch.clamp(pos + 1, max=size)
     lengths = n_valid.to(torch.int32).expand(b).contiguous()
     # The kernel reads one dtype, so q is rounded to the cache's dtype (a
     # no-op when compute and cache dtypes agree, as on the serving path).
     out = ops.decode_attention(q[:, 0].to(ck.dtype).contiguous(), ck, cv,
-                               lengths, scale=scale)[:, None]
+                               lengths, scale=scale, softcap=cfg.attn_softcap)[:, None]
     return _out_proj(out, p.wo), cache

@@ -1,6 +1,5 @@
 """Token embedding table (vocab padded to the TP degree) + logits head,
-with gemma's embedding scale. (The final softcap of ``repro.nn.embed``
-comes with the gemma2 slice.)"""
+with gemma's embedding scale and gemma2's final logit softcap."""
 
 import math
 
@@ -32,11 +31,20 @@ def embed(cfg, p, tokens, scale_by_dim=False):
     return x.to(dtype_of(cfg.compute_dtype))
 
 
-def unembed(cfg, p, x):
-    """x (B,S,d) -> fp32 logits (B,S,padded_vocab); padded ids masked to -1e30.
-    Tied embeddings read the table transposed (a view, not a copy)."""
+def unembed(cfg, p, x, softcap=None):
+    """x (B,S,d) -> fp32 logits (B,S,padded_vocab), capped to
+    softcap * tanh(logits / softcap) in fp32 with `softcap`; then padded
+    ids masked to -1e30. Tied embeddings read the table transposed (a view,
+    not a copy). Without grad mode the cap runs in place: at gemma2's
+    vocab a 4 x 4352 prefill's logits take 17.8 GB, and out of place the
+    cap would hold three such buffers at once."""
     w = p.table.t() if cfg.tie_embeddings else p.unembed
     logits = (x @ w.to(x.dtype)).float()
+    if softcap:
+        if torch.is_grad_enabled():
+            logits = softcap * torch.tanh(logits / softcap)
+        else:
+            logits.div_(softcap).tanh_().mul_(softcap)
     if cfg.padded_vocab != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = -1e30
     return logits

@@ -1,5 +1,6 @@
-"""Gated MLP (SwiGLU / GeGLU). (Biases, relu and the plain MLP of
-``repro.nn.mlp`` come with the slices whose models use them.)
+"""Gated MLP (SwiGLU / GeGLU), with optional biases. (The ungated MLP of
+``repro.nn.mlp`` comes with the slice whose model uses it: no dense LM
+of the reference builds one.)
 
 ``jax.nn.gelu`` defaults to the tanh approximation, and the JAX package
 takes that default under both names, so both are ``approximate="tanh"``
@@ -15,13 +16,15 @@ from repro_torch.nn import init as inits
 
 ACTS = {"silu": F.silu,
         "gelu": functools.partial(F.gelu, approximate="tanh"),
-        "gelu_tanh": functools.partial(F.gelu, approximate="tanh")}
+        "gelu_tanh": functools.partial(F.gelu, approximate="tanh"),
+        "relu": F.relu}
 
 
 class MLP(nn.Module):
-    """wi, wg (d, d_ff) and wo (d_ff, d): the JAX package's layout."""
+    """wi, wg (d, d_ff), wo (d_ff, d) and, with `bias`, bi (d_ff,) and bo
+    (d,): the JAX package's layout."""
 
-    def __init__(self, d, d_ff, *, gen=None, dtype=torch.float32, device="cpu"):
+    def __init__(self, d, d_ff, *, bias=False, gen=None, dtype=torch.float32, device="cpu"):
         super().__init__()
 
         def mk(shape):
@@ -30,9 +33,19 @@ class MLP(nn.Module):
         self.wi = mk((d, d_ff))
         self.wo = mk((d_ff, d))
         self.wg = mk((d, d_ff))
+        self.bi = self.bo = None
+        if bias:
+            self.bi = nn.Parameter(inits.zeros(gen, (d_ff,), dtype, device), requires_grad=False)
+            self.bo = nn.Parameter(inits.zeros(gen, (d,), dtype, device), requires_grad=False)
 
 
 def mlp(p, x, act="silu"):
     dt = x.dtype
-    h = ACTS[act](x @ p.wi.to(dt)) * (x @ p.wg.to(dt))
-    return h @ p.wo.to(dt)
+    h = x @ p.wi.to(dt)
+    if p.bi is not None:
+        h = h + p.bi.to(dt)
+    h = ACTS[act](h) * (x @ p.wg.to(dt))
+    y = h @ p.wo.to(dt)
+    if p.bo is not None:
+        y = y + p.bo.to(dt)
+    return y

@@ -1,25 +1,43 @@
-"""RMSNorm, with the gemma-style (1+scale) option. (LayerNorm of
-``repro.nn.norms`` comes with the slices whose models use it.)"""
+"""RMSNorm / LayerNorm, with the gemma-style (1+scale) option.
+
+Mirrors ``repro.nn.norms``: a LayerNorm holds a bias beside its scale."""
 
 import torch
 from torch import nn
 
 from repro_torch.nn import init as inits
 
+KINDS = ("rmsnorm", "layernorm")
+
 
 class Norm(nn.Module):
-    """Holds `scale`; `apply_norm` computes. With `gemma_scale` the scale
-    starts at zeros and the norm multiplies by (1 + scale), as gemma's."""
+    """Holds `scale` (and `bias` for a layernorm); `apply_norm` computes.
+    With `gemma_scale` the scale starts at zeros and the norm multiplies by
+    (1 + scale), as gemma's."""
 
-    def __init__(self, d, *, gemma_scale=False, gen=None, dtype=torch.float32, device="cpu"):
+    def __init__(self, d, *, kind="rmsnorm", gemma_scale=False, gen=None,
+                 dtype=torch.float32, device="cpu"):
         super().__init__()
+        if kind not in KINDS:
+            raise ValueError(f"norm kind {kind!r} not in {KINDS}")
+        self.kind = kind
         init = inits.zeros if gemma_scale else inits.ones
         self.scale = nn.Parameter(init(gen, (d,), dtype, device), requires_grad=False)
+        self.bias = (nn.Parameter(inits.zeros(gen, (d,), dtype, device), requires_grad=False)
+                     if kind == "layernorm" else None)
 
 
 def apply_norm(p, x, eps=1e-6, gemma_scale=False):
-    """RMSNorm in fp32, cast back to the input dtype."""
+    """The norm in fp32, cast back to the input dtype."""
     xf = x.float()
-    y = xf * (xf.square().mean(-1, keepdim=True) + eps) ** -0.5
+    if p.kind == "rmsnorm":
+        y = xf * (xf.square().mean(-1, keepdim=True) + eps) ** -0.5
+    else:
+        mu = xf.mean(-1, keepdim=True)
+        var = (xf - mu).square().mean(-1, keepdim=True)
+        y = (xf - mu) / torch.sqrt(var + eps)
     scale = p.scale.float()
-    return (y * (1.0 + scale) if gemma_scale else y * scale).to(x.dtype)
+    y = y * (1.0 + scale) if gemma_scale else y * scale
+    if p.bias is not None:
+        y = y + p.bias.float()
+    return y.to(x.dtype)

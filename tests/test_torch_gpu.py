@@ -326,6 +326,50 @@ def test_recurrentgemma_on_card_matches_cpu(cuda):
     torch.testing.assert_close(got.cpu(), want)
 
 
+@pytest.mark.parametrize("arch", ["gemma2-9b", "starcoder2-15b", "qwen2.5-32b",
+                                  "internvl2-1b"])
+def test_dense_family_on_card_matches_cpu(cuda, arch):
+    """The rest of the dense family at its reduced configs: K1 once a layer
+    in the prefill, K2 once a layer a decode step (gemma2's local layers
+    with the window of 32 < the 150-token prompt and a wrapped ring, every
+    logit capped); prefill logits and greedy tokens equal the CPU's in
+    fp32."""
+    cfg = smoke_config(arch)
+    bundle = make_model(cfg)
+    cpu = bundle.init(0, device="cpu")
+    gpu = bundle.init(0, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    tokens = torch.randint(0, cfg.vocab_size, (2, 150), generator=torch.Generator().manual_seed(1))
+    want, _ = bundle.prefill(cpu, {"tokens": tokens}, max_len=190, dtype=torch.float32)
+    got, _ = bundle.prefill(gpu, {"tokens": tokens.to(cuda)}, max_len=190, dtype=torch.float32)
+    torch.testing.assert_close(got.logits.cpu(), want.logits, atol=1e-4, rtol=1e-4)
+    want = greedy_generate(bundle, cpu, {"tokens": tokens}, 10, 190, torch.float32)
+    ops.reset_launch_counts()
+    got = greedy_generate(bundle, gpu, {"tokens": tokens.to(cuda)}, 10, 190, torch.float32)
+    assert ops.launch_counts() == {"flash_attention": cfg.num_layers,
+                                   "decode_attention": cfg.num_layers * 9, "ssd_scan": 0,
+                                   "rglru_scan": 0, "flash_attention_bwd": 0,
+                                   "rglru_scan_bwd": 0}
+    torch.testing.assert_close(got.cpu(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,h,kh,d,lens", [(333, 16, 8, 256, [0, 1, 129, 333]),
+                                           (64, 4, 2, 16, [64, 7, 33, 1])])
+def test_decode_attention_kernel_softcap(cuda, dtype, s, h, kh, d, lens):
+    """K2 with gemma2's cap of 50, q scaled so that the cap bends the logits:
+    against its plain version, which differs from the uncapped one."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q = (_rand(gen, (len(lens), h, d), torch.float32, cuda) * 40).to(dtype)
+    k, v = (_rand(gen, (len(lens), s, kh, d), dtype, cuda) for _ in range(2))
+    ln = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    got = ops.decode_attention(q, k, v, ln, softcap=50.0)
+    want = ops.decode_attention_plain(q, k, v, ln, softcap=50.0)
+    torch.testing.assert_close(got, want, atol=TOL[dtype], rtol=TOL[dtype])
+    uncapped = ops.decode_attention_plain(q, k, v, ln)
+    assert float((uncapped.float() - want.float()).abs().max()) > TOL[dtype]
+
+
 # ---- the backward kernels (K1-bwd, K4-bwd) and the training path ----------
 
 GRAD_TOL = 1e-4   # of the largest |gradient| of a tensor, and relative

@@ -268,13 +268,14 @@ def test_decode_smem_rule_matches_kernel(dtype, d):
             assert tdecode.smem_bytes(chunk, g, d, esz) == kernel_bytes(chunk, g, d, esz)
 
 
-def _split_s(q, k, v, lengths, *, chunk, scale):
+def _split_s(q, k, v, lengths, *, chunk, scale, softcap=None):
     """K2's two passes in PyTorch, fp32 inside: for each live split (one
     whose chunk starts before the row's length n), the logits of its valid
-    positions (all -1e30 on a length-0 row, where n = S), m, l = sum
-    exp(s - m) and the unnormalised acc; a dead split's partials stay NaN,
-    so a combine that read one would show it. The combine reads only the
-    ceil(n / chunk) live splits."""
+    positions (capped to softcap * tanh(s / softcap) with `softcap`; all
+    -1e30 on a length-0 row, where n = S), m, l = sum exp(s - m) and the
+    unnormalised acc; a dead split's partials stay NaN, so a combine that
+    read one would show it. The combine reads only the ceil(n / chunk) live
+    splits."""
     b, h, d = q.shape
     s, kh = k.shape[1], k.shape[2]
     splits = -(-s // chunk)
@@ -291,6 +292,8 @@ def _split_s(q, k, v, lengths, *, chunk, scale):
                 continue
             rows = slice(p0, min(p0 + chunk, n))
             logits = torch.einsum("hd,phd->hp", q[bi].float(), kf[bi, rows]) * scale
+            if softcap:
+                logits = softcap * torch.tanh(logits / softcap)
             if ln <= 0:
                 logits = torch.full_like(logits, -1e30)
             m = logits.max(-1).values
@@ -327,6 +330,35 @@ def test_decode_split_s_matches_pallas(chunk, dtype, s, h, kh, d):
     got = _split_s(tq, tk, tv, torch.from_numpy(lens), chunk=chunk, scale=d ** -0.5)
     assert got.dtype == TDT[dtype] and got.shape == (b, h, d)
     _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("chunk", [16, 32])
+def test_decode_split_s_softcap_matches_attend_ref(chunk):
+    """K2's split-S design with gemma2's cap of 50 taken in the split pass,
+    before the running max, emulated, against the JAX model's decode
+    (``attend_ref`` with the softcap, a global cache masked by position) on
+    a GQA cache of 10 query heads on 2 kv heads: lengths 0, 1, a chunk's
+    edge, one past it and past S. q is scaled so that the logits reach
+    about 40 a standard deviation and the cap bends them. In fp32: in bf16
+    ``attend_ref`` rounds the logits to bf16 (its einsum's output dtype)
+    before the cap, which K2 and its plain version do not."""
+    from repro.nn.attention import attend_ref
+    b, s, h, kh, d, dtype = 5, 200, 10, 2, 32, "float32"
+    (jq, jk, jv), (tq, tk, tv) = _inputs(17, [(b, h, d), (b, s, kh, d), (b, s, kh, d)], dtype)
+    jq, tq = jq * 40, tq * 40
+    lens = np.array([0, 1, chunk, chunk + 1, 999], np.int32)
+    rep = lambda x: jnp.repeat(x, h // kh, axis=2)   # noqa: E731
+    want = attend_ref(jq[:, None], rep(jk), rep(jv), jnp.asarray(lens - 1)[:, None],
+                      jnp.broadcast_to(jnp.arange(s), (b, s)), scale=d ** -0.5,
+                      softcap=50.0)[:, 0]
+    got = _split_s(tq, tk, tv, torch.from_numpy(lens), chunk=chunk, scale=d ** -0.5,
+                   softcap=50.0)
+    _close(got, want, dtype)
+    plain = ops.decode_attention_plain(tq, tk, tv, torch.from_numpy(lens), scale=d ** -0.5,
+                                       softcap=50.0)
+    _close(plain, want, dtype)
+    uncapped = _split_s(tq, tk, tv, torch.from_numpy(lens), chunk=chunk, scale=d ** -0.5)
+    assert float((uncapped.float() - got.float()).abs().max()) > 10 * TOL[dtype]
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():

@@ -136,12 +136,13 @@ def test_bf16_cache_decode_stays_close(models):
 
 
 @pytest.mark.parametrize("override,match", [
-    ({"attn_pattern": ("local", "global")}, "gemma2"),
-    ({"attn_softcap": 50.0}, "softcap"),
-    ({"tie_embeddings": True}, "gemma"),
-    ({"qkv_bias": True}, "biases"),
+    ({"mla": True}, "MLA"),
+    ({"mtp_depth": 1}, "MTP"),
+    ({"first_dense_layers": 1}, "first dense layers"),
+    ({"num_experts": 4}, "MoE"),
     ({"family": "moe", "num_experts": 4}, "MoE"),
     ({"tp": 16}, "padded heads"),
+    ({"act": "sigmoid"}, "activation 'sigmoid'"),
 ])
 def test_unported_parts_raise(override, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -149,14 +150,16 @@ def test_unported_parts_raise(override, match):
 
 
 def test_unported_archs_and_caches_raise():
-    """Local layers are ported with RecurrentGemma, but the dense LM still
-    refuses them (the gemma2 slice), as it refuses an unported cache kind."""
+    """The dense family is ported (gemma2's local layers included); the MoE
+    archs are not registered yet, the LM refuses MTP and DeepSeek's first
+    dense layers, and the attention refuses an unported cache kind."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models.lm import check_supported
     from repro_torch.nn.attention import make_cache
     with pytest.raises(KeyError, match="not ported"):
-        get_config("gemma2-9b")
-    with pytest.raises(NotImplementedError, match="gemma2"):
-        check_supported(smoke_config(ARCH).with_(attn_pattern=("local", "global")))
+        get_config("qwen3-moe-30b-a3b")
+    check_supported(get_config("gemma2-9b"))
+    with pytest.raises(NotImplementedError, match="MTP, first dense layers"):
+        check_supported(smoke_config(ARCH).with_(mtp_depth=1, first_dense_layers=1))
     with pytest.raises(NotImplementedError, match="not ported"):
         make_cache(smoke_config(ARCH), 1, 8, kind="bidir", device="cpu")
