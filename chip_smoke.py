@@ -35,7 +35,10 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    and at the reduced widths in fp32), also with q scaled so that the cap
    bends the logits, and timed there, where SDPA (no softcap) is timed
    beside them but is no library cell; K1 also at starcoder2-15b's and
-   internvl2-1b's calls;
+   internvl2-1b's calls; K1 and K2 at qwen3-moe-30b-a3b's calls, and K1
+   at deepseek's MLA call (q and k of 192, v of 128, zero-padded to
+   head_dim 256), held to its plain version and to SDPA on the unpadded
+   inputs, which is its library cell;
 4. serve: qwen3-14b at full width (40 layers, bf16 params made on the card
    from a seed) answers four clients through the port's InferenceServer;
    the kernels' launch counts must rise by 40 per prefill (K1) and by 40
@@ -53,14 +56,30 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    4352-token prompts past its window of 4096, so its local layers' rings
    wrap, which the phase checks), starcoder2-15b (40), qwen2.5-32b (64,
    65.5 GB of weights) and internvl2-1b (24, text prompts); each of these
-   phases prints its seconds; then the ring wrap: gemma2-9b cut to one
+   phases prints its seconds; then the MoE family: qwen3-moe-30b-a3b at
+   full width and depth (48 layers of 128 experts, top 8, 61 GB of bf16
+   weights), K1 48 a prefill and K2 48 a decode step, and deepseek-v3-671b
+   at full width cut to 4 layers (3 first dense layers and 1 MoE layer of
+   256 experts, MLA, the MTP block built), K1 4 a prefill on the padded
+   head_dim 256 and no K2 (MLA decodes in its absorbed form, plain);
+   each checks that the fp32 router runs without TF32, prints the (token,
+   expert) pairs the capacity dropped in the prefill and in the decode
+   steps, and holds the served batch's logits at every prefill position
+   and 3 decode steps' logits to the plain versions, with the kernels'
+   routing forced (bf16, rms error <= 5e-2 of the rms) and routing for
+   themselves (each MoE layer's share of (token, k) choices in common;
+   argmax equal on at least MOE_ARGMAX_SHARE of the rows); its profiler
+   breakdown adds the groups moe_gemm, moe_dispatch (with its costliest
+   kernels) and mla_decode; then the ring wrap: gemma2-9b cut to one
    local and one global layer at full width, fp32, 4352-token prompts:
    the prefill's logits at every position and 16 decode steps' logits and
    greedy tokens through K1 and K2 against their plain versions;
 5. parity: at each arch's reduced config, prefill logits and greedy tokens
    from the port on the card equal the port on the CPU (the plain
    versions), in fp32 (150-token prompts for gemma2-9b, starcoder2-15b,
-   qwen2.5-32b and internvl2-1b: gemma2's reduced window is 32);
+   qwen2.5-32b and internvl2-1b: gemma2's reduced window is 32; and for
+   qwen3-moe-30b-a3b and deepseek-v3-671b at capacity factors 8.0 and
+   1.25, where pairs must drop, every route compared);
 6. grad guards: K1's bf16 route, K2 and K3 raise under autograd (they
    have no backward kernel) instead of returning a tensor with no grad_fn;
 7. train parity: recurrentgemma-2b at 3 layers of full width, fp32: the
@@ -249,8 +268,27 @@ SERVE = {"qwen3-14b": (256, 512), "mamba2-2.7b": (512, 576),
          # and goes on wrapping in decode
          "gemma2-9b": (4352, 4352 + CLIENTS * TOKENS),
          "starcoder2-15b": (256, 512), "qwen2.5-32b": (256, 512),
-         "internvl2-1b": (256, 512)}
+         "internvl2-1b": (256, 512),
+         "qwen3-moe-30b-a3b": (256, 512), "deepseek-v3-671b": (256, 512)}
 PROMPT_LEN, MAX_LEN = SERVE["qwen3-14b"]
+# the MoE archs: qwen3-moe-30b-a3b at full depth (48 layers, 61 GB of bf16
+# weights); deepseek-v3-671b at its full width cut to 4 layers (its 3 first
+# dense layers and 1 MoE layer, with the MTP block built: 53 GB), since its
+# 61 layers take 1.3 TB
+MOE_ARCHS = ("qwen3-moe-30b-a3b", "deepseek-v3-671b")
+SERVE_LAYERS = {"deepseek-v3-671b": 4}
+# their reduced configs' parity, card against CPU: at the reference's smoke
+# capacity factor (no drops) and at the published 1.25, where pairs drop
+MOE_CAPACITY = (8.0, 1.25)
+# qwen3-moe's attention (32 query heads on 4 kv heads of 128) and
+# deepseek's MLA prefill (128 heads, q and k of 128 + 64, v of 128, zero-
+# padded to K1's head_dim 256)
+QMOE = dict(h=32, kh=4, d=128)
+MLA_CALL = dict(h=128, dqk=192, dv=128, d=256)
+# the share of full-depth logit rows whose argmax must agree between the
+# kernels and the plain versions when each side routes for itself (a near
+# tie in a router's top-k may flip an expert between them)
+MOE_ARGMAX_SHARE = 0.5
 # the attention calls of recurrentgemma-2b's path: 10 query heads on one kv
 # head of 256, window 2048 (longer than the prompt), a ring of 576 slots
 RG = dict(h=10, kh=1, d=256, window=2048)
@@ -425,6 +463,50 @@ def flex_attention_call(q, *, scale, softcap, mask_mod, q_len, kv_len):
                                enable_gqa=True)
 
 
+def time_k1_mla(b, s, rand):
+    """K1 at deepseek-v3's MLA prefill call: q and k of 128 + 64, v of 128,
+    128 heads, zero-padded to head_dim 256 as ``nn/mla.py`` pads them. The
+    padded call's output, cut to v's 128, is held to the plain version's and
+    to SDPA's on the unpadded inputs (the library cell). The bound counts
+    the unpadded work; the padding's share is noted beside it."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as K1
+    from repro_torch.kernels import ops
+
+    h, dqk, dv, dp = MLA_CALL["h"], MLA_CALL["dqk"], MLA_CALL["dv"], MLA_CALL["d"]
+    sc = dqk ** -0.5
+    q, k = rand(b, s, h, dqk, dtype=torch.bfloat16), rand(b, s, h, dqk, dtype=torch.bfloat16)
+    v = rand(b, s, h, dv, dtype=torch.bfloat16)
+    qp, kp, vp = (F.pad(x, (0, dp - x.shape[-1])).contiguous() for x in (q, k, v))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    got = K1.flash_attention(qp, kp, vp, scale=sc)[..., :dv]
+    want = ops.flash_attention_plain(qp, kp, vp, scale=sc)[..., :dv]
+    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=sc).transpose(1, 2)
+    err = check_close(f"K1 MLA ({b},{s},{h},{h}) q, k {dqk}, v {dv} padded to {dp} bf16 "
+                      f"[{K1.route(torch.bfloat16, dp)}]", got, want, 2e-2)
+    check_close("   its plain version against SDPA on the unpadded inputs", lib, want, 2e-2)
+    ms = time_ms("K1 MLA", lambda: K1.flash_attention(qp, kp, vp, scale=sc))
+    plain_ms = time_ms("K1 MLA plain", lambda: ops.flash_attention_plain(qp, kp, vp, scale=sc))
+    lib_ms = time_ms("K1 MLA library", lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, scale=sc))
+    pairs = s * (s + 1) // 2
+    flops = 2 * (dqk + dv) * pairs * b * h            # q.k over 192, p.v over 128
+    padded_flops = 2 * 2 * dp * pairs * b * h
+    nbytes = b * s * h * (2 * dqk + 2 * dv) * 2       # q, k, v read, out written, unpadded
+    row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, library="SDPA, unpadded",
+               **bound(flops, nbytes, "bfloat16"), tflops=flops / ms / 1e9,
+               max_abs_err=err, padded_flops=padded_flops,
+               padded_bound_ms=bound(padded_flops, b * s * h * 4 * dp * 2, "bfloat16")[
+                   "bound_ms"])
+    log(f"   K1 at MLA's call ({b},{s},{h},{h}), q and k {dqk}, v {dv}, padded to {dp}, bf16 "
+        f"[{K1.route(torch.bfloat16, dp)}]: kernel_ms {ms:.4f} ({row['tflops']:.1f} TFLOP/s of "
+        f"the unpadded work) plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} (SDPA on the "
+        f"unpadded 192/128 inputs) bound_ms {row['bound_ms']:.4f} ({row['bound_by']}, "
+        f"{flops / 1e9:.1f} GFLOP unpadded; the padding makes it {padded_flops / 1e9:.1f} "
+        f"GFLOP, {padded_flops / flops:.2f}x, bound {row['padded_bound_ms']:.4f})")
+    return row
+
+
 def kernel_phase(k1_ptxas, k4_ptxas, bwd_ptxas):
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as K2
@@ -479,7 +561,14 @@ def kernel_phase(k1_ptxas, k4_ptxas, bwd_ptxas):
              # at D 64), gemma2-9b's reduced config (window 32, capped at 50)
              ((b, s, 48, 4, 128), torch.bfloat16, {}),
              ((b, s, 14, 2, 64), torch.bfloat16, {}),
-             ((2, 150, 4, 2, 16), torch.float32, {"window": 32, "softcap": 50.0})]
+             ((2, 150, 4, 2, 16), torch.float32, {"window": 32, "softcap": 50.0}),
+             # qwen3-moe-30b-a3b's call (32 query heads on 4 kv heads of 128),
+             # deepseek's MLA call at K1's padded head_dim 256 (128 heads, no
+             # GQA; its zero padding is checked and timed below) and the
+             # reduced MLA configs' (q and k of 24, v of 16, padded to 64)
+             ((b, s, QMOE["h"], QMOE["kh"], QMOE["d"]), torch.bfloat16, {}),
+             ((b, s, MLA_CALL["h"], MLA_CALL["h"], MLA_CALL["d"]), torch.bfloat16, {}),
+             ((2, 150, 4, 4, 64), torch.float32, {})]
     main_err = None
     for (cb, cs, ch, ckh, cd), dt, kw in cases:
         q = rand(cb, cs, ch, cd, dtype=dt)
@@ -548,6 +637,8 @@ def kernel_phase(k1_ptxas, k4_ptxas, bwd_ptxas):
         b, gs, GEMMA["h"], GEMMA["kh"], GEMMA["d"], GEMMA["window"], **gkw)
     rows["flash_attention"]["gemma2_global_call"] = time_k1(
         b, gs, GEMMA["h"], GEMMA["kh"], GEMMA["d"], **gkw)
+    rows["flash_attention"]["qwen3_moe_call"] = time_k1(b, s, QMOE["h"], QMOE["kh"], QMOE["d"])
+    rows["flash_attention"]["mla_call"] = time_k1_mla(b, s, rand)
 
     # ---- K2 ----
     log("== kernels: K2 decode attention (split-S pass, then combine)")
@@ -556,6 +647,8 @@ def kernel_phase(k1_ptxas, k4_ptxas, bwd_ptxas):
     qwen, rg1 = (b, S, h, kh, d), (1, rmax, RG["h"], RG["kh"], RG["d"])
     sms = K2.num_sms(torch.cuda.current_device())
     cases = [(qwen, torch.bfloat16, [0, 1, 263, S]),
+             ((b, S, QMOE["h"], QMOE["kh"], QMOE["d"]), torch.bfloat16,   # qwen3-moe's call
+              [0, 1, 263, S]),
              ((b, rmax, RG["h"], RG["kh"], RG["d"]), torch.bfloat16,   # RecurrentGemma's ring
               [0, 1, rs + 8, rmax]),
              # the split edges at qwen3's call (chunk 32 at 132 SMs): only split 0
@@ -716,6 +809,8 @@ def kernel_phase(k1_ptxas, k4_ptxas, bwd_ptxas):
     rows["decode_attention"]["gemma2_ring_call"] = time_k2(
         b, GEMMA["window"], GEMMA["h"], GEMMA["kh"], GEMMA["d"], GEMMA["window"],
         GEMMA["softcap"])
+    rows["decode_attention"]["qwen3_moe_call"] = time_k2(
+        b, S, QMOE["h"], QMOE["kh"], QMOE["d"], PROMPT_LEN + TOKENS // 2)
 
     # ---- K3 ----
     log("== kernels: K3 SSD chunked scan (Mamba2 prefill)")
@@ -1116,7 +1211,9 @@ def expected_launches(cfg, steps):
         n_att = cfg.num_layers - n_rec
         return {"flash_attention": n_att, "decode_attention": n_att * steps, "ssd_scan": 0,
                 "rglru_scan": n_rec, **bwd}
-    return {"flash_attention": cfg.num_layers, "decode_attention": cfg.num_layers * steps,
+    # MLA decodes in its absorbed form, plain PyTorch: no K2
+    per_step = 0 if cfg.mla else cfg.num_layers
+    return {"flash_attention": cfg.num_layers, "decode_attention": per_step * steps,
             "ssd_scan": 0, "rglru_scan": 0, **bwd}
 
 
@@ -1141,9 +1238,18 @@ def describe(cfg):
         ("tied embeddings", cfg.tie_embeddings),
         (f"a frontend of {cfg.frontend_tokens} x {cfg.frontend_dim} (not served: text "
          "prompts, as the JAX package's serving example)", cfg.frontend_tokens),
+        (f"MoE: {cfg.num_experts} experts of {cfg.moe_d_ff}, top {cfg.num_experts_per_tok}, "
+         f"{cfg.router_score} router, capacity factor {cfg.capacity_factor}"
+         + (f", {cfg.n_shared_experts} shared expert" if cfg.n_shared_experts else ""),
+         cfg.family == "moe"),
+        (f"first dense layers {cfg.first_dense_layers}", cfg.first_dense_layers),
+        (f"MLA: q rank {cfg.q_lora_rank}, kv rank {cfg.kv_lora_rank}, qk {cfg.qk_nope_head_dim}"
+         f" + {cfg.qk_rope_head_dim}, v {cfg.v_head_dim}", cfg.mla),
+        (f"MTP depth {cfg.mtp_depth} (built, not served)", cfg.mtp_depth),
     ) if on]
-    return (f"d_model {cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads}, head_dim "
-            f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}"
+    heads = (f"heads {cfg.num_heads}" if cfg.mla else
+             f"heads {cfg.num_heads}/{cfg.num_kv_heads}, head_dim {cfg.head_dim}")
+    return (f"d_model {cfg.d_model}, {heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}"
             + "".join(f", {e}" for e in extra))
 
 
@@ -1155,9 +1261,20 @@ def serve_phase(arch):
     from repro_torch.launch import serve_policy
     from repro_torch.launch.serve import greedy_generate, make_prefill, make_serve_step
 
+    from repro_torch.models.lm import layer_plan
+
     prompt_len, max_len = SERVE[arch]
-    cfg = get_config(arch).with_(param_dtype="bfloat16", compute_dtype="bfloat16")
-    log(f"== serve: {cfg.name} {describe(cfg)}, {cfg.num_layers} layers")
+    cfg = get_config(arch).with_(param_dtype="bfloat16", compute_dtype="bfloat16",
+                                 num_layers=SERVE_LAYERS.get(arch, get_config(arch).num_layers))
+    cut = f" (cut from {get_config(arch).num_layers})" if arch in SERVE_LAYERS else ""
+    log(f"== serve: {cfg.name} {describe(cfg)}, {cfg.num_layers} layers{cut}")
+    if cfg.family == "moe":
+        # the router's product is fp32 on an fp32 copy of the activations, as
+        # the reference's; TF32 would round its operands to 10 mantissa bits
+        tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision())
+        if tf32 != (False, "highest"):
+            raise AssertionError(f"the fp32 router would run on TF32: {tf32}")
+        log(f"   the router's fp32 product without TF32 (allow_tf32, precision: {tf32})")
     dev = torch.device("cuda")
     bundle = make_model(cfg)
     t0 = time.perf_counter()
@@ -1221,32 +1338,60 @@ def serve_phase(arch):
     if steps != TOKENS:
         raise AssertionError(f"{steps} decode steps for {TOKENS} tokens: a batch "
                              f"missed a client")
-    greedy = greedy_generate(bundle, params, {"tokens": torch.as_tensor(
-        out["prompts"], device=dev)}, steps=TOKENS + 1, max_len=max_len,
-        dtype=torch.bfloat16).cpu()
+    # the greedy run repeats the served batches (every client in each), so
+    # its MoE calls are the served ones: their dropped pairs are counted here
+    with routes_recorded() as rec:
+        greedy = greedy_generate(bundle, params, {"tokens": torch.as_tensor(
+            out["prompts"], device=dev)}, steps=TOKENS + 1, max_len=max_len,
+            dtype=torch.bfloat16).cpu()
     for cid in range(CLIENTS):
         if [out["first"][cid]] + out["tokens"][cid] != greedy[cid].tolist():
             raise AssertionError(f"client {cid}: served tokens differ from greedy")
     log(f"   served tokens equal greedy decoding; client 0: {out['tokens'][0][:8]}...")
+    moe_metrics = {}
+    if cfg.family == "moe":
+        n_moe = sum(spec.moe for spec in layer_plan(cfg))
+        k = cfg.num_experts_per_tok
+        pre = sum(int(r["dropped"]) for r in rec[:n_moe])
+        dec = sum(int(r["dropped"]) for r in rec[n_moe:])
+        moe_metrics = {"moe_layers": n_moe, "cap_prefill": rec[0]["cap"],
+                       "cap_decode": rec[n_moe]["cap"], "dropped_prefill": pre,
+                       "pairs_prefill": CLIENTS * prompt_len * k * n_moe,
+                       "dropped_decode": dec, "pairs_decode": CLIENTS * k * n_moe * TOKENS}
+        log(f"   capacity drops: prefill {pre} of {moe_metrics['pairs_prefill']} (token, expert) "
+            f"pairs (cap {rec[0]['cap']} an expert a layer), {TOKENS} decode steps {dec} of "
+            f"{moe_metrics['pairs_decode']} (cap {rec[n_moe]['cap']})")
+    del rec
     plain = {}
     if arch in DENSE_PARITY:
         # both sides of the greedy check run the kernels, and a tied-embedding
         # model's greedy tokens echo its input at init: the full-depth logits
         # are held to the plain versions too
         plain = full_depth_plain_check(bundle, params, prompts[:1], max_len)
+    elif cfg.family == "moe":
+        # the served batch: its routing and drops are the served ones
+        plain = full_depth_plain_check(bundle, params, prompts, max_len)
 
     # where the device time goes: one profiled prefill and three decode steps
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
+    with annotated_layers(), profile(activities=acts) as prof:
         tok, cache = prefill(params, {"tokens": prompts})
         torch.cuda.synchronize()
     pre, pre_ops = device_breakdown(prof, 1)
-    with profile(activities=acts) as prof:
+    with annotated_layers(), profile(activities=acts) as prof:
         for _ in range(3):
             tok, cache = step(params, tok, cache)
         torch.cuda.synchronize()
     dec, dec_ops = device_breakdown(prof, 3)
+    if cfg.family == "moe":
+        # the MoE (router, sort, searchsorted, gathers, bmm) and MLA's
+        # absorbed decode are groups of their own, read from the annotations
+        for where, found in (("prefill", pre), ("decode", dec)):
+            if not (found.get("moe_gemm", 0) > 0 and found.get("moe_dispatch", 0) > 0):
+                raise AssertionError(f"no MoE device time in the {where} breakdown: {found}")
+        if cfg.mla and not dec.get("mla_decode", 0) > 0:
+            raise AssertionError(f"no MLA decode device time in the breakdown: {dec}")
     if cfg.family == "dense" and "local" in cfg.attn_pattern:
         # the ring of a local layer: after the prefill and 3 decode steps it
         # holds the last `size` positions, wrapped where the prompt passed it
@@ -1269,7 +1414,8 @@ def serve_phase(arch):
         f"{1 - dec['busy'] / wall_step:.3f} of the {wall_step:.2f} ms wall step")
     log(f"   device operations (kernels, copies, fills) per decode step {dec_ops:.0f} "
         f"({dec_ops / cfg.num_layers:.1f} per layer), per prefill {pre_ops:.0f}")
-    return counts, {"prefill_ms": out["prefill_s"] * 1e3, "prefill_cold_ms": cold_ms,
+    return counts, {"layers": cfg.num_layers, "params": n, **moe_metrics,
+                    "prefill_ms": out["prefill_s"] * 1e3, "prefill_cold_ms": cold_ms,
                     "decode_ms_per_step": wall_step,
                     "policy_step_ms": st["compute_s"] * 1e3 / steps,
                     "tok_per_s": total / out["decode_s"], "peak_gb": peak / 1e9,
@@ -1281,49 +1427,174 @@ def serve_phase(arch):
                                for cid in range(CLIENTS)}}
 
 
-def full_depth_plain_check(bundle, params, prompts, max_len, steps=3, rel=5e-2):
-    """One prompt's last-position logits after the prefill, then `steps`
-    decode steps' logits (both paths fed the kernels' greedy token), through
-    K1 and K2 against the same through their plain versions on the card, at
-    the serving path's full depth in bf16: each rms(got - want) <= `rel`
-    times rms(want). The kernels and the plain versions round differently
-    (bf16 P on wgmma; fp32 softmax then one bf16 rounding), and a layer's
-    difference carries through the rest of the stack."""
-    from repro_torch.kernels import ops
-
-    def rel_rms(got, want):
-        got, want = got.float(), want.float()
-        return float((got - want).pow(2).mean().sqrt() / want.pow(2).mean().sqrt())
-
+def logits_path(bundle, params, prompts, max_len, steps, feed=None, every_position=False):
+    """The fp32 logits after the prefill (the last position's, or with
+    `every_position` all of them, (B*S, V)), then the logits after each of
+    `steps` decode steps, each fed `feed[i]` or else the previous logits'
+    argmax. Returns (the logits, the tokens fed)."""
     with torch.no_grad():
         out, cache = bundle.prefill(params, {"tokens": prompts}, max_len=max_len,
                                     dtype=torch.bfloat16)
-        got = out.logits[:, -1].float()
+        last = out.logits[:, -1].float()
+        rows = [out.logits.reshape(-1, out.logits.shape[-1]) if every_position else last]
+        fed = []
         del out
-        with plain_versions(ops, k1=True, k4=False, k2=True):
-            out, pcache = bundle.prefill(params, {"tokens": prompts}, max_len=max_len,
-                                         dtype=torch.bfloat16)
-        want = out.logits[:, -1].float()
-        del out
-        errs, same = [rel_rms(got, want)], [bool(torch.equal(got.argmax(-1), want.argmax(-1)))]
-        finite = bool(torch.isfinite(got).all())
-        tok = got.argmax(-1, keepdim=True)
-        for _ in range(steps):
-            o, cache = bundle.decode_step(params, tok, cache)
-            with plain_versions(ops, k1=True, k4=False, k2=True):
-                w, pcache = bundle.decode_step(params, tok, pcache)
-            got, want = o.logits[:, -1], w.logits[:, -1]
-            errs.append(rel_rms(got, want))
-            same.append(bool(torch.equal(got.argmax(-1), want.argmax(-1))))
-            finite &= bool(torch.isfinite(got).all())
-            tok = got.argmax(-1, keepdim=True)
-    log(f"   full depth against the plain versions (1 x {prompts.shape[1]} prompt, then "
-        f"{steps} decode steps): logits rms error / rms "
-        + ", ".join(f"{e:.3e}" for e in errs) + f" (<= {rel:g}); argmax equal {same}; "
-        f"finite {finite}")
+        for i in range(steps):
+            tok = last.argmax(-1, keepdim=True) if feed is None else feed[i]
+            fed.append(tok)
+            out, cache = bundle.decode_step(params, tok, cache)
+            last = out.logits[:, -1].float()
+            rows.append(last)
+            del out
+    return rows, fed
+
+
+@contextlib.contextmanager
+def routes_recorded():
+    """Yield a list that gets, for each MoE call inside, its expert ids
+    "idx" (N, k), its capacity "cap" and "dropped", the (token, k) pairs
+    past capacity (a device tensor): an expert keeps its first `cap` pairs
+    in the stable order, so it drops max(0, pairs - cap). Measurement
+    only: ``nn.moe.route`` is wrapped while the block runs."""
+    from repro_torch.nn import moe as moe_mod
+    calls, real = [], moe_mod.route
+
+    def route(cfg, p, xf):
+        gates, idx, aux = real(cfg, p, xf)
+        cap = moe_mod.capacity(cfg, xf.shape[0])
+        load = torch.zeros(cfg.num_experts, dtype=torch.long, device=idx.device)
+        load.scatter_add_(0, idx.reshape(-1), torch.ones_like(idx.reshape(-1)))
+        calls.append({"idx": idx, "cap": cap, "dropped": (load - cap).clamp(min=0).sum()})
+        return gates, idx, aux
+    moe_mod.route = route
+    try:
+        yield calls
+    finally:
+        moe_mod.route = real
+
+
+@contextlib.contextmanager
+def forced_routing(records):
+    """Each ``moe`` call inside takes the expert ids `records` hold, in call
+    order, in place of its own top-k (with its own scores at those ids),
+    for a comparison only: the same routing, hence the same drops."""
+    from repro_torch.nn import moe as moe_mod
+    ids = iter([r["idx"] for r in records])
+    real = moe_mod.top_k
+
+    def top_k(scores, k):
+        idx = next(ids)
+        return torch.gather(scores, -1, idx), idx
+    moe_mod.top_k = top_k
+    try:
+        yield
+    finally:
+        moe_mod.top_k = real
+
+
+def routing_agreement(cfg, got, want):
+    """For each MoE layer, the share of (token, k) choices that two runs'
+    records (call order: prefill layers, then each step's) have in common."""
+    from repro_torch.models.lm import layer_plan
+    n_moe = sum(spec.moe for spec in layer_plan(cfg))
+    same, total = [0] * n_moe, [0] * n_moe
+    for i, (a, b) in enumerate(zip(got, want)):
+        hot = torch.zeros(a["idx"].shape[0], cfg.num_experts, dtype=torch.bool,
+                          device=a["idx"].device)
+        both = hot.scatter(1, a["idx"], True) & hot.scatter(1, b["idx"], True)
+        same[i % n_moe] += int(both.sum())
+        total[i % n_moe] += a["idx"].numel()
+    return [x / t for x, t in zip(same, total)]
+
+
+def full_depth_plain_check(bundle, params, prompts, max_len, steps=3, rel=5e-2):
+    """The prompts' last-position logits after the prefill, then `steps`
+    decode steps' logits (every path fed the kernels' greedy tokens),
+    through K1 and K2 against the same through their plain versions on the
+    card, at the serving path's full depth in bf16: each rms(got - want)
+    <= `rel` times rms(want). The kernels and the plain versions round
+    differently (bf16 P on wgmma; fp32 softmax then one bf16 rounding),
+    and a layer's difference carries through the rest of the stack.
+
+    With MoE the prefill's logits are compared at every position, and a
+    near tie in a router's top-k can flip an expert between the two paths:
+    a flipped expert moves a token's output by far more than rounding, and
+    through the capacity it moves which later tokens of that expert are
+    dropped. So the plain versions run twice: routing for themselves,
+    where each layer's share of (token, k) choices in common with the
+    kernels' is printed and the argmax must agree on at least
+    ``MOE_ARGMAX_SHARE`` of the rows; and with the kernels' routing forced
+    (``forced_routing``), which is held to `rel`."""
+    from repro_torch.kernels import ops
+
+    cfg = bundle.cfg
+
+    def rel_rms(got, want):
+        return float((got - want).pow(2).mean().sqrt() / want.pow(2).mean().sqrt())
+
+    def compare(got, want):
+        errs = [rel_rms(g, w) for g, w in zip(got, want)]
+        same = [g.argmax(-1) == w.argmax(-1) for g, w in zip(got, want)]
+        return errs, [bool(x.all()) for x in same], float(torch.cat(same).float().mean())
+
+    plain = functools.partial(plain_versions, ops, k1=True, k4=False, k2=True)
+    path = functools.partial(logits_path, bundle, params, prompts, max_len, steps,
+                             every_position=cfg.family == "moe")
+    with routes_recorded() as rec:
+        got, fed = path()
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    res = {}
+    if cfg.family == "moe":
+        with plain(), routes_recorded() as rec_free:
+            free, _ = path(fed)
+        errs, same, share = compare(got, free)
+        agree = routing_agreement(cfg, rec, rec_free)
+        drops = [sum(int(r["dropped"]) for r in x) for x in (rec, rec_free)]
+        log(f"   full depth, plain versions routing for themselves ({prompts.shape[0]} x "
+            f"{prompts.shape[1]} prompts, every position, then {steps} decode steps): logits "
+            "rms error / rms " + ", ".join(f"{e:.3e}" for e in errs) + f"; argmax equal on "
+            f"{share:.3f} of the {sum(g.shape[0] for g in got)} rows "
+            f"(>= {MOE_ARGMAX_SHARE}); dropped pairs, kernels {drops[0]}, plain {drops[1]}; "
+            "(token, k) choices in common by MoE layer: "
+            + " ".join(f"{a:.4f}" for a in agree))
+        res.update(free_routing_rel_rms_err=errs, free_routing_argmax_share=share,
+                   routing_agreement_by_layer=agree, dropped_kernels_plain=drops)
+        if share < MOE_ARGMAX_SHARE:
+            raise AssertionError(f"argmax agrees on {share:.3f} of the rows, routing free")
+        forced = forced_routing(rec)
+    else:
+        forced = contextlib.nullcontext()
+    with plain(), forced:
+        want, _ = path(fed)
+    errs, same, share = compare(got, want)
+    log(f"   full depth against the plain versions{' (the kernels routing forced)' if res else ''}"
+        f" ({prompts.shape[0]} x {prompts.shape[1]} prompt, then {steps} decode steps): logits "
+        "rms error / rms " + ", ".join(f"{e:.3e}" for e in errs) + f" (<= {rel:g}); argmax "
+        f"equal {same} ({share:.3f} of the rows); finite {finite}")
     if not (finite and max(errs) <= rel):
         raise AssertionError(f"full-depth logits differ from the plain versions' by {errs}")
-    return {"plain_rel_rms_err": errs, "plain_argmax_equal": same}
+    return {"plain_rel_rms_err": errs, "plain_argmax_equal": same, "plain_argmax_share": share,
+            **res}
+
+
+@contextlib.contextmanager
+def annotated_layers():
+    """The LM's MoE calls and MLA decode calls inside profiler ranges named
+    "moe" and "mla_decode" (``torch.profiler.record_function``), so that
+    ``device_breakdown`` can group their kernels; for measurement only."""
+    from repro_torch.models import lm
+
+    def named(name, fn):
+        def run(*args, **kw):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kw)
+        return run
+    real = lm.moe, lm.mla_decode
+    lm.moe, lm.mla_decode = named("moe", lm.moe), named("mla_decode", lm.mla_decode)
+    try:
+        yield
+    finally:
+        lm.moe, lm.mla_decode = real
 
 
 def union_ms(spans):
@@ -1342,16 +1613,41 @@ def device_breakdown(prof, n):
     kernels (K1 and K3 either route, K2 its split and combine passes, K1-bwd
     its four kernels), GEMMs (cuBLAS / CUTLASS), and everything else; and
     the number of device kernels per call. A group's time, and "busy" over all of them, count
-    each instant once: K2's combine is launched while its split pass runs."""
+    each instant once: K2's combine is launched while its split pass runs.
+    Under ``annotated_layers`` the kernels inside an MoE call form the groups
+    "moe_gemm" (its GEMMs: router, bmm, shared experts) and "moe_dispatch"
+    (the rest: softmax, sort, searchsorted, gathers, the combine), and those
+    inside MLA's absorbed decode the group "mla_decode"."""
+    import bisect
+    cuda = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    marks = sorted((e.time_range.start, e.time_range.end, e.name) for e in cuda
+                   if getattr(e, "is_user_annotation", False)
+                   and e.name in ("moe", "mla_decode"))
+    starts = [m[0] for m in marks]
+
+    def mark_of(t):
+        i = bisect.bisect_right(starts, t) - 1
+        return marks[i][2] if i >= 0 and t < marks[i][1] else None
+
     spans = {g: [] for g in ("K1", "K1-bwd", "K2", "K3", "K4", "K4-bwd", "gemm", "other")}
-    kernels = 0
-    for e in prof.events():
-        if (e.device_type != torch.autograd.DeviceType.CUDA
-                or getattr(e, "is_user_annotation", False)):
+    if marks:
+        spans.update({g: [] for g in ("moe_gemm", "moe_dispatch", "mla_decode")})
+    kernels, dispatch = 0, {}
+    for e in cuda:
+        if getattr(e, "is_user_annotation", False):
             continue
         kernels += 1
         name = e.name.lower()
-        if "flash_tf32x3_kernel" in name or "flash_wgmma_kernel" in name:
+        mark = mark_of(e.time_range.start) if marks else None
+        is_gemm = any(t in name for t in ("gemm", "gemv", "cutlass", "nvjet", "xmma", "cublas"))
+        if mark == "moe":
+            g = "moe_gemm" if is_gemm else "moe_dispatch"
+            if not is_gemm:
+                dispatch[e.name] = dispatch.get(e.name, 0.0) + (
+                    e.time_range.end - e.time_range.start) / 1e3 / n
+        elif mark == "mla_decode":
+            g = "mla_decode"
+        elif "flash_tf32x3_kernel" in name or "flash_wgmma_kernel" in name:
             g = "K1"
         elif "flash_bwd_" in name:
             g = "K1-bwd"
@@ -1363,7 +1659,7 @@ def device_breakdown(prof, n):
             g = "K3"
         elif "rglru_chunk_kernel" in name:
             g = "K4"
-        elif any(t in name for t in ("gemm", "gemv", "cutlass", "nvjet", "xmma", "cublas")):
+        elif is_gemm:
             g = "gemm"
         else:
             g = "other"
@@ -1372,16 +1668,25 @@ def device_breakdown(prof, n):
     groups.update({g: union_ms(found) / n for g, found in spans.items()})
     if groups["busy"] <= 0:
         raise AssertionError("the profiler recorded no device time")
+    if dispatch:   # the dispatch's costliest kernels, by name (names cut to 60)
+        top = sorted(dispatch.items(), key=lambda kv: -kv[1])[:5]
+        groups["moe_dispatch_top"] = {name[:60]: ms for name, ms in top}
     return groups, kernels / n
 
 
-def parity_phase(arch, prompt_len):
+def parity_phase(arch, prompt_len, **override):
+    """At `arch`'s reduced config (with `override`), the port on the card
+    against the port on the CPU, fp32 with TF32 off: prefill logits within
+    1e-4, 12 greedy tokens equal. With MoE, the dropped (token, k) pairs
+    are printed, and where the two devices route a call differently the
+    layer and tokens are reported before the check fails."""
     from repro_torch.configs.registry import make_model, smoke_config
     from repro_torch.launch.serve import greedy_generate
 
-    log(f"== parity: {arch} reduced config, card vs CPU, fp32, TF32 off, "
+    shown = "".join(f", {k} {v}" for k, v in override.items())
+    log(f"== parity: {arch} reduced config{shown}, card vs CPU, fp32, TF32 off, "
         f"{prompt_len}-token prompts")
-    cfg = smoke_config(arch)
+    cfg = smoke_config(arch).with_(**override)
     bundle = make_model(cfg)
     cpu = bundle.init(0, device="cpu", dtype=torch.float32)
     gpu = bundle.init(0, device="cuda", dtype=torch.float32)
@@ -1389,18 +1694,35 @@ def parity_phase(arch, prompt_len):
     gen = torch.Generator().manual_seed(1)
     tokens = torch.randint(0, cfg.vocab_size, (2, prompt_len), generator=gen)
     max_len = prompt_len + 40
-    o_cpu, _ = bundle.prefill(cpu, {"tokens": tokens}, max_len=max_len, dtype=torch.float32)
-    o_gpu, _ = bundle.prefill(gpu, {"tokens": tokens.cuda()}, max_len=max_len,
-                              dtype=torch.float32)
+    with routes_recorded() as rec_cpu:
+        o_cpu, _ = bundle.prefill(cpu, {"tokens": tokens}, max_len=max_len,
+                                  dtype=torch.float32)
+        t_cpu = greedy_generate(bundle, cpu, {"tokens": tokens}, 12, max_len, torch.float32)
+    with routes_recorded() as rec_gpu:
+        o_gpu, _ = bundle.prefill(gpu, {"tokens": tokens.cuda()}, max_len=max_len,
+                                  dtype=torch.float32)
+        t_gpu = greedy_generate(bundle, gpu, {"tokens": tokens.cuda()}, 12, max_len,
+                                torch.float32)
+    moe_note = ""
+    if cfg.family == "moe":
+        from repro_torch.models.lm import layer_plan
+        n_moe = sum(spec.moe for spec in layer_plan(cfg))
+        for i, (c, g) in enumerate(zip(rec_cpu, rec_gpu)):
+            rows = (c["idx"] != g["idx"].cpu()).any(-1).nonzero().flatten().tolist()
+            if rows:   # the call order: prefill's layers, greedy's prefill, its steps
+                log(f"   ROUTE DIFFERS: call {i} (MoE layer {i % n_moe}): tokens {rows[:16]}")
+        drops = [sum(int(r["dropped"]) for r in rec) for rec in (rec_cpu, rec_gpu)]
+        moe_note = f"; dropped (token, k) pairs, CPU {drops[0]}, card {drops[1]}"
+        if (drops[1] > 0) != (cfg.capacity_factor < 2):
+            raise AssertionError(f"capacity factor {cfg.capacity_factor}: {drops[1]} pairs "
+                                 "dropped on the card")
     err = max_err(o_gpu.logits.cpu(), o_cpu.logits)
     if not (torch.isfinite(o_gpu.logits).all() and err < 1e-4):
         raise AssertionError(f"prefill logits differ by {err}")
-    t_cpu = greedy_generate(bundle, cpu, {"tokens": tokens}, 12, max_len, torch.float32)
-    t_gpu = greedy_generate(bundle, gpu, {"tokens": tokens.cuda()}, 12, max_len, torch.float32)
     if not torch.equal(t_gpu.cpu(), t_cpu):
         raise AssertionError(f"greedy tokens differ:\n{t_gpu.cpu()}\n{t_cpu}")
     log(f"   prefill logits max_abs_err {err:.3e} (< 1e-4); 12 greedy tokens equal: "
-        f"{t_cpu[0].tolist()}")
+        f"{t_cpu.tolist() if moe_note else t_cpu[0].tolist()}{moe_note}")
 
 
 def rows_max_err(a, b, rows=256):
@@ -3309,6 +3631,12 @@ def main():
         parity_phase(arch, 150)
         phase_s[f"parity {arch}"] = time.perf_counter() - t0
         log(f"   parity {arch}: {phase_s[f'parity {arch}']:.1f} s")
+    for arch in MOE_ARCHS:
+        for cf in MOE_CAPACITY:
+            t0 = time.perf_counter()
+            parity_phase(arch, 150, capacity_factor=cf)
+            phase_s[f"parity {arch} cf {cf}"] = time.perf_counter() - t0
+            log(f"   parity {arch} at capacity {cf}: {phase_s[f'parity {arch} cf {cf}']:.1f} s")
     grad_guard_phase()
     train_parity_phase()
     torch.cuda.empty_cache()

@@ -8,6 +8,8 @@ import importlib
 
 _MODULES = {
     "qwen3-14b": "repro_torch.configs.qwen3_14b",
+    "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
+    "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
     "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
     "gemma2-9b": "repro_torch.configs.gemma2_9b",
@@ -59,6 +61,13 @@ def smoke_config(arch: str):
     if cfg.num_heads:
         small.update(num_heads=4, num_kv_heads=min(cfg.num_kv_heads, 2),
                      head_dim=16)
+    if cfg.family == "moe":
+        small.update(num_experts=8, num_experts_per_tok=2, moe_d_ff=32,
+                     first_dense_layers=min(cfg.first_dense_layers, 1),
+                     capacity_factor=8.0)
+    if cfg.mla:
+        small.update(q_lora_rank=32, kv_lora_rank=16, qk_nope_head_dim=16,
+                     qk_rope_head_dim=8, v_head_dim=16)
     if cfg.family == "ssm":
         small.update(ssm_state=16, ssm_headdim=8, ssm_chunk=16)
     if cfg.family == "hybrid":
@@ -68,5 +77,7 @@ def smoke_config(arch: str):
         small.update(num_layers=len(cfg.attn_pattern) * 2, local_window=32)
     if cfg.frontend_tokens:
         small.update(frontend_tokens=8, frontend_dim=24)
+    if cfg.mtp_depth:
+        small.update(mtp_depth=1)
     return cfg.with_(**small, remat="none", fsdp="none", tp=1,
                      grad_accum=1, optimizer_dtype="float32")

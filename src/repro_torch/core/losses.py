@@ -52,14 +52,23 @@ def _token_logprobs_entropy(logits, actions):
     return logprob, entropy
 
 
-def make_vtrace_loss(bundle, *, value_coef=0.5, entropy_coef=0.01, rho_bar=1.0, c_bar=1.0):
+def make_vtrace_loss(bundle, *, value_coef=0.5, entropy_coef=0.01, rho_bar=1.0, c_bar=1.0,
+                     mtp_weight=0.1):
     """LM-policy V-trace loss. Batch fields, all (B, S): tokens, rewards,
     discounts, behavior_logprobs, mask. Token at position t >= 1 is the
-    *action* taken given the prefix < t."""
+    *action* taken given the prefix < t.
+
+    An LM's router loss (``out.aux_loss``, a 0-d tensor: zero for a dense
+    LM) adds ``router_aux_coef`` times itself and the metric "router_aux";
+    the families whose aux_loss is the plain 0.0 add neither, as in the
+    reference. With MTP logits, position t's prediction of token t+2 adds
+    ``mtp_weight`` times its masked cross-entropy, the metric "mtp_ce"."""
+    cfg = bundle.cfg
 
     def loss_fn(params, batch):
         out = bundle.forward(params, batch)   # no modality frontend: one position a token
-        actions = torch.as_tensor(batch["tokens"], device=out.logits.device)[:, 1:]
+        tokens = torch.as_tensor(batch["tokens"], device=out.logits.device)
+        actions = tokens[:, 1:]
         logits_t = out.logits[:, :-1]
         values_t = out.value[:, :-1]
         bootstrap = out.value[:, -1]
@@ -72,7 +81,18 @@ def make_vtrace_loss(bundle, *, value_coef=0.5, entropy_coef=0.01, rho_bar=1.0, 
         pg, vl, en = vtrace_losses(logprob, entropy, vtr, values_t, mask,
                                    value_coef=value_coef, entropy_coef=entropy_coef)
         loss = pg + vl + en
-        metrics = {"pg_loss": pg, "value_loss": vl, "entropy_loss": en, "loss": loss}
+        metrics = {"pg_loss": pg, "value_loss": vl, "entropy_loss": en}
+        if torch.is_tensor(out.aux_loss) and out.aux_loss.numel() == 1:
+            loss = loss + cfg.router_aux_coef * out.aux_loss
+            metrics["router_aux"] = out.aux_loss
+        if out.mtp_logits is not None:
+            # auxiliary MTP cross-entropy: position t predicts token t+2
+            lp, _ = _token_logprobs_entropy(out.mtp_logits[:, :-2], tokens[:, 2:])
+            m2 = batch["mask"][:, 2:].float()
+            mtp_ce = -(lp * m2).sum() / torch.clamp(m2.sum(), min=1.0)
+            loss = loss + mtp_weight * mtp_ce
+            metrics["mtp_ce"] = mtp_ce
+        metrics["loss"] = loss
         return loss, {k: v.detach() for k, v in metrics.items()}
 
     return loss_fn

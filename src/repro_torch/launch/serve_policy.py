@@ -6,18 +6,27 @@ policy): batched prefill, then N clients decode token by token through the
     PYTHONPATH=src python -m repro_torch.launch.serve_policy --arch mamba2-2.7b
     PYTHONPATH=src python -m repro_torch.launch.serve_policy --arch recurrentgemma-2b
     PYTHONPATH=src python -m repro_torch.launch.serve_policy --arch gemma2-9b
+    PYTHONPATH=src python -m repro_torch.launch.serve_policy --arch qwen3-moe-30b-a3b
+    PYTHONPATH=src python -m repro_torch.launch.serve_policy --arch deepseek-v3-671b
 
 runs the reduced config (``smoke_config``) of a ported arch on the card
 (``--arch`` takes every LM of ``configs.registry.list_archs``: also
-starcoder2-15b, qwen2.5-32b and internvl2-1b); ``--device cpu`` runs the
-plain PyTorch path. ``chip_smoke.py`` serves them at their published
-widths in bf16 by calling ``serve`` directly. The dense LMs decode against
-a KV cache of ``max_len`` slots (gemma2's local layers a ring of
-min(``max_len``, window) slots); mamba2-2.7b carries a fixed-size state
+starcoder2-15b, qwen2.5-32b, internvl2-1b, qwen3-moe-30b-a3b and
+deepseek-v3-671b); ``--device cpu`` runs the plain PyTorch path.
+``chip_smoke.py`` serves them at their published widths in bf16 by calling
+``serve`` directly: every arch at full depth but deepseek-v3-671b, whose
+bf16 weights (about 1.3 TB) do not fit one card, so it is served at its
+full width cut to 4 layers (its 3 first dense layers and 1 MoE layer, with
+the MTP block built). The dense and MoE LMs decode against a KV cache of
+``max_len`` slots (gemma2's local layers a ring of min(``max_len``,
+window) slots; deepseek's MLA a compressed cache of kv_lora_rank +
+qk_rope_head_dim values a token); mamba2-2.7b carries a fixed-size state
 per layer and ignores ``max_len``; recurrentgemma-2b carries a state per
 recurrent layer and a ring per local-attention layer. internvl2-1b is
 served on text prompts: its frontend's patch embeddings are not part of
-a serving request, as in the JAX package's serving example.
+a serving request, as in the JAX package's serving example. An MoE routes
+the whole batch at once, as the reference's serve step does, so with
+capacity drops a client's tokens depend on the other clients in its batch.
 
 Every client gets its own seeded prompt. The server hands out slots in
 first-sight order, so the slots are claimed for clients 0..N-1 before the

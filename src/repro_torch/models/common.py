@@ -74,16 +74,18 @@ def q_head(p, x):
     return x.float() @ p.w.float() + p.b.float()
 
 
-def lm_outputs(cfg, params, x):
+def lm_outputs(cfg, params, x, aux_loss=0.0, mtp_logits=None):
     """Final norm, then the fp32 logits (capped by `cfg.final_softcap`) and
-    the value of every position. A model with a q head (R2D2) returns its
-    q values (B,S,A) as the logits."""
+    the value of every position, with `aux_loss` and `mtp_logits` passed
+    through. A model with a q head (R2D2) returns its q values (B,S,A) as
+    the logits."""
     h = apply_norm(params.final_norm, x, cfg.norm_eps, cfg.gemma_scale)
     if getattr(params, "q_head", None) is not None:
         logits = q_head(params.q_head, h)
     else:
         logits = unembed(cfg, params.embed, h, softcap=cfg.final_softcap)
-    return ModelOutputs(logits=logits, value=value_head(params.value_head, h))
+    return ModelOutputs(logits=logits, value=value_head(params.value_head, h),
+                        aux_loss=aux_loss, mtp_logits=mtp_logits)
 
 
 def as_tokens(params, tokens):
@@ -105,5 +107,12 @@ class ModelBundle:
 
 @dataclass
 class ModelOutputs:
+    """`aux_loss` is the LM's summed router loss, a 0-d fp32 tensor (zero for
+    a dense LM), and the plain 0.0 of the families that have no router, as
+    in the reference, whose loss adds the router term only for a
+    one-element array. `mtp_logits` (B, S, vocab) fp32, the MTP head's
+    prediction of token t+2, in `forward` of a model with MTP only."""
     logits: torch.Tensor            # (B, S, vocab) fp32 (or (B, S, A) for q-nets)
     value: Optional[torch.Tensor]   # (B, S) fp32
+    aux_loss: Any = 0.0
+    mtp_logits: Optional[torch.Tensor] = None

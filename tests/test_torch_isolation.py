@@ -53,6 +53,8 @@ def test_importing_every_module_loads_no_jax():
             "repro_torch.configs.shapes", "repro_torch.benchmarks",
             "repro_torch.configs.gemma2_9b", "repro_torch.configs.starcoder2_15b",
             "repro_torch.configs.qwen2_5_32b", "repro_torch.configs.internvl2_1b",
+            "repro_torch.nn.moe", "repro_torch.nn.mla",
+            "repro_torch.configs.qwen3_moe_30b_a3b", "repro_torch.configs.deepseek_v3_671b",
             "repro_torch.benchmarks.fig2_breakdown", "repro_torch.benchmarks.fig3_actor_scaling",
             "repro_torch.benchmarks.fig4_cpu_gpu_ratio", "repro_torch.benchmarks.run",
             "repro_torch.launch.provision_system", "repro_torch.telemetry",

@@ -135,14 +135,44 @@ def test_bf16_cache_decode_stays_close(models):
                                atol=5e-2, rtol=5e-2)
 
 
+# the LM parts slice 18 ported, each on qwen3's reduced config: an MLA
+# attention, an MTP head, a first dense layer, num_experts on a dense
+# family (inert, as in the reference), and an MoE family
+PORTED_PARTS = [
+    {"mla": True, "q_lora_rank": 32, "kv_lora_rank": 16, "qk_nope_head_dim": 16,
+     "qk_rope_head_dim": 8, "v_head_dim": 16},
+    {"mtp_depth": 1},
+    {"first_dense_layers": 1},
+    {"num_experts": 4},
+    {"family": "moe", "num_experts": 4, "num_experts_per_tok": 2, "moe_d_ff": 32},
+]
+
+
+@pytest.mark.parametrize("override", PORTED_PARTS,
+                         ids=["MLA", "MTP", "first dense layers", "MoE inert", "MoE"])
+def test_ported_parts_build_and_match_jax(override):
+    """Each part the LM used to refuse builds, converts and gives the JAX
+    model's logits, router loss and MTP logits."""
+    jcfg, cfg = jsmoke_config(ARCH).with_(**override), smoke_config(ARCH).with_(**override)
+    jbundle = jmake_model(jcfg)
+    jparams = jbundle.init(jax.random.PRNGKey(0))
+    bundle = make_model(cfg)
+    params = bundle.init(0, device="cpu")
+    params.load_state_dict(params_from_jax(cfg, jax.tree.map(np.asarray, jparams)))
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, S))
+    want = jbundle.forward(jparams, {"tokens": jnp.asarray(tokens, jnp.int32)})
+    got = bundle.forward(params, {"tokens": torch.from_numpy(tokens)})
+    _close(got.logits, want.logits)
+    _close(got.aux_loss, want.aux_loss)
+    assert (got.mtp_logits is None) == (want.mtp_logits is None) == (not cfg.mtp_depth)
+    if cfg.mtp_depth:
+        _close(got.mtp_logits, want.mtp_logits)
+
+
 @pytest.mark.parametrize("override,match", [
-    ({"mla": True}, "MLA"),
-    ({"mtp_depth": 1}, "MTP"),
-    ({"first_dense_layers": 1}, "first dense layers"),
-    ({"num_experts": 4}, "MoE"),
-    ({"family": "moe", "num_experts": 4}, "MoE"),
     ({"tp": 16}, "padded heads"),
     ({"act": "sigmoid"}, "activation 'sigmoid'"),
+    ({"family": "encdec", "enc_layers": 2, "dec_layers": 2}, "encdec"),
 ])
 def test_unported_parts_raise(override, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -150,16 +180,20 @@ def test_unported_parts_raise(override, match):
 
 
 def test_unported_archs_and_caches_raise():
-    """The dense family is ported (gemma2's local layers included); the MoE
-    archs are not registered yet, the LM refuses MTP and DeepSeek's first
-    dense layers, and the attention refuses an unported cache kind."""
+    """The dense and MoE families are ported (gemma2's local layers, MLA,
+    MTP and DeepSeek's first dense layers included); the encoder-decoder
+    arch is not registered yet, the LM refuses only padded heads and
+    unknown activations, and the attention refuses an unported cache
+    kind."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models.lm import check_supported
     from repro_torch.nn.attention import make_cache
     with pytest.raises(KeyError, match="not ported"):
-        get_config("qwen3-moe-30b-a3b")
-    check_supported(get_config("gemma2-9b"))
-    with pytest.raises(NotImplementedError, match="MTP, first dense layers"):
-        check_supported(smoke_config(ARCH).with_(mtp_depth=1, first_dense_layers=1))
+        get_config("seamless-m4t-large-v2")
+    for arch in ("gemma2-9b", "qwen3-moe-30b-a3b", "deepseek-v3-671b"):
+        check_supported(get_config(arch))
+    check_supported(smoke_config(ARCH).with_(mtp_depth=1, first_dense_layers=1))
+    with pytest.raises(NotImplementedError, match=r"padded heads \(tp > 1\), activation"):
+        check_supported(smoke_config(ARCH).with_(tp=16, act="sigmoid"))
     with pytest.raises(NotImplementedError, match="not ported"):
         make_cache(smoke_config(ARCH), 1, 8, kind="bidir", device="cpu")
