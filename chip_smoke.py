@@ -38,7 +38,13 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    internvl2-1b's calls; K1 and K2 at qwen3-moe-30b-a3b's calls, and K1
    at deepseek's MLA call (q and k of 192, v of 128, zero-padded to
    head_dim 256), held to its plain version and to SDPA on the unpadded
-   inputs, which is its library cell;
+   inputs, which is its library cell; K1 with k and v of a length of their
+   own (no mask) on both routes: seamless-m4t-large-v2's encoder call (4,
+   1024, 16/16, D 64) and cross call (256 queries over 1024 frames), S_kv
+   ragged against the key tiles, shorter and longer than S, and the
+   reduced config's cross call in fp32 (with its log-sum-exp), timed at
+   seamless's three calls beside SDPA; K2 at seamless's cross decode (1024
+   frames, all valid) and self decode, timed too;
 4. serve: qwen3-14b at full width (40 layers, bf16 params made on the card
    from a seed) answers four clients through the port's InferenceServer;
    the kernels' launch counts must rise by 40 per prefill (K1) and by 40
@@ -73,15 +79,25 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    kernels) and mla_decode; then the ring wrap: gemma2-9b cut to one
    local and one global layer at full width, fp32, 4352-token prompts:
    the prefill's logits at every position and 16 decode steps' logits and
-   greedy tokens through K1 and K2 against their plain versions;
+   greedy tokens through K1 and K2 against their plain versions; then the
+   encoder-decoder: seamless-m4t-large-v2 at full width and depth (24
+   encoder and 24 decoder layers, 1.63 B params, bf16) on 256-token
+   prompts over 1024 seeded frames, K1 72 a prefill (24 encoder, 24 self-
+   and 24 cross-attention calls, all on `wgmma`) and K2 48 a decode step
+   (24 self, 24 cross), its served batch's logits after the prefill and 3
+   decode steps held to the plain versions (rms error <= 5e-2 of the rms);
 5. parity: at each arch's reduced config, prefill logits and greedy tokens
    from the port on the card equal the port on the CPU (the plain
    versions), in fp32 (150-token prompts for gemma2-9b, starcoder2-15b,
    qwen2.5-32b and internvl2-1b: gemma2's reduced window is 32; and for
    qwen3-moe-30b-a3b and deepseek-v3-671b at capacity factors 8.0 and
-   1.25, where pairs must drop, every route compared);
-6. grad guards: K1's bf16 route, K2 and K3 raise under autograd (they
-   have no backward kernel) instead of returning a tensor with no grad_fn;
+   1.25, where pairs must drop, every route compared; and for
+   seamless-m4t-large-v2, 12-token prompts over the reduced config's 8
+   frames, so that K1's fp32 cross call has k and v of a length of their
+   own);
+6. grad guards: K1's bf16 route, K1 with k and v of a length of their own
+   (K1-bwd takes one S), K2 and K3 raise under autograd (they have no
+   backward kernel) instead of returning a tensor with no grad_fn;
 7. train parity: recurrentgemma-2b at 3 layers of full width, fp32: the
    V-trace loss through K1, K1-bwd, K4 and K4-bwd against the same
    through their plain versions on the card; each of those kernel calls
@@ -216,7 +232,16 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    under build/bench_torch/: every correctness check asserted, their
    wall-clock overhead gates (< 3% frames/s) printed beside their limit.
    No kernel of the port may launch in phases 10-19 (the paths have no
-   Pallas kernel): the counts are set to 0 before them and read after.
+   Pallas kernel): the counts are set to 0 before them and read after;
+20. the quickstart (``repro_torch.launch.quickstart``) on the card: the
+   reduced qwen3-14b trained 20 steps (K1 on its 3xTF32 route and K1-bwd,
+   4 a step), checkpointed and restored at step 20, greedy-decoded (K1 4,
+   K2 28), then the SEED demos (vector lanes, the device backend, socket
+   and shm hosts, replicas x gateways, engine shards, V-trace on both
+   backends, telemetry, the live ops plane, a learner crash and resume),
+   ending in "ok"; then ``repro_torch.benchmarks.check_trend`` on the
+   history ledger phase 19 wrote (build/bench_torch/BENCH_history.json),
+   exit 0 and "trend_summary,ok".
 
 The kernel phase (3) also holds K1-bwd and K4-bwd to their plain versions
 (the formulas each kernel computes) at the train call, the smoke widths,
@@ -269,7 +294,9 @@ SERVE = {"qwen3-14b": (256, 512), "mamba2-2.7b": (512, 576),
          "gemma2-9b": (4352, 4352 + CLIENTS * TOKENS),
          "starcoder2-15b": (256, 512), "qwen2.5-32b": (256, 512),
          "internvl2-1b": (256, 512),
-         "qwen3-moe-30b-a3b": (256, 512), "deepseek-v3-671b": (256, 512)}
+         "qwen3-moe-30b-a3b": (256, 512), "deepseek-v3-671b": (256, 512),
+         # the encoder-decoder: 256-token prompts against 1024 seeded frames
+         "seamless-m4t-large-v2": (256, 512)}
 PROMPT_LEN, MAX_LEN = SERVE["qwen3-14b"]
 # the MoE archs: qwen3-moe-30b-a3b at full depth (48 layers, 61 GB of bf16
 # weights); deepseek-v3-671b at its full width cut to 4 layers (its 3 first
@@ -295,6 +322,13 @@ RG = dict(h=10, kh=1, d=256, window=2048)
 # gemma2-9b's: 16 query heads on 8 kv heads of 256, every scaled logit
 # capped at 50; its local layers' window of 4096 is their ring's size
 GEMMA = dict(h=16, kh=8, d=256, window=4096, softcap=50.0, scale=0.0625)
+# seamless-m4t-large-v2's attention: 16 query heads on 16 kv heads of 64;
+# the encoder's K1 over its 1024 frames, the decoder's cross-attention K1
+# (prefill) and K2 (decode) over them
+SEAMLESS = dict(h=16, kh=16, d=64, frames=1024)
+# its reduced config's parity, card against CPU: 12 tokens against 8 frames,
+# so that K1's cross call has k and v of a length of their own
+ENCDEC_PARITY_PROMPT = 12
 # the new archs' reduced configs, card against CPU: 150 tokens pass the
 # reduced window of 32 (gemma2's rings wrap)
 DENSE_PARITY = ("gemma2-9b", "starcoder2-15b", "qwen2.5-32b", "internvl2-1b")
@@ -586,6 +620,41 @@ def kernel_phase(k1_ptxas, k4_ptxas, bwd_ptxas):
         err = check_close(name, got, want, tol[dt])
         main_err = err if main_err is None else main_err
 
+    # k and v of a length of their own (the encoder-decoder's cross-
+    # attention: no causal mask, no window), on both routes: seamless's
+    # encoder call (S_kv == S, unmasked) and cross call (256 text queries
+    # over 1024 frames), S_kv ragged against the key tiles and shorter or
+    # longer than S, BK 64 at D 256, and the reduced config's cross call;
+    # bf16 with an atol of 2e-2 of each row's rms (a softmax over 1024 keys
+    # gives outputs of about 0.03)
+    sm = SEAMLESS
+    for (cb, cs, cskv, ch, ckh, cd), dt in (
+            ((b, sm["frames"], sm["frames"], sm["h"], sm["kh"], sm["d"]), torch.bfloat16),
+            ((b, SERVE["seamless-m4t-large-v2"][0], sm["frames"], sm["h"], sm["kh"], sm["d"]),
+             torch.bfloat16),
+            ((2, 300, 77, 4, 2, 64), torch.bfloat16),
+            ((2, 70, 300, 2, 1, 128), torch.bfloat16),
+            ((2, 65, 129, 2, 2, 256), torch.bfloat16),
+            ((2, ENCDEC_PARITY_PROMPT, 8, 4, 2, 16), torch.float32),
+            ((2, 100, 70, 4, 2, 64), torch.float32),
+            ((2, 33, 300, 2, 1, 128), torch.float32),
+            ((2, 50, 77, 4, 2, 16), torch.bfloat16)):
+        q = rand(cb, cs, ch, cd, dtype=dt)
+        k, v = rand(cb, cskv, ckh, cd, dtype=dt), rand(cb, cskv, ckh, cd, dtype=dt)
+        kw = dict(causal=False, scale=cd ** -0.5)
+        x3 = K1.route(dt, cd) == "tf32x3"
+        got = K1.flash_attention(q, k, v, return_lse=x3, **kw)
+        want = ops.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        name = f"K1 q {(cb, cs, ch, cd)}, k/v {(cb, cskv, ckh, cd)} {str(dt)[6:]} unmasked " \
+               f"[{K1.route(dt, cd)}]"
+        if x3:
+            got, lse = got
+            check_close(f"{name} lse", lse, ops.flash_attention_lse_plain(q, k, **kw), LSE_TOL)
+        check_close(name, got, want, tol[dt],
+                    row_atol(want, tol[dt], (2, 3)) if dt == torch.bfloat16 else None)
+        del q, k, v, got, want
+
     gemma2_attention_checks(rand, b)
 
     def time_k1(b, s, h, kh, d, window=0, softcap=None, scale=None):
@@ -640,6 +709,37 @@ def kernel_phase(k1_ptxas, k4_ptxas, bwd_ptxas):
     rows["flash_attention"]["qwen3_moe_call"] = time_k1(b, s, QMOE["h"], QMOE["kh"], QMOE["d"])
     rows["flash_attention"]["mla_call"] = time_k1_mla(b, s, rand)
 
+    def time_k1_unmasked(b, s, skv, h, kh, d):
+        """K1 without a mask, q of S positions over k and v of S_kv, bf16
+        (seamless's encoder and cross calls), beside SDPA's unmasked call."""
+        q = rand(b, s, h, d, dtype=torch.bfloat16)
+        k, v = rand(b, skv, kh, d, dtype=torch.bfloat16), rand(b, skv, kh, d, dtype=torch.bfloat16)
+        kw = dict(causal=False, scale=d ** -0.5)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        ms = time_ms("K1 unmasked", lambda: K1.flash_attention(q, k, v, **kw))
+        plain_ms = time_ms("K1 unmasked plain", lambda: ops.flash_attention_plain(q, k, v, **kw))
+        lib_ms = time_ms("K1 unmasked library", lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, scale=d ** -0.5, enable_gqa=True))
+        flops = 4 * d * s * skv * b * h
+        nbytes = (2 * b * s * h * d + 2 * b * skv * kh * d) * q.element_size()
+        row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   **bound(flops, nbytes, "bfloat16"), tflops=flops / ms / 1e9)
+        log(f"   K1 at q ({b},{s},{h},{d}), k/v ({b},{skv},{kh},{d}) bf16, unmasked "
+            f"[{K1.route(q.dtype, d)}]: kernel_ms {ms:.4f} ({row['tflops']:.1f} TFLOP/s) "
+            f"plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} (SDPA) bound_ms "
+            f"{row['bound_ms']:.4f} ({row['bound_by']}, {flops / 1e9:.1f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB)")
+        return row
+
+    # seamless-m4t-large-v2's three calls: the encoder's over its frames, the
+    # decoder's causal self-attention, its cross-attention over the frames
+    ss = SERVE["seamless-m4t-large-v2"][0]
+    rows["flash_attention"]["seamless_encoder_call"] = time_k1_unmasked(
+        b, sm["frames"], sm["frames"], sm["h"], sm["kh"], sm["d"])
+    rows["flash_attention"]["seamless_self_call"] = time_k1(b, ss, sm["h"], sm["kh"], sm["d"])
+    rows["flash_attention"]["seamless_cross_call"] = time_k1_unmasked(
+        b, ss, sm["frames"], sm["h"], sm["kh"], sm["d"])
+
     # ---- K2 ----
     log("== kernels: K2 decode attention (split-S pass, then combine)")
     S = MAX_LEN
@@ -651,6 +751,12 @@ def kernel_phase(k1_ptxas, k4_ptxas, bwd_ptxas):
               [0, 1, 263, S]),
              ((b, rmax, RG["h"], RG["kh"], RG["d"]), torch.bfloat16,   # RecurrentGemma's ring
               [0, 1, rs + 8, rmax]),
+             # seamless's calls: cross-attention over 1024 frames, all valid;
+             # the self-attention's cache
+             ((b, SEAMLESS["frames"], SEAMLESS["h"], SEAMLESS["kh"], SEAMLESS["d"]),
+              torch.bfloat16, [SEAMLESS["frames"]] * b),
+             ((b, S, SEAMLESS["h"], SEAMLESS["kh"], SEAMLESS["d"]), torch.bfloat16,
+              [0, 1, 263, S]),
              # the split edges at qwen3's call (chunk 32 at 132 SMs): only split 0
              # live, a chunk's edge and one past it, a length past S, a length 0
              (qwen, torch.bfloat16, [1, 32, 33, S + 100]),
@@ -811,6 +917,13 @@ def kernel_phase(k1_ptxas, k4_ptxas, bwd_ptxas):
         GEMMA["softcap"])
     rows["decode_attention"]["qwen3_moe_call"] = time_k2(
         b, S, QMOE["h"], QMOE["kh"], QMOE["d"], PROMPT_LEN + TOKENS // 2)
+    # seamless's decode: cross-attention over the 1024 cached frames, every
+    # one valid, and the self-attention's cache of max_len slots
+    smax = SERVE["seamless-m4t-large-v2"][1]
+    rows["decode_attention"]["seamless_cross_call"] = time_k2(
+        b, sm["frames"], sm["h"], sm["kh"], sm["d"], sm["frames"])
+    rows["decode_attention"]["seamless_self_call"] = time_k2(
+        b, smax, sm["h"], sm["kh"], sm["d"], ss + TOKENS // 2)
 
     # ---- K3 ----
     log("== kernels: K3 SSD chunked scan (Mamba2 prefill)")
@@ -1200,8 +1313,15 @@ def expected_launches(cfg, steps):
     each decode step; Mamba runs K3 once per layer in prefill and nothing
     in decode; RecurrentGemma runs K4 once per recurrent layer in prefill
     and nothing in decode, and K1 and K2 as the dense LM does on its
-    local-attention layers. Serving runs no backward kernel."""
+    local-attention layers. The encoder-decoder runs K1 once per encoder
+    layer and twice per decoder layer (self- and cross-attention) in
+    prefill, and K2 twice per decoder layer in each decode step. Serving
+    runs no backward kernel."""
     bwd = {"flash_attention_bwd": 0, "rglru_scan_bwd": 0}
+    if cfg.family == "encdec":
+        return {"flash_attention": cfg.enc_layers + 2 * cfg.dec_layers,
+                "decode_attention": 2 * cfg.dec_layers * steps, "ssd_scan": 0, "rglru_scan": 0,
+                **bwd}
     if cfg.family == "ssm":
         return {"flash_attention": 0, "decode_attention": 0, "ssd_scan": cfg.num_layers,
                 "rglru_scan": 0, **bwd}
@@ -1218,6 +1338,12 @@ def expected_launches(cfg, steps):
 
 
 def describe(cfg):
+    if cfg.family == "encdec":
+        return (f"{cfg.enc_layers} encoder + {cfg.dec_layers} decoder layers, d_model "
+                f"{cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads}, head_dim "
+                f"{cfg.head_dim}, d_ff {cfg.d_ff} ({cfg.act}, ungated, MLP biases), "
+                f"{cfg.norm}, qkv biases, vocab {cfg.vocab_size} untied, a frontend of "
+                f"{cfg.frontend_tokens} seeded frames x {cfg.frontend_dim}")
     if cfg.family == "hybrid":
         return (f"d_model {cfg.d_model}, lru_width {cfg.lru_width}, pattern "
                 f"{'/'.join(cfg.block_pattern)}, heads {cfg.num_heads}/{cfg.num_kv_heads}, "
@@ -1291,10 +1417,14 @@ def serve_phase(arch):
     # warm-up at the main path's shapes (cuBLAS handles and heuristics, the
     # caching allocator); its launches are not counted
     prompts = torch.randint(0, cfg.vocab_size, (CLIENTS, prompt_len), device=dev)
+    batch = {"tokens": prompts}
+    if cfg.family == "encdec":   # the encoder's seeded frames
+        batch["frontend"] = torch.randn(CLIENTS, cfg.frontend_tokens, cfg.frontend_dim,
+                                        device=dev)
     prefill = make_prefill(bundle, max_len, torch.bfloat16)
     step = make_serve_step(bundle)
     t0 = time.perf_counter()
-    tok, cache = prefill(params, {"tokens": prompts})
+    tok, cache = prefill(params, batch)
     torch.cuda.synchronize()
     cold_ms = (time.perf_counter() - t0) * 1e3
     step(params, tok, cache)
@@ -1340,10 +1470,12 @@ def serve_phase(arch):
                              f"missed a client")
     # the greedy run repeats the served batches (every client in each), so
     # its MoE calls are the served ones: their dropped pairs are counted here
+    served = {"tokens": torch.as_tensor(out["prompts"], device=dev)}
+    if out["frames"] is not None:
+        served["frontend"] = torch.as_tensor(out["frames"], device=dev)
     with routes_recorded() as rec:
-        greedy = greedy_generate(bundle, params, {"tokens": torch.as_tensor(
-            out["prompts"], device=dev)}, steps=TOKENS + 1, max_len=max_len,
-            dtype=torch.bfloat16).cpu()
+        greedy = greedy_generate(bundle, params, served, steps=TOKENS + 1, max_len=max_len,
+                                 dtype=torch.bfloat16).cpu()
     for cid in range(CLIENTS):
         if [out["first"][cid]] + out["tokens"][cid] != greedy[cid].tolist():
             raise AssertionError(f"client {cid}: served tokens differ from greedy")
@@ -1371,12 +1503,17 @@ def serve_phase(arch):
     elif cfg.family == "moe":
         # the served batch: its routing and drops are the served ones
         plain = full_depth_plain_check(bundle, params, prompts, max_len)
+    elif cfg.family == "encdec":
+        # the encoder (K1 unmasked), the self- and cross-attention prefill
+        # (K1) and decode (K2) against their plain versions at full depth
+        plain = full_depth_plain_check(bundle, params, prompts, max_len,
+                                       frontend=batch["frontend"])
 
     # where the device time goes: one profiled prefill and three decode steps
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with annotated_layers(), profile(activities=acts) as prof:
-        tok, cache = prefill(params, {"tokens": prompts})
+        tok, cache = prefill(params, batch)
         torch.cuda.synchronize()
     pre, pre_ops = device_breakdown(prof, 1)
     with annotated_layers(), profile(activities=acts) as prof:
@@ -1427,14 +1564,17 @@ def serve_phase(arch):
                                for cid in range(CLIENTS)}}
 
 
-def logits_path(bundle, params, prompts, max_len, steps, feed=None, every_position=False):
+def logits_path(bundle, params, prompts, max_len, steps, feed=None, every_position=False,
+                frontend=None):
     """The fp32 logits after the prefill (the last position's, or with
     `every_position` all of them, (B*S, V)), then the logits after each of
     `steps` decode steps, each fed `feed[i]` or else the previous logits'
-    argmax. Returns (the logits, the tokens fed)."""
+    argmax. `frontend`: the encoder-decoder's frames. Returns (the logits,
+    the tokens fed)."""
+    batch = {"tokens": prompts} if frontend is None else {"tokens": prompts,
+                                                          "frontend": frontend}
     with torch.no_grad():
-        out, cache = bundle.prefill(params, {"tokens": prompts}, max_len=max_len,
-                                    dtype=torch.bfloat16)
+        out, cache = bundle.prefill(params, batch, max_len=max_len, dtype=torch.bfloat16)
         last = out.logits[:, -1].float()
         rows = [out.logits.reshape(-1, out.logits.shape[-1]) if every_position else last]
         fed = []
@@ -1507,7 +1647,8 @@ def routing_agreement(cfg, got, want):
     return [x / t for x, t in zip(same, total)]
 
 
-def full_depth_plain_check(bundle, params, prompts, max_len, steps=3, rel=5e-2):
+def full_depth_plain_check(bundle, params, prompts, max_len, steps=3, rel=5e-2,
+                           frontend=None):
     """The prompts' last-position logits after the prefill, then `steps`
     decode steps' logits (every path fed the kernels' greedy tokens),
     through K1 and K2 against the same through their plain versions on the
@@ -1539,7 +1680,7 @@ def full_depth_plain_check(bundle, params, prompts, max_len, steps=3, rel=5e-2):
 
     plain = functools.partial(plain_versions, ops, k1=True, k4=False, k2=True)
     path = functools.partial(logits_path, bundle, params, prompts, max_len, steps,
-                             every_position=cfg.family == "moe")
+                             every_position=cfg.family == "moe", frontend=frontend)
     with routes_recorded() as rec:
         got, fed = path()
     finite = all(bool(torch.isfinite(g).all()) for g in got)
@@ -1692,17 +1833,18 @@ def parity_phase(arch, prompt_len, **override):
     gpu = bundle.init(0, device="cuda", dtype=torch.float32)
     gpu.load_state_dict(cpu.state_dict())
     gen = torch.Generator().manual_seed(1)
-    tokens = torch.randint(0, cfg.vocab_size, (2, prompt_len), generator=gen)
+    b_cpu = {"tokens": torch.randint(0, cfg.vocab_size, (2, prompt_len), generator=gen)}
+    if cfg.family == "encdec":   # seeded frames for the encoder
+        b_cpu["frontend"] = torch.randn(2, cfg.frontend_tokens, cfg.frontend_dim,
+                                        generator=gen)
+    b_gpu = {k: v.cuda() for k, v in b_cpu.items()}
     max_len = prompt_len + 40
     with routes_recorded() as rec_cpu:
-        o_cpu, _ = bundle.prefill(cpu, {"tokens": tokens}, max_len=max_len,
-                                  dtype=torch.float32)
-        t_cpu = greedy_generate(bundle, cpu, {"tokens": tokens}, 12, max_len, torch.float32)
+        o_cpu, _ = bundle.prefill(cpu, b_cpu, max_len=max_len, dtype=torch.float32)
+        t_cpu = greedy_generate(bundle, cpu, b_cpu, 12, max_len, torch.float32)
     with routes_recorded() as rec_gpu:
-        o_gpu, _ = bundle.prefill(gpu, {"tokens": tokens.cuda()}, max_len=max_len,
-                                  dtype=torch.float32)
-        t_gpu = greedy_generate(bundle, gpu, {"tokens": tokens.cuda()}, 12, max_len,
-                                torch.float32)
+        o_gpu, _ = bundle.prefill(gpu, b_gpu, max_len=max_len, dtype=torch.float32)
+        t_gpu = greedy_generate(bundle, gpu, b_gpu, 12, max_len, torch.float32)
     moe_note = ""
     if cfg.family == "moe":
         from repro_torch.models.lm import layer_plan
@@ -1813,13 +1955,17 @@ def grad_guard_phase():
     """A kernel with no backward kernel refuses an input that requires a
     gradient, rather than return a tensor with no grad_fn."""
     from repro_torch.kernels import ops
-    log("== grad guards: K1 bf16, K2 and K3 under autograd on the card")
+    log("== grad guards: K1 bf16, K1 with k and v of a length of their own, K2 and K3 under "
+        "autograd on the card")
     dev = torch.device("cuda")
     q = torch.randn(1, 64, 2, 64, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    q32 = torch.randn(1, 64, 2, 64, device=dev, requires_grad=True)
+    frames = torch.randn(1, 96, 2, 64, device=dev)
     kv = torch.randn(1, 32, 2, 64, device=dev, requires_grad=True)
     x = torch.randn(1, 16, 2, 16, device=dev, requires_grad=True)
     bm = torch.randn(1, 16, 1, 16, device=dev)
     calls = {"K1 bf16": lambda: ops.flash_attention(q, q, q),
+             "K1 fp32, S_kv != S": lambda: ops.flash_attention(q32, frames, frames, causal=False),
              "K2": lambda: ops.decode_attention(kv[:, 0], kv, kv,
                                                 torch.ones(1, dtype=torch.int32, device=dev)),
              "K3": lambda: ops.ssd_scan(x, torch.rand(1, 16, 2, device=dev),
@@ -3533,6 +3679,60 @@ def ops_phase(card):
     return out
 
 
+def quickstart_phase(card):
+    """Phase 20: the port's quickstart on the card, as a user runs it
+    (``repro_torch.launch.quickstart.main``), then the trend guard
+    (``repro_torch.benchmarks.check_trend``) on the history ledger that
+    phase 19 wrote under build/bench_torch/. Its LM part trains the reduced
+    qwen3-14b (fp32: K1 on its 3xTF32 route and K1-bwd, once a layer a
+    step), then greedy-decodes 8 tokens (K1 once a layer in the prefill, K2
+    once a layer a step); nothing else it runs launches a port kernel.
+    Returns (the launch counts, the phase's numbers)."""
+    import io
+
+    from repro_torch.benchmarks import check_trend
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import quickstart
+
+    t0 = time.perf_counter()
+    log(f"== quickstart [{card}]: python -m repro_torch.launch.quickstart (on the card)")
+    layers = smoke_config("qwen3-14b").num_layers
+    steps, greedy = 20, 8
+    ops.reset_launch_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = quickstart.main(["--out-dir", str(ROOT / "build" / "quickstart")])
+    counts = ops.launch_counts()
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        log(f"   {line}")
+    want = {"flash_attention": layers * (steps + 1), "flash_attention_bwd": layers * steps,
+            "decode_attention": layers * (greedy - 1), "ssd_scan": 0, "rglru_scan": 0,
+            "rglru_scan_bwd": 0}
+    log(f"   launches: {counts} (expected {want})")
+    if counts != want:
+        raise AssertionError(f"quickstart launch counts {counts} != expected {want}")
+    if lines[-1] != "ok" or res["restored_step"] != 20 or not all(
+            math.isfinite(x) for x in res["losses"]):
+        raise AssertionError("the quickstart did not run to its end")
+    quick_s = time.perf_counter() - t0
+
+    ledger = ROOT / "build" / "bench_torch" / "BENCH_history.json"
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = check_trend.main([str(ledger)])
+    trend = out.getvalue().splitlines()
+    log(f"== check_trend on {ledger.relative_to(ROOT)}: exit {rc}")
+    for line in trend:
+        log(f"   {line}")
+    if rc != 0 or not trend[-1].startswith("trend_summary,ok"):
+        raise AssertionError("check_trend did not read 'ok' on phase 19's history ledger")
+    return counts, {"seconds": quick_s, "losses": res["losses"][::5],
+                    "generated": res["generated"].tolist(), "check_trend_exit": rc,
+                    "check_trend": trend[2:]}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs "
@@ -3631,6 +3831,11 @@ def main():
         parity_phase(arch, 150)
         phase_s[f"parity {arch}"] = time.perf_counter() - t0
         log(f"   parity {arch}: {phase_s[f'parity {arch}']:.1f} s")
+    # the encoder-decoder: 12 tokens against the reduced config's 8 frames,
+    # so that K1's cross call (fp32, 3xTF32) has k and v of a length of their own
+    t0 = time.perf_counter()
+    parity_phase("seamless-m4t-large-v2", ENCDEC_PARITY_PROMPT)
+    phase_s["parity seamless-m4t-large-v2"] = time.perf_counter() - t0
     for arch in MOE_ARCHS:
         for cf in MOE_CAPACITY:
             t0 = time.perf_counter()
@@ -3675,6 +3880,10 @@ def main():
                              f"phases launched a port kernel: {counts}")
     log(f"   R2D2, V-trace, device-backend, wire, figures and ops phases: kernel launches "
         f"{counts} (none, as the paths have no Pallas kernel)")
+    torch.cuda.empty_cache()
+    counts, quick_metrics = quickstart_phase(card)
+    for name in launches:
+        launches[name] += counts[name]
 
     for name, row in rows.items():
         row["launches"] = launches[name]
@@ -3690,6 +3899,7 @@ def main():
     log(f"wire: {json.dumps(wire_metrics)}")
     log(f"figures: {json.dumps(figure_metrics, default=str)}")
     log(f"ops: {json.dumps(ops_metrics, default=str)}")
+    log(f"quickstart: {json.dumps(quick_metrics)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": list(rows.values())}))

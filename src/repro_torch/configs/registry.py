@@ -1,7 +1,6 @@
-"""--arch <id> resolution for the architectures the port supports so far.
+"""--arch <id> resolution: maps arch ids to configs and model builders.
 
-Mirrors ``repro.configs.registry``; an arch joins ``_MODULES`` with the
-slice that ports its family.
+Mirrors ``repro.configs.registry``, every arch of which is ported.
 """
 
 import importlib
@@ -16,6 +15,7 @@ _MODULES = {
     "starcoder2-15b": "repro_torch.configs.starcoder2_15b",
     "qwen2.5-32b": "repro_torch.configs.qwen2_5_32b",
     "internvl2-1b": "repro_torch.configs.internvl2_1b",
+    "seamless-m4t-large-v2": "repro_torch.configs.seamless_m4t_large_v2",
     "r2d2-atari": "repro_torch.configs.r2d2_atari",
 }
 
@@ -29,7 +29,7 @@ def list_archs():
 
 def get_config(arch: str):
     if arch not in _MODULES:
-        raise KeyError(f"{arch!r} is not ported yet; the port supports {tuple(_MODULES)}")
+        raise KeyError(f"unknown arch {arch!r}; the port supports {tuple(_MODULES)}")
     mod = importlib.import_module(_MODULES[arch])
     return mod.CONFIG
 
@@ -45,6 +45,9 @@ def make_model(cfg):
     if cfg.family == "hybrid":
         from repro_torch.models.recurrentgemma import make_recurrentgemma
         return make_recurrentgemma(cfg)
+    if cfg.family == "encdec":
+        from repro_torch.models.encdec import make_encdec
+        return make_encdec(cfg)
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     from repro_torch.models.lm import make_lm
@@ -73,6 +76,8 @@ def smoke_config(arch: str):
     if cfg.family == "hybrid":
         small.update(lru_width=64, local_window=32,
                      num_layers=len(cfg.block_pattern) + 2)
+    if cfg.family == "encdec":
+        small.update(enc_layers=2, dec_layers=2, num_layers=4)
     if cfg.attn_pattern != ("global",):
         small.update(num_layers=len(cfg.attn_pattern) * 2, local_window=32)
     if cfg.frontend_tokens:

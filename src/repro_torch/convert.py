@@ -7,7 +7,10 @@ The JAX models stack each block parameter along a leading layer axis, under
 len(block_pattern) for RecurrentGemma): leaf ``[j]`` of ``main.p{k}.*`` is
 layer P*j + k, after the LM's first dense layers (``pre.p0``, DeepSeek),
 which come first (``models.lm.layer_plan``), and RecurrentGemma's unscanned
-``rest{j}.*`` that follow the n_scan periods are layers n_scan*P + j.
+``rest{j}.*`` that follow the n_scan periods are layers n_scan*P + j. The
+encoder-decoder stacks its encoder layers under ``enc.*`` and its decoder
+layers under ``dec.*``: leaf ``[i]`` is the port's ``enc.{i}.*`` or
+``dec.{i}.*``.
 Every tensor keeps the JAX layout (wq (d,H,hd), wo (H,hd,d), wi (d,ff),
 an MoE's wi (E,d,f), MLA's wuq (qr,H,dn+dr), unembed (d,V), in_proj
 (d, ...), conv.w (W,C)), so only the layer axis moves. The R2D2 agent
@@ -36,10 +39,12 @@ def params_from_jax(cfg, params_np) -> dict:
     """JAX params (a nested dict of numpy arrays) -> the state dict of the
     port's model for `cfg.family` (``models.lm.LM`` for dense and moe,
     ``models.mamba.Mamba`` for ssm, ``models.recurrentgemma.RecurrentGemma``
-    for hybrid, ``models.atari.Atari`` for atari): CPU tensors, the arrays'
-    dtypes."""
+    for hybrid, ``models.encdec.EncDec`` for encdec, ``models.atari.Atari``
+    for atari): CPU tensors, the arrays' dtypes."""
     if cfg.family == "atari":
         return {name: _tensor(arr) for name, arr in _flatten(params_np)}
+    if cfg.family == "encdec":
+        return _encdec_from_jax(cfg, params_np)
     if cfg.family == "hybrid":
         return _periods_from_jax(params_np, len(cfg.block_pattern),
                                  cfg.num_layers // len(cfg.block_pattern))
@@ -91,6 +96,24 @@ def _lm_from_jax(cfg, params_np) -> dict:
             raise ValueError(f"{name}: leading axis {arr.shape[0]} != {len(stack)} layers")
         for i, leaf in stack:
             out[f"blocks.{i}.{rest}"] = _tensor(arr[leaf])
+    return out
+
+
+def _encdec_from_jax(cfg, params_np) -> dict:
+    """The encoder-decoder: leaf [i] of a stacked ``enc.*`` or ``dec.*``
+    array is layer i of the port's ``enc`` or ``dec`` list; everything else
+    (embed, frontend, the norms, the value head) keeps its name."""
+    n_layers = {"enc": cfg.enc_layers, "dec": cfg.dec_layers}
+    out = {}
+    for name, arr in _flatten(params_np):
+        head, _, rest = name.partition(".")
+        if head not in n_layers:
+            out[name] = _tensor(arr)
+            continue
+        if arr.shape[0] != n_layers[head]:
+            raise ValueError(f"{name}: leading axis {arr.shape[0]} != {n_layers[head]} layers")
+        for i in range(n_layers[head]):
+            out[f"{head}.{i}.{rest}"] = _tensor(arr[i])
     return out
 
 

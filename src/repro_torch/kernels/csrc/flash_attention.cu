@@ -6,12 +6,22 @@
 // mask and sliding window (row - col < window) with masked logits at -1e30,
 // an online softmax, and out = acc / max(l, 1e-30) in q's dtype.
 //
-// Layout: q and o are (B, S, H, D); k and v are (B, S, KH, D) with KH
+// Layout: q and o are (B, S, H, D); k and v are (B, S_kv, KH, D) with KH
 // dividing H, query head h reading kv head h / (H / KH). The head-expanded
 // cache of the TPU kernel is the case KH == H, so GQA never materialises an
-// expanded copy. Any S is accepted: keys past S get -inf (distinct from a
-// masked key's -1e30) and rows past S are not stored (the Pallas kernel
+// expanded copy. Any S is accepted: keys past S_kv get -inf (distinct from
+// a masked key's -1e30) and rows past S are not stored (the Pallas kernel
 // asserted S % block == 0).
+//
+// S_kv, the keys' own length, is S but for the encoder-decoder's
+// cross-attention (queries from the text, keys and values from the
+// encoder's frames), which the Pallas kernel did not take (the JAX model
+// runs it as plain attention); it is unmasked, so S_kv != S comes without
+// a causal mask or a window, and the entry point refuses the two together.
+// Both routes take it the same way: K and V are walked to S_kv, their loads
+// stop there (the wgmma route's tensor maps have S_kv rows, so TMA fills the
+// last tile's rows past S_kv with zeros), and the last key tile masks its
+// columns at or past S_kv. A simple extension, not a tuned one.
 //
 // Two routes, chosen by dtype and head_dim alone (`flash_attention_route`):
 // - bf16 at D 64, 128 and 256, which every serving path calls, takes
@@ -189,8 +199,8 @@ __device__ __forceinline__ float quarters_max(const float* srow, int r) {
 template <typename T, int D>
 __global__ void __launch_bounds__(NT, 2)
 flash_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    T* __restrict__ o, float* __restrict__ lse, int B, int S, int H, int KH,
-                    float scale, int causal, int window, float softcap) {
+                    T* __restrict__ o, float* __restrict__ lse, int B, int S, int Skv, int H,
+                    int KH, float scale, int causal, int window, float softcap) {
   using C = Cfg<D>;
   extern __shared__ __align__(16) float smem[];
   float* sq = smem;                      // [BQ][P]
@@ -205,18 +215,18 @@ flash_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int q0 = (n_qt - 1 - (int)(blockIdx.x / ((unsigned)H * B))) * BQ;
   const int kh = h / (H / KH);
   const long qs = (long)H * D, ks = (long)KH * D;
-  const T* kb = k + (long)b * S * ks + (long)kh * D;
-  const T* vb = v + (long)b * S * ks + (long)kh * D;
+  const T* kb = k + (long)b * Skv * ks + (long)kh * D;
+  const T* vb = v + (long)b * Skv * ks + (long)kh * D;
 
   // Tiles wholly above the diagonal or wholly outside the window hold only
   // masked logits; with at least one valid key per row they add exp(-1e30 -
   // m) == 0, so skipping them is exact.
-  const int kv_end = causal ? min(S, q0 + BQ) : S;
+  const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;
   const int kv_begin = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
 
   stage_tile<D>(sq, q + (long)b * S * qs + (long)h * D, q0, S, qs);
-  stage_tile<D>(sk, kb, kv_begin, S, ks);
-  stage_tile<D>(sv, vb, kv_begin, S, ks);
+  stage_tile<D>(sk, kb, kv_begin, Skv, ks);
+  stage_tile<D>(sv, vb, kv_begin, Skv, ks);
   cp_async_commit();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
@@ -240,7 +250,7 @@ flash_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     // wn * 8 + 2 t + i % 2; then scaled, capped and (on edge tiles) masked
     float x[4];
     score_tile<D>(sq + wm * 16 * C::P, sk + wn * 8 * C::P, lane, x);
-    const bool edge = edge_tile<BQ, BK>(q0, k0, S, causal, window);
+    const bool edge = edge_tile<BQ, BK>(q0, k0, S, causal, window) || k0 + BK > Skv;
     float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -252,7 +262,7 @@ flash_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         if (causal) ok = ok && col <= row;
         if (window > 0) ok = ok && (row - col) < window;
         s = ok ? s : NEG_INF;
-        if (col >= S) s = -INFINITY;  // past the ragged end: no key at all
+        if (col >= Skv) s = -INFINITY;  // past the ragged end: no key at all
       }
       x[i] = s;
       if (i < 2)
@@ -301,8 +311,8 @@ flash_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     }
     if (k0 + BK < kv_end) {   // the next tile, once every warp is done with this one
       __syncthreads();
-      stage_tile<D>(sk, kb, k0 + BK, S, ks);
-      stage_tile<D>(sv, vb, k0 + BK, S, ks);
+      stage_tile<D>(sk, kb, k0 + BK, Skv, ks);
+      stage_tile<D>(sv, vb, k0 + BK, Skv, ks);
       cp_async_commit();
     }
   }
@@ -340,8 +350,8 @@ flash_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse, int B, int S, int H,
-           int KH, float scale, int causal, int window, float softcap, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, int B, int S, int Skv,
+           int H, int KH, float scale, int causal, int window, float softcap, cudaStream_t stream) {
   using C = Cfg<D>;
   static std::atomic<unsigned long long> opted_in{0};
   cudaError_t err = hopper::opt_in_smem((const void*)flash_tf32x3_kernel<T, D>, C::SMEM, opted_in);
@@ -349,7 +359,8 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int 
   const unsigned ctas = (unsigned)((S + BQ - 1) / BQ) * B * H;
   flash_tf32x3_kernel<T, D><<<ctas, NT, C::SMEM, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<float*>(lse), B, S, H, KH, scale, causal, window, softcap);
+      static_cast<T*>(o), static_cast<float*>(lse), B, S, Skv, H, KH, scale, causal, window,
+      softcap);
   return (int)cudaGetLastError();
 }
 
@@ -388,7 +399,7 @@ template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int S,
-                   int H, int KH, float scale, int causal, int window, float softcap) {
+                   int Skv, int H, int KH, float scale, int causal, int window, float softcap) {
   using C = Cfg<D>;
   constexpr int BK = C::BK, NS = C::NS;
   extern __shared__ unsigned char smem_raw[];
@@ -404,7 +415,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
   // Tiles wholly above the diagonal or wholly outside the window hold only
   // masked logits; with at least one valid key per row they add exp(-1e30 -
   // m) == 0, so skipping them is exact.
-  const int kv_end = causal ? min(S, q0 + BQ) : S;
+  const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;
   const int kv_begin = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
   const int n_tiles = (kv_end - kv_begin + BK - 1) / BK;
 
@@ -473,7 +484,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
 
     // scale, softcap and (on edge tiles only) the masks; the row maxima
     const bool edge = (causal && k0 + BK - 1 > q0) || (window > 0 && q0 + BQ - 1 - k0 >= window) ||
-                      k0 + BK > S;
+                      k0 + BK > Skv;
     float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) {
@@ -486,7 +497,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
         if (causal) ok = ok && col <= row;
         if (window > 0) ok = ok && (row - col) < window;
         x = ok ? x : NEG_INF;
-        if (col >= S) x = -INFINITY;  // past the ragged end: no key at all
+        if (col >= Skv) x = -INFINITY;  // past the ragged end: no key at all
       }
       sacc[i] = x;
       if ((i % 4) < 2)
@@ -564,20 +575,20 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H, int KH,
-           float scale, int causal, int window, float softcap, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int Skv, int H,
+           int KH, float scale, int causal, int window, float softcap, cudaStream_t stream) {
   using C = Cfg<D>;
   CUtensorMap tq, tk, tv;
   cudaError_t err = hopper::tma_map_bshd(&tq, q, B, S, H, D, BQ);
-  if (err == cudaSuccess) err = hopper::tma_map_bshd(&tk, k, B, S, KH, D, C::BK);
-  if (err == cudaSuccess) err = hopper::tma_map_bshd(&tv, v, B, S, KH, D, C::BK);
+  if (err == cudaSuccess) err = hopper::tma_map_bshd(&tk, k, B, Skv, KH, D, C::BK);
+  if (err == cudaSuccess) err = hopper::tma_map_bshd(&tv, v, B, Skv, KH, D, C::BK);
   if (err != cudaSuccess) return (int)err;
   static std::atomic<unsigned long long> opted_in{0};
   err = hopper::opt_in_smem((const void*)flash_wgmma_kernel<D>, C::SMEM, opted_in);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(H, B, (S + BQ - 1) / BQ);
   flash_wgmma_kernel<D><<<grid, THREADS, C::SMEM, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, H, KH, scale, causal, window, softcap);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, Skv, H, KH, scale, causal, window, softcap);
   return (int)cudaGetLastError();
 }
 
@@ -590,29 +601,34 @@ extern "C" int flash_attention_route(int dtype, int D) {
   return dtype == 1 && (D == 64 || D == 128 || D == 256);
 }
 
-// dtype: 0 float32, 1 bfloat16. `lse`, null or fp32 (B, H, S), receives
-// each row's log-sum-exp for the backward; only the 3xTF32 route writes it,
-// so a non-null `lse` on the wgmma route is refused. The 3xTF32 route
+// dtype: 0 float32, 1 bfloat16. q and o have S rows, k and v S_kv; S_kv !=
+// S is refused with a causal mask or a window. `lse`, null or fp32 (B, H,
+// S), receives each row's log-sum-exp for the backward; only the 3xTF32
+// route writes it, so a non-null `lse` on the wgmma route is refused. The 3xTF32 route
 // copies q, k and v in 16-byte pieces: every pointer must be 16-byte
 // aligned. Returns cudaGetLastError() after the launch (0 on success);
 // launches on `stream` and does not synchronise.
 extern "C" int flash_attention(int dtype, const void* q, const void* k, const void* v, void* o,
-                               int B, int S, int H, int KH, int D, float scale, int causal,
-                               int window, float softcap, void* lse, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || KH <= 0 || H % KH != 0) return (int)cudaErrorInvalidValue;
+                               int B, int S, int S_kv, int H, int KH, int D, float scale,
+                               int causal, int window, float softcap, void* lse, void* stream) {
+  if (B <= 0 || S <= 0 || S_kv <= 0 || H <= 0 || KH <= 0 || H % KH != 0)
+    return (int)cudaErrorInvalidValue;
+  if (S_kv != S && (causal || window > 0)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (flash_attention_route(dtype, D)) {
     if (lse) return (int)cudaErrorInvalidValue;
     switch (D) {
-      case 64: return tc::launch<64>(q, k, v, o, B, S, H, KH, scale, causal, window, softcap, st);
-      case 128: return tc::launch<128>(q, k, v, o, B, S, H, KH, scale, causal, window, softcap, st);
-      default: return tc::launch<256>(q, k, v, o, B, S, H, KH, scale, causal, window, softcap, st);
+#define K1_TC_ARGS q, k, v, o, B, S, S_kv, H, KH, scale, causal, window, softcap, st
+      case 64: return tc::launch<64>(K1_TC_ARGS);
+      case 128: return tc::launch<128>(K1_TC_ARGS);
+      default: return tc::launch<256>(K1_TC_ARGS);
+#undef K1_TC_ARGS
     }
   }
   if ((long)((S + 31) / 32) * B * H > 0x7fffffffL) return (int)cudaErrorInvalidValue;
   for (const void* p : {q, k, v, (const void*)o, (const void*)lse})
     if (reinterpret_cast<uintptr_t>(p) % 16) return (int)cudaErrorMisalignedAddress;
-#define K1_X3_ARGS q, k, v, o, lse, B, S, H, KH, scale, causal, window, softcap, st
+#define K1_X3_ARGS q, k, v, o, lse, B, S, S_kv, H, KH, scale, causal, window, softcap, st
   if (dtype == 0) {
     switch (D) {
       case 16: return x3::launch<float, 16>(K1_X3_ARGS);

@@ -9,6 +9,9 @@ tensors. The ``.cu`` picks one of two routes by dtype and head_dim alone
 3xTF32 ``mma.sync`` (each fp32 operand split into two TF32 parts, three
 products a multiply: fp32-grade error). ``flash_attention.launches``
 counts every launch, ``flash_attention.launches_by_route`` each route's.
+k and v may have a length of their own, S_kv (the encoder-decoder's
+cross-attention: text queries over the encoder's frames), without a causal
+mask or a window; the backward takes one S.
 
 The gradient (K1-bwd) is ``csrc/flash_attention_bwd.cu``, fp32 in and out,
 its products on the tensor cores as 3xTF32 ``mma.sync`` at every head_dim,
@@ -41,7 +44,7 @@ def entry(lib):
     """The C entry point flash_attention of `lib` (a built
     csrc/flash_attention.cu, loaded by ctypes), typed."""
     fn = lib.flash_attention
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -77,16 +80,26 @@ def kernel_route(dtype, head_dim) -> str:
     return ROUTES[0] if fn(DTYPES[dtype], head_dim) else ROUTES[1]
 
 
-def _check(q, k, v):
+def check_kv_len(q, k, causal, window):
+    """Raise when k's length differs from q's together with a causal mask or
+    a window: both are defined on one sequence. (Shared with the plain
+    version's wrapper, ``ops.flash_attention``.)"""
+    if k.shape[1] != q.shape[1] and (causal or window):
+        raise ValueError(f"k/v of {k.shape[1]} positions against q of {q.shape[1]}: a length "
+                         "of their own takes no causal mask and no window")
+
+
+def _check(q, k, v, causal=False, window=0):
     """Raise on what the kernels do not take: shapes, head_dim, dtypes,
     devices and contiguity."""
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
-        raise ValueError(f"want q (B,S,H,D), k = v (B,S,KH,D); got "
+        raise ValueError(f"want q (B,S,H,D), k = v (B,S_kv,KH,D); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, s, h, d = q.shape
     kh = k.shape[2]
-    if k.shape[:2] != (b, s) or k.shape[3] != d or h % kh:
+    if k.shape[0] != b or k.shape[3] != d or h % kh:
         raise ValueError(f"k/v {tuple(k.shape)} do not match q {tuple(q.shape)}")
+    check_kv_len(q, k, causal, window)
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -100,13 +113,14 @@ def _check(q, k, v):
 
 def flash_attention(q, k, v, *, scale=None, causal=True, window=0, softcap=None,
                     return_lse=False):
-    """q (B,S,H,D); k,v (B,S,KH,D) with KH dividing H (KH == H is the
-    head-expanded layout). Contiguous CUDA tensors of one dtype. Returns
+    """q (B,S,H,D); k,v (B,S_kv,KH,D) with KH dividing H (KH == H is the
+    head-expanded layout), S_kv == S unless unmasked (no `causal`, no
+    `window`). Contiguous CUDA tensors of one dtype. Returns
     (B,S,H,D) in q's dtype, and with `return_lse` also each row's
     log-sum-exp (B,H,S) fp32, which only the 3xTF32 route writes; that
     route copies q, k and v in 16-byte pieces, so each must start 16-byte
     aligned. Launches on the current stream, no sync."""
-    _check(q, k, v)
+    _check(q, k, v, causal, window)
     b, s, h, d = q.shape
     if route(q.dtype, d) == "tf32x3":
         if any(t.data_ptr() % 16 for t in (q, k, v)):
@@ -134,8 +148,8 @@ def fwd_launch(fn, q, k, v, *, scale=None, causal=True, window=0, softcap=None,
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if return_lse else None
     with torch.cuda.device(q.device):
         err = fn(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 out.data_ptr(), b, s, h, k.shape[2], d, float(scale), int(bool(causal)),
-                 int(window or 0), float(softcap or 0.0),
+                 out.data_ptr(), b, s, k.shape[1], h, k.shape[2], d, float(scale),
+                 int(bool(causal)), int(window or 0), float(softcap or 0.0),
                  None if lse is None else lse.data_ptr(),
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err:
@@ -154,8 +168,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, scale=None, causal=True, window=
     contiguous, on one CUDA device; dk and dv sum over each kv head's query
     heads (a fixed order, no atomics). Launches on the current stream, no
     sync."""
-    _check(q, k, v)
+    _check(q, k, v, causal, window)
     b, s, h, d = q.shape
+    if k.shape[1] != s:
+        raise ValueError(f"flash_attention_bwd takes one S; got q of {s}, k of {k.shape[1]}")
     if q.dtype != torch.float32:
         raise TypeError(f"flash_attention_bwd is fp32 only; got {q.dtype}")
     if o.shape != q.shape or do.shape != q.shape or lse.shape != (b, h, s):

@@ -16,7 +16,8 @@ kernel too (K1-bwd, K4-bwd). A kernel with no backward kernel (K1's bf16
 routes, K2, K3) raises NotImplementedError when grad mode is on and an
 input requires a gradient (``needs_grad``), rather than return a tensor
 with no ``grad_fn``, which would leave every parameter upstream of it
-without a gradient and no error. ``flash_attention_bwd_plain`` and
+without a gradient and no error; so does K1 with k and v of a length of
+their own (cross-attention), which K1-bwd does not take. ``flash_attention_bwd_plain`` and
 ``rglru_scan_bwd_plain`` are the backward kernels' plain versions, written
 out as formulas, for the tests and ``chip_smoke.py``.
 """
@@ -86,7 +87,7 @@ def flash_attention_plain(q, k, v, *, causal=True, window=0, softcap=None,
                           scale=None):
     """Plain PyTorch version of `flash_attention` (any device)."""
     b, s, h, d = q.shape
-    fold = lambda x: x.transpose(1, 2).reshape(b * h, s, d)
+    fold = lambda x: x.transpose(1, 2).reshape(b * h, x.shape[1], d)   # noqa: E731
     out = attention_ref(fold(q), fold(_expand_kv(k, h)), fold(_expand_kv(v, h)),
                         scale=scale, causal=causal, window=window,
                         softcap=softcap)
@@ -94,11 +95,18 @@ def flash_attention_plain(q, k, v, *, causal=True, window=0, softcap=None,
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=None, scale=None):
-    """(B,S,H,D) q; (B,S,KH,D) k, v with KH dividing H. -> (B,S,H,D)."""
+    """(B,S,H,D) q; (B,S_kv,KH,D) k, v with KH dividing H. -> (B,S,H,D).
+    S_kv differs from S only without `causal` and `window` (the
+    encoder-decoder's cross-attention), and raises otherwise."""
+    _flash.check_kv_len(q, k, causal, window)
     if _on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap, scale=scale)
     if needs_grad(q, k, v):
+        if k.shape[1] != q.shape[1]:
+            raise _no_backward("K1 with k and v of a length of their own",
+                               "training the encoder-decoder, whose cross-attention K1-bwd, "
+                               "on one S, does not take")
         if q.dtype != torch.float32:
             raise _no_backward(f"K1 in {q.dtype}", "a bf16 K1 backward on wgmma")
         return _flash.FlashAttention.apply(q, k, v, scale, causal, window, softcap)
@@ -115,8 +123,8 @@ def flash_attention_lse_plain(q, k, *, causal=True, window=0, softcap=None, scal
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), _expand_kv(k, h).float()) * scale
     if softcap:
         logits = softcap * torch.tanh(logits / softcap)
-    return torch.logsumexp(torch.where(_mask(s, causal, window, q.device), logits, NEG_INF),
-                           dim=-1)
+    ok = _mask(s, causal, window, q.device, k.shape[1])
+    return torch.logsumexp(torch.where(ok, logits, NEG_INF), dim=-1)
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal=True, window=0, softcap=None,
@@ -149,10 +157,11 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal=True, window=0, sof
     return dq, fold(dk), fold(dv)
 
 
-def _mask(s, causal, window, device):
+def _mask(s, causal, window, device, s_kv=None):
+    s_kv = s if s_kv is None else s_kv
     rows = torch.arange(s, device=device)[:, None]
-    cols = torch.arange(s, device=device)[None, :]
-    ok = torch.ones((s, s), dtype=torch.bool, device=device)
+    cols = torch.arange(s_kv, device=device)[None, :]
+    ok = torch.ones((s, s_kv), dtype=torch.bool, device=device)
     if causal:
         ok &= cols <= rows
     if window:

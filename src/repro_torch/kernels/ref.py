@@ -11,15 +11,20 @@ NEG_INF = -1e30
 
 
 def attention_ref(q, k, v, *, scale=None, causal=True, window=0, softcap=None):
-    """q,k,v (BH, S, D). Mirrors kernels.flash_attention.flash_attention."""
+    """q (BH, S, D); k, v (BH, S_kv, D). Mirrors
+    kernels.flash_attention.flash_attention, whose k and v share q's S; a
+    length of their own (the encoder-decoder's cross-attention) comes
+    unmasked, and the masks here are then defined on row and column index
+    alone."""
     bh, s, d = q.shape
+    s_kv = k.shape[1]
     scale = scale if scale is not None else d ** -0.5
     logits = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
     if softcap:
         logits = softcap * torch.tanh(logits / softcap)
     rows = torch.arange(s, device=q.device)[:, None]
-    cols = torch.arange(s, device=q.device)[None, :]
-    ok = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    cols = torch.arange(s_kv, device=q.device)[None, :]
+    ok = torch.ones((s, s_kv), dtype=torch.bool, device=q.device)
     if causal:
         ok &= cols <= rows
     if window:

@@ -8,11 +8,13 @@ policy): batched prefill, then N clients decode token by token through the
     PYTHONPATH=src python -m repro_torch.launch.serve_policy --arch gemma2-9b
     PYTHONPATH=src python -m repro_torch.launch.serve_policy --arch qwen3-moe-30b-a3b
     PYTHONPATH=src python -m repro_torch.launch.serve_policy --arch deepseek-v3-671b
+    PYTHONPATH=src python -m repro_torch.launch.serve_policy --arch seamless-m4t-large-v2
 
 runs the reduced config (``smoke_config``) of a ported arch on the card
 (``--arch`` takes every LM of ``configs.registry.list_archs``: also
-starcoder2-15b, qwen2.5-32b, internvl2-1b, qwen3-moe-30b-a3b and
-deepseek-v3-671b); ``--device cpu`` runs the plain PyTorch path.
+starcoder2-15b, qwen2.5-32b, internvl2-1b, qwen3-moe-30b-a3b,
+deepseek-v3-671b and seamless-m4t-large-v2); ``--device cpu`` runs the
+plain PyTorch path.
 ``chip_smoke.py`` serves them at their published widths in bf16 by calling
 ``serve`` directly: every arch at full depth but deepseek-v3-671b, whose
 bf16 weights (about 1.3 TB) do not fit one card, so it is served at its
@@ -24,13 +26,19 @@ qk_rope_head_dim values a token); mamba2-2.7b carries a fixed-size state
 per layer and ignores ``max_len``; recurrentgemma-2b carries a state per
 recurrent layer and a ring per local-attention layer. internvl2-1b is
 served on text prompts: its frontend's patch embeddings are not part of
-a serving request, as in the JAX package's serving example. An MoE routes
+a serving request, as in the JAX package's serving example. seamless-m4t-large-v2, the
+encoder-decoder, is served on seeded frames: its prefill batch carries
+frame embeddings (clients, frontend_tokens, frontend_dim), drawn from the
+seed after the prompts, which the encoder reads once; the decoder's
+cross-attention K/V sit in the cache, so decode steps carry tokens only.
+An MoE routes
 the whole batch at once, as the reference's serve step does, so with
 capacity drops a client's tokens depend on the other clients in its batch.
 
 Every client gets its own seeded prompt. The server hands out slots in
 first-sight order, so the slots are claimed for clients 0..N-1 before the
-prefill, and prompt row `slot_ids(cid)` is client cid's. A decode step
+prefill, and prompt row `slot_ids(cid)` is client cid's (and frame row, for
+the encoder-decoder). A decode step
 advances every row of the shared cache (one index for the batch, as in the
 JAX serve step); rows whose client was not in the batch are fed the token
 they last produced.
@@ -64,7 +72,8 @@ def serve(cfg, *, clients=4, prompt_len=8, tokens=12, max_len=64,
     client through the InferenceServer. Params (made from `seed` unless
     given) and the KV cache take `cfg.compute_dtype`. Returns a dict of the
     tokens each client received, the first tokens from prefill, the
-    prompts, the server's stats and host-clock times (prefill_s, decode_s)
+    prompts, the encoder-decoder's frames (else None), each in client
+    order, the server's stats and host-clock times (prefill_s, decode_s)
     that end in a device sync."""
     dev = resolve(device)
     dt = dtype_of(cfg.compute_dtype)
@@ -96,9 +105,17 @@ def serve(cfg, *, clients=4, prompt_len=8, tokens=12, max_len=64,
     prompts = rng.integers(0, cfg.vocab_size, (clients, prompt_len), dtype=np.int64)
     rows = np.empty_like(prompts)
     rows[slots] = prompts
+    batch = {"tokens": torch.as_tensor(rows, device=dev)}
+    frames = None
+    if cfg.family == "encdec":
+        frames = rng.standard_normal((clients, cfg.frontend_tokens, cfg.frontend_dim),
+                                     dtype=np.float32)
+        frame_rows = np.empty_like(frames)
+        frame_rows[slots] = frames
+        batch["frontend"] = torch.as_tensor(frame_rows, device=dev)
 
     t0 = time.perf_counter()
-    tok, cache = prefill(params, {"tokens": torch.as_tensor(rows, device=dev)})
+    tok, cache = prefill(params, batch)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
     state.update(tok=tok, cache=cache)
@@ -135,7 +152,7 @@ def serve(cfg, *, clients=4, prompt_len=8, tokens=12, max_len=64,
     if errors or server.error:
         raise RuntimeError(f"serving failed: {server.error or errors[0]}")
     return {"tokens": results, "first": {c: int(first[s]) for c, s in enumerate(slots)},
-            "prompts": prompts, "stats": server.stats, "prefill_s": prefill_s,
+            "prompts": prompts, "frames": frames, "stats": server.stats, "prefill_s": prefill_s,
             "decode_s": decode_s, "device": str(dev)}
 
 

@@ -10,7 +10,12 @@ mask, as the JAX model's ``attend_ref`` does.
 
 A local (sliding-window) layer keeps a ring cache of min(max_len, window)
 slots, position p at slot p % size, as the JAX package does; RecurrentGemma
-and gemma2's local layers use it.
+and gemma2's local layers use it. A "bidir" attention (the encoder's) is
+unmasked, K1 without its causal mask, and keeps no cache. Cross-attention
+(the encoder-decoder's decoder: queries from the text, fixed K/V from the
+encoder's output, no rope) goes through K1 with k and v of a length of
+their own in the prefill and through K2 with every cached frame valid in
+decode.
 
 The cache is updated in place (the JAX serve step donates it, so the
 memory behaviour is the same); each call also returns the cache it wrote.
@@ -52,8 +57,8 @@ class Attention(nn.Module):
         self.k_norm = Norm(hd, **kw) if cfg.qk_norm else None
 
 
-def _check_kind(kind):
-    if kind not in ("global", "local"):
+def _check_kind(kind, kinds=("global", "local")):
+    if kind not in kinds:
         raise NotImplementedError(f"attention kind {kind!r} is not ported yet")
 
 
@@ -84,20 +89,23 @@ def qkv_project(cfg, p, x):
 
 def attention(cfg, p, x, positions, *, kind="global",
               cache: Optional[dict] = None):
-    """Prefill attention over a full causal sequence.
+    """Prefill attention over a full sequence: causal ("global", "local"
+    with its window) or unmasked ("bidir", which takes no cache).
 
     Returns (out (B,S,d), the filled cache entry or None). If `cache` is
     given, the rope-rotated k and raw v are written into it.
     """
-    _check_kind(kind)
+    _check_kind(kind, ("global", "local", "bidir"))
+    if kind == "bidir" and cache is not None:
+        raise ValueError("a bidir attention keeps no cache")
     scale = cfg.attn_scale or cfg.head_dim ** -0.5
     q, k, v = qkv_project(cfg, p, x)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     window = cfg.local_window if kind == "local" else 0
     out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                              causal=True, window=window, softcap=cfg.attn_softcap,
-                              scale=scale)
+                              causal=kind != "bidir", window=window,
+                              softcap=cfg.attn_softcap, scale=scale)
     y = _out_proj(out, p.wo)
     new_cache = None
     if cache is not None:
@@ -170,3 +178,36 @@ def decode_attention(cfg, p, x, index, cache, *, kind="global"):
     out = ops.decode_attention(q[:, 0].to(ck.dtype).contiguous(), ck, cv,
                                lengths, scale=scale, softcap=cfg.attn_softcap)[:, None]
     return _out_proj(out, p.wo), cache
+
+
+# --------------------------- cross-attention -----------------------------
+
+def cross_kv(cfg, p, enc_out):
+    """The fixed K/V (B,F,K,hd) of a cross-attention over the encoder's
+    output (B,F,d), in its dtype: the projections and biases, no rope and no
+    qk-norm, as the JAX package's ``_cross_kv``."""
+    k, v = _proj(enc_out, p.wk), _proj(enc_out, p.wv)
+    if p.bk is not None:
+        dt = enc_out.dtype
+        k, v = k + p.bk.to(dt), v + p.bv.to(dt)
+    return k, v
+
+
+def cross_attention(cfg, p, x, k, v, *, decode=False):
+    """x (B,S,d) attends over fixed k, v (B,F,K,hd) with no mask and no
+    rope, scaled by head_dim**-0.5, as the JAX package's
+    ``_cross_attention``: the prefill through K1 (q of S positions, k and v
+    of F), a one-token decode step (`decode`) through K2 with every row's
+    length F (q rounded to k's dtype, as ``decode_attention`` does).
+    Returns y (B,S,d)."""
+    scale = cfg.head_dim ** -0.5
+    q = _proj(x, p.wq)
+    if p.bq is not None:
+        q = q + p.bq.to(x.dtype)
+    if decode:
+        lengths = torch.full((x.shape[0],), k.shape[1], dtype=torch.int32, device=x.device)
+        out = ops.decode_attention(q[:, 0].to(k.dtype).contiguous(), k, v, lengths,
+                                   scale=scale)[:, None]
+    else:
+        out = ops.flash_attention(q.contiguous(), k, v, causal=False, scale=scale)
+    return _out_proj(out, p.wo)

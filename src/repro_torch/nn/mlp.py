@@ -1,6 +1,6 @@
-"""Gated MLP (SwiGLU / GeGLU), with optional biases. (The ungated MLP of
-``repro.nn.mlp`` comes with the slice whose model uses it: no dense LM
-of the reference builds one.)
+"""Gated MLP (SwiGLU / GeGLU) and the plain, ungated MLP (the
+encoder-decoder's ReLU MLP), with optional biases. Mirrors
+``repro.nn.mlp``.
 
 ``jax.nn.gelu`` defaults to the tanh approximation, and the JAX package
 takes that default under both names, so both are ``approximate="tanh"``
@@ -21,10 +21,11 @@ ACTS = {"silu": F.silu,
 
 
 class MLP(nn.Module):
-    """wi, wg (d, d_ff), wo (d_ff, d) and, with `bias`, bi (d_ff,) and bo
-    (d,): the JAX package's layout."""
+    """wi (d, d_ff), wo (d_ff, d), with `gated` wg (d, d_ff) and, with
+    `bias`, bi (d_ff,) and bo (d,): the JAX package's layout."""
 
-    def __init__(self, d, d_ff, *, bias=False, gen=None, dtype=torch.float32, device="cpu"):
+    def __init__(self, d, d_ff, *, gated=True, bias=False, gen=None, dtype=torch.float32,
+                 device="cpu"):
         super().__init__()
 
         def mk(shape):
@@ -32,7 +33,7 @@ class MLP(nn.Module):
                                 requires_grad=False)
         self.wi = mk((d, d_ff))
         self.wo = mk((d_ff, d))
-        self.wg = mk((d, d_ff))
+        self.wg = mk((d, d_ff)) if gated else None
         self.bi = self.bo = None
         if bias:
             self.bi = nn.Parameter(inits.zeros(gen, (d_ff,), dtype, device), requires_grad=False)
@@ -44,7 +45,9 @@ def mlp(p, x, act="silu"):
     h = x @ p.wi.to(dt)
     if p.bi is not None:
         h = h + p.bi.to(dt)
-    h = ACTS[act](h) * (x @ p.wg.to(dt))
+    h = ACTS[act](h)
+    if p.wg is not None:
+        h = h * (x @ p.wg.to(dt))
     y = h @ p.wo.to(dt)
     if p.bo is not None:
         y = y + p.bo.to(dt)

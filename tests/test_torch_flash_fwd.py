@@ -55,18 +55,20 @@ def _k_splits(d):
     return 4 // min(4, d // 8)
 
 
-def _edge(q0, k0, s, causal, window):
+def _edge(q0, k0, s, causal, window, skv=None):
+    """The .cu's edge_tile(q0, k0, S, ...) || k0 + BK > S_kv."""
+    skv = s if skv is None else skv
     return (q0 + BQ > s or k0 + BK > s or (causal and k0 + BK - 1 > q0)
-            or (window > 0 and q0 + BQ - 1 - k0 >= window))
+            or (window > 0 and q0 + BQ - 1 - k0 >= window) or k0 + BK > skv)
 
 
 def _tile_walk(q, k, v, *, scale, causal, window, softcap, mm):
     """(out in q's dtype, lse fp32 (B,H,S)) by the 3xTF32 route's tile walk
-    with products `mm`."""
+    with products `mm`; k and v may have a length of their own, S_kv."""
     b, s, h, d = q.shape
-    kh = k.shape[2]
-    n = -(-s // BQ) * BQ
-    pad = lambda x: torch.cat([x, x.new_zeros(n - s, *x.shape[1:])])   # noqa: E731
+    skv, kh = k.shape[1], k.shape[2]
+    n = -(-max(s, skv) // BQ) * BQ
+    pad = lambda x: torch.cat([x, x.new_zeros(n - x.shape[0], *x.shape[1:])])   # noqa: E731
     qf, kf, vf = q.float(), k.float(), v.float()
     ks = _k_splits(d)
     out = torch.zeros(b, s, h, d)
@@ -80,21 +82,21 @@ def _tile_walk(q, k, v, *, scale, causal, window, softcap, mm):
                 m = torch.full((BQ,), -1e30)
                 l = torch.zeros(BQ)
                 acc = [torch.zeros(BQ, d) for _ in range(ks)]
-                kv_end = min(s, q0 + BQ) if causal else s
+                kv_end = min(skv, q0 + BQ) if causal else skv
                 kv_begin = max(0, q0 - window + 1) // BK * BK if window > 0 else 0
                 for k0 in range(kv_begin, kv_end, BK):
                     cols = torch.arange(k0, k0 + BK)
                     x = mm(qh[q0:q0 + BQ], kk[k0:k0 + BK].T) * scale
                     if softcap:
                         x = softcap * torch.tanh(x / softcap)
-                    if _edge(q0, k0, s, causal, window):
+                    if _edge(q0, k0, s, causal, window, skv):
                         ok = torch.ones(BQ, BK, dtype=torch.bool)
                         if causal:
                             ok &= cols[None] <= rows[:, None]
                         if window > 0:
                             ok &= (rows[:, None] - cols[None]) < window
                         x = torch.where(ok, x, torch.tensor(-1e30))
-                        x = torch.where(cols[None] >= s, torch.tensor(-torch.inf), x)
+                        x = torch.where(cols[None] >= skv, torch.tensor(-torch.inf), x)
                     m_new = torch.maximum(m, x.max(-1).values)
                     corr = torch.exp(m - m_new)
                     p = torch.exp(x - m_new[:, None])
@@ -161,3 +163,27 @@ def test_tf32x3_tile_walk_matches_pallas_and_plain(case):
         one, _ = _tile_walk(tq, tk, tv, scale=scale, mm=mm_tf32, **kw)
         err3, err1 = ((x - plain).abs().max().item() for x in (out, one))
         assert err1 >= 10 * err3 and err1 > tol, (err1, err3)
+
+
+@pytest.mark.parametrize("s,skv,h,kh,d,dtype", [
+    (12, 8, 4, 2, 16, torch.float32),      # the reduced encoder-decoder's cross call
+    (100, 70, 4, 2, 64, torch.float32),    # S_kv < S, ragged in its last key tile
+    (33, 300, 2, 1, 128, torch.float32),   # S_kv > S over ten key tiles
+    (50, 77, 4, 2, 16, torch.bfloat16),
+])
+def test_tf32x3_tile_walk_kv_len(s, skv, h, kh, d, dtype):
+    """The 3xTF32 route with k and v of a length of their own (the
+    encoder-decoder's cross-attention, no mask): the walk stops at S_kv and
+    masks the last key tile's columns past it; output and log-sum-exp
+    against the plain versions."""
+    rng = np.random.default_rng(s * skv)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dtype)
+               for shape in ((2, s, h, d), (2, skv, kh, d), (2, skv, kh, d)))
+    kw = dict(scale=d ** -0.5, causal=False, window=0, softcap=None)
+    out, lse = _tile_walk(q, k, v, mm=mm_3xtf32, **kw)
+    assert out.shape == (2, s, h, d) and lse.shape == (2, h, s)
+    tol = TOL[dtype]
+    torch.testing.assert_close(out, ops.flash_attention_plain(q, k, v, **kw), atol=tol, rtol=tol)
+    kw.pop("scale")
+    torch.testing.assert_close(lse, ops.flash_attention_lse_plain(q, k, scale=d ** -0.5, **kw),
+                               atol=LSE_TOL, rtol=LSE_TOL)

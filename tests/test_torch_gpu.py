@@ -283,6 +283,54 @@ def test_ssd_scan_kernel(cuda, b, s, h, p, n, g, dtype, with_h0):
                                    rtol=1e-4)
 
 
+@pytest.mark.parametrize("s,skv,h,kh,d,dtype", [(256, 1024, 16, 16, 64, torch.bfloat16),
+                                                 (300, 77, 4, 2, 128, torch.bfloat16),
+                                                 (65, 129, 2, 2, 256, torch.bfloat16),
+                                                 (12, 8, 4, 2, 16, torch.float32),
+                                                 (33, 300, 2, 1, 128, torch.float32)])
+def test_flash_attention_kv_len_kernel(cuda, s, skv, h, kh, d, dtype):
+    """Both routes of K1 with k and v of a length of their own (the
+    encoder-decoder's cross-attention, unmasked); a causal mask with such a
+    length raises, and so does a call under autograd."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q = _rand(gen, (2, s, h, d), dtype, cuda)
+    k, v = (_rand(gen, (2, skv, kh, d), dtype, cuda) for _ in range(2))
+    got = ops.flash_attention(q, k, v, causal=False)
+    want = ops.flash_attention_plain(q, k, v, causal=False)
+    torch.testing.assert_close(got, want, atol=TOL[dtype], rtol=TOL[dtype])
+    with pytest.raises(ValueError, match="no causal mask"):
+        ops.flash_attention(q, k, v)
+    with pytest.raises(NotImplementedError, match="length of their own"):
+        ops.flash_attention(q.float().requires_grad_(), k.float(), v.float(), causal=False)
+
+
+def test_encdec_on_card_matches_cpu(cuda):
+    """seamless-m4t-large-v2 reduced: K1 carries the encoder's layers and
+    the decoder's self- and cross-attention prefill (12 tokens over 8
+    frames), K2 both decode calls a layer; the card's prefill logits and
+    greedy tokens equal the CPU's in fp32."""
+    cfg = smoke_config("seamless-m4t-large-v2")
+    bundle = make_model(cfg)
+    cpu = bundle.init(0, device="cpu")
+    gpu = bundle.init(0, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 12), generator=gen),
+             "frontend": torch.randn(2, cfg.frontend_tokens, cfg.frontend_dim, generator=gen)}
+    on_card = {k: t.to(cuda) for k, t in batch.items()}
+    want, _ = bundle.prefill(cpu, batch, max_len=32, dtype=torch.float32)
+    got, _ = bundle.prefill(gpu, on_card, max_len=32, dtype=torch.float32)
+    torch.testing.assert_close(got.logits.cpu(), want.logits, atol=1e-4, rtol=1e-4)
+    want = greedy_generate(bundle, cpu, batch, 10, 32, torch.float32)
+    ops.reset_launch_counts()
+    got = greedy_generate(bundle, gpu, on_card, 10, 32, torch.float32)
+    assert ops.launch_counts() == {"flash_attention": cfg.enc_layers + 2 * cfg.dec_layers,
+                                   "decode_attention": 2 * cfg.dec_layers * 9,
+                                   "ssd_scan": 0, "rglru_scan": 0,
+                                   "flash_attention_bwd": 0, "rglru_scan_bwd": 0}
+    torch.testing.assert_close(got.cpu(), want)
+
+
 def test_mamba_on_card_matches_cpu(cuda):
     """K3 carries every prefill layer (and no decode step); the card's
     greedy tokens equal the CPU's in fp32."""

@@ -63,7 +63,9 @@ def test_importing_every_module_loads_no_jax():
             "repro_torch.telemetry.audit", "repro_torch.telemetry.sampler",
             "repro_torch.telemetry.sink", "repro_torch.telemetry.ops",
             "repro_torch.fault.chaos", "repro_torch.autoscale",
-            "repro_torch.autoscale.policy", "repro_torch.autoscale.controller"} <= set(mods)
+            "repro_torch.autoscale.policy", "repro_torch.autoscale.controller",
+            "repro_torch.models.encdec", "repro_torch.configs.seamless_m4t_large_v2",
+            "repro_torch.benchmarks.check_trend", "repro_torch.launch.quickstart"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

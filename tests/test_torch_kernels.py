@@ -59,10 +59,12 @@ def _wgmma_walk(q, k, v, *, scale, causal, window, softcap):
     """K1's tensor-core route as a tile walk: a CTA of 64 query rows loads
     only the KV tiles of BK keys (32 at D <= 128, 64 at D 256) that are not
     wholly above its diagonal or outside its window, masks only the tiles
-    that cross its diagonal, its window's edge or S, keeps the running max
-    and sum in fp32, and multiplies P rounded to bf16 by V. Inputs (B,S,H,D)
-    with KH dividing H; returns q's dtype."""
+    that cross its diagonal, its window's edge or S_kv, keeps the running
+    max and sum in fp32, and multiplies P rounded to bf16 by V. Inputs q
+    (B,S,H,D), k and v (B,S_kv,KH,D) with KH dividing H; returns q's
+    dtype."""
     b, s, h, d = q.shape
+    skv = k.shape[1]
     bq, bk = 64, (64 if d > 128 else 32)
     qf, kf, vf = q.float(), k.float(), v.float()
     out = torch.zeros(b, s, h, d)
@@ -77,25 +79,25 @@ def _wgmma_walk(q, k, v, *, scale, causal, window, softcap):
                 m = torch.full((bq,), -1e30)
                 l = torch.zeros(bq)
                 acc = torch.zeros(bq, d)
-                kv_end = min(s, q0 + bq) if causal else s
+                kv_end = min(skv, q0 + bq) if causal else skv
                 kv_begin = max(0, q0 - window + 1) // bk * bk if window > 0 else 0
                 for k0 in range(kv_begin, kv_end, bk):
                     c = torch.arange(k0, k0 + bk)
-                    nk = min(bk, s - k0)
+                    nk = min(bk, skv - k0)
                     kt, vt = torch.zeros(bk, d), torch.zeros(bk, d)
                     kt[:nk], vt[:nk] = kf[bi, k0:k0 + nk, kvh], vf[bi, k0:k0 + nk, kvh]
                     x = (qt @ kt.T) * scale
                     if softcap:
                         x = softcap * torch.tanh(x / softcap)
                     if ((causal and k0 + bk - 1 > q0) or (window > 0 and q0 + bq - 1 - k0 >= window)
-                            or k0 + bk > s):
+                            or k0 + bk > skv):
                         ok = torch.ones(bq, bk, dtype=torch.bool)
                         if causal:
                             ok &= c[None] <= r[:, None]
                         if window > 0:
                             ok &= (r[:, None] - c[None]) < window
                         x = torch.where(ok, x, torch.tensor(-1e30))
-                        x = torch.where(c[None] >= s, torch.tensor(-torch.inf), x)
+                        x = torch.where(c[None] >= skv, torch.tensor(-torch.inf), x)
                     m_new = torch.maximum(m, x.max(-1).values)
                     corr = torch.exp(m - m_new)
                     p = torch.exp(x - m_new[:, None])
@@ -127,6 +129,26 @@ def test_wgmma_tile_walk_matches_pallas(s, d, causal, window, softcap):
                       softcap=softcap)
     assert got.dtype == torch.bfloat16
     _close(got, want, "bfloat16")
+
+
+@pytest.mark.parametrize("s,skv,h,kh,d", [
+    (12, 8, 2, 2, 64),        # the reduced encoder-decoder's shape, under one tile
+    (100, 70, 4, 2, 64),      # S_kv < S, ragged in its last key tile
+    (70, 300, 2, 1, 128),     # S_kv > S over ten key tiles, the last ragged
+    (65, 129, 2, 2, 256),     # BK 64: one key past two tiles
+])
+def test_wgmma_tile_walk_kv_len(s, skv, h, kh, d):
+    """The tensor-core route with k and v of a length of their own (the
+    encoder-decoder's cross-attention, no mask): the walk stops at S_kv and
+    masks the last key tile's columns past it; against the plain version at
+    bf16's 2e-2."""
+    rng = np.random.default_rng(s + skv)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).bfloat16()
+               for shape in ((1, s, h, d), (1, skv, kh, d), (1, skv, kh, d)))
+    got = _wgmma_walk(q, k, v, scale=d ** -0.5, causal=False, window=0, softcap=None)
+    want = ops.flash_attention_plain(q, k, v, causal=False, scale=d ** -0.5)
+    assert got.shape == want.shape == (1, s, h, d)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
 
 
 @pytest.mark.parametrize("dtype,d", [(dt, d) for dt in (torch.float32, torch.bfloat16)

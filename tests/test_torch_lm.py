@@ -172,7 +172,9 @@ def test_ported_parts_build_and_match_jax(override):
 @pytest.mark.parametrize("override,match", [
     ({"tp": 16}, "padded heads"),
     ({"act": "sigmoid"}, "activation 'sigmoid'"),
-    ({"family": "encdec", "enc_layers": 2, "dec_layers": 2}, "encdec"),
+    # the encoder-decoder is ported; it refuses padded heads, as the LM does
+    pytest.param({"family": "encdec", "enc_layers": 2, "dec_layers": 2, "tp": 16},
+                 "padded heads", id="override2-encdec"),
 ])
 def test_unported_parts_raise(override, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -181,15 +183,15 @@ def test_unported_parts_raise(override, match):
 
 def test_unported_archs_and_caches_raise():
     """The dense and MoE families are ported (gemma2's local layers, MLA,
-    MTP and DeepSeek's first dense layers included); the encoder-decoder
-    arch is not registered yet, the LM refuses only padded heads and
-    unknown activations, and the attention refuses an unported cache
-    kind."""
+    MTP and DeepSeek's first dense layers included), and so is every arch of
+    the reference: the registry refuses only an unknown arch; the LM refuses
+    only padded heads and unknown activations, and the attention refuses a
+    cache of a kind that keeps none (the encoder's "bidir")."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models.lm import check_supported
     from repro_torch.nn.attention import make_cache
-    with pytest.raises(KeyError, match="not ported"):
-        get_config("seamless-m4t-large-v2")
+    with pytest.raises(KeyError, match="unknown arch 'no-such-arch'"):
+        get_config("no-such-arch")
     for arch in ("gemma2-9b", "qwen3-moe-30b-a3b", "deepseek-v3-671b"):
         check_supported(get_config(arch))
     check_supported(smoke_config(ARCH).with_(mtp_depth=1, first_dense_layers=1))

@@ -9,7 +9,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs.registry import make_model, smoke_config  # noqa: E402
-from repro_torch.launch import serve_policy  # noqa: E402
+from repro_torch.launch import quickstart, serve_policy  # noqa: E402
 from repro_torch.launch.serve import greedy_generate  # noqa: E402
 
 CFG = smoke_config("qwen3-14b")
@@ -60,7 +60,7 @@ def test_serve_rejects_cache_overflow():
                            device="cpu")
 
 
-@pytest.mark.parametrize("entry", ["serve", "init", "init_cache", "main"])
+@pytest.mark.parametrize("entry", ["serve", "init", "init_cache", "main", "quickstart"])
 def test_entry_points_default_to_cuda(entry, monkeypatch):
     """Without device=, an entry point runs on the card, and raises where
     there is none: no silent fallback to the CPU."""
@@ -69,7 +69,8 @@ def test_entry_points_default_to_cuda(entry, monkeypatch):
     call = {"serve": lambda: serve_policy.serve(CFG, clients=1, tokens=1),
             "init": lambda: bundle.init(0),
             "init_cache": lambda: bundle.init_cache(1, 8),
-            "main": lambda: serve_policy.main(["--clients", "1", "--tokens", "1"])}
+            "main": lambda: serve_policy.main(["--clients", "1", "--tokens", "1"]),
+            "quickstart": lambda: quickstart.main([])}
     with pytest.raises(RuntimeError, match="CUDA was requested"):
         call[entry]()
 

@@ -20,7 +20,7 @@ the headers it includes pasted in) changed by patches:
   as zeros); ``no_products``, O += P V skipped; ``no_stream``, only the
   first K/V tile loaded (later tiles read it again).
 ``--baseline`` adds another ``flash_attention.cu`` with the same C entry
-point (another checkout's, whose fp32 route may be another kernel), built
+point (S_kv after S, since the encoder-decoder's slice) (another checkout's, whose fp32 route may be another kernel), built
 as it is. All are built by ``build.compile_sources`` into
 ``build/kernels/k1_fwd_variants/``; the shipped source, the baseline, the
 design and the accuracy variants are checked against
@@ -61,8 +61,8 @@ CALLS = {"train_call": (4, 256, 10, 1, 256, {"window": 2048}),
 DESIGNS = {
     "two_stages": [
         (r"    if \(k0 \+ BK < kv_end\) \{   // the next tile, once every warp is done with "
-         r"this one\n      __syncthreads\(\);\n      stage_tile<D>\(sk, kb, k0 \+ BK, S, ks\);\n"
-         r"      stage_tile<D>\(sv, vb, k0 \+ BK, S, ks\);\n      cp_async_commit\(\);\n    \}\n",
+         r"this one\n      __syncthreads\(\);\n      stage_tile<D>\(sk, kb, k0 \+ BK, Skv, ks\);\n"
+         r"      stage_tile<D>\(sv, vb, k0 \+ BK, Skv, ks\);\n      cp_async_commit\(\);\n    \}\n",
          ""),
         (r"\(3 \* TILE \+ BQ \* SP \+ 4 \* BQ\)", "(5 * TILE + BQ * SP + 4 * BQ)"),
         (r"float\* sv = sk \+ C::TILE;", "float* sv = sk + 2 * C::TILE;"),
@@ -74,8 +74,8 @@ DESIGNS = {
          "    const float* tk = sk + stage * C::TILE;\n"
          "    const float* tv = sv + stage * C::TILE;\n"
          "    if (k0 + BK < kv_end) {\n"
-         "      stage_tile<D>(sk + (stage ^ 1) * C::TILE, kb, k0 + BK, S, ks);\n"
-         "      stage_tile<D>(sv + (stage ^ 1) * C::TILE, vb, k0 + BK, S, ks);\n"
+         "      stage_tile<D>(sk + (stage ^ 1) * C::TILE, kb, k0 + BK, Skv, ks);\n"
+         "      stage_tile<D>(sv + (stage ^ 1) * C::TILE, vb, k0 + BK, Skv, ks);\n"
          "      cp_async_commit();\n    }\n"),
         (r"score_tile<D>\(sq \+ wm \* 16 \* C::P, sk \+",
          "score_tile<D>(sq + wm * 16 * C::P, tk +"),
