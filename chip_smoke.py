@@ -44,7 +44,10 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    ragged against the key tiles, shorter and longer than S, and the
    reduced config's cross call in fp32 (with its log-sum-exp), timed at
    seamless's three calls beside SDPA; K2 at seamless's cross decode (1024
-   frames, all valid) and self decode, timed too;
+   frames, all valid) and self decode, timed too; K1 (prefill, causal, bf16
+   and fp32, D 128) and K2 (decode, at its split edges, bf16 and fp32) at
+   qwen3-14b's production TP padding, 48 query heads over 8 kv heads (a
+   group of 6, which no other call has), K1 and K2 timed there beside SDPA;
 4. serve: qwen3-14b at full width (40 layers, bf16 params made on the card
    from a seed) answers four clients through the port's InferenceServer;
    the kernels' launch counts must rise by 40 per prefill (K1) and by 40
@@ -86,6 +89,20 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    and 24 cross-attention calls, all on `wgmma`) and K2 48 a decode step
    (24 self, 24 cross), its served batch's logits after the prefill and 3
    decode steps held to the plain versions (rms error <= 5e-2 of the rms);
+   then sharded serving: qwen3-14b at its production TP padding (tp 16:
+   40 query heads padded to 48 over 8 kv heads, vocab 151936 padded to
+   152064), full width and depth, bf16, its params DTensors on a one-rank
+   CUDA DeviceMesh with the decode rules active, through the
+   InferenceServer: K1 40 a prefill and K2 40 a step (the kernels on each
+   rank's shards through local_map), served tokens equal greedy decoding
+   under the mesh, the prefill's last logits and 3 decode steps' held to
+   the plain versions (the real vocab's; the padded ids' -1e30 apart),
+   random values in the padded rows of every wq and wo leaving the
+   kernels' logits bit-identical, and prefill ms, decode ms a step, device
+   ms and peak memory printed beside the unpadded phase's; then reshard:
+   the reduced qwen3-14b's tp-2 train state checkpointed on the host and
+   restored by ``launch.ft.reshard_state`` onto the one-rank CUDA mesh,
+   every leaf bit-equal and on the card;
 5. parity: at each arch's reduced config, prefill logits and greedy tokens
    from the port on the card equal the port on the CPU (the plain
    versions), in fp32 (150-token prompts for gemma2-9b, starcoder2-15b,
@@ -256,6 +273,15 @@ timed at the train call too, beside SDPA's fp32 forward, against its
 bounds at the 3xTF32 and the fp32 CUDA-core rates, with its registers and
 spills.
 
+After phase 20, when no other phase runs, a child process runs the dry
+run (``python -m repro_torch.launch.dryrun``'s ``main``, no card: a fake
+process group of 256 ranks on the meta device) for qwen3-14b x decode_32k,
+qwen3-moe-30b-a3b x decode_32k (serving's full EP through ``moe_ep``) and
+mamba2-2.7b x long_500k on the (16, 16) mesh, then the port's roofline
+over its JSONL, and prints each row's FLOPs, bytes, collective bytes and
+memory a rank, its terms (modelled on ``H100_SXM``'s spec, not measured)
+and its wall seconds; it must exit 0.
+
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or run from a directory
 that does not hold the repository, it fails and prints no result.
@@ -311,6 +337,9 @@ MOE_CAPACITY = (8.0, 1.25)
 # deepseek's MLA prefill (128 heads, q and k of 128 + 64, v of 128, zero-
 # padded to K1's head_dim 256)
 QMOE = dict(h=32, kh=4, d=128)
+# qwen3-14b at its production TP padding (tp 16, the (16, 16) mesh's
+# 'model' axis): 40 query heads padded to 48 over 8 kv heads of 128
+TP16 = dict(h=48, kh=8, d=128, tp=16)
 MLA_CALL = dict(h=128, dqk=192, dv=128, d=256)
 # the share of full-depth logit rows whose argmax must agree between the
 # kernels and the plain versions when each side routes for itself (a near
@@ -602,7 +631,11 @@ def kernel_phase(k1_ptxas, k4_ptxas, bwd_ptxas):
              # reduced MLA configs' (q and k of 24, v of 16, padded to 64)
              ((b, s, QMOE["h"], QMOE["kh"], QMOE["d"]), torch.bfloat16, {}),
              ((b, s, MLA_CALL["h"], MLA_CALL["h"], MLA_CALL["d"]), torch.bfloat16, {}),
-             ((2, 150, 4, 4, 64), torch.float32, {})]
+             ((2, 150, 4, 4, 64), torch.float32, {}),
+             # qwen3-14b at its production TP padding (tp 16): 48 query heads
+             # on 8 kv heads of 128, a group of 6, which no other call has
+             ((b, s, TP16["h"], TP16["kh"], TP16["d"]), torch.bfloat16, {}),
+             ((2, 200, TP16["h"], TP16["kh"], TP16["d"]), torch.float32, {})]
     main_err = None
     for (cb, cs, ch, ckh, cd), dt, kw in cases:
         q = rand(cb, cs, ch, cd, dtype=dt)
@@ -708,6 +741,7 @@ def kernel_phase(k1_ptxas, k4_ptxas, bwd_ptxas):
         b, gs, GEMMA["h"], GEMMA["kh"], GEMMA["d"], **gkw)
     rows["flash_attention"]["qwen3_moe_call"] = time_k1(b, s, QMOE["h"], QMOE["kh"], QMOE["d"])
     rows["flash_attention"]["mla_call"] = time_k1_mla(b, s, rand)
+    rows["flash_attention"]["qwen3_tp16_call"] = time_k1(b, s, TP16["h"], TP16["kh"], TP16["d"])
 
     def time_k1_unmasked(b, s, skv, h, kh, d):
         """K1 without a mask, q of S positions over k and v of S_kv, bf16
@@ -769,7 +803,12 @@ def kernel_phase(k1_ptxas, k4_ptxas, bwd_ptxas):
              ((2, 333, 10, 1, 256), torch.float32, [5, 333]),          # D 256, 10 heads a kv head
              ((3, 333, 8, 8, 64), torch.float32, [0, 5, 333]),          # ragged S, expanded
              ((2, 64, 4, 2, 16), torch.float32, [0, 33]),               # qwen3 reduced config
-             ((2, 32, 4, 1, 16), torch.float32, [7, 32])]               # RecurrentGemma reduced
+             ((2, 32, 4, 1, 16), torch.float32, [7, 32]),               # RecurrentGemma reduced
+             # qwen3-14b at tp 16: 48 query heads on 8 kv heads, a group of 6
+             # in one CTA, at the call and its split edges, in both dtypes
+             ((b, S, TP16["h"], TP16["kh"], TP16["d"]), torch.bfloat16, [0, 1, 263, S]),
+             ((b, S, TP16["h"], TP16["kh"], TP16["d"]), torch.bfloat16, [32, 33, 64, S + 9]),
+             ((b, S, TP16["h"], TP16["kh"], TP16["d"]), torch.float32, [1, 32, 33, S])]
     main_err = None
     for (cb, cs, ch, ckh, cd), dt, lens in cases:
         q = rand(cb, ch, cd, dtype=dt)
@@ -917,6 +956,8 @@ def kernel_phase(k1_ptxas, k4_ptxas, bwd_ptxas):
         GEMMA["softcap"])
     rows["decode_attention"]["qwen3_moe_call"] = time_k2(
         b, S, QMOE["h"], QMOE["kh"], QMOE["d"], PROMPT_LEN + TOKENS // 2)
+    rows["decode_attention"]["qwen3_tp16_call"] = time_k2(
+        b, S, TP16["h"], TP16["kh"], TP16["d"], PROMPT_LEN + TOKENS // 2)
     # seamless's decode: cross-attention over the 1024 cached frames, every
     # one valid, and the self-attention's cache of max_len slots
     smax = SERVE["seamless-m4t-large-v2"][1]
@@ -1573,17 +1614,20 @@ def logits_path(bundle, params, prompts, max_len, steps, feed=None, every_positi
     the tokens fed)."""
     batch = {"tokens": prompts} if frontend is None else {"tokens": prompts,
                                                           "frontend": frontend}
+    from repro_torch.sharding.ctx import to_plain   # a DTensor's logits, gathered whole
+
     with torch.no_grad():
         out, cache = bundle.prefill(params, batch, max_len=max_len, dtype=torch.bfloat16)
-        last = out.logits[:, -1].float()
-        rows = [out.logits.reshape(-1, out.logits.shape[-1]) if every_position else last]
+        logits = to_plain(out.logits)
+        last = logits[:, -1].float()
+        rows = [logits.reshape(-1, logits.shape[-1]) if every_position else last]
         fed = []
-        del out
+        del out, logits
         for i in range(steps):
             tok = last.argmax(-1, keepdim=True) if feed is None else feed[i]
             fed.append(tok)
             out, cache = bundle.decode_step(params, tok, cache)
-            last = out.logits[:, -1].float()
+            last = to_plain(out.logits)[:, -1].float()
             rows.append(last)
             del out
     return rows, fed
@@ -1665,7 +1709,9 @@ def full_depth_plain_check(bundle, params, prompts, max_len, steps=3, rel=5e-2,
     where each layer's share of (token, k) choices in common with the
     kernels' is printed and the argmax must agree on at least
     ``MOE_ARGMAX_SHARE`` of the rows; and with the kernels' routing forced
-    (``forced_routing``), which is held to `rel`."""
+    (``forced_routing``), which is held to `rel`. With a padded vocab
+    (tp > 1) the real vocab's logits are compared, the padded ids' -1e30
+    checked apart."""
     from repro_torch.kernels import ops
 
     cfg = bundle.cfg
@@ -1683,11 +1729,19 @@ def full_depth_plain_check(bundle, params, prompts, max_len, steps=3, rel=5e-2,
                              every_position=cfg.family == "moe", frontend=frontend)
     with routes_recorded() as rec:
         got, fed = path()
+    if cfg.padded_vocab != cfg.vocab_size:
+        # the padded ids hold -1e30 on both sides: compared apart, so that
+        # they do not swamp the rms of the real vocab's logits
+        pad = [g[..., cfg.vocab_size:] for g in got]
+        if not all(bool((x == -1e30).all()) for x in pad):
+            raise AssertionError("a padded vocab id's logit is not -1e30")
+        got = [g[..., :cfg.vocab_size] for g in got]
     finite = all(bool(torch.isfinite(g).all()) for g in got)
     res = {}
     if cfg.family == "moe":
         with plain(), routes_recorded() as rec_free:
             free, _ = path(fed)
+        free = [w[..., :cfg.vocab_size] for w in free]
         errs, same, share = compare(got, free)
         agree = routing_agreement(cfg, rec, rec_free)
         drops = [sum(int(r["dropped"]) for r in x) for x in (rec, rec_free)]
@@ -1707,6 +1761,7 @@ def full_depth_plain_check(bundle, params, prompts, max_len, steps=3, rel=5e-2,
         forced = contextlib.nullcontext()
     with plain(), forced:
         want, _ = path(fed)
+    want = [w[..., :cfg.vocab_size] for w in want]
     errs, same, share = compare(got, want)
     log(f"   full depth against the plain versions{' (the kernels routing forced)' if res else ''}"
         f" ({prompts.shape[0]} x {prompts.shape[1]} prompt, then {steps} decode steps): logits "
@@ -3733,6 +3788,259 @@ def quickstart_phase(card):
                     "check_trend": trend[2:]}
 
 
+
+def sharded_serve_phase(unpadded):
+    """qwen3-14b at its production TP padding, served on the card under a
+    device mesh: ``launch.dryrun.production_config`` for the (16, 16)
+    mesh's decode cells (tp 16: 40 query heads padded to 48 over 8 kv
+    heads, a group of 6; vocab 151936 padded to 152064), bf16, full width
+    and depth, its params DTensors on ``single_device_mesh()`` with
+    ``rules_for(cfg, mesh, "decode")`` active, through the InferenceServer
+    (``serve_policy.serve(mesh=, rules=)``). K1 must rise by 40 a prefill
+    and K2 by 40 a step (the kernels on each rank's shards, through
+    ``local_map``; a DTensor reaching a wrapper raises); served tokens equal
+    greedy decoding under the mesh; the prefill's last logits and 3 decode
+    steps' against the plain versions (``full_depth_plain_check``); random
+    values in the padded rows of every wq and wo leave the kernels' logits
+    bit-identical; prefill ms, decode ms a step, device ms and peak memory
+    printed beside the unpadded serve phase's (`unpadded`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.registry import make_model
+    from repro_torch.kernels import flash_attention as K1
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_policy
+    from repro_torch.launch.dryrun import production_config
+    from repro_torch.launch.mesh import single_device_mesh
+    from repro_torch.launch.serve import greedy_generate, make_prefill, make_serve_step
+    from repro_torch.launch.specs import rules_for
+    from repro_torch.sharding.ctx import is_dtensor, sharding_ctx
+    from repro_torch.sharding.param import distribute_module
+    from repro_torch.sharding.rules import AbstractMesh
+
+    arch = "qwen3-14b"
+    prompt_len, max_len = SERVE[arch]
+    cfg = production_config(arch, AbstractMesh((16, 16), ("data", "model")), "decode")
+    if (cfg.tp, cfg.padded_heads, cfg.num_kv_heads, cfg.padded_vocab) != (
+            TP16["tp"], TP16["h"], TP16["kh"], 152064):
+        raise AssertionError(f"production config: tp {cfg.tp}, heads {cfg.padded_heads} over "
+                             f"{cfg.num_kv_heads}, vocab {cfg.padded_vocab}")
+    log(f"== sharded serve: {arch} at its production TP padding (tp {cfg.tp}): "
+        f"{cfg.num_heads} query heads padded to {cfg.padded_heads} over {cfg.num_kv_heads} kv "
+        f"heads (a group of {cfg.padded_heads // cfg.num_kv_heads}), vocab {cfg.vocab_size} "
+        f"padded to {cfg.padded_vocab}, {cfg.num_layers} layers, {cfg.param_dtype}")
+    dev = torch.device("cuda")
+    mesh = single_device_mesh("cuda")
+    rules = rules_for(cfg, mesh, "decode")
+    bundle = make_model(cfg)
+    t0 = time.perf_counter()
+    params = bundle.init(0, device=dev, dtype=torch.bfloat16)
+    distribute_module(params, mesh, rules)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in params.parameters())
+    if not all(is_dtensor(p) for p in params.parameters()):
+        raise AssertionError("a parameter is not a DTensor")
+    log(f"   mesh {mesh}, rules heads={rules['heads']} act_batch={rules['act_batch']} "
+        f"act_kv_seq={rules['act_kv_seq']}; params: {n} ({n * 2 / 1e9:.2f} GB bf16, "
+        f"DTensors) built in {time.perf_counter() - t0:.1f} s")
+
+    ctx = functools.partial(sharding_ctx, mesh, rules)
+    prompts = torch.randint(0, cfg.vocab_size, (CLIENTS, prompt_len), device=dev)
+    prefill, step = make_prefill(bundle, max_len, torch.bfloat16), make_serve_step(bundle)
+    with ctx():
+        t0 = time.perf_counter()
+        tok, cache = prefill(params, {"tokens": prompts})
+        torch.cuda.synchronize()
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        if not is_dtensor(cache["layers"][0]["k"]):
+            raise AssertionError("the cache under the mesh is not made of DTensors")
+        step(params, tok, cache)
+        torch.cuda.synchronize()
+    del tok, cache
+    log(f"   warm-up: first prefill {cold_ms:.2f} ms (cold)")
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = serve_policy.serve(cfg, clients=CLIENTS, prompt_len=prompt_len, tokens=TOKENS,
+                             max_len=max_len, device=dev, params=params, deadline_ms=1000.0,
+                             mesh=mesh, rules=rules)
+    counts = ops.launch_counts()
+    k1_routes = dict(K1.flash_attention.launches_by_route)
+    peak = torch.cuda.max_memory_allocated()
+    st = out["stats"]
+    steps = st["batches"]
+    want = expected_launches(cfg, steps)
+    log(f"   launches: {counts}; decode steps (batches) {steps}")
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != expected {want}")
+    if k1_routes != {"wgmma": want["flash_attention"], "tf32x3": 0}:
+        raise AssertionError(f"K1 launches by route {k1_routes}")
+    if steps != TOKENS:
+        raise AssertionError(f"{steps} decode steps for {TOKENS} tokens")
+    served = torch.as_tensor(out["prompts"], device=dev)
+    with ctx():
+        greedy = greedy_generate(bundle, params, {"tokens": served}, steps=TOKENS + 1,
+                                 max_len=max_len, dtype=torch.bfloat16).cpu()
+    for cid in range(CLIENTS):
+        if [out["first"][cid]] + out["tokens"][cid] != greedy[cid].tolist():
+            raise AssertionError(f"client {cid}: served tokens differ from greedy")
+    log(f"   served tokens equal greedy decoding under the mesh; client 0: "
+        f"{out['tokens'][0][:8]}...")
+    with ctx():
+        plain = full_depth_plain_check(bundle, params, prompts, max_len)
+        # the padded heads are inert: random values in their rows of wq and
+        # wo, then the kernels' logits again, bit for bit
+        before, fed = logits_path(bundle, params, prompts[:1], max_len, 3)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        with torch.no_grad():
+            for blk in params.blocks:
+                wq, wo = blk.attn.wq.to_local(), blk.attn.wo.to_local()
+                wq[:, cfg.num_heads:] = torch.randn(wq[:, cfg.num_heads:].shape, generator=gen,
+                                                    device=dev).to(wq.dtype)
+                wo[cfg.num_heads:] = torch.randn(wo[cfg.num_heads:].shape, generator=gen,
+                                                 device=dev).to(wo.dtype)
+        after, _ = logits_path(bundle, params, prompts[:1], max_len, 3, feed=fed)
+    inert = all(torch.equal(a, b) for a, b in zip(before, after))
+    log(f"   padded heads' rows of wq and wo randomised: the kernels' logits (prefill and 3 "
+        f"decode steps) bit-identical {inert}")
+    if not inert:
+        raise AssertionError("randomising the padded heads changed the logits")
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with ctx():
+        with profile(activities=acts) as prof:
+            tok, cache = prefill(params, {"tokens": prompts})
+            torch.cuda.synchronize()
+        pre, pre_ops = device_breakdown(prof, 1)
+        with profile(activities=acts) as prof:
+            for _ in range(3):
+                tok, cache = step(params, tok, cache)
+            torch.cuda.synchronize()
+        dec, dec_ops = device_breakdown(prof, 3)
+    del tok, cache
+    if not (pre["K1"] > 0 and dec["K2"] > 0):
+        raise AssertionError(f"no K1/K2 device time: prefill {pre}, decode {dec}")
+    wall_step = out["decode_s"] * 1e3 / steps
+    m = {"layers": cfg.num_layers, "params": n, "padded_heads": cfg.padded_heads,
+         "padded_vocab": cfg.padded_vocab, "prefill_ms": out["prefill_s"] * 1e3,
+         "prefill_cold_ms": cold_ms, "decode_ms_per_step": wall_step,
+         "policy_step_ms": st["compute_s"] * 1e3 / steps, "peak_gb": peak / 1e9,
+         "prefill_device_ms": pre, "decode_device_ms_per_step": dec,
+         "decode_idle_share": 1 - dec["busy"] / wall_step,
+         "prefill_device_ops": pre_ops, "decode_device_ops_per_step": dec_ops, **plain,
+         "tokens": {cid: [out["first"][cid]] + out["tokens"][cid] for cid in range(CLIENTS)}}
+    for key in ("prefill_ms", "decode_ms_per_step", "peak_gb"):
+        log(f"   {key}: {m[key]:.2f} at tp 16 under the mesh, {unpadded[key]:.2f} unpadded "
+            "(printed, not asserted)")
+    log(f"   device ms a prefill {pre['busy']:.3f} (unpadded {unpadded['prefill_device_ms']['busy']:.3f})"
+        f", a decode step {dec['busy']:.3f} (unpadded "
+        f"{unpadded['decode_device_ms_per_step']['busy']:.3f}); device operations a decode step "
+        f"{dec_ops:.0f} (unpadded {unpadded['decode_device_ops_per_step']:.0f})")
+    del params
+    return counts, m
+
+
+def reshard_phase():
+    """The reduced qwen3-14b's tp-2 train state, checkpointed on the host,
+    restored by ``launch.ft.reshard_state`` onto the one-rank CUDA mesh:
+    every leaf bit-equal and on the card."""
+    import shutil
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.registry import make_model, smoke_config
+    from repro_torch.core.losses import init_train_state
+    from repro_torch.launch.ft import reshard_state
+    from repro_torch.launch.mesh import single_device_mesh
+    from repro_torch.optim import adamw
+
+    log("== reshard: the reduced qwen3-14b's tp-2 train state onto the one-rank CUDA mesh")
+    cfg = smoke_config("qwen3-14b").with_(tp=2)
+    bundle, opt = make_model(cfg), adamw(1e-3)
+    state = init_train_state(bundle, opt, 0, "cpu")
+    d = ROOT / "build" / "reshard_ckpt"
+    shutil.rmtree(d, ignore_errors=True)
+    mgr = CheckpointManager(str(d), async_save=False)
+    mgr.save(state, 5)
+    restored, step = reshard_state(mgr, bundle, opt, cfg, single_device_mesh("cuda"))
+    leaves = [(n_, p, dict(restored["params"].named_parameters())[n_])
+              for n_, p in state["params"].named_parameters()]
+    leaves += [(f"{k}.{n_}", t, restored["opt_state"][k][n_])
+               for k, v in state["opt_state"].items() for n_, t in v.items()]
+    unequal = [n_ for n_, a, b in leaves if not torch.equal(a.detach(), b.full_tensor().cpu())]
+    where = {b.to_local().device.type for _, _, b in leaves}
+    log(f"   step {step}; {len(leaves)} leaves (params and AdamW moments); unequal {unequal}; "
+        f"on {sorted(where)}")
+    if step != 5 or unequal or where != {"cuda"}:
+        raise AssertionError(f"reshard: step {step}, unequal {unequal}, devices {where}")
+    shutil.rmtree(d, ignore_errors=True)
+    return {"leaves": len(leaves), "step": step}
+
+
+# the dry run's cells: a decode cell (the sharded serve phase's model on the
+# (16, 16) mesh), an MoE decode cell through moe_ep under serving's full EP,
+# and a long-context cell
+DRYRUN_CELLS = (("qwen3-14b", "decode_32k"), ("qwen3-moe-30b-a3b", "decode_32k"),
+                ("mamba2-2.7b", "long_500k"))
+
+
+def dryrun_phase(timeout=600):
+    """The dry run in a child process of its own (it holds a fake process
+    group of 256 ranks; no card: CUDA_VISIBLE_DEVICES is empty), run when no
+    other phase runs: each of DRYRUN_CELLS through ``launch.dryrun.main``,
+    then the roofline over its JSONL. Returns each cell's FLOPs, bytes,
+    collective bytes and memory a rank, its terms (modelled on H100_SXM's
+    spec, not measured) and wall seconds."""
+    import os
+    log("== dry run (child process, fake (16, 16) mesh of 256 ranks, meta tensors, no card)")
+    out = ROOT / "build" / "dryrun_torch.jsonl"
+    out.unlink(missing_ok=True)
+    code = ("import sys, time\n"
+            "from repro_torch.launch import dryrun\n"
+            "from repro_torch.benchmarks import roofline\n"
+            f"for arch, shape in {DRYRUN_CELLS!r}:\n"
+            "    t0 = time.perf_counter()\n"
+            f"    dryrun.main(['--arch', arch, '--shape', shape, '--out', {str(out)!r}])\n"
+            "    print(f'WALL {arch} {shape} {time.perf_counter() - t0:.1f}', flush=True)\n"
+            f"roofline.main(['--path', {str(out)!r}])\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    try:
+        child = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                               capture_output=True, text=True, timeout=timeout)
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"the dry-run child ran past {timeout} s") from None
+    text = child.stdout + child.stderr
+    out.with_suffix(".log").write_text(text)
+    for line in text.splitlines():
+        if line.startswith(("[", "WALL", "roofline_", "OK:", "FAILED", "name,")):
+            log(f"   {line}")
+    if child.returncode != 0:
+        log(text[-3000:])
+        raise AssertionError(f"the dry-run child exited {child.returncode}")
+    rows = [json.loads(x) for x in out.read_text().splitlines()]
+    walls = {tuple(x.split()[1:3]): float(x.split()[3]) for x in text.splitlines()
+             if x.startswith("WALL ")}
+    if [(r["arch"], r["shape"]) for r in rows] != list(DRYRUN_CELLS):
+        raise AssertionError(f"dry-run rows {[(r['arch'], r['shape']) for r in rows]}")
+    res = []
+    for r in rows:
+        t = r["terms"]
+        res.append({"arch": r["arch"], "shape": r["shape"], "mesh": r["mesh"],
+                    "flops_per_rank": r["flops_per_chip"], "hbm_bytes_per_rank":
+                    r["hbm_bytes_per_chip"], "collective_bytes_per_rank":
+                    r["collective_bytes_per_chip"], "memory": r["memory"],
+                    "terms_modelled_on": t["modelled_on"], "compute_s": t["compute_s"],
+                    "memory_s": t["memory_s"], "collective_s": t["collective_s"],
+                    "dominant": t["dominant"], "wall_s": walls[(r["arch"], r["shape"])]})
+        if not (r["flops_per_chip"] > 0 and t["dominant"] in ("compute", "memory",
+                                                               "collective")):
+            raise AssertionError(f"dry-run row {r}")
+    log("   the terms are modelled from H100_SXM's published peaks (bf16 989.4 TFLOP/s, HBM3 "
+        "3.35 TB/s, 18 NVLink links of 25 GB/s), not measured; a 'model' axis of 16 ranks "
+        "spans two 8-GPU nodes, whose link is slower than NVLink, so there the collective "
+        "term is a lower bound")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs "
@@ -3815,6 +4123,17 @@ def main():
         torch.cuda.empty_cache()
         phase_s[f"serve {arch}"] = serve_metrics[arch]["seconds"] = time.perf_counter() - t0
         log(f"   serve {arch}: {phase_s[f'serve {arch}']:.1f} s")
+    # qwen3-14b at its production TP padding, under a one-rank device mesh
+    t0 = time.perf_counter()
+    counts, sharded_metrics = sharded_serve_phase(serve_metrics["qwen3-14b"])
+    for name in launches:
+        launches[name] += counts[name]
+    torch.cuda.empty_cache()
+    phase_s["sharded serve qwen3-14b tp16"] = sharded_metrics["seconds"] = \
+        time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reshard_metrics = reshard_phase()
+    phase_s["reshard"] = time.perf_counter() - t0
     # a comparison with the plain versions: its launches are not the path's
     ring_metrics = ring_wrap_phase()
     phase_s["ring wrap gemma2-9b"] = ring_metrics["seconds"]
@@ -3885,10 +4204,19 @@ def main():
     for name in launches:
         launches[name] += counts[name]
 
+    # the dry run needs no card; it runs alone, so no phase's times share
+    # the host with it
+    t0 = time.perf_counter()
+    dryrun_metrics = dryrun_phase()
+    phase_s["dry run"] = time.perf_counter() - t0
+
     for name, row in rows.items():
         row["launches"] = launches[name]
     for arch, metrics in serve_metrics.items():
         log(f"serve {arch}: {json.dumps(metrics)}")
+    log(f"sharded serve qwen3-14b tp16: {json.dumps(sharded_metrics)}")
+    log(f"reshard: {json.dumps(reshard_metrics)}")
+    log(f"dry run: {json.dumps(dryrun_metrics)}")
     log(f"ring wrap gemma2-9b: {json.dumps(ring_metrics)}")
     log(f"seconds of the serve, ring-wrap and new parity phases: "
         f"{json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")

@@ -2,9 +2,9 @@
 micro-benchmark. Prints ``name,value,derived`` CSV.
 
 The port's counterpart of ``benchmarks/run.py``. Figs 2, 3 and 4 run at
-their ``--smoke`` windows with ``--smoke``. The reference's roofline table
-reads the XLA dry-run's artifacts, which the port does not make yet: that
-section prints one line saying so. The micro-benchmark times one train
+their ``--smoke`` windows with ``--smoke``. The roofline table reads the
+port's dry-run JSONL (``launch.dryrun``, default
+``build/dryrun_torch.jsonl``), or prints one line saying it is missing. The micro-benchmark times one train
 step and one serve step of the tiny qwen3 config (eager) with
 `timing.device_ms`: CUDA events on the card, the host clock on the CPU. A
 failed Fig 4 shm gate still exits non-zero, after the other sections
@@ -18,7 +18,8 @@ import sys
 
 import torch
 
-from repro_torch.benchmarks import fig2_breakdown, fig3_actor_scaling, fig4_cpu_gpu_ratio
+from repro_torch.benchmarks import (fig2_breakdown, fig3_actor_scaling, fig4_cpu_gpu_ratio,
+                                    roofline)
 from repro_torch.benchmarks.timing import device_ms
 from repro_torch.device import resolve
 
@@ -88,8 +89,8 @@ def main(argv=None) -> None:
     except SystemExit as e:     # Fig 4's shm gate: fail at the end, after the rest ran
         gate = e.code
     print("=" * 72)
-    print("== Roofline table: waits for the port of launch/dryrun.py "
-          "(ROADMAP queue 1 item 10), whose artifacts it reads")
+    print("== Roofline table (dry run on a fake mesh; terms modelled on the H100's spec)")
+    roofline.main([])
     print("=" * 72)
     microbench_train_step(args.device)
     if gate:

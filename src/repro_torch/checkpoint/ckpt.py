@@ -12,7 +12,9 @@ Mirrors ``repro.checkpoint.ckpt``:
 Restore writes into the template's tensors, on their device and in their
 dtype, and returns the template with its other leaves (ints, numpy
 arrays) replaced. bf16 tensors are stored as fp32 (numpy has no bf16),
-which is exact. Re-meshing on restore waits for sharding.
+which is exact. A DTensor leaf is saved whole (``full_tensor``) and
+restored into a DTensor template by each rank writing its own shard, so a
+checkpoint restores onto another mesh (``launch.ft.reshard_state``).
 """
 
 import json
@@ -24,6 +26,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 
 def _items(tree, prefix=""):
@@ -45,6 +48,8 @@ def _host(leaf) -> np.ndarray:
     shares its memory, and the train step updates it in place)."""
     if isinstance(leaf, torch.Tensor):
         leaf = leaf.detach()
+        if isinstance(leaf, DTensor):
+            leaf = leaf.full_tensor()
         if leaf.dtype == torch.bfloat16:
             leaf = leaf.float()
         return leaf.to("cpu", copy=True).numpy()
@@ -85,6 +90,13 @@ def _restore_into(template, it):
     if isinstance(template, (list, tuple)):
         return type(template)(_restore_into(v, it) for v in template)
     arr = next(it)
+    if isinstance(template, DTensor):
+        from repro_torch.sharding.param import shard_tensor
+        full = torch.from_numpy(arr).reshape(template.shape)
+        with torch.no_grad():
+            template.to_local().copy_(
+                shard_tensor(full, template.device_mesh, template.placements).to_local())
+        return template
     if isinstance(template, torch.Tensor):
         with torch.no_grad():
             template.copy_(torch.from_numpy(arr).reshape(template.shape))

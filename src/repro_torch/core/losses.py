@@ -43,6 +43,9 @@ def _token_logprobs_entropy(logits, actions):
     same value as the reference's one-hot contraction, which exists so
     that GSPMD keeps vocab-sharded logits sharded, without building a
     (B,T,V) mask."""
+    from repro_torch.sharding.ctx import is_dtensor
+    if is_dtensor(logits):
+        return _vocab_parallel_logprobs_entropy(logits, actions)
     lse = torch.logsumexp(logits, dim=-1)
     a_logit = torch.gather(logits, -1, actions[..., None].long())[..., 0]
     logprob = a_logit - lse
@@ -52,11 +55,57 @@ def _token_logprobs_entropy(logits, actions):
     return logprob, entropy
 
 
+def _vocab_parallel_logprobs_entropy(logits, actions):
+    """`_token_logprobs_entropy` on DTensor logits whose vocab dim may be
+    sharded: each rank works on its vocab slice (``local_map``) and
+    all-reduces over the vocab's mesh dims the three sums that need the
+    whole row (its action's logit, the exp-sum against the row max, the
+    p-weighted logit sum), as a vocab-parallel cross-entropy does; the row
+    max is a stabiliser with no gradient. (logprob, entropy) come out with
+    the logits' batch sharding, replicated elsewhere."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.sharding.comm import (grad_placements, max_over, mesh_index, shard_dims,
+                                           sum_over)
+    from repro_torch.sharding.ctx import is_dtensor
+
+    mesh, lp = logits.device_mesh, tuple(logits.placements)
+    vdims = shard_dims(lp, logits.ndim - 1)
+    bp = tuple(pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate() for pl in lp)
+    if any(isinstance(pl, Shard) and pl.dim not in (0, logits.ndim - 1) for pl in lp):
+        raise NotImplementedError(f"token logprobs on logits placed {lp}")
+    if not is_dtensor(actions):
+        from repro_torch.sharding.param import shard_tensor
+        actions = shard_tensor(actions, mesh, bp)
+    elif tuple(actions.placements) != bp:
+        actions = actions.redistribute(mesh, bp)
+
+    def body(lg, act):
+        v_local = lg.shape[-1]
+        rel = act.long() - mesh_index(mesh, vdims) * v_local
+        mine = (rel >= 0) & (rel < v_local)
+        a_logit = torch.gather(lg, -1, rel.clamp(0, v_local - 1)[..., None])[..., 0]
+        a_logit = sum_over(torch.where(mine, a_logit, 0.0), mesh, vdims)
+        m = max_over(lg.detach().amax(-1), mesh, vdims)
+        e = torch.exp(lg - m[..., None])
+        lse = m + torch.log(sum_over(e.sum(-1), mesh, vdims))
+        p = torch.exp(lg - lse[..., None])
+        entropy = lse - sum_over(torch.sum(p * lg, dim=-1), mesh, vdims)
+        return a_logit - lse, entropy
+
+    return local_map(body, out_placements=(bp, bp), in_placements=(lp, bp),
+                     in_grad_placements=(grad_placements(lp), bp),
+                     device_mesh=mesh)(logits, actions)
+
+
 def make_vtrace_loss(bundle, *, value_coef=0.5, entropy_coef=0.01, rho_bar=1.0, c_bar=1.0,
                      mtp_weight=0.1):
-    """LM-policy V-trace loss. Batch fields, all (B, S): tokens, rewards,
-    discounts, behavior_logprobs, mask. Token at position t >= 1 is the
-    *action* taken given the prefix < t.
+    """LM-policy V-trace loss. Batch fields, all (B, S) unless noted: tokens,
+    rewards, discounts, behavior_logprobs, mask[, frontend (B, F, D)]. Token
+    at position t >= 1 is the *action* taken given the prefix < t. With a
+    frontend the model's outputs hold F more positions, before the tokens':
+    logits and values are read from position F on, as in the reference.
 
     An LM's router loss (``out.aux_loss``, a 0-d tensor: zero for a dense
     LM) adds ``router_aux_coef`` times itself and the metric "router_aux";
@@ -66,12 +115,14 @@ def make_vtrace_loss(bundle, *, value_coef=0.5, entropy_coef=0.01, rho_bar=1.0, 
     cfg = bundle.cfg
 
     def loss_fn(params, batch):
-        out = bundle.forward(params, batch)   # no modality frontend: one position a token
+        out = bundle.forward(params, batch)
         tokens = torch.as_tensor(batch["tokens"], device=out.logits.device)
+        f = out.logits.shape[1] - tokens.shape[1]   # the modality frontend's positions
+        logits, value = out.logits[:, f:], out.value[:, f:]
         actions = tokens[:, 1:]
-        logits_t = out.logits[:, :-1]
-        values_t = out.value[:, :-1]
-        bootstrap = out.value[:, -1]
+        logits_t = logits[:, :-1]
+        values_t = value[:, :-1]
+        bootstrap = value[:, -1]
         logprob, entropy = _token_logprobs_entropy(logits_t, actions)
         mask = batch["mask"][:, 1:].float()
 
@@ -133,11 +184,19 @@ def make_r2d2_loss(bundle, acfg):
 def param_grads(loss, named):
     """{name: d loss / d param} over `named` ({name: param}), zeros for a
     param the loss does not reach, or for every param when the loss
-    reaches none (as jax.grad gives)."""
+    reaches none (as jax.grad gives). A DTensor param's gradient comes back
+    with its placements (the partial sums over the ranks reduced)."""
     if not loss.requires_grad:
         return {n: torch.zeros_like(p) for n, p in named.items()}
     gs = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
-    return {n: torch.zeros_like(p) if g is None else g for (n, p), g in zip(named.items(), gs)}
+    out = {}
+    for (n, p), g in zip(named.items(), gs):
+        if g is None:
+            g = torch.zeros_like(p)
+        elif hasattr(p, "placements") and tuple(g.placements) != tuple(p.placements):
+            g = g.redistribute(p.device_mesh, p.placements)
+        out[n] = g
+    return out
 
 
 def make_train_step(bundle, optimizer, *, algo="vtrace", acfg=None, **kw):
@@ -164,8 +223,7 @@ def make_train_step(bundle, optimizer, *, algo="vtrace", acfg=None, **kw):
             grads = param_grads(loss, named)
         else:
             mbs = batch["tokens"].shape[0] // accum
-            gsum = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                    for n, p in named.items()}
+            gsum = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in named.items()}
             ms = []
             for i in range(accum):
                 micro = {k: v[i * mbs:(i + 1) * mbs] for k, v in batch.items()}

@@ -23,3 +23,11 @@ def dtype_of(name) -> torch.dtype:
     if isinstance(name, torch.dtype):
         return name
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+
+
+def seeded_generator(dev: torch.device, seed: int):
+    """A torch.Generator on `dev` seeded by `seed`; None on the meta device,
+    where parameters take a shape and no values (the dry run)."""
+    if dev.type == "meta":
+        return None
+    return torch.Generator(device=dev).manual_seed(seed)

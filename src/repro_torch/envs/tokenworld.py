@@ -11,8 +11,8 @@ each step, kept where a lane ends, as the reference draws one each step).
 
 `synthetic_vtrace_batch` has the reference's field layout, drawn from a
 generator on the target device (the numbers differ from ``jax.random``'s;
-parity tests feed both packages one batch). The modality frontend's field
-waits for the port's first model with a frontend.
+parity tests feed both packages one batch), with the modality frontend's
+(B, F, D) bf16 field when asked for one.
 """
 
 from typing import NamedTuple
@@ -62,10 +62,12 @@ class TokenWorld:
         return new, self.obs(new), reward, done
 
 
-def synthetic_vtrace_batch(gen, batch, seq, vocab):
+def synthetic_vtrace_batch(gen, batch, seq, vocab, frontend=None):
     """A trajectory batch with the exact field layout the learner consumes,
     on `gen`'s device: tokens (B,S) int64, rewards, discounts,
-    behavior_logprobs and mask (B,S) fp32."""
+    behavior_logprobs and mask (B,S) fp32; with `frontend` = (f_tokens,
+    f_dim), a (B, f_tokens, f_dim) bf16 field of standard normals from the
+    same generator, as the reference's."""
     dev = gen.device
     out = {
         "tokens": torch.randint(0, vocab, (batch, seq), generator=gen, device=dev),
@@ -74,4 +76,8 @@ def synthetic_vtrace_batch(gen, batch, seq, vocab):
         "behavior_logprobs": -torch.randn((batch, seq), generator=gen, device=dev).abs(),
         "mask": torch.ones((batch, seq), device=dev),
     }
+    if frontend is not None:
+        f_tokens, f_dim = frontend
+        out["frontend"] = torch.randn((batch, f_tokens, f_dim), generator=gen,
+                                      device=dev).to(torch.bfloat16)
     return out

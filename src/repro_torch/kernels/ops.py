@@ -1,7 +1,8 @@
 """Public wrappers for the kernels, dispatching on the device.
 
 Mirrors ``repro.kernels.ops`` and keeps its signatures and its (B,S,H,D)
-layout. A CPU tensor takes the plain PyTorch version; a CUDA tensor
+layout. A CPU tensor takes the plain PyTorch version (so does a meta
+tensor, which holds a shape and no values: the dry run's); a CUDA tensor
 launches the hand-written kernel or raises — there is no fallback.
 Unlike the JAX wrappers, k and v may keep fewer heads than q (GQA, KH
 dividing H), and the SSD scan's b and c may keep fewer groups than x has
@@ -23,6 +24,7 @@ out as formulas, for the tests and ``chip_smoke.py``.
 """
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
@@ -75,8 +77,13 @@ def _expand_kv(k, n_heads):
 
 
 def _on_cpu(*ts) -> bool:
+    """Whether the plain version runs: inputs on the CPU, or on the meta
+    device (shapes only: the dry run); on CUDA the kernel runs."""
+    if any(isinstance(t, DTensor) for t in ts):
+        raise TypeError("a kernel wrapper takes local tensors, not DTensors: call it on each "
+                        "rank's shards (local_map or to_local())")
     devs = {t.device.type for t in ts}
-    if devs == {"cpu"}:
+    if devs in ({"cpu"}, {"meta"}):
         return True
     if devs == {"cuda"}:
         return False

@@ -14,7 +14,8 @@ runs the reduced config (``smoke_config``) of a ported arch on the card
 (``--arch`` takes every LM of ``configs.registry.list_archs``: also
 starcoder2-15b, qwen2.5-32b, internvl2-1b, qwen3-moe-30b-a3b,
 deepseek-v3-671b and seamless-m4t-large-v2); ``--device cpu`` runs the
-plain PyTorch path.
+plain PyTorch path. ``serve(mesh=, rules=)`` serves with the params as
+DTensors on a device mesh under the rules.
 ``chip_smoke.py`` serves them at their published widths in bf16 by calling
 ``serve`` directly: every arch at full depth but deepseek-v3-671b, whose
 bf16 weights (about 1.3 TB) do not fit one card, so it is served at its
@@ -45,6 +46,8 @@ they last produced.
 """
 
 import argparse
+import contextlib
+import functools
 import json
 import queue
 import threading
@@ -57,6 +60,8 @@ from repro_torch.configs.registry import list_archs, make_model, smoke_config
 from repro_torch.core.inference import InferenceServer, ReplyError
 from repro_torch.device import dtype_of, resolve
 from repro_torch.launch.serve import make_prefill, make_serve_step
+from repro_torch.sharding.ctx import is_dtensor, sharding_ctx
+from repro_torch.sharding.param import distribute_module
 
 REPLY_TIMEOUT_S = 300.0   # a client gives up on a reply after this long
 
@@ -67,14 +72,20 @@ def _sync(dev):
 
 
 def serve(cfg, *, clients=4, prompt_len=8, tokens=12, max_len=64,
-          device="cuda", seed=0, deadline_ms=10.0, params=None):
+          device="cuda", seed=0, deadline_ms=10.0, params=None, mesh=None, rules=None):
     """Prefill `clients` seeded prompts, then decode `tokens` tokens per
     client through the InferenceServer. Params (made from `seed` unless
     given) and the KV cache take `cfg.compute_dtype`. Returns a dict of the
     tokens each client received, the first tokens from prefill, the
     prompts, the encoder-decoder's frames (else None), each in client
     order, the server's stats and host-clock times (prefill_s, decode_s)
-    that end in a device sync."""
+    that end in a device sync.
+
+    With `mesh` (a ``DeviceMesh``) and `rules`, the params are distributed
+    onto the mesh by the rules (unless they already are DTensors) and the
+    prefill and every decode step run under ``sharding_ctx(mesh, rules)``,
+    entered in the thread that runs them (the server's for decode): the
+    cache is made of DTensors and the kernels run on each rank's shards."""
     dev = resolve(device)
     dt = dtype_of(cfg.compute_dtype)
     if prompt_len + clients * tokens > max_len:
@@ -85,6 +96,11 @@ def serve(cfg, *, clients=4, prompt_len=8, tokens=12, max_len=64,
     bundle = make_model(cfg)
     if params is None:
         params = bundle.init(seed, device=dev, dtype=dt)
+    ctx = contextlib.nullcontext
+    if mesh is not None:
+        if not any(is_dtensor(p) for p in params.parameters()):
+            distribute_module(params, mesh, rules)
+        ctx = functools.partial(sharding_ctx, mesh, rules)
     prefill = make_prefill(bundle, max_len=max_len, dtype=dt)
     sstep = make_serve_step(bundle)
 
@@ -95,7 +111,8 @@ def serve(cfg, *, clients=4, prompt_len=8, tokens=12, max_len=64,
         ids_t = torch.as_tensor(ids, device=dev).long()
         t = state["tok"].clone()
         t[ids_t, 0] = torch.as_tensor(obs[:, 0], device=dev).to(t.dtype)
-        state["tok"], state["cache"] = sstep(params, t, state["cache"])
+        with ctx():
+            state["tok"], state["cache"] = sstep(params, t, state["cache"])
         return state["tok"][ids_t, 0].cpu().numpy()   # syncs the device
 
     server = InferenceServer(policy_step, max_batch=clients,
@@ -115,7 +132,8 @@ def serve(cfg, *, clients=4, prompt_len=8, tokens=12, max_len=64,
         batch["frontend"] = torch.as_tensor(frame_rows, device=dev)
 
     t0 = time.perf_counter()
-    tok, cache = prefill(params, batch)
+    with ctx():
+        tok, cache = prefill(params, batch)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
     state.update(tok=tok, cache=cache)

@@ -48,7 +48,14 @@ class Trainer:
     def batch_at(self, i):
         """Step i's batch, on the device, from a generator seeded by (seed, i)."""
         gen = torch.Generator(device=self.device).manual_seed(self.seed * 1_000_003 + i)
-        return synthetic_vtrace_batch(gen, self.batch, self.seq, self.cfg.vocab_size)
+        return synthetic_vtrace_batch(gen, self.batch, self.seq, self.cfg.vocab_size,
+                                      frontend=self.frontend)
+
+    @property
+    def frontend(self):
+        """(f_tokens, f_dim) of the config's modality frontend, or None."""
+        cfg = self.cfg
+        return (cfg.frontend_tokens, cfg.frontend_dim) if cfg.frontend_tokens else None
 
     def make_state(self):
         return init_train_state(self.bundle, self.opt, self.seed, self.device)

@@ -11,6 +11,7 @@ from torch import nn
 from repro_torch.nn import init as inits
 from repro_torch.nn.embed import unembed
 from repro_torch.nn.norms import apply_norm
+from repro_torch.sharding.param import ParamMaker
 
 
 class ValueHead(nn.Module):
@@ -18,10 +19,9 @@ class ValueHead(nn.Module):
 
     def __init__(self, d, *, gen=None, dtype=torch.float32, device="cpu"):
         super().__init__()
-        self.w = nn.Parameter(inits.fan_in()(gen, (d, 1), dtype, device),
-                              requires_grad=False)
-        self.b = nn.Parameter(inits.zeros(gen, (1,), dtype, device),
-                              requires_grad=False)
+        mk = ParamMaker(self, gen, dtype, device)
+        self.w = mk("w", (d, 1), ("embed", None), inits.fan_in())
+        self.b = mk("b", (1,), (None,), inits.zeros)
 
 
 class QHead(nn.Module):
@@ -29,10 +29,9 @@ class QHead(nn.Module):
 
     def __init__(self, d, n_actions, *, gen=None, dtype=torch.float32, device="cpu"):
         super().__init__()
-        self.w = nn.Parameter(inits.fan_in()(gen, (d, n_actions), dtype, device),
-                              requires_grad=False)
-        self.b = nn.Parameter(inits.zeros(gen, (n_actions,), dtype, device),
-                              requires_grad=False)
+        mk = ParamMaker(self, gen, dtype, device)
+        self.w = mk("w", (d, n_actions), ("embed", None), inits.fan_in())
+        self.b = mk("b", (n_actions,), (None,), inits.zeros)
 
 
 class FrontendProj(nn.Module):
@@ -41,8 +40,8 @@ class FrontendProj(nn.Module):
 
     def __init__(self, cfg, *, gen=None, dtype=torch.float32, device="cpu"):
         super().__init__()
-        self.w = nn.Parameter(inits.fan_in()(gen, (cfg.frontend_dim, cfg.d_model), dtype,
-                                             device), requires_grad=False)
+        self.w = ParamMaker(self, gen, dtype, device)(
+            "w", (cfg.frontend_dim, cfg.d_model), (None, "embed"), inits.fan_in())
 
 
 def maybe_remat(fn, remat: str):

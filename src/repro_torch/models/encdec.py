@@ -16,8 +16,11 @@ The cache keeps, per decoder layer, the self-attention's ``k``, ``v`` and
 plus ``index``. As in the reference, ``init_cache`` makes ``xk``/``xv`` in
 the cache dtype, and ``prefill`` leaves the encoder's K/V there in the
 compute dtype: the reference's prefill replaces them by the encoder
-output's own arrays. Padded heads (tp > 1) raise NotImplementedError until
-the sharding slice.
+output's own arrays. With tp > 1 every attention holds
+``cfg.padded_heads`` query heads, the padded ones masked before ``wo``,
+as the reference's. Under a sharding context the residual stream and the
+cross-attention's q are constrained where the reference's are, and the
+cache is made of DTensors.
 """
 
 import functools
@@ -25,7 +28,7 @@ import functools
 import torch
 from torch import nn
 
-from repro_torch.device import dtype_of, resolve
+from repro_torch.device import dtype_of, resolve, seeded_generator
 from repro_torch.models.common import (FrontendProj, ModelBundle, ModelOutputs, ValueHead,
                                       as_tokens, maybe_remat, value_head)
 from repro_torch.nn.attention import (Attention, attention, cross_attention, cross_kv,
@@ -33,12 +36,13 @@ from repro_torch.nn.attention import (Attention, attention, cross_attention, cro
 from repro_torch.nn.embed import Embed, embed, unembed
 from repro_torch.nn.mlp import MLP, mlp
 from repro_torch.nn.norms import Norm, apply_norm
+from repro_torch.sharding.ctx import constrain, distribute_cache
 
 
 def check_supported(cfg):
-    """Raise for the parts of the JAX encoder-decoder that are not ported."""
-    if cfg.padded_heads != cfg.num_heads:
-        raise NotImplementedError(f"{cfg.name}: not ported yet: padded heads (tp > 1)")
+    """Raise for a config that is not an encoder-decoder."""
+    if cfg.family != "encdec":
+        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not an encoder-decoder")
 
 
 class EncLayer(nn.Module):
@@ -72,7 +76,7 @@ class EncDec(nn.Module):
         super().__init__()
         check_supported(cfg)
         dev = resolve(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = seeded_generator(dev, seed)
         kw = dict(gen=gen, dtype=dtype_of(dtype or cfg.param_dtype), device=dev)
         self.embed = Embed(cfg, **kw)
         self.frontend = FrontendProj(cfg, **kw)
@@ -88,6 +92,7 @@ class EncDec(nn.Module):
 
 
 def _enc_layer(cfg, p, x, positions):
+    x = constrain(x, "act_batch", "act_res_seq", "act_embed")
     h = apply_norm(p.norm1, x, cfg.norm_eps)
     y, _ = attention(cfg, p.attn, h, positions, kind="bidir")
     x = x + y
@@ -110,6 +115,7 @@ def _encode(cfg, params, frames, remat="none"):
 def _dec_layer(cfg, p, x, positions, xk, xv, cache=None, decode=False, index=None):
     """One decoder layer over the cross K/V (xk, xv). Returns (x, the self-
     attention's cache entry or None)."""
+    x = constrain(x, "act_batch", "act_res_seq", "act_embed")
     h = apply_norm(p.norm1, x, cfg.norm_eps)
     if decode:
         y, new_cache = decode_attention(cfg, p.attn, h, index, cache)
@@ -163,9 +169,10 @@ def encdec_init_cache(cfg, batch, max_len, dtype=torch.bfloat16, device="cuda"):
 
     def zeros():
         return torch.zeros(shape, dtype=dtype, device=dev)
-    return {"dec": [_cross_entry(cfg, batch, max_len, dtype, dev, zeros(), zeros())
-                    for _ in range(cfg.dec_layers)],
-            "index": torch.zeros((), dtype=torch.int32, device=dev)}
+    return distribute_cache({
+        "dec": [_cross_entry(cfg, batch, max_len, dtype, dev, zeros(), zeros())
+                for _ in range(cfg.dec_layers)],
+        "index": torch.zeros((), dtype=torch.int32, device=dev)})
 
 
 def encdec_prefill(cfg, params, batch, max_len, dtype=torch.bfloat16):
@@ -182,7 +189,7 @@ def encdec_prefill(cfg, params, batch, max_len, dtype=torch.bfloat16):
     caches = []
     for p in params.dec:
         xk, xv = cross_kv(cfg, p.xattn, enc_out)
-        entry = _cross_entry(cfg, b, max_len, dtype, x.device, xk, xv)
+        entry = distribute_cache(_cross_entry(cfg, b, max_len, dtype, x.device, xk, xv))
         x, _ = _dec_layer(cfg, p, x, positions, xk, xv, cache=entry)
         caches.append(entry)
     index = torch.full((), s, dtype=torch.int32, device=x.device)

@@ -17,8 +17,11 @@ place in the reference's stacked params; the model, the cache and
 JAX package's ``lax.scan`` over the stacked ``pre`` and ``main`` periods.
 With ``cfg.mla`` every attention is MLA (``nn/mla.py``). The MTP head
 (one more block on [norm(h_t); embed(token t+1)], predicting token t+2)
-runs in ``forward`` only, as the reference's. Padded heads (tp > 1) raise
-NotImplementedError until the sharding slice.
+runs in ``forward`` only, as the reference's. With tp > 1 the attention
+holds ``cfg.padded_heads`` query heads (``nn/attention.py``) and the vocab
+is padded to a multiple of 256. Under a sharding context the residual
+stream and the norms' outputs are constrained where the reference's are,
+and the cache is made of DTensors with ``cache_leaf_axes``' placements.
 """
 
 import functools
@@ -27,7 +30,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from repro_torch.device import dtype_of, resolve
+from repro_torch.device import dtype_of, resolve, seeded_generator
 from repro_torch.models.common import (FrontendProj, ModelBundle, QHead, ValueHead,
                                       as_tokens, lm_outputs, maybe_remat)
 from repro_torch.nn import init as inits
@@ -38,14 +41,13 @@ from repro_torch.nn.mla import MLA, make_mla_cache, mla_attention, mla_decode
 from repro_torch.nn.mlp import ACTS, MLP, mlp
 from repro_torch.nn.moe import MoE, moe
 from repro_torch.nn.norms import Norm, apply_norm
+from repro_torch.sharding.ctx import constrain, distribute_cache
+from repro_torch.sharding.param import ParamMaker
 
 
 def check_supported(cfg):
     """Raise for the parts of the JAX LM that are not ported yet."""
-    missing = [what for what, on in (
-        ("padded heads (tp > 1)", cfg.padded_heads != cfg.num_heads),
-        (f"activation {cfg.act!r}", cfg.act not in ACTS),
-    ) if on]
+    missing = [f"activation {cfg.act!r}"] if cfg.act not in ACTS else []
     if cfg.family not in ("dense", "moe") or missing:
         raise NotImplementedError(
             f"{cfg.name}: not ported yet: {', '.join(missing) or cfg.family}")
@@ -99,8 +101,8 @@ class MTP(nn.Module):
         super().__init__()
         d = cfg.d_model
         kw = dict(gen=gen, dtype=dtype, device=device)
-        self.proj = nn.Parameter(inits.fan_in()(gen, (2 * d, d), dtype, device),
-                                 requires_grad=False)
+        self.proj = ParamMaker(self, gen, dtype, device)(
+            "proj", (2 * d, d), ("embed", "embed"), inits.fan_in())
         self.norm = Norm(d, kind=cfg.norm, **kw)
         self.block = Block(cfg, cfg.family == "moe", **kw)
 
@@ -113,7 +115,7 @@ class LM(nn.Module):
         super().__init__()
         check_supported(cfg)
         dev = resolve(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = seeded_generator(dev, seed)
         kw = dict(gen=gen, dtype=dtype_of(dtype or cfg.param_dtype), device=dev)
         self.embed = Embed(cfg, **kw)
         self.frontend = FrontendProj(cfg, **kw) if cfg.frontend_tokens else None
@@ -132,7 +134,9 @@ class LM(nn.Module):
 def _block(cfg, p, kind, x, positions, cache=None, decode=False, index=None):
     """One transformer block. Returns (x, new_cache, aux), aux the MoE's
     router loss (0-d fp32) or None for a dense MLP."""
+    x = constrain(x, "act_batch", "act_res_seq", "act_embed")
     h = apply_norm(p.norm1, x, cfg.norm_eps, cfg.gemma_scale)
+    h = constrain(h, "act_batch", None, "act_embed")
     if cfg.mla:
         if decode:
             y, new_cache = mla_decode(cfg, p.attn, h, index, cache)
@@ -144,8 +148,10 @@ def _block(cfg, p, kind, x, positions, cache=None, decode=False, index=None):
         y, new_cache = attention(cfg, p.attn, h, positions, kind=kind, cache=cache)
     if p.post1 is not None:
         y = apply_norm(p.post1, y, cfg.norm_eps, cfg.gemma_scale)
-    x = x + y
+    x = constrain(x + constrain(y, "act_batch", "act_res_seq", "act_embed"),
+                  "act_batch", "act_res_seq", "act_embed")
     h = apply_norm(p.norm2, x, cfg.norm_eps, cfg.gemma_scale)
+    h = constrain(h, "act_batch", None, "act_embed")
     aux = None
     if isinstance(p.ffn, MoE):
         y, aux = moe(cfg, p.ffn, h, cfg.act)
@@ -218,8 +224,8 @@ def lm_init_cache(cfg, batch, max_len, dtype=torch.bfloat16, device="cuda"):
         if cfg.mla:
             return make_mla_cache(cfg, batch, max_len, dtype, dev)
         return make_cache(cfg, batch, max_len, kind, dtype, dev)
-    return {"layers": [entry(kind) for kind in layer_kinds(cfg)],
-            "index": torch.zeros((), dtype=torch.int32, device=dev)}
+    return distribute_cache({"layers": [entry(kind) for kind in layer_kinds(cfg)],
+                             "index": torch.zeros((), dtype=torch.int32, device=dev)})
 
 
 def lm_prefill(cfg, params, batch, max_len, dtype=torch.bfloat16):

@@ -13,12 +13,13 @@ import functools
 import torch
 from torch import nn
 
-from repro_torch.device import dtype_of, resolve
+from repro_torch.device import dtype_of, resolve, seeded_generator
 from repro_torch.models.common import (ModelBundle, ValueHead, as_tokens, lm_outputs,
                                       maybe_remat)
 from repro_torch.nn.embed import Embed, embed
 from repro_torch.nn.norms import Norm, apply_norm
 from repro_torch.nn.ssd import SSD, ssd_layer, ssd_state_init
+from repro_torch.sharding.ctx import constrain, distribute_cache
 
 
 def check_supported(cfg):
@@ -42,7 +43,7 @@ class Mamba(nn.Module):
         super().__init__()
         check_supported(cfg)
         dev = resolve(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = seeded_generator(dev, seed)
         kw = dict(gen=gen, dtype=dtype_of(dtype or cfg.param_dtype), device=dev)
         self.embed = Embed(cfg, **kw)
         self.blocks = nn.ModuleList(Block(cfg, **kw) for _ in range(cfg.num_layers))
@@ -55,6 +56,7 @@ class Mamba(nn.Module):
 
 
 def _layer(cfg, p, x, state, conv_state, decode):
+    x = constrain(x, "act_batch", "act_res_seq", "act_embed")
     y, st = ssd_layer(cfg, p.ssd, apply_norm(p.norm, x, cfg.norm_eps), state=state,
                       conv_state=conv_state, decode=decode)
     return x + y, st
@@ -85,8 +87,9 @@ def mamba_init_cache(cfg, batch, max_len=None, dtype=torch.bfloat16, device="cud
     the state does not grow with the sequence."""
     del max_len
     dev = resolve(device)
-    return {"layers": [ssd_state_init(cfg, batch, dtype, dev) for _ in range(cfg.num_layers)],
-            "index": torch.zeros((), dtype=torch.int32, device=dev)}
+    return distribute_cache({
+        "layers": [ssd_state_init(cfg, batch, dtype, dev) for _ in range(cfg.num_layers)],
+        "index": torch.zeros((), dtype=torch.int32, device=dev)})
 
 
 def mamba_prefill(cfg, params, batch, max_len=None, dtype=torch.bfloat16):

@@ -15,7 +15,7 @@ import functools
 import torch
 from torch import nn
 
-from repro_torch.device import dtype_of, resolve
+from repro_torch.device import dtype_of, resolve, seeded_generator
 from repro_torch.models.common import (ModelBundle, ValueHead, as_tokens, lm_outputs,
                                       maybe_remat)
 from repro_torch.nn.attention import Attention, attention, decode_attention, make_cache
@@ -23,6 +23,7 @@ from repro_torch.nn.embed import Embed, embed
 from repro_torch.nn.mlp import MLP, mlp
 from repro_torch.nn.norms import Norm, apply_norm
 from repro_torch.nn.rglru import RGLRU, rglru_block, rglru_state_init
+from repro_torch.sharding.ctx import constrain, distribute_cache
 
 
 def check_supported(cfg):
@@ -32,7 +33,6 @@ def check_supported(cfg):
         (f"block kinds {cfg.block_pattern}", set(cfg.block_pattern) - {"rglru", "local"}),
         ("qkv biases", cfg.qkv_bias),
         ("softcaps (gemma2 slice)", cfg.attn_softcap or cfg.final_softcap),
-        ("padded heads (tp > 1)", cfg.padded_heads != cfg.num_heads),
     ) if on]
     if missing:
         raise NotImplementedError(f"{cfg.name}: not ported yet: {', '.join(missing)}")
@@ -60,7 +60,7 @@ class RecurrentGemma(nn.Module):
         super().__init__()
         check_supported(cfg)
         dev = resolve(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = seeded_generator(dev, seed)
         kw = dict(gen=gen, dtype=dtype_of(dtype or cfg.param_dtype), device=dev)
         self.embed = Embed(cfg, **kw)
         self.blocks = nn.ModuleList(Block(cfg, kind, **kw) for kind in layer_kinds(cfg))
@@ -73,6 +73,7 @@ class RecurrentGemma(nn.Module):
 
 
 def _layer(cfg, p, kind, x, positions, state, decode, index):
+    x = constrain(x, "act_batch", "act_res_seq", "act_embed")
     h = apply_norm(p.norm1, x, cfg.norm_eps, cfg.gemma_scale)
     if kind == "rglru":
         h0, conv = (None, None) if state is None else state
@@ -111,7 +112,8 @@ def rg_init_cache(cfg, batch, max_len, dtype=torch.bfloat16, device="cuda"):
     layers = [rglru_state_init(cfg, batch, dtype, dev) if kind == "rglru"
               else make_cache(cfg, batch, max_len, "local", dtype, dev)
               for kind in layer_kinds(cfg)]
-    return {"layers": layers, "index": torch.zeros((), dtype=torch.int32, device=dev)}
+    return distribute_cache({"layers": layers,
+                             "index": torch.zeros((), dtype=torch.int32, device=dev)})
 
 
 def rg_prefill(cfg, params, batch, max_len, dtype=torch.bfloat16):

@@ -19,6 +19,25 @@ decode.
 
 The cache is updated in place (the JAX serve step donates it, so the
 memory behaviour is the same); each call also returns the cache it wrote.
+
+Padded heads (tp > 1): wq, bq and wo hold ``cfg.padded_heads`` query heads,
+a multiple of lcm(tp, kv heads), as the reference's. The kernels read the
+kv heads unexpanded with a group of padded_heads // kv_heads query heads,
+which is the reference's ``jnp.repeat(k, hp // k_heads)``; the padded
+heads' outputs are multiplied by zero (``head_mask``) before ``wo``, so
+they add nothing to the output and their rows of wo get no gradient. The
+mask stays outside the kernels.
+
+Under a sharding context (``sharding.ctx``) q, k, v, the output and the
+cache may be DTensors: activations are constrained where the reference
+constrains them, and the kernels run on each rank's local shards through
+``local_map`` (``_heads_call``), never on a DTensor. A rank holding a
+slice of the (padded) query heads reads the kv heads those heads group
+on. A decode cache whose sequence is sharded (``act_kv_seq``) is written
+at the rank that holds the slot, and attended by a partial softmax on
+each rank, combined by all-reduces over the sharding axes: K2 returns no
+log-sum-exp, so that path takes the plain arithmetic and raises on the
+card.
 """
 
 from typing import Optional
@@ -30,29 +49,31 @@ from repro_torch.kernels import ops
 from repro_torch.nn import init as inits
 from repro_torch.nn.norms import Norm, apply_norm
 from repro_torch.nn.rope import apply_rope
+from repro_torch.sharding.comm import max_over, mesh_index, shard_dims, sum_over
+from repro_torch.sharding.ctx import constrain, gather_dim, is_dtensor
+from repro_torch.sharding.param import ParamMaker
 
 
 class Attention(nn.Module):
     """wq (d,H,hd), wk/wv (d,K,hd), wo (H,hd,d), the biases bq (H,hd) and
     bk/bv (K,hd) with `cfg.qkv_bias`, qk-norm scales: the JAX package's
-    layout. (Padded heads come with the sharding slice.)"""
+    layout, with `cfg.padded_heads` query heads."""
 
     def __init__(self, cfg, *, gen=None, dtype=torch.float32, device="cpu"):
         super().__init__()
-        d, h, k, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-
-        def mk(shape, init):
-            return nn.Parameter(init(gen, shape, dtype, device), requires_grad=False)
-        self.wq = mk((d, h, hd), inits.fan_in())
-        self.wk = mk((d, k, hd), inits.fan_in())
-        self.wv = mk((d, k, hd), inits.fan_in())
-        self.wo = mk((h, hd, d), inits.fan_in(in_axes=(0, 1)))
+        d, hp, k, hd = cfg.d_model, cfg.padded_heads, cfg.num_kv_heads, cfg.head_dim
+        mk = ParamMaker(self, gen, dtype, device)
+        self.wq = mk("wq", (d, hp, hd), ("embed", "heads", "head_dim"), inits.fan_in())
+        self.wk = mk("wk", (d, k, hd), ("embed", "kv_heads", "head_dim"), inits.fan_in())
+        self.wv = mk("wv", (d, k, hd), ("embed", "kv_heads", "head_dim"), inits.fan_in())
+        self.wo = mk("wo", (hp, hd, d), ("heads", "head_dim", "embed"),
+                     inits.fan_in(in_axes=(0, 1)))
         self.bq = self.bk = self.bv = None
         if cfg.qkv_bias:
-            self.bq = mk((h, hd), inits.zeros)
-            self.bk = mk((k, hd), inits.zeros)
-            self.bv = mk((k, hd), inits.zeros)
-        kw = dict(kind=cfg.norm, gen=gen, dtype=dtype, device=device)
+            self.bq = mk("bq", (hp, hd), ("heads", "head_dim"), inits.zeros)
+            self.bk = mk("bk", (k, hd), ("kv_heads", "head_dim"), inits.zeros)
+            self.bv = mk("bv", (k, hd), ("kv_heads", "head_dim"), inits.zeros)
+        kw = dict(kind=cfg.norm, gen=gen, dtype=dtype, device=device, axis="head_dim")
         self.q_norm = Norm(hd, **kw) if cfg.qk_norm else None
         self.k_norm = Norm(hd, **kw) if cfg.qk_norm else None
 
@@ -62,8 +83,115 @@ def _check_kind(kind, kinds=("global", "local")):
         raise NotImplementedError(f"attention kind {kind!r} is not ported yet")
 
 
+def head_mask(cfg, dtype, device):
+    """(Hp,) ones on the real heads and zeros on the padded ones, or None
+    when no head is padded (the reference's ``_head_mask``)."""
+    hp = cfg.padded_heads
+    if hp == cfg.num_heads:
+        return None
+    return (torch.arange(hp, device=device) < cfg.num_heads).to(dtype)
+
+
+def mask_heads(cfg, out):
+    """out (B,S,Hp,hd) with the padded heads' outputs zeroed."""
+    hm = head_mask(cfg, out.dtype, out.device)
+    return out if hm is None else out * hm[None, None, :, None]
+
+
+# ------------------------------ sharded calls -----------------------------
+
+def kv_for_heads(k, v, h0, hl, group):
+    """The kv heads that query heads h0 .. h0 + hl - 1 read, query head h
+    reading kv head h // group: a contiguous slice where the local heads
+    cover whole groups or lie in one, else one kv head a query head."""
+    if hl % group == 0 and h0 % group == 0:
+        return k[:, :, h0 // group:(h0 + hl) // group], v[:, :, h0 // group:(h0 + hl) // group]
+    if group % hl == 0 and h0 % hl == 0:
+        j = h0 // group
+        return k[:, :, j:j + 1], v[:, :, j:j + 1]
+    idx = torch.div(torch.arange(h0, h0 + hl, device=k.device), group, rounding_mode="floor")
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _kv_placements(q_placements):
+    """k and v's placements for a call on q's: q's batch sharding, every
+    other mesh dim replicated (the kv heads are sliced on each rank)."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    for pl in q_placements:
+        if isinstance(pl, Shard) and pl.dim not in (0, 2):
+            raise NotImplementedError(f"attention with q sharded on dim {pl.dim}")
+        if not isinstance(pl, (Shard, Replicate)):
+            raise NotImplementedError(f"attention on q placed {pl}")
+        out.append(pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate())
+    return tuple(out)
+
+
+def _heads_call(fn, q, k, v):
+    """fn(q (B,S,H,D), k, v (B,S_kv,K,D)) -> (B,S,H,D). On DTensors, on
+    each rank's shards (``local_map``): q sharded over batch and heads, k
+    and v over batch only, and fn given the kv heads its query heads read
+    (``kv_for_heads``); with K == H, k and v sharded as q. The kernels never
+    see a DTensor."""
+    if not is_dtensor(q):
+        return fn(q, k, v)
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, qp = q.device_mesh, tuple(q.placements)
+    group = q.shape[2] // k.shape[2]
+    # one kv head a query head (MHA): k and v sharded on the heads as q is
+    kvp = qp if group == 1 else _kv_placements(qp)
+    k, v = (t if tuple(t.placements) == kvp else t.redistribute(mesh, kvp) for t in (k, v))
+    head_dims = shard_dims(qp, 2)
+
+    def body(ql, kl, vl):
+        hl = ql.shape[2]
+        if group > 1:
+            kl, vl = kv_for_heads(kl, vl, mesh_index(mesh, head_dims) * hl, hl, group)
+        return fn(ql, kl, vl)
+    return local_map(body, out_placements=(qp,), in_placements=(qp, kvp, kvp),
+                     device_mesh=mesh)(q, k, v)
+
+
+def _write_rows(t, dim, slots, rows):
+    """t[..., slots, ...] = rows along `dim` (slots (n,) int64 on t's device,
+    rows with n along `dim`), in place. A DTensor cache sharded along `dim`
+    is written by the rank that holds each slot: slots outside its chunk
+    are dropped by a scatter into one spare row, with no data-dependent
+    shape."""
+    if not is_dtensor(t):
+        t.index_copy_(dim, slots, rows.to(t.dtype))
+        return t
+    from torch.distributed.tensor import Replicate
+    mesh, tp = t.device_mesh, tuple(t.placements)
+    want = tuple(Replicate() if i in shard_dims(tp, dim) else pl for i, pl in enumerate(tp))
+    if is_dtensor(rows):
+        rows = rows if tuple(rows.placements) == want else rows.redistribute(mesh, want)
+        rows = rows.to_local()
+    rows = rows.to(t.dtype)
+    local = t.to_local()
+    seq_dims = shard_dims(tp, dim)
+    if not seq_dims:
+        local.index_copy_(dim, slots, rows)
+        return t
+    n_local = local.shape[dim]
+    s0 = mesh_index(mesh, seq_dims) * n_local
+    rel = slots - s0
+    ok = (rel >= 0) & (rel < n_local)
+    src = torch.full((n_local + 1,), -1, dtype=torch.long, device=local.device)
+    src.scatter_(0, torch.where(ok, rel, n_local), torch.arange(slots.numel(), device=local.device))
+    src = src[:n_local]
+    has = (src >= 0).reshape([-1 if i == dim else 1 for i in range(local.dim())])
+    picked = rows.index_select(dim, src.clamp(min=0))
+    local.copy_(torch.where(has, picked, local))
+    return t
+
+
 def _proj(x, w):
-    """x (B,S,d) @ w (d,N,hd) -> (B,S,N,hd), contiguous."""
+    """x (B,S,d) @ w (d,N,hd) -> (B,S,N,hd), contiguous. A DTensor w is
+    first gathered over its d_model (FSDP), so that the product keeps x's
+    batch sharding and N's."""
+    w = gather_dim(w, 0)
     b, s, _ = x.shape
     return (x @ w.to(x.dtype).reshape(w.shape[0], -1)).view(b, s, w.shape[1], w.shape[2])
 
@@ -102,10 +230,12 @@ def attention(cfg, p, x, positions, *, kind="global",
     q, k, v = qkv_project(cfg, p, x)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    q = constrain(q, "act_batch", "act_seq", "act_heads", None)
     window = cfg.local_window if kind == "local" else 0
-    out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                              causal=kind != "bidir", window=window,
-                              softcap=cfg.attn_softcap, scale=scale)
+    out = _heads_call(lambda q, k, v: ops.flash_attention(
+        q.contiguous(), k.contiguous(), v.contiguous(), causal=kind != "bidir",
+        window=window, softcap=cfg.attn_softcap, scale=scale), q, k, v)
+    out = constrain(mask_heads(cfg, out), "act_batch", "act_seq", "act_heads", None)
     y = _out_proj(out, p.wo)
     new_cache = None
     if cache is not None:
@@ -134,9 +264,9 @@ def _prefill_cache(cache, k, v, positions, kind):
         # keep the last `size` positions (ring layout: slot = pos % size)
         k, v, positions = k[:, -size:], v[:, -size:], positions[-size:]
     slot = (positions % size if kind == "local" else positions).long()
-    cache["k"][:, slot] = k.to(cache["k"].dtype)
-    cache["v"][:, slot] = v.to(cache["v"].dtype)
-    cache["pos"][slot] = positions.to(torch.int32)
+    _write_rows(cache["k"], 1, slot, k)
+    _write_rows(cache["v"], 1, slot, v)
+    _write_rows(cache["pos"], 0, slot, positions.to(torch.int32))
     return cache
 
 
@@ -148,7 +278,6 @@ def decode_attention(cfg, p, x, index, cache, *, kind="global"):
     (y (B,1,d), cache).
     """
     _check_kind(kind)
-    b = x.shape[0]
     scale = cfg.attn_scale or cfg.head_dim ** -0.5
     pos = index.reshape(1)
     q, k, v = qkv_project(cfg, p, x)
@@ -158,9 +287,9 @@ def decode_attention(cfg, p, x, index, cache, *, kind="global"):
     ck, cv = cache["k"], cache["v"]
     size = ck.shape[1]
     slot = (pos % size if kind == "local" else pos).long()
-    ck.index_copy_(1, slot, k.to(ck.dtype))
-    cv.index_copy_(1, slot, v.to(cv.dtype))
-    cache["pos"].index_copy_(0, slot, pos.to(torch.int32))
+    _write_rows(ck, 1, slot, k)
+    _write_rows(cv, 1, slot, v)
+    _write_rows(cache["pos"], 0, slot, pos.to(torch.int32))
 
     # The JAX decode masks by the cache's `pos` array; the kernel masks by a
     # valid length per row. They agree because a global cache is filled
@@ -172,12 +301,70 @@ def decode_attention(cfg, p, x, index, cache, *, kind="global"):
     # > size) every slot holds one of the last `size` positions, all inside
     # the window, so length = size.
     n_valid = pos + 1 if kind == "global" else torch.clamp(pos + 1, max=size)
-    lengths = n_valid.to(torch.int32).expand(b).contiguous()
-    # The kernel reads one dtype, so q is rounded to the cache's dtype (a
-    # no-op when compute and cache dtypes agree, as on the serving path).
-    out = ops.decode_attention(q[:, 0].to(ck.dtype).contiguous(), ck, cv,
-                               lengths, scale=scale, softcap=cfg.attn_softcap)[:, None]
+    # DP attention, as the reference's: q batch-sharded only for the
+    # cache-wide contraction, the output back on the heads for wo
+    q = constrain(q, "act_batch", None, None, None)
+    out = _decode_call(q[:, 0], ck, cv, n_valid, scale=scale, softcap=cfg.attn_softcap)
+    out = constrain(mask_heads(cfg, out[:, None]), "act_batch", None, "act_heads", None)
     return _out_proj(out, p.wo), cache
+
+
+def _decode_kernel(q, k, v, n_valid, scale, softcap):
+    """K2 on plain tensors, every row's length `n_valid` (a 1-element
+    tensor). The kernel reads one dtype, so q is rounded to the cache's (a
+    no-op when compute and cache dtypes agree, as on the serving path)."""
+    lengths = n_valid.to(torch.int32).expand(q.shape[0]).contiguous()
+    return ops.decode_attention(q.to(k.dtype).contiguous(), k, v, lengths, scale=scale,
+                                softcap=softcap)
+
+
+def decode_partial(q, k, v, lengths, *, scale, softcap=None):
+    """Plain (out (B,H,D) fp32, log-sum-exp (B,H) fp32) of a decode call over
+    a chunk of the cache holding `lengths` (B,) valid slots from its start:
+    what a rank holding that chunk contributes to a sharded decode."""
+    h = q.shape[1]
+    kf, vf = ops._expand_kv(k, h).float(), ops._expand_kv(v, h).float()
+    logits = torch.einsum("bhd,bshd->bhs", q.float(), kf) * scale
+    if softcap:
+        logits = softcap * torch.tanh(logits / softcap)
+    ok = torch.arange(k.shape[1], device=q.device)[None, None, :] < lengths[:, None, None]
+    logits = torch.where(ok, logits, ops.NEG_INF)
+    lse = torch.logsumexp(logits, dim=-1)
+    out = torch.einsum("bhs,bshd->bhd", torch.exp(logits - lse[..., None]), vf)
+    return out, lse
+
+
+def _decode_call(q, ck, cv, n_valid, *, scale, softcap):
+    """q (B,Hp,D) against the cache: K2 on plain tensors or on each rank's
+    shards; with the cache's sequence sharded, each rank's partial softmax
+    combined by all-reduces (max of the log-sum-exps, then the weighted
+    sums) over the sharding axes. -> (B,Hp,D) in q's dtype."""
+    if not is_dtensor(ck):
+        return _decode_kernel(q, ck, cv, n_valid, scale, softcap)
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, cp = ck.device_mesh, tuple(ck.placements)
+    seq_dims = shard_dims(cp, 1)
+    # q and the output: the cache's batch sharding, replicated elsewhere
+    bp = tuple(Replicate() if i in seq_dims else pl for i, pl in enumerate(cp))
+    q = q if tuple(q.placements) == bp else q.redistribute(mesh, bp)
+
+    def body(ql, kl, vl, nv):
+        if not seq_dims:
+            return _decode_kernel(ql, kl, vl, nv, scale, softcap)
+        if kl.is_cuda:
+            raise NotImplementedError("a decode cache sharded over its sequence needs each "
+                                      "rank's log-sum-exp, which K2 does not return")
+        s_local = kl.shape[1]
+        start = mesh_index(mesh, seq_dims) * s_local
+        lengths = torch.clamp(nv - start, 0, s_local).expand(ql.shape[0])
+        out, lse = decode_partial(ql, kl, vl, lengths, scale=scale, softcap=softcap)
+        w = torch.exp(lse - max_over(lse, mesh, seq_dims))
+        num, den = sum_over(out * w[..., None], mesh, seq_dims), sum_over(w, mesh, seq_dims)
+        return (num / den[..., None]).to(ql.dtype)
+    return local_map(body, out_placements=(bp,), in_placements=(bp, cp, cp, None),
+                     device_mesh=mesh)(q, ck, cv, n_valid)
 
 
 # --------------------------- cross-attention -----------------------------
@@ -204,10 +391,14 @@ def cross_attention(cfg, p, x, k, v, *, decode=False):
     q = _proj(x, p.wq)
     if p.bq is not None:
         q = q + p.bq.to(x.dtype)
+    q = constrain(q, "act_batch", "act_seq", "act_heads", None)
     if decode:
-        lengths = torch.full((x.shape[0],), k.shape[1], dtype=torch.int32, device=x.device)
-        out = ops.decode_attention(q[:, 0].to(k.dtype).contiguous(), k, v, lengths,
-                                   scale=scale)[:, None]
+        def call(q, k, v):   # every (local) row's length F, made at its size
+            lengths = torch.full((q.shape[0],), k.shape[1], dtype=torch.int32, device=q.device)
+            return ops.decode_attention(q[:, 0].to(k.dtype).contiguous(), k, v, lengths,
+                                        scale=scale)[:, None]
+        out = _heads_call(call, q, k, v)
     else:
-        out = ops.flash_attention(q.contiguous(), k, v, causal=False, scale=scale)
-    return _out_proj(out, p.wo)
+        out = _heads_call(lambda q, k, v: ops.flash_attention(
+            q.contiguous(), k.contiguous(), v.contiguous(), causal=False, scale=scale), q, k, v)
+    return _out_proj(mask_heads(cfg, out), p.wo)

@@ -12,6 +12,7 @@ import torch
 from torch import nn
 
 from repro_torch.nn import init as inits
+from repro_torch.sharding.param import ParamMaker
 
 
 class CausalConv(nn.Module):
@@ -19,10 +20,9 @@ class CausalConv(nn.Module):
 
     def __init__(self, channels, width, *, gen=None, dtype=torch.float32, device="cpu"):
         super().__init__()
-        self.w = nn.Parameter(inits.fan_in()(gen, (width, channels), dtype, device),
-                              requires_grad=False)
-        self.b = nn.Parameter(inits.zeros(gen, (channels,), dtype, device),
-                              requires_grad=False)
+        mk = ParamMaker(self, gen, dtype, device)
+        self.w = mk("w", (width, channels), ("conv", "mlp"), inits.fan_in())
+        self.b = mk("b", (channels,), ("mlp",), inits.zeros)
 
 
 def causal_conv(p, x):

@@ -16,6 +16,8 @@ CHUNK = 1 << 26
 
 def _fill(shape, dtype, device, sample):
     out = torch.empty(shape, dtype=dtype, device=device)
+    if out.device.type == "meta":       # a shape, no values
+        return out
     flat = out.view(-1)
     for i in range(0, flat.numel(), CHUNK):
         n = min(CHUNK, flat.numel() - i)

@@ -31,6 +31,10 @@ from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.nn import init as inits
 from repro_torch.nn.norms import Norm, apply_norm
 from repro_torch.nn.rope import apply_rope
+from repro_torch.nn.attention import _heads_call, _write_rows
+from repro_torch.sharding.comm import max_over, mesh_index, shard_dims, sum_over
+from repro_torch.sharding.ctx import constrain, is_dtensor
+from repro_torch.sharding.param import ParamMaker
 
 NEG_INF = -2.0e38
 
@@ -46,17 +50,17 @@ class MLA(nn.Module):
         qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
         dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
 
-        def mk(shape, init):
-            return nn.Parameter(init(gen, shape, dtype, device), requires_grad=False)
-        kw = dict(kind=cfg.norm, gen=gen, dtype=dtype, device=device)
-        self.wdq = mk((d, qr), inits.fan_in())
+        mk = ParamMaker(self, gen, dtype, device)
+        kw = dict(kind=cfg.norm, gen=gen, dtype=dtype, device=device, axis="qk_rank")
+        self.wdq = mk("wdq", (d, qr), ("embed", "qk_rank"), inits.fan_in())
         self.q_norm = Norm(qr, **kw)
-        self.wuq = mk((qr, h, dn + dr), inits.fan_in())
-        self.wdkv = mk((d, kvr + dr), inits.fan_in())
+        self.wuq = mk("wuq", (qr, h, dn + dr), ("qk_rank", "heads", "head_dim"), inits.fan_in())
+        self.wdkv = mk("wdkv", (d, kvr + dr), ("embed", "qk_rank"), inits.fan_in())
         self.kv_norm = Norm(kvr, **kw)
-        self.wuk = mk((kvr, h, dn), inits.fan_in())
-        self.wuv = mk((kvr, h, dv), inits.fan_in())
-        self.wo = mk((h, dv, d), inits.fan_in(in_axes=(0, 1)))
+        self.wuk = mk("wuk", (kvr, h, dn), ("qk_rank", "heads", "head_dim"), inits.fan_in())
+        self.wuv = mk("wuv", (kvr, h, dv), ("qk_rank", "heads", "head_dim"), inits.fan_in())
+        self.wo = mk("wo", (h, dv, d), ("heads", "head_dim", "embed"),
+                     inits.fan_in(in_axes=(0, 1)))
 
 
 def padded_head_dim(cfg):
@@ -106,15 +110,18 @@ def mla_attention(cfg, p, x, positions, *, cache=None):
     v = _up(c_kv, p.wuv)
     dp = padded_head_dim(cfg)
     q = _pad(torch.cat([q_nope, q_rope], dim=-1), dp)
+    q = constrain(q, "act_batch", "act_seq", "act_heads", None)
     k = _pad(torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, dr)], dim=-1), dp)
-    out = ops.flash_attention(q.contiguous(), k.contiguous(), _pad(v, dp).contiguous(),
-                              causal=True, scale=1.0 / math.sqrt(dn + dr))[..., :dv]
+    out = _heads_call(lambda q, k, v: ops.flash_attention(
+        q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
+        scale=1.0 / math.sqrt(dn + dr)), q, k, _pad(v, dp))[..., :dv]
+    out = constrain(out, "act_batch", "act_seq", "act_heads", None)
     y = out.reshape(b, s, h * dv) @ p.wo.to(x.dtype).reshape(h * dv, -1)
     if cache is not None:
         slot = positions.long()
-        cache["c_kv"][:, slot] = c_kv.to(cache["c_kv"].dtype)
-        cache["k_rope"][:, slot] = k_rope.to(cache["k_rope"].dtype)
-        cache["pos"][slot] = positions.to(torch.int32)
+        _write_rows(cache["c_kv"], 1, slot, c_kv)
+        _write_rows(cache["k_rope"], 1, slot, k_rope)
+        _write_rows(cache["pos"], 0, slot, positions.to(torch.int32))
     return y, cache
 
 
@@ -140,12 +147,18 @@ def mla_decode(cfg, p, x, index, cache):
     c_kv_t, k_rope_t = _project_kv_latent(cfg, p, x, pos)
     slot = pos.long()
     ck, cr, cpos = cache["c_kv"], cache["k_rope"], cache["pos"]
-    ck.index_copy_(1, slot, c_kv_t.to(ck.dtype))
-    cr.index_copy_(1, slot, k_rope_t.to(cr.dtype))
-    cpos.index_copy_(0, slot, pos.to(torch.int32))
+    _write_rows(ck, 1, slot, c_kv_t)
+    _write_rows(cr, 1, slot, k_rope_t)
+    _write_rows(cpos, 0, slot, pos.to(torch.int32))
 
     # absorb wuk into q: q_eff (B,H,kvr) = q_nope . wuk over dn
     q_eff = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], p.wuk.to(dt))
+    if is_dtensor(ck):
+        ctx = _absorbed_sharded(q_eff, q_rope[:, 0], ck, cr, cpos, pos, scale)
+        out = torch.einsum("bhr,rhd->bhd", ctx, p.wuv.to(dt))
+        out = constrain(out, "act_batch", "act_heads", None)
+        y = out.reshape(out.shape[0], -1) @ p.wo.to(dt).reshape(-1, p.wo.shape[-1])
+        return y[:, None], cache
     ckd = ck.to(dt)
     s_lat = torch.bmm(q_eff, ckd.transpose(1, 2))                  # (B,H,S)
     s_rope = torch.bmm(q_rope[:, 0], cr.to(dt).transpose(1, 2))
@@ -158,3 +171,37 @@ def mla_decode(cfg, p, x, index, cache):
     out = torch.einsum("bhr,rhd->bhd", ctx, p.wuv.to(dt))           # (B,H,dv)
     y = out.reshape(out.shape[0], -1) @ p.wo.to(dt).reshape(-1, p.wo.shape[-1])
     return y[:, None], cache
+
+
+def _absorbed_sharded(q_eff, q_rope, ck, cr, cpos, pos, scale):
+    """The absorbed decode's context (B,H,kvr) over a DTensor cache, as
+    DP attention: q batch-sharded only, each rank's partial softmax over
+    its chunk of the cache's sequence, combined by all-reduces over the
+    sequence's mesh dims (``local_map``, fp32 inside). Plain arithmetic:
+    no kernel computes the absorbed form."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, cp = ck.device_mesh, tuple(ck.placements)
+    seq_dims = shard_dims(cp, 1)
+    bp = tuple(Replicate() if i in seq_dims else pl for i, pl in enumerate(cp))
+    q_eff, q_rope = (t if tuple(t.placements) == bp else t.redistribute(mesh, bp)
+                     for t in (q_eff, q_rope))
+    rep = (Replicate(),) * mesh.ndim
+    cpos = cpos if tuple(cpos.placements) == rep else cpos.redistribute(mesh, rep)
+    dt = q_eff.dtype
+
+    def body(qe, qr, ckl, crl, cposl, p):
+        s_local = ckl.shape[1]
+        cposl = cposl.narrow(0, mesh_index(mesh, seq_dims) * s_local, s_local)
+        scores = (torch.bmm(qe, ckl.to(dt).transpose(1, 2))
+                  + torch.bmm(qr, crl.to(dt).transpose(1, 2))).float() * scale
+        valid = (cposl >= 0) & (cposl <= p)
+        scores = torch.where(valid[None, None, :], scores, NEG_INF)
+        lse = torch.logsumexp(scores, dim=-1)
+        w = torch.exp(lse - max_over(lse, mesh, seq_dims))
+        part = torch.bmm(torch.exp(scores - lse[..., None]), ckl.float())
+        ctx = sum_over(part * w[..., None], mesh, seq_dims)
+        return (ctx / sum_over(w, mesh, seq_dims)[..., None]).to(dt)
+    return local_map(body, out_placements=(bp,), in_placements=(bp, bp, cp, cp, rep, None),
+                     device_mesh=mesh)(q_eff, q_rope, ck, cr, cpos, pos)

@@ -13,6 +13,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.nn import init as inits
+from repro_torch.sharding.ctx import constrain
+from repro_torch.sharding.param import ParamMaker
 
 ACTS = {"silu": F.silu,
         "gelu": functools.partial(F.gelu, approximate="tanh"),
@@ -28,16 +30,14 @@ class MLP(nn.Module):
                  device="cpu"):
         super().__init__()
 
-        def mk(shape):
-            return nn.Parameter(inits.fan_in()(gen, shape, dtype, device),
-                                requires_grad=False)
-        self.wi = mk((d, d_ff))
-        self.wo = mk((d_ff, d))
-        self.wg = mk((d, d_ff)) if gated else None
+        mk = ParamMaker(self, gen, dtype, device)
+        self.wi = mk("wi", (d, d_ff), ("embed", "mlp"), inits.fan_in())
+        self.wo = mk("wo", (d_ff, d), ("mlp", "embed"), inits.fan_in())
+        self.wg = mk("wg", (d, d_ff), ("embed", "mlp"), inits.fan_in()) if gated else None
         self.bi = self.bo = None
         if bias:
-            self.bi = nn.Parameter(inits.zeros(gen, (d_ff,), dtype, device), requires_grad=False)
-            self.bo = nn.Parameter(inits.zeros(gen, (d,), dtype, device), requires_grad=False)
+            self.bi = mk("bi", (d_ff,), ("mlp",), inits.zeros)
+            self.bo = mk("bo", (d,), ("embed",), inits.zeros)
 
 
 def mlp(p, x, act="silu"):
@@ -48,6 +48,7 @@ def mlp(p, x, act="silu"):
     h = ACTS[act](h)
     if p.wg is not None:
         h = h * (x @ p.wg.to(dt))
+    h = constrain(h, "act_batch", "act_seq", "act_mlp")
     y = h @ p.wo.to(dt)
     if p.bo is not None:
         y = y + p.bo.to(dt)

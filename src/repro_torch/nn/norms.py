@@ -6,6 +6,7 @@ import torch
 from torch import nn
 
 from repro_torch.nn import init as inits
+from repro_torch.sharding.param import ParamMaker
 
 KINDS = ("rmsnorm", "layernorm")
 
@@ -16,15 +17,14 @@ class Norm(nn.Module):
     (1 + scale), as gemma's."""
 
     def __init__(self, d, *, kind="rmsnorm", gemma_scale=False, gen=None,
-                 dtype=torch.float32, device="cpu"):
+                 dtype=torch.float32, device="cpu", axis="embed"):
         super().__init__()
         if kind not in KINDS:
             raise ValueError(f"norm kind {kind!r} not in {KINDS}")
         self.kind = kind
-        init = inits.zeros if gemma_scale else inits.ones
-        self.scale = nn.Parameter(init(gen, (d,), dtype, device), requires_grad=False)
-        self.bias = (nn.Parameter(inits.zeros(gen, (d,), dtype, device), requires_grad=False)
-                     if kind == "layernorm" else None)
+        mk = ParamMaker(self, gen, dtype, device)
+        self.scale = mk("scale", (d,), (axis,), inits.zeros if gemma_scale else inits.ones)
+        self.bias = mk("bias", (d,), (axis,), inits.zeros) if kind == "layernorm" else None
 
 
 def apply_norm(p, x, eps=1e-6, gemma_scale=False):

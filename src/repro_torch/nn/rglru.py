@@ -20,6 +20,8 @@ from torch import nn
 from repro_torch.kernels import ops
 from repro_torch.nn import init as inits
 from repro_torch.nn.conv import CausalConv, causal_conv, causal_conv_step, conv_state_init
+from repro_torch.sharding.ctx import constrain, is_dtensor
+from repro_torch.sharding.param import ParamMaker
 
 C_FACTOR = 8.0
 CONV_WIDTH = 4
@@ -33,17 +35,16 @@ class RGLRU(nn.Module):
         super().__init__()
         d, w = cfg.d_model, cfg.lru_width
 
-        def mk(init, shape):
-            return nn.Parameter(init(gen, shape, dtype, device), requires_grad=False)
-        self.wx = mk(inits.fan_in(), (d, w))
-        self.wy = mk(inits.fan_in(), (d, w))
+        mk = ParamMaker(self, gen, dtype, device)
+        self.wx = mk("wx", (d, w), ("embed", "mlp"), inits.fan_in())
+        self.wy = mk("wy", (d, w), ("embed", "mlp"), inits.fan_in())
         self.conv = CausalConv(w, CONV_WIDTH, gen=gen, dtype=dtype, device=device)
-        self.gate_a = mk(inits.fan_in(), (w, w))
-        self.ba = mk(inits.zeros, (w,))
-        self.gate_x = mk(inits.fan_in(), (w, w))
-        self.bx = mk(inits.zeros, (w,))
-        self.lam = mk(inits.lru_a_init(), (w,))
-        self.wo = mk(inits.fan_in(), (w, d))
+        self.gate_a = mk("gate_a", (w, w), ("mlp", None), inits.fan_in())
+        self.ba = mk("ba", (w,), ("mlp",), inits.zeros)
+        self.gate_x = mk("gate_x", (w, w), ("mlp", None), inits.fan_in())
+        self.bx = mk("bx", (w,), ("mlp",), inits.zeros)
+        self.lam = mk("lam", (w,), ("mlp",), inits.lru_a_init())
+        self.wo = mk("wo", (w, d), ("mlp", "embed"), inits.fan_in())
 
 
 def _gates(p, x):
@@ -63,7 +64,23 @@ def rglru(p, x, h0=None):
     ``ops.rglru_scan``; h0 (B,W) or None (zeros)."""
     a, b = _gates(p, x)
     h0 = None if h0 is None else h0.float().contiguous()
-    return ops.rglru_scan(a, b, h0=h0, out_dtype=x.dtype)
+    if not is_dtensor(a):
+        return ops.rglru_scan(a, b, h0=h0, out_dtype=x.dtype)
+    # on DTensors: each rank scans its own lanes (the recurrence is per lane)
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh, ap = a.device_mesh, tuple(a.placements)
+    if any(isinstance(q, Shard) and q.dim == 1 for q in ap):
+        raise NotImplementedError("an RG-LRU scan sharded over its sequence")
+    hp = tuple(Shard(1) if isinstance(q, Shard) and q.dim == 2 else q for q in ap)
+    b = b if tuple(b.placements) == ap else b.redistribute(mesh, ap)
+    if h0 is not None and is_dtensor(h0) and tuple(h0.placements) != hp:
+        h0 = h0.redistribute(mesh, hp)
+    return local_map(lambda a, b, h: ops.rglru_scan(a.contiguous(), b.contiguous(), h0=h,
+                                                    out_dtype=x.dtype),
+                     out_placements=(ap, hp),
+                     in_placements=(ap, ap, None if h0 is None else hp),
+                     device_mesh=mesh)(a, b, h0)
 
 
 def rglru_block(cfg, p, u, h0=None, conv_state=None, decode=False):
@@ -71,6 +88,7 @@ def rglru_block(cfg, p, u, h0=None, conv_state=None, decode=False):
     dt = u.dtype
     x = u @ p.wx.to(dt)
     y = F.gelu(u @ p.wy.to(dt), approximate="tanh")   # jax.nn.gelu's default
+    x = constrain(x, "act_batch", "act_seq", "act_mlp")
     if decode:
         x, conv_state = causal_conv_step(p.conv, x, conv_state)
         a, b = _gates(p, x)

@@ -16,6 +16,8 @@ from repro_torch.kernels import ops
 from repro_torch.nn import init as inits
 from repro_torch.nn.conv import CausalConv, causal_conv, causal_conv_step, conv_state_init
 from repro_torch.nn.norms import Norm, apply_norm
+from repro_torch.sharding.ctx import constrain, is_dtensor
+from repro_torch.sharding.param import ParamMaker
 
 
 class SSD(nn.Module):
@@ -28,21 +30,57 @@ class SSD(nn.Module):
         g, ns, nh = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_nheads
         kw = dict(gen=gen, dtype=dtype, device=device)
 
-        def mk(init, shape):
-            return nn.Parameter(init(gen, shape, dtype, device), requires_grad=False)
-        self.in_proj = mk(inits.fan_in(), (d, 2 * din + 2 * g * ns + nh))
+        mk = ParamMaker(self, gen, dtype, device)
+        self.in_proj = mk("in_proj", (d, 2 * din + 2 * g * ns + nh), ("embed", "mlp"),
+                          inits.fan_in())
         self.conv = CausalConv(din + 2 * g * ns, cfg.ssm_conv, **kw)
-        self.A_log = mk(inits.a_log_init, (nh,))
-        self.D = mk(inits.ones, (nh,))
-        self.dt_bias = mk(inits.dt_bias_init(), (nh,))
-        self.norm = Norm(din, **kw)
-        self.out_proj = mk(inits.fan_in(), (din, d))
+        self.A_log = mk("A_log", (nh,), ("heads",), inits.a_log_init)
+        self.D = mk("D", (nh,), ("heads",), inits.ones)
+        self.dt_bias = mk("dt_bias", (nh,), ("heads",), inits.dt_bias_init())
+        self.norm = Norm(din, **kw, axis="mlp")
+        self.out_proj = mk("out_proj", (din, d), ("mlp", "embed"), inits.fan_in())
 
 
 def ssd_chunked(x, dt, a, bmat, cmat, chunk, h0=None):
     """Chunked SSD scan: ``repro.nn.ssd.ssd_chunked``'s signature, through
-    ``ops.ssd_scan``. Returns (y (B,S,H,P), final_state (B,H,P,N))."""
-    return ops.ssd_scan(x, dt, a, bmat, cmat, chunk=chunk, h0=h0, return_state=True)
+    ``ops.ssd_scan``. Returns (y (B,S,H,P), final_state (B,H,P,N)). On
+    DTensors it runs on each rank's shards (``local_map``): x, dt, a, h0 and
+    the outputs sharded over batch and heads, b and c over batch only and
+    sliced to the groups of the rank's heads."""
+    if not is_dtensor(x):
+        return ops.ssd_scan(x, dt, a, bmat, cmat, chunk=chunk, h0=h0, return_state=True)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.nn.attention import kv_for_heads
+    from repro_torch.sharding.comm import mesh_index, shard_dims
+
+    mesh = x.device_mesh
+    xp = tuple(x.placements)
+    heads = shard_dims(xp, 2)
+    batch = shard_dims(xp, 0)
+
+    def pl(bdim, hdim):
+        return tuple(Shard(bdim) if i in batch else Shard(hdim) if i in heads else Replicate()
+                     for i in range(mesh.ndim))
+    a_pl = tuple(Shard(0) if i in heads else Replicate() for i in range(mesh.ndim))
+    bc_pl = tuple(Shard(0) if i in batch else Replicate() for i in range(mesh.ndim))
+    st_pl = pl(0, 1)
+    args = [x, dt, a, bmat, cmat, h0]
+    want = [xp, pl(0, 2), a_pl, bc_pl, bc_pl, st_pl]
+    args = [t if t is None or not is_dtensor(t) or tuple(t.placements) == w
+            else t.redistribute(mesh, w) for t, w in zip(args, want)]
+    group = x.shape[2] // bmat.shape[2]
+
+    def body(xl, dtl, al, bl, cl, hl):
+        n = xl.shape[2]
+        bl, cl = kv_for_heads(bl, cl, mesh_index(mesh, heads) * n, n, group)
+        return ops.ssd_scan(xl.contiguous(), dtl, al, bl.contiguous(), cl.contiguous(),
+                            chunk=chunk, h0=hl, return_state=True)
+    return local_map(body, out_placements=(xp, st_pl),
+                     in_placements=tuple(w if t is not None else None
+                                         for t, w in zip(args, want)),
+                     device_mesh=mesh)(*args)
 
 
 def ssd_layer(cfg, p, u, state=None, conv_state=None, decode=False):
@@ -62,7 +100,8 @@ def ssd_layer(cfg, p, u, state=None, conv_state=None, decode=False):
     xbc = F.silu(xbc)
     bsz, s = u.shape[0], u.shape[1]
     pd = cfg.ssm_headdim
-    x = xbc[..., :din].reshape(bsz, s, nh, pd)
+    x = constrain(xbc[..., :din].reshape(bsz, s, nh, pd), "act_batch", "act_seq", "act_heads",
+                  None)
     bmat = xbc[..., din:din + g * ns].reshape(bsz, s, g, ns)
     cmat = xbc[..., din + g * ns:].reshape(bsz, s, g, ns)
     dt = F.softplus(dtraw.float() + p.dt_bias.float())

@@ -217,3 +217,65 @@ def test_kv_len_with_a_mask_raises(kw):
     q, k = torch.zeros(1, 6, 2, 16), torch.zeros(1, 4, 2, 16)
     with pytest.raises(ValueError, match="no causal mask and no window"):
         ops.flash_attention(q, k, k, **kw)
+
+
+def test_padded_heads_match_jax_and_sharded_serving_matches():
+    """tp 4 with 6 query heads over 2 kv heads: every attention (encoder,
+    decoder self- and cross-attention) holds 8 heads, a group of 4, the 2
+    padded heads masked before wo, and the vocab is padded to 512. Forward,
+    prefill and 3 decode steps' logits against the reference on converted
+    params (1e-4); random values in the padded rows of every wq and wo
+    change nothing, bit for bit; and the same model served with its params
+    as DTensors on a one-rank mesh under the decode rules gives the plain
+    path's greedy tokens."""
+    pad = dict(num_heads=6, num_kv_heads=2, tp=4)
+    jcfg, cfg = jsmoke_config(ARCH).with_(**pad), smoke_config(ARCH).with_(**pad)
+    assert cfg.padded_heads == 8 and cfg.padded_vocab == 512
+    jbundle, bundle = jmake_model(jcfg), make_model(cfg)
+    jparams = jbundle.init(jax.random.PRNGKey(0))
+    params = bundle.init(0, device="cpu")
+    params.load_state_dict(params_from_jax(cfg, jax.tree.map(np.asarray, jparams)))
+    rng = np.random.default_rng(4)
+    tokens = rng.integers(0, cfg.vocab_size, (B, S))
+    frames = rng.standard_normal((B, cfg.frontend_tokens, cfg.frontend_dim)).astype(np.float32)
+    feed = rng.integers(0, cfg.vocab_size, (3, B, 1))
+
+    def port_logits(p):
+        with torch.no_grad():
+            got = [bundle.forward(p, _tbatch(tokens, frames)).logits]
+            out, tc = bundle.prefill(p, _tbatch(tokens, frames), max_len=MAX_LEN,
+                                     dtype=torch.float32)
+            got.append(out.logits)
+            for t in feed:
+                out, tc = bundle.decode_step(p, torch.from_numpy(t), tc)
+                got.append(out.logits)
+        return got
+
+    want = [jbundle.forward(jparams, _jbatch(tokens, frames)).logits]
+    jout, jc = jbundle.prefill(jparams, _jbatch(tokens, frames), max_len=MAX_LEN,
+                               dtype=jnp.float32)
+    want.append(jout.logits)
+    for t in feed:
+        jout, jc = jbundle.decode_step(jparams, jnp.asarray(t, jnp.int32), jc)
+        want.append(jout.logits)
+    got = port_logits(params)
+    for g, w in zip(got, want):
+        _close(g, w)
+    with torch.no_grad():
+        for name, t in params.named_parameters():
+            if name.endswith(("attn.wq", "xattn.wq")):
+                t[:, cfg.num_heads:] = torch.randn_like(t[:, cfg.num_heads:])
+            elif name.endswith(("attn.wo", "xattn.wo")):
+                t[cfg.num_heads:] = torch.randn_like(t[cfg.num_heads:])
+    for g, w in zip(port_logits(params), got):
+        assert torch.equal(g, w)
+    from repro_torch.launch.mesh import single_device_mesh
+    from repro_torch.launch.specs import rules_for
+    plain = serve_policy.serve(cfg, clients=2, prompt_len=6, tokens=3, max_len=12,
+                               device="cpu", params=params)
+    mesh = single_device_mesh("cpu")
+    sharded = serve_policy.serve(cfg, clients=2, prompt_len=6, tokens=3, max_len=12,
+                                 device="cpu", params=params, mesh=mesh,
+                                 rules=rules_for(cfg, mesh, "decode"))
+    assert type(params.dec[0].attn.wq).__name__ == "DTensor"
+    assert sharded["tokens"] == plain["tokens"] and sharded["first"] == plain["first"]

@@ -65,7 +65,12 @@ def test_importing_every_module_loads_no_jax():
             "repro_torch.fault.chaos", "repro_torch.autoscale",
             "repro_torch.autoscale.policy", "repro_torch.autoscale.controller",
             "repro_torch.models.encdec", "repro_torch.configs.seamless_m4t_large_v2",
-            "repro_torch.benchmarks.check_trend", "repro_torch.launch.quickstart"} <= set(mods)
+            "repro_torch.benchmarks.check_trend", "repro_torch.launch.quickstart",
+            "repro_torch.sharding", "repro_torch.sharding.rules", "repro_torch.sharding.param",
+            "repro_torch.sharding.ctx", "repro_torch.sharding.comm", "repro_torch.launch.mesh",
+            "repro_torch.launch.specs", "repro_torch.launch.op_cost",
+            "repro_torch.launch.analysis", "repro_torch.launch.dryrun",
+            "repro_torch.benchmarks.roofline", "repro_torch.launch.ft"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

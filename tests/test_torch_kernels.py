@@ -222,6 +222,7 @@ _PLAN_PARAMS = ("b", "s", "h", "kh", "d", "dtype", "num_sms")
 
 @pytest.mark.parametrize("shape,want", [
     ((4, 512, 40, 8, 128, "bfloat16"), (32, 16)),    # qwen3-14b's decode call: 512 CTAs
+    ((4, 512, 48, 8, 128, "bfloat16"), (32, 16)),    # at tp 16: 48 padded heads, a group of 6
     ((4, 576, 10, 1, 256, "bfloat16"), (16, 36)),    # recurrentgemma-2b's: 144 CTAs
     ((1, 576, 10, 1, 256, "float32"), (16, 36)),     # B 1: no chunk gives 264 CTAs
     ((1, 16, 4, 2, 64, "float32"), (16, 1)),         # S of 16 or less: one split
@@ -333,7 +334,8 @@ def _split_s(q, k, v, lengths, *, chunk, scale, softcap=None):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("s,h,kh,d", [(256, 4, 4, 64),     # expanded: the Pallas kernel
                                       (200, 10, 2, 32),    # ragged S, 5 heads a kv head
-                                      (200, 10, 1, 64)])   # 10 heads a kv head
+                                      (200, 10, 1, 64),    # 10 heads a kv head
+                                      (200, 12, 2, 32)])   # 6 a kv head (qwen3-14b at tp 16)
 def test_decode_split_s_matches_pallas(chunk, dtype, s, h, kh, d):
     """K2's split-S design, emulated, against the JAX package: lengths 0
     (the mean of all S V rows), 1 (only split 0 live), a chunk's edge, one

@@ -172,21 +172,32 @@ def test_ported_parts_build_and_match_jax(override):
 @pytest.mark.parametrize("override,match", [
     ({"tp": 16}, "padded heads"),
     ({"act": "sigmoid"}, "activation 'sigmoid'"),
-    # the encoder-decoder is ported; it refuses padded heads, as the LM does
     pytest.param({"family": "encdec", "enc_layers": 2, "dec_layers": 2, "tp": 16},
                  "padded heads", id="override2-encdec"),
 ])
 def test_unported_parts_raise(override, match):
+    """Unknown activations raise. Padded heads (tp > 1) are ported in the LM
+    and the encoder-decoder: they build with ``cfg.padded_heads`` query
+    heads in wq, bq and wo and the vocab padded to 256 (their parity with
+    the reference is in tests/test_torch_sharding.py)."""
+    cfg = smoke_config(ARCH).with_(**override)
+    if match == "padded heads":
+        params = make_model(cfg).init(0, device="cpu")
+        attn = (params.dec[0].attn if cfg.family == "encdec" else params.blocks[0].attn)
+        assert cfg.padded_heads == 16 != cfg.num_heads
+        assert attn.wq.shape[1] == attn.wo.shape[0] == cfg.padded_heads
+        assert params.embed.table.shape[0] == cfg.padded_vocab == 512
+        return
     with pytest.raises(NotImplementedError, match=match):
-        make_model(smoke_config(ARCH).with_(**override))
+        make_model(cfg)
 
 
 def test_unported_archs_and_caches_raise():
     """The dense and MoE families are ported (gemma2's local layers, MLA,
     MTP and DeepSeek's first dense layers included), and so is every arch of
     the reference: the registry refuses only an unknown arch; the LM refuses
-    only padded heads and unknown activations, and the attention refuses a
-    cache of a kind that keeps none (the encoder's "bidir")."""
+    only unknown activations (padded heads are ported), and the attention
+    refuses a cache of a kind that keeps none (the encoder's "bidir")."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models.lm import check_supported
     from repro_torch.nn.attention import make_cache
@@ -195,7 +206,42 @@ def test_unported_archs_and_caches_raise():
     for arch in ("gemma2-9b", "qwen3-moe-30b-a3b", "deepseek-v3-671b"):
         check_supported(get_config(arch))
     check_supported(smoke_config(ARCH).with_(mtp_depth=1, first_dense_layers=1))
-    with pytest.raises(NotImplementedError, match=r"padded heads \(tp > 1\), activation"):
+    check_supported(smoke_config(ARCH).with_(tp=16))
+    with pytest.raises(NotImplementedError, match=r"not ported yet: activation 'sigmoid'$"):
         check_supported(smoke_config(ARCH).with_(tp=16, act="sigmoid"))
     with pytest.raises(NotImplementedError, match="not ported"):
         make_cache(smoke_config(ARCH), 1, 8, kind="bidir", device="cpu")
+
+
+def test_sharded_serving_on_one_rank_mesh_matches_jax_greedy():
+    """qwen3-14b's reduced config at tp 4 with 6 query heads over 2 kv heads
+    (8 padded heads, vocab 512), its params converted from the reference
+    and laid out as DTensors on a one-rank mesh under the decode rules
+    (``launch.mesh.single_device_mesh``, ``launch.specs.rules_for``):
+    greedy decoding under ``sharding_ctx`` gives the reference's greedy
+    tokens and the plain path's, and the cache it makes is DTensors."""
+    from repro_torch.launch.mesh import single_device_mesh
+    from repro_torch.launch.specs import rules_for
+    from repro_torch.sharding.ctx import sharding_ctx
+    from repro_torch.sharding.param import distribute_module
+    pad = dict(num_heads=6, num_kv_heads=2, tp=4)
+    jcfg, cfg = jsmoke_config(ARCH).with_(**pad), smoke_config(ARCH).with_(**pad)
+    jbundle, bundle = jmake_model(jcfg), make_model(cfg)
+    jparams = jbundle.init(jax.random.PRNGKey(0))
+    params = bundle.init(0, device="cpu")
+    params.load_state_dict(params_from_jax(cfg, jax.tree.map(np.asarray, jparams)))
+    tokens = np.random.default_rng(5).integers(0, cfg.vocab_size, (B, S))
+    want = np.asarray(jgreedy(jbundle, jparams, {"tokens": jnp.asarray(tokens, jnp.int32)},
+                              steps=6, max_len=MAX_LEN, dtype=jnp.float32))
+    plain = greedy_generate(bundle, params, {"tokens": torch.from_numpy(tokens)}, steps=6,
+                            max_len=MAX_LEN, dtype=torch.float32)
+    mesh = single_device_mesh("cpu")
+    rules = rules_for(cfg, mesh, "decode")
+    distribute_module(params, mesh, rules)
+    with sharding_ctx(mesh, rules):
+        got = greedy_generate(bundle, params, {"tokens": torch.from_numpy(tokens)}, steps=6,
+                              max_len=MAX_LEN, dtype=torch.float32)
+        cache = bundle.init_cache(B, MAX_LEN, torch.float32, device="cpu")
+    assert type(cache["layers"][0]["k"]).__name__ == "DTensor"
+    np.testing.assert_array_equal(plain.numpy(), want)
+    assert torch.equal(got, plain)

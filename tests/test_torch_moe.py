@@ -212,7 +212,10 @@ def test_moe_token_permutation_equivariance():
 
 def test_moe_dtype_and_refusals():
     """A bf16 MoE keeps its router and bias in fp32 and routes in fp32; the
-    expert-parallel path over a mesh is refused, not approximated."""
+    expert-parallel path (``moe_ep``) runs only under a sharding context on
+    DTensors: outside one, moe_impl "ep" takes the gather-only dispatch and
+    gives its output bit for bit (moe_ep itself is held to the reference in
+    tests/test_torch_sharding.py)."""
     cfg = _moe_cfg("sigmoid", 1, 1.25)
     p = moe.MoE(cfg, gen=torch.Generator().manual_seed(0), dtype=torch.bfloat16)
     assert p.router.dtype == p.router_bias.dtype == torch.float32
@@ -225,8 +228,9 @@ def test_moe_dtype_and_refusals():
     # router: the same ids as routing that copy directly
     _, idx, _ = moe.route(cfg, p, x.bfloat16().float().reshape(10, -1))
     assert torch.equal(rec[0]["idx"], idx)
-    with pytest.raises(NotImplementedError, match="expert-parallel"):
-        moe.moe(cfg.with_(moe_impl="ep"), p, x, mesh=object())
+    y_ep, aux_ep = moe.moe(cfg.with_(moe_impl="ep"), p, x.bfloat16())
+    y_gather, aux_gather = moe.moe(cfg.with_(moe_impl="gather"), p, x.bfloat16())
+    assert torch.equal(y_ep, y_gather) and torch.equal(aux_ep, aux_gather)
 
 
 # ------------------------------------------------------------------------ MLA
@@ -457,15 +461,43 @@ def test_vtrace_loss_with_router_and_mtp_terms(arch):
 
 
 def test_full_configs_build_and_are_supported():
-    """The published configs pass check_supported; only tp > 1 and unknown
-    activations are refused (on the meta device, no memory)."""
+    """The published configs pass check_supported, at tp 8 too (padded heads
+    are ported); only unknown activations are refused."""
     for arch in ARCHS:
         cfg = get_config(arch)
         check_supported(cfg)
         plan = layer_plan(cfg)
         assert len(plan) == cfg.num_layers
         assert sum(not s.moe for s in plan) == cfg.first_dense_layers
-    with pytest.raises(NotImplementedError, match="padded heads"):
-        check_supported(smoke_config("qwen3-moe-30b-a3b").with_(tp=8))
+    check_supported(smoke_config("qwen3-moe-30b-a3b").with_(tp=8))
     with pytest.raises(NotImplementedError, match="activation 'sigmoid'"):
         check_supported(smoke_config("deepseek-v3-671b").with_(act="sigmoid"))
+
+
+@pytest.mark.parametrize("score", ["softmax", "sigmoid"])
+def test_moe_ep_on_a_one_rank_mesh_matches_jax(score):
+    """``moe_ep`` (the ``local_map`` body) under a sharding context on a
+    one-rank mesh, the MoE's params and activations DTensors: every expert
+    on the one rank, the per-shard capacity equal to ``moe``'s, so the
+    output, the router loss and the drops at capacity 1.25 equal the
+    reference's ``moe`` (TOL). Its multi-rank layouts are held to the
+    reference in tests/test_torch_sharding.py."""
+    from repro_torch.launch.mesh import single_device_mesh
+    from repro_torch.sharding.ctx import sharding_ctx
+    from repro_torch.sharding.param import distribute_module, shard_tensor
+    from repro_torch.sharding.rules import DEFAULT_RULES, filter_rules, placements, safe_spec
+    cfg = _moe_cfg(score, 1, 1.25)
+    jp, p = _moe_pair(cfg, seed=7)
+    x = np.random.default_rng(8).standard_normal((2, 9, cfg.d_model)).astype(np.float32)
+    jy, jaux = _jmoe(cfg, jp, x)
+    mesh = single_device_mesh("cpu")
+    rules = filter_rules(DEFAULT_RULES, mesh)
+    distribute_module(p, mesh, rules)
+    xt = torch.from_numpy(x)
+    with sharding_ctx(mesh, rules), _routes() as rec:
+        xd = shard_tensor(xt, mesh, placements(safe_spec(xt.shape, ("act_batch", None, None),
+                                                         rules, mesh), mesh))
+        y, aux = moe.moe(cfg, p, xd)
+    assert type(y).__name__ == "DTensor" and rec and rec[0]["dropped"] > 0
+    _close(y.full_tensor(), jy)
+    _close(aux.full_tensor(), jaux)

@@ -241,6 +241,45 @@ def test_vtrace_loss_and_every_gradient_match_jax(setup):
         "a gradient leaf is all zeros: the check would not see a missing path"
 
 
+def test_vtrace_loss_with_a_frontend_matches_jax():
+    """internvl2-1b's reduced config with its modality frontend (8 patch
+    embeddings of 24 before the tokens): the model's outputs hold 8 more
+    positions than the batch has tokens, and the loss reads logits and
+    values from position 8 on, as the reference's. The frontend field is
+    drawn with numpy from a seed, rounded to bf16 alike in both packages
+    and fed to both. Loss, metrics and every gradient leaf within 1e-4 of
+    each one's max."""
+    arch, b, s = "internvl2-1b", 2, 8
+    jcfg, cfg = jsmoke_config(arch), smoke_config(arch)
+    jbundle, bundle = jmake_model(jcfg), make_model(cfg)
+    jparams, sd = _params(jbundle, bundle)
+    batch = jax.tree.map(np.asarray, jbatch(jax.random.PRNGKey(1), b, s, cfg.vocab_size))
+    field = np.random.default_rng(8).standard_normal(
+        (b, cfg.frontend_tokens, cfg.frontend_dim)).astype(np.float32)
+    jb = dict(jax.tree.map(jnp.asarray, batch), frontend=jnp.asarray(field).astype(jnp.bfloat16))
+    tb = dict(_to_torch(batch), frontend=torch.from_numpy(field).bfloat16())
+    (jl, jm), jg = jax.jit(jax.value_and_grad(jlosses.make_vtrace_loss(jbundle), has_aux=True))(
+        jparams, jb)
+    params = _port_state(bundle, sd, adamw(LR))["params"]
+    loss, metrics = losses.make_vtrace_loss(bundle)(params, tb)
+    _close_leaf(loss, jl)
+    assert set(metrics) == set(jm)
+    for k in jm:
+        _close_leaf(metrics[k], jm[k])
+    named = dict(params.named_parameters())
+    grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+    want = params_from_jax(cfg, jax.tree.map(np.asarray, jg))
+    assert set(grads) == set(want) and "frontend.w" in grads
+    for name, g in grads.items():
+        _close_leaf(g, want[name].numpy())
+    assert float(want["frontend.w"].abs().max()) > 0
+    # the launcher's batches carry the field, (B, F, D) bf16
+    run = __import__("repro_torch.launch.train", fromlist=["setup"]).setup(
+        arch, smoke=True, batch=b, seq=s, device="cpu")
+    got = run.batch_at(0)["frontend"]
+    assert got.shape == (b, cfg.frontend_tokens, cfg.frontend_dim) and got.dtype == torch.bfloat16
+
+
 def _check_step(bundle, jstate, jm, state, metrics):
     """Loss, grad_norm, params and moments after one step, held to JAX's."""
     _close(metrics["loss"], jm["loss"], 1e-4)
