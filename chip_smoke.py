@@ -112,22 +112,34 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    seamless-m4t-large-v2, 12-token prompts over the reduced config's 8
    frames, so that K1's fp32 cross call has k and v of a length of their
    own);
-6. grad guards: K1's bf16 route, K1 with k and v of a length of their own
-   (K1-bwd takes one S), K2 and K3 raise under autograd (they have no
-   backward kernel) instead of returning a tensor with no grad_fn;
+6. grad guards: K1's bf16 route, K2 and K3's bf16 routes raise under
+   autograd (they have no backward kernel) instead of returning a tensor
+   with no grad_fn; K3 in fp32 and K1 in fp32 with k and v of a length of
+   their own return tensors with a grad_fn;
 7. train parity: recurrentgemma-2b at 3 layers of full width, fp32: the
    V-trace loss through K1, K1-bwd, K4 and K4-bwd against the same
    through their plain versions on the card; each of those kernel calls
    (outputs and input gradients) against its plain version on the same
    inputs; every gradient leaf with K1 and K1-bwd in the model; every
    gradient leaf with all four kernels against K1 and K4 in fp64, no
-   farther than FP64_MARGIN times the plain fp32 versions are;
-8. train: recurrentgemma-2b at full width (26 layers, 2.89 B params, fp32
-   params and AdamW moments) takes 3 steps at batch 4 x seq 256 through
-   ``repro_torch.launch.train``'s functions; K1 and K1-bwd must rise by 8
-   a step, K4 and K4-bwd by 18, K2 and K3 not at all; loss and grad_norm
+   farther than FP64_MARGIN times the plain fp32 versions are; then
+   mamba2-2.7b at 3 layers and seamless-m4t-large-v2 at 2+2 layers of full
+   width, fp32 (``family_train_parity_phase``): the loss through K3 and
+   K3-bwd, or K1 and K1-bwd (its cross calls at S_kv 1024 against S 256),
+   against the plain versions within 1e-5, one step's launches, and every
+   gradient leaf within GRAD_TOL of the plain versions' or, where farther,
+   held to the kernels in fp64 as RecurrentGemma's leaves are;
+8. train: recurrentgemma-2b (26 layers, 2.89 B params), mamba2-2.7b (64
+   layers) and seamless-m4t-large-v2 (24+24 layers, over 1024 seeded
+   frames) at full width and depth, fp32 params and AdamW moments, each
+   take 3 steps at batch 4 x seq 256 through ``repro_torch.launch.train``'s
+   functions; launches a step: RecurrentGemma K1 and K1-bwd 8, K4 and
+   K4-bwd 18; Mamba2 K3 and K3-bwd 64; seamless K1 and K1-bwd 72, 24 of
+   each at S_kv 1024 against S 256; no K2 anywhere; loss and grad_norm
    finite; then the step's wall time, tokens/s, the forward, backward and
-   optimizer parts, peak memory and a profiler breakdown;
+   optimizer parts, peak memory, a profiler breakdown (the family's
+   kernel groups non-zero, every other kernel group empty) and the phase's
+   seconds;
 9. train restart: the launcher at the reduced config on the card,
    checkpointing every 2 steps, restarts from its checkpoint after a
    failure injected at step 3 and ends at step 6;
@@ -260,18 +272,23 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    history ledger phase 19 wrote (build/bench_torch/BENCH_history.json),
    exit 0 and "trend_summary,ok".
 
-The kernel phase (3) also holds K1-bwd and K4-bwd to their plain versions
-(the formulas each kernel computes) at the train call, the smoke widths,
-D 128 with 5 query heads a kv head, and the edges of their tiles (K1-bwd:
-S 33, 65 and 300 against its 32-row tiles, a window ending inside a key
-tile, D 16; K4-bwd: S over many of its tiles, S 1, W 37, B 1), each case
-logging its route or plan, and times them against their bounds: K1-bwd
-(3xTF32 on the tensor cores) against SDPA's fp32 backward (forward and
-backward, less forward), split by kernel, with its registers and spills;
-K4-bwd warm and cold in L2 with its plan. K1's fp32 forward (3xTF32) is
-timed at the train call too, beside SDPA's fp32 forward, against its
-bounds at the 3xTF32 and the fp32 CUDA-core rates, with its registers and
-spills.
+The kernel phase (3) also holds K1-bwd, K4-bwd and K3-bwd to their plain
+versions (the passes each kernel runs) at the train calls, the smoke
+widths, D 128 with 5 query heads a kv head, and the edges of their tiles
+(K1-bwd: S 33, 65 and 300 against its 32-row tiles, a window ending
+inside a key tile, D 16, and k and v of a length of their own, S_kv 1024
+against S 256 at seamless's cross call, shorter and longer than S; K4-bwd:
+S over many of its tiles, S 1, W 37, B 1; K3-bwd: mamba2's train call with
+and without h0 and d(final state), ragged S, G < H and G == H, two p
+tiles, under one chunk), each case logging its route or plan, and times
+them against their bounds: K1-bwd (3xTF32 on the tensor cores) against
+SDPA's fp32 backward (forward and backward, less forward), split by
+kernel, with its registers and spills, at RecurrentGemma's call and at
+seamless's cross call; K4-bwd warm and cold in L2 with its plan; K3-bwd
+(fp32 CUDA cores) split by kernel, with its registers and spills. K1's
+fp32 forward (3xTF32) is timed at the train call too, beside SDPA's fp32
+forward, against its bounds at the 3xTF32 and the fp32 CUDA-core rates,
+with its registers and spills, and K3's fp32 forward at mamba2's.
 
 After phase 20, when no other phase runs, a child process runs the dry
 run (``python -m repro_torch.launch.dryrun``'s ``main``, no card: a fake
@@ -364,6 +381,9 @@ DENSE_PARITY = ("gemma2-9b", "starcoder2-15b", "qwen2.5-32b", "internvl2-1b")
 # the training path: recurrentgemma-2b at full width in fp32, its K1 and K4
 # calls at batch 4 x seq 256
 TRAIN = dict(arch="recurrentgemma-2b", batch=4, seq=256, steps=3)
+# the archs trained at full width and depth, fp32, batch 4 x seq 256 (seamless's
+# text over its 1024 frames)
+TRAIN_ARCHS = ("recurrentgemma-2b", "mamba2-2.7b", "seamless-m4t-large-v2")
 GRAD_TOL = 1e-4   # of a gradient tensor's max |value|, and relative
 # K1-bwd's one route: every head_dim on the tensor cores, 3xTF32 mma.sync
 K1_BWD_ROUTE = "tensor cores, 3xTF32 mma.sync"
@@ -371,6 +391,13 @@ LSE_TOL = 1e-5   # K1's log-sum-exp against its plain version, and relative
 # how much farther from an fp64 reference a gradient leaf through the
 # kernels may be than the same leaf through the plain fp32 versions
 FP64_MARGIN = 2.0
+# a leaf of the new families' train parity whose every element lies within
+# this share of the largest leaf's max |g| of the reference passes whatever
+# its own scale: the key biases' gradients are sums over every position of
+# rotated dk (exactly 0 in cross-attention, which takes no rope), which
+# cancel to 1e-11 to 1e-7 of the largest leaf's, where K1-bwd's dk, within
+# GRAD_TOL of its own max, moves them by more than GRAD_TOL of theirs
+LEAF_FLOOR = 1e-6
 
 
 def log(msg):
@@ -1145,12 +1172,24 @@ def kernel_phase(k1_ptxas, k4_ptxas, bwd_ptxas):
              ((1, 65, 10, 1, 256), {"window": 20}),
              ((2, 300, 4, 1, 128), {"window": 45}),
              ((2, 65, 4, 2, 16), {"window": 7}),
-             ((1, 33, 2, 1, 16), {"causal": False, "softcap": 5.0})]
+             ((1, 33, 2, 1, 16), {"causal": False, "softcap": 5.0}),
+             # k and v of a length of their own (unmasked): seamless's cross
+             # call in training, 256 queries over 1024 frames; S_kv shorter
+             # and longer than S, ragged against the 32-key tiles; the
+             # reduced config's cross call
+             ((tb, ts, SEAMLESS["h"], SEAMLESS["kh"], SEAMLESS["d"]),
+              {"causal": False, "skv": SEAMLESS["frames"]}),
+             ((2, 100, 4, 2, 64), {"causal": False, "skv": 70}),
+             ((2, 33, 2, 1, 16), {"causal": False, "skv": 300}),
+             ((1, 77, 4, 4, 128), {"causal": False, "skv": 129}),
+             ((2, ENCDEC_PARITY_PROMPT, 4, 2, 16), {"causal": False, "skv": 8})]
     main_err = None
     for (cb, cs, ch, ckh, cd), kw in cases:
+        kw = dict(kw)
+        cskv = kw.pop("skv", cs)
         q = rand(cb, cs, ch, cd, dtype=torch.float32)
-        k, v = rand(cb, cs, ckh, cd, dtype=torch.float32), rand(cb, cs, ckh, cd,
-                                                               dtype=torch.float32)
+        k, v = rand(cb, cskv, ckh, cd, dtype=torch.float32), rand(cb, cskv, ckh, cd,
+                                                                 dtype=torch.float32)
         do = rand(cb, cs, ch, cd, dtype=torch.float32)
         kw = {"causal": True, "scale": cd ** -0.5, **kw}
         o, lse = K1.flash_attention(q, k, v, return_lse=True, **kw)
@@ -1159,6 +1198,8 @@ def kernel_phase(k1_ptxas, k4_ptxas, bwd_ptxas):
         lse_want = ops.flash_attention_lse_plain(q, k, **kw)
         torch.cuda.synchronize()
         shown = {k_: v_ for k_, v_ in kw.items() if k_ != "scale"}
+        if cskv != cs:
+            shown["S_kv"] = cskv
         name = f"K1-bwd {(cb, cs, ch, ckh, cd)} {shown} [{K1_BWD_ROUTE}]"
         check_close(f"{name} lse", lse, lse_want, tol[torch.float32])
         errs = [check_close(f"{name} {g}", x, w, GRAD_TOL,
@@ -1238,6 +1279,46 @@ def kernel_phase(k1_ptxas, k4_ptxas, bwd_ptxas):
         f"kernel (profiler): " + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in k1_passes.items()))
     del qt, kt, vt
 
+    # seamless's cross call in training: 256 text queries over 1024 frames,
+    # fp32, unmasked, K1-bwd beside SDPA's fp32 backward (forward and
+    # backward, less forward) on the same inputs
+    sm = SEAMLESS
+    cb, cs, cskv, ch, ckh, cd = tb, ts, sm["frames"], sm["h"], sm["kh"], sm["d"]
+    ckw = dict(causal=False, scale=cd ** -0.5)
+    q = rand(cb, cs, ch, cd, dtype=torch.float32)
+    k, v = (rand(cb, cskv, ckh, cd, dtype=torch.float32) for _ in range(2))
+    do = rand(cb, cs, ch, cd, dtype=torch.float32)
+    o, lse = K1.flash_attention(q, k, v, return_lse=True, **ckw)
+    cross = lambda: K1.flash_attention_bwd(q, k, v, o, lse, do, **ckw)   # noqa: E731
+    ms = time_ms("K1-bwd cross", cross)
+    plain_ms = time_ms("K1-bwd cross plain", lambda: ops.flash_attention_bwd_plain(
+        q, k, v, o, lse, do, **ckw), iters=5, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    sdpa = lambda: F.scaled_dot_product_attention(   # noqa: E731
+        qt, kt, vt, scale=ckw["scale"], enable_gqa=True)
+    lib_fwd = time_ms("SDPA fp32 cross forward", sdpa, iters=10)
+    lib_both = time_ms("SDPA fp32 cross forward and backward", lambda: torch.autograd.grad(
+        sdpa(), (qt, kt, vt), dot), iters=10)
+    flops = 10 * cd * cs * cskv * cb * ch               # five products over every pair
+    nbytes = 4 * (4 * cb * cs * ch * cd + 4 * cb * cskv * ckh * cd + cb * ch * cs)
+    cuda_core_bound = bound(flops, nbytes, "float32")
+    r = rows["flash_attention_bwd"]["seamless_cross_call"] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=lib_both - lib_fwd, library_fwd_and_bwd_ms=lib_both,
+        library_fwd_ms=lib_fwd, kernel_split_ms=kernel_spans(
+            cross, ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_reduce", "flash_bwd_dq")),
+        **bound(flops, nbytes, "tf32x3"), bound_fp32_cuda_cores_ms=cuda_core_bound["bound_ms"],
+        tflops=flops / ms / 1e9)
+    log(f"   K1-bwd at q ({cb},{cs},{ch},{cd}), k/v ({cb},{cskv},{ckh},{cd}) fp32, unmasked "
+        f"(seamless's cross call in training) [{K1_BWD_ROUTE}]: kernel_ms {ms:.4f} "
+        f"({r['tflops']:.2f} TFLOP/s) plain_ms {plain_ms:.4f} library_ms "
+        f"{r['library_ms']:.4f} (SDPA fp32: forward and backward {lib_both:.4f} less forward "
+        f"{lib_fwd:.4f}) bound_ms {r['bound_ms']:.4f} ({r['bound_by']} at the 3xTF32 rate; "
+        f"{cuda_core_bound['bound_ms']:.4f} on the fp32 CUDA cores; {flops / 1e9:.2f} GFLOP, "
+        f"{nbytes / 1e6:.1f} MB); device ms a call by kernel (profiler): "
+        + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in r["kernel_split_ms"].items()))
+    del q, k, v, do, o, lse, qt, kt, vt, dot
+
     # ---- K4-bwd ----
     log("== kernels: K4-bwd RG-LRU scan backward (fp32)")
     # held to 1e-5 of max |gradient|, as K4 is to max |h|: the same chain of
@@ -1306,6 +1387,81 @@ def kernel_phase(k1_ptxas, k4_ptxas, bwd_ptxas):
         f"recurrence's gradient) bound_ms {r['bound_ms']:.4f} ({r['bound_by']}, "
         f"{nbytes / 1e6:.1f} MB)")
     del sets
+
+    # ---- K3-bwd ----
+    log("== kernels: K3-bwd SSD chunked scan backward (fp32, CUDA cores)")
+    # held to GRAD_TOL of each gradient's max |value|, and relative: dB and
+    # dC sum over a chunk and a group's heads, da over batch and steps, in
+    # another order than the plain version's einsums
+    mh, mp, mn = 80, 64, 128          # mamba2-2.7b's heads, head_dim and state
+    cases = [((tb, ts, mh, mp, mn, 1), False, False),   # the train call
+             ((tb, ts, mh, mp, mn, 1), True, True),     # with h0 and d(final state)
+             ((2, 200, 4, 16, 32, 2), True, True),      # ragged S, G < H
+             ((1, 37, 2, 80, 128, 2), True, False),     # under one chunk, two p tiles
+             ((1, 64, 3, 64, 64, 3), False, True),      # G == H, one whole chunk, N 64
+             ((2, 150, 16, 8, 16, 1), False, True)]     # the reduced config
+    main_err = None
+    for (cb, cs, ch, cp, cn, cg), with_h0, with_ds in cases:
+        x, dt, a, bm, cm, h0 = ssd_inputs(cb, cs, ch, cp, cn, cg, torch.float32, with_h0)
+        dy = rand(cb, cs, ch, cp, dtype=torch.float32)
+        ds = rand(cb, ch, cp, cn, dtype=torch.float32) if with_ds else None
+        got = K3.ssd_scan_bwd(x, dt, a, bm, cm, h0, dy, ds)
+        want = ops.ssd_scan_bwd_plain(x, dt, a, bm, cm, h0, dy, ds)
+        torch.cuda.synchronize()
+        name = f"K3-bwd {(cb, cs, ch, cp, cn, cg)} fp32 h0={with_h0} dstate={with_ds}"
+        if (got[5] is None) != (h0 is None):
+            raise AssertionError(f"{name}: dh0 given without h0, or missing with it")
+        errs = [check_close(f"{name} {g_}", x_, w_, GRAD_TOL,
+                            GRAD_TOL * max(float(w_.abs().max()), 1e-30))
+                for g_, x_, w_ in zip(("dx", "ddt", "da", "db", "dc", "dh0"), got, want)
+                if w_ is not None]
+        main_err = max(errs) if main_err is None else main_err
+    # timing at the train call (no h0; the final state unused), and K3's
+    # own fp32 call there (the CUDA-core route, returning the final state)
+    x, dt, a, bm, cm, _ = ssd_inputs(tb, ts, mh, mp, mn, 1, torch.float32, False)
+    dy = rand(tb, ts, mh, mp, dtype=torch.float32)
+    fwd_ms = time_ms("K3 fp32 train call", lambda: K3.ssd_scan(x, dt, a, bm, cm,
+                                                               return_state=True))
+    fwd_plain = time_ms("K3 fp32 plain", lambda: ops.ssd_scan_plain(x, dt, a, bm, cm, chunk=256),
+                        iters=5, warmup=1)
+    bwd = lambda: K3.ssd_scan_bwd(x, dt, a, bm, cm, None, dy, None)   # noqa: E731
+    ms = time_ms("K3-bwd", bwd)
+    plain_ms = time_ms("K3-bwd plain", lambda: ops.ssd_scan_bwd_plain(
+        x, dt, a, bm, cm, None, dy, None), iters=5, warmup=1)
+    passes = kernel_spans(bwd, ("ssd_bwd_chunk", "ssd_bwd_reduce_bc", "ssd_bwd_reduce_dt"))
+    # the work, a chunk of L steps and a head: products over the chunk's
+    # live triangle of L (L + 1) / 2 pairs, and over its L steps of P x N
+    L = K3.CHUNK
+    chunk_heads = tb * mh * -(-ts // L)
+    tri = L * (L + 1) // 2
+    fwd_flops = 2 * chunk_heads * (tri * (mn + mp) + 2 * L * mp * mn)   # C.B^T, M.X; C.S, update
+    fwd_bytes = 4 * (2 * x.numel() + dt.numel() + 2 * bm.numel() + mh + tb * mh * mp * mn)
+    # C.B^T, dy.x^T, M^T.dy, dG.B, dG^T.C; dS.B, x.dS, dy.S, the dS update, the state recompute
+    flops = 2 * chunk_heads * (tri * (3 * mn + 2 * mp) + 5 * L * mp * mn)
+    nbytes = 4 * (3 * x.numel() + 2 * dt.numel() + 4 * bm.numel() + 2 * mh)
+    fb = bound(fwd_flops, fwd_bytes, "float32")
+    rows["ssd_scan"]["train_call"] = dict(
+        ms=fwd_ms, plain_ms=fwd_plain, library_ms=None, **fb, variant=K3.route(x.dtype, mp, mn),
+        tflops=fwd_flops / fwd_ms / 1e9, tbps=fwd_bytes / fwd_ms / 1e9)
+    log(f"   K3 at ({tb},{ts},{mh},{mp},{mn},1) fp32, no h0, final state out (the train call) "
+        f"[{K3.route(x.dtype, mp, mn)}]: kernel_ms {fwd_ms:.4f} ({fwd_flops / fwd_ms / 1e9:.2f} "
+        f"TFLOP/s) plain_ms {fwd_plain:.4f} library_ms none bound_ms {fb['bound_ms']:.4f} "
+        f"({fb['bound_by']} on the fp32 CUDA cores, {fwd_flops / 1e9:.2f} GFLOP, "
+        f"{fwd_bytes / 1e6:.1f} MB)")
+    rows["ssd_scan_bwd"] = dict(
+        name="ssd_scan_bwd", route="cuda", variant="cuda_cores",
+        source="src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+        replaces="src/repro/kernels/ssd_scan.py:56", max_abs_err=main_err, ms=ms,
+        plain_ms=plain_ms, library_ms=None, **bound(flops, nbytes, "float32"),
+        tflops=flops / ms / 1e9, kernel_split_ms=passes, **bwd_ptxas["k3"])
+    r = rows["ssd_scan_bwd"]
+    log(f"   K3-bwd at ({tb},{ts},{mh},{mp},{mn},1) fp32, no h0, no dstate (the train call; "
+        f"{' '.join(f'{k_} {v_}' for k_, v_ in bwd_ptxas['k3'].items())}): kernel_ms {ms:.4f} "
+        f"({r['tflops']:.2f} TFLOP/s) plain_ms {plain_ms:.4f} library_ms none (no PyTorch call "
+        f"computes the SSD scan's gradient) bound_ms {r['bound_ms']:.4f} ({r['bound_by']} on "
+        f"the fp32 CUDA cores, {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); device ms a "
+        f"call by kernel (profiler): " + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in passes.items()))
+    del x, dt, a, bm, cm, dy
     return rows
 
 
@@ -1358,7 +1514,7 @@ def expected_launches(cfg, steps):
     layer and twice per decoder layer (self- and cross-attention) in
     prefill, and K2 twice per decoder layer in each decode step. Serving
     runs no backward kernel."""
-    bwd = {"flash_attention_bwd": 0, "rglru_scan_bwd": 0}
+    bwd = {"flash_attention_bwd": 0, "ssd_scan_bwd": 0, "rglru_scan_bwd": 0}
     if cfg.family == "encdec":
         return {"flash_attention": cfg.enc_layers + 2 * cfg.dec_layers,
                 "decode_attention": 2 * cfg.dec_layers * steps, "ssd_scan": 0, "rglru_scan": 0,
@@ -1807,7 +1963,7 @@ def union_ms(spans):
 def device_breakdown(prof, n):
     """Device time per call from a profiler trace, grouped: the port's
     kernels (K1 and K3 either route, K2 its split and combine passes, K1-bwd
-    its four kernels), GEMMs (cuBLAS / CUTLASS), and everything else; and
+    its four kernels, K3-bwd its three), GEMMs (cuBLAS / CUTLASS), and everything else; and
     the number of device kernels per call. A group's time, and "busy" over all of them, count
     each instant once: K2's combine is launched while its split pass runs.
     Under ``annotated_layers`` the kernels inside an MoE call form the groups
@@ -1825,7 +1981,8 @@ def device_breakdown(prof, n):
         i = bisect.bisect_right(starts, t) - 1
         return marks[i][2] if i >= 0 and t < marks[i][1] else None
 
-    spans = {g: [] for g in ("K1", "K1-bwd", "K2", "K3", "K4", "K4-bwd", "gemm", "other")}
+    spans = {g: [] for g in ("K1", "K1-bwd", "K2", "K3", "K3-bwd", "K4", "K4-bwd", "gemm",
+                             "other")}
     if marks:
         spans.update({g: [] for g in ("moe_gemm", "moe_dispatch", "mla_decode")})
     kernels, dispatch = 0, {}
@@ -1849,6 +2006,8 @@ def device_breakdown(prof, n):
             g = "K1-bwd"
         elif "rglru_bwd_" in name:
             g = "K4-bwd"
+        elif "ssd_bwd_" in name:
+            g = "K3-bwd"
         elif "decode_split_kernel" in name or "decode_combine_kernel" in name:
             g = "K2"
         elif "ssd_chunk_kernel" in name or "ssd_wgmma_kernel" in name:
@@ -2007,11 +2166,13 @@ def ring_wrap_phase():
 
 
 def grad_guard_phase():
-    """A kernel with no backward kernel refuses an input that requires a
-    gradient, rather than return a tensor with no grad_fn."""
+    """A kernel with no backward kernel (K1 bf16, K2, K3 bf16) refuses an
+    input that requires a gradient, rather than return a tensor with no
+    grad_fn; K3 in fp32 and K1 in fp32 with k and v of a length of their
+    own, which have backward kernels, return tensors with a grad_fn."""
     from repro_torch.kernels import ops
-    log("== grad guards: K1 bf16, K1 with k and v of a length of their own, K2 and K3 under "
-        "autograd on the card")
+    log("== grad guards: K1 bf16, K2 and K3 bf16 raise under autograd on the card; K3 fp32 and "
+        "K1 fp32 with k and v of a length of their own record a graph")
     dev = torch.device("cuda")
     q = torch.randn(1, 64, 2, 64, device=dev, dtype=torch.bfloat16, requires_grad=True)
     q32 = torch.randn(1, 64, 2, 64, device=dev, requires_grad=True)
@@ -2019,12 +2180,12 @@ def grad_guard_phase():
     kv = torch.randn(1, 32, 2, 64, device=dev, requires_grad=True)
     x = torch.randn(1, 16, 2, 16, device=dev, requires_grad=True)
     bm = torch.randn(1, 16, 1, 16, device=dev)
+    dt, a = torch.rand(1, 16, 2, device=dev), -torch.ones(2, device=dev)
+    xb, bb = x.detach().bfloat16().requires_grad_(), bm.bfloat16()
     calls = {"K1 bf16": lambda: ops.flash_attention(q, q, q),
-             "K1 fp32, S_kv != S": lambda: ops.flash_attention(q32, frames, frames, causal=False),
              "K2": lambda: ops.decode_attention(kv[:, 0], kv, kv,
                                                 torch.ones(1, dtype=torch.int32, device=dev)),
-             "K3": lambda: ops.ssd_scan(x, torch.rand(1, 16, 2, device=dev),
-                                        -torch.ones(2, device=dev), bm, bm)}
+             "K3 bf16": lambda: ops.ssd_scan(xb, dt, a, bb, bb)}
     for name, call in calls.items():
         try:
             call()
@@ -2032,18 +2193,30 @@ def grad_guard_phase():
             log(f"   {name}: NotImplementedError: {str(e)[:90]}...")
         else:
             raise AssertionError(f"{name} ran under autograd with no backward kernel")
+    recorded = {"K1 fp32, S_kv != S": lambda: ops.flash_attention(q32, frames, frames,
+                                                                  causal=False),
+                "K3 fp32": lambda: ops.ssd_scan(x, dt, a, bm, bm)}
+    for name, call in recorded.items():
+        out = call()
+        if out.grad_fn is None:
+            raise AssertionError(f"{name} under autograd returned a tensor with no grad_fn")
+        log(f"   {name}: grad_fn {type(out.grad_fn).__name__}")
     with torch.no_grad():
         if ops.flash_attention(q, q, q).grad_fn is not None:
             raise AssertionError("K1 under no_grad recorded a graph")
 
 
 @contextlib.contextmanager
-def plain_versions(ops, k1=True, k4=True, k2=False):
-    """The model's calls of K1, K4 and/or K2 (``ops.flash_attention``,
-    ``ops.rglru_scan``, ``ops.decode_attention``) taken by their plain
-    versions on the card, for a comparison only; the port's wrappers never
-    do this."""
-    saved = ops.flash_attention, ops.rglru_scan, ops.decode_attention
+def plain_versions(ops, k1=True, k4=True, k2=False, k3=False):
+    """The model's calls of K1, K4, K2 and/or K3 (``ops.flash_attention``,
+    ``ops.rglru_scan``, ``ops.decode_attention``, ``ops.ssd_scan``) taken by
+    their plain versions on the card, for a comparison only; the port's
+    wrappers never do this."""
+    saved = ops.flash_attention, ops.rglru_scan, ops.decode_attention, ops.ssd_scan
+
+    def ssd_plain(x, dt, a, b, c, *, chunk=128, h0=None, return_state=False):
+        y, state = ops.ssd_scan_plain(x, dt, a, b, c, chunk=chunk, h0=h0)
+        return (y, state) if return_state else y
     if k1:
         ops.flash_attention = lambda q, k, v, **kw: ops.flash_attention_plain(q, k, v, **kw)
     if k4:
@@ -2051,10 +2224,12 @@ def plain_versions(ops, k1=True, k4=True, k2=False):
     if k2:
         ops.decode_attention = lambda q, k, v, lengths, **kw: ops.decode_attention_plain(
             q, k, v, lengths, **kw)
+    if k3:
+        ops.ssd_scan = ssd_plain
     try:
         yield
     finally:
-        ops.flash_attention, ops.rglru_scan, ops.decode_attention = saved
+        ops.flash_attention, ops.rglru_scan, ops.decode_attention, ops.ssd_scan = saved
 
 
 def flash_attention_fp64(q, k, v, *, causal=True, window=0, softcap=None, scale=None):
@@ -2067,7 +2242,7 @@ def flash_attention_fp64(q, k, v, *, causal=True, window=0, softcap=None, scale=
     x = torch.einsum("bqhd,bkhd->bhqk", q.double(), ops._expand_kv(k, h).double()) * scale
     if softcap:
         x = softcap * torch.tanh(x / softcap)
-    x = torch.where(ops._mask(q.shape[1], causal, window, q.device), x, -1e30)
+    x = torch.where(ops._mask(q.shape[1], causal, window, q.device, k.shape[1]), x, -1e30)
     return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(x, -1), ops._expand_kv(v, h).double())
 
 
@@ -2082,18 +2257,30 @@ def rglru_scan_fp64(a, b, *, h0=None, out_dtype=torch.float32):
     return torch.stack(hs, dim=1).to(out_dtype), h.float()
 
 
+def ssd_scan_fp64(x, dt, a, b, c, *, chunk=128, h0=None, return_state=False):
+    """K3's function computed in fp64 (the plain chunked algorithm on fp64
+    inputs); y in x's dtype and the final state in fp32, as
+    ``ops.ssd_scan`` returns them."""
+    from repro_torch.kernels import ops
+    y, state = ops.ssd_scan_plain(*(t.double() for t in (x, dt, a, b, c)), chunk=chunk,
+                                  h0=None if h0 is None else h0.double())
+    y, state = y.to(x.dtype), state.float()
+    return (y, state) if return_state else y
+
+
 @contextlib.contextmanager
 def fp64_versions(ops):
-    """The model's calls of K1 and K4 taken in fp64 (``flash_attention_fp64``,
-    ``rglru_scan_fp64``; the rest of the model stays fp32), for the gradient
-    comparison only."""
-    saved = ops.flash_attention, ops.rglru_scan
+    """The model's calls of K1, K3 and K4 taken in fp64
+    (``flash_attention_fp64``, ``ssd_scan_fp64``, ``rglru_scan_fp64``; the
+    rest of the model stays fp32), for the gradient comparison only."""
+    saved = ops.flash_attention, ops.rglru_scan, ops.ssd_scan
     ops.flash_attention = lambda q, k, v, **kw: flash_attention_fp64(q, k, v, **kw).to(q.dtype)
     ops.rglru_scan = rglru_scan_fp64
+    ops.ssd_scan = ssd_scan_fp64
     try:
         yield
     finally:
-        ops.flash_attention, ops.rglru_scan = saved
+        ops.flash_attention, ops.rglru_scan, ops.ssd_scan = saved
 
 
 def leaf_distances(grads, ref) -> dict:
@@ -2288,40 +2475,236 @@ def train_parity_phase():
 
 
 def expected_train_launches(cfg, steps):
-    """A V-trace step of RecurrentGemma runs K1 and K1-bwd once per local
-    layer, K4 and K4-bwd once per recurrent layer, and no K2 or K3."""
-    from repro_torch.models.recurrentgemma import layer_kinds
-    n_rec = layer_kinds(cfg).count("rglru")
-    n_att = cfg.num_layers - n_rec
-    return {"flash_attention": n_att * steps, "decode_attention": 0, "ssd_scan": 0,
-            "rglru_scan": n_rec * steps, "flash_attention_bwd": n_att * steps,
-            "rglru_scan_bwd": n_rec * steps}
+    """Launches of `steps` V-trace steps, by family; no training path runs
+    K2. RecurrentGemma runs K1 and K1-bwd once per local layer, K4 and
+    K4-bwd once per recurrent layer; Mamba2 K3 and K3-bwd once per layer;
+    the encoder-decoder K1 and K1-bwd once per encoder layer and twice per
+    decoder layer (self- and cross-attention)."""
+    want = dict.fromkeys(("flash_attention", "decode_attention", "ssd_scan", "rglru_scan",
+                          "flash_attention_bwd", "ssd_scan_bwd", "rglru_scan_bwd"), 0)
+    if cfg.family == "hybrid":
+        from repro_torch.models.recurrentgemma import layer_kinds
+        n_rec = layer_kinds(cfg).count("rglru")
+        n_att = cfg.num_layers - n_rec
+        want.update(flash_attention=n_att * steps, flash_attention_bwd=n_att * steps,
+                    rglru_scan=n_rec * steps, rglru_scan_bwd=n_rec * steps)
+    elif cfg.family == "ssm":
+        want.update(ssd_scan=cfg.num_layers * steps, ssd_scan_bwd=cfg.num_layers * steps)
+    elif cfg.family == "encdec":
+        n = (cfg.enc_layers + 2 * cfg.dec_layers) * steps
+        want.update(flash_attention=n, flash_attention_bwd=n)
+    else:
+        raise ValueError(f"no train path on the card for the {cfg.family} family")
+    return want
 
 
-def train_phase():
-    """recurrentgemma-2b at full width trains TRAIN["steps"] steps through
-    ``repro_torch.launch.train``'s functions, from its init with the table
-    scaled by ``live_table``, every K1 launch on K1's fp32 route; then two steps
-    timed on the host clock around a synchronised step, the step's parts on
-    CUDA events, and a profiler breakdown of one step."""
+# the profiler groups a train step of each family must fill, and those it
+# must leave empty
+TRAIN_GROUPS = {"hybrid": ("K1", "K1-bwd", "K4", "K4-bwd"), "ssm": ("K3", "K3-bwd"),
+                "encdec": ("K1", "K1-bwd")}
+KERNEL_GROUPS = ("K1", "K1-bwd", "K2", "K3", "K3-bwd", "K4", "K4-bwd")
+
+
+@contextlib.contextmanager
+def kv_len_calls(K1):
+    """Counts of the calls of K1's autograd Function (``FlashAttention``:
+    every K1 and K1-bwd call of a train step) whose k and v have a length
+    of their own (S_kv != S), by "S x S_kv", forward and backward apart,
+    read from their inputs while the block runs."""
+    counts = {"flash_attention": {}, "flash_attention_bwd": {}}
+    fa = K1.FlashAttention
+    saved = fa.forward, fa.backward
+
+    def tally(name, q, k):
+        if k.shape[1] != q.shape[1]:
+            key = f"{q.shape[1]}x{k.shape[1]}"
+            counts[name][key] = counts[name].get(key, 0) + 1
+
+    def fwd(ctx, q, k, v, *opts):
+        tally("flash_attention", q, k)
+        return saved[0](ctx, q, k, v, *opts)
+
+    def bwd(ctx, do):
+        q, k = ctx.saved_tensors[:2]
+        tally("flash_attention_bwd", q, k)
+        return saved[1](ctx, do)
+    fa.forward, fa.backward = staticmethod(fwd), staticmethod(bwd)
+    try:
+        yield counts
+    finally:
+        fa.forward, fa.backward = (staticmethod(f) for f in saved)
+
+
+@contextlib.contextmanager
+def relu_masks(masks=None):
+    """The ReLU MLP's activation (``nn/mlp.py``'s ``ACTS["relu"]``, the
+    encoder-decoder's) with its sign masks recorded in call order into the
+    list yielded (`masks` None), or replayed from `masks` (h * mask: the
+    same value and gradient wherever the two runs agree on the sign), for
+    the gradient comparison only. ReLU's gradient jumps at 0: a
+    pre-activation within rounding of 0 takes another sign under another
+    rounding of the attention, and moves its leaf by one token's share."""
+    import torch.nn.functional as F
+    from repro_torch.nn import mlp as mlp_mod
+    saved = mlp_mod.ACTS["relu"]
+    out = []
+    replay = None if masks is None else iter(masks)
+
+    def act(h):
+        if replay is not None:
+            return h * next(replay).to(h.dtype)
+        out.append(h.detach() > 0)
+        return F.relu(h)
+    mlp_mod.ACTS["relu"] = act
+    try:
+        yield out
+    finally:
+        mlp_mod.ACTS["relu"] = saved
+
+
+# the families' train parity at a few layers of full width: the layers each
+# keeps
+TRAIN_PARITY = {"mamba2-2.7b": dict(num_layers=3),
+                "seamless-m4t-large-v2": dict(enc_layers=2, dec_layers=2, num_layers=4)}
+
+
+def family_train_parity_phase(arch):
+    """`arch` at TRAIN_PARITY's layers of full width, fp32 on the card: the
+    V-trace loss through its kernels and their backward kernels (Mamba2: K3
+    and K3-bwd; the encoder-decoder: K1 and K1-bwd, its cross calls at S_kv
+    != S) against the same through their plain versions under autograd,
+    within 1e-5; the launch counts of one step; and every gradient leaf
+    against the plain versions' within GRAD_TOL of the leaf's max, or,
+    where a leaf is farther, against the kernels taken in fp64
+    (``fp64_versions``): within GRAD_TOL of its max of fp64, or no farther
+    than FP64_MARGIN times the plain fp32 versions are (``fp64_verdict``).
+    The plain and fp64 runs take the kernel run's ReLU masks
+    (``relu_masks``; the encoder-decoder's MLPs): the leaves of a run with
+    its own masks differ by the pre-activations whose sign the rounding
+    flips, which are counted and logged with that run's farthest leaf."""
+    from repro_torch.core.losses import make_vtrace_loss, param_grads
+    from repro_torch.kernels import flash_attention as K1
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    b, s = TRAIN["batch"], TRAIN["seq"]
+    run = train.setup(arch, batch=b, seq=s, steps=1, device="cuda", **TRAIN_PARITY[arch])
+    cfg = run.cfg
+    log(f"== train parity: {cfg.name} at {TRAIN_PARITY[arch]}, full width, fp32, batch {b} x "
+        f"seq {s}{f' over {cfg.frontend_tokens} frames' if cfg.family == 'encdec' else ''}: "
+        "the kernels against their plain versions, and against fp64 where the plain versions "
+        "sit farther")
+    params = run.make_state()["params"]
+    if cfg.tie_embeddings:
+        live_table(params, cfg)
+    named = dict(params.named_parameters())
+    batch = run.batch_at(0)
+    loss_fn = make_vtrace_loss(run.bundle)
+    ops.reset_launch_counts()
+    with kv_len_calls(K1) as kv_calls, relu_masks() as masks:
+        loss, _ = loss_fn(params, batch)
+        got = param_grads(loss, named)
+    counts = ops.launch_counts()
+    want_counts = expected_train_launches(cfg, 1)
+    if counts != want_counts:
+        raise AssertionError(f"launches {counts} != expected {want_counts}")
+    if cfg.family == "encdec":
+        key = f"{s}x{cfg.frontend_tokens}"
+        want_kv = {"flash_attention": {key: cfg.dec_layers},
+                   "flash_attention_bwd": {key: cfg.dec_layers}}
+        if kv_calls != want_kv:
+            raise AssertionError(f"K1 calls at S_kv != S {kv_calls}, want {want_kv}")
+    with plain_versions(ops, k1=True, k4=False, k3=True), relu_masks() as free_masks:
+        loss_p, _ = loss_fn(params, batch)
+        free = leaf_distances(got, param_grads(loss_p, named))
+    flips = sum(int((m != f).sum()) for m, f in zip(masks, free_masks))
+    del free_masks
+    with plain_versions(ops, k1=True, k4=False, k3=True), relu_masks(masks):
+        want = param_grads(loss_fn(params, batch)[0], named)
+    if ops.launch_counts() != counts:
+        raise AssertionError(f"the plain runs launched a kernel: {ops.launch_counts()}")
+    check_close("loss", loss.detach(), loss_p.detach(), 1e-5)
+    d_plain = leaf_distances(got, want)
+    with fp64_versions(ops), relu_masks(masks):
+        ref = param_grads(loss_fn(params, batch)[0], named)
+    verdict = fp64_verdict(got, want, ref)
+    far = {n for n, d in d_plain.items() if d > 1}
+    top = max(float(w.abs().max()) for w in want.values())
+    floored, failed = {}, []
+    for n, d, dp in verdict["failed"]:
+        if n not in far:
+            continue
+        dev = float((got[n] - want[n]).abs().max())
+        if dev <= LEAF_FLOOR * top:   # (its max |g|, its deviation) over the largest leaf's
+            floored[n] = (float(want[n].abs().max()) / top, dev / top)
+        else:
+            failed.append((n, d, dp, dev / top))
+    if failed:
+        raise AssertionError("gradient leaves farther than GRAD_TOL from the plain versions', "
+                             f"than {FP64_MARGIN:g} times the plain fp32 versions' from fp64, and "
+                             f"than {LEAF_FLOOR:g} of the largest leaf's max (leaf, distance, "
+                             f"plain's distance, deviation over the largest leaf's max): {failed}")
+    worst = max((d, n) for n, d in d_plain.items())
+    far_fp64 = verdict["farthest"]
+    free_worst = max((d, n) for n, d in free.items())
+    seconds = time.perf_counter() - t0
+    log(f"   loss {float(loss.detach()):.6f} (plain {float(loss_p.detach()):.6f}); launches "
+        f"{ {k: v for k, v in counts.items() if v} }"
+        f"{f'; K1 calls at S_kv != S {kv_calls}' if cfg.family == 'encdec' else ''}; "
+        f"{len(want)} gradient leaves, {len(want) - len(far)} within {GRAD_TOL:g} of each "
+        f"leaf's max |g| of the plain versions (the farthest at {worst[0]:.3f} of it, "
+        f"{worst[1]}), {len(far)} farther, each within max(1, {FP64_MARGIN:g} x plain fp32's) "
+        f"distance of fp64 (in units of {GRAD_TOL:g} of its max: the farthest leaf with the "
+        f"kernels {far_fp64[0]:.3f} ({far_fp64[1]}), plain fp32's farthest "
+        f"{verdict['farthest_plain'][0]:.3f} ({verdict['farthest_plain'][1]}))"
+        + (f"; {len(floored)} within {LEAF_FLOOR:g} of the largest leaf's max (leaf: its max "
+           f"|g|, its deviation, over the largest leaf's max): {floored}" if floored else "")
+        + (f"; with ReLU masks of their own ({len(masks)} ReLU calls) the plain versions flip "
+           f"{flips} pre-activations' signs, and the farthest leaf is at {free_worst[0]:.3f} "
+           f"({free_worst[1]})" if masks else "") + f"; {seconds:.1f} s")
+    out = {"loss": float(loss.detach()), "loss_plain": float(loss_p.detach()),
+           "seconds": seconds, "leaves": len(d_plain), "beyond_plain_tol": sorted(far),
+           "farthest_vs_plain": worst, "farthest_vs_fp64": far_fp64, "relu_calls": len(masks),
+           "relu_sign_flips": flips, "farthest_vs_plain_own_masks": free_worst,
+           "within_leaf_floor": floored}
+    del params, named, got, want, ref, loss, loss_p, masks
+    return out
+
+
+def train_phase(arch):
+    """`arch` at full width and depth trains TRAIN["steps"] steps through
+    ``repro_torch.launch.train``'s functions, from its init (a tied table
+    scaled by ``live_table``), its launches those of
+    ``expected_train_launches`` (the encoder-decoder's cross calls at S_kv
+    != S counted apart), every K1 launch on K1's fp32 route and every K3
+    launch on K3's CUDA-core route; then two steps timed on the host clock
+    around a synchronised step, the step's parts on CUDA events, and a
+    profiler breakdown of one step, in which the family's kernel groups
+    (TRAIN_GROUPS) hold device time and no other kernel runs."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.losses import make_vtrace_loss, param_grads
     from repro_torch.kernels import flash_attention as K1
     from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as K3
     from repro_torch.launch import train
     from repro_torch.optim import apply_updates
     from repro_torch.utils.tree import tree_bytes, tree_size
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    phase_t0 = time.perf_counter()
     b, s, steps = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
-    run = train.setup(TRAIN["arch"], batch=b, seq=s, steps=steps, device="cuda")
+    run = train.setup(arch, batch=b, seq=s, steps=steps, device="cuda")
     cfg = run.cfg
+    frames = f" over {cfg.frontend_tokens} frames" if cfg.family == "encdec" else ""
     log(f"== train: {cfg.name} {describe(cfg)}, {cfg.num_layers} layers, fp32 params and AdamW "
-        f"moments, batch {b} x seq {s}, {steps} steps through repro_torch.launch.train")
+        f"moments, batch {b} x seq {s}{frames}, {steps} steps through repro_torch.launch.train")
     t0 = time.perf_counter()
     state = run.make_state()
-    live_table(state["params"], cfg)
+    if cfg.tie_embeddings:
+        live_table(state["params"], cfg)
     torch.cuda.synchronize()
     n = tree_size(state["params"])
     log(f"   params {n} ({tree_bytes(state['params']) / 1e9:.2f} GB fp32; with both moments "
@@ -2331,11 +2714,13 @@ def train_phase():
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    state, history = train.train_loop(run, state, 0, steps, log=lambda m: log(f"   {m}"))
+    with kv_len_calls(K1) as kv_calls:
+        state, history = train.train_loop(run, state, 0, steps, log=lambda m: log(f"   {m}"))
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     counts = ops.launch_counts()
     k1_routes = dict(K1.flash_attention.launches_by_route)
+    k3_routes = dict(K3.ssd_scan.launches_by_route)
     peak = torch.cuda.max_memory_allocated()
     want = expected_train_launches(cfg, steps)
     if counts != want:
@@ -2343,14 +2728,24 @@ def train_phase():
     k1_route = K1.route(torch.float32, cfg.head_dim)
     if k1_routes != {**dict.fromkeys(K1.ROUTES, 0), k1_route: want["flash_attention"]}:
         raise AssertionError(f"K1 launches by route {k1_routes}: fp32 takes {k1_route}")
+    if k3_routes != {**dict.fromkeys(K3.ROUTES, 0), "cuda_cores": want["ssd_scan"]}:
+        raise AssertionError(f"K3 launches by route {k3_routes}: fp32 takes cuda_cores")
+    want_kv = {}
+    if cfg.family == "encdec":
+        key = f"{s}x{cfg.frontend_tokens}"
+        want_kv = {"flash_attention": {key: cfg.dec_layers * steps},
+                   "flash_attention_bwd": {key: cfg.dec_layers * steps}}
+    if {k: v for k, v in kv_calls.items() if v} != want_kv:
+        raise AssertionError(f"K1 calls at S_kv != S {kv_calls}, want {want_kv}")
     loss = [float(m["loss"]) for m in history]
     gnorm = [float(m["grad_norm"]) for m in history]
     if not (all(map(math.isfinite, loss + gnorm)) and min(gnorm) > 0) or state["step"] != steps:
         raise AssertionError(f"loss {loss}, grad_norm {gnorm} (finite and > 0 wanted), "
                              f"step {state['step']}")
-    log(f"   launches: {counts}; K1 by route {k1_routes}; loss {loss}, grad_norm {gnorm}; "
-        f"{steps} steps in {run_s:.2f} s (the first warms cuBLAS and the allocator); peak "
-        f"memory {peak / 1e9:.2f} GB")
+    log(f"   launches: {counts}; K1 by route {k1_routes}; K3 by route {k3_routes}"
+        f"{f'; K1 and K1-bwd calls at S_kv != S (S x S_kv: calls) {want_kv}' if want_kv else ''}"
+        f"; loss {loss}, grad_norm {gnorm}; {steps} steps in {run_s:.2f} s (the first warms "
+        f"cuBLAS and the allocator); peak memory {peak / 1e9:.2f} GB")
 
     step_ms = []
     for i in range(2):
@@ -2390,16 +2785,18 @@ def train_phase():
         state, m = run.train_step(state, run.batch_at(steps + 3))
         torch.cuda.synchronize()
     groups, n_ops = device_breakdown(prof, 1)
-    for g in ("K1", "K1-bwd", "K4", "K4-bwd"):
-        if groups[g] <= 0:
-            raise AssertionError(f"profiler group {g} holds no device time in a train step")
-    if groups["K2"] or groups["K3"]:
-        raise AssertionError(f"K2 or K3 ran in a train step: {groups}")
+    for g in KERNEL_GROUPS:
+        if (g in TRAIN_GROUPS[cfg.family]) != (groups[g] > 0):
+            raise AssertionError(f"profiler group {g} holds {groups[g]} ms of a train step of "
+                                 f"{cfg.name}, which runs {TRAIN_GROUPS[cfg.family]}")
     log(f"   device time of a step (ms): {json.dumps(groups)}; {n_ops:.0f} device operations")
     del state, named, m
+    seconds = time.perf_counter() - phase_t0
+    log(f"   train {cfg.name}: {seconds:.1f} s")
     return counts, {"step_ms": step_ms, "tokens_per_s": b * s / (step_ms[1] / 1e3),
                     "parts_ms": parts, "peak_gb": peak / 1e9, "params": n, "loss": loss,
-                    "grad_norm": gnorm, "device_ms": groups, "device_ops": n_ops}
+                    "grad_norm": gnorm, "device_ms": groups, "device_ops": n_ops,
+                    "kv_len_calls": want_kv, "seconds": seconds}
 
 
 def train_restart_phase():
@@ -3764,7 +4161,7 @@ def quickstart_phase(card):
         log(f"   {line}")
     want = {"flash_attention": layers * (steps + 1), "flash_attention_bwd": layers * steps,
             "decode_attention": layers * (greedy - 1), "ssd_scan": 0, "rglru_scan": 0,
-            "rglru_scan_bwd": 0}
+            "ssd_scan_bwd": 0, "rglru_scan_bwd": 0}
     log(f"   launches: {counts} (expected {want})")
     if counts != want:
         raise AssertionError(f"quickstart launch counts {counts} != expected {want}")
@@ -4061,7 +4458,7 @@ def main():
     t0 = time.perf_counter()
     reports = build.build()
     log(f"== build: {', '.join(build.KERNELS)} in {time.perf_counter() - t0:.1f} s")
-    k1_ptxas, k4_ptxas, bwd_ptxas = {}, {}, {"k1": {}, "k4": {}}
+    k1_ptxas, k4_ptxas, bwd_ptxas = {}, {}, {"k1": {}, "k3": {}, "k4": {}}
     for name, rep in reports.items():
         regs = [int(x) for x in re.findall(r"Used (\d+) registers", rep)]
         spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", rep) if int(x)]
@@ -4096,7 +4493,7 @@ def main():
             # K1-bwd, one line a kernel and head_dim, and K4-bwd
             found = re.search(r"(flash_bwd_dkdv_kernel|flash_bwd_dq_kernel)ILi(\d+)E|"
                               r"(flash_bwd_delta_kernel|flash_bwd_reduce_kernel|"
-                              r"rglru_bwd_chunk_kernel)", entry)
+                              r"rglru_bwd_chunk_kernel|ssd_bwd_\w+_kernel)", entry)
             if found:
                 kernel = found.group(1) or found.group(3)
                 used = int(re.search(r"Used (\d+) registers", entry).group(1))
@@ -4105,6 +4502,8 @@ def main():
                     f"registers, {spill} bytes of spill stores")
                 if kernel == "rglru_bwd_chunk_kernel":
                     bwd_ptxas["k4"].update(registers=used, spill_bytes=spill)
+                elif kernel == "ssd_bwd_chunk_kernel":
+                    bwd_ptxas["k3"].update(registers=used, spill_bytes=spill)
                 elif found.group(2) == "256":   # the train call's head_dim
                     short = kernel.split("_")[2]
                     bwd_ptxas["k1"].update({f"registers_{short}_256": used,
@@ -4162,12 +4561,22 @@ def main():
             phase_s[f"parity {arch} cf {cf}"] = time.perf_counter() - t0
             log(f"   parity {arch} at capacity {cf}: {phase_s[f'parity {arch} cf {cf}']:.1f} s")
     grad_guard_phase()
+    t0 = time.perf_counter()
     train_parity_phase()
+    phase_s[f"train parity {TRAIN['arch']}"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
-    counts, train_metrics = train_phase()
-    for name in launches:
-        launches[name] += counts[name]
-    torch.cuda.empty_cache()
+    train_parity = {}
+    for arch in TRAIN_PARITY:
+        train_parity[arch] = family_train_parity_phase(arch)
+        phase_s[f"train parity {arch}"] = train_parity[arch]["seconds"]
+        torch.cuda.empty_cache()
+    train_metrics = {}
+    for arch in TRAIN_ARCHS:
+        counts, train_metrics[arch] = train_phase(arch)
+        for name in launches:
+            launches[name] += counts[name]
+        phase_s[f"train {arch}"] = train_metrics[arch]["seconds"]
+        torch.cuda.empty_cache()
     train_restart_phase()
     torch.cuda.empty_cache()
     # the R2D2, V-trace, device-backend and wire paths, the figures and the
@@ -4218,9 +4627,12 @@ def main():
     log(f"reshard: {json.dumps(reshard_metrics)}")
     log(f"dry run: {json.dumps(dryrun_metrics)}")
     log(f"ring wrap gemma2-9b: {json.dumps(ring_metrics)}")
-    log(f"seconds of the serve, ring-wrap and new parity phases: "
+    log(f"seconds of the serve, ring-wrap, parity and train phases: "
         f"{json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
-    log(f"train {TRAIN['arch']}: {json.dumps(train_metrics)}")
+    for arch, metrics in train_parity.items():
+        log(f"train parity {arch}: {json.dumps(metrics)}")
+    for arch, metrics in train_metrics.items():
+        log(f"train {arch}: {json.dumps(metrics)}")
     log(f"r2d2: {json.dumps(r2d2_metrics)}")
     log(f"vtrace: {json.dumps(vtrace_metrics)}")
     log(f"device backend: {json.dumps(device_metrics)}")

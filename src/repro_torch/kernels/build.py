@@ -22,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("flash_attention", "decode_attention", "ssd_scan", "rglru_scan",
-           "flash_attention_bwd", "rglru_scan_bwd")
+           "flash_attention_bwd", "ssd_scan_bwd", "rglru_scan_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

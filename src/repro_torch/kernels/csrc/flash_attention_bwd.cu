@@ -13,11 +13,16 @@
 //   dX_ij = dT_ij (1 - tanh^2(x_ij / cap))  (dT_ij without a softcap)
 //   dQ_i = scale sum_j dX_ij K_j,  dK_j = scale sum_i dX_ij Q_i
 // where dK and dV of a kv head sum over its H / KH query heads. Masked
-// pairs and keys past S have P = 0, so they add nothing.
+// pairs and keys past S_kv have P = 0, so they add nothing.
 //
-// Layout: q, o, dO and dQ are (B, S, H, D); k, v, dK and dV (B, S, KH, D)
-// with KH dividing H; lse and Delta (B, H, S). All fp32, every pointer
-// 16-byte aligned.
+// Layout: q, o, dO and dQ are (B, S, H, D); k, v, dK and dV (B, S_kv, KH,
+// D) with KH dividing H; lse and Delta (B, H, S). All fp32, every pointer
+// 16-byte aligned. S_kv, the keys' own length, is S but for the
+// encoder-decoder's cross-attention (text queries over the encoder's
+// frames), which is unmasked, as in the forward: no causal mask and no
+// window with S_kv != S. The delta pass walks the S query rows, the dK/dV
+// kernel the S_kv keys (its grid and its stores), the dQ walk ends at S_kv,
+// and a tile crossing S or S_kv masks its rows or keys.
 //
 // Arithmetic: the five products (K.Q^T, V.dO^T, P^T.dO, dX^T.Q, dX.K) run
 // on the tensor cores, `mma.sync.m16n8k8` in TF32, each fp32 operand x
@@ -73,7 +78,7 @@
 // At D 16 a D-wide product has fewer n-tiles than its warps, so they split
 // its k as well (Tc::KS_DKDV, KS_DQ) and sum the splits the same way.
 // Tiles wholly outside the mask are not visited; only tiles that cross the
-// diagonal, the window's edge or S compute the mask.
+// diagonal, the window's edge, S or S_kv compute the mask.
 //
 // Shared memory, fp32: rows of Q, dO, K and V padded to D + 4 floats, so
 // that ldmatrix (which reads an fp32 fragment of 8 rows x 4 columns as an
@@ -153,12 +158,19 @@ __device__ __forceinline__ void load_stats(float* sl, float* sdel, const float* 
   }
 }
 
+// Whether the tile at query row q0 and key k0 needs the mask: it crosses S
+// or S_kv, the diagonal or the window's edge
+__device__ __forceinline__ bool edge_of(int q0, int k0, int S, int Skv, int causal, int window) {
+  return q0 + BQ > S || k0 + BKV > Skv || (causal && k0 + BKV - 1 > q0) ||
+         (window > 0 && q0 + BQ - 1 - k0 >= window);
+}
+
 // P of the score element at query row `row`, key `key`, from its logit s
 // (unscaled) and the row's lse, and the softcap's derivative dxdt; then
 // dX = P (dP - Delta) dxdt
-__device__ __forceinline__ void p_of(float s, float l, int row, int key, int S, bool edge,
-                                     float scale, int causal, int window, float softcap,
-                                     float& p, float& dxdt) {
+__device__ __forceinline__ void p_of(float s, float l, int row, int key, int S, int Skv,
+                                     bool edge, float scale, int causal, int window,
+                                     float softcap, float& p, float& dxdt) {
   float x = s * scale;
   dxdt = 1.f;
   if (softcap > 0.f) {
@@ -168,7 +180,7 @@ __device__ __forceinline__ void p_of(float s, float l, int row, int key, int S, 
   }
   bool ok = true;
   if (edge) {
-    ok = row < S && key < S;
+    ok = row < S && key < Skv;
     if (causal) ok = ok && key <= row;
     if (window > 0) ok = ok && (row - key) < window;
   }
@@ -199,15 +211,15 @@ flash_bwd_delta_kernel(const float* __restrict__ o, const float* __restrict__ do
 }
 
 // dK and dV of keys k0 .. k0 + 31 from query head h alone, into dkh and
-// dvh, (B, S, H, D): dK and dV themselves when KH == H, else the workspace
-// that flash_bwd_reduce_kernel sums
+// dvh, (B, S_kv, H, D): dK and dV themselves when KH == H, else the
+// workspace that flash_bwd_reduce_kernel sums
 template <int D>
 __global__ void __launch_bounds__(NT, 1)
 flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const float* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ delta,
-                      float* __restrict__ dkh, float* __restrict__ dvh, int B, int S, int H,
-                      int KH, float scale, int causal, int window, float softcap) {
+                      float* __restrict__ dkh, float* __restrict__ dvh, int B, int S, int Skv,
+                      int H, int KH, float scale, int causal, int window, float softcap) {
   using C = Tc<D>;
   extern __shared__ __align__(16) float smem[];
   float* sk = smem;                  // [BKV][P]
@@ -234,8 +246,8 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q_begin = causal ? k0 : 0;
   const int q_end = window > 0 ? min(S, k0 + BKV - 1 + window) : S;
 
-  load_tile<D, NT>(sk, k + (long)b * S * ks + (long)kh * D, k0, S, ks);
-  load_tile<D, NT>(sv, v + (long)b * S * ks + (long)kh * D, k0, S, ks);
+  load_tile<D, NT>(sk, k + (long)b * Skv * ks + (long)kh * D, k0, Skv, ks);
+  load_tile<D, NT>(sv, v + (long)b * Skv * ks + (long)kh * D, k0, Skv, ks);
   load_tile<D, NT>(sq, qb, q_begin, S, qs);
   load_tile<D, NT>(sdo, db, q_begin, S, qs);
   load_stats(sl, sdel, lb, eb, q_begin, S);
@@ -277,7 +289,7 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float x[4];
     score_tile<D>((second ? sv : sk) + wm * 16 * C::P, (second ? tdo : tq) + wn * 8 * C::P,
                   lane, x);
-    const bool edge = edge_tile<BQ, BKV>(q0, k0, S, causal, window);
+    const bool edge = edge_of(q0, k0, S, Skv, causal, window);
     float p[4], dxdt[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -285,7 +297,7 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       if (second) {
         sdxt[kr * SP + qc] = x[i];   // dP^T, for the S warp of this element
       } else {
-        p_of(x[i], tl[qc], q0 + qc, k0 + kr, S, edge, scale, causal, window, softcap, p[i],
+        p_of(x[i], tl[qc], q0 + qc, k0 + kr, S, Skv, edge, scale, causal, window, softcap, p[i],
              dxdt[i]);
         spt[kr * SP + qc] = p[i];
       }
@@ -318,12 +330,12 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (split > 0) return;
 
   // accumulator element i: key wm * 16 + g + 8 (i / 2), dim (nblk NTW + j) * 8 + 2 t + i % 2
-  float* out = (second ? dkh : dvh) + (long)b * S * qs + (long)h * D;
+  float* out = (second ? dkh : dvh) + (long)b * Skv * qs + (long)h * D;
   const float mul = second ? scale : 1.f;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int key = k0 + wm * 16 + g + 8 * half;
-    if (key >= S) continue;
+    if (key >= Skv) continue;
 #pragma unroll
     for (int j = 0; j < C::NTW; ++j)
       *reinterpret_cast<float2*>(out + (long)key * qs + (nblk * C::NTW + j) * 8 + 2 * t) =
@@ -331,8 +343,8 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// dK and dV (B, S, KH, D) as the sums of their G = H / KH query heads'
-// shares (B, S, H, D), g = 0 .. G - 1 in order: one thread an element
+// dK and dV (B, S_kv, KH, D) as the sums of their G = H / KH query heads'
+// shares (B, S_kv, H, D), g = 0 .. G - 1 in order: one thread an element
 __global__ void __launch_bounds__(256)
 flash_bwd_reduce_kernel(const float* __restrict__ dkh, const float* __restrict__ dvh,
                         float* __restrict__ dk, float* __restrict__ dv, long n, int G, int D) {
@@ -354,8 +366,8 @@ __global__ void __launch_bounds__(NT, 1)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    float* __restrict__ dq, int B, int S, int H, int KH, float scale, int causal,
-                    int window, float softcap) {
+                    float* __restrict__ dq, int B, int S, int Skv, int H, int KH, float scale,
+                    int causal, int window, float softcap) {
   using C = Tc<D>;
   extern __shared__ __align__(16) float smem[];
   float* sq = smem;                  // [BQ][P]
@@ -372,19 +384,19 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = (n_qt - 1 - (int)(blockIdx.x / ((unsigned)H * B))) * BQ;
   const int kh = h / (H / KH);
   const long qs = (long)H * D, ks = (long)KH * D;
-  const float* kb = k + (long)b * S * ks + (long)kh * D;
-  const float* vb = v + (long)b * S * ks + (long)kh * D;
+  const float* kb = k + (long)b * Skv * ks + (long)kh * D;
+  const float* vb = v + (long)b * Skv * ks + (long)kh * D;
 
   // the key tiles the forward walks: none past the diagonal if causal, none
-  // wholly outside the window
-  const int kv_end = causal ? min(S, q0 + BQ) : S;
+  // wholly outside the window, none past S_kv
+  const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;
   const int kv_begin = window > 0 ? max(0, q0 - window + 1) / BKV * BKV : 0;
 
   load_tile<D, NT>(sq, q + (long)b * S * qs + (long)h * D, q0, S, qs);
   load_tile<D, NT>(sdo, dout + (long)b * S * qs + (long)h * D, q0, S, qs);
   load_stats(sl, sdel, lse + ((long)b * H + h) * S, delta + ((long)b * H + h) * S, q0, S);
-  load_tile<D, NT>(sk, kb, kv_begin, S, ks);
-  load_tile<D, NT>(sv, vb, kv_begin, S, ks);
+  load_tile<D, NT>(sk, kb, kv_begin, Skv, ks);
+  load_tile<D, NT>(sv, vb, kv_begin, Skv, ks);
   cp_async_commit();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
@@ -401,8 +413,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int k0 = kv_begin; k0 < kv_end; k0 += BKV, stage ^= 1) {
     if (k0 + BKV < kv_end) {
       const int ns = stage ^ 1;
-      load_tile<D, NT>(sk + ns * C::TILE, kb, k0 + BKV, S, ks);
-      load_tile<D, NT>(sv + ns * C::TILE, vb, k0 + BKV, S, ks);
+      load_tile<D, NT>(sk + ns * C::TILE, kb, k0 + BKV, Skv, ks);
+      load_tile<D, NT>(sv + ns * C::TILE, vb, k0 + BKV, Skv, ks);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -418,7 +430,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float x[4];
     score_tile<D>((second ? sdo : sq) + wm * 16 * C::P, (second ? tv : tk) + wn * 8 * C::P,
                   lane, x);
-    const bool edge = edge_tile<BQ, BKV>(q0, k0, S, causal, window);
+    const bool edge = edge_of(q0, k0, S, Skv, causal, window);
     float p[4], dxdt[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -426,7 +438,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       if (second)
         sdx[qr * SP + kc] = x[i];   // dP, for the S warp of this element
       else
-        p_of(x[i], sl[qr], q0 + qr, k0 + kc, S, edge, scale, causal, window, softcap, p[i],
+        p_of(x[i], sl[qr], q0 + qr, k0 + kc, S, Skv, edge, scale, causal, window, softcap, p[i],
              dxdt[i]);
     }
     __syncthreads();
@@ -469,7 +481,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int D>
 int launch(const float* q, const float* k, const float* v, const float* o, const float* lse,
            const float* dout, float* dq, float* dk, float* dv, float* delta, float* dkh,
-           float* dvh, int B, int S, int H, int KH, float scale, int causal, int window,
+           float* dvh, int B, int S, int Skv, int H, int KH, float scale, int causal, int window,
            float softcap, cudaStream_t st) {
   using C = Tc<D>;
   static std::atomic<unsigned long long> dkdv_in{0}, dq_in{0};
@@ -484,37 +496,39 @@ int launch(const float* q, const float* k, const float* v, const float* o, const
   if (err != cudaSuccess) return (int)err;
   const bool shared_kv = KH < H;   // dK, dV sum query heads' shares from the workspace
   const unsigned heads = (unsigned)B * H;
-  flash_bwd_dkdv_kernel<D><<<(unsigned)((S + BKV - 1) / BKV) * heads, NT, C::SMEM_DKDV, st>>>(
-      q, k, v, dout, lse, delta, shared_kv ? dkh : dk, shared_kv ? dvh : dv, B, S, H, KH, scale,
-      causal, window, softcap);
+  flash_bwd_dkdv_kernel<D><<<(unsigned)((Skv + BKV - 1) / BKV) * heads, NT, C::SMEM_DKDV, st>>>(
+      q, k, v, dout, lse, delta, shared_kv ? dkh : dk, shared_kv ? dvh : dv, B, S, Skv, H, KH,
+      scale, causal, window, softcap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (shared_kv) {
-    const long n = (long)B * S * KH * D;
+    const long n = (long)B * Skv * KH * D;
     flash_bwd_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(dkh, dvh, dk, dv, n,
                                                                          H / KH, D);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   flash_bwd_dq_kernel<D><<<(unsigned)((S + BQ - 1) / BQ) * heads, NT, C::SMEM_DQ, st>>>(
-      q, k, v, dout, lse, delta, dq, B, S, H, KH, scale, causal, window, softcap);
+      q, k, v, dout, lse, delta, dq, B, S, Skv, H, KH, scale, causal, window, softcap);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// fp32 q, o, dout, dq (B, S, H, D); k, v, dk, dv (B, S, KH, D); lse and the
-// workspace delta (B, H, S); with KH < H the workspaces dkh and dvh (B, S,
-// H, D), else they may be null. q, k, v, dout and the outputs must be
-// 16-byte aligned. Launches the kernels on `stream` and does not
-// synchronise; returns cudaGetLastError() after each launch (0 on success).
+// fp32 q, o, dout, dq (B, S, H, D); k, v, dk, dv (B, S_kv, KH, D); lse and
+// the workspace delta (B, H, S); with KH < H the workspaces dkh and dvh (B,
+// S_kv, H, D), else they may be null. S_kv != S only without a causal mask
+// and a window. q, k, v, dout and the outputs must be 16-byte aligned.
+// Launches the kernels on `stream` and does not synchronise; returns
+// cudaGetLastError() after each launch (0 on success).
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* lse, const void* dout, void* dq, void* dk,
                                    void* dv, void* delta, void* dkh, void* dvh, int B, int S,
-                                   int H, int KH, int D, float scale, int causal, int window,
-                                   float softcap, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || KH <= 0 || H % KH != 0 || B > 65535 || H > 65535 ||
-      (long)((S + 31) / 32) * B * H > 0x7fffffffL || (KH < H && !(dkh && dvh)))
+                                   int S_kv, int H, int KH, int D, float scale, int causal,
+                                   int window, float softcap, void* stream) {
+  if (B <= 0 || S <= 0 || S_kv <= 0 || H <= 0 || KH <= 0 || H % KH != 0 || B > 65535 ||
+      H > 65535 || (long)(((S > S_kv ? S : S_kv) + 31) / 32) * B * H > 0x7fffffffL ||
+      (KH < H && !(dkh && dvh)) || (S_kv != S && (causal || window > 0)))
     return (int)cudaErrorInvalidValue;
   for (const void* p : {q, k, v, dout, (const void*)dq, (const void*)dk, (const void*)dv,
                         (const void*)dkh, (const void*)dvh})
@@ -525,7 +539,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
       static_cast<const float*>(o), static_cast<const float*>(lse),                           \
       static_cast<const float*>(dout), static_cast<float*>(dq), static_cast<float*>(dk),      \
       static_cast<float*>(dv), static_cast<float*>(delta), static_cast<float*>(dkh),          \
-      static_cast<float*>(dvh), B, S, H, KH, scale, causal, window, softcap, st
+      static_cast<float*>(dvh), B, S, S_kv, H, KH, scale, causal, window, softcap, st
   switch (D) {
     case 16: return launch<16>(K1_BWD_ARGS);
     case 64: return launch<64>(K1_BWD_ARGS);

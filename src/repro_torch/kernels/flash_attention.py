@@ -11,7 +11,7 @@ products a multiply: fp32-grade error). ``flash_attention.launches``
 counts every launch, ``flash_attention.launches_by_route`` each route's.
 k and v may have a length of their own, S_kv (the encoder-decoder's
 cross-attention: text queries over the encoder's frames), without a causal
-mask or a window; the backward takes one S.
+mask or a window, in the forward and in the backward.
 
 The gradient (K1-bwd) is ``csrc/flash_attention_bwd.cu``, fp32 in and out,
 its products on the tensor cores as 3xTF32 ``mma.sync`` at every head_dim,
@@ -61,7 +61,7 @@ def bwd_entry(lib):
     """The C entry point flash_attention_bwd of `lib` (a built
     csrc/flash_attention_bwd.cu, loaded by ctypes), typed."""
     fn = lib.flash_attention_bwd
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -165,13 +165,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, scale=None, causal=True, window=
                         softcap=None):
     """K1-bwd: (dq, dk, dv) of `flash_attention` given its inputs, output o,
     log-sum-exp lse (B,H,S) and the output's gradient do, all fp32,
-    contiguous, on one CUDA device; dk and dv sum over each kv head's query
-    heads (a fixed order, no atomics). Launches on the current stream, no
-    sync."""
+    contiguous, on one CUDA device; k and v (B,S_kv,KH,D) as in the
+    forward. dk and dv sum over each kv head's query heads (a fixed order,
+    no atomics). Launches on the current stream, no sync."""
     _check(q, k, v, causal, window)
     b, s, h, d = q.shape
-    if k.shape[1] != s:
-        raise ValueError(f"flash_attention_bwd takes one S; got q of {s}, k of {k.shape[1]}")
     if q.dtype != torch.float32:
         raise TypeError(f"flash_attention_bwd is fp32 only; got {q.dtype}")
     if o.shape != q.shape or do.shape != q.shape or lse.shape != (b, h, s):
@@ -198,13 +196,15 @@ def bwd_launch(fn, q, k, v, o, lse, do, *, scale=None, causal=True, window=0, so
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     # each query head's share of dk and dv, which the kernel sums per kv head
-    shares = [torch.empty_like(q) for _ in range(2)] if k.shape[2] < h else [None, None]
+    shares = ([torch.empty((b, k.shape[1], h, d), dtype=q.dtype, device=q.device)
+               for _ in range(2)] if k.shape[2] < h else [None, None])
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
                  do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
                  *(None if t is None else t.data_ptr() for t in shares),
-                 b, s, h, k.shape[2], d, float(scale), int(bool(causal)), int(window or 0),
-                 float(softcap or 0.0), torch.cuda.current_stream(q.device).cuda_stream)
+                 b, s, k.shape[1], h, k.shape[2], d, float(scale), int(bool(causal)),
+                 int(window or 0), float(softcap or 0.0),
+                 torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error {err}")
     return dq, dk, dv

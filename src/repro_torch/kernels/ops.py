@@ -12,15 +12,16 @@ RG-LRU scan takes an initial state and returns the last one, which the
 Pallas kernel does not, because the model needs both.
 
 Gradients: on the CPU, autograd differentiates the plain versions. On the
-card, K1 in fp32 and K4 run as autograd Functions whose backward is a
-kernel too (K1-bwd, K4-bwd). A kernel with no backward kernel (K1's bf16
-routes, K2, K3) raises NotImplementedError when grad mode is on and an
+card, K1, K3 and K4 in fp32 run as autograd Functions whose backward is a
+kernel too (K1-bwd, K3-bwd, K4-bwd); K1-bwd takes k and v of a length of
+their own, as K1 does. A kernel with no backward kernel (K1's and K3's
+bf16 routes, K2) raises NotImplementedError when grad mode is on and an
 input requires a gradient (``needs_grad``), rather than return a tensor
 with no ``grad_fn``, which would leave every parameter upstream of it
-without a gradient and no error; so does K1 with k and v of a length of
-their own (cross-attention), which K1-bwd does not take. ``flash_attention_bwd_plain`` and
-``rglru_scan_bwd_plain`` are the backward kernels' plain versions, written
-out as formulas, for the tests and ``chip_smoke.py``.
+without a gradient and no error. ``flash_attention_bwd_plain``,
+``ssd_scan_bwd_plain`` and ``rglru_scan_bwd_plain`` are the backward
+kernels' plain versions, written out as the passes each kernel runs, for
+the tests and ``chip_smoke.py``.
 """
 
 import torch
@@ -37,6 +38,7 @@ KERNELS = {"flash_attention": _flash.flash_attention,
            "ssd_scan": _ssd.ssd_scan,
            "rglru_scan": _rglru.rglru_scan,
            "flash_attention_bwd": _flash.flash_attention_bwd,
+           "ssd_scan_bwd": _ssd.ssd_scan_bwd,
            "rglru_scan_bwd": _rglru.rglru_scan_bwd}
 
 
@@ -110,10 +112,6 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=None, scale=None)
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap, scale=scale)
     if needs_grad(q, k, v):
-        if k.shape[1] != q.shape[1]:
-            raise _no_backward("K1 with k and v of a length of their own",
-                               "training the encoder-decoder, whose cross-attention K1-bwd, "
-                               "on one S, does not take")
         if q.dtype != torch.float32:
             raise _no_backward(f"K1 in {q.dtype}", "a bf16 K1 backward on wgmma")
         return _flash.FlashAttention.apply(q, k, v, scale, causal, window, softcap)
@@ -141,9 +139,11 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal=True, window=0, sof
     gradient do, by the formulas the kernel computes (fp32):
     P = exp(t - lse), dT = P (dO.V - Delta) with Delta = dO.O,
     dX = dT (1 - tanh^2(x / cap)), dq = scale dX K, dk = scale dX^T Q,
-    dv = P^T dO; dk and dv summed over each kv head's query heads."""
+    dv = P^T dO; dk and dv summed over each kv head's query heads. k and v
+    may have S_kv rows of their own, unmasked, as in `flash_attention`."""
+    _flash.check_kv_len(q, k, causal, window)
     b, s, h, d = q.shape
-    kh = k.shape[2]
+    kh, s_kv = k.shape[2], k.shape[1]
     scale = scale if scale is not None else d ** -0.5
     qf, dof, of = q.float(), do.float(), o.float()
     kf, vf = _expand_kv(k, h).float(), _expand_kv(v, h).float()
@@ -152,7 +152,7 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal=True, window=0, sof
     if softcap:
         th = torch.tanh(x / softcap)
         x, dxdt = softcap * th, 1.0 - th * th
-    ok = _mask(s, causal, window, q.device)
+    ok = _mask(s, causal, window, q.device, s_kv)
     p = torch.exp(torch.where(ok, x, NEG_INF) - lse[..., None])    # 0 where masked
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
     delta = (dof * of).sum(-1).transpose(1, 2)                      # (B,H,S)
@@ -160,7 +160,7 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal=True, window=0, sof
     dq = torch.einsum("bhqk,bkhd->bqhd", dx, kf) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", dx, qf) * scale
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
-    fold = lambda t: t.reshape(b, s, kh, h // kh, d).sum(3)   # noqa: E731
+    fold = lambda t: t.reshape(b, s_kv, kh, h // kh, d).sum(3)   # noqa: E731
     return dq, fold(dk), fold(dv)
 
 
@@ -198,13 +198,15 @@ def ssd_scan_plain(x, dt, a, b, c, *, chunk=128, h0=None):
     """Plain PyTorch version of `ssd_scan` (any device): the chunked SSD
     algorithm of ``repro.nn.ssd.ssd_chunked``, with its dtypes. The C·Bᵀ
     scores and the inter-chunk product C·S_prev are taken in the input
-    dtype (S_prev cast to it first), everything else in fp32.
+    dtype (S_prev cast to it first), everything else in fp32 (fp64 for
+    fp64 inputs, an oracle's).
 
     x (B,S,H,P); dt (B,S,H) post-softplus, fp32; a (H,) negative, fp32;
     b, c (B,S,G,N) with G dividing H; h0 (B,H,P,N) fp32 or None.
     Returns (y (B,S,H,P) in x's dtype, final_state (B,H,P,N) fp32)."""
     bsz, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
+    acc = torch.promote_types(x.dtype, torch.float32)
     pad = -s % chunk
     if pad:
         x, b, c = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)) for t in (x, b, c))
@@ -225,16 +227,15 @@ def ssd_scan_plain(x, dt, a, b, c, *, chunk=128, h0=None):
     causal = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
     m = scores * torch.exp(torch.where(causal, decay, -torch.inf)) \
         * dtc.movedim(-1, 2)[..., None, :]
-    y_intra = torch.einsum("bchlm,bcmhp->bclhp", m, xc.float())
+    y_intra = torch.einsum("bchlm,bcmhp->bclhp", m, xc.to(acc))
 
     # chunk summary states: S_c = sum_s exp(cs_last - cs_s) dt_s x_s B_s
     w = torch.exp(seg_total[..., None, :] - cs) * dtc     # (B,nc,L,H)
-    s_chunk = torch.einsum("bclh,bclhp,bclhn->bchpn", w, xc.float(), bc.float())
+    s_chunk = torch.einsum("bclh,bclhp,bclhn->bchpn", w, xc.to(acc), bc.to(acc))
 
     # inter-chunk recurrence, then y_t += exp(cs_t) C_t . S_{c-1}
     seg = torch.exp(seg_total)
-    state = h0 if h0 is not None else torch.zeros((bsz, h, p, n), dtype=torch.float32,
-                                                  device=x.device)
+    state = h0 if h0 is not None else torch.zeros((bsz, h, p, n), dtype=acc, device=x.device)
     prev = []
     for ci in range(nc):
         prev.append(state)
@@ -256,10 +257,100 @@ def ssd_scan(x, dt, a, b, c, *, chunk=128, h0=None, return_state=False):
     if _on_cpu(x, dt, a, b, c, *(() if h0 is None else (h0,))):
         y, state = ssd_scan_plain(x, dt, a, b, c, chunk=chunk, h0=h0)
     elif needs_grad(x, dt, a, b, c, h0):
-        raise _no_backward("K3 (the SSD scan)", "the K3 backward and Mamba2 training")
+        if x.dtype != torch.float32:
+            raise _no_backward(f"K3 in {x.dtype}", "a bf16 K3 backward")
+        y, state = _ssd.SSDScan.apply(x, dt, a, b, c, h0)
     else:
         y, state = _ssd.ssd_scan(x, dt, a, b, c, h0=h0, return_state=return_state)
     return (y, state) if return_state else y
+
+
+def ssd_scan_bwd_plain(x, dt, a, b, c, h0, dy, dstate, *, chunk=_ssd.CHUNK):
+    """Plain PyTorch version of K3-bwd: (dx, ddt, da, db, dc, dh0) of
+    `ssd_scan` (y, final_state) given the gradients dy (B,S,H,P) and dstate
+    (B,H,P,N) (or None: zeros), in fp32 (fp64 for fp64 inputs, an
+    oracle's), by the passes the kernel runs over chunks of `chunk` steps
+    (the kernel's own, 64):
+    1. state recompute: each chunk's incoming state S_{c-1}, by the
+       forward's recurrence S_c = exp(cs_L) S_{c-1} + sum_s w_s x_s B_s^T,
+       w_s = exp(cs_L - cs_s) dt_s, from h0 (or zeros);
+    2. the reverse state-gradient scan, seeded with dstate:
+       dS_{c-1} = exp(cs_L) dS_c + sum_t exp(cs_t) dy_t^T C_t; its last
+       value is dh0;
+    3. per chunk, with M[t,s] = (C_t . B_s) exp(cs_t - cs_s) dt_s for
+       s <= t (masked before exp), dM[t,s] = dy_t . x_s and dS = dS_c:
+       dx_s = sum_t M[t,s] dy_t + w_s dS B_s,
+       dC_t = sum_s dG[t,s] B_s + exp(cs_t) dy_t S_{c-1},
+       dB_s = sum_t dG[t,s] C_t + w_s x_s dS, with dG = dM exp(cs_t - cs_s) dt_s;
+       d(cs) from the decays (R = dM (C_t . B_s) exp(cs_t - cs_s)), the
+       carried terms and exp(cs_L), then a reverse cumsum within the chunk
+       to d(dt a): ddt = its a-multiple plus the direct terms, da its sum
+       against dt. db and dc sum over each group's heads; dh0 is None when
+       h0 is."""
+    bsz, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    acc = torch.promote_types(x.dtype, torch.float32)
+    f = lambda t: None if t is None else t.to(acc)   # noqa: E731
+    x, dt, a, b, c, h0, dy, dstate = map(f, (x, dt, a, b, c, h0, dy, dstate))
+    pad = -s % chunk
+    if pad:
+        x, b, c, dy = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)) for t in (x, b, c, dy))
+        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+    nc = x.shape[1] // chunk
+    xc, dyc = (t.reshape(bsz, nc, chunk, h, p) for t in (x, dy))
+    dtc = dt.reshape(bsz, nc, chunk, h)
+    bc, cc = (t.reshape(bsz, nc, chunk, g, n).repeat_interleave(h // g, dim=3) for t in (b, c))
+    cs = torch.cumsum(dtc * a, dim=2)                          # (B,nc,L,H)
+    cl = cs[:, :, -1]                                          # (B,nc,H)
+    ecs = torch.exp(cs)
+    w = torch.exp(cl[:, :, None] - cs) * dtc                   # (B,nc,L,H)
+
+    # 1. the state entering each chunk
+    s_chunk = torch.einsum("bclh,bclhp,bclhn->bchpn", w, xc, bc)
+    state = torch.zeros((bsz, h, p, n), dtype=acc, device=x.device) if h0 is None else h0
+    prev = []
+    for ci in range(nc):
+        prev.append(state)
+        state = torch.exp(cl[:, ci])[..., None, None] * state + s_chunk[:, ci]
+    prev = torch.stack(prev, dim=1)                            # (B,nc,H,P,N)
+
+    # 2. the gradient of the state each chunk leaves, in reverse
+    carried = torch.einsum("bclh,bclhp,bclhn->bchpn", ecs, dyc, cc)
+    ds = torch.zeros_like(state) if dstate is None else dstate
+    after = [None] * nc
+    for ci in range(nc - 1, -1, -1):
+        after[ci] = ds
+        ds = torch.exp(cl[:, ci])[..., None, None] * ds + carried[:, ci]
+    after = torch.stack(after, dim=1)                          # (B,nc,H,P,N)
+
+    # 3. each chunk's gradients
+    causal = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
+    decay = (cs[..., :, None, :] - cs[..., None, :, :]).movedim(-1, 2)   # (B,nc,H,t,s)
+    e = torch.exp(torch.where(causal, decay, -torch.inf))
+    dt_s = dtc.movedim(-1, 2)[..., None, :]                    # dt_s along the last axis
+    gm = torch.einsum("bclhn,bcmhn->bchlm", cc, bc)            # C_t . B_s
+    dm = torch.einsum("bclhp,bcmhp->bchlm", dyc, xc)           # dy_t . x_s
+    m = gm * e * dt_s
+    r = dm * gm * e
+    dg = dm * e * dt_s
+    u = torch.einsum("bcmhn,bchpn->bcmhp", bc, after)          # dS B_s
+    dx = torch.einsum("bchlm,bclhp->bcmhp", m, dyc) + w[..., None] * u
+    dw = (xc * u).sum(-1)                                      # (B,nc,L,H)
+    z = torch.einsum("bclhp,bchpn->bclhn", dyc, prev)          # dy_t S_{c-1}
+    dcm = torch.einsum("bchlm,bcmhn->bclhn", dg, bc) + ecs[..., None] * z
+    dbm = torch.einsum("bchlm,bclhn->bcmhn", dg, cc) \
+        + w[..., None] * torch.einsum("bcmhp,bchpn->bcmhn", xc, after)
+    col = r.sum(-2).movedim(-1, 2)                             # sum_t R[t,s]: (B,nc,L,H)
+    dcs = (r * dt_s).sum(-1).movedim(-1, 2) - dtc * col + ecs * (cc * z).sum(-1) - dw * w
+    dcs[:, :, -1] += (dw * w).sum(2) + torch.exp(cl) * (after * prev).sum((-2, -1))
+    rc = dcs.flip(2).cumsum(2).flip(2)                         # sum over u >= t
+    ddt = col + dw * torch.exp(cl[:, :, None] - cs) + a * rc
+    da = (dtc * rc).sum((0, 1, 2))
+
+    def steps(t):
+        return t.reshape(bsz, nc * chunk, *t.shape[3:])[:, :s]
+    group = lambda t: steps(t).reshape(bsz, s, g, h // g, n).sum(3)   # noqa: E731
+    return steps(dx), steps(ddt), da, group(dbm), group(dcm), (None if h0 is None else ds)
 
 
 def rglru_scan_plain(a, b, *, h0=None, out_dtype=torch.float32):

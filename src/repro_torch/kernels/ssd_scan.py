@@ -8,6 +8,11 @@ with P a multiple of 64 and N 64 or 128, which the serving path calls,
 runs the chunk's products on the tensor cores (wgmma), everything else on
 the fp32 CUDA cores. ``ssd_scan.launches`` counts every launch,
 ``ssd_scan.launches_by_route`` each route's.
+
+The gradient (K3-bwd) is ``csrc/ssd_scan_bwd.cu``, fp32 on the CUDA cores,
+which recomputes the chunk states from the inputs and walks the chunks in
+reverse; its plain version is ``ops.ssd_scan_bwd_plain``. ``SSDScan`` is
+the autograd Function that pairs the two.
 """
 
 import ctypes
@@ -19,6 +24,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import DTYPES
 
 MAX_STATE = 128   # largest N (NMAX in the source)
+CHUNK = 64        # steps a chunk in both kernels (L in the sources)
+PT = 64           # head columns p a CTA of K3-bwd (PT in ssd_scan_bwd.cu)
 ROUTES = ("wgmma", "cuda_cores")
 
 
@@ -103,3 +110,80 @@ def ssd_scan(x, dt, a, b, c, *, h0=None, return_state=False):
 
 ssd_scan.launches = 0
 ssd_scan.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+@functools.cache
+def _bwd_fn():
+    """The backward's C entry point, built, loaded and typed once per process."""
+    fn = build.load("ssd_scan_bwd").ssd_scan_bwd
+    fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def ssd_scan_bwd(x, dt, a, b, c, h0, dy, dstate):
+    """K3-bwd: (dx, ddt, da, db, dc, dh0) of ``ssd_scan``'s (y, final state)
+    given the same inputs (h0 None: zeros) and the gradients dy (B,S,H,P)
+    and dstate (B,H,P,N) (None: zeros). All fp32, contiguous, on one CUDA
+    device. dh0 is None when h0 is. db and dc sum over each group's heads,
+    da over batch and steps, in a fixed order (no atomics). Launches on the
+    current stream, no sync."""
+    if x.dim() != 4 or b.dim() != 4 or b.shape != c.shape or dy.shape != x.shape:
+        raise ValueError(f"want x = dy (B,S,H,P), b = c (B,S,G,N); got {tuple(x.shape)}, "
+                         f"{tuple(dy.shape)}, {tuple(b.shape)}, {tuple(c.shape)}")
+    bsz, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    if b.shape[:2] != (bsz, s) or h % g or dt.shape != (bsz, s, h) or a.shape != (h,):
+        raise ValueError(f"dt {tuple(dt.shape)}, a {tuple(a.shape)}, b/c {tuple(b.shape)} "
+                         f"do not match x {tuple(x.shape)}")
+    if n > MAX_STATE or min(x.shape) == 0:
+        raise ValueError(f"state size {n} > {MAX_STATE}, or an empty input {tuple(x.shape)}")
+    if any(t is not None and t.shape != (bsz, h, p, n) for t in (h0, dstate)):
+        raise ValueError(f"h0 and dstate must be {(bsz, h, p, n)}")
+    ins = tuple(t for t in (x, dt, a, b, c, h0, dy, dstate) if t is not None)
+    if any(t.dtype != torch.float32 for t in ins):
+        raise TypeError(f"ssd_scan_bwd is fp32 only; got {[t.dtype for t in ins]}")
+    if not (x.is_cuda and all(t.device == x.device for t in ins)):
+        raise ValueError("ssd_scan_bwd kernel needs every input on one CUDA device")
+    if not all(t.is_contiguous() for t in ins):
+        raise ValueError("ssd_scan_bwd kernel needs contiguous inputs")
+    npt, nc = -(-p // PT), -(-s // CHUNK)
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=x.device)   # noqa: E731
+    dx, ddt, da, db, dc = new(*x.shape), new(*dt.shape), new(h), new(*b.shape), new(*c.shape)
+    dh0 = None if h0 is None else new(*h0.shape)
+    # the chunk states, and each CTA's share of what sums over heads, p tiles
+    # or batch, which the reduce kernels add in a fixed order
+    states = new(bsz, h, nc, p, n)
+    dbp, dcp = new(npt, bsz, s, h, n), new(npt, bsz, s, h, n)
+    ddtp, dap = new(npt, bsz, s, h), new(npt, bsz, h)
+    ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
+    with torch.cuda.device(x.device):
+        err = _bwd_fn()(*(ptr(t) for t in (x, dt, a, b, c, h0, dy, dstate, dx, ddt, da, db, dc,
+                                           dh0, states, dbp, dcp, ddtp, dap)),
+                        bsz, s, h, p, g, n, torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"ssd_scan_bwd launch failed: CUDA error {err}")
+    ssd_scan_bwd.launches += 1
+    return dx, ddt, da, db, dc, dh0
+
+
+ssd_scan_bwd.launches = 0
+
+
+class SSDScan(torch.autograd.Function):
+    """K3 (fp32) with K3-bwd as its gradient. Saves the inputs; the
+    backward recomputes the chunk states. Returns (y, final state), both
+    differentiable."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, h0):
+        y, state = ssd_scan(x, dt, a, b, c, h0=h0, return_state=True)
+        ctx.save_for_backward(x, dt, a, b, c, h0)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, a, b, c, h0 = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        dstate = None if dstate is None else dstate.contiguous()
+        return ssd_scan_bwd(x, dt, a, b, c, h0, dy, dstate)

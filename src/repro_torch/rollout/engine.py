@@ -31,6 +31,7 @@ Determinism contract (what the parity tests pin down):
 
 import contextlib
 import copy
+import gc
 import math
 import threading
 from typing import Callable, Optional
@@ -238,15 +239,25 @@ class DeviceRolloutEngine:
                     self._unroll(self._params)
                 graph.register_generator_state(self._env_gen)
                 graph.register_generator_state(self._act_gen)
-                graph.capture_begin(capture_error_mode="thread_local")
+                # a CUDA graph destroyed while this one captures (an engine
+                # the collector frees) invalidates the capture: collect
+                # first, and nothing until the capture ends
+                gc.collect()
+                gc_enabled = gc.isenabled()
+                gc.disable()
                 try:
-                    self._unroll(self._params)
-                except BaseException:
-                    # leave the stream out of capture mode, then raise the cause
-                    with contextlib.suppress(RuntimeError):
-                        graph.capture_end()
-                    raise
-                graph.capture_end()
+                    graph.capture_begin(capture_error_mode="thread_local")
+                    try:
+                        self._unroll(self._params)
+                    except BaseException:
+                        # leave the stream out of capture mode, then raise the cause
+                        with contextlib.suppress(RuntimeError):
+                            graph.capture_end()
+                        raise
+                    graph.capture_end()
+                finally:
+                    if gc_enabled:
+                        gc.enable()
             torch.cuda.current_stream(self.device).wait_stream(stream)
         self._graph = graph
         self.captures += 1

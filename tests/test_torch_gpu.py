@@ -229,7 +229,7 @@ def test_lm_on_card_matches_cpu(cuda):
     assert ops.launch_counts() == {"flash_attention": cfg.num_layers,
                                    "decode_attention": cfg.num_layers * 9, "ssd_scan": 0,
                                    "rglru_scan": 0, "flash_attention_bwd": 0,
-                                   "rglru_scan_bwd": 0}
+                                   "ssd_scan_bwd": 0, "rglru_scan_bwd": 0}
     torch.testing.assert_close(got.cpu(), want)
 
 
@@ -291,7 +291,9 @@ def test_ssd_scan_kernel(cuda, b, s, h, p, n, g, dtype, with_h0):
 def test_flash_attention_kv_len_kernel(cuda, s, skv, h, kh, d, dtype):
     """Both routes of K1 with k and v of a length of their own (the
     encoder-decoder's cross-attention, unmasked); a causal mask with such a
-    length raises, and so does a call under autograd."""
+    length raises. Under autograd the fp32 call's gradients come from
+    K1-bwd, held to autograd of the plain version; bf16 raises (no bf16
+    K1 backward)."""
     gen = torch.Generator(device=cuda).manual_seed(9)
     q = _rand(gen, (2, s, h, d), dtype, cuda)
     k, v = (_rand(gen, (2, skv, kh, d), dtype, cuda) for _ in range(2))
@@ -300,8 +302,20 @@ def test_flash_attention_kv_len_kernel(cuda, s, skv, h, kh, d, dtype):
     torch.testing.assert_close(got, want, atol=TOL[dtype], rtol=TOL[dtype])
     with pytest.raises(ValueError, match="no causal mask"):
         ops.flash_attention(q, k, v)
-    with pytest.raises(NotImplementedError, match="length of their own"):
-        ops.flash_attention(q.float().requires_grad_(), k.float(), v.float(), causal=False)
+    if dtype != torch.float32:
+        with pytest.raises(NotImplementedError, match="bf16 K1 backward"):
+            ops.flash_attention(q.requires_grad_(), k, v, causal=False)
+        return
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    do = _rand(gen, q.shape, dtype, cuda)
+    ops.reset_launch_counts()
+    got = torch.autograd.grad(ops.flash_attention(*leaves, causal=False), leaves, do)
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 1 and counts["flash_attention_bwd"] == 1
+    want = torch.autograd.grad(ops.flash_attention_plain(*leaves, causal=False), leaves, do)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        _close_grad(g, w)
 
 
 def test_encdec_on_card_matches_cpu(cuda):
@@ -327,7 +341,8 @@ def test_encdec_on_card_matches_cpu(cuda):
     assert ops.launch_counts() == {"flash_attention": cfg.enc_layers + 2 * cfg.dec_layers,
                                    "decode_attention": 2 * cfg.dec_layers * 9,
                                    "ssd_scan": 0, "rglru_scan": 0,
-                                   "flash_attention_bwd": 0, "rglru_scan_bwd": 0}
+                                   "flash_attention_bwd": 0, "ssd_scan_bwd": 0,
+                                   "rglru_scan_bwd": 0}
     torch.testing.assert_close(got.cpu(), want)
 
 
@@ -345,7 +360,8 @@ def test_mamba_on_card_matches_cpu(cuda):
     got = greedy_generate(bundle, gpu, {"tokens": tokens.to(cuda)}, 10, None, torch.float32)
     assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0,
                                    "ssd_scan": cfg.num_layers, "rglru_scan": 0,
-                                   "flash_attention_bwd": 0, "rglru_scan_bwd": 0}
+                                   "flash_attention_bwd": 0, "ssd_scan_bwd": 0,
+                                   "rglru_scan_bwd": 0}
     torch.testing.assert_close(got.cpu(), want)
 
 
@@ -370,7 +386,8 @@ def test_recurrentgemma_on_card_matches_cpu(cuda):
     n_att = cfg.num_layers - n_rec
     assert ops.launch_counts() == {"flash_attention": n_att, "decode_attention": n_att * 9,
                                    "ssd_scan": 0, "rglru_scan": n_rec,
-                                   "flash_attention_bwd": 0, "rglru_scan_bwd": 0}
+                                   "flash_attention_bwd": 0, "ssd_scan_bwd": 0,
+                                   "rglru_scan_bwd": 0}
     torch.testing.assert_close(got.cpu(), want)
 
 
@@ -397,7 +414,7 @@ def test_dense_family_on_card_matches_cpu(cuda, arch):
     assert ops.launch_counts() == {"flash_attention": cfg.num_layers,
                                    "decode_attention": cfg.num_layers * 9, "ssd_scan": 0,
                                    "rglru_scan": 0, "flash_attention_bwd": 0,
-                                   "rglru_scan_bwd": 0}
+                                   "ssd_scan_bwd": 0, "rglru_scan_bwd": 0}
     torch.testing.assert_close(got.cpu(), want)
 
 
@@ -599,8 +616,8 @@ def test_rglru_scan_backward_plan(cuda, b, s, w):
 
 
 def test_kernels_without_a_backward_refuse_grad(cuda):
-    """K1's bf16 route, K2 and K3 raise under autograd on the card rather
-    than return a tensor with no grad_fn; under no_grad they run."""
+    """K1's bf16 route, K2 and K3 in bf16 raise under autograd on the card
+    rather than return a tensor with no grad_fn; under no_grad they run."""
     q = torch.randn(1, 64, 2, 64, device=cuda, dtype=torch.bfloat16, requires_grad=True)
     with pytest.raises(NotImplementedError, match="bf16 K1 backward"):
         ops.flash_attention(q, q, q)
@@ -609,11 +626,46 @@ def test_kernels_without_a_backward_refuse_grad(cuda):
     kv = torch.randn(1, 32, 2, 64, device=cuda, requires_grad=True)
     with pytest.raises(NotImplementedError, match="K2"):
         ops.decode_attention(kv[:, 0], kv, kv, torch.ones(1, dtype=torch.int32, device=cuda))
-    x = torch.randn(1, 16, 2, 16, device=cuda, requires_grad=True)
+    x = torch.randn(1, 16, 2, 16, device=cuda, dtype=torch.bfloat16, requires_grad=True)
     dt = torch.rand(1, 16, 2, device=cuda)
-    bm = torch.randn(1, 16, 1, 16, device=cuda)
-    with pytest.raises(NotImplementedError, match="K3 backward"):
+    bm = torch.randn(1, 16, 1, 16, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="bf16 K3 backward"):
         ops.ssd_scan(x, dt, -torch.ones(2, device=cuda), bm, bm)
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,with_h0,with_dstate", [
+    (4, 256, 80, 64, 1, 128, False, False),   # mamba2-2.7b's train call
+    (2, 200, 4, 16, 2, 32, True, True),       # ragged S, G < H, h0, d(final state)
+    (1, 37, 2, 80, 2, 128, True, False),      # under one chunk, two p tiles
+    (2, 150, 16, 8, 1, 16, False, True),      # the reduced config
+])
+def test_ssd_scan_backward_kernel(cuda, b, s, h, p, g, n, with_h0, with_dstate):
+    """K3 in fp32 under autograd runs K3 and K3-bwd; the gradients of x, dt,
+    a, b, c and h0 match the plain backward and autograd of the plain
+    forward within GRAD_TOL of each one's max."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x = (_rand(gen, (b, s, h, p), torch.float32, cuda) * 0.5).requires_grad_()
+    dt = torch.nn.functional.softplus(_rand(gen, (b, s, h), torch.float32, cuda) - 1.0)
+    a = -torch.exp(_rand(gen, (h,), torch.float32, cuda) * 0.5 + 1.0)
+    bm, cm = ((_rand(gen, (b, s, g, n), torch.float32, cuda) * 0.3) for _ in range(2))
+    h0 = _rand(gen, (b, h, p, n), torch.float32, cuda) * 0.2 if with_h0 else None
+    ins = [x, dt.requires_grad_(), a.requires_grad_(), bm.requires_grad_(), cm.requires_grad_()]
+    ins += [h0.requires_grad_()] if with_h0 else []
+    dy = _rand(gen, (b, s, h, p), torch.float32, cuda)
+    ds = _rand(gen, (b, h, p, n), torch.float32, cuda) if with_dstate else None
+    ops.reset_launch_counts()
+    y, st = ops.ssd_scan(*ins[:5], h0=h0, return_state=True)
+    loss = (y * dy).sum() + (0 if ds is None else (st * ds).sum())
+    got = torch.autograd.grad(loss, ins)
+    counts = ops.launch_counts()
+    assert counts["ssd_scan"] == 1 and counts["ssd_scan_bwd"] == 1
+    plain = ops.ssd_scan_bwd_plain(*(t.detach() for t in ins[:5]),
+                                   None if h0 is None else h0.detach(), dy, ds)
+    y2, st2 = ops.ssd_scan_plain(*ins[:5], chunk=64, h0=h0)
+    auto = torch.autograd.grad((y2 * dy).sum() + (0 if ds is None else (st2 * ds).sum()), ins)
+    for g_, p_, a_ in zip(got, plain, auto):
+        _close_grad(g_, p_)
+        _close_grad(g_, a_)
 
 
 def test_train_step_on_card_matches_cpu(cuda):
@@ -641,7 +693,8 @@ def test_train_step_on_card_matches_cpu(cuda):
     n_att = cfg.num_layers - n_rec
     assert ops.launch_counts() == {"flash_attention": n_att, "decode_attention": 0,
                                    "ssd_scan": 0, "rglru_scan": n_rec,
-                                   "flash_attention_bwd": n_att, "rglru_scan_bwd": n_rec}
+                                   "flash_attention_bwd": n_att, "ssd_scan_bwd": 0,
+                                   "rglru_scan_bwd": n_rec}
     for key in ("loss", "grad_norm"):
         torch.testing.assert_close(m_gpu[key].cpu(), m_cpu[key], atol=1e-4, rtol=1e-4)
     want = cpu["params"].state_dict()

@@ -395,7 +395,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         tdecode.decode_attention(q[:, 0], q, q, torch.ones(1, dtype=torch.int32))
     assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0,
                                    "ssd_scan": 0, "rglru_scan": 0, "flash_attention_bwd": 0,
-                                   "rglru_scan_bwd": 0}
+                                   "ssd_scan_bwd": 0, "rglru_scan_bwd": 0}
     meta = torch.zeros(1, 8, 2, 16, device="meta")
     with pytest.raises(ValueError, match="all be on the CPU or all on CUDA"):
         ops.flash_attention(q, meta, q)

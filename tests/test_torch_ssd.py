@@ -10,7 +10,10 @@ max|y_ref|, bf16's resolution: both contract C·Bᵀ and C·S_prev in bf16.
 An emulation of K3's tensor-core route (its chunk walk and its bf16
 roundings) is held to the same references: y at 2e-2 of max|y_ref|, the
 final state at 3e-5 of max|state_ref|, the bound the card's check holds the
-kernel to.
+kernel to. K3-bwd's plain version (``ops.ssd_scan_bwd_plain``, the passes
+the kernel runs) is held to ``jax.vjp`` of ``repro.nn.ssd.ssd_chunked`` and
+to autograd of the plain forward: every gradient within 1e-4 of its own
+max.
 """
 
 import re
@@ -142,6 +145,64 @@ def test_ssd_kernel_wrapper_refuses_cpu_and_bad_shapes():
     with pytest.raises(TypeError, match="fp32"):
         tssd.ssd_scan(args[0], args[1].double(), *args[2:])
     assert ops.launch_counts()["ssd_scan"] == 0
+
+
+@pytest.mark.parametrize("s,g,with_h0,with_dstate,chunk", [
+    (128, 1, False, False, 64),    # two whole chunks, one group, no state
+    (100, 1, True, True, 64),      # ragged S, h0 and d(final state)
+    (77, 2, True, False, 16),      # G < H, ragged against both chunk lengths
+    (40, 4, False, True, 8),       # G == H, the d(final state) alone
+    (9, 2, True, True, 64),        # S under one chunk
+])
+def test_ssd_scan_bwd_plain_matches_jax_vjp(s, g, with_h0, with_dstate, chunk):
+    """K3-bwd's plain version against jax.vjp of the function the JAX model
+    differentiates, ``repro.nn.ssd.ssd_chunked`` (its chunk of 16, the smoke
+    config's), and autograd of ``ops.ssd_scan_plain``, both on dy and a
+    d(final state) drawn from numpy: dx, ddt, da, db, dc and dh0 each within
+    1e-4 of its own max. dh0 is None without h0."""
+    b, h, p, n = 2, 4, 8, 16
+    d = _inputs(6, b, s, h, p, n, g, h0=with_h0)
+    rng = np.random.default_rng(7)
+    dy = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dstate = rng.standard_normal((b, h, p, n)).astype(np.float32) if with_dstate else None
+    keys = ("x", "dt", "a", "b", "c") + (("h0",) if with_h0 else ())
+    got = ops.ssd_scan_bwd_plain(*(_t(d[k]) for k in ("x", "dt", "a", "b", "c", "h0")),
+                                 _t(dy), _t(dstate), chunk=chunk)
+    assert len(got) == 6 and (got[5] is None) == (not with_h0)
+
+    def fn(*args):
+        return jssd.ssd_chunked(*args[:5], 16, h0=args[5] if with_h0 else None)
+    (_, final), vjp = jax.vjp(fn, *(_j(d[k]) for k in keys))
+    want = vjp((_j(dy), jnp.zeros_like(final) if dstate is None else _j(dstate)))
+    leaves = [_t(d[k]).requires_grad_() for k in keys]
+    y, state = ops.ssd_scan_plain(*leaves[:5], chunk=16, h0=leaves[5] if with_h0 else None)
+    loss = (y * _t(dy)).sum() + (0 if dstate is None else (state * _t(dstate)).sum())
+    auto = torch.autograd.grad(loss, leaves)
+    for name, g_, j, a_ in zip(("dx", "ddt", "da", "db", "dc", "dh0"), got, want, auto):
+        assert g_.shape == a_.shape, name
+        for ref_ in (np.asarray(j), a_.numpy()):
+            scale = float(np.abs(ref_).max())
+            np.testing.assert_allclose(g_.numpy(), ref_, atol=1e-4 * scale, rtol=0, err_msg=name)
+
+
+def test_ssd_scan_bwd_wrapper_refuses_cpu_and_autograd_takes_plain():
+    """K3-bwd's wrapper never falls back (CPU tensors are an error there);
+    on the CPU ``ops.ssd_scan`` under autograd differentiates the plain
+    version, its gradients those of ``ssd_scan_bwd_plain``."""
+    d = _inputs(8, 1, 20, 2, 4, 8, 1, h0=True)
+    args = [_t(d[k]) for k in ("x", "dt", "a", "b", "c")]
+    with pytest.raises(ValueError, match="CUDA"):
+        tssd.ssd_scan_bwd(*args, None, torch.zeros(1, 20, 2, 4), None)
+    with pytest.raises(TypeError, match="fp32"):
+        tssd.ssd_scan_bwd(*args, None, torch.zeros(1, 20, 2, 4).double(), None)
+    leaves = [t.clone().requires_grad_() for t in args + [_t(d["h0"])]]
+    y = ops.ssd_scan(*leaves[:5], chunk=8, h0=leaves[5])
+    dy = torch.randn(y.shape, generator=torch.Generator().manual_seed(0))
+    auto = torch.autograd.grad((y * dy).sum(), leaves)
+    plain = ops.ssd_scan_bwd_plain(*args, _t(d["h0"]), dy, None)
+    for g_, p_ in zip(auto, plain):
+        torch.testing.assert_close(g_, p_, atol=1e-4 * float(p_.abs().max()), rtol=0)
+    assert ops.launch_counts()["ssd_scan_bwd"] == 0
 
 
 def _wgmma_walk(x, dt, a, b, c, h0=None, halves=2):
