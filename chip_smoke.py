@@ -19,10 +19,12 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    D 16 its 3xTF32 route (whose log-sum-exp is held at 1e-5, at the edges
    of its 32 x 32 tiles too), each case logging its route; K3's bf16 cases with P a multiple
    of 64 and N 64 or 128 take its tensor-core route (ragged S, S under
-   one chunk, two groups, no initial state, B 1, N 64) and its fp32 cases
-   and a bf16 one at P 16 its CUDA-core route, each case logging its
-   route, with a nonzero initial state, fewer groups than heads, and in
-   fp32 its final state against the sequential oracle; K4 (a chunked scan
+   one chunk, two groups, no initial state, B 1, N 64), its fp32 cases
+   its 3xTF32 route (also at the train call, two p tiles with N 64, and
+   P and N off multiples of 4) and a bf16 one at P 16 its CUDA-core
+   route, each case logging its route, with a nonzero initial state,
+   fewer groups than heads, and in fp32 its final state against the
+   sequential oracle; K4 (a chunked scan
    over S) with S over many of its tiles and ragged, S 1, S under one
    chunk, W under its strip and not a multiple of it, B 1, an fp32 and a
    bf16 y each with and without an initial state; kernel, plain and
@@ -280,15 +282,20 @@ inside a key tile, D 16, and k and v of a length of their own, S_kv 1024
 against S 256 at seamless's cross call, shorter and longer than S; K4-bwd:
 S over many of its tiles, S 1, W 37, B 1; K3-bwd: mamba2's train call with
 and without h0 and d(final state), ragged S, G < H and G == H, two p
-tiles, under one chunk), each case logging its route or plan, and times
+tiles, under one chunk; K3-bwd's cases each run twice and held equal to
+the bit), each case logging its route or plan, and times
 them against their bounds: K1-bwd (3xTF32 on the tensor cores) against
 SDPA's fp32 backward (forward and backward, less forward), split by
 kernel, with its registers and spills, at RecurrentGemma's call and at
 seamless's cross call; K4-bwd warm and cold in L2 with its plan; K3-bwd
-(fp32 CUDA cores) split by kernel, with its registers and spills. K1's
-fp32 forward (3xTF32) is timed at the train call too, beside SDPA's fp32
-forward, against its bounds at the 3xTF32 and the fp32 CUDA-core rates,
-with its registers and spills, and K3's fp32 forward at mamba2's.
+(3xTF32 on the tensor cores) split by kernel, with its plan (CTAs, CTAs
+an SM from the library, waves), registers and spills a kernel and its
+bounds at the 3xTF32 and fp32 CUDA-core rates. K1's fp32 forward
+(3xTF32) is timed at the train call too, beside SDPA's fp32 forward,
+against its bounds at the 3xTF32 and the fp32 CUDA-core rates, with its
+registers and spills, and K3's fp32 forward (3xTF32) at mamba2's, the
+same fields as K3-bwd's, in a row of its own (``ssd_scan_tf32x3``, its
+launches those of that route in the train phase).
 
 After phase 20, when no other phase runs, a child process runs the dry
 run (``python -m repro_torch.launch.dryrun``'s ``main``, no card: a fake
@@ -1025,8 +1032,11 @@ def kernel_phase(k1_ptxas, k4_ptxas, bwd_ptxas):
              ((2, 100, 4, 16, 32, 2), torch.bfloat16, True),     # bf16 on the CUDA cores
              ((2, 200, 4, 16, 32, 2), torch.float32, True),    # ragged S, G < H, h0
              ((1, 37, 2, 64, 128, 1), torch.float32, False),   # S shorter than one chunk
-             ((2, 150, 16, 8, 16, 1), torch.float32, True)]    # reduced config
-    main_err = None
+             ((2, 150, 16, 8, 16, 1), torch.float32, True),    # reduced config
+             ((TRAIN["batch"], TRAIN["seq"], mh, mp, mn, mg), torch.float32, False),  # train
+             ((1, 130, 3, 80, 64, 3), torch.float32, True),    # two p tiles, N 64, G == H
+             ((1, 70, 2, 5, 7, 1), torch.float32, True)]       # P, N off 4: 4-byte copies
+    main_err, k3_fp32_err = None, 0.0
     for (cb, cs, ch, cp, cn, cg), dt_, with_h0 in cases:
         x, dt, a, bm, cm, h0 = ssd_inputs(cb, cs, ch, cp, cn, cg, dt_, with_h0)
         y, st = K3.ssd_scan(x, dt, a, bm, cm, h0=h0, return_state=True)
@@ -1040,6 +1050,7 @@ def kernel_phase(k1_ptxas, k4_ptxas, bwd_ptxas):
         check_close(f"{name} state", st, sp, 1e-4, 3e-5 * max(float(sp.abs().max()), 1.0))
         main_err = err if main_err is None else main_err
         if dt_ == torch.float32:   # the final state against the sequential oracle
+            k3_fp32_err = max(k3_fp32_err, err)
             r = ch // cg
             yr, sr = ref.ssd_ref(x, dt, a, bm.repeat_interleave(r, 2),
                                  cm.repeat_interleave(r, 2), h0)
@@ -1389,10 +1400,11 @@ def kernel_phase(k1_ptxas, k4_ptxas, bwd_ptxas):
     del sets
 
     # ---- K3-bwd ----
-    log("== kernels: K3-bwd SSD chunked scan backward (fp32, CUDA cores)")
+    log("== kernels: K3-bwd SSD chunked scan backward (fp32, 3xTF32 tensor cores)")
     # held to GRAD_TOL of each gradient's max |value|, and relative: dB and
     # dC sum over a chunk and a group's heads, da over batch and steps, in
-    # another order than the plain version's einsums
+    # another order than the plain version's einsums; two calls must give
+    # the same bits (every sum is taken in one fixed order, no atomics)
     mh, mp, mn = 80, 64, 128          # mamba2-2.7b's heads, head_dim and state
     cases = [((tb, ts, mh, mp, mn, 1), False, False),   # the train call
              ((tb, ts, mh, mp, mn, 1), True, True),     # with h0 and d(final state)
@@ -1406,29 +1418,36 @@ def kernel_phase(k1_ptxas, k4_ptxas, bwd_ptxas):
         dy = rand(cb, cs, ch, cp, dtype=torch.float32)
         ds = rand(cb, ch, cp, cn, dtype=torch.float32) if with_ds else None
         got = K3.ssd_scan_bwd(x, dt, a, bm, cm, h0, dy, ds)
+        again = K3.ssd_scan_bwd(x, dt, a, bm, cm, h0, dy, ds)
         want = ops.ssd_scan_bwd_plain(x, dt, a, bm, cm, h0, dy, ds)
         torch.cuda.synchronize()
         name = f"K3-bwd {(cb, cs, ch, cp, cn, cg)} fp32 h0={with_h0} dstate={with_ds}"
         if (got[5] is None) != (h0 is None):
             raise AssertionError(f"{name}: dh0 given without h0, or missing with it")
+        if not all(torch.equal(u, v) for u, v in zip(got, again) if u is not None):
+            raise AssertionError(f"{name}: two calls differ")
         errs = [check_close(f"{name} {g_}", x_, w_, GRAD_TOL,
                             GRAD_TOL * max(float(w_.abs().max()), 1e-30))
                 for g_, x_, w_ in zip(("dx", "ddt", "da", "db", "dc", "dh0"), got, want)
                 if w_ is not None]
         main_err = max(errs) if main_err is None else main_err
+    log(f"   K3-bwd: two calls of each of the {len(cases)} cases equal to the bit")
     # timing at the train call (no h0; the final state unused), and K3's
-    # own fp32 call there (the CUDA-core route, returning the final state)
+    # own fp32 call there (the 3xTF32 route, returning the final state)
     x, dt, a, bm, cm, _ = ssd_inputs(tb, ts, mh, mp, mn, 1, torch.float32, False)
     dy = rand(tb, ts, mh, mp, dtype=torch.float32)
-    fwd_ms = time_ms("K3 fp32 train call", lambda: K3.ssd_scan(x, dt, a, bm, cm,
-                                                               return_state=True))
+    fwd = lambda: K3.ssd_scan(x, dt, a, bm, cm, return_state=True)   # noqa: E731
+    fwd_ms = time_ms("K3 fp32 train call", fwd)
     fwd_plain = time_ms("K3 fp32 plain", lambda: ops.ssd_scan_plain(x, dt, a, bm, cm, chunk=256),
                         iters=5, warmup=1)
     bwd = lambda: K3.ssd_scan_bwd(x, dt, a, bm, cm, None, dy, None)   # noqa: E731
     ms = time_ms("K3-bwd", bwd)
     plain_ms = time_ms("K3-bwd plain", lambda: ops.ssd_scan_bwd_plain(
         x, dt, a, bm, cm, None, dy, None), iters=5, warmup=1)
-    passes = kernel_spans(bwd, ("ssd_bwd_chunk", "ssd_bwd_reduce_bc", "ssd_bwd_reduce_dt"))
+    fwd_passes = kernel_spans(fwd, K3.FWD_KERNELS)
+    passes = kernel_spans(bwd, K3.BWD_KERNELS)
+    fwd_plan = K3.tf32x3_plan(tb, ts, mh, mp, mn, sms=sms)
+    bwd_plan = K3.tf32x3_plan(tb, ts, mh, mp, mn, backward=True, sms=sms)
     # the work, a chunk of L steps and a head: products over the chunk's
     # live triangle of L (L + 1) / 2 pairs, and over its L steps of P x N
     L = K3.CHUNK
@@ -1436,31 +1455,51 @@ def kernel_phase(k1_ptxas, k4_ptxas, bwd_ptxas):
     tri = L * (L + 1) // 2
     fwd_flops = 2 * chunk_heads * (tri * (mn + mp) + 2 * L * mp * mn)   # C.B^T, M.X; C.S, update
     fwd_bytes = 4 * (2 * x.numel() + dt.numel() + 2 * bm.numel() + mh + tb * mh * mp * mn)
-    # C.B^T, dy.x^T, M^T.dy, dG.B, dG^T.C; dS.B, x.dS, dy.S, the dS update, the state recompute
+    # C.B^T, dy.x^T, M^T.dy, dG.B, dG^T.C; dS.B, x.dS, dy.S, the dS share, the state recompute
     flops = 2 * chunk_heads * (tri * (3 * mn + 2 * mp) + 5 * L * mp * mn)
     nbytes = 4 * (3 * x.numel() + 2 * dt.numel() + 4 * bm.numel() + 2 * mh)
-    fb = bound(fwd_flops, fwd_bytes, "float32")
-    rows["ssd_scan"]["train_call"] = dict(
-        ms=fwd_ms, plain_ms=fwd_plain, library_ms=None, **fb, variant=K3.route(x.dtype, mp, mn),
-        tflops=fwd_flops / fwd_ms / 1e9, tbps=fwd_bytes / fwd_ms / 1e9)
+
+    def plan_text(plan):
+        return "; ".join(f"{k_[:-7]} {v_['ctas']} CTAs of {v_['threads']} threads, "
+                         f"{v_['smem'] / 1024:.1f} KB, {v_['ctas_per_sm']} an SM, "
+                         f"{v_['waves']:.2f} waves" for k_, v_ in plan.items())
+
+    def ptxas_text(regs):
+        return " ".join(f"{k_} {v_}" for k_, v_ in regs.items())
+    fb = bound(fwd_flops, fwd_bytes, "tf32x3")
+    fb_cores = bound(fwd_flops, fwd_bytes, "float32")
+    rows["ssd_scan_tf32x3"] = dict(
+        name="ssd_scan_tf32x3", route="cuda", variant=K3.route(x.dtype, mp, mn),
+        source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan.py:56", max_abs_err=k3_fp32_err, ms=fwd_ms,
+        plain_ms=fwd_plain, library_ms=None, **fb,
+        bound_fp32_cuda_cores_ms=fb_cores["bound_ms"], tflops=fwd_flops / fwd_ms / 1e9,
+        tbps=fwd_bytes / fwd_ms / 1e9, kernel_split_ms=fwd_passes, plan=fwd_plan,
+        **bwd_ptxas["k3_fwd"])
+    r = rows["ssd_scan_tf32x3"]
     log(f"   K3 at ({tb},{ts},{mh},{mp},{mn},1) fp32, no h0, final state out (the train call) "
-        f"[{K3.route(x.dtype, mp, mn)}]: kernel_ms {fwd_ms:.4f} ({fwd_flops / fwd_ms / 1e9:.2f} "
-        f"TFLOP/s) plain_ms {fwd_plain:.4f} library_ms none bound_ms {fb['bound_ms']:.4f} "
-        f"({fb['bound_by']} on the fp32 CUDA cores, {fwd_flops / 1e9:.2f} GFLOP, "
-        f"{fwd_bytes / 1e6:.1f} MB)")
+        f"[{r['variant']}; {plan_text(fwd_plan)}; {ptxas_text(bwd_ptxas['k3_fwd'])}]: kernel_ms "
+        f"{fwd_ms:.4f} ({r['tflops']:.2f} TFLOP/s) plain_ms {fwd_plain:.4f} library_ms none "
+        f"bound_ms {fb['bound_ms']:.4f} ({fb['bound_by']} at the 3xTF32 rate; "
+        f"{fb_cores['bound_ms']:.4f} on the fp32 CUDA cores; {fwd_flops / 1e9:.2f} GFLOP, "
+        f"{fwd_bytes / 1e6:.1f} MB); device ms a call by kernel (profiler): "
+        + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in fwd_passes.items()))
+    cores = bound(flops, nbytes, "float32")
     rows["ssd_scan_bwd"] = dict(
-        name="ssd_scan_bwd", route="cuda", variant="cuda_cores",
+        name="ssd_scan_bwd", route="cuda", variant="tf32x3",
         source="src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
         replaces="src/repro/kernels/ssd_scan.py:56", max_abs_err=main_err, ms=ms,
-        plain_ms=plain_ms, library_ms=None, **bound(flops, nbytes, "float32"),
-        tflops=flops / ms / 1e9, kernel_split_ms=passes, **bwd_ptxas["k3"])
+        plain_ms=plain_ms, library_ms=None, **bound(flops, nbytes, "tf32x3"),
+        bound_fp32_cuda_cores_ms=cores["bound_ms"], tflops=flops / ms / 1e9,
+        kernel_split_ms=passes, plan=bwd_plan, repeat_equal=True, **bwd_ptxas["k3"])
     r = rows["ssd_scan_bwd"]
     log(f"   K3-bwd at ({tb},{ts},{mh},{mp},{mn},1) fp32, no h0, no dstate (the train call; "
-        f"{' '.join(f'{k_} {v_}' for k_, v_ in bwd_ptxas['k3'].items())}): kernel_ms {ms:.4f} "
+        f"{plan_text(bwd_plan)}; {ptxas_text(bwd_ptxas['k3'])}): kernel_ms {ms:.4f} "
         f"({r['tflops']:.2f} TFLOP/s) plain_ms {plain_ms:.4f} library_ms none (no PyTorch call "
-        f"computes the SSD scan's gradient) bound_ms {r['bound_ms']:.4f} ({r['bound_by']} on "
-        f"the fp32 CUDA cores, {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); device ms a "
-        f"call by kernel (profiler): " + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in passes.items()))
+        f"computes the SSD scan's gradient) bound_ms {r['bound_ms']:.4f} ({r['bound_by']} at "
+        f"the 3xTF32 rate; {cores['bound_ms']:.4f} on the fp32 CUDA cores, "
+        f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); device ms a call by kernel "
+        f"(profiler): " + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in passes.items()))
     del x, dt, a, bm, cm, dy
     return rows
 
@@ -1480,7 +1519,10 @@ def rotating_kept(fn, sets):
 
 def kernel_spans(call, names, n=8):
     """Device ms a call of each kernel whose name contains one of `names`,
-    from a profiler trace of `n` calls."""
+    from a profiler trace of `n` calls: the mean of the launches the trace
+    kept, times the launches a call. A trace can lose launches (the later
+    traces of one process kept 6 or 7 of 8 on the H100), which a sum over
+    the n calls would leave as time in no kernel."""
     from torch.profiler import ProfilerActivity, profile
     call()
     torch.cuda.synchronize()
@@ -1494,7 +1536,8 @@ def kernel_spans(call, names, n=8):
             for name in names:
                 if name in e.name:
                     spans[name].append((e.time_range.start, e.time_range.end))
-    return {name: union_ms(found) / n for name, found in spans.items()}
+    return {name: union_ms(found) / len(found) * max(1, round(len(found) / n)) if found else 0.0
+            for name, found in spans.items()}
 
 
 def bound(flops, nbytes, dtype):
@@ -1650,7 +1693,7 @@ def serve_phase(arch):
         raise AssertionError(f"K1 launches by route {k1_routes}: expected all "
                              f"{want['flash_attention']} on wgmma")
     # every prefill SSD scan is bf16 at P 64, N 128: all on wgmma
-    if k3_routes != {"wgmma": want["ssd_scan"], "cuda_cores": 0}:
+    if k3_routes != {**dict.fromkeys(K3.ROUTES, 0), "wgmma": want["ssd_scan"]}:
         raise AssertionError(f"K3 launches by route {k3_routes}: expected all "
                              f"{want['ssd_scan']} on wgmma")
     log(f"   K1 launches by route: {k1_routes}; K3 launches by route: {k3_routes}")
@@ -1962,8 +2005,9 @@ def union_ms(spans):
 
 def device_breakdown(prof, n):
     """Device time per call from a profiler trace, grouped: the port's
-    kernels (K1 and K3 either route, K2 its split and combine passes, K1-bwd
-    its four kernels, K3-bwd its three), GEMMs (cuBLAS / CUTLASS), and everything else; and
+    kernels (K1 either route, K3 any route and the 3xTF32 route's three
+    passes, K2 its split and combine passes, K1-bwd its four kernels, K3-bwd
+    its five), GEMMs (cuBLAS / CUTLASS), and everything else; and
     the number of device kernels per call. A group's time, and "busy" over all of them, count
     each instant once: K2's combine is launched while its split pass runs.
     Under ``annotated_layers`` the kernels inside an MoE call form the groups
@@ -2010,7 +2054,8 @@ def device_breakdown(prof, n):
             g = "K3-bwd"
         elif "decode_split_kernel" in name or "decode_combine_kernel" in name:
             g = "K2"
-        elif "ssd_chunk_kernel" in name or "ssd_wgmma_kernel" in name:
+        elif any(k in name for k in ("ssd_chunk_kernel", "ssd_wgmma_kernel", "ssd_state_kernel",
+                                     "ssd_pass_kernel", "ssd_out_kernel")):
             g = "K3"
         elif "rglru_chunk_kernel" in name:
             g = "K4"
@@ -2679,7 +2724,8 @@ def train_phase(arch):
     scaled by ``live_table``), its launches those of
     ``expected_train_launches`` (the encoder-decoder's cross calls at S_kv
     != S counted apart), every K1 launch on K1's fp32 route and every K3
-    launch on K3's CUDA-core route; then two steps timed on the host clock
+    launch on K3's (the imported tree's fp32 route: 3xTF32 since it has
+    one); then two steps timed on the host clock
     around a synchronised step, the step's parts on CUDA events, and a
     profiler breakdown of one step, in which the family's kernel groups
     (TRAIN_GROUPS) hold device time and no other kernel runs."""
@@ -2728,8 +2774,10 @@ def train_phase(arch):
     k1_route = K1.route(torch.float32, cfg.head_dim)
     if k1_routes != {**dict.fromkeys(K1.ROUTES, 0), k1_route: want["flash_attention"]}:
         raise AssertionError(f"K1 launches by route {k1_routes}: fp32 takes {k1_route}")
-    if k3_routes != {**dict.fromkeys(K3.ROUTES, 0), "cuda_cores": want["ssd_scan"]}:
-        raise AssertionError(f"K3 launches by route {k3_routes}: fp32 takes cuda_cores")
+    k3_route = K3.route(torch.float32, cfg.ssm_headdim, cfg.ssm_state)
+    if k3_routes != {**dict.fromkeys(K3.ROUTES, 0), k3_route: want["ssd_scan"]}:
+        raise AssertionError(f"K3 launches by route {k3_routes}: fp32 takes {k3_route}")
+    counts["ssd_scan_tf32x3"] = k3_routes.get("tf32x3", 0)   # the 3xTF32 route's own row
     want_kv = {}
     if cfg.family == "encdec":
         key = f"{s}x{cfg.frontend_tokens}"
@@ -4458,7 +4506,7 @@ def main():
     t0 = time.perf_counter()
     reports = build.build()
     log(f"== build: {', '.join(build.KERNELS)} in {time.perf_counter() - t0:.1f} s")
-    k1_ptxas, k4_ptxas, bwd_ptxas = {}, {}, {"k1": {}, "k3": {}, "k4": {}}
+    k1_ptxas, k4_ptxas, bwd_ptxas = {}, {}, {"k1": {}, "k3": {}, "k3_fwd": {}, "k4": {}}
     for name, rep in reports.items():
         regs = [int(x) for x in re.findall(r"Used (\d+) registers", rep)]
         spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", rep) if int(x)]
@@ -4490,10 +4538,18 @@ def main():
                                                                entry).group(1))
                 log(f"   rglru_chunk_kernel<{y} y>: {k4_ptxas[f'registers_{y}_y']} registers, "
                     f"{k4_ptxas[f'spill_bytes_{y}_y']} bytes of spill stores")
-            # K1-bwd, one line a kernel and head_dim, and K4-bwd
+            found = re.search(r"(ssd_state_kernel|ssd_pass_kernel|ssd_out_kernel)", entry)
+            if found:   # K3's 3xTF32 route, one line a pass
+                used = int(re.search(r"Used (\d+) registers", entry).group(1))
+                spill = int(re.search(r"(\d+) bytes spill stores", entry).group(1))
+                log(f"   {found.group(1)}: {used} registers, {spill} bytes of spill stores")
+                short = found.group(1).split("_")[1]
+                bwd_ptxas["k3_fwd"].update({f"registers_{short}": used,
+                                            f"spill_bytes_{short}": spill})
+            # K1-bwd, one line a kernel and head_dim, K4-bwd and K3-bwd
             found = re.search(r"(flash_bwd_dkdv_kernel|flash_bwd_dq_kernel)ILi(\d+)E|"
                               r"(flash_bwd_delta_kernel|flash_bwd_reduce_kernel|"
-                              r"rglru_bwd_chunk_kernel|ssd_bwd_\w+_kernel)", entry)
+                              r"rglru_bwd_chunk_kernel|ssd_bwd_\w+?_kernel)", entry)
             if found:
                 kernel = found.group(1) or found.group(3)
                 used = int(re.search(r"Used (\d+) registers", entry).group(1))
@@ -4502,8 +4558,10 @@ def main():
                     f"registers, {spill} bytes of spill stores")
                 if kernel == "rglru_bwd_chunk_kernel":
                     bwd_ptxas["k4"].update(registers=used, spill_bytes=spill)
-                elif kernel == "ssd_bwd_chunk_kernel":
-                    bwd_ptxas["k3"].update(registers=used, spill_bytes=spill)
+                elif kernel.startswith("ssd_bwd_"):   # one pair a pass
+                    short = kernel[len("ssd_bwd_"):-len("_kernel")]
+                    bwd_ptxas["k3"].update({f"registers_{short}": used,
+                                            f"spill_bytes_{short}": spill})
                 elif found.group(2) == "256":   # the train call's head_dim
                     short = kernel.split("_")[2]
                     bwd_ptxas["k1"].update({f"registers_{short}_256": used,
@@ -4518,7 +4576,7 @@ def main():
         t0 = time.perf_counter()
         counts, serve_metrics[arch] = serve_phase(arch)
         for name in launches:
-            launches[name] += counts[name]
+            launches[name] += counts.get(name, 0)
         torch.cuda.empty_cache()
         phase_s[f"serve {arch}"] = serve_metrics[arch]["seconds"] = time.perf_counter() - t0
         log(f"   serve {arch}: {phase_s[f'serve {arch}']:.1f} s")
@@ -4526,7 +4584,7 @@ def main():
     t0 = time.perf_counter()
     counts, sharded_metrics = sharded_serve_phase(serve_metrics["qwen3-14b"])
     for name in launches:
-        launches[name] += counts[name]
+        launches[name] += counts.get(name, 0)
     torch.cuda.empty_cache()
     phase_s["sharded serve qwen3-14b tp16"] = sharded_metrics["seconds"] = \
         time.perf_counter() - t0
@@ -4574,7 +4632,7 @@ def main():
     for arch in TRAIN_ARCHS:
         counts, train_metrics[arch] = train_phase(arch)
         for name in launches:
-            launches[name] += counts[name]
+            launches[name] += counts.get(name, 0)
         phase_s[f"train {arch}"] = train_metrics[arch]["seconds"]
         torch.cuda.empty_cache()
     train_restart_phase()
@@ -4611,7 +4669,7 @@ def main():
     torch.cuda.empty_cache()
     counts, quick_metrics = quickstart_phase(card)
     for name in launches:
-        launches[name] += counts[name]
+        launches[name] += counts.get(name, 0)
 
     # the dry run needs no card; it runs alone, so no phase's times share
     # the host with it

@@ -28,13 +28,13 @@
 // operations a step and head, 5.4 GFLOP, 0.0054 ms on the tensor cores. So
 // the card's bound is the bytes.
 //
-// Two routes, chosen by dtype, P and N alone (`ssd_scan_route`):
+// Three routes, chosen by dtype, P and N alone (`ssd_scan_route`):
 // - bf16 with P a multiple of 64 and N 64 or 128, which the serving path
 //   calls, takes `ssd_wgmma_kernel`: the four products on the tensor cores.
-// - fp32, and bf16 at other P or N, take `ssd_chunk_kernel` on the fp32
-//   CUDA cores. fp32 on the tensor cores would be TF32, about three decimal
-//   digits, where the fp32 checks hold the kernel to 3e-5.
-//
+// - fp32, which the train path calls, takes the 3xTF32 route below
+//   (`ssd_state_kernel`, `ssd_pass_kernel`, `ssd_out_kernel`).
+// - bf16 at other P or N takes `ssd_chunk_kernel` on the fp32 CUDA cores.
+
 // Precision of the tensor-core route, against the reference's own casts
 // (`repro/nn/ssd.py:84-94`, `:112`): C B^T and C S^T contract bf16 operands in fp32,
 // with S_prev rounded to bf16 as `prev_states.astype(cc.dtype)` rounds it;
@@ -92,15 +92,42 @@
 // y tile) is several times its tensor work, so the kernel sits at about
 // three times the bound.
 //
-// CUDA-core design (`ssd_chunk_kernel`): one CTA of 256 threads per (tile
-// of 64 head columns p, head, batch) reads each input once from device
-// memory and writes y and the final state once; the state never leaves
-// shared memory between chunks. Per chunk, the CTA stages dt, B, C and its
-// x tile in shared memory as fp32, warp 0 scans cs, and the three products
-// run on fp32 CUDA cores in 4x4 (4x8 for the state) register tiles, with
-// padded rows so that neither operand of a product has bank conflicts. The
-// decay is masked before exp, as above. All arithmetic is fp32 after the
-// load, as the TPU kernel casts first.
+// 3xTF32 design (fp32): the chunk-parallel split of `ssd_tf32.cuh`, which
+// K3-bwd shares: (a) `ssd_state_kernel` computes each chunk's own state
+// s_c, one CTA per (chunk, 64 columns p, head, batch); (b) `ssd_pass_kernel`
+// passes the states across chunks, leaving S_{c-1} in the workspace and the
+// final state in `hout`; (c) `ssd_out_kernel`, one CTA of 4 warps per
+// (chunk, p tile, head, batch), computes y = M X + exp(cs_t) C S_{c-1}^T.
+// Each warp of (c) owns 16 steps t: it accumulates C B^T (only the 8-wide
+// column tiles s at or left of its diagonal) and C S_{c-1}^T together over
+// N, streamed in 16-column slabs of C, B and S_{c-1} through two cp.async
+// stages; applies the decay and dt to C B^T's accumulator, masked to s <= t
+// before exp (exp(cs_t - cs_s) overflows for s > t, and is never split into
+// exp(cs_t) exp(-cs_s)); scales C S^T by exp(cs_t); and adds M X with M's
+// accumulator as the A fragment as it stands (the (2 t, 2 t + 1) k order),
+// X read from shared memory. Every product is 3xTF32 `mma.sync.m16n8k8`:
+// each fp32 operand split into a TF32 big part (rounded to nearest) and a
+// small part (x - big, truncated by the tensor core), three products into
+// fp32 accumulators, the arithmetic of K1's fp32 route; one TF32 product
+// (three decimal digits) would miss the fp32 checks. The workspaces, from
+// the wrapper: the chunk states (B, H, chunks, P, N) and cs_L (B, H, chunks).
+// Shared memory: (a) 51 KB, (c) 48 KB (its 16-column slabs let four CTAs
+// share an SM, where 32-column ones fit three): four CTAs an SM each.
+// Bound on the H100 SXM at the train call (B 4, S 256, H 80, P 64, N 128,
+// G 1, fp32, no h0, final state out): the four products over each chunk's
+// live triangle and its 64 steps, 3.71 GFLOP, 0.0225 ms at the 3xTF32
+// rate (495 / 3 TFLOP/s); 53.8 MB, 0.0161 ms. So the bound is the
+// operations.
+//
+// CUDA-core design (`ssd_chunk_kernel`, bf16 off the wgmma widths): one
+// CTA of 256 threads per (tile of 64 head columns p, head, batch) reads
+// each input once from device memory and writes y and the final state
+// once; the state never leaves shared memory between chunks. Per chunk,
+// the CTA stages dt, B, C and its x tile in shared memory as fp32, warp 0
+// scans cs, and the three products run on fp32 CUDA cores in 4x4 (4x8 for
+// the state) register tiles, with padded rows so that neither operand of a
+// product has bank conflicts. The decay is masked before exp, as above.
+// All arithmetic is fp32 after the load, as the TPU kernel casts first.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -109,6 +136,7 @@
 #include <atomic>
 
 #include "hopper.cuh"
+#include "ssd_tf32.cuh"
 
 namespace {
 
@@ -125,26 +153,19 @@ static_assert(L == 64, "the cs scan covers the chunk with two values a lane");
 static_assert((NT / CG) * 4 == L && (NT / CG) * 4 == PT, "row groups must cover the tiles");
 static_assert(CG * 4 == L && CG * 4 == PT, "column groups must cover the tiles");
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+using bf16 = __nv_bfloat16;
 
 size_t smem_bytes(int N) {
   const size_t NP = N + 1;
   return sizeof(float) * (2 * L * NP + PT * NP + L * XP + L * LP + 3 * L);
 }
 
-template <typename T>
 __global__ void __launch_bounds__(NT)
-ssd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                 const float* __restrict__ a, const T* __restrict__ bm,
-                 const T* __restrict__ cm, const float* __restrict__ h0, T* __restrict__ y,
-                 float* __restrict__ hout, int S, int H, int P, int G, int N) {
+ssd_chunk_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
+                 const float* __restrict__ a, const bf16* __restrict__ bm,
+                 const bf16* __restrict__ cm, const float* __restrict__ h0,
+                 bf16* __restrict__ y, float* __restrict__ hout, int S, int H, int P, int G,
+                 int N) {
   const int NP = N + 1;            // padded row: column reads hit distinct banks
   extern __shared__ float smem[];
   float* sB = smem;                // [L][NP]
@@ -166,11 +187,11 @@ ssd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   const float A = a[h];
   const long xs = (long)H * P;     // stride of one step in x / y
   const long bs = (long)G * N;     // stride of one step in b / c
-  const T* xb = x + (long)b * S * xs + (long)h * P;
+  const bf16* xb = x + (long)b * S * xs + (long)h * P;
   const float* dtb = dt + (long)b * S * H + h;
-  const T* bb = bm + (long)b * S * bs + (long)g * N;
-  const T* cb = cm + (long)b * S * bs + (long)g * N;
-  T* yb = y + (long)b * S * xs + (long)h * P;
+  const bf16* bb = bm + (long)b * S * bs + (long)g * N;
+  const bf16* cb = cm + (long)b * S * bs + (long)g * N;
+  bf16* yb = y + (long)b * S * xs + (long)h * P;
   const long so = ((long)b * H + h) * P * N;   // this head's state
 
   for (int i = tid; i < PT * N; i += NT) {
@@ -183,12 +204,12 @@ ssd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     for (int i = tid; i < L * N; i += NT) {
       const int r = i / N, n = i % N, t = t0 + r;
       const bool in = t < S;
-      sB[r * NP + n] = in ? to_f(bb[(long)t * bs + n]) : 0.f;
-      sC[r * NP + n] = in ? to_f(cb[(long)t * bs + n]) : 0.f;
+      sB[r * NP + n] = in ? __bfloat162float(bb[(long)t * bs + n]) : 0.f;
+      sC[r * NP + n] = in ? __bfloat162float(cb[(long)t * bs + n]) : 0.f;
     }
     for (int i = tid; i < L * PT; i += NT) {
       const int r = i / PT, c = i % PT, t = t0 + r, p = p0 + c;
-      sX[r * XP + c] = (t < S && p < P) ? to_f(xb[(long)t * xs + p]) : 0.f;
+      sX[r * XP + c] = (t < S && p < P) ? __bfloat162float(xb[(long)t * xs + p]) : 0.f;
     }
     if (tid < L) sdt[tid] = t0 + tid < S ? dtb[(long)(t0 + tid) * H] : 0.f;
     __syncthreads();
@@ -283,7 +304,7 @@ ssd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int p = p0 + cg + CG * j;
-          if (p < P) yb[(long)(t0 + t) * xs + p] = from_f<T>(yi[i][j] + ye[i][j] * e);
+          if (p < P) yb[(long)(t0 + t) * xs + p] = __float2bfloat16(yi[i][j] + ye[i][j] * e);
         }
       }
     }
@@ -333,29 +354,27 @@ ssd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* dt, const void* a, const void* b, const void* c,
-           const void* h0, void* y, void* hout, int B, int S, int H, int P, int G, int N,
-           cudaStream_t stream) {
+int launch_cuda_cores(const void* x, const void* dt, const void* a, const void* b,
+                      const void* c, const void* h0, void* y, void* hout, int B, int S, int H,
+                      int P, int G, int N, cudaStream_t stream) {
   // The shared-memory opt-in is per device, for the largest N; it is set
-  // on a device's first launch of this instantiation and remembered in a
-  // bit mask.
+  // on a device's first launch and remembered in a bit mask.
   static std::atomic<unsigned long long> opted_in{0};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
   if (!(opted_in.load(std::memory_order_relaxed) & bit)) {
-    err = cudaFuncSetAttribute(ssd_chunk_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(ssd_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem_bytes(NMAX));
     if (err != cudaSuccess) return (int)err;
     opted_in.fetch_or(bit, std::memory_order_relaxed);
   }
   dim3 grid((P + PT - 1) / PT, H, B);
-  ssd_chunk_kernel<T><<<grid, NT, smem_bytes(N), stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(dt), static_cast<const float*>(a),
-      static_cast<const T*>(b), static_cast<const T*>(c), static_cast<const float*>(h0),
-      static_cast<T*>(y), static_cast<float*>(hout), S, H, P, G, N);
+  ssd_chunk_kernel<<<grid, NT, smem_bytes(N), stream>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(dt), static_cast<const float*>(a),
+      static_cast<const bf16*>(b), static_cast<const bf16*>(c), static_cast<const float*>(h0),
+      static_cast<bf16*>(y), static_cast<float*>(hout), S, H, P, G, N);
   return (int)cudaGetLastError();
 }
 
@@ -765,29 +784,231 @@ int launch(const void* x, const void* dt, const void* a, const void* b, const vo
 
 }  // namespace tc
 
+// ---- the 3xTF32 route (fp32) -------------------------------------------------
+
+namespace tf3 {
+
+using ssd::FragA;
+
+constexpr int OUT_NT = 128;            // threads of (c): four warps of 16 steps t
+constexpr int OUT_NS = 16;             // columns n a slab of C, B and S_{c-1}
+constexpr int OUT_SP = OUT_NS + 4;     // row pitch of a slab
+constexpr int OUT_SLAB = ssd::L * OUT_SP;
+constexpr size_t OUT_SMEM = sizeof(float) * (ssd::L * ssd::XP + 2 * 3 * OUT_SLAB + 3 * ssd::L);
+
+static_assert(OUT_NT / 32 * 16 == ssd::L, "the warps' 16-step strips cover the chunk");
+
+// (a) for the forward: each chunk's own state into `states`, cs_L into
+// `decay`. Grid (chunks, p tiles x H, B).
+__global__ void __launch_bounds__(ssd::STATE_NT, 4)
+ssd_state_kernel(const float* __restrict__ x, const float* __restrict__ bm,
+                 const float* __restrict__ dt, const float* __restrict__ a,
+                 float* __restrict__ states, float* __restrict__ decay, int S, int H, int P, int G,
+                 int N, int NC, int vec) {
+  const int npt = (P + ssd::PT - 1) / ssd::PT, h = blockIdx.y / npt;
+  ssd::state_chunk(0, x, bm, dt, a[h], states, decay, blockIdx.z, h, blockIdx.x,
+                   blockIdx.y % npt, S, H, P, G, N, NC, vec);
+}
+
+// (b) the states across chunks, from h0 (null: zeros); the final state into
+// hout (null: dropped). Grid (ssd::pass_ctas, H, B).
+__global__ void __launch_bounds__(ssd::PASS_NT)
+ssd_pass_kernel(float* __restrict__ states, const float* __restrict__ decay,
+                const float* __restrict__ h0, float* __restrict__ hout, int H, int P, int N,
+                int NC, int vec4) {
+  ssd::pass_chunks(false, states, decay, h0, hout, blockIdx.z, blockIdx.y, H, P, N, NC, vec4);
+}
+
+// (c) y of one chunk and p tile given S_{c-1} (`states`). Grid (chunks,
+// p tiles x H, B).
+__global__ void __launch_bounds__(OUT_NT, 4)
+ssd_out_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+               const float* __restrict__ a, const float* __restrict__ bm,
+               const float* __restrict__ cm, const float* __restrict__ states,
+               float* __restrict__ y, int S, int H, int P, int G, int N, int NC, int vec) {
+  constexpr int L = ssd::L, XP = ssd::XP;
+  float* sX = ssd::dyn_smem();        // [L][XP]: x of the chunk's steps and the p tile
+  float* stg = sX + L * XP;           // [2 stages][C, B, S_{c-1}][L][OUT_SP]
+  float* sdt = stg + 2 * 3 * OUT_SLAB;
+  float* scs = sdt + L;               // [L] inclusive cumsum of dt a
+  float* secs = scs + L;              // [L] exp(cs_t)
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+  const int npt = (P + ssd::PT - 1) / ssd::PT;
+  const int c = blockIdx.x, pt = blockIdx.y % npt, h = blockIdx.y / npt, b = blockIdx.z;
+  const int grp = h / (H / G), t0 = c * L, p0 = pt * ssd::PT;
+  const long xs = (long)H * P, xo = (long)b * S * xs + (long)h * P + p0;
+  const float* cb = cm + (long)b * S * G * N + (long)grp * N;
+  const float* bb = bm + (long)b * S * G * N + (long)grp * N;
+  const float* st = states + (((long)b * H + h) * NC + c) * P * N + (long)p0 * N;
+
+  // slab k: columns 16 k .. 16 k + 15 of C, B (this chunk's steps) and S_{c-1}
+  // (the tile's rows p) into stage k % 2
+  auto issue = [&](int k) {
+    float* d = stg + (k & 1) * 3 * OUT_SLAB;
+    const int n0 = k * OUT_NS;
+    ssd::load_tile<OUT_NT>(d, OUT_SP, cb + n0, (long)G * N, t0, L, S, OUT_NS, N - n0, vec);
+    ssd::load_tile<OUT_NT>(d + OUT_SLAB, OUT_SP, bb + n0, (long)G * N, t0, L, S, OUT_NS, N - n0,
+                           vec);
+    ssd::load_tile<OUT_NT>(d + 2 * OUT_SLAB, OUT_SP, st + n0, N, 0, ssd::PT, P - p0, OUT_NS,
+                           N - n0, vec);
+  };
+  ssd::load_tile<OUT_NT>(sX, XP, x + xo, xs, t0, L, S, ssd::PT, P - p0, vec);
+  issue(0);
+  tf32x3::cp_async_commit();
+  ssd::load_dt(sdt, dt + (long)b * S * H + h, t0, S, H);
+  __syncthreads();
+  if (warp == 0) ssd::scan_chunk(sdt, a[h], scs, nullptr, secs, lane);
+
+  // rows t = 16 warp + g (+ 8); the 8-wide column tiles s < live reach the diagonal
+  const int m0 = 16 * warp, live = 2 * warp + 2, ns = (N + OUT_NS - 1) / OUT_NS;
+  float gacc[8][4] = {}, yacc[8][4] = {};   // C B^T (columns s); C S^T, then y (columns p)
+  for (int k = 0; k < ns; ++k) {
+    if (k + 1 < ns) {
+      issue(k + 1);
+      tf32x3::cp_async_commit();
+      tf32x3::cp_async_wait<1>();
+    } else {
+      tf32x3::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* tC = stg + (k & 1) * 3 * OUT_SLAB;
+    const float* tB = tC + OUT_SLAB;
+    const float* tS = tB + OUT_SLAB;
+#pragma unroll
+    for (int kk = 0; kk < OUT_NS / 8; ++kk) {
+      const FragA fc = tf32x3::load_a(tC + m0 * OUT_SP + kk * 8, OUT_SP, lane);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (j < live)
+          tf32x3::mma3(gacc[j], fc, tf32x3::load_b_nk(tB + j * 8 * OUT_SP + kk * 8, OUT_SP, lane));
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        tf32x3::mma3(yacc[j], fc, tf32x3::load_b_nk(tS + j * 8 * OUT_SP + kk * 8, OUT_SP, lane));
+    }
+    __syncthreads();   // the stage is read before the next slab's copies land in it
+  }
+
+  // M[t][s] = (C_t . B_s) exp(cs_t - cs_s) dt_s, masked to s <= t before exp;
+  // y = exp(cs_t) C_t . S_{c-1} + sum_s M[t][s] x_s
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int t = m0 + g + 8 * (i / 2), s = 8 * j + 2 * tq + i % 2;
+      gacc[j][i] = (j < live && s <= t) ? gacc[j][i] * expf(scs[t] - scs[s]) * sdt[s] : 0.f;
+      yacc[j][i] *= secs[t];
+    }
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    if (kk >= live) break;
+    const FragA fm = ssd::acc_as_a(gacc[kk]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      tf32x3::mma3(yacc[j], fm, ssd::load_b_kn2(sX + kk * 8 * XP + j * 8, XP, g, tq));
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int t = m0 + g + 8 * (i / 2), p = 8 * j + 2 * tq + i % 2;
+      if (t0 + t < S && p0 + p < P) y[xo + (long)(t0 + t) * xs + p] = yacc[j][i];
+    }
+}
+
+int launch(const void* x, const void* dt, const void* a, const void* b, const void* c,
+           const void* h0, void* y, void* hout, void* states, void* decay, int B, int S, int H,
+           int P, int G, int N, cudaStream_t stream) {
+  const int NC = (S + ssd::L - 1) / ssd::L, npt = (P + ssd::PT - 1) / ssd::PT;
+  if (NC > 0 && (states == nullptr || decay == nullptr)) return (int)cudaErrorInvalidValue;
+  static std::atomic<unsigned long long> opted_state{0}, opted_out{0};
+  cudaError_t err = hopper::opt_in_smem((const void*)ssd_state_kernel, (int)ssd::STATE_SMEM,
+                                        opted_state);
+  if (err == cudaSuccess)
+    err = hopper::opt_in_smem((const void*)ssd_out_kernel, (int)OUT_SMEM, opted_out);
+  if (err != cudaSuccess) return (int)err;
+  const int vec = ssd::vec_ok(P, N, {x, b, c, states});
+  const float* xf = static_cast<const float*>(x);
+  const float* dtf = static_cast<const float*>(dt);
+  const float* af = static_cast<const float*>(a);
+  const float* bf = static_cast<const float*>(b);
+  const float* cf = static_cast<const float*>(c);
+  float* sf = static_cast<float*>(states);
+  float* df = static_cast<float*>(decay);
+  if (NC > 0) {
+    ssd_state_kernel<<<dim3(NC, npt * H, B), ssd::STATE_NT, ssd::STATE_SMEM, stream>>>(
+        xf, bf, dtf, af, sf, df, S, H, P, G, N, NC, vec);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (NC > 0 || hout != nullptr) {
+    const bool vec4 = (long)P * N % 4 == 0 && ssd::aligned16({states, h0, hout});
+    ssd_pass_kernel<<<dim3(ssd::pass_ctas(P, N, vec4), H, B), ssd::PASS_NT, 0, stream>>>(
+        sf, df, static_cast<const float*>(h0), static_cast<float*>(hout), H, P, N, NC, vec4);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (NC > 0) {
+    ssd_out_kernel<<<dim3(NC, npt * H, B), OUT_NT, OUT_SMEM, stream>>>(
+        xf, dtf, af, bf, cf, sf, static_cast<float*>(y), S, H, P, G, N, NC, vec);
+    err = cudaGetLastError();
+  }
+  return (int)err;
+}
+
+}  // namespace tf3
+
 }  // namespace
 
-// 1 if (dtype, P, N) takes the tensor-core route, 0 if the CUDA-core one.
+// The route (dtype, P, N) takes: 0 the tensor cores by wgmma (bf16, P a
+// multiple of 64, N 64 or 128), 1 the 3xTF32 route (fp32), 2 the CUDA cores
+// (bf16 at other P or N).
 extern "C" int ssd_scan_route(int dtype, int P, int N) {
-  return dtype == 1 && P % 64 == 0 && (N == 64 || N == 128);
+  return 2 - (dtype == 0) - 2 * (dtype == 1 && P % 64 == 0 && (N == 64 || N == 128));
+}
+
+// The shared memory and CTAs an SM of the 3xTF32 route's kernel `kernel`
+// (0 `ssd_state_kernel`, 1 `ssd_pass_kernel`, 2 `ssd_out_kernel`) on the
+// current device. Returns a CUDA error (0 on success).
+extern "C" int ssd_scan_tf32x3_occupancy(int kernel, int* smem, int* ctas_per_sm) {
+  static std::atomic<unsigned long long> opted_state{0}, opted_out{0};
+  const void* fn[3] = {(const void*)tf3::ssd_state_kernel, (const void*)tf3::ssd_pass_kernel,
+                       (const void*)tf3::ssd_out_kernel};
+  const int threads[3] = {ssd::STATE_NT, ssd::PASS_NT, tf3::OUT_NT};
+  const int bytes[3] = {(int)ssd::STATE_SMEM, 0, (int)tf3::OUT_SMEM};
+  if (kernel < 0 || kernel > 2) return (int)cudaErrorInvalidValue;
+  cudaError_t err = hopper::opt_in_smem(fn[0], bytes[0], opted_state);
+  if (err == cudaSuccess) err = hopper::opt_in_smem(fn[2], bytes[2], opted_out);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, fn[kernel], threads[kernel],
+                                                        bytes[kernel]);
+  *smem = bytes[kernel];
+  return (int)err;
 }
 
 // dtype (of x, b, c and y): 0 float32, 1 bfloat16. h0 and hout may be
-// null. Returns cudaGetLastError() after the launch (0 on success);
-// launches on `stream` and does not synchronise.
+// null. states (B, H, ceil(S / 64), P, N) and decay (B, H, ceil(S / 64)),
+// fp32, are the 3xTF32 route's workspaces (null on the other routes).
+// Returns cudaGetLastError() after each launch (0 on success); launches on
+// `stream` and does not synchronise.
 extern "C" int ssd_scan(int dtype, const void* x, const void* dt, const void* a, const void* b,
-                        const void* c, const void* h0, void* y, void* hout, int B, int S, int H,
-                        int P, int G, int N, void* stream) {
-  if (B <= 0 || S < 0 || H <= 0 || P <= 0 || G <= 0 || H % G != 0 || N <= 0 || N > NMAX)
+                        const void* c, const void* h0, void* y, void* hout, void* states,
+                        void* decay, int B, int S, int H, int P, int G, int N, void* stream) {
+  if (B <= 0 || S < 0 || H <= 0 || P <= 0 || G <= 0 || H % G != 0 || N <= 0 || N > NMAX ||
+      B > 65535 || H * ((P + PT - 1) / PT) > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (ssd_scan_route(dtype, P, N)) {
-    if (N == 64) return tc::launch<64>(x, dt, a, b, c, h0, y, hout, B, S, H, P, G, st);
-    return tc::launch<128>(x, dt, a, b, c, h0, y, hout, B, S, H, P, G, st);
-  }
-  switch (dtype) {
-    case 0: return launch<float>(x, dt, a, b, c, h0, y, hout, B, S, H, P, G, N, st);
-    case 1: return launch<__nv_bfloat16>(x, dt, a, b, c, h0, y, hout, B, S, H, P, G, N, st);
-    default: return (int)cudaErrorInvalidValue;
+  switch (ssd_scan_route(dtype, P, N)) {
+    case 0:
+      if (N == 64) return tc::launch<64>(x, dt, a, b, c, h0, y, hout, B, S, H, P, G, st);
+      return tc::launch<128>(x, dt, a, b, c, h0, y, hout, B, S, H, P, G, st);
+    case 1:
+      return tf3::launch(x, dt, a, b, c, h0, y, hout, states, decay, B, S, H, P, G, N, st);
+    case 2:
+      if (dtype == 1)
+        return launch_cuda_cores(x, dt, a, b, c, h0, y, hout, B, S, H, P, G, N, st);
+      [[fallthrough]];
+    default:
+      return (int)cudaErrorInvalidValue;
   }
 }

@@ -3,16 +3,21 @@
 Replaces ``repro.kernels.ssd_scan.ssd_scan`` (Pallas, TPU). The kernels
 are in ``csrc/ssd_scan.cu``; its plain PyTorch version is
 ``ops.ssd_scan_plain``, which ``ops.ssd_scan`` takes for CPU tensors. The
-``.cu`` picks one of two routes by dtype, P and N alone (``route``): bf16
-with P a multiple of 64 and N 64 or 128, which the serving path calls,
-runs the chunk's products on the tensor cores (wgmma), everything else on
-the fp32 CUDA cores. ``ssd_scan.launches`` counts every launch,
+``.cu`` picks one of three routes by dtype, P and N alone (``route``):
+bf16 with P a multiple of 64 and N 64 or 128, which the serving path
+calls, runs the chunk's products on the tensor cores (wgmma); fp32, which
+the train path calls, takes the 3xTF32 route (``"tf32x3"``: the
+chunk-parallel split of ``csrc/ssd_tf32.cuh``, each chunk's state, the
+passing across chunks, then each chunk's y, every product as three TF32
+``mma.sync`` products on the tensor cores); bf16 at other widths runs on
+the fp32 CUDA cores. ``ssd_scan.launches`` counts every call,
 ``ssd_scan.launches_by_route`` each route's.
 
-The gradient (K3-bwd) is ``csrc/ssd_scan_bwd.cu``, fp32 on the CUDA cores,
-which recomputes the chunk states from the inputs and walks the chunks in
-reverse; its plain version is ``ops.ssd_scan_bwd_plain``. ``SSDScan`` is
-the autograd Function that pairs the two.
+The gradient (K3-bwd) is ``csrc/ssd_scan_bwd.cu``, fp32 on the same
+3xTF32 split, which recomputes the chunk states from the inputs; its
+plain version is ``ops.ssd_scan_bwd_plain``. ``SSDScan`` is the autograd
+Function that pairs the two. ``tf32x3_plan`` gives the launches of
+either, with their shared memory and CTAs an SM from the built library.
 """
 
 import ctypes
@@ -25,40 +30,82 @@ from repro_torch.kernels.flash_attention import DTYPES
 
 MAX_STATE = 128   # largest N (NMAX in the source)
 CHUNK = 64        # steps a chunk in both kernels (L in the sources)
-PT = 64           # head columns p a CTA of K3-bwd (PT in ssd_scan_bwd.cu)
-ROUTES = ("wgmma", "cuda_cores")
+PT = 64           # head columns p a unit of the 3xTF32 route (PT in ssd_tf32.cuh)
+ROUTES = ("wgmma", "tf32x3", "cuda_cores")   # the indices ssd_scan_route returns
+FWD_KERNELS = ("ssd_state_kernel", "ssd_pass_kernel", "ssd_out_kernel")
+BWD_KERNELS = ("ssd_bwd_state_kernel", "ssd_bwd_pass_kernel", "ssd_bwd_chunk_kernel",
+               "ssd_bwd_reduce_bc_kernel", "ssd_bwd_reduce_dt_kernel")
 
 
 def route(dtype, p, n) -> str:
-    """The kernel a launch takes: "wgmma" for bf16 with P a multiple of 64
-    and N 64 or 128, "cuda_cores" otherwise (fp32 on the tensor cores would
-    be TF32)."""
-    return ("wgmma" if dtype == torch.bfloat16 and p % 64 == 0 and n in (64, 128)
-            else "cuda_cores")
+    """The kernels a launch takes: "wgmma" for bf16 with P a multiple of 64
+    and N 64 or 128, "tf32x3" for fp32, "cuda_cores" for bf16 at other
+    widths."""
+    if dtype == torch.float32:
+        return "tf32x3"
+    return "wgmma" if p % 64 == 0 and n in (64, 128) else "cuda_cores"
 
 
 @functools.cache
 def _fn():
     """The C entry point, built, loaded and typed once per process."""
     fn = build.load("ssd_scan").ssd_scan
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def plan(b, h, p) -> tuple:
-    """(heads a CTA, CTAs) of a launch: on either route one CTA per (64
-    columns p, head, batch); the tensor-core route's CTA is two warpgroups,
-    the CUDA-core route's 256 threads."""
+    """(heads a CTA, CTAs) of a launch on the one-pass routes (wgmma, CUDA
+    cores): one CTA per (64 columns p, head, batch); the tensor-core
+    route's CTA is two warpgroups, the CUDA-core route's 256 threads."""
     return 1, b * h * -(-p // 64)
+
+
+def tf32x3_plan(b, s, h, p, n, g=1, *, backward=False, sms=None) -> dict:
+    """Each launch of the 3xTF32 route (``backward``: K3-bwd) at (B, S, H,
+    P, N, G): {kernel: {"ctas", "threads"}}; with `sms` (the card's SM
+    count) also "smem" (bytes), "ctas_per_sm" (from the built library's
+    occupancy query) and "waves" on those SMs. Every unit of the chunk
+    passes is a (chunk, 64 columns p, head, batch); the passing across
+    chunks is one thread 16 elements of each head's (P, N) state (4 where
+    P N is not a multiple of 4; the tensors the wrapper allocates are
+    aligned)."""
+    units = -(-s // CHUNK) * -(-p // PT) * h * b
+    elems = -(-(p * n) // (4096 if p * n % 4 == 0 else 1024)) * h * b   # 16 elements a thread
+    if backward:
+        per = 4 if n % 4 == 0 else 1
+        out = dict(zip(BWD_KERNELS, (
+            {"ctas": 2 * units, "threads": 256}, {"ctas": 2 * elems, "threads": 256},
+            {"ctas": units, "threads": 256}, {"ctas": -(-(b * s * g * n // per) // 64),
+                                              "threads": 256},
+            {"ctas": -(-(b * s * h + h) // 256), "threads": 256})))
+        query = "ssd_scan_bwd_occupancy"
+    else:
+        out = dict(zip(FWD_KERNELS, ({"ctas": units, "threads": 256},
+                                     {"ctas": elems, "threads": 256},
+                                     {"ctas": units, "threads": 128})))
+        query = "ssd_scan_tf32x3_occupancy"
+    if sms is not None:
+        fn = getattr(build.load("ssd_scan_bwd" if backward else "ssd_scan"), query)
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        for i, row in enumerate(out.values()):
+            smem, per_sm = ctypes.c_int(), ctypes.c_int()
+            err = fn(i, ctypes.byref(smem), ctypes.byref(per_sm))
+            if err:
+                raise RuntimeError(f"{query}({i}) failed: CUDA error {err}")
+            row.update(smem=smem.value, ctas_per_sm=per_sm.value,
+                       waves=row["ctas"] / max(per_sm.value * sms, 1))
+    return out
 
 
 def kernel_route(dtype, p, n) -> str:
     """The route the built library itself picks for (dtype, P, N)."""
     fn = build.load("ssd_scan").ssd_scan_route
     fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
-    return ROUTES[0] if fn(DTYPES[dtype], p, n) else ROUTES[1]
+    return ROUTES[fn(DTYPES[dtype], p, n)]
 
 
 def ssd_scan(x, dt, a, b, c, *, h0=None, return_state=False):
@@ -95,12 +142,17 @@ def ssd_scan(x, dt, a, b, c, *, h0=None, return_state=False):
     y = torch.empty_like(x)
     state = (torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
              if return_state else None)
+    # the 3xTF32 route's workspaces: each chunk's state, then the state
+    # entering it; each chunk's cs_L
+    nc = -(-s // CHUNK)
+    work = ((torch.empty((bsz, h, nc, p, n), dtype=torch.float32, device=x.device),
+             torch.empty((bsz, h, nc), dtype=torch.float32, device=x.device))
+            if path == "tf32x3" else (None, None))
+    ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
     fn = _fn()
     with torch.cuda.device(x.device):
-        err = fn(DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
-                 c.data_ptr(), None if h0 is None else h0.data_ptr(), y.data_ptr(),
-                 None if state is None else state.data_ptr(), bsz, s, h, p, g, n,
-                 torch.cuda.current_stream(x.device).cuda_stream)
+        err = fn(DTYPES[x.dtype], *(ptr(t) for t in (x, dt, a, b, c, h0, y, state, *work)),
+                 bsz, s, h, p, g, n, torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")
     ssd_scan.launches += 1
@@ -116,7 +168,7 @@ ssd_scan.launches_by_route = dict.fromkeys(ROUTES, 0)
 def _bwd_fn():
     """The backward's C entry point, built, loaded and typed once per process."""
     fn = build.load("ssd_scan_bwd").ssd_scan_bwd
-    fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -151,15 +203,16 @@ def ssd_scan_bwd(x, dt, a, b, c, h0, dy, dstate):
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=x.device)   # noqa: E731
     dx, ddt, da, db, dc = new(*x.shape), new(*dt.shape), new(h), new(*b.shape), new(*c.shape)
     dh0 = None if h0 is None else new(*h0.shape)
-    # the chunk states, and each CTA's share of what sums over heads, p tiles
-    # or batch, which the reduce kernels add in a fixed order
-    states = new(bsz, h, nc, p, n)
+    # the chunk states and their gradients, each chunk's cs_L, and each
+    # unit's share of what sums over heads, p tiles, chunks or batch, which
+    # the reduce kernels add in a fixed order
+    states, dstates, decay = new(bsz, h, nc, p, n), new(bsz, h, nc, p, n), new(bsz, h, nc)
     dbp, dcp = new(npt, bsz, s, h, n), new(npt, bsz, s, h, n)
-    ddtp, dap = new(npt, bsz, s, h), new(npt, bsz, h)
+    ddtp, dap = new(npt, bsz, s, h), new(npt, bsz, nc, h)
     ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
     with torch.cuda.device(x.device):
         err = _bwd_fn()(*(ptr(t) for t in (x, dt, a, b, c, h0, dy, dstate, dx, ddt, da, db, dc,
-                                           dh0, states, dbp, dcp, ddtp, dap)),
+                                           dh0, states, dstates, decay, dbp, dcp, ddtp, dap)),
                         bsz, s, h, p, g, n, torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"ssd_scan_bwd launch failed: CUDA error {err}")

@@ -245,10 +245,11 @@ def test_lm_on_card_matches_cpu(cuda):
     (2, 100, 4, 16, 32, 2, torch.bfloat16, True),     # bf16 at P 16: the CUDA cores
 ])
 def test_ssd_scan_kernel(cuda, b, s, h, p, n, g, dtype, with_h0):
-    """Both routes of K3 against its plain version (y and final state):
-    bf16 with P a multiple of 64 and N 64 or 128 on the tensor cores, fp32
-    and other bf16 widths on the CUDA cores, each launch counted under its
-    route; in fp32 also the final state against the sequential oracle. atol
+    """The three routes of K3 against its plain version (y and final
+    state): bf16 with P a multiple of 64 and N 64 or 128 on the tensor
+    cores by wgmma, fp32 on the 3xTF32 route, other bf16 widths on the CUDA
+    cores, each launch counted under its route; in fp32 also the final
+    state against the sequential oracle. atol
     is stated against max|y_ref|, as tests/test_kernels.py:73-75: 3e-5 in
     fp32, 2e-2 in bf16 (the plain version rounds the products C·Bᵀ and
     C·S_prevᵀ to bf16, the tensor-core route M and S_prev)."""
@@ -265,7 +266,8 @@ def test_ssd_scan_kernel(cuda, b, s, h, p, n, g, dtype, with_h0):
     y, st = ops.ssd_scan(x, dt, a, bm, cm, h0=h0, return_state=True)
     assert ops.launch_counts()["ssd_scan"] == before + 1
     route = tssd.route(dtype, p, n)
-    assert route == ("wgmma" if dtype == torch.bfloat16 and p % 64 == 0 else "cuda_cores")
+    assert route == ("tf32x3" if dtype == torch.float32
+                     else "wgmma" if p % 64 == 0 else "cuda_cores")
     assert tssd.kernel_route(dtype, p, n) == route
     by_route[route] += 1
     assert tssd.ssd_scan.launches_by_route == by_route
@@ -666,6 +668,41 @@ def test_ssd_scan_backward_kernel(cuda, b, s, h, p, g, n, with_h0, with_dstate):
     for g_, p_, a_ in zip(got, plain, auto):
         _close_grad(g_, p_)
         _close_grad(g_, a_)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,g,with_h0,with_dstate", [
+    (4, 256, 80, 64, 128, 1, False, False),   # the train call
+    (4, 256, 80, 64, 128, 1, True, True),     # with h0 and d(final state)
+    (2, 200, 4, 16, 32, 2, True, True),       # ragged S, G < H
+    (1, 37, 2, 80, 128, 2, True, False),      # under one chunk, two p tiles
+    (1, 64, 3, 64, 64, 3, False, True),       # G == H, one whole chunk, N 64
+    (2, 150, 16, 8, 16, 1, False, True),      # the reduced config
+])
+def test_ssd_scan_bwd_tf32x3_kernel(cuda, b, s, h, p, n, g, with_h0, with_dstate):
+    """K3-bwd on its 3xTF32 chunk-parallel kernels, at ``chip_smoke.py``'s
+    six K3-bwd cases, against its plain version within GRAD_TOL of each
+    gradient's max; two calls give the same bits (every sum in one fixed
+    order, no atomics)."""
+    from repro_torch.kernels import ssd_scan as tssd
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    x = _rand(gen, (b, s, h, p), torch.float32, cuda) * 0.5
+    dt = torch.nn.functional.softplus(_rand(gen, (b, s, h), torch.float32, cuda) - 2.0)
+    a = -torch.exp(_rand(gen, (h,), torch.float32, cuda) * 0.5 + 1.0)
+    bm, cm = ((_rand(gen, (b, s, g, n), torch.float32, cuda) * 0.3) for _ in range(2))
+    h0 = _rand(gen, (b, h, p, n), torch.float32, cuda) * 0.2 if with_h0 else None
+    dy = _rand(gen, (b, s, h, p), torch.float32, cuda)
+    ds = _rand(gen, (b, h, p, n), torch.float32, cuda) if with_dstate else None
+    ops.reset_launch_counts()
+    got = tssd.ssd_scan_bwd(x, dt, a, bm, cm, h0, dy, ds)
+    again = tssd.ssd_scan_bwd(x, dt, a, bm, cm, h0, dy, ds)
+    assert ops.launch_counts()["ssd_scan_bwd"] == 2
+    want = ops.ssd_scan_bwd_plain(x, dt, a, bm, cm, h0, dy, ds)
+    assert (got[5] is None) == (h0 is None)
+    for g_, a_, w_ in zip(got, again, want):
+        if w_ is None:
+            continue
+        assert torch.equal(g_, a_)
+        _close_grad(g_, w_)
 
 
 def test_train_step_on_card_matches_cpu(cuda):

@@ -437,9 +437,11 @@ def test_build_paths_track_source_and_flags(monkeypatch, tmp_path):
     for f in (*build.CSRC.glob("*.cu"), *build.CSRC.glob("*.cuh")):
         (csrc / f.name).write_bytes(f.read_bytes())
     monkeypatch.setattr(build, "CSRC", csrc)
-    for header, includers in (("mma_tf32.cuh", {"flash_attention", "flash_attention_bwd"}),
+    for header, includers in (("mma_tf32.cuh", {"flash_attention", "flash_attention_bwd",
+                                                "ssd_scan", "ssd_scan_bwd"}),
+                              ("ssd_tf32.cuh", {"ssd_scan", "ssd_scan_bwd"}),
                               ("hopper.cuh", {"flash_attention", "flash_attention_bwd",
-                                              "decode_attention", "ssd_scan"})):
+                                              "decode_attention", "ssd_scan", "ssd_scan_bwd"})):
         paths = {name: build.library_path(name) for name in build.KERNELS}
         with open(csrc / header, "a") as f:
             f.write("// edited\n")

@@ -13,7 +13,9 @@ final state at 3e-5 of max|state_ref|, the bound the card's check holds the
 kernel to. K3-bwd's plain version (``ops.ssd_scan_bwd_plain``, the passes
 the kernel runs) is held to ``jax.vjp`` of ``repro.nn.ssd.ssd_chunked`` and
 to autograd of the plain forward: every gradient within 1e-4 of its own
-max.
+max. An emulation of K3's fp32 route and of K3-bwd (their chunk-parallel
+passes, fixed-order reduces and 3xTF32 products) is held to the same
+references at the same bounds, and one TF32 product shown to miss them.
 """
 
 import re
@@ -297,23 +299,257 @@ def test_ssd_wgmma_walk_needs_the_low_half():
         assert (float((st - sref).abs().max()) <= 3e-5 * scale) == within, halves
 
 
+def _tf32(x, rna):
+    """x's TF32 value: rounded to nearest, ties away from zero (`rna`, the
+    kernels' big part, as cvt.rna.tf32.f32), or truncated (the tensor
+    core's reading of the small part)."""
+    bits = x.contiguous().view(torch.int32)
+    if rna:
+        bits = bits + 0x1000
+    return (bits & -0x2000).view(torch.float32)
+
+
+def _mm3(eq, a, b, terms=3):
+    """The einsum `eq` as the kernels' `mma.sync` products: each fp32
+    operand split into big (rounded) and small (x - big, truncated), and
+    small.big + big.small + big.big in fp32 (terms 3), or big.big alone
+    (terms 1, one TF32 product)."""
+    ab, bb = _tf32(a, True), _tf32(b, True)
+    if terms == 1:
+        return torch.einsum(eq, ab, bb)
+    return (torch.einsum(eq, _tf32(a - ab, False), bb) + torch.einsum(eq, ab, _tf32(b - bb, False))
+            + torch.einsum(eq, ab, bb))
+
+
+def _tf32x3_chunks(x, dt, a, b, c, L=64):
+    """The chunk layout of the 3xTF32 route: steps padded with zeros to
+    whole chunks of L (dt 0 past S), b and c per head, cs the inclusive
+    cumsum of dt a within a chunk, w_s = exp(cs_L - cs_s) dt_s."""
+    bsz, s, h, p = x.shape
+    g = b.shape[2]
+    pad = -s % L
+    x, b, c = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)) for t in (x, b, c))
+    dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+    nc = x.shape[1] // L
+    xc = x.reshape(bsz, nc, L, h, p)
+    bc, cc = (t.reshape(bsz, nc, L, g, -1).repeat_interleave(h // g, dim=3) for t in (b, c))
+    dtc = dt.reshape(bsz, nc, L, h)
+    cs = torch.cumsum(dtc * a, dim=2)
+    w = torch.exp(cs[:, :, -1:] - cs) * dtc
+    return xc, bc, cc, dtc, cs, w
+
+
+def _pass(summ, cs_l, init, reverse=False):
+    """(b) the passing across chunks, one chunk at a time: each chunk's
+    entry replaced by the running value before it, which becomes
+    exp(cs_L) run + summary. summ (B, nc, H, P, N); returns (entries, what
+    is left)."""
+    run, out = init, [None] * summ.shape[1]
+    for ci in (range(summ.shape[1] - 1, -1, -1) if reverse else range(summ.shape[1])):
+        out[ci] = run
+        run = torch.exp(cs_l[:, ci])[..., None, None] * run + summ[:, ci]
+    return torch.stack(out, dim=1), run
+
+
+def _tf32x3_walk(x, dt, a, b, c, h0=None, terms=3):
+    """K3's 3xTF32 route (``ssd_scan.cu``'s `ssd_state_kernel`,
+    `ssd_pass_kernel`, `ssd_out_kernel`): (a) each chunk's state s_c =
+    (w x)^T B; (b) the passing, S_{c-1} from h0; (c) y = exp(cs_t) C
+    S_{c-1}^T + M X, M from C B^T with the decay and dt, masked to s <= t
+    before exp; every product `_mm3`. fp32 (B,S,H,P) etc.; returns (y,
+    final state)."""
+    bsz, s, h, p = x.shape
+    n = b.shape[3]
+    xc, bc, cc, dtc, cs, w = _tf32x3_chunks(x, dt, a, b, c)
+    L = xc.shape[2]
+    s_chunk = _mm3("bclhp,bclhn->bchpn", xc * w[..., None], bc, terms)
+    init = torch.zeros(bsz, h, p, n) if h0 is None else h0
+    prev, final = _pass(s_chunk, cs[:, :, -1], init)
+    causal = torch.ones(L, L, dtype=torch.bool).tril()
+    gm = _mm3("bclhn,bcmhn->bchlm", cc, bc, terms)
+    decay = (cs[..., :, None, :] - cs[..., None, :, :]).movedim(-1, 2)
+    m = torch.where(causal, gm * torch.exp(torch.where(causal, decay, -torch.inf))
+                    * dtc.movedim(-1, 2)[..., None, :], 0.0)
+    y = torch.exp(cs)[..., None] * _mm3("bclhn,bchpn->bclhp", cc, prev, terms) \
+        + _mm3("bchlm,bcmhp->bclhp", m, xc, terms)
+    return y.reshape(bsz, -1, h, p)[:, :s], final
+
+
+def _tf32x3_bwd_walk(x, dt, a, b, c, h0, dy, dstate, terms=3, PT=64):
+    """K3-bwd (``ssd_scan_bwd.cu``): (a) s_c and ds_c = (exp(cs) dy)^T C;
+    (b) S_{c-1} forward from h0, dS_c backward from dstate (dh0 what is
+    left); (c) per chunk and 64-column p tile, every product `_mm3`: C B^T,
+    B dS^T, dy x^T, M^T dy, dy S, dG B, x dS, dG^T C, then d(cs), its
+    reverse cumsum, ddt and da, as each unit computes them; the reduces sum
+    the tiles' partials in order (dB and dC also over a group's heads,
+    head order; da over tiles, batch, chunks). Returns (dx, ddt, da, db,
+    dc, dh0)."""
+    bsz, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    xc, bc, cc, dtc, cs, w = _tf32x3_chunks(x, dt, a, b, c)
+    dyc = _tf32x3_chunks(dy, dt, a, b, c)[0]
+    L, nc = xc.shape[2], xc.shape[1]
+    ecs = torch.exp(cs)
+    cs_l = cs[:, :, -1]
+    zero = torch.zeros(bsz, h, p, n)
+    prev, _ = _pass(_mm3("bclhp,bclhn->bchpn", xc * w[..., None], bc, terms), cs_l,
+                    zero if h0 is None else h0)
+    after, dh0 = _pass(_mm3("bclhp,bclhn->bchpn", dyc * ecs[..., None], cc, terms), cs_l,
+                       zero if dstate is None else dstate, reverse=True)
+    causal = torch.ones(L, L, dtype=torch.bool).tril()
+    e = torch.exp(torch.where(causal, (cs[..., :, None, :] - cs[..., None, :, :]).movedim(-1, 2),
+                              -torch.inf))                     # (B,nc,H,t,s)
+    dt_s = dtc.movedim(-1, 2)[..., None, :]
+    gm = _mm3("bclhn,bcmhn->bchlm", cc, bc, terms)
+    m = gm * e * dt_s
+    dx = torch.zeros_like(xc)
+    parts = []                                                  # (ddt, da, db, dc) a tile
+    for p0 in range(0, p, PT):
+        ps = slice(p0, p0 + PT)
+        xt, dyt, st, dst = xc[..., ps], dyc[..., ps], prev[..., ps, :], after[..., ps, :]
+        u = _mm3("bcshn,bchpn->bcshp", bc, dst, terms)          # B dS^T
+        dm = _mm3("bclhp,bcmhp->bchlm", dyt, xt, terms)         # dy x^T
+        dg, r = dm * e * dt_s, dm * gm * e
+        dx[..., ps] = _mm3("bchts,bcthp->bcshp", m, dyt, terms) + w[..., None] * u
+        dw = (xt * u).sum(-1)
+        z = _mm3("bcthp,bchpn->bcthn", dyt, st, terms)          # dy S_{c-1}
+        dcm = ecs[..., None] * z + _mm3("bchts,bcshn->bcthn", dg, bc, terms)
+        dbm = w[..., None] * _mm3("bcshp,bchpn->bcshn", xt, dst, terms) \
+            + _mm3("bchts,bcthn->bcshn", dg, cc, terms)
+        col = r.sum(-2).movedim(-1, 2)
+        dcs = (r * dt_s).sum(-1).movedim(-1, 2) - dtc * col + ecs * (cc * z).sum(-1) - dw * w
+        dcs[:, :, -1] += (dw * w).sum(2) + torch.exp(cs_l) * (dst * st).sum((-2, -1))
+        rc = dcs.flip(2).cumsum(2).flip(2)
+        ddt = col + dw * torch.exp(cs_l[:, :, None] - cs) + a * rc
+        parts.append((ddt, (dtc * rc).sum(2), dbm, dcm))         # da: (B,nc,H) a tile
+
+    def steps(t):
+        return t.reshape(bsz, nc * L, *t.shape[3:])[:, :s]
+
+    def fixed_sum(ts):
+        out = ts[0]
+        for t in ts[1:]:
+            out = out + t
+        return out
+    ddt = fixed_sum([steps(q[0]) for q in parts])
+    da = fixed_sum([q[1][bi, ci] for q in parts for bi in range(bsz) for ci in range(nc)])
+    group = lambda t: fixed_sum(list(t.reshape(bsz, s, g, h // g, n).unbind(3)))   # noqa: E731
+    db = fixed_sum([group(steps(q[2])) for q in parts])
+    dc = fixed_sum([group(steps(q[3])) for q in parts])
+    return steps(dx), ddt, da, db, dc, (None if h0 is None else dh0)
+
+
+@pytest.mark.parametrize("s,g,n,p,with_h0", [
+    (128, 4, 128, 64, False),   # two chunks: the Pallas kernel in interpret mode
+    (128, 2, 64, 64, False),    # G < H, N 64: the Pallas kernel
+    (200, 1, 128, 64, True),    # ragged S over four chunks, h0
+    (37, 2, 128, 80, True),     # under one chunk, P off 64 (two p tiles)
+    (100, 2, 64, 80, False),    # ragged S, P 80, N 64
+])
+def test_ssd_tf32x3_walk_matches_pallas(s, g, n, p, with_h0):
+    """K3's 3xTF32 route as its passes (64-step chunks, each chunk's state,
+    the passing, then y; every product 3xTF32) against the JAX package: y
+    against the Pallas kernel in interpret mode (head-expanded b and c, no
+    initial state) where S is a multiple of its chunk, else against
+    ``ssd_chunked``; y and the final state against the sequential oracle
+    ``ssd_ref``; the fp32 tolerances of the K3 tests (3e-5 of the max, rtol
+    1e-4)."""
+    b, h = 2, 4
+    d = _inputs(9, b, s, h, p, n, g, h0=with_h0)
+    keys = ("x", "dt", "a", "b", "c")
+    y, st = _tf32x3_walk(*(_t(d[k]) for k in keys), h0=_t(d["h0"]))
+    assert y.shape == (b, s, h, p) and st.shape == (b, h, p, n)
+    rep = lambda t: jnp.repeat(_j(t), h // g, axis=2)   # noqa: E731
+    yref, sref = jref.ssd_ref(_j(d["x"]), _j(d["dt"]), _j(d["a"]), rep(d["b"]), rep(d["c"]),
+                              h0=_j(d["h0"]))
+    if s % 64 == 0 and not with_h0:
+        want = jops.ssd_scan(_j(d["x"]), _j(d["dt"]), _j(d["a"]), rep(d["b"]), rep(d["c"]),
+                             chunk=64)
+    else:
+        want, _ = jax.jit(jssd.ssd_chunked, static_argnums=5)(*(_j(d[k]) for k in keys), 64,
+                                                               h0=_j(d["h0"]))
+    _close(y, want, scale_of=yref)
+    _close(y, yref)
+    _close(st, sref)
+
+
+@pytest.mark.parametrize("s,g,n,p,with_h0,with_dstate", [
+    (128, 1, 128, 64, False, False),   # two whole chunks, one group
+    (100, 2, 64, 64, True, True),      # ragged S, G < H, h0 and d(final state)
+    (37, 2, 128, 80, True, False),     # under one chunk, P off 64
+    (150, 4, 64, 80, False, True),     # G == H, ragged, two p tiles
+])
+def test_ssd_tf32x3_bwd_walk_matches_jax_vjp(s, g, n, p, with_h0, with_dstate):
+    """K3-bwd's passes with their 3xTF32 products and fixed-order reduces
+    against jax.vjp of ``repro.nn.ssd.ssd_chunked`` and the plain backward
+    ``ops.ssd_scan_bwd_plain``: dx, ddt, da, db, dc and dh0 each within
+    1e-4 of its own max, the K3-bwd tests' bound."""
+    b, h = 2, 4
+    d = _inputs(10, b, s, h, p, n, g, h0=with_h0)
+    rng = np.random.default_rng(11)
+    dy = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dstate = rng.standard_normal((b, h, p, n)).astype(np.float32) if with_dstate else None
+    keys = ("x", "dt", "a", "b", "c") + (("h0",) if with_h0 else ())
+    got = _tf32x3_bwd_walk(*(_t(d[k]) for k in ("x", "dt", "a", "b", "c", "h0")), _t(dy),
+                           _t(dstate))
+
+    @jax.jit
+    def vjp_of_chunked(args, ct):
+        _, vjp = jax.vjp(lambda *a: jssd.ssd_chunked(*a[:5], 64, h0=a[5] if with_h0 else None),
+                         *args)
+        return vjp(ct)
+    want = vjp_of_chunked(tuple(_j(d[k]) for k in keys),
+                          (_j(dy), jnp.zeros((b, h, p, n)) if dstate is None else _j(dstate)))
+    plain = ops.ssd_scan_bwd_plain(*(_t(d[k]) for k in ("x", "dt", "a", "b", "c", "h0")),
+                                   _t(dy), _t(dstate))
+    assert (got[5] is None) == (not with_h0)
+    for name, g_, j, p_ in zip(("dx", "ddt", "da", "db", "dc", "dh0"), got, want, plain):
+        for ref_ in (np.asarray(j), p_.numpy()):
+            assert g_.shape == ref_.shape, name
+            scale = float(np.abs(ref_).max())
+            np.testing.assert_allclose(g_.numpy(), ref_, atol=1e-4 * scale, rtol=0, err_msg=name)
+
+
+def test_ssd_tf32x3_needs_three_products():
+    """The fp32 bounds are what the three products buy: with one TF32
+    product (big.big) the forward's y misses 3e-5 of its max against
+    ``ssd_ref`` and the backward misses 1e-4 of a gradient's max against
+    the plain backward; with three both hold."""
+    b, s, h, p, n, g = 2, 128, 4, 64, 128, 1
+    d = _inputs(12, b, s, h, p, n, g, h0=True)
+    args = [_t(d[k]) for k in ("x", "dt", "a", "b", "c")]
+    yref, _ = ref.ssd_ref(*args[:3], *(t.repeat_interleave(h // g, 2) for t in args[3:]),
+                          h0=_t(d["h0"]))
+    dy = _t(np.random.default_rng(13).standard_normal((b, s, h, p)).astype(np.float32))
+    plain = ops.ssd_scan_bwd_plain(*args, _t(d["h0"]), dy, None)
+    for terms, within in ((1, False), (3, True)):
+        y, _ = _tf32x3_walk(*args, h0=_t(d["h0"]), terms=terms)
+        fwd_ok = float((y - yref).abs().max()) <= 3e-5 * float(yref.abs().max())
+        got = _tf32x3_bwd_walk(*args, _t(d["h0"]), dy, None, terms=terms)
+        bwd_ok = all(float((x_ - w_).abs().max()) <= 1e-4 * float(w_.abs().max())
+                     for x_, w_ in zip(got, plain))
+        assert fwd_ok == within and bwd_ok == within, terms
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("p", [8, 16, 64, 80, 128, 192])
 @pytest.mark.parametrize("n", [16, 32, 64, 96, 128])
 def test_ssd_route_rule(dtype, p, n):
-    """bf16 with P a multiple of 64 and N 64 or 128 takes the tensor cores;
-    fp32 (which would be TF32 there) and other widths stay on the CUDA
-    cores."""
-    want = ("wgmma" if dtype == torch.bfloat16 and p % 64 == 0 and n in (64, 128)
-            else "cuda_cores")
+    """bf16 with P a multiple of 64 and N 64 or 128 takes the tensor cores
+    by wgmma; fp32 takes the 3xTF32 route at every P and N; bf16 at other
+    widths stays on the CUDA cores."""
+    if dtype == torch.float32:
+        want = "tf32x3"
+    else:
+        want = "wgmma" if p % 64 == 0 and n in (64, 128) else "cuda_cores"
     assert tssd.route(dtype, p, n) == want
 
 
 def test_ssd_route_rule_matches_kernel():
     """The wrapper's route rule is the .cu's `ssd_scan_route`, the C
-    expression evaluated in Python over every dtype and a grid of P and N,
-    so the launches the wrapper counts under a route are the ones the
-    library takes."""
+    expression evaluated in Python over every dtype and a grid of P and N
+    (it returns an index into ``ROUTES``), so the launches the wrapper
+    counts under a route are the ones the library takes."""
     src = (Path(tssd.__file__).parent / "csrc" / "ssd_scan.cu").read_text()
     body = re.search(r'extern "C" int ssd_scan_route\(int dtype, int P, int N\) \{\s*'
                      r"return (.*?);\s*\}", src, re.S).group(1)
@@ -323,15 +559,16 @@ def test_ssd_route_rule_matches_kernel():
     for dtype, code in codes.items():
         for p in range(1, 257):
             for n in range(1, tssd.MAX_STATE + 1):
-                took = bool(eval(expr, {}, dict(dtype=code, P=p, N=n)))
-                assert (tssd.route(dtype, p, n) == "wgmma") == took, (dtype, p, n)
+                took = tssd.ROUTES[eval(expr, {}, dict(dtype=code, P=p, N=n))]
+                assert tssd.route(dtype, p, n) == took, (dtype, p, n)
 
 
 def test_reset_clears_ssd_route_counts():
     tssd.ssd_scan.launches_by_route["wgmma"] += 2
-    tssd.ssd_scan.launches += 2
+    tssd.ssd_scan.launches_by_route["tf32x3"] += 1
+    tssd.ssd_scan.launches += 3
     ops.reset_launch_counts()
-    assert tssd.ssd_scan.launches_by_route == {"wgmma": 0, "cuda_cores": 0}
+    assert tssd.ssd_scan.launches_by_route == {"wgmma": 0, "tf32x3": 0, "cuda_cores": 0}
     assert ops.launch_counts()["ssd_scan"] == 0
 
 
