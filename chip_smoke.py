@@ -62,14 +62,15 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    tensor-core route; the served tokens must equal greedy decoding, and each
    path gets a profiler breakdown of a prefill and a decode step, in which
    each kernel the path launches must hold device time in its group; then
-   the rest of the dense family at full width and depth, K1 once a layer a
-   prefill and K2 once a layer a decode step: gemma2-9b (42 layers,
+   the rest of the dense family at full width, K1 once a layer a prefill
+   and K2 once a layer a decode step: gemma2-9b (10 of its 42 layers,
    4352-token prompts past its window of 4096, so its local layers' rings
-   wrap, which the phase checks), starcoder2-15b (40), qwen2.5-32b (64,
-   65.5 GB of weights) and internvl2-1b (24, text prompts); each of these
-   phases prints its seconds; then the MoE family: qwen3-moe-30b-a3b at
-   full width and depth (48 layers of 128 experts, top 8, 61 GB of bf16
-   weights), K1 48 a prefill and K2 48 a decode step, and deepseek-v3-671b
+   wrap, which the phase checks), starcoder2-15b (10 of 40), qwen2.5-32b
+   (16 of 64) and internvl2-1b (24, its full depth, text prompts); then
+   the MoE family: qwen3-moe-30b-a3b at full width cut to 12 of its 48
+   layers of 128 experts, top 8, K1 12 a prefill and K2 12 a decode step
+   (the depths cut to keep the whole run within its time with the
+   production-dtype training phases; SERVE_LAYERS), and deepseek-v3-671b
    at full width cut to 4 layers (3 first dense layers and 1 MoE layer of
    256 experts, MLA, the MTP block built), K1 4 a prefill on the padded
    head_dim 256 and no K2 (MLA decodes in its absorbed form, plain);
@@ -114,10 +115,11 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    seamless-m4t-large-v2, 12-token prompts over the reduced config's 8
    frames, so that K1's fp32 cross call has k and v of a length of their
    own);
-6. grad guards: K1's bf16 route, K2 and K3's bf16 routes raise under
-   autograd (they have no backward kernel) instead of returning a tensor
-   with no grad_fn; K3 in fp32 and K1 in fp32 with k and v of a length of
-   their own return tensors with a grad_fn;
+6. grad guards: K2 and K1 in bf16 at head_dim 16 raise under autograd
+   (they have no backward kernel) instead of returning a tensor with no
+   grad_fn; K1 in bf16 at 64, 128 and 256, K3 in bf16 and fp32, and K1 in
+   fp32 with k and v of a length of their own return tensors with a
+   grad_fn;
 7. train parity: recurrentgemma-2b at 3 layers of full width, fp32: the
    V-trace loss through K1, K1-bwd, K4 and K4-bwd against the same
    through their plain versions on the card; each of those kernel calls
@@ -130,7 +132,15 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    K3-bwd, or K1 and K1-bwd (its cross calls at S_kv 1024 against S 256),
    against the plain versions within 1e-5, one step's launches, and every
    gradient leaf within GRAD_TOL of the plain versions' or, where farther,
-   held to the kernels in fp64 as RecurrentGemma's leaves are;
+   held to the kernels in fp64 as RecurrentGemma's leaves are; then
+   qwen3-14b and mamba2-2.7b at 3 layers of full width at the production
+   dtypes (bf16 params and compute, full remat; ``bf16_train_parity_phase``):
+   the loss through K1 (wgmma) and K1-bwd's bf16 route, or K3 and K3-bwd's
+   bf16 route, against their plain versions paired as the kernels pair
+   them (``plain_bf16_pairs``: the bf16 K1-bwd's plain version with its
+   roundings) within 1e-2 relative, one step's launches on those routes,
+   and every gradient leaf within BF16_LEAF_TOL (5e-2) of the plain
+   versions' or, where farther, held to the kernels in fp64;
 8. train: recurrentgemma-2b (26 layers, 2.89 B params), mamba2-2.7b (64
    layers) and seamless-m4t-large-v2 (24+24 layers, over 1024 seeded
    frames) at full width and depth, fp32 params and AdamW moments, each
@@ -141,7 +151,13 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    finite; then the step's wall time, tokens/s, the forward, backward and
    optimizer parts, peak memory, a profiler breakdown (the family's
    kernel groups non-zero, every other kernel group empty) and the phase's
-   seconds;
+   seconds; then the same at the reference's production dtypes (bf16
+   params and compute, full remat, fp32 AdamW moments): qwen3-14b at full
+   width cut to 4 of 40 layers (2.88 B params), batch 16 x 256 in its
+   config's 4 micro-batches, K1 32 and K1-bwd 16 a step (remat runs each
+   layer's forward again; K1 on wgmma, K1-bwd on its bf16 route), and
+   mamba2-2.7b at full width and depth, batch 4 x 256, K3 128 and K3-bwd
+   64 a step (K3 on wgmma, K3-bwd on its bf16 route);
 9. train restart: the launcher at the reduced config on the card,
    checkpointing every 2 steps, restarts from its checkpoint after a
    failure injected at step 3 and ends at step 6;
@@ -274,6 +290,9 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    history ledger phase 19 wrote (build/bench_torch/BENCH_history.json),
    exit 0 and "trend_summary,ok".
 
+Every phase prints its seconds on a line of its own (``phase <name>: N
+s``), and the run all of them in one JSON line before the results.
+
 The kernel phase (3) also holds K1-bwd, K4-bwd and K3-bwd to their plain
 versions (the passes each kernel runs) at the train calls, the smoke
 widths, D 128 with 5 query heads a kv head, and the edges of their tiles
@@ -295,7 +314,18 @@ bounds at the 3xTF32 and fp32 CUDA-core rates. K1's fp32 forward
 against its bounds at the 3xTF32 and the fp32 CUDA-core rates, with its
 registers and spills, and K3's fp32 forward (3xTF32) at mamba2's, the
 same fields as K3-bwd's, in a row of its own (``ssd_scan_tf32x3``, its
-launches those of that route in the train phase).
+launches those of that route in the train phase). For training at the
+production dtypes (``bf16_kernel_phase``): K1's wgmma route with its
+log-sum-exp (held to LSE_BF16_TOL, 1e-4) and the bf16 K1-bwd against its
+plain version with its roundings (BF16_GRAD_TOL, 1e-2 of each gradient's
+max) at qwen3-14b's micro-batch call (4, 256, 40/8, 128), D 64, 128 and
+256, 5 query heads a kv head, a window, softcap 50, S_kv != S unmasked and
+the edges of its 32 x 32 tiles; K3-bwd's bf16 route at mamba2's train
+call and the fp32 route's edges plus P and N off 8, each case run twice
+and held equal to the bit; each timed at its train call beside its bound
+(K1-bwd also beside SDPA's bf16 backward), with its registers and spills,
+in the rows ``flash_attention_bwd_bf16`` and ``ssd_scan_bwd_bf16`` and K1's
+``qwen3_train_call``.
 
 After phase 20, when no other phase runs, a child process runs the dry
 run (``python -m repro_torch.launch.dryrun``'s ``main``, no card: a fake
@@ -348,12 +378,16 @@ SERVE = {"qwen3-14b": (256, 512), "mamba2-2.7b": (512, 576),
          # the encoder-decoder: 256-token prompts against 1024 seeded frames
          "seamless-m4t-large-v2": (256, 512)}
 PROMPT_LEN, MAX_LEN = SERVE["qwen3-14b"]
-# the MoE archs: qwen3-moe-30b-a3b at full depth (48 layers, 61 GB of bf16
-# weights); deepseek-v3-671b at its full width cut to 4 layers (its 3 first
-# dense layers and 1 MoE layer, with the MTP block built: 53 GB), since its
-# 61 layers take 1.3 TB
+# the MoE archs: qwen3-moe-30b-a3b; deepseek-v3-671b at its full width cut
+# to 4 layers (its 3 first dense layers and 1 MoE layer, with the MTP block
+# built: 53 GB), since its 61 layers take 1.3 TB
 MOE_ARCHS = ("qwen3-moe-30b-a3b", "deepseek-v3-671b")
-SERVE_LAYERS = {"deepseek-v3-671b": 4}
+# serve paths served at full width with their depth cut: deepseek to fit
+# the card; qwen3-moe (48 layers), qwen2.5-32b (64), gemma2-9b (42, an even
+# count keeps its local/global alternation) and starcoder2-15b (40) so that
+# the run, with the production-dtype training phases, stays within its time
+SERVE_LAYERS = {"deepseek-v3-671b": 4, "qwen3-moe-30b-a3b": 12, "qwen2.5-32b": 16,
+                "gemma2-9b": 10, "starcoder2-15b": 10}
 # their reduced configs' parity, card against CPU: at the reference's smoke
 # capacity factor (no drops) and at the published 1.25, where pairs drop
 MOE_CAPACITY = (8.0, 1.25)
@@ -405,6 +439,27 @@ FP64_MARGIN = 2.0
 # cancel to 1e-11 to 1e-7 of the largest leaf's, where K1-bwd's dk, within
 # GRAD_TOL of its own max, moves them by more than GRAD_TOL of theirs
 LEAF_FLOOR = 1e-6
+# training at the reference's production dtypes (its launch/dryrun.py's
+# production_config): bf16 params and compute, full remat, fp32 AdamW
+# moments. qwen3-14b at full width cut to 4 of 40 layers, batch 16 x 256 in
+# its config's 4 micro-batches (K1 and K1-bwd at (4, 256, 40/8, 128), the
+# serving prefill's call), and mamba2-2.7b at full width and depth, pure
+# data-parallel (tp 1, no accumulation), batch 4 x 256 (K3 and K3-bwd at
+# (4, 256, 80, 64, 128))
+PRODUCTION = dict(param_dtype="bfloat16", compute_dtype="bfloat16", remat="full",
+                  optimizer_dtype="float32")
+BF16_TRAIN = {"qwen3-14b": dict(batch=16, num_layers=4), "mamba2-2.7b": dict(batch=4)}
+# their train parity at 3 layers of full width, batch 4 x 256, the kernels
+# against their plain versions paired as the kernels pair them
+BF16_TRAIN_PARITY = ("qwen3-14b", "mamba2-2.7b")
+# a bf16 backward kernel's bf16 outputs against its plain version with the
+# kernel's roundings: 2.5 bf16 ulps of each tensor's max |value| (an
+# element rounds one ulp the other way; a P or dX that rounds the other way
+# moves a sum by one ulp of that term)
+BF16_GRAD_TOL = 1e-2
+# a bf16 gradient leaf of the train parity against the plain versions'
+BF16_LEAF_TOL = 5e-2
+LSE_BF16_TOL = 1e-4   # the wgmma route's log-sum-exp, and relative
 
 
 def log(msg):
@@ -1504,6 +1559,207 @@ def kernel_phase(k1_ptxas, k4_ptxas, bwd_ptxas):
     return rows
 
 
+def bf16_kernel_phase(rows, bwd_ptxas):
+    """The kernels of training at the production dtypes, against their
+    plain versions and timed: K1's wgmma route writing its log-sum-exp (held
+    to LSE_BF16_TOL), the bf16 K1-bwd (against
+    ``ops.flash_attention_bwd_bf16_plain``, its roundings, at BF16_GRAD_TOL
+    of each gradient's max) and the bf16 route of K3-bwd (its bf16 outputs
+    at BF16_GRAD_TOL, its fp32 ones at GRAD_TOL, each case run twice and
+    held equal to the bit), each timed at its train call beside its bound
+    and, for K1-bwd, SDPA's bf16 backward. Adds the rows
+    ``flash_attention_bwd_bf16`` and ``ssd_scan_bwd_bf16`` and K1's
+    ``qwen3_train_call``."""
+    import torch.nn.functional as F
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as K1
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as K3
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    bf = torch.bfloat16
+
+    def rand(*shape, dtype=bf):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    log("== kernels: training at the production dtypes: K1's wgmma route with its "
+        "log-sum-exp, K1-bwd's and K3-bwd's bf16 routes")
+    qb, qs = BF16_TRAIN["qwen3-14b"]["batch"] // get_config("qwen3-14b").grad_accum, TRAIN["seq"]
+    qcall = (qb, qs, 40, 8, 128)          # qwen3-14b's micro-batch call
+    # D 64, 128, 256; 5 query heads a kv head; a window; softcap 50; S_kv !=
+    # S unmasked; S off the 32-row tiles; the tiles' edges (one past a tile,
+    # one past two, ragged over ten; a window ending inside a key tile)
+    cases = [(qcall, {}),
+             ((2, 77, 5, 1, 64), {}),
+             ((2, 200, 10, 2, 256), {"window": 64}),
+             ((2, 96, 4, 2, 128), {"softcap": 50.0}),
+             ((2, 33, 4, 4, 64), {"window": 20, "softcap": 50.0}),
+             ((1, 65, 10, 1, 256), {"window": 20}),
+             ((2, 300, 4, 1, 128), {"window": 45}),
+             ((2, 65, 5, 1, 128), {"causal": False}),
+             ((2, 40, 4, 2, 64), {"causal": False, "skv": 100}),
+             ((1, 130, 2, 2, 256), {"causal": False, "skv": 33}),
+             ((TRAIN["batch"], TRAIN["seq"], SEAMLESS["h"], SEAMLESS["kh"], SEAMLESS["d"]),
+              {"causal": False, "skv": SEAMLESS["frames"]})]
+    k1_err = 0.0
+    for (cb, cs, ch, ckh, cd), kw in cases:
+        kw = dict(kw)
+        cskv = kw.pop("skv", cs)
+        q, do = rand(cb, cs, ch, cd), rand(cb, cs, ch, cd)
+        k, v = rand(cb, cskv, ckh, cd), rand(cb, cskv, ckh, cd)
+        kw = {"causal": True, "scale": cd ** -0.5, **kw}
+        o, lse = K1.flash_attention(q, k, v, return_lse=True, **kw)
+        got = K1.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        want = ops.flash_attention_bwd_bf16_plain(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        shown = {k_: v_ for k_, v_ in kw.items() if k_ != "scale"}
+        if cskv != cs:
+            shown["S_kv"] = cskv
+        name = f"K1-bwd bf16 {(cb, cs, ch, ckh, cd)} {shown}"
+        check_close(f"K1 {(cb, cs, ch, ckh, cd)} {shown} [wgmma] lse", lse,
+                    ops.flash_attention_lse_plain(q, k, **kw), LSE_BF16_TOL)
+        check_close(f"K1 {(cb, cs, ch, ckh, cd)} {shown} [wgmma] output", o,
+                    ops.flash_attention_plain(q, k, v, **kw), 2e-2)
+        errs = [check_close(f"{name} {g} [bf16]", x, w, BF16_GRAD_TOL,
+                            BF16_GRAD_TOL * max(float(w.float().abs().max()), 1e-30))
+                for g, x, w in zip(("dq", "dk", "dv"), got, want)]
+        if (cb, cs, ch, ckh, cd) == qcall:
+            k1_err = max(errs)
+        del q, k, v, do, o, lse, got, want
+
+    # timing at qwen3's micro-batch call: K1 with its log-sum-exp, K1-bwd
+    cb, cs, ch, ckh, cd = qcall
+    sc = cd ** -0.5
+    q, do = rand(cb, cs, ch, cd), rand(cb, cs, ch, cd)
+    k, v = rand(cb, cs, ckh, cd), rand(cb, cs, ckh, cd)
+    fwd = lambda: K1.flash_attention(q, k, v, scale=sc, return_lse=True)   # noqa: E731
+    o, lse = fwd()
+    fwd_ms = time_ms("K1 bf16 with lse", fwd)
+    fwd_plain = time_ms("K1 bf16 plain with lse", lambda: (
+        ops.flash_attention_plain(q, k, v, scale=sc),
+        ops.flash_attention_lse_plain(q, k, scale=sc)), iters=5, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    sdpa = lambda: F.scaled_dot_product_attention(   # noqa: E731
+        qt, kt, vt, is_causal=True, scale=sc, enable_gqa=True)
+    lib_fwd = time_ms("SDPA bf16 forward", sdpa)
+    lib_both = time_ms("SDPA bf16 forward and backward", lambda: torch.autograd.grad(
+        sdpa(), (qt, kt, vt), dot))
+    pairs = cs * (cs + 1) // 2
+    fwd_flops = 4 * cd * pairs * cb * ch
+    fwd_bytes = 2 * (2 * cb * cs * ch * cd + 2 * cb * cs * ckh * cd) + 4 * cb * ch * cs
+    fb = bound(fwd_flops, fwd_bytes, "bfloat16")
+    rows["flash_attention"]["qwen3_train_call"] = dict(
+        ms=fwd_ms, plain_ms=fwd_plain, library_ms=lib_fwd, **fb,
+        tflops=fwd_flops / fwd_ms / 1e9, variant=K1.route(bf, cd), with_lse=True)
+    log(f"   K1 at {qcall} bf16, causal, with its log-sum-exp (qwen3-14b's micro-batch call "
+        f"in training) [{K1.route(bf, cd)}]: kernel_ms {fwd_ms:.4f} "
+        f"({fwd_flops / fwd_ms / 1e9:.1f} TFLOP/s) plain_ms {fwd_plain:.4f} library_ms "
+        f"{lib_fwd:.4f} (SDPA bf16 forward, causal) bound_ms {fb['bound_ms']:.4f} "
+        f"({fb['bound_by']}; {fwd_flops / 1e9:.2f} GFLOP, {fwd_bytes / 1e6:.1f} MB)")
+    bwd = lambda: K1.flash_attention_bwd(q, k, v, o, lse, do, scale=sc)   # noqa: E731
+    ms = time_ms("K1-bwd bf16", bwd)
+    plain_ms = time_ms("K1-bwd bf16 plain", lambda: ops.flash_attention_bwd_bf16_plain(
+        q, k, v, o, lse, do, scale=sc), iters=5, warmup=1)
+    names = ("flash_bwd_bf16_delta", "flash_bwd_bf16_dkdv", "flash_bwd_bf16_reduce",
+             "flash_bwd_bf16_dq")
+    split = kernel_spans(bwd, names)
+    flops = 10 * cd * pairs * cb * ch                 # five products over the kept pairs
+    nbytes = 2 * (4 * cb * cs * ch * cd + 4 * cb * cs * ckh * cd) + 4 * cb * ch * cs
+    rows["flash_attention_bwd_bf16"] = r = dict(
+        name="flash_attention_bwd_bf16", route="cuda", variant="bf16 mma.sync.m16n8k16",
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention.py:63", max_abs_err=k1_err, ms=ms,
+        plain_ms=plain_ms, library_ms=lib_both - lib_fwd, library_fwd_and_bwd_ms=lib_both,
+        library_fwd_ms=lib_fwd, kernel_split_ms=split, **bound(flops, nbytes, "bfloat16"),
+        tflops=flops / ms / 1e9, **bwd_ptxas["k1_bf16"])
+    log(f"   K1-bwd at {qcall} bf16, causal (qwen3-14b's micro-batch call in training) "
+        f"[bf16 mma.sync; {' '.join(f'{k_} {v_}' for k_, v_ in bwd_ptxas['k1_bf16'].items())}]"
+        f": kernel_ms {ms:.4f} ({r['tflops']:.1f} TFLOP/s) plain_ms {plain_ms:.4f} library_ms "
+        f"{r['library_ms']:.4f} (SDPA bf16 with enable_gqa: forward and backward "
+        f"{lib_both:.4f} less forward {lib_fwd:.4f}) bound_ms {r['bound_ms']:.4f} "
+        f"({r['bound_by']}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); device ms a call "
+        f"by kernel (profiler): " + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in split.items()))
+    del q, k, v, do, o, lse, qt, kt, vt, dot
+
+    # ---- K3-bwd's bf16 route: mamba2's train call and the fp32 route's edges
+    def ssd_inputs(b, s, h, p, n, g, with_h0):
+        x = (rand(b, s, h, p, dtype=torch.float32) * 0.5).to(bf)
+        dt = F.softplus(rand(b, s, h, dtype=torch.float32) - 2.0)
+        a = -torch.exp(rand(h, dtype=torch.float32) * 0.5 + 1.0)
+        bm, cm = ((rand(b, s, g, n, dtype=torch.float32) * 0.3).to(bf) for _ in range(2))
+        h0 = rand(b, h, p, n, dtype=torch.float32) * 0.2 if with_h0 else None
+        return x, dt, a, bm, cm, h0
+
+    tb, ts = BF16_TRAIN["mamba2-2.7b"]["batch"], TRAIN["seq"]
+    mh, mp, mn = 80, 64, 128          # mamba2-2.7b's heads, head_dim and state
+    cases = [((tb, ts, mh, mp, mn, 1), False, False),   # the train call
+             ((tb, ts, mh, mp, mn, 1), True, True),     # with h0 and d(final state)
+             ((2, 200, 4, 16, 32, 2), True, True),      # ragged S, G < H
+             ((1, 37, 2, 80, 128, 2), True, False),     # under one chunk, two p tiles
+             ((1, 64, 3, 64, 64, 3), False, True),      # G == H, one whole chunk, N 64
+             ((2, 150, 16, 8, 16, 1), False, True),     # the reduced config
+             ((1, 70, 2, 20, 12, 1), True, True)]       # P, N off 8: one-value staging
+    k3_err = 0.0
+    for (cb, cs, ch, cp, cn, cg), with_h0, with_ds in cases:
+        x, dt, a, bm, cm, h0 = ssd_inputs(cb, cs, ch, cp, cn, cg, with_h0)
+        dy = rand(cb, cs, ch, cp)
+        ds = rand(cb, ch, cp, cn, dtype=torch.float32) if with_ds else None
+        got = K3.ssd_scan_bwd(x, dt, a, bm, cm, h0, dy, ds)
+        again = K3.ssd_scan_bwd(x, dt, a, bm, cm, h0, dy, ds)
+        want = ops.ssd_scan_bwd_plain(x, dt, a, bm, cm, h0, dy, ds)
+        torch.cuda.synchronize()
+        name = f"K3-bwd {(cb, cs, ch, cp, cn, cg)} bf16 h0={with_h0} dstate={with_ds}"
+        if (got[5] is None) != (h0 is None):
+            raise AssertionError(f"{name}: dh0 given without h0, or missing with it")
+        if not all(torch.equal(u, w) for u, w in zip(got, again) if u is not None):
+            raise AssertionError(f"{name}: two calls differ")
+        for g_, x_, w_ in zip(("dx", "ddt", "da", "db", "dc", "dh0"), got, want):
+            if w_ is None:
+                continue
+            t_ = BF16_GRAD_TOL if w_.dtype == bf else GRAD_TOL
+            err = check_close(f"{name} {g_} [{str(w_.dtype)[6:]}]", x_, w_, t_,
+                              t_ * max(float(w_.float().abs().max()), 1e-30))
+            if (cb, cs, ch, cp, cn, cg) == cases[0][0] and not with_h0:
+                k3_err = max(k3_err, err)
+        del x, dt, a, bm, cm, h0, dy, ds, got, again, want
+    log(f"   K3-bwd bf16: two calls of each of the {len(cases)} cases equal to the bit")
+    x, dt, a, bm, cm, _ = ssd_inputs(tb, ts, mh, mp, mn, 1, False)
+    dy = rand(tb, ts, mh, mp)
+    bwd = lambda: K3.ssd_scan_bwd(x, dt, a, bm, cm, None, dy, None)   # noqa: E731
+    ms = time_ms("K3-bwd bf16", bwd)
+    plain_ms = time_ms("K3-bwd bf16 plain", lambda: ops.ssd_scan_bwd_plain(
+        x, dt, a, bm, cm, None, dy, None), iters=5, warmup=1)
+    passes = kernel_spans(bwd, K3.BWD_KERNELS)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = K3.tf32x3_plan(tb, ts, mh, mp, mn, backward=True, sms=sms, dtype=bf)
+    L = K3.CHUNK
+    chunk_heads = tb * mh * -(-ts // L)
+    tri = L * (L + 1) // 2
+    flops = 2 * chunk_heads * (tri * (3 * mn + 2 * mp) + 5 * L * mp * mn)
+    # x, dy, dx and b, c, db, dc in bf16; dt, ddt, a, da in fp32
+    nbytes = 2 * (3 * x.numel() + 4 * bm.numel()) + 4 * (2 * dt.numel() + 2 * mh)
+    issued = bound(flops, nbytes, "tf32x3")
+    rows["ssd_scan_bwd_bf16"] = r = dict(
+        name="ssd_scan_bwd_bf16", route="cuda", variant="tf32x3 on bf16 operands",
+        source="src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+        replaces="src/repro/kernels/ssd_scan.py:56", max_abs_err=k3_err, ms=ms,
+        plain_ms=plain_ms, library_ms=None, **bound(flops, nbytes, "bfloat16"),
+        bound_issued_tf32x3_ms=issued["bound_ms"], tflops=flops / ms / 1e9,
+        kernel_split_ms=passes, plan=plan, repeat_equal=True, **bwd_ptxas["k3_bf16"])
+    log(f"   K3-bwd at ({tb},{ts},{mh},{mp},{mn},1) bf16, no h0, no dstate (mamba2-2.7b's "
+        f"train call; {' '.join(f'{k_} {v_}' for k_, v_ in bwd_ptxas['k3_bf16'].items())}; "
+        + "; ".join(f"{k_[:-7]} {v_['ctas']} CTAs, {v_['ctas_per_sm']} an SM, "
+                    f"{v_['waves']:.2f} waves" for k_, v_ in plan.items())
+        + f"): kernel_ms {ms:.4f} ({r['tflops']:.2f} TFLOP/s) plain_ms {plain_ms:.4f} "
+        f"library_ms none (no PyTorch call computes it) bound_ms {r['bound_ms']:.4f} "
+        f"({r['bound_by']} at the bf16 rate; {issued['bound_ms']:.4f} for the 3xTF32 products "
+        f"it issues; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); device ms a call by "
+        f"kernel (profiler): " + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in passes.items()))
+    del x, dt, a, bm, cm, dy
+
+
 def rotating_kept(fn, sets):
     """A call of fn on each set of inputs in turn that keeps the last
     len(sets) outputs alive, so that a timing finds inputs and outputs
@@ -2211,15 +2467,17 @@ def ring_wrap_phase():
 
 
 def grad_guard_phase():
-    """A kernel with no backward kernel (K1 bf16, K2, K3 bf16) refuses an
-    input that requires a gradient, rather than return a tensor with no
-    grad_fn; K3 in fp32 and K1 in fp32 with k and v of a length of their
-    own, which have backward kernels, return tensors with a grad_fn."""
+    """A kernel with no backward kernel for its inputs (K2; K1 in bf16 at
+    head_dim 16) refuses an input that requires a gradient, rather than
+    return a tensor with no grad_fn; K1 in bf16 at 64, 128 and 256 and K3 in
+    bf16 (its bf16 backward routes), K3 in fp32 and K1 in fp32 with k and v
+    of a length of their own return tensors with a grad_fn."""
     from repro_torch.kernels import ops
-    log("== grad guards: K1 bf16, K2 and K3 bf16 raise under autograd on the card; K3 fp32 and "
-        "K1 fp32 with k and v of a length of their own record a graph")
+    log("== grad guards: K2 and K1 bf16 at head_dim 16 raise under autograd on the card; K1 "
+        "bf16 at 64/128/256, K3 bf16 and fp32, K1 fp32 with k and v of a length of their own "
+        "record a graph")
     dev = torch.device("cuda")
-    q = torch.randn(1, 64, 2, 64, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    q16 = torch.randn(1, 64, 2, 16, device=dev, dtype=torch.bfloat16, requires_grad=True)
     q32 = torch.randn(1, 64, 2, 64, device=dev, requires_grad=True)
     frames = torch.randn(1, 96, 2, 64, device=dev)
     kv = torch.randn(1, 32, 2, 64, device=dev, requires_grad=True)
@@ -2227,10 +2485,9 @@ def grad_guard_phase():
     bm = torch.randn(1, 16, 1, 16, device=dev)
     dt, a = torch.rand(1, 16, 2, device=dev), -torch.ones(2, device=dev)
     xb, bb = x.detach().bfloat16().requires_grad_(), bm.bfloat16()
-    calls = {"K1 bf16": lambda: ops.flash_attention(q, q, q),
+    calls = {"K1 bf16 at head_dim 16": lambda: ops.flash_attention(q16, q16, q16),
              "K2": lambda: ops.decode_attention(kv[:, 0], kv, kv,
-                                                torch.ones(1, dtype=torch.int32, device=dev)),
-             "K3 bf16": lambda: ops.ssd_scan(xb, dt, a, bb, bb)}
+                                                torch.ones(1, dtype=torch.int32, device=dev))}
     for name, call in calls.items():
         try:
             call()
@@ -2240,14 +2497,18 @@ def grad_guard_phase():
             raise AssertionError(f"{name} ran under autograd with no backward kernel")
     recorded = {"K1 fp32, S_kv != S": lambda: ops.flash_attention(q32, frames, frames,
                                                                   causal=False),
-                "K3 fp32": lambda: ops.ssd_scan(x, dt, a, bm, bm)}
+                "K3 fp32": lambda: ops.ssd_scan(x, dt, a, bm, bm),
+                "K3 bf16": lambda: ops.ssd_scan(xb, dt, a, bb, bb)}
+    for d in (64, 128, 256):
+        qd = torch.randn(1, 64, 2, d, device=dev, dtype=torch.bfloat16, requires_grad=True)
+        recorded[f"K1 bf16 at head_dim {d}"] = lambda qd=qd: ops.flash_attention(qd, qd, qd)
     for name, call in recorded.items():
         out = call()
         if out.grad_fn is None:
             raise AssertionError(f"{name} under autograd returned a tensor with no grad_fn")
         log(f"   {name}: grad_fn {type(out.grad_fn).__name__}")
     with torch.no_grad():
-        if ops.flash_attention(q, q, q).grad_fn is not None:
+        if ops.flash_attention(q16, q16, q16).grad_fn is not None:
             raise AssertionError("K1 under no_grad recorded a graph")
 
 
@@ -2328,25 +2589,75 @@ def fp64_versions(ops):
         ops.flash_attention, ops.rglru_scan, ops.ssd_scan = saved
 
 
-def leaf_distances(grads, ref) -> dict:
+@contextlib.contextmanager
+def plain_bf16_pairs(ops):
+    """The model's calls of K1 and K3 taken by their plain versions paired
+    as the kernels pair them on the bf16 routes, for a comparison only: K1
+    by ``flash_attention_plain`` (and its log-sum-exp) with
+    ``flash_attention_bwd_bf16_plain`` (P and dX rounded to bf16, as the
+    bf16 K1-bwd rounds them) as its backward; K3 by ``ssd_scan_plain`` at
+    the kernel's chunk with ``ssd_scan_bwd_plain`` as its backward."""
+    from repro_torch.kernels import ssd_scan as K3
+
+    class PlainK1(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, kw):
+            o = ops.flash_attention_plain(q, k, v, **kw)
+            lse = ops.flash_attention_lse_plain(q, k, **kw)
+            ctx.save_for_backward(q, k, v, o, lse)
+            ctx.kw = kw
+            return o
+
+        @staticmethod
+        def backward(ctx, do):
+            return (*ops.flash_attention_bwd_bf16_plain(*ctx.saved_tensors, do.contiguous(),
+                                                        **ctx.kw), None)
+
+    class PlainK3(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, dt, a, b, c, h0):
+            y, state = ops.ssd_scan_plain(x, dt, a, b, c, chunk=K3.CHUNK, h0=h0)
+            ctx.save_for_backward(x, dt, a, b, c, h0)
+            return y, state
+
+        @staticmethod
+        def backward(ctx, dy, dstate):
+            saved = ctx.saved_tensors   # unpacked once: remat's checkpoint allows no more
+            dy = torch.zeros_like(saved[0]) if dy is None else dy.contiguous()
+            return ops.ssd_scan_bwd_plain(*saved, dy, dstate)
+
+    def ssd(x, dt, a, b, c, *, chunk=128, h0=None, return_state=False):
+        y, state = PlainK3.apply(x, dt, a, b, c, h0)
+        return (y, state) if return_state else y
+    saved = ops.flash_attention, ops.ssd_scan
+    ops.flash_attention = lambda q, k, v, **kw: PlainK1.apply(q, k, v, kw)
+    ops.ssd_scan = ssd
+    try:
+        yield
+    finally:
+        ops.flash_attention, ops.ssd_scan = saved
+
+
+def leaf_distances(grads, ref, tol=GRAD_TOL) -> dict:
     """Each gradient leaf's distance from the reference's: the largest
-    |g - g_ref| / (GRAD_TOL (max |g_ref| + |g_ref|)) over its elements, above
-    1 where the leaf misses GRAD_TOL of its max."""
+    |g - g_ref| / (tol (max |g_ref| + |g_ref|)) over its elements, in fp32,
+    above 1 where the leaf misses `tol` (GRAD_TOL) of its max."""
     out = {}
     for n, r in ref.items():
-        tol = GRAD_TOL * (float(r.abs().max()) + r.abs())
-        out[n] = float(((grads[n] - r).abs() / tol.clamp_min(1e-38)).max())
+        r = r.float()
+        bar = tol * (float(r.abs().max()) + r.abs())
+        out[n] = float(((grads[n].float() - r).abs() / bar.clamp_min(1e-38)).max())
     return out
 
 
-def fp64_verdict(got, plain, ref) -> dict:
+def fp64_verdict(got, plain, ref, tol=GRAD_TOL) -> dict:
     """The gradient leaves `got` (through kernels) against `ref` (fp64
-    versions), beside the same leaves `plain` (plain fp32 versions): a leaf
-    fails where it is beyond GRAD_TOL of its max from `ref` and more than
-    FP64_MARGIN times as far as the plain fp32 leaf. Returns the failures
-    (name, distance, plain's distance), the leaf nearest to failing, and the
-    farthest leaf of each run."""
-    d_got, d_plain = leaf_distances(got, ref), leaf_distances(plain, ref)
+    versions), beside the same leaves `plain` (plain versions): a leaf
+    fails where it is beyond `tol` (GRAD_TOL) of its max from `ref` and
+    more than FP64_MARGIN times as far as the plain leaf. Returns the
+    failures (name, distance, plain's distance), the leaf nearest to
+    failing, and the farthest leaf of each run."""
+    d_got, d_plain = leaf_distances(got, ref, tol), leaf_distances(plain, ref, tol)
     limit = {n: max(1.0, FP64_MARGIN * d_plain[n]) for n in ref}
     worst = max(ref, key=lambda n: d_got[n] / limit[n])
     return {"failed": [(n, d_got[n], d_plain[n]) for n in ref if d_got[n] > limit[n]],
@@ -2521,23 +2832,30 @@ def train_parity_phase():
 
 def expected_train_launches(cfg, steps):
     """Launches of `steps` V-trace steps, by family; no training path runs
-    K2. RecurrentGemma runs K1 and K1-bwd once per local layer, K4 and
-    K4-bwd once per recurrent layer; Mamba2 K3 and K3-bwd once per layer;
-    the encoder-decoder K1 and K1-bwd once per encoder layer and twice per
-    decoder layer (self- and cross-attention)."""
+    K2. The dense LM runs K1 and K1-bwd once per layer; RecurrentGemma K1
+    and K1-bwd once per local layer, K4 and K4-bwd once per recurrent layer;
+    Mamba2 K3 and K3-bwd once per layer; the encoder-decoder K1 and K1-bwd
+    once per encoder layer and twice per decoder layer (self- and
+    cross-attention). Each micro-batch of ``cfg.grad_accum`` runs them, and
+    under remat "full" the backward runs each layer's forward again, so the
+    forward kernels launch twice."""
     want = dict.fromkeys(("flash_attention", "decode_attention", "ssd_scan", "rglru_scan",
                           "flash_attention_bwd", "ssd_scan_bwd", "rglru_scan_bwd"), 0)
-    if cfg.family == "hybrid":
+    bwd = steps * max(1, cfg.grad_accum)
+    fwd = bwd * (2 if cfg.remat == "full" else 1)
+    if cfg.family == "dense":
+        want.update(flash_attention=cfg.num_layers * fwd, flash_attention_bwd=cfg.num_layers * bwd)
+    elif cfg.family == "hybrid":
         from repro_torch.models.recurrentgemma import layer_kinds
         n_rec = layer_kinds(cfg).count("rglru")
         n_att = cfg.num_layers - n_rec
-        want.update(flash_attention=n_att * steps, flash_attention_bwd=n_att * steps,
-                    rglru_scan=n_rec * steps, rglru_scan_bwd=n_rec * steps)
+        want.update(flash_attention=n_att * fwd, flash_attention_bwd=n_att * bwd,
+                    rglru_scan=n_rec * fwd, rglru_scan_bwd=n_rec * bwd)
     elif cfg.family == "ssm":
-        want.update(ssd_scan=cfg.num_layers * steps, ssd_scan_bwd=cfg.num_layers * steps)
+        want.update(ssd_scan=cfg.num_layers * fwd, ssd_scan_bwd=cfg.num_layers * bwd)
     elif cfg.family == "encdec":
-        n = (cfg.enc_layers + 2 * cfg.dec_layers) * steps
-        want.update(flash_attention=n, flash_attention_bwd=n)
+        n = cfg.enc_layers + 2 * cfg.dec_layers
+        want.update(flash_attention=n * fwd, flash_attention_bwd=n * bwd)
     else:
         raise ValueError(f"no train path on the card for the {cfg.family} family")
     return want
@@ -2545,7 +2863,8 @@ def expected_train_launches(cfg, steps):
 
 # the profiler groups a train step of each family must fill, and those it
 # must leave empty
-TRAIN_GROUPS = {"hybrid": ("K1", "K1-bwd", "K4", "K4-bwd"), "ssm": ("K3", "K3-bwd"),
+TRAIN_GROUPS = {"dense": ("K1", "K1-bwd"), "hybrid": ("K1", "K1-bwd", "K4", "K4-bwd"),
+                "ssm": ("K3", "K3-bwd"),
                 "encdec": ("K1", "K1-bwd")}
 KERNEL_GROUPS = ("K1", "K1-bwd", "K2", "K3", "K3-bwd", "K4", "K4-bwd")
 
@@ -2560,18 +2879,19 @@ def kv_len_calls(K1):
     fa = K1.FlashAttention
     saved = fa.forward, fa.backward
 
-    def tally(name, q, k):
-        if k.shape[1] != q.shape[1]:
-            key = f"{q.shape[1]}x{k.shape[1]}"
+    def tally(name, s, s_kv):
+        if s_kv != s:
+            key = f"{s}x{s_kv}"
             counts[name][key] = counts[name].get(key, 0) + 1
 
     def fwd(ctx, q, k, v, *opts):
-        tally("flash_attention", q, k)
+        # the lengths kept on ctx: under remat a call's saved tensors unpack once
+        ctx.lengths = (q.shape[1], k.shape[1])
+        tally("flash_attention", *ctx.lengths)
         return saved[0](ctx, q, k, v, *opts)
 
     def bwd(ctx, do):
-        q, k = ctx.saved_tensors[:2]
-        tally("flash_attention_bwd", q, k)
+        tally("flash_attention_bwd", *ctx.lengths)
         return saved[1](ctx, do)
     fa.forward, fa.backward = staticmethod(fwd), staticmethod(bwd)
     try:
@@ -2718,20 +3038,115 @@ def family_train_parity_phase(arch):
     return out
 
 
-def train_phase(arch):
-    """`arch` at full width and depth trains TRAIN["steps"] steps through
-    ``repro_torch.launch.train``'s functions, from its init (a tied table
-    scaled by ``live_table``), its launches those of
-    ``expected_train_launches`` (the encoder-decoder's cross calls at S_kv
-    != S counted apart), every K1 launch on K1's fp32 route and every K3
-    launch on K3's (the imported tree's fp32 route: 3xTF32 since it has
-    one); then two steps timed on the host clock
-    around a synchronised step, the step's parts on CUDA events, and a
-    profiler breakdown of one step, in which the family's kernel groups
-    (TRAIN_GROUPS) hold device time and no other kernel runs."""
+def bf16_train_parity_phase(arch):
+    """`arch` at 3 layers of full width at the production dtypes (bf16
+    params and compute, full remat), batch 4 x 256 in one micro-batch: the
+    V-trace loss through its kernels and their bf16 backward routes (K1 on
+    wgmma and K1-bwd's bf16 route; K3 and K3-bwd's bf16 route) against the
+    same through their plain versions paired as the kernels pair them
+    (``plain_bf16_pairs``), within 1e-2 relative; one step's launch counts,
+    each on its route; and every gradient leaf against the plain versions'
+    within BF16_LEAF_TOL of the leaf's max, or, where a leaf is farther,
+    against the kernels taken in fp64 (``fp64_versions``; the rest of the
+    model bf16): within BF16_LEAF_TOL of its max of fp64, or no farther
+    than FP64_MARGIN times the plain versions are (``fp64_verdict``)."""
+    from repro_torch.core.losses import make_vtrace_loss, param_grads
+    from repro_torch.kernels import flash_attention as K1
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as K3
+    from repro_torch.launch import train
+
+    t0 = time.perf_counter()
+    b, s = TRAIN["batch"], TRAIN["seq"]
+    run = train.setup(arch, batch=b, seq=s, steps=1, device="cuda", num_layers=3, grad_accum=1,
+                      **PRODUCTION)
+    cfg = run.cfg
+    log(f"== train parity: {cfg.name} at 3 layers, full width, bf16 params and compute, remat "
+        f"full, batch {b} x seq {s}: the kernels and their bf16 backward routes against their "
+        "plain versions, and against fp64 where the plain versions sit farther")
+    params = run.bundle.init(run.seed, device=run.device).requires_grad_(True)
+    if cfg.tie_embeddings:
+        live_table(params, cfg)
+    named = dict(params.named_parameters())
+    batch = run.batch_at(0)
+    loss_fn = make_vtrace_loss(run.bundle)
+    ops.reset_launch_counts()
+    loss, _ = loss_fn(params, batch)
+    got = param_grads(loss, named)
+    counts = ops.launch_counts()
+    want_counts = expected_train_launches(cfg, 1)
+    if counts != want_counts:
+        raise AssertionError(f"launches {counts} != expected {want_counts}")
+    routes = {"K1": dict(K1.flash_attention.launches_by_route),
+              "K1-bwd": dict(K1.flash_attention_bwd.launches_by_route),
+              "K3": dict(K3.ssd_scan.launches_by_route),
+              "K3-bwd": dict(K3.ssd_scan_bwd.launches_by_route)}
+    want_routes = {"K1": ("wgmma", counts["flash_attention"]),
+                   "K1-bwd": ("bf16", counts["flash_attention_bwd"]),
+                   "K3": ("wgmma", counts["ssd_scan"]),
+                   "K3-bwd": ("bf16", counts["ssd_scan_bwd"])}
+    for k_, (route, n) in want_routes.items():
+        if routes[k_].get(route, 0) != n or sum(routes[k_].values()) != n:
+            raise AssertionError(f"{k_} launches by route {routes[k_]}: want {n} on {route}")
+    with plain_bf16_pairs(ops):
+        loss_p, _ = loss_fn(params, batch)
+        want = param_grads(loss_p, named)
+    if ops.launch_counts() != counts:
+        raise AssertionError(f"the plain runs launched a kernel: {ops.launch_counts()}")
+    check_close("loss", loss.detach(), loss_p.detach(), 1e-2, 1e-2 * abs(float(loss_p)))
+    d_plain = leaf_distances(got, want, BF16_LEAF_TOL)
+    with fp64_versions(ops):
+        ref = param_grads(loss_fn(params, batch)[0], named)
+    verdict = fp64_verdict(got, want, ref, BF16_LEAF_TOL)
+    far = {n for n, d in d_plain.items() if d > 1}
+    failed = [(n, d, dp) for n, d, dp in verdict["failed"] if n in far]
+    if failed:
+        raise AssertionError(f"gradient leaves farther than {BF16_LEAF_TOL:g} from the plain "
+                             f"versions' and than {FP64_MARGIN:g} times the plain versions' from "
+                             f"fp64 (leaf, distance, plain's distance): {failed}")
+    worst = max((d, n) for n, d in d_plain.items())
+    gnorm = math.sqrt(sum(float(g.float().square().sum()) for g in got.values()))
+    if not (math.isfinite(float(loss)) and math.isfinite(gnorm) and gnorm > 0):
+        raise AssertionError(f"loss {float(loss)}, gradient norm {gnorm}: finite and > 0 wanted")
+    seconds = time.perf_counter() - t0
+    log(f"   loss {float(loss.detach()):.6f} (plain {float(loss_p.detach()):.6f}); gradient "
+        f"norm {gnorm:.4g}; launches { {k_: v_ for k_, v_ in counts.items() if v_} }, by route "
+        f"{ {k_: {r_: n_ for r_, n_ in v_.items() if n_} for k_, v_ in routes.items()} }; "
+        f"{len(want)} gradient leaves, {len(want) - len(far)} within {BF16_LEAF_TOL:g} of each "
+        f"leaf's max |g| of the plain versions (the farthest at {worst[0]:.3f} of it, "
+        f"{worst[1]}), {len(far)} farther, each within max(1, {FP64_MARGIN:g} x the plain "
+        f"versions') distance of fp64 (in units of {BF16_LEAF_TOL:g} of its max: the farthest "
+        f"leaf with the kernels {verdict['farthest'][0]:.3f} ({verdict['farthest'][1]}), the "
+        f"plain versions' farthest {verdict['farthest_plain'][0]:.3f} "
+        f"({verdict['farthest_plain'][1]})); {seconds:.1f} s")
+    out = {"loss": float(loss.detach()), "loss_plain": float(loss_p.detach()),
+           "grad_norm": gnorm, "seconds": seconds, "leaves": len(d_plain),
+           "beyond_plain_tol": sorted(far), "farthest_vs_plain": worst,
+           "farthest_vs_fp64": verdict["farthest"],
+           "farthest_plain_vs_fp64": verdict["farthest_plain"]}
+    del params, named, got, want, ref, loss, loss_p
+    return out
+
+
+def train_phase(arch, production=False):
+    """`arch` trains TRAIN["steps"] steps through ``repro_torch.launch.train``'s
+    functions, from its init (a tied table scaled by ``live_table``): at
+    full width and depth in fp32, batch 4 x 256, or with `production` at the
+    reference's production dtypes (PRODUCTION: bf16 params and compute, full
+    remat, fp32 moments) at BF16_TRAIN's batch and depth. Its launches are
+    those of ``expected_train_launches`` (the encoder-decoder's cross calls
+    at S_kv != S counted apart), every K1 and K3 launch on the route of the
+    compute dtype (fp32: 3xTF32; bf16: wgmma) and every K1-bwd and K3-bwd
+    launch on its backward route (fp32: 3xTF32; bf16: bf16); then two steps
+    timed on the host clock around a synchronised step, the step's parts
+    (forward, backward, optimizer, summed over the micro-batches) on CUDA
+    events, and a profiler breakdown of one step, in which the family's
+    kernel groups (TRAIN_GROUPS) hold device time and no other kernel
+    runs."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.losses import make_vtrace_loss, param_grads
+    from repro_torch.device import dtype_of
     from repro_torch.kernels import flash_attention as K1
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_scan as K3
@@ -2741,21 +3156,32 @@ def train_phase(arch):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     phase_t0 = time.perf_counter()
-    b, s, steps = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
-    run = train.setup(arch, batch=b, seq=s, steps=steps, device="cuda")
+    s, steps = TRAIN["seq"], TRAIN["steps"]
+    over = {}
+    if production:
+        over = dict(PRODUCTION, **BF16_TRAIN[arch])
+        b = over.pop("batch")
+    else:
+        b = TRAIN["batch"]
+    run = train.setup(arch, batch=b, seq=s, steps=steps, device="cuda", **over)
     cfg = run.cfg
+    dtype = dtype_of(cfg.compute_dtype)
+    accum = max(1, cfg.grad_accum)
     frames = f" over {cfg.frontend_tokens} frames" if cfg.family == "encdec" else ""
-    log(f"== train: {cfg.name} {describe(cfg)}, {cfg.num_layers} layers, fp32 params and AdamW "
-        f"moments, batch {b} x seq {s}{frames}, {steps} steps through repro_torch.launch.train")
+    log(f"== train: {cfg.name} {describe(cfg)}, {cfg.num_layers} layers, {cfg.param_dtype} "
+        f"params, {cfg.compute_dtype} compute, remat {cfg.remat}, {cfg.optimizer_dtype} AdamW "
+        f"moments, batch {b} x seq {s}{frames} in {accum} micro-batch(es), {steps} steps "
+        "through repro_torch.launch.train")
     t0 = time.perf_counter()
     state = run.make_state()
     if cfg.tie_embeddings:
         live_table(state["params"], cfg)
     torch.cuda.synchronize()
     n = tree_size(state["params"])
-    log(f"   params {n} ({tree_bytes(state['params']) / 1e9:.2f} GB fp32; with both moments "
-        f"{3 * tree_bytes(state['params']) / 1e9:.2f} GB) built on the card in "
-        f"{time.perf_counter() - t0:.1f} s; allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    moments = tree_bytes(state["opt_state"])
+    log(f"   params {n} ({tree_bytes(state['params']) / 1e9:.2f} GB {cfg.param_dtype}; both "
+        f"moments {moments / 1e9:.2f} GB) built on the card in {time.perf_counter() - t0:.1f} s; "
+        f"allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB")
 
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -2767,17 +3193,28 @@ def train_phase(arch):
     counts = ops.launch_counts()
     k1_routes = dict(K1.flash_attention.launches_by_route)
     k3_routes = dict(K3.ssd_scan.launches_by_route)
+    k1_bwd_routes = dict(K1.flash_attention_bwd.launches_by_route)
+    k3_bwd_routes = dict(K3.ssd_scan_bwd.launches_by_route)
     peak = torch.cuda.max_memory_allocated()
     want = expected_train_launches(cfg, steps)
     if counts != want:
         raise AssertionError(f"train launch counts {counts} != expected {want}")
-    k1_route = K1.route(torch.float32, cfg.head_dim)
+    k1_route = K1.route(dtype, cfg.head_dim)
     if k1_routes != {**dict.fromkeys(K1.ROUTES, 0), k1_route: want["flash_attention"]}:
-        raise AssertionError(f"K1 launches by route {k1_routes}: fp32 takes {k1_route}")
-    k3_route = K3.route(torch.float32, cfg.ssm_headdim, cfg.ssm_state)
+        raise AssertionError(f"K1 launches by route {k1_routes}: {dtype} takes {k1_route}")
+    k3_route = K3.route(dtype, cfg.ssm_headdim, cfg.ssm_state)
     if k3_routes != {**dict.fromkeys(K3.ROUTES, 0), k3_route: want["ssd_scan"]}:
-        raise AssertionError(f"K3 launches by route {k3_routes}: fp32 takes {k3_route}")
-    counts["ssd_scan_tf32x3"] = k3_routes.get("tf32x3", 0)   # the 3xTF32 route's own row
+        raise AssertionError(f"K3 launches by route {k3_routes}: {dtype} takes {k3_route}")
+    bwd_route = "tf32x3" if dtype == torch.float32 else "bf16"
+    if k1_bwd_routes != {**dict.fromkeys(K1.BWD_ROUTES, 0),
+                         bwd_route: want["flash_attention_bwd"]}:
+        raise AssertionError(f"K1-bwd launches by route {k1_bwd_routes}: want {bwd_route}")
+    if k3_bwd_routes != {**dict.fromkeys(K3.BWD_ROUTES, 0), bwd_route: want["ssd_scan_bwd"]}:
+        raise AssertionError(f"K3-bwd launches by route {k3_bwd_routes}: want {bwd_route}")
+    # the routes' own rows in the kernels' line
+    counts["ssd_scan_tf32x3"] = k3_routes.get("tf32x3", 0)
+    counts["flash_attention_bwd_bf16"] = k1_bwd_routes.get("bf16", 0)
+    counts["ssd_scan_bwd_bf16"] = k3_bwd_routes.get("bf16", 0)
     want_kv = {}
     if cfg.family == "encdec":
         key = f"{s}x{cfg.frontend_tokens}"
@@ -2790,10 +3227,12 @@ def train_phase(arch):
     if not (all(map(math.isfinite, loss + gnorm)) and min(gnorm) > 0) or state["step"] != steps:
         raise AssertionError(f"loss {loss}, grad_norm {gnorm} (finite and > 0 wanted), "
                              f"step {state['step']}")
-    log(f"   launches: {counts}; K1 by route {k1_routes}; K3 by route {k3_routes}"
+    log(f"   launches: {counts}; K1 by route {k1_routes}; K1-bwd by route {k1_bwd_routes}; K3 by "
+        f"route {k3_routes}; K3-bwd by route {k3_bwd_routes}"
         f"{f'; K1 and K1-bwd calls at S_kv != S (S x S_kv: calls) {want_kv}' if want_kv else ''}"
         f"; loss {loss}, grad_norm {gnorm}; {steps} steps in {run_s:.2f} s (the first warms "
-        f"cuBLAS and the allocator); peak memory {peak / 1e9:.2f} GB")
+        f"cuBLAS and the allocator); peak memory {peak / 1e9:.2f} GB "
+        f"({torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB on the card)")
 
     step_ms = []
     for i in range(2):
@@ -2803,27 +3242,49 @@ def train_phase(arch):
         state, m = run.train_step(state, batch)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
-    # the step's parts, called as make_train_step calls them, CUDA events
+    # the step's parts, called as make_train_step calls them (per
+    # micro-batch: the loss, then its gradients summed in fp32), CUDA events
     # between: each part's share of the step's device timeline
     loss_fn = make_vtrace_loss(run.bundle)
     named = dict(state["params"].named_parameters())
     batch = run.batch_at(steps + 2)
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    torch.cuda.synchronize()
+    parts = dict.fromkeys(("forward", "backward", "optimizer"), 0.0)
+    mbs = b // accum
+    gsum = None
+    for i in range(accum):
+        micro = {k: v[i * mbs:(i + 1) * mbs] for k, v in batch.items()}
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        lv, _ = loss_fn(state["params"], micro)
+        ev[1].record()
+        grads = param_grads(lv, named)
+        if accum > 1:
+            with torch.no_grad():
+                if gsum is None:
+                    gsum = {n_: g.float() for n_, g in grads.items()}
+                else:
+                    for n_, g in grads.items():
+                        gsum[n_].add_(g.float())
+        ev[2].record()
+        torch.cuda.synchronize()
+        parts["forward"] += ev[0].elapsed_time(ev[1])
+        parts["backward"] += ev[1].elapsed_time(ev[2])
+        del lv
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     ev[0].record()
-    lv, _ = loss_fn(state["params"], batch)
-    ev[1].record()
-    grads = param_grads(lv, named)
-    ev[2].record()
+    if accum > 1:
+        with torch.no_grad():
+            grads = {n_: g.div_(accum).to(named[n_].dtype) for n_, g in gsum.items()}
+        del gsum
     updates, state["opt_state"], _ = run.opt.update(grads, state["opt_state"], named,
                                                     state["step"])
     apply_updates(named, updates)
-    ev[3].record()
+    ev[1].record()
     torch.cuda.synchronize()
+    parts["optimizer"] = ev[0].elapsed_time(ev[1])
     state["step"] += 1
-    del lv, grads, updates
-    parts = {p: ev[i].elapsed_time(ev[i + 1])
-             for i, p in enumerate(("forward", "backward", "optimizer"))}
+    del grads, updates
     total = sum(parts.values())
     log(f"   step wall (host clock, synchronised) {step_ms[0]:.2f}, {step_ms[1]:.2f} ms; "
         f"{b * s / (step_ms[1] / 1e3):.0f} tokens/s; parts (CUDA events) "
@@ -2840,11 +3301,14 @@ def train_phase(arch):
     log(f"   device time of a step (ms): {json.dumps(groups)}; {n_ops:.0f} device operations")
     del state, named, m
     seconds = time.perf_counter() - phase_t0
-    log(f"   train {cfg.name}: {seconds:.1f} s")
+    log(f"   train {cfg.name}{' (production dtypes)' if production else ''}: {seconds:.1f} s")
     return counts, {"step_ms": step_ms, "tokens_per_s": b * s / (step_ms[1] / 1e3),
                     "parts_ms": parts, "peak_gb": peak / 1e9, "params": n, "loss": loss,
                     "grad_norm": gnorm, "device_ms": groups, "device_ops": n_ops,
-                    "kv_len_calls": want_kv, "seconds": seconds}
+                    "kv_len_calls": want_kv, "seconds": seconds, "layers": cfg.num_layers,
+                    "batch": b, "micro_batches": accum, "dtypes": [cfg.param_dtype,
+                                                                   cfg.compute_dtype],
+                    "remat": cfg.remat}
 
 
 def train_restart_phase():
@@ -4506,13 +4970,37 @@ def main():
     t0 = time.perf_counter()
     reports = build.build()
     log(f"== build: {', '.join(build.KERNELS)} in {time.perf_counter() - t0:.1f} s")
-    k1_ptxas, k4_ptxas, bwd_ptxas = {}, {}, {"k1": {}, "k3": {}, "k3_fwd": {}, "k4": {}}
+    k1_ptxas, k4_ptxas = {}, {}
+    bwd_ptxas = {"k1": {}, "k3": {}, "k3_fwd": {}, "k4": {}, "k1_bf16": {}, "k3_bf16": {}}
     for name, rep in reports.items():
         regs = [int(x) for x in re.findall(r"Used (\d+) registers", rep)]
         spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", rep) if int(x)]
         log(f"   {name}: {len(regs)} instantiations, {min(regs)}-{max(regs)} registers "
             f"a thread, {len(spills)} with spills ({sum(spills)} bytes)")
         for entry in rep.split("Compiling entry function")[1:]:
+            # the bf16 backward routes: K1-bwd's kernels, one line a kernel
+            # and head_dim, and K3-bwd's bf16 instantiations
+            found = re.search(r"flash_bwd_bf16_(dkdv|dq)_kernelILi(\d+)E|"
+                              r"flash_bwd_bf16_(delta|reduce)_kernel|"
+                              r"ssd_bwd_(\w+?)_kernelI13__nv_bfloat16E", entry)
+            if found:
+                used = int(re.search(r"Used (\d+) registers", entry).group(1))
+                spill = int(re.search(r"(\d+) bytes spill stores", entry).group(1))
+                if found.group(4):
+                    short = found.group(4)
+                    log(f"   ssd_bwd_{short}_kernel<bf16>: {used} registers, {spill} bytes of "
+                        "spill stores")
+                    bwd_ptxas["k3_bf16"].update({f"registers_{short}": used,
+                                                 f"spill_bytes_{short}": spill})
+                else:
+                    short = found.group(1) or found.group(3)
+                    at = f"<{found.group(2)}>" if found.group(2) else ""
+                    log(f"   flash_bwd_bf16_{short}_kernel{at}: {used} registers, {spill} bytes "
+                        "of spill stores")
+                    if found.group(2) in (None, "128"):   # qwen3-14b's head_dim
+                        bwd_ptxas["k1_bf16"].update({f"registers_{short}": used,
+                                                     f"spill_bytes_{short}": spill})
+                continue
             # K1's and K3's tensor-core routes, one line an instantiation
             found = re.search(r"(flash_wgmma_kernel|ssd_wgmma_kernel)ILi(\d+)E", entry)
             if found:
@@ -4567,98 +5055,102 @@ def main():
                     bwd_ptxas["k1"].update({f"registers_{short}_256": used,
                                             f"spill_bytes_{short}_256": spill})
 
-    rows = kernel_phase(k1_ptxas, k4_ptxas, bwd_ptxas)
+    phase_s = {"build": time.perf_counter() - t0}
+
+    def timed(name, fn, *args, **kw):
+        """Run one phase; its seconds go into phase_s and on a line of
+        their own."""
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        phase_s[name] = time.perf_counter() - t0
+        log(f"   phase {name}: {phase_s[name]:.1f} s")
+        return out
+
+    rows = timed("kernels", kernel_phase, k1_ptxas, k4_ptxas, bwd_ptxas)
+    timed("kernels bf16 backward", bf16_kernel_phase, rows, bwd_ptxas)
     # each path is driven with the counts set to 0 just before it and read
     # just after; a kernel's launches are the sum over the paths that run it
     # (K1 and K2 run on qwen3's and RecurrentGemma's)
-    serve_metrics, launches, phase_s = {}, dict.fromkeys(rows, 0), {}
-    for arch in SERVE:
-        t0 = time.perf_counter()
-        counts, serve_metrics[arch] = serve_phase(arch)
+    serve_metrics, launches = {}, dict.fromkeys(rows, 0)
+
+    def add(counts):
         for name in launches:
             launches[name] += counts.get(name, 0)
         torch.cuda.empty_cache()
-        phase_s[f"serve {arch}"] = serve_metrics[arch]["seconds"] = time.perf_counter() - t0
-        log(f"   serve {arch}: {phase_s[f'serve {arch}']:.1f} s")
+
+    for arch in SERVE:
+        counts, serve_metrics[arch] = timed(f"serve {arch}", serve_phase, arch)
+        serve_metrics[arch]["seconds"] = phase_s[f"serve {arch}"]
+        add(counts)
     # qwen3-14b at its production TP padding, under a one-rank device mesh
-    t0 = time.perf_counter()
-    counts, sharded_metrics = sharded_serve_phase(serve_metrics["qwen3-14b"])
-    for name in launches:
-        launches[name] += counts.get(name, 0)
-    torch.cuda.empty_cache()
-    phase_s["sharded serve qwen3-14b tp16"] = sharded_metrics["seconds"] = \
-        time.perf_counter() - t0
-    t0 = time.perf_counter()
-    reshard_metrics = reshard_phase()
-    phase_s["reshard"] = time.perf_counter() - t0
+    counts, sharded_metrics = timed("sharded serve qwen3-14b tp16", sharded_serve_phase,
+                                    serve_metrics["qwen3-14b"])
+    sharded_metrics["seconds"] = phase_s["sharded serve qwen3-14b tp16"]
+    add(counts)
+    reshard_metrics = timed("reshard", reshard_phase)
     # a comparison with the plain versions: its launches are not the path's
-    ring_metrics = ring_wrap_phase()
-    phase_s["ring wrap gemma2-9b"] = ring_metrics["seconds"]
+    ring_metrics = timed("ring wrap gemma2-9b", ring_wrap_phase)
     torch.cuda.empty_cache()
     # mamba: 150 tokens span two of K3's 64-step chunks and a tail;
     # RecurrentGemma and gemma2: 150 tokens overflow the reduced config's
     # window of 32, so K1's window mask and the ring's wrap in prefill and
     # decode all run
-    parity_phase("qwen3-14b", 24)
-    parity_phase("mamba2-2.7b", 150)
-    parity_phase("recurrentgemma-2b", 150)
+    timed("parity qwen3-14b", parity_phase, "qwen3-14b", 24)
+    timed("parity mamba2-2.7b", parity_phase, "mamba2-2.7b", 150)
+    timed("parity recurrentgemma-2b", parity_phase, "recurrentgemma-2b", 150)
     for arch in DENSE_PARITY:
-        t0 = time.perf_counter()
-        parity_phase(arch, 150)
-        phase_s[f"parity {arch}"] = time.perf_counter() - t0
-        log(f"   parity {arch}: {phase_s[f'parity {arch}']:.1f} s")
+        timed(f"parity {arch}", parity_phase, arch, 150)
     # the encoder-decoder: 12 tokens against the reduced config's 8 frames,
     # so that K1's cross call (fp32, 3xTF32) has k and v of a length of their own
-    t0 = time.perf_counter()
-    parity_phase("seamless-m4t-large-v2", ENCDEC_PARITY_PROMPT)
-    phase_s["parity seamless-m4t-large-v2"] = time.perf_counter() - t0
+    timed("parity seamless-m4t-large-v2", parity_phase, "seamless-m4t-large-v2",
+          ENCDEC_PARITY_PROMPT)
     for arch in MOE_ARCHS:
         for cf in MOE_CAPACITY:
-            t0 = time.perf_counter()
-            parity_phase(arch, 150, capacity_factor=cf)
-            phase_s[f"parity {arch} cf {cf}"] = time.perf_counter() - t0
-            log(f"   parity {arch} at capacity {cf}: {phase_s[f'parity {arch} cf {cf}']:.1f} s")
-    grad_guard_phase()
-    t0 = time.perf_counter()
-    train_parity_phase()
-    phase_s[f"train parity {TRAIN['arch']}"] = time.perf_counter() - t0
+            timed(f"parity {arch} cf {cf}", parity_phase, arch, 150, capacity_factor=cf)
+    timed("grad guards", grad_guard_phase)
+    timed(f"train parity {TRAIN['arch']}", train_parity_phase)
     torch.cuda.empty_cache()
     train_parity = {}
     for arch in TRAIN_PARITY:
-        train_parity[arch] = family_train_parity_phase(arch)
-        phase_s[f"train parity {arch}"] = train_parity[arch]["seconds"]
+        train_parity[arch] = timed(f"train parity {arch}", family_train_parity_phase, arch)
+        torch.cuda.empty_cache()
+    for arch in BF16_TRAIN_PARITY:
+        train_parity[f"{arch} bf16"] = timed(f"train parity {arch} bf16",
+                                             bf16_train_parity_phase, arch)
         torch.cuda.empty_cache()
     train_metrics = {}
     for arch in TRAIN_ARCHS:
-        counts, train_metrics[arch] = train_phase(arch)
-        for name in launches:
-            launches[name] += counts.get(name, 0)
-        phase_s[f"train {arch}"] = train_metrics[arch]["seconds"]
-        torch.cuda.empty_cache()
-    train_restart_phase()
+        counts, train_metrics[arch] = timed(f"train {arch}", train_phase, arch)
+        add(counts)
+    # training at the reference's production dtypes
+    for arch in BF16_TRAIN:
+        counts, train_metrics[f"{arch} bf16"] = timed(f"train {arch} bf16", train_phase, arch,
+                                                      production=True)
+        add(counts)
+    timed("train restart", train_restart_phase)
     torch.cuda.empty_cache()
     # the R2D2, V-trace, device-backend and wire paths, the figures and the
     # ops planes reach none of the port's kernels: the counts are set to 0
     # before their phases (10-19) and must read 0 after
     from repro_torch.kernels import flash_attention as K1, ops, ssd_scan as K3
     ops.reset_launch_counts()
-    r2d2_parity_phase()
-    r2d2_metrics = {"learner": r2d2_learner_phase()}
+    timed("r2d2 parity", r2d2_parity_phase)
+    r2d2_metrics = {"learner": timed("r2d2 learner", r2d2_learner_phase)}
     torch.cuda.empty_cache()
-    r2d2_metrics["system"] = r2d2_system_phase()
+    r2d2_metrics["system"] = timed("r2d2 system", r2d2_system_phase)
     torch.cuda.empty_cache()
-    vtrace_metrics = {"parity": vtrace_parity_phase()}
-    vtrace_metrics["system"] = vtrace_system_phase()
+    vtrace_metrics = {"parity": timed("vtrace parity", vtrace_parity_phase)}
+    vtrace_metrics["system"] = timed("vtrace system", vtrace_system_phase)
     torch.cuda.empty_cache()
-    device_metrics = {"parity": device_parity_phase()}
-    device_metrics["system"] = device_system_phase()
+    device_metrics = {"parity": timed("device parity", device_parity_phase)}
+    device_metrics["system"] = timed("device system", device_system_phase)
     torch.cuda.empty_cache()
-    wire_metrics = wire_phase()
+    wire_metrics = timed("wire", wire_phase)
     torch.cuda.empty_cache()
-    figure_metrics = figures_phase(card, r2d2_metrics, vtrace_metrics["system"],
-                                   device_metrics["system"])
+    figure_metrics = timed("figures", figures_phase, card, r2d2_metrics,
+                           vtrace_metrics["system"], device_metrics["system"])
     torch.cuda.empty_cache()
-    ops_metrics = ops_phase(card)
+    ops_metrics = timed("ops", ops_phase, card)
     counts = ops.launch_counts()
     if any(counts.values()) or any(K1.flash_attention.launches_by_route.values()) \
             or any(K3.ssd_scan.launches_by_route.values()):
@@ -4667,15 +5159,12 @@ def main():
     log(f"   R2D2, V-trace, device-backend, wire, figures and ops phases: kernel launches "
         f"{counts} (none, as the paths have no Pallas kernel)")
     torch.cuda.empty_cache()
-    counts, quick_metrics = quickstart_phase(card)
-    for name in launches:
-        launches[name] += counts.get(name, 0)
+    counts, quick_metrics = timed("quickstart", quickstart_phase, card)
+    add(counts)
 
     # the dry run needs no card; it runs alone, so no phase's times share
     # the host with it
-    t0 = time.perf_counter()
-    dryrun_metrics = dryrun_phase()
-    phase_s["dry run"] = time.perf_counter() - t0
+    dryrun_metrics = timed("dry run", dryrun_phase)
 
     for name, row in rows.items():
         row["launches"] = launches[name]
@@ -4685,8 +5174,7 @@ def main():
     log(f"reshard: {json.dumps(reshard_metrics)}")
     log(f"dry run: {json.dumps(dryrun_metrics)}")
     log(f"ring wrap gemma2-9b: {json.dumps(ring_metrics)}")
-    log(f"seconds of the serve, ring-wrap, parity and train phases: "
-        f"{json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
+    log(f"seconds of every phase: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     for arch, metrics in train_parity.items():
         log(f"train parity {arch}: {json.dumps(metrics)}")
     for arch, metrics in train_metrics.items():

@@ -29,8 +29,10 @@
 // - fp32 at any D, which the training path calls, and bf16 at D 16 take
 //   `flash_tf32x3_kernel`: both products on the tensor cores as 3xTF32
 //   `mma.sync` (`mma_tf32.cuh`), which keeps the fp32 checks' 2e-5 where
-//   one TF32 product (about three decimal digits) would not. Only this
-//   route writes the log-sum-exp that K1-bwd reads.
+//   one TF32 product (about three decimal digits) would not.
+// Both routes write each row's log-sum-exp when asked, which K1-bwd reads:
+// the fp32 K1-bwd after the 3xTF32 route, the bf16 K1-bwd after the wgmma
+// route (bf16 training at the reference's production dtypes).
 //
 // Bound on the H100 SXM (989 TFLOP/s bf16 tensor cores, 3.35 TB/s): causal
 // FLOPs = 2 * BH * S^2 * D (two products over half the score matrix). At
@@ -398,8 +400,9 @@ __device__ __forceinline__ void qk_step(float (&s)[BK / 2], uint64_t a, uint64_t
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                   const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int S,
-                   int Skv, int H, int KH, float scale, int causal, int window, float softcap) {
+                   const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                   float* __restrict__ lse, int S, int Skv, int H, int KH, float scale,
+                   int causal, int window, float softcap) {
   using C = Cfg<D>;
   constexpr int BK = C::BK, NS = C::NS;
   extern __shared__ unsigned char smem_raw[];
@@ -557,9 +560,18 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+  const float inv0 = 1.f / den0, inv1 = 1.f / den1;
   const long qs = (long)H * D;  // stride of one position in q / o
   __nv_bfloat16* ob = o + (long)b * S * qs + (long)h * D;
+  // each row's log-sum-exp of the scaled, capped, masked logits, for the
+  // bf16 backward (flash_attention_bwd.cu), as the 3xTF32 route writes it:
+  // the quad of lanes that holds a row has its max and whole sum
+  if (lse != nullptr && lane % 4 == 0) {
+    float* lb = lse + ((long)b * H + h) * S;
+    if (row0 < S) lb[row0] = m0 + logf(den0);
+    if (row1 < S) lb[row1] = m1 + logf(den1);
+  }
 #pragma unroll
   for (int s = 0; s < NS; ++s)
 #pragma unroll
@@ -575,8 +587,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int Skv, int H,
-           int KH, float scale, int causal, int window, float softcap, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, int B, int S, int Skv,
+           int H, int KH, float scale, int causal, int window, float softcap,
+           cudaStream_t stream) {
   using C = Cfg<D>;
   CUtensorMap tq, tk, tv;
   cudaError_t err = hopper::tma_map_bshd(&tq, q, B, S, H, D, BQ);
@@ -588,7 +601,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
   if (err != cudaSuccess) return (int)err;
   dim3 grid(H, B, (S + BQ - 1) / BQ);
   flash_wgmma_kernel<D><<<grid, THREADS, C::SMEM, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, Skv, H, KH, scale, causal, window, softcap);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), S, Skv, H, KH, scale,
+      causal, window, softcap);
   return (int)cudaGetLastError();
 }
 
@@ -603,8 +617,7 @@ extern "C" int flash_attention_route(int dtype, int D) {
 
 // dtype: 0 float32, 1 bfloat16. q and o have S rows, k and v S_kv; S_kv !=
 // S is refused with a causal mask or a window. `lse`, null or fp32 (B, H,
-// S), receives each row's log-sum-exp for the backward; only the 3xTF32
-// route writes it, so a non-null `lse` on the wgmma route is refused. The 3xTF32 route
+// S), receives each row's log-sum-exp for the backward, on both routes. The 3xTF32 route
 // copies q, k and v in 16-byte pieces: every pointer must be 16-byte
 // aligned. Returns cudaGetLastError() after the launch (0 on success);
 // launches on `stream` and does not synchronise.
@@ -616,9 +629,8 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k, const vo
   if (S_kv != S && (causal || window > 0)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (flash_attention_route(dtype, D)) {
-    if (lse) return (int)cudaErrorInvalidValue;
     switch (D) {
-#define K1_TC_ARGS q, k, v, o, B, S, S_kv, H, KH, scale, causal, window, softcap, st
+#define K1_TC_ARGS q, k, v, o, lse, B, S, S_kv, H, KH, scale, causal, window, softcap, st
       case 64: return tc::launch<64>(K1_TC_ARGS);
       case 128: return tc::launch<128>(K1_TC_ARGS);
       default: return tc::launch<256>(K1_TC_ARGS);

@@ -1,6 +1,7 @@
 // K3-bwd: the gradient of the Mamba2 SSD chunked scan, hand-written for
-// Hopper (sm_90a), fp32 in and out, its products on the tensor cores as
-// 3xTF32.
+// Hopper (sm_90a), its products on the tensor cores as 3xTF32. Two routes
+// of the same kernels: fp32 in and out, and bf16 (x, b, c and dy in, dx, db
+// and dc out, the training at the reference's production dtypes).
 //
 // The TPU kernel `repro/kernels/ssd_scan.py::ssd_scan` has no backward: the
 // JAX package differentiates its plain chunked scan
@@ -33,7 +34,9 @@
 // Layouts are the forward's: x, dy, dx (B, S, H, P); dt, ddt (B, S, H);
 // a, da (H,); b, c, db, dc (B, S, G, N) with G dividing H, head h in group
 // h / (H / G); h0, dstate, dh0 (B, H, P, N), each may be null (zeros in,
-// nothing out). All fp32.
+// nothing out). fp32, or on the bf16 route x, b, c, dy, dx, db and dc
+// bf16 while dt, a, h0, dstate, ddt, da and dh0 stay fp32, as the forward
+// takes them.
 //
 // Design: the chunk-parallel split of `ssd_tf32.cuh` (Dao and Gu,
 // arXiv:2405.21060, section 7), which K3's fp32 route shares; every unit
@@ -75,6 +78,19 @@
 //    same from run to run.
 // Shared memory: (1) 51 KB, four CTAs an SM; (3) 94 KB, two.
 //
+// The bf16 route widens x, B, C and dy to fp32 as they are staged
+// (`ssd_tf32.cuh`'s bf16 `load_tile`: exact), so every product, sum and
+// workspace is the fp32 route's, and rounds dx, dB and dC to bf16 once, as
+// they are stored. Its copies are plain loads and stores rather than
+// cp.async (which cannot widen), so the streamed slabs no longer fly behind
+// the products. Where both operands of a product come straight from bf16
+// inputs (C B^T, dy x^T), their small TF32 parts are zero and one TF32
+// product would do; this route still issues three (a later redesign's
+// saving). Bound at the Mamba2 bf16 train call (the shapes below, x, dy,
+// dx, b, c, db, dc in bf16): 33.2 MB, 9.9 us; the 9.44 GFLOP at the bf16
+// rate 9.5 us: bound by the bytes. The 3xTF32 products it issues take 57.2
+// us at their rate, which is the bound of this design.
+//
 // Bound on the H100 SXM (3.35 TB/s; 495 TFLOP/s TF32, so 165 for 3xTF32;
 // 67 TFLOP/s fp32 CUDA cores) at the Mamba2 train call (B 4, S 256, H 80,
 // P 64, G 1, N 128, fp32, no h0, no dstate): x, dy and dx 21.0 MB each, b,
@@ -86,6 +102,7 @@
 // chunk-heads make 9.44 GFLOP: 0.0572 ms at the 3xTF32 rate, 0.141 ms on
 // the CUDA cores. So the card's bound is the operations.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -129,10 +146,11 @@ __device__ __forceinline__ float quad_sum(float v) {
 }
 
 // 1. kind 0 (blockIdx.z < B): s_c into states, cs_L into decay; kind 1: ds_c
-// into dstates. Grid (chunks, p tiles x H, 2 B).
+// into dstates. Grid (chunks, p tiles x H, 2 B). T: the inputs' dtype.
+template <typename T>
 __global__ void __launch_bounds__(ssd::STATE_NT, 4)
-ssd_bwd_state_kernel(const float* __restrict__ x, const float* __restrict__ bm,
-                     const float* __restrict__ dy, const float* __restrict__ cm,
+ssd_bwd_state_kernel(const T* __restrict__ x, const T* __restrict__ bm,
+                     const T* __restrict__ dy, const T* __restrict__ cm,
                      const float* __restrict__ dt, const float* __restrict__ a,
                      float* __restrict__ states, float* __restrict__ dstates,
                      float* __restrict__ decay, int B, int S, int H, int P, int G, int N, int NC,
@@ -156,13 +174,15 @@ ssd_bwd_pass_kernel(float* __restrict__ states, float* __restrict__ dstates,
 }
 
 // 3. every gradient of one chunk and p tile, given S_{c-1} (states) and dS_c
-// (dstates). Grid (chunks, p tiles x H, B).
+// (dstates). Grid (chunks, p tiles x H, B). T: the dtype of x, b, c, dy
+// and dx.
+template <typename T>
 __global__ void __launch_bounds__(NT, 2)
-ssd_bwd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-                     const float* __restrict__ a, const float* __restrict__ bm,
-                     const float* __restrict__ cm, const float* __restrict__ dy,
+ssd_bwd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                     const float* __restrict__ a, const T* __restrict__ bm,
+                     const T* __restrict__ cm, const T* __restrict__ dy,
                      const float* __restrict__ states, const float* __restrict__ dstates,
-                     float* __restrict__ dx, float* __restrict__ dbp, float* __restrict__ dcp,
+                     T* __restrict__ dx, float* __restrict__ dbp, float* __restrict__ dcp,
                      float* __restrict__ ddtp, float* __restrict__ dap, int B, int S, int H,
                      int P, int G, int N, int NC, int vec) {
   float* sX = ssd::dyn_smem();     // [L][XP] x: steps s, columns p
@@ -186,8 +206,8 @@ ssd_bwd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   const int grp = h / (H / G), t0 = c * L, p0 = pt * PT;
   const float A = a[h];
   const long xs = (long)H * P, xo = (long)b * S * xs + (long)h * P + p0;
-  const float* bb = bm + (long)b * S * G * N + (long)grp * N;
-  const float* cb = cm + (long)b * S * G * N + (long)grp * N;
+  const T* bb = bm + (long)b * S * G * N + (long)grp * N;
+  const T* cb = cm + (long)b * S * G * N + (long)grp * N;
   const long so = (((long)b * H + h) * NC + c) * P * N + (long)p0 * N;
   const long part = ((long)pt * B + b) * S;   // this unit's rows of the partials
 
@@ -320,7 +340,7 @@ ssd_bwd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt,
         const int s = 16 * rb + g + 8 * (i / 2), p = 32 * ch + 8 * j + 2 * tq + i % 2;
         dwp[i / 2] = fmaf(sX[s * XP + p], uacc[j][i], dwp[i / 2]);
         if (t0 + s < S && p0 + p < P)
-          dx[xo + (long)(t0 + s) * xs + p] = fmaf(sw[s], uacc[j][i], xacc[j][i]);
+          ssd::put(dx + xo + (long)(t0 + s) * xs + p, fmaf(sw[s], uacc[j][i], xacc[j][i]));
       }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -467,10 +487,10 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
 }
 __device__ __forceinline__ float add4(float a, float b) { return a + b; }
 
-template <typename V>
+template <typename V, typename T>
 __device__ __forceinline__ void reduce_bc(const float* __restrict__ dbp,
-                                          const float* __restrict__ dcp, float* __restrict__ db,
-                                          float* __restrict__ dc, int NPT, int B, int S, int H,
+                                          const float* __restrict__ dcp, T* __restrict__ db,
+                                          T* __restrict__ dc, int NPT, int B, int S, int H,
                                           int G, int N) {
   __shared__ V red[2][RED_SPLIT][RED_OUT];
   constexpr int per = sizeof(V) / sizeof(float);
@@ -499,14 +519,15 @@ __device__ __forceinline__ void reduce_bc(const float* __restrict__ dbp,
     sc = add4(sc, red[1][k][o]);
   }
   const long out = (bs * G + g) * N + n;
-  *reinterpret_cast<V*>(db + out) = sb;
-  *reinterpret_cast<V*>(dc + out) = sc;
+  ssd::put(db + out, sb);
+  ssd::put(dc + out, sc);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(RED_OUT * RED_SPLIT)
 ssd_bwd_reduce_bc_kernel(const float* __restrict__ dbp, const float* __restrict__ dcp,
-                         float* __restrict__ db, float* __restrict__ dc, int NPT, int B, int S,
-                         int H, int G, int N, int vec) {
+                         T* __restrict__ db, T* __restrict__ dc, int NPT, int B, int S, int H,
+                         int G, int N, int vec) {
   if (vec)
     reduce_bc<float4>(dbp, dcp, db, dc, NPT, B, S, H, G, N);
   else
@@ -533,44 +554,35 @@ ssd_bwd_reduce_dt_kernel(const float* __restrict__ ddtp, const float* __restrict
   }
 }
 
-}  // namespace
-
-// All fp32. x, dy, dx (B, S, H, P); dt, ddt (B, S, H); a, da (H,); b, c,
-// db, dc (B, S, G, N); h0, dstate, dh0 (B, H, P, N), each may be null. The
-// workspaces: states and dstates (B, H, chunks, P, N) and decay (B, H,
-// chunks), chunks being ceil(S / 64); dbp and dcp (p tiles, B, S, H, N);
-// ddtp (p tiles, B, S, H); dap (p tiles, B, chunks, H), p tiles being
-// ceil(P / 64). Launches the five kernels on `stream` and does not
-// synchronise; returns cudaGetLastError() after each launch (0 on success).
-extern "C" int ssd_scan_bwd(const void* x, const void* dt, const void* a, const void* b,
-                            const void* c, const void* h0, const void* dy, const void* dstate,
-                            void* dx, void* ddt, void* da, void* db, void* dc, void* dh0,
-                            void* states, void* dstates, void* decay, void* dbp, void* dcp,
-                            void* ddtp, void* dap, int B, int S, int H, int P, int G, int N,
-                            void* stream) {
+// The five launches on `stream` for inputs of dtype T (float, or bf16 for
+// x, b, c, dy, dx, db and dc); no synchronisation.
+template <typename T>
+int run(const void* x, const void* dt, const void* a, const void* b, const void* c,
+        const void* h0, const void* dy, const void* dstate, void* dx, void* ddt, void* da,
+        void* db, void* dc, void* dh0, void* states, void* dstates, void* decay, void* dbp,
+        void* dcp, void* ddtp, void* dap, int B, int S, int H, int P, int G, int N,
+        cudaStream_t st) {
   const int NPT = (P + PT - 1) / PT, NC = (S + L - 1) / L;
-  if (B <= 0 || S <= 0 || H <= 0 || P <= 0 || G <= 0 || H % G != 0 || N <= 0 ||
-      N > ssd::NMAX || 2 * B > 65535 || NPT * H > 65535 || (h0 == nullptr) != (dh0 == nullptr))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   static std::atomic<unsigned long long> opted_state{0}, opted_chunk{0};
-  cudaError_t err = hopper::opt_in_smem((const void*)ssd_bwd_state_kernel,
+  cudaError_t err = hopper::opt_in_smem((const void*)ssd_bwd_state_kernel<T>,
                                         (int)ssd::STATE_SMEM, opted_state);
   if (err == cudaSuccess)
-    err = hopper::opt_in_smem((const void*)ssd_bwd_chunk_kernel, (int)CHUNK_SMEM, opted_chunk);
+    err = hopper::opt_in_smem((const void*)ssd_bwd_chunk_kernel<T>, (int)CHUNK_SMEM, opted_chunk);
   if (err != cudaSuccess) return (int)err;
-  const int vec = ssd::vec_ok(P, N, {x, dy, b, c, states, dstates});
-  const float* xf = static_cast<const float*>(x);
+  // 16-byte staging of x, dy, b, c (4 fp32 or 8 bf16 values) and of the
+  // fp32 states
+  const int vec = ssd::vec_ok(P, N, {x, dy, b, c, states, dstates}, 16 / (int)sizeof(T));
+  const T* xf = static_cast<const T*>(x);
   const float* dtf = static_cast<const float*>(dt);
   const float* af = static_cast<const float*>(a);
-  const float* bf = static_cast<const float*>(b);
-  const float* cf = static_cast<const float*>(c);
-  const float* dyf = static_cast<const float*>(dy);
+  const T* bf = static_cast<const T*>(b);
+  const T* cf = static_cast<const T*>(c);
+  const T* dyf = static_cast<const T*>(dy);
   float* sf = static_cast<float*>(states);
   float* dsf = static_cast<float*>(dstates);
   float* decf = static_cast<float*>(decay);
 
-  ssd_bwd_state_kernel<<<dim3(NC, NPT * H, 2 * B), ssd::STATE_NT, ssd::STATE_SMEM, st>>>(
+  ssd_bwd_state_kernel<T><<<dim3(NC, NPT * H, 2 * B), ssd::STATE_NT, ssd::STATE_SMEM, st>>>(
       xf, bf, dyf, cf, dtf, af, sf, dsf, decf, B, S, H, P, G, N, NC, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -581,18 +593,18 @@ extern "C" int ssd_scan_bwd(const void* x, const void* dt, const void* a, const 
       static_cast<float*>(dh0), B, H, P, N, NC, vec4);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  ssd_bwd_chunk_kernel<<<dim3(NC, NPT * H, B), NT, CHUNK_SMEM, st>>>(
-      xf, dtf, af, bf, cf, dyf, sf, dsf, static_cast<float*>(dx), static_cast<float*>(dbp),
+  ssd_bwd_chunk_kernel<T><<<dim3(NC, NPT * H, B), NT, CHUNK_SMEM, st>>>(
+      xf, dtf, af, bf, cf, dyf, sf, dsf, static_cast<T*>(dx), static_cast<float*>(dbp),
       static_cast<float*>(dcp), static_cast<float*>(ddtp), static_cast<float*>(dap), B, S, H, P,
       G, N, NC, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int bc_vec4 = N % 4 == 0 && ssd::aligned16({dbp, dcp, db, dc});
   const long n_bc = (long)B * S * G * (bc_vec4 ? N / 4 : N);
-  ssd_bwd_reduce_bc_kernel<<<(unsigned)((n_bc + RED_OUT - 1) / RED_OUT), RED_OUT * RED_SPLIT, 0,
-                             st>>>(
-      static_cast<const float*>(dbp), static_cast<const float*>(dcp), static_cast<float*>(db),
-      static_cast<float*>(dc), NPT, B, S, H, G, N, bc_vec4);
+  ssd_bwd_reduce_bc_kernel<T><<<(unsigned)((n_bc + RED_OUT - 1) / RED_OUT),
+                                RED_OUT * RED_SPLIT, 0, st>>>(
+      static_cast<const float*>(dbp), static_cast<const float*>(dcp), static_cast<T*>(db),
+      static_cast<T*>(dc), NPT, B, S, H, G, N, bc_vec4);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long n_dt = (long)B * S * H + H;
@@ -602,13 +614,20 @@ extern "C" int ssd_scan_bwd(const void* x, const void* dt, const void* a, const 
   return (int)cudaGetLastError();
 }
 
-// The shared memory and CTAs an SM of K3-bwd's kernel `kernel` (0 state, 1
-// pass, 2 chunk, 3 dB/dC reduce, 4 ddt/da reduce) on the current device.
-// Returns a CUDA error (0 on success).
-extern "C" int ssd_scan_bwd_occupancy(int kernel, int* smem, int* ctas_per_sm) {
+bool valid(int B, int S, int H, int P, int G, int N, const void* h0, const void* dh0) {
+  const int NPT = (P + PT - 1) / PT;
+  return B > 0 && S > 0 && H > 0 && P > 0 && G > 0 && H % G == 0 && N > 0 && N <= ssd::NMAX &&
+         2 * B <= 65535 && NPT * H <= 65535 && (h0 == nullptr) == (dh0 == nullptr);
+}
+
+// The shared memory and CTAs an SM of the route's kernel `kernel` (0 state,
+// 1 pass, 2 chunk, 3 dB/dC reduce, 4 ddt/da reduce) on the current device.
+template <typename T>
+int occupancy(int kernel, int* smem, int* ctas_per_sm) {
   static std::atomic<unsigned long long> opted_state{0}, opted_chunk{0};
-  const void* fn[5] = {(const void*)ssd_bwd_state_kernel, (const void*)ssd_bwd_pass_kernel,
-                       (const void*)ssd_bwd_chunk_kernel, (const void*)ssd_bwd_reduce_bc_kernel,
+  const void* fn[5] = {(const void*)ssd_bwd_state_kernel<T>, (const void*)ssd_bwd_pass_kernel,
+                       (const void*)ssd_bwd_chunk_kernel<T>,
+                       (const void*)ssd_bwd_reduce_bc_kernel<T>,
                        (const void*)ssd_bwd_reduce_dt_kernel};
   const int threads[5] = {ssd::STATE_NT, ssd::PASS_NT, NT, RED_OUT * RED_SPLIT, 256};
   const int bytes[5] = {(int)ssd::STATE_SMEM, 0, (int)CHUNK_SMEM, 0, 0};
@@ -620,4 +639,47 @@ extern "C" int ssd_scan_bwd_occupancy(int kernel, int* smem, int* ctas_per_sm) {
                                                         bytes[kernel]);
   *smem = bytes[kernel];
   return (int)err;
+}
+
+}  // namespace
+
+#define K3_BWD_ARGS                                                                           \
+  x, dt, a, b, c, h0, dy, dstate, dx, ddt, da, db, dc, dh0, states, dstates, decay, dbp, dcp, \
+      ddtp, dap, B, S, H, P, G, N, static_cast<cudaStream_t>(stream)
+#define K3_BWD_PARAMS                                                                         \
+  const void *x, const void *dt, const void *a, const void *b, const void *c, const void *h0, \
+      const void *dy, const void *dstate, void *dx, void *ddt, void *da, void *db, void *dc,  \
+      void *dh0, void *states, void *dstates, void *decay, void *dbp, void *dcp, void *ddtp,  \
+      void *dap, int B, int S, int H, int P, int G, int N, void *stream
+
+// All fp32. x, dy, dx (B, S, H, P); dt, ddt (B, S, H); a, da (H,); b, c,
+// db, dc (B, S, G, N); h0, dstate, dh0 (B, H, P, N), each may be null. The
+// workspaces: states and dstates (B, H, chunks, P, N) and decay (B, H,
+// chunks), chunks being ceil(S / 64); dbp and dcp (p tiles, B, S, H, N);
+// ddtp (p tiles, B, S, H); dap (p tiles, B, chunks, H), p tiles being
+// ceil(P / 64). Launches the five kernels on `stream` and does not
+// synchronise; returns cudaGetLastError() after each launch (0 on success).
+extern "C" int ssd_scan_bwd(K3_BWD_PARAMS) {
+  if (!valid(B, S, H, P, G, N, h0, dh0)) return (int)cudaErrorInvalidValue;
+  return run<float>(K3_BWD_ARGS);
+}
+
+// The bf16 route: x, b, c, dy, dx, db and dc bf16, everything else (dt, a,
+// h0, dstate, ddt, da, dh0 and the workspaces) fp32, as ssd_scan_bwd.
+extern "C" int ssd_scan_bwd_bf16(K3_BWD_PARAMS) {
+  if (!valid(B, S, H, P, G, N, h0, dh0)) return (int)cudaErrorInvalidValue;
+  return run<__nv_bfloat16>(K3_BWD_ARGS);
+}
+
+#undef K3_BWD_ARGS
+#undef K3_BWD_PARAMS
+
+// The shared memory and CTAs an SM of K3-bwd's kernel `kernel` (0 state, 1
+// pass, 2 chunk, 3 dB/dC reduce, 4 ddt/da reduce) on the current device, of
+// the fp32 route and of the bf16 one. Returns a CUDA error (0 on success).
+extern "C" int ssd_scan_bwd_occupancy(int kernel, int* smem, int* ctas_per_sm) {
+  return occupancy<float>(kernel, smem, ctas_per_sm);
+}
+extern "C" int ssd_scan_bwd_bf16_occupancy(int kernel, int* smem, int* ctas_per_sm) {
+  return occupancy<__nv_bfloat16>(kernel, smem, ctas_per_sm);
 }

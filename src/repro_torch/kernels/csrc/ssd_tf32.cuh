@@ -20,6 +20,10 @@
 //
 // Tiles: fp32 in shared memory, fed by `cp.async` (16-byte copies where
 // every row is 16-byte aligned, else 4-byte ones), zeros past S, P and N.
+// A bf16 operand (K3-bwd's bf16 route: x, B, C and dy) is widened to fp32
+// as it is staged, which is exact, by plain loads (16 bytes, 8 values, where
+// every row is 16-byte aligned, else one value a load) and stores; the
+// products then take it as any fp32 operand.
 // Row pitches are 4 (mod 32) floats, or 20 for the 16-column slabs the
 // third passes stream: either keeps the 8 rows an ldmatrix reads, and the
 // rows 2 t and 2 t + 1 below, on distinct banks. Two orders of a product's
@@ -39,6 +43,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -136,6 +141,48 @@ __device__ __forceinline__ void load_tile(float* dst, int pitch, const float* __
   }
 }
 
+// The same from a bf16 matrix, widened to fp32: width a multiple of 8; with
+// `vec`, every row start 16-byte aligned and ncols a multiple of 8, so that
+// a 16-byte load of 8 values is whole or empty. Synchronous: the caller's
+// barrier makes the stores visible.
+template <int NT>
+__device__ __forceinline__ void load_tile(float* dst, int pitch,
+                                          const __nv_bfloat16* __restrict__ src, long ld, int r0,
+                                          int rows, int nrows, int width, int ncols, bool vec) {
+  const int cpr = width / 8;
+  for (int i = threadIdx.x; i < rows * cpr; i += NT) {
+    const int r = i / cpr, col = (i % cpr) * 8, row = r0 + r;
+    const bool rin = row < nrows;
+    float v[8];
+    if (vec) {
+      uint4 u = make_uint4(0u, 0u, 0u, 0u);
+      if (rin && col < ncols) u = *reinterpret_cast<const uint4*>(src + (long)row * ld + col);
+      const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {   // the lower address in the low half
+        v[2 * j] = __uint_as_float(w[j] << 16);
+        v[2 * j + 1] = __uint_as_float(w[j] & 0xFFFF0000u);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        v[j] = rin && col + j < ncols ? __bfloat162float(src[(long)row * ld + col + j]) : 0.f;
+    }
+    float* d = dst + r * pitch + col;
+    *reinterpret_cast<float4*>(d) = make_float4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<float4*>(d + 4) = make_float4(v[4], v[5], v[6], v[7]);
+  }
+}
+
+// an fp32 result stored in the output's dtype
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+__device__ __forceinline__ void put(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float4 v) {
+  reinterpret_cast<__nv_bfloat162*>(p)[0] = __floats2bfloat162_rn(v.x, v.y);
+  reinterpret_cast<__nv_bfloat162*>(p)[1] = __floats2bfloat162_rn(v.z, v.w);
+}
+
 // ---- the chunk's scan --------------------------------------------------------
 
 // warp 0: the inclusive cumsum of dt a over the chunk (lane l holding steps
@@ -186,9 +233,11 @@ constexpr size_t STATE_SMEM = sizeof(float) * (L * XP + L * NP + 3 * L);
 // the state's gradient). One CTA of 256 threads per (chunk, p tile, head,
 // batch); warp w takes rows p 16 (w % 4) .. + 15 and one half of N's
 // 8-column tiles. Writes out (B, H, chunks, P, N) and, kind 0 from p tile
-// 0, cs_L into decay (B, H, chunks).
-__device__ __forceinline__ void state_chunk(int kind, const float* __restrict__ v,
-                                            const float* __restrict__ u,
+// 0, cs_L into decay (B, H, chunks). v and u fp32, or bf16 (K3-bwd's bf16
+// route), staged as fp32.
+template <typename T>
+__device__ __forceinline__ void state_chunk(int kind, const T* __restrict__ v,
+                                            const T* __restrict__ u,
                                             const float* __restrict__ dt, float A,
                                             float* __restrict__ out, float* __restrict__ decay,
                                             int b, int h, int c, int pt, int S, int H, int P,
@@ -348,9 +397,9 @@ inline bool aligned16(std::initializer_list<const void*> ptrs) {
 }
 
 // 16-byte copies are whole or empty for every tile of a call: every row
-// start a multiple of 4 floats from an aligned base
-inline bool vec_ok(int P, int N, std::initializer_list<const void*> ptrs) {
-  return P % 4 == 0 && N % 4 == 0 && aligned16(ptrs);
+// start a multiple of 4 floats (8 bf16 values, `per`) from an aligned base
+inline bool vec_ok(int P, int N, std::initializer_list<const void*> ptrs, int per = 4) {
+  return P % per == 0 && N % per == 0 && aligned16(ptrs);
 }
 
 }  // namespace ssd

@@ -13,13 +13,17 @@ k and v may have a length of their own, S_kv (the encoder-decoder's
 cross-attention: text queries over the encoder's frames), without a causal
 mask or a window, in the forward and in the backward.
 
-The gradient (K1-bwd) is ``csrc/flash_attention_bwd.cu``, fp32 in and out,
-its products on the tensor cores as 3xTF32 ``mma.sync`` at every head_dim,
-which recomputes P from the forward's log-sum-exp per row: the 3xTF32
-route writes it when asked (``return_lse``).
-``FlashAttention`` is the autograd Function that pairs the two;
-``flash_attention_bwd.launches`` counts the backward's calls (each launches
-its kernels: three, four with KH < H).
+The gradient (K1-bwd) is ``csrc/flash_attention_bwd.cu``, which recomputes
+P from the forward's log-sum-exp per row (both routes write it when asked,
+``return_lse``). It has two routes (``bwd_route``): fp32 in and out, its
+products on the tensor cores as 3xTF32 ``mma.sync`` at every head_dim; and
+bf16 in and out at D 64, 128 and 256 (the training at the reference's
+production dtypes), its products as bf16 ``mma.sync.m16n8k16`` into fp32,
+P and dX rounded to bf16 before their products as the forward rounds P.
+``FlashAttention`` is the autograd Function that pairs the forward with
+the backward of its dtype; ``flash_attention_bwd.launches`` counts the
+backward's calls (each launches its kernels: three, four with KH < H),
+``flash_attention_bwd.launches_by_route`` each route's.
 """
 
 import ctypes
@@ -32,12 +36,22 @@ from repro_torch.kernels import build
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 64, 128, 256)
 ROUTES = ("wgmma", "tf32x3")
+BWD_ROUTES = ("tf32x3", "bf16")
 
 
 def route(dtype, head_dim) -> str:
     """The kernel a launch takes: "wgmma" for bf16 at D 64, 128 or 256,
     "tf32x3" otherwise (3xTF32 mma.sync, which keeps fp32's accuracy)."""
     return "wgmma" if dtype == torch.bfloat16 and head_dim in (64, 128, 256) else "tf32x3"
+
+
+def bwd_route(dtype, head_dim):
+    """The backward kernel a K1-bwd call takes: "tf32x3" for fp32 at every
+    head_dim, "bf16" for bf16 at D 64, 128 or 256; None where there is none
+    (bf16 at D 16), and a gradient through K1 raises on the card."""
+    if dtype == torch.float32:
+        return "tf32x3"
+    return "bf16" if dtype == torch.bfloat16 and head_dim in (64, 128, 256) else None
 
 
 def entry(lib):
@@ -57,10 +71,11 @@ def _fn():
     return entry(build.load("flash_attention"))
 
 
-def bwd_entry(lib):
-    """The C entry point flash_attention_bwd of `lib` (a built
-    csrc/flash_attention_bwd.cu, loaded by ctypes), typed."""
-    fn = lib.flash_attention_bwd
+def bwd_entry(lib, route="tf32x3"):
+    """The C entry point of `route` in `lib` (a built
+    csrc/flash_attention_bwd.cu, loaded by ctypes), typed:
+    flash_attention_bwd (fp32) or flash_attention_bwd_bf16."""
+    fn = getattr(lib, "flash_attention_bwd" if route == "tf32x3" else "flash_attention_bwd_bf16")
     fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -68,9 +83,10 @@ def bwd_entry(lib):
 
 
 @functools.cache
-def _bwd_fn():
-    """The backward's C entry point, built, loaded and typed once per process."""
-    return bwd_entry(build.load("flash_attention_bwd"))
+def _bwd_fn(route="tf32x3"):
+    """The backward's C entry point of `route`, built, loaded and typed once
+    per process."""
+    return bwd_entry(build.load("flash_attention_bwd"), route)
 
 
 def kernel_route(dtype, head_dim) -> str:
@@ -117,18 +133,14 @@ def flash_attention(q, k, v, *, scale=None, causal=True, window=0, softcap=None,
     head-expanded layout), S_kv == S unless unmasked (no `causal`, no
     `window`). Contiguous CUDA tensors of one dtype. Returns
     (B,S,H,D) in q's dtype, and with `return_lse` also each row's
-    log-sum-exp (B,H,S) fp32, which only the 3xTF32 route writes; that
-    route copies q, k and v in 16-byte pieces, so each must start 16-byte
+    log-sum-exp (B,H,S) fp32, which both routes write. The 3xTF32 route
+    copies q, k and v in 16-byte pieces, so each must start 16-byte
     aligned. Launches on the current stream, no sync."""
     _check(q, k, v, causal, window)
     b, s, h, d = q.shape
-    if route(q.dtype, d) == "tf32x3":
-        if any(t.data_ptr() % 16 for t in (q, k, v)):
-            raise ValueError("flash_attention's 3xTF32 route copies q, k and v in 16-byte "
-                             "pieces: each must start 16-byte aligned")
-    elif return_lse:
-        raise ValueError(f"only the 3xTF32 route writes the log-sum-exp; {q.dtype} at "
-                         f"head_dim {d} takes the {route(q.dtype, d)} route")
+    if route(q.dtype, d) == "tf32x3" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention's 3xTF32 route copies q, k and v in 16-byte "
+                         "pieces: each must start 16-byte aligned")
     out, lse = fwd_launch(_fn(), q, k, v, scale=scale, causal=causal, window=window,
                           softcap=softcap, return_lse=return_lse)
     flash_attention.launches += 1
@@ -164,26 +176,32 @@ flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
 def flash_attention_bwd(q, k, v, o, lse, do, *, scale=None, causal=True, window=0,
                         softcap=None):
     """K1-bwd: (dq, dk, dv) of `flash_attention` given its inputs, output o,
-    log-sum-exp lse (B,H,S) and the output's gradient do, all fp32,
-    contiguous, on one CUDA device; k and v (B,S_kv,KH,D) as in the
-    forward. dk and dv sum over each kv head's query heads (a fixed order,
-    no atomics). Launches on the current stream, no sync."""
+    log-sum-exp lse (B,H,S) fp32 and the output's gradient do, contiguous,
+    on one CUDA device; k and v (B,S_kv,KH,D) as in the forward. q, k, v,
+    o and do fp32 (the 3xTF32 route), or bf16 at D 64, 128 or 256 (the
+    bf16 route), and dq, dk, dv in that dtype. dk and dv sum over each kv
+    head's query heads (a fixed order, no atomics). Launches on the current
+    stream, no sync."""
     _check(q, k, v, causal, window)
     b, s, h, d = q.shape
-    if q.dtype != torch.float32:
-        raise TypeError(f"flash_attention_bwd is fp32 only; got {q.dtype}")
+    path = bwd_route(q.dtype, d)
+    if path is None:
+        raise TypeError(f"flash_attention_bwd takes fp32 at any head_dim and bf16 at 64, 128 "
+                        f"and 256; got {q.dtype} at head_dim {d}")
     if o.shape != q.shape or do.shape != q.shape or lse.shape != (b, h, s):
         raise ValueError(f"o {tuple(o.shape)}, do {tuple(do.shape)}, lse {tuple(lse.shape)} "
                          f"do not match q {tuple(q.shape)}")
-    for t in (o, lse, do):
-        if t.dtype != torch.float32 or t.device != q.device or not t.is_contiguous():
-            raise ValueError("o, lse and do must be contiguous fp32 on q's device")
+    for t, dtype in ((o, q.dtype), (do, q.dtype), (lse, torch.float32)):
+        if t.dtype != dtype or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"o and do must be contiguous {q.dtype}, lse contiguous fp32, on "
+                             "q's device")
     if any(t.data_ptr() % 16 for t in (q, k, v, do)):
         raise ValueError("flash_attention_bwd kernel copies q, k, v and do in 16-byte pieces: "
                          "each must start 16-byte aligned")
-    out = bwd_launch(_bwd_fn(), q, k, v, o, lse, do, scale=scale, causal=causal,
+    out = bwd_launch(_bwd_fn(path), q, k, v, o, lse, do, scale=scale, causal=causal,
                      window=window, softcap=softcap)
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.launches_by_route[path] += 1
     return out
 
 
@@ -196,7 +214,8 @@ def bwd_launch(fn, q, k, v, o, lse, do, *, scale=None, causal=True, window=0, so
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     # each query head's share of dk and dv, which the kernel sums per kv head
-    shares = ([torch.empty((b, k.shape[1], h, d), dtype=q.dtype, device=q.device)
+    # (fp32 on both routes)
+    shares = ([torch.empty((b, k.shape[1], h, d), dtype=torch.float32, device=q.device)
                for _ in range(2)] if k.shape[2] < h else [None, None])
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
@@ -211,11 +230,14 @@ def bwd_launch(fn, q, k, v, o, lse, do, *, scale=None, causal=True, window=0, so
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_by_route = dict.fromkeys(BWD_ROUTES, 0)
 
 
 class FlashAttention(torch.autograd.Function):
-    """K1 with K1-bwd as its gradient (fp32 on the card). Saves q, k, v, the
-    output and the log-sum-exp; the backward launches one K1-bwd call."""
+    """K1 with K1-bwd as its gradient on the card: fp32 (3xTF32 forward and
+    backward) or bf16 at D 64, 128 and 256 (the wgmma forward, the bf16
+    backward). Saves q, k, v, the output and the log-sum-exp; the backward
+    launches one K1-bwd call."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal, window, softcap):

@@ -12,16 +12,29 @@ RG-LRU scan takes an initial state and returns the last one, which the
 Pallas kernel does not, because the model needs both.
 
 Gradients: on the CPU, autograd differentiates the plain versions. On the
-card, K1, K3 and K4 in fp32 run as autograd Functions whose backward is a
-kernel too (K1-bwd, K3-bwd, K4-bwd); K1-bwd takes k and v of a length of
-their own, as K1 does. A kernel with no backward kernel (K1's and K3's
-bf16 routes, K2) raises NotImplementedError when grad mode is on and an
-input requires a gradient (``needs_grad``), rather than return a tensor
-with no ``grad_fn``, which would leave every parameter upstream of it
-without a gradient and no error. ``flash_attention_bwd_plain``,
-``ssd_scan_bwd_plain`` and ``rglru_scan_bwd_plain`` are the backward
-kernels' plain versions, written out as the passes each kernel runs, for
-the tests and ``chip_smoke.py``.
+card, K1 and K3 in fp32 and in bf16, and K4 in fp32, run as autograd
+Functions whose backward is a kernel too (K1-bwd, K3-bwd, K4-bwd), each of
+the forward's dtype: bf16 K1 at head_dim 64, 128 and 256 pairs its wgmma
+route, which writes the log-sum-exp, with K1-bwd's bf16 route, and bf16 K3
+(any route) with K3-bwd's bf16 route, so the models train on the card at
+the reference's production dtypes (bf16 params and compute, full remat):
+
+    train.setup(arch, param_dtype="bfloat16", compute_dtype="bfloat16",
+                remat="full", num_layers=...)
+
+K1-bwd takes k and v of a length of their own, as K1 does. A kernel with
+no backward kernel for its inputs (K2; K1 in bf16 at head_dim 16) raises
+NotImplementedError when grad mode is on and an input requires a gradient
+(``needs_grad``), rather than return a tensor with no ``grad_fn``, which
+would leave every parameter upstream of it without a gradient and no
+error. ``flash_attention_bwd_plain``, ``flash_attention_bwd_bf16_plain``
+(with the bf16 kernel's roundings), ``ssd_scan_bwd_plain`` and
+``rglru_scan_bwd_plain`` are the backward kernels' plain versions, written
+out as the passes each kernel runs, for the tests and ``chip_smoke.py``;
+nothing on the card's path calls them. On the CPU the production dtypes
+are held to the JAX package by ``tests/test_torch_bf16_train.py`` (one
+train step, the plain backward versions against ``jax.vjp``), and the
+guard by ``tests/test_torch_train.py::test_grad_guard_predicate``.
 """
 
 import torch
@@ -48,11 +61,14 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts():
-    """Zero every kernel's count, and K1's and K3's counts by route."""
+    """Zero every kernel's count, and K1's, K1-bwd's, K3's and K3-bwd's
+    counts by route."""
     for fn in KERNELS.values():
         fn.launches = 0
     _flash.flash_attention.launches_by_route = dict.fromkeys(_flash.ROUTES, 0)
+    _flash.flash_attention_bwd.launches_by_route = dict.fromkeys(_flash.BWD_ROUTES, 0)
     _ssd.ssd_scan.launches_by_route = dict.fromkeys(_ssd.ROUTES, 0)
+    _ssd.ssd_scan_bwd.launches_by_route = dict.fromkeys(_ssd.BWD_ROUTES, 0)
 
 
 def needs_grad(*ts) -> bool:
@@ -112,8 +128,9 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=None, scale=None)
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap, scale=scale)
     if needs_grad(q, k, v):
-        if q.dtype != torch.float32:
-            raise _no_backward(f"K1 in {q.dtype}", "a bf16 K1 backward on wgmma")
+        if _flash.bwd_route(q.dtype, q.shape[-1]) is None:
+            raise _no_backward(f"K1 in {q.dtype} at head_dim {q.shape[-1]}",
+                               "a K1 backward at this dtype and head_dim")
         return _flash.FlashAttention.apply(q, k, v, scale, causal, window, softcap)
     return _flash.flash_attention(q, k, v, scale=scale, causal=causal,
                                   window=window, softcap=softcap)
@@ -121,8 +138,8 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=None, scale=None)
 
 def flash_attention_lse_plain(q, k, *, causal=True, window=0, softcap=None, scale=None):
     """Each row's log-sum-exp (B,H,S) fp32 of the scaled, capped, masked
-    logits of `flash_attention`: what its 3xTF32 route writes for the
-    backward."""
+    logits of `flash_attention` (scores of q and k as given, in fp32): what
+    both its routes write for the backward."""
     b, s, h, d = q.shape
     scale = scale if scale is not None else d ** -0.5
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), _expand_kv(k, h).float()) * scale
@@ -136,17 +153,40 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal=True, window=0, sof
                               scale=None):
     """Plain PyTorch version of K1-bwd: (dq, dk, dv) of `flash_attention`
     from its inputs, output o, log-sum-exp lse (B,H,S) and the output's
-    gradient do, by the formulas the kernel computes (fp32):
+    gradient do, by the formulas the kernel computes, in fp32 (fp64 for
+    fp64 inputs) whatever the inputs' dtype, returned in q's dtype:
     P = exp(t - lse), dT = P (dO.V - Delta) with Delta = dO.O,
     dX = dT (1 - tanh^2(x / cap)), dq = scale dX K, dk = scale dX^T Q,
     dv = P^T dO; dk and dv summed over each kv head's query heads. k and v
     may have S_kv rows of their own, unmasked, as in `flash_attention`."""
+    return _flash_bwd(q, k, v, o, lse, do, causal=causal, window=window, softcap=softcap,
+                      scale=scale, round_to=None)
+
+
+def flash_attention_bwd_bf16_plain(q, k, v, o, lse, do, *, causal=True, window=0,
+                                   softcap=None, scale=None):
+    """Plain PyTorch version of K1-bwd's bf16 route, with its roundings: as
+    `flash_attention_bwd_plain` on bf16 q, k, v, o and do, but P and dX
+    rounded to bf16 before the products that take them (dv = P^T dO, dq =
+    scale dX K, dk = scale dX^T Q), as the kernel rounds them for its bf16
+    tensor-core products; the products' sums in fp32, dq, dk and dv
+    rounded to bf16 once (dk and dv after the sum over a kv head's query
+    heads)."""
+    return _flash_bwd(q, k, v, o, lse, do, causal=causal, window=window, softcap=softcap,
+                      scale=scale, round_to=torch.bfloat16)
+
+
+def _flash_bwd(q, k, v, o, lse, do, *, causal, window, softcap, scale, round_to):
+    """The formulas of `flash_attention_bwd_plain`; `round_to` (a dtype or
+    None) rounds P and dX before the products that take them."""
     _flash.check_kv_len(q, k, causal, window)
     b, s, h, d = q.shape
     kh, s_kv = k.shape[2], k.shape[1]
     scale = scale if scale is not None else d ** -0.5
-    qf, dof, of = q.float(), do.float(), o.float()
-    kf, vf = _expand_kv(k, h).float(), _expand_kv(v, h).float()
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qf, dof, of = q.to(acc), do.to(acc), o.to(acc)
+    kf, vf = _expand_kv(k, h).to(acc), _expand_kv(v, h).to(acc)
+    rnd = (lambda t: t) if round_to is None else (lambda t: t.to(round_to).to(acc))  # noqa: E731
     x = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
     dxdt = 1.0
     if softcap:
@@ -156,12 +196,12 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal=True, window=0, sof
     p = torch.exp(torch.where(ok, x, NEG_INF) - lse[..., None])    # 0 where masked
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
     delta = (dof * of).sum(-1).transpose(1, 2)                      # (B,H,S)
-    dx = p * (dp - delta[..., None]) * dxdt
+    dx = rnd(p * (dp - delta[..., None]) * dxdt)
     dq = torch.einsum("bhqk,bkhd->bqhd", dx, kf) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", dx, qf) * scale
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
-    fold = lambda t: t.reshape(b, s_kv, kh, h // kh, d).sum(3)   # noqa: E731
-    return dq, fold(dk), fold(dv)
+    dv = torch.einsum("bhqk,bqhd->bkhd", rnd(p), dof)
+    fold = lambda t: t.reshape(b, s_kv, kh, h // kh, d).sum(3).to(q.dtype)   # noqa: E731
+    return dq.to(q.dtype), fold(dk), fold(dv)
 
 
 def _mask(s, causal, window, device, s_kv=None):
@@ -257,8 +297,8 @@ def ssd_scan(x, dt, a, b, c, *, chunk=128, h0=None, return_state=False):
     if _on_cpu(x, dt, a, b, c, *(() if h0 is None else (h0,))):
         y, state = ssd_scan_plain(x, dt, a, b, c, chunk=chunk, h0=h0)
     elif needs_grad(x, dt, a, b, c, h0):
-        if x.dtype != torch.float32:
-            raise _no_backward(f"K3 in {x.dtype}", "a bf16 K3 backward")
+        if x.dtype not in _ssd.DTYPES:
+            raise _no_backward(f"K3 in {x.dtype}", "a K3 backward at this dtype")
         y, state = _ssd.SSDScan.apply(x, dt, a, b, c, h0)
     else:
         y, state = _ssd.ssd_scan(x, dt, a, b, c, h0=h0, return_state=return_state)
@@ -269,8 +309,10 @@ def ssd_scan_bwd_plain(x, dt, a, b, c, h0, dy, dstate, *, chunk=_ssd.CHUNK):
     """Plain PyTorch version of K3-bwd: (dx, ddt, da, db, dc, dh0) of
     `ssd_scan` (y, final_state) given the gradients dy (B,S,H,P) and dstate
     (B,H,P,N) (or None: zeros), in fp32 (fp64 for fp64 inputs, an
-    oracle's), by the passes the kernel runs over chunks of `chunk` steps
-    (the kernel's own, 64):
+    oracle's) whatever the dtype of x, b, c and dy; dx, db and dc are
+    returned in x's dtype (bf16 on the bf16 route), the rest fp32 (fp64).
+    By the passes the kernel runs over chunks of `chunk` steps (the
+    kernel's own, 64):
     1. state recompute: each chunk's incoming state S_{c-1}, by the
        forward's recurrence S_c = exp(cs_L) S_{c-1} + sum_s w_s x_s B_s^T,
        w_s = exp(cs_L - cs_s) dt_s, from h0 (or zeros);
@@ -289,7 +331,7 @@ def ssd_scan_bwd_plain(x, dt, a, b, c, h0, dy, dstate, *, chunk=_ssd.CHUNK):
        h0 is."""
     bsz, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
-    acc = torch.promote_types(x.dtype, torch.float32)
+    acc, out_dtype = torch.promote_types(x.dtype, torch.float32), x.dtype
     f = lambda t: None if t is None else t.to(acc)   # noqa: E731
     x, dt, a, b, c, h0, dy, dstate = map(f, (x, dt, a, b, c, h0, dy, dstate))
     pad = -s % chunk
@@ -349,8 +391,9 @@ def ssd_scan_bwd_plain(x, dt, a, b, c, h0, dy, dstate, *, chunk=_ssd.CHUNK):
 
     def steps(t):
         return t.reshape(bsz, nc * chunk, *t.shape[3:])[:, :s]
-    group = lambda t: steps(t).reshape(bsz, s, g, h // g, n).sum(3)   # noqa: E731
-    return steps(dx), steps(ddt), da, group(dbm), group(dcm), (None if h0 is None else ds)
+    group = lambda t: steps(t).reshape(bsz, s, g, h // g, n).sum(3).to(out_dtype)  # noqa: E731
+    return (steps(dx).to(out_dtype), steps(ddt), da, group(dbm), group(dcm),
+            (None if h0 is None else ds))
 
 
 def rglru_scan_plain(a, b, *, h0=None, out_dtype=torch.float32):

@@ -13,11 +13,16 @@ passing across chunks, then each chunk's y, every product as three TF32
 the fp32 CUDA cores. ``ssd_scan.launches`` counts every call,
 ``ssd_scan.launches_by_route`` each route's.
 
-The gradient (K3-bwd) is ``csrc/ssd_scan_bwd.cu``, fp32 on the same
-3xTF32 split, which recomputes the chunk states from the inputs; its
-plain version is ``ops.ssd_scan_bwd_plain``. ``SSDScan`` is the autograd
-Function that pairs the two. ``tf32x3_plan`` gives the launches of
-either, with their shared memory and CTAs an SM from the built library.
+The gradient (K3-bwd) is ``csrc/ssd_scan_bwd.cu``, on the same 3xTF32
+split, which recomputes the chunk states from the inputs; its plain
+version is ``ops.ssd_scan_bwd_plain``. It has two routes (``BWD_ROUTES``):
+fp32 in and out, and bf16 (x, b, c and dy in, dx, db and dc out; the
+training at the reference's production dtypes), whose kernels widen the
+bf16 operands to fp32 as they stage them. ``SSDScan`` is the autograd
+Function that pairs the forward, on whichever route ``route`` picks, with
+the backward of its dtype; ``ssd_scan_bwd.launches_by_route`` counts each
+backward route's calls. ``tf32x3_plan`` gives the launches of either,
+with their shared memory and CTAs an SM from the built library.
 """
 
 import ctypes
@@ -32,6 +37,7 @@ MAX_STATE = 128   # largest N (NMAX in the source)
 CHUNK = 64        # steps a chunk in both kernels (L in the sources)
 PT = 64           # head columns p a unit of the 3xTF32 route (PT in ssd_tf32.cuh)
 ROUTES = ("wgmma", "tf32x3", "cuda_cores")   # the indices ssd_scan_route returns
+BWD_ROUTES = ("tf32x3", "bf16")   # K3-bwd by its inputs' dtype, fp32 or bf16
 FWD_KERNELS = ("ssd_state_kernel", "ssd_pass_kernel", "ssd_out_kernel")
 BWD_KERNELS = ("ssd_bwd_state_kernel", "ssd_bwd_pass_kernel", "ssd_bwd_chunk_kernel",
                "ssd_bwd_reduce_bc_kernel", "ssd_bwd_reduce_dt_kernel")
@@ -63,11 +69,12 @@ def plan(b, h, p) -> tuple:
     return 1, b * h * -(-p // 64)
 
 
-def tf32x3_plan(b, s, h, p, n, g=1, *, backward=False, sms=None) -> dict:
-    """Each launch of the 3xTF32 route (``backward``: K3-bwd) at (B, S, H,
-    P, N, G): {kernel: {"ctas", "threads"}}; with `sms` (the card's SM
-    count) also "smem" (bytes), "ctas_per_sm" (from the built library's
-    occupancy query) and "waves" on those SMs. Every unit of the chunk
+def tf32x3_plan(b, s, h, p, n, g=1, *, backward=False, sms=None, dtype=torch.float32) -> dict:
+    """Each launch of the 3xTF32 route (``backward``: K3-bwd, of its route
+    for `dtype`, fp32 or bf16: the same grid) at (B, S, H, P, N, G):
+    {kernel: {"ctas", "threads"}}; with `sms` (the card's SM count) also
+    "smem" (bytes), "ctas_per_sm" (from the built library's occupancy
+    query of that route's kernels) and "waves" on those SMs. Every unit of the chunk
     passes is a (chunk, 64 columns p, head, batch); the passing across
     chunks is one thread 16 elements of each head's (P, N) state (4 where
     P N is not a multiple of 4; the tensors the wrapper allocates are
@@ -81,7 +88,8 @@ def tf32x3_plan(b, s, h, p, n, g=1, *, backward=False, sms=None) -> dict:
             {"ctas": units, "threads": 256}, {"ctas": -(-(b * s * g * n // per) // 64),
                                               "threads": 256},
             {"ctas": -(-(b * s * h + h) // 256), "threads": 256})))
-        query = "ssd_scan_bwd_occupancy"
+        query = ("ssd_scan_bwd_occupancy" if bwd_route(dtype) == "tf32x3"
+                 else "ssd_scan_bwd_bf16_occupancy")
     else:
         out = dict(zip(FWD_KERNELS, ({"ctas": units, "threads": 256},
                                      {"ctas": elems, "threads": 256},
@@ -164,10 +172,19 @@ ssd_scan.launches = 0
 ssd_scan.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
+def bwd_route(dtype) -> str:
+    """K3-bwd's route for inputs of `dtype`: "tf32x3" (fp32) or "bf16"."""
+    if dtype not in DTYPES:
+        raise TypeError(f"K3-bwd takes {list(DTYPES)}; got {dtype}")
+    return "tf32x3" if dtype == torch.float32 else "bf16"
+
+
 @functools.cache
-def _bwd_fn():
-    """The backward's C entry point, built, loaded and typed once per process."""
-    fn = build.load("ssd_scan_bwd").ssd_scan_bwd
+def _bwd_fn(route="tf32x3"):
+    """The backward's C entry point of `route`, built, loaded and typed once
+    per process."""
+    lib = build.load("ssd_scan_bwd")
+    fn = lib.ssd_scan_bwd if route == "tf32x3" else lib.ssd_scan_bwd_bf16
     fn.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -176,10 +193,13 @@ def _bwd_fn():
 def ssd_scan_bwd(x, dt, a, b, c, h0, dy, dstate):
     """K3-bwd: (dx, ddt, da, db, dc, dh0) of ``ssd_scan``'s (y, final state)
     given the same inputs (h0 None: zeros) and the gradients dy (B,S,H,P)
-    and dstate (B,H,P,N) (None: zeros). All fp32, contiguous, on one CUDA
-    device. dh0 is None when h0 is. db and dc sum over each group's heads,
-    da over batch and steps, in a fixed order (no atomics). Launches on the
-    current stream, no sync."""
+    and dstate (B,H,P,N) (None: zeros). x, b, c and dy fp32 or all bf16,
+    and dx, db, dc in their dtype; dt, a, h0, dstate, ddt, da and dh0 fp32.
+    Contiguous, on one CUDA device; bf16 x, b, c and dy start 16-byte
+    aligned (the kernels stage their rows in 16-byte loads). dh0 is None
+    when h0 is. db and dc sum over each group's heads, da over batch and
+    steps, in a fixed order (no atomics). Launches on the current stream,
+    no sync."""
     if x.dim() != 4 or b.dim() != 4 or b.shape != c.shape or dy.shape != x.shape:
         raise ValueError(f"want x = dy (B,S,H,P), b = c (B,S,G,N); got {tuple(x.shape)}, "
                          f"{tuple(dy.shape)}, {tuple(b.shape)}, {tuple(c.shape)}")
@@ -193,15 +213,23 @@ def ssd_scan_bwd(x, dt, a, b, c, h0, dy, dstate):
     if any(t is not None and t.shape != (bsz, h, p, n) for t in (h0, dstate)):
         raise ValueError(f"h0 and dstate must be {(bsz, h, p, n)}")
     ins = tuple(t for t in (x, dt, a, b, c, h0, dy, dstate) if t is not None)
-    if any(t.dtype != torch.float32 for t in ins):
-        raise TypeError(f"ssd_scan_bwd is fp32 only; got {[t.dtype for t in ins]}")
+    path = bwd_route(x.dtype)
+    fp32 = tuple(t for t in (dt, a, h0, dstate) if t is not None)
+    if any(t.dtype != x.dtype for t in (b, c, dy)) or any(t.dtype != torch.float32 for t in fp32):
+        raise TypeError("ssd_scan_bwd takes x, b, c, dy all fp32 or all bf16 and dt, a, h0, "
+                        f"dstate fp32; got {[t.dtype for t in ins]}")
     if not (x.is_cuda and all(t.device == x.device for t in ins)):
         raise ValueError("ssd_scan_bwd kernel needs every input on one CUDA device")
     if not all(t.is_contiguous() for t in ins):
         raise ValueError("ssd_scan_bwd kernel needs contiguous inputs")
+    if path == "bf16" and any(t.data_ptr() % 16 for t in (x, b, c, dy)):
+        raise ValueError("ssd_scan_bwd's bf16 route stages x, b, c and dy in 16-byte loads: "
+                         "each must start 16-byte aligned")
     npt, nc = -(-p // PT), -(-s // CHUNK)
-    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=x.device)   # noqa: E731
-    dx, ddt, da, db, dc = new(*x.shape), new(*dt.shape), new(h), new(*b.shape), new(*c.shape)
+    new = lambda *shape, dtype=torch.float32: torch.empty(   # noqa: E731
+        shape, dtype=dtype, device=x.device)
+    dx, ddt, da = new(*x.shape, dtype=x.dtype), new(*dt.shape), new(h)
+    db, dc = new(*b.shape, dtype=x.dtype), new(*c.shape, dtype=x.dtype)
     dh0 = None if h0 is None else new(*h0.shape)
     # the chunk states and their gradients, each chunk's cs_L, and each
     # unit's share of what sums over heads, p tiles, chunks or batch, which
@@ -211,22 +239,25 @@ def ssd_scan_bwd(x, dt, a, b, c, h0, dy, dstate):
     ddtp, dap = new(npt, bsz, s, h), new(npt, bsz, nc, h)
     ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
     with torch.cuda.device(x.device):
-        err = _bwd_fn()(*(ptr(t) for t in (x, dt, a, b, c, h0, dy, dstate, dx, ddt, da, db, dc,
+        err = _bwd_fn(path)(*(ptr(t) for t in (x, dt, a, b, c, h0, dy, dstate, dx, ddt, da, db, dc,
                                            dh0, states, dstates, decay, dbp, dcp, ddtp, dap)),
                         bsz, s, h, p, g, n, torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"ssd_scan_bwd launch failed: CUDA error {err}")
     ssd_scan_bwd.launches += 1
+    ssd_scan_bwd.launches_by_route[path] += 1
     return dx, ddt, da, db, dc, dh0
 
 
 ssd_scan_bwd.launches = 0
+ssd_scan_bwd.launches_by_route = dict.fromkeys(BWD_ROUTES, 0)
 
 
 class SSDScan(torch.autograd.Function):
-    """K3 (fp32) with K3-bwd as its gradient. Saves the inputs; the
-    backward recomputes the chunk states. Returns (y, final state), both
-    differentiable."""
+    """K3 with K3-bwd as its gradient: fp32, or bf16 (the forward on the
+    route ``route`` picks, the backward on K3-bwd's bf16 route). Saves the
+    inputs; the backward recomputes the chunk states. Returns (y, final
+    state), both differentiable."""
 
     @staticmethod
     def forward(ctx, x, dt, a, b, c, h0):

@@ -263,3 +263,105 @@ def test_bwd_plain_kv_len_matches_attend_ref(s, skv, h, kh, d):
     for bad in ({"causal": True}, {"causal": False, "window": 4}):
         with pytest.raises(ValueError, match="no causal mask"):
             ops.flash_attention_bwd_plain(tq, tk, tv, o.detach(), lse, tdo, **bad)
+
+
+# ---- the bf16 route (training at the reference's production dtypes) ------------
+
+BF16_TOL = 3e-2   # of each gradient's max |value|: JAX's bf16 attention rounds its scores
+
+
+def _bf16(rng, shape):
+    """Standard normals from numpy, rounded to bf16 once: the same values
+    for both packages (as bf16, or widened exactly)."""
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).bfloat16()
+
+
+def _attend_ref_grads(q, k, v, do, *, causal, window, softcap, scale, dtype):
+    """jax.vjp of the model's attention, ``repro.nn.attention.attend_ref``
+    (scores in the inputs' dtype, softmax in fp32), k and v expanded over
+    each kv head's query heads, on q, k, v, do (bf16 torch tensors) taken
+    in `dtype`: jnp.bfloat16, or jnp.float64 (under ``jax.enable_x64``)."""
+    b, s, h, _ = q.shape
+    skv = k.shape[1]
+    kind = "bidir" if not causal else ("local" if window else "global")
+    pos = lambda n: jnp.broadcast_to(jnp.arange(n), (b, n))   # noqa: E731
+
+    def attn(q, k, v):
+        rep = lambda x: jnp.repeat(x, h // x.shape[2], 2)   # noqa: E731
+        return jattention.attend_ref(q, rep(k), rep(v), pos(s), pos(skv), kind=kind,
+                                     window=window, scale=scale, softcap=softcap)
+    grads = jax.jit(lambda q, k, v, do: jax.vjp(attn, q, k, v)[1](do))
+    ins = [jnp.asarray(t.float().numpy()).astype(dtype) for t in (q, k, v, do)]
+    return [np.asarray(g, np.float64) for g in grads(*ins)]
+
+
+BF16_CASES = {
+    "d64_gqa5_ragged": (1, 77, 5, 1, 64, {}),
+    "d128_window": (1, 96, 4, 2, 128, {"window": 40}),
+    "d256_softcap": (1, 64, 2, 1, 256, {"softcap": 50.0}),
+    "d256_gqa5_window_softcap": (1, 65, 5, 1, 256, {"window": 20, "softcap": 50.0}),
+    "d128_kv_longer": (1, 40, 5, 1, 128, {"causal": False, "skv": 100}),
+    "d64_kv_shorter": (2, 70, 2, 1, 64, {"causal": False, "skv": 33}),
+}
+
+
+@pytest.mark.parametrize("case", list(BF16_CASES))
+def test_bf16_bwd_plain_matches_jax_vjp(case):
+    """K1-bwd's bf16 route, held on the CPU through its plain versions:
+    ``flash_attention_bwd_bf16_plain`` (P and dX rounded to bf16 before
+    their products, as the kernel rounds them) and
+    ``flash_attention_bwd_plain``, both on bf16 inputs and returning bf16,
+    against jax.vjp of ``attend_ref`` on the same bf16 inputs: dq, dk and
+    dv each within BF16_TOL of its max. Against jax.vjp in fp64 on the same
+    values, each plain version is no farther than twice JAX's bf16 result
+    is (in units of the fp64 gradient's max)."""
+    b, s, h, kh, d, kw = BF16_CASES[case]
+    kw = {"causal": True, "window": 0, "softcap": None, **kw}
+    skv = kw.pop("skv", s)
+    scale = d ** -0.5
+    rng = np.random.default_rng(19)
+    q, do = _bf16(rng, (b, s, h, d)), _bf16(rng, (b, s, h, d))
+    k, v = _bf16(rng, (b, skv, kh, d)), _bf16(rng, (b, skv, kh, d))
+    o = ops.flash_attention_plain(q, k, v, scale=scale, **kw)
+    lse = ops.flash_attention_lse_plain(q, k, scale=scale, **kw)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    rounded = ops.flash_attention_bwd_bf16_plain(q, k, v, o, lse, do, scale=scale, **kw)
+    plain = ops.flash_attention_bwd_plain(q, k, v, o, lse, do, scale=scale, **kw)
+    jb = _attend_ref_grads(q, k, v, do, scale=scale, dtype=jnp.bfloat16, **kw)
+    with jax.enable_x64(True):
+        j64 = _attend_ref_grads(q, k, v, do, scale=scale, dtype=jnp.float64, **kw)
+    dist = lambda g, ref: float(np.abs(np.asarray(g, np.float64) - ref).max()   # noqa: E731
+                                / np.abs(ref).max())
+    for name, r, p, jbf, j64_ in zip(("dq", "dk", "dv"), rounded, plain, jb, j64):
+        for got in (r, p):
+            assert got.dtype == torch.bfloat16 and got.shape == jbf.shape, name
+            assert dist(got.float().numpy(), jbf) <= BF16_TOL, name
+            assert dist(got.float().numpy(), j64_) <= 2 * dist(jbf, j64_), name
+
+
+@pytest.mark.parametrize("case", list(BF16_CASES))
+def test_bf16_lse_plain_matches_jax(case):
+    """K1's log-sum-exp, which its wgmma route now writes for the bf16
+    backward: ``flash_attention_lse_plain`` on bf16 inputs against JAX's
+    log-sum-exp of the same scores (the bf16 values widened to fp32, scaled,
+    capped and masked as K1 does), within 1e-4."""
+    b, s, h, kh, d, kw = BF16_CASES[case]
+    kw = {"causal": True, "window": 0, "softcap": None, **kw}
+    skv = kw.pop("skv", s)
+    scale = d ** -0.5
+    rng = np.random.default_rng(20)
+    q, k = _bf16(rng, (b, s, h, d)), _bf16(rng, (b, skv, kh, d))
+    got = ops.flash_attention_lse_plain(q, k, scale=scale, **kw)
+    jq = jnp.asarray(q.float().numpy())
+    jk = jnp.repeat(jnp.asarray(k.float().numpy()), h // kh, 2)
+    x = jnp.einsum("bqhd,bkhd->bhqk", jq, jk) * scale
+    if kw["softcap"]:
+        x = kw["softcap"] * jnp.tanh(x / kw["softcap"])
+    rows, cols = jnp.arange(s)[:, None], jnp.arange(skv)[None, :]
+    ok = jnp.ones((s, skv), bool)
+    if kw["causal"]:
+        ok &= cols <= rows
+    if kw["window"]:
+        ok &= (rows - cols) < kw["window"]
+    want = jax.nn.logsumexp(jnp.where(ok, x, -1e30), axis=-1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=1e-4)

@@ -293,9 +293,10 @@ def test_ssd_scan_kernel(cuda, b, s, h, p, n, g, dtype, with_h0):
 def test_flash_attention_kv_len_kernel(cuda, s, skv, h, kh, d, dtype):
     """Both routes of K1 with k and v of a length of their own (the
     encoder-decoder's cross-attention, unmasked); a causal mask with such a
-    length raises. Under autograd the fp32 call's gradients come from
-    K1-bwd, held to autograd of the plain version; bf16 raises (no bf16
-    K1 backward)."""
+    length raises. Under autograd the gradients come from K1-bwd: fp32
+    held to autograd of the plain version, bf16 (its bf16 route) to the
+    bf16 plain backward fed by the kernel's output and log-sum-exp."""
+    from repro_torch.kernels import flash_attention as tflash
     gen = torch.Generator(device=cuda).manual_seed(9)
     q = _rand(gen, (2, s, h, d), dtype, cuda)
     k, v = (_rand(gen, (2, skv, kh, d), dtype, cuda) for _ in range(2))
@@ -304,16 +305,19 @@ def test_flash_attention_kv_len_kernel(cuda, s, skv, h, kh, d, dtype):
     torch.testing.assert_close(got, want, atol=TOL[dtype], rtol=TOL[dtype])
     with pytest.raises(ValueError, match="no causal mask"):
         ops.flash_attention(q, k, v)
-    if dtype != torch.float32:
-        with pytest.raises(NotImplementedError, match="bf16 K1 backward"):
-            ops.flash_attention(q.requires_grad_(), k, v, causal=False)
-        return
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     do = _rand(gen, q.shape, dtype, cuda)
     ops.reset_launch_counts()
     got = torch.autograd.grad(ops.flash_attention(*leaves, causal=False), leaves, do)
     counts = ops.launch_counts()
     assert counts["flash_attention"] == 1 and counts["flash_attention_bwd"] == 1
+    if dtype != torch.float32:
+        o, lse = tflash.flash_attention(q, k, v, causal=False, return_lse=True)
+        want = ops.flash_attention_bwd_bf16_plain(q, k, v, o, lse, do, causal=False)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and g.dtype == torch.bfloat16
+            _close_bf16_grad(g, w)
+        return
     want = torch.autograd.grad(ops.flash_attention_plain(*leaves, causal=False), leaves, do)
     for g, w in zip(got, want):
         assert g.shape == w.shape
@@ -618,21 +622,25 @@ def test_rglru_scan_backward_plan(cuda, b, s, w):
 
 
 def test_kernels_without_a_backward_refuse_grad(cuda):
-    """K1's bf16 route, K2 and K3 in bf16 raise under autograd on the card
-    rather than return a tensor with no grad_fn; under no_grad they run."""
-    q = torch.randn(1, 64, 2, 64, device=cuda, dtype=torch.bfloat16, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="bf16 K1 backward"):
-        ops.flash_attention(q, q, q)
+    """K2 and K1 in bf16 at head_dim 16 (which no backward route takes)
+    raise under autograd on the card rather than return a tensor with no
+    grad_fn; under no_grad they run. K1 in bf16 at 64, 128 and 256 and K3
+    in bf16 (any route, here the CUDA-core one at P 16) record a graph."""
+    q16 = torch.randn(1, 64, 2, 16, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="head_dim 16"):
+        ops.flash_attention(q16, q16, q16)
     with torch.no_grad():
-        assert ops.flash_attention(q, q, q).grad_fn is None
+        assert ops.flash_attention(q16, q16, q16).grad_fn is None
+    for d in (64, 128, 256):
+        q = torch.randn(1, 64, 2, d, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+        assert ops.flash_attention(q, q, q).grad_fn is not None
     kv = torch.randn(1, 32, 2, 64, device=cuda, requires_grad=True)
     with pytest.raises(NotImplementedError, match="K2"):
         ops.decode_attention(kv[:, 0], kv, kv, torch.ones(1, dtype=torch.int32, device=cuda))
     x = torch.randn(1, 16, 2, 16, device=cuda, dtype=torch.bfloat16, requires_grad=True)
     dt = torch.rand(1, 16, 2, device=cuda)
     bm = torch.randn(1, 16, 1, 16, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="bf16 K3 backward"):
-        ops.ssd_scan(x, dt, -torch.ones(2, device=cuda), bm, bm)
+    assert ops.ssd_scan(x, dt, -torch.ones(2, device=cuda), bm, bm).grad_fn is not None
 
 
 @pytest.mark.parametrize("b,s,h,p,g,n,with_h0,with_dstate", [
@@ -703,6 +711,132 @@ def test_ssd_scan_bwd_tf32x3_kernel(cuda, b, s, h, p, n, g, with_h0, with_dstate
             continue
         assert torch.equal(g_, a_)
         _close_grad(g_, w_)
+
+
+BF16_GRAD_TOL = 1e-2   # of a bf16 gradient's largest |value|: 2.5 of its bf16 ulps
+
+
+def _close_bf16_grad(got, want):
+    """bf16 gradients agree within BF16_GRAD_TOL of the tensor's largest
+    |value|: both sides round P and dX (or nothing but the output) to bf16
+    from fp32 sums taken in other orders, so an element may land one bf16
+    ulp (2^-8 of itself) apart, and a P or dX that rounds the other way
+    moves a sum by one ulp of that term."""
+    scale = max(float(want.float().abs().max()), 1e-30)
+    torch.testing.assert_close(got.float(), want.float(), atol=BF16_GRAD_TOL * scale,
+                               rtol=BF16_GRAD_TOL)
+
+
+# the bf16 K1-bwd's cases: D 64, 128, 256; 5 query heads a kv head (qwen3's
+# 40/8); a window; softcap 50; S_kv != S unmasked; S off the 32-row tiles
+BF16_BWD_CASES = [
+    (4, 256, 40, 8, 128, {}),                       # qwen3-14b's train call
+    (2, 77, 5, 1, 64, {}),                          # ragged S
+    (2, 200, 10, 2, 256, {"window": 64}),
+    (2, 96, 4, 2, 128, {"softcap": 50.0}),
+    (2, 33, 4, 4, 64, {"window": 20, "softcap": 50.0}),
+    (1, 300, 2, 1, 256, {}),
+    (2, 65, 5, 1, 128, {"causal": False}),
+    (2, 40, 4, 2, 64, {"causal": False, "skv": 100}),    # S_kv > S
+    (1, 130, 2, 2, 256, {"causal": False, "skv": 33}),   # S_kv < S
+]
+
+
+@pytest.mark.parametrize("b,s,h,kh,d,kw", BF16_BWD_CASES)
+def test_flash_attention_bf16_backward_kernel(cuda, b, s, h, kh, d, kw):
+    """K1 in bf16 under autograd: its wgmma forward writes each row's
+    log-sum-exp (within 1e-4 of the plain version's), and the bf16 K1-bwd's
+    dq, dk, dv (bf16) match the bf16 plain backward with the kernel's
+    roundings within BF16_GRAD_TOL of each one's max; one launch of each, on
+    the wgmma and bf16 routes."""
+    from repro_torch.kernels import flash_attention as tflash
+    kw = {"causal": True, **kw}
+    skv = kw.pop("skv", s)
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    q = _rand(gen, (b, s, h, d), torch.bfloat16, cuda)
+    k, v = (_rand(gen, (b, skv, kh, d), torch.bfloat16, cuda) for _ in range(2))
+    do = _rand(gen, (b, s, h, d), torch.bfloat16, cuda)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ops.reset_launch_counts()
+    got = torch.autograd.grad(ops.flash_attention(*leaves, **kw), leaves, do)
+    assert ops.launch_counts()["flash_attention_bwd"] == 1
+    assert tflash.flash_attention.launches_by_route == {"wgmma": 1, "tf32x3": 0}
+    assert tflash.flash_attention_bwd.launches_by_route == {"tf32x3": 0, "bf16": 1}
+    o, lse = tflash.flash_attention(q, k, v, return_lse=True, **kw)
+    torch.testing.assert_close(lse, ops.flash_attention_lse_plain(q, k, **kw), atol=1e-4,
+                               rtol=1e-4)
+    want = ops.flash_attention_bwd_bf16_plain(q, k, v, o, lse, do, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        _close_bf16_grad(g, w)
+
+
+# K3-bwd's bf16 cases: mamba2's train call and the fp32 route's edges
+BF16_SSD_BWD_CASES = [
+    (4, 256, 80, 64, 128, 1, False, False),   # mamba2-2.7b's train call
+    (2, 200, 4, 16, 32, 2, True, True),       # ragged S, G < H, h0, d(final state)
+    (1, 37, 2, 80, 128, 2, True, False),      # under one chunk, two p tiles
+    (1, 64, 3, 64, 64, 3, False, True),       # G == H, one whole chunk, N 64
+    (2, 150, 16, 8, 16, 1, False, True),      # the reduced config
+    (1, 70, 2, 20, 12, 1, True, True),        # P and N off 8: the one-value staging
+]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,g,with_h0,with_dstate", BF16_SSD_BWD_CASES)
+def test_ssd_scan_bf16_backward_kernel(cuda, b, s, h, p, n, g, with_h0, with_dstate):
+    """K3 in bf16 under autograd runs K3 (on its route) and K3-bwd's bf16
+    route; dx, db, dc (bf16) match the plain backward on the same inputs
+    within BF16_GRAD_TOL of each one's max, ddt, da and dh0 (fp32) within
+    GRAD_TOL; two calls of the kernel give the same bits."""
+    from repro_torch.kernels import ssd_scan as tssd
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    x = (_rand(gen, (b, s, h, p), torch.float32, cuda) * 0.5).bfloat16()
+    dt = torch.nn.functional.softplus(_rand(gen, (b, s, h), torch.float32, cuda) - 2.0)
+    a = -torch.exp(_rand(gen, (h,), torch.float32, cuda) * 0.5 + 1.0)
+    bm, cm = ((_rand(gen, (b, s, g, n), torch.float32, cuda) * 0.3).bfloat16() for _ in range(2))
+    h0 = _rand(gen, (b, h, p, n), torch.float32, cuda) * 0.2 if with_h0 else None
+    dy = _rand(gen, (b, s, h, p), torch.bfloat16, cuda)
+    ds = _rand(gen, (b, h, p, n), torch.float32, cuda) if with_dstate else None
+    ins = [t.clone().requires_grad_() for t in (x, dt, a, bm, cm)]
+    hin = None if h0 is None else h0.clone().requires_grad_()
+    ops.reset_launch_counts()
+    y, st = ops.ssd_scan(*ins, h0=hin, return_state=True)
+    outs, grads_out = [y], [dy]
+    if ds is not None:
+        outs.append(st)
+        grads_out.append(ds)
+    leaves = ins + ([] if hin is None else [hin])
+    auto = torch.autograd.grad(outs, leaves, grads_out)
+    assert ops.launch_counts()["ssd_scan_bwd"] == 1
+    assert tssd.ssd_scan_bwd.launches_by_route == {"tf32x3": 0, "bf16": 1}
+    got = tssd.ssd_scan_bwd(x, dt, a, bm, cm, h0, dy, ds)
+    again = tssd.ssd_scan_bwd(x, dt, a, bm, cm, h0, dy, ds)
+    want = ops.ssd_scan_bwd_plain(x, dt, a, bm, cm, h0, dy, ds)
+    for name, g_, a_, w_ in zip(("dx", "ddt", "da", "db", "dc", "dh0"), got, again, want):
+        if w_ is None:
+            assert g_ is None
+            continue
+        assert torch.equal(g_, a_), name
+        assert g_.dtype == w_.dtype == (torch.bfloat16 if name in ("dx", "db", "dc")
+                                        else torch.float32), name
+        if name in ("dx", "db", "dc"):
+            _close_bf16_grad(g_, w_)
+        else:
+            _close_grad(g_, w_)
+    for g_, au in zip(got, auto):
+        assert torch.equal(g_, au)
+
+
+def test_ssd_scan_bf16_bwd_refuses_misaligned(cuda):
+    """K3-bwd's bf16 route stages x, b, c and dy in 16-byte loads: a view
+    that starts off a 16-byte boundary is refused before any launch."""
+    from repro_torch.kernels import ssd_scan as tssd
+    b, s, h, p, n = 1, 16, 2, 16, 16
+    x = torch.randn(b * s * h * p + 1, device=cuda).bfloat16()[1:].view(b, s, h, p)
+    dt, a = torch.rand(b, s, h, device=cuda), -torch.ones(h, device=cuda)
+    bm = torch.randn(b, s, 1, n, device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="16-byte"):
+        tssd.ssd_scan_bwd(x, dt, a, bm, bm, None, x, None)
 
 
 def test_train_step_on_card_matches_cpu(cuda):

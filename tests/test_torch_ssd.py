@@ -607,3 +607,49 @@ def test_ssm_initialisers_draw_the_jax_ranges():
     assert abs(float(torch.log(dt).mean()) - np.log(1e-2)) < 0.1   # log-uniform centre
     jdt = jax.nn.softplus(jssd.inits.dt_bias_init()(jax.random.PRNGKey(0), (4000,)))
     assert abs(float(jnp.log(jdt).mean()) - float(torch.log(dt).mean())) < 0.15
+
+
+@pytest.mark.parametrize("s,g,with_h0,with_dstate", [
+    (128, 1, False, False),   # two whole chunks, one group, no state
+    (100, 1, True, True),     # ragged S, h0 and d(final state)
+    (77, 2, True, False),     # G < H, ragged
+    (9, 2, False, True),      # S under one chunk, the d(final state) alone
+])
+def test_ssd_scan_bwd_plain_bf16_matches_jax_vjp(s, g, with_h0, with_dstate):
+    """K3-bwd's bf16 route, held on the CPU through its plain version:
+    ``ops.ssd_scan_bwd_plain`` on bf16 x, b, c and dy (dt, a, h0 and
+    d(final state) fp32), which returns dx, db and dc in bf16 and the rest
+    in fp32, against jax.vjp of ``repro.nn.ssd.ssd_chunked`` on the same
+    bf16 values (its chunk of 16): each gradient within 3e-2 of its max,
+    bf16's resolution, since JAX contracts C·Bᵀ and C·S_prev in bf16."""
+    b, h, p, n = 2, 4, 8, 16
+    d = _inputs(9, b, s, h, p, n, g, h0=with_h0)
+    rng = np.random.default_rng(10)
+    dy = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dstate = rng.standard_normal((b, h, p, n)).astype(np.float32) if with_dstate else None
+    bf = {"x", "b", "c"}
+    targs = {k: _t(d[k], torch.bfloat16 if k in bf else torch.float32)
+             for k in ("x", "dt", "a", "b", "c", "h0")}
+    tdy = _t(dy, torch.bfloat16)
+    got = ops.ssd_scan_bwd_plain(*targs.values(), tdy, _t(dstate))
+    names = ("dx", "ddt", "da", "db", "dc", "dh0")
+    for name, g_ in zip(names, got):
+        if name == "dh0" and not with_h0:
+            assert g_ is None
+            continue
+        assert g_.dtype == (torch.bfloat16 if name in ("dx", "db", "dc") else torch.float32)
+    keys = ("x", "dt", "a", "b", "c") + (("h0",) if with_h0 else ())
+
+    def fn(*args):
+        return jssd.ssd_chunked(*args[:5], 16, h0=args[5] if with_h0 else None)
+    jins = [jnp.asarray(targs[k].float().numpy()).astype(jnp.bfloat16 if k in bf else jnp.float32)
+            for k in keys]
+    (y, final), vjp = jax.vjp(fn, *jins)
+    jdy = jnp.asarray(tdy.float().numpy()).astype(jnp.bfloat16)
+    want = vjp((jdy, jnp.zeros_like(final) if dstate is None else _j(dstate)))
+    assert y.dtype == jnp.bfloat16
+    for name, g_, j in zip(names, got, want):
+        j = np.asarray(j, np.float32)
+        scale = float(np.abs(j).max())
+        np.testing.assert_allclose(g_.float().numpy(), j, atol=3e-2 * scale, rtol=0,
+                                   err_msg=name)

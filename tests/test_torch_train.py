@@ -125,7 +125,7 @@ def _params(jbundle, bundle):
                           for a, x in zip(starts, shapes)])
     flat = np.full(starts[-1], np.nan, np.float32)
     for name, where in params_from_jax(bundle.cfg, ids).items():
-        flat[where.numpy().ravel()] = sd[name].numpy().ravel()
+        flat[where.numpy().ravel()] = sd[name].float().numpy().ravel()   # bf16 widens exactly
     assert not np.isnan(flat).any()
     leaves = [jnp.asarray(flat[a:a + int(np.prod(x.shape))].reshape(x.shape), x.dtype)
               for a, x in zip(starts, shapes)]
@@ -476,9 +476,20 @@ def test_rglru_scan_bwd_plain(with_h0):
 
 
 def test_grad_guard_predicate():
-    """The guard that makes K1's bf16 route, K2 and K3 raise on the card
-    under autograd: grad mode on and some input requiring a gradient. On
-    the CPU the plain versions run and carry a grad_fn."""
+    """The guard that makes a kernel without a backward kernel for its
+    inputs raise on the card under autograd (K2; K1 in bf16 at head_dim 16):
+    grad mode on and some input requiring a gradient. K1 in fp32 at every
+    head_dim and in bf16 at 64, 128 and 256, and K3 in fp32 and bf16, have
+    backward routes (``bwd_route``) and record a graph there. On the CPU
+    the plain versions run and carry a grad_fn."""
+    from repro_torch.kernels import flash_attention as tflash
+    from repro_torch.kernels import ssd_scan as tssd
+    assert [tflash.bwd_route(torch.float32, d) for d in (16, 64, 128, 256)] == ["tf32x3"] * 4
+    assert [tflash.bwd_route(torch.bfloat16, d) for d in (16, 64, 128, 256)] == [
+        None, "bf16", "bf16", "bf16"]
+    assert tssd.bwd_route(torch.float32) == "tf32x3" and tssd.bwd_route(torch.bfloat16) == "bf16"
+    with pytest.raises(TypeError):
+        tssd.bwd_route(torch.float16)
     x = torch.zeros(2, requires_grad=True)
     y = torch.zeros(2)
     assert ops.needs_grad(y, x) and ops.needs_grad(None, x)
