@@ -320,7 +320,9 @@ log-sum-exp (held to LSE_BF16_TOL, 1e-4) and the bf16 K1-bwd against its
 plain version with its roundings (BF16_GRAD_TOL, 1e-2 of each gradient's
 max) at qwen3-14b's micro-batch call (4, 256, 40/8, 128), D 64, 128 and
 256, 5 query heads a kv head, a window, softcap 50, S_kv != S unmasked and
-the edges of its 32 x 32 tiles; K3-bwd's bf16 route at mamba2's train
+the edges of 32- and 64-row tiles, two calls at qwen3's call equal to the
+bit (its wgmma kernels sum each kv head's query heads in a fixed order);
+K3-bwd's bf16 route at mamba2's train
 call and the fp32 route's edges plus P and N off 8, each case run twice
 and held equal to the bit; each timed at its train call beside its bound
 (K1-bwd also beside SDPA's bf16 backward), with its registers and spills,
@@ -1569,7 +1571,8 @@ def bf16_kernel_phase(rows, bwd_ptxas):
     held equal to the bit), each timed at its train call beside its bound
     and, for K1-bwd, SDPA's bf16 backward. Adds the rows
     ``flash_attention_bwd_bf16`` and ``ssd_scan_bwd_bf16`` and K1's
-    ``qwen3_train_call``."""
+    ``qwen3_train_call``. K1-bwd at qwen3's call runs twice and is held
+    equal to the bit."""
     import torch.nn.functional as F
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import flash_attention as K1
@@ -1626,6 +1629,12 @@ def bf16_kernel_phase(rows, bwd_ptxas):
                 for g, x, w in zip(("dq", "dk", "dv"), got, want)]
         if (cb, cs, ch, ckh, cd) == qcall:
             k1_err = max(errs)
+            again = K1.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            same = all(torch.equal(x, y) for x, y in zip(got, again))
+            log(f"   {name}: a second call {'equal to the bit' if same else 'DIFFERS'}")
+            if not same:
+                raise AssertionError(f"{name}: two calls differ")
+            del again
         del q, k, v, do, o, lse, got, want
 
     # timing at qwen3's micro-batch call: K1 with its log-sum-exp, K1-bwd
@@ -1662,20 +1671,19 @@ def bf16_kernel_phase(rows, bwd_ptxas):
     ms = time_ms("K1-bwd bf16", bwd)
     plain_ms = time_ms("K1-bwd bf16 plain", lambda: ops.flash_attention_bwd_bf16_plain(
         q, k, v, o, lse, do, scale=sc), iters=5, warmup=1)
-    names = ("flash_bwd_bf16_delta", "flash_bwd_bf16_dkdv", "flash_bwd_bf16_reduce",
-             "flash_bwd_bf16_dq")
-    split = kernel_spans(bwd, names)
+    split = kernel_spans(bwd, K1.BWD_BF16_KERNELS)
     flops = 10 * cd * pairs * cb * ch                 # five products over the kept pairs
     nbytes = 2 * (4 * cb * cs * ch * cd + 4 * cb * cs * ckh * cd) + 4 * cb * ch * cs
     rows["flash_attention_bwd_bf16"] = r = dict(
-        name="flash_attention_bwd_bf16", route="cuda", variant="bf16 mma.sync.m16n8k16",
+        name="flash_attention_bwd_bf16", route="cuda",
+        variant="bf16 wgmma on TMA-fed 64-row tiles, GQA summed in the CTA",
         source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         replaces="src/repro/kernels/flash_attention.py:63", max_abs_err=k1_err, ms=ms,
         plain_ms=plain_ms, library_ms=lib_both - lib_fwd, library_fwd_and_bwd_ms=lib_both,
         library_fwd_ms=lib_fwd, kernel_split_ms=split, **bound(flops, nbytes, "bfloat16"),
-        tflops=flops / ms / 1e9, **bwd_ptxas["k1_bf16"])
+        tflops=flops / ms / 1e9, repeat_equal=True, **bwd_ptxas["k1_bf16"])
     log(f"   K1-bwd at {qcall} bf16, causal (qwen3-14b's micro-batch call in training) "
-        f"[bf16 mma.sync; {' '.join(f'{k_} {v_}' for k_, v_ in bwd_ptxas['k1_bf16'].items())}]"
+        f"[bf16 wgmma; {' '.join(f'{k_} {v_}' for k_, v_ in bwd_ptxas['k1_bf16'].items())}]"
         f": kernel_ms {ms:.4f} ({r['tflops']:.1f} TFLOP/s) plain_ms {plain_ms:.4f} library_ms "
         f"{r['library_ms']:.4f} (SDPA bf16 with enable_gqa: forward and backward "
         f"{lib_both:.4f} less forward {lib_fwd:.4f}) bound_ms {r['bound_ms']:.4f} "
@@ -4980,8 +4988,8 @@ def main():
         for entry in rep.split("Compiling entry function")[1:]:
             # the bf16 backward routes: K1-bwd's kernels, one line a kernel
             # and head_dim, and K3-bwd's bf16 instantiations
-            found = re.search(r"flash_bwd_bf16_(dkdv|dq)_kernelILi(\d+)E|"
-                              r"flash_bwd_bf16_(delta|reduce)_kernel|"
+            found = re.search(r"flash_bwd_wgmma_(dkdv|dq)_kernelILi(\d+)E|"
+                              r"flash_bwd_bf16_(delta)_kernel|"
                               r"ssd_bwd_(\w+?)_kernelI13__nv_bfloat16E", entry)
             if found:
                 used = int(re.search(r"Used (\d+) registers", entry).group(1))
@@ -4995,7 +5003,8 @@ def main():
                 else:
                     short = found.group(1) or found.group(3)
                     at = f"<{found.group(2)}>" if found.group(2) else ""
-                    log(f"   flash_bwd_bf16_{short}_kernel{at}: {used} registers, {spill} bytes "
+                    kind = "wgmma" if found.group(2) else "bf16"
+                    log(f"   flash_bwd_{kind}_{short}_kernel{at}: {used} registers, {spill} bytes "
                         "of spill stores")
                     if found.group(2) in (None, "128"):   # qwen3-14b's head_dim
                         bwd_ptxas["k1_bf16"].update({f"registers_{short}": used,

@@ -1,6 +1,7 @@
 // K1-bwd: the gradient of causal flash attention, hand-written for Hopper
 // (sm_90a), fp32 in and out, its products on the tensor cores as 3xTF32;
-// and a bf16 route (namespace `bf`, below) for training in bf16.
+// and a bf16 route (namespace `bf`, below: `wgmma` on TMA-fed 64-row tiles)
+// for training in bf16.
 //
 // The TPU kernel `repro/kernels/flash_attention.py::flash_attention` has no
 // backward: the JAX package differentiates its plain attention
@@ -112,6 +113,7 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <mutex>
 
 #include "hopper.cuh"
 #include "mma_tf32.cuh"
@@ -515,488 +517,645 @@ int launch(const float* q, const float* k, const float* v, const float* o, const
   return (int)cudaGetLastError();
 }
 
-// ---- the bf16 route (D 64, 128 and 256) ---------------------------------------
+// ---- the bf16 route (D 64, 128 and 256): wgmma on TMA-fed 64-row tiles ------
 //
-// What the fp32 kernels compute, for the bf16 forward's wgmma route: the
-// same grid, tiles, warp roles, walks, fixed-order sums and masks, with
-// bf16 operands on the tensor cores as `mma.sync.m16n8k16` (bf16 in, fp32
-// accumulators). Q, K, V and dO stay bf16 in shared memory, rows padded to
-// D + 8 values (16 bytes), so that every `ldmatrix` row starts 16-byte
-// aligned and a phase's 8 rows fall on distinct banks; an operand that the
-// product reads along its rows (K, Q, dO, V in the score products, P^T, dX^T
-// and dX as A) loads by plain `ldmatrix`, one read along its columns (dO
-// and Q in dV and dK, K in dQ, as B[k][n] from a (k, n) tile) by
-// `ldmatrix.trans`. The softmax recompute, the softcap's derivative, the
-// mask and Delta stay fp32. P is rounded to bf16 before dV += P^T dO and dX
-// before dK += dX^T Q and dQ += dX K, as the forward rounds P before P V;
-// dP goes from the dP warps to the S warps through an fp32 tile, so dX is
-// formed from the unrounded P and dP. dQ is stored in bf16; dK and dV in
-// bf16 with KH == H, else each query head's share in fp32 to the workspace,
-// which the reduce kernel sums per kv head and rounds once. Shared memory
-// (dK/dV kernel) at D 256: K, V and two stages of Q and dO (6 x 16.9 KB),
-// P^T and dX^T (2 x 2.5 KB), dP (4.6 KB) and the stats, 111 KB; the dQ
-// kernel the same. A simple kernel, right first: no TMA, no wgmma, one CTA
-// of 16 warps an SM.
+// What the fp32 kernels compute, for the bf16 forward's wgmma route, with
+// bf16 operands on the tensor cores as `wgmma` m64 (bf16 in, fp32
+// accumulators) and the roundings of the plain version
+// (`ops.flash_attention_bwd_bf16_plain`): P rounded to bf16 before dV +=
+// P^T dO; dX formed from the unrounded P and dP, then rounded before dK +=
+// dX^T Q and dQ += dX K; dK and dV summed over a kv head's query heads in
+// fp32 and rounded once. The softmax recompute, the softcap's derivative,
+// the mask and Delta stay fp32.
 //
 // Bound on the H100 SXM at qwen3-14b's training call (a micro-batch of 4 x
 // 256, 40 query heads on 8 kv heads of 128, causal): five products over
 // the 32896 pairs of each (batch, head), 6.74 GFLOP, 6.8 us at 989 TFLOP/s;
 // q, o, dO, dQ (10.5 MB each), k, v, dK, dV (2.1 MB each) and lse, 50.5
 // MB, 15.1 us at 3.35 TB/s: bound by the bytes.
+//
+// Every operand is a tile that TMA loads as 64-row slabs of 64 features,
+// 128-byte swizzled (`hopper::tma_map_bshd`). The score products (S^T = K
+// Q^T and dP^T = V dO^T in the dK/dV kernel, S = Q K^T and dP = dO V^T in
+// the dQ kernel) read both operands K-major from shared memory. In the
+// D-wide products (dV += P^T dO, dK += dX^T Q, dQ += dX K) A is a score
+// accumulator packed to bf16 pairs in registers (the accumulator's
+// fragment is wgmma's A fragment) and B (dO, Q or K) is read MN-major from
+// the same swizzled tile, as the forward reads V. So P, dP and dX never
+// leave registers: no shared-memory tile, no transposed copy, no barrier
+// between warps inside a step.
+//
+// Kernels launched by one C call:
+// 1. `flash_bwd_bf16_delta_kernel`: Delta = dO . O per query row, D / 8
+//    lanes a row reading 16 bytes each, into the stats workspace (B, H, 2,
+//    S64) fp32 beside a copy of the forward's lse (S64: S rounded up to 64
+//    rows, the rows past S zero), so that a 64-row tile's lse and Delta
+//    arrive by two 256-byte bulk copies beside its tiles.
+// 2. `flash_bwd_wgmma_dkdv_kernel<D>`: one CTA per (64-key tile, kv head,
+//    batch); at D 256 two CTAs a key tile, each writing 128 features of dK
+//    and dV and recomputing the scores. K and V stay in shared memory. The
+//    CTA walks the G = H / KH query heads of its kv head in order, each
+//    over the query tiles the mask lets see its keys. Its two consumer
+//    warpgroups take the walk's steps in turn (steps 0, 2, 4, ... and 1, 3,
+//    5, ...), each with its own ring of Q, dO, lse and Delta stages (two at
+//    D 64 and 128, one at D 256) that its first thread refills by TMA once
+//    the warpgroup's four warps are done with a stage (a named barrier),
+//    and each keeps dK and dV of the 64 keys in fp32 registers over all its
+//    steps. At the end the second warpgroup hands its sums to the first
+//    through its own stages; the first adds them (first + second: a fixed
+//    order, so two calls give the same bits) and writes bf16 dK and dV
+//    once. No workspace, no reduce kernel, no atomics.
+// 3. `flash_bwd_wgmma_dq_kernel<D>`: one CTA of one warpgroup per (64
+//    query rows, query head, batch), the last tiles (which walk the most
+//    keys) first. Q, dO, lse and Delta stay in shared memory; the key
+//    tiles the forward walks stream in by TMA through two stages of K and
+//    V, the next but one issued once the warpgroup is done with a stage.
+//    dQ stays in fp32 registers and is written once in bf16.
+// The dK/dV and dQ kernels need only Delta's stats, not each other: the
+// dK/dV kernel runs on a stream of the highest priority beside the
+// caller's, forked after the Delta kernel and joined back, so that its
+// CTAs take their SMs first and the dQ CTAs fill the SMs that its lighter
+// key tiles leave (under the causal mask key tile 0 walks 4 query tiles a
+// head at qwen3's call, tile 3 one). Tiles wholly outside the mask are not
+// visited; only tiles that cross the diagonal, the window's edge, S or
+// S_kv compute the mask, chosen with the softcap outside the loop over a
+// fragment's 32 elements, which is then straight-line code.
+//
+// The CTA plan at qwen3's call: 128 dK/dV CTAs for 132 SMs, the heaviest
+// (key tile 0: 4 query tiles x 5 heads) 10 steps a warpgroup, the lightest
+// 5 steps in all. Two warpgroups of one CTA split its steps, which halves
+// the longest walk and overlaps one warpgroup's softmax with the other's
+// products; a split of the heads over CTAs would need the GQA sum in a
+// workspace and a second pass, which is what this design removes. The dQ
+// grid is 640 CTAs, two an SM, on the SMs the dK/dV kernel leaves.
+// Registers: dK and dV of 64 keys x 128 features take 128 a thread, the
+// two score accumulators 64, P and dX packed 32; 256 threads a CTA allow
+// 255 a thread, so neither setmaxnreg nor a producer warp is needed (a TMA
+// issue costs its thread a few instructions), and no room is left to hold
+// K and V as register operands. At D 256 dK and dV of 256 features would
+// need 256 a thread, hence the two CTAs a key tile.
+// Shared memory: dK/dV at D 128 K and V 32 KB, four Q/dO stages 128 KB,
+// their stats 2 KB, 163 KB (D 256: two stages, 194 KB; D 64 82 KB): one
+// CTA an SM. dQ at D 128: Q, dO and two K/V stages, 97 KB, two CTAs an SM
+// (D 256 193 KB, one).
+// Where the time goes at qwen3's call (tools/k1_bwd_variants.py --bf16,
+// copies of this source with one piece taken out): the Delta kernel a
+// sixth; the D-wide products (and the P and dX work that only they use) a
+// quarter; the score products an eighth (each m64n64k16 reads both
+// operands from shared memory, 4 KB in 32 tensor-core cycles, the SM's
+// shared-memory rate); the P and dX arithmetic a few percent; the rest is
+// loads, prologues and tails that the two kernels do not hide.
 
 namespace bf {
 
 using bf16 = __nv_bfloat16;
 
-template <int D>
-constexpr int RP = D + 8;        // bf16 values a staged row of Q, K, V, dO
-constexpr int SPB = BQ + 8;      // bf16 values a row of the P^T, dX^T and dX tiles
-constexpr int SPF = 36;          // floats a row of the dP exchange tile
+constexpr int BM = 64;          // query rows of a tile, keys of a key tile: one wgmma m64
+constexpr int CONSUMERS = 2;    // warpgroups of a dK/dV CTA, taking its steps in turn
+constexpr int WG = 128;         // threads a warpgroup
+constexpr int SLAB = BM * 128;  // bytes of a 64-row slab of 64 features
+constexpr int STATS = 2 * BM * (int)sizeof(float);   // bytes of a tile's lse and Delta
 
 template <int D>
-struct Tb {
-  static constexpr int P = RP<D>;
-  static constexpr int TILE = 32 * P;                 // bf16 values of one 32-row tile
-  static constexpr int NB = 4;                        // n-blocks of a D-wide product
-  static constexpr int NTW = D / (8 * NB);            // n-tiles of 8 dims a warp
-  static constexpr int KS_DQ = 16 / (2 * NB);         // k-splits of dQ: 16 warps on it
-  // Q, dO, K and V tiles; two bf16 32 x SPB tiles (P^T and dX^T, or dX and
-  // spare); the dP tile; lse and Delta of two stages
-  static constexpr int SMEM = (int)(sizeof(bf16) * (6 * TILE + 2 * 32 * SPB) +
-                                    sizeof(float) * (32 * SPF + 4 * BQ));
-  static_assert(D % 64 == 0 && BQ == 32 && BKV == 32 && NT == 512,
-                "the warp layout assumes these");
-  // dQ's second k-split goes through the K/V stages, read as fp32 tiles of
-  // 32 x row_pitch<D>
-  static_assert(KS_DQ == 2 && 4 * TILE * (int)sizeof(bf16) >=
-                                  32 * row_pitch<D> * (int)sizeof(float),
-                "no room to sum dQ's k-splits");
+struct Cfg {
+  static constexpr int NS = D / 64;                 // slabs a row
+  static constexpr int DV = D > 128 ? 128 : D;      // dK/dV features a CTA, dQ's a product
+  static constexpr int NSPLIT = D / DV;             // dK/dV CTAs a key tile
+  static constexpr int TILE = NS * SLAB;            // bytes of a 64-row tile
+  static constexpr int NST = D > 128 ? 2 : 4;       // Q/dO stages, NST / CONSUMERS each
+  // dK/dV: 1024 bytes to align the slabs, K, V, the stages, their stats,
+  // the K/V barrier and one a stage
+  static constexpr int SMEM_DKDV = 1024 + 2 * TILE + NST * (2 * TILE + STATS) + 8 * (1 + NST);
+  // dQ: Q, dO, two stages of K and V, the rows' stats, three barriers
+  static constexpr int SMEM_DQ = 1024 + 6 * TILE + STATS + 8 * 3;
+  static_assert(D % 64 == 0 && CONSUMERS == 2 && NST % CONSUMERS == 0,
+                "the layout assumes these");
+  // the second consumer hands its dK and dV sums over through its stages
+  static_assert(NST / CONSUMERS * 2 * TILE >= 2 * BM * DV * (int)sizeof(float),
+                "no room to hand the sums over");
+  static_assert(SMEM_DKDV <= 232448 && SMEM_DQ <= 232448, "over the SM's shared memory");
 };
-
-// ---- the tensor-core product and its fragments (each PTX instruction in a
-// helper of its own) ----
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-__device__ __forceinline__ void ldsm4(const bf16* p, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(hopper::smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm2(const bf16* p, uint32_t (&r)[2]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(hopper::smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm2_trans(const bf16* p, uint32_t (&r)[2]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(hopper::smem_u32(p)));
-}
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src, bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(hopper::smem_u32(dst)),
-               "l"(src), "r"(in ? 16 : 0)
-               : "memory");
-}
-
-// A (16 x 16) from a row-major (m, k) tile at `s`: rows g, g + 8 and
-// columns 2 t, 2 t + 1 (+ 8) of lane 4 g + t, as four ldmatrix matrices
-// (rows 0-7 and 8-15 at columns 0 and 8)
-__device__ __forceinline__ void load_a(const bf16* s, int pitch, int lane, uint32_t (&a)[4]) {
-  const int m = lane / 8;
-  ldsm4(s + (lane % 8 + 8 * (m & 1)) * pitch + 8 * (m >> 1), a);
-}
-// B[k][n] (16 x 8) from a row-major (n, k) tile: rows k 2 t, 2 t + 1 (+ 8)
-// of column n g, as two ldmatrix matrices (columns 0 and 8 of 8 rows)
-__device__ __forceinline__ void load_b_nk(const bf16* s, int pitch, int lane, uint32_t (&b)[2]) {
-  ldsm2(s + (lane % 8) * pitch + 8 * ((lane / 8) & 1), b);
-}
-// B[k][n] (16 x 8) from a row-major (k, n) tile: rows 0-7 and 8-15,
-// transposed by ldmatrix
-__device__ __forceinline__ void load_b_kn(const bf16* s, int pitch, int lane, uint32_t (&b)[2]) {
-  ldsm2_trans(s + (lane % 16) * pitch, b);
-}
-
-// A warp's m16n8 tile of A.B^T over D columns (A rows at `a`, B rows at
-// `b`, both (row, d) of pitch RP<D>), in two accumulator chains; element
-// i is row g + 8 (i / 2), column 2 t + i % 2
-template <int D>
-__device__ __forceinline__ void score_tile(const bf16* a, const bf16* b, int lane, float (&x)[4]) {
-  constexpr int P = RP<D>;
-  float c0[4] = {}, c1[4] = {};
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t fa[4], fb[2];
-    load_a(a + kk * 16, P, lane, fa);
-    load_b_nk(b + kk * 16, P, lane, fb);
-    if (kk & 1)
-      mma_bf16(c1, fa, fb);
-    else
-      mma_bf16(c0, fa, fb);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) x[i] = c0[i] + c1[i];
-}
-
-// rows r0 .. r0 + 31 of a (B, S, heads, D) bf16 tensor at (b, head) (`src`
-// its row 0) into a tile of rows of RP<D>, zeros past S
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ src, int r0, int S,
-                                          long stride) {
-  constexpr int CPR = D / 8;   // 16-byte copies a row
-  for (int i = threadIdx.x; i < 32 * CPR; i += NT) {
-    const int r = i / CPR, c = (i % CPR) * 8, row = r0 + r;
-    const bool in = row < S;
-    cp_async16(dst + r * RP<D> + c, src + (long)(in ? row : 0) * stride + c, in);
-  }
-}
 
 __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// Delta_i = dO_i . O_i (bf16 rows, fp32 sum) into (B, H, S): one warp a
-// (b, s, h) row
+// Whether the 64 x 64 tile at query row q0 and key k0 needs the mask
+__device__ __forceinline__ bool edge_of(int q0, int k0, int S, int Skv, int causal, int window) {
+  return q0 + BM > S || k0 + BM > Skv || (causal && k0 + BM - 1 > q0) ||
+         (window > 0 && q0 + BM - 1 - k0 >= window);
+}
+
+// acc (64 x 64, fp32) = X (64 x D) . Y^T (D x 64) for 64-row tiles X and Y
+// at shared addresses x and y, both K-major: D / 16 wgmma k-steps, four a
+// slab, 32 bytes apart; issued, not waited for
+template <int D>
+__device__ __forceinline__ void score(float (&acc)[32], uint32_t x, uint32_t y) {
+#pragma unroll
+  for (int j = 0; j < D / 16; ++j)
+    hopper::wgmma_m64n64k16_ss(
+        acc, hopper::desc_sw128(x + (j / 4) * SLAB + (j % 4) * 32, 16, 1024),
+        hopper::desc_sw128(y + (j / 4) * SLAB + (j % 4) * 32, 16, 1024), j > 0);
+}
+
+// acc (64 x N, fp32) += A (64 x 64: four k16 blocks of bf16 pairs in
+// registers) . B (64 rows x N features, N 64 or 128, MN-major from the
+// slabs of a 64-row tile at shared address b); issued, not waited for
+template <int N>
+__device__ __forceinline__ void wide(float (&acc)[N / 2], const uint32_t (&a)[4][4], uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = hopper::desc_sw128(b + kk * 16 * 128, SLAB, 1024);
+    if constexpr (N == 128)
+      hopper::wgmma_m64n128k16_rs_tb(acc, a[kk], db);
+    else
+      hopper::wgmma_m64n64k16_rs_tb(acc, a[kk], db);
+  }
+}
+
+// exp(x) as 2^(x log2 e) on the special-function unit (ex2.approx.ftz:
+// about 2^-22 relative error, results under 2^-126 flushed to zero), as the
+// forward's __expf computes P
+__device__ __forceinline__ float exp_sfu(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * 1.4426950408889634f));
+  return y;
+}
+
+// P and dX of a 64 x 64 score tile from the accumulators s (the logits,
+// unscaled) and dp (dO . V), packed to bf16 pairs as wgmma's A: element i
+// of this thread is at tile row r0 + 8 ((i / 2) % 2), column 8 (i / 4) + 2
+// (lane % 4) + i % 2. KEYS_ROWS: rows are keys and columns query rows (the
+// dK/dV kernel), else the other way round. stat(row) gives a query row's
+// lse and Delta (`row` within the tile). What p_of computes (its
+// exponential on the SFU), with the softcap (CAP) and the mask (EDGE)
+// chosen outside the loop and the mask as a select, so that the 32
+// elements are one block of straight-line code that the compiler can
+// interleave.
+template <bool KEYS_ROWS, bool EDGE, bool CAP, typename Stat>
+__device__ __forceinline__ void p_and_dx_tile(const float (&s)[32], const float (&dp)[32], int r0,
+                                              int lane, int q0, int k0, int S, int Skv,
+                                              float scale, int causal, int window, float softcap,
+                                              Stat stat, uint32_t (&pa)[4][4],
+                                              uint32_t (&xa)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {
+    float p[2], dx[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = r0 + 8 * ((i / 2) % 2), c = 8 * (i / 4) + 2 * (lane % 4) + e;
+      const int row = KEYS_ROWS ? c : r, key = KEYS_ROWS ? r : c;
+      float l, del;
+      stat(row, l, del);
+      float x = s[i + e] * scale, dxdt = 1.f;
+      if constexpr (CAP) {
+        const float th = tanhf(x / softcap);
+        x = softcap * th;
+        dxdt = 1.f - th * th;
+      }
+      p[e] = exp_sfu(x - l);
+      if constexpr (EDGE) {
+        const int qr = q0 + row, kc = k0 + key;
+        const bool ok = (qr < S) & (kc < Skv) & (!causal | (kc <= qr)) &
+                        ((window <= 0) | (qr - kc < window));
+        p[e] = ok ? p[e] : 0.f;
+      }
+      dx[e] = p[e] * (dp[i + e] - del) * dxdt;
+    }
+    pa[i / 8][(i % 8) / 2] = hopper::pack_bf16(p[0], p[1]);
+    xa[i / 8][(i % 8) / 2] = hopper::pack_bf16(dx[0], dx[1]);
+  }
+}
+
+template <bool KEYS_ROWS, typename Stat>
+__device__ __forceinline__ void p_and_dx(const float (&s)[32], const float (&dp)[32], int r0,
+                                         int lane, int q0, int k0, int S, int Skv, bool edge,
+                                         float scale, int causal, int window, float softcap,
+                                         Stat stat, uint32_t (&pa)[4][4], uint32_t (&xa)[4][4]) {
+#define K1_BWD_TILE(E, CAP)                                                                       \
+  p_and_dx_tile<KEYS_ROWS, E, CAP>(s, dp, r0, lane, q0, k0, S, Skv, scale, causal, window,       \
+                                   softcap, stat, pa, xa)
+  if (softcap > 0.f) {
+    if (edge)
+      K1_BWD_TILE(true, true);
+    else
+      K1_BWD_TILE(false, true);
+  } else {
+    if (edge)
+      K1_BWD_TILE(true, false);
+    else
+      K1_BWD_TILE(false, false);
+  }
+#undef K1_BWD_TILE
+}
+
+// Each query row's lse and Delta into stats (B, H, 2, S64): [.., 0, s] the
+// forward's lse, [.., 1, s] Delta = dO . O (bf16 rows, fp32 sum), zeros for
+// S <= s < S64. D / 8 lanes a (b, s, h) row, 16 bytes each of o and dO.
 __global__ void __launch_bounds__(256)
 flash_bwd_bf16_delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
-                            float* __restrict__ delta, int B, int S, int H, int D) {
-  const long row = (long)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;   // (b, s, h)
-  const int lane = threadIdx.x % 32;
-  if (row >= (long)B * S * H) return;
-  const bf16* orow = o + row * D;
-  const bf16* drow = dout + row * D;
+                            const float* __restrict__ lse, float* __restrict__ stats, int B,
+                            int S, int S64, int H, int D) {
+  const int lpr = D / 8;   // lanes a row: 8, 16 or 32, so a row's lanes share a warp
+  const long row = ((long)blockIdx.x * blockDim.x + threadIdx.x) / lpr;   // (b, s, h)
+  const int part = threadIdx.x % lpr;
+  const int h = (int)(row % H);
+  const long bs = row / H;
+  const int s = (int)(bs % S64), b = (int)(bs / S64);
+  const bool live = row < (long)B * S64 * H, in = live && s < S;
   float sum = 0.f;
-  for (int d = lane; d < D; d += 32)
-    sum = fmaf(__bfloat162float(orow[d]), __bfloat162float(drow[d]), sum);
+  if (in) {
+    const long off = (((long)b * S + s) * H + h) * D + part * 8;
+    const uint4 ov = *reinterpret_cast<const uint4*>(o + off);
+    const uint4 dv = *reinterpret_cast<const uint4*>(dout + off);
+    const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(&ov);
+    const __nv_bfloat162* dp = reinterpret_cast<const __nv_bfloat162*>(&dv);
 #pragma unroll
-  for (int off = 16; off > 0; off /= 2) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-  if (lane == 0) {
-    const int h = (int)(row % H);
-    const long bs = row / H;
-    const int s = (int)(bs % S), b = (int)(bs / S);
-    delta[((long)b * H + h) * S + s] = sum;
+    for (int j = 0; j < 4; ++j) {
+      const float2 a = __bfloat1622float2(op[j]), c = __bfloat1622float2(dp[j]);
+      sum = fmaf(a.x, c.x, sum);
+      sum = fmaf(a.y, c.y, sum);
+    }
+  }
+  for (int off = lpr / 2; off > 0; off /= 2) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (live && part == 0) {
+    float* st = stats + ((long)b * H + h) * 2 * S64;
+    st[s] = in ? lse[((long)b * H + h) * S + s] : 0.f;
+    st[S64 + s] = sum;
   }
 }
 
-// dK and dV of keys k0 .. k0 + 31 from query head h alone: into dk and dv
-// (bf16, (B, S_kv, KH, D)) when KH == H (dkh null), else into the fp32
-// shares dkh and dvh (B, S_kv, H, D) that flash_bwd_bf16_reduce_kernel sums
 template <int D>
-__global__ void __launch_bounds__(NT, 1)
-flash_bwd_bf16_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                           const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                           const float* __restrict__ lse, const float* __restrict__ delta,
-                           bf16* __restrict__ dk, bf16* __restrict__ dv, float* __restrict__ dkh,
-                           float* __restrict__ dvh, int B, int S, int Skv, int H, int KH,
-                           float scale, int causal, int window, float softcap) {
-  using C = Tb<D>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sk = reinterpret_cast<bf16*>(smem_raw);   // [BKV][P]
-  bf16* sv = sk + C::TILE;                          // [BKV][P]
-  bf16* sq = sv + C::TILE;                          // [2][BQ][P]
-  bf16* sdo = sq + 2 * C::TILE;                     // [2][BQ][P]
-  bf16* spt = sdo + 2 * C::TILE;                    // [BKV][SPB]: P^T
-  bf16* sdxt = spt + BKV * SPB;                     // [BKV][SPB]: dX^T
-  float* sdp = reinterpret_cast<float*>(sdxt + BKV * SPB);   // [BKV][SPF]: dP^T
-  float* sl = sdp + BKV * SPF;                      // [2][BQ]
-  float* sdel = sl + 2 * BQ;                        // [2][BQ]
+__global__ void __launch_bounds__(CONSUMERS * WG, 1)
+flash_bwd_wgmma_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tdo,
+                            const float* __restrict__ stats, bf16* __restrict__ dk,
+                            bf16* __restrict__ dv, int S, int Skv, int S64, int H, int KH,
+                            float scale, int causal, int window, float softcap) {
+  using C = Cfg<D>;
+  constexpr int HALF = C::NST / CONSUMERS;   // stages a consumer
+  constexpr int DV = C::DV;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  const uint32_t sk = (raw + 1023u) & ~1023u, sv = sk + C::TILE;
+  const uint32_t ring = sv + C::TILE;                   // stage t: Q, then dO, at ring + 2 t TILE
+  const uint32_t sstat = ring + C::NST * 2 * C::TILE;   // stage t: lse, then Delta, at + t STATS
+  const uint32_t kvbar = sstat + C::NST * STATS, full0 = kvbar + 8;
+  const float* stat_f = reinterpret_cast<const float*>(smem_raw + (sstat - raw));
 
-  const int h = blockIdx.x % H, b = (blockIdx.x / H) % B;
-  const int k0 = (int)(blockIdx.x / ((unsigned)H * B)) * BKV;
-  const int kh = h / (H / KH);
-  const long qs = (long)H * D, ks = (long)KH * D;
-  const bf16* qb = q + (long)b * S * qs + (long)h * D;
-  const bf16* db = dout + (long)b * S * qs + (long)h * D;
-  const float* lb = lse + ((long)b * H + h) * S;
-  const float* eb = delta + ((long)b * H + h) * S;
+  const int tid = threadIdx.x, wg = tid / WG, wtid = tid % WG, lane = tid % 32;
+  const int split = (int)blockIdx.x % C::NSPLIT, k0 = (int)blockIdx.x / C::NSPLIT * BM;
+  const int kh = blockIdx.y, b = blockIdx.z, G = H / KH;
   const int q_begin = causal ? k0 : 0;
-  const int q_end = window > 0 ? min(S, k0 + BKV - 1 + window) : S;
+  const int q_end = window > 0 ? min(S, k0 + BM - 1 + window) : S;
+  const int n_q = (q_end - q_begin + BM - 1) / BM;   // query tiles a head
+  const int n = G * n_q;                              // steps of the walk
+  const int m = n > wg ? (n - wg + CONSUMERS - 1) / CONSUMERS : 0;   // this consumer's
 
-  load_tile<D>(sk, k + (long)b * Skv * ks + (long)kh * D, k0, Skv, ks);
-  load_tile<D>(sv, v + (long)b * Skv * ks + (long)kh * D, k0, Skv, ks);
-  load_tile<D>(sq, qb, q_begin, S, qs);
-  load_tile<D>(sdo, db, q_begin, S, qs);
-  load_stats(sl, sdel, lb, eb, q_begin, S);
-  cp_async_commit();
+  // step l of this consumer: walk step wg + CONSUMERS l, its head and first row
+  auto step_of = [&](int l, int& h, int& q0) {
+    const int i = wg + CONSUMERS * l;
+    h = kh * G + i / n_q;
+    q0 = q_begin + (i % n_q) * BM;
+  };
+  auto issue = [&](int l) {
+    int h, q0;
+    step_of(l, h, q0);
+    const int t = wg * HALF + l % HALF;
+    const uint32_t bar = full0 + 8 * t, dst = ring + 2 * t * C::TILE;
+    hopper::mbar_arrive_expect_tx(bar, 2 * C::TILE + STATS);
+#pragma unroll
+    for (int s = 0; s < C::NS; ++s) {
+      hopper::tma_load_4d(dst + s * SLAB, &tq, bar, 64 * s, h, q0, b);
+      hopper::tma_load_4d(dst + C::TILE + s * SLAB, &tdo, bar, 64 * s, h, q0, b);
+    }
+    const float* src = stats + ((long)b * H + h) * 2 * S64 + q0;
+    hopper::bulk_load(sstat + t * STATS, src, BM * 4, bar);
+    hopper::bulk_load(sstat + t * STATS + BM * 4, src + S64, BM * 4, bar);
+  };
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int wm = warp & 1;                     // keys wm * 16 .. of the tile
-  const int wn = (warp >> 1) & 3;              // scores: query rows wn * 8 ..; products: n-block
-  const int second = warp >> 3;                // scores: dP^T; products: dK
-  float acc[C::NTW][4];
+  if (tid == 0) {
+    hopper::prefetch_tensormap(&tq);
+    hopper::prefetch_tensormap(&tk);
+    hopper::prefetch_tensormap(&tv);
+    hopper::prefetch_tensormap(&tdo);
+    hopper::mbar_init(kvbar, 1);
 #pragma unroll
-  for (int j = 0; j < C::NTW; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    for (int t = 0; t < C::NST; ++t) hopper::mbar_init(full0 + 8 * t, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_arrive_expect_tx(kvbar, 2 * C::TILE);
+#pragma unroll
+    for (int s = 0; s < C::NS; ++s) {
+      hopper::tma_load_4d(sk + s * SLAB, &tk, kvbar, 64 * s, kh, k0, b);
+      hopper::tma_load_4d(sv + s * SLAB, &tv, kvbar, 64 * s, kh, k0, b);
+    }
+  }
+  if (wtid == 0)
+    for (int l = 0; l < HALF && l < m; ++l) issue(l);
 
-  int stage = 0;
-  for (int q0 = q_begin; q0 < q_end; q0 += BQ, stage ^= 1) {
-    if (q0 + BQ < q_end) {
-      const int ns = stage ^ 1;
-      load_tile<D>(sq + ns * C::TILE, qb, q0 + BQ, S, qs);
-      load_tile<D>(sdo + ns * C::TILE, db, q0 + BQ, S, qs);
-      load_stats(sl + ns * BQ, sdel + ns * BQ, lb, eb, q0 + BQ, S);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* tq = sq + stage * C::TILE;
-    const bf16* tdo = sdo + stage * C::TILE;
-    const float* tl = sl + stage * BQ;
-    const float* tdel = sdel + stage * BQ;
+  float dva[DV / 2], dka[DV / 2];
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) dva[i] = dka[i] = 0.f;
+  const int r0 = 16 * (wtid / 32) + lane / 4;   // this thread's first key of the tile
+  hopper::mbar_wait(kvbar, 0);
 
-    // S^T = K.Q^T (warps 0-7) or dP^T = V.dO^T (8-15); element i is key
-    // wm * 16 + g + 8 (i / 2), row wn * 8 + 2 t + i % 2
-    float x[4];
-    score_tile<D>((second ? sv : sk) + wm * 16 * C::P, (second ? tdo : tq) + wn * 8 * C::P, lane,
-                  x);
-    const bool edge = edge_of(q0, k0, S, Skv, causal, window);
-    float p[4], dxdt[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kr = wm * 16 + g + 8 * (i / 2), qc = wn * 8 + 2 * t + i % 2;
-      if (second)
-        sdp[kr * SPF + qc] = x[i];
-      else
-        p_of(x[i], tl[qc], q0 + qc, k0 + kr, S, Skv, edge, scale, causal, window, softcap, p[i],
-             dxdt[i]);
-    }
-    if (!second) {
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf)
-        store2(spt + (wm * 16 + g + 8 * hf) * SPB + wn * 8 + 2 * t, p[2 * hf], p[2 * hf + 1]);
-    }
-    __syncthreads();
-    if (!second) {
-      float dx[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int kr = wm * 16 + g + 8 * (i / 2), qc = wn * 8 + 2 * t + i % 2;
-        dx[i] = p[i] * (sdp[kr * SPF + qc] - tdel[qc]) * dxdt[i];
-      }
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf)
-        store2(sdxt + (wm * 16 + g + 8 * hf) * SPB + wn * 8 + 2 * t, dx[2 * hf], dx[2 * hf + 1]);
-    }
-    __syncthreads();
+  for (int l = 0; l < m; ++l) {
+    int h, q0;
+    step_of(l, h, q0);
+    const int t = wg * HALF + l % HALF;
+    const uint32_t tq_s = ring + 2 * t * C::TILE, tdo_s = tq_s + C::TILE;
+    hopper::mbar_wait(full0 + 8 * t, (l / HALF) & 1);
 
-    // dV += P^T.dO (warps 0-7), dK += dX^T.Q (8-15): keys wm * 16 .., dims
-    // (wn NTW + j) * 8 .., over the tile's 32 rows in two k16 steps
-    const bf16* sa = second ? sdxt : spt;
-    const bf16* sb = second ? tq : tdo;
+    // S^T = K Q^T, dP^T = V dO^T: keys by query rows
+    float sacc[32], pacc[32];
 #pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      uint32_t fa[4];
-      load_a(sa + wm * 16 * SPB + kk * 16, SPB, lane, fa);
-#pragma unroll
-      for (int j = 0; j < C::NTW; ++j) {
-        uint32_t fb[2];
-        load_b_kn(sb + kk * 16 * C::P + (wn * C::NTW + j) * 8, C::P, lane, fb);
-        mma_bf16(acc[j], fa, fb);
-      }
-    }
-    __syncthreads();
+    for (int i = 0; i < 32; ++i) sacc[i] = pacc[i] = 0.f;
+    hopper::wgmma_fence();
+    score<D>(sacc, sk, tq_s);
+    score<D>(pacc, sv, tdo_s);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::reg_fence(sacc);
+    hopper::reg_fence(pacc);
+
+    // P^T and dX^T; a query row's lse and Delta from the stage's stats
+    const float* st = stat_f + t * 2 * BM;
+    uint32_t pa[4][4], xa[4][4];
+    p_and_dx<true>(sacc, pacc, r0, lane, q0, k0, S, Skv,
+                   edge_of(q0, k0, S, Skv, causal, window), scale, causal, window, softcap,
+                   [&](int row, float& l_, float& d_) {
+                     l_ = st[row];
+                     d_ = st[BM + row];
+                   },
+                   pa, xa);
+
+    // dV += P^T dO and dK += dX^T Q over this CTA's DV features
+    hopper::reg_fence(dva);
+    hopper::reg_fence(dka);
+    hopper::wgmma_fence();
+    wide<DV>(dva, pa, tdo_s + split * (DV / 64) * SLAB);
+    wide<DV>(dka, xa, tq_s + split * (DV / 64) * SLAB);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::reg_fence(dva);
+    hopper::reg_fence(dka);
+
+    // this consumer's four warps are done with the stage: refill it
+    hopper::bar_sync(1 + wg, WG);
+    if (wtid == 0 && l + HALF < m) issue(l + HALF);
   }
 
-  // accumulator element i: key wm * 16 + g + 8 (i / 2), dim (wn NTW + j) * 8 + 2 t + i % 2
-  const float mul = second ? scale : 1.f;
+  // the two consumers' sums, first + second: the second's go through its
+  // own stages, which no load fills any more
+  float* hand = reinterpret_cast<float*>(smem_raw + (ring + HALF * 2 * C::TILE - raw));
+  if (wg == 1) {
+    hopper::fence_proxy_async();
+#pragma unroll
+    for (int i = 0; i < DV / 2; ++i) {
+      hand[i * WG + wtid] = dva[i];
+      hand[(DV / 2 + i) * WG + wtid] = dka[i];
+    }
+  }
+  __syncthreads();
+  if (wg != 0) return;
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) {
+    dva[i] += hand[i * WG + wtid];
+    dka[i] += hand[(DV / 2 + i) * WG + wtid];
+  }
+  // accumulator register 4 j + 2 half + e: key r0 + 8 half, feature 8 j + 2 (lane % 4) + e
+  const long ks = (long)KH * D;
+  const long base = (long)b * Skv * ks + (long)kh * D + split * DV;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int key = k0 + wm * 16 + g + 8 * half;
+    const int key = k0 + r0 + 8 * half;
     if (key >= Skv) continue;
 #pragma unroll
-    for (int j = 0; j < C::NTW; ++j) {
-      const int dim = (wn * C::NTW + j) * 8 + 2 * t;
-      const float a0 = acc[j][2 * half] * mul, a1 = acc[j][2 * half + 1] * mul;
-      if (dkh != nullptr) {
-        float* out = (second ? dkh : dvh) + (long)b * Skv * qs + (long)h * D;
-        *reinterpret_cast<float2*>(out + (long)key * qs + dim) = make_float2(a0, a1);
-      } else {
-        bf16* out = (second ? dk : dv) + (long)b * Skv * ks + (long)kh * D;
-        store2(out + (long)key * ks + dim, a0, a1);
-      }
+    for (int j = 0; j < DV / 8; ++j) {
+      const long at = base + (long)key * ks + 8 * j + 2 * (lane % 4);
+      const int i = 4 * j + 2 * half;
+      store2(dk + at, dka[i] * scale, dka[i + 1] * scale);
+      store2(dv + at, dva[i], dva[i + 1]);
     }
   }
-}
-
-// dK and dV (B, S_kv, KH, D) in bf16 as the fp32 sums of their G = H / KH
-// query heads' shares (B, S_kv, H, D), g = 0 .. G - 1 in order
-__global__ void __launch_bounds__(256)
-flash_bwd_bf16_reduce_kernel(const float* __restrict__ dkh, const float* __restrict__ dvh,
-                             bf16* __restrict__ dk, bf16* __restrict__ dv, long n, int G, int D) {
-  const long i = (long)blockIdx.x * 256 + threadIdx.x;   // (b, s, kh, d) of dK
-  if (i >= n) return;
-  const long src = (i / D) * G * D + i % D;
-  float sk = 0.f, sv = 0.f;
-  for (int g = 0; g < G; ++g) {
-    sk += dkh[src + (long)g * D];
-    sv += dvh[src + (long)g * D];
-  }
-  dk[i] = __float2bfloat16(sk);
-  dv[i] = __float2bfloat16(sv);
 }
 
 template <int D>
-__global__ void __launch_bounds__(NT, 1)
-flash_bwd_bf16_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         bf16* __restrict__ dq, int B, int S, int Skv, int H, int KH, float scale,
-                         int causal, int window, float softcap) {
-  using C = Tb<D>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sq = reinterpret_cast<bf16*>(smem_raw);   // [BQ][P]
-  bf16* sdo = sq + C::TILE;                         // [BQ][P]
-  bf16* sk = sdo + C::TILE;                         // [2][BKV][P]
-  bf16* sv = sk + 2 * C::TILE;                      // [2][BKV][P]
-  bf16* sdx = sv + 2 * C::TILE;                     // [BQ][SPB]: dX
-  float* sdp = reinterpret_cast<float*>(sdx + 2 * BQ * SPB);   // [BQ][SPF]: dP
-  float* sl = sdp + BQ * SPF;                       // [BQ]
-  float* sdel = sl + BQ;                            // [BQ]
+__global__ void __launch_bounds__(WG, 1)
+flash_bwd_wgmma_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const float* __restrict__ stats, bf16* __restrict__ dq, int S, int Skv,
+                          int S64, int H, int KH, float scale, int causal, int window,
+                          float softcap) {
+  using C = Cfg<D>;
+  constexpr int DV = C::DV, NC = D / DV;   // dQ as NC products of DV features
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  const uint32_t sq = (raw + 1023u) & ~1023u, sdo = sq + C::TILE;
+  const uint32_t skv = sdo + C::TILE;          // stage t: K, then V, at skv + 2 t TILE
+  const uint32_t sstat = skv + 4 * C::TILE;    // the rows' lse, then Delta
+  const uint32_t qbar = sstat + STATS, kvbar0 = qbar + 8;
+  const float* stat_f = reinterpret_cast<const float*>(smem_raw + (sstat - raw));
 
-  const int n_qt = (S + BQ - 1) / BQ;
-  const int h = blockIdx.x % H, b = (blockIdx.x / H) % B;
-  const int q0 = (n_qt - 1 - (int)(blockIdx.x / ((unsigned)H * B))) * BQ;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (int)(gridDim.z - 1 - blockIdx.z) * BM;   // the last query tile first
   const int kh = h / (H / KH);
-  const long qs = (long)H * D, ks = (long)KH * D;
-  const bf16* kb = k + (long)b * Skv * ks + (long)kh * D;
-  const bf16* vb = v + (long)b * Skv * ks + (long)kh * D;
-  const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;
-  const int kv_begin = window > 0 ? max(0, q0 - window + 1) / BKV * BKV : 0;
+  const int kv_end = causal ? min(Skv, q0 + BM) : Skv;
+  const int kv_begin = window > 0 ? max(0, q0 - window + 1) / BM * BM : 0;
+  const int n = (kv_end - kv_begin + BM - 1) / BM;
 
-  load_tile<D>(sq, q + (long)b * S * qs + (long)h * D, q0, S, qs);
-  load_tile<D>(sdo, dout + (long)b * S * qs + (long)h * D, q0, S, qs);
-  load_stats(sl, sdel, lse + ((long)b * H + h) * S, delta + ((long)b * H + h) * S, q0, S);
-  load_tile<D>(sk, kb, kv_begin, Skv, ks);
-  load_tile<D>(sv, vb, kv_begin, Skv, ks);
-  cp_async_commit();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int wm = warp & 1;                           // rows wm * 16 .. of the tile
-  const int wn = (warp >> 1) & 3;                    // scores: keys wn * 8 ..
-  const int second = warp >> 3;                      // scores: dP
-  const int nblk = ((warp >> 1) & 7) % C::NB, split = ((warp >> 1) & 7) / C::NB;
-  float acc[C::NTW][4];
+  auto issue = [&](int it) {
+    const int t = it & 1, k0 = kv_begin + it * BM;
+    const uint32_t bar = kvbar0 + 8 * t, dst = skv + 2 * t * C::TILE;
+    hopper::mbar_arrive_expect_tx(bar, 2 * C::TILE);
 #pragma unroll
-  for (int j = 0; j < C::NTW; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  int stage = 0;
-  for (int k0 = kv_begin; k0 < kv_end; k0 += BKV, stage ^= 1) {
-    if (k0 + BKV < kv_end) {
-      const int ns = stage ^ 1;
-      load_tile<D>(sk + ns * C::TILE, kb, k0 + BKV, Skv, ks);
-      load_tile<D>(sv + ns * C::TILE, vb, k0 + BKV, Skv, ks);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+    for (int s = 0; s < C::NS; ++s) {
+      hopper::tma_load_4d(dst + s * SLAB, &tk, bar, 64 * s, kh, k0, b);
+      hopper::tma_load_4d(dst + C::TILE + s * SLAB, &tv, bar, 64 * s, kh, k0, b);
     }
-    __syncthreads();
-    const bf16* tk = sk + stage * C::TILE;
-    const bf16* tv = sv + stage * C::TILE;
+  };
 
-    // S = Q.K^T (warps 0-7) or dP = dO.V^T (8-15); element i is row
-    // wm * 16 + g + 8 (i / 2), key wn * 8 + 2 t + i % 2
-    float x[4];
-    score_tile<D>((second ? sdo : sq) + wm * 16 * C::P, (second ? tv : tk) + wn * 8 * C::P, lane,
-                  x);
-    const bool edge = edge_of(q0, k0, S, Skv, causal, window);
-    float p[4], dxdt[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qr = wm * 16 + g + 8 * (i / 2), kc = wn * 8 + 2 * t + i % 2;
-      if (second)
-        sdp[qr * SPF + kc] = x[i];
-      else
-        p_of(x[i], sl[qr], q0 + qr, k0 + kc, S, Skv, edge, scale, causal, window, softcap, p[i],
-             dxdt[i]);
-    }
-    __syncthreads();
-    if (!second) {
-      float dx[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qr = wm * 16 + g + 8 * (i / 2), kc = wn * 8 + 2 * t + i % 2;
-        dx[i] = p[i] * (sdp[qr * SPF + kc] - sdel[qr]) * dxdt[i];
-      }
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf)
-        store2(sdx + (wm * 16 + g + 8 * hf) * SPB + wn * 8 + 2 * t, dx[2 * hf], dx[2 * hf + 1]);
-    }
-    __syncthreads();
-
-    // dQ += dX.K over the split's 16 keys: rows wm * 16 .., dims
-    // (nblk NTW + j) * 8 ..
-    {
-      uint32_t fa[4];
-      load_a(sdx + wm * 16 * SPB + split * 16, SPB, lane, fa);
-#pragma unroll
-      for (int j = 0; j < C::NTW; ++j) {
-        uint32_t fb[2];
-        load_b_kn(tk + split * 16 * C::P + (nblk * C::NTW + j) * 8, C::P, lane, fb);
-        mma_bf16(acc[j], fa, fb);
-      }
-    }
-    __syncthreads();
+  if (tid == 0) {
+    hopper::prefetch_tensormap(&tq);
+    hopper::prefetch_tensormap(&tk);
+    hopper::prefetch_tensormap(&tv);
+    hopper::prefetch_tensormap(&tdo);
+    hopper::mbar_init(qbar, 1);
+    hopper::mbar_init(kvbar0, 1);
+    hopper::mbar_init(kvbar0 + 8, 1);
+    hopper::mbar_fence_init();
   }
-  // the K and V stages are free after the last barrier: the second split's
-  // sums go through them, as fp32
-  sum_k_splits<D, C::KS_DQ, C::NTW>(acc, reinterpret_cast<float*>(sk), 0, split, wm * 16,
-                                    nblk * C::NTW, g, t);
-  if (split > 0) return;
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_arrive_expect_tx(qbar, 2 * C::TILE + STATS);
+#pragma unroll
+    for (int s = 0; s < C::NS; ++s) {
+      hopper::tma_load_4d(sq + s * SLAB, &tq, qbar, 64 * s, h, q0, b);
+      hopper::tma_load_4d(sdo + s * SLAB, &tdo, qbar, 64 * s, h, q0, b);
+    }
+    const float* src = stats + ((long)b * H + h) * 2 * S64 + q0;
+    hopper::bulk_load(sstat, src, BM * 4, qbar);
+    hopper::bulk_load(sstat + BM * 4, src + S64, BM * 4, qbar);
+    issue(0);
+    if (n > 1) issue(1);
+  }
 
+  float dqa[NC][DV / 2];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < DV / 2; ++i) dqa[c][i] = 0.f;
+  const int r0 = 16 * (tid / 32) + lane / 4;   // this thread's first row of the tile
+  hopper::mbar_wait(qbar, 0);
+  const float l0 = stat_f[r0], l1 = stat_f[r0 + 8];
+  const float d0 = stat_f[BM + r0], d1 = stat_f[BM + r0 + 8];
+
+  for (int it = 0; it < n; ++it) {
+    const int t = it & 1, k0 = kv_begin + it * BM;
+    const uint32_t sk = skv + 2 * t * C::TILE, sv = sk + C::TILE;
+    hopper::mbar_wait(kvbar0 + 8 * t, (it >> 1) & 1);
+
+    // S = Q K^T, dP = dO V^T: query rows by keys
+    float sacc[32], pacc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sacc[i] = pacc[i] = 0.f;
+    hopper::wgmma_fence();
+    score<D>(sacc, sq, sk);
+    score<D>(pacc, sdo, sv);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::reg_fence(sacc);
+    hopper::reg_fence(pacc);
+
+    uint32_t pa[4][4], xa[4][4];
+    p_and_dx<false>(sacc, pacc, r0, lane, q0, k0, S, Skv,
+                    edge_of(q0, k0, S, Skv, causal, window), scale, causal, window, softcap,
+                    [&](int row, float& l_, float& d_) {
+                      l_ = row == r0 ? l0 : l1;
+                      d_ = row == r0 ? d0 : d1;
+                    },
+                    pa, xa);
+
+    // dQ += dX K
+#pragma unroll
+    for (int c = 0; c < NC; ++c) hopper::reg_fence(dqa[c]);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < NC; ++c) wide<DV>(dqa[c], xa, sk + c * (DV / 64) * SLAB);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < NC; ++c) hopper::reg_fence(dqa[c]);
+
+    // every warp is done with this stage: the next but one tile may fill it
+    __syncthreads();
+    if (tid == 0 && it + 2 < n) issue(it + 2);
+  }
+
+  const long qs = (long)H * D;
   bf16* dqb = dq + (long)b * S * qs + (long)h * D;
 #pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int row = q0 + wm * 16 + g + 8 * hr;
+  for (int half = 0; half < 2; ++half) {
+    const int row = q0 + r0 + 8 * half;
     if (row >= S) continue;
 #pragma unroll
-    for (int j = 0; j < C::NTW; ++j)
-      store2(dqb + (long)row * qs + (nblk * C::NTW + j) * 8 + 2 * t, acc[j][2 * hr] * scale,
-             acc[j][2 * hr + 1] * scale);
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int j = 0; j < DV / 8; ++j) {
+        const int i = 4 * j + 2 * half;
+        store2(dqb + (long)row * qs + c * DV + 8 * j + 2 * (lane % 4), dqa[c][i] * scale,
+               dqa[c][i + 1] * scale);
+      }
   }
+}
+
+// A stream of the highest priority beside the caller's, and two events to
+// fork to it and join back, one set per device, made at first use and kept
+// for the process. Calls hold side_mutex() from here to their join, so that
+// two host threads launching on one device take turns with the events.
+struct Side {
+  cudaStream_t stream = nullptr;
+  cudaEvent_t fork = nullptr, join = nullptr;
+};
+
+inline std::mutex& side_mutex() {
+  static std::mutex m;
+  return m;
+}
+
+inline cudaError_t side_of_device(Side& out) {
+  static Side sides[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  Side& s = sides[dev];
+  if (s.stream == nullptr) {
+    int least = 0, greatest = 0;
+    err = cudaDeviceGetStreamPriorityRange(&least, &greatest);
+    if (err == cudaSuccess)
+      err = cudaStreamCreateWithPriority(&s.stream, cudaStreamNonBlocking, greatest);
+    if (err == cudaSuccess) err = cudaEventCreateWithFlags(&s.fork, cudaEventDisableTiming);
+    if (err == cudaSuccess) err = cudaEventCreateWithFlags(&s.join, cudaEventDisableTiming);
+    if (err != cudaSuccess) {
+      s = Side();
+      return err;
+    }
+  }
+  out = s;
+  return cudaSuccess;
 }
 
 template <int D>
 int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const float* lse,
-           const bf16* dout, bf16* dq, bf16* dk, bf16* dv, float* delta, float* dkh, float* dvh,
-           int B, int S, int Skv, int H, int KH, float scale, int causal, int window,
-           float softcap, cudaStream_t st) {
-  using C = Tb<D>;
+           const bf16* dout, bf16* dq, bf16* dk, bf16* dv, float* stats, int B, int S, int Skv,
+           int H, int KH, float scale, int causal, int window, float softcap, cudaStream_t st) {
+  using C = Cfg<D>;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = hopper::tma_map_bshd(&tq, q, B, S, H, D, BM);
+  if (err == cudaSuccess) err = hopper::tma_map_bshd(&tk, k, B, Skv, KH, D, BM);
+  if (err == cudaSuccess) err = hopper::tma_map_bshd(&tv, v, B, Skv, KH, D, BM);
+  if (err == cudaSuccess) err = hopper::tma_map_bshd(&tdo, dout, B, S, H, D, BM);
   static std::atomic<unsigned long long> dkdv_in{0}, dq_in{0};
-  cudaError_t err =
-      hopper::opt_in_smem((const void*)flash_bwd_bf16_dkdv_kernel<D>, C::SMEM, dkdv_in);
   if (err == cudaSuccess)
-    err = hopper::opt_in_smem((const void*)flash_bwd_bf16_dq_kernel<D>, C::SMEM, dq_in);
+    err = hopper::opt_in_smem((const void*)flash_bwd_wgmma_dkdv_kernel<D>, C::SMEM_DKDV, dkdv_in);
+  if (err == cudaSuccess)
+    err = hopper::opt_in_smem((const void*)flash_bwd_wgmma_dq_kernel<D>, C::SMEM_DQ, dq_in);
+  std::lock_guard<std::mutex> guard(side_mutex());
+  Side side;
+  if (err == cudaSuccess) err = side_of_device(side);
   if (err != cudaSuccess) return (int)err;
-  const long rows = (long)B * S * H;
-  flash_bwd_bf16_delta_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(o, dout, delta, B, S,
-                                                                          H, D);
+  const int S64 = (S + BM - 1) / BM * BM;
+  const long lanes = (long)B * S64 * H * (D / 8);
+  flash_bwd_bf16_delta_kernel<<<(unsigned)((lanes + 255) / 256), 256, 0, st>>>(o, dout, lse, stats,
+                                                                               B, S, S64, H, D);
   err = cudaGetLastError();
+  // dK/dV on the side stream, dQ on the caller's, both after Delta: the two
+  // kernels share the card, the dQ CTAs taking the SMs that the dK/dV
+  // kernel's lighter key tiles leave; the caller's stream joins the side's
+  if (err == cudaSuccess) err = cudaEventRecord(side.fork, st);
+  if (err == cudaSuccess) err = cudaStreamWaitEvent(side.stream, side.fork, 0);
   if (err != cudaSuccess) return (int)err;
-  const bool shared_kv = KH < H;
-  const unsigned heads = (unsigned)B * H;
-  flash_bwd_bf16_dkdv_kernel<D><<<(unsigned)((Skv + BKV - 1) / BKV) * heads, NT, C::SMEM, st>>>(
-      q, k, v, dout, lse, delta, dk, dv, shared_kv ? dkh : nullptr, shared_kv ? dvh : nullptr, B,
-      S, Skv, H, KH, scale, causal, window, softcap);
+  flash_bwd_wgmma_dkdv_kernel<D>
+      <<<dim3((unsigned)((Skv + BM - 1) / BM * C::NSPLIT), KH, B), CONSUMERS * WG, C::SMEM_DKDV,
+         side.stream>>>(tq, tk, tv, tdo, stats, dk, dv, S, Skv, S64, H, KH, scale, causal,
+                        window, softcap);
   err = cudaGetLastError();
+  if (err == cudaSuccess) err = cudaEventRecord(side.join, side.stream);
   if (err != cudaSuccess) return (int)err;
-  if (shared_kv) {
-    const long n = (long)B * Skv * KH * D;
-    flash_bwd_bf16_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(dkh, dvh, dk, dv, n,
-                                                                              H / KH, D);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  flash_bwd_bf16_dq_kernel<D><<<(unsigned)((S + BQ - 1) / BQ) * heads, NT, C::SMEM, st>>>(
-      q, k, v, dout, lse, delta, dq, B, S, Skv, H, KH, scale, causal, window, softcap);
-  return (int)cudaGetLastError();
+  flash_bwd_wgmma_dq_kernel<D><<<dim3(H, B, (S + BM - 1) / BM), WG, C::SMEM_DQ, st>>>(
+      tq, tk, tv, tdo, stats, dq, S, Skv, S64, H, KH, scale, causal, window, softcap);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) err = cudaStreamWaitEvent(st, side.join, 0);
+  return (int)err;
 }
 
 }  // namespace bf
@@ -1039,31 +1198,30 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
 }
 
 // The bf16 route: bf16 q, k, v, o, dout, dq, dk, dv in the layouts above;
-// lse and the workspace delta (B, H, S) fp32; with KH < H the fp32
-// workspaces dkh and dvh (B, S_kv, H, D), else they may be null. D 64, 128
-// or 256, the bf16 forward's wgmma widths. The same checks and launches as
-// flash_attention_bwd.
+// lse (B, H, S) fp32; the workspace stats (B, H, 2, S64) fp32, S64 = S
+// rounded up to a multiple of 64. D 64, 128 or 256, the bf16 forward's
+// wgmma widths. Every pointer 16-byte aligned. Launches the kernels on
+// `stream` and does not synchronise; returns cudaGetLastError() after each
+// launch (0 on success).
 extern "C" int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
                                         const void* o, const void* lse, const void* dout,
-                                        void* dq, void* dk, void* dv, void* delta, void* dkh,
-                                        void* dvh, int B, int S, int S_kv, int H, int KH, int D,
-                                        float scale, int causal, int window, float softcap,
-                                        void* stream) {
+                                        void* dq, void* dk, void* dv, void* stats, int B, int S,
+                                        int S_kv, int H, int KH, int D, float scale, int causal,
+                                        int window, float softcap, void* stream) {
   if (B <= 0 || S <= 0 || S_kv <= 0 || H <= 0 || KH <= 0 || H % KH != 0 || B > 65535 ||
-      H > 65535 || (long)(((S > S_kv ? S : S_kv) + 31) / 32) * B * H > 0x7fffffffL ||
-      (KH < H && !(dkh && dvh)) || (S_kv != S && (causal || window > 0)))
+      KH > 65535 || (S + 63) / 64 > 65535 || (S_kv != S && (causal || window > 0)))
     return (int)cudaErrorInvalidValue;
-  for (const void* p : {q, k, v, dout, (const void*)dq, (const void*)dk, (const void*)dv,
-                        (const void*)dkh, (const void*)dvh})
-    if (reinterpret_cast<uintptr_t>(p) % 16) return (int)cudaErrorMisalignedAddress;
+  for (const void* p : {q, k, v, o, dout, (const void*)dq, (const void*)dk, (const void*)dv,
+                        (const void*)stats})
+    if (p == nullptr || reinterpret_cast<uintptr_t>(p) % 16) return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   using bf::bf16;
 #define K1_BWD_BF16_ARGS                                                                      \
   static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),      \
       static_cast<const bf16*>(o), static_cast<const float*>(lse),                            \
       static_cast<const bf16*>(dout), static_cast<bf16*>(dq), static_cast<bf16*>(dk),         \
-      static_cast<bf16*>(dv), static_cast<float*>(delta), static_cast<float*>(dkh),           \
-      static_cast<float*>(dvh), B, S, S_kv, H, KH, scale, causal, window, softcap, st
+      static_cast<bf16*>(dv), static_cast<float*>(stats), B, S, S_kv, H, KH, scale, causal,   \
+      window, softcap, st
   switch (D) {
     case 64: return bf::launch<64>(K1_BWD_BF16_ARGS);
     case 128: return bf::launch<128>(K1_BWD_BF16_ARGS);

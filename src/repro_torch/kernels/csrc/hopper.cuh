@@ -114,6 +114,18 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// Copies `bytes` (a multiple of 16) from global address `src` to shared
+// address `dst`, both 16-byte aligned, as one bulk copy; its bytes complete
+// on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // Stores a box of a rank-4 tensor map at (c0, c1, c2, c3) from shared
 // address `src` (elements past the tensor's bounds are not written), as one
 // bulk async-group; commit it with bulk_commit.
@@ -294,6 +306,14 @@ inline cudaError_t tma_map_bshd(CUtensorMap* map, const void* ptr, int B, int S,
                                 int rows) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
+  // cuTensorMapEncodeTiled needs the device's context current on this
+  // thread. The runtime makes it current lazily, so a thread whose first
+  // CUDA work this is (an autograd worker's first backward op) has none
+  // yet: make it so.
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaSetDevice(dev);
+  if (err != cudaSuccess) return err;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
                                  (cuuint64_t)S * heads * D * 2};

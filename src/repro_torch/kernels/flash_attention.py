@@ -18,11 +18,13 @@ P from the forward's log-sum-exp per row (both routes write it when asked,
 ``return_lse``). It has two routes (``bwd_route``): fp32 in and out, its
 products on the tensor cores as 3xTF32 ``mma.sync`` at every head_dim; and
 bf16 in and out at D 64, 128 and 256 (the training at the reference's
-production dtypes), its products as bf16 ``mma.sync.m16n8k16`` into fp32,
-P and dX rounded to bf16 before their products as the forward rounds P.
-``FlashAttention`` is the autograd Function that pairs the forward with
-the backward of its dtype; ``flash_attention_bwd.launches`` counts the
-backward's calls (each launches its kernels: three, four with KH < H),
+production dtypes), its products as bf16 ``wgmma`` on TMA-fed 64-row tiles
+into fp32, P and dX rounded to bf16 before their products as the forward
+rounds P, each kv head's query heads summed inside one CTA (no workspace
+for GQA; its kernels are ``BWD_BF16_KERNELS``). ``FlashAttention`` is the
+autograd Function that pairs the forward with the backward of its dtype;
+``flash_attention_bwd.launches`` counts the backward's calls (each
+launches its kernels: three, four on the fp32 route with KH < H),
 ``flash_attention_bwd.launches_by_route`` each route's.
 """
 
@@ -37,6 +39,9 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 64, 128, 256)
 ROUTES = ("wgmma", "tf32x3")
 BWD_ROUTES = ("tf32x3", "bf16")
+# the bf16 backward's kernels, as a profiler names them (by substring)
+BWD_BF16_KERNELS = ("flash_bwd_bf16_delta", "flash_bwd_wgmma_dkdv", "flash_bwd_wgmma_dq")
+BWD_TILE = 64   # rows of the bf16 backward's tiles: its stats workspace is padded to them
 
 
 def route(dtype, head_dim) -> str:
@@ -74,9 +79,11 @@ def _fn():
 def bwd_entry(lib, route="tf32x3"):
     """The C entry point of `route` in `lib` (a built
     csrc/flash_attention_bwd.cu, loaded by ctypes), typed:
-    flash_attention_bwd (fp32) or flash_attention_bwd_bf16."""
-    fn = getattr(lib, "flash_attention_bwd" if route == "tf32x3" else "flash_attention_bwd_bf16")
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [
+    flash_attention_bwd (fp32: 12 pointers, its workspaces delta and the
+    GQA shares) or flash_attention_bwd_bf16 (10: its workspace the stats)."""
+    fp32 = route == "tf32x3"
+    fn = getattr(lib, "flash_attention_bwd" if fp32 else "flash_attention_bwd_bf16")
+    fn.argtypes = [ctypes.c_void_p] * (12 if fp32 else 10) + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -181,7 +188,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, scale=None, causal=True, window=
     o and do fp32 (the 3xTF32 route), or bf16 at D 64, 128 or 256 (the
     bf16 route), and dq, dk, dv in that dtype. dk and dv sum over each kv
     head's query heads (a fixed order, no atomics). Launches on the current
-    stream, no sync."""
+    stream (the bf16 route runs its dK/dV kernel on a stream of its own
+    beside it, forked from and joined back to the current one), no sync."""
     _check(q, k, v, causal, window)
     b, s, h, d = q.shape
     path = bwd_route(q.dtype, d)
@@ -195,9 +203,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, scale=None, causal=True, window=
         if t.dtype != dtype or t.device != q.device or not t.is_contiguous():
             raise ValueError(f"o and do must be contiguous {q.dtype}, lse contiguous fp32, on "
                              "q's device")
-    if any(t.data_ptr() % 16 for t in (q, k, v, do)):
-        raise ValueError("flash_attention_bwd kernel copies q, k, v and do in 16-byte pieces: "
-                         "each must start 16-byte aligned")
+    if any(t.data_ptr() % 16 for t in (q, k, v, o, do)):
+        raise ValueError("flash_attention_bwd kernel copies q, k, v, o and do in 16-byte "
+                         "pieces: each must start 16-byte aligned")
     out = bwd_launch(_bwd_fn(path), q, k, v, o, lse, do, scale=scale, causal=causal,
                      window=window, softcap=softcap)
     flash_attention_bwd.launches += 1
@@ -212,15 +220,20 @@ def bwd_launch(fn, q, k, v, o, lse, do, *, scale=None, causal=True, window=0, so
     b, s, h, d = q.shape
     scale = scale if scale is not None else d ** -0.5
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    # each query head's share of dk and dv, which the kernel sums per kv head
-    # (fp32 on both routes)
-    shares = ([torch.empty((b, k.shape[1], h, d), dtype=torch.float32, device=q.device)
-               for _ in range(2)] if k.shape[2] < h else [None, None])
+    f32 = dict(dtype=torch.float32, device=q.device)
+    if q.dtype == torch.bfloat16:
+        # each query row's lse and Delta, padded to whole tiles
+        work = [torch.empty((b, h, 2, -(-s // BWD_TILE) * BWD_TILE), **f32)]
+    else:
+        # Delta, and each query head's share of dk and dv, which the kernel
+        # sums per kv head
+        work = [torch.empty((b, h, s), **f32)] + (
+            [torch.empty((b, k.shape[1], h, d), **f32) for _ in range(2)]
+            if k.shape[2] < h else [None, None])
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                 do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-                 *(None if t is None else t.data_ptr() for t in shares),
+                 do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 *(None if t is None else t.data_ptr() for t in work),
                  b, s, k.shape[1], h, k.shape[2], d, float(scale), int(bool(causal)),
                  int(window or 0), float(softcap or 0.0),
                  torch.cuda.current_stream(q.device).cuda_stream)

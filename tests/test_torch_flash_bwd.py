@@ -77,9 +77,9 @@ def mm_tf32(a, b):
     return tf32(a) @ tf32(b)
 
 
-def _edge(q0, k0, s, skv, causal, window):
-    return (q0 + BQ > s or k0 + BKV > skv or (causal and k0 + BKV - 1 > q0)
-            or (window > 0 and q0 + BQ - 1 - k0 >= window))
+def _edge(q0, k0, s, skv, causal, window, bq=BQ, bkv=BKV):
+    return (q0 + bq > s or k0 + bkv > skv or (causal and k0 + bkv - 1 > q0)
+            or (window > 0 and q0 + bq - 1 - k0 >= window))
 
 
 def _p_dx(x_raw, dp, lse, delta, rows, keys, s, skv, edge, scale, causal, window, softcap):
@@ -365,3 +365,114 @@ def test_bf16_lse_plain_matches_jax(case):
         ok &= (rows - cols) < kw["window"]
     want = jax.nn.logsumexp(jnp.where(ok, x, -1e30), axis=-1)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=1e-4)
+
+
+# ---- the bf16 route's walk (wgmma on 64-row tiles) ---------------------------
+
+# the bf16 route's tiles (64 rows, one wgmma m64) and the warpgroups of its
+# dK/dV CTA, which take the walk's steps in turn
+BM, CONSUMERS = _constant("BM"), _constant("CONSUMERS")
+
+
+def _bf16_walk(q, k, v, o, lse, do, *, scale, causal, window, softcap):
+    """(dq, dk, dv) in bf16 by the bf16 route's walk: a dK/dV CTA per
+    (64-key tile, kv head) walks its kv head's query heads in order, each
+    over the 64-row query tiles the mask lets see its keys, step i going to
+    consumer i % CONSUMERS, whose fp32 sums the first consumer adds in
+    order at the end; a dQ CTA per (64 query rows, head) walks the key
+    tiles the forward walks. P, and dX (from the unrounded P), are rounded
+    to bf16 before their products; only tiles crossing the diagonal, the
+    window's edge, S or S_kv are masked."""
+    b, s, h, d = q.shape
+    kh, skv = k.shape[2], k.shape[1]
+    g = h // kh
+    n = -(-max(s, skv) // BM) * BM
+    pad = lambda x: torch.cat([x, x.new_zeros(n - x.shape[0], *x.shape[1:])])   # noqa: E731
+    rnd = lambda x: x.bfloat16().float()   # noqa: E731
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    delta = (dof * o.float()).sum(-1)                                     # (B,S,H)
+    dq, dk, dv = torch.zeros(b, s, h, d), torch.zeros(b, skv, kh, d), torch.zeros(b, skv, kh, d)
+    edge = lambda q0, k0: _edge(q0, k0, s, skv, causal, window, BM, BM)   # noqa: E731
+
+    def tile(bi, hi, q0, k0):
+        """P and dX (query rows x keys) of one tile, and its Q, dO, K rows."""
+        sl, kl = slice(q0, q0 + BM), slice(k0, k0 + BM)
+        qt, dot = pad(qf[bi, :, hi])[sl], pad(dof[bi, :, hi])[sl]
+        kt, vt = pad(kf[bi, :, hi // g])[kl], pad(vf[bi, :, hi // g])[kl]
+        p, dx = _p_dx(qt @ kt.T, dot @ vt.T, pad(lse[bi, hi])[sl], pad(delta[bi, :, hi])[sl],
+                      torch.arange(q0, q0 + BM), torch.arange(k0, k0 + BM), s, skv,
+                      edge(q0, k0), scale, causal, window, softcap)
+        return p, dx, qt, dot, kt
+
+    for bi in range(b):
+        for j in range(kh):
+            for k0 in range(0, skv, BM):                 # dK/dV: a CTA a key tile
+                q_begin = k0 if causal else 0
+                q_end = min(s, k0 + BM - 1 + window) if window > 0 else s
+                steps = [(hi, q0) for hi in range(j * g, (j + 1) * g)
+                         for q0 in range(q_begin, q_end, BM)]
+                acc = [[torch.zeros(BM, d), torch.zeros(BM, d)] for _ in range(CONSUMERS)]
+                for i, (hi, q0) in enumerate(steps):
+                    p, dx, qt, dot, _ = tile(bi, hi, q0, k0)
+                    acc_k, acc_v = acc[i % CONSUMERS]
+                    acc_v += rnd(p).T @ dot
+                    acc_k += rnd(dx).T @ qt
+                m = min(BM, skv - k0)
+                # the first consumer adds the others' sums, in order
+                dk[bi, k0:k0 + m, j] = sum((a[0] for a in acc[1:]), acc[0][0])[:m] * scale
+                dv[bi, k0:k0 + m, j] = sum((a[1] for a in acc[1:]), acc[0][1])[:m]
+        for hi in range(h):
+            for q0 in range(0, s, BM):                   # dQ: a CTA a query tile
+                acc_q = torch.zeros(BM, d)
+                kv_end = min(skv, q0 + BM) if causal else skv
+                kv_begin = max(0, q0 - window + 1) // BM * BM if window > 0 else 0
+                for k0 in range(kv_begin, kv_end, BM):
+                    _, dx, _, _, kt = tile(bi, hi, q0, k0)
+                    acc_q += rnd(dx) @ kt
+                m = min(BM, s - q0)
+                dq[bi, q0:q0 + m, hi] = (acc_q * scale)[:m]
+    return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
+
+
+def test_bf16_workspace_tile_is_the_kernels():
+    """The wrapper pads the bf16 route's stats workspace to the .cu's tile
+    rows (BM), which the kernels' bulk copies read whole."""
+    from repro_torch.kernels import flash_attention as tflash
+    assert tflash.BWD_TILE == BM
+
+
+BF16_WALK_CASES = {
+    **BF16_CASES,
+    # qwen3's 5 query heads a kv head over several 64-row tiles: the
+    # consumers' alternation crosses heads
+    "d128_gqa5_tiles": (1, 200, 5, 1, 128, {}),
+    "d64_window_in_tile": (1, 150, 2, 1, 64, {"window": 70}),
+    "d256_non_causal_gqa2": (1, 70, 4, 2, 256, {"causal": False}),
+}
+
+
+@pytest.mark.parametrize("case", list(BF16_WALK_CASES))
+def test_bf16_walk_matches_jax_vjp_and_plain(case):
+    """The bf16 route's walk (``_bf16_walk``: 64-row tiles, the steps of a
+    kv head's query heads shared by CONSUMERS warpgroups and summed in
+    fp32 in a fixed order, the roundings) against jax.vjp of ``attend_ref``
+    in bf16 and ``flash_attention_bwd_bf16_plain``: dq, dk and dv each
+    within BF16_TOL of its max."""
+    b, s, h, kh, d, kw = BF16_WALK_CASES[case]
+    kw = {"causal": True, "window": 0, "softcap": None, **kw}
+    skv = kw.pop("skv", s)
+    scale = d ** -0.5
+    rng = np.random.default_rng(21)
+    q, do = _bf16(rng, (b, s, h, d)), _bf16(rng, (b, s, h, d))
+    k, v = _bf16(rng, (b, skv, kh, d)), _bf16(rng, (b, skv, kh, d))
+    o = ops.flash_attention_plain(q, k, v, scale=scale, **kw)
+    lse = ops.flash_attention_lse_plain(q, k, scale=scale, **kw)
+    got = _bf16_walk(q, k, v, o, lse, do, scale=scale, **kw)
+    plain = ops.flash_attention_bwd_bf16_plain(q, k, v, o, lse, do, scale=scale, **kw)
+    jb = _attend_ref_grads(q, k, v, do, scale=scale, dtype=jnp.bfloat16, **kw)
+    for name, g, p, j in zip(("dq", "dk", "dv"), got, plain, jb):
+        assert g.dtype == torch.bfloat16 and g.shape == p.shape == j.shape, name
+        for want in (p.float().numpy(), j):
+            err = float(np.abs(g.float().numpy() - want).max() / np.abs(want).max())
+            assert err <= BF16_TOL, f"{name}: {err:.2e} of max |g|"
+

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """K1's fp32 forward, K1-bwd and K4-bwd at recurrentgemma-2b's training
-call, K3's fp32 call and K3-bwd at mamba2-2.7b's, and full-width train
-steps, on one GPU, for one checkout of the port.
+call, K1-bwd's bf16 route at qwen3-14b's, K3's fp32 call and K3-bwd at
+mamba2-2.7b's, and full-width train steps, on one GPU, for one checkout of
+the port.
 
     PYTHONPATH=<checkout>/src python3 tools/bwd_timing.py [--tag NAME] [--no-train]
-        [--train ARCH ...]
+        [--train ARCH ...] [--bf16-train ARCH ...]
 
 Imports ``repro_torch`` from PYTHONPATH (some checkout's ``src``, so two
 trees compare in one call, alternated), else from this checkout; the
@@ -17,6 +18,12 @@ sleeping kernel (``chip_smoke.time_ms``):
 - K1-bwd at the same call, with its device time split by kernel from a
   profiler trace (``chip_smoke.kernel_spans``), beside SDPA's fp32
   backward (forward and backward, less forward);
+- K1-bwd's bf16 route at qwen3-14b's micro-batch call (B 4, S 256, 40
+  query heads on 8 kv heads, D 128, causal; K1's wgmma route gives o and
+  the log-sum-exp), split by kernel (the names the checkout's
+  ``flash_attention`` module lists, else the four kernels of the route's
+  ``mma.sync`` design), beside SDPA's bf16 backward with ``enable_gqa``
+  (forward and backward, less forward);
 - K4-bwd at the train call (B 4, S 256, W 2560, fp32): warm (one set of
   inputs) and cold in L2 (four sets in rotation);
 - K3 at mamba2-2.7b's train call (B 4, S 256, H 80, P 64, N 128, G 1,
@@ -26,7 +33,10 @@ sleeping kernel (``chip_smoke.time_ms``):
 - unless ``--no-train``, each ``--train`` arch's full-width train step
   (default mamba2-2.7b) through ``chip_smoke.train_phase`` (3 steps, then
   two timed steps on the host clock, the step's parts on CUDA events and a
-  profiler breakdown by group).
+  profiler breakdown by group); each ``--bf16-train`` arch's the same at
+  the reference's production dtypes (``train_phase(arch,
+  production=True)``: bf16, full remat; qwen3-14b at 4 layers, 16 x 256 in
+  4 micro-batches).
 Prints the card and one JSON line. Needs CUDA.
 """
 
@@ -77,6 +87,31 @@ def k1_calls(gen, dev):
             {"ms": ms, "split_ms": split, "sdpa_bwd_ms": both - sdpa_fwd})
 
 
+def k1_bf16_bwd(gen, dev):
+    """K1-bwd's bf16 route at qwen3-14b's micro-batch call, split by
+    kernel, beside SDPA's bf16 backward on the same inputs."""
+    import torch.nn.functional as F
+    b, s, h, kh, d = 4, 256, 40, 8, 128
+    rand = lambda *shape: torch.randn(*shape, generator=gen, device=dev).bfloat16()   # noqa
+    q, do = rand(b, s, h, d), rand(b, s, h, d)
+    k, v = rand(b, s, kh, d), rand(b, s, kh, d)
+    sc = d ** -0.5
+    o, lse = K1.flash_attention(q, k, v, scale=sc, return_lse=True)
+    call = lambda: K1.flash_attention_bwd(q, k, v, o, lse, do, scale=sc)   # noqa: E731
+    ms = chip_smoke.time_ms("K1-bwd bf16", call)
+    names = getattr(K1, "BWD_BF16_KERNELS", ("flash_bwd_bf16_delta", "flash_bwd_bf16_dkdv",
+                                             "flash_bwd_bf16_reduce", "flash_bwd_bf16_dq"))
+    split = chip_smoke.kernel_spans(call, names)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    sdpa = lambda: F.scaled_dot_product_attention(   # noqa: E731
+        qt, kt, vt, is_causal=True, scale=sc, enable_gqa=True)
+    sdpa_fwd = chip_smoke.time_ms("SDPA bf16 forward", sdpa)
+    both = chip_smoke.time_ms("SDPA bf16 forward and backward", lambda: torch.autograd.grad(
+        sdpa(), (qt, kt, vt), dot))
+    return {"ms": ms, "split_ms": split, "sdpa_bwd_ms": both - sdpa_fwd, "sdpa_fwd_ms": sdpa_fwd}
+
+
 def k4_bwd(gen, dev):
     sets = []
     for _ in range(4):
@@ -122,6 +157,9 @@ def main():
     ap.add_argument("--no-train", action="store_true")
     ap.add_argument("--train", action="append", metavar="ARCH",
                     help="an arch whose train step to time (repeatable; default mamba2-2.7b)")
+    ap.add_argument("--bf16-train", action="append", metavar="ARCH", default=[],
+                    help="an arch whose train step at the production dtypes to time "
+                         "(repeatable)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("bwd_timing: needs a CUDA device", file=sys.stderr)
@@ -136,13 +174,15 @@ def main():
     k1_fwd, k1_bwd = k1_calls(gen, dev)
     k3_fwd, k3_bwd = k3_calls(gen, dev)
     out = {"tag": args.tag, "card": card, "k1_fwd": k1_fwd, "k1_bwd": k1_bwd,
-           "k4_bwd": k4_bwd(gen, dev), "k3_fwd": k3_fwd, "k3_bwd": k3_bwd}
+           "k1_bwd_bf16": k1_bf16_bwd(gen, dev), "k4_bwd": k4_bwd(gen, dev), "k3_fwd": k3_fwd,
+           "k3_bwd": k3_bwd}
     torch.cuda.empty_cache()
-    for arch in [] if args.no_train else (args.train or ["mamba2-2.7b"]):
+    runs = [] if args.no_train else [(arch, False) for arch in args.train or ["mamba2-2.7b"]]
+    for arch, production in runs + [(arch, True) for arch in args.bf16_train]:
         ops.reset_launch_counts()
-        _, m = chip_smoke.train_phase(arch)
-        out[f"train {arch}"] = {k: m[k] for k in ("step_ms", "tokens_per_s", "parts_ms",
-                                                  "device_ms")}
+        _, m = chip_smoke.train_phase(arch, production=production)
+        out[f"train {arch}{' bf16' if production else ''}"] = {
+            k: m[k] for k in ("step_ms", "tokens_per_s", "parts_ms", "device_ms")}
         torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)
     return 0
