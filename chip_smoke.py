@@ -136,7 +136,7 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    qwen3-14b and mamba2-2.7b at 3 layers of full width at the production
    dtypes (bf16 params and compute, full remat; ``bf16_train_parity_phase``):
    the loss through K1 (wgmma) and K1-bwd's bf16 route, or K3 and K3-bwd's
-   bf16 route, against their plain versions paired as the kernels pair
+   wgmma route, against their plain versions paired as the kernels pair
    them (``plain_bf16_pairs``: the bf16 K1-bwd's plain version with its
    roundings) within 1e-2 relative, one step's launches on those routes,
    and every gradient leaf within BF16_LEAF_TOL (5e-2) of the plain
@@ -157,7 +157,7 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    config's 4 micro-batches, K1 32 and K1-bwd 16 a step (remat runs each
    layer's forward again; K1 on wgmma, K1-bwd on its bf16 route), and
    mamba2-2.7b at full width and depth, batch 4 x 256, K3 128 and K3-bwd
-   64 a step (K3 on wgmma, K3-bwd on its bf16 route);
+   64 a step (K3 and K3-bwd on their wgmma routes);
 9. train restart: the launcher at the reduced config on the card,
    checkpointing every 2 steps, restarts from its checkpoint after a
    failure injected at step 3 and ends at step 6;
@@ -322,11 +322,14 @@ max) at qwen3-14b's micro-batch call (4, 256, 40/8, 128), D 64, 128 and
 256, 5 query heads a kv head, a window, softcap 50, S_kv != S unmasked and
 the edges of 32- and 64-row tiles, two calls at qwen3's call equal to the
 bit (its wgmma kernels sum each kv head's query heads in a fixed order);
-K3-bwd's bf16 route at mamba2's train
-call and the fp32 route's edges plus P and N off 8, each case run twice
+K3-bwd's bf16 routes (``wgmma`` at P a multiple of 64 and N 64 or 128,
+``staged`` elsewhere) at mamba2's train call, the fp32 route's edges plus
+P and N off 8, and one ``wgmma`` edge (ragged S, G 2, P 128, N 64, h0 and
+d(final state)), each case logging its route, counted under it, run twice
 and held equal to the bit; each timed at its train call beside its bound
-(K1-bwd also beside SDPA's bf16 backward), with its registers and spills,
-in the rows ``flash_attention_bwd_bf16`` and ``ssd_scan_bwd_bf16`` and K1's
+(K1-bwd also beside SDPA's bf16 backward), with its registers and spills
+(K3-bwd with its plan: slices, CTAs, CTAs an SM, waves), in the rows
+``flash_attention_bwd_bf16`` and ``ssd_scan_bwd_bf16`` and K1's
 ``qwen3_train_call``.
 
 After phase 20, when no other phase runs, a child process runs the dry
@@ -1708,17 +1711,25 @@ def bf16_kernel_phase(rows, bwd_ptxas):
              ((1, 37, 2, 80, 128, 2), True, False),     # under one chunk, two p tiles
              ((1, 64, 3, 64, 64, 3), False, True),      # G == H, one whole chunk, N 64
              ((2, 150, 16, 8, 16, 1), False, True),     # the reduced config
-             ((1, 70, 2, 20, 12, 1), True, True)]       # P, N off 8: one-value staging
+             ((1, 70, 2, 20, 12, 1), True, True),       # P, N off 8: one-value staging
+             ((2, 200, 4, 128, 64, 2), True, True)]     # wgmma: ragged S, G 2, P 128, N 64
     k3_err = 0.0
     for (cb, cs, ch, cp, cn, cg), with_h0, with_ds in cases:
         x, dt, a, bm, cm, h0 = ssd_inputs(cb, cs, ch, cp, cn, cg, with_h0)
         dy = rand(cb, cs, ch, cp)
         ds = rand(cb, ch, cp, cn, dtype=torch.float32) if with_ds else None
+        route = K3.bwd_route(bf, cp, cn)
+        before = dict(K3.ssd_scan_bwd.launches_by_route)
         got = K3.ssd_scan_bwd(x, dt, a, bm, cm, h0, dy, ds)
         again = K3.ssd_scan_bwd(x, dt, a, bm, cm, h0, dy, ds)
         want = ops.ssd_scan_bwd_plain(x, dt, a, bm, cm, h0, dy, ds)
         torch.cuda.synchronize()
-        name = f"K3-bwd {(cb, cs, ch, cp, cn, cg)} bf16 h0={with_h0} dstate={with_ds}"
+        name = f"K3-bwd {(cb, cs, ch, cp, cn, cg)} bf16 h0={with_h0} dstate={with_ds} [{route}]"
+        if K3.kernel_bwd_route(bf, cp, cn) != route or K3.ssd_scan_bwd.launches_by_route != {
+                **before, route: before[route] + 2}:
+            raise AssertionError(f"{name}: launches by route {K3.ssd_scan_bwd.launches_by_route}, "
+                                 f"before {before}; the library's route "
+                                 f"{K3.kernel_bwd_route(bf, cp, cn)}")
         if (got[5] is None) != (h0 is None):
             raise AssertionError(f"{name}: dh0 given without h0, or missing with it")
         if not all(torch.equal(u, w) for u, w in zip(got, again) if u is not None):
@@ -1732,39 +1743,51 @@ def bf16_kernel_phase(rows, bwd_ptxas):
             if (cb, cs, ch, cp, cn, cg) == cases[0][0] and not with_h0:
                 k3_err = max(k3_err, err)
         del x, dt, a, bm, cm, h0, dy, ds, got, again, want
-    log(f"   K3-bwd bf16: two calls of each of the {len(cases)} cases equal to the bit")
+    log(f"   K3-bwd bf16: two calls of each of the {len(cases)} cases equal to the bit, each "
+        "on its route")
     x, dt, a, bm, cm, _ = ssd_inputs(tb, ts, mh, mp, mn, 1, False)
     dy = rand(tb, ts, mh, mp)
     bwd = lambda: K3.ssd_scan_bwd(x, dt, a, bm, cm, None, dy, None)   # noqa: E731
     ms = time_ms("K3-bwd bf16", bwd)
     plain_ms = time_ms("K3-bwd bf16 plain", lambda: ops.ssd_scan_bwd_plain(
         x, dt, a, bm, cm, None, dy, None), iters=5, warmup=1)
-    passes = kernel_spans(bwd, K3.BWD_KERNELS)
+    passes = kernel_spans(bwd, K3.BWD_WGMMA_KERNELS)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = K3.tf32x3_plan(tb, ts, mh, mp, mn, backward=True, sms=sms, dtype=bf)
+    plan = K3.wgmma_bwd_plan(tb, ts, mh, mp, mn, sms=sms, query=True)
     L = K3.CHUNK
     chunk_heads = tb * mh * -(-ts // L)
     tri = L * (L + 1) // 2
     flops = 2 * chunk_heads * (tri * (3 * mn + 2 * mp) + 5 * L * mp * mn)
+    # the bf16 products the route issues, every fp32 operand in two parts:
+    # a chunk and head, the scores both ways (dy x^T, C B^T), U = B dS^T, dx,
+    # dG^T C, x dS, dG B, dy S, and the state walks' two updates, over whole
+    # 64 x 64 tiles
+    issued_flops = 2 * chunk_heads * (4 * L * L * mp + 6 * L * L * mn + 10 * L * mp * mn)
     # x, dy, dx and b, c, db, dc in bf16; dt, ddt, a, da in fp32
     nbytes = 2 * (3 * x.numel() + 4 * bm.numel()) + 4 * (2 * dt.numel() + 2 * mh)
-    issued = bound(flops, nbytes, "tf32x3")
+    issued = bound(issued_flops, nbytes, "bfloat16")
+    kernels = {k_: v_ for k_, v_ in plan.items() if isinstance(v_, dict)}
     rows["ssd_scan_bwd_bf16"] = r = dict(
-        name="ssd_scan_bwd_bf16", route="cuda", variant="tf32x3 on bf16 operands",
+        name="ssd_scan_bwd_bf16", route="cuda", variant=K3.bwd_route(bf, mp, mn),
         source="src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
         replaces="src/repro/kernels/ssd_scan.py:56", max_abs_err=k3_err, ms=ms,
         plain_ms=plain_ms, library_ms=None, **bound(flops, nbytes, "bfloat16"),
-        bound_issued_tf32x3_ms=issued["bound_ms"], tflops=flops / ms / 1e9,
-        kernel_split_ms=passes, plan=plan, repeat_equal=True, **bwd_ptxas["k3_bf16"])
+        bound_issued_bf16_ms=issued["bound_ms"], tflops=flops / ms / 1e9,
+        tflops_issued=issued_flops / ms / 1e9, kernel_split_ms=passes, plan=plan,
+        repeat_equal=True, **bwd_ptxas["k3_wgmma"])
     log(f"   K3-bwd at ({tb},{ts},{mh},{mp},{mn},1) bf16, no h0, no dstate (mamba2-2.7b's "
-        f"train call; {' '.join(f'{k_} {v_}' for k_, v_ in bwd_ptxas['k3_bf16'].items())}; "
-        + "; ".join(f"{k_[:-7]} {v_['ctas']} CTAs, {v_['ctas_per_sm']} an SM, "
-                    f"{v_['waves']:.2f} waves" for k_, v_ in plan.items())
-        + f"): kernel_ms {ms:.4f} ({r['tflops']:.2f} TFLOP/s) plain_ms {plain_ms:.4f} "
-        f"library_ms none (no PyTorch call computes it) bound_ms {r['bound_ms']:.4f} "
-        f"({r['bound_by']} at the bf16 rate; {issued['bound_ms']:.4f} for the 3xTF32 products "
-        f"it issues; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); device ms a call by "
-        f"kernel (profiler): " + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in passes.items()))
+        f"train call; route {r['variant']}; "
+        f"{' '.join(f'{k_} {v_}' for k_, v_ in bwd_ptxas['k3_wgmma'].items())}; "
+        f"{plan['slices']} slices of {plan['heads_per_cta']} heads; "
+        + "; ".join(f"{k_[:-7]} {v_['ctas']} CTAs of {v_['threads']} threads, "
+                    f"{v_['smem'] / 1024:.1f} KB, {v_['ctas_per_sm']} an SM, "
+                    f"{v_['waves']:.2f} waves" for k_, v_ in kernels.items())
+        + f"): kernel_ms {ms:.4f} ({r['tflops']:.2f} TFLOP/s; {r['tflops_issued']:.2f} issued) "
+        f"plain_ms {plain_ms:.4f} library_ms none (no PyTorch call computes it) bound_ms "
+        f"{r['bound_ms']:.4f} ({r['bound_by']} at the bf16 rate; {flops / 1e9:.2f} GFLOP, "
+        f"{nbytes / 1e6:.1f} MB; the {issued_flops / 1e9:.2f} GFLOP it issues "
+        f"{issued['bound_ms']:.4f}); device ms a call by kernel (profiler): "
+        + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in passes.items()))
     del x, dt, a, bm, cm, dy
 
 
@@ -1802,6 +1825,16 @@ def kernel_spans(call, names, n=8):
                     spans[name].append((e.time_range.start, e.time_range.end))
     return {name: union_ms(found) / len(found) * max(1, round(len(found) / n)) if found else 0.0
             for name, found in spans.items()}
+
+
+def k3_bwd_route(K3, dtype, p, n):
+    """K3-bwd's route for (dtype, P, N) in the checkout `K3` comes from;
+    before the bf16 wgmma route the rule took the dtype alone (another
+    checkout's K3, as ``tools/bwd_timing.py`` times one)."""
+    try:
+        return K3.bwd_route(dtype, p, n)
+    except TypeError:
+        return K3.bwd_route(dtype)
 
 
 def bound(flops, nbytes, dtype):
@@ -3092,7 +3125,8 @@ def bf16_train_parity_phase(arch):
     want_routes = {"K1": ("wgmma", counts["flash_attention"]),
                    "K1-bwd": ("bf16", counts["flash_attention_bwd"]),
                    "K3": ("wgmma", counts["ssd_scan"]),
-                   "K3-bwd": ("bf16", counts["ssd_scan_bwd"])}
+                   "K3-bwd": (k3_bwd_route(K3, torch.bfloat16, cfg.ssm_headdim, cfg.ssm_state)
+                              if cfg.family == "ssm" else "wgmma", counts["ssd_scan_bwd"])}
     for k_, (route, n) in want_routes.items():
         if routes[k_].get(route, 0) != n or sum(routes[k_].values()) != n:
             raise AssertionError(f"{k_} launches by route {routes[k_]}: want {n} on {route}")
@@ -3213,16 +3247,18 @@ def train_phase(arch, production=False):
     k3_route = K3.route(dtype, cfg.ssm_headdim, cfg.ssm_state)
     if k3_routes != {**dict.fromkeys(K3.ROUTES, 0), k3_route: want["ssd_scan"]}:
         raise AssertionError(f"K3 launches by route {k3_routes}: {dtype} takes {k3_route}")
-    bwd_route = "tf32x3" if dtype == torch.float32 else "bf16"
+    k1_bwd_route = "tf32x3" if dtype == torch.float32 else "bf16"
     if k1_bwd_routes != {**dict.fromkeys(K1.BWD_ROUTES, 0),
-                         bwd_route: want["flash_attention_bwd"]}:
-        raise AssertionError(f"K1-bwd launches by route {k1_bwd_routes}: want {bwd_route}")
-    if k3_bwd_routes != {**dict.fromkeys(K3.BWD_ROUTES, 0), bwd_route: want["ssd_scan_bwd"]}:
-        raise AssertionError(f"K3-bwd launches by route {k3_bwd_routes}: want {bwd_route}")
+                         k1_bwd_route: want["flash_attention_bwd"]}:
+        raise AssertionError(f"K1-bwd launches by route {k1_bwd_routes}: want {k1_bwd_route}")
+    k3_bwd_path = (k3_bwd_route(K3, dtype, cfg.ssm_headdim, cfg.ssm_state)
+                   if cfg.family == "ssm" else "tf32x3")
+    if k3_bwd_routes != {**dict.fromkeys(K3.BWD_ROUTES, 0), k3_bwd_path: want["ssd_scan_bwd"]}:
+        raise AssertionError(f"K3-bwd launches by route {k3_bwd_routes}: want {k3_bwd_path}")
     # the routes' own rows in the kernels' line
     counts["ssd_scan_tf32x3"] = k3_routes.get("tf32x3", 0)
     counts["flash_attention_bwd_bf16"] = k1_bwd_routes.get("bf16", 0)
-    counts["ssd_scan_bwd_bf16"] = k3_bwd_routes.get("bf16", 0)
+    counts["ssd_scan_bwd_bf16"] = k3_bwd_routes.get("wgmma", k3_bwd_routes.get("bf16", 0))
     want_kv = {}
     if cfg.family == "encdec":
         key = f"{s}x{cfg.frontend_tokens}"
@@ -4979,15 +5015,33 @@ def main():
     reports = build.build()
     log(f"== build: {', '.join(build.KERNELS)} in {time.perf_counter() - t0:.1f} s")
     k1_ptxas, k4_ptxas = {}, {}
-    bwd_ptxas = {"k1": {}, "k3": {}, "k3_fwd": {}, "k4": {}, "k1_bf16": {}, "k3_bf16": {}}
+    bwd_ptxas = {"k1": {}, "k3": {}, "k3_fwd": {}, "k4": {}, "k1_bf16": {}, "k3_bf16": {},
+                 "k3_wgmma": {}}
     for name, rep in reports.items():
         regs = [int(x) for x in re.findall(r"Used (\d+) registers", rep)]
         spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", rep) if int(x)]
         log(f"   {name}: {len(regs)} instantiations, {min(regs)}-{max(regs)} registers "
             f"a thread, {len(spills)} with spills ({sum(spills)} bytes)")
         for entry in rep.split("Compiling entry function")[1:]:
+            # K3-bwd's wgmma route, one line an instantiation (N; the chunk
+            # kernel's P 64 or P > 64); the row keeps N 128, P 64's
+            found = re.search(r"ssd_bwd_wgmma_(state|chunk|reduce)_kernel"
+                              r"(?:ILi(\d+)E(?:Lb([01])E)?)?", entry)
+            if found:
+                used = int(re.search(r"Used (\d+) registers", entry).group(1))
+                spill = int(re.search(r"(\d+) bytes spill stores", entry).group(1))
+                short, n_, one_p = found.groups()
+                at = (f"<N {n_}" + ("" if one_p is None else
+                                    f", {'P 64' if one_p == '1' else 'P > 64'}") + ">"
+                      if n_ else "")
+                log(f"   ssd_bwd_wgmma_{short}_kernel{at}: {used} registers, {spill} bytes of "
+                    "spill stores")
+                if n_ in (None, "128") and one_p in (None, "1"):
+                    bwd_ptxas["k3_wgmma"].update({f"registers_{short}": used,
+                                                  f"spill_bytes_{short}": spill})
+                continue
             # the bf16 backward routes: K1-bwd's kernels, one line a kernel
-            # and head_dim, and K3-bwd's bf16 instantiations
+            # and head_dim, and K3-bwd's staged bf16 instantiations
             found = re.search(r"flash_bwd_wgmma_(dkdv|dq)_kernelILi(\d+)E|"
                               r"flash_bwd_bf16_(delta)_kernel|"
                               r"ssd_bwd_(\w+?)_kernelI13__nv_bfloat16E", entry)

@@ -235,6 +235,35 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a, u
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// D(64x64, fp32) (+)= A(64x16) . B(16x64), A bf16 K-major and B bf16
+// MN-major (transposed B), both in shared memory.
+__device__ __forceinline__ void wgmma_m64n64k16_ss_tb(float (&d)[32], uint64_t a, uint64_t b,
+                                                      int accumulate) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "setp.ne.b32 p, %34, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n\t}"
+      : HOPPER_F8(d, 0), HOPPER_F8(d, 8), HOPPER_F8(d, 16), HOPPER_F8(d, 24)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D(64x64, fp32) += A(64x16) . B(16x64), A and B bf16 MN-major (both
+// transposed) in shared memory.
+__device__ __forceinline__ void wgmma_m64n64k16_ss_tt(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "setp.ne.b32 p, %34, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n\t}"
+      : HOPPER_F8(d, 0), HOPPER_F8(d, 8), HOPPER_F8(d, 16), HOPPER_F8(d, 24)
+      : "l"(a), "l"(b), "r"(1));
+}
+
 // D(64x64, fp32) += A(64x16) . B(16x64) with A bf16 in registers and B bf16
 // MN-major in shared memory (transposed B). A's four registers per thread
 // hold, as bf16 pairs (lower column in the low half), row 16*(t/32) +

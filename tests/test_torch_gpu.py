@@ -779,15 +779,21 @@ BF16_SSD_BWD_CASES = [
     (1, 64, 3, 64, 64, 3, False, True),       # G == H, one whole chunk, N 64
     (2, 150, 16, 8, 16, 1, False, True),      # the reduced config
     (1, 70, 2, 20, 12, 1, True, True),        # P and N off 8: the one-value staging
+    # the wgmma route's edges: ragged S, G < H, P 128 (two p tiles), N 64,
+    # h0 and d(final state); heads cut into slices, a group of 3
+    (2, 200, 4, 128, 64, 2, True, True),
+    (1, 100, 6, 64, 128, 2, True, False),
 ]
 
 
 @pytest.mark.parametrize("b,s,h,p,n,g,with_h0,with_dstate", BF16_SSD_BWD_CASES)
 def test_ssd_scan_bf16_backward_kernel(cuda, b, s, h, p, n, g, with_h0, with_dstate):
-    """K3 in bf16 under autograd runs K3 (on its route) and K3-bwd's bf16
-    route; dx, db, dc (bf16) match the plain backward on the same inputs
-    within BF16_GRAD_TOL of each one's max, ddt, da and dh0 (fp32) within
-    GRAD_TOL; two calls of the kernel give the same bits."""
+    """K3 in bf16 under autograd runs K3 (on its route) and K3-bwd on the
+    route ``bwd_route`` picks (``wgmma`` at P a multiple of 64 and N 64 or
+    128, else the staged one), counted under it; dx, db, dc (bf16) match
+    the plain backward on the same inputs within BF16_GRAD_TOL of each
+    one's max, ddt, da and dh0 (fp32) within GRAD_TOL; two calls of the
+    kernel give the same bits."""
     from repro_torch.kernels import ssd_scan as tssd
     gen = torch.Generator(device=cuda).manual_seed(14)
     x = (_rand(gen, (b, s, h, p), torch.float32, cuda) * 0.5).bfloat16()
@@ -808,7 +814,10 @@ def test_ssd_scan_bf16_backward_kernel(cuda, b, s, h, p, n, g, with_h0, with_dst
     leaves = ins + ([] if hin is None else [hin])
     auto = torch.autograd.grad(outs, leaves, grads_out)
     assert ops.launch_counts()["ssd_scan_bwd"] == 1
-    assert tssd.ssd_scan_bwd.launches_by_route == {"tf32x3": 0, "bf16": 1}
+    route = tssd.bwd_route(torch.bfloat16, p, n)
+    assert route == ("wgmma" if p % 64 == 0 and n in (64, 128) else "staged")
+    assert tssd.kernel_bwd_route(torch.bfloat16, p, n) == route
+    assert tssd.ssd_scan_bwd.launches_by_route == {**dict.fromkeys(tssd.BWD_ROUTES, 0), route: 1}
     got = tssd.ssd_scan_bwd(x, dt, a, bm, cm, h0, dy, ds)
     again = tssd.ssd_scan_bwd(x, dt, a, bm, cm, h0, dy, ds)
     want = ops.ssd_scan_bwd_plain(x, dt, a, bm, cm, h0, dy, ds)
@@ -827,16 +836,20 @@ def test_ssd_scan_bf16_backward_kernel(cuda, b, s, h, p, n, g, with_h0, with_dst
         assert torch.equal(g_, au)
 
 
-def test_ssd_scan_bf16_bwd_refuses_misaligned(cuda):
-    """K3-bwd's bf16 route stages x, b, c and dy in 16-byte loads: a view
-    that starts off a 16-byte boundary is refused before any launch."""
+@pytest.mark.parametrize("p,n", [(16, 16), (64, 64)])
+def test_ssd_scan_bf16_bwd_refuses_misaligned(cuda, p, n):
+    """K3-bwd's bf16 routes (staged, and wgmma at P 64, N 64) read x, b, c
+    and dy in 16-byte pieces: a view that starts off a 16-byte boundary is
+    refused before any launch."""
     from repro_torch.kernels import ssd_scan as tssd
-    b, s, h, p, n = 1, 16, 2, 16, 16
+    b, s, h = 1, 16, 2
     x = torch.randn(b * s * h * p + 1, device=cuda).bfloat16()[1:].view(b, s, h, p)
     dt, a = torch.rand(b, s, h, device=cuda), -torch.ones(h, device=cuda)
     bm = torch.randn(b, s, 1, n, device=cuda).bfloat16()
+    before = ops.launch_counts()["ssd_scan_bwd"]
     with pytest.raises(ValueError, match="16-byte"):
         tssd.ssd_scan_bwd(x, dt, a, bm, bm, None, x, None)
+    assert ops.launch_counts()["ssd_scan_bwd"] == before
 
 
 def test_train_step_on_card_matches_cpu(cuda):

@@ -16,6 +16,12 @@ to autograd of the plain forward: every gradient within 1e-4 of its own
 max. An emulation of K3's fp32 route and of K3-bwd (their chunk-parallel
 passes, fixed-order reduces and 3xTF32 products) is held to the same
 references at the same bounds, and one TF32 product shown to miss them.
+An emulation of K3-bwd's bf16 ``wgmma`` route (bf16 products, every fp32
+operand as hi + lo bf16 parts, the heads' dB and dC summed in the kernel's
+order) is held to jitted ``jax.vjp`` of ``ssd_chunked`` in fp32 at 1e-4 of
+each gradient's max and, once dx, db and dc are rounded to bf16, to the
+plain backward at 1e-2; with one bf16 part it misses the first bound. The
+route rules (K3's and K3-bwd's) are held to the ``.cu``'s.
 """
 
 import re
@@ -531,18 +537,204 @@ def test_ssd_tf32x3_needs_three_products():
         assert fwd_ok == within and bwd_ok == within, terms
 
 
+def _bf16_parts(v, halves):
+    """v (fp32) as `halves` bf16 parts, largest first, each the bf16
+    rounding of what the parts before it leave (``split_bf16`` of the
+    .cu), as fp32 tensors."""
+    parts = []
+    for _ in range(halves):
+        part = v.to(torch.bfloat16).float()
+        parts.append(part)
+        v = v - part
+    return parts
+
+
+def _mm_parts(eq, a, b, halves):
+    """The einsum `eq` as the `wgmma` route's products: the fp32 operand `a`
+    in `halves` bf16 parts, one product a part (b bf16-valued, so each is
+    exact) summed in fp32."""
+    out = None
+    for part in _bf16_parts(a, halves):
+        t = torch.einsum(eq, part, b)
+        out = t if out is None else out + t
+    return out
+
+
+def _bf16_wgmma_bwd_walk(x, dt, a, b, c, h0, dy, dstate, halves=2, heads_per_cta=None):
+    """K3-bwd's `wgmma` route (``ssd_scan_bwd.cu``, namespace `wg`) as its
+    arithmetic, on bf16 x, b, c, dy: (1) the state walks, S_{c-1} forward
+    from h0 and dS_c backward from dstate (dh0 what is left), each update a
+    product of v = w x or exp(cs) dy, fp32, in `halves` bf16 parts, with B
+    or C; S_{c-1} and dS_c kept as `halves` bf16 planes; (2) per chunk and
+    head, on 64-step chunks: C·Bᵀ and dy·xᵀ of the bf16 inputs (over every
+    p tile) in fp32; M, dG and R from them, the decay masked to s <= t
+    before exp; then per 64-column p tile: U = B·dSᵀ, dx = Mᵀ·dy + w U, dw,
+    V = x·dS, Z = dy·S, C·Z and <dS, S> over the planes; dB = dGᵀ·C + w V
+    and dC = dG·B + exp(cs) Z, every fp32 operand (M, dG) in `halves` parts;
+    d(cs), its reverse cumsum, ddt and the chunk's share of da. dB and dC
+    sum over a group's heads as a CTA does: `heads_per_cta` heads in order,
+    then those sums in order; da over batch and chunks in order. Returns
+    (dx, ddt, da, db, dc, dh0) in fp32, before any rounding to bf16."""
+    bsz, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    rep = h // g
+    per = heads_per_cta or rep
+    xc, bc, cc, dtc, cs, w = _tf32x3_chunks(x.float(), dt, a, b.float(), c.float())
+    dyc = _tf32x3_chunks(dy.float(), dt, a, b.float(), c.float())[0]
+    L, nc = xc.shape[2], xc.shape[1]
+    ecs, cs_l = torch.exp(cs), cs[:, :, -1]
+    zero = torch.zeros(bsz, h, p, n)
+    prev, _ = _pass(_mm_parts("bclhp,bclhn->bchpn", xc * w[..., None], bc, halves), cs_l,
+                    zero if h0 is None else h0)
+    after, dh0 = _pass(_mm_parts("bclhp,bclhn->bchpn", dyc * ecs[..., None], cc, halves), cs_l,
+                       zero if dstate is None else dstate, reverse=True)
+    prev_parts, after_parts = _bf16_parts(prev, halves), _bf16_parts(after, halves)
+    causal = torch.ones(L, L, dtype=torch.bool).tril()
+    e = torch.exp(torch.where(causal, (cs[..., :, None, :] - cs[..., None, :, :]).movedim(-1, 2),
+                              -torch.inf))                     # (B,nc,H,t,s)
+    dt_s = dtc.movedim(-1, 2)[..., None, :]
+    gm = torch.einsum("bclhn,bcmhn->bchlm", cc, bc)             # C B^T, exact products
+    dm = torch.einsum("bclhp,bcmhp->bchlm", dyc, xc)            # dy x^T over every p tile
+    m, dg, r = gm * e * dt_s, dm * e * dt_s, dm * gm * e
+    dx = torch.zeros_like(xc)
+    dw = torch.zeros_like(dtc)
+    cz = torch.zeros_like(dtc)
+    ip = torch.zeros_like(cs_l)
+    dbm = _mm_parts("bchts,bcthn->bcshn", dg, cc, halves)        # dG^T C
+    dcm = _mm_parts("bchts,bcshn->bcthn", dg, bc, halves)        # dG B
+    for p0 in range(0, p, 64):
+        ps = slice(p0, p0 + 64)
+        xt, dyt = xc[..., ps], dyc[..., ps]
+        sp = [t[..., ps, :] for t in prev_parts]
+        dsp = [t[..., ps, :] for t in after_parts]
+        u = sum(torch.einsum("bcshn,bchpn->bcshp", bc, t) for t in dsp)      # B dS^T
+        dx[..., ps] = _mm_parts("bchts,bcthp->bcshp", m, dyt, halves) + w[..., None] * u
+        dw = dw + (xt * u).sum(-1)
+        v = sum(torch.einsum("bcshp,bchpn->bcshn", xt, t) for t in dsp)      # x dS
+        z = sum(torch.einsum("bcthp,bchpn->bcthn", dyt, t) for t in sp)      # dy S_{c-1}
+        dbm = dbm + w[..., None] * v
+        dcm = dcm + ecs[..., None] * z
+        cz = cz + (cc * z).sum(-1)
+        ip = ip + (sum(dsp) * sum(sp)).sum((-2, -1))
+    col = r.sum(-2).movedim(-1, 2)
+    dcs = (r * dt_s).sum(-1).movedim(-1, 2) - dtc * col + ecs * cz - dw * w
+    dcs[:, :, -1] += (dw * w).sum(2) + torch.exp(cs_l) * ip
+    rc = dcs.flip(2).cumsum(2).flip(2)
+    ddt = col + dw * torch.exp(cs_l[:, :, None] - cs) + a * rc
+
+    def steps(t):
+        return t.reshape(bsz, nc * L, *t.shape[3:])[:, :s]
+
+    def fixed_sum(ts):
+        out = ts[0]
+        for t in ts[1:]:
+            out = out + t
+        return out
+
+    def group(t):   # (B, S, H, N) -> (B, S, G, N): heads in CTAs of `per`, in order
+        t = steps(t).reshape(bsz, s, g, rep, n)
+        return fixed_sum([fixed_sum(list(t[:, :, :, k:k + per].unbind(3)))
+                          for k in range(0, rep, per)])
+    da_parts = (dtc * rc).sum(2)                                  # (B, nc, H)
+    da = fixed_sum([da_parts[bi, ci] for bi in range(bsz) for ci in range(nc)])
+    return (steps(dx), steps(ddt), da, group(dbm), group(dcm),
+            None if h0 is None else dh0)
+
+
+def _bf16_inputs(seed, b, s, h, p, n, g, with_h0, with_dstate):
+    """numpy inputs of the bf16 backward, x, b, c and dy rounded to bf16
+    values (kept as fp32 arrays), dt, a, h0 and d(final state) fp32."""
+    d = _inputs(seed, b, s, h, p, n, g, h0=with_h0)
+    rng = np.random.default_rng(seed + 1)
+    d["dy"] = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    d["dstate"] = (rng.standard_normal((b, h, p, n)).astype(np.float32)
+                   if with_dstate else None)
+    for k in ("x", "b", "c", "dy"):
+        d[k] = torch.from_numpy(d[k]).bfloat16().float().numpy()
+    return d
+
+
+BF16_BWD_KEYS = ("x", "dt", "a", "b", "c", "h0", "dy", "dstate")
+
+
+@pytest.mark.parametrize("s,g,n,p,with_h0,with_dstate,per", [
+    (128, 1, 128, 64, False, False, None),   # two whole chunks, one group
+    (100, 2, 64, 64, True, True, None),      # ragged S, G < H, h0 and d(final state)
+    (37, 2, 128, 128, True, False, None),    # under one chunk, P 128 (two p tiles)
+    (150, 1, 64, 128, False, True, 3),       # ragged, P 128, N 64, heads in CTAs of 3
+    (200, 4, 128, 64, True, True, None),     # G == H, ragged over four chunks
+])
+def test_bf16_wgmma_bwd_walk_matches_jax_vjp(s, g, n, p, with_h0, with_dstate, per):
+    """K3-bwd's `wgmma` route as its arithmetic (``_bf16_wgmma_bwd_walk``)
+    against jitted jax.vjp of ``repro.nn.ssd.ssd_chunked`` in fp32 on the
+    same bf16-valued inputs: every gradient within 1e-4 of its own max
+    before dx, db and dc are rounded; after that rounding, against the
+    plain backward ``ops.ssd_scan_bwd_plain`` on bf16 inputs within
+    BF16_GRAD_TOL (1e-2) of the max, the card's check of the kernel."""
+    b, h = 2, 4
+    d = _bf16_inputs(20, b, s, h, p, n, g, with_h0, with_dstate)
+    args = [_t(d[k]) for k in BF16_BWD_KEYS]
+    got = _bf16_wgmma_bwd_walk(*args, heads_per_cta=per)
+    keys = ("x", "dt", "a", "b", "c") + (("h0",) if with_h0 else ())
+
+    @jax.jit
+    def vjp_of_chunked(ins, ct):
+        _, vjp = jax.vjp(lambda *a: jssd.ssd_chunked(*a[:5], 64, h0=a[5] if with_h0 else None),
+                         *ins)
+        return vjp(ct)
+    want = vjp_of_chunked(tuple(_j(d[k]) for k in keys),
+                          (_j(d["dy"]), jnp.zeros((b, h, p, n)) if d["dstate"] is None
+                           else _j(d["dstate"])))
+    bf = {"x", "b", "c", "dy"}
+    plain = ops.ssd_scan_bwd_plain(*(_t(d[k], torch.bfloat16 if k in bf else torch.float32)
+                                     for k in BF16_BWD_KEYS))
+    assert (got[5] is None) == (not with_h0)
+    for name, g_, j, p_ in zip(("dx", "ddt", "da", "db", "dc", "dh0"), got, want, plain):
+        j = np.asarray(j)
+        assert g_.shape == j.shape == p_.shape, name
+        np.testing.assert_allclose(g_.numpy(), j, atol=1e-4 * float(np.abs(j).max()), rtol=0,
+                                   err_msg=name)
+        if name in ("dx", "db", "dc"):
+            assert p_.dtype == torch.bfloat16
+            g_ = g_.bfloat16()
+        scale = float(p_.float().abs().max())
+        np.testing.assert_allclose(g_.float().numpy(), p_.float().numpy(), atol=1e-2 * scale,
+                                   rtol=0, err_msg=name)
+
+
+def test_ssd_bf16_bwd_needs_the_low_half():
+    """The 1e-4 bounds are what the hi + lo parts buy: with every fp32
+    operand (v of the state walks, the planes of S_{c-1} and dS_c, M and
+    dG) in one bf16 part, some gradient of the walk misses 1e-4 of its max
+    against the fp32 plain backward on the same bf16 values; with two every
+    gradient holds."""
+    b, s, h, p, n, g = 2, 128, 4, 64, 128, 1
+    d = _bf16_inputs(21, b, s, h, p, n, g, True, True)
+    args = [_t(d[k]) for k in BF16_BWD_KEYS]
+    plain = ops.ssd_scan_bwd_plain(*args)
+    for halves, within in ((1, False), (2, True)):
+        got = _bf16_wgmma_bwd_walk(*args, halves=halves)
+        ok = all(float((x_ - w_).abs().max()) <= 1e-4 * float(w_.abs().max())
+                 for x_, w_ in zip(got, plain))
+        assert ok == within, halves
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("p", [8, 16, 64, 80, 128, 192])
 @pytest.mark.parametrize("n", [16, 32, 64, 96, 128])
 def test_ssd_route_rule(dtype, p, n):
     """bf16 with P a multiple of 64 and N 64 or 128 takes the tensor cores
     by wgmma; fp32 takes the 3xTF32 route at every P and N; bf16 at other
-    widths stays on the CUDA cores."""
+    widths stays on the CUDA cores. K3-bwd follows the same widths: bf16
+    there on its wgmma route, elsewhere on the staged one, fp32 on 3xTF32."""
     if dtype == torch.float32:
-        want = "tf32x3"
+        want = bwd_want = "tf32x3"
     else:
-        want = "wgmma" if p % 64 == 0 and n in (64, 128) else "cuda_cores"
+        wide = p % 64 == 0 and n in (64, 128)
+        want = "wgmma" if wide else "cuda_cores"
+        bwd_want = "wgmma" if wide else "staged"
     assert tssd.route(dtype, p, n) == want
+    assert tssd.bwd_route(dtype, p, n) == bwd_want
 
 
 def test_ssd_route_rule_matches_kernel():
@@ -563,12 +755,54 @@ def test_ssd_route_rule_matches_kernel():
                 assert tssd.route(dtype, p, n) == took, (dtype, p, n)
 
 
+def test_ssd_bwd_route_rule_matches_kernel():
+    """K3-bwd's route rule is the .cu's `ssd_scan_bwd_route` (an index into
+    ``BWD_ROUTES``), the C expression evaluated in Python over both dtypes
+    and a grid of P and N, as ``test_ssd_route_rule_matches_kernel`` holds
+    K3's."""
+    src = (Path(tssd.__file__).parent / "csrc" / "ssd_scan_bwd.cu").read_text()
+    body = re.search(r'extern "C" int ssd_scan_bwd_route\(int dtype, int P, int N\) \{\s*'
+                     r"return (.*?);\s*\}", src, re.S).group(1)
+    expr = compile(" ".join(body.replace("&&", " and ").replace("||", " or ").split()),
+                   "ssd_scan_bwd_route", "eval")
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    seen = set()
+    for dtype, code in codes.items():
+        for p in range(1, 257):
+            for n in range(1, tssd.MAX_STATE + 1):
+                took = tssd.BWD_ROUTES[int(eval(expr, {}, dict(dtype=code, P=p, N=n)))]
+                assert tssd.bwd_route(dtype, p, n) == took, (dtype, p, n)
+                seen.add(took)
+    assert seen == set(tssd.BWD_ROUTES)
+
+
+def test_bwd_slices_fill_one_wave():
+    """The wgmma backward's slices of a group's heads: at mamba2-2.7b's
+    train call on 132 SMs, 8 slices of 10 heads (128 chunk CTAs, one
+    wave); never an empty slice; one slice where the grid already fills
+    the card; every head in exactly one slice."""
+    assert tssd.bwd_slices(4, 256, 80, 1, 132) == 8
+    plan = tssd.wgmma_bwd_plan(4, 256, 80, 64, 128, 1, sms=132)
+    assert plan["heads_per_cta"] == 10
+    assert plan["ssd_bwd_wgmma_chunk_kernel"]["ctas"] == 128
+    assert plan["ssd_bwd_wgmma_state_kernel"]["ctas"] == 640
+    assert tssd.bwd_slices(64, 4096, 80, 1, 132) == 1
+    for b, s, h, g in ((1, 37, 7, 1), (2, 200, 4, 2), (1, 100, 6, 2), (3, 64, 30, 3)):
+        slices = tssd.bwd_slices(b, s, h, g, 132)
+        rep = h // g
+        per = -(-rep // slices)
+        assert 1 <= slices <= rep and (slices - 1) * per < rep <= slices * per
+
+
 def test_reset_clears_ssd_route_counts():
     tssd.ssd_scan.launches_by_route["wgmma"] += 2
     tssd.ssd_scan.launches_by_route["tf32x3"] += 1
     tssd.ssd_scan.launches += 3
     ops.reset_launch_counts()
     assert tssd.ssd_scan.launches_by_route == {"wgmma": 0, "tf32x3": 0, "cuda_cores": 0}
+    tssd.ssd_scan_bwd.launches_by_route["wgmma"] += 1
+    ops.reset_launch_counts()
+    assert tssd.ssd_scan_bwd.launches_by_route == {"tf32x3": 0, "staged": 0, "wgmma": 0}
     assert ops.launch_counts()["ssd_scan"] == 0
 
 

@@ -487,9 +487,11 @@ def test_grad_guard_predicate():
     assert [tflash.bwd_route(torch.float32, d) for d in (16, 64, 128, 256)] == ["tf32x3"] * 4
     assert [tflash.bwd_route(torch.bfloat16, d) for d in (16, 64, 128, 256)] == [
         None, "bf16", "bf16", "bf16"]
-    assert tssd.bwd_route(torch.float32) == "tf32x3" and tssd.bwd_route(torch.bfloat16) == "bf16"
+    assert tssd.bwd_route(torch.float32, 64, 128) == "tf32x3"
+    assert tssd.bwd_route(torch.bfloat16, 64, 128) == "wgmma"
+    assert tssd.bwd_route(torch.bfloat16, 16, 32) == "staged"
     with pytest.raises(TypeError):
-        tssd.bwd_route(torch.float16)
+        tssd.bwd_route(torch.float16, 64, 128)
     x = torch.zeros(2, requires_grad=True)
     y = torch.zeros(2)
     assert ops.needs_grad(y, x) and ops.needs_grad(None, x)

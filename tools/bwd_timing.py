@@ -28,8 +28,10 @@ sleeping kernel (``chip_smoke.time_ms``):
   inputs) and cold in L2 (four sets in rotation);
 - K3 at mamba2-2.7b's train call (B 4, S 256, H 80, P 64, N 128, G 1,
   fp32, the final state out) and K3-bwd at the same call (no h0, no
-  d(final state)), each with its device time split by kernel (the names
-  the checkout's ``ssd_scan`` module lists, else its one chunk kernel);
+  d(final state)), fp32 and with x, b, c and dy in bf16 (the route the
+  checkout takes there: ``wgmma``, or the staged one before it), each with
+  its device time split by kernel (the names the checkout's ``ssd_scan``
+  module lists, else its one chunk kernel);
 - unless ``--no-train``, each ``--train`` arch's full-width train step
   (default mamba2-2.7b) through ``chip_smoke.train_phase`` (3 steps, then
   two timed steps on the host clock, the step's parts on CUDA events and a
@@ -131,8 +133,8 @@ def k4_bwd(gen, dev):
 
 
 def k3_calls(gen, dev):
-    """(K3's fp32 call, K3-bwd) at mamba2-2.7b's train call, each with its
-    device time split by kernel."""
+    """(K3's fp32 call, K3-bwd, K3-bwd's bf16 route) at mamba2-2.7b's train
+    call, each with its device time split by kernel."""
     import torch.nn.functional as F
     b, s, h, p, n = 4, 256, 80, 64, 128
     rand = lambda *shape: torch.randn(*shape, generator=gen, device=dev)   # noqa: E731
@@ -145,10 +147,19 @@ def k3_calls(gen, dev):
     fwd_names = getattr(K3, "FWD_KERNELS", ("ssd_chunk_kernel",))
     bwd_names = getattr(K3, "BWD_KERNELS", ("ssd_bwd_chunk", "ssd_bwd_reduce_bc",
                                             "ssd_bwd_reduce_dt"))
+    # the bf16 route: x, b, c and dy in bf16 (the production dtypes); its
+    # kernels those of the wgmma route where the checkout has one, else the
+    # staged route's (the fp32 kernels)
+    xb, dyb, bb, cb = (t.bfloat16() for t in (x, dy, bm, cm))
+    bf16 = lambda: K3.ssd_scan_bwd(xb, dt, a, bb, cb, None, dyb, None)   # noqa: E731
+    bf16_names = getattr(K3, "BWD_WGMMA_KERNELS", bwd_names)
     return ({"ms": chip_smoke.time_ms("K3 fp32", fwd), "route": K3.route(x.dtype, p, n),
              "split_ms": chip_smoke.kernel_spans(fwd, fwd_names)},
             {"ms": chip_smoke.time_ms("K3-bwd", bwd),
-             "split_ms": chip_smoke.kernel_spans(bwd, bwd_names)})
+             "split_ms": chip_smoke.kernel_spans(bwd, bwd_names)},
+            {"ms": chip_smoke.time_ms("K3-bwd bf16", bf16),
+             "route": chip_smoke.k3_bwd_route(K3, torch.bfloat16, p, n),
+             "split_ms": chip_smoke.kernel_spans(bf16, bf16_names)})
 
 
 def main():
@@ -172,10 +183,10 @@ def main():
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     k1_fwd, k1_bwd = k1_calls(gen, dev)
-    k3_fwd, k3_bwd = k3_calls(gen, dev)
+    k3_fwd, k3_bwd, k3_bwd_bf16 = k3_calls(gen, dev)
     out = {"tag": args.tag, "card": card, "k1_fwd": k1_fwd, "k1_bwd": k1_bwd,
            "k1_bwd_bf16": k1_bf16_bwd(gen, dev), "k4_bwd": k4_bwd(gen, dev), "k3_fwd": k3_fwd,
-           "k3_bwd": k3_bwd}
+           "k3_bwd": k3_bwd, "k3_bwd_bf16": k3_bwd_bf16}
     torch.cuda.empty_cache()
     runs = [] if args.no_train else [(arch, False) for arch in args.train or ["mamba2-2.7b"]]
     for arch, production in runs + [(arch, True) for arch in args.bf16_train]:
