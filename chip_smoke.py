@@ -50,6 +50,11 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    and fp32, D 128) and K2 (decode, at its split edges, bf16 and fp32) at
    qwen3-14b's production TP padding, 48 query heads over 8 kv heads (a
    group of 6, which no other call has), K1 and K2 timed there beside SDPA;
+   K2 also with its log-sum-exp at every case, gemma2's capped calls
+   included (the fp32 output and the lse against the plain version's, the
+   output without it that output rounded once, bit for bit:
+   ``check_k2_lse``), and timed at the tp-16 call with and without it,
+   alternated (`lse_ms`, `no_lse_ms`);
 4. serve: qwen3-14b at full width (40 layers, bf16 params made on the card
    from a seed) answers four clients through the port's InferenceServer;
    the kernels' launch counts must rise by 40 per prefill (K1) and by 40
@@ -102,7 +107,18 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    the plain versions (the real vocab's; the padded ids' -1e30 apart),
    random values in the padded rows of every wq and wo leaving the
    kernels' logits bit-identical, and prefill ms, decode ms a step, device
-   ms and peak memory printed beside the unpadded phase's; then reshard:
+   ms and peak memory printed beside the unpadded phase's; then the same
+   params under the reference's decode layout, a (1, 1) ("data", "model")
+   mesh, where ``act_kv_seq`` maps to "model": the cache sharded on its
+   sequence, K2 40 a step all with its log-sum-exp (the sequence-sharded
+   branch's combine on one rank), tokens equal the ("data",) mesh's, the
+   full-depth check, decode ms a step, device busy ms and operations a
+   step beside the ("data",) mesh's; then the sequence-sharded decode on 2
+   and 4 ranks of the card (processes over gloo and a file store, each
+   holding its chunk of one seeded cache as a DTensor) at the tp-16 call
+   and gemma2's capped global call, the valid length ending in rank 0's
+   chunk, on a boundary and in the last chunk, held to K2 on the whole
+   cache and to the plain version; then reshard:
    the reduced qwen3-14b's tp-2 train state checkpointed on the host and
    restored by ``launch.ft.reshard_state`` onto the one-rank CUDA mesh,
    every leaf bit-equal and on the card;
@@ -433,7 +449,7 @@ TRAIN_ARCHS = ("recurrentgemma-2b", "mamba2-2.7b", "seamless-m4t-large-v2")
 GRAD_TOL = 1e-4   # of a gradient tensor's max |value|, and relative
 # K1-bwd's one route: every head_dim on the tensor cores, 3xTF32 mma.sync
 K1_BWD_ROUTE = "tensor cores, 3xTF32 mma.sync"
-LSE_TOL = 1e-5   # K1's log-sum-exp against its plain version, and relative
+LSE_TOL = 1e-5   # K1's and K2's log-sum-exp against their plain versions, and relative
 # how much farther from an fp64 reference a gradient leaf through the
 # kernels may be than the same leaf through the plain fp32 versions
 FP64_MARGIN = 2.0
@@ -465,6 +481,17 @@ BF16_GRAD_TOL = 1e-2
 # a bf16 gradient leaf of the train parity against the plain versions'
 BF16_LEAF_TOL = 5e-2
 LSE_BF16_TOL = 1e-4   # the wgmma route's log-sum-exp, and relative
+LSE_ROUNDS = 4   # K2 at the tp-16 call with and without its log-sum-exp, alternated
+# the sequence-sharded decode on R ranks of one card (``seq_shard_phase``):
+# K2's partials over each rank's chunk of one seeded cache, combined by
+# gloo all-reduces (``nn.attention._decode_call``), at the tp-16 call and
+# gemma2's capped global call, the valid length ending in rank 0's chunk,
+# on a chunk boundary and in the last chunk at R 2 and 4
+SEQ_RANKS = (2, 4)
+SEQ_CALLS = {"qwen3_tp16_call": dict(b=4, s=512, h=48, kh=8, d=128, softcap=None,
+                                     scale=128 ** -0.5, lengths=(100, 256, 500)),
+             "gemma2_call": dict(b=4, s=4416, h=16, kh=8, d=256, softcap=50.0, scale=0.0625,
+                                 lengths=(1000, 2208, 4400))}
 
 
 def log(msg):
@@ -520,6 +547,24 @@ def row_atol(want, tol, dims):
     outputs of about 0.025, where a fixed atol of 2e-2 would pass a kernel
     that dropped a split of them."""
     return tol * want.float().pow(2).mean(dims, keepdim=True).sqrt()
+
+
+def check_k2_lse(name, got, q, k, v, lengths, **kw):
+    """K2 with its log-sum-exp (a sequence-sharded cache's partial) on the
+    inputs of a call whose output without it was `got`: the fp32 output
+    and the lse against the plain version's (fp32 arithmetic on the same
+    inputs either way: 2e-5 and LSE_TOL), and `got` that output rounded
+    once, bit for bit."""
+    from repro_torch.kernels import decode_attention as K2
+    from repro_torch.kernels import ops
+
+    out, lse = K2.decode_attention(q, k, v, lengths, return_lse=True, **kw)
+    want, want_lse = ops.decode_attention_plain(q, k, v, lengths, return_lse=True, **kw)
+    check_close(f"{name} with lse: fp32 output", out, want, 2e-5)
+    check_close(f"{name} with lse: lse", lse, want_lse, LSE_TOL)
+    if not torch.equal(got, out.to(got.dtype)):
+        raise AssertionError(f"{name}: the output without lse is not the lse call's output "
+                             "rounded once")
 
 
 def gemma2_attention_checks(rand, b=CLIENTS):
@@ -585,9 +630,11 @@ def gemma2_attention_checks(rand, b=CLIENTS):
         want = ops.decode_attention_plain(q, k, v, ln, **kw)
         torch.cuda.synchronize()
         chunk, splits = K2.plan(cb, cs, ch, ckh, cd, dt, sms)
-        check_close(f"K2 {(cb, cs, ch, ckh, cd)} {str(dt)[6:]} softcap {GEMMA['softcap']:g}, "
-                    f"q x {qmul:g}, lengths {lens} [chunk {chunk}, {splits} splits]", got,
-                    want, tol[dt], row_atol(want, tol[dt], (1, 2)))
+        name = (f"K2 {(cb, cs, ch, ckh, cd)} {str(dt)[6:]} softcap {GEMMA['softcap']:g}, "
+                f"q x {qmul:g}, lengths {lens}")
+        check_close(f"{name} [chunk {chunk}, {splits} splits]", got, want, tol[dt],
+                    row_atol(want, tol[dt], (1, 2)))
+        check_k2_lse(name, got, q, k, v, ln, **kw)
         if qmul > 1:
             bent = max_err(want, ops.decode_attention_plain(q, k, v, ln, scale=cd ** -0.5))
             log(f"   the cap moved the plain output by {bent:.3e}")
@@ -912,9 +959,10 @@ def kernel_phase(k1_ptxas, k4_ptxas, bwd_ptxas):
         want = ops.decode_attention_plain(q, k, v, ln, scale=cd ** -0.5)
         torch.cuda.synchronize()
         chunk, splits = K2.plan(cb, cs, ch, ckh, cd, dt, sms)
-        err = check_close(f"K2 {(cb, cs, ch, ckh, cd)} {str(dt)[6:]} lengths {lens} "
-                          f"[chunk {chunk}, {splits} splits]", got, want, tol[dt])
+        name = f"K2 {(cb, cs, ch, ckh, cd)} {str(dt)[6:]} lengths {lens}"
+        err = check_close(f"{name} [chunk {chunk}, {splits} splits]", got, want, tol[dt])
         main_err = err if main_err is None else main_err
+        check_k2_lse(name, got, q, k, v, ln, scale=cd ** -0.5)
 
     # capture: the plan reads no length on the host, so one captured call
     # replays right at lengths written in place afterwards
@@ -971,13 +1019,16 @@ def kernel_phase(k1_ptxas, k4_ptxas, bwd_ptxas):
         finally:
             K2.num_sms = real
 
-    def time_k2(b, S, h, kh, d, n_valid, softcap=None):
+    def time_k2(b, S, h, kh, d, n_valid, softcap=None, lse=False):
         """Timing at a serving path's mid-run length, with enough caches in
         rotation that their valid rows exceed the 50 MB L2: a decode step
         finds each layer's cache cold. Also times each chunk of a sweep, the
         plan picking it for an SM count other than the card's. SDPA computes
         no softcap: with one, flex_attention's time is the library cell and
-        SDPA's uncapped time stands beside it, labelled."""
+        SDPA's uncapped time stands beside it, labelled. With `lse`, the
+        call with the log-sum-exp (the sequence-sharded decode's) and
+        without it, alternated over LSE_ROUNDS rounds: `lse_ms` and
+        `no_lse_ms`, each the mean of its rounds."""
         sc = d ** -0.5
         cap = dict(softcap=softcap)
         q = rand(b, h, d, dtype=torch.bfloat16)
@@ -1010,6 +1061,25 @@ def kernel_phase(k1_ptxas, k4_ptxas, bwd_ptxas):
         row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                    **bound(4 * b * h * n_valid * d, nbytes, "bfloat16"),
                    chunk=chunk, splits=splits, ctas=b * kh * splits)
+        if lse:
+            rounds = {False: [], True: []}
+            for _ in range(LSE_ROUNDS):
+                for with_lse in (False, True):
+                    rounds[with_lse].append(time_ms(f"K2 lse {with_lse}", rotating(
+                        lambda kk, vv: K2.decode_attention(q, kk, vv, ln, scale=sc,
+                                                           return_lse=with_lse, **cap), kvs),
+                        iters=32))
+            # the lse call writes fp32 out (2x q's bytes) and 4 bytes a row more
+            lse_bytes = nbytes + b * h * d * (4 - q.element_size()) + 4 * b * h
+            row.update(no_lse_ms=sum(rounds[False]) / LSE_ROUNDS,
+                       lse_ms=sum(rounds[True]) / LSE_ROUNDS,
+                       lse_rounds_ms={"without": rounds[False], "with": rounds[True]},
+                       lse_bound_ms=lse_bytes / PEAK_BYTES * 1e3)
+            log(f"   K2 with and without lse, alternated over {LSE_ROUNDS} rounds: lse_ms "
+                f"{row['lse_ms']:.4f} ({', '.join(f'{t:.4f}' for t in rounds[True])}), "
+                f"no_lse_ms {row['no_lse_ms']:.4f} "
+                f"({', '.join(f'{t:.4f}' for t in rounds[False])}); lse bound_ms "
+                f"{row['lse_bound_ms']:.5f}")
         lib = f"library_ms {lib_ms:.4f} (SDPA)"
         if softcap:
             flex = flex_attention_call(
@@ -1051,7 +1121,7 @@ def kernel_phase(k1_ptxas, k4_ptxas, bwd_ptxas):
     rows["decode_attention"]["qwen3_moe_call"] = time_k2(
         b, S, QMOE["h"], QMOE["kh"], QMOE["d"], PROMPT_LEN + TOKENS // 2)
     rows["decode_attention"]["qwen3_tp16_call"] = time_k2(
-        b, S, TP16["h"], TP16["kh"], TP16["d"], PROMPT_LEN + TOKENS // 2)
+        b, S, TP16["h"], TP16["kh"], TP16["d"], PROMPT_LEN + TOKENS // 2, lse=True)
     # seamless's decode: cross-attention over the 1024 cached frames, every
     # one valid, and the self-attention's cache of max_len slots
     smax = SERVE["seamless-m4t-large-v2"][1]
@@ -4756,15 +4826,19 @@ def sharded_serve_phase(unpadded):
     steps' against the plain versions (``full_depth_plain_check``); random
     values in the padded rows of every wq and wo leave the kernels' logits
     bit-identical; prefill ms, decode ms a step, device ms and peak memory
-    printed beside the unpadded serve phase's (`unpadded`)."""
+    printed beside the unpadded serve phase's (`unpadded`); no K2 launch
+    with the log-sum-exp. Then the same params under the reference's
+    decode layout, a (1, 1) ("data", "model") mesh (``seq_sharded_serve``).
+    Returns the launches of both runs, summed."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs.registry import make_model
+    from repro_torch.kernels import decode_attention as K2
     from repro_torch.kernels import flash_attention as K1
     from repro_torch.kernels import ops
     from repro_torch.launch import serve_policy
     from repro_torch.launch.dryrun import production_config
-    from repro_torch.launch.mesh import single_device_mesh
+    from repro_torch.launch.mesh import make_mesh, single_device_mesh
     from repro_torch.launch.serve import greedy_generate, make_prefill, make_serve_step
     from repro_torch.launch.specs import rules_for
     from repro_torch.sharding.ctx import is_dtensor, sharding_ctx
@@ -4818,6 +4892,7 @@ def sharded_serve_phase(unpadded):
                              max_len=max_len, device=dev, params=params, deadline_ms=1000.0,
                              mesh=mesh, rules=rules)
     counts = ops.launch_counts()
+    with_lse = K2.decode_attention.launches_with_lse
     k1_routes = dict(K1.flash_attention.launches_by_route)
     peak = torch.cuda.max_memory_allocated()
     st = out["stats"]
@@ -4873,6 +4948,8 @@ def sharded_serve_phase(unpadded):
     del tok, cache
     if not (pre["K1"] > 0 and dec["K2"] > 0):
         raise AssertionError(f"no K1/K2 device time: prefill {pre}, decode {dec}")
+    if with_lse:
+        raise AssertionError(f"{with_lse} K2 launches with lse on the ('data',) mesh")
     wall_step = out["decode_s"] * 1e3 / steps
     m = {"layers": cfg.num_layers, "params": n, "padded_heads": cfg.padded_heads,
          "padded_vocab": cfg.padded_vocab, "prefill_ms": out["prefill_s"] * 1e3,
@@ -4889,8 +4966,216 @@ def sharded_serve_phase(unpadded):
         f", a decode step {dec['busy']:.3f} (unpadded "
         f"{unpadded['decode_device_ms_per_step']['busy']:.3f}); device operations a decode step "
         f"{dec_ops:.0f} (unpadded {unpadded['decode_device_ops_per_step']:.0f})")
+    # the reference's decode layout: the same params on a (1, 1) ("data",
+    # "model") mesh
+    mesh2 = make_mesh((1, 1), ("data", "model"), "cuda")
+    rules2 = rules_for(cfg, mesh2, "decode")
+    counts2, m["seq_sharded"] = seq_sharded_serve(bundle, remesh(params, mesh2, rules2), mesh2,
+                                                  rules2, prompts, max_len, m)
     del params
+    return {k: counts[k] + counts2[k] for k in counts}, m
+
+
+def remesh(params, mesh, rules):
+    """`params`, DTensors on a one-rank mesh, laid out on the one-rank `mesh`
+    by `rules`, in place: each local tensor is the whole parameter, so no
+    value is copied."""
+    from repro_torch.sharding.param import distribute_module
+    with torch.no_grad():
+        for name, p in list(params.named_parameters()):
+            owner, _, leaf = name.rpartition(".")
+            mod = params.get_submodule(owner) if owner else params
+            setattr(mod, leaf, torch.nn.Parameter(p.to_local(), requires_grad=p.requires_grad))
+    return distribute_module(params, mesh, rules)
+
+
+def seq_sharded_serve(bundle, params, mesh, rules, prompts, max_len, data_mesh):
+    """qwen3-14b at tp 16 served under the reference's decode layout: its
+    params DTensors on a (1, 1) ("data", "model") mesh, where ``rules_for(cfg,
+    mesh, "decode")`` maps ``act_kv_seq`` and ``heads`` to "model", so the
+    cache is sharded on its sequence and every decode layer takes the
+    sequence-sharded branch (K2 over the rank's chunk with its log-sum-exp,
+    then the combine, which on one rank weighs by exp(0) and divides by
+    1). K1 40 a prefill and K2 40 a step, every K2 launch with the
+    log-sum-exp; the served tokens equal the ("data",) mesh's
+    (`data_mesh`, that run's metrics); the full-depth check against the
+    plain versions; decode ms a step, device busy ms and device operations
+    a step printed beside the ("data",) mesh's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import decode_attention as K2
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_policy
+    from repro_torch.launch.serve import make_prefill, make_serve_step
+    from repro_torch.sharding.ctx import sharding_ctx
+
+    cfg = bundle.cfg
+    log(f"   the reference's decode layout: mesh {mesh}, rules heads={rules['heads']} "
+        f"act_batch={rules['act_batch']} act_kv_seq={rules['act_kv_seq']}")
+    if rules["act_kv_seq"] != ("model",) or rules["heads"] != ("model",):
+        raise AssertionError(f"decode rules on the (1, 1) mesh: {dict(rules)}")
+    ctx = functools.partial(sharding_ctx, mesh, rules)
+    prefill, step = make_prefill(bundle, max_len, torch.bfloat16), make_serve_step(bundle)
+    with ctx():   # warm-up
+        tok, cache = prefill(params, {"tokens": prompts})
+        placed = str(tuple(cache["layers"][0]["k"].placements))
+        step(params, tok, cache)
+        torch.cuda.synchronize()
+    del tok, cache
+    if placed != "(Shard(dim=0), Shard(dim=1))":
+        raise AssertionError(f"the cache's k is placed {placed}, not on its sequence")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = serve_policy.serve(cfg, clients=CLIENTS, prompt_len=prompts.shape[1], tokens=TOKENS,
+                             max_len=max_len, device=prompts.device, params=params,
+                             deadline_ms=1000.0, mesh=mesh, rules=rules)
+    counts = ops.launch_counts()
+    with_lse = K2.decode_attention.launches_with_lse
+    steps = out["stats"]["batches"]
+    want = expected_launches(cfg, steps)
+    log(f"   launches: {counts}, K2 with lse {with_lse}; decode steps (batches) {steps}; "
+        f"cache k placed {placed}")
+    if counts != want or with_lse != want["decode_attention"] or steps != TOKENS:
+        raise AssertionError(f"launch counts {counts} (K2 with lse {with_lse}) != expected "
+                             f"{want}, or {steps} steps for {TOKENS} tokens")
+    tokens = {cid: [out["first"][cid]] + out["tokens"][cid] for cid in range(CLIENTS)}
+    if tokens != data_mesh["tokens"]:
+        raise AssertionError(f"tokens on the (1, 1) mesh {tokens} differ from the ('data',) "
+                             f"mesh's {data_mesh['tokens']}")
+    log("   served tokens equal those on the ('data',) mesh")
+    with ctx():
+        plain = full_depth_plain_check(bundle, params, prompts, max_len)
+        tok, cache = prefill(params, {"tokens": prompts})
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                tok, cache = step(params, tok, cache)
+            torch.cuda.synchronize()
+    del tok, cache
+    dec, dec_ops = device_breakdown(prof, 3)
+    if not dec["K2"] > 0:
+        raise AssertionError(f"no K2 device time in a decode step: {dec}")
+    wall_step = out["decode_s"] * 1e3 / steps
+    m = {"prefill_ms": out["prefill_s"] * 1e3, "decode_ms_per_step": wall_step,
+         "decode_device_ms_per_step": dec, "decode_idle_share": 1 - dec["busy"] / wall_step,
+         "decode_device_ops_per_step": dec_ops, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "k2_with_lse": with_lse, "cache_k_placements": placed, **plain, "tokens": tokens}
+    log(f"   (1, 1) mesh: decode ms a step {wall_step:.2f} (('data',) mesh "
+        f"{data_mesh['decode_ms_per_step']:.2f}), device busy ms a step {dec['busy']:.3f} "
+        f"({data_mesh['decode_device_ms_per_step']['busy']:.3f}), K2 ms a step {dec['K2']:.3f} "
+        f"({data_mesh['decode_device_ms_per_step']['K2']:.3f}), device operations a step "
+        f"{dec_ops:.0f} ({data_mesh['decode_device_ops_per_step']:.0f}), prefill ms "
+        f"{m['prefill_ms']:.2f} ({data_mesh['prefill_ms']:.2f}) (printed, not asserted)")
     return counts, m
+
+
+def seq_rank_worker(rank, world, store):
+    """One rank of ``seq_shard_phase``: a gloo group of `world` ranks over
+    the file `store`, every rank on cuda:0, a (1, world) ("data", "model")
+    mesh. For each of SEQ_CALLS, one seeded cache (the same on every rank)
+    of which the rank keeps its chunk of the sequence as a DTensor
+    (``DTensor.from_local``, Shard(1) over "model"), and at each valid
+    length ``nn.attention._decode_call``: K2 with its log-sum-exp over the
+    chunk, the partials combined by all-reduces of CUDA tensors through
+    gloo. The result against K2 on the whole cache and against the plain
+    version, within K2's bf16 tolerance (2e-2, atol 2e-2 of each row's
+    rms). Prints one RESULT line."""
+    sys.path.insert(0, str(SRC))
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.kernels import decode_attention as K2
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.nn import attention
+
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    mesh = make_mesh((1, world), ("data", "model"), "cuda")
+    res = {}
+    for name, c in SEQ_CALLS.items():
+        b, s, h, kh, d = (c[x] for x in ("b", "s", "h", "kh", "d"))
+        gen = torch.Generator(device=dev).manual_seed(17)
+        q = torch.randn(b, h, d, generator=gen, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn(b, s, kh, d, generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        size = s // world
+        ck, cv = (DTensor.from_local(t[:, rank * size:(rank + 1) * size].contiguous(), mesh,
+                                     (Replicate(), Shard(1)), run_check=False, shape=t.shape,
+                                     stride=t.stride()) for t in (k, v))
+        qd = DTensor.from_local(q, mesh, (Replicate(), Replicate()), run_check=False)
+        for n in c["lengths"]:
+            before = K2.decode_attention.launches_with_lse
+            got = attention._decode_call(qd, ck, cv, torch.tensor([n], device=dev),
+                                         scale=c["scale"], softcap=c["softcap"]).to_local()
+            torch.cuda.synchronize()
+            ln = torch.full((b,), n, dtype=torch.int32, device=dev)
+            whole = ops.decode_attention(q, k, v, ln, scale=c["scale"], softcap=c["softcap"])
+            plain = ops.decode_attention_plain(q, k, v, ln, scale=c["scale"],
+                                               softcap=c["softcap"])
+            ranks_live = -(-n // size)
+            tag = f"R {world} rank {rank} {name} length {n} ({ranks_live} of {world} ranks live)"
+            res[f"{name} {n}"] = {
+                "err_whole": check_close(f"{tag}: against K2 on the whole cache", got, whole,
+                                         2e-2, row_atol(whole, 2e-2, (2,))),
+                "err_plain": check_close(f"{tag}: against the plain version", got, plain, 2e-2,
+                                         row_atol(plain, 2e-2, (2,))),
+                "lse_launches": K2.decode_attention.launches_with_lse - before}
+            if res[f"{name} {n}"]["lse_launches"] != 1:
+                raise AssertionError(f"{tag}: K2 ran {res[f'{name} {n}']['lse_launches']} "
+                                     "times with lse, not once")
+    dist.barrier()
+    print("RESULT " + json.dumps({"rank": rank, "world": world, "checks": res}), flush=True)
+    dist.destroy_process_group()
+
+
+def seq_shard_phase():
+    """The sequence-sharded decode on more than one rank, on one card: for
+    R in SEQ_RANKS, R processes on cuda:0 over a gloo group with a file
+    store, each running ``seq_rank_worker``; every rank's checks must pass.
+    NCCL cannot put two ranks on one device; gloo stages its all-reduces
+    of CUDA tensors through the host."""
+    import os
+    store_dir = ROOT / "build" / "seq_shard_store"
+    store_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT), str(SRC)]),
+               OMP_NUM_THREADS="1")
+    out = {}
+    for world in SEQ_RANKS:
+        log(f"== sequence-sharded decode on {world} ranks of one card (gloo, a file store): "
+            f"{', '.join(SEQ_CALLS)}")
+        store = store_dir / f"store_{world}"
+        store.unlink(missing_ok=True)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke.seq_rank_worker({r}, {world}, "
+             f"{str(store)!r})"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for r in range(world)]
+        try:
+            outs = [p.communicate(timeout=300) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        results = []
+        for r, (p, (o, e)) in enumerate(zip(procs, outs)):
+            for line in o.splitlines():   # rank 0's checks; the others' in their RESULT
+                if r == 0 and not line.startswith("RESULT "):
+                    print(f"   [rank {r}] {line}", flush=True)
+            if p.returncode != 0:
+                raise AssertionError(f"rank {r} of {world} exited {p.returncode}: {e[-3000:]}")
+            results.append(json.loads([x for x in o.splitlines()
+                                       if x.startswith("RESULT ")][-1][len("RESULT "):]))
+        worst = {key: max(max(x["checks"][key]["err_whole"], x["checks"][key]["err_plain"])
+                          for x in results) for key in results[0]["checks"]}
+        out[world] = {"seconds": time.perf_counter() - t0, "max_abs_err": worst}
+        log(f"   R {world}: every rank's checks pass in {out[world]['seconds']:.1f} s; "
+            f"max_abs_err by call and length {json.dumps(worst)}")
+        store.unlink(missing_ok=True)
+    return out
 
 
 def reshard_phase():
@@ -5150,6 +5435,9 @@ def main():
                                     serve_metrics["qwen3-14b"])
     sharded_metrics["seconds"] = phase_s["sharded serve qwen3-14b tp16"]
     add(counts)
+    # the same decode on 2 and 4 ranks of the card, each its own process:
+    # a comparison with K2 on the whole cache, not a main path's launches
+    seq_metrics = timed("sequence-sharded decode on ranks", seq_shard_phase)
     reshard_metrics = timed("reshard", reshard_phase)
     # a comparison with the plain versions: its launches are not the path's
     ring_metrics = timed("ring wrap gemma2-9b", ring_wrap_phase)
@@ -5234,6 +5522,7 @@ def main():
     for arch, metrics in serve_metrics.items():
         log(f"serve {arch}: {json.dumps(metrics)}")
     log(f"sharded serve qwen3-14b tp16: {json.dumps(sharded_metrics)}")
+    log(f"sequence-sharded decode on ranks: {json.dumps(seq_metrics)}")
     log(f"reshard: {json.dumps(reshard_metrics)}")
     log(f"dry run: {json.dumps(dryrun_metrics)}")
     log(f"ring wrap gemma2-9b: {json.dumps(ring_metrics)}")

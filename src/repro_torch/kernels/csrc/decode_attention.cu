@@ -62,7 +62,14 @@
 //   sum exp(m_s - M) acc_s / max(sum exp(m_s - M) l_s, 1e-30) in q's dtype.
 //   It is a programmatic dependent launch: its grid is launched while the
 //   split pass runs and waits (griddepcontrol.wait) for that pass's end and
-//   its writes, which hides the second launch's latency.
+//   its writes, which hides the second launch's latency. Asked for the
+//   log-sum-exp (a non-null `lse`), it runs its instantiation that writes
+//   the output in fp32, not in q's dtype, and M + log L, each row's
+//   log-sum-exp over its valid (and capped) logits, beside it: what a rank
+//   holding one chunk of a sequence-sharded cache contributes to the
+//   combine over the ranks (nn/attention.py::_decode_call). A length-0
+//   row's is -1e30 + log S, which is -1e30 in fp32, so such a rank weighs
+//   exactly 0 there.
 //
 // Both kernels launch from one C call on the caller's stream; the workspace
 // and the output are the caller's. Nothing here allocates or synchronises.
@@ -270,10 +277,12 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
 }
 
-template <typename T, int D>
+// TO is the output's type: q's without the log-sum-exp, fp32 with it (LSE).
+template <typename TO, int D, bool LSE>
 __global__ void __launch_bounds__(D)
 decode_combine_kernel(const float* __restrict__ ws, const int* __restrict__ lengths,
-                      T* __restrict__ o, int B, int S, int H, int chunk) {
+                      TO* __restrict__ o, float* __restrict__ lse, int B, int S, int H,
+                      int chunk) {
   const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
   const int len = lengths[b];
   const int n = len <= 0 ? S : min(len, S);
@@ -306,13 +315,16 @@ decode_combine_kernel(const float* __restrict__ ws, const int* __restrict__ leng
     }
     M = mb;
   }
-  o[((long)b * H + h) * D + d] = from_f<T>(A / fmaxf(L, 1e-30f));
+  o[((long)b * H + h) * D + d] = from_f<TO>(A / fmaxf(L, 1e-30f));
+  if constexpr (LSE) {
+    if (d == 0) lse[(long)b * H + h] = M + logf(L);   // L >= 1: the max's own term
+  }
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const void* lengths, void* o, void* ws,
-           int B, int S, int H, int KH, int chunk, float scale, float softcap,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, const void* lengths, void* o,
+           void* lse, void* ws, int B, int S, int H, int KH, int chunk, float scale,
+           float softcap, cudaStream_t stream) {
   const long smem = smem_bytes(chunk, H / KH, D, (int)sizeof(T));
   if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
   static std::atomic<unsigned long long> opted_in{0};
@@ -337,39 +349,47 @@ int launch(const void* q, const void* k, const void* v, const void* lengths, voi
   cfg.stream = stream;
   cfg.attrs = pdl;
   cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, decode_combine_kernel<T, D>,
-                                 static_cast<const float*>(ws),
-                                 static_cast<const int*>(lengths), static_cast<T*>(o), B, S,
-                                 H, chunk);
+  const float* wsf = static_cast<const float*>(ws);
+  const int* len = static_cast<const int*>(lengths);
+  if (lse)
+    return (int)cudaLaunchKernelEx(&cfg, decode_combine_kernel<float, D, true>, wsf, len,
+                                   static_cast<float*>(o), static_cast<float*>(lse), B, S, H,
+                                   chunk);
+  return (int)cudaLaunchKernelEx(&cfg, decode_combine_kernel<T, D, false>, wsf, len,
+                                 static_cast<T*>(o), static_cast<float*>(nullptr), B, S, H,
+                                 chunk);
 }
 
 template <typename T>
 int dispatch_d(int D, const void* q, const void* k, const void* v, const void* lengths, void* o,
-               void* ws, int B, int S, int H, int KH, int chunk, float scale, float cap,
-               cudaStream_t st) {
+               void* lse, void* ws, int B, int S, int H, int KH, int chunk, float scale,
+               float cap, cudaStream_t st) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, lengths, o, ws, B, S, H, KH, chunk, scale, cap, st);
-    case 64: return launch<T, 64>(q, k, v, lengths, o, ws, B, S, H, KH, chunk, scale, cap, st);
+    case 16:
+      return launch<T, 16>(q, k, v, lengths, o, lse, ws, B, S, H, KH, chunk, scale, cap, st);
+    case 64:
+      return launch<T, 64>(q, k, v, lengths, o, lse, ws, B, S, H, KH, chunk, scale, cap, st);
     case 128:
-      return launch<T, 128>(q, k, v, lengths, o, ws, B, S, H, KH, chunk, scale, cap, st);
+      return launch<T, 128>(q, k, v, lengths, o, lse, ws, B, S, H, KH, chunk, scale, cap, st);
     case 256:
-      return launch<T, 256>(q, k, v, lengths, o, ws, B, S, H, KH, chunk, scale, cap, st);
+      return launch<T, 256>(q, k, v, lengths, o, lse, ws, B, S, H, KH, chunk, scale, cap, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16; lengths is int32 on the device; ws is an
-// fp32 workspace of (ceil(S / chunk), B, H, D + 2); chunk is a power of two
-// >= 16 whose CTA fits the shared memory; softcap > 0 caps the scaled
-// logits, 0 leaves them. Returns cudaGetLastError() after
-// the launches (0 on success); launches on `stream` and does not
+// dtype: 0 float32, 1 bfloat16; lengths is int32 on the device; o is
+// (B, H, D) in q's dtype when lse is null, else fp32, and lse (B, H) fp32
+// or null; ws is an fp32 workspace of (ceil(S / chunk), B, H, D + 2);
+// chunk is a power of two >= 16 whose CTA fits the shared memory; softcap
+// > 0 caps the scaled logits, 0 leaves them. Returns cudaGetLastError()
+// after the launches (0 on success); launches on `stream` and does not
 // synchronise.
 extern "C" int decode_attention(int dtype, const void* q, const void* k, const void* v,
-                                const void* lengths, void* o, void* ws, int B, int S, int H,
-                                int KH, int D, int chunk, float scale, float softcap,
-                                void* stream) {
+                                const void* lengths, void* o, void* lse, void* ws, int B,
+                                int S, int H, int KH, int D, int chunk, float scale,
+                                float softcap, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || KH <= 0 || H % KH != 0 || B > 65535 || KH > 65535 ||
       !(softcap >= 0.f))
     return (int)cudaErrorInvalidValue;
@@ -377,11 +397,11 @@ extern "C" int decode_attention(int dtype, const void* q, const void* k, const v
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return dispatch_d<float>(D, q, k, v, lengths, o, ws, B, S, H, KH, chunk, scale, softcap,
-                               st);
+      return dispatch_d<float>(D, q, k, v, lengths, o, lse, ws, B, S, H, KH, chunk, scale,
+                               softcap, st);
     case 1:
-      return dispatch_d<__nv_bfloat16>(D, q, k, v, lengths, o, ws, B, S, H, KH, chunk, scale,
-                                       softcap, st);
+      return dispatch_d<__nv_bfloat16>(D, q, k, v, lengths, o, lse, ws, B, S, H, KH, chunk,
+                                       scale, softcap, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

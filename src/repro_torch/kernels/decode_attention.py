@@ -9,7 +9,10 @@ chunk from shapes alone. The plain PyTorch version is
 ``ref.decode_attention_ref``, which ``ops.decode_attention`` takes for CPU
 tensors. ``softcap`` caps the scaled logits in the split pass, as gemma2's
 attention does; the Pallas kernel has none, the JAX model's decode
-(``attend_ref``) has it.
+(``attend_ref``) has it. With ``return_lse`` the combine pass writes the
+output in fp32 and each row's log-sum-exp beside it, for the combine of a
+sequence-sharded cache's partials over the ranks
+(``nn.attention._decode_call``); no pass is added.
 """
 
 import ctypes
@@ -60,17 +63,20 @@ def num_sms(index) -> int:
 def _fn():
     """The C entry point, built, loaded and typed once per process."""
     fn = build.load("decode_attention").decode_attention
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def decode_attention(q, k, v, lengths, *, scale=None, softcap=None):
+def decode_attention(q, k, v, lengths, *, scale=None, softcap=None, return_lse=False):
     """q (B,H,D); k,v (B,S,KH,D) with KH dividing H; lengths (B,) int32.
     Contiguous CUDA tensors, q/k/v of one dtype, k and v 16-byte aligned.
     `softcap` (None or 0: none) caps each scaled logit to cap * tanh(s / cap).
-    Returns (B,H,D) in q's dtype. Launches on the current stream, no sync."""
+    Returns (B,H,D) in q's dtype; with `return_lse`, (out (B,H,D) fp32,
+    lse (B,H) fp32), lse the natural log of the sum of exp over each row's
+    valid logits (-1e30 on a length-0 row). Launches on the current stream,
+    no sync."""
     if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"want q (B,H,D), k = v (B,S,KH,D); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -97,18 +103,23 @@ def decode_attention(q, k, v, lengths, *, scale=None, softcap=None):
         raise ValueError(f"softcap must be positive or None, got {softcap}")
     scale = scale if scale is not None else d ** -0.5
     chunk, splits = plan(b, s, h, kh, d, q.dtype, num_sms(q.device.index))
-    out = torch.empty_like(q)
+    out = torch.empty(q.shape, dtype=torch.float32 if return_lse else q.dtype, device=q.device)
+    lse = torch.empty((b, h), dtype=torch.float32, device=q.device) if return_lse else None
     ws = torch.empty((splits, b, h, d + 2), dtype=torch.float32, device=q.device)
     fn = _fn()
     with torch.cuda.device(q.device):
-        err = fn(DTYPES[q.dtype], q.data_ptr(), kp, vp,
-                 lengths.data_ptr(), out.data_ptr(), ws.data_ptr(), b, s, h, kh, d,
+        err = fn(DTYPES[q.dtype], q.data_ptr(), kp, vp, lengths.data_ptr(), out.data_ptr(),
+                 None if lse is None else lse.data_ptr(), ws.data_ptr(), b, s, h, kh, d,
                  chunk, float(scale), float(softcap or 0.0),
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"decode_attention launch failed: CUDA error {err}")
     decode_attention.launches += 1
+    if return_lse:
+        decode_attention.launches_with_lse += 1
+        return out, lse
     return out
 
 
 decode_attention.launches = 0
+decode_attention.launches_with_lse = 0   # of those, the launches that wrote the log-sum-exp

@@ -61,10 +61,11 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts():
-    """Zero every kernel's count, and K1's, K1-bwd's, K3's and K3-bwd's
-    counts by route."""
+    """Zero every kernel's count, K2's count of launches with the
+    log-sum-exp, and K1's, K1-bwd's, K3's and K3-bwd's counts by route."""
     for fn in KERNELS.values():
         fn.launches = 0
+    _decode.decode_attention.launches_with_lse = 0
     _flash.flash_attention.launches_by_route = dict.fromkeys(_flash.ROUTES, 0)
     _flash.flash_attention_bwd.launches_by_route = dict.fromkeys(_flash.BWD_ROUTES, 0)
     _ssd.ssd_scan.launches_by_route = dict.fromkeys(_ssd.ROUTES, 0)
@@ -216,22 +217,29 @@ def _mask(s, causal, window, device, s_kv=None):
     return ok
 
 
-def decode_attention_plain(q, k, v, lengths, *, scale=None, softcap=None):
-    """Plain PyTorch version of `decode_attention` (any device)."""
+def decode_attention_plain(q, k, v, lengths, *, scale=None, softcap=None, return_lse=False):
+    """Plain PyTorch version of `decode_attention` (any device), with
+    `return_lse` too: (out fp32, lse fp32), what a rank holding one chunk
+    of a sequence-sharded cache (`lengths` valid slots from its start)
+    contributes to the combine over the ranks."""
     h = q.shape[1]
     return decode_attention_ref(q, _expand_kv(k, h), _expand_kv(v, h), lengths,
-                                scale=scale, softcap=softcap)
+                                scale=scale, softcap=softcap, return_lse=return_lse)
 
 
-def decode_attention(q, k, v, lengths, *, scale=None, softcap=None):
+def decode_attention(q, k, v, lengths, *, scale=None, softcap=None, return_lse=False):
     """q (B,H,D); k,v (B,S,KH,D) with KH dividing H; lengths (B,). `softcap`
-    caps the scaled logits (gemma2), which the Pallas kernel does not."""
+    caps the scaled logits (gemma2), which the Pallas kernel does not.
+    Returns (B,H,D) in q's dtype; with `return_lse`, (out (B,H,D) fp32,
+    log-sum-exp (B,H) fp32 of each row's valid logits)."""
     if _on_cpu(q, k, v, lengths):
-        return decode_attention_plain(q, k, v, lengths, scale=scale, softcap=softcap)
+        return decode_attention_plain(q, k, v, lengths, scale=scale, softcap=softcap,
+                                      return_lse=return_lse)
     if needs_grad(q, k, v):
         raise _no_backward("K2 (decode attention)", "decode is served under no_grad; "
                            "no training path decodes")
-    return _decode.decode_attention(q, k, v, lengths, scale=scale, softcap=softcap)
+    return _decode.decode_attention(q, k, v, lengths, scale=scale, softcap=softcap,
+                                    return_lse=return_lse)
 
 
 def ssd_scan_plain(x, dt, a, b, c, *, chunk=128, h0=None):

@@ -34,10 +34,14 @@ def attention_ref(q, k, v, *, scale=None, causal=True, window=0, softcap=None):
     return torch.einsum("bqk,bkd->bqd", w, v.float()).to(q.dtype)
 
 
-def decode_attention_ref(q, k, v, lengths, *, scale=None, softcap=None):
+def decode_attention_ref(q, k, v, lengths, *, scale=None, softcap=None, return_lse=False):
     """q (B,H,D); k,v (B,S,H,D); lengths (B,) valid prefix lengths. With
     `softcap`, the scaled logits are capped before the mask, as the JAX
-    model's decode (``attend_ref``) does."""
+    model's decode (``attend_ref``) does. Returns (B,H,D) in q's dtype;
+    with `return_lse`, (out (B,H,D) fp32, the masked logits' log-sum-exp
+    (B,H) fp32), so that a partial is rounded only after its combine. A
+    length-0 row's output is the mean of all S rows of v, its log-sum-exp
+    -1e30 + log S, which is -1e30 in fp32."""
     b, s, h, d = k.shape
     scale = scale if scale is not None else d ** -0.5
     logits = torch.einsum("bhd,bshd->bhs", q.float(), k.float()) * scale
@@ -46,7 +50,10 @@ def decode_attention_ref(q, k, v, lengths, *, scale=None, softcap=None):
     ok = torch.arange(s, device=q.device)[None, None, :] < lengths[:, None, None]
     logits = torch.where(ok, logits, NEG_INF)
     w = torch.softmax(logits, dim=-1)
-    return torch.einsum("bhs,bshd->bhd", w, v.float()).to(q.dtype)
+    out = torch.einsum("bhs,bshd->bhd", w, v.float())
+    if return_lse:
+        return out, torch.logsumexp(logits, dim=-1)
+    return out.to(q.dtype)
 
 
 def ssd_ref(x, dt, a, b, c, h0=None):

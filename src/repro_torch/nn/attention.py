@@ -33,11 +33,18 @@ cache may be DTensors: activations are constrained where the reference
 constrains them, and the kernels run on each rank's local shards through
 ``local_map`` (``_heads_call``), never on a DTensor. A rank holding a
 slice of the (padded) query heads reads the kv heads those heads group
-on. A decode cache whose sequence is sharded (``act_kv_seq``) is written
-at the rank that holds the slot, and attended by a partial softmax on
-each rank, combined by all-reduces over the sharding axes: K2 returns no
-log-sum-exp, so that path takes the plain arithmetic and raises on the
-card.
+on. A decode cache whose sequence is sharded (``act_kv_seq``, the
+reference's decode layout: flash-decoding-style distributed attention) is
+written at the rank that holds the slot, and attended on each rank by K2
+over its chunk, with the lengths clamped to it, returning its fp32
+output and each row's log-sum-exp; the partials are combined by
+all-reduces over the sharding axes (``merge_partials``: the max of the
+log-sum-exps, then the weighted sums), and the result rounded once to
+K2's output dtype. On one rank the weight is exp(0) and the sum divides
+by 1, so the result is K2's output without the log-sum-exp, bit for
+bit. The
+encoder-decoder's cross-attention decode takes the same path, so its
+``xk`` and ``xv``, sharded over their frames, stay where they are.
 """
 
 from typing import Optional
@@ -309,36 +316,33 @@ def decode_attention(cfg, p, x, index, cache, *, kind="global"):
     return _out_proj(out, p.wo), cache
 
 
-def _decode_kernel(q, k, v, n_valid, scale, softcap):
+def _decode_kernel(q, k, v, n_valid, scale, softcap, return_lse=False):
     """K2 on plain tensors, every row's length `n_valid` (a 1-element
     tensor). The kernel reads one dtype, so q is rounded to the cache's (a
     no-op when compute and cache dtypes agree, as on the serving path)."""
     lengths = n_valid.to(torch.int32).expand(q.shape[0]).contiguous()
     return ops.decode_attention(q.to(k.dtype).contiguous(), k, v, lengths, scale=scale,
-                                softcap=softcap)
+                                softcap=softcap, return_lse=return_lse)
 
 
-def decode_partial(q, k, v, lengths, *, scale, softcap=None):
-    """Plain (out (B,H,D) fp32, log-sum-exp (B,H) fp32) of a decode call over
-    a chunk of the cache holding `lengths` (B,) valid slots from its start:
-    what a rank holding that chunk contributes to a sharded decode."""
-    h = q.shape[1]
-    kf, vf = ops._expand_kv(k, h).float(), ops._expand_kv(v, h).float()
-    logits = torch.einsum("bhd,bshd->bhs", q.float(), kf) * scale
-    if softcap:
-        logits = softcap * torch.tanh(logits / softcap)
-    ok = torch.arange(k.shape[1], device=q.device)[None, None, :] < lengths[:, None, None]
-    logits = torch.where(ok, logits, ops.NEG_INF)
-    lse = torch.logsumexp(logits, dim=-1)
-    out = torch.einsum("bhs,bshd->bhd", torch.exp(logits - lse[..., None]), vf)
-    return out, lse
+def merge_partials(out, lse, max_all, sum_all):
+    """The softmax over a cache split into chunks, from each chunk's
+    partial: `out` (..., D) fp32, its output over its own valid slots, and
+    `lse` (...) fp32, their log-sum-exp. `max_all` and `sum_all` reduce
+    over the chunks: all-reduces over the ranks in ``_decode_call``, a
+    reduction over a stacked dim where one process holds every chunk. A
+    chunk with no valid slot has the log-sum-exp -1e30 and weighs exactly
+    0. -> fp32, in the shape `sum_all` leaves."""
+    w = torch.exp(lse - max_all(lse))
+    return sum_all(out * w[..., None]) / sum_all(w)[..., None]
 
 
 def _decode_call(q, ck, cv, n_valid, *, scale, softcap):
     """q (B,Hp,D) against the cache: K2 on plain tensors or on each rank's
-    shards; with the cache's sequence sharded, each rank's partial softmax
-    combined by all-reduces (max of the log-sum-exps, then the weighted
-    sums) over the sharding axes. -> (B,Hp,D) in q's dtype."""
+    shards; with the cache's sequence sharded, K2 over each rank's chunk
+    with its log-sum-exp, the partials combined by all-reduces over the
+    sharding axes (``merge_partials``) and rounded once. -> (B,Hp,D) in
+    the cache's dtype, K2's (q is rounded to it first)."""
     if not is_dtensor(ck):
         return _decode_kernel(q, ck, cv, n_valid, scale, softcap)
     from torch.distributed.tensor import Replicate
@@ -353,16 +357,12 @@ def _decode_call(q, ck, cv, n_valid, *, scale, softcap):
     def body(ql, kl, vl, nv):
         if not seq_dims:
             return _decode_kernel(ql, kl, vl, nv, scale, softcap)
-        if kl.is_cuda:
-            raise NotImplementedError("a decode cache sharded over its sequence needs each "
-                                      "rank's log-sum-exp, which K2 does not return")
-        s_local = kl.shape[1]
-        start = mesh_index(mesh, seq_dims) * s_local
-        lengths = torch.clamp(nv - start, 0, s_local).expand(ql.shape[0])
-        out, lse = decode_partial(ql, kl, vl, lengths, scale=scale, softcap=softcap)
-        w = torch.exp(lse - max_over(lse, mesh, seq_dims))
-        num, den = sum_over(out * w[..., None], mesh, seq_dims), sum_over(w, mesh, seq_dims)
-        return (num / den[..., None]).to(ql.dtype)
+        s_local = kl.shape[1]   # the valid slots of this rank's chunk, 0 past them
+        nv = torch.clamp(nv - mesh_index(mesh, seq_dims) * s_local, 0, s_local)
+        out, lse = _decode_kernel(ql, kl, vl, nv, scale, softcap, return_lse=True)
+        merged = merge_partials(out, lse, lambda t: max_over(t, mesh, seq_dims),
+                                lambda t: sum_over(t, mesh, seq_dims))
+        return merged.to(kl.dtype)   # K2's output dtype, as without the sharding
     return local_map(body, out_placements=(bp,), in_placements=(bp, cp, cp, None),
                      device_mesh=mesh)(q, ck, cv, n_valid)
 
@@ -393,11 +393,12 @@ def cross_attention(cfg, p, x, k, v, *, decode=False):
         q = q + p.bq.to(x.dtype)
     q = constrain(q, "act_batch", "act_seq", "act_heads", None)
     if decode:
-        def call(q, k, v):   # every (local) row's length F, made at its size
-            lengths = torch.full((q.shape[0],), k.shape[1], dtype=torch.int32, device=q.device)
-            return ops.decode_attention(q[:, 0].to(k.dtype).contiguous(), k, v, lengths,
-                                        scale=scale)[:, None]
-        out = _heads_call(call, q, k, v)
+        # DP attention as in `decode_attention`: every frame valid, the
+        # partials combined over the ranks when the frames are sharded
+        q = constrain(q, "act_batch", None, None, None)
+        n_valid = torch.full((1,), k.shape[1], dtype=torch.int32, device=q.device)
+        out = _decode_call(q[:, 0], k, v, n_valid, scale=scale, softcap=None)[:, None]
+        out = constrain(out, "act_batch", None, "act_heads", None)
     else:
         out = _heads_call(lambda q, k, v: ops.flash_attention(
             q.contiguous(), k.contiguous(), v.contiguous(), causal=False, scale=scale), q, k, v)

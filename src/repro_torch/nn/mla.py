@@ -31,7 +31,7 @@ from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.nn import init as inits
 from repro_torch.nn.norms import Norm, apply_norm
 from repro_torch.nn.rope import apply_rope
-from repro_torch.nn.attention import _heads_call, _write_rows
+from repro_torch.nn.attention import _heads_call, _write_rows, merge_partials
 from repro_torch.sharding.comm import max_over, mesh_index, shard_dims, sum_over
 from repro_torch.sharding.ctx import constrain, is_dtensor
 from repro_torch.sharding.param import ParamMaker
@@ -199,9 +199,9 @@ def _absorbed_sharded(q_eff, q_rope, ck, cr, cpos, pos, scale):
         valid = (cposl >= 0) & (cposl <= p)
         scores = torch.where(valid[None, None, :], scores, NEG_INF)
         lse = torch.logsumexp(scores, dim=-1)
-        w = torch.exp(lse - max_over(lse, mesh, seq_dims))
         part = torch.bmm(torch.exp(scores - lse[..., None]), ckl.float())
-        ctx = sum_over(part * w[..., None], mesh, seq_dims)
-        return (ctx / sum_over(w, mesh, seq_dims)[..., None]).to(dt)
+        ctx = merge_partials(part, lse, lambda t: max_over(t, mesh, seq_dims),
+                             lambda t: sum_over(t, mesh, seq_dims))
+        return ctx.to(dt)
     return local_map(body, out_placements=(bp,), in_placements=(bp, bp, cp, cp, rep, None),
                      device_mesh=mesh)(q_eff, q_rope, ck, cr, cpos, pos)

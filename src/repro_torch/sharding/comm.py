@@ -61,16 +61,20 @@ def scatter_sum_over(x, mesh, dims):
 
 
 def sum_over(x, mesh, dims):
-    """x summed over the ranks of the mesh dims `dims`, replicated there."""
+    """x summed over the ranks of the mesh dims `dims`, replicated there.
+    A dim of one rank leaves x as it is, exactly, with no collective."""
     for d in dims:
-        x = _SumReplicated.apply(x, mesh, d)
+        if mesh.size(d) > 1:
+            x = _SumReplicated.apply(x, mesh, d)
     return x
 
 
 def max_over(x, mesh, dims):
-    """The elementwise max over the ranks of `dims` (no gradient)."""
+    """The elementwise max over the ranks of `dims` (no gradient). A dim of
+    one rank leaves x as it is, with no collective."""
     for d in dims:
-        x = _wait(funcol.all_reduce(x, "max", (mesh, d)))
+        if mesh.size(d) > 1:
+            x = _wait(funcol.all_reduce(x, "max", (mesh, d)))
     return x
 
 

@@ -94,8 +94,10 @@ def to_plain(x):
 
 def distribute_cache(cache):
     """A decode cache with every tensor leaf but 'index' distributed by its
-    path's logical axes (``rules.cache_leaf_axes``) in a context; the cache
-    itself outside one."""
+    path's logical axes (``rules.cache_leaf_axes``) in a context, a leaf
+    that is a DTensor already (the encoder-decoder's cross K/V, computed
+    under the mesh) redistributed to them, as the reference's prefill lays
+    its cache out; the cache itself outside one."""
     if current() is None:
         return cache
     from repro_torch.sharding.rules import cache_leaf_axes, tree_map_with_keys
@@ -104,5 +106,6 @@ def distribute_cache(cache):
         if not isinstance(x, torch.Tensor) or ks == "['index']":
             return x
         is_int = not (x.is_floating_point() or x.is_complex())
-        return distribute(x, *cache_leaf_axes(ks, x.shape, is_int))
+        axes = cache_leaf_axes(ks, x.shape, is_int)
+        return constrain(x, *axes) if is_dtensor(x) else distribute(x, *axes)
     return tree_map_with_keys(leaf, cache)

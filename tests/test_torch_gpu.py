@@ -441,6 +441,83 @@ def test_decode_attention_kernel_softcap(cuda, dtype, s, h, kh, d, lens):
     assert float((uncapped.float() - want.float()).abs().max()) > TOL[dtype]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 64, 128, 256])
+def test_decode_attention_lse_kernel(cuda, d, dtype):
+    """K2 with the log-sum-exp (the sequence-sharded decode's partial) at
+    every head_dim, in both dtypes, at GQA groups 1 to 6 (qwen3-14b's at tp
+    16), with and without gemma2's cap of 50 and at lengths 0 and S: the
+    fp32 output and the log-sum-exp against the plain version (2e-5 and
+    1e-5: fp32 arithmetic on the same inputs either way); and the output
+    without the log-sum-exp is that output rounded once to q's dtype, bit
+    for bit, as it was before the log-sum-exp existed."""
+    from repro_torch.kernels import decode_attention as tdecode
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    s, kh = 333, 2
+    for g in range(1, 7):
+        for softcap in (None, 50.0):
+            h = g * kh
+            q = (_rand(gen, (4, h, d), torch.float32, cuda) * (40 if softcap else 1)).to(dtype)
+            k, v = (_rand(gen, (4, s, kh, d), dtype, cuda) for _ in range(2))
+            ln = torch.tensor([0, 1, 129, s], dtype=torch.int32, device=cuda)
+            before = tdecode.decode_attention.launches_with_lse
+            out, lse = ops.decode_attention(q, k, v, ln, softcap=softcap, return_lse=True)
+            assert tdecode.decode_attention.launches_with_lse == before + 1
+            want, want_lse = ops.decode_attention_plain(q, k, v, ln, softcap=softcap,
+                                                        return_lse=True)
+            assert out.dtype == lse.dtype == torch.float32 and lse.shape == (4, h)
+            torch.testing.assert_close(out, want, atol=2e-5, rtol=2e-5)
+            torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
+            assert bool((lse[0] == want_lse[0]).all())   # -1e30 on the empty row
+            plain_out = ops.decode_attention(q, k, v, ln, softcap=softcap)
+            assert tdecode.decode_attention.launches_with_lse == before + 1
+            assert plain_out.dtype == dtype and torch.equal(plain_out, out.to(dtype))
+
+
+def test_seq_sharded_decode_on_one_rank_is_bit_equal(cuda):
+    """The reduced qwen3-14b at tp 4 (6 query heads padded to 8 over 2 kv
+    heads), bf16, its params DTensors on the card, decoded under the
+    reference's decode layout on a (1, 1) ("data", "model") mesh
+    (``act_kv_seq`` over "model": every decode layer's K2 with its
+    log-sum-exp, then the combine) and under ``single_device_mesh``'s
+    ("data",) (K2 without it): prefill and decode logits bit-equal, since
+    on one rank the combine multiplies by exp(0), divides by 1, and K2's
+    fp32 partial is rounded once, as K2 rounds its output."""
+    from repro_torch.kernels import decode_attention as tdecode
+    from repro_torch.launch.mesh import make_mesh, single_device_mesh
+    from repro_torch.launch.specs import rules_for
+    from repro_torch.sharding.ctx import sharding_ctx
+    from repro_torch.sharding.param import distribute_module
+    cfg = smoke_config("qwen3-14b").with_(num_heads=6, num_kv_heads=2, tp=4)
+    bundle = make_model(cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 12), generator=torch.Generator().manual_seed(3))
+    feed = torch.randint(0, cfg.vocab_size, (5, 2, 1), generator=torch.Generator().manual_seed(4))
+    runs = {}
+    for name in ("data", "data_model"):
+        mesh = single_device_mesh("cuda") if name == "data" else \
+            make_mesh((1, 1), ("data", "model"), "cuda")
+        rules = rules_for(cfg, mesh, "decode")
+        assert rules["act_kv_seq"] == (() if name == "data" else ("model",))
+        params = bundle.init(0, device=cuda, dtype=torch.bfloat16)
+        distribute_module(params, mesh, rules)
+        ops.reset_launch_counts()
+        logits = []
+        with torch.no_grad(), sharding_ctx(mesh, rules):
+            out, cache = bundle.prefill(params, {"tokens": tokens.to(cuda)}, 32, torch.bfloat16)
+            logits.append(out.logits)
+            for t in feed:
+                out, cache = bundle.decode_step(params, t.to(cuda), cache)
+                logits.append(out.logits)
+        logits = [x.full_tensor() if hasattr(x, "full_tensor") else x for x in logits]
+        runs[name] = (logits, ops.launch_counts()["decode_attention"],
+                      tdecode.decode_attention.launches_with_lse)
+        del params, cache
+    steps = cfg.num_layers * len(feed)
+    assert runs["data"][1:] == (steps, 0) and runs["data_model"][1:] == (steps, steps)
+    for a, b in zip(runs["data"][0], runs["data_model"][0]):
+        assert torch.equal(a, b)
+
+
 # ---- the backward kernels (K1-bwd, K4-bwd) and the training path ----------
 
 GRAD_TOL = 1e-4   # of the largest |gradient| of a tensor, and relative

@@ -291,21 +291,22 @@ def test_decode_smem_rule_matches_kernel(dtype, d):
             assert tdecode.smem_bytes(chunk, g, d, esz) == kernel_bytes(chunk, g, d, esz)
 
 
-def _split_s(q, k, v, lengths, *, chunk, scale, softcap=None):
+def _split_s(q, k, v, lengths, *, chunk, scale, softcap=None, return_lse=False):
     """K2's two passes in PyTorch, fp32 inside: for each live split (one
     whose chunk starts before the row's length n), the logits of its valid
     positions (capped to softcap * tanh(s / softcap) with `softcap`; all
     -1e30 on a length-0 row, where n = S), m, l = sum exp(s - m) and the
     unnormalised acc; a dead split's partials stay NaN, so a combine that
     read one would show it. The combine reads only the ceil(n / chunk) live
-    splits."""
+    splits. With `return_lse`, (the output in fp32, M + log L), the combine
+    pass's running max M and sum L giving each row's log-sum-exp."""
     b, h, d = q.shape
     s, kh = k.shape[1], k.shape[2]
     splits = -(-s // chunk)
     kf = k.float().repeat_interleave(h // kh, 2)
     vf = v.float().repeat_interleave(h // kh, 2)
     part = torch.full((splits, b, h, d + 2), float("nan"))
-    out = torch.empty(b, h, d)
+    out, lse = torch.empty(b, h, d), torch.empty(b, h)
     for bi in range(b):
         ln = int(lengths[bi])
         n = s if ln <= 0 else min(ln, s)
@@ -324,10 +325,12 @@ def _split_s(q, k, v, lengths, *, chunk, scale, softcap=None):
             part[sp, bi, :, :d] = torch.einsum("hp,phd->hd", e, vf[bi, rows])
             part[sp, bi, :, d], part[sp, bi, :, d + 1] = m, e.sum(-1)
         live = part[:-(-n // chunk), bi]
-        w = torch.exp(live[..., d] - live[..., d].max(0).values)
-        den = (w * live[..., d + 1]).sum(0).clamp_min(1e-30)
-        out[bi] = (w[..., None] * live[..., :d]).sum(0) / den[:, None]
-    return out.to(q.dtype)
+        mx = live[..., d].max(0).values
+        w = torch.exp(live[..., d] - mx)
+        den = (w * live[..., d + 1]).sum(0)
+        out[bi] = (w[..., None] * live[..., :d]).sum(0) / den.clamp_min(1e-30)[:, None]
+        lse[bi] = mx + torch.log(den)
+    return (out, lse) if return_lse else out.to(q.dtype)
 
 
 @pytest.mark.parametrize("chunk", [16, 32])
@@ -383,6 +386,89 @@ def test_decode_split_s_softcap_matches_attend_ref(chunk):
     _close(plain, want, dtype)
     uncapped = _split_s(tq, tk, tv, torch.from_numpy(lens), chunk=chunk, scale=d ** -0.5)
     assert float((uncapped.float() - got.float()).abs().max()) > 10 * TOL[dtype]
+
+
+# the outputs' tolerance by input dtype; the log-sum-exp is fp32 arithmetic
+# on the same values in either dtype, so it is held at 1e-5 in both
+OUT_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+LSE_TOL = 1e-5
+
+
+def _jax_decode(jq, jk, jv, lens, *, h, kh, scale, softcap=None):
+    """The reference's decode in JAX, fp32 inside: the output and the
+    log-sum-exp (``jax.nn.logsumexp``) of the masked (and capped) logits,
+    over the cache expanded to the query heads as ``jnp.repeat`` does."""
+    import jax
+    rep = lambda x: jnp.repeat(x, h // kh, axis=2).astype(jnp.float32)   # noqa: E731
+    logits = jnp.einsum("bhd,bshd->bhs", jq.astype(jnp.float32), rep(jk)) * scale
+    if softcap:
+        logits = softcap * jnp.tanh(logits / softcap)
+    ok = jnp.arange(jk.shape[1])[None, None, :] < jnp.asarray(lens)[:, None, None]
+    logits = jnp.where(ok, logits, -1e30)
+    out = jnp.einsum("bhs,bshd->bhd", jax.nn.softmax(logits, axis=-1), rep(jv))
+    return out, jax.nn.logsumexp(logits, axis=-1)
+
+
+@pytest.mark.parametrize("chunk", [16, 32])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["expanded", "gqa", "softcap"])
+def test_decode_lse_matches_jax(case, dtype, chunk):
+    """K2 with the log-sum-exp, on the CPU: the plain version
+    (``ops.decode_attention(..., return_lse=True)``: an fp32 output and an
+    fp32 log-sum-exp) and the emulated split-S passes (``_split_s``, whose
+    log-sum-exp is the combine's M + log L) against the JAX package, at
+    lengths 0 (every logit masked: the mean of all S V rows, log-sum-exp
+    -1e30), 1, a chunk's edge, one past it and S. The output against the
+    Pallas kernel in interpret mode on an expanded cache, against
+    ``decode_attention_ref`` on a GQA cache of 6 query heads a kv head
+    (qwen3-14b's group at tp 16), and with gemma2's cap of 50 (q scaled so
+    that the cap bends the logits) against ``attend_ref`` in fp32; every
+    output and log-sum-exp also against the masked logits' softmax and
+    ``jax.nn.logsumexp`` in JAX. fp32 at 1e-5; bf16 inputs at the file's
+    bf16 tolerance for the outputs (fp32 either way) and at 1e-5 for the
+    log-sum-exp, which is fp32 arithmetic on the same values."""
+    s, h, kh, d, softcap = {"expanded": (256, 4, 4, 64, None), "gqa": (200, 12, 2, 32, None),
+                            "softcap": (200, 10, 2, 32, 50.0)}[case]
+    b, scale, tol = 5, d ** -0.5, OUT_TOL[dtype]
+    (jq, jk, jv), (tq, tk, tv) = _inputs(19, [(b, h, d), (b, s, kh, d), (b, s, kh, d)], dtype)
+    if softcap:
+        jq, tq = jq * 40, tq * 40
+    lens = np.array([0, 1, chunk, chunk + 1, s], np.int32)
+    out, lse = ops.decode_attention(tq, tk, tv, torch.from_numpy(lens), scale=scale,
+                                    softcap=softcap, return_lse=True)
+    assert out.dtype == lse.dtype == torch.float32
+    assert out.shape == (b, h, d) and lse.shape == (b, h)
+    emu_out, emu_lse = _split_s(tq, tk, tv, torch.from_numpy(lens), chunk=chunk, scale=scale,
+                                softcap=softcap, return_lse=True)
+    want_out, want_lse = _jax_decode(jq, jk, jv, lens, h=h, kh=kh, scale=scale,
+                                     softcap=softcap)
+    if case == "expanded":
+        ref = jops.decode_attention(jq, jk, jv, jnp.asarray(lens), block_s=128)
+    elif case == "gqa":
+        rep = lambda x: jnp.repeat(x, h // kh, axis=2)   # noqa: E731
+        ref = jref.decode_attention_ref(jq, rep(jk), rep(jv), jnp.asarray(lens))
+    elif dtype == "float32":   # attend_ref rounds bf16 logits to bf16 before the cap
+        from repro.nn.attention import attend_ref
+        rep = lambda x: jnp.repeat(x, h // kh, axis=2)   # noqa: E731
+        ref = attend_ref(jq[:, None], rep(jk), rep(jv), jnp.asarray(lens - 1)[:, None],
+                         jnp.broadcast_to(jnp.arange(s), (b, s)), scale=scale,
+                         softcap=softcap)[:, 0]
+    else:
+        ref = want_out
+    for got_out, got_lse in ((out, lse), (emu_out, emu_lse)):
+        for want in (ref, want_out):
+            np.testing.assert_allclose(got_out.numpy(), np.asarray(want, np.float32),
+                                       atol=tol, rtol=tol)
+        np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse), atol=LSE_TOL,
+                                   rtol=LSE_TOL)
+    neg = float(np.float32(-1e30))   # the masked logit plus log S, in fp32
+    assert float(lse[0].max()) == float(emu_lse[0].max()) == neg
+    assert float(np.asarray(want_lse)[0].max()) == neg
+    mean_v = tv[0].float().mean(0).repeat_interleave(h // kh, dim=0)
+    torch.testing.assert_close(out[0], mean_v, atol=tol, rtol=tol)
+    # without the log-sum-exp: the same output, rounded once to q's dtype
+    assert torch.equal(ops.decode_attention(tq, tk, tv, torch.from_numpy(lens), scale=scale,
+                                            softcap=softcap), out.to(tq.dtype))
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():

@@ -245,3 +245,41 @@ def test_sharded_serving_on_one_rank_mesh_matches_jax_greedy():
     assert type(cache["layers"][0]["k"]).__name__ == "DTensor"
     np.testing.assert_array_equal(plain.numpy(), want)
     assert torch.equal(got, plain)
+
+
+def test_seq_sharded_decode_on_one_rank_mesh_is_bit_equal():
+    """The reference's decode layout on one rank: a (1, 1) ("data",
+    "model") mesh maps ``act_kv_seq`` to "model", so every decode layer
+    takes the sequence-sharded branch (K2's plain version with the
+    log-sum-exp, then the combine), which on one rank weighs by exp(0) and
+    divides by 1: the prefill and decode logits of the reduced qwen3-14b at
+    tp 4, bf16, equal those under ``single_device_mesh``'s ("data",), bit
+    for bit, and its cache is sharded on its sequence over "model"."""
+    from repro_torch.launch.mesh import make_mesh, single_device_mesh
+    from repro_torch.launch.specs import rules_for
+    from repro_torch.sharding.ctx import sharding_ctx
+    from repro_torch.sharding.param import distribute_module
+    cfg = smoke_config(ARCH).with_(num_heads=6, num_kv_heads=2, tp=4)
+    bundle = make_model(cfg)
+    rng = np.random.default_rng(3)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)))
+    feed = torch.from_numpy(rng.integers(0, cfg.vocab_size, (5, B, 1)))
+    runs = {}
+    for name in ("data", "data_model"):
+        mesh = single_device_mesh("cpu") if name == "data" else \
+            make_mesh((1, 1), ("data", "model"))
+        rules = rules_for(cfg, mesh, "decode")
+        params = bundle.init(0, device="cpu", dtype=torch.bfloat16)
+        distribute_module(params, mesh, rules)
+        with torch.no_grad(), sharding_ctx(mesh, rules):
+            out, cache = bundle.prefill(params, {"tokens": tokens}, MAX_LEN, torch.bfloat16)
+            logits = [out.logits]
+            for t in feed:
+                out, cache = bundle.decode_step(params, t, cache)
+                logits.append(out.logits)
+        runs[name] = ([x.full_tensor() for x in logits], rules["act_kv_seq"],
+                      str(tuple(cache["layers"][0]["k"].placements)))
+    assert runs["data"][1:] == ((), "(Shard(dim=0),)")
+    assert runs["data_model"][1:] == (("model",), "(Shard(dim=0), Shard(dim=1))")
+    for a, b in zip(runs["data"][0], runs["data_model"][0]):
+        assert torch.equal(a, b)

@@ -176,3 +176,86 @@ def test_local_decode_across_the_wrap():
         _close(got, want)
         _close_cache(tc, jc)
     assert tc["pos"][:4].tolist() == [32, 33, 34, 35]
+
+
+# --------- the sequence-sharded decode: K2's partials over R chunks ---------
+
+COMBINE_S = 64
+# where the valid slots end: inside the first chunk at every R (later
+# chunks empty), on a chunk boundary at every R, inside the last chunk, and
+# a local ring past its wrap (every slot valid, positions out of order)
+COMBINE_LENGTHS = {"first_chunk": 3, "boundary": COMBINE_S // 2, "last_chunk": COMBINE_S - 3,
+                   "ring_wrapped": COMBINE_S}
+COMBINE_WRAP = 13   # positions a ring has taken past its size
+
+
+@pytest.mark.parametrize("softcap", [None, 50.0])
+@pytest.mark.parametrize("where", list(COMBINE_LENGTHS))
+@pytest.mark.parametrize("ranks", [2, 4, 8])
+def test_decode_partials_combine_to_the_whole_cache(ranks, where, softcap):
+    """A cache of 64 slots split into R chunks, as ``act_kv_seq`` shards
+    it over R ranks: each chunk's K2 call (its plain version, with the
+    log-sum-exp) at the valid length clamped to the chunk, then
+    ``merge_partials`` over the stacked chunks, the arithmetic
+    ``_decode_call`` runs with all-reduces, against the JAX package's
+    decode over the whole cache (``decode_attention_ref`` on the cache
+    expanded to the query heads, or ``attend_ref`` with gemma2's cap of
+    50), fp32, 1e-5. GQA: 6 query heads on 2 kv heads. The wrapped ring
+    holds S + 13 positions written at slot p % S, so every chunk holds
+    positions out of order and the first chunk the newest; the reference
+    reads the last S positions in order."""
+    from repro.kernels.ref import decode_attention_ref as jdecode_ref
+    from repro.nn.attention import attend_ref
+    b, h, kh, d, s = 3, 6, 2, 16, COMBINE_S
+    rng = np.random.default_rng(ranks)
+    q = rng.standard_normal((b, h, d)).astype(np.float32) * (8 if softcap else 1)
+    if where == "ring_wrapped":
+        seq = [rng.standard_normal((b, s + COMBINE_WRAP, kh, d)).astype(np.float32)
+               for _ in range(2)]
+        ring = [np.zeros((b, s, kh, d), np.float32) for _ in range(2)]
+        for p in range(s + COMBINE_WRAP):
+            for r, x in zip(ring, seq):
+                r[:, p % s] = x[:, p]
+        k, v = ring
+        ref_k, ref_v = (x[:, COMBINE_WRAP:] for x in seq)
+    else:
+        k, v = (rng.standard_normal((b, s, kh, d)).astype(np.float32) for _ in range(2))
+        ref_k, ref_v = k, v
+    n = COMBINE_LENGTHS[where]
+    scale = d ** -0.5
+    n_valid = torch.tensor([n])
+    size = s // ranks
+    parts = [attention._decode_kernel(
+        torch.from_numpy(q), torch.from_numpy(k[:, r * size:(r + 1) * size]),
+        torch.from_numpy(v[:, r * size:(r + 1) * size]),
+        torch.clamp(n_valid - r * size, 0, size), scale, softcap, return_lse=True)
+        for r in range(ranks)]
+    out = torch.stack([o for o, _ in parts])
+    lse = torch.stack([x for _, x in parts])
+    got = attention.merge_partials(out, lse, lambda t: t.amax(0, keepdim=True),
+                                   lambda t: t.sum(0))
+    rep = lambda x: jnp.repeat(jnp.asarray(x), h // kh, axis=2)   # noqa: E731
+    if softcap:
+        want = attend_ref(jnp.asarray(q)[:, None], rep(ref_k), rep(ref_v),
+                          jnp.full((b, 1), n - 1), jnp.broadcast_to(jnp.arange(s), (b, s)),
+                          scale=scale, softcap=softcap)[:, 0]
+    else:
+        want = jdecode_ref(jnp.asarray(q), rep(ref_k), rep(ref_v), jnp.full((b,), n, jnp.int32),
+                           scale=scale)
+    assert got.dtype == torch.float32
+    _close(got, want)
+    empty = [r for r in range(ranks) if r * size >= n]
+    assert all(float(lse[r].max()) == float(np.float32(-1e30)) for r in empty)
+
+
+def test_sum_and_max_over_a_one_rank_dim_return_their_input():
+    """Over mesh dims of one rank each, ``sum_over`` and ``max_over`` hand
+    back their input itself: exact, and no collective runs."""
+    from repro_torch.launch.mesh import make_mesh, single_device_mesh
+    from repro_torch.sharding.comm import max_over, sum_over
+    single_device_mesh("cpu")
+    mesh = make_mesh((1, 1), ("data", "model"))
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((3, 5)).astype(np.float32))
+    for fn in (sum_over, max_over):
+        assert fn(x, mesh, [1]) is x
+        assert fn(x, mesh, [0, 1]) is x

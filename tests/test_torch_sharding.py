@@ -52,6 +52,7 @@ from repro.configs.registry import ARCHS as JARCHS  # noqa: E402
 from repro.configs.registry import get_config as jget_config  # noqa: E402
 from repro.configs.registry import make_model as jmake_model  # noqa: E402
 from repro.configs.registry import smoke_config as jsmoke_config  # noqa: E402
+from repro.launch.serve import greedy_generate as jgreedy  # noqa: E402
 from repro.launch import specs as jspecs  # noqa: E402
 from repro.sharding import rules as jrules  # noqa: E402
 from repro.sharding.param import decode_axes  # noqa: E402
@@ -316,6 +317,35 @@ WORKER = textwrap.dedent('''
                          "grad_rel_err": max(float((a.full_tensor() - b).abs().max()
                                                    / b.abs().max().clamp(min=1e-30))
                                              for a, b in zip(g, g0))}
+    elif what == "seq_decode":
+        from repro_torch.configs.registry import make_model, smoke_config
+        from repro_torch.launch.serve import greedy_generate
+        from repro_torch.launch.specs import rules_for
+        from repro_torch.sharding.rules import tree_leaves_with_keys
+        spec = json.loads(open(data + ".json").read())
+        for arch, (over, steps, max_len) in spec.items():
+            z = np.load(f"{data}.{arch}.npz")
+            cfg = smoke_config(arch).with_(**over)
+            bundle = make_model(cfg)
+            params = bundle.init(0, device="cpu")
+            params.load_state_dict({k[2:]: torch.from_numpy(z[k]) for k in z.files
+                                    if k.startswith("p.")})
+            batch = {k: torch.from_numpy(z[k]) for k in ("tokens", "frontend") if k in z.files}
+            with torch.no_grad():
+                plain = greedy_generate(bundle, params, batch, steps, max_len, torch.float32)
+                rules = rules_for(cfg, mesh, "decode")
+                distribute_module(params, mesh, rules)
+                with sharding_ctx(mesh, rules):
+                    got = greedy_generate(bundle, params, batch, steps, max_len, torch.float32)
+                    _, cache = bundle.prefill(params, batch, max_len, torch.float32)
+            kv = {}
+            for ks, leaf in tree_leaves_with_keys(cache):
+                if ks.endswith(("['k']", "['v']", "['xk']", "['xv']")):
+                    name = ks[ks.rindex("['") + 2:-2]
+                    kv.setdefault(name, set()).add(str(tuple(leaf.placements)))
+            out[arch] = {"plain": plain.tolist(), "sharded": got.tolist(),
+                         "act_kv_seq": list(rules["act_kv_seq"]),
+                         "cache": {k: sorted(v) for k, v in kv.items()}}
     else:
         from repro_torch.checkpoint import CheckpointManager
         from repro_torch.configs.registry import make_model, smoke_config
@@ -422,3 +452,55 @@ def test_reshard_state_restores_bit_exact_on_four_ranks(tmp_path):
                                 ("act_kv_seq", "(Shard(dim=0), Shard(dim=1))", [2, 8])):
         for name, (got_pl, got_local, whole) in res["shard_batch"][seq_axis].items():
             assert (got_pl, got_local, whole) == (pl, local, True), (seq_axis, name)
+
+
+# four gloo ranks on a (2, 2) ("data", "model") mesh under the decode rules:
+# the reference's decode layout, every k, v, xk and xv sharded on its
+# sequence over "model"; (config overrides, greedy steps, max_len)
+SEQ_DECODE = {"qwen3-14b": ({"tp": 2}, 6, 32),
+              "gemma2-9b": ({}, 8, 48),          # 28 + 8 > the reduced window of 32
+              "seamless-m4t-large-v2": ({}, 6, 32)}
+SEQ_PROMPT = {"qwen3-14b": 12, "gemma2-9b": 28, "seamless-m4t-large-v2": 12}
+
+
+def test_seq_sharded_decode_matches_jax_greedy_on_four_ranks(tmp_path):
+    """The reference's decode layout on four ranks: ``rules_for(cfg, mesh,
+    "decode")`` on a (2, 2) ("data", "model") mesh maps ``act_kv_seq`` to
+    "model", so every decode layer attends over its rank's half of the
+    cache through K2's plain version with the log-sum-exp, the halves
+    combined by all-reduces (``nn.attention._decode_call``). qwen3-14b at
+    tp 2, gemma2-9b (global and local layers, softcap, its local rings
+    past their wrap) and seamless-m4t-large-v2 (the cross-attention over
+    frame-sharded ``xk`` and ``xv``), their params converted from the
+    reference: the greedy tokens equal the reference's greedy decoding and
+    the port's unsharded path's, and the cache's k, v, xk and xv are
+    sharded over "data" on the batch and over "model" on their sequence."""
+    base = tmp_path / "seq"
+    want = {}
+    for arch, (over, steps, max_len) in SEQ_DECODE.items():
+        jcfg, cfg = jsmoke_config(arch).with_(**over), smoke_config(arch).with_(**over)
+        jbundle = jmake_model(jcfg)
+        jparams = jbundle.init(jax.random.PRNGKey(0))
+        rng = np.random.default_rng(6)
+        batch = {"tokens": rng.integers(0, cfg.vocab_size, (4, SEQ_PROMPT[arch]))}
+        if cfg.frontend_tokens:
+            batch["frontend"] = rng.standard_normal(
+                (4, cfg.frontend_tokens, cfg.frontend_dim)).astype(np.float32)
+        jbatch = {k: jnp.asarray(v, jnp.int32 if k == "tokens" else jnp.float32)
+                  for k, v in batch.items()}
+        want[arch] = np.asarray(jgreedy(jbundle, jparams, jbatch, steps=steps,
+                                        max_len=max_len, dtype=jnp.float32)).tolist()
+        np.savez(f"{base}.{arch}.npz", **batch,
+                 **{f"p.{k}": v.numpy() for k, v in
+                    params_from_jax(cfg, jax.tree.map(np.asarray, jparams)).items()})
+    (tmp_path / "seq.json").write_text(json.dumps(SEQ_DECODE))
+    res = _run_ranks(tmp_path, "seq_decode", base)
+    for arch in SEQ_DECODE:
+        got = res[arch]
+        assert got["act_kv_seq"] == ["model"], got
+        assert got["plain"] == want[arch], arch
+        assert got["sharded"] == want[arch], arch
+        leaves = ("k", "v", "xk", "xv") if arch.startswith("seamless") else ("k", "v")
+        assert set(got["cache"]) == set(leaves), got["cache"]
+        for name, pls in got["cache"].items():
+            assert pls == ["(Shard(dim=0), Shard(dim=1))"], (arch, name, pls)
