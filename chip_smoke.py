@@ -131,11 +131,12 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    seamless-m4t-large-v2, 12-token prompts over the reduced config's 8
    frames, so that K1's fp32 cross call has k and v of a length of their
    own);
-6. grad guards: K2 and K1 in bf16 at head_dim 16 raise under autograd
-   (they have no backward kernel) instead of returning a tensor with no
-   grad_fn; K1 in bf16 at 64, 128 and 256, K3 in bf16 and fp32, and K1 in
-   fp32 with k and v of a length of their own return tensors with a
-   grad_fn;
+6. grad guards: K2 raises under autograd (it has no backward kernel)
+   instead of returning a tensor with no grad_fn; K1 in bf16 at head_dim
+   16 (its backward on K1-bwd's 3xTF32 kernels, one launch under that
+   route, its gradient within BF16_GRAD_TOL of the plain backward's), at
+   64, 128 and 256, K3 in bf16 and fp32, and K1 in fp32 with k and v of a
+   length of their own return tensors with a grad_fn;
 7. train parity: recurrentgemma-2b at 3 layers of full width, fp32: the
    V-trace loss through K1, K1-bwd, K4 and K4-bwd against the same
    through their plain versions on the card; each of those kernel calls
@@ -149,14 +150,19 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    against the plain versions within 1e-5, one step's launches, and every
    gradient leaf within GRAD_TOL of the plain versions' or, where farther,
    held to the kernels in fp64 as RecurrentGemma's leaves are; then
-   qwen3-14b and mamba2-2.7b at 3 layers of full width at the production
-   dtypes (bf16 params and compute, full remat; ``bf16_train_parity_phase``):
-   the loss through K1 (wgmma) and K1-bwd's bf16 route, or K3 and K3-bwd's
-   wgmma route, against their plain versions paired as the kernels pair
-   them (``plain_bf16_pairs``: the bf16 K1-bwd's plain version with its
-   roundings) within 1e-2 relative, one step's launches on those routes,
-   and every gradient leaf within BF16_LEAF_TOL (5e-2) of the plain
-   versions' or, where farther, held to the kernels in fp64;
+   qwen3-14b, mamba2-2.7b and recurrentgemma-2b at 3 layers,
+   seamless-m4t-large-v2 at 2 + 2 and gemma2-9b at one local and one
+   global layer (batch 1 x 4352, past its window of 4096), all of full
+   width, at the production dtypes (bf16 params and compute, full remat;
+   ``bf16_train_parity_phase``): the loss through K1 (wgmma) and K1-bwd's
+   bf16 route, K3 and K3-bwd's wgmma route, or K4 and K4-bwd, against
+   their plain versions paired as the kernels pair them
+   (``plain_bf16_pairs``: the bf16 K1-bwd's plain version with its
+   roundings; K4's by ``plain_versions``) within 1e-2 relative, one step's
+   launches on those routes (seamless's cross calls at S_kv 1024 counted
+   apart), and every gradient leaf within BF16_LEAF_TOL (5e-2) of the plain
+   versions' or, where farther, held to the kernels in fp64, the plain
+   and fp64 runs replaying the kernel run's ReLU masks;
 8. train: recurrentgemma-2b (26 layers, 2.89 B params), mamba2-2.7b (64
    layers) and seamless-m4t-large-v2 (24+24 layers, over 1024 seeded
    frames) at full width and depth, fp32 params and AdamW moments, each
@@ -171,9 +177,19 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    params and compute, full remat, fp32 AdamW moments): qwen3-14b at full
    width cut to 4 of 40 layers (2.88 B params), batch 16 x 256 in its
    config's 4 micro-batches, K1 32 and K1-bwd 16 a step (remat runs each
-   layer's forward again; K1 on wgmma, K1-bwd on its bf16 route), and
+   layer's forward again; K1 on wgmma, K1-bwd on its bf16 route),
    mamba2-2.7b at full width and depth, batch 4 x 256, K3 128 and K3-bwd
-   64 a step (K3 and K3-bwd on their wgmma routes);
+   64 a step (K3 and K3-bwd on their wgmma routes), recurrentgemma-2b at
+   full width and depth, batch 4 x 256 (K1 16 and K1-bwd 8, K4 36 and
+   K4-bwd 18 a step), seamless-m4t-large-v2 at full width and depth over
+   4 x 1024 frames (K1 144 and K1-bwd 72 a step, 48 and 24 of them at S_kv
+   1024), and gemma2-9b at full width cut to 4 of 42 layers, batch 4 x
+   4352 in its config's 4 micro-batches (K1 32 and K1-bwd 16 a step, the
+   cap, the scale 0.0625 and the local layers' window of 4096 binding);
+   then the smoke configs of qwen3-14b, recurrentgemma-2b and
+   seamless-m4t-large-v2 (head_dim 16) at those dtypes, 3 steps each
+   through the launcher's functions, K1 and K1-bwd on their 3xTF32
+   kernels on bf16;
 9. train restart: the launcher at the reduced config on the card,
    checkpointing every 2 steps, restarts from its checkpoint after a
    failure injected at step 3 and ends at step 6;
@@ -346,7 +362,14 @@ and held equal to the bit; each timed at its train call beside its bound
 (K1-bwd also beside SDPA's bf16 backward), with its registers and spills
 (K3-bwd with its plan: slices, CTAs, CTAs an SM, waves), in the rows
 ``flash_attention_bwd_bf16`` and ``ssd_scan_bwd_bf16`` and K1's
-``qwen3_train_call``.
+``qwen3_train_call``. The bf16 K1-bwd is also held once and timed at
+RecurrentGemma's, seamless's (encoder, self, cross) and gemma2's (local,
+global) train calls (``k1_bwd_call``; SDPA's bf16 backward beside it where
+one SDPA call computes the same function), and K1-bwd on bf16 at head_dim
+16 (the 3xTF32 kernels) at the smoke step's calls and its tiles' edges
+against the plain backward at BF16_GRAD_TOL, each case twice equal to the
+bit, timed at the smoke call (``flash_attention_bwd``'s
+``bf16_d16_call``).
 
 After phase 20, when no other phase runs, a child process runs the dry
 run (``python -m repro_torch.launch.dryrun``'s ``main``, no card: a fake
@@ -446,6 +469,8 @@ TRAIN = dict(arch="recurrentgemma-2b", batch=4, seq=256, steps=3)
 # the archs trained at full width and depth, fp32, batch 4 x seq 256 (seamless's
 # text over its 1024 frames)
 TRAIN_ARCHS = ("recurrentgemma-2b", "mamba2-2.7b", "seamless-m4t-large-v2")
+# the encoder-decoder's train parity: 2 encoder and 2 decoder layers
+TRAIN_PARITY_ENCDEC = dict(enc_layers=2, dec_layers=2, num_layers=4)
 GRAD_TOL = 1e-4   # of a gradient tensor's max |value|, and relative
 # K1-bwd's one route: every head_dim on the tensor cores, 3xTF32 mma.sync
 K1_BWD_ROUTE = "tensor cores, 3xTF32 mma.sync"
@@ -462,17 +487,39 @@ FP64_MARGIN = 2.0
 LEAF_FLOOR = 1e-6
 # training at the reference's production dtypes (its launch/dryrun.py's
 # production_config): bf16 params and compute, full remat, fp32 AdamW
-# moments. qwen3-14b at full width cut to 4 of 40 layers, batch 16 x 256 in
-# its config's 4 micro-batches (K1 and K1-bwd at (4, 256, 40/8, 128), the
-# serving prefill's call), and mamba2-2.7b at full width and depth, pure
-# data-parallel (tp 1, no accumulation), batch 4 x 256 (K3 and K3-bwd at
-# (4, 256, 80, 64, 128))
+# moments, each config's gradient accumulation (none where it is pure
+# data-parallel: tp 1). qwen3-14b at full width cut to 4 of 40 layers, batch
+# 16 x 256 in its config's 4 micro-batches (K1 and K1-bwd at (4, 256, 40/8,
+# 128), the serving prefill's call); mamba2-2.7b at full width and depth,
+# batch 4 x 256 (K3 and K3-bwd at (4, 256, 80, 64, 128)); recurrentgemma-2b
+# at full width and depth, batch 4 x 256 (K1 and K1-bwd at (4, 256, 10/1,
+# 256), window 2048; K4 and K4-bwd at (4, 256, 2560)); seamless-m4t-large-v2
+# at full width and depth over 4 x 1024 frames (K1 and K1-bwd at D 64, 16/16:
+# the encoder's 1024 frames unmasked, the decoder's 256 causal, the cross
+# calls 256 over 1024); gemma2-9b at full width cut to 4 of 42 layers (2
+# local, 2 global; 9.2 B params at 12 bytes do not fit the card), batch 4 x
+# 4352 in its config's 4 micro-batches (K1 and K1-bwd at (1, 4352, 16/8,
+# 256), every logit capped at 50, scale 0.0625, a window of 4096 on the
+# local layers: 4352 is the serve phase's prompt, past the window, so that
+# rows past 4096 lose their first keys). "seq" defaults to TRAIN's.
 PRODUCTION = dict(param_dtype="bfloat16", compute_dtype="bfloat16", remat="full",
                   optimizer_dtype="float32")
-BF16_TRAIN = {"qwen3-14b": dict(batch=16, num_layers=4), "mamba2-2.7b": dict(batch=4)}
-# their train parity at 3 layers of full width, batch 4 x 256, the kernels
-# against their plain versions paired as the kernels pair them
-BF16_TRAIN_PARITY = ("qwen3-14b", "mamba2-2.7b")
+BF16_TRAIN = {"qwen3-14b": dict(batch=16, num_layers=4), "mamba2-2.7b": dict(batch=4),
+              "recurrentgemma-2b": dict(batch=4), "seamless-m4t-large-v2": dict(batch=4),
+              "gemma2-9b": dict(batch=4, seq=4352, num_layers=4)}
+# their train parity at a few layers of full width, batch 4 x 256 unless
+# named, the kernels against their plain versions paired as the kernels
+# pair them: 3 layers (RecurrentGemma's rglru, rglru, local), seamless's 2 +
+# 2, gemma2's local and global layer at batch 1 x 4352, past its window
+BF16_TRAIN_PARITY = {"qwen3-14b": dict(num_layers=3), "mamba2-2.7b": dict(num_layers=3),
+                     "recurrentgemma-2b": dict(num_layers=3),
+                     "seamless-m4t-large-v2": TRAIN_PARITY_ENCDEC,
+                     "gemma2-9b": dict(num_layers=2, batch=1, seq=4352)}
+# the smoke configs of the attention families at the production dtypes,
+# trained a few steps on the card: K1 and K1-bwd at head_dim 16, bf16, on
+# their 3xTF32 kernels
+BF16_SMOKE = ("qwen3-14b", "recurrentgemma-2b", "seamless-m4t-large-v2")
+BF16_SMOKE_RUN = dict(batch=4, seq=48, steps=3)
 # a bf16 backward kernel's bf16 outputs against its plain version with the
 # kernel's roundings: 2.5 bf16 ulps of each tensor's max |value| (an
 # element rounds one ulp the other way; a P or dX that rounds the other way
@@ -652,9 +699,10 @@ def compiled_flex_attention():
 def flex_attention_call(q, *, scale, softcap, mask_mod, q_len, kv_len):
     """One call of PyTorch's `flex_attention` (compiled) computing K1's or
     K2's function with gemma2's cap: q (B,H,Sq,D), k, v (B,KH,S,D), the cap
-    as its score_mod (after the scale, before the mask, as the kernels),
-    `mask_mod` as a block mask built here once. Returns a callable of
-    (k, v). Timed as the library cell only; the port never calls it."""
+    as its score_mod (after the scale, before the mask, as the kernels;
+    none without a cap), `mask_mod` as a block mask built here once.
+    Returns a callable of (k, v); q may require grad, for the backward.
+    Timed as the library cell only; the port never calls it."""
     from torch.nn.attention.flex_attention import create_block_mask
     block_mask = create_block_mask(mask_mod, q.shape[0], None, q_len, kv_len,
                                    device=q.device)
@@ -663,8 +711,8 @@ def flex_attention_call(q, *, scale, softcap, mask_mod, q_len, kv_len):
         return softcap * torch.tanh(score / softcap)
 
     flex = compiled_flex_attention()
-    return lambda kk, vv: flex(q, kk, vv, score_mod=cap, block_mask=block_mask, scale=scale,
-                               enable_gqa=True)
+    return lambda kk, vv: flex(q, kk, vv, score_mod=cap if softcap else None,
+                               block_mask=block_mask, scale=scale, enable_gqa=True)
 
 
 def time_k1_mla(b, s, rand):
@@ -1764,6 +1812,78 @@ def bf16_kernel_phase(rows, bwd_ptxas):
         f"by kernel (profiler): " + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in split.items()))
     del q, k, v, do, o, lse, qt, kt, vt, dot
 
+    # K1-bwd's bf16 route at the other train calls at the production dtypes,
+    # each held to the rounding plain version once and timed beside its
+    # bound and the library's bf16 backward: SDPA's where one SDPA call
+    # computes the same function (no softcap, no window that binds), else
+    # compiled flex_attention's
+    ss, sf = TRAIN["seq"], SEAMLESS["frames"]
+    calls = {"rg_train_call": ((TRAIN["batch"], ss, RG["h"], RG["kh"], RG["d"]),
+                               {"window": RG["window"]}),   # window 2048 > S: SDPA causal
+             "seamless_encoder_call": ((TRAIN["batch"], sf, SEAMLESS["h"], SEAMLESS["kh"],
+                                        SEAMLESS["d"]), {"causal": False}),
+             "seamless_self_call": ((TRAIN["batch"], ss, SEAMLESS["h"], SEAMLESS["kh"],
+                                     SEAMLESS["d"]), {}),
+             "seamless_cross_call": ((TRAIN["batch"], ss, SEAMLESS["h"], SEAMLESS["kh"],
+                                      SEAMLESS["d"]), {"causal": False, "skv": sf}),
+             "gemma2_local_call": ((1, BF16_TRAIN["gemma2-9b"]["seq"], GEMMA["h"], GEMMA["kh"],
+                                    GEMMA["d"]), {"window": GEMMA["window"],
+                                                  "softcap": GEMMA["softcap"],
+                                                  "scale": GEMMA["scale"]}),
+             "gemma2_global_call": ((1, BF16_TRAIN["gemma2-9b"]["seq"], GEMMA["h"], GEMMA["kh"],
+                                     GEMMA["d"]), {"softcap": GEMMA["softcap"],
+                                                   "scale": GEMMA["scale"]})}
+    for call_name, ((cb, cs, ch, ckh, cd), kw) in calls.items():
+        r[call_name] = k1_bwd_call(call_name, cb, cs, ch, ckh, cd, rand, bf16_route=True, **kw)
+
+    # ---- K1-bwd on bf16 at head_dim 16 (the smoke configs' width): the
+    # 3xTF32 kernels on bf16 (widened as staged, rounded once on the store),
+    # against the plain backward on the same inputs (fp32 inside, rounded
+    # once) at BF16_GRAD_TOL; the smoke step's calls and the 32-row tiles'
+    # edges, KH == H too (dK and dV through the workspace all the same)
+    sm = (BF16_SMOKE_RUN["batch"], BF16_SMOKE_RUN["seq"])
+    d16_cases = [((*sm, 4, 2, 16), {}),                                  # qwen3's smoke call
+                 ((*sm, 4, 1, 16), {"window": 32}),                      # recurrentgemma's local
+                 ((*sm, 4, 2, 16), {"window": 32, "softcap": 50.0, "scale": 0.0625}),  # gemma2's
+                 ((*sm, 4, 2, 16), {"causal": False, "skv": 8}),         # seamless's cross call
+                 ((2, 77, 4, 4, 16), {"causal": False}),                 # ragged S, KH == H
+                 ((1, 300, 2, 1, 16), {"window": 45})]                   # window inside a tile
+    d16_err = 0.0
+    for (cb, cs, ch, ckh, cd), kw in d16_cases:
+        kw = dict(kw)
+        cskv = kw.pop("skv", cs)
+        q, do = rand(cb, cs, ch, cd), rand(cb, cs, ch, cd)
+        k, v = rand(cb, cskv, ckh, cd), rand(cb, cskv, ckh, cd)
+        kw = {"causal": True, "scale": cd ** -0.5, **kw}
+        before = dict(K1.flash_attention_bwd.launches_by_route)
+        o, lse = K1.flash_attention(q, k, v, return_lse=True, **kw)
+        got = K1.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        again = K1.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        want = ops.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        shown = {k_: v_ for k_, v_ in kw.items() if k_ != "scale"}
+        if cskv != cs:
+            shown["S_kv"] = cskv
+        name = f"K1-bwd bf16 {(cb, cs, ch, ckh, cd)} {shown} [{K1.bwd_route(bf, cd)}]"
+        if K1.flash_attention_bwd.launches_by_route != {**before, "tf32x3": before["tf32x3"] + 2}:
+            raise AssertionError(f"{name}: launches by route "
+                                 f"{K1.flash_attention_bwd.launches_by_route}, before {before}")
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"{name}: two calls differ")
+        check_close(f"K1 {(cb, cs, ch, ckh, cd)} {shown} [tf32x3] lse", lse,
+                    ops.flash_attention_lse_plain(q, k, **kw), LSE_TOL)
+        for g_, x_, w_ in zip(("dq", "dk", "dv"), got, want):
+            err = check_close(f"{name} {g_}", x_, w_, BF16_GRAD_TOL,
+                              BF16_GRAD_TOL * max(float(w_.float().abs().max()), 1e-30))
+            if (cb, cs, ch, ckh, cd) == d16_cases[0][0]:
+                d16_err = max(d16_err, err)
+        del q, k, v, do, o, lse, got, again, want
+    log(f"   K1-bwd bf16 at head_dim 16: two calls of each of the {len(d16_cases)} cases equal "
+        "to the bit, each on the tf32x3 route")
+    rows["flash_attention_bwd"]["bf16_d16_call"] = dict(
+        k1_bwd_call("bf16_d16_call", *d16_cases[0][0], rand, bf16_route=False),
+        max_abs_err=d16_err, **bwd_ptxas["k1_d16"])
+
     # ---- K3-bwd's bf16 route: mamba2's train call and the fp32 route's edges
     def ssd_inputs(b, s, h, p, n, g, with_h0):
         x = (rand(b, s, h, p, dtype=torch.float32) * 0.5).to(bf)
@@ -1859,6 +1979,84 @@ def bf16_kernel_phase(rows, bwd_ptxas):
         f"{issued['bound_ms']:.4f}); device ms a call by kernel (profiler): "
         + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in passes.items()))
     del x, dt, a, bm, cm, dy
+
+
+def k1_bwd_call(name, b, s, h, kh, d, rand, *, bf16_route, skv=None, causal=True, window=0,
+                softcap=None, scale=None):
+    """K1-bwd on bf16 at one train call (k and v of S_kv rows, unmasked,
+    where `skv` is given): held once to its plain version (the bf16 route's
+    with its roundings, or, on the 3xTF32 route at head_dim 16, the plain
+    backward rounded once) at BF16_GRAD_TOL of each gradient's max, then
+    timed beside its bound (the bf16 rate: the inputs' type) and the
+    library's bf16 backward, forward and backward less forward: SDPA's
+    where one SDPA call computes the same function (no softcap, and a
+    window only where it does not bind, S <= window), else compiled
+    `flex_attention`'s (``flex_attention_call``: the cap as its score_mod,
+    the causal window as a block mask), its gradients first held to the
+    plain version's at 2e-2 of each gradient's max, as K1's flex row holds
+    its output. Returns the call's fields."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as K1
+    from repro_torch.kernels import ops
+    skv = skv or s
+    kw = dict(scale=scale or d ** -0.5, causal=causal, window=window, softcap=softcap)
+    q, do = rand(b, s, h, d), rand(b, s, h, d)
+    k, v = rand(b, skv, kh, d), rand(b, skv, kh, d)
+    o, lse = K1.flash_attention(q, k, v, return_lse=True, **kw)
+    got = K1.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    plain = ops.flash_attention_bwd_bf16_plain if bf16_route else ops.flash_attention_bwd_plain
+    want = plain(q, k, v, o, lse, do, **kw)
+    route = K1.bwd_route(q.dtype, d)
+    err = max(check_close(f"K1-bwd {name} {(b, s, h, kh, d)} S_kv {skv} {g_} [{route}]", x_, w_,
+                          BF16_GRAD_TOL, BF16_GRAD_TOL * max(float(w_.float().abs().max()), 1e-30))
+              for g_, x_, w_ in zip(("dq", "dk", "dv"), got, want))
+    del got
+    ms = time_ms(f"K1-bwd {name}", lambda: K1.flash_attention_bwd(q, k, v, o, lse, do, **kw))
+    pairs = int(ops._mask(s, causal, window, "cpu", skv).sum())
+    flops = 10 * d * pairs * b * h                    # five products over the kept pairs
+    nbytes = 2 * (4 * b * s * h * d + 4 * b * skv * kh * d) + 4 * b * h * s
+    out = dict(shape=[b, s, h, kh, d], s_kv=skv, causal=causal, window=window, softcap=softcap,
+               route=route, ms=ms, max_abs_err=err, **bound(flops, nbytes, "bfloat16"),
+               tflops=flops / ms / 1e9, gflop=flops / 1e9, mb=nbytes / 1e6)
+    if route == "tf32x3":
+        out["bound_tf32x3_ms"] = flops / PEAK_FLOPS["tf32x3"] * 1e3
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    binds = 0 < window < s
+    if not softcap and not binds:
+        library = "SDPA bf16"
+        lib = lambda: F.scaled_dot_product_attention(   # noqa: E731
+            qt, kt, vt, is_causal=causal, scale=kw["scale"], enable_gqa=kh < h)
+    else:
+        if not causal and binds:
+            raise ValueError(f"{name}: no K1 train call has a window without the causal mask")
+        library = "flex_attention bf16, compiled"
+        w = window if binds else skv
+        keep = ((lambda b_, h_, qi, ki: (qi >= ki) & (qi - ki < w)) if causal else
+                (lambda b_, h_, qi, ki: ki >= 0))
+        flex = flex_attention_call(qt, scale=kw["scale"], softcap=softcap, mask_mod=keep,
+                                   q_len=s, kv_len=skv)
+        lib = lambda: flex(kt, vt)   # noqa: E731
+        for g_, x_, w_ in zip(("dq", "dk", "dv"), torch.autograd.grad(lib(), (qt, kt, vt), dot),
+                              want):
+            check_close(f"   its library, flex_attention, {g_}", x_.transpose(1, 2), w_, 2e-2,
+                        2e-2 * max(float(w_.float().abs().max()), 1e-30))
+    del want
+    lib_fwd = time_ms(f"{library} forward {name}", lib)
+    lib_both = time_ms(f"{library} forward and backward {name}",
+                       lambda: torch.autograd.grad(lib(), (qt, kt, vt), dot))
+    out.update(library_ms=lib_both - lib_fwd, library=library, library_fwd_and_bwd_ms=lib_both,
+               library_fwd_ms=lib_fwd)
+    del qt, kt, vt, dot
+    log(f"   K1-bwd bf16 at {name} {(b, s, h, kh, d)}, S_kv {skv}, causal {causal}, window "
+        f"{window}, softcap {softcap} [{route}]: kernel_ms {ms:.4f} ({out['tflops']:.1f} TFLOP/s) "
+        f"bound_ms {out['bound_ms']:.4f} ({out['bound_by']}; {flops / 1e9:.2f} GFLOP, "
+        f"{nbytes / 1e6:.1f} MB" + (f"; {out['bound_tf32x3_ms']:.4f} at the 3xTF32 rate"
+                                    if route == "tf32x3" else "")
+        + f") library_ms {out['library_ms']:.4f} ({library}: forward and backward "
+        f"{lib_both:.4f} less forward {lib_fwd:.4f})")
+    del q, k, v, do, o, lse
+    return out
 
 
 def rotating_kept(fn, sets):
@@ -2578,15 +2776,18 @@ def ring_wrap_phase():
 
 
 def grad_guard_phase():
-    """A kernel with no backward kernel for its inputs (K2; K1 in bf16 at
-    head_dim 16) refuses an input that requires a gradient, rather than
-    return a tensor with no grad_fn; K1 in bf16 at 64, 128 and 256 and K3 in
-    bf16 (its bf16 backward routes), K3 in fp32 and K1 in fp32 with k and v
-    of a length of their own return tensors with a grad_fn."""
+    """A kernel with no backward kernel for its inputs (K2) refuses an input
+    that requires a gradient, rather than return a tensor with no grad_fn;
+    K1 in bf16 at head_dim 16 (its backward on K1-bwd's 3xTF32 kernels,
+    counted under that route, its gradients within BF16_GRAD_TOL of the
+    plain backward's), at 64, 128 and 256, K3 in bf16 (its bf16 backward
+    routes), K3 in fp32 and K1 in fp32 with k and v of a length of their own
+    return tensors with a grad_fn."""
+    from repro_torch.kernels import flash_attention as K1
     from repro_torch.kernels import ops
-    log("== grad guards: K2 and K1 bf16 at head_dim 16 raise under autograd on the card; K1 "
-        "bf16 at 64/128/256, K3 bf16 and fp32, K1 fp32 with k and v of a length of their own "
-        "record a graph")
+    log("== grad guards: K2 raises under autograd on the card; K1 bf16 at head_dim 16 "
+        "(3xTF32 backward), 64/128/256, K3 bf16 and fp32, K1 fp32 with k and v of a length of "
+        "their own record a graph")
     dev = torch.device("cuda")
     q16 = torch.randn(1, 64, 2, 16, device=dev, dtype=torch.bfloat16, requires_grad=True)
     q32 = torch.randn(1, 64, 2, 64, device=dev, requires_grad=True)
@@ -2596,28 +2797,41 @@ def grad_guard_phase():
     bm = torch.randn(1, 16, 1, 16, device=dev)
     dt, a = torch.rand(1, 16, 2, device=dev), -torch.ones(2, device=dev)
     xb, bb = x.detach().bfloat16().requires_grad_(), bm.bfloat16()
-    calls = {"K1 bf16 at head_dim 16": lambda: ops.flash_attention(q16, q16, q16),
-             "K2": lambda: ops.decode_attention(kv[:, 0], kv, kv,
-                                                torch.ones(1, dtype=torch.int32, device=dev))}
-    for name, call in calls.items():
-        try:
-            call()
-        except NotImplementedError as e:
-            log(f"   {name}: NotImplementedError: {str(e)[:90]}...")
-        else:
-            raise AssertionError(f"{name} ran under autograd with no backward kernel")
+    try:
+        ops.decode_attention(kv[:, 0], kv, kv, torch.ones(1, dtype=torch.int32, device=dev))
+    except NotImplementedError as e:
+        log(f"   K2: NotImplementedError: {str(e)[:90]}...")
+    else:
+        raise AssertionError("K2 ran under autograd with no backward kernel")
     recorded = {"K1 fp32, S_kv != S": lambda: ops.flash_attention(q32, frames, frames,
                                                                   causal=False),
                 "K3 fp32": lambda: ops.ssd_scan(x, dt, a, bm, bm),
                 "K3 bf16": lambda: ops.ssd_scan(xb, dt, a, bb, bb)}
-    for d in (64, 128, 256):
-        qd = torch.randn(1, 64, 2, d, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    for d in (16, 64, 128, 256):
+        qd = q16 if d == 16 else torch.randn(1, 64, 2, d, device=dev, dtype=torch.bfloat16,
+                                             requires_grad=True)
         recorded[f"K1 bf16 at head_dim {d}"] = lambda qd=qd: ops.flash_attention(qd, qd, qd)
     for name, call in recorded.items():
         out = call()
         if out.grad_fn is None:
             raise AssertionError(f"{name} under autograd returned a tensor with no grad_fn")
         log(f"   {name}: grad_fn {type(out.grad_fn).__name__}")
+    # K1 bf16 at head_dim 16 through its backward: one K1-bwd call on its
+    # 3xTF32 route, against the plain backward on the same bf16 inputs
+    do = torch.randn_like(q16)
+    by_route = dict(K1.flash_attention_bwd.launches_by_route)
+    (got,) = torch.autograd.grad(ops.flash_attention(q16, q16, q16), (q16,), do)
+    if K1.flash_attention_bwd.launches_by_route != {**by_route,
+                                                    "tf32x3": by_route["tf32x3"] + 1}:
+        raise AssertionError(f"K1 bf16 at head_dim 16's backward launched "
+                             f"{K1.flash_attention_bwd.launches_by_route}, before {by_route}")
+    o, lse = K1.flash_attention(q16.detach(), q16.detach(), q16.detach(), return_lse=True)
+    want = sum(ops.flash_attention_bwd_plain(*(q16.detach(),) * 3, o, lse, do)).to(torch.bfloat16)
+    err = check_close("K1 bf16 at head_dim 16: dq + dk + dv", got, want, BF16_GRAD_TOL,
+                      BF16_GRAD_TOL * float(want.float().abs().max()))
+    log(f"   K1 bf16 at head_dim 16 under autograd: one K1-bwd launch on tf32x3, its gradient "
+        f"{err:.2e} from the plain backward's at most (BF16_GRAD_TOL {BF16_GRAD_TOL:g} of its "
+        "max)")
     with torch.no_grad():
         if ops.flash_attention(q16, q16, q16).grad_fn is not None:
             raise AssertionError("K1 under no_grad recorded a graph")
@@ -2972,6 +3186,32 @@ def expected_train_launches(cfg, steps):
     return want
 
 
+def check_routes(cfg, dtype, want, k1, k1_bwd, k3, k3_bwd):
+    """Raise unless every launch of a train run of `cfg` in `dtype` (`want`:
+    ``expected_train_launches``) took its route: K1 and K1-bwd the routes
+    ``route`` and ``bwd_route`` give (dtype, head_dim), K3 and K3-bwd those
+    of (dtype, P, N); `k1` .. `k3_bwd` are the launches by route."""
+    from repro_torch.kernels import flash_attention as K1
+    from repro_torch.kernels import ssd_scan as K3
+
+    def only(routes, route, n):   # n launches, all on `route`
+        return {**dict.fromkeys(routes, 0), **({route: n} if n else {})}
+    attends = cfg.family != "ssm"
+    checks = {"K1": (k1, K1.ROUTES, attends and K1.route(dtype, cfg.head_dim),
+                     want["flash_attention"]),
+              "K1-bwd": (k1_bwd, K1.BWD_ROUTES, attends and K1.bwd_route(dtype, cfg.head_dim),
+                         want["flash_attention_bwd"]),
+              "K3": (k3, K3.ROUTES, K3.route(dtype, cfg.ssm_headdim, cfg.ssm_state),
+                     want["ssd_scan"]),
+              "K3-bwd": (k3_bwd, K3.BWD_ROUTES,
+                         k3_bwd_route(K3, dtype, cfg.ssm_headdim, cfg.ssm_state)
+                         if cfg.family == "ssm" else "tf32x3", want["ssd_scan_bwd"])}
+    for name, (got, routes, route, n) in checks.items():
+        if got != only(routes, route, n):
+            raise AssertionError(f"{name} launches by route {got}: want {n} on {route} "
+                                 f"({dtype})")
+
+
 # the profiler groups a train step of each family must fill, and those it
 # must leave empty
 TRAIN_GROUPS = {"dense": ("K1", "K1-bwd"), "hybrid": ("K1", "K1-bwd", "K4", "K4-bwd"),
@@ -3011,37 +3251,9 @@ def kv_len_calls(K1):
         fa.forward, fa.backward = (staticmethod(f) for f in saved)
 
 
-@contextlib.contextmanager
-def relu_masks(masks=None):
-    """The ReLU MLP's activation (``nn/mlp.py``'s ``ACTS["relu"]``, the
-    encoder-decoder's) with its sign masks recorded in call order into the
-    list yielded (`masks` None), or replayed from `masks` (h * mask: the
-    same value and gradient wherever the two runs agree on the sign), for
-    the gradient comparison only. ReLU's gradient jumps at 0: a
-    pre-activation within rounding of 0 takes another sign under another
-    rounding of the attention, and moves its leaf by one token's share."""
-    import torch.nn.functional as F
-    from repro_torch.nn import mlp as mlp_mod
-    saved = mlp_mod.ACTS["relu"]
-    out = []
-    replay = None if masks is None else iter(masks)
-
-    def act(h):
-        if replay is not None:
-            return h * next(replay).to(h.dtype)
-        out.append(h.detach() > 0)
-        return F.relu(h)
-    mlp_mod.ACTS["relu"] = act
-    try:
-        yield out
-    finally:
-        mlp_mod.ACTS["relu"] = saved
-
-
 # the families' train parity at a few layers of full width: the layers each
 # keeps
-TRAIN_PARITY = {"mamba2-2.7b": dict(num_layers=3),
-                "seamless-m4t-large-v2": dict(enc_layers=2, dec_layers=2, num_layers=4)}
+TRAIN_PARITY = {"mamba2-2.7b": dict(num_layers=3), "seamless-m4t-large-v2": TRAIN_PARITY_ENCDEC}
 
 
 def family_train_parity_phase(arch):
@@ -3062,6 +3274,7 @@ def family_train_parity_phase(arch):
     from repro_torch.kernels import flash_attention as K1
     from repro_torch.kernels import ops
     from repro_torch.launch import train
+    from repro_torch.nn.mlp import relu_masks
 
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
@@ -3150,31 +3363,39 @@ def family_train_parity_phase(arch):
 
 
 def bf16_train_parity_phase(arch):
-    """`arch` at 3 layers of full width at the production dtypes (bf16
-    params and compute, full remat), batch 4 x 256 in one micro-batch: the
-    V-trace loss through its kernels and their bf16 backward routes (K1 on
-    wgmma and K1-bwd's bf16 route; K3 and K3-bwd's bf16 route) against the
-    same through their plain versions paired as the kernels pair them
-    (``plain_bf16_pairs``), within 1e-2 relative; one step's launch counts,
-    each on its route; and every gradient leaf against the plain versions'
-    within BF16_LEAF_TOL of the leaf's max, or, where a leaf is farther,
-    against the kernels taken in fp64 (``fp64_versions``; the rest of the
-    model bf16): within BF16_LEAF_TOL of its max of fp64, or no farther
-    than FP64_MARGIN times the plain versions are (``fp64_verdict``)."""
+    """`arch` at BF16_TRAIN_PARITY's layers of full width at the production
+    dtypes (bf16 params and compute, full remat), in one micro-batch (batch
+    4 x 256 unless named: gemma2 1 x 4352, past its window): the V-trace
+    loss through its kernels and their backward kernels (K1 and K1-bwd on
+    the routes ``route`` and ``bwd_route`` give bf16 at its head_dim; K3 and
+    K3-bwd's bf16 route; K4 and K4-bwd) against the same through their
+    plain versions paired as the kernels pair them (``plain_bf16_pairs``, K4
+    by ``plain_versions``), within 1e-2 relative; one step's launch counts,
+    each on its route (the encoder-decoder's cross calls at S_kv != S
+    counted apart, ``kv_len_calls``); and every gradient leaf against the
+    plain versions' within BF16_LEAF_TOL of the leaf's max, or, where a leaf
+    is farther, against the kernels taken in fp64 (``fp64_versions``; the
+    rest of the model bf16): within BF16_LEAF_TOL of its max of fp64, or no
+    farther than FP64_MARGIN times the plain versions are
+    (``fp64_verdict``). The plain and fp64 runs replay the kernel run's
+    ReLU masks (``relu_masks``; seamless's MLPs)."""
     from repro_torch.core.losses import make_vtrace_loss, param_grads
     from repro_torch.kernels import flash_attention as K1
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_scan as K3
     from repro_torch.launch import train
+    from repro_torch.nn.mlp import relu_masks
 
     t0 = time.perf_counter()
-    b, s = TRAIN["batch"], TRAIN["seq"]
-    run = train.setup(arch, batch=b, seq=s, steps=1, device="cuda", num_layers=3, grad_accum=1,
-                      **PRODUCTION)
+    over = dict(BF16_TRAIN_PARITY[arch])
+    b, s = over.pop("batch", TRAIN["batch"]), over.pop("seq", TRAIN["seq"])
+    run = train.setup(arch, batch=b, seq=s, steps=1, device="cuda", grad_accum=1,
+                      **PRODUCTION, **over)
     cfg = run.cfg
-    log(f"== train parity: {cfg.name} at 3 layers, full width, bf16 params and compute, remat "
-        f"full, batch {b} x seq {s}: the kernels and their bf16 backward routes against their "
-        "plain versions, and against fp64 where the plain versions sit farther")
+    frames = f" over {cfg.frontend_tokens} frames" if cfg.family == "encdec" else ""
+    log(f"== train parity: {cfg.name} at {over}, full width, bf16 params and compute, remat "
+        f"full, batch {b} x seq {s}{frames}: the kernels and their backward kernels against "
+        "their plain versions, and against fp64 where the plain versions sit farther")
     params = run.bundle.init(run.seed, device=run.device).requires_grad_(True)
     if cfg.tie_embeddings:
         live_table(params, cfg)
@@ -3182,8 +3403,9 @@ def bf16_train_parity_phase(arch):
     batch = run.batch_at(0)
     loss_fn = make_vtrace_loss(run.bundle)
     ops.reset_launch_counts()
-    loss, _ = loss_fn(params, batch)
-    got = param_grads(loss, named)
+    with kv_len_calls(K1) as kv_calls, relu_masks() as masks:
+        loss, _ = loss_fn(params, batch)
+        got = param_grads(loss, named)
     counts = ops.launch_counts()
     want_counts = expected_train_launches(cfg, 1)
     if counts != want_counts:
@@ -3192,30 +3414,30 @@ def bf16_train_parity_phase(arch):
               "K1-bwd": dict(K1.flash_attention_bwd.launches_by_route),
               "K3": dict(K3.ssd_scan.launches_by_route),
               "K3-bwd": dict(K3.ssd_scan_bwd.launches_by_route)}
-    want_routes = {"K1": ("wgmma", counts["flash_attention"]),
-                   "K1-bwd": ("bf16", counts["flash_attention_bwd"]),
-                   "K3": ("wgmma", counts["ssd_scan"]),
-                   "K3-bwd": (k3_bwd_route(K3, torch.bfloat16, cfg.ssm_headdim, cfg.ssm_state)
-                              if cfg.family == "ssm" else "wgmma", counts["ssd_scan_bwd"])}
-    for k_, (route, n) in want_routes.items():
-        if routes[k_].get(route, 0) != n or sum(routes[k_].values()) != n:
-            raise AssertionError(f"{k_} launches by route {routes[k_]}: want {n} on {route}")
-    with plain_bf16_pairs(ops):
+    check_routes(cfg, torch.bfloat16, counts, *routes.values())
+    want_kv = {}
+    if cfg.family == "encdec":
+        key = f"{s}x{cfg.frontend_tokens}"
+        want_kv = {"flash_attention": {key: 2 * cfg.dec_layers},   # remat: each forward twice
+                   "flash_attention_bwd": {key: cfg.dec_layers}}
+    if {k_: v_ for k_, v_ in kv_calls.items() if v_} != want_kv:
+        raise AssertionError(f"K1 calls at S_kv != S {kv_calls}, want {want_kv}")
+    with plain_bf16_pairs(ops), plain_versions(ops, k1=False, k4=True), relu_masks(masks):
         loss_p, _ = loss_fn(params, batch)
         want = param_grads(loss_p, named)
     if ops.launch_counts() != counts:
         raise AssertionError(f"the plain runs launched a kernel: {ops.launch_counts()}")
     check_close("loss", loss.detach(), loss_p.detach(), 1e-2, 1e-2 * abs(float(loss_p)))
     d_plain = leaf_distances(got, want, BF16_LEAF_TOL)
-    with fp64_versions(ops):
+    with fp64_versions(ops), relu_masks(masks):
         ref = param_grads(loss_fn(params, batch)[0], named)
     verdict = fp64_verdict(got, want, ref, BF16_LEAF_TOL)
     far = {n for n, d in d_plain.items() if d > 1}
-    failed = [(n, d, dp) for n, d, dp in verdict["failed"] if n in far]
+    failed = [f_ for f_ in verdict["failed"] if f_[0] in far]
     if failed:
         raise AssertionError(f"gradient leaves farther than {BF16_LEAF_TOL:g} from the plain "
-                             f"versions' and than {FP64_MARGIN:g} times the plain versions' from "
-                             f"fp64 (leaf, distance, plain's distance): {failed}")
+                             f"versions' and than {FP64_MARGIN:g} times the plain versions' "
+                             f"from fp64 (leaf, distance, plain's distance): {failed}")
     worst = max((d, n) for n, d in d_plain.items())
     gnorm = math.sqrt(sum(float(g.float().square().sum()) for g in got.values()))
     if not (math.isfinite(float(loss)) and math.isfinite(gnorm) and gnorm > 0):
@@ -3223,20 +3445,23 @@ def bf16_train_parity_phase(arch):
     seconds = time.perf_counter() - t0
     log(f"   loss {float(loss.detach()):.6f} (plain {float(loss_p.detach()):.6f}); gradient "
         f"norm {gnorm:.4g}; launches { {k_: v_ for k_, v_ in counts.items() if v_} }, by route "
-        f"{ {k_: {r_: n_ for r_, n_ in v_.items() if n_} for k_, v_ in routes.items()} }; "
+        f"{ {k_: {r_: n_ for r_, n_ in v_.items() if n_} for k_, v_ in routes.items()} }"
+        f"{f'; K1 calls at S_kv != S {want_kv}' if want_kv else ''}; "
         f"{len(want)} gradient leaves, {len(want) - len(far)} within {BF16_LEAF_TOL:g} of each "
         f"leaf's max |g| of the plain versions (the farthest at {worst[0]:.3f} of it, "
         f"{worst[1]}), {len(far)} farther, each within max(1, {FP64_MARGIN:g} x the plain "
         f"versions') distance of fp64 (in units of {BF16_LEAF_TOL:g} of its max: the farthest "
         f"leaf with the kernels {verdict['farthest'][0]:.3f} ({verdict['farthest'][1]}), the "
         f"plain versions' farthest {verdict['farthest_plain'][0]:.3f} "
-        f"({verdict['farthest_plain'][1]})); {seconds:.1f} s")
+        f"({verdict['farthest_plain'][1]}))"
+        + (f"; {len(masks)} ReLU calls' masks replayed" if masks else "") + f"; {seconds:.1f} s")
     out = {"loss": float(loss.detach()), "loss_plain": float(loss_p.detach()),
-           "grad_norm": gnorm, "seconds": seconds, "leaves": len(d_plain),
-           "beyond_plain_tol": sorted(far), "farthest_vs_plain": worst,
+           "grad_norm": gnorm, "seconds": seconds, "leaves": len(d_plain), "batch": b, "seq": s,
+           "layers": cfg.num_layers, "beyond_plain_tol": sorted(far), "farthest_vs_plain": worst,
            "farthest_vs_fp64": verdict["farthest"],
-           "farthest_plain_vs_fp64": verdict["farthest_plain"]}
-    del params, named, got, want, ref, loss, loss_p
+           "farthest_plain_vs_fp64": verdict["farthest_plain"],
+           "relu_calls": len(masks), "kv_len_calls": want_kv}
+    del params, named, got, want, ref, loss, loss_p, masks
     return out
 
 
@@ -3245,11 +3470,12 @@ def train_phase(arch, production=False):
     functions, from its init (a tied table scaled by ``live_table``): at
     full width and depth in fp32, batch 4 x 256, or with `production` at the
     reference's production dtypes (PRODUCTION: bf16 params and compute, full
-    remat, fp32 moments) at BF16_TRAIN's batch and depth. Its launches are
-    those of ``expected_train_launches`` (the encoder-decoder's cross calls
-    at S_kv != S counted apart), every K1 and K3 launch on the route of the
-    compute dtype (fp32: 3xTF32; bf16: wgmma) and every K1-bwd and K3-bwd
-    launch on its backward route (fp32: 3xTF32; bf16: bf16); then two steps
+    remat, fp32 moments) at BF16_TRAIN's batch, sequence and depth. Its
+    launches are those of ``expected_train_launches`` (the encoder-decoder's
+    cross calls at S_kv != S counted apart), every K1 and K3 launch on the
+    route of the compute dtype (fp32: 3xTF32; bf16: wgmma at K1's head_dims
+    64-256) and every K1-bwd and K3-bwd launch on its backward route (fp32:
+    3xTF32; bf16: bf16, K3-bwd by its widths); then two steps
     timed on the host clock around a synchronised step, the step's parts
     (forward, backward, optimizer, summed over the micro-batches) on CUDA
     events, and a profiler breakdown of one step, in which the family's
@@ -3272,7 +3498,7 @@ def train_phase(arch, production=False):
     over = {}
     if production:
         over = dict(PRODUCTION, **BF16_TRAIN[arch])
-        b = over.pop("batch")
+        b, s = over.pop("batch"), over.pop("seq", s)
     else:
         b = TRAIN["batch"]
     run = train.setup(arch, batch=b, seq=s, steps=steps, device="cuda", **over)
@@ -3311,20 +3537,7 @@ def train_phase(arch, production=False):
     want = expected_train_launches(cfg, steps)
     if counts != want:
         raise AssertionError(f"train launch counts {counts} != expected {want}")
-    k1_route = K1.route(dtype, cfg.head_dim)
-    if k1_routes != {**dict.fromkeys(K1.ROUTES, 0), k1_route: want["flash_attention"]}:
-        raise AssertionError(f"K1 launches by route {k1_routes}: {dtype} takes {k1_route}")
-    k3_route = K3.route(dtype, cfg.ssm_headdim, cfg.ssm_state)
-    if k3_routes != {**dict.fromkeys(K3.ROUTES, 0), k3_route: want["ssd_scan"]}:
-        raise AssertionError(f"K3 launches by route {k3_routes}: {dtype} takes {k3_route}")
-    k1_bwd_route = "tf32x3" if dtype == torch.float32 else "bf16"
-    if k1_bwd_routes != {**dict.fromkeys(K1.BWD_ROUTES, 0),
-                         k1_bwd_route: want["flash_attention_bwd"]}:
-        raise AssertionError(f"K1-bwd launches by route {k1_bwd_routes}: want {k1_bwd_route}")
-    k3_bwd_path = (k3_bwd_route(K3, dtype, cfg.ssm_headdim, cfg.ssm_state)
-                   if cfg.family == "ssm" else "tf32x3")
-    if k3_bwd_routes != {**dict.fromkeys(K3.BWD_ROUTES, 0), k3_bwd_path: want["ssd_scan_bwd"]}:
-        raise AssertionError(f"K3-bwd launches by route {k3_bwd_routes}: want {k3_bwd_path}")
+    check_routes(cfg, dtype, want, k1_routes, k1_bwd_routes, k3_routes, k3_bwd_routes)
     # the routes' own rows in the kernels' line
     counts["ssd_scan_tf32x3"] = k3_routes.get("tf32x3", 0)
     counts["flash_attention_bwd_bf16"] = k1_bwd_routes.get("bf16", 0)
@@ -3332,8 +3545,9 @@ def train_phase(arch, production=False):
     want_kv = {}
     if cfg.family == "encdec":
         key = f"{s}x{cfg.frontend_tokens}"
-        want_kv = {"flash_attention": {key: cfg.dec_layers * steps},
-                   "flash_attention_bwd": {key: cfg.dec_layers * steps}}
+        bwd = cfg.dec_layers * steps * max(1, cfg.grad_accum)
+        want_kv = {"flash_attention": {key: bwd * (2 if cfg.remat == "full" else 1)},
+                   "flash_attention_bwd": {key: bwd}}
     if {k: v for k, v in kv_calls.items() if v} != want_kv:
         raise AssertionError(f"K1 calls at S_kv != S {kv_calls}, want {want_kv}")
     loss = [float(m["loss"]) for m in history]
@@ -3349,6 +3563,9 @@ def train_phase(arch, production=False):
         f"({torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB on the card)")
 
     step_ms = []
+    # the caching allocator's retries (a failed cudaMalloc, its cache freed
+    # and the call repeated: the host waits on the device) over the two steps
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
     for i in range(2):
         batch = run.batch_at(steps + i)
         torch.cuda.synchronize()
@@ -3356,6 +3573,7 @@ def train_phase(arch, production=False):
         state, m = run.train_step(state, batch)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries
     # the step's parts, called as make_train_step calls them (per
     # micro-batch: the loss, then its gradients summed in fp32), CUDA events
     # between: each part's share of the step's device timeline
@@ -3400,9 +3618,11 @@ def train_phase(arch, production=False):
     state["step"] += 1
     del grads, updates
     total = sum(parts.values())
-    log(f"   step wall (host clock, synchronised) {step_ms[0]:.2f}, {step_ms[1]:.2f} ms; "
-        f"{b * s / (step_ms[1] / 1e3):.0f} tokens/s; parts (CUDA events) "
-        + ", ".join(f"{p} {t:.2f} ms ({t / total:.3f})" for p, t in parts.items()))
+    log(f"   step wall (host clock, synchronised) {step_ms[0]:.2f}, {step_ms[1]:.2f} ms "
+        f"({retries} allocator retries in the two); {b * s / (step_ms[1] / 1e3):.0f} tokens/s; "
+        "parts (CUDA events) "
+        + ", ".join(f"{p}{' (AdamW)' if p == 'optimizer' else ''} {t:.2f} ms ({t / total:.3f})"
+                    for p, t in parts.items()))
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         state, m = run.train_step(state, run.batch_at(steps + 3))
@@ -3412,17 +3632,76 @@ def train_phase(arch, production=False):
         if (g in TRAIN_GROUPS[cfg.family]) != (groups[g] > 0):
             raise AssertionError(f"profiler group {g} holds {groups[g]} ms of a train step of "
                                  f"{cfg.name}, which runs {TRAIN_GROUPS[cfg.family]}")
-    log(f"   device time of a step (ms): {json.dumps(groups)}; {n_ops:.0f} device operations")
+    idle = 1.0 - groups["busy"] / step_ms[1]
+    log(f"   device time of a step (ms): {json.dumps(groups)}; {n_ops:.0f} device operations; "
+        f"device idle share {idle:.3f} (1 - busy over the second timed step's wall)")
     del state, named, m
     seconds = time.perf_counter() - phase_t0
     log(f"   train {cfg.name}{' (production dtypes)' if production else ''}: {seconds:.1f} s")
     return counts, {"step_ms": step_ms, "tokens_per_s": b * s / (step_ms[1] / 1e3),
                     "parts_ms": parts, "peak_gb": peak / 1e9, "params": n, "loss": loss,
                     "grad_norm": gnorm, "device_ms": groups, "device_ops": n_ops,
+                    "idle_share": idle, "alloc_retries": retries,
                     "kv_len_calls": want_kv, "seconds": seconds, "layers": cfg.num_layers,
                     "batch": b, "micro_batches": accum, "dtypes": [cfg.param_dtype,
                                                                    cfg.compute_dtype],
                     "remat": cfg.remat}
+
+
+def bf16_smoke_train_phase():
+    """The smoke configs of the attention families (BF16_SMOKE: head_dim
+    16) at the production dtypes on the card, BF16_SMOKE_RUN's steps each
+    through ``repro_torch.launch.train``'s ``setup`` and ``train_loop``
+    (a tied table scaled by ``live_table``): K1 and K1-bwd in bf16 at head_dim
+    16, both on their 3xTF32 kernels (and K4 and K4-bwd in RecurrentGemma's);
+    the launches those of ``expected_train_launches``, each on its route;
+    the loss and gradient norm finite, the norm > 0. Returns the launches
+    summed over the archs, and each arch's metrics."""
+    from repro_torch.kernels import flash_attention as K1
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as K3
+    from repro_torch.launch import train
+
+    b, s, steps = (BF16_SMOKE_RUN[k] for k in ("batch", "seq", "steps"))
+    log(f"== train at the production dtypes, smoke configs (head_dim 16): {', '.join(BF16_SMOKE)}, "
+        f"batch {b} x seq {s}, {steps} steps each through repro_torch.launch.train")
+    total, metrics = {}, {}
+    for arch in BF16_SMOKE:
+        t0 = time.perf_counter()
+        run = train.setup(arch, smoke=True, batch=b, seq=s, steps=steps, device="cuda",
+                          **PRODUCTION)
+        cfg = run.cfg
+        state = run.make_state()
+        if cfg.tie_embeddings:
+            live_table(state["params"], cfg)
+        ops.reset_launch_counts()
+        state, history = train.train_loop(run, state, 0, steps, log=lambda m: log(f"   {m}"))
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        want = expected_train_launches(cfg, steps)
+        if counts != want:
+            raise AssertionError(f"{arch} smoke, bf16: launches {counts} != expected {want}")
+        k1_bwd = dict(K1.flash_attention_bwd.launches_by_route)
+        check_routes(cfg, torch.bfloat16, want, dict(K1.flash_attention.launches_by_route),
+                     k1_bwd, dict(K3.ssd_scan.launches_by_route),
+                     dict(K3.ssd_scan_bwd.launches_by_route))
+        loss = [float(m["loss"]) for m in history]
+        gnorm = [float(m["grad_norm"]) for m in history]
+        if not (all(map(math.isfinite, loss + gnorm)) and min(gnorm) > 0) \
+                or state["step"] != steps or state["params"].embed.table.dtype != torch.bfloat16:
+            raise AssertionError(f"{arch} smoke, bf16: loss {loss}, grad_norm {gnorm} (finite "
+                                 f"and > 0 wanted), step {state['step']}")
+        seconds = time.perf_counter() - t0
+        log(f"   {arch} smoke (head_dim {cfg.head_dim}, {cfg.num_layers} layers), bf16: launches "
+            f"{ {k_: v_ for k_, v_ in counts.items() if v_} }, K1-bwd by route "
+            f"{ {k_: v_ for k_, v_ in k1_bwd.items() if v_} }; loss {loss}, grad_norm {gnorm}; "
+            f"{seconds:.1f} s")
+        for k_, v_ in counts.items():
+            total[k_] = total.get(k_, 0) + v_
+        metrics[arch] = {"launches": {k_: v_ for k_, v_ in counts.items() if v_}, "loss": loss,
+                         "grad_norm": gnorm, "seconds": seconds}
+        del run, state, history
+    return total, metrics
 
 
 def train_restart_phase():
@@ -5301,7 +5580,7 @@ def main():
     log(f"== build: {', '.join(build.KERNELS)} in {time.perf_counter() - t0:.1f} s")
     k1_ptxas, k4_ptxas = {}, {}
     bwd_ptxas = {"k1": {}, "k3": {}, "k3_fwd": {}, "k4": {}, "k1_bf16": {}, "k3_bf16": {},
-                 "k3_wgmma": {}}
+                 "k3_wgmma": {}, "k1_d16": {}}
     for name, rep in reports.items():
         regs = [int(x) for x in re.findall(r"Used (\d+) registers", rep)]
         spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", rep) if int(x)]
@@ -5382,15 +5661,19 @@ def main():
                 short = found.group(1).split("_")[1]
                 bwd_ptxas["k3_fwd"].update({f"registers_{short}": used,
                                             f"spill_bytes_{short}": spill})
-            # K1-bwd, one line a kernel and head_dim, K4-bwd and K3-bwd
-            found = re.search(r"(flash_bwd_dkdv_kernel|flash_bwd_dq_kernel)ILi(\d+)E|"
-                              r"(flash_bwd_delta_kernel|flash_bwd_reduce_kernel|"
-                              r"rglru_bwd_chunk_kernel|ssd_bwd_\w+?_kernel)", entry)
+            # K1-bwd's 3xTF32 kernels, one line a kernel, element type and
+            # head_dim; K4-bwd and K3-bwd
+            found = re.search(r"(flash_bwd_dkdv_kernel|flash_bwd_dq_kernel|flash_bwd_delta_kernel|"
+                              r"flash_bwd_reduce_kernel)I(f|13__nv_bfloat16)(?:Li(\d+))?E|"
+                              r"(rglru_bwd_chunk_kernel|ssd_bwd_\w+?_kernel)", entry)
             if found:
-                kernel = found.group(1) or found.group(3)
+                kernel = found.group(1) or found.group(4)
                 used = int(re.search(r"Used (\d+) registers", entry).group(1))
                 spill = int(re.search(r"(\d+) bytes spill stores", entry).group(1))
-                log(f"   {kernel}{f'<{found.group(2)}>' if found.group(2) else ''}: {used} "
+                args = [{"f": "fp32", "13__nv_bfloat16": "bf16"}[found.group(2)]] \
+                    if found.group(2) else []
+                args += [found.group(3)] if found.group(3) else []
+                log(f"   {kernel}{f'<{chr(44).join(args)}>' if args else ''}: {used} "
                     f"registers, {spill} bytes of spill stores")
                 if kernel == "rglru_bwd_chunk_kernel":
                     bwd_ptxas["k4"].update(registers=used, spill_bytes=spill)
@@ -5398,10 +5681,14 @@ def main():
                     short = kernel[len("ssd_bwd_"):-len("_kernel")]
                     bwd_ptxas["k3"].update({f"registers_{short}": used,
                                             f"spill_bytes_{short}": spill})
-                elif found.group(2) == "256":   # the train call's head_dim
+                elif found.group(3) == "256" and found.group(2) == "f":   # the train call's
                     short = kernel.split("_")[2]
                     bwd_ptxas["k1"].update({f"registers_{short}_256": used,
                                             f"spill_bytes_{short}_256": spill})
+                elif found.group(2) != "f" and found.group(3) == "16":   # bf16 at head_dim 16
+                    short = kernel.split("_")[2]
+                    bwd_ptxas["k1_d16"].update({f"registers_{short}": used,
+                                                f"spill_bytes_{short}": spill})
 
     phase_s = {"build": time.perf_counter() - t0}
 
@@ -5478,6 +5765,11 @@ def main():
         counts, train_metrics[f"{arch} bf16"] = timed(f"train {arch} bf16", train_phase, arch,
                                                       production=True)
         add(counts)
+    # and the smoke configs (head_dim 16) at those dtypes: K1-bwd's 3xTF32
+    # kernels on bf16
+    counts, train_metrics["smoke configs bf16"] = timed("train smoke configs bf16",
+                                                        bf16_smoke_train_phase)
+    add(counts)
     timed("train restart", train_restart_phase)
     torch.cuda.empty_cache()
     # the R2D2, V-trace, device-backend and wire paths, the figures and the

@@ -154,45 +154,6 @@ struct Cfg {
   static_assert(KS - 1 <= 3, "the k-splits' partial sums go through Q, K and V");
 };
 
-// rows r0 .. r0 + 31 of a (B, S, heads, D) tensor at (b, head) (`src` its
-// row 0) into a tile of fp32 rows, zeros past S: fp32 by 16-byte cp.async
-// (awaited with cp_async_wait), bf16 by 16-byte loads widened to fp32 on the
-// way, which is exact (a bf16 value is a TF32 value: its small part is 0)
-template <int D>
-__device__ __forceinline__ void stage_tile(float* dst, const float* __restrict__ src, int r0,
-                                           int S, long stride) {
-  load_tile<D, NT>(dst, src, r0, S, stride);
-}
-template <int D>
-__device__ __forceinline__ void stage_tile(float* dst, const __nv_bfloat16* __restrict__ src,
-                                           int r0, int S, long stride) {
-  constexpr int CPR = D / 8;   // 16-byte loads a row
-  for (int i = threadIdx.x; i < 32 * CPR; i += NT) {
-    const int r = i / CPR, c = (i % CPR) * 8, row = r0 + r;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (row < S) raw = *reinterpret_cast<const uint4*>(src + (long)row * stride + c);
-    // a word holds two bf16, the first in its low half; a bf16 is the top
-    // half of the fp32 of the same value
-    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-    float f[8];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      f[2 * j] = __uint_as_float(w[j] << 16);
-      f[2 * j + 1] = __uint_as_float(w[j] & 0xFFFF0000u);
-    }
-    float4* d = reinterpret_cast<float4*>(dst + r * row_pitch<D> + c);
-    d[0] = make_float4(f[0], f[1], f[2], f[3]);
-    d[1] = make_float4(f[4], f[5], f[6], f[7]);
-  }
-}
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
 // the largest of the four key quarters' partials of tile row r
 __device__ __forceinline__ float quarters_max(const float* srow, int r) {
   return fmaxf(fmaxf(srow[r], srow[BQ + r]), fmaxf(srow[2 * BQ + r], srow[3 * BQ + r]));
@@ -226,9 +187,9 @@ flash_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;
   const int kv_begin = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
 
-  stage_tile<D>(sq, q + (long)b * S * qs + (long)h * D, q0, S, qs);
-  stage_tile<D>(sk, kb, kv_begin, Skv, ks);
-  stage_tile<D>(sv, vb, kv_begin, Skv, ks);
+  load_tile<D, NT>(sq, q + (long)b * S * qs + (long)h * D, q0, S, qs);
+  load_tile<D, NT>(sk, kb, kv_begin, Skv, ks);
+  load_tile<D, NT>(sv, vb, kv_begin, Skv, ks);
   cp_async_commit();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
@@ -313,8 +274,8 @@ flash_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     }
     if (k0 + BK < kv_end) {   // the next tile, once every warp is done with this one
       __syncthreads();
-      stage_tile<D>(sk, kb, k0 + BK, Skv, ks);
-      stage_tile<D>(sv, vb, k0 + BK, Skv, ks);
+      load_tile<D, NT>(sk, kb, k0 + BK, Skv, ks);
+      load_tile<D, NT>(sv, vb, k0 + BK, Skv, ks);
       cp_async_commit();
     }
   }

@@ -1,7 +1,8 @@
 // K1-bwd: the gradient of causal flash attention, hand-written for Hopper
-// (sm_90a), fp32 in and out, its products on the tensor cores as 3xTF32;
-// and a bf16 route (namespace `bf`, below: `wgmma` on TMA-fed 64-row tiles)
-// for training in bf16.
+// (sm_90a), fp32 in and out, its products on the tensor cores as 3xTF32
+// (the same kernels also take bf16 at head_dim 16, below); and a bf16 route
+// (namespace `bf`, below: `wgmma` on TMA-fed 64-row tiles) for training in
+// bf16 at head_dim 64, 128 and 256.
 //
 // The TPU kernel `repro/kernels/flash_attention.py::flash_attention` has no
 // backward: the JAX package differentiates its plain attention
@@ -19,7 +20,19 @@
 //
 // Layout: q, o, dO and dQ are (B, S, H, D); k, v, dK and dV (B, S_kv, KH,
 // D) with KH dividing H; lse and Delta (B, H, S). All fp32, every pointer
-// 16-byte aligned. S_kv, the keys' own length, is S but for the
+// 16-byte aligned.
+//
+// bf16 at head_dim 16 (the smoke configs' width, which no wgmma tile
+// takes; K1's forward runs it on its 3xTF32 route too) takes these kernels
+// with the element type T a template argument: q, k, v, o and dO are read
+// as bf16 and widened to fp32 exactly as they are staged (a bf16 value is a
+// TF32 value, its small part 0, so the products are exact products of the
+// inputs), and dQ, dK and dV are rounded to bf16 once on their store; dK
+// and dV always go through the fp32 workspace of query heads' shares and
+// the reduce kernel, which rounds their sums. So the result is the fp32
+// route's on the widened inputs, rounded once: the plain version's
+// (``ops.flash_attention_bwd_plain`` on bf16 inputs). Entry
+// `flash_attention_bwd_tf32x3_bf16`. S_kv, the keys' own length, is S but for the
 // encoder-decoder's cross-attention (text queries over the encoder's
 // frames), which is unmasked, as in the forward: no causal mask and no
 // window with S_kv != S. The delta pass walks the S query rows, the dK/dV
@@ -114,6 +127,7 @@
 
 #include <atomic>
 #include <mutex>
+#include <type_traits>
 
 #include "hopper.cuh"
 #include "mma_tf32.cuh"
@@ -172,6 +186,9 @@ __device__ __forceinline__ bool edge_of(int q0, int k0, int S, int Skv, int caus
 // P of the score element at query row `row`, key `key`, from its logit s
 // (unscaled) and the row's lse, and the softcap's derivative dxdt; then
 // dX = P (dP - Delta) dxdt
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
 __device__ __forceinline__ void p_of(float s, float l, int row, int key, int S, int Skv,
                                      bool edge, float scale, int causal, int window,
                                      float softcap, float& p, float& dxdt) {
@@ -194,16 +211,17 @@ __device__ __forceinline__ void p_of(float s, float l, int row, int key, int S, 
 // ---- kernels -------------------------------------------------------------------
 
 // Delta_i = dO_i . O_i into (B, H, S): one warp a (b, s, h) row
+template <typename T>
 __global__ void __launch_bounds__(256)
-flash_bwd_delta_kernel(const float* __restrict__ o, const float* __restrict__ dout,
+flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
                        float* __restrict__ delta, int B, int S, int H, int D) {
   const long row = (long)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;   // (b, s, h)
   const int lane = threadIdx.x % 32;
   if (row >= (long)B * S * H) return;
-  const float* orow = o + row * D;
-  const float* drow = dout + row * D;
+  const T* orow = o + row * D;
+  const T* drow = dout + row * D;
   float sum = 0.f;
-  for (int d = lane; d < D; d += 32) sum = fmaf(orow[d], drow[d], sum);
+  for (int d = lane; d < D; d += 32) sum = fmaf(to_f32(orow[d]), to_f32(drow[d]), sum);
 #pragma unroll
   for (int off = 16; off > 0; off /= 2) sum += __shfl_xor_sync(0xffffffffu, sum, off);
   if (lane == 0) {
@@ -215,12 +233,12 @@ flash_bwd_delta_kernel(const float* __restrict__ o, const float* __restrict__ do
 }
 
 // dK and dV of keys k0 .. k0 + 31 from query head h alone, into dkh and
-// dvh, (B, S_kv, H, D): dK and dV themselves when KH == H, else the
-// workspace that flash_bwd_reduce_kernel sums
-template <int D>
+// dvh, (B, S_kv, H, D) fp32: dK and dV themselves when KH == H (fp32), else
+// the workspace that flash_bwd_reduce_kernel sums
+template <typename T, int D>
 __global__ void __launch_bounds__(NT, 1)
-flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, const float* __restrict__ dout,
+flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ delta,
                       float* __restrict__ dkh, float* __restrict__ dvh, int B, int S, int Skv,
                       int H, int KH, float scale, int causal, int window, float softcap) {
@@ -240,8 +258,8 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int k0 = (int)(blockIdx.x / ((unsigned)H * B)) * BKV;
   const int kh = h / (H / KH);
   const long qs = (long)H * D, ks = (long)KH * D;
-  const float* qb = q + (long)b * S * qs + (long)h * D;
-  const float* db = dout + (long)b * S * qs + (long)h * D;
+  const T* qb = q + (long)b * S * qs + (long)h * D;
+  const T* db = dout + (long)b * S * qs + (long)h * D;
   const float* lb = lse + ((long)b * H + h) * S;
   const float* eb = delta + ((long)b * H + h) * S;
 
@@ -347,11 +365,13 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// dK and dV (B, S_kv, KH, D) as the sums of their G = H / KH query heads'
-// shares (B, S_kv, H, D), g = 0 .. G - 1 in order: one thread an element
+// dK and dV (B, S_kv, KH, D), fp32 or rounded to bf16, as the sums of
+// their G = H / KH query heads' shares (B, S_kv, H, D), g = 0 .. G - 1 in
+// order: one thread an element
+template <typename T>
 __global__ void __launch_bounds__(256)
 flash_bwd_reduce_kernel(const float* __restrict__ dkh, const float* __restrict__ dvh,
-                        float* __restrict__ dk, float* __restrict__ dv, long n, int G, int D) {
+                        T* __restrict__ dk, T* __restrict__ dv, long n, int G, int D) {
   const long i = (long)blockIdx.x * 256 + threadIdx.x;   // (b, s, kh, d) of dK
   if (i >= n) return;
   // kv head kh's query heads kh G .. kh G + G - 1 sit side by side in a row
@@ -361,16 +381,16 @@ flash_bwd_reduce_kernel(const float* __restrict__ dkh, const float* __restrict__
     sk += dkh[src + (long)g * D];
     sv += dvh[src + (long)g * D];
   }
-  dk[i] = sk;
-  dv[i] = sv;
+  store1(dk + i, sk);
+  store1(dv + i, sv);
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(NT, 1)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ dout,
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    float* __restrict__ dq, int B, int S, int Skv, int H, int KH, float scale,
+                    T* __restrict__ dq, int B, int S, int Skv, int H, int KH, float scale,
                     int causal, int window, float softcap) {
   using C = Tc<D>;
   extern __shared__ __align__(16) float smem[];
@@ -388,8 +408,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = (n_qt - 1 - (int)(blockIdx.x / ((unsigned)H * B))) * BQ;
   const int kh = h / (H / KH);
   const long qs = (long)H * D, ks = (long)KH * D;
-  const float* kb = k + (long)b * Skv * ks + (long)kh * D;
-  const float* vb = v + (long)b * Skv * ks + (long)kh * D;
+  const T* kb = k + (long)b * Skv * ks + (long)kh * D;
+  const T* vb = v + (long)b * Skv * ks + (long)kh * D;
 
   // the key tiles the forward walks: none past the diagonal if causal, none
   // wholly outside the window, none past S_kv
@@ -470,49 +490,60 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   sum_k_splits<D, C::KS_DQ, C::NTW>(acc, sk, 0, split, wm * 16, nblk * C::NTW, g, t);
   if (split > 0) return;
 
-  float* dqb = dq + (long)b * S * qs + (long)h * D;
+  T* dqb = dq + (long)b * S * qs + (long)h * D;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int row = q0 + wm * 16 + g + 8 * hr;
     if (row >= S) continue;
 #pragma unroll
     for (int j = 0; j < C::NTW; ++j)
-      *reinterpret_cast<float2*>(dqb + (long)row * qs + (nblk * C::NTW + j) * 8 + 2 * t) =
-          make_float2(acc[j][2 * hr] * scale, acc[j][2 * hr + 1] * scale);
+      store2(dqb + (long)row * qs + (nblk * C::NTW + j) * 8 + 2 * t, acc[j][2 * hr] * scale,
+             acc[j][2 * hr + 1] * scale);
   }
 }
 
-template <int D>
-int launch(const float* q, const float* k, const float* v, const float* o, const float* lse,
-           const float* dout, float* dq, float* dk, float* dv, float* delta, float* dkh,
-           float* dvh, int B, int S, int Skv, int H, int KH, float scale, int causal, int window,
-           float softcap, cudaStream_t st) {
+// T float: fp32 in and out; T bf16: bf16 in and out, fp32 inside (dK and dV
+// always through the workspace, which the reduce kernel rounds)
+template <typename T, int D>
+int launch(const T* q, const T* k, const T* v, const T* o, const float* lse, const T* dout,
+           T* dq, T* dk, T* dv, float* delta, float* dkh, float* dvh, int B, int S, int Skv,
+           int H, int KH, float scale, int causal, int window, float softcap, cudaStream_t st) {
   using C = Tc<D>;
   static std::atomic<unsigned long long> dkdv_in{0}, dq_in{0};
   cudaError_t err =
-      hopper::opt_in_smem((const void*)flash_bwd_dkdv_kernel<D>, C::SMEM_DKDV, dkdv_in);
+      hopper::opt_in_smem((const void*)flash_bwd_dkdv_kernel<T, D>, C::SMEM_DKDV, dkdv_in);
   if (err == cudaSuccess)
-    err = hopper::opt_in_smem((const void*)flash_bwd_dq_kernel<D>, C::SMEM_DQ, dq_in);
+    err = hopper::opt_in_smem((const void*)flash_bwd_dq_kernel<T, D>, C::SMEM_DQ, dq_in);
   if (err != cudaSuccess) return (int)err;
   const long rows = (long)B * S * H;
-  flash_bwd_delta_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(o, dout, delta, B, S, H, D);
+  flash_bwd_delta_kernel<T><<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(o, dout, delta, B, S, H,
+                                                                        D);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const bool shared_kv = KH < H;   // dK, dV sum query heads' shares from the workspace
+  // dK, dV sum query heads' shares from the workspace (and are rounded there)
+  constexpr bool fp32 = std::is_same_v<T, float>;
+  const bool shared_kv = KH < H || !fp32;
   const unsigned heads = (unsigned)B * H;
-  flash_bwd_dkdv_kernel<D><<<(unsigned)((Skv + BKV - 1) / BKV) * heads, NT, C::SMEM_DKDV, st>>>(
-      q, k, v, dout, lse, delta, shared_kv ? dkh : dk, shared_kv ? dvh : dv, B, S, Skv, H, KH,
-      scale, causal, window, softcap);
+  float* dk_out = nullptr;
+  float* dv_out = nullptr;
+  if constexpr (fp32) {
+    dk_out = dk;
+    dv_out = dv;
+  }
+  flash_bwd_dkdv_kernel<T, D>
+      <<<(unsigned)((Skv + BKV - 1) / BKV) * heads, NT, C::SMEM_DKDV, st>>>(
+          q, k, v, dout, lse, delta, shared_kv ? dkh : dk_out, shared_kv ? dvh : dv_out, B, S,
+          Skv, H, KH, scale, causal, window, softcap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (shared_kv) {
     const long n = (long)B * Skv * KH * D;
-    flash_bwd_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(dkh, dvh, dk, dv, n,
-                                                                         H / KH, D);
+    flash_bwd_reduce_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, st>>>(dkh, dvh, dk, dv, n,
+                                                                            H / KH, D);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  flash_bwd_dq_kernel<D><<<(unsigned)((S + BQ - 1) / BQ) * heads, NT, C::SMEM_DQ, st>>>(
+  flash_bwd_dq_kernel<T, D><<<(unsigned)((S + BQ - 1) / BQ) * heads, NT, C::SMEM_DQ, st>>>(
       q, k, v, dout, lse, delta, dq, B, S, Skv, H, KH, scale, causal, window, softcap);
   return (int)cudaGetLastError();
 }
@@ -636,9 +667,6 @@ struct Cfg {
   static_assert(SMEM_DKDV <= 232448 && SMEM_DQ <= 232448, "over the SM's shared memory");
 };
 
-__device__ __forceinline__ void store2(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
 
 // Whether the 64 x 64 tile at query row q0 and key k0 needs the mask
 __device__ __forceinline__ bool edge_of(int q0, int k0, int S, int Skv, int causal, int window) {
@@ -1162,6 +1190,45 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const flo
 
 }  // namespace
 
+namespace {
+
+// the 3xTF32 kernels' checks and launch, for T's head_dims (fp32: 16, 64,
+// 128 and 256; bf16: 16)
+template <typename T>
+int tf32x3_call(const void* q, const void* k, const void* v, const void* o, const void* lse,
+                const void* dout, void* dq, void* dk, void* dv, void* delta, void* dkh,
+                void* dvh, int B, int S, int S_kv, int H, int KH, int D, float scale, int causal,
+                int window, float softcap, void* stream) {
+  constexpr bool fp32 = std::is_same_v<T, float>;
+  if (B <= 0 || S <= 0 || S_kv <= 0 || H <= 0 || KH <= 0 || H % KH != 0 || B > 65535 ||
+      H > 65535 || (long)(((S > S_kv ? S : S_kv) + 31) / 32) * B * H > 0x7fffffffL ||
+      ((KH < H || !fp32) && !(dkh && dvh)) || (S_kv != S && (causal || window > 0)))
+    return (int)cudaErrorInvalidValue;
+  for (const void* p : {q, k, v, dout, (const void*)dq, (const void*)dk, (const void*)dv,
+                        (const void*)dkh, (const void*)dvh})
+    if (reinterpret_cast<uintptr_t>(p) % 16) return (int)cudaErrorMisalignedAddress;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define K1_BWD_ARGS                                                                           \
+  static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),               \
+      static_cast<const T*>(o), static_cast<const float*>(lse), static_cast<const T*>(dout),  \
+      static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv),                          \
+      static_cast<float*>(delta), static_cast<float*>(dkh), static_cast<float*>(dvh), B, S,   \
+      S_kv, H, KH, scale, causal, window, softcap, st
+  if (D == 16) return launch<T, 16>(K1_BWD_ARGS);
+  if constexpr (fp32) {
+    switch (D) {
+      case 64: return launch<T, 64>(K1_BWD_ARGS);
+      case 128: return launch<T, 128>(K1_BWD_ARGS);
+      case 256: return launch<T, 256>(K1_BWD_ARGS);
+      default: break;
+    }
+  }
+#undef K1_BWD_ARGS
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
 // fp32 q, o, dout, dq (B, S, H, D); k, v, dk, dv (B, S_kv, KH, D); lse and
 // the workspace delta (B, H, S); with KH < H the workspaces dkh and dvh (B,
 // S_kv, H, D), else they may be null. S_kv != S only without a causal mask
@@ -1173,28 +1240,21 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
                                    void* dv, void* delta, void* dkh, void* dvh, int B, int S,
                                    int S_kv, int H, int KH, int D, float scale, int causal,
                                    int window, float softcap, void* stream) {
-  if (B <= 0 || S <= 0 || S_kv <= 0 || H <= 0 || KH <= 0 || H % KH != 0 || B > 65535 ||
-      H > 65535 || (long)(((S > S_kv ? S : S_kv) + 31) / 32) * B * H > 0x7fffffffL ||
-      (KH < H && !(dkh && dvh)) || (S_kv != S && (causal || window > 0)))
-    return (int)cudaErrorInvalidValue;
-  for (const void* p : {q, k, v, dout, (const void*)dq, (const void*)dk, (const void*)dv,
-                        (const void*)dkh, (const void*)dvh})
-    if (reinterpret_cast<uintptr_t>(p) % 16) return (int)cudaErrorMisalignedAddress;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define K1_BWD_ARGS                                                                           \
-  static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),   \
-      static_cast<const float*>(o), static_cast<const float*>(lse),                           \
-      static_cast<const float*>(dout), static_cast<float*>(dq), static_cast<float*>(dk),      \
-      static_cast<float*>(dv), static_cast<float*>(delta), static_cast<float*>(dkh),          \
-      static_cast<float*>(dvh), B, S, S_kv, H, KH, scale, causal, window, softcap, st
-  switch (D) {
-    case 16: return launch<16>(K1_BWD_ARGS);
-    case 64: return launch<64>(K1_BWD_ARGS);
-    case 128: return launch<128>(K1_BWD_ARGS);
-    case 256: return launch<256>(K1_BWD_ARGS);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef K1_BWD_ARGS
+  return tf32x3_call<float>(q, k, v, o, lse, dout, dq, dk, dv, delta, dkh, dvh, B, S, S_kv, H,
+                            KH, D, scale, causal, window, softcap, stream);
+}
+
+// The same kernels on bf16 at head_dim 16 (bf16 q, k, v, o, dout, dq, dk,
+// dv; lse and the workspaces fp32 as above, dkh and dvh always given: dK
+// and dV are rounded once, after the sum over each kv head's query heads).
+extern "C" int flash_attention_bwd_tf32x3_bf16(const void* q, const void* k, const void* v,
+                                               const void* o, const void* lse, const void* dout,
+                                               void* dq, void* dk, void* dv, void* delta,
+                                               void* dkh, void* dvh, int B, int S, int S_kv,
+                                               int H, int KH, int D, float scale, int causal,
+                                               int window, float softcap, void* stream) {
+  return tf32x3_call<__nv_bfloat16>(q, k, v, o, lse, dout, dq, dk, dv, delta, dkh, dvh, B, S,
+                                    S_kv, H, KH, D, scale, causal, window, softcap, stream);
 }
 
 // The bf16 route: bf16 q, k, v, o, dout, dq, dk, dv in the layouts above;

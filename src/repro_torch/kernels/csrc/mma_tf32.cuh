@@ -24,6 +24,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -198,8 +199,9 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // rows r0 .. r0 + 31 of a (B, S, heads, D) fp32 tensor at (b, head) (`src`
-// its row 0) into a tile of rows of row_pitch<D>, zeros past S; a CTA of NT
-// threads issues the copies
+// its row 0) into a tile of fp32 rows of row_pitch<D>, zeros past S, by
+// 16-byte cp.async (awaited with cp_async_wait); a CTA of NT threads
+// issues the copies
 template <int D, int NT>
 __device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int r0, int S,
                                           long stride) {
@@ -209,6 +211,44 @@ __device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ 
     const bool in = row < S;
     cp_async16(dst + r * row_pitch<D> + c, src + (long)(in ? row : 0) * stride + c, in);
   }
+}
+
+// the same rows of a bf16 tensor, by 16-byte loads widened to fp32 on the
+// way, which is exact (a bf16 value is a TF32 value: its small part is 0);
+// the stores land before the barrier that follows, as cp.async's do once
+// awaited
+template <int D, int NT>
+__device__ __forceinline__ void load_tile(float* dst, const __nv_bfloat16* __restrict__ src,
+                                          int r0, int S, long stride) {
+  constexpr int CPR = D / 8;   // 16-byte loads a row
+  for (int i = threadIdx.x; i < 32 * CPR; i += NT) {
+    const int r = i / CPR, c = (i % CPR) * 8, row = r0 + r;
+    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+    if (row < S) raw = *reinterpret_cast<const uint4*>(src + (long)row * stride + c);
+    // a word holds two bf16, the first in its low half; a bf16 is the top
+    // half of the fp32 of the same value
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+    float f[8];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      f[2 * j] = __uint_as_float(w[j] << 16);
+      f[2 * j + 1] = __uint_as_float(w[j] & 0xFFFF0000u);
+    }
+    float4* d = reinterpret_cast<float4*>(dst + r * row_pitch<D> + c);
+    d[0] = make_float4(f[0], f[1], f[2], f[3]);
+    d[1] = make_float4(f[4], f[5], f[6], f[7]);
+  }
+}
+
+// one or two fp32 values stored as fp32, or rounded to bf16 (to nearest
+// even)
+__device__ __forceinline__ void store1(float* p, float a) { *p = a; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float a) { *p = __float2bfloat16_rn(a); }
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 // whether the tile of BQ query rows q0.. and BK keys k0.. needs its mask: it

@@ -15,17 +15,21 @@ mask or a window, in the forward and in the backward.
 
 The gradient (K1-bwd) is ``csrc/flash_attention_bwd.cu``, which recomputes
 P from the forward's log-sum-exp per row (both routes write it when asked,
-``return_lse``). It has two routes (``bwd_route``): fp32 in and out, its
-products on the tensor cores as 3xTF32 ``mma.sync`` at every head_dim; and
-bf16 in and out at D 64, 128 and 256 (the training at the reference's
+``return_lse``). It has two routes (``bwd_route``), each in its inputs'
+dtype: "tf32x3", its products on the tensor cores as 3xTF32 ``mma.sync``,
+for fp32 at every head_dim and for bf16 at D 16 (the smoke configs' width;
+the same kernels with bf16 widened exactly as it is staged and dq, dk, dv
+rounded once on their store, after the sum over each kv head's query
+heads); and "bf16" at D 64, 128 and 256 (the training at the reference's
 production dtypes), its products as bf16 ``wgmma`` on TMA-fed 64-row tiles
 into fp32, P and dX rounded to bf16 before their products as the forward
 rounds P, each kv head's query heads summed inside one CTA (no workspace
-for GQA; its kernels are ``BWD_BF16_KERNELS``). ``FlashAttention`` is the
-autograd Function that pairs the forward with the backward of its dtype;
+for GQA; its kernels are ``BWD_BF16_KERNELS``). So both routes of the
+forward have a backward of their own. ``FlashAttention`` is the autograd
+Function that pairs the forward with the backward of its dtype;
 ``flash_attention_bwd.launches`` counts the backward's calls (each
-launches its kernels: three, four on the fp32 route with KH < H),
-``flash_attention_bwd.launches_by_route`` each route's.
+launches its kernels: three, four on the 3xTF32 route with KH < H or in
+bf16), ``flash_attention_bwd.launches_by_route`` each route's.
 """
 
 import ctypes
@@ -52,11 +56,15 @@ def route(dtype, head_dim) -> str:
 
 def bwd_route(dtype, head_dim):
     """The backward kernel a K1-bwd call takes: "tf32x3" for fp32 at every
-    head_dim, "bf16" for bf16 at D 64, 128 or 256; None where there is none
-    (bf16 at D 16), and a gradient through K1 raises on the card."""
-    if dtype == torch.float32:
+    head_dim and for bf16 at D 16, "bf16" for bf16 at D 64, 128 or 256
+    (each the backward of the route ``route`` gives the forward); None
+    where there is none (another dtype or head_dim), and a gradient through
+    K1 raises on the card."""
+    if head_dim not in HEAD_DIMS:
+        return None
+    if dtype == torch.float32 or (dtype == torch.bfloat16 and head_dim == 16):
         return "tf32x3"
-    return "bf16" if dtype == torch.bfloat16 and head_dim in (64, 128, 256) else None
+    return "bf16" if dtype == torch.bfloat16 else None
 
 
 def entry(lib):
@@ -76,24 +84,29 @@ def _fn():
     return entry(build.load("flash_attention"))
 
 
-def bwd_entry(lib, route="tf32x3"):
-    """The C entry point of `route` in `lib` (a built
-    csrc/flash_attention_bwd.cu, loaded by ctypes), typed:
-    flash_attention_bwd (fp32: 12 pointers, its workspaces delta and the
-    GQA shares) or flash_attention_bwd_bf16 (10: its workspace the stats)."""
-    fp32 = route == "tf32x3"
-    fn = getattr(lib, "flash_attention_bwd" if fp32 else "flash_attention_bwd_bf16")
-    fn.argtypes = [ctypes.c_void_p] * (12 if fp32 else 10) + [ctypes.c_int] * 6 + [
+# the C entry point of each (route, dtype) in csrc/flash_attention_bwd.cu
+BWD_ENTRIES = {("tf32x3", torch.float32): "flash_attention_bwd",
+               ("tf32x3", torch.bfloat16): "flash_attention_bwd_tf32x3_bf16",
+               ("bf16", torch.bfloat16): "flash_attention_bwd_bf16"}
+
+
+def bwd_entry(lib, route="tf32x3", dtype=torch.float32):
+    """The C entry point of `route` on `dtype` in `lib` (a built
+    csrc/flash_attention_bwd.cu, loaded by ctypes), typed: the 3xTF32
+    route's (``BWD_ENTRIES``: 12 pointers, its workspaces delta and the GQA
+    shares) or the bf16 route's (10: its workspace the stats)."""
+    fn = getattr(lib, BWD_ENTRIES[route, dtype])
+    fn.argtypes = [ctypes.c_void_p] * (12 if route == "tf32x3" else 10) + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 @functools.cache
-def _bwd_fn(route="tf32x3"):
-    """The backward's C entry point of `route`, built, loaded and typed once
-    per process."""
-    return bwd_entry(build.load("flash_attention_bwd"), route)
+def _bwd_fn(route="tf32x3", dtype=torch.float32):
+    """The backward's C entry point of `route` on `dtype`, built, loaded and
+    typed once per process."""
+    return bwd_entry(build.load("flash_attention_bwd"), route, dtype)
 
 
 def kernel_route(dtype, head_dim) -> str:
@@ -185,8 +198,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, scale=None, causal=True, window=
     """K1-bwd: (dq, dk, dv) of `flash_attention` given its inputs, output o,
     log-sum-exp lse (B,H,S) fp32 and the output's gradient do, contiguous,
     on one CUDA device; k and v (B,S_kv,KH,D) as in the forward. q, k, v,
-    o and do fp32 (the 3xTF32 route), or bf16 at D 64, 128 or 256 (the
-    bf16 route), and dq, dk, dv in that dtype. dk and dv sum over each kv
+    o and do fp32 or bf16 at D 16 (the 3xTF32 route), or bf16 at D 64, 128
+    or 256 (the bf16 route), and dq, dk, dv in that dtype. dk and dv sum over each kv
     head's query heads (a fixed order, no atomics). Launches on the current
     stream (the bf16 route runs its dK/dV kernel on a stream of its own
     beside it, forked from and joined back to the current one), no sync."""
@@ -194,8 +207,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, scale=None, causal=True, window=
     b, s, h, d = q.shape
     path = bwd_route(q.dtype, d)
     if path is None:
-        raise TypeError(f"flash_attention_bwd takes fp32 at any head_dim and bf16 at 64, 128 "
-                        f"and 256; got {q.dtype} at head_dim {d}")
+        raise TypeError(f"flash_attention_bwd takes fp32 and bf16 at head_dims {HEAD_DIMS}; "
+                        f"got {q.dtype} at head_dim {d}")
     if o.shape != q.shape or do.shape != q.shape or lse.shape != (b, h, s):
         raise ValueError(f"o {tuple(o.shape)}, do {tuple(do.shape)}, lse {tuple(lse.shape)} "
                          f"do not match q {tuple(q.shape)}")
@@ -206,7 +219,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, scale=None, causal=True, window=
     if any(t.data_ptr() % 16 for t in (q, k, v, o, do)):
         raise ValueError("flash_attention_bwd kernel copies q, k, v, o and do in 16-byte "
                          "pieces: each must start 16-byte aligned")
-    out = bwd_launch(_bwd_fn(path), q, k, v, o, lse, do, scale=scale, causal=causal,
+    out = bwd_launch(_bwd_fn(path, q.dtype), q, k, v, o, lse, do, scale=scale, causal=causal,
                      window=window, softcap=softcap)
     flash_attention_bwd.launches += 1
     flash_attention_bwd.launches_by_route[path] += 1
@@ -214,22 +227,23 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, scale=None, causal=True, window=
 
 
 def bwd_launch(fn, q, k, v, o, lse, do, *, scale=None, causal=True, window=0, softcap=None):
-    """Launch `fn` (an entry point typed by ``bwd_entry``) on inputs that
-    ``flash_attention_bwd`` has checked, into new (dq, dk, dv), on the
-    current stream of q's device; raises on a CUDA error."""
+    """Launch `fn` (the entry point of the route ``bwd_route`` picks, typed
+    by ``bwd_entry``) on inputs that ``flash_attention_bwd`` has checked,
+    into new (dq, dk, dv), on the current stream of q's device; raises on a
+    CUDA error."""
     b, s, h, d = q.shape
     scale = scale if scale is not None else d ** -0.5
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     f32 = dict(dtype=torch.float32, device=q.device)
-    if q.dtype == torch.bfloat16:
+    if bwd_route(q.dtype, d) == "bf16":
         # each query row's lse and Delta, padded to whole tiles
         work = [torch.empty((b, h, 2, -(-s // BWD_TILE) * BWD_TILE), **f32)]
     else:
         # Delta, and each query head's share of dk and dv, which the kernel
-        # sums per kv head
+        # sums per kv head (and rounds, in bf16)
         work = [torch.empty((b, h, s), **f32)] + (
             [torch.empty((b, k.shape[1], h, d), **f32) for _ in range(2)]
-            if k.shape[2] < h else [None, None])
+            if k.shape[2] < h or q.dtype != torch.float32 else [None, None])
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
                  do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -247,10 +261,10 @@ flash_attention_bwd.launches_by_route = dict.fromkeys(BWD_ROUTES, 0)
 
 
 class FlashAttention(torch.autograd.Function):
-    """K1 with K1-bwd as its gradient on the card: fp32 (3xTF32 forward and
-    backward) or bf16 at D 64, 128 and 256 (the wgmma forward, the bf16
-    backward). Saves q, k, v, the output and the log-sum-exp; the backward
-    launches one K1-bwd call."""
+    """K1 with K1-bwd as its gradient on the card: fp32 and bf16 at D 16
+    (3xTF32 forward and backward) or bf16 at D 64, 128 and 256 (the wgmma
+    forward, the bf16 backward). Saves q, k, v, the output and the
+    log-sum-exp; the backward launches one K1-bwd call."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal, window, softcap):

@@ -12,18 +12,21 @@ RG-LRU scan takes an initial state and returns the last one, which the
 Pallas kernel does not, because the model needs both.
 
 Gradients: on the CPU, autograd differentiates the plain versions. On the
-card, K1 and K3 in fp32 and in bf16, and K4 in fp32, run as autograd
-Functions whose backward is a kernel too (K1-bwd, K3-bwd, K4-bwd), each of
-the forward's dtype: bf16 K1 at head_dim 64, 128 and 256 pairs its wgmma
-route, which writes the log-sum-exp, with K1-bwd's bf16 route, and bf16 K3
-(any route) with K3-bwd's bf16 route, so the models train on the card at
-the reference's production dtypes (bf16 params and compute, full remat):
+card, K1 and K3 in fp32 and in bf16, and K4 (fp32 a and b, whatever the
+compute dtype), run as autograd Functions whose backward is a kernel too
+(K1-bwd, K3-bwd, K4-bwd), each of the forward's dtype: bf16 K1 at head_dim
+64, 128 and 256 pairs its wgmma route, which writes the log-sum-exp, with
+K1-bwd's bf16 route, bf16 K1 at head_dim 16 its 3xTF32 route with K1-bwd's
+3xTF32 kernels on bf16, and bf16 K3 (any route) with K3-bwd's bf16 route,
+so the models train on the card at the reference's production dtypes (bf16
+params and compute, full remat), the smoke configs (head_dim 16) too:
 
     train.setup(arch, param_dtype="bfloat16", compute_dtype="bfloat16",
                 remat="full", num_layers=...)
 
 K1-bwd takes k and v of a length of their own, as K1 does. A kernel with
-no backward kernel for its inputs (K2; K1 in bf16 at head_dim 16) raises
+no backward kernel for its inputs (K2; K1 at a dtype or head_dim that
+``bwd_route`` gives no route) raises
 NotImplementedError when grad mode is on and an input requires a gradient
 (``needs_grad``), rather than return a tensor with no ``grad_fn``, which
 would leave every parameter upstream of it without a gradient and no

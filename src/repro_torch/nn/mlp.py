@@ -6,6 +6,7 @@ encoder-decoder's ReLU MLP), with optional biases. Mirrors
 takes that default under both names, so both are ``approximate="tanh"``
 here (PyTorch's default is the exact erf form)."""
 
+import contextlib
 import functools
 
 import torch
@@ -53,3 +54,27 @@ def mlp(p, x, act="silu"):
     if p.bo is not None:
         y = y + p.bo.to(dt)
     return y
+
+
+@contextlib.contextmanager
+def relu_masks(masks=None):
+    """The ReLU MLP's activation (``ACTS["relu"]``, the encoder-decoder's)
+    with its sign masks recorded in call order into the list yielded
+    (`masks` None), or replayed from `masks` (h * mask: the same value and
+    gradient wherever the two runs agree on the sign), for comparing the
+    gradients of two runs only. ReLU's gradient jumps at 0: a
+    pre-activation within rounding of 0 takes another sign under another
+    rounding, and moves its leaf by one token's share."""
+    saved, out = ACTS["relu"], []
+    replay = None if masks is None else iter(masks)
+
+    def act(h):
+        if replay is not None:
+            return h * next(replay).to(h.dtype)
+        out.append(h.detach() > 0)
+        return F.relu(h)
+    ACTS["relu"] = act
+    try:
+        yield out
+    finally:
+        ACTS["relu"] = saved

@@ -476,3 +476,70 @@ def test_bf16_walk_matches_jax_vjp_and_plain(case):
             err = float(np.abs(g.float().numpy() - want).max() / np.abs(want).max())
             assert err <= BF16_TOL, f"{name}: {err:.2e} of max |g|"
 
+
+
+# ---- bf16 at head_dim 16: the 3xTF32 kernels on bf16 ----------------------------
+
+def test_bf16_d16_bwd_route_is_the_3xtf32_kernels():
+    """bf16 at head_dim 16, which no wgmma tile takes, has a backward: the
+    route of its forward (``route``), "tf32x3", whose C entry on bf16 is an
+    ``extern "C"`` function of the .cu with the fp32 entry's arguments,
+    as many as ``bwd_entry`` types. A head_dim or dtype with no route
+    still has none, so its gradient raises on the card."""
+    import types
+    from repro_torch.kernels import flash_attention as tflash
+    assert tflash.bwd_route(torch.bfloat16, 16) == tflash.route(torch.bfloat16, 16) == "tf32x3"
+    assert tflash.bwd_route(torch.bfloat16, 16) in tflash.BWD_ROUTES
+    assert tflash.bwd_route(torch.bfloat16, 32) is None
+    assert tflash.bwd_route(torch.float16, 16) is None
+    lib = types.SimpleNamespace(**{n: (lambda: None) for n in tflash.BWD_ENTRIES.values()})
+    args = {}
+    for (route, dtype), name in tflash.BWD_ENTRIES.items():
+        found = re.search(rf'extern "C" int {name}\(([^)]*)\)', CU.read_text())
+        assert found, name
+        args[route, dtype] = re.sub(r"\s+", " ", found.group(1))
+        assert len(tflash.bwd_entry(lib, route, dtype).argtypes) == \
+            args[route, dtype].count(",") + 1, name
+    assert args["tf32x3", torch.bfloat16].replace("_kv", "") == \
+        args["tf32x3", torch.float32].replace("_kv", "")
+
+
+BF16_D16_CASES = {
+    # the smoke configs' calls: GQA 2:1 and 4:1, recurrentgemma's window,
+    # gemma2's softcap and scale, seamless's cross call
+    "gqa2_causal": (2, 40, 4, 2, 16, {}),
+    "gqa4_window": (1, 70, 4, 1, 16, {"window": 32}),
+    "gqa2_softcap_window": (1, 40, 4, 2, 16, {"window": 32, "softcap": 50.0, "scale": 0.0625}),
+    "kv_longer": (2, 12, 4, 2, 16, {"causal": False, "skv": 40}),
+}
+
+
+@pytest.mark.parametrize("case", list(BF16_D16_CASES))
+def test_bf16_d16_tile_walk_matches_plain_and_jax(case):
+    """K1-bwd on bf16 at head_dim 16: the 3xTF32 tile walk (``_tile_walk``)
+    on the bf16 inputs widened to fp32, as the kernels stage them, rounded
+    to bf16 once (dk and dv after the sum over each kv head's query heads,
+    as the reduce kernel rounds them). Each gradient within 1e-2 of its max
+    (chip_smoke.py's BF16_GRAD_TOL) of ``flash_attention_bwd_plain`` on the
+    bf16 inputs (fp32 inside, one rounding), and no farther from jax.vjp
+    of ``attend_ref`` in fp64 on the same values than that plain version
+    plus one bf16 ulp of the gradient's max."""
+    b, s, h, kh, d, kw = BF16_D16_CASES[case]
+    kw = {"causal": True, "window": 0, "softcap": None, "scale": d ** -0.5, **kw}
+    skv = kw.pop("skv", s)
+    rng = np.random.default_rng(23)
+    q, do = _bf16(rng, (b, s, h, d)), _bf16(rng, (b, s, h, d))
+    k, v = _bf16(rng, (b, skv, kh, d)), _bf16(rng, (b, skv, kh, d))
+    o = ops.flash_attention_plain(q, k, v, **kw)
+    lse = ops.flash_attention_lse_plain(q, k, **kw)
+    walk = _tile_walk(*(x.float() for x in (q, k, v, o)), lse, do.float(), mm=mm_3xtf32, **kw)
+    got = [g.bfloat16() for g in walk]
+    plain = ops.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    with jax.enable_x64(True):
+        j64 = _attend_ref_grads(q, k, v, do, dtype=jnp.float64, **kw)
+    for name, g, p, j in zip(("dq", "dk", "dv"), got, plain, j64):
+        assert g.shape == p.shape == j.shape and p.dtype == torch.bfloat16, name
+        top = float(p.float().abs().max())
+        assert float((g.float() - p.float()).abs().max()) <= 1e-2 * top, name
+        dist = lambda x: float(np.abs(x.float().numpy() - j).max())   # noqa: E731
+        assert dist(g) <= dist(p) + 2.0 ** -8 * np.abs(j).max(), name

@@ -698,19 +698,40 @@ def test_rglru_scan_backward_plan(cuda, b, s, w):
     assert p["ctas"] == b * -(-w // p["lw"])
 
 
-def test_kernels_without_a_backward_refuse_grad(cuda):
-    """K2 and K1 in bf16 at head_dim 16 (which no backward route takes)
-    raise under autograd on the card rather than return a tensor with no
-    grad_fn; under no_grad they run. K1 in bf16 at 64, 128 and 256 and K3
-    in bf16 (any route, here the CUDA-core one at P 16) record a graph."""
-    q16 = torch.randn(1, 64, 2, 16, device=cuda, dtype=torch.bfloat16, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="head_dim 16"):
-        ops.flash_attention(q16, q16, q16)
+def test_k1_bf16_d16_records_a_graph_and_k2_refuses_grad(cuda):
+    """K1 in bf16 at head_dim 16 (the smoke configs' width) records a graph
+    on the card: its backward runs K1-bwd's 3xTF32 kernels on bf16, counted
+    under that route, and its gradients match the plain backward
+    (``flash_attention_bwd_plain`` on the same bf16 inputs: fp32 inside,
+    one rounding) within 1e-2 of each one's max (chip_smoke.py's
+    BF16_GRAD_TOL). K2, which has no backward kernel, raises under autograd
+    rather than return a tensor with no grad_fn; under no_grad both run. K1
+    in bf16 at 64, 128 and 256 and K3 in bf16 (any route, here the
+    CUDA-core one at P 16) record a graph."""
+    from repro_torch.kernels import flash_attention as tflash
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    b, s, h, kh, d = 2, 70, 4, 2, 16
+    q, do = (_rand(gen, (b, s, h, d), torch.bfloat16, cuda) for _ in range(2))
+    k, v = (_rand(gen, (b, s, kh, d), torch.bfloat16, cuda) for _ in range(2))
+    kw = dict(window=32, softcap=50.0, scale=0.0625)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    by_route = dict(tflash.flash_attention_bwd.launches_by_route)
+    out = ops.flash_attention(*leaves, **kw)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, leaves, do)
+    assert tflash.flash_attention_bwd.launches_by_route == {**by_route,
+                                                            "tf32x3": by_route["tf32x3"] + 1}
+    o, lse = tflash.flash_attention(q, k, v, return_lse=True, **kw)
+    want = ops.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        top = float(w.float().abs().max())
+        assert float((g.float() - w.float()).abs().max()) <= 1e-2 * top
     with torch.no_grad():
-        assert ops.flash_attention(q16, q16, q16).grad_fn is None
+        assert ops.flash_attention(*leaves, **kw).grad_fn is None
     for d in (64, 128, 256):
-        q = torch.randn(1, 64, 2, d, device=cuda, dtype=torch.bfloat16, requires_grad=True)
-        assert ops.flash_attention(q, q, q).grad_fn is not None
+        qd = torch.randn(1, 64, 2, d, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+        assert ops.flash_attention(qd, qd, qd).grad_fn is not None
     kv = torch.randn(1, 32, 2, 64, device=cuda, requires_grad=True)
     with pytest.raises(NotImplementedError, match="K2"):
         ops.decode_attention(kv[:, 0], kv, kv, torch.ones(1, dtype=torch.int32, device=cuda))

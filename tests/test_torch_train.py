@@ -477,16 +477,18 @@ def test_rglru_scan_bwd_plain(with_h0):
 
 def test_grad_guard_predicate():
     """The guard that makes a kernel without a backward kernel for its
-    inputs raise on the card under autograd (K2; K1 in bf16 at head_dim 16):
-    grad mode on and some input requiring a gradient. K1 in fp32 at every
-    head_dim and in bf16 at 64, 128 and 256, and K3 in fp32 and bf16, have
-    backward routes (``bwd_route``) and record a graph there. On the CPU
-    the plain versions run and carry a grad_fn."""
+    inputs raise on the card under autograd (K2; K1 at a dtype or head_dim
+    with no backward route): grad mode on and some input requiring a
+    gradient. K1 in fp32 at every head_dim and in bf16 at 16 (3xTF32), 64,
+    128 and 256 (bf16), and K3 in fp32 and bf16, have backward routes
+    (``bwd_route``) and record a graph there. On the CPU the plain versions
+    run and carry a grad_fn."""
     from repro_torch.kernels import flash_attention as tflash
     from repro_torch.kernels import ssd_scan as tssd
     assert [tflash.bwd_route(torch.float32, d) for d in (16, 64, 128, 256)] == ["tf32x3"] * 4
     assert [tflash.bwd_route(torch.bfloat16, d) for d in (16, 64, 128, 256)] == [
-        None, "bf16", "bf16", "bf16"]
+        "tf32x3", "bf16", "bf16", "bf16"]
+    assert tflash.bwd_route(torch.float16, 64) is None
     assert tssd.bwd_route(torch.float32, 64, 128) == "tf32x3"
     assert tssd.bwd_route(torch.bfloat16, 64, 128) == "wgmma"
     assert tssd.bwd_route(torch.bfloat16, 16, 32) == "staged"

@@ -61,8 +61,8 @@ CALLS = {"train_call": (4, 256, 10, 1, 256, {"window": 2048}),
 DESIGNS = {
     "two_stages": [
         (r"    if \(k0 \+ BK < kv_end\) \{   // the next tile, once every warp is done with "
-         r"this one\n      __syncthreads\(\);\n      stage_tile<D>\(sk, kb, k0 \+ BK, Skv, ks\);\n"
-         r"      stage_tile<D>\(sv, vb, k0 \+ BK, Skv, ks\);\n      cp_async_commit\(\);\n    \}\n",
+         r"this one\n      __syncthreads\(\);\n      load_tile<D, NT>\(sk, kb, k0 \+ BK, Skv, ks\);\n"
+         r"      load_tile<D, NT>\(sv, vb, k0 \+ BK, Skv, ks\);\n      cp_async_commit\(\);\n    \}\n",
          ""),
         (r"\(3 \* TILE \+ BQ \* SP \+ 4 \* BQ\)", "(5 * TILE + BQ * SP + 4 * BQ)"),
         (r"float\* sv = sk \+ C::TILE;", "float* sv = sk + 2 * C::TILE;"),
@@ -74,8 +74,8 @@ DESIGNS = {
          "    const float* tk = sk + stage * C::TILE;\n"
          "    const float* tv = sv + stage * C::TILE;\n"
          "    if (k0 + BK < kv_end) {\n"
-         "      stage_tile<D>(sk + (stage ^ 1) * C::TILE, kb, k0 + BK, Skv, ks);\n"
-         "      stage_tile<D>(sv + (stage ^ 1) * C::TILE, vb, k0 + BK, Skv, ks);\n"
+         "      load_tile<D, NT>(sk + (stage ^ 1) * C::TILE, kb, k0 + BK, Skv, ks);\n"
+         "      load_tile<D, NT>(sv + (stage ^ 1) * C::TILE, vb, k0 + BK, Skv, ks);\n"
          "      cp_async_commit();\n    }\n"),
         (r"score_tile<D>\(sq \+ wm \* 16 \* C::P, sk \+",
          "score_tile<D>(sq + wm * 16 * C::P, tk +"),
