@@ -162,7 +162,13 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    launches on those routes (seamless's cross calls at S_kv 1024 counted
    apart), and every gradient leaf within BF16_LEAF_TOL (5e-2) of the plain
    versions' or, where farther, held to the kernels in fp64, the plain
-   and fp64 runs replaying the kernel run's ReLU masks;
+   and fp64 runs replaying the kernel run's ReLU masks; then at the same
+   dtypes starcoder2-15b at 2 layers, qwen2.5-32b at 2 (batch 2 x 256),
+   internvl2-1b at 3 (256 frontend tokens before 256 text tokens),
+   qwen3-moe-30b-a3b at 2 MoE layers (the plain and fp64 runs replaying
+   the kernel run's expert choices, the backward's recompute held to the
+   forward's choices) and deepseek-v3-671b's 3 dense MLA layers (batch 2
+   x 256, K1 and K1-bwd on the padded head_dim 256);
 8. train: recurrentgemma-2b (26 layers, 2.89 B params), mamba2-2.7b (64
    layers) and seamless-m4t-large-v2 (24+24 layers, over 1024 seeded
    frames) at full width and depth, fp32 params and AdamW moments, each
@@ -174,7 +180,8 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    optimizer parts, peak memory, a profiler breakdown (the family's
    kernel groups non-zero, every other kernel group empty) and the phase's
    seconds; then the same at the reference's production dtypes (bf16
-   params and compute, full remat, fp32 AdamW moments): qwen3-14b at full
+   params and compute, full remat, AdamW moments in the config's
+   optimizer_dtype, asserted: bf16 for deepseek, fp32 else): qwen3-14b at full
    width cut to 4 of 40 layers (2.88 B params), batch 16 x 256 in its
    config's 4 micro-batches, K1 32 and K1-bwd 16 a step (remat runs each
    layer's forward again; K1 on wgmma, K1-bwd on its bf16 route),
@@ -185,7 +192,17 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    4 x 1024 frames (K1 144 and K1-bwd 72 a step, 48 and 24 of them at S_kv
    1024), and gemma2-9b at full width cut to 4 of 42 layers, batch 4 x
    4352 in its config's 4 micro-batches (K1 32 and K1-bwd 16 a step, the
-   cap, the scale 0.0625 and the local layers' window of 4096 binding);
+   cap, the scale 0.0625 and the local layers' window of 4096 binding),
+   starcoder2-15b at 4 of 40 layers, 16 x 256 in 4 micro-batches (K1 32,
+   K1-bwd 16 a step: a group of 12 query heads), qwen2.5-32b at 4 of 64,
+   16 x 256 in 8 micro-batches of 2 (K1 64, K1-bwd 32), internvl2-1b at
+   full depth, 4 x 256 text tokens after 256 seeded frontend tokens (K1
+   48, K1-bwd 24 at S 512, 14/2 heads of 64), qwen3-moe-30b-a3b at 4 of 48
+   layers, 16 x 256 in 4 micro-batches (K1 32, K1-bwd 16; its profile
+   groups the MoE calls' forward, recompute and backward kernels as
+   moe_gemm and moe_dispatch) and deepseek-v3-671b's 3 dense MLA layers
+   without the MTP block, 16 x 256 in 8 micro-batches of 2, bf16 moments
+   (K1 48, K1-bwd 24 on the padded head_dim 256);
    then the smoke configs of qwen3-14b, recurrentgemma-2b and
    seamless-m4t-large-v2 (head_dim 16) at those dtypes, 3 steps each
    through the launcher's functions, K1 and K1-bwd on their 3xTF32
@@ -363,9 +380,12 @@ and held equal to the bit; each timed at its train call beside its bound
 (K3-bwd with its plan: slices, CTAs, CTAs an SM, waves), in the rows
 ``flash_attention_bwd_bf16`` and ``ssd_scan_bwd_bf16`` and K1's
 ``qwen3_train_call``. The bf16 K1-bwd is also held once and timed at
-RecurrentGemma's, seamless's (encoder, self, cross) and gemma2's (local,
-global) train calls (``k1_bwd_call``; SDPA's bf16 backward beside it where
-one SDPA call computes the same function), and K1-bwd on bf16 at head_dim
+RecurrentGemma's, seamless's (encoder, self, cross), gemma2's (local,
+global), starcoder2's (48/4), qwen2.5's, internvl2's (14/2 at D 64, S 512),
+qwen3-moe's and MLA's padded (128/128, q and k 192, v 128 in D 256, the
+padded columns of dq, dk and dv exactly 0, SDPA on the unpadded inputs)
+train calls (``k1_bwd_call``; SDPA's bf16 backward beside it where one
+SDPA call computes the same function), and K1-bwd on bf16 at head_dim
 16 (the 3xTF32 kernels) at the smoke step's calls and its tiles' edges
 against the plain backward at BF16_GRAD_TOL, each case twice equal to the
 bit, timed at the smoke call (``flash_attention_bwd``'s
@@ -387,6 +407,7 @@ that does not hold the repository, it fails and prints no result.
 
 import contextlib
 import functools
+import gc
 import json
 import math
 import re
@@ -486,8 +507,9 @@ FP64_MARGIN = 2.0
 # GRAD_TOL of its own max, moves them by more than GRAD_TOL of theirs
 LEAF_FLOOR = 1e-6
 # training at the reference's production dtypes (its launch/dryrun.py's
-# production_config): bf16 params and compute, full remat, fp32 AdamW
-# moments, each config's gradient accumulation (none where it is pure
+# production_config): bf16 params and compute, full remat, AdamW moments in
+# each config's optimizer_dtype (bf16 for deepseek-v3-671b, fp32 for the
+# others), each config's gradient accumulation (none where it is pure
 # data-parallel: tp 1). qwen3-14b at full width cut to 4 of 40 layers, batch
 # 16 x 256 in its config's 4 micro-batches (K1 and K1-bwd at (4, 256, 40/8,
 # 128), the serving prefill's call); mamba2-2.7b at full width and depth,
@@ -501,20 +523,42 @@ LEAF_FLOOR = 1e-6
 # 4352 in its config's 4 micro-batches (K1 and K1-bwd at (1, 4352, 16/8,
 # 256), every logit capped at 50, scale 0.0625, a window of 4096 on the
 # local layers: 4352 is the serve phase's prompt, past the window, so that
-# rows past 4096 lose their first keys). "seq" defaults to TRAIN's.
-PRODUCTION = dict(param_dtype="bfloat16", compute_dtype="bfloat16", remat="full",
-                  optimizer_dtype="float32")
+# rows past 4096 lose their first keys). starcoder2-15b 4 of 40 layers, 16 x
+# 256 in 4 micro-batches (K1 and K1-bwd at (4, 256, 48/4, 128): a group of 12
+# query heads); qwen2.5-32b 4 of 64 layers, 16 x 256 in 8 micro-batches of 2
+# ((2, 256, 40/8, 128), qkv biases); internvl2-1b at full depth, 4 x 256
+# text tokens after 256 seeded frontend tokens ((4, 512, 14/2, 64): 7 at D
+# 64); qwen3-moe-30b-a3b 4 of 48 layers, 16 x 256 in 4 micro-batches
+# ((4, 256, 32/4, 128); 128 experts, top 8, 80 slots an expert at capacity
+# 1.25); deepseek-v3-671b its 3 first dense (MLA) layers without the MTP
+# block, 16 x 256 in 8 micro-batches of 2 (K1 at (2, 256, 128/128) on
+# MLA's q and k of 192 and v of 128 zero-padded to D 256), since one MoE
+# block at 8 bytes a param (bf16 p, g, m, v) is 91 GB. The dense and MoE
+# cuts keep 22.0-671 B params off a card of 80 GB. "seq" defaults to
+# TRAIN's.
+PRODUCTION = dict(param_dtype="bfloat16", compute_dtype="bfloat16", remat="full")
 BF16_TRAIN = {"qwen3-14b": dict(batch=16, num_layers=4), "mamba2-2.7b": dict(batch=4),
               "recurrentgemma-2b": dict(batch=4), "seamless-m4t-large-v2": dict(batch=4),
-              "gemma2-9b": dict(batch=4, seq=4352, num_layers=4)}
-# their train parity at a few layers of full width, batch 4 x 256 unless
-# named, the kernels against their plain versions paired as the kernels
-# pair them: 3 layers (RecurrentGemma's rglru, rglru, local), seamless's 2 +
-# 2, gemma2's local and global layer at batch 1 x 4352, past its window
+              "gemma2-9b": dict(batch=4, seq=4352, num_layers=4),
+              "starcoder2-15b": dict(batch=16, num_layers=4),
+              "qwen2.5-32b": dict(batch=16, num_layers=4), "internvl2-1b": dict(batch=4),
+              "qwen3-moe-30b-a3b": dict(batch=16, num_layers=4),
+              "deepseek-v3-671b": dict(batch=16, num_layers=3, mtp_depth=0)}
+# their train parity at a few layers of full width in one micro-batch, batch
+# 4 x 256 unless named, the kernels against their plain versions paired as
+# the kernels pair them: 3 layers (RecurrentGemma's rglru, rglru, local),
+# seamless's 2 + 2, gemma2's local and global layer at batch 1 x 4352, past
+# its window; qwen2.5 and deepseek at their micro-batch of 2, deepseek's 3
+# dense MLA layers; qwen3-moe's 2 MoE layers at 1024 tokens (capacity 1.25,
+# the plain and fp64 runs taking the kernel run's expert choices)
 BF16_TRAIN_PARITY = {"qwen3-14b": dict(num_layers=3), "mamba2-2.7b": dict(num_layers=3),
                      "recurrentgemma-2b": dict(num_layers=3),
                      "seamless-m4t-large-v2": TRAIN_PARITY_ENCDEC,
-                     "gemma2-9b": dict(num_layers=2, batch=1, seq=4352)}
+                     "gemma2-9b": dict(num_layers=2, batch=1, seq=4352),
+                     "starcoder2-15b": dict(num_layers=2),
+                     "qwen2.5-32b": dict(num_layers=2, batch=2), "internvl2-1b": dict(num_layers=3),
+                     "qwen3-moe-30b-a3b": dict(num_layers=2),
+                     "deepseek-v3-671b": dict(num_layers=3, mtp_depth=0, batch=2)}
 # the smoke configs of the attention families at the production dtypes,
 # trained a few steps on the card: K1 and K1-bwd at head_dim 16, bf16, on
 # their 3xTF32 kernels
@@ -1048,11 +1092,10 @@ def kernel_phase(k1_ptxas, k4_ptxas, bwd_ptxas):
                 call()
             torch.cuda.synchronize()
         spans = {"split": [], "combine": []}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                for name, found in spans.items():
-                    if f"decode_{name}_kernel" in e.name:
-                        found.append((e.time_range.start, e.time_range.end))
+        for kernel, start, end, _ in device_events(prof):
+            for name, found in spans.items():
+                if f"decode_{name}_kernel" in kernel:
+                    found.append((start, end))
         passes = {name: union_ms(found) / n for name, found in spans.items()}
         passes["both"] = union_ms(spans["split"] + spans["combine"]) / n
         return passes
@@ -1832,7 +1875,19 @@ def bf16_kernel_phase(rows, bwd_ptxas):
                                                   "scale": GEMMA["scale"]}),
              "gemma2_global_call": ((1, BF16_TRAIN["gemma2-9b"]["seq"], GEMMA["h"], GEMMA["kh"],
                                      GEMMA["d"]), {"softcap": GEMMA["softcap"],
-                                                   "scale": GEMMA["scale"]})}
+                                                   "scale": GEMMA["scale"]}),
+             # the new production-dtype steps' micro-batch calls: starcoder2-15b
+             # (a group of 12), qwen2.5-32b (2 sequences), internvl2-1b (256
+             # frontend and 256 text positions: a group of 7 at D 64),
+             # qwen3-moe-30b-a3b (8), deepseek-v3-671b's MLA (q, k 192 and v
+             # 128 zero-padded to D 256, scale 192^-0.5)
+             "starcoder2_train_call": ((4, ss, 48, 4, 128), {}),
+             "qwen2_5_train_call": ((2, ss, 40, 8, 128), {}),
+             "internvl2_train_call": ((4, 2 * ss, 14, 2, 64), {}),
+             "qwen3_moe_train_call": ((4, ss, QMOE["h"], QMOE["kh"], QMOE["d"]), {}),
+             "mla_train_call": ((2, ss, MLA_CALL["h"], MLA_CALL["h"], MLA_CALL["d"]),
+                                {"dqk": MLA_CALL["dqk"], "dv": MLA_CALL["dv"],
+                                 "scale": MLA_CALL["dqk"] ** -0.5})}
     for call_name, ((cb, cs, ch, ckh, cd), kw) in calls.items():
         r[call_name] = k1_bwd_call(call_name, cb, cs, ch, ckh, cd, rand, bf16_route=True, **kw)
 
@@ -1982,7 +2037,7 @@ def bf16_kernel_phase(rows, bwd_ptxas):
 
 
 def k1_bwd_call(name, b, s, h, kh, d, rand, *, bf16_route, skv=None, causal=True, window=0,
-                softcap=None, scale=None):
+                softcap=None, scale=None, dqk=None, dv=None):
     """K1-bwd on bf16 at one train call (k and v of S_kv rows, unmasked,
     where `skv` is given): held once to its plain version (the bf16 route's
     with its roundings, or, on the 3xTF32 route at head_dim 16, the plain
@@ -1994,14 +2049,22 @@ def k1_bwd_call(name, b, s, h, kh, d, rand, *, bf16_route, skv=None, causal=True
     `flex_attention`'s (``flex_attention_call``: the cap as its score_mod,
     the causal window as a block mask), its gradients first held to the
     plain version's at 2e-2 of each gradient's max, as K1's flex row holds
-    its output. Returns the call's fields."""
+    its output. With `dqk` and `dv` (MLA's call) q and k hold `dqk` and v
+    and dO `dv` nonzero columns of head_dim `d`, as ``nn/mla.py`` pads
+    them: the padded columns of dq, dk and dv must come back exactly 0,
+    the bound counts the unpadded work and SDPA runs on the unpadded
+    inputs. Returns the call's fields."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as K1
     from repro_torch.kernels import ops
     skv = skv or s
-    kw = dict(scale=scale or d ** -0.5, causal=causal, window=window, softcap=softcap)
-    q, do = rand(b, s, h, d), rand(b, s, h, d)
-    k, v = rand(b, skv, kh, d), rand(b, skv, kh, d)
+    dqk, dv = dqk or d, dv or d
+    kw = dict(scale=scale or dqk ** -0.5, causal=causal, window=window, softcap=softcap)
+
+    def padded(x, width):
+        return torch.nn.functional.pad(x[..., :width], (0, d - width))
+    q, do = padded(rand(b, s, h, d), dqk), padded(rand(b, s, h, d), dv)
+    k, v = padded(rand(b, skv, kh, d), dqk), padded(rand(b, skv, kh, d), dv)
     o, lse = K1.flash_attention(q, k, v, return_lse=True, **kw)
     got = K1.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     plain = ops.flash_attention_bwd_bf16_plain if bf16_route else ops.flash_attention_bwd_plain
@@ -2010,18 +2073,30 @@ def k1_bwd_call(name, b, s, h, kh, d, rand, *, bf16_route, skv=None, causal=True
     err = max(check_close(f"K1-bwd {name} {(b, s, h, kh, d)} S_kv {skv} {g_} [{route}]", x_, w_,
                           BF16_GRAD_TOL, BF16_GRAD_TOL * max(float(w_.float().abs().max()), 1e-30))
               for g_, x_, w_ in zip(("dq", "dk", "dv"), got, want))
+    pad_max = max(float(x_[..., w:].abs().max()) if w < d else 0.0
+                  for x_, w in zip(got, (dqk, dqk, dv)))
+    if pad_max != 0.0:
+        raise AssertionError(f"K1-bwd {name}: the padded columns of dq, dk, dv reach {pad_max}")
     del got
     ms = time_ms(f"K1-bwd {name}", lambda: K1.flash_attention_bwd(q, k, v, o, lse, do, **kw))
     pairs = int(ops._mask(s, causal, window, "cpu", skv).sum())
-    flops = 10 * d * pairs * b * h                    # five products over the kept pairs
-    nbytes = 2 * (4 * b * s * h * d + 4 * b * skv * kh * d) + 4 * b * h * s
+    # five products over the kept pairs: S = Q K^T, dQ, dK at dqk; dP, dV at dv
+    flops = 2 * (3 * dqk + 2 * dv) * pairs * b * h
+    # q, dq, k, dk at dqk; o, dO, v, dv at dv; the lse fp32
+    nbytes = 2 * (2 * (dqk + dv) * b * s * h + 2 * (dqk + dv) * b * skv * kh) + 4 * b * h * s
     out = dict(shape=[b, s, h, kh, d], s_kv=skv, causal=causal, window=window, softcap=softcap,
                route=route, ms=ms, max_abs_err=err, **bound(flops, nbytes, "bfloat16"),
                tflops=flops / ms / 1e9, gflop=flops / 1e9, mb=nbytes / 1e6)
+    if (dqk, dv) != (d, d):
+        flops_p = 10 * d * pairs * b * h
+        out.update(dqk=dqk, dv=dv, padded_max_abs=pad_max, padded_gflop=flops_p / 1e9,
+                   padded_bound_ms=bound(flops_p, 2 * (4 * b * s * h * d + 4 * b * skv * kh * d)
+                                         + 4 * b * h * s, "bfloat16")["bound_ms"])
     if route == "tf32x3":
         out["bound_tf32x3_ms"] = flops / PEAK_FLOPS["tf32x3"] * 1e3
-    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
-    dot = do.transpose(1, 2).contiguous()
+    qt, kt = (x[..., :dqk].transpose(1, 2).contiguous().requires_grad_() for x in (q, k))
+    vt = v[..., :dv].transpose(1, 2).contiguous().requires_grad_()
+    dot = do[..., :dv].transpose(1, 2).contiguous()
     binds = 0 < window < s
     if not softcap and not binds:
         library = "SDPA bf16"
@@ -2048,7 +2123,8 @@ def k1_bwd_call(name, b, s, h, kh, d, rand, *, bf16_route, skv=None, causal=True
     out.update(library_ms=lib_both - lib_fwd, library=library, library_fwd_and_bwd_ms=lib_both,
                library_fwd_ms=lib_fwd)
     del qt, kt, vt, dot
-    log(f"   K1-bwd bf16 at {name} {(b, s, h, kh, d)}, S_kv {skv}, causal {causal}, window "
+    widths = f" (q, k {dqk}, v {dv}: zero-padded; padded columns 0)" if "dqk" in out else ""
+    log(f"   K1-bwd bf16 at {name} {(b, s, h, kh, d)}{widths}, S_kv {skv}, causal {causal}, window "
         f"{window}, softcap {softcap} [{route}]: kernel_ms {ms:.4f} ({out['tflops']:.1f} TFLOP/s) "
         f"bound_ms {out['bound_ms']:.4f} ({out['bound_by']}; {flops / 1e9:.2f} GFLOP, "
         f"{nbytes / 1e6:.1f} MB" + (f"; {out['bound_tf32x3_ms']:.4f} at the 3xTF32 rate"
@@ -2086,11 +2162,10 @@ def kernel_spans(call, names, n=8):
             call()
         torch.cuda.synchronize()
     spans = {name: [] for name in names}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            for name in names:
-                if name in e.name:
-                    spans[name].append((e.time_range.start, e.time_range.end))
+    for kernel, start, end, _ in device_events(prof):
+        for name in names:
+            if name in kernel:
+                spans[name].append((start, end))
     return {name: union_ms(found) / len(found) * max(1, round(len(found) / n)) if found else 0.0
             for name, found in spans.items()}
 
@@ -2191,8 +2266,8 @@ def serve_phase(arch):
     from repro_torch.kernels import ssd_scan as K3
     from repro_torch.launch import serve_policy
     from repro_torch.launch.serve import greedy_generate, make_prefill, make_serve_step
-
     from repro_torch.models.lm import layer_plan
+    from repro_torch.nn.moe import expert_choices
 
     prompt_len, max_len = SERVE[arch]
     cfg = get_config(arch).with_(param_dtype="bfloat16", compute_dtype="bfloat16",
@@ -2278,7 +2353,7 @@ def serve_phase(arch):
     served = {"tokens": torch.as_tensor(out["prompts"], device=dev)}
     if out["frames"] is not None:
         served["frontend"] = torch.as_tensor(out["frames"], device=dev)
-    with routes_recorded() as rec:
+    with expert_choices() as rec:
         greedy = greedy_generate(bundle, params, served, steps=TOKENS + 1, max_len=max_len,
                                  dtype=torch.bfloat16).cpu()
     for cid in range(CLIENTS):
@@ -2397,49 +2472,6 @@ def logits_path(bundle, params, prompts, max_len, steps, feed=None, every_positi
     return rows, fed
 
 
-@contextlib.contextmanager
-def routes_recorded():
-    """Yield a list that gets, for each MoE call inside, its expert ids
-    "idx" (N, k), its capacity "cap" and "dropped", the (token, k) pairs
-    past capacity (a device tensor): an expert keeps its first `cap` pairs
-    in the stable order, so it drops max(0, pairs - cap). Measurement
-    only: ``nn.moe.route`` is wrapped while the block runs."""
-    from repro_torch.nn import moe as moe_mod
-    calls, real = [], moe_mod.route
-
-    def route(cfg, p, xf):
-        gates, idx, aux = real(cfg, p, xf)
-        cap = moe_mod.capacity(cfg, xf.shape[0])
-        load = torch.zeros(cfg.num_experts, dtype=torch.long, device=idx.device)
-        load.scatter_add_(0, idx.reshape(-1), torch.ones_like(idx.reshape(-1)))
-        calls.append({"idx": idx, "cap": cap, "dropped": (load - cap).clamp(min=0).sum()})
-        return gates, idx, aux
-    moe_mod.route = route
-    try:
-        yield calls
-    finally:
-        moe_mod.route = real
-
-
-@contextlib.contextmanager
-def forced_routing(records):
-    """Each ``moe`` call inside takes the expert ids `records` hold, in call
-    order, in place of its own top-k (with its own scores at those ids),
-    for a comparison only: the same routing, hence the same drops."""
-    from repro_torch.nn import moe as moe_mod
-    ids = iter([r["idx"] for r in records])
-    real = moe_mod.top_k
-
-    def top_k(scores, k):
-        idx = next(ids)
-        return torch.gather(scores, -1, idx), idx
-    moe_mod.top_k = top_k
-    try:
-        yield
-    finally:
-        moe_mod.top_k = real
-
-
 def routing_agreement(cfg, got, want):
     """For each MoE layer, the share of (token, k) choices that two runs'
     records (call order: prefill layers, then each step's) have in common."""
@@ -2473,10 +2505,11 @@ def full_depth_plain_check(bundle, params, prompts, max_len, steps=3, rel=5e-2,
     where each layer's share of (token, k) choices in common with the
     kernels' is printed and the argmax must agree on at least
     ``MOE_ARGMAX_SHARE`` of the rows; and with the kernels' routing forced
-    (``forced_routing``), which is held to `rel`. With a padded vocab
+    (``nn.moe.expert_choices``), which is held to `rel`. With a padded vocab
     (tp > 1) the real vocab's logits are compared, the padded ids' -1e30
     checked apart."""
     from repro_torch.kernels import ops
+    from repro_torch.nn.moe import expert_choices
 
     cfg = bundle.cfg
 
@@ -2491,7 +2524,7 @@ def full_depth_plain_check(bundle, params, prompts, max_len, steps=3, rel=5e-2,
     plain = functools.partial(plain_versions, ops, k1=True, k4=False, k2=True)
     path = functools.partial(logits_path, bundle, params, prompts, max_len, steps,
                              every_position=cfg.family == "moe", frontend=frontend)
-    with routes_recorded() as rec:
+    with expert_choices() as rec:
         got, fed = path()
     if cfg.padded_vocab != cfg.vocab_size:
         # the padded ids hold -1e30 on both sides: compared apart, so that
@@ -2503,7 +2536,7 @@ def full_depth_plain_check(bundle, params, prompts, max_len, steps=3, rel=5e-2,
     finite = all(bool(torch.isfinite(g).all()) for g in got)
     res = {}
     if cfg.family == "moe":
-        with plain(), routes_recorded() as rec_free:
+        with plain(), expert_choices() as rec_free:
             free, _ = path(fed)
         free = [w[..., :cfg.vocab_size] for w in free]
         errs, same, share = compare(got, free)
@@ -2520,7 +2553,7 @@ def full_depth_plain_check(bundle, params, prompts, max_len, steps=3, rel=5e-2,
                    routing_agreement_by_layer=agree, dropped_kernels_plain=drops)
         if share < MOE_ARGMAX_SHARE:
             raise AssertionError(f"argmax agrees on {share:.3f} of the rows, routing free")
-        forced = forced_routing(rec)
+        forced = expert_choices(rec)
     else:
         forced = contextlib.nullcontext()
     with plain(), forced:
@@ -2537,11 +2570,51 @@ def full_depth_plain_check(bundle, params, prompts, max_len, steps=3, rel=5e-2,
             **res}
 
 
+class _BackwardRangeOpen(torch.autograd.Function):
+    """Identity on an MoE call's output. Its backward, the first of the
+    call's backward, unpacks the tensor it saved (under remat "full" the
+    block's recompute runs there, before the range opens) and opens the
+    profiler range "moe_backward" that ``_BackwardRangeClose`` closes."""
+
+    @staticmethod
+    def forward(ctx, y, box):
+        ctx.save_for_backward(y)
+        ctx.box = box
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, dy):
+        _ = ctx.saved_tensors   # under remat the unpack runs the block's recompute
+        ctx.box["range"] = torch.profiler.record_function("moe_backward")
+        ctx.box["range"].__enter__()
+        return dy, None
+
+
+class _BackwardRangeClose(torch.autograd.Function):
+    """Identity on an MoE call's input; its backward, the last of the
+    call's backward (every path of the call meets there), closes the range."""
+
+    @staticmethod
+    def forward(ctx, x, box):
+        ctx.box = box
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dx):
+        opened = ctx.box.pop("range", None)
+        if opened is not None:
+            opened.__exit__(None, None, None)
+        return dx, None
+
+
 @contextlib.contextmanager
 def annotated_layers():
     """The LM's MoE calls and MLA decode calls inside profiler ranges named
     "moe" and "mla_decode" (``torch.profiler.record_function``), so that
-    ``device_breakdown`` can group their kernels; for measurement only."""
+    ``device_breakdown`` can group their kernels; for measurement only.
+    Autograd runs an MoE call's backward on its own thread, outside the
+    forward's range: the range "moe_backward" spans it, opened and closed
+    by two identity Functions on the call's output and input."""
     from repro_torch.models import lm
 
     def named(name, fn):
@@ -2550,7 +2623,13 @@ def annotated_layers():
                 return fn(*args, **kw)
         return run
     real = lm.moe, lm.mla_decode
-    lm.moe, lm.mla_decode = named("moe", lm.moe), named("mla_decode", lm.mla_decode)
+    moe_call = named("moe", lm.moe)
+
+    def moe(cfg, p, x, *args, **kw):
+        box = {}
+        y, aux = moe_call(cfg, p, _BackwardRangeClose.apply(x, box), *args, **kw)
+        return _BackwardRangeOpen.apply(y, box), aux
+    lm.moe, lm.mla_decode = moe, named("mla_decode", lm.mla_decode)
     try:
         yield
     finally:
@@ -2568,6 +2647,17 @@ def union_ms(spans):
     return total / 1e3
 
 
+def device_events(prof):
+    """(name, start us, end us, whether a user annotation) of every device
+    event of a profiler trace, read from its Kineto events: what
+    ``prof.events()`` lists for the device, without building the tree of
+    the CPU ops, which takes seconds for a train step's tens of thousands."""
+    cuda, found = torch.autograd.DeviceType.CUDA, prof.profiler.kineto_results
+    t0 = found.trace_start_ns()   # integer ns: the times keep their ns in a float
+    return [(e.name(), (e.start_ns() - t0) / 1e3, (e.end_ns() - t0) / 1e3,
+             e.is_user_annotation()) for e in found.events() if e.device_type() == cuda]
+
+
 def device_breakdown(prof, n):
     """Device time per call from a profiler trace, grouped: the port's
     kernels (K1 either route, K3 any route and the 3xTF32 route's three
@@ -2575,15 +2665,17 @@ def device_breakdown(prof, n):
     its five), GEMMs (cuBLAS / CUTLASS), and everything else; and
     the number of device kernels per call. A group's time, and "busy" over all of them, count
     each instant once: K2's combine is launched while its split pass runs.
-    Under ``annotated_layers`` the kernels inside an MoE call form the groups
-    "moe_gemm" (its GEMMs: router, bmm, shared experts) and "moe_dispatch"
-    (the rest: softmax, sort, searchsorted, gathers, the combine), and those
-    inside MLA's absorbed decode the group "mla_decode"."""
+    Under ``annotated_layers`` the kernels inside an MoE call, its forward
+    (with the remat recompute's) and its backward ("moe_backward", also
+    reported alone), form the groups "moe_gemm" (its GEMMs: router, bmm,
+    shared experts) and "moe_dispatch" (the rest: softmax, sort,
+    searchsorted, gathers, the combine, their gradients), and those inside
+    MLA's absorbed decode the group "mla_decode"; a port kernel keeps its
+    own group wherever it runs."""
     import bisect
-    cuda = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    marks = sorted((e.time_range.start, e.time_range.end, e.name) for e in cuda
-                   if getattr(e, "is_user_annotation", False)
-                   and e.name in ("moe", "mla_decode"))
+    events = device_events(prof)
+    marks = sorted((start, end, name) for name, start, end, note in events
+                   if note and name in ("moe", "moe_backward", "mla_decode"))
     starts = [m[0] for m in marks]
 
     def mark_of(t):
@@ -2594,22 +2686,15 @@ def device_breakdown(prof, n):
                              "other")}
     if marks:
         spans.update({g: [] for g in ("moe_gemm", "moe_dispatch", "mla_decode")})
-    kernels, dispatch = 0, {}
-    for e in cuda:
-        if getattr(e, "is_user_annotation", False):
+    kernels, dispatch, moe_backward = 0, {}, []
+    for full_name, start, end, note in events:
+        if note:
             continue
         kernels += 1
-        name = e.name.lower()
-        mark = mark_of(e.time_range.start) if marks else None
+        name = full_name.lower()
+        mark = mark_of(start) if marks else None
         is_gemm = any(t in name for t in ("gemm", "gemv", "cutlass", "nvjet", "xmma", "cublas"))
-        if mark == "moe":
-            g = "moe_gemm" if is_gemm else "moe_dispatch"
-            if not is_gemm:
-                dispatch[e.name] = dispatch.get(e.name, 0.0) + (
-                    e.time_range.end - e.time_range.start) / 1e3 / n
-        elif mark == "mla_decode":
-            g = "mla_decode"
-        elif "flash_tf32x3_kernel" in name or "flash_wgmma_kernel" in name:
+        if "flash_tf32x3_kernel" in name or "flash_wgmma_kernel" in name:
             g = "K1"
         elif "flash_bwd_" in name:
             g = "K1-bwd"
@@ -2624,13 +2709,23 @@ def device_breakdown(prof, n):
             g = "K3"
         elif "rglru_chunk_kernel" in name:
             g = "K4"
+        elif mark in ("moe", "moe_backward"):
+            g = "moe_gemm" if is_gemm else "moe_dispatch"
+            if not is_gemm:
+                dispatch[full_name] = dispatch.get(full_name, 0.0) + (end - start) / 1e3 / n
+            if mark == "moe_backward":
+                moe_backward.append((start, end))
+        elif mark == "mla_decode":
+            g = "mla_decode"
         elif is_gemm:
             g = "gemm"
         else:
             g = "other"
-        spans[g].append((e.time_range.start, e.time_range.end))
+        spans[g].append((start, end))
     groups = {"busy": union_ms([s for found in spans.values() for s in found]) / n}
     groups.update({g: union_ms(found) / n for g, found in spans.items()})
+    if marks:
+        groups["moe_backward"] = union_ms(moe_backward) / n
     if groups["busy"] <= 0:
         raise AssertionError("the profiler recorded no device time")
     if dispatch:   # the dispatch's costliest kernels, by name (names cut to 60)
@@ -2647,6 +2742,7 @@ def parity_phase(arch, prompt_len, **override):
     layer and tokens are reported before the check fails."""
     from repro_torch.configs.registry import make_model, smoke_config
     from repro_torch.launch.serve import greedy_generate
+    from repro_torch.nn.moe import expert_choices
 
     shown = "".join(f", {k} {v}" for k, v in override.items())
     log(f"== parity: {arch} reduced config{shown}, card vs CPU, fp32, TF32 off, "
@@ -2663,10 +2759,10 @@ def parity_phase(arch, prompt_len, **override):
                                         generator=gen)
     b_gpu = {k: v.cuda() for k, v in b_cpu.items()}
     max_len = prompt_len + 40
-    with routes_recorded() as rec_cpu:
+    with expert_choices() as rec_cpu:
         o_cpu, _ = bundle.prefill(cpu, b_cpu, max_len=max_len, dtype=torch.float32)
         t_cpu = greedy_generate(bundle, cpu, b_cpu, 12, max_len, torch.float32)
-    with routes_recorded() as rec_gpu:
+    with expert_choices() as rec_gpu:
         o_gpu, _ = bundle.prefill(gpu, b_gpu, max_len=max_len, dtype=torch.float32)
         t_gpu = greedy_generate(bundle, gpu, b_gpu, 12, max_len, torch.float32)
     moe_note = ""
@@ -3157,7 +3253,9 @@ def train_parity_phase():
 
 def expected_train_launches(cfg, steps):
     """Launches of `steps` V-trace steps, by family; no training path runs
-    K2. The dense LM runs K1 and K1-bwd once per layer; RecurrentGemma K1
+    K2. The dense LM and the MoE LM run K1 and K1-bwd once per layer (the
+    MoE LM's first dense layers and MLA's too), and a built MTP block once
+    more, outside remat: one K1 and one K1-bwd a micro-batch; RecurrentGemma K1
     and K1-bwd once per local layer, K4 and K4-bwd once per recurrent layer;
     Mamba2 K3 and K3-bwd once per layer; the encoder-decoder K1 and K1-bwd
     once per encoder layer and twice per decoder layer (self- and
@@ -3168,8 +3266,10 @@ def expected_train_launches(cfg, steps):
                           "flash_attention_bwd", "ssd_scan_bwd", "rglru_scan_bwd"), 0)
     bwd = steps * max(1, cfg.grad_accum)
     fwd = bwd * (2 if cfg.remat == "full" else 1)
-    if cfg.family == "dense":
-        want.update(flash_attention=cfg.num_layers * fwd, flash_attention_bwd=cfg.num_layers * bwd)
+    if cfg.family in ("dense", "moe"):
+        mtp = 1 if cfg.mtp_depth else 0
+        want.update(flash_attention=cfg.num_layers * fwd + mtp * bwd,
+                    flash_attention_bwd=(cfg.num_layers + mtp) * bwd)
     elif cfg.family == "hybrid":
         from repro_torch.models.recurrentgemma import layer_kinds
         n_rec = layer_kinds(cfg).count("rglru")
@@ -3189,17 +3289,19 @@ def expected_train_launches(cfg, steps):
 def check_routes(cfg, dtype, want, k1, k1_bwd, k3, k3_bwd):
     """Raise unless every launch of a train run of `cfg` in `dtype` (`want`:
     ``expected_train_launches``) took its route: K1 and K1-bwd the routes
-    ``route`` and ``bwd_route`` give (dtype, head_dim), K3 and K3-bwd those
-    of (dtype, P, N); `k1` .. `k3_bwd` are the launches by route."""
+    ``route`` and ``bwd_route`` give (dtype, head_dim; MLA's padded
+    head_dim), K3 and K3-bwd those of (dtype, P, N); `k1` .. `k3_bwd` are
+    the launches by route."""
     from repro_torch.kernels import flash_attention as K1
     from repro_torch.kernels import ssd_scan as K3
+    from repro_torch.nn.mla import padded_head_dim
 
     def only(routes, route, n):   # n launches, all on `route`
         return {**dict.fromkeys(routes, 0), **({route: n} if n else {})}
     attends = cfg.family != "ssm"
-    checks = {"K1": (k1, K1.ROUTES, attends and K1.route(dtype, cfg.head_dim),
-                     want["flash_attention"]),
-              "K1-bwd": (k1_bwd, K1.BWD_ROUTES, attends and K1.bwd_route(dtype, cfg.head_dim),
+    d = padded_head_dim(cfg) if cfg.mla else cfg.head_dim
+    checks = {"K1": (k1, K1.ROUTES, attends and K1.route(dtype, d), want["flash_attention"]),
+              "K1-bwd": (k1_bwd, K1.BWD_ROUTES, attends and K1.bwd_route(dtype, d),
                          want["flash_attention_bwd"]),
               "K3": (k3, K3.ROUTES, K3.route(dtype, cfg.ssm_headdim, cfg.ssm_state),
                      want["ssd_scan"]),
@@ -3216,7 +3318,7 @@ def check_routes(cfg, dtype, want, k1, k1_bwd, k3, k3_bwd):
 # must leave empty
 TRAIN_GROUPS = {"dense": ("K1", "K1-bwd"), "hybrid": ("K1", "K1-bwd", "K4", "K4-bwd"),
                 "ssm": ("K3", "K3-bwd"),
-                "encdec": ("K1", "K1-bwd")}
+                "encdec": ("K1", "K1-bwd"), "moe": ("K1", "K1-bwd")}
 KERNEL_GROUPS = ("K1", "K1-bwd", "K2", "K3", "K3-bwd", "K4", "K4-bwd")
 
 
@@ -3378,13 +3480,19 @@ def bf16_train_parity_phase(arch):
     rest of the model bf16): within BF16_LEAF_TOL of its max of fp64, or no
     farther than FP64_MARGIN times the plain versions are
     (``fp64_verdict``). The plain and fp64 runs replay the kernel run's
-    ReLU masks (``relu_masks``; seamless's MLPs)."""
+    ReLU masks (``relu_masks``; seamless's MLPs) and expert choices
+    (``nn.moe.expert_choices``; the MoE layers). Under remat
+    "full" each MoE call runs again in the backward, the layers in reverse
+    order: the recompute must choose the forward's experts, and each run
+    must make as many MoE calls as the kernel run."""
     from repro_torch.core.losses import make_vtrace_loss, param_grads
     from repro_torch.kernels import flash_attention as K1
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_scan as K3
     from repro_torch.launch import train
+    from repro_torch.models.lm import layer_plan
     from repro_torch.nn.mlp import relu_masks
+    from repro_torch.nn.moe import expert_choices
 
     t0 = time.perf_counter()
     over = dict(BF16_TRAIN_PARITY[arch])
@@ -3403,13 +3511,24 @@ def bf16_train_parity_phase(arch):
     batch = run.batch_at(0)
     loss_fn = make_vtrace_loss(run.bundle)
     ops.reset_launch_counts()
-    with kv_len_calls(K1) as kv_calls, relu_masks() as masks:
+    with kv_len_calls(K1) as kv_calls, relu_masks() as masks, expert_choices() as experts:
         loss, _ = loss_fn(params, batch)
         got = param_grads(loss, named)
     counts = ops.launch_counts()
     want_counts = expected_train_launches(cfg, 1)
     if counts != want_counts:
         raise AssertionError(f"launches {counts} != expected {want_counts}")
+    n_moe = sum(spec.moe for spec in layer_plan(cfg)) if cfg.family == "moe" else 0
+    mtp = 1 if cfg.family == "moe" and cfg.mtp_depth else 0   # its block: no remat
+    again = n_moe if cfg.remat == "full" else 0
+    if len(experts) != n_moe + mtp + again:
+        raise AssertionError(f"{len(experts)} MoE calls, want {n_moe + mtp + again}")
+    # call order: the layers' forward, the MTP block's, then the recompute,
+    # last layer first
+    for i in range(again):
+        if not torch.equal(experts[i]["idx"], experts[-1 - i]["idx"]):
+            raise AssertionError(f"MoE layer {i}: the backward's recompute chose other experts "
+                                 "than the forward")
     routes = {"K1": dict(K1.flash_attention.launches_by_route),
               "K1-bwd": dict(K1.flash_attention_bwd.launches_by_route),
               "K3": dict(K3.ssd_scan.launches_by_route),
@@ -3422,15 +3541,20 @@ def bf16_train_parity_phase(arch):
                    "flash_attention_bwd": {key: cfg.dec_layers}}
     if {k_: v_ for k_, v_ in kv_calls.items() if v_} != want_kv:
         raise AssertionError(f"K1 calls at S_kv != S {kv_calls}, want {want_kv}")
-    with plain_bf16_pairs(ops), plain_versions(ops, k1=False, k4=True), relu_masks(masks):
+    with plain_bf16_pairs(ops), plain_versions(ops, k1=False, k4=True), relu_masks(masks), \
+            expert_choices(experts) as replayed:
         loss_p, _ = loss_fn(params, batch)
         want = param_grads(loss_p, named)
     if ops.launch_counts() != counts:
         raise AssertionError(f"the plain runs launched a kernel: {ops.launch_counts()}")
     check_close("loss", loss.detach(), loss_p.detach(), 1e-2, 1e-2 * abs(float(loss_p)))
     d_plain = leaf_distances(got, want, BF16_LEAF_TOL)
-    with fp64_versions(ops), relu_masks(masks):
+    with fp64_versions(ops), relu_masks(masks), expert_choices(experts) as replayed_fp64:
         ref = param_grads(loss_fn(params, batch)[0], named)
+    if not replayed["calls"] == replayed_fp64["calls"] == len(experts):
+        raise AssertionError(f"MoE calls: kernels {len(experts)}, plain {replayed['calls']}, "
+                             f"fp64 {replayed_fp64['calls']}")
+    drops = sum(int(r["dropped"]) for r in experts[:n_moe])
     verdict = fp64_verdict(got, want, ref, BF16_LEAF_TOL)
     far = {n for n, d in d_plain.items() if d > 1}
     failed = [f_ for f_ in verdict["failed"] if f_[0] in far]
@@ -3454,23 +3578,32 @@ def bf16_train_parity_phase(arch):
         f"leaf with the kernels {verdict['farthest'][0]:.3f} ({verdict['farthest'][1]}), the "
         f"plain versions' farthest {verdict['farthest_plain'][0]:.3f} "
         f"({verdict['farthest_plain'][1]}))"
-        + (f"; {len(masks)} ReLU calls' masks replayed" if masks else "") + f"; {seconds:.1f} s")
+        + (f"; {len(masks)} ReLU calls' masks replayed" if masks else "")
+        + (f"; {len(experts)} MoE calls' expert choices replayed ({n_moe} layers, their "
+           f"recompute choosing the forward's experts; {experts[0]['cap']} slots an expert, "
+           f"{drops} (token, k) pairs dropped a forward; the replay changed "
+           f"{replayed['changed']} and {replayed_fp64['changed']} of the plain and fp64 runs' "
+           f"{sum(r['idx'].numel() for r in experts)} (token, k) choices)" if experts else "")
+        + f"; {seconds:.1f} s")
     out = {"loss": float(loss.detach()), "loss_plain": float(loss_p.detach()),
            "grad_norm": gnorm, "seconds": seconds, "leaves": len(d_plain), "batch": b, "seq": s,
            "layers": cfg.num_layers, "beyond_plain_tol": sorted(far), "farthest_vs_plain": worst,
            "farthest_vs_fp64": verdict["farthest"],
            "farthest_plain_vs_fp64": verdict["farthest_plain"],
-           "relu_calls": len(masks), "kv_len_calls": want_kv}
-    del params, named, got, want, ref, loss, loss_p, masks
+           "relu_calls": len(masks), "kv_len_calls": want_kv, "moe_calls": len(experts),
+           "moe_dropped_pairs": drops,
+           "moe_choices_changed": [replayed["changed"], replayed_fp64["changed"]]}
+    del params, named, got, want, ref, loss, loss_p, masks, experts
     return out
 
 
 def train_phase(arch, production=False):
     """`arch` trains TRAIN["steps"] steps through ``repro_torch.launch.train``'s
     functions, from its init (a tied table scaled by ``live_table``): at
-    full width and depth in fp32, batch 4 x 256, or with `production` at the
-    reference's production dtypes (PRODUCTION: bf16 params and compute, full
-    remat, fp32 moments) at BF16_TRAIN's batch, sequence and depth. Its
+    full width and depth in fp32, batch 4 x 256, or with
+    `production` at the reference's production dtypes (PRODUCTION: bf16
+    params and compute, full remat; the moments in the config's
+    optimizer_dtype, asserted) at BF16_TRAIN's batch, sequence and depth. Its
     launches are those of ``expected_train_launches`` (the encoder-decoder's
     cross calls at S_kv != S counted apart), every K1 and K3 launch on the
     route of the compute dtype (fp32: 3xTF32; bf16: wgmma at K1's head_dims
@@ -3480,15 +3613,20 @@ def train_phase(arch, production=False):
     (forward, backward, optimizer, summed over the micro-batches) on CUDA
     events, and a profiler breakdown of one step, in which the family's
     kernel groups (TRAIN_GROUPS) hold device time and no other kernel
-    runs."""
+    runs; an MoE step's profile runs under ``annotated_layers``, whose
+    groups "moe_gemm" and "moe_dispatch" take the MoE calls' kernels of the
+    forward, the remat recompute and the backward, and must hold time where
+    the model has an MoE layer."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.configs.registry import get_config
     from repro_torch.core.losses import make_vtrace_loss, param_grads
     from repro_torch.device import dtype_of
     from repro_torch.kernels import flash_attention as K1
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_scan as K3
     from repro_torch.launch import train
+    from repro_torch.models.lm import layer_plan
     from repro_torch.optim import apply_updates
     from repro_torch.utils.tree import tree_bytes, tree_size
 
@@ -3504,6 +3642,7 @@ def train_phase(arch, production=False):
     run = train.setup(arch, batch=b, seq=s, steps=steps, device="cuda", **over)
     cfg = run.cfg
     dtype = dtype_of(cfg.compute_dtype)
+    moment_dtype = dtype_of(get_config(arch).optimizer_dtype)
     accum = max(1, cfg.grad_accum)
     frames = f" over {cfg.frontend_tokens} frames" if cfg.family == "encdec" else ""
     log(f"== train: {cfg.name} {describe(cfg)}, {cfg.num_layers} layers, {cfg.param_dtype} "
@@ -3517,9 +3656,13 @@ def train_phase(arch, production=False):
     torch.cuda.synchronize()
     n = tree_size(state["params"])
     moments = tree_bytes(state["opt_state"])
+    held = {str(m.dtype) for part in state["opt_state"].values() for m in part.values()}
+    if held != {str(moment_dtype)}:
+        raise AssertionError(f"AdamW moments in {held}: {cfg.name}'s config keeps them in "
+                             f"{moment_dtype}")
     log(f"   params {n} ({tree_bytes(state['params']) / 1e9:.2f} GB {cfg.param_dtype}; both "
-        f"moments {moments / 1e9:.2f} GB) built on the card in {time.perf_counter() - t0:.1f} s; "
-        f"allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+        f"moments {moments / 1e9:.2f} GB, {moment_dtype}, the config's) built on the card in "
+        f"{time.perf_counter() - t0:.1f} s; allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB")
 
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -3624,7 +3767,9 @@ def train_phase(arch, production=False):
         + ", ".join(f"{p}{' (AdamW)' if p == 'optimizer' else ''} {t:.2f} ms ({t / total:.3f})"
                     for p, t in parts.items()))
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    has_moe = cfg.family == "moe" and any(spec.moe for spec in layer_plan(cfg))
+    with (annotated_layers() if cfg.family == "moe" else contextlib.nullcontext()), \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         state, m = run.train_step(state, run.batch_at(steps + 3))
         torch.cuda.synchronize()
     groups, n_ops = device_breakdown(prof, 1)
@@ -3632,9 +3777,20 @@ def train_phase(arch, production=False):
         if (g in TRAIN_GROUPS[cfg.family]) != (groups[g] > 0):
             raise AssertionError(f"profiler group {g} holds {groups[g]} ms of a train step of "
                                  f"{cfg.name}, which runs {TRAIN_GROUPS[cfg.family]}")
+    moe_groups = ("moe_gemm", "moe_dispatch", "moe_backward")
+    if cfg.family == "moe" and any((groups.get(g, 0.0) > 0) != has_moe for g in moe_groups):
+        raise AssertionError(f"MoE groups { {g: groups.get(g) for g in moe_groups} } of a train "
+                             f"step of {cfg.name}, which has {'' if has_moe else 'no '}MoE layer")
     idle = 1.0 - groups["busy"] / step_ms[1]
     log(f"   device time of a step (ms): {json.dumps(groups)}; {n_ops:.0f} device operations; "
         f"device idle share {idle:.3f} (1 - busy over the second timed step's wall)")
+    log(f"   a step's device ms: GEMMs {groups['gemm']:.2f}"
+        + (f", experts {groups['moe_gemm']:.2f} and dispatch {groups['moe_dispatch']:.2f} "
+           f"(the MoE calls' backward {groups['moe_backward']:.2f} of them)" if has_moe else "")
+        + "".join(f", {g} {groups[g]:.2f}" for g in TRAIN_GROUPS[cfg.family])
+        + f", other {groups['other']:.2f} of busy {groups['busy']:.2f}; params "
+        f"{tree_bytes(state['params']) / 1e9:.2f} GB, moments {moments / 1e9:.2f} GB, peak "
+        f"{peak / 1e9:.2f} GB")
     del state, named, m
     seconds = time.perf_counter() - phase_t0
     log(f"   train {cfg.name}{' (production dtypes)' if production else ''}: {seconds:.1f} s")
@@ -3645,6 +3801,7 @@ def train_phase(arch, production=False):
                     "kv_len_calls": want_kv, "seconds": seconds, "layers": cfg.num_layers,
                     "batch": b, "micro_batches": accum, "dtypes": [cfg.param_dtype,
                                                                    cfg.compute_dtype],
+                    "moments": cfg.optimizer_dtype, "moments_gb": moments / 1e9,
                     "remat": cfg.remat}
 
 
@@ -4677,8 +4834,6 @@ def wire_phase():
     trajectories over the wire, one shm connection a host on shm, the
     params and the slot state on the card, no actor host on nvidia-smi's
     compute list nor with CUDA initialised."""
-    import gc
-
     from repro_torch.configs.r2d2_atari import AtariConfig
     from repro_torch.envs.alesim import ALESimEnv
     from repro_torch.launch import train_r2d2, train_vtrace
@@ -5694,11 +5849,23 @@ def main():
 
     def timed(name, fn, *args, **kw):
         """Run one phase; its seconds go into phase_s and on a line of
-        their own."""
+        their own. Then its tensors go back to the card: a tensor that a
+        reference cycle holds (a model's modules, a server's threads, a
+        mesh) lives on until Python's collector runs, and no allocation on
+        the card makes it run, so a later phase could find the card full.
+        A phase that leaves more than 1 GB allocated is collected, since a
+        collection costs host time; the line gives the memory allocated
+        before and after."""
         t0 = time.perf_counter()
         out = fn(*args, **kw)
         phase_s[name] = time.perf_counter() - t0
-        log(f"   phase {name}: {phase_s[name]:.1f} s")
+        held, t1 = torch.cuda.memory_allocated() / 1e9, time.perf_counter()
+        if held > 1.0:
+            gc.collect()
+        torch.cuda.empty_cache()
+        log(f"   phase {name}: {phase_s[name]:.1f} s; card memory allocated after it "
+            f"{held:.2f} GB, {torch.cuda.memory_allocated() / 1e9:.2f} GB after "
+            f"{time.perf_counter() - t1:.2f} s of collection")
         return out
 
     rows = timed("kernels", kernel_phase, k1_ptxas, k4_ptxas, bwd_ptxas)
@@ -5711,7 +5878,6 @@ def main():
     def add(counts):
         for name in launches:
             launches[name] += counts.get(name, 0)
-        torch.cuda.empty_cache()
 
     for arch in SERVE:
         counts, serve_metrics[arch] = timed(f"serve {arch}", serve_phase, arch)
@@ -5728,7 +5894,6 @@ def main():
     reshard_metrics = timed("reshard", reshard_phase)
     # a comparison with the plain versions: its launches are not the path's
     ring_metrics = timed("ring wrap gemma2-9b", ring_wrap_phase)
-    torch.cuda.empty_cache()
     # mamba: 150 tokens span two of K3's 64-step chunks and a tail;
     # RecurrentGemma and gemma2: 150 tokens overflow the reduced config's
     # window of 32, so K1's window mask and the ring's wrap in prefill and
@@ -5747,15 +5912,12 @@ def main():
             timed(f"parity {arch} cf {cf}", parity_phase, arch, 150, capacity_factor=cf)
     timed("grad guards", grad_guard_phase)
     timed(f"train parity {TRAIN['arch']}", train_parity_phase)
-    torch.cuda.empty_cache()
     train_parity = {}
     for arch in TRAIN_PARITY:
         train_parity[arch] = timed(f"train parity {arch}", family_train_parity_phase, arch)
-        torch.cuda.empty_cache()
     for arch in BF16_TRAIN_PARITY:
         train_parity[f"{arch} bf16"] = timed(f"train parity {arch} bf16",
                                              bf16_train_parity_phase, arch)
-        torch.cuda.empty_cache()
     train_metrics = {}
     for arch in TRAIN_ARCHS:
         counts, train_metrics[arch] = timed(f"train {arch}", train_phase, arch)
@@ -5771,7 +5933,6 @@ def main():
                                                         bf16_smoke_train_phase)
     add(counts)
     timed("train restart", train_restart_phase)
-    torch.cuda.empty_cache()
     # the R2D2, V-trace, device-backend and wire paths, the figures and the
     # ops planes reach none of the port's kernels: the counts are set to 0
     # before their phases (10-19) and must read 0 after
@@ -5779,20 +5940,14 @@ def main():
     ops.reset_launch_counts()
     timed("r2d2 parity", r2d2_parity_phase)
     r2d2_metrics = {"learner": timed("r2d2 learner", r2d2_learner_phase)}
-    torch.cuda.empty_cache()
     r2d2_metrics["system"] = timed("r2d2 system", r2d2_system_phase)
-    torch.cuda.empty_cache()
     vtrace_metrics = {"parity": timed("vtrace parity", vtrace_parity_phase)}
     vtrace_metrics["system"] = timed("vtrace system", vtrace_system_phase)
-    torch.cuda.empty_cache()
     device_metrics = {"parity": timed("device parity", device_parity_phase)}
     device_metrics["system"] = timed("device system", device_system_phase)
-    torch.cuda.empty_cache()
     wire_metrics = timed("wire", wire_phase)
-    torch.cuda.empty_cache()
     figure_metrics = timed("figures", figures_phase, card, r2d2_metrics,
                            vtrace_metrics["system"], device_metrics["system"])
-    torch.cuda.empty_cache()
     ops_metrics = timed("ops", ops_phase, card)
     counts = ops.launch_counts()
     if any(counts.values()) or any(K1.flash_attention.launches_by_route.values()) \
@@ -5801,7 +5956,6 @@ def main():
                              f"phases launched a port kernel: {counts}")
     log(f"   R2D2, V-trace, device-backend, wire, figures and ops phases: kernel launches "
         f"{counts} (none, as the paths have no Pallas kernel)")
-    torch.cuda.empty_cache()
     counts, quick_metrics = timed("quickstart", quickstart_phase, card)
     add(counts)
 

@@ -29,6 +29,7 @@ the partial outputs; the shared experts run column- and row-parallel over
 'model' on the local tokens.
 """
 
+import contextlib
 import math
 from types import SimpleNamespace
 
@@ -104,6 +105,52 @@ def capacity(cfg, n_tokens):
     """Slots an expert holds for a call over `n_tokens` tokens."""
     return int(math.ceil(n_tokens * cfg.num_experts_per_tok / cfg.num_experts
                          * cfg.capacity_factor))
+
+
+@contextlib.contextmanager
+def expert_choices(replay=None):
+    """Each MoE call's routing inside the block, in call order, for
+    comparing two runs only (``route`` or ``top_k`` wrapped while it runs).
+    A near tie in a router's top-k that another rounding breaks the other
+    way sends a token to another expert, which moves that expert's output
+    and gradients by a token's share.
+
+    Without `replay`, yields a list that gets a dict a call: its expert ids
+    "idx" (N, k), its capacity "cap" and "dropped", the (token, k) pairs
+    past capacity (a tensor on the ids' device): an expert keeps its first
+    `cap` pairs in the stable order, so it drops max(0, pairs - cap). With
+    `replay`, such a list of another run, each call takes the ids recorded
+    there in place of its own top-k, with its own scores at those ids (the
+    same routing, hence the same drops), and the yielded dict counts the
+    "calls" and the (token, k) choices "changed" from its own top-k."""
+    this = globals()
+    real_route, real_top_k = route, top_k
+    calls, replayed = [], {"calls": 0, "changed": 0}
+
+    def recorded(cfg, p, xf):
+        gates, idx, aux = real_route(cfg, p, xf)
+        cap = capacity(cfg, xf.shape[0])
+        load = torch.zeros(cfg.num_experts, dtype=torch.long, device=idx.device)
+        load.scatter_add_(0, idx.reshape(-1), torch.ones_like(idx.reshape(-1)))
+        calls.append({"idx": idx, "cap": cap, "dropped": (load - cap).clamp(min=0).sum()})
+        return gates, idx, aux
+
+    def forced(scores, k):
+        idx = next(ids)
+        own = real_top_k(scores, k)[1]
+        replayed["calls"] += 1
+        replayed["changed"] += int((own[..., :, None] != idx[..., None, :]).all(-1).sum())
+        return torch.gather(scores, -1, idx), idx
+
+    if replay is None:
+        this["route"] = recorded
+    else:
+        ids = iter([r["idx"] for r in replay])
+        this["top_k"] = forced
+    try:
+        yield calls if replay is None else replayed
+    finally:
+        this["route"], this["top_k"] = real_route, real_top_k
 
 
 def _local_dispatch_ffn(cfg, p, xflat, gates, idx, e0, e_local, cap, act, dt,

@@ -826,9 +826,15 @@ def _close_bf16_grad(got, want):
 
 
 # the bf16 K1-bwd's cases: D 64, 128, 256; 5 query heads a kv head (qwen3's
-# 40/8); a window; softcap 50; S_kv != S unmasked; S off the 32-row tiles
+# 40/8); a window; softcap 50; S_kv != S unmasked; S off the 32-row tiles;
+# the production-dtype train calls of starcoder2-15b (a group of 12),
+# internvl2-1b (7 at D 64, 256 frontend and 256 text positions) and
+# deepseek-v3-671b's MLA (q and k 192, v 128 wide, zero-padded to D 256)
 BF16_BWD_CASES = [
     (4, 256, 40, 8, 128, {}),                       # qwen3-14b's train call
+    (4, 256, 48, 4, 128, {}),                       # starcoder2-15b's
+    (4, 512, 14, 2, 64, {}),                        # internvl2-1b's
+    (2, 256, 128, 128, 256, {"dqk": 192, "dv": 128, "scale": 192 ** -0.5}),   # MLA's
     (2, 77, 5, 1, 64, {}),                          # ragged S
     (2, 200, 10, 2, 256, {"window": 64}),
     (2, 96, 4, 2, 128, {"softcap": 50.0}),
@@ -846,14 +852,20 @@ def test_flash_attention_bf16_backward_kernel(cuda, b, s, h, kh, d, kw):
     log-sum-exp (within 1e-4 of the plain version's), and the bf16 K1-bwd's
     dq, dk, dv (bf16) match the bf16 plain backward with the kernel's
     roundings within BF16_GRAD_TOL of each one's max; one launch of each, on
-    the wgmma and bf16 routes."""
+    the wgmma and bf16 routes. With `dqk` and `dv` (MLA's call, as
+    ``nn/mla.py`` pads it) q and k hold `dqk` nonzero columns and v and dO
+    `dv`: the padded columns of dq, dk and dv come back exactly 0."""
     from repro_torch.kernels import flash_attention as tflash
     kw = {"causal": True, **kw}
     skv = kw.pop("skv", s)
+    dqk, dv = kw.pop("dqk", d), kw.pop("dv", d)
     gen = torch.Generator(device=cuda).manual_seed(13)
-    q = _rand(gen, (b, s, h, d), torch.bfloat16, cuda)
-    k, v = (_rand(gen, (b, skv, kh, d), torch.bfloat16, cuda) for _ in range(2))
-    do = _rand(gen, (b, s, h, d), torch.bfloat16, cuda)
+
+    def padded(x, width):
+        return torch.nn.functional.pad(x[..., :width], (0, d - width))
+    q = padded(_rand(gen, (b, s, h, d), torch.bfloat16, cuda), dqk)
+    k, v = (padded(_rand(gen, (b, skv, kh, d), torch.bfloat16, cuda), w) for w in (dqk, dv))
+    do = padded(_rand(gen, (b, s, h, d), torch.bfloat16, cuda), dv)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     ops.reset_launch_counts()
     got = torch.autograd.grad(ops.flash_attention(*leaves, **kw), leaves, do)
@@ -864,9 +876,10 @@ def test_flash_attention_bf16_backward_kernel(cuda, b, s, h, kh, d, kw):
     torch.testing.assert_close(lse, ops.flash_attention_lse_plain(q, k, **kw), atol=1e-4,
                                rtol=1e-4)
     want = ops.flash_attention_bwd_bf16_plain(q, k, v, o, lse, do, **kw)
-    for g, w in zip(got, want):
+    for g, w, width in zip(got, want, (dqk, dqk, dv)):
         assert g.dtype == torch.bfloat16 and g.shape == w.shape
         _close_bf16_grad(g, w)
+        assert not g[..., width:].any()
 
 
 # K3-bwd's bf16 cases: mamba2's train call and the fp32 route's edges
