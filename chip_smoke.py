@@ -202,7 +202,21 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    groups the MoE calls' forward, recompute and backward kernels as
    moe_gemm and moe_dispatch) and deepseek-v3-671b's 3 dense MLA layers
    without the MTP block, 16 x 256 in 8 micro-batches of 2, bf16 moments
-   (K1 48, K1-bwd 24 on the padded head_dim 256);
+   (K1 48, K1-bwd 24 on the padded head_dim 256); after qwen3-14b's step,
+   on its params and batch, remat "dots" (``remat_dots_phase``: the
+   reference's dots_with_no_batch_dims_saveable, the products with no
+   batch dimension saved and the rest recomputed) against "full" through
+   ``make_train_step`` with an optimizer that moves no param (GradsKept):
+   REMAT_ROUNDS rounds alternated and "none" once (each step's wall and
+   peak), one profiled step under each (device busy and GEMM ms), and one
+   micro-batch under each (the memory its forward leaves, its peak); then
+   one step of mamba2-2.7b (2 layers), recurrentgemma-2b (3),
+   seamless-m4t-large-v2 (2 + 2) and qwen3-moe-30b-a3b (2, its expert
+   choices replayed) at full width, batch 4 x 256, "full", "dots", "full";
+   every "dots" run's loss and gradient leaves equal to "full"'s to the
+   bit (or, where two "full" runs differ, no farther from them than they
+   are apart), each run's launches those of its policy (the forward
+   kernels twice a micro-batch under "dots", as under "full");
    then the smoke configs of qwen3-14b, recurrentgemma-2b and
    seamless-m4t-large-v2 (head_dim 16) at those dtypes, 3 steps each
    through the launcher's functions, K1 and K1-bwd on their 3xTF32
@@ -559,6 +573,17 @@ BF16_TRAIN_PARITY = {"qwen3-14b": dict(num_layers=3), "mamba2-2.7b": dict(num_la
                      "qwen2.5-32b": dict(num_layers=2, batch=2), "internvl2-1b": dict(num_layers=3),
                      "qwen3-moe-30b-a3b": dict(num_layers=2),
                      "deepseek-v3-671b": dict(num_layers=3, mtp_depth=0, batch=2)}
+# remat "dots" against "full" (``remat_dots_phase``): qwen3-14b at
+# BF16_TRAIN's call on the bf16 train phase's params, "full" and "dots"
+# alternated REMAT_ROUNDS rounds; then one step of each REMAT_DOTS model at a
+# few layers of full width, 4 x 256 in one micro-batch, at the production
+# dtypes: K3 and K3-bwd on wgmma (mamba2), K4, K4-bwd, K1 and K1-bwd at D 256
+# (rglru, rglru, local), K1 and K1-bwd at D 64 over encoder, self and cross
+# calls (seamless), the MoE dispatch with its expert choices replayed
+REMAT_ROUNDS = 2
+REMAT_DOTS = {"mamba2-2.7b": dict(num_layers=2), "recurrentgemma-2b": dict(num_layers=3),
+              "seamless-m4t-large-v2": TRAIN_PARITY_ENCDEC,
+              "qwen3-moe-30b-a3b": dict(num_layers=2)}
 # the smoke configs of the attention families at the production dtypes,
 # trained a few steps on the card: K1 and K1-bwd at head_dim 16, bf16, on
 # their 3xTF32 kernels
@@ -3261,11 +3286,13 @@ def expected_train_launches(cfg, steps):
     once per encoder layer and twice per decoder layer (self- and
     cross-attention). Each micro-batch of ``cfg.grad_accum`` runs them, and
     under remat "full" the backward runs each layer's forward again, so the
-    forward kernels launch twice."""
+    forward kernels launch twice; so they do under "dots", whose recompute
+    runs the same forward with the saved products taken from its cache: the
+    kernels are ``ctypes`` calls that its policy never sees."""
     want = dict.fromkeys(("flash_attention", "decode_attention", "ssd_scan", "rglru_scan",
                           "flash_attention_bwd", "ssd_scan_bwd", "rglru_scan_bwd"), 0)
     bwd = steps * max(1, cfg.grad_accum)
-    fwd = bwd * (2 if cfg.remat == "full" else 1)
+    fwd = bwd * (2 if cfg.remat in ("full", "dots") else 1)
     if cfg.family in ("dense", "moe"):
         mtp = 1 if cfg.mtp_depth else 0
         want.update(flash_attention=cfg.num_layers * fwd + mtp * bwd,
@@ -3520,7 +3547,8 @@ def bf16_train_parity_phase(arch):
         raise AssertionError(f"launches {counts} != expected {want_counts}")
     n_moe = sum(spec.moe for spec in layer_plan(cfg)) if cfg.family == "moe" else 0
     mtp = 1 if cfg.family == "moe" and cfg.mtp_depth else 0   # its block: no remat
-    again = n_moe if cfg.remat == "full" else 0
+    # "dots" recomputes the layer as "full" does, its router product saved
+    again = n_moe if cfg.remat in ("full", "dots") else 0
     if len(experts) != n_moe + mtp + again:
         raise AssertionError(f"{len(experts)} MoE calls, want {n_moe + mtp + again}")
     # call order: the layers' forward, the MTP block's, then the recompute,
@@ -3597,7 +3625,7 @@ def bf16_train_parity_phase(arch):
     return out
 
 
-def train_phase(arch, production=False):
+def train_phase(arch, production=False, keep=False):
     """`arch` trains TRAIN["steps"] steps through ``repro_torch.launch.train``'s
     functions, from its init (a tied table scaled by ``live_table``): at
     full width and depth in fp32, batch 4 x 256, or with
@@ -3616,7 +3644,8 @@ def train_phase(arch, production=False):
     runs; an MoE step's profile runs under ``annotated_layers``, whose
     groups "moe_gemm" and "moe_dispatch" take the MoE calls' kernels of the
     forward, the remat recompute and the backward, and must hold time where
-    the model has an MoE layer."""
+    the model has an MoE layer. With `keep`, the run and its train state
+    come back too, for a later phase on the same params."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs.registry import get_config
@@ -3681,15 +3710,12 @@ def train_phase(arch, production=False):
     if counts != want:
         raise AssertionError(f"train launch counts {counts} != expected {want}")
     check_routes(cfg, dtype, want, k1_routes, k1_bwd_routes, k3_routes, k3_bwd_routes)
-    # the routes' own rows in the kernels' line
-    counts["ssd_scan_tf32x3"] = k3_routes.get("tf32x3", 0)
-    counts["flash_attention_bwd_bf16"] = k1_bwd_routes.get("bf16", 0)
-    counts["ssd_scan_bwd_bf16"] = k3_bwd_routes.get("wgmma", k3_bwd_routes.get("bf16", 0))
+    counts.update(route_rows(k1_bwd_routes, k3_routes, k3_bwd_routes))
     want_kv = {}
     if cfg.family == "encdec":
         key = f"{s}x{cfg.frontend_tokens}"
         bwd = cfg.dec_layers * steps * max(1, cfg.grad_accum)
-        want_kv = {"flash_attention": {key: bwd * (2 if cfg.remat == "full" else 1)},
+        want_kv = {"flash_attention": {key: bwd * (2 if cfg.remat in ("full", "dots") else 1)},
                    "flash_attention_bwd": {key: bwd}}
     if {k: v for k, v in kv_calls.items() if v} != want_kv:
         raise AssertionError(f"K1 calls at S_kv != S {kv_calls}, want {want_kv}")
@@ -3791,18 +3817,356 @@ def train_phase(arch, production=False):
         + f", other {groups['other']:.2f} of busy {groups['busy']:.2f}; params "
         f"{tree_bytes(state['params']) / 1e9:.2f} GB, moments {moments / 1e9:.2f} GB, peak "
         f"{peak / 1e9:.2f} GB")
-    del state, named, m
+    del named, m
+    if not keep:
+        del state
     seconds = time.perf_counter() - phase_t0
     log(f"   train {cfg.name}{' (production dtypes)' if production else ''}: {seconds:.1f} s")
-    return counts, {"step_ms": step_ms, "tokens_per_s": b * s / (step_ms[1] / 1e3),
-                    "parts_ms": parts, "peak_gb": peak / 1e9, "params": n, "loss": loss,
-                    "grad_norm": gnorm, "device_ms": groups, "device_ops": n_ops,
-                    "idle_share": idle, "alloc_retries": retries,
-                    "kv_len_calls": want_kv, "seconds": seconds, "layers": cfg.num_layers,
-                    "batch": b, "micro_batches": accum, "dtypes": [cfg.param_dtype,
-                                                                   cfg.compute_dtype],
-                    "moments": cfg.optimizer_dtype, "moments_gb": moments / 1e9,
-                    "remat": cfg.remat}
+    metrics = {"step_ms": step_ms, "tokens_per_s": b * s / (step_ms[1] / 1e3),
+               "parts_ms": parts, "peak_gb": peak / 1e9, "params": n, "loss": loss,
+               "grad_norm": gnorm, "device_ms": groups, "device_ops": n_ops,
+               "idle_share": idle, "alloc_retries": retries,
+               "kv_len_calls": want_kv, "seconds": seconds, "layers": cfg.num_layers,
+               "batch": b, "micro_batches": accum, "dtypes": [cfg.param_dtype,
+                                                              cfg.compute_dtype],
+               "moments": cfg.optimizer_dtype, "moments_gb": moments / 1e9,
+               "remat": cfg.remat}
+    return (counts, metrics, (run, state)) if keep else (counts, metrics)
+
+
+class GradsKept:
+    """An optimizer for ``make_train_step`` that keeps the step's gradients
+    (``grads``, the leaves as the step hands them to its optimizer) and
+    moves no param: each update is a 0-d zero, which ``apply_updates`` adds.
+    Every run of a comparison then sees the same params; AdamW, the same
+    under every remat policy, is left out of its time."""
+
+    def __init__(self):
+        self.grads = None
+
+    def update(self, grads, opt_state, params, step):
+        self.grads = grads
+        zero = {}
+        for g in grads.values():
+            zero.setdefault(g.dtype, torch.zeros((), dtype=g.dtype, device=g.device))
+        return {n: zero[g.dtype] for n, g in grads.items()}, opt_state, {}
+
+
+def remat_step(run, state, batch, remat, choices=None, profiled=False):
+    """One step of `run`'s train call on `batch` through ``make_train_step``
+    under `remat` (the config's own field), its optimizer ``GradsKept``; an
+    MoE model's calls replay `choices` (``nn.moe.expert_choices``) when
+    given, else record them. Returns the loss, the gradients, the launch
+    counts and routes, the host wall ms of the synchronised step, the peak
+    memory allocated during it (and above its start), the MoE calls'
+    records and, when `profiled`, the device breakdown of the step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.registry import make_model
+    from repro_torch.core.losses import make_train_step
+    from repro_torch.kernels import ops
+    from repro_torch.nn.moe import expert_choices
+
+    keep = GradsKept()
+    step = make_train_step(make_model(run.cfg.with_(remat=remat)), keep)
+    moe = run.cfg.family == "moe"
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    with (expert_choices(choices) if moe else contextlib.nullcontext()) as experts, \
+            (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profiled
+             else contextlib.nullcontext()) as prof:
+        t0 = time.perf_counter()
+        _, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    out = {"loss": metrics["loss"].detach(), "grads": keep.grads, "wall_ms": wall,
+           "peak_gb": peak / 1e9, "peak_over_start_gb": (peak - start) / 1e9,
+           "counts": ops.launch_counts(), "experts": experts, "routes": launch_routes()}
+    if profiled:
+        out["device_ms"], out["device_ops"] = device_breakdown(prof, 1)
+    return out
+
+
+def grads_apart(got, ref):
+    """{leaf: max |got - ref|} over the leaves that are not equal to the bit."""
+    return {n: float((g.float() - ref[n].float()).abs().max())
+            for n, g in got.items() if not torch.equal(g, ref[n])}
+
+
+def launch_routes():
+    """K1's, K1-bwd's, K3's and K3-bwd's launches by route since the counts
+    were last reset."""
+    from repro_torch.kernels import flash_attention as K1
+    from repro_torch.kernels import ssd_scan as K3
+    return [dict(K1.flash_attention.launches_by_route),
+            dict(K1.flash_attention_bwd.launches_by_route),
+            dict(K3.ssd_scan.launches_by_route), dict(K3.ssd_scan_bwd.launches_by_route)]
+
+
+def route_rows(k1_bwd, k3, k3_bwd):
+    """The launches of the routes that have their own rows in the kernels'
+    line, from K1-bwd's, K3's and K3-bwd's launches by route."""
+    return {"ssd_scan_tf32x3": k3.get("tf32x3", 0),
+            "flash_attention_bwd_bf16": k1_bwd.get("bf16", 0),
+            "ssd_scan_bwd_bf16": k3_bwd.get("wgmma", k3_bwd.get("bf16", 0))}
+
+
+def add_launches(launches, r):
+    """Add a run's launches (``remat_step``'s "counts" and "routes") to
+    `launches`, with the routes' own rows."""
+    for k, v in {**r["counts"], **route_rows(*r["routes"][1:])}.items():
+        launches[k] = launches.get(k, 0) + v
+
+
+def remat_compare(run, state, batch, rounds, runs, also=()):
+    """`run`'s step (``remat_step``) under "full", then `rounds` times
+    "dots" and "full" in turn, then once under each of `also`, held to the
+    first "full" run, the reference; an MoE model's later runs replay the
+    reference's expert choices. Each run launches as
+    ``expected_train_launches`` says, on the routes of ``check_routes``;
+    an MoE model's remat recompute chooses its forward's experts. Where
+    every later "full" run equals the reference to the bit (loss and every
+    gradient leaf), every "dots" run must too. Where two "full" runs
+    already differ (an op whose result depends on the order of its atomic
+    adds), one more "full" runs, and at each leaf where the "full" runs
+    differ each "dots" run must lie no farther from the nearest "full" run
+    than the farthest two "full" runs lie apart; every other leaf, and the
+    loss where the "full" losses agree, equal to the bit. A run of `also`
+    is reported, not held. Only the reference's gradients are kept, and a
+    later run's leaves that differ from them. Each run's result (its
+    gradients dropped) is appended to `runs`; returns the verdict."""
+    from repro_torch.models.lm import layer_plan
+
+    cfg = run.cfg
+    n_moe = sum(spec.moe for spec in layer_plan(cfg)) if cfg.family == "moe" else 0
+    ref, choices = None, None
+
+    def one(remat):
+        nonlocal ref, choices
+        r = remat_step(run, state, batch, remat, choices)
+        want = expected_train_launches(cfg.with_(remat=remat), 1)
+        if r["counts"] != want:
+            raise AssertionError(f"{cfg.name} under remat {remat}: launches {r['counts']} != "
+                                 f"expected {want}")
+        check_routes(cfg, torch.bfloat16, want, *r["routes"])
+        again = n_moe if remat in ("full", "dots") else 0
+        if n_moe and choices is None:
+            experts = r["experts"]
+            if len(experts) != n_moe + again:
+                raise AssertionError(f"{len(experts)} MoE calls, want {n_moe + again}")
+            for i in range(again):   # the recompute runs last layer first
+                if not torch.equal(experts[i]["idx"], experts[-1 - i]["idx"]):
+                    raise AssertionError(f"MoE layer {i}: the {remat} recompute chose other "
+                                         "experts than the forward")
+            choices = experts
+        elif n_moe and r["experts"]["calls"] != n_moe + again:
+            raise AssertionError(f"{r['experts']['calls']} MoE calls replayed, want "
+                                 f"{n_moe + again}")
+        grads = r.pop("grads")
+        if ref is None:
+            ref = dict(r, grads=grads)
+        else:
+            r["apart"] = grads_apart(grads, ref["grads"])
+            r["leaves"] = {n: grads[n] for n in r["apart"]}
+        del grads
+        runs.append((remat, r))
+        return r
+
+    one("full")
+    for _ in range(rounds):
+        one("dots")
+        one("full")
+    fulls = [ref] + [r for remat, r in runs[1:] if remat == "full"]
+    loss_noisy = any(not torch.equal(r["loss"], ref["loss"]) for r in fulls)
+    if loss_noisy or any(r["apart"] for r in fulls[1:]):
+        fulls.append(one("full"))
+    noisy = {}   # leaf: the farthest two "full" runs apart
+
+    def leaf(r, n):
+        return ref["grads"][n] if r is ref else r["leaves"].get(n, ref["grads"][n])
+    for n in {n for r in fulls[1:] for n in r["apart"]}:
+        noisy[n] = max(float((leaf(a, n).float() - leaf(b, n).float()).abs().max())
+                       for i, a in enumerate(fulls) for b in fulls[i + 1:])
+    dots = [r for remat, r in runs if remat == "dots"]
+    verdict = {"full_runs": len(fulls), "dots_runs": len(dots),
+               "full_runs_differ_at": noisy, "full_losses_differ": loss_noisy,
+               "dots_bit_equal": all(not r["apart"] and torch.equal(r["loss"], ref["loss"])
+                                     for r in dots)}
+    for r in dots:
+        if not loss_noisy and not torch.equal(r["loss"], ref["loss"]):
+            raise AssertionError(f"{cfg.name}: the loss under remat dots {float(r['loss'])!r} "
+                                 f"!= full {float(ref['loss'])!r}")
+        for n, d in r["apart"].items():
+            if n not in noisy:
+                raise AssertionError(f"{cfg.name}: gradient leaf {n} under remat dots differs "
+                                     f"from full by {d:.3g}, where every full run agrees to "
+                                     "the bit")
+            near = min(float((r["leaves"][n].float() - leaf(f, n).float()).abs().max())
+                       for f in fulls)
+            if near > noisy[n]:
+                raise AssertionError(f"{cfg.name}: gradient leaf {n} under remat dots lies "
+                                     f"{near:.3g} from the nearest full run, the full runs "
+                                     f"{noisy[n]:.3g} apart")
+    for remat in also:
+        r = one(remat)
+        verdict[f"{remat}_leaves_apart"] = len(r["apart"])
+        verdict[f"{remat}_farthest"] = max(r["apart"].values(), default=0.0)
+        verdict[f"{remat}_loss_bit_equal"] = bool(torch.equal(r["loss"], ref["loss"]))
+    for _, r in runs:
+        r.pop("leaves", None)
+    if n_moe:
+        verdict["moe_replay_changed"] = [r["experts"]["changed"] for _, r in runs[1:]]
+    return verdict
+
+
+def dots_saved_bytes(cfg, tokens):
+    """Bytes of the products with no batch dimension that remat "dots" keeps
+    for `tokens` tokens over every layer of a dense LM of `cfg` in its
+    compute dtype (q, k, v and o, and the MLP's gate, up and down), and of
+    those the reference's policy does not keep: the down projections, each
+    of which ends its rematted layer and feeds only the residual add."""
+    from repro_torch.device import dtype_of
+    width = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim + 2 * cfg.d_model \
+        + 2 * cfg.d_ff
+    per_width = tokens * cfg.num_layers * dtype_of(cfg.compute_dtype).itemsize
+    return per_width * width, per_width * cfg.d_model
+
+
+def micro_batch_memory(run, params, micro, remat):
+    """One micro-batch's V-trace loss and gradients under `remat`: the
+    memory its forward leaves allocated (what the backward will read, and
+    the loss's tensors) and its peak over forward and backward, both in
+    bytes above the start, and its launches (``remat_step``'s "counts" and
+    "routes")."""
+    from repro_torch.configs.registry import make_model
+    from repro_torch.core.losses import make_vtrace_loss, param_grads
+    from repro_torch.kernels import ops
+
+    loss_fn = make_vtrace_loss(make_model(run.cfg.with_(remat=remat)))
+    named = dict(params.named_parameters())
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    loss, _ = loss_fn(params, micro)
+    held = torch.cuda.memory_allocated() - start
+    grads = param_grads(loss, named)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - start
+    del grads, loss
+    return held, peak, {"counts": ops.launch_counts(), "routes": launch_routes()}
+
+
+def remat_dots_phase(run, state):
+    """remat "dots" (``models.common.dots_with_no_batch_dims_saveable``, the
+    reference's ``dots_with_no_batch_dims_saveable``) against "full" on the
+    card, through ``make_train_step`` (``remat_compare``): qwen3-14b at its
+    production train call on the bf16 train phase's `run` and `state` (4 of
+    40 layers, 16 x 256 in 4 micro-batches), "full" and "dots" alternated
+    REMAT_ROUNDS rounds, "none" once, then one profiled step under each:
+    the host wall ms, the peak memory (and above the step's start), device
+    busy and GEMM ms of each; then one step of each REMAT_DOTS model at a
+    few layers of full width, batch 4 x 256 in one micro-batch, "full",
+    "dots", "full". Every "dots" run equals "full" to the bit (or, where
+    "full" runs already differ, as ``remat_compare`` holds it) and
+    launches as ``expected_train_launches`` says: the forward kernels
+    twice a micro-batch, as under "full". Returns (every run's launches
+    summed, ``add_launches``; the metrics)."""
+    from repro_torch.launch import train
+
+    t_start = time.perf_counter()
+    cfg = run.cfg
+    b = BF16_TRAIN[cfg.name]["batch"]
+    mbs = b // max(1, cfg.grad_accum)
+    saved, beyond = (x / 1e9 for x in dots_saved_bytes(cfg, TRAIN["seq"] * mbs))
+    log(f"== remat dots: {cfg.name} at its production train call ({cfg.num_layers} layers, "
+        f"{b} x {TRAIN['seq']} in {cfg.grad_accum} micro-batches; the step less AdamW), 'full' "
+        f"and 'dots' alternated {REMAT_ROUNDS} rounds, then 'none'. Predicted: 'dots' keeps "
+        f"{saved:.3f} GB of products a micro-batch that 'full' recomputes ({beyond:.3f} GB of "
+        "them the down projections, which the reference's policy does not keep), so a "
+        "micro-batch's forward leaves that much more allocated; 'none' more than both")
+    batch = run.batch_at(0)
+    runs, launches = [], {}
+    verdict = {cfg.name: remat_compare(run, state, batch, REMAT_ROUNDS, runs, also=("none",))}
+    for remat in ("none", "full", "dots"):
+        runs.append((remat, remat_step(run, state, batch, remat, profiled=True)))
+        runs[-1][1].pop("grads")
+        if runs[-1][1]["counts"] != expected_train_launches(cfg.with_(remat=remat), 1):
+            raise AssertionError(f"launches under remat {remat}: {runs[-1][1]['counts']}")
+    micro = {k: v[:mbs] for k, v in batch.items()}
+    memory = {}
+    for remat in ("none", "full", "dots"):
+        held, peak, r = micro_batch_memory(run, state["params"], micro, remat)
+        memory[remat] = {"forward_held_gb": held / 1e9, "peak_gb": peak / 1e9}
+        want = expected_train_launches(cfg.with_(remat=remat, grad_accum=1), 1)
+        if r["counts"] != want:
+            raise AssertionError(f"a micro-batch under remat {remat}: launches {r['counts']} "
+                                 f"!= expected {want}")
+        check_routes(cfg, torch.bfloat16, want, *r["routes"])
+        add_launches(launches, r)
+    by = {}
+    for remat, r in runs:
+        add_launches(launches, r)
+        m = by.setdefault(remat, {"wall_ms": [], "peak_gb": [], "peak_over_start_gb": []})
+        if "device_ms" in r:
+            m["busy_ms"], m["gemm_ms"] = r["device_ms"]["busy"], r["device_ms"]["gemm"]
+            m["kernels_ms"] = {g: r["device_ms"][g] for g in ("K1", "K1-bwd")}
+            m["device_ops"], m["profiled_wall_ms"] = r["device_ops"], r["wall_ms"]
+        else:
+            m["wall_ms"].append(r["wall_ms"])
+            m["peak_gb"].append(r["peak_gb"])
+            m["peak_over_start_gb"].append(r["peak_over_start_gb"])
+    for remat, m in by.items():
+        log(f"   remat {remat}: wall (host clock, synchronised) "
+            f"{', '.join(f'{x:.2f}' for x in m['wall_ms'])} ms; peak "
+            f"{', '.join(f'{x:.3f}' for x in m['peak_gb'])} GB "
+            f"({', '.join(f'{x:.3f}' for x in m['peak_over_start_gb'])} above the step's "
+            f"start); profiled step: device busy {m['busy_ms']:.2f} ms, GEMMs "
+            f"{m['gemm_ms']:.2f} ms, K1 {m['kernels_ms']['K1']:.2f}, K1-bwd "
+            f"{m['kernels_ms']['K1-bwd']:.2f} ms, {m['device_ops']:.0f} device operations")
+    for remat, m in memory.items():
+        by[remat].update(micro_batch=m)
+        log(f"   remat {remat}, one micro-batch ({mbs} x {TRAIN['seq']}): its forward leaves "
+            f"{m['forward_held_gb']:.3f} GB allocated, its forward and backward peak "
+            f"{m['peak_gb']:.3f} GB above the start")
+    dots_over_full = {k: memory["dots"][k] - memory["full"][k] for k in memory["full"]}
+    log(f"   {cfg.name}: {verdict[cfg.name]}; 'dots' against 'full' a micro-batch: the "
+        f"forward's memory {dots_over_full['forward_held_gb']:+.3f} GB (predicted "
+        f"+{saved:.3f}), the peak {dots_over_full['peak_gb']:+.3f} GB; launches of the "
+        f"{len(runs) + len(memory)} runs { {k: v for k, v in launches.items() if v} }")
+    out = {cfg.name: {"by_remat": by, "verdict": verdict[cfg.name],
+                      "predicted_saved_gb": saved, "predicted_beyond_reference_gb": beyond,
+                      "dots_over_full_gb": dots_over_full}}
+    del runs, batch
+    for arch, over in REMAT_DOTS.items():
+        t0 = time.perf_counter()
+        one = train.setup(arch, batch=TRAIN["batch"], seq=TRAIN["seq"], steps=1, device="cuda",
+                          grad_accum=1, **PRODUCTION, **over)
+        params = one.bundle.init(one.seed, device=one.device).requires_grad_(True)
+        if one.cfg.tie_embeddings:
+            live_table(params, one.cfg)
+        runs = []
+        verdict[arch] = remat_compare(one, {"params": params, "opt_state": None, "step": 0},
+                                      one.batch_at(0), 1, runs)
+        for _, r in runs:
+            add_launches(launches, r)
+        last = dict(runs)   # the last run of each: the first warms the model's calls
+        log(f"   {one.cfg.name} at {over}: {verdict[arch]}; launches a step "
+            f"{ {k: v for k, v in last['dots']['counts'].items() if v} }; wall "
+            f"{last['full']['wall_ms']:.2f} ms full (the second run), {last['dots']['wall_ms']:.2f} "
+            f"ms dots; peak above the start {last['full']['peak_over_start_gb']:.3f} GB full, "
+            f"{last['dots']['peak_over_start_gb']:.3f} GB dots; {time.perf_counter() - t0:.1f} s")
+        out[arch] = {"verdict": verdict[arch], "layers": one.cfg.num_layers,
+                     "wall_ms": {k: last[k]["wall_ms"] for k in ("full", "dots")},
+                     "peak_over_start_gb": {k: last[k]["peak_over_start_gb"]
+                                            for k in ("full", "dots")}}
+        del params, runs, last, one
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"   remat dots: {out['seconds']:.1f} s")
+    return launches, out
 
 
 def bf16_smoke_train_phase():
@@ -5922,11 +6286,20 @@ def main():
     for arch in TRAIN_ARCHS:
         counts, train_metrics[arch] = timed(f"train {arch}", train_phase, arch)
         add(counts)
-    # training at the reference's production dtypes
+    # training at the reference's production dtypes; qwen3-14b's params and
+    # moments then go on to remat "dots" against "full"
+    remat_metrics = None
     for arch in BF16_TRAIN:
-        counts, train_metrics[f"{arch} bf16"] = timed(f"train {arch} bf16", train_phase, arch,
-                                                      production=True)
+        keep = arch == "qwen3-14b"
+        counts, train_metrics[f"{arch} bf16"], *kept = timed(
+            f"train {arch} bf16", train_phase, arch, production=True, keep=keep)
         add(counts)
+        if keep:
+            counts, remat_metrics = timed("remat dots", remat_dots_phase, *kept[0])
+            add(counts)
+            del kept
+            gc.collect()
+            torch.cuda.empty_cache()
     # and the smoke configs (head_dim 16) at those dtypes: K1-bwd's 3xTF32
     # kernels on bf16
     counts, train_metrics["smoke configs bf16"] = timed("train smoke configs bf16",
@@ -5977,6 +6350,7 @@ def main():
         log(f"train parity {arch}: {json.dumps(metrics)}")
     for arch, metrics in train_metrics.items():
         log(f"train {arch}: {json.dumps(metrics)}")
+    log(f"remat dots: {json.dumps(remat_metrics)}")
     log(f"r2d2: {json.dumps(r2d2_metrics)}")
     log(f"vtrace: {json.dumps(vtrace_metrics)}")
     log(f"device backend: {json.dumps(device_metrics)}")

@@ -6,6 +6,7 @@ from typing import Any, Callable, Optional
 
 import torch
 import torch.utils.checkpoint
+from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
 from torch import nn
 
 from repro_torch.nn import init as inits
@@ -44,24 +45,62 @@ class FrontendProj(nn.Module):
             "w", (cfg.frontend_dim, cfg.d_model), (None, "embed"), inits.fan_in())
 
 
+# Products that JAX calls a ``dot_general`` with no batch dimensions.
+_BATCH_FREE = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+               torch.ops.aten.mv.default, torch.ops.aten.dot.default)
+
+
+def dots_with_no_batch_dims_saveable(ctx, op, *args, **kwargs):
+    """The port's counterpart of ``jax.checkpoint_policies.
+    dots_with_no_batch_dims_saveable``, as a policy of
+    ``torch.utils.checkpoint.create_selective_checkpoint_contexts``.
+
+    Saved (``MUST_SAVE``): the outputs of the products with no batch
+    dimension, ``aten.mm``, ``aten.addmm``, ``aten.mv`` and ``aten.dot``;
+    ``x @ w`` on (..., D) activations and a (D, F) weight folds to ``mm``
+    (``torch.matmul`` would take a ``bmm`` on an expanded weight only for
+    activations it could not fold without a copy, which no layer of the
+    port passes). Recomputed (``PREFER_RECOMPUTE``): every other op,
+    batched products (``bmm``, ``baddbmm``: the experts' stacked GEMMs,
+    attention's plain version) and every elementwise op and allocation. The
+    kernels are ``ctypes`` calls that the policy never sees: their autograd
+    Functions' forwards re-run in the recompute, as under "full".
+
+    Against the reference's saved set (``saved_residuals`` of the JAX
+    package's layers, less what "full" saves): this one contains it. JAX
+    keeps a product only where the backward of its rematted unit reads it;
+    this policy also keeps each unit's last product (an MLP's down
+    projection, Mamba2's out projection), which only the residual add that
+    ends the unit reads. ``tests/test_torch_remat.py`` lists the extras per
+    family. The router's product is saved, so the recompute's expert
+    choices are the forward's by construction."""
+    if op in _BATCH_FREE:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(dots_with_no_batch_dims_saveable)
+
+
 def maybe_remat(fn, remat: str):
     """`fn` (one layer) under the config's remat policy, as the reference's
     ``maybe_remat``: "none" keeps every activation; "full" saves only the
-    layer's inputs and recomputes the rest in the backward
-    (``torch.utils.checkpoint``, non-reentrant), when grad mode is on.
+    layer's inputs and recomputes the rest in the backward; "dots" also
+    saves the products with no batch dimension
+    (``dots_with_no_batch_dims_saveable``) and recomputes the rest. Both
+    run ``torch.utils.checkpoint`` (non-reentrant) when grad mode is on.
     The models apply it in train mode (``forward``) only."""
     if remat == "none":
         return fn
-    if remat == "dots":
-        raise NotImplementedError("remat='dots' (save only the matmuls' outputs) is not "
-                                  "ported: no config uses it")
-    if remat != "full":
+    if remat not in ("full", "dots"):
         raise ValueError(f"unknown remat policy {remat!r}")
+    extra = {"context_fn": _dots_context} if remat == "dots" else {}
 
     def run(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False, **extra)
     return run
 
 

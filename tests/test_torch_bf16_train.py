@@ -14,7 +14,8 @@ archs at ``grad_accum=2``, the same params in both packages (the port's
 init in bf16, an MoE's router and router bias fp32 in both, laid out in
 the JAX tree by ``test_torch_train``'s ``_params``), the batch JAX drew
 (seamless's frames and internvl2's patch embeddings from
-``test_torch_train``'s ``_frontend``). The JAX side runs its plain paths
+``test_torch_train``'s ``_frontend``); and qwen3-14b once more under
+remat "dots" in both packages (``DOTS``). The JAX side runs its plain paths
 (``attend_ref``, ``ssd_chunked``, the RG-LRU's associative scan) under
 ``jax.checkpoint``; the port's CPU path is its kernels' plain versions
 under ``torch.utils.checkpoint``. On the card the same step runs K1 and
@@ -125,12 +126,19 @@ ARCHS = {"qwen3-14b": dict(grad_accum=2), "mamba2-2.7b": {}, "recurrentgemma-2b"
          "deepseek-v3-671b": dict(grad_accum=2)}
 
 
-@pytest.fixture(scope="module", params=list(ARCHS))
+# qwen3-14b's step under remat "dots" (the selective checkpoint) in place of
+# production_config's "full", in both packages
+DOTS = "qwen3-14b/dots"
+
+
+@pytest.fixture(scope="module", params=list(ARCHS) + [DOTS])
 def setup(request):
-    """Both packages' bundles at the production dtypes, the same params and
-    the batch JAX drew."""
-    arch = request.param
+    """Both packages' bundles at the production dtypes (DOTS: remat "dots"),
+    the same params and the batch JAX drew."""
+    arch, _, remat = request.param.partition("/")
     over = dict(PRODUCTION, optimizer_dtype=jget_config(arch).optimizer_dtype, **ARCHS[arch])
+    if remat:
+        over["remat"] = remat
     jcfg, cfg = jsmoke_config(arch).with_(**over), smoke_config(arch).with_(**over)
     assert cfg == cfg.with_(**{f: getattr(jcfg, f) for f in jcfg.__dataclass_fields__})
     jbundle, bundle = jmake_model(jcfg), make_model(cfg)

@@ -997,6 +997,36 @@ def test_train_step_on_card_matches_cpu(cuda):
         torch.testing.assert_close(p.cpu(), want[name], atol=lr * 1e-2, rtol=0)
 
 
+@pytest.mark.parametrize("arch", ["qwen3-14b", "mamba2-2.7b"])
+def test_remat_dots_step_on_card_bit_equal_to_full(cuda, arch):
+    """One V-trace step of the smoke config in bf16 params and compute
+    through its kernels (K1 and K1-bwd, or K3 and K3-bwd) under remat "dots"
+    (the selective checkpoint): the loss and every gradient leaf equal to
+    the bit to "full"'s, each forward kernel launched twice a layer under
+    both (the recompute runs it again) and each backward kernel once."""
+    from repro_torch.core.losses import make_vtrace_loss, param_grads
+    from repro_torch.envs.tokenworld import synthetic_vtrace_batch
+    cfg = smoke_config(arch).with_(param_dtype="bfloat16", compute_dtype="bfloat16")
+    batch = synthetic_vtrace_batch(torch.Generator().manual_seed(3), 2, 48, cfg.vocab_size)
+    batch = {k: t.to(cuda) for k, t in batch.items()}
+    fwd, bwd = (("flash_attention", "flash_attention_bwd") if arch == "qwen3-14b"
+                else ("ssd_scan", "ssd_scan_bwd"))
+    out = {}
+    for remat in ("full", "dots"):
+        bundle = make_model(cfg.with_(remat=remat))
+        params = bundle.init(0, device=cuda).requires_grad_(True)
+        ops.reset_launch_counts()
+        loss, _ = make_vtrace_loss(bundle)(params, batch)
+        grads = param_grads(loss, dict(params.named_parameters()))
+        counts = ops.launch_counts()
+        assert (counts[fwd], counts[bwd]) == (2 * cfg.num_layers, cfg.num_layers), counts
+        out[remat] = loss.detach(), grads
+    assert torch.equal(out["dots"][0], out["full"][0])
+    assert out["dots"][1].keys() == out["full"][1].keys()
+    for name, g in out["dots"][1].items():
+        assert g.dtype == torch.bfloat16 and torch.equal(g, out["full"][1][name]), name
+
+
 def _host_loop(env, policy, lanes, steps, seed):
     """The device engine's streams stepped one call at a time: the env's
     generator seeded `seed`, the action generator `action_generator(seed)`."""

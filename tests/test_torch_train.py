@@ -371,10 +371,13 @@ def test_grad_accum_matches_jax_scan():
         _close(metrics[k], jm[k], 1e-4)
 
 
+@pytest.mark.parametrize("remat", ("full", "dots"))
 @pytest.mark.parametrize("arch", ARCHS)
-def test_remat_full_matches_none(arch):
-    """Per-layer activation checkpointing recomputes the same layers: loss
-    and every gradient agree with remat "none" to rounding (1e-6)."""
+def test_remat_full_matches_none(arch, remat):
+    """Per-layer activation checkpointing recomputes the same layers, all of
+    each layer ("full") or all but its products with no batch dimension
+    ("dots"): loss and every gradient agree with remat "none" to rounding
+    (1e-6)."""
     cfg = smoke_config(arch)
     gen = torch.Generator().manual_seed(4)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, 24), generator=gen),
@@ -386,20 +389,17 @@ def test_remat_full_matches_none(arch):
     if field is not None:
         batch["frontend"] = torch.from_numpy(field)
     out = {}
-    for remat in ("none", "full"):
-        bundle = make_model(cfg.with_(remat=remat))
+    for policy in ("none", remat):
+        bundle = make_model(cfg.with_(remat=policy))
         params = bundle.init(0, device="cpu").requires_grad_(True)
         with torch.no_grad():
             params.embed.table.mul_(0.1)      # see _jparams
         loss, _ = losses.make_vtrace_loss(bundle)(params, batch)
-        out[remat] = (loss, list(losses.param_grads(loss, dict(params.named_parameters()))
+        out[policy] = (loss, list(losses.param_grads(loss, dict(params.named_parameters()))
                                  .values()))
-    _close(out["full"][0], _np(out["none"][0]), 1e-6)
-    for g, w in zip(out["full"][1], out["none"][1]):
+    _close(out[remat][0], _np(out["none"][0]), 1e-6)
+    for g, w in zip(out[remat][1], out["none"][1]):
         _close_leaf(g, _np(w), 1e-6)
-    with pytest.raises(NotImplementedError, match="dots"):
-        make_model(cfg.with_(remat="dots")).forward(
-            make_model(cfg).init(0, device="cpu").requires_grad_(True), batch)
 
 
 def test_token_logprobs_entropy_matches_jax():
